@@ -1,0 +1,371 @@
+"""Chip smoke test of the PyTorch/CUDA port (``citlab_as_tpu_torch``).
+
+Run from the repository root on a machine with one CUDA card (H100):
+
+    python3 chip_smoke.py
+
+Phases, each fatal on failure (the script exits nonzero and prints no
+result):
+
+1. device: card name, ``nvidia-smi`` name and power limit, torch and CUDA
+   versions;
+2. build: every kernel of the separator path, from ``csrc/*.cu`` with nvcc;
+3. kernels: K1 (conv3x3) and K2 (separator morphology) against their plain
+   PyTorch versions at the main path's shapes, then timed with CUDA events
+   beside the plain version and, for K1, one cuDNN ``F.conv2d`` call;
+4. main path: 8 synthetic 2000 x 1420 pages through
+   ``SeparatorNetPostProcessor(..., fixed_height=1500).run_batched(4)`` in
+   bf16 with the converted separator weights; the kernels' launch counts
+   (reset just before the run), mask agreement with the same run through
+   the plain versions, column-rule recall, pages/s and a phase split.
+
+The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+PEAK_BYTES_PER_S = 3.35e12                 # H100 SXM HBM3
+PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}   # tensor-core bf16, CUDA-core f32
+K1_PAIRS = [(8, 8), (8, 16), (16, 16), (16, 32), (32, 32), (16, 8), (32, 16), (64, 32)]
+K1_SHAPE = (4, 1536, 1088)
+K2_SHAPE = (4, 1500, 1065)                  # 2000 x 1420 pages at height 1500
+K2_KERNELS = (15, 30, 10)
+K2_WIDE_W = 3200                            # h_k + noise_k = 48 + 32 >= 64
+PAGE_SHAPE = (2000, 1420)
+N_PAGES, BATCH, FIXED_HEIGHT, THRESHOLD = 8, 4, 1500, 0.05
+
+
+def synthetic_pages(n, h, w, seed):
+    """Newspaper-like uint8 pages [h, w] in the style the separator net was
+    trained on (``train/synthetic_data.py`` of the JAX package): light
+    paper with scan noise, text-line bands of blobby words, a dark vertical
+    column rule, two horizontal rules, 1% speckle. Returns (pages,
+    column-rule boolean masks)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    pages, rules = [], []
+    for _ in range(n):
+        rule_w = rng.randint(3, 6)
+        spacing = rng.randint(20, 31)
+        col = rng.randint(int(0.4 * w), int(0.6 * w))
+        v_sep = (np.abs(xx - col) < rule_w) & (yy >= h // 10) & (yy < h - h // 10)
+        h_sep = np.zeros((h, w), bool)
+        for y in (rng.randint(h // 5, h // 3), rng.randint(h // 2, 3 * h // 4)):
+            h_sep |= ((np.abs(yy - y) < max(1, rule_w - 1)) & (xx >= 10)
+                      & (xx < col - rule_w - 5))
+        sep = v_sep | h_sep
+        band = (yy % spacing) < (spacing * 3) // 5
+        low = rng.rand(-(-h // 6), -(-w // 6))
+        words = np.kron(low, np.ones((6, 6)))[:h, :w] > 0.45
+        margin = ((xx > 8) & (xx < w - 8) & (yy > 8) & (yy < h - 8)
+                  & (np.abs(xx - col) > rule_w + 3))
+        img = np.ones((h, w))
+        img[band & words & margin & ~sep] = 0.25
+        img[sep] = 0.15
+        img -= np.kron(rng.rand(-(-h // 2), -(-w // 2)), np.ones((2, 2)))[:h, :w] * 0.08
+        page = (img * 255).clip(0, 255).astype(np.uint8)
+        speckle = rng.rand(h, w) < 0.01
+        page[speckle] = rng.randint(0, 256, int(speckle.sum()))
+        pages.append(page)
+        rules.append(v_sep)
+    return pages, rules
+
+
+class Fail(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise Fail(msg)
+
+
+def cuda_ms(fn, iters=10, warmup=2):
+    """Mean milliseconds per call, CUDA events around ``iters`` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(bytes_moved, ops, kind):
+    """(least ms, 'bytes' or 'operations') on an H100 SXM at full power."""
+    t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_device():
+    import torch
+    check(torch.cuda.is_available(), "no CUDA device")
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr}")
+    smi_line = smi.stdout.strip().splitlines()[0]
+    print(f"device: {name} | torch {torch.__version__} | CUDA {torch.version.cuda} "
+          f"| count {torch.cuda.device_count()}")
+    print(smi_line)
+    return name, smi_line
+
+
+def phase_build():
+    from citlab_as_tpu_torch.ops.kernels import build
+    t0 = time.perf_counter()
+    build.build_all()
+    secs = time.perf_counter() - t0
+    print(f"build: {secs:.2f} s for {', '.join(build.KERNEL_SOURCES)}")
+    for name, log in build.build_logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  ptxas {name}: {line.strip()}")
+    return secs
+
+
+def phase_k1(dev):
+    import torch
+    import torch.nn.functional as F
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    b, h, w = K1_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(0)
+    worst_f32, worst_bf16 = 0.0, 0.0
+    rows = []
+    for cin, cout in K1_PAIRS:
+        x = torch.randn((b, h, w, cin), device=dev, generator=gen)
+        wt = torch.randn((cout, cin, 3, 3), device=dev, generator=gen) * (
+            2.0 / (9 * cin + cout)) ** 0.5
+        bias = torch.full((cout,), 0.1, device=dev)
+        got = k1.conv3x3(x, wt, bias, relu=True)
+        want = k1.conv3x3_plain(x, wt, bias, relu=True)
+        torch.cuda.synchronize()
+        err = (got - want).abs().max().item()
+        check(err <= 1e-4, f"K1 f32 {cin}->{cout}: max abs err {err}")
+        worst_f32 = max(worst_f32, err)
+        xb, wb, bb = x.bfloat16(), wt.bfloat16(), bias.bfloat16()
+        got = k1.conv3x3(xb, wb, bb, relu=True).float()
+        want = k1.conv3x3_plain(xb, wb, bb, relu=True).float()
+        torch.cuda.synchronize()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        check(rel <= 2e-2, f"K1 bf16 {cin}->{cout}: error {rel} of the output scale")
+        worst_bf16 = max(worst_bf16, rel)
+        # timed at the main path's dtype (bf16), without ReLU, so that the
+        # one library call (conv2d with bias) computes the same function
+        xn = xb.permute(0, 3, 1, 2)
+        ms = cuda_ms(lambda: k1.conv3x3(xb, wb, bb))
+        plain_ms = cuda_ms(lambda: k1.conv3x3_plain(xb, wb, bb))
+        library_ms = cuda_ms(lambda: F.conv2d(xn, wb, bb, padding=1))
+        pix = b * h * w
+        t_bound, by = bound(2 * (pix * (cin + cout) + wb.numel() + cout),
+                            2 * 9 * cin * cout * pix, "bf16")
+        rows.append({"cin": cin, "cout": cout, "ms": ms, "plain_ms": plain_ms,
+                     "library_ms": library_ms, "bound_ms": t_bound,
+                     "bound_by": by, "f32_max_abs_err": err, "bf16_rel_err": rel})
+        del x, xb, xn, got, want
+    torch.cuda.empty_cache()
+    print("K1 detail: " + json.dumps({"shape": list(K1_SHAPE), "dtype": "bf16",
+                                      "pairs": rows}))
+    print(f"K1 ok: f32 max abs err {worst_f32:.3g} (<= 1e-4), bf16 max err "
+          f"{worst_bf16:.3g} of output scale (<= 2e-2)")
+    total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms",
+                                                   "bound_ms")}
+    return dict(total, max_abs_err=worst_f32,
+                bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows)
+                else "operations")
+
+
+def k2_input(b, h, w, seed, dev):
+    import torch
+    pages, _ = synthetic_pages(b, h, w, seed)
+    binary = np.stack([np.where(p < 128, 255, 0) for p in pages]).astype(np.uint8)
+    return torch.from_numpy(binary).to(dev)
+
+
+def phase_k2(dev):
+    import torch
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.stages.separator import separator_kernel_sizes
+    b, h, w = K2_SHAPE
+    x = k2_input(b, h, w, 1, dev)
+    worst = 0
+    wide_kernels = separator_kernel_sizes(h, K2_WIDE_W)
+    check(wide_kernels[0] + wide_kernels[2] >= 64, "K2 wide case is not wide")
+    for img, kernels in ((x, K2_KERNELS),
+                         (k2_input(2, h, K2_WIDE_W, 2, dev), wide_kernels)):
+        for dtype in (torch.uint8, torch.float32):
+            inp = img.to(dtype)
+            got = k2.separator_morphology(inp, *kernels)
+            want = k2.separator_morphology_plain(inp, *kernels)
+            torch.cuda.synchronize()
+            for g, wnt, what in zip(got, want, ("horizontal", "vertical")):
+                diff = (g.float() - wnt.float()).abs().max().item()
+                check(diff == 0, f"K2 {dtype} {tuple(img.shape)} {kernels}: "
+                                 f"{what} differs (max {diff})")
+                worst = max(worst, diff)
+    print(f"K2 ok: bit-exact at {tuple(x.shape)} {K2_KERNELS} and at width "
+          f"{K2_WIDE_W} {wide_kernels}, uint8 and f32")
+    ms = cuda_ms(lambda: k2.separator_morphology(x, *K2_KERNELS), iters=20)
+    plain_ms = cuda_ms(lambda: k2.separator_morphology_plain(x, *K2_KERNELS))
+    n = b * h * w
+    # one byte read per pixel, two written; ~4 compares per pixel and pass
+    t_bound, by = bound(3 * n, 4 * 4 * n, "bf16")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": t_bound,
+            "bound_by": by, "max_abs_err": worst}
+
+
+def unpack(packed, width):
+    return np.unpackbits(packed, axis=-1, count=width).astype(bool)
+
+
+def phase_main_path(dev):
+    import torch
+    from citlab_as_tpu_torch.inference import SegmentationPredictor
+    from citlab_as_tpu_torch.models import arunet
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.stages import separator as sep
+
+    n_pages, batch = N_PAGES, BATCH
+    pages, rules = synthetic_pages(n_pages, *PAGE_SHAPE, seed=7)
+    pred = SegmentationPredictor(
+        os.path.join(REPO, "models_ckpt_torch", "separator.npz"),
+        dtype=torch.bfloat16, device=dev)
+    # warm-up: first-call costs (cuBLAS/cuDNN handles, allocator) off the clock
+    sep.SeparatorNetPostProcessor(pages[:batch], pred, fixed_height=FIXED_HEIGHT,
+                                  threshold=THRESHOLD).run_batched(batch_size=batch)
+    torch.cuda.synchronize()
+
+    proc = sep.SeparatorNetPostProcessor(pages, pred, fixed_height=FIXED_HEIGHT,
+                                         threshold=THRESHOLD)
+    k1.launches = 0
+    k2.launches = 0
+    t0 = time.perf_counter()
+    polygons = proc.run_batched(batch_size=batch)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+    groups = -(-n_pages // batch)
+    print(f"main path: {n_pages} pages in {secs:.3f} s = {n_pages / secs:.3f} pages/s; "
+          f"launches {launches}")
+    check(launches["conv3x3"] == 69 * groups,
+          f"K1 launched {launches['conv3x3']} times, want 69 x {groups} forwards")
+    check(launches["separator_morphology"] == groups,
+          f"K2 launched {launches['separator_morphology']} times, want {groups}")
+    check(all(p is not None for p in polygons), "a page produced no result")
+    check(all(p["SeparatorRegion_vertical"] for p in polygons),
+          "a page has no vertical separator polygon")
+
+    phase = {}
+    sep.SeparatorNetPostProcessor(pages, pred, fixed_height=FIXED_HEIGHT,
+                                  threshold=THRESHOLD).run_batched(batch, phase=phase)
+    print("phases (s, device-synced): " + json.dumps(phase))
+
+    # the same groups through the chain with the kernels, then with the
+    # plain versions substituted, for the mask comparison
+    fused = sep.make_fused_separator_fn(pred.model)
+    h0, w0 = pages[0].shape
+    sc = FIXED_HEIGHT / h0
+    out_h, out_w = int(h0 * sc), int(w0 * sc)
+    kernels = sep.separator_kernel_sizes(out_h, out_w)
+
+    def run_chain():
+        outs = []
+        for g in range(groups):
+            x = torch.from_numpy(np.stack(pages[g * batch:(g + 1) * batch])).to(dev)
+            outs.append(fused(x, out_h, out_w, *kernels, threshold=THRESHOLD).cpu().numpy())
+        return np.concatenate(outs, axis=1)            # [2, n_pages, H, W/8]
+
+    t0 = time.perf_counter()
+    with_kernels = run_chain()
+    chain_s = time.perf_counter() - t0
+    saved = (arunet.conv3x3, sep.separator_morphology)
+    arunet.conv3x3, sep.separator_morphology = (k1.conv3x3_plain,
+                                                k2.separator_morphology_plain)
+    try:
+        t0 = time.perf_counter()
+        plain = run_chain()
+        plain_chain_s = time.perf_counter() - t0
+    finally:
+        arunet.conv3x3, sep.separator_morphology = saved
+    agree = float((unpack(with_kernels, out_w) == unpack(plain, out_w)).mean())
+    print(f"chain: kernels {chain_s:.3f} s, plain versions {plain_chain_s:.3f} s; "
+          f"masks agree on {agree:.6f} of pixels")
+    check(agree >= 0.999, f"masks agree on only {agree} of pixels (< 0.999)")
+
+    # recall of the column rule: resized rule pixels whose whole footprint
+    # lies inside the drawn rule, read from the vertical mask
+    recalls = []
+    for i, rule in enumerate(rules):
+        ys, xs = np.nonzero(rule)
+        y0, y1 = int(np.ceil(ys.min() * sc)), int(np.floor((ys.max() + 1) * sc))
+        x0, x1 = int(np.ceil(xs.min() * sc)), int(np.floor((xs.max() + 1) * sc))
+        vmask = unpack(with_kernels[1, i], out_w)
+        recalls.append(float(vmask[y0:y1, x0:x1].mean()))
+    print("column-rule recall per page: " + json.dumps(recalls))
+    check(min(recalls) >= 0.99, f"column-rule recall {min(recalls)} < 0.99")
+    return {"pages_per_s": n_pages / secs, "seconds": secs, "phase": phase,
+            "launches": launches, "agree": agree, "recall": min(recalls)}
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: torch is not installed", file=sys.stderr)
+        return 1
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, REPO)
+    try:
+        import citlab_as_tpu_torch  # noqa: F401
+    except ImportError as e:
+        print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
+        return 1
+    from citlab_as_tpu_torch.device import resolve_device
+    try:
+        dev = resolve_device("cuda")
+        name, smi_line = phase_device()
+        phase_build()
+        k1_row = phase_k1(dev)
+        k2_row = phase_k2(dev)
+        main_row = phase_main_path(dev)
+    except Fail as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+    kernels = [
+        dict(name="conv3x3", route="cuda", source="citlab_as_tpu_torch/csrc/conv3x3.cu",
+             replaces="citlab_as_tpu/ops/pallas/conv3x3.py:110",
+             launches=main_row["launches"]["conv3x3"], **k1_row),
+        dict(name="separator_morphology", route="cuda",
+             source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
+             replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
+             launches=main_row["launches"]["separator_morphology"], **k2_row),
+    ]
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(smi_line)
+    print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

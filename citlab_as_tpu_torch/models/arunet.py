@@ -1,0 +1,309 @@
+"""ARU-Net in PyTorch (port of ``citlab_as_tpu/models/arunet.py``).
+
+Same architecture, same parameter tree (module names mirror the flax
+scopes, see ``weights.arunet_state_dict_from_flax``), NHWC activations at
+every public function, as the JAX code has them:
+
+- detCNN: a residual U-Net, ``scale_space_num`` scales, 2x2 max pools
+  down, stride-2 transposed convs up with skip concats;
+- ARU: the shared detCNN also runs on 2x and 4x avg-pooled inputs, a
+  shared attention CNN scores each scale, a per-pixel softmax over the
+  scales weights the upsampled det maps;
+- logits: a final 4x4 conv.
+
+Border rules carried over from flax/XLA: SAME pads lo = (k-1)//2 (so the
+even 4x4 convs pad (1, 2)); SAME max pools pad -inf and SAME avg pools
+count the padded zeros; ``ConvTranspose(padding="SAME")`` does not flip
+its kernel and pads as ``lax.conv_transpose`` (the converted weights are
+stored flipped, ready for ``F.conv_transpose2d``); the all-ones transposed
+conv upsample (``_upsample_sum``) sums channels and repeats the sum.
+
+Every 3x3 conv with Cout in {8, 16, 32} and Cin >= 8 — where the JAX
+package routes to its Pallas kernel when ``USE_MXU_CONV`` is on — goes
+through K1 (``ops/kernels/conv3x3.py``); the rest are ``F.conv2d``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from citlab_as_tpu_torch.ops.kernels.conv3x3 import COUT_SUPPORTED, conv3x3
+
+DEFAULT_GRAPH_PARAMS: Dict[str, Any] = {
+    "graph": "ARU",          # U | RU | ARU
+    "mvn": False,             # per-image standardization of inputs
+    "featRoot": 8,
+    "num_scales_att": 3,
+    "scale_space_num": 5,
+    "res_depth": 3,
+    "filter_size": 3,
+    "pool_size": 2,
+    "activation_name": "relu",
+}
+
+_ACTIVATIONS = {"relu": F.relu, "elu": F.elu, "leaky": F.leaky_relu}
+
+
+def per_image_standardization(image: torch.Tensor) -> torch.Tensor:
+    """(x - mean) / adjusted_stddev per image of a batch [B, ...]."""
+    dims = tuple(range(1, image.dim()))
+    n = math.prod(image.shape[1:])
+    mean = image.mean(dim=dims, keepdim=True)
+    std = image.std(dim=dims, keepdim=True, unbiased=False)
+    adjusted = torch.clamp(std, min=1.0 / math.sqrt(n))
+    return (image - mean) / adjusted
+
+
+def _same_pads(k: int) -> Tuple[int, int]:
+    return (k - 1) // 2, k - 1 - (k - 1) // 2
+
+
+class _Conv(nn.Module):
+    """SAME conv + bias + activation (flax ``_Conv``). ``weight`` is OIHW."""
+
+    def __init__(self, cin: int, features: int, kernel: int,
+                 act: Optional[str]):
+        super().__init__()
+        self.kernel, self.act = kernel, act
+        self.weight = nn.Parameter(torch.empty(features, cin, kernel, kernel))
+        self.bias = nn.Parameter(torch.full((features,), 0.1))
+        self.use_k1 = kernel == 3 and features in COUT_SUPPORTED and cin >= 8
+        self.init_std = float(np.sqrt(2.0 / (kernel * kernel * cin + features)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.use_k1:
+            y = conv3x3(x, self.weight, self.bias, relu=self.act == "relu")
+            if self.act not in (None, "relu"):
+                y = _ACTIVATIONS[self.act](y)
+            return y
+        lo, hi = _same_pads(self.kernel)
+        y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (lo, hi, lo, hi)),
+                     self.weight, self.bias)
+        if self.act is not None:
+            y = _ACTIVATIONS[self.act](y)
+        return y.permute(0, 2, 3, 1)
+
+
+class _ResBlock(nn.Module):
+    """identity conv -> relu -> res_depth convs (last identity) -> +skip -> act."""
+
+    def __init__(self, cin: int, features: int, res_depth: int,
+                 filter_size: int, act: str):
+        super().__init__()
+        self.res_depth, self.act = res_depth, act
+        self.conv1 = _Conv(cin, features, filter_size, None)
+        for i in range(res_depth):
+            setattr(self, f"convR_{i}", _Conv(
+                features, features, filter_size,
+                act if i < res_depth - 1 else None))
+
+    def forward(self, x):
+        x = self.conv1(x)
+        orig = x
+        x = F.relu(x)
+        if self.res_depth == 0:
+            return x
+        for i in range(self.res_depth):
+            x = getattr(self, f"convR_{i}")(x)
+        return _ACTIVATIONS[self.act](x + orig)
+
+
+class _PlainBlock(nn.Module):
+    """Two plain convs (U variant)."""
+
+    def __init__(self, cin: int, features: int, filter_size: int, act: str):
+        super().__init__()
+        self.conv1 = _Conv(cin, features, filter_size, act)
+        self.conv2 = _Conv(features, features, filter_size, act)
+
+    def forward(self, x):
+        return self.conv2(self.conv1(x))
+
+
+class _Deconv(nn.Module):
+    """Stride-s transposed conv + bias + act, cropped to the skip's shape.
+
+    ``weight`` is [Cin, Cout, k, k] holding the flax HWIO kernel spatially
+    flipped: then ``F.conv_transpose2d`` with padding k-1-pad_a computes
+    ``lax.conv_transpose(padding="SAME")`` (zero insertion, pads
+    (pad_a, pad_b), correlation with the unflipped kernel) from its first
+    output onward."""
+
+    def __init__(self, cin: int, features: int, filter_size: int,
+                 stride: int, act: str):
+        super().__init__()
+        self.stride, self.act = stride, act
+        k, s = filter_size, stride
+        pad_a = k - 1 if s > k - 1 else int(np.ceil((k + s - 2) / 2))
+        self.padding = k - 1 - pad_a
+        self.weight = nn.Parameter(torch.empty(cin, features, k, k))
+        self.bias = nn.Parameter(torch.full((features,), 0.1))
+        self.init_std = float(np.sqrt(2.0 / (k * k * features + cin)))
+
+    def forward(self, x, target_hw):
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                               stride=self.stride, padding=self.padding)
+        y = y[:, :, :target_hw[0], :target_hw[1]]
+        return _ACTIVATIONS[self.act](y).permute(0, 2, 3, 1)
+
+
+def _same_pool_pads(n: int, k: int) -> Tuple[int, int]:
+    total = max((-(-n // k) - 1) * k + k - n, 0)
+    return total // 2, total - total // 2
+
+
+def _pool(x: torch.Tensor, k: int, pool, pad_value: float) -> torch.Tensor:
+    (t, b), (l, r) = (_same_pool_pads(x.shape[1], k),
+                      _same_pool_pads(x.shape[2], k))
+    y = F.pad(x.permute(0, 3, 1, 2), (l, r, t, b), value=pad_value)
+    return pool(y, k, k).permute(0, 2, 3, 1)
+
+
+def _max_pool(x, k: int):
+    """SAME max pool: padding never wins (-inf)."""
+    return _pool(x, k, F.max_pool2d, -math.inf)
+
+
+def _avg_pool(x, k: int):
+    """SAME avg pool counting padded zeros (flax ``count_include_pad``)."""
+    return _pool(x, k, F.avg_pool2d, 0.0)
+
+
+def _upsample_sum(x: torch.Tensor, up: int, out_hw: Tuple[int, int],
+                  out_channels: int) -> torch.Tensor:
+    """conv2d_transpose with an all-ones [up, up, C, C] filter: sum input
+    channels, repeat the sum up x up, crop to ``out_hw``, broadcast to
+    ``out_channels``."""
+    summed = torch.sum(x, dim=-1, keepdim=True)
+    y = summed.repeat_interleave(up, dim=1).repeat_interleave(up, dim=2)
+    y = y[:, :out_hw[0], :out_hw[1], :]
+    return y.expand(y.shape[:3] + (out_channels,))
+
+
+class _DetCNN(nn.Module):
+    """Residual U-Net; returns the featRoot-channel map."""
+
+    def __init__(self, gp: Dict[str, Any], cin: int = 1):
+        super().__init__()
+        self.n_scales, self.pool = gp["scale_space_num"], gp["pool_size"]
+        act, fs = gp["activation_name"], gp["filter_size"]
+        use_residual = "RU" in gp["graph"]
+
+        def block(cin_, feat_):
+            if use_residual:
+                return _ResBlock(cin_, feat_, gp["res_depth"], fs, act)
+            return _PlainBlock(cin_, feat_, fs, act)
+
+        feats, feat, ch = [], gp["featRoot"], cin
+        for layer in range(self.n_scales):
+            setattr(self, f"unet_down_{layer}", block(ch, feat))
+            feats.append(feat)
+            ch = feat
+            feat *= self.pool
+        for layer in range(self.n_scales - 2, -1, -1):
+            setattr(self, f"unet_up_{layer}_deconv",
+                    _Deconv(ch, feats[layer], fs, self.pool, act))
+            setattr(self, f"unet_up_{layer}", block(2 * feats[layer], feats[layer]))
+            ch = feats[layer]
+
+    def forward(self, x):
+        skips = []
+        for layer in range(self.n_scales):
+            x = getattr(self, f"unet_down_{layer}")(x)
+            skips.append(x)
+            if layer < self.n_scales - 1:
+                x = _max_pool(x, self.pool)
+        for layer in range(self.n_scales - 2, -1, -1):
+            skip = skips[layer]
+            deconv = getattr(self, f"unet_up_{layer}_deconv")(x, skip.shape[1:3])
+            x = torch.cat([skip, deconv], dim=3)
+            x = getattr(self, f"unet_up_{layer}")(x)
+        return x
+
+
+class _AttCNN(nn.Module):
+    """4x [4x4 conv + 2x2 pool] down to a 1-channel score map at 1/8."""
+
+    def __init__(self, gp: Dict[str, Any]):
+        super().__init__()
+        act = gp["activation_name"]
+        self.conv1 = _Conv(1, 12, 4, act)
+        self.conv2 = _Conv(12, 16, 4, act)
+        self.conv3 = _Conv(16, 32, 4, act)
+        self.conv4 = _Conv(32, 1, 4, act)
+
+    def forward(self, x):
+        x = _max_pool(self.conv1(x), 2)
+        x = _max_pool(self.conv2(x), 2)
+        x = _max_pool(self.conv3(x), 2)
+        return self.conv4(x)
+
+
+class ARUNet(nn.Module):
+    """ARU / RU / U pixel labeler. Call with NHWC input in [0, 1]; returns
+    float32 logits [B, H, W, n_classes]. Compute runs in the parameters'
+    dtype (``model.to(torch.bfloat16)`` for bf16, as the JAX package's
+    ``dtype=bfloat16`` with float32 params cast at use)."""
+
+    def __init__(self, n_classes: int = 2,
+                 graph_params: Optional[Dict[str, Any]] = None):
+        super().__init__()
+        gp = dict(DEFAULT_GRAPH_PARAMS)
+        if graph_params:
+            gp.update(graph_params)
+        self.gp = gp
+        self.featMapG = _DetCNN(gp)
+        self.use_attention = "ARU" in gp["graph"]
+        if self.use_attention:
+            self.attMapG = _AttCNN(gp)
+        self.logit = _Conv(gp["featRoot"], n_classes, 4, None)
+
+    def init_random(self, seed: int = 0) -> "ARUNet":
+        """Normal(0, sqrt(2 / (kh*kw*cin + cout))) kernels and 0.1 biases
+        (the flax initializers), drawn from a seeded generator."""
+        gen = torch.Generator().manual_seed(seed)
+        with torch.no_grad():
+            for m in self.modules():
+                if isinstance(m, (_Conv, _Deconv)):
+                    m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
+                                   * m.init_std)
+                    m.bias.fill_(0.1)
+        return self
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        gp = self.gp
+        x = inputs.to(self.logit.weight.dtype)
+        if gp["mvn"]:
+            x = per_image_standardization(x)
+        h, w = x.shape[1], x.shape[2]
+        fmap = self.featMapG(x)
+        if self.use_attention:
+            n_att = gp["num_scales_att"]
+            inp_scale = [x]
+            for _ in range(1, n_att):
+                inp_scale.append(_avg_pool(inp_scale[-1], 2))
+            out_att = [_upsample_sum(self.attMapG(inp_scale[sc]), 8 * 2 ** sc,
+                                     (h, w), 1) for sc in range(n_att)]
+            out_det = [fmap] + [
+                _upsample_sum(self.featMapG(inp_scale[sc]), 2 ** sc, (h, w),
+                              gp["featRoot"]) for sc in range(1, n_att)]
+            att_w = torch.softmax(torch.cat(out_att, dim=3), dim=3)
+            fmap = out_det[0] * att_w[..., 0:1]
+            for sc in range(1, n_att):
+                fmap = fmap + out_det[sc] * att_w[..., sc:sc + 1]
+        return self.logit(fmap).to(torch.float32)
+
+
+def pad_to_multiple(image: torch.Tensor, multiple: int = 16):
+    """Zero-pad H/W of an NHWC batch up to a multiple; returns the padded
+    batch and the original (h, w)."""
+    h, w = image.shape[1], image.shape[2]
+    ph, pw = -h % multiple, -w % multiple
+    if ph or pw:
+        image = F.pad(image, (0, 0, 0, pw, 0, ph))
+    return image, (h, w)

@@ -1,0 +1,255 @@
+"""Separator detection stage (port of ``citlab_as_tpu/stages/separator.py``).
+
+The device chain, per same-shape page group: uint8 pages up -> resize ->
+ARU-Net -> softmax -> uint8 quantize -> threshold -> CC filter ->
+h/v morphology (K2) -> bit-pack; the packed masks come down in one
+readback and the host traces contours and rescales them. This is the JAX
+package's fused chain (``make_fused_separator_fn``, ``sep_post=device``)
+with the ARU-Net's low-channel 3x3 convs on K1.
+
+The stage stops at the per-page separator polygons: one dict
+``{"SeparatorRegion_horizontal": [...], "SeparatorRegion_vertical": [...]}``
+per page, rescaled to the original page — the dict the JAX stage hands to
+its PAGE-XML writer.
+"""
+from __future__ import annotations
+
+import time
+from contextlib import contextmanager
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from citlab_as_tpu_torch.ops.connected_components import remove_small_components
+from citlab_as_tpu_torch.ops.contours import trace_contours
+from citlab_as_tpu_torch.ops.kernels.separator_morphology import separator_morphology
+from citlab_as_tpu_torch.ops.resize import get_scaling_factor, resize_image
+from citlab_as_tpu_torch.pagexml.constants import SEPARATORREGION
+from citlab_as_tpu_torch.utils.faults import page_guard
+
+MIN_CC_SIZE = 100
+
+
+def apply_threshold(net_output: np.ndarray, threshold: float) -> np.ndarray:
+    """uint8-aware binarization."""
+    if net_output.dtype == np.uint8:
+        threshold = threshold * 255
+    return np.asarray((net_output > threshold) * 255, dtype=np.uint8)
+
+
+def separator_kernel_sizes(h: int, w: int) -> Tuple[int, int, int]:
+    """(h_k, v_k, noise_k) = 15W/1000, 30H/1500, 10W/1000, at least 1."""
+    return (max(1, int(15 * w / 1000)), max(1, int(30 * h / 1500)),
+            max(1, int(10 * w / 1000)))
+
+
+@contextmanager
+def _phase(phase: Optional[Dict[str, float]], name: str, device: torch.device):
+    """Add the wall time of the block to ``phase[name]``. With a phase dict
+    the block is bracketed by device syncs, so its time is its own; without
+    one nothing is timed and nothing syncs."""
+    if phase is None:
+        yield
+        return
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    t0 = time.perf_counter()
+    yield
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    phase[name] = phase.get(name, 0.0) + time.perf_counter() - t0
+
+
+def pack_bits_device(mask: torch.Tensor) -> torch.Tensor:
+    """[..., W] bool -> [..., ceil(W/8)] uint8, MSB-first (np.unpackbits
+    reads it back)."""
+    w = mask.shape[-1]
+    pad = -w % 8
+    if pad:
+        mask = F.pad(mask, (0, pad))
+    groups = mask.reshape(mask.shape[:-1] + ((w + pad) // 8, 8))
+    weights = torch.tensor([128, 64, 32, 16, 8, 4, 2, 1], dtype=torch.int32,
+                           device=mask.device)
+    return torch.sum(groups.to(torch.int32) * weights, dim=-1).to(torch.uint8)
+
+
+def unpack_mask_bits(packed: np.ndarray, width: int) -> np.ndarray:
+    """[H, ceil(W/8)] uint8 bit rows -> [H, W] {0, 255} uint8 mask."""
+    bits = np.unpackbits(np.asarray(packed), axis=-1, count=width)
+    return (bits * 255).astype(np.uint8)
+
+
+def separator_post_process(binary: np.ndarray, device: torch.device
+                           ) -> Dict[str, np.ndarray]:
+    """Thresholded separator image [H, W] -> horizontal and vertical masks:
+    CC filter (< 100 px removed), then the K2 morphology chain with the
+    kernel sizes scaled to the image."""
+    h, w = binary.shape
+    x = torch.from_numpy(np.ascontiguousarray(binary)).to(device)[None]
+    cleaned = remove_small_components(x, MIN_CC_SIZE)
+    horizontal, vertical = separator_morphology(
+        cleaned, *separator_kernel_sizes(h, w))
+    return {"horizontal": horizontal[0].cpu().numpy(),
+            "vertical": vertical[0].cpu().numpy()}
+
+
+def make_fused_separator_fn(model: torch.nn.Module) -> Callable:
+    """The whole device chain for one group: original uint8 pages
+    [B, H0, W0] in, bit-packed masks [2, B, out_h, ceil(out_w/8)] out
+    (horizontal, vertical). Quantize-then-threshold replicates the
+    reference's uint8 round trip (``.to(uint8)`` truncates)."""
+
+    @torch.no_grad()
+    def fused(img_u8: torch.Tensor, out_h: int, out_w: int, h_kernel: int,
+              v_kernel: int, noise_kernel: int, threshold: float,
+              pad_multiple: int = 64,
+              phase: Optional[Dict[str, float]] = None) -> torch.Tensor:
+        dev = img_u8.device
+        with _phase(phase, "resize+forward", dev):
+            x = img_u8.to(torch.float32)
+            if (out_h, out_w) != tuple(x.shape[1:]):
+                x = resize_image(x, out_h, out_w)
+            x = F.pad(x, (0, -out_w % pad_multiple, 0, -out_h % pad_multiple))
+            probs = torch.softmax(model(x[..., None] / 255.0), dim=-1)
+            net_u8 = (probs[:, :out_h, :out_w, 0] * 255.0).to(torch.uint8)
+            binary = net_u8.to(torch.float32) > threshold * 255.0
+        with _phase(phase, "cc", dev):
+            cleaned = remove_small_components(binary, MIN_CC_SIZE)
+        with _phase(phase, "morphology", dev):
+            horizontal, vertical = separator_morphology(
+                cleaned, h_kernel, v_kernel, noise_kernel)
+            packed = torch.stack([pack_bits_device(horizontal > 0),
+                                  pack_bits_device(vertical > 0)])
+        return packed
+
+    return fused
+
+
+def masks_to_polygons(mask: np.ndarray, separator_type: Optional[str] = None
+                      ) -> Dict[str, list]:
+    """Contours of a separator mask keyed by region name."""
+    key = SEPARATORREGION if separator_type is None else f"{SEPARATORREGION}_{separator_type}"
+    return {key: trace_contours(mask)}
+
+
+def rescale_polygons_dict(polygons_dict: Dict[str, list],
+                          scaling_factor: float) -> Dict[str, list]:
+    """Scale every ring of every polygon."""
+    out = {}
+    for name, poly_list in polygons_dict.items():
+        out[name] = [
+            [[(x * scaling_factor, y * scaling_factor) for x, y in ring] for ring in rings]
+            for rings in poly_list]
+    return out
+
+
+class SeparatorNetPostProcessor:
+    """Separator detection over in-memory pages.
+
+    ``images``: uint8 grayscale pages [H, W]; ``names``: one key per page
+    (default "0", "1", ...), used by the per-page fault hook.
+    ``predictor``: an ``inference.SegmentationPredictor`` (its ``model``
+    and ``device`` run the chain). :meth:`run_batched` returns one rescaled
+    polygons dict per page, in input order (None for a page skipped by the
+    fault hook).
+    """
+
+    def __init__(self, images: Sequence[np.ndarray], predictor,
+                 fixed_height: Optional[int] = 1500, scaling_factor: float = 1.0,
+                 threshold: float = 0.05, names: Optional[Sequence[str]] = None):
+        self.images = list(images)
+        self.names = ([str(i) for i in range(len(self.images))]
+                      if names is None else list(names))
+        if len(self.names) != len(self.images) or len(set(self.names)) != len(self.names):
+            raise ValueError("names must be unique, one per image")
+        self.predictor = predictor
+        self.fixed_height = fixed_height
+        self.scaling_factor = scaling_factor
+        self.threshold = threshold
+        self._fused = make_fused_separator_fn(predictor.model)
+        # per-page fault hook: None = raise through; a callback
+        # (name, stage, exc) switches to the log-and-skip contract
+        self.on_page_error = None
+
+    @staticmethod
+    def group_by_shape(images: Sequence[np.ndarray], names: Sequence[str],
+                       max_batch: int
+                       ) -> Iterator[Tuple[List[np.ndarray], List[str]]]:
+        """Consecutive same-shape page groups of at most ``max_batch``."""
+        group: List[np.ndarray] = []
+        chunk: List[str] = []
+        for image, name in zip(images, names):
+            if group and (group[0].shape != image.shape or len(group) >= max_batch):
+                yield group, chunk
+                group, chunk = [], []
+            group.append(image)
+            chunk.append(name)
+        if group:
+            yield group, chunk
+
+    def fused_dispatch(self, images: List[np.ndarray], chunk: List[str],
+                       phase: Optional[Dict[str, float]] = None):
+        """Run the device chain for one same-shape group; returns the
+        in-flight entry for :meth:`fused_drain` (the masks stay on the
+        device until materialized)."""
+        h0, w0 = images[0].shape
+        sc = get_scaling_factor(h0, w0, self.scaling_factor,
+                                fixed_height=self.fixed_height)
+        out_h, out_w = (h0, w0) if sc == 1.0 else (int(h0 * sc), int(w0 * sc))
+        batch = torch.from_numpy(np.stack(images).astype(np.uint8, copy=False))
+        batch = batch.to(self.predictor.device)
+        hv_packed = self._fused(
+            batch, out_h, out_w, *separator_kernel_sizes(out_h, out_w),
+            threshold=self.threshold, pad_multiple=self.predictor.pad_multiple,
+            phase=phase)
+        return chunk, hv_packed, out_w, [sc] * len(chunk)
+
+    def fused_materialize(self, entry, phase: Optional[Dict[str, float]] = None):
+        """Copy the group's packed masks to the host in one readback."""
+        chunk, hv_packed, out_w, scales = entry
+        t0 = time.perf_counter()
+        hv = hv_packed.cpu().numpy()
+        if phase is not None:
+            phase["readback"] = phase.get("readback", 0.0) + time.perf_counter() - t0
+        return chunk, hv[0], hv[1], out_w, scales
+
+    def fused_drain(self, entry, results: Dict[str, dict],
+                    phase: Optional[Dict[str, float]] = None) -> None:
+        """Materialize one group and do the host tail: unpack, contour
+        trace, rescale into ``results[name]``."""
+        chunk, h_packed, v_packed, out_w, scales = self.fused_materialize(entry, phase)
+        for i, (name, sc) in enumerate(zip(chunk, scales)):
+            def drain_one(i=i, name=name, sc=sc):
+                t0 = time.perf_counter()
+                polygons_dict = {}
+                for separator_type, packed in (("horizontal", h_packed[i]),
+                                               ("vertical", v_packed[i])):
+                    polygons_dict.update(masks_to_polygons(
+                        unpack_mask_bits(packed, out_w), separator_type))
+                results[name] = rescale_polygons_dict(polygons_dict, 1.0 / sc)
+                if phase is not None:
+                    phase["contours"] = (phase.get("contours", 0.0)
+                                         + time.perf_counter() - t0)
+            page_guard(self.on_page_error, name, "separator", drain_one)
+
+    def run_batched(self, batch_size: int = 4,
+                    phase: Optional[Dict[str, float]] = None) -> List[Optional[dict]]:
+        """The fused device chain over same-shape groups of ``batch_size``
+        pages, two deep: the next group is dispatched before the previous
+        one is drained. ``phase`` (optional) collects seconds per phase —
+        resize+forward, cc, morphology, readback, contours — with a device
+        sync around each device phase."""
+        results: Dict[str, dict] = {}
+        in_flight = None
+        for images, chunk in self.group_by_shape(self.images, self.names,
+                                                 batch_size):
+            entry = page_guard(self.on_page_error, ",".join(chunk), "separator",
+                               lambda: self.fused_dispatch(images, chunk, phase))
+            if in_flight is not None:
+                self.fused_drain(in_flight, results, phase)
+            in_flight = entry
+        if in_flight is not None:
+            self.fused_drain(in_flight, results, phase)
+        return [results.get(name) for name in self.names]

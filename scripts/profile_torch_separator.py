@@ -1,0 +1,145 @@
+"""Device-time breakdown of the port's separator stage on a CUDA card.
+
+Runs the main path of ``chip_smoke.py`` (8 synthetic 2000 x 1420 pages,
+fixed_height 1500, groups of 4, bf16, the converted separator weights)
+once to warm up, then once under ``torch.profiler`` with the stage's phase
+timing on (a device sync around each device phase), and prints:
+
+- the wall time of the profiled run and the device's busy share (the union
+  of the CUDA kernel and memcpy intervals over that wall time);
+- per phase (resize+forward, cc, morphology): wall time, device busy time
+  inside it, and the number of device events;
+- the CC fixpoint's host syncs (one per iteration, labeling and size
+  propagation together) over the run;
+- device time per kernel name, largest first.
+
+    python3 scripts/profile_torch_separator.py [--out build/profile_separator.json]
+
+Imports only the port (``citlab_as_tpu_torch``) and ``chip_smoke`` for its
+page generator.
+"""
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PHASES = ("resize+forward", "cc", "morphology")
+
+
+def _union_us(intervals):
+    total, end = 0.0, None
+    for s, e in sorted(intervals):
+        if end is None or s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def _clip(intervals, lo, hi):
+    return [(max(s, lo), min(e, hi)) for s, e in intervals if e > lo and s < hi]
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--out", default=os.path.join(REPO, "build",
+                                                      "profile_separator.json"))
+    parser.add_argument("--top", type=int, default=25)
+    args = parser.parse_args(argv)
+    sys.path.insert(0, REPO)
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    import chip_smoke as cs
+    from citlab_as_tpu_torch.inference import SegmentationPredictor
+    from citlab_as_tpu_torch.stages import separator as sep
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    pages, _ = cs.synthetic_pages(cs.N_PAGES, *cs.PAGE_SHAPE, seed=7)
+    pred = SegmentationPredictor(os.path.join(REPO, "models_ckpt_torch", "separator.npz"),
+                                 dtype=torch.bfloat16, device=dev)
+
+    def run():
+        phase = {}
+        sep.SeparatorNetPostProcessor(pages, pred, fixed_height=cs.FIXED_HEIGHT,
+                                      threshold=cs.THRESHOLD).run_batched(cs.BATCH, phase)
+        torch.cuda.synchronize()
+        return phase
+
+    run()
+    # label each device phase for the trace (inside the stage's own syncs),
+    # and count the CC fixpoint's per-iteration host syncs (Tensor.any)
+    orig_phase, orig_any = sep._phase, torch.Tensor.any
+    syncs = []
+
+    @contextlib.contextmanager
+    def labelled_phase(phase, name, device):
+        with orig_phase(phase, name, device), record_function("phase:" + name):
+            yield
+
+    def counting_any(self, *a, **k):
+        syncs.append(1)
+        return orig_any(self, *a, **k)
+
+    sep._phase, torch.Tensor.any = labelled_phase, counting_any
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            phase = run()
+            wall_s = time.perf_counter() - t0
+    finally:
+        sep._phase, torch.Tensor.any = orig_phase, orig_any
+
+    intervals, by_name, windows = [], {}, {p: [] for p in PHASES}
+    for e in prof.events():
+        on_device = e.device_type == torch.autograd.DeviceType.CUDA
+        if e.name.startswith("phase:"):
+            # record_function also leaves a device-side annotation range of
+            # the same name: a label, not device work
+            if not on_device:
+                windows[e.name[len("phase:"):]].append(
+                    (e.time_range.start, e.time_range.end))
+        elif on_device:
+            s, t = e.time_range.start, e.time_range.end
+            intervals.append((s, t))
+            by_name[e.name] = by_name.get(e.name, 0.0) + (t - s)
+    per_phase = {}
+    for name, wins in windows.items():
+        inside = [iv for lo, hi in wins for iv in _clip(intervals, lo, hi)]
+        per_phase[name] = {
+            "wall_s": phase.get(name), "windows": len(wins),
+            "device_busy_s": _union_us(inside) / 1e6,
+            "device_events": sum(1 for lo, hi in wins for s, e in intervals
+                                 if lo <= s < hi)}
+    busy_us = _union_us(intervals)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]
+    result = {
+        "device": torch.cuda.get_device_name(0), "nvidia_smi": smi.stdout.strip(),
+        "torch": torch.__version__, "pages": cs.N_PAGES, "batch": cs.BATCH,
+        "wall_s": wall_s, "device_busy_s": busy_us / 1e6,
+        "device_busy_share": busy_us / 1e6 / wall_s,
+        "device_events": len(intervals), "cc_host_syncs": len(syncs),
+        "phase_wall_s": phase, "per_phase": per_phase,
+        "top_kernels_ms": [[name, us / 1e3] for name, us in top],
+    }
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(result, f, indent=1)
+    print(json.dumps({k: v for k, v in result.items() if k != "top_kernels_ms"}))
+    for name, ms in result["top_kernels_ms"]:
+        print(f"  {ms:10.3f} ms  {name[:110]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
