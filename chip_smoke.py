@@ -12,7 +12,12 @@ result):
 2. build: every kernel of the separator path, from ``csrc/*.cu`` with nvcc;
 3. kernels: K1 (conv3x3) and K2 (separator morphology) against their plain
    PyTorch versions at the main path's shapes, then timed with CUDA events
-   beside the plain version and, for K1, one cuDNN ``F.conv2d`` call;
+   beside the plain version and, for K1, one cuDNN ``F.conv2d`` call: the
+   eight (Cin -> Cout) pairs at full resolution (the ``kernels`` line's
+   ``ms`` is their sum) and each of the 24 (pair, shape) instances one ARU
+   forward launches, with the launch-weighted sum per forward. ``ms`` is
+   CUDA events around launches the host issues one by one; ``device_ms`` is
+   the same launches replayed from a CUDA graph, the device's time alone;
 4. main path: 8 synthetic 2000 x 1420 pages through
    ``SeparatorNetPostProcessor(..., fixed_height=1500).run_batched(4)`` in
    bf16 with the converted separator weights; the kernels' launch counts
@@ -104,6 +109,34 @@ def cuda_ms(fn, iters=10, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def cuda_graph_ms(fn, iters=20):
+    """Mean device milliseconds per call: ``iters`` calls captured in one
+    CUDA graph and replayed, so the host's time to issue a launch (tens of
+    microseconds through Python, more than a small kernel runs) is not in
+    the number."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def bound(bytes_moved, ops, kind):
     """(least ms, 'bytes' or 'operations') on an H100 SXM at full power."""
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
@@ -139,19 +172,54 @@ def phase_build():
     return secs
 
 
+def k1_main_path_instances():
+    """The (Cin, Cout, H, W, launches per forward) of every K1 launch of one
+    ARU forward at ``K1_SHAPE``: the detCNN (``models/arunet.py::_DetCNN``)
+    runs on the input and on its 2x and 4x average pools, and each pass
+    sends 23 convs through K1 on its first three levels."""
+    _, h, w = K1_SHAPE
+    per_level = [[(8, 8, 6), (16, 8, 1)],
+                 [(8, 16, 1), (16, 16, 6), (32, 16, 1)],
+                 [(16, 32, 1), (32, 32, 6), (64, 32, 1)]]
+    out = []
+    for scale in range(3):
+        for level, convs in enumerate(per_level):
+            sh, sw = -(-h // 2 ** (scale + level)), -(-w // 2 ** (scale + level))
+            out += [(cin, cout, sh, sw, n) for cin, cout, n in convs]
+    return out
+
+
+def k1_bound(b, h, w, cin, cout):
+    pix = b * h * w
+    return bound(2 * (pix * (cin + cout) + 9 * cin * cout + cout),
+                 2 * 9 * cin * cout * pix, "bf16")
+
+
 def phase_k1(dev):
     import torch
     import torch.nn.functional as F
     from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
     b, h, w = K1_SHAPE
     gen = torch.Generator(device=dev).manual_seed(0)
+
+    def inputs(cin, cout, hh, ww):
+        x = torch.randn((b, hh, ww, cin), device=dev, generator=gen)
+        wt = torch.randn((cout, cin, 3, 3), device=dev, generator=gen) * (
+            2.0 / (9 * cin + cout)) ** 0.5
+        return x, wt, torch.full((cout,), 0.1, device=dev)
+
+    def bf16_error(xb, wb, bb, what):
+        got = k1.conv3x3(xb, wb, bb, relu=True).float()
+        want = k1.conv3x3_plain(xb, wb, bb, relu=True).float()
+        torch.cuda.synchronize()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        check(rel <= 2e-2, f"K1 bf16 {what}: error {rel} of the output scale")
+        return rel
+
     worst_f32, worst_bf16 = 0.0, 0.0
     rows = []
     for cin, cout in K1_PAIRS:
-        x = torch.randn((b, h, w, cin), device=dev, generator=gen)
-        wt = torch.randn((cout, cin, 3, 3), device=dev, generator=gen) * (
-            2.0 / (9 * cin + cout)) ** 0.5
-        bias = torch.full((cout,), 0.1, device=dev)
+        x, wt, bias = inputs(cin, cout, h, w)
         got = k1.conv3x3(x, wt, bias, relu=True)
         want = k1.conv3x3_plain(x, wt, bias, relu=True)
         torch.cuda.synchronize()
@@ -159,11 +227,7 @@ def phase_k1(dev):
         check(err <= 1e-4, f"K1 f32 {cin}->{cout}: max abs err {err}")
         worst_f32 = max(worst_f32, err)
         xb, wb, bb = x.bfloat16(), wt.bfloat16(), bias.bfloat16()
-        got = k1.conv3x3(xb, wb, bb, relu=True).float()
-        want = k1.conv3x3_plain(xb, wb, bb, relu=True).float()
-        torch.cuda.synchronize()
-        rel = ((got - want).abs().max() / want.abs().max()).item()
-        check(rel <= 2e-2, f"K1 bf16 {cin}->{cout}: error {rel} of the output scale")
+        rel = bf16_error(xb, wb, bb, f"{cin}->{cout}")
         worst_bf16 = max(worst_bf16, rel)
         # timed at the main path's dtype (bf16), without ReLU, so that the
         # one library call (conv2d with bias) computes the same function
@@ -171,16 +235,41 @@ def phase_k1(dev):
         ms = cuda_ms(lambda: k1.conv3x3(xb, wb, bb))
         plain_ms = cuda_ms(lambda: k1.conv3x3_plain(xb, wb, bb))
         library_ms = cuda_ms(lambda: F.conv2d(xn, wb, bb, padding=1))
-        pix = b * h * w
-        t_bound, by = bound(2 * (pix * (cin + cout) + wb.numel() + cout),
-                            2 * 9 * cin * cout * pix, "bf16")
+        f32_ms = cuda_ms(lambda: k1.conv3x3(x, wt, bias), iters=3, warmup=1)
+        t_bound, by = k1_bound(b, h, w, cin, cout)
         rows.append({"cin": cin, "cout": cout, "ms": ms, "plain_ms": plain_ms,
                      "library_ms": library_ms, "bound_ms": t_bound,
-                     "bound_by": by, "f32_max_abs_err": err, "bf16_rel_err": rel})
+                     "bound_by": by, "f32_max_abs_err": err, "bf16_rel_err": rel,
+                     "f32_ms": f32_ms})
         del x, xb, xn, got, want
     torch.cuda.empty_cache()
     print("K1 detail: " + json.dumps({"shape": list(K1_SHAPE), "dtype": "bf16",
                                       "pairs": rows}))
+
+    # every (pair, shape) the main path launches, with its launches per forward
+    instances = []
+    for cin, cout, hh, ww, n in k1_main_path_instances():
+        x, wt, bias = inputs(cin, cout, hh, ww)
+        xb, wb, bb = x.bfloat16(), wt.bfloat16(), bias.bfloat16()
+        rel = bf16_error(xb, wb, bb, f"{cin}->{cout} at {hh}x{ww}")
+        worst_bf16 = max(worst_bf16, rel)
+        xn = xb.permute(0, 3, 1, 2)
+        instances.append({
+            "cin": cin, "cout": cout, "h": hh, "w": ww, "launches": n,
+            "ms": cuda_ms(lambda: k1.conv3x3(xb, wb, bb), iters=20),
+            "device_ms": cuda_graph_ms(lambda: k1.conv3x3(xb, wb, bb)),
+            "library_ms": cuda_ms(lambda: F.conv2d(xn, wb, bb, padding=1), iters=20),
+            "library_device_ms": cuda_graph_ms(lambda: F.conv2d(xn, wb, bb, padding=1)),
+            "bound_ms": k1_bound(b, hh, ww, cin, cout)[0], "bf16_rel_err": rel})
+        del x, xb, xn
+    check(len(instances) == 24 and sum(r["launches"] for r in instances) == 69,
+          "the K1 instance table does not add up to 69 launches per forward")
+    per_forward = {k: sum(r[k] * r["launches"] for r in instances)
+                   for k in ("ms", "device_ms", "library_ms", "library_device_ms",
+                             "bound_ms")}
+    print("K1 main path: " + json.dumps({"batch": b, "dtype": "bf16",
+                                         "instances": instances,
+                                         "per_forward": per_forward}))
     print(f"K1 ok: f32 max abs err {worst_f32:.3g} (<= 1e-4), bf16 max err "
           f"{worst_bf16:.3g} of output scale (<= 2e-2)")
     total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms",
@@ -221,6 +310,9 @@ def phase_k2(dev):
     print(f"K2 ok: bit-exact at {tuple(x.shape)} {K2_KERNELS} and at width "
           f"{K2_WIDE_W} {wide_kernels}, uint8 and f32")
     ms = cuda_ms(lambda: k2.separator_morphology(x, *K2_KERNELS), iters=20)
+    device_ms = cuda_graph_ms(lambda: k2.separator_morphology(x, *K2_KERNELS), iters=50)
+    print("K2 detail: " + json.dumps({"shape": list(K2_SHAPE), "kernels": list(K2_KERNELS),
+                                      "ms": ms, "device_ms": device_ms}))
     plain_ms = cuda_ms(lambda: k2.separator_morphology_plain(x, *K2_KERNELS))
     n = b * h * w
     # one byte read per pixel, two written; ~4 compares per pixel and pass

@@ -9,166 +9,366 @@
 // with cv2's rules: anchor k//2 (window [i - k//2, i - k//2 + k - 1]); erosion
 // treats positions outside the image as +inf, dilation as -inf.
 //
-// What bounds it on an H100: the work is a few integer compares per pixel
-// and pass, so it is bound by bytes (one read of the page, one read of the
-// vertical mask, two writes, 1 byte each in uint8). The TPU kernel kept a
-// full-height stripe of H x (128 + 2*64) f32 in VMEM (~1.5 MB at H = 1536);
-// a block here has at most 227 KB of shared memory, and a fixed 64-column
-// halo capped h_k + noise_k. This design instead:
-//   - works on binary masks (values are exactly 0 or 255, so every window
-//     min/max is an AND/OR), and streams each window in O(1) state per
-//     thread: an erosion at j is 1 iff the last zero seen lies before the
-//     window start, a dilation at i is 1 iff the last eroded 1 lies inside
-//     its window. No ring buffer, no doubling passes, no window-size loop;
-//   - launch 1 (vertical open): one thread per (column, 64-row segment),
-//     reading its column segment + 2*(v_k - 1) halo rows straight from
-//     device memory (neighbouring threads = neighbouring columns, so the
-//     loads and stores coalesce);
-//   - launch 2 (horizontal open -> subtract -> noise open): a block stages
-//     64 rows x (128 + halo) columns of the page and of the vertical mask in
-//     shared memory as bytes (coalesced), one thread then streams one row
-//     through all four windows, and the 64 x 128 result is stored back
-//     coalesced. The halo, 2*(h_k - 1) + 2*(noise_k - 1) columns, is derived
-//     from the kernel sizes at launch, so there is no fixed-halo limit.
+// What bounds it on an H100: a few bit operations per pixel, so bytes (the
+// page read once, two masks written); at 4 x 1500 x 1065 uint8 that is a few
+// microseconds, about what one launch costs, so the design is about doing
+// everything in ONE launch with no serial per-pixel loop:
+//   - bits, not bytes: values are exactly 0 or 255, so a block turns its
+//     tile of x into a bit-plane in shared memory (one 32-bit word = 32
+//     neighbouring columns of a row, bit j = column 32*word + j) and every
+//     window min/max is an AND/OR of words: along a column the words of
+//     neighbouring rows, along a row funnel-shifted words (the neighbouring
+//     word supplies the bits that cross a word border). One instruction
+//     treats 32 pixels; a window of k is k independent word operations.
+//   - one launch: a block owns TR x TC output pixels, loads x for the tile
+//     plus 2*(v_k - 1) halo rows and ceil(halo / 32) halo words on each side
+//     (halo = 2*(h_k - 1) + 2*(noise_k - 1) columns, from the kernel sizes at
+//     launch, so no fixed-halo limit), and runs the whole chain on it. The
+//     vertical mask is never written to device memory as an intermediate.
+//   - the cv2 border rule lives in two places only: bits outside the image
+//     are ones in every plane an erosion reads (x and the subtract result)
+//     and every erosion result is cleared outside the image before the
+//     dilation reads it. Words outside the block's span read as zero; what
+//     that spoils stays inside the halo.
+//   - 256 threads a block; device memory is touched in aligned 16-byte
+//     pieces. Rows of an odd width start at any alignment: a load takes the
+//     whole piece anyway (it may reach into the neighbouring row) and masks
+//     the bits it wants. For the stores, the border between two blocks'
+//     columns moves, row by row, to the next 16-byte boundary (the halo is
+//     that much wider), so only an image row's first and last piece go
+//     element by element.
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int NEG = INT_MIN / 2;   // "no such position seen yet"
-constexpr int V_THREADS = 128;     // columns per vertical block
-constexpr int V_SEG = 64;          // rows per vertical thread
-constexpr int H_ROWS = 64;         // rows per horizontal block, one thread each
-constexpr int H_SEG = 128;         // output columns per horizontal block
-constexpr int H_OPITCH = H_SEG + 4;  // 33 words: rows fall on distinct banks
+constexpr int TR = 64;            // output rows per block
+constexpr int TC = 256;           // output columns per block
+constexpr int TCW = TC / 32;      // ... in words
+constexpr int NTHREADS = 256;
 constexpr int MAX_SMEM = 227 * 1024;
 
-template <typename T>
-__global__ void __launch_bounds__(V_THREADS)
-vertical_open_kernel(const T* __restrict__ x, T* __restrict__ v, int H, int W, int k) {
-  const int col = blockIdx.x * V_THREADS + threadIdx.x;
-  if (col >= W) return;
-  const int lo = blockIdx.y * V_SEG;
-  const int hi = min(H, lo + V_SEG);
-  const int a = k / 2, bt = k - 1 - a;
-  const size_t base = (size_t)blockIdx.z * H * W + col;
-  const T* xc = x + base;
-  T* vc = v + base;
-  int last_zero = NEG, last_one = NEG;
-  // t: row of x consumed; j = t - bt: erosion output; i = j - bt: dilation output
-  for (int t = lo - 2 * a; t < hi + 2 * bt; ++t) {
-    if (t >= 0 && t < H && xc[(size_t)t * W] == T(0)) last_zero = t;
-    const int j = t - bt;
-    if (j >= 0 && j < H && last_zero < j - a) last_one = j;
-    const int i = j - bt;
-    if (i >= lo && i < hi) vc[(size_t)i * W] = (last_one >= i - a) ? T(255) : T(0);
-  }
+struct Geometry {
+  int H, W;
+  int av, bv;          // vertical window [i - av, i + bv]
+  int a1, b1, a2, b2;  // horizontal windows of h_k and noise_k
+  int lw;              // halo words left of the tile
+  int nw;              // words per span row: lw + TCW + halo words right (the halo
+                       // plus the pixels a shifted row reaches past the tile)
+  int nr;              // rows of x held: TR + 2 * (av + bv)
+};
+
+// bits of global word gw (columns 32*gw .. 32*gw + 31) that lie in the image
+__device__ __forceinline__ uint32_t col_mask(int gw, int W) {
+  const int lo = gw * 32;
+  if (lo < 0 || lo >= W) return 0u;
+  const int n = W - lo;
+  return n >= 32 ? 0xFFFFFFFFu : ((1u << n) - 1u);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(H_ROWS)
-horizontal_open_kernel(const T* __restrict__ x, const T* __restrict__ v,
-                       T* __restrict__ h, int H, int W, int k1, int k2, int pitch) {
-  extern __shared__ uint8_t smem[];
-  uint8_t* sx = smem;
-  uint8_t* sv = sx + H_ROWS * pitch;
-  uint8_t* so = sv + H_ROWS * pitch;
-  const int a1 = k1 / 2, b1 = k1 - 1 - a1;
-  const int a2 = k2 / 2, b2 = k2 - 1 - a2;
-  const int L = 2 * (a1 + a2), R = 2 * (b1 + b2);
-  const int span = H_SEG + L + R;
-  const int r0 = blockIdx.y * H_ROWS;
-  const int c0 = blockIdx.x * H_SEG;
-  const int left = c0 - L;
-  const size_t img = (size_t)blockIdx.z * H * W;
+__device__ __forceinline__ uint32_t span_word(const uint32_t* row, int q, int nw) {
+  return (q >= 0 && q < nw) ? row[q] : 0u;
+}
 
-  for (int idx = threadIdx.x; idx < H_ROWS * span; idx += H_ROWS) {
-    const int r = idx / span, c = idx % span;
-    const int gy = r0 + r, gx = left + c;
-    uint8_t xv = 1, vv = 0;
-    if (gy < H && gx >= 0 && gx < W) {
-      const size_t o = img + (size_t)gy * W + gx;
-      xv = x[o] != T(0);
-      vv = v[o] != T(0);
+// word wi of the window [i - a, i + b] along a row: AND (erosion) or OR
+// (dilation) of the row shifted by every d in [-a, b]
+template <bool IS_AND>
+__device__ __forceinline__ uint32_t row_window(const uint32_t* row, int wi, int nw,
+                                               int a, int b) {
+  uint32_t acc = IS_AND ? 0xFFFFFFFFu : 0u;
+  int d = -a;
+  while (d <= b) {
+    const int q = wi + (d >> 5);                 // floor(d / 32)
+    const uint32_t lo = span_word(row, q, nw);
+    const uint32_t hi = span_word(row, q + 1, nw);
+    const int last = min(b, (d | 31));           // last d with the same floor
+#pragma unroll 4
+    for (; d <= last; ++d) {
+      const uint32_t v = __funnelshift_r(lo, hi, d & 31);
+      acc = IS_AND ? (acc & v) : (acc | v);
     }
-    sx[r * pitch + c] = xv;
-    sv[r * pitch + c] = vv;
   }
-  __syncthreads();
+  return acc;
+}
 
-  const int r = threadIdx.x;
-  const int cend = min(W, c0 + H_SEG);
-  if (r0 + r < H) {
-    const uint8_t* rx = sx + r * pitch;
-    const uint8_t* rv = sv + r * pitch;
-    uint8_t* ro = so + r * H_OPITCH;
-    int lz_x = NEG, lo_e1 = NEG, lz_s = NEG, lo_e2 = NEG;
-    // t: x column consumed; j1/i1: h_k erosion/dilation; the subtract at i1;
-    // j2/i2: noise_k erosion/dilation
-    for (int t = left; t < cend + R; ++t) {
-      if (t >= 0 && t < W && !rx[t - left]) lz_x = t;
-      const int j1 = t - b1;
-      if (j1 >= 0 && j1 < W && lz_x < j1 - a1) lo_e1 = j1;
-      const int i1 = j1 - b1;
-      if (i1 >= left && i1 >= 0 && i1 < W) {
-        const bool s = (lo_e1 >= i1 - a1) && !rv[i1 - left];
-        if (!s) lz_s = i1;
+// word wi of the window [r - a, r + b] down a column of words
+template <bool IS_AND>
+__device__ __forceinline__ uint32_t col_window(const uint32_t* plane, int r, int wi,
+                                               int nw, int a, int b) {
+  uint32_t acc = IS_AND ? 0xFFFFFFFFu : 0u;
+  const uint32_t* p = plane + (r - a) * nw + wi;
+#pragma unroll 4
+  for (int d = 0; d <= a + b; ++d) {
+    const uint32_t v = p[d * nw];
+    acc = IS_AND ? (acc & v) : (acc | v);
+  }
+  return acc;
+}
+
+template <typename T> struct Piece;            // one aligned 16-byte piece
+template <> struct Piece<uint8_t> {
+  static constexpr int N = 16;
+  static __device__ __forceinline__ uint32_t bits(const uint8_t* p) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    return nib4(v.x) | (nib4(v.y) << 4) | (nib4(v.z) << 8) | (nib4(v.w) << 12);
+  }
+  // 4 bytes -> 4 bits (byte j nonzero -> bit j): 0/1 per byte, then one
+  // multiply gathers bits 0, 8, 16, 24 into bits 24..27 (no carries meet)
+  static __device__ __forceinline__ uint32_t nib4(uint32_t w) {
+    return (((__vcmpne4(w, 0u) & 0x01010101u) * 0x01020408u) >> 24) & 15u;
+  }
+  // 4 bits -> 4 bytes of 0 or 255: the multiply spreads bit j to bit 8 j
+  static __device__ __forceinline__ uint32_t expand4(uint32_t nib) {
+    return ((nib * 0x00204081u) & 0x01010101u) * 0xFFu;
+  }
+  static __device__ __forceinline__ void store(uint8_t* p, uint32_t bits) {
+    *reinterpret_cast<uint4*>(p) = make_uint4(expand4(bits & 15u), expand4((bits >> 4) & 15u),
+                                              expand4((bits >> 8) & 15u), expand4((bits >> 12) & 15u));
+  }
+  // elements [first, last) of the piece only: a row's head (first == 0) or
+  // tail (last == 16) leaves in at most four aligned stores of 8, 4, 2, 1 bytes
+  static __device__ __forceinline__ void store_part(uint8_t* p, uint32_t bits, int first,
+                                                    int last) {
+    if (first == 0) {
+      int o = 0;
+      if (last & 8) {
+        *reinterpret_cast<uint2*>(p) = make_uint2(expand4(bits & 15u), expand4((bits >> 4) & 15u));
+        o = 8;
       }
-      const int j2 = i1 - b2;
-      if (j2 >= 0 && j2 < W && lz_s < j2 - a2) lo_e2 = j2;
-      const int i2 = j2 - b2;
-      if (i2 >= c0 && i2 < cend) ro[i2 - c0] = lo_e2 >= i2 - a2;
+      if (last & 4) { *reinterpret_cast<uint32_t*>(p + o) = expand4((bits >> o) & 15u); o += 4; }
+      if (last & 2) {
+        *reinterpret_cast<uint16_t*>(p + o) = (uint16_t)expand4((bits >> o) & 3u);
+        o += 2;
+      }
+      if (last & 1) p[o] = (bits >> o) & 1u ? 255 : 0;
+    } else if (last == 16) {
+      int o = first;
+      if (o & 1) { p[o] = (bits >> o) & 1u ? 255 : 0; o += 1; }
+      if (o & 2) {
+        *reinterpret_cast<uint16_t*>(p + o) = (uint16_t)expand4((bits >> o) & 3u);
+        o += 2;
+      }
+      if (o & 4) { *reinterpret_cast<uint32_t*>(p + o) = expand4((bits >> o) & 15u); o += 4; }
+      if (o & 8)
+        *reinterpret_cast<uint2*>(p + 8) = make_uint2(expand4((bits >> 8) & 15u),
+                                                      expand4((bits >> 12) & 15u));
+    } else {
+      for (int e = first; e < last; ++e) p[e] = (bits >> e) & 1u ? 255 : 0;
+    }
+  }
+};
+template <> struct Piece<float> {
+  static constexpr int N = 4;
+  static __device__ __forceinline__ uint32_t bits(const float* p) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    return (v.x != 0.f ? 1u : 0u) | (v.y != 0.f ? 2u : 0u) | (v.z != 0.f ? 4u : 0u)
+         | (v.w != 0.f ? 8u : 0u);
+  }
+  static __device__ __forceinline__ void store(float* p, uint32_t bits) {
+    *reinterpret_cast<float4*>(p) = make_float4(bits & 1u ? 255.f : 0.f, bits & 2u ? 255.f : 0.f,
+                                                bits & 4u ? 255.f : 0.f, bits & 8u ? 255.f : 0.f);
+  }
+  static __device__ __forceinline__ void store_part(float* p, uint32_t bits, int first,
+                                                    int last) {
+    for (int e = first; e < last; ++e) p[e] = (bits >> e) & 1u ? 255.f : 0.f;
+  }
+};
+
+// elements by which p lies past a 16-byte boundary
+template <typename T>
+__device__ __forceinline__ int misalign(const T* p) {
+  return (int)((reinterpret_cast<uintptr_t>(p) & 15u) / sizeof(T));
+}
+
+// (row, column) of a flat index that advances by `stride` over rows of `n`
+// items, without a division per step
+struct Walk {
+  int r, c, n, dr, dc;
+  __device__ __forceinline__ Walk(int start, int n_, int stride)
+      : r(start / n_), c(start % n_), n(n_), dr(stride / n_), dc(stride % n_) {}
+  __device__ __forceinline__ void next() {
+    r += dr; c += dc;
+    if (c >= n) { c -= n; ++r; }
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(NTHREADS)
+separator_morphology_kernel(const T* __restrict__ x, T* __restrict__ hout,
+                            T* __restrict__ vout, Geometry g) {
+  extern __shared__ uint32_t smem[];
+  constexpr int N = Piece<T>::N;
+  const int nw = g.nw, nr = g.nr;
+  uint32_t* X = smem;                 // [nr][nw] x, ones outside the image
+  uint32_t* EV = X + nr * nw;         // [nr][nw] vertical erosion
+  uint32_t* PA = EV + nr * nw;        // [TR][nw] h_k erosion, later noise_k erosion
+  uint32_t* PB = PA + TR * nw;        // [TR][nw] subtract result, later horizontal
+  uint32_t* PV = PB + TR * nw;        // [TR][nw] vertical
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.y * TR;               // first output row
+  const int c0 = blockIdx.x * TC;               // first output column
+  const int w0 = c0 / 32 - g.lw;                // global word of span word 0
+  const int top = r0 - 2 * g.av;                // global row of plane row 0
+  const size_t img = (size_t)blockIdx.z * g.H * g.W;
+  const T* x_end = x + (size_t)gridDim.z * g.H * g.W;
+
+  // ---- x -> bit-plane. Fill first (ones outside the image), then OR the
+  // loaded bits in, four pieces in flight per thread.
+  for (Walk w(tid, nw, NTHREADS); w.r < nr; w.next()) {
+    const int gy = top + w.r;
+    X[w.r * nw + w.c] = (gy >= 0 && gy < g.H) ? ~col_mask(w0 + w.c, g.W) : 0xFFFFFFFFu;
+  }
+  __syncthreads();
+  {
+    const int cs = max(0, w0 * 32), ce = min(g.W, (w0 + nw) * 32);
+    Walk w(tid, (nw * 32) / N + 1, NTHREADS);
+    while (w.r < nr) {
+      uint32_t bits[4];
+      int at[4];                                         // bit position in X, -1: none
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        at[u] = -1;
+        const int gy = top + w.r;
+        if (w.r < nr && gy >= 0 && gy < g.H) {
+          const T* row = x + img + (size_t)gy * g.W;
+          const int lo = cs - misalign(row + cs) + w.c * N;   // first column of the piece
+          if (lo < ce) {
+            // the aligned piece may reach past the span's columns, into the
+            // neighbouring row too: load it whole wherever the tensor has
+            // it, then keep the bits of columns [cs, ce)
+            const T* p = row + lo;
+            uint32_t v;
+            if (p >= x && p + N <= x_end) {
+              v = Piece<T>::bits(p);
+            } else {                                    // first or last piece of the tensor
+              v = 0;
+#pragma unroll
+              for (int e = 0; e < N; ++e)
+                if (p + e >= x && p + e < x_end) v |= (p[e] != T(0) ? 1u : 0u) << e;
+            }
+            v &= ((1u << min(ce - lo, N)) - 1u) & ~((1u << max(cs - lo, 0)) - 1u);
+            int pos = lo - w0 * 32;
+            if (pos < 0) { v >>= -pos; pos = 0; }
+            bits[u] = v;
+            at[u] = w.r * nw * 32 + pos;
+          }
+        }
+        w.next();
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (at[u] < 0 || bits[u] == 0) continue;
+        const int word = at[u] >> 5, sh = at[u] & 31;
+        atomicOr(&X[word], bits[u] << sh);
+        // a piece that crosses a word border never sits in a row's last word
+        if (sh + N > 32 && (bits[u] >> (32 - sh))) atomicOr(&X[word + 1], bits[u] >> (32 - sh));
+      }
     }
   }
   __syncthreads();
 
-  for (int idx = threadIdx.x; idx < H_ROWS * H_SEG; idx += H_ROWS) {
-    const int rr = idx / H_SEG, c = idx % H_SEG;
-    const int gy = r0 + rr, gx = c0 + c;
-    if (gy < H && gx < W)
-      h[img + (size_t)gy * W + gx] = so[rr * H_OPITCH + c] ? T(255) : T(0);
+  // ---- erosions of x: down the columns (v_k) on every row that has its
+  // window in the plane, along the rows (h_k) on the tile's rows
+  for (Walk w(tid, nw, NTHREADS); w.r < nr - g.av - g.bv; w.next()) {
+    const int rb = g.av + w.r;
+    const int gy = top + rb;
+    const uint32_t inside = (gy >= 0 && gy < g.H) ? col_mask(w0 + w.c, g.W) : 0u;
+    EV[rb * nw + w.c] = col_window<true>(X, rb, w.c, nw, g.av, g.bv) & inside;
+  }
+  for (Walk w(tid, nw, NTHREADS); w.r < TR; w.next()) {
+    const uint32_t inside = r0 + w.r < g.H ? col_mask(w0 + w.c, g.W) : 0u;
+    PA[w.r * nw + w.c] =
+        row_window<true>(X + (w.r + 2 * g.av) * nw, w.c, nw, g.a1, g.b1) & inside;
+  }
+  __syncthreads();
+
+  // ---- both dilations and the subtract; ones outside the image again for
+  // the noise_k erosion
+  for (Walk w(tid, nw, NTHREADS); w.r < TR; w.next()) {
+    const uint32_t inside = r0 + w.r < g.H ? col_mask(w0 + w.c, g.W) : 0u;
+    const uint32_t v = col_window<false>(EV, w.r + 2 * g.av, w.c, nw, g.av, g.bv);
+    const uint32_t h = row_window<false>(PA + w.r * nw, w.c, nw, g.a1, g.b1);
+    PV[w.r * nw + w.c] = v;
+    PB[w.r * nw + w.c] = (h & ~v) | ~inside;
+  }
+  __syncthreads();
+  for (Walk w(tid, nw, NTHREADS); w.r < TR; w.next()) {
+    const uint32_t inside = r0 + w.r < g.H ? col_mask(w0 + w.c, g.W) : 0u;
+    PA[w.r * nw + w.c] = row_window<true>(PB + w.r * nw, w.c, nw, g.a2, g.b2) & inside;
+  }
+  __syncthreads();
+  for (int i = tid; i < TR * (TCW + 1); i += NTHREADS) {   // + the word a shifted row reaches
+    const int t = i / (TCW + 1), wi = g.lw + i % (TCW + 1);
+    PB[t * nw + wi] = row_window<false>(PA + t * nw, wi, nw, g.a2, g.b2);
+  }
+  __syncthreads();
+
+  // ---- bits -> 0/255, both masks (rows 0 .. TR-1 horizontal, then vertical).
+  // A row of an odd width starts at any alignment, so in each row the
+  // border between two blocks' columns moves right to the next 16-byte
+  // boundary: every piece is then whole, but for a row's first and last.
+  for (Walk w(tid, TC / N + 2, NTHREADS); w.r < 2 * TR; w.next()) {
+    const int which = w.r >= TR, t = w.r - which * TR;
+    const int gy = r0 + t;
+    if (gy >= g.H) continue;
+    T* row = (which ? vout : hout) + img + (size_t)gy * g.W;
+    const uint32_t* plane = (which ? PV : PB) + t * nw;
+    const int shift = (N - misalign(row + c0)) % N;
+    const int cs = blockIdx.x == 0 ? 0 : min(c0 + shift, g.W);
+    const int ce = min(g.W, c0 + TC + shift);
+    const int lo = cs - misalign(row + cs) + w.c * N;
+    if (lo >= ce) continue;
+    // the piece's 16 bits from bit position lo - w0 * 32 of the span row
+    // (negative only left of an image row's start, where no bit is wanted)
+    const int pos = lo - w0 * 32;
+    const uint32_t bits = __funnelshift_r(span_word(plane, pos >> 5, nw),
+                                          span_word(plane, (pos >> 5) + 1, nw), pos & 31);
+    if (lo >= cs && lo + N <= ce) Piece<T>::store(row + lo, bits);
+    else Piece<T>::store_part(row + lo, bits, max(cs - lo, 0), min(ce - lo, N));
   }
 }
 
 template <typename T>
 int launch_typed(const void* x, void* h, void* v, int B, int H, int W,
                  int hk, int vk, int nk, cudaStream_t stream) {
-  const int L = 2 * (hk / 2 + nk / 2);
-  const int R = 2 * ((hk - 1 - hk / 2) + (nk - 1 - nk / 2));
-  const int span = H_SEG + L + R;
-  const int pitch = ((span + 3) / 8) * 8 + 4;   // pitch/4 odd: conflict-free rows
-  const size_t smem = (size_t)H_ROWS * (2 * pitch + H_OPITCH);
+  Geometry g;
+  g.H = H; g.W = W;
+  g.av = vk / 2; g.bv = vk - 1 - g.av;
+  g.a1 = hk / 2; g.b1 = hk - 1 - g.a1;
+  g.a2 = nk / 2; g.b2 = nk - 1 - g.a2;
+  g.lw = (2 * (g.a1 + g.a2) + 31) / 32;
+  g.nw = g.lw + TCW + (2 * (g.b1 + g.b2) + Piece<T>::N - 1 + 31) / 32;
+  g.nr = TR + 2 * (g.av + g.bv);
+  const size_t smem = sizeof(uint32_t) * ((size_t)2 * g.nr + 3 * TR) * g.nw;
   if (smem > (size_t)MAX_SMEM) return (int)cudaErrorInvalidValue;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        horizontal_open_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        separator_morphology_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  const T* xp = static_cast<const T*>(x);
-  T* vp = static_cast<T*>(v);
-  const dim3 vgrid((W + V_THREADS - 1) / V_THREADS, (H + V_SEG - 1) / V_SEG, B);
-  vertical_open_kernel<T><<<vgrid, V_THREADS, 0, stream>>>(xp, vp, H, W, vk);
-  const cudaError_t e1 = cudaGetLastError();
-  if (e1 != cudaSuccess) return (int)e1;
-  const dim3 hgrid((W + H_SEG - 1) / H_SEG, (H + H_ROWS - 1) / H_ROWS, B);
-  horizontal_open_kernel<T><<<hgrid, H_ROWS, smem, stream>>>(
-      xp, vp, static_cast<T*>(h), H, W, hk, nk, pitch);
+  const dim3 grid((W + TC - 1) / TC, (H + TR - 1) / TR, B);
+  separator_morphology_kernel<T><<<grid, NTHREADS, smem, stream>>>(
+      static_cast<const T*>(x), static_cast<T*>(h), static_cast<T*>(v), g);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // dtype: 0 = float32, 2 = uint8. x, h, v are [B, H, W], contiguous.
-// Returns the cudaError_t of the launches.
+// Returns the cudaError_t of the launch.
 extern "C" int citlab_separator_morphology(const void* x, void* h, void* v,
                                            int B, int H, int W, int h_k, int v_k,
                                            int noise_k, int dtype, void* stream) {
   if (B <= 0 || H <= 0 || W <= 0 || h_k < 1 || v_k < 1 || noise_k < 1 || B > 65535
-      || (H + V_SEG - 1) / V_SEG > 65535)
+      || (H + TR - 1) / TR > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) return launch_typed<float>(x, h, v, B, H, W, h_k, v_k, noise_k, s);
   if (dtype == 2) return launch_typed<uint8_t>(x, h, v, B, H, W, h_k, v_k, noise_k, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// Name of a cudaError_t returned by an entry point of this library.
+extern "C" const char* citlab_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

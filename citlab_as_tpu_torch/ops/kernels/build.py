@@ -95,7 +95,12 @@ def load(name: str) -> ctypes.CDLL:
     return lib
 
 
-def check(err: int, what: str) -> None:
-    """Raise for a nonzero cudaError_t returned by a C entry point."""
+def check(lib: ctypes.CDLL, err: int, what: str) -> None:
+    """Raise for a nonzero cudaError_t returned by an entry point of ``lib``,
+    naming it with the library's ``citlab_error_string``
+    (``cudaGetErrorString``), so that a refused launch says why."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+        name = lib.citlab_error_string
+        name.argtypes, name.restype = [ctypes.c_int], ctypes.c_char_p
+        raise RuntimeError(f"{what}: CUDA error {err} at launch "
+                           f"({name(err).decode()})")

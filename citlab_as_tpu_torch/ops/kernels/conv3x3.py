@@ -2,16 +2,23 @@
 
 Port of ``citlab_as_tpu/ops/pallas/conv3x3.py::conv3x3_mxu``. On a CUDA
 tensor :func:`conv3x3` launches the hand-written kernel in
-``csrc/conv3x3.cu`` (f32 accumulation, output in the input dtype); on a CPU
+``csrc/conv3x3.cu`` (bf16: implicit GEMM on the tensor cores; f32: FMAs on
+the CUDA cores; f32 accumulation, output in the input dtype); on a CPU
 tensor it computes :func:`conv3x3_plain`, the same function in plain
 PyTorch. There is no fallback from the kernel to the plain version on the
 card.
+
+The kernel reads its weights in the order :func:`pack_weights` gives them
+(the counterpart of the TPU kernel's ``_pack_weights``, not a copy of it).
+:func:`conv3x3` packs a weight tensor once and keeps the result until the
+tensor changes or dies.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional
+import weakref
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -19,6 +26,9 @@ import torch.nn.functional as F
 from citlab_as_tpu_torch.ops.kernels import build
 
 COUT_SUPPORTED = (8, 16, 32)
+#: bf16 keeps all 9 * Cin * Cout weights and two halo tiles in one block's
+#: shared memory; past this Cin they no longer fit
+BF16_MAX_CIN = 112
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 #: launches of the CUDA kernel (the plain version does not count)
@@ -38,12 +48,58 @@ def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
     return y.permute(0, 2, 3, 1)
 
 
+def packed_layout(cin: int, dtype: torch.dtype) -> Tuple[int, int]:
+    """(cinp, row): the channels per pixel the kernel works on (Cin rounded
+    up, the rest zeros) and the elements per packed weight row.
+
+    bf16: one k step of the tensor-core product is 16 channels (8 when Cin
+    is exactly 8), and a row is padded to an odd number of 16-byte pieces
+    so that the 8 rows of an ``ldmatrix`` fall on distinct shared-memory
+    banks. f32: chunks of 8 channels, no padding."""
+    if dtype == torch.bfloat16:
+        cinp = 8 if cin == 8 else -(-cin // 16) * 16
+        return cinp, 8 * ((cinp // 8) | 1)
+    cinp = -(-cin // 8) * 8
+    return cinp, cinp
+
+
+def pack_weights(weight: torch.Tensor) -> torch.Tensor:
+    """OIHW ``[Cout, Cin, 3, 3]`` -> ``[9, Cout, row]`` with
+    ``packed[ky * 3 + kx, co, ci] = weight[co, ci, ky, kx]`` and zeros from
+    ``Cin`` on: per tap a Cout x K matrix with K contiguous, which is the
+    B operand of ``mma.sync`` (``.col``) as ``ldmatrix`` reads it, and the
+    exact image of the kernel's shared-memory copy."""
+    cout, cin = weight.shape[:2]
+    _, row = packed_layout(cin, weight.dtype)
+    packed = weight.new_zeros((9, cout, row))
+    packed[:, :, :cin] = weight.permute(2, 3, 0, 1).reshape(9, cout, cin)
+    return packed
+
+
+_packed: Dict[int, Tuple[weakref.ref, tuple, torch.Tensor]] = {}
+
+
+def _packed_weights(weight: torch.Tensor) -> torch.Tensor:
+    """:func:`pack_weights` of ``weight``, cached by the tensor's identity,
+    storage, dtype and version (an in-place update repacks)."""
+    key = (weight.data_ptr(), weight._version, weight.dtype, tuple(weight.shape))
+    hit = _packed.get(id(weight))
+    if hit is not None and hit[0]() is weight and hit[1] == key:
+        return hit[2]
+    ident = id(weight)
+    packed = pack_weights(weight.detach())
+    _packed[ident] = (weakref.ref(weight, lambda _: _packed.pop(ident, None)),
+                      key, packed)
+    return packed
+
+
 @functools.cache
-def _fn():
-    fn = build.load("conv3x3").citlab_conv3x3
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+def _lib():
+    lib = build.load("conv3x3")
+    lib.citlab_conv3x3.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                                   + [ctypes.c_void_p])
+    lib.citlab_conv3x3.restype = ctypes.c_int
+    return lib
 
 
 def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -60,6 +116,8 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         raise TypeError(f"conv3x3: dtype {x.dtype} not in {list(_DTYPES)}")
     if cout not in COUT_SUPPORTED:
         raise ValueError(f"conv3x3: Cout={cout} not in {COUT_SUPPORTED}")
+    if x.dtype == torch.bfloat16 and cin > BF16_MAX_CIN:
+        raise ValueError(f"conv3x3: bf16 takes Cin <= {BF16_MAX_CIN}, got {cin}")
     if tuple(weight.shape) != (cout, cin, 3, 3) or tuple(bias.shape) != (cout,):
         raise ValueError(f"conv3x3: weight {tuple(weight.shape)} / bias "
                          f"{tuple(bias.shape)} do not match Cin={cin}, Cout={cout}")
@@ -68,12 +126,18 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             raise ValueError(f"conv3x3: {name} is {t.dtype} on {t.device}, "
                              f"x is {x.dtype} on {x.device}")
     x = x.contiguous()
-    weight = weight.contiguous()
+    if x.data_ptr() % 16:           # the kernel copies 16-byte pieces
+        x = x.clone()
+    packed = _packed_weights(weight)
     bias = bias.contiguous()
+    cinp, row = packed_layout(cin, x.dtype)
     y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _fn()(x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
-                b, h, w, cin, cout, int(relu), _DTYPES[x.dtype], stream)
-    build.check(err, "conv3x3")
+    lib = _lib()
+    err = lib.citlab_conv3x3(x.data_ptr(), packed.data_ptr(), bias.data_ptr(),
+                             y.data_ptr(), b, h, w, cin, cout, cinp,
+                             row * x.element_size(), int(relu), _DTYPES[x.dtype],
+                             stream)
+    build.check(lib, err, "conv3x3")
     launches += 1
     return y

@@ -22,7 +22,7 @@ from citlab_as_tpu_torch.ops.morphology import morph_open
 
 _DTYPES = {torch.float32: 0, torch.uint8: 2}
 
-#: launches of the CUDA kernel pair (the plain version does not count)
+#: launches of the CUDA kernel (the plain version does not count)
 launches = 0
 
 
@@ -41,11 +41,12 @@ def separator_morphology_plain(cleaned: torch.Tensor, h_kernel: int,
 
 
 @functools.cache
-def _fn():
-    fn = build.load("separator_morphology").citlab_separator_morphology
+def _lib():
+    lib = build.load("separator_morphology")
+    fn = lib.citlab_separator_morphology
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    return fn
+    return lib
 
 
 def separator_morphology(cleaned: torch.Tensor, h_kernel: int, v_kernel: int,
@@ -72,10 +73,12 @@ def separator_morphology(cleaned: torch.Tensor, h_kernel: int, v_kernel: int,
     horizontal = torch.empty_like(batched)
     vertical = torch.empty_like(batched)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = _fn()(batched.data_ptr(), horizontal.data_ptr(), vertical.data_ptr(),
-                b, h, w, int(h_kernel), int(v_kernel), int(noise_kernel),
-                _DTYPES[x.dtype], stream)
-    build.check(err, "separator_morphology")
+    lib = _lib()
+    err = lib.citlab_separator_morphology(
+        batched.data_ptr(), horizontal.data_ptr(), vertical.data_ptr(),
+        b, h, w, int(h_kernel), int(v_kernel), int(noise_kernel),
+        _DTYPES[x.dtype], stream)
+    build.check(lib, err, "separator_morphology")
     launches += 1
     if x.dim() == 2:
         return horizontal[0], vertical[0]

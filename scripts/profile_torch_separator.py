@@ -11,6 +11,8 @@ timing on (a device sync around each device phase), and prints:
   inside it, and the number of device events;
 - the CC fixpoint's host syncs (one per iteration, labeling and size
   propagation together) over the run;
+- device time of the port's own kernels (K1 ``conv3x3``, K2
+  ``separator_morphology``), summed over their instantiations;
 - device time per kernel name, largest first.
 
     python3 scripts/profile_torch_separator.py [--out build/profile_separator.json]
@@ -130,6 +132,9 @@ def main(argv=None) -> int:
         "device_busy_share": busy_us / 1e6 / wall_s,
         "device_events": len(intervals), "cc_host_syncs": len(syncs),
         "phase_wall_s": phase, "per_phase": per_phase,
+        "port_kernels_ms": {family: sum(us for name, us in by_name.items()
+                                        if family in name) / 1e3
+                            for family in ("conv3x3", "separator_morphology")},
         "top_kernels_ms": [[name, us / 1e3] for name, us in top],
     }
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -95,6 +95,31 @@ def test_k1_routing_counts_69_convs_per_forward():
     assert len(routed) * model.gp["num_scales_att"] == 69
 
 
+def test_k1_instance_table_of_the_chip_check_matches_a_forward(monkeypatch):
+    """``chip_smoke.k1_main_path_instances`` (the 24 (pair, shape) rows
+    timed on the card) lists exactly what one ARU forward sends through
+    K1: same shapes, same launch counts."""
+    import collections
+
+    import chip_smoke
+    monkeypatch.setattr(chip_smoke, "K1_SHAPE", (1, 64, 48))
+    seen = collections.Counter()
+    real = tarunet.conv3x3
+
+    def recording(x, weight, bias, relu=False):
+        seen[(x.shape[3], weight.shape[0], x.shape[1], x.shape[2])] += 1
+        return real(x, weight, bias, relu)
+
+    model = tarunet.ARUNet().init_random(0)
+    monkeypatch.setattr(tarunet, "conv3x3", recording, raising=True)
+    # _Conv.forward looks conv3x3 up in the module at call time
+    with torch.no_grad():
+        model(torch.zeros(1, 64, 48, 1))
+    want = {(cin, cout, h, w): n
+            for cin, cout, h, w, n in chip_smoke.k1_main_path_instances()}
+    assert len(want) == 24 and dict(seen) == want
+
+
 @pytest.mark.parametrize("n", [5, 6, 7, 8])
 def test_conv_transpose_same_matches_flax(n):
     """flax ConvTranspose(padding="SAME", strides=2) — unflipped kernel,

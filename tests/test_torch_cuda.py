@@ -45,12 +45,20 @@ def cuda():
     return torch.device("cuda")
 
 
+# the main path's smallest instance (4 x 96 x 68) has fewer tiles than the
+# card has SMs; (3, 37, 131) is ragged against every tile size
+_K1_CASES = [(pair, (2, 45, 70)) for pair in [
+    (8, 8), (8, 16), (16, 32), (64, 32), (32, 16), (12, 8), (16, 16), (32, 32),
+    (16, 8), (10, 8)]] + [((32, 16), (4, 96, 68)), ((64, 32), (4, 96, 68)),
+                 ((8, 8), (3, 37, 131)), ((24, 32), (1, 7, 5))]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout", [(8, 8), (8, 16), (16, 32), (64, 32),
-                                      (32, 16), (12, 8)])
+@pytest.mark.parametrize("pair,bhw", _K1_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_conv3x3_kernel_matches_plain(cuda, cin, cout, dtype):
-    x, w3, bias = _k1_inputs((2, 45, 70, cin, cout), seed=cin + cout)
+def test_conv3x3_kernel_matches_plain(cuda, pair, bhw, dtype):
+    cin, cout = pair
+    x, w3, bias = _k1_inputs(bhw + (cin, cout), seed=cin + cout)
     xt = torch.from_numpy(x).to(cuda, dtype)
     wt = _to_oihw(w3).to(cuda, dtype)
     bt = torch.from_numpy(bias).to(cuda, dtype)
@@ -65,13 +73,18 @@ def test_conv3x3_kernel_matches_plain(cuda, cin, cout, dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernels", [(15, 30, 10), (4, 6, 2), (45, 30, 25)])
+@pytest.mark.parametrize("kernels,hw", [
+    ((15, 30, 10), (150, 700)), ((4, 6, 2), (150, 700)), ((45, 30, 25), (150, 700)),
+    ((48, 30, 32), (150, 3200)), ((15, 30, 10), (131, 333))])
 @pytest.mark.parametrize("dtype", [torch.uint8, torch.float32])
-def test_separator_morphology_kernel_matches_plain(cuda, kernels, dtype):
-    imgs = np.stack([_synthetic(h=150, w=700, seed=s) for s in (0, 1, 2)])
+def test_separator_morphology_kernel_matches_plain(cuda, kernels, hw, dtype):
+    imgs = np.stack([_synthetic(h=hw[0], w=hw[1], seed=s) for s in (0, 1, 2)])
     x = torch.from_numpy(imgs).to(cuda, dtype)
     before = k2.launches
     got_h, got_v = k2.separator_morphology(x, *kernels)
     assert k2.launches == before + 1
     want_h, want_v = k2.separator_morphology_plain(x, *kernels)
     assert torch.equal(got_v, want_v) and torch.equal(got_h, want_h)
+    # a batch element that starts off a 16-byte boundary (odd H * W)
+    got_h1, got_v1 = k2.separator_morphology(x[1:], *kernels)
+    assert torch.equal(got_v1, want_v[1:]) and torch.equal(got_h1, want_h[1:])
