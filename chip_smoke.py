@@ -18,11 +18,25 @@ result):
    forward launches, with the launch-weighted sum per forward. ``ms`` is
    CUDA events around launches the host issues one by one; ``device_ms`` is
    the same launches replayed from a CUDA graph, the device's time alone;
+   K1 is also held against its plain version, and timed the same way, at
+   the 24 instances of the heading stage's forward (4 x 960 x 640);
 4. main path: 8 synthetic 2000 x 1420 pages through
    ``SeparatorNetPostProcessor(..., fixed_height=1500).run_batched(4)`` in
    bf16 with the converted separator weights; the kernels' launch counts
    (reset just before the run), mask agreement with the same run through
-   the plain versions, column-rule recall, pages/s and a phase split.
+   the plain versions, column-rule recall, pages/s and a phase split;
+5. files to files: the same kind of pages written as PNG files with one
+   PAGE-XML each (text regions, 200-400 text lines in columns, a few
+   headline lines of tall thick-stroked glyphs), through
+   ``SeparatorNetPostProcessor(...).run_batched_fused(4)`` and then
+   ``HeadingNetPostProcessor(..., page_paths=<the separator's output>,
+   save_suffix="").run_batched_fused(4)``, in bf16 with the converted
+   weights of both nets. Gates: every written file parses and is
+   structurally valid, has SeparatorRegions, column-rule recall, the
+   kernels' launch counts, the card's distance transform and per-line
+   integers equal to the port's CPU device on the same pages, headline
+   lines tagged ``heading`` and at most 5 % of the body lines; then pages/s
+   per stage and a phase split of the heading stage.
 
 The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
 """
@@ -30,8 +44,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -40,12 +56,43 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12                 # H100 SXM HBM3
 PEAK_OPS_PER_S = {"bf16": 989e12, "f32": 67e12}   # tensor-core bf16, CUDA-core f32
 K1_PAIRS = [(8, 8), (8, 16), (16, 16), (16, 32), (32, 32), (16, 8), (32, 16), (64, 32)]
-K1_SHAPE = (4, 1536, 1088)
+K1_SHAPE = (4, 1536, 1088)                  # the separator's forward: height 1500, padded
+K1_HEADING_SHAPE = (4, 960, 640)            # the heading's forward: height 900, padded
 K2_SHAPE = (4, 1500, 1065)                  # 2000 x 1420 pages at height 1500
 K2_KERNELS = (15, 30, 10)
 K2_WIDE_W = 3200                            # h_k + noise_k = 48 + 32 >= 64
 PAGE_SHAPE = (2000, 1420)
 N_PAGES, BATCH, FIXED_HEIGHT, THRESHOLD = 8, 4, 1500, 0.05
+HEADING_FIXED_HEIGHT = 900
+HEADLINES_PER_PAGE = 3
+CPU_CHECK_EVERY = 20                        # lines redone on the CPU device: see cpu_check_lines
+
+
+def _draw_page(rng, h, w, yy, xx):
+    """One page of :func:`synthetic_pages`: (uint8 page, column-rule mask,
+    layout dict with the rule's x, its half width and the line spacing)."""
+    rule_w = rng.randint(3, 6)
+    spacing = rng.randint(20, 31)
+    col = rng.randint(int(0.4 * w), int(0.6 * w))
+    v_sep = (np.abs(xx - col) < rule_w) & (yy >= h // 10) & (yy < h - h // 10)
+    h_sep = np.zeros((h, w), bool)
+    for y in (rng.randint(h // 5, h // 3), rng.randint(h // 2, 3 * h // 4)):
+        h_sep |= ((np.abs(yy - y) < max(1, rule_w - 1)) & (xx >= 10)
+                  & (xx < col - rule_w - 5))
+    sep = v_sep | h_sep
+    band = (yy % spacing) < (spacing * 3) // 5
+    low = rng.rand(-(-h // 6), -(-w // 6))
+    words = np.kron(low, np.ones((6, 6)))[:h, :w] > 0.45
+    margin = ((xx > 8) & (xx < w - 8) & (yy > 8) & (yy < h - 8)
+              & (np.abs(xx - col) > rule_w + 3))
+    img = np.ones((h, w))
+    img[band & words & margin & ~sep] = 0.25
+    img[sep] = 0.15
+    img -= np.kron(rng.rand(-(-h // 2), -(-w // 2)), np.ones((2, 2)))[:h, :w] * 0.08
+    page = (img * 255).clip(0, 255).astype(np.uint8)
+    speckle = rng.rand(h, w) < 0.01
+    page[speckle] = rng.randint(0, 256, int(speckle.sum()))
+    return page, v_sep, {"col": col, "rule_w": rule_w, "spacing": spacing}
 
 
 def synthetic_pages(n, h, w, seed):
@@ -56,32 +103,66 @@ def synthetic_pages(n, h, w, seed):
     column-rule boolean masks)."""
     rng = np.random.RandomState(seed)
     yy, xx = np.mgrid[0:h, 0:w]
-    pages, rules = [], []
+    drawn = [_draw_page(rng, h, w, yy, xx) for _ in range(n)]
+    return [d[0] for d in drawn], [d[1] for d in drawn]
+
+
+def synthetic_newspaper(n, h, w, seed, headlines=HEADLINES_PER_PAGE):
+    """Pages of :func:`synthetic_pages` with a text layout on top. Each page
+    gets ``headlines`` headline lines in its left column (the bands under
+    them cleared to paper, then tall zigzag glyphs of thick dark strokes) and one text line
+    per text band and sub-column (each side of the column rule halved), in
+    one text region per sub-column and one per headline. Returns (pages,
+    column-rule masks, layouts); a layout is a list of regions
+    ``(region id, [(line id, (x0, y0, x1, y1)), ...])`` with headline ids
+    starting ``hl_``."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    pages, rules, layouts = [], [], []
     for _ in range(n):
-        rule_w = rng.randint(3, 6)
-        spacing = rng.randint(20, 31)
-        col = rng.randint(int(0.4 * w), int(0.6 * w))
-        v_sep = (np.abs(xx - col) < rule_w) & (yy >= h // 10) & (yy < h - h // 10)
-        h_sep = np.zeros((h, w), bool)
-        for y in (rng.randint(h // 5, h // 3), rng.randint(h // 2, 3 * h // 4)):
-            h_sep |= ((np.abs(yy - y) < max(1, rule_w - 1)) & (xx >= 10)
-                      & (xx < col - rule_w - 5))
-        sep = v_sep | h_sep
-        band = (yy % spacing) < (spacing * 3) // 5
-        low = rng.rand(-(-h // 6), -(-w // 6))
-        words = np.kron(low, np.ones((6, 6)))[:h, :w] > 0.45
-        margin = ((xx > 8) & (xx < w - 8) & (yy > 8) & (yy < h - 8)
-                  & (np.abs(xx - col) > rule_w + 3))
-        img = np.ones((h, w))
-        img[band & words & margin & ~sep] = 0.25
-        img[sep] = 0.15
-        img -= np.kron(rng.rand(-(-h // 2), -(-w // 2)), np.ones((2, 2)))[:h, :w] * 0.08
-        page = (img * 255).clip(0, 255).astype(np.uint8)
-        speckle = rng.rand(h, w) < 0.01
-        page[speckle] = rng.randint(0, 256, int(speckle.sum()))
+        page, v_sep, lay = _draw_page(rng, h, w, yy, xx)
+        col, rule_w, spacing = lay["col"], lay["rule_w"], lay["spacing"]
+        text_h = (spacing * 3) // 5
+        left = (10, col - rule_w - 4)
+        right = (col + rule_w + 4, w - 9)
+        columns = []
+        for x0, x1 in (left, right):
+            mid = (x0 + x1) // 2
+            columns += [(x0, mid - 3), (mid + 3, x1)]
+        n_bands = (h - 16) // spacing
+        # headline zones: three text bands tall, apart from each other
+        span = max(3, -(-60 // spacing))
+        starts = sorted(rng.choice(np.arange(2, n_bands - span - 2, span + 3),
+                                   size=headlines, replace=False).tolist())
+        regions, taken = [], set()
+        thick, run = 14, 44                  # a stroke's width and x advance
+        for k, b0 in enumerate(starts):
+            y0, y1 = b0 * spacing, (b0 + span) * spacing - (spacing - text_h)
+            page[y0 - 2:y1 + 2, left[0]:left[1] + 1] = 236
+            # glyphs: zigzags of three slanted strokes, as tall as the zone. A
+            # slanted stroke has no long vertical or horizontal run, so the
+            # separator stage's openings cannot take it for a rule.
+            rows = np.arange(y0 + 2, y1 - 2)
+            frac = (rows - rows[0]) / (len(rows) - 1)
+            for gx in range(left[0] + 8, left[1] - 3 * run - thick - 8, 3 * run + thick + 18):
+                for j in range(3):
+                    xs = np.round(gx + (j + (frac if j % 2 == 0 else 1 - frac)) * run)
+                    for r, x in zip(rows, xs.astype(int)):
+                        page[r, x:x + thick] = 25
+            taken.update(range(b0, b0 + span))
+            regions.append((f"r_hl_{k}", [(f"hl_{k}", (left[0], y0, left[1], y1))]))
+        for c, (x0, x1) in enumerate(columns):
+            lines = []
+            for b in range(1, n_bands):
+                if c < 2 and b in taken:
+                    continue
+                y0 = b * spacing
+                lines.append((f"c{c}_l{b}", (x0, y0, x1, y0 + text_h)))
+            regions.append((f"r_col_{c}", lines))
         pages.append(page)
         rules.append(v_sep)
-    return pages, rules
+        layouts.append(regions)
+    return pages, rules, layouts
 
 
 class Fail(Exception):
@@ -172,12 +253,12 @@ def phase_build():
     return secs
 
 
-def k1_main_path_instances():
+def k1_main_path_instances(shape=None):
     """The (Cin, Cout, H, W, launches per forward) of every K1 launch of one
-    ARU forward at ``K1_SHAPE``: the detCNN (``models/arunet.py::_DetCNN``)
+    ARU forward at ``shape`` (default ``K1_SHAPE``): the detCNN (``models/arunet.py::_DetCNN``)
     runs on the input and on its 2x and 4x average pools, and each pass
     sends 23 convs through K1 on its first three levels."""
-    _, h, w = K1_SHAPE
+    _, h, w = shape or K1_SHAPE
     per_level = [[(8, 8, 6), (16, 8, 1)],
                  [(8, 16, 1), (16, 16, 6), (32, 16, 1)],
                  [(16, 32, 1), (32, 32, 6), (64, 32, 1)]]
@@ -202,8 +283,8 @@ def phase_k1(dev):
     b, h, w = K1_SHAPE
     gen = torch.Generator(device=dev).manual_seed(0)
 
-    def inputs(cin, cout, hh, ww):
-        x = torch.randn((b, hh, ww, cin), device=dev, generator=gen)
+    def inputs(cin, cout, hh, ww, batch=b):
+        x = torch.randn((batch, hh, ww, cin), device=dev, generator=gen)
         wt = torch.randn((cout, cin, 3, 3), device=dev, generator=gen) * (
             2.0 / (9 * cin + cout)) ** 0.5
         return x, wt, torch.full((cout,), 0.1, device=dev)
@@ -246,29 +327,30 @@ def phase_k1(dev):
     print("K1 detail: " + json.dumps({"shape": list(K1_SHAPE), "dtype": "bf16",
                                       "pairs": rows}))
 
-    # every (pair, shape) the main path launches, with its launches per forward
-    instances = []
-    for cin, cout, hh, ww, n in k1_main_path_instances():
-        x, wt, bias = inputs(cin, cout, hh, ww)
-        xb, wb, bb = x.bfloat16(), wt.bfloat16(), bias.bfloat16()
-        rel = bf16_error(xb, wb, bb, f"{cin}->{cout} at {hh}x{ww}")
-        worst_bf16 = max(worst_bf16, rel)
-        xn = xb.permute(0, 3, 1, 2)
-        instances.append({
-            "cin": cin, "cout": cout, "h": hh, "w": ww, "launches": n,
-            "ms": cuda_ms(lambda: k1.conv3x3(xb, wb, bb), iters=20),
-            "device_ms": cuda_graph_ms(lambda: k1.conv3x3(xb, wb, bb)),
-            "library_ms": cuda_ms(lambda: F.conv2d(xn, wb, bb, padding=1), iters=20),
-            "library_device_ms": cuda_graph_ms(lambda: F.conv2d(xn, wb, bb, padding=1)),
-            "bound_ms": k1_bound(b, hh, ww, cin, cout)[0], "bf16_rel_err": rel})
-        del x, xb, xn
-    check(len(instances) == 24 and sum(r["launches"] for r in instances) == 69,
-          "the K1 instance table does not add up to 69 launches per forward")
-    per_forward = {k: sum(r[k] * r["launches"] for r in instances)
-                   for k in ("ms", "device_ms", "library_ms", "library_device_ms",
-                             "bound_ms")}
-    print("K1 main path: " + json.dumps({"batch": b, "dtype": "bf16",
-                                         "instances": instances,
+    # every (pair, shape) the two stages' forwards launch, with launches per forward
+    for label, shape in (("K1 main path", K1_SHAPE), ("K1 heading path", K1_HEADING_SHAPE)):
+        instances = []
+        for cin, cout, hh, ww, n in k1_main_path_instances(shape):
+            x, wt, bias = inputs(cin, cout, hh, ww, shape[0])
+            xb, wb, bb = x.bfloat16(), wt.bfloat16(), bias.bfloat16()
+            rel = bf16_error(xb, wb, bb, f"{cin}->{cout} at {hh}x{ww}")
+            worst_bf16 = max(worst_bf16, rel)
+            xn = xb.permute(0, 3, 1, 2)
+            instances.append({
+                "cin": cin, "cout": cout, "h": hh, "w": ww, "launches": n,
+                "ms": cuda_ms(lambda: k1.conv3x3(xb, wb, bb), iters=20),
+                "device_ms": cuda_graph_ms(lambda: k1.conv3x3(xb, wb, bb)),
+                "library_ms": cuda_ms(lambda: F.conv2d(xn, wb, bb, padding=1), iters=20),
+                "library_device_ms": cuda_graph_ms(lambda: F.conv2d(xn, wb, bb, padding=1)),
+                "bound_ms": k1_bound(shape[0], hh, ww, cin, cout)[0], "bf16_rel_err": rel})
+            del x, xb, xn
+        check(len(instances) == 24 and sum(r["launches"] for r in instances) == 69,
+              f"{label}: the instance table does not add up to 69 launches per forward")
+        per_forward = {k: sum(r[k] * r["launches"] for r in instances)
+                       for k in ("ms", "device_ms", "library_ms", "library_device_ms",
+                                 "bound_ms")}
+        print(f"{label}: " + json.dumps({"batch": shape[0], "shape": list(shape),
+                                         "dtype": "bf16", "instances": instances,
                                          "per_forward": per_forward}))
     print(f"K1 ok: f32 max abs err {worst_f32:.3g} (<= 1e-4), bf16 max err "
           f"{worst_bf16:.3g} of output scale (<= 2e-2)")
@@ -415,6 +497,222 @@ def phase_main_path(dev):
             "launches": launches, "agree": agree, "recall": min(recalls)}
 
 
+def write_corpus(root, pages, layouts):
+    """PNG files plus one PAGE-XML per page under ``root/page``, built with
+    the port's own encoder and Page API. Returns the image paths."""
+    from citlab_as_tpu_torch.pagexml import Page, TextLine, TextRegion
+    from citlab_as_tpu_torch.utils.io import save_png
+    os.makedirs(os.path.join(root, "page"))
+    paths = []
+    for i, (page, regions) in enumerate(zip(pages, layouts)):
+        h, w = page.shape
+        path = os.path.join(root, f"page_{i:02d}.png")
+        save_png(path, page)
+        doc = Page(img_filename=os.path.basename(path), img_w=w, img_h=h)
+        text_regions = []
+        for region_id, lines in regions:
+            tls = [TextLine(line_id, None, "", [(x0, y1 - 2), (x1, y1 - 2)],
+                            [(x0, y0), (x1, y0), (x1, y1), (x0, y1)])
+                   for line_id, (x0, y0, x1, y1) in lines]
+            xs0, ys0, xs1, ys1 = zip(*(box for _, box in lines))
+            text_regions.append(TextRegion(
+                region_id, None, [(min(xs0), min(ys0)), (max(xs1), min(ys0)),
+                                  (max(xs1), max(ys1)), (min(xs0), max(ys1))], tls))
+        doc.set_text_regions(text_regions)
+        doc.write_page_xml(os.path.join(root, "page", f"page_{i:02d}.xml"))
+        paths.append(path)
+    return paths
+
+
+def rule_recall_from_page(page, rule):
+    """Share of the drawn column rule's interior (2 px in from its edges)
+    that the page's vertical SeparatorRegions cover."""
+    from citlab_as_tpu_torch.geometry.booleans import rasterize_rings
+    ys, xs = np.nonzero(rule)
+    x0, x1, y0, y1 = xs.min() + 2, xs.max() - 1, ys.min() + 2, ys.max() - 1
+    covered = np.zeros((y1 - y0, x1 - x0), bool)
+    for region in page.get_regions().get("SeparatorRegion", []):
+        if region.get_orientation() == "vertical":
+            covered |= rasterize_rings([region.points.points_list], (x0, y0),
+                                       covered.shape)
+    return float(covered.mean())
+
+
+def cpu_check_lines(swt_boxes):
+    """The lines of one page whose features are redone on the port's CPU
+    device, as (tall lines, short lines): the ``HEADLINES_PER_PAGE`` largest
+    lines; and every ``CPU_CHECK_EVERY``-th line, the last one, and the largest line
+    of each chunk of crops that the card's fixpoint converges together
+    (each page's lines start a chunk)."""
+    from citlab_as_tpu_torch.ops.swt_device import _STATS_CHUNK
+    n = len(swt_boxes)
+    area = swt_boxes[:, 2].astype(np.int64) * swt_boxes[:, 3]
+    tall = set(np.argsort(-area, kind="stable")[:HEADLINES_PER_PAGE].tolist())
+    short = set(range(0, n, CPU_CHECK_EVERY)) | {n - 1}
+    short |= {s + int(np.argmax(area[s:s + _STATS_CHUNK])) for s in range(0, n, _STATS_CHUNK)}
+    return np.asarray(sorted(tall), np.int64), np.asarray(sorted(short - tall), np.int64)
+
+
+def phase_files(dev):
+    import torch
+    from citlab_as_tpu_torch.inference import SegmentationPredictor
+    from citlab_as_tpu_torch.ops import swt_device
+    from citlab_as_tpu_torch.ops.binarize import otsu_binarize
+    from citlab_as_tpu_torch.ops.distance_transform import distance_transform_edt
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.ops.swt import StrokeWidthDistanceTransform
+    from citlab_as_tpu_torch.pagexml import Page
+    from citlab_as_tpu_torch.pagexml.page import page_cache
+    from citlab_as_tpu_torch.stages.heading import HeadingNetPostProcessor
+    from citlab_as_tpu_torch.stages.separator import SeparatorNetPostProcessor
+    from citlab_as_tpu_torch.utils import io as port_io
+
+    n_pages, batch = N_PAGES, BATCH
+    groups = -(-n_pages // batch)
+    root = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t0 = time.perf_counter()
+        pages, rules, layouts = synthetic_newspaper(n_pages, *PAGE_SHAPE, seed=11)
+        paths = write_corpus(root, pages, layouts)
+        n_lines = [sum(len(lines) for _, lines in lay) for lay in layouts]
+        print(f"files: {n_pages} PNG + PAGE-XML written in {time.perf_counter() - t0:.2f} s; "
+              f"text lines per page {n_lines}")
+        check(all(200 <= n <= 400 for n in n_lines), f"text lines per page {n_lines}")
+        sep_pred, head_pred = (SegmentationPredictor(
+            os.path.join(REPO, "models_ckpt_torch", f"{net}.npz"),
+            dtype=torch.bfloat16, device=dev) for net in ("separator", "heading"))
+
+        def run_both(sep_phase=None, head_phase=None):
+            """The two stages as the full workflow chains them; returns
+            (seconds of each stage, the heading stage)."""
+            port_io._IMAGE_CACHE.clear()
+            t0 = time.perf_counter()
+            sep = SeparatorNetPostProcessor(paths, sep_pred, fixed_height=FIXED_HEIGHT,
+                                            threshold=THRESHOLD)
+            sep.run_batched_fused(batch_size=batch, phase=sep_phase)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out_paths = [sep._page_path_for(p) + ".xml" for p in paths]
+            with page_cache():
+                head = HeadingNetPostProcessor(
+                    paths, head_pred, fixed_height=HEADING_FIXED_HEIGHT,
+                    page_paths=out_paths, save_suffix="")
+                head.run_batched_fused(batch_size=batch, phase=head_phase)
+            torch.cuda.synchronize()
+            return t1 - t0, time.perf_counter() - t1, head, out_paths
+
+        run_both()                                   # first-call costs off the clock
+        k1.launches = 0
+        k2.launches = 0
+        swt_device.reset_counts()
+        sep_s, head_s, head, out_paths = run_both()
+        launches = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+        counts = dict(swt_device.COUNTS)
+        print(f"files to files: separator {n_pages / sep_s:.3f} pages/s ({sep_s:.3f} s), "
+              f"heading {n_pages / head_s:.3f} pages/s ({head_s:.3f} s), both "
+              f"{n_pages / (sep_s + head_s):.3f} pages/s; launches {launches}; "
+              f"line-feature sweeps {counts['sweeps']}, host syncs {counts['syncs']}")
+        check(launches["conv3x3"] == 69 * 2 * groups,
+              f"K1 launched {launches['conv3x3']} times, want 69 x {2 * groups} forwards")
+        check(launches["separator_morphology"] == groups,
+              f"K2 launched {launches['separator_morphology']} times, want {groups}")
+
+        sep_phase, head_phase = {}, {}
+        swt_device.reset_counts()
+        run_both(sep_phase, head_phase)
+        print("files: separator phases (s, device-synced): " + json.dumps(sep_phase))
+        print("files: heading phases (s, device-synced): " + json.dumps(dict(
+            head_phase, sweeps=swt_device.COUNTS["sweeps"],
+            host_syncs=swt_device.COUNTS["syncs"])))
+        # what was written
+        recalls, tagged = [], {"headline": [0, 0], "body": [0, 0]}
+        for i, out_path in enumerate(out_paths):
+            page = Page(out_path)
+            check(Page.validate_structural(page.page_doc), f"{out_path} is not valid")
+            check(page.get_regions().get("SeparatorRegion"),
+                  f"{out_path} has no SeparatorRegion")
+            recalls.append(rule_recall_from_page(page, rules[i]))
+            lines = page.get_textlines()
+            check(len(lines) >= n_lines[i], f"{out_path} lost text lines")
+            for tl in lines:
+                kind = "headline" if tl.id.startswith("hl_") else "body"
+                tagged[kind][0] += tl.get_semantic_type() == "heading"
+                tagged[kind][1] += 1
+            types = {tr.id: tr.region_type for tr in page.get_text_regions()}
+            check(all(t == "heading" for r, t in types.items() if r.startswith("r_hl_")),
+                  f"{out_path}: a headline region is not of type heading: {types}")
+        print("files: column-rule recall per page " + json.dumps(recalls)
+              + f"; tagged heading: {tagged['headline'][0]} of {tagged['headline'][1]} "
+              f"headline lines, {tagged['body'][0]} of {tagged['body'][1]} body lines")
+        check(min(recalls) >= 0.99, f"column-rule recall {min(recalls)} < 0.99")
+        check(tagged["headline"][0] == tagged["headline"][1] >= n_pages * HEADLINES_PER_PAGE,
+              f"headline lines tagged heading: {tagged['headline']}")
+        check(tagged["body"][0] <= 0.05 * tagged["body"][1],
+              f"body lines tagged heading: {tagged['body']}")
+
+        # the card's distance transform and per-line integers against the
+        # port's CPU device, on the same pages and the same probability maps:
+        # a sample of every page's lines through the CPU device, and every
+        # line against the host path (scipy label per crop)
+        t0 = time.perf_counter()
+        cpu_features = swt_device.DeviceLineFeatures()
+        gpu_features = swt_device.DeviceLineFeatures()
+        host_swt = StrokeWidthDistanceTransform()
+        checked, checked_host = 0, 0
+        for g in range(groups):
+            chunk = paths[g * batch:(g + 1) * batch]
+            images = [np.asarray(port_io.load_image(p, "L")) for p in chunk]
+            _, maps_u8, dt_u8, _ = head.fused_dispatch(images, chunk)
+            x = torch.from_numpy(np.stack(images))
+            _, binary = otsu_binarize(255.0 - x.to(torch.float32), blur_ksize=5)
+            dt_cpu = distance_transform_edt(binary, cap=255.0).to(torch.uint8)
+            check(torch.equal(dt_u8.cpu(), dt_cpu),
+                  "the distance transform differs between the card and the CPU")
+            boxes = [head.line_feature_boxes(
+                Page(head._page_path_for(p)).textlines,
+                head._writer_for(p).scaling_factor) for p in chunk]
+            swt_list, net_list = [b[0] for b in boxes], [b[1] for b in boxes]
+            got = gpu_features.dispatch_batch(dt_u8, maps_u8, swt_list, net_list)()
+            maps_cpu = maps_u8.cpu()
+            # the tall lines and the short ones go through the CPU device apart:
+            # a chunk of crops costs the CPU what its largest line asks for
+            for picks in zip(*(cpu_check_lines(sb) for sb in swt_list)):
+                want = cpu_features.dispatch_batch(
+                    dt_cpu, maps_cpu,
+                    [sb[pick] for sb, pick in zip(swt_list, picks)],
+                    [nb[pick] for nb, pick in zip(net_list, picks)])()
+                for i, pick in enumerate(picks):
+                    check(np.array_equal(got[i][1][pick], want[i][1]),
+                          f"{chunk[i]}: (stroke width, text height) differ from the CPU")
+                    check(np.array_equal(got[i][0][pick], want[i][0]),
+                          f"{chunk[i]}: net sums differ from the CPU")
+                    checked += len(pick)
+            maps_np, dt_np = maps_cpu.numpy(), dt_cpu.numpy()
+            for i, (g_net, g_sw) in enumerate(got):
+                for box, sw_th in zip(swt_list[i], g_sw):
+                    if box[2] >= 0:
+                        check(host_swt.textline_features(dt_np[i], tuple(box)) == tuple(sw_th),
+                              f"{chunk[i]}: line at {tuple(box)}: (stroke width, text "
+                              f"height) {tuple(sw_th)} differ from the host path")
+                        checked_host += 1
+                # the summed-area table against plain sums of the same map
+                for (bx, by, bw, bh), mean in zip(net_list[i][::8], g_net[::8]):
+                    exact = maps_np[i][by:by + bh, bx:bx + bw].sum() / (255.0 * bw * bh)
+                    check(abs(mean - exact) <= 1.0 / 255.0,
+                          f"{chunk[i]}: net sum off by more than 1 count per pixel")
+        print(f"files: distance transform of {n_pages} pages and {checked} lines' (net "
+              f"sum, 2 x stroke width, text height) from all {n_pages} pages equal to "
+              f"the CPU device's, bit for bit; all {checked_host} lines' (stroke width, "
+              f"text height) equal to the host path's ({time.perf_counter() - t0:.1f} s)")
+
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "pages_per_s": {
+        "separator": n_pages / sep_s, "heading": n_pages / head_s,
+        "both": n_pages / (sep_s + head_s)}}
+
+
 def main() -> int:
     try:
         import torch
@@ -438,20 +736,25 @@ def main() -> int:
         k1_row = phase_k1(dev)
         k2_row = phase_k2(dev)
         main_row = phase_main_path(dev)
+        files_row = phase_files(dev)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     kernels = [
         dict(name="conv3x3", route="cuda", source="citlab_as_tpu_torch/csrc/conv3x3.cu",
              replaces="citlab_as_tpu/ops/pallas/conv3x3.py:110",
-             launches=main_row["launches"]["conv3x3"], **k1_row),
+             launches=main_row["launches"]["conv3x3"],
+             launches_files=files_row["launches"]["conv3x3"], **k1_row),
         dict(name="separator_morphology", route="cuda",
              source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
              replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
-             launches=main_row["launches"]["separator_morphology"], **k2_row),
+             launches=main_row["launches"]["separator_morphology"],
+             launches_files=files_row["launches"]["separator_morphology"], **k2_row),
     ]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # ``launches``: the in-memory main path's count; ``launches_files``: the
+    # files-to-files path's (each counted from 0 just before its run)
+    keys = ("name", "route", "source", "replaces", "launches", "launches_files",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,7 +1,9 @@
 """Connected-component filter on the device (port of
 ``citlab_as_tpu/ops/connected_components.py``: ``connected_components``,
-``_component_sizes``, ``remove_small_components``, and the size-field
-propagation of ``ops/swt_device.py::_propagate_step_stack``).
+``_component_sizes``, ``remove_small_components``). The propagation sweep
+:func:`propagate_max_step` is the one definition of the reference's
+``ops/swt_device.py::_propagate_step_stack``; the per-line component
+statistics (``ops/swt_device.py`` here) run on it too.
 
 Batched over [B, H, W]. Same algorithm and the same caps, so results are
 bit-exact against the reference even where a cap is hit:
@@ -40,10 +42,14 @@ def _segmented_prefix_max(vals: torch.Tensor, fg: torch.Tensor, dim: int,
                           scale: int) -> torch.Tensor:
     """Prefix max of ``vals`` (0 <= vals < scale) within each foreground run
     along ``dim``: packed key runid * scale + val, whose running max stays
-    inside the current run because later runs have larger run ids."""
+    inside the current run because later runs have larger run ids. ``fg``
+    broadcasts against ``vals`` (one mask for a stack of channels). The key
+    is int32 where the largest one fits, else int64."""
     start = fg & ~_shift(fg, dim, False)
-    runid = torch.cumsum(start.to(torch.int64), dim)
-    key = runid * scale + torch.where(fg, vals.to(torch.int64), 0)
+    max_key = (fg.shape[dim] // 2 + 2) * scale
+    kt = torch.int32 if max_key < (1 << 31) else torch.int64
+    runid = torch.cumsum(start, dim, dtype=kt)
+    key = runid * scale + torch.where(fg, vals.to(kt), 0)
     return torch.cummax(key, dim).values % scale
 
 
@@ -52,6 +58,22 @@ def _run_max(vals: torch.Tensor, fg: torch.Tensor, dim: int,
     fwd = _segmented_prefix_max(vals, fg, dim, scale)
     bwd = _segmented_prefix_max(vals.flip(dim), fg.flip(dim), dim, scale).flip(dim)
     return torch.maximum(fwd, bwd)
+
+
+def propagate_max_step(vals: torch.Tensor, fg: torch.Tensor,
+                       scale: int) -> torch.Tensor:
+    """One propagation sweep of per-component maxima: run max along rows,
+    run max along columns, 3x3 window max — adjacent foreground pixels are
+    one 8-connected component, so iterating this to a fixpoint leaves each
+    component's maximum at all of its pixels. ``vals`` [..., H, W] int32 with
+    0 <= vals < scale and 0 at background; ``fg`` [..., H, W] bool,
+    broadcast over leading channel dimensions of ``vals``."""
+    new = vals
+    for dim in (-1, -2):
+        run = _run_max(new, fg, dim, scale).to(vals.dtype)
+        new = torch.where(fg, torch.maximum(new, run), new)
+    return torch.where(fg, torch.maximum(new, _window3(new, 0, torch.maximum)),
+                       new)
 
 
 def _run_min_labels(labels: torch.Tensor, fg: torch.Tensor, dim: int,
@@ -114,12 +136,7 @@ def remove_small_components(binary: torch.Tensor, min_size: int = 100
     isroot = fg & (labels == idx)
     field = torch.where(isroot, torch.clamp(sizes, max=SIZE_CAP), 0).to(torch.int32)
     for _ in range(MAX_ITERS):
-        new = field
-        for dim in (-1, -2):
-            run = _run_max(new, fg, dim, SIZE_CAP + 1).to(torch.int32)
-            new = torch.where(fg, torch.maximum(new, run), new)
-        new = torch.where(fg, torch.maximum(new, _window3(new, 0, torch.maximum)),
-                          new)
+        new = propagate_max_step(field, fg, SIZE_CAP + 1)
         changed = bool((new != field).any())
         field = new
         if not changed:

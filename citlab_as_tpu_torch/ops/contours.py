@@ -14,7 +14,7 @@ exactly the work SURVEY.md keeps on host).
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -22,16 +22,40 @@ Point = Tuple[int, int]
 Ring = List[Point]
 
 
-def trace_contours(binary) -> List[List[Ring]]:
+def trace_contours(binary, labels=None) -> List[List[Ring]]:
     """Ring polygons of the 8-connected components of ``binary`` (255/0 or
-    bool). Returns one entry per component: [exterior_ring, *hole_rings]."""
+    bool). Returns one entry per component: [exterior_ring, *hole_rings].
+    With a ``labels`` image (one id per component) the rings are grouped by
+    label, components in ascending label order."""
     mask = np.asarray(binary) != 0
     if not mask.any():
         return []
-    # hole rings are grouped with their component's exterior by ring
-    # nesting (a hole's innermost enclosing exterior ring IS its
-    # component's exterior), so no connected-component labeling is needed
-    return _group_rings_by_nesting(_chain_rings_fast(mask))
+    if labels is None:
+        # hole rings are grouped with their component's exterior by ring
+        # nesting (a hole's innermost enclosing exterior ring IS its
+        # component's exterior), so no connected-component labeling is needed
+        return _group_rings_by_nesting(_chain_rings_fast(mask))
+
+    by_label: Dict[int, List[Tuple[Ring, float]]] = {}
+    for ring, label, area in _chain_rings_fast(mask, np.asarray(labels)):
+        by_label.setdefault(label, []).append((ring, area))
+    out = []
+    for label in sorted(by_label):
+        comp = by_label[label]
+        exteriors = [r for r, a in comp if a > 0]
+        holes = [r for r, a in comp if a <= 0]
+        # a component has exactly one exterior; keep largest as safety
+        exteriors.sort(key=lambda r: -abs(_ring_area(r)))
+        out.append([exteriors[0]] + holes if exteriors else [comp[0][0]])
+    return out
+
+
+def _ring_area(ring: Ring) -> float:
+    """Signed shoelace area of a closed ring (first == last)."""
+    area = 0.0
+    for (x1, y1), (x2, y2) in zip(ring[:-1], ring[1:]):
+        area += x1 * y2 - x2 * y1
+    return area / 2.0
 
 
 def _group_rings_by_nesting(rings) -> List[List[Ring]]:
@@ -83,13 +107,15 @@ def _group_rings_by_nesting(rings) -> List[List[Ring]]:
     return comps + extra
 
 
-def _chain_rings_fast(mask: np.ndarray) -> List[Tuple[Ring, int, float]]:
+def _chain_rings_fast(mask: np.ndarray, labels=None
+                      ) -> List[Tuple[Ring, int, float]]:
     """Vectorized ring chaining: crack edges as arrays, successor assignment
     via one sort + searchsorted (at pinch corners the sharpest left turn
     wins, so diagonal 8-connected neighbours stay on one ring), collinear
     runs skipped with pointer doubling, then a Python walk over CORNER edges
-    only: O(E log E) numpy + O(corners) Python. Returns (ring, 0, signed
-    area) triples; rings are closed (first == last).
+    only: O(E log E) numpy + O(corners) Python. Returns (ring, label, signed
+    area) triples (label 0 without a label image); rings are closed
+    (first == last).
     """
     h, w = mask.shape
     padded = np.zeros((h + 2, w + 2), dtype=bool)
@@ -100,7 +126,8 @@ def _chain_rings_fast(mask: np.ndarray) -> List[Tuple[Ring, int, float]]:
     # building a full-frame boolean selector per direction (8 H x W
     # temporaries + 4 scans) dominated this function on sparse masks
     frs, fcs = np.nonzero(mask)
-    flabs = np.zeros(frs.shape[0], np.int32)
+    flabs = (labels[frs, fcs] if labels is not None
+             else np.zeros(frs.shape[0], np.int32))
     nb_top = padded[frs, fcs + 1]
     nb_right = padded[frs + 1, fcs + 2]
     nb_bottom = padded[frs + 2, fcs + 1]

@@ -7,16 +7,21 @@ readback and the host traces contours and rescales them. This is the JAX
 package's fused chain (``make_fused_separator_fn``, ``sep_post=device``)
 with the ARU-Net's low-channel 3x3 convs on K1.
 
-The stage stops at the per-page separator polygons: one dict
+Per page the chain ends in one polygons dict
 ``{"SeparatorRegion_horizontal": [...], "SeparatorRegion_vertical": [...]}``
-per page, rescaled to the original page — the dict the JAX stage hands to
-its PAGE-XML writer.
+rescaled to the original page. Given image files, the stage hands that dict
+to the PAGE-XML writer (``stages/separator_writer.py``: text lines split at
+vertical separators, SeparatorRegions added) and saves
+``page/<name>.xml.xml``; given in-memory pages it returns the dicts.
+
+Not ported: the JAX package's host C post-processing branch, its device
+buffer pinning and its asynchronous readback prefetch.
 """
 from __future__ import annotations
 
 import time
 from contextlib import contextmanager
-from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,9 +30,14 @@ import torch.nn.functional as F
 from citlab_as_tpu_torch.ops.connected_components import remove_small_components
 from citlab_as_tpu_torch.ops.contours import trace_contours
 from citlab_as_tpu_torch.ops.kernels.separator_morphology import separator_morphology
-from citlab_as_tpu_torch.ops.resize import get_scaling_factor, resize_image
+from citlab_as_tpu_torch.ops.resize import get_scaling_factor, resize_image, scale_image
 from citlab_as_tpu_torch.pagexml.constants import SEPARATORREGION
+from citlab_as_tpu_torch.stages.separator_writer import SeparatorRegionToPageWriter
 from citlab_as_tpu_torch.utils.faults import page_guard
+from citlab_as_tpu_torch.utils.io import get_page_path, load_image, load_list_file
+from citlab_as_tpu_torch.utils.logging import setup_custom_logger
+
+logger = setup_custom_logger(__name__)
 
 MIN_CC_SIZE = 100
 
@@ -95,6 +105,20 @@ def separator_post_process(binary: np.ndarray, device: torch.device
             "vertical": vertical[0].cpu().numpy()}
 
 
+def resized_prob_u8(model: torch.nn.Module, img_u8: torch.Tensor, out_h: int,
+                    out_w: int, pad_multiple: int = 64) -> torch.Tensor:
+    """Original uint8 pages [B, H0, W0] -> the net's channel-0 probability
+    map at [B, out_h, out_w], quantized to uint8 (``.to(uint8)`` truncates,
+    as the reference's uint8 round trip does): resize, zero-pad to a
+    multiple of ``pad_multiple``, forward, softmax, crop."""
+    x = img_u8.to(torch.float32)
+    if (out_h, out_w) != tuple(x.shape[1:]):
+        x = resize_image(x, out_h, out_w)
+    x = F.pad(x, (0, -out_w % pad_multiple, 0, -out_h % pad_multiple))
+    probs = torch.softmax(model(x[..., None] / 255.0), dim=-1)
+    return (probs[:, :out_h, :out_w, 0] * 255.0).to(torch.uint8)
+
+
 def make_fused_separator_fn(model: torch.nn.Module) -> Callable:
     """The whole device chain for one group: original uint8 pages
     [B, H0, W0] in, bit-packed masks [2, B, out_h, ceil(out_w/8)] out
@@ -108,12 +132,7 @@ def make_fused_separator_fn(model: torch.nn.Module) -> Callable:
               phase: Optional[Dict[str, float]] = None) -> torch.Tensor:
         dev = img_u8.device
         with _phase(phase, "resize+forward", dev):
-            x = img_u8.to(torch.float32)
-            if (out_h, out_w) != tuple(x.shape[1:]):
-                x = resize_image(x, out_h, out_w)
-            x = F.pad(x, (0, -out_w % pad_multiple, 0, -out_h % pad_multiple))
-            probs = torch.softmax(model(x[..., None] / 255.0), dim=-1)
-            net_u8 = (probs[:, :out_h, :out_w, 0] * 255.0).to(torch.uint8)
+            net_u8 = resized_prob_u8(model, img_u8, out_h, out_w, pad_multiple)
             binary = net_u8.to(torch.float32) > threshold * 255.0
         with _phase(phase, "cc", dev):
             cleaned = remove_small_components(binary, MIN_CC_SIZE)
@@ -146,24 +165,44 @@ def rescale_polygons_dict(polygons_dict: Dict[str, list],
 
 
 class SeparatorNetPostProcessor:
-    """Separator detection over in-memory pages.
+    """Separator detection over image files or in-memory pages.
 
-    ``images``: uint8 grayscale pages [H, W]; ``names``: one key per page
-    (default "0", "1", ...), used by the per-page fault hook.
+    ``image_list``: image paths (a list, or the path of a list file) — the
+    stage then reads ``page/<name>.xml`` beside each image (or the matching
+    entry of ``page_paths``), writes the separators into it and saves it as
+    ``<page path>.xml``; the run methods return the Page objects. Or uint8
+    grayscale pages [H, W] — the run methods then return one rescaled
+    polygons dict per page and write nothing; ``names`` gives one key per
+    page (default "0", "1", ...) for the per-page fault hook.
     ``predictor``: an ``inference.SegmentationPredictor`` (its ``model``
-    and ``device`` run the chain). :meth:`run_batched` returns one rescaled
-    polygons dict per page, in input order (None for a page skipped by the
-    fault hook).
+    and ``device`` run the chain). Results come in input order, None for a
+    page skipped by the fault hook.
     """
 
-    def __init__(self, images: Sequence[np.ndarray], predictor,
-                 fixed_height: Optional[int] = 1500, scaling_factor: float = 1.0,
-                 threshold: float = 0.05, names: Optional[Sequence[str]] = None):
-        self.images = list(images)
-        self.names = ([str(i) for i in range(len(self.images))]
-                      if names is None else list(names))
+    def __init__(self, image_list: Union[str, Sequence[str], Sequence[np.ndarray]],
+                 predictor, fixed_height: Optional[int] = 1500,
+                 scaling_factor: float = 1.0, threshold: float = 0.05,
+                 names: Optional[Sequence[str]] = None,
+                 page_paths: Optional[Sequence[str]] = None):
+        if isinstance(image_list, str):
+            image_list = load_list_file(image_list)
+        self.images = list(image_list)
+        self.from_files = bool(self.images) and isinstance(self.images[0], str)
+        if self.from_files:
+            if names is not None:
+                raise ValueError("names belong to in-memory pages; image "
+                                 "files are keyed by their paths")
+            self.names = list(self.images)
+        else:
+            self.names = ([str(i) for i in range(len(self.images))]
+                          if names is None else list(names))
         if len(self.names) != len(self.images) or len(set(self.names)) != len(self.names):
             raise ValueError("names must be unique, one per image")
+        if page_paths is not None and not (
+                self.from_files and len(page_paths) == len(self.images)):
+            raise ValueError("page_paths must match an image_list of files")
+        self.page_paths = (dict(zip(self.images, page_paths))
+                           if page_paths is not None else None)
         self.predictor = predictor
         self.fixed_height = fixed_height
         self.scaling_factor = scaling_factor
@@ -173,14 +212,90 @@ class SeparatorNetPostProcessor:
         # (name, stage, exc) switches to the log-and-skip contract
         self.on_page_error = None
 
+    @property
+    def image_paths(self) -> List[str]:
+        if not self.from_files:
+            raise AttributeError("in-memory pages have no paths")
+        return self.images
+
+    def _page_path_for(self, image_path: str) -> str:
+        if self.page_paths is not None:
+            return self.page_paths[image_path]
+        return get_page_path(image_path)
+
+    def _write_page(self, image_path: str, polygons_dict):
+        """Merge the polygons into the page's PAGE-XML and save it as
+        ``<page path>.xml``; returns the Page object."""
+        page_path = self._page_path_for(image_path)
+        writer = SeparatorRegionToPageWriter(
+            page_path, image_path, self.fixed_height, self.scaling_factor,
+            polygons_dict)
+        writer.remove_separator_regions_from_page()
+        writer.merge_regions()
+        logger.debug("Saving separator results to %s.xml", page_path)
+        writer.save_page_xml(page_path + ".xml")
+        return writer.page_object
+
+    def _finish(self, name: str, polygons_dict,
+                phase: Optional[Dict[str, float]] = None):
+        """What a page's result is: the written Page for an image file, the
+        polygons dict for an in-memory page."""
+        if not self.from_files:
+            return polygons_dict
+        t0 = time.perf_counter()
+        page = self._write_page(name, polygons_dict)
+        if phase is not None:
+            phase["write"] = phase.get("write", 0.0) + time.perf_counter() - t0
+        return page
+
+    def process_image(self, image_grey: np.ndarray, sc: float) -> Dict[str, list]:
+        """Forward + post-processing for one scaled grayscale page in
+        [0, 1]: the rescaled polygons dict."""
+        net_output = np.asarray(self.predictor(image_grey))
+        net_output = np.asarray(net_output * 255, dtype=np.uint8)
+        binary = apply_threshold(net_output[..., 0], self.threshold)
+        masks = separator_post_process(binary, self.predictor.device)
+        polygons_dict = {}
+        for separator_type, mask in masks.items():
+            polygons_dict.update(masks_to_polygons(mask, separator_type))
+        return rescale_polygons_dict(polygons_dict, 1.0 / sc)
+
+    def run(self) -> List:
+        """Page by page, resized on the host: the forward through the
+        predictor's own call, then CC filter and morphology on its device."""
+        results: Dict[str, object] = {}
+        for image, name in zip(self.images, self.names):
+            def run_one(image=image, name=name):
+                if isinstance(image, str):
+                    image = load_image(image, mode="L")
+                scaled, sc = scale_image(
+                    torch.from_numpy(np.array(image, np.float32)),
+                    self.fixed_height, self.scaling_factor)
+                polygons_dict = self.process_image(scaled.numpy() / 255.0, sc)
+                results[name] = self._finish(name, polygons_dict)
+            page_guard(self.on_page_error, name, "separator", run_one)
+        return [results.get(name) for name in self.names]
+
     @staticmethod
-    def group_by_shape(images: Sequence[np.ndarray], names: Sequence[str],
-                       max_batch: int
+    def group_by_shape(images: Sequence[Union[str, np.ndarray]],
+                       names: Sequence[str], max_batch: int, on_error=None
                        ) -> Iterator[Tuple[List[np.ndarray], List[str]]]:
-        """Consecutive same-shape page groups of at most ``max_batch``."""
+        """Consecutive same-shape page groups of at most ``max_batch``, as
+        (images, names). An entry of ``images`` that is a path is loaded
+        here, lazily, so a large corpus holds one group of images in
+        memory; ``on_error(name, "load", exc)`` switches a load failure
+        (truncated or unreadable image) to the log-and-skip contract."""
         group: List[np.ndarray] = []
         chunk: List[str] = []
         for image, name in zip(images, names):
+            if isinstance(image, str):
+                try:
+                    image = np.asarray(load_image(image, mode="L"), np.uint8)
+                except Exception as e:  # noqa: BLE001 - the skip contract
+                    if on_error is None:
+                        raise
+                    on_error(name, "load", e)
+                    continue
             if group and (group[0].shape != image.shape or len(group) >= max_batch):
                 yield group, chunk
                 group, chunk = [], []
@@ -215,10 +330,11 @@ class SeparatorNetPostProcessor:
             phase["readback"] = phase.get("readback", 0.0) + time.perf_counter() - t0
         return chunk, hv[0], hv[1], out_w, scales
 
-    def fused_drain(self, entry, results: Dict[str, dict],
+    def fused_drain(self, entry, results: Dict[str, object],
                     phase: Optional[Dict[str, float]] = None) -> None:
         """Materialize one group and do the host tail: unpack, contour
-        trace, rescale into ``results[name]``."""
+        trace, rescale, and for image files write PAGE-XML, into
+        ``results[name]``."""
         chunk, h_packed, v_packed, out_w, scales = self.fused_materialize(entry, phase)
         for i, (name, sc) in enumerate(zip(chunk, scales)):
             def drain_one(i=i, name=name, sc=sc):
@@ -228,23 +344,34 @@ class SeparatorNetPostProcessor:
                                                ("vertical", v_packed[i])):
                     polygons_dict.update(masks_to_polygons(
                         unpack_mask_bits(packed, out_w), separator_type))
-                results[name] = rescale_polygons_dict(polygons_dict, 1.0 / sc)
+                polygons_dict = rescale_polygons_dict(polygons_dict, 1.0 / sc)
                 if phase is not None:
                     phase["contours"] = (phase.get("contours", 0.0)
                                          + time.perf_counter() - t0)
+                results[name] = self._finish(name, polygons_dict, phase)
             page_guard(self.on_page_error, name, "separator", drain_one)
 
-    def run_batched(self, batch_size: int = 4,
-                    phase: Optional[Dict[str, float]] = None) -> List[Optional[dict]]:
+    def run_batched_fused(self, batch_size: int = 4,
+                          phase: Optional[Dict[str, float]] = None
+                          ) -> List[Optional[object]]:
         """The fused device chain over same-shape groups of ``batch_size``
         pages, two deep: the next group is dispatched before the previous
-        one is drained. ``phase`` (optional) collects seconds per phase —
-        resize+forward, cc, morphology, readback, contours — with a device
-        sync around each device phase."""
-        results: Dict[str, dict] = {}
+        one is drained, so contour tracing and PAGE-XML writing overlap the
+        device's work. ``phase`` (optional) collects seconds per phase —
+        load, resize+forward, cc, morphology, readback, contours, write —
+        with a device sync around each device phase."""
+        results: Dict[str, object] = {}
         in_flight = None
-        for images, chunk in self.group_by_shape(self.images, self.names,
-                                                 batch_size):
+        groups = iter(self.group_by_shape(self.images, self.names, batch_size,
+                                          on_error=self.on_page_error))
+        while True:
+            t0 = time.perf_counter()
+            group = next(groups, None)
+            if phase is not None and self.from_files:
+                phase["load"] = phase.get("load", 0.0) + time.perf_counter() - t0
+            if group is None:
+                break
+            images, chunk = group
             entry = page_guard(self.on_page_error, ",".join(chunk), "separator",
                                lambda: self.fused_dispatch(images, chunk, phase))
             if in_flight is not None:
@@ -253,3 +380,6 @@ class SeparatorNetPostProcessor:
         if in_flight is not None:
             self.fused_drain(in_flight, results, phase)
         return [results.get(name) for name in self.names]
+
+    # the stage's batched path is the fused device chain on every device
+    run_batched = run_batched_fused

@@ -1,0 +1,376 @@
+"""File/path helpers (port of ``citlab_as_tpu/utils/io.py``): images live
+next to a ``page/`` folder holding ``<name>.xml``; graph features in
+``json*/<name>.json``; confidences in
+``confidences/<name>_confidences.json``.
+
+Images are decoded with the standard library and numpy (the JAX package
+uses PIL): non-interlaced PNG of every colour type with up to 8 bits per sample,
+binary PGM/PPM
+and ``.npy``. Any other format raises :class:`UnsupportedImageFormat`
+naming it; nothing falls back.
+"""
+from __future__ import annotations
+
+import glob
+import os
+import re
+import struct
+import zlib
+from typing import List
+
+import numpy as np
+
+_IMG_ENDINGS = ("tif", "jpg", "png")
+
+
+def load_text_file(filename: str) -> List[str]:
+    out = []
+    with open(filename, "r") as f:
+        for line in f:
+            out.append(line if line == "\n" else line.strip())
+    return out
+
+
+def load_list_file(path_to_list: str) -> List[str]:
+    with open(path_to_list, "r") as f:
+        return [line.rstrip() for line in f.readlines()]
+
+
+def get_page_path(image_path: str, page_folder_name: str = "page",
+                  append_extension: bool = False) -> str:
+    """Image path -> sibling ``page/<name>.xml`` (file_loader.py:23-36)."""
+    dir_name = os.path.dirname(image_path)
+    image_name = os.path.basename(image_path)
+    if append_extension:
+        return os.path.join(dir_name, page_folder_name, image_name + ".xml")
+    return os.path.join(dir_name, page_folder_name, os.path.splitext(image_name)[0] + ".xml")
+
+
+_IMAGE_CACHE: "dict" = {}
+_IMAGE_CACHE_MAX = 16
+
+
+class UnsupportedImageFormat(ValueError):
+    """The file is not an image format this package decodes."""
+
+
+_PNG_SIG = b"\x89PNG\r\n\x1a\n"
+_PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+_MAGICS = ((b"\xff\xd8", "JPEG"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
+           (b"GIF8", "GIF"), (b"BM", "BMP"), (b"\x00\x00\x00\x0cjP", "JPEG 2000"),
+           (b"RIFF", "WebP/RIFF"))
+
+
+def _format_name(head: bytes, path: str) -> str:
+    for magic, name in _MAGICS:
+        if head.startswith(magic):
+            return name
+    ext = os.path.splitext(path)[1]
+    return f"unknown ({ext or 'no extension'})"
+
+
+def _png_chunks(data: bytes):
+    pos = len(_PNG_SIG)
+    while pos + 8 <= len(data):
+        length, kind = struct.unpack(">I4s", data[pos:pos + 8])
+        yield kind, data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+
+
+def _png_header(data: bytes, path: str):
+    kind, ihdr = next(_png_chunks(data), (b"", b""))
+    if kind != b"IHDR" or len(ihdr) != 13:
+        raise UnsupportedImageFormat(f"{path}: PNG without a leading IHDR chunk")
+    w, h, depth, ctype, _, _, interlace = struct.unpack(">IIBBBBB", ihdr)
+    return w, h, depth, ctype, interlace
+
+
+def _png_unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
+    """Undo the five PNG scanline filters; returns [h, w * bpp] uint8.
+
+    None, Sub and Up are whole-row operations. Average and Paeth predict a
+    byte from its left, upper and upper-left neighbours, so the pixels of
+    one anti-diagonal are independent of each other: the image is skewed
+    (row y shifted right by y pixels) and reconstructed column by column."""
+    stride = w * bpp
+    lines = np.frombuffer(raw, np.uint8, h * (stride + 1)).reshape(h, stride + 1)
+    filters = lines[:, 0]
+    if filters.max(initial=0) > 4:
+        raise UnsupportedImageFormat(
+            f"PNG scanline filter {int(filters.max())} does not exist")
+    if not filters.any():
+        return lines[:, 1:]
+    if filters.max() <= 2:
+        out = lines[:, 1:].copy()
+        prev = np.zeros(stride, np.uint8)
+        for y in range(h):
+            row = out[y]
+            if filters[y] == 1:            # Sub: running sum per byte lane
+                px = row.reshape(w, bpp)
+                np.cumsum(px, axis=0, dtype=np.uint8, out=px)
+            elif filters[y] == 2:          # Up
+                row += prev
+            prev = row
+        return out
+
+    px = lines[:, 1:].reshape(h, w, bpp)
+    skew = np.zeros((h, h + w, bpp), np.int16)         # skew[y, y + i] = px[y, i]
+    for y in range(h):
+        skew[y, y:y + w] = px[y]
+    rec = np.zeros((h + 1, h + w + 1, bpp), np.int16)  # rec[y + 1, y + i + 2]
+    is_sub, is_up, is_avg, is_paeth = (
+        (filters == k).astype(np.int16)[:, None] for k in (1, 2, 3, 4))
+    for d in range(h + w - 1):
+        y0, y1 = max(0, d - w + 1), min(h - 1, d) + 1
+        left = rec[y0 + 1:y1 + 1, d + 1]
+        up = rec[y0:y1, d + 1]
+        upleft = rec[y0:y1, d]
+        p = left + up - upleft
+        pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - upleft)
+        paeth = np.where((pa <= pb) & (pa <= pc), left,
+                         np.where(pb <= pc, up, upleft))
+        pred = (is_sub[y0:y1] * left + is_up[y0:y1] * up
+                + is_avg[y0:y1] * ((left + up) >> 1) + is_paeth[y0:y1] * paeth)
+        rec[y0 + 1:y1 + 1, d + 2] = (skew[y0:y1, d] + pred) & 255
+    out = np.empty((h, w, bpp), np.uint8)
+    for y in range(h):
+        out[y] = rec[y + 1, y + 2:y + 2 + w]
+    return out.reshape(h, stride)
+
+
+def _decode_png(data: bytes, path: str) -> np.ndarray:
+    """[H, W] grey, [H, W, 2] grey+alpha, [H, W, 3] RGB or [H, W, 4] RGBA
+    uint8 (a palette image is expanded to RGB, or RGBA with a tRNS chunk)."""
+    w, h, depth, ctype, interlace = _png_header(data, path)
+    if ctype not in _PNG_CHANNELS:
+        raise UnsupportedImageFormat(f"{path}: PNG colour type {ctype}")
+    if depth == 16 or (depth < 8 and ctype not in (0, 3)):
+        raise UnsupportedImageFormat(
+            f"{path}: {depth}-bit PNG (samples of at most 8 bits are decoded)")
+    if interlace:
+        raise UnsupportedImageFormat(f"{path}: interlaced (Adam7) PNG")
+    idat, palette, trns = [], None, None
+    for kind, body in _png_chunks(data):
+        if kind == b"IDAT":
+            idat.append(body)
+        elif kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+        elif kind == b"tRNS":
+            trns = np.frombuffer(body, np.uint8)
+        elif kind == b"IEND":
+            break
+    ch = _PNG_CHANNELS[ctype]
+    raw = zlib.decompress(b"".join(idat))
+    if depth == 8:
+        px = _png_unfilter(raw, h, w, ch)
+    else:
+        # 1, 2 or 4 bits per sample (grey or palette): the filters work on
+        # whole bytes; samples are packed most significant first
+        packed = _png_unfilter(raw, h, -(-w * depth // 8), 1)
+        bits = np.unpackbits(packed, axis=1)[:, :w * depth].reshape(h, w, depth)
+        px = bits @ (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        if ctype == 0:
+            px = px * (255 // ((1 << depth) - 1))
+        px = px.astype(np.uint8)
+    if ctype == 3:
+        if palette is None:
+            raise UnsupportedImageFormat(f"{path}: palette PNG without PLTE")
+        rgb = palette[px]
+        if trns is None:
+            return rgb
+        alpha = np.full(len(palette), 255, np.uint8)
+        alpha[:len(trns)] = trns[:len(palette)]
+        return np.concatenate([rgb, alpha[px][..., None]], axis=-1)
+    return px if ch == 1 else px.reshape(h, w, ch)
+
+
+def _decode_pnm(data: bytes, path: str) -> np.ndarray:
+    tokens = []
+    pos = 2
+    while len(tokens) < 3:
+        m = re.compile(rb"\s*(?:#[^\n]*\n\s*)*(\d+)").match(data, pos)
+        if m is None:
+            raise UnsupportedImageFormat(f"{path}: malformed PNM header")
+        tokens.append(int(m.group(1)))
+        pos = m.end()
+    w, h, maxval = tokens
+    if maxval > 255:
+        raise UnsupportedImageFormat(f"{path}: 16-bit PNM")
+    ch = 1 if data[:2] == b"P5" else 3
+    px = np.frombuffer(data, np.uint8, h * w * ch, pos + 1)
+    return px.reshape(h, w) if ch == 1 else px.reshape(h, w, ch)
+
+
+def _decode(path: str) -> np.ndarray:
+    if path.endswith(".npy"):
+        arr = np.load(path)
+        if arr.dtype != np.uint8 or arr.ndim not in (2, 3):
+            raise UnsupportedImageFormat(
+                f"{path}: .npy image must be uint8 [H, W] or [H, W, C]")
+        return arr
+    with open(path, "rb") as f:
+        data = f.read()
+    if data.startswith(_PNG_SIG):
+        return _decode_png(data, path)
+    if data[:2] in (b"P5", b"P6"):
+        return _decode_pnm(data, path)
+    raise UnsupportedImageFormat(
+        f"{path}: image format {_format_name(data[:16], path)} is not "
+        "supported (non-interlaced PNG up to 8 bits per sample, binary "
+        "PGM/PPM, .npy)")
+
+
+def _to_mode(arr: np.ndarray, mode: str) -> np.ndarray:
+    """uint8 image -> 'L' [H, W] or 'RGB' [H, W, 3]. Alpha is dropped; grey
+    from colour is ITU-R 601-2 luma in 16-bit fixed point,
+    ``(R*19595 + G*38470 + B*7471 + 0x8000) >> 16``."""
+    ch = 1 if arr.ndim == 2 else arr.shape[2]
+    if ch in (2, 4):
+        arr = arr[..., :ch - 1]
+        ch -= 1
+    if ch == 1:
+        grey = arr.reshape(arr.shape[:2])
+        if mode == "L":
+            return np.ascontiguousarray(grey)
+        return np.repeat(grey[..., None], 3, axis=-1)
+    if mode == "RGB":
+        return np.ascontiguousarray(arr)
+    rgb = arr.astype(np.uint32)
+    luma = (rgb[..., 0] * 19595 + rgb[..., 1] * 38470 + rgb[..., 2] * 7471
+            + 0x8000) >> 16
+    return luma.astype(np.uint8)
+
+
+def image_size(path_to_image: str):
+    """(width, height) without decoding the pixels."""
+    if path_to_image.endswith(".npy"):
+        arr = np.load(path_to_image, mmap_mode="r")
+        return int(arr.shape[1]), int(arr.shape[0])
+    with open(path_to_image, "rb") as f:
+        head = f.read(64)
+        if head.startswith(_PNG_SIG):
+            w, h = _png_header(head, path_to_image)[:2]
+            return w, h
+        if head[:2] in (b"P5", b"P6"):
+            arr = _decode_pnm(head + f.read(), path_to_image)
+            return int(arr.shape[1]), int(arr.shape[0])
+    raise UnsupportedImageFormat(
+        f"{path_to_image}: image format {_format_name(head, path_to_image)} "
+        "is not supported (non-interlaced PNG up to 8 bits per sample, "
+        "binary PGM/PPM, .npy)")
+
+
+def load_image(path_to_image: str, mode: str = "L") -> np.ndarray:
+    """Load an image as a numpy array (grayscale 'L' or 'RGB').
+
+    Bounded mtime-keyed LRU: in one workflow pass several stages load the
+    same page image; the second and later loads are free. Results are
+    read-only views."""
+    if mode not in ("L", "RGB"):
+        raise ValueError(f"mode must be 'L' or 'RGB', got {mode!r}")
+    key = (os.path.abspath(path_to_image), mode)
+    try:
+        mtime = os.path.getmtime(path_to_image)
+    except OSError:
+        mtime = None
+    entry = _IMAGE_CACHE.get(key)
+    if entry is not None and entry[0] == mtime:
+        _IMAGE_CACHE[key] = _IMAGE_CACHE.pop(key)   # LRU bump
+        return entry[1]
+    arr = _to_mode(_decode(path_to_image), mode)
+    arr.flags.writeable = False
+    _IMAGE_CACHE[key] = (mtime, arr)
+    while len(_IMAGE_CACHE) > _IMAGE_CACHE_MAX:
+        _IMAGE_CACHE.pop(next(iter(_IMAGE_CACHE)))
+    return arr
+
+
+def save_png(path: str, image: np.ndarray) -> None:
+    """Write a uint8 [H, W] (grey) or [H, W, 3] (RGB) array as an 8-bit
+    non-interlaced PNG with filter 0 on every scanline."""
+    image = np.ascontiguousarray(image, np.uint8)
+    h, w = image.shape[:2]
+    ctype = {2: 0, 3: 2}[image.ndim]
+    rows = np.zeros((h, 1 + image[0].size), np.uint8)
+    rows[:, 1:] = image.reshape(h, -1)
+
+    def chunk(kind: bytes, body: bytes) -> bytes:
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+
+    with open(path, "wb") as f:
+        f.write(_PNG_SIG
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
+                + chunk(b"IEND", b""))
+
+
+def get_img_from_page_path(page_path: str) -> str:
+    """page/<name>.xml -> the sibling image file (path_util.py:15-31)."""
+    base = re.sub(r"/page/([-\w.]+)\.xml$", r"/\1", page_path)
+    if base.endswith(_IMG_ENDINGS) and os.path.isfile(base):
+        return base
+    for ending in _IMG_ENDINGS:
+        candidate = re.sub(r"/page/([-\w.]+)\.xml$", r"/\1." + ending, page_path)
+        if os.path.isfile(candidate):
+            return candidate
+    raise IOError(f"No image file (tif, png, jpg) found for page xml {page_path}")
+
+
+def get_img_from_json_path(json_path: str) -> str:
+    base = re.sub(r"/json\w*/([-\w.]+)\.json$", r"/\1", json_path)
+    if base.endswith(_IMG_ENDINGS) and os.path.isfile(base):
+        return base
+    stems = [base]
+    if base.endswith(".xml"):     # jsons named <page>.xml.json
+        stems.append(base[:-4])
+    for stem in stems:
+        for ending in _IMG_ENDINGS:
+            candidate = f"{stem}.{ending}"
+            if os.path.isfile(candidate):
+                return candidate
+    raise IOError(f"No image file (tif, png, jpg) found for json {json_path}")
+
+
+def get_page_from_img_path(img_path: str) -> str:
+    page_path = re.sub(r"/([-\w.]+)$", r"/page/\1.xml", img_path)
+    if os.path.isfile(page_path):
+        return page_path
+    page_path = re.sub(r"/([-\w.]+)\.\w+$", r"/page/\1.xml", img_path)
+    if not os.path.isfile(page_path):
+        raise IOError(f"No page xml found for image {img_path}")
+    return page_path
+
+
+def get_page_from_json_path(json_path: str) -> str:
+    page_path = re.sub(r"/json\w*/([-\w.]+)$", r"/page/\1.xml", json_path)
+    if os.path.isfile(page_path):
+        return page_path
+    page_path = re.sub(r"/json\w*/([-\w.]+)\.json$", r"/page/\1.xml", json_path)
+    if not os.path.isfile(page_path):
+        raise IOError(f"No page xml found for json {json_path}")
+    return page_path
+
+
+def get_page_from_conf_path(conf_path: str) -> str:
+    page_path = re.sub(r"/confidences/([-\w.]+)_confidences\.json$", r"/page/\1.xml", conf_path)
+    if not os.path.isfile(page_path):
+        raise IOError(f"No page xml found for confidence json {conf_path}")
+    return page_path
+
+
+def get_path_from_exportdir(model_dir: str, pattern: str, not_pattern: str) -> str:
+    """Find the single exported model file matching ``pattern`` in
+    <model_dir>/export (path_util.py:6-12)."""
+    export_dir = os.path.join(model_dir, "export")
+    names = [x for x in glob.glob1(export_dir, pattern) if not_pattern not in x]
+    if len(names) != 1:
+        raise IOError(
+            f"Found {len(names)} '{pattern}' files in {export_dir}, there must be exactly one.")
+    return os.path.join(export_dir, names[0])
+
+
+def prepend_folder_name(file_path: str) -> str:
+    folder_path = os.path.dirname(file_path)
+    return os.path.join(
+        folder_path, os.path.basename(folder_path) + "_" + os.path.basename(file_path))

@@ -9,6 +9,11 @@ arrays. The port reads the file with numpy and maps it through
 
     python scripts/convert_weights_to_torch.py \
         --model_dir models_ckpt/separator --out models_ckpt_torch/separator.npz
+    python scripts/convert_weights_to_torch.py \
+        --model_dir models_ckpt/heading --out models_ckpt_torch/heading.npz
+
+Both committed ARU-Nets (separator, heading) have the same architecture; the
+defaults convert the separator's.
 """
 from __future__ import annotations
 

@@ -1,21 +1,27 @@
-"""Device-time breakdown of the port's separator stage on a CUDA card.
+"""Device-time breakdown of the port's stages on a CUDA card.
 
 Runs the main path of ``chip_smoke.py`` (8 synthetic 2000 x 1420 pages,
 fixed_height 1500, groups of 4, bf16, the converted separator weights)
 once to warm up, then once under ``torch.profiler`` with the stage's phase
-timing on (a device sync around each device phase), and prints:
+timing on (a device sync around each device phase). With ``--path files``
+it runs ``chip_smoke.py``'s files-to-files path instead: the separator
+stage from PNG and PAGE-XML files, then the heading stage (fixed_height
+900, the converted heading weights) chained onto its output pages; the
+heading stage's phases are listed as ``heading <phase>``. It prints:
 
 - the wall time of the profiled run and the device's busy share (the union
   of the CUDA kernel and memcpy intervals over that wall time);
-- per phase (resize+forward, cc, morphology): wall time, device busy time
-  inside it, and the number of device events;
-- the CC fixpoint's host syncs (one per iteration, labeling and size
-  propagation together) over the run;
+- per device phase: wall time, device busy time inside it, and the number
+  of device events;
+- the fixpoints' host syncs over the run (``Tensor.any``, one per
+  iteration): ``cc_host_syncs`` of the CC filter's labeling and size
+  propagation, ``line_feature_host_syncs`` of the line features' sweeps;
 - device time of the port's own kernels (K1 ``conv3x3``, K2
   ``separator_morphology``), summed over their instantiations;
 - device time per kernel name, largest first.
 
-    python3 scripts/profile_torch_separator.py [--out build/profile_separator.json]
+    python3 scripts/profile_torch_separator.py [--path memory|files]
+        [--out build/profile_separator.json]
 
 Imports only the port (``citlab_as_tpu_torch``) and ``chip_smoke`` for its
 page generator.
@@ -32,6 +38,7 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("resize+forward", "cc", "morphology")
+HEADING_PHASES = ("resize+forward", "otsu+edt", "line features")
 
 
 def _union_us(intervals):
@@ -55,6 +62,7 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=os.path.join(REPO, "build",
                                                       "profile_separator.json"))
     parser.add_argument("--top", type=int, default=25)
+    parser.add_argument("--path", choices=("memory", "files"), default="memory")
     args = parser.parse_args(argv)
     sys.path.insert(0, REPO)
     import torch
@@ -62,38 +70,75 @@ def main(argv=None) -> int:
 
     import chip_smoke as cs
     from citlab_as_tpu_torch.inference import SegmentationPredictor
+    from citlab_as_tpu_torch.ops import swt_device
     from citlab_as_tpu_torch.stages import separator as sep
 
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    pages, _ = cs.synthetic_pages(cs.N_PAGES, *cs.PAGE_SHAPE, seed=7)
     pred = SegmentationPredictor(os.path.join(REPO, "models_ckpt_torch", "separator.npz"),
                                  dtype=torch.bfloat16, device=dev)
+    root = None
+    if args.path == "memory":
+        pages, _ = cs.synthetic_pages(cs.N_PAGES, *cs.PAGE_SHAPE, seed=7)
+        phase_names = list(PHASES)
 
-    def run():
-        phase = {}
-        sep.SeparatorNetPostProcessor(pages, pred, fixed_height=cs.FIXED_HEIGHT,
-                                      threshold=cs.THRESHOLD).run_batched(cs.BATCH, phase)
-        torch.cuda.synchronize()
-        return phase
+        def run():
+            phase = {}
+            sep.SeparatorNetPostProcessor(pages, pred, fixed_height=cs.FIXED_HEIGHT,
+                                          threshold=cs.THRESHOLD).run_batched(cs.BATCH, phase)
+            torch.cuda.synchronize()
+            return phase
+    else:
+        import tempfile
+
+        from citlab_as_tpu_torch.pagexml.page import page_cache
+        from citlab_as_tpu_torch.stages import heading
+        from citlab_as_tpu_torch.utils import io as port_io
+        root = tempfile.mkdtemp(prefix="profile_torch_")
+        pages, _, layouts = cs.synthetic_newspaper(cs.N_PAGES, *cs.PAGE_SHAPE, seed=11)
+        paths = cs.write_corpus(root, pages, layouts)
+        head_pred = SegmentationPredictor(
+            os.path.join(REPO, "models_ckpt_torch", "heading.npz"),
+            dtype=torch.bfloat16, device=dev)
+        phase_names = list(PHASES) + ["heading " + p for p in HEADING_PHASES]
+
+        def run():
+            port_io._IMAGE_CACHE.clear()
+            phase, head_phase = {}, {}
+            stage = sep.SeparatorNetPostProcessor(paths, pred, fixed_height=cs.FIXED_HEIGHT,
+                                                  threshold=cs.THRESHOLD)
+            stage.run_batched_fused(cs.BATCH, phase)
+            outs = [stage._page_path_for(p) + ".xml" for p in paths]
+            with page_cache():
+                heading.HeadingNetPostProcessor(
+                    paths, head_pred, fixed_height=cs.HEADING_FIXED_HEIGHT,
+                    page_paths=outs, save_suffix="").run_batched_fused(cs.BATCH, head_phase)
+            torch.cuda.synchronize()
+            phase.update({"heading " + k: v for k, v in head_phase.items()})
+            return phase
 
     run()
     # label each device phase for the trace (inside the stage's own syncs),
-    # and count the CC fixpoint's per-iteration host syncs (Tensor.any)
+    # and count the fixpoints' per-iteration host syncs (Tensor.any)
     orig_phase, orig_any = sep._phase, torch.Tensor.any
     syncs = []
 
-    @contextlib.contextmanager
-    def labelled_phase(phase, name, device):
-        with orig_phase(phase, name, device), record_function("phase:" + name):
-            yield
+    def labelled(prefix):
+        @contextlib.contextmanager
+        def labelled_phase(phase, name, device):
+            with orig_phase(phase, name, device), record_function("phase:" + prefix + name):
+                yield
+        return labelled_phase
 
     def counting_any(self, *a, **k):
         syncs.append(1)
         return orig_any(self, *a, **k)
 
-    sep._phase, torch.Tensor.any = labelled_phase, counting_any
+    sep._phase, torch.Tensor.any = labelled(""), counting_any
+    swt_device.reset_counts()
+    if args.path == "files":
+        heading._phase = labelled("heading ")
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -101,15 +146,19 @@ def main(argv=None) -> int:
             wall_s = time.perf_counter() - t0
     finally:
         sep._phase, torch.Tensor.any = orig_phase, orig_any
+        if args.path == "files":
+            import shutil
+            heading._phase = orig_phase
+            shutil.rmtree(root, ignore_errors=True)
 
-    intervals, by_name, windows = [], {}, {p: [] for p in PHASES}
+    intervals, by_name, windows = [], {}, {p: [] for p in phase_names}
     for e in prof.events():
         on_device = e.device_type == torch.autograd.DeviceType.CUDA
         if e.name.startswith("phase:"):
             # record_function also leaves a device-side annotation range of
             # the same name: a label, not device work
             if not on_device:
-                windows[e.name[len("phase:"):]].append(
+                windows.setdefault(e.name[len("phase:"):], []).append(
                     (e.time_range.start, e.time_range.end))
         elif on_device:
             s, t = e.time_range.start, e.time_range.end
@@ -127,10 +176,13 @@ def main(argv=None) -> int:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:args.top]
     result = {
         "device": torch.cuda.get_device_name(0), "nvidia_smi": smi.stdout.strip(),
-        "torch": torch.__version__, "pages": cs.N_PAGES, "batch": cs.BATCH,
+        "torch": torch.__version__, "path": args.path, "pages": cs.N_PAGES,
+        "batch": cs.BATCH,
         "wall_s": wall_s, "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / 1e6 / wall_s,
-        "device_events": len(intervals), "cc_host_syncs": len(syncs),
+        "device_events": len(intervals), 
+        "cc_host_syncs": len(syncs) - swt_device.COUNTS["syncs"],
+        "line_feature_host_syncs": swt_device.COUNTS["syncs"],
         "phase_wall_s": phase, "per_phase": per_phase,
         "port_kernels_ms": {family: sum(us for name, us in by_name.items()
                                         if family in name) / 1e3

@@ -88,3 +88,89 @@ def test_separator_morphology_kernel_matches_plain(cuda, kernels, hw, dtype):
     # a batch element that starts off a 16-byte boundary (odd H * W)
     got_h1, got_v1 = k2.separator_morphology(x[1:], *kernels)
     assert torch.equal(got_v1, want_v[1:]) and torch.equal(got_h1, want_h[1:])
+
+
+# the heading stage's forward: pages of height 900 padded to 960 x 640, in
+# groups of 4 and, for a last group, fewer. Tile edges at W = 640 and
+# H = 960 / 480 / ... / 60.
+_K1_HEADING_CASES = [
+    ((8, 8), (4, 960, 640)), ((16, 8), (4, 960, 640)), ((16, 16), (4, 480, 320)),
+    ((32, 16), (4, 480, 320)), ((32, 32), (4, 240, 160)), ((64, 32), (4, 240, 160)),
+    ((32, 32), (4, 120, 80)), ((64, 32), (4, 60, 40)), ((8, 8), (3, 960, 640)),
+    ((16, 32), (1, 240, 160)), ((8, 16), (2, 480, 320))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair,bhw", _K1_HEADING_CASES)
+def test_conv3x3_kernel_matches_plain_at_heading_shapes(cuda, pair, bhw):
+    cin, cout = pair
+    x, w3, bias = _k1_inputs(bhw + (cin, cout), seed=cin + cout)
+    xt = torch.from_numpy(x).to(cuda, torch.bfloat16)
+    wt = _to_oihw(w3).to(cuda, torch.bfloat16)
+    bt = torch.from_numpy(bias).to(cuda, torch.bfloat16)
+    got = k1.conv3x3(xt, wt, bt, relu=True)
+    want = k1.conv3x3_plain(xt, wt, bt, relu=True)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= 2e-2 * want.float().abs().max().item(), err
+
+
+def _grey_pages(n, h, w, seed):
+    """Light noisy paper with dark strokes of several widths."""
+    rng = np.random.RandomState(seed)
+    pages = rng.randint(170, 256, (n, h, w)).astype(np.uint8)
+    for i in range(n):
+        for _ in range(h * w // 1500):
+            y, x = rng.randint(0, h - 30), rng.randint(0, w - 40)
+            pages[i, y:y + rng.randint(2, 26), x:x + rng.randint(2, 36)] = rng.randint(0, 90)
+    return pages
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hw,cap", [((240, 320), 255.0), ((333, 517), 255.0),
+                                    ((240, 320), 0.0), ((700, 500), 6.0)])
+def test_otsu_and_edt_on_the_card_equal_the_cpu(cuda, hw, cap):
+    """The heading chain's plain-PyTorch device ops give on the card what
+    they give on the CPU: Otsu threshold and binary equal, EDT bit for bit."""
+    from citlab_as_tpu_torch.ops.binarize import otsu_binarize
+    from citlab_as_tpu_torch.ops.distance_transform import distance_transform_edt
+    pages = torch.from_numpy(_grey_pages(3, *hw, seed=hw[0]))
+    inv = 255.0 - pages.to(torch.float32)
+    t_cpu, b_cpu = otsu_binarize(inv)
+    t_gpu, b_gpu = otsu_binarize(inv.to(cuda))
+    assert torch.equal(t_gpu.cpu(), t_cpu) and torch.equal(b_gpu.cpu(), b_cpu)
+    d_cpu = distance_transform_edt(b_cpu, cap=cap)
+    d_gpu = distance_transform_edt(b_gpu, cap=cap)
+    assert torch.equal(d_gpu.cpu(), d_cpu)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, 7, 3])
+def test_line_feature_program_on_the_card_equals_the_cpu(cuda, monkeypatch, chunk):
+    """``DeviceLineFeatures`` on the card against the port's CPU device on
+    the same distance transform, probability map and boxes: the packed
+    [n_lines, 3] integers are equal, in one chunk of crops and in several."""
+    from citlab_as_tpu_torch.ops.binarize import otsu_binarize
+    from citlab_as_tpu_torch.ops.distance_transform import distance_transform_edt
+    from citlab_as_tpu_torch.ops import swt_device
+    from citlab_as_tpu_torch.ops.swt_device import DeviceLineFeatures
+    monkeypatch.setattr(swt_device, "_STATS_CHUNK", chunk)
+    rng = np.random.RandomState(chunk)
+    pages = torch.from_numpy(_grey_pages(2, 300, 420, seed=9))
+    _, binary = otsu_binarize(255.0 - pages.to(torch.float32))
+    dt = distance_transform_edt(binary, cap=255.0).to(torch.uint8)
+    prob = torch.from_numpy(rng.randint(0, 256, (2, 200, 280)).astype(np.uint8))
+    swt_list, net_list = [], []
+    for n in (23, 9):
+        x, y = rng.randint(0, 380, n), rng.randint(0, 280, n)
+        boxes = np.stack([x, y, rng.randint(5, 200, n), rng.randint(3, 60, n)], 1).astype(np.int32)
+        boxes[1] = -1                                    # a line without Coords
+        swt_list.append(boxes)
+        net_list.append(np.where(boxes < 0, -1, (boxes * 0.66).astype(np.int32)))
+    want = DeviceLineFeatures().dispatch_batch(dt, prob, swt_list, net_list)()
+    got = DeviceLineFeatures().dispatch_batch(
+        dt.to(cuda), prob.to(cuda), swt_list, net_list)()
+    for (g_net, g_sw), (w_net, w_sw) in zip(got, want):
+        np.testing.assert_array_equal(g_sw, w_sw)
+        np.testing.assert_array_equal(g_net, w_net)
+    assert max(w_sw[:, 0].max() for _, w_sw in want) > 0

@@ -1,0 +1,206 @@
+"""Image loading parity: the port decodes with the standard library and
+numpy; the JAX package (and this test) with PIL. ``load_image`` must equal
+PIL's ``convert("L")`` / ``convert("RGB")`` exactly on every supported PNG
+colour type, and refuse every other format by name."""
+import os
+
+import numpy as np
+import pytest
+from PIL import Image
+
+from citlab_as_tpu.utils import io as jio
+from citlab_as_tpu_torch.utils import io as tio
+
+H, W = 37, 53
+
+
+def _pixels(seed, channels):
+    rng = np.random.RandomState(seed)
+    # smooth ramps + noise, so that PIL's encoder picks every scanline filter
+    yy, xx = np.mgrid[0:H, 0:W]
+    base = (yy * 3 + xx * 5)[..., None] + 40 * np.arange(channels)
+    noise = rng.randint(0, 30, (H, W, channels))
+    noise[H // 2:] = rng.randint(0, 256, (H - H // 2, W, channels))
+    return ((base + noise) % 256).astype(np.uint8)
+
+
+def _save(tmp_path, kind):
+    p = str(tmp_path / f"{kind}.png")
+    if kind == "grey":
+        Image.fromarray(_pixels(0, 1)[..., 0], "L").save(p)
+    elif kind == "grey_alpha":
+        Image.fromarray(_pixels(1, 2), "LA").save(p)
+    elif kind == "rgb":
+        Image.fromarray(_pixels(2, 3), "RGB").save(p)
+    elif kind == "rgba":
+        Image.fromarray(_pixels(3, 4), "RGBA").save(p)
+    elif kind == "palette":
+        Image.fromarray(_pixels(4, 3), "RGB").quantize(64).save(p)
+    elif kind == "palette_trns":
+        im = Image.fromarray(_pixels(5, 3), "RGB").quantize(16)
+        im.save(p, transparency=3)
+    elif kind == "bilevel":
+        Image.fromarray(_pixels(12, 1)[..., 0] > 127).save(p)
+    elif kind == "grey4":
+        Image.fromarray(_pixels(13, 1)[..., 0], "L").save(p, bits=4)
+    elif kind == "rgb_unfiltered":
+        Image.fromarray(_pixels(6, 3), "RGB").save(p, compress_level=0)
+    return p
+
+
+KINDS = ["grey", "grey_alpha", "rgb", "rgba", "palette", "palette_trns",
+         "bilevel", "grey4", "rgb_unfiltered"]
+
+
+@pytest.mark.parametrize("mode", ["L", "RGB"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_load_png_equals_pil(tmp_path, kind, mode):
+    p = _save(tmp_path, kind)
+    got = tio.load_image(p, mode)
+    ref = np.asarray(Image.open(p).convert(mode))
+    assert got.dtype == np.uint8 and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, jio.load_image(p, mode))
+    assert tio.image_size(p) == Image.open(p).size == (W, H)
+    assert not got.flags.writeable
+
+
+def _encode_png(arr, filters):
+    """A reference PNG encoder with a chosen filter per scanline (PIL's own
+    encoder never picks Average on these images)."""
+    import struct
+    import zlib
+    h, w, ch = arr.shape
+    flat = arr.reshape(h, w * ch).astype(np.int32)
+    rows = bytearray()
+    for y in range(h):
+        cur = flat[y]
+        up = flat[y - 1] if y else np.zeros_like(cur)
+        left = np.concatenate([np.zeros(ch, np.int32), cur[:-ch]])
+        upleft = np.concatenate([np.zeros(ch, np.int32), up[:-ch]])
+        f = filters[y % len(filters)]
+        if f == 4:
+            p = left + up - upleft
+            pa, pb, pc = abs(p - left), abs(p - up), abs(p - upleft)
+            pred = np.where((pa <= pb) & (pa <= pc), left,
+                            np.where(pb <= pc, up, upleft))
+        else:
+            pred = [0 * cur, left, up, (left + up) // 2][f]
+        rows += bytes([f]) + ((cur - pred) % 256).astype(np.uint8).tobytes()
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    ctype = {1: 0, 2: 4, 3: 2, 4: 6}[ch]
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(bytes(rows)))
+            + chunk(b"IEND", b""))
+
+
+@pytest.mark.parametrize("filters", [(0,), (1,), (2,), (3,), (4,),
+                                     (4, 3, 1, 2, 0), (2, 1), (3, 4)])
+@pytest.mark.parametrize("channels", [1, 3, 4])
+def test_each_scanline_filter_equals_pil(tmp_path, channels, filters):
+    arr = _pixels(20 + channels, channels)
+    p = str(tmp_path / "f.png")
+    with open(p, "wb") as f:
+        f.write(_encode_png(arr, filters))
+    ref = np.asarray(Image.open(p))
+    np.testing.assert_array_equal(ref.reshape(arr.shape), arr)      # the encoder is right
+    np.testing.assert_array_equal(
+        tio._decode(p).reshape(arr.shape), arr)
+
+
+def test_luma_formula_on_all_greys_and_extremes():
+    rgb = np.zeros((4, 256, 3), np.uint8)
+    rgb[0] = np.arange(256)[:, None]
+    rgb[1, :, 0], rgb[2, :, 1], rgb[3, :, 2] = (np.arange(256),) * 3
+    ref = np.asarray(Image.fromarray(rgb, "RGB").convert("L"))
+    np.testing.assert_array_equal(tio._to_mode(rgb, "L"), ref)
+
+
+def test_pnm_and_npy(tmp_path):
+    grey, rgb = _pixels(7, 1)[..., 0], _pixels(8, 3)
+    Image.fromarray(grey, "L").save(str(tmp_path / "a.pgm"))
+    Image.fromarray(rgb, "RGB").save(str(tmp_path / "b.ppm"))
+    np.save(str(tmp_path / "c.npy"), rgb)
+    np.testing.assert_array_equal(tio.load_image(str(tmp_path / "a.pgm"), "L"), grey)
+    np.testing.assert_array_equal(tio.load_image(str(tmp_path / "b.ppm"), "RGB"), rgb)
+    np.testing.assert_array_equal(tio.load_image(str(tmp_path / "c.npy"), "RGB"), rgb)
+    np.testing.assert_array_equal(
+        tio.load_image(str(tmp_path / "b.ppm"), "L"),
+        np.asarray(Image.fromarray(rgb, "RGB").convert("L")))
+    for name in ("a.pgm", "b.ppm", "c.npy"):
+        assert tio.image_size(str(tmp_path / name)) == (W, H)
+
+
+def test_save_png_roundtrip_and_pil_reads_it(tmp_path):
+    for arr in (_pixels(9, 1)[..., 0], _pixels(10, 3)):
+        p = str(tmp_path / f"s{arr.ndim}.png")
+        tio.save_png(p, arr)
+        np.testing.assert_array_equal(np.asarray(Image.open(p)), arr)
+        np.testing.assert_array_equal(
+            tio.load_image(p, "L" if arr.ndim == 2 else "RGB"), arr)
+
+
+@pytest.mark.parametrize("kind,word", [("jpeg", "JPEG"), ("tiff", "TIFF"),
+                                       ("interlaced", "interlaced"),
+                                       ("png16", "16-bit"), ("bmp", "BMP")])
+def test_unsupported_formats_raise_by_name(tmp_path, kind, word):
+    im = Image.fromarray(_pixels(11, 1)[..., 0], "L")
+    p = str(tmp_path / f"x_{kind}.img")
+    if kind == "jpeg":
+        im.save(p, format="JPEG")
+    elif kind == "tiff":
+        im.save(p, format="TIFF")
+    elif kind == "bmp":
+        im.save(p, format="BMP")
+    elif kind == "png16":
+        Image.fromarray((_pixels(11, 1)[..., 0].astype(np.uint16) * 257)).save(p, format="PNG")
+    else:
+        # PIL cannot write Adam7: flip the interlace byte of a real header and
+        # repair the IHDR checksum
+        import struct
+        import zlib
+        im.save(p, format="PNG")
+        data = bytearray(open(p, "rb").read())
+        data[28] = 1
+        data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
+        open(p, "wb").write(bytes(data))
+    with pytest.raises(tio.UnsupportedImageFormat, match=word):
+        tio.load_image(p, "L")
+    if kind in ("jpeg", "tiff", "bmp"):
+        with pytest.raises(tio.UnsupportedImageFormat, match=word):
+            tio.image_size(p)
+
+
+def test_cache_is_keyed_by_mtime_and_bounded(tmp_path):
+    p = str(tmp_path / "c.png")
+    tio.save_png(p, np.zeros((4, 4), np.uint8))
+    a = tio.load_image(p)
+    assert tio.load_image(p) is a
+    tio.save_png(p, np.full((4, 4), 9, np.uint8))
+    os.utime(p, (1, 1))
+    assert tio.load_image(p)[0, 0] == 9
+    for i in range(tio._IMAGE_CACHE_MAX + 3):
+        q = str(tmp_path / f"k{i}.png")
+        tio.save_png(q, np.zeros((2, 2), np.uint8))
+        tio.load_image(q)
+    assert len(tio._IMAGE_CACHE) <= tio._IMAGE_CACHE_MAX
+
+
+def test_path_helpers_equal(tmp_path):
+    (tmp_path / "page").mkdir()
+    (tmp_path / "a.png").write_bytes(b"")
+    (tmp_path / "page" / "a.xml").write_text("x")
+    img = str(tmp_path / "a.png")
+    for fn, arg in (("get_page_path", img), ("get_page_from_img_path", img),
+                    ("get_img_from_page_path", str(tmp_path / "page" / "a.xml")),
+                    ("prepend_folder_name", img)):
+        assert getattr(tio, fn)(arg) == getattr(jio, fn)(arg)
+    assert tio.get_page_path(img, append_extension=True) == jio.get_page_path(img, append_extension=True)
+    lst = tmp_path / "l.lst"
+    lst.write_text("a.png \nb.png\n")
+    assert tio.load_list_file(str(lst)) == jio.load_list_file(str(lst)) == ["a.png", "b.png"]
+    assert tio.load_text_file(str(lst)) == jio.load_text_file(str(lst))

@@ -1,5 +1,6 @@
-"""Port-wide checks: the weight converter, import hygiene (no jax, flax or
-citlab_as_tpu inside the port or chip_smoke.py), and device resolution."""
+"""Port-wide checks: the weight converter, import hygiene (no jax, flax,
+citlab_as_tpu, lxml, PIL or shapely inside the port or chip_smoke.py), and
+device resolution."""
 import ast
 import os
 import subprocess
@@ -11,29 +12,36 @@ import torch
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "citlab_as_tpu_torch")
-SEP_NPZ = os.path.join(REPO, "models_ckpt_torch", "separator.npz")
-FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "citlab_as_tpu")
+NETS = ("separator", "heading")
+FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "citlab_as_tpu",
+             "lxml", "PIL", "shapely")
 
 
-def test_converter_reproduces_committed_npz(tmp_path):
-    out = tmp_path / "separator.npz"
+def _npz(net):
+    return os.path.join(REPO, "models_ckpt_torch", f"{net}.npz")
+
+
+@pytest.mark.parametrize("net", NETS)
+def test_converter_reproduces_committed_npz(tmp_path, net):
+    out = tmp_path / f"{net}.npz"
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "convert_weights_to_torch.py"),
-         "--out", str(out)],
+         "--model_dir", os.path.join(REPO, "models_ckpt", net), "--out", str(out)],
         capture_output=True, text=True, timeout=300,
         env=dict(os.environ, JAX_PLATFORMS="cpu"))
     assert r.returncode == 0, r.stdout + r.stderr
-    with np.load(SEP_NPZ) as want, np.load(out) as got:
+    with np.load(_npz(net)) as want, np.load(out) as got:
         assert sorted(got.files) == sorted(want.files)
         for k in want.files:
             assert got[k].dtype == np.float32
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-def test_state_dict_covers_every_parameter():
+@pytest.mark.parametrize("net", NETS)
+def test_state_dict_covers_every_parameter(net):
     from citlab_as_tpu_torch.models.arunet import ARUNet
     from citlab_as_tpu_torch.weights import arunet_state_dict_from_flax, load_npz
-    sd = arunet_state_dict_from_flax(load_npz(SEP_NPZ))
+    sd = arunet_state_dict_from_flax(load_npz(_npz(net)))
     model = ARUNet()
     assert set(sd) == set(model.state_dict())
     for k, v in model.state_dict().items():
@@ -66,14 +74,17 @@ def test_port_file_imports_no_jax_and_no_reference(path):
 
 
 def test_running_the_slice_loads_no_jax_module():
-    """Import the port and run the separator slice on the CPU in a fresh
-    process (conftest.py has loaded jax in this one)."""
+    """Import the port and run both stages of the slice on the CPU, in
+    memory and from files to files, in a fresh process (conftest.py has
+    loaded jax in this one)."""
     code = r"""
-import sys
+import os, sys, tempfile
 import numpy as np, torch
 import chip_smoke
 import citlab_as_tpu_torch
 from citlab_as_tpu_torch.inference import SegmentationPredictor
+from citlab_as_tpu_torch.pagexml import Page
+from citlab_as_tpu_torch.stages.heading import HeadingNetPostProcessor
 from citlab_as_tpu_torch.stages.separator import SeparatorNetPostProcessor
 pred = SegmentationPredictor(None, graph_params={"featRoot": 4, "scale_space_num": 3,
                              "res_depth": 1, "num_scales_att": 2},
@@ -81,9 +92,23 @@ pred = SegmentationPredictor(None, graph_params={"featRoot": 4, "scale_space_num
 pages, _ = chip_smoke.synthetic_pages(2, 48, 40, seed=0)
 out = SeparatorNetPostProcessor(pages, pred, fixed_height=32).run_batched(2)
 assert len(out) == 2 and all(isinstance(d, dict) for d in out)
+torch.set_num_threads(1)
+pages, _, layouts = chip_smoke.synthetic_newspaper(1, 260, 200, seed=0, headlines=1)
+root = tempfile.mkdtemp()
+paths = chip_smoke.write_corpus(root, pages, layouts)
+sep = SeparatorNetPostProcessor(paths, pred, fixed_height=128, threshold=1.1)
+sep.run_batched_fused(1)
+outs = [sep._page_path_for(p) + ".xml" for p in paths]
+head = HeadingNetPostProcessor(paths, pred, fixed_height=128, page_paths=outs,
+                               save_suffix="")
+head.use_device_swt = True
+written = head.run_batched_fused(1)
+assert all(Page.validate(Page(p).page_doc) for p in outs) and len(written) == 1
+assert all(tl.get_semantic_type() == "heading" for p in written
+           for tl in p.textlines if tl.id.startswith("hl_"))
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax",
-                                    "citlab_as_tpu"))
+                                    "citlab_as_tpu", "lxml", "PIL", "shapely"))
 print("LOADED", bad)
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -130,3 +130,101 @@ def test_group_by_shape_keeps_order_and_caps_batch():
     groups = list(tsep.SeparatorNetPostProcessor.group_by_shape(
         images, list("abcde"), 2))
     assert [g[1] for g in groups] == [["a", "b"], ["c"], ["d"], ["e"]]
+
+
+# ------------------------------------------------------------ files to files
+
+def _write_corpus(root, pages):
+    """PNG files (the port's own encoder) and one PAGE-XML per page, built
+    with the port's Page API: two text lines, one of which straddles the
+    first drawn column rule."""
+    from citlab_as_tpu_torch.pagexml import Page, TextLine, TextRegion
+    from citlab_as_tpu_torch.utils.io import save_png
+    os.makedirs(os.path.join(root, "page"), exist_ok=True)
+    paths = []
+    for i, page in enumerate(pages):
+        h, w = page.shape
+        p = os.path.join(root, f"p{i}.png")
+        save_png(p, page)
+        doc = Page(img_filename=f"p{i}.png", img_w=w, img_h=h)
+        lines = [TextLine("tl_wide", None, "wide", [(2, h // 2 + 4), (w - 3, h // 2 + 4)],
+                          [(2, h // 2 - 4), (w - 3, h // 2 - 4), (w - 3, h // 2 + 6),
+                           (2, h // 2 + 6)]),
+                 TextLine("tl_small", None, "small", [(2, 9), (9, 9)],
+                          [(2, 2), (9, 2), (9, 10), (2, 10)])]
+        doc.set_text_regions([TextRegion("tr_1", None, [(0, 0), (w - 1, 0), (w - 1, h - 1),
+                                                        (0, h - 1)], lines)])
+        doc.write_page_xml(os.path.join(root, "page", f"p{i}.xml"))
+        paths.append(p)
+    return paths
+
+
+def test_stage_from_files_writes_what_the_writer_writes(tmp_path, predictor, monkeypatch):
+    """From image files the stage writes ``page/<name>.xml.xml``: the bytes
+    are those of the separator writer fed the in-memory stage's polygons,
+    and ``run`` (page by page) writes the same files."""
+    import citlab_as_tpu_torch.pagexml.page as tpage
+    from citlab_as_tpu_torch.pagexml import Page
+    from citlab_as_tpu_torch.stages.separator_writer import SeparatorRegionToPageWriter
+    monkeypatch.setattr(tpage, "_utc_now", lambda: "2024-01-02T03:04:05Z")
+    pages = synthetic_pages(1, 128, 92, seed=1) + synthetic_pages(1, 120, 100, seed=2)
+    paths = _write_corpus(str(tmp_path), pages)
+    want_polys = tsep.SeparatorNetPostProcessor(
+        pages, predictor, fixed_height=FIXED_HEIGHT).run_batched(batch_size=2)
+
+    phase = {}
+    proc = tsep.SeparatorNetPostProcessor(paths, predictor, fixed_height=FIXED_HEIGHT)
+    written = proc.run_batched_fused(batch_size=2, phase=phase)
+    assert {"load", "write"} <= set(phase) and proc.image_paths == paths
+    outs = []
+    for path, polys, page_obj in zip(paths, want_polys, written):
+        page_path = os.path.join(str(tmp_path), "page",
+                                 os.path.basename(path)[:-4] + ".xml")
+        with open(page_path + ".xml", "rb") as f:
+            outs.append(f.read())
+        writer = SeparatorRegionToPageWriter(page_path, path, FIXED_HEIGHT, 1.0, polys)
+        writer.remove_separator_regions_from_page()
+        writer.merge_regions()
+        ref = str(tmp_path / "ref.xml")
+        writer.save_page_xml(ref)
+        assert outs[-1] == open(ref, "rb").read()
+        assert isinstance(page_obj, Page) and Page.validate(page_obj.page_doc)
+    assert any(b"orientation:vertical" in o for o in outs)
+    assert any(b'id="tl_wide_1"' in o for o in outs), "no text line was split"
+
+    tsep.SeparatorNetPostProcessor(paths, predictor, fixed_height=FIXED_HEIGHT).run()
+    for path, out in zip(paths, outs):
+        page_path = os.path.join(str(tmp_path), "page", os.path.basename(path)[:-4] + ".xml")
+        assert open(page_path + ".xml", "rb").read() == out
+
+
+def test_stage_from_files_page_paths_list_file_and_load_errors(tmp_path, predictor):
+    pages = synthetic_pages(3, 64, 48, seed=3)
+    paths = _write_corpus(str(tmp_path), pages)
+    with open(paths[1], "wb") as f:
+        f.write(b"II*\x00 not a png")                      # unreadable image
+    lst = tmp_path / "images.lst"
+    lst.write_text("\n".join(paths) + "\n")
+    other = [str(tmp_path / "elsewhere" / f"{i}.xml") for i in range(3)]
+    os.makedirs(tmp_path / "elsewhere")
+    for src, dst in zip(paths, other):
+        os.replace(os.path.join(str(tmp_path), "page",
+                                os.path.basename(src)[:-4] + ".xml"), dst)
+
+    proc = tsep.SeparatorNetPostProcessor(str(lst), predictor, fixed_height=None,
+                                          page_paths=other)
+    with pytest.raises(Exception, match="TIFF"):
+        proc.run_batched_fused(batch_size=2)
+    errors = []
+    proc.on_page_error = lambda name, stage, exc: errors.append((name, stage))
+    out = proc.run_batched_fused(batch_size=2)
+    assert errors == [(paths[1], "load")]
+    assert out[1] is None and out[0] is not None and out[2] is not None
+    assert os.path.exists(other[0] + ".xml") and not os.path.exists(other[1] + ".xml")
+    groups = list(tsep.SeparatorNetPostProcessor.group_by_shape(
+        [paths[0], paths[2]], ["x", "y"], 4))
+    assert [g[1] for g in groups] == [["x", "y"]] and groups[0][0][0].dtype == np.uint8
+    with pytest.raises(ValueError):
+        tsep.SeparatorNetPostProcessor(paths, predictor, names=["a", "b", "c"])
+    with pytest.raises(ValueError):
+        tsep.SeparatorNetPostProcessor(pages, predictor, page_paths=other)
