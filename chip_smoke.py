@@ -9,7 +9,9 @@ result):
 
 1. device: card name, ``nvidia-smi`` name and power limit, torch and CUDA
    versions;
-2. build: every kernel of the separator path, from ``csrc/*.cu`` with nvcc;
+2. build: every kernel of the main path, from ``csrc/*.cu`` with nvcc (the
+   host geometry library, ``csrc/geometry_host.cpp``, builds with the host
+   compiler at its first call, in phase 6);
 3. kernels: K1 (conv3x3) and K2 (separator morphology) against their plain
    PyTorch versions at the main path's shapes, then timed with CUDA events
    beside the plain version and, for K1, one cuDNN ``F.conv2d`` call: the
@@ -36,7 +38,24 @@ result):
    kernels' launch counts, the card's distance transform and per-line
    integers equal to the port's CPU device on the same pages, headline
    lines tagged ``heading`` and at most 5 % of the body lines; then pages/s
-   per stage and a phase split of the heading stage.
+   per stage and a phase split of the heading stage;
+6. workflow: the same kind of pages through the port's
+   ``cli/run_full_workflow.py::run_full_workflow`` (separator, heading,
+   baseline clustering, text regions, GNN features, the converted ``gnn``
+   relation net, ``clustering_method="dbscan"``), groups of 4: one run off
+   the clock, one timed (pages/s, the kernels' launch counts) and one whose
+   ``timings`` give the stage split. Gates: K1 69 x 2 launches and K2 one
+   per group, every clustered file valid (TextRegion y above the page edge
+   clamped to 0, as :func:`structurally_valid` says) with an article id on
+   every text line, no page whose line features the feature stage redoes on
+   the host, and the card's relation confidences within 1e-5 of the port's CPU
+   device on the same feature JSONs with equal dbscan labels. Articles and
+   regions per page and the line pairs' agreement with the drawn layout are
+   printed, not gated;
+7. gnn: the relation GNN's forward alone on one group of 4 graphs at the
+   node bucket of 64 (Delaunay edges): CUDA-event ms, eager and from a
+   CUDA graph, and the device launches and device time of one forward
+   (``torch.profiler``).
 
 The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
 """
@@ -660,13 +679,16 @@ def phase_files(dev):
         gpu_features = swt_device.DeviceLineFeatures()
         host_swt = StrokeWidthDistanceTransform()
         checked, checked_host = 0, 0
+        split = {"edt": 0.0, "tall lines": 0.0, "short lines": 0.0, "host path": 0.0}
         for g in range(groups):
             chunk = paths[g * batch:(g + 1) * batch]
             images = [np.asarray(port_io.load_image(p, "L")) for p in chunk]
             _, maps_u8, dt_u8, _ = head.fused_dispatch(images, chunk)
+            t1 = time.perf_counter()
             x = torch.from_numpy(np.stack(images))
             _, binary = otsu_binarize(255.0 - x.to(torch.float32), blur_ksize=5)
             dt_cpu = distance_transform_edt(binary, cap=255.0).to(torch.uint8)
+            split["edt"] += time.perf_counter() - t1
             check(torch.equal(dt_u8.cpu(), dt_cpu),
                   "the distance transform differs between the card and the CPU")
             boxes = [head.line_feature_boxes(
@@ -677,17 +699,21 @@ def phase_files(dev):
             maps_cpu = maps_u8.cpu()
             # the tall lines and the short ones go through the CPU device apart:
             # a chunk of crops costs the CPU what its largest line asks for
-            for picks in zip(*(cpu_check_lines(sb) for sb in swt_list)):
+            for kind, picks in zip(("tall lines", "short lines"),
+                                   zip(*(cpu_check_lines(sb) for sb in swt_list))):
+                t1 = time.perf_counter()
                 want = cpu_features.dispatch_batch(
                     dt_cpu, maps_cpu,
                     [sb[pick] for sb, pick in zip(swt_list, picks)],
                     [nb[pick] for nb, pick in zip(net_list, picks)])()
+                split[kind] += time.perf_counter() - t1
                 for i, pick in enumerate(picks):
                     check(np.array_equal(got[i][1][pick], want[i][1]),
                           f"{chunk[i]}: (stroke width, text height) differ from the CPU")
                     check(np.array_equal(got[i][0][pick], want[i][0]),
                           f"{chunk[i]}: net sums differ from the CPU")
                     checked += len(pick)
+            t1 = time.perf_counter()
             maps_np, dt_np = maps_cpu.numpy(), dt_cpu.numpy()
             for i, (g_net, g_sw) in enumerate(got):
                 for box, sw_th in zip(swt_list[i], g_sw):
@@ -701,16 +727,229 @@ def phase_files(dev):
                     exact = maps_np[i][by:by + bh, bx:bx + bw].sum() / (255.0 * bw * bh)
                     check(abs(mean - exact) <= 1.0 / 255.0,
                           f"{chunk[i]}: net sum off by more than 1 count per pixel")
+            split["host path"] += time.perf_counter() - t1
         print(f"files: distance transform of {n_pages} pages and {checked} lines' (net "
               f"sum, 2 x stroke width, text height) from all {n_pages} pages equal to "
               f"the CPU device's, bit for bit; all {checked_host} lines' (stroke width, "
-              f"text height) equal to the host path's ({time.perf_counter() - t0:.1f} s)")
+              f"text height) equal to the host path's ({time.perf_counter() - t0:.1f} s: "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in split.items()) + ")")
 
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"launches": launches, "pages_per_s": {
         "separator": n_pages / sep_s, "heading": n_pages / head_s,
         "both": n_pages / (sep_s + head_s)}}
+
+
+def _delaunay_graph(rng, n):
+    """A page graph as the feature stage writes it: n region centres with
+    Delaunay edges, 15 node and 2 edge features (random values)."""
+    from scipy.spatial import Delaunay
+    pts = rng.rand(n, 2) * np.array([1420.0, 2000.0])
+    indptr, indices = Delaunay(pts).vertex_neighbor_vertices
+    edges = [(v, int(u)) for v in range(n) for u in indices[indptr[v]:indptr[v + 1]]]
+    return {"num_nodes": n,
+            "node_features": rng.rand(n, 15).astype(np.float32).tolist(),
+            "interacting_nodes": edges,
+            "edge_features": rng.randint(0, 2, (len(edges), 2)).astype(float).tolist()}
+
+
+def line_agreement(page, layout):
+    """Pairwise same-article agreement of a clustered page's text lines
+    with the drawn layout (lines of one drawn region belong together):
+    the share of line pairs on which the two agree."""
+    truth = {line_id: region for region, lines in layout for line_id, _ in lines}
+    lines = [(truth[tl.id], tl.get_article_id()) for tl in page.get_textlines()
+             if tl.id in truth]
+    same_t = np.array([a[0] == b[0] for i, a in enumerate(lines) for b in lines[i + 1:]])
+    same_h = np.array([a[1] == b[1] for i, a in enumerate(lines) for b in lines[i + 1:]])
+    return float(np.mean(same_t == same_h)) if len(same_t) else 1.0
+
+
+def structurally_valid(page):
+    """(valid, clamped): ``Page.validate_structural`` of the clustered page.
+    The text-region rule (textregion_generation.py) shifts a line's
+    baseline up by 0.95 of its interline distance; for a top line whose
+    next line is far below (a headline under it) that lands above the page
+    edge, and the JAX package writes the same negative y
+    (``tests/test_torch_workflow.py::test_text_regions_above_the_page_edge``).
+    Such a file is taken as valid when it validates with the y values of
+    its TextRegion Coords clamped to 0 (``clamped`` True); any other fault,
+    a negative x included, leaves it invalid."""
+    import copy
+    from citlab_as_tpu_torch.pagexml import Page
+    from citlab_as_tpu_torch.pagexml.constants import NS_PAGE_XML
+    if Page.validate_structural(page.page_doc):
+        return True, False
+    doc = copy.deepcopy(page.page_doc)
+    for region in doc.getroot().iter(f"{{{NS_PAGE_XML}}}TextRegion"):
+        coords = region.find(f"{{{NS_PAGE_XML}}}Coords")
+        if coords is not None and coords.get("points"):
+            points = [p.split(",") for p in coords.get("points").split()]
+            if all(len(p) == 2 and p[1].lstrip("-").isdigit() for p in points):
+                coords.set("points", " ".join(f"{x},{max(int(y), 0)}" for x, y in points))
+    return Page.validate_structural(doc), True
+
+
+def phase_workflow(dev):
+    """The port's ``run_full_workflow`` from PNG + PAGE-XML files to the
+    clustered PAGE-XML, with the converted nets (bf16 ARU-Nets, the f32
+    ``gnn`` relation net) and ``clustering_method="dbscan"``."""
+    import torch
+    from citlab_as_tpu_torch.cli.run_full_workflow import run_full_workflow
+    from citlab_as_tpu_torch.inference import RelationPredictor, SegmentationPredictor
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.pagexml import Page
+    from citlab_as_tpu_torch.stages import features
+    from citlab_as_tpu_torch.stages.clustering import TextblockClustering
+    from citlab_as_tpu_torch.utils import io as port_io
+
+    n_pages, batch = N_PAGES, BATCH
+    groups = -(-n_pages // batch)
+    root = tempfile.mkdtemp(prefix="chip_smoke_workflow_")
+    host_swt = features.StrokeWidthDistanceTransform
+    host_swt_pages = [0]
+
+    class CountingSWT(host_swt):
+        """The feature stage's host SWT, counting the pages whose lines it
+        could not take from the heading stage's saved features."""
+
+        def distance_transform(self, *args, **kwargs):
+            host_swt_pages[0] += 1
+            return super().distance_transform(*args, **kwargs)
+
+    features.StrokeWidthDistanceTransform = CountingSWT
+    try:
+        pages, _, layouts = synthetic_newspaper(n_pages, *PAGE_SHAPE, seed=11)
+        paths = write_corpus(root, pages, layouts)
+        npz = os.path.join(REPO, "models_ckpt_torch")
+        sep_pred, head_pred = (SegmentationPredictor(
+            os.path.join(npz, f"{net}.npz"), dtype=torch.bfloat16, device=dev)
+            for net in ("separator", "heading"))
+        gnn = RelationPredictor(os.path.join(npz, "gnn.npz"), device=dev)
+
+        def run(timings=None):
+            """One workflow over the corpus (the page files are rewritten in
+            place run after run); returns (seconds, result)."""
+            port_io._IMAGE_CACHE.clear()
+            t0 = time.perf_counter()
+            result = run_full_workflow(
+                paths, separator_predictor=sep_pred, heading_predictor=head_pred,
+                gnn_predictor=gnn, clustering_method="dbscan", batch_size=batch,
+                separator_fixed_height=FIXED_HEIGHT,
+                heading_fixed_height=HEADING_FIXED_HEIGHT, timings=timings,
+                device=dev)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0, result
+
+        run()                                        # first-call costs off the clock
+        k1.launches = 0
+        k2.launches = 0
+        secs, result = run()
+        launches = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+        print(f"workflow: {n_pages / secs:.3f} pages/s ({secs:.3f} s for {n_pages} "
+              f"pages, {groups} groups of {batch}); launches {launches}; pages whose "
+              f"line features the feature stage redid on the host {host_swt_pages[0]}")
+        check(launches["conv3x3"] == 69 * 2 * groups,
+              f"K1 launched {launches['conv3x3']} times, want 69 x {2 * groups} forwards")
+        check(launches["separator_morphology"] == groups,
+              f"K2 launched {launches['separator_morphology']} times, want {groups}")
+        check(not result["skipped"], f"pages skipped: {result['skipped']}")
+        check(host_swt_pages[0] == 0,
+              f"the feature stage redid the SWT on the host for {host_swt_pages[0]} pages "
+              f"in two runs: the heading stage's line features did not match")
+        check(len(result["clustered"]) == n_pages,
+              f"{len(result['clustered'])} clustered files for {n_pages} pages")
+
+        timings = {}
+        run(timings)
+        print("workflow: stage seconds " + json.dumps(timings))
+
+        # what was written
+        articles, regions, agreement, clamped = [], [], [], 0
+        for path, layout in zip(result["clustered"], layouts):
+            page = Page(path)
+            valid, negative = structurally_valid(page)
+            check(valid, f"{path} is not valid")
+            clamped += negative
+            lines = page.get_textlines()
+            check(lines and all(tl.get_article_id() for tl in lines),
+                  f"{path}: a text line has no article id")
+            articles.append(len({tl.get_article_id() for tl in lines}))
+            regions.append(len(page.get_text_regions()))
+            agreement.append(line_agreement(page, layout))
+        print(f"workflow: articles per page {articles}, text regions per page "
+              f"{regions}; same-article agreement of line pairs with the drawn "
+              f"regions {json.dumps([round(a, 4) for a in agreement])}; "
+              f"{clamped} of {n_pages} pages valid only with negative TextRegion "
+              f"y clamped to 0")
+
+        # the card's relation confidences against the CPU's on the same JSONs
+        json_dir = os.path.join(root, "json15d2bb")
+        graphs = []
+        for path in paths:
+            name = os.path.splitext(os.path.basename(path))[0] + ".xml.json"
+            with open(os.path.join(json_dir, name)) as f:
+                graphs.append(json.load(f))
+        cpu = RelationPredictor(os.path.join(npz, "gnn.npz"), device="cpu")
+        worst, same_labels = 0.0, True
+        for g in range(groups):
+            chunk = graphs[g * batch:(g + 1) * batch]
+            for c_card, c_cpu in zip(gnn.confidences_batch(chunk), cpu.confidences_batch(chunk)):
+                worst = max(worst, float(np.abs(c_card - c_cpu).max()))
+                labels = []
+                for conf in (c_card, c_cpu):
+                    tb = TextblockClustering()
+                    tb.set_confs(conf)
+                    tb.calc("dbscan")
+                    labels.append(list(tb.tb_labels))
+                same_labels &= labels[0] == labels[1]
+        print(f"workflow: relation confidences card vs CPU max abs {worst:.3g} "
+              f"(limit 1e-5) over {n_pages} pages of "
+              f"{[g['num_nodes'] for g in graphs]} nodes; dbscan labels equal: {same_labels}")
+        check(worst <= 1e-5, f"card vs CPU confidences differ by {worst}")
+        check(same_labels, "dbscan labels differ between the card's and the CPU's confidences")
+    finally:
+        features.StrokeWidthDistanceTransform = host_swt
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "pages_per_s": n_pages / secs, "timings": timings}
+
+
+def phase_gnn(dev):
+    """The relation GNN's forward alone: one group of 4 graphs at the node
+    bucket of 64 with Delaunay edges, converted ``gnn`` weights, f32."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from citlab_as_tpu_torch.inference import RelationPredictor
+    rng = np.random.RandomState(5)
+    group = [_delaunay_graph(rng, n) for n in (64, 57, 49, 60)]
+    pred = RelationPredictor(os.path.join(REPO, "models_ckpt_torch", "gnn.npz"), device=dev)
+    inputs, _ = pred._batch_inputs(group)
+    pred._ensure_params(inputs)
+    eager = cuda_ms(lambda: pred.forward_confidences(inputs), iters=20, warmup=3)
+    t0 = time.perf_counter()
+    for _ in range(10):
+        pred.confidences_batch(group)
+    whole = (time.perf_counter() - t0) / 10 * 1e3
+    try:
+        graph_ms = cuda_graph_ms(lambda: pred.forward_confidences(inputs))
+    except Exception as e:  # noqa: BLE001 - reported, not a gate
+        graph_ms = f"not capturable ({type(e).__name__}: {e})"
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pred.forward_confidences(inputs)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+    device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 if kernels else None
+    print(f"gnn: one group of 4 graphs ({[g['num_nodes'] for g in group]} nodes, bucket "
+          f"{pred._node_bucket}, edge bucket {pred._edges_bucket}): forward "
+          f"{eager:.4f} ms eager, {graph_ms if isinstance(graph_ms, str) else f'{graph_ms:.4f} ms'}"
+          f" from a CUDA graph; {len(kernels)} device launches per forward, "
+          f"device time {device_ms} ms (torch.profiler); confidences_batch with host "
+          f"preparation and readback {whole:.3f} ms")
+    return {"eager_ms": eager, "graph_ms": graph_ms, "launches": len(kernels),
+            "device_ms": device_ms}
 
 
 def main() -> int:
@@ -729,32 +968,47 @@ def main() -> int:
         print(f"chip_smoke: the port is not beside this script ({e})", file=sys.stderr)
         return 1
     from citlab_as_tpu_torch.device import resolve_device
+    seconds = {}
+
+    def timed(label, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[label] = round(time.perf_counter() - t0, 1)
+        return out
+
     try:
         dev = resolve_device("cuda")
-        name, smi_line = phase_device()
-        phase_build()
-        k1_row = phase_k1(dev)
-        k2_row = phase_k2(dev)
-        main_row = phase_main_path(dev)
-        files_row = phase_files(dev)
+        name, smi_line = timed("device", phase_device)
+        timed("build", phase_build)
+        k1_row = timed("k1", phase_k1, dev)
+        k2_row = timed("k2", phase_k2, dev)
+        main_row = timed("main path", phase_main_path, dev)
+        files_row = timed("files", phase_files, dev)
+        workflow_row = timed("workflow", phase_workflow, dev)
+        timed("gnn", phase_gnn, dev)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    print(f"phase seconds {json.dumps(seconds)}; all {sum(seconds.values()):.1f} s")
     kernels = [
         dict(name="conv3x3", route="cuda", source="citlab_as_tpu_torch/csrc/conv3x3.cu",
              replaces="citlab_as_tpu/ops/pallas/conv3x3.py:110",
              launches=main_row["launches"]["conv3x3"],
-             launches_files=files_row["launches"]["conv3x3"], **k1_row),
+             launches_files=files_row["launches"]["conv3x3"],
+             launches_workflow=workflow_row["launches"]["conv3x3"], **k1_row),
         dict(name="separator_morphology", route="cuda",
              source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
              replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
              launches=main_row["launches"]["separator_morphology"],
-             launches_files=files_row["launches"]["separator_morphology"], **k2_row),
+             launches_files=files_row["launches"]["separator_morphology"],
+             launches_workflow=workflow_row["launches"]["separator_morphology"], **k2_row),
     ]
     # ``launches``: the in-memory main path's count; ``launches_files``: the
-    # files-to-files path's (each counted from 0 just before its run)
+    # files-to-files path's; ``launches_workflow``: the whole workflow's
+    # (each counted from 0 just before its run)
     keys = ("name", "route", "source", "replaces", "launches", "launches_files",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "launches_workflow", "max_abs_err", "ms", "plain_ms", "bound_ms",
+            "bound_by", "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

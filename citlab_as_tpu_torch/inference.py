@@ -1,6 +1,7 @@
-"""ARU-Net inference wrapper (port of ``citlab_as_tpu/inference.py::
-SegmentationPredictor``: ``__init__``, ``__call__``, ``predict_batch``,
-``predict_batch_device``).
+"""Inference wrappers (port of ``citlab_as_tpu/inference.py``):
+``SegmentationPredictor`` (``__init__``, ``__call__``, ``predict_batch``,
+``predict_batch_device``) and ``RelationPredictor`` (the relation GNN over
+page groups).
 
 Pages are zero-padded to a multiple of ``pad_multiple`` and cropped back.
 The batch is the caller's: there is no device batch cap (the JAX package's
@@ -16,7 +17,14 @@ import torch
 
 from citlab_as_tpu_torch.device import DeviceLike, resolve_device
 from citlab_as_tpu_torch.models.arunet import ARUNet
-from citlab_as_tpu_torch.weights import arunet_state_dict_from_flax, load_npz
+from citlab_as_tpu_torch.models.gnn.graph import (
+    batch_graphs, build_full_relations, correct_edges, pad_graph,
+)
+from citlab_as_tpu_torch.models.gnn.model import GraphRelation
+from citlab_as_tpu_torch.train.input_pipeline import apply_feature_masks
+from citlab_as_tpu_torch.weights import (
+    arunet_state_dict_from_flax, gnn_state_dict_from_flax, load_npz,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -77,4 +85,162 @@ class SegmentationPredictor:
         def materialize():
             host = probs.cpu().numpy()
             return [host[i, :h, :w, :] for i, (h, w) in enumerate(shapes)]
+        return materialize
+
+
+class RelationPredictor:
+    """GraphRelation forward over page graph JSON dicts -> [N, N] confidence
+    matrices (the run_gnn_clustering device step), one forward per page
+    group on the union graph.
+
+    ``model_path``: a converted ``.npz`` (``scripts/convert_weights_to_torch.py
+    --kind gnn``); None -> random init from ``seed`` (logged loudly). The
+    net is built at the first group, whose feature widths it takes, as the
+    JAX predictor initializes at its first call. Runs in float32 on
+    ``device`` ("cuda" unless told "cpu"). The visual branch
+    (``image_input``) is not ported yet (ROADMAP Queue 1 item 11)."""
+
+    def __init__(self, model_path: Optional[str] = None, num_classes: int = 2,
+                 gnn_params=None, message_params=None, update_params=None,
+                 node_feature_mask: Optional[Sequence[int]] = None,
+                 edge_feature_mask: Optional[Sequence[int]] = None,
+                 node_buckets: Sequence[int] = (16, 32, 64, 128, 256),
+                 image_input: bool = False, seed: int = 0,
+                 device: DeviceLike = "cuda"):
+        if image_input:
+            raise NotImplementedError(
+                "RelationPredictor(image_input=True): the visual GNN branch is "
+                "not ported yet (ROADMAP Queue 1 item 11)")
+        self.device = resolve_device(device)
+        self.model_path = model_path
+        self.num_classes = num_classes
+        self.gnn_params = gnn_params
+        self.message_params = message_params
+        self.update_params = update_params
+        self.node_feature_mask = node_feature_mask
+        self.edge_feature_mask = edge_feature_mask
+        self.node_buckets = list(node_buckets)
+        self.seed = seed
+        self.model: Optional[GraphRelation] = None
+        # grow-only shapes of the batched inputs (see _batch_inputs)
+        self._group_bucket = self._node_bucket = self._edges_bucket = 1
+
+    def _ensure_params(self, inputs: Dict[str, torch.Tensor]) -> None:
+        if self.model is not None:
+            return
+        model = GraphRelation(
+            node_feature_dim=inputs["node_features"].shape[-1],
+            edge_feature_dim=inputs["edge_features"].shape[-1],
+            num_classes=self.num_classes, gnn_params=self.gnn_params,
+            message_params=self.message_params, update_params=self.update_params)
+        if self.model_path is not None:
+            model.load_state_dict(gnn_state_dict_from_flax(load_npz(self.model_path)))
+            logger.info("Loaded GNN params from %s", self.model_path)
+        else:
+            gen = torch.Generator().manual_seed(self.seed)
+            for name, param in model.named_parameters():
+                with torch.no_grad():
+                    if name.endswith("weight"):
+                        bound = (6.0 / sum(param.shape)) ** 0.5
+                        param.uniform_(-bound, bound, generator=gen)
+                    else:
+                        param.zero_()
+            logger.warning("RelationPredictor using RANDOM params.")
+        self.model = model.to(self.device).eval()
+
+    def _bucket(self, n: int) -> int:
+        for b in self.node_buckets:
+            if n <= b:
+                return b
+        # page exceeds the configured buckets: grow to the next power of two
+        # and remember it, so later oversized pages reuse the same shapes
+        b = self.node_buckets[-1]
+        while b < n:
+            b *= 2
+        self.node_buckets.append(b)
+        logger.info("RelationPredictor: growing node bucket to %d for a "
+                    "%d-node page", b, n)
+        return b
+
+    @staticmethod
+    def _edge_bucket(e: int) -> int:
+        """Round the edge count up to a power of two (floor 16), so that
+        groups share a few shapes instead of one per page."""
+        b = 16
+        while b < e:
+            b *= 2
+        return b
+
+    def _correct_graph(self, graph: dict):
+        """Masked + edge-corrected arrays for one page graph."""
+        n = int(graph["num_nodes"])
+        node_features = apply_feature_masks(
+            np.asarray(graph["node_features"], np.float32), self.node_feature_mask)
+        edge_features = apply_feature_masks(
+            np.asarray(graph["edge_features"], np.float32), self.edge_feature_mask)
+        edges, edge_features = correct_edges(
+            np.asarray(graph["interacting_nodes"], np.int32), edge_features, n)
+        return n, node_features, edges, edge_features
+
+    def confidences(self, graph: dict) -> np.ndarray:
+        return self.confidences_batch([graph])[0]
+
+    __call__ = confidences
+
+    def _batch_inputs(self, graphs: Sequence[dict]):
+        """Shared-bucket union-graph inputs for a page group, on the device.
+
+        Buckets (nodes, edges, group size) are GROW-ONLY across calls: a
+        group smaller than a previous one pads up to the seen maximum, so a
+        corpus runs a few shapes after its first groups."""
+        ns_real = len(graphs)
+        group = max(self._group_bucket, ns_real)
+        self._group_bucket = group
+        graphs = list(graphs) + [graphs[-1]] * (group - ns_real)
+        corrected = [self._correct_graph(g) for g in graphs]
+        ns = [c[0] for c in corrected]
+        max_nodes = max(self._node_bucket, self._bucket(max(ns)))
+        self._node_bucket = max_nodes
+        max_edges = max(self._edges_bucket, self._edge_bucket(
+            max(max(len(c[2]) for c in corrected), 1)))
+        self._edges_bucket = max_edges
+        ns = ns[:ns_real]   # padding pages are sliced away at materialize
+        padded = []
+        for n, node_features, edges, edge_features in corrected:
+            rels, _, _ = build_full_relations(n, None)
+            padded.append(pad_graph(
+                n, node_features, edges, edge_features, rels, None,
+                max_nodes, max_edges, max_nodes * max_nodes))
+        inputs = {}
+        for k, v in batch_graphs(padded).items():
+            t = torch.from_numpy(v)
+            if t.dtype == torch.int32 and k in (
+                    "interacting_nodes", "relations_to_consider"):
+                t = t.long()        # index tensors
+            inputs[k] = t.to(self.device, non_blocking=True)
+        return inputs, ns
+
+    def confidences_batch(self, graphs: Sequence[dict]) -> List[np.ndarray]:
+        """ONE forward over a whole page group (the union-graph batching of
+        graph_gnn.py:81-119); pages pad to the group's shared node/edge
+        buckets. Returns a list of [n_i, n_i] confidence arrays."""
+        return self.confidences_batch_device(graphs)()
+
+    @torch.no_grad()
+    def forward_confidences(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """softmax(logits)[..., 1] on the device, [B, R]."""
+        return torch.softmax(self.model(inputs), dim=-1)[..., 1]
+
+    def confidences_batch_device(self, graphs: Sequence[dict]
+                                 ) -> Callable[[], List[np.ndarray]]:
+        """Enqueue the group's forward (CUDA work is asynchronous) and return
+        a zero-arg callable that reads the confidences back, once per group,
+        as per-page [n_i, n_i] arrays."""
+        inputs, ns = self._batch_inputs(graphs)
+        self._ensure_params(inputs)
+        conf = self.forward_confidences(inputs)
+
+        def materialize():
+            host = conf.cpu().numpy()
+            return [host[i, :n * n].reshape(n, n) for i, n in enumerate(ns)]
         return materialize

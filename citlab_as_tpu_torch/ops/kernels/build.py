@@ -1,17 +1,22 @@
-"""Build the port's CUDA kernels with nvcc and load them through ctypes.
+"""Build the port's native libraries and load them through ctypes.
 
-Each ``csrc/<name>.cu`` compiles on its own, with a plain C interface, into
+Each ``csrc/<name>.cu`` compiles on its own with nvcc, and each
+``csrc/<name>.cpp`` (host code) with the host C++ compiler (``$CXX``, else
+``g++``), with a plain C interface, into
 ``build/citlab_kernels/<name>-<hash>.so`` at the repository root (listed in
-``.gitignore``). The hash covers the source and the nvcc flags, so an
-edited source rebuilds and an unchanged one loads at once. ``build_all``
-starts one nvcc per source, all together. A failed build raises; nothing
-here is imported or run until a kernel is first launched on a CUDA tensor.
+``.gitignore``). The hash covers the source and the compiler flags (and,
+for host code built with ``-march=native``, the host CPU's feature flags),
+so an edited source rebuilds and an unchanged one loads at once. ``build_all``
+starts one compiler per source, all together. A failed build raises;
+nothing here is imported or run until a kernel is first launched on a CUDA
+tensor, or the host library is first called.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import platform
 import shutil
 import subprocess
 import threading
@@ -22,8 +27,14 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.dirname(
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "citlab_kernels")
 KERNEL_SOURCES = ("conv3x3", "separator_morphology")
+HOST_SOURCES = ("geometry_host",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the JAX package's native/Makefile flags: -march=native lets the compiler
+# fuse multiply-adds exactly as in the reference's host library, so the two
+# agree bit for bit on the same host (numpy, which never fuses, agrees to
+# the last bits of a double)
+CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
@@ -41,20 +52,54 @@ def _nvcc() -> str:
     return found
 
 
+def _cxx() -> str:
+    cxx = os.environ.get("CXX") or "g++"
+    found = shutil.which(cxx)
+    if found is None:
+        raise RuntimeError(f"host C++ compiler {cxx!r} not found (set CXX)")
+    return found
+
+
+def _source(name: str) -> Tuple[str, Tuple[str, ...]]:
+    """(source path, compiler flags) of ``csrc/<name>``."""
+    if name in HOST_SOURCES:
+        return os.path.join(CSRC_DIR, name + ".cpp"), CXX_FLAGS
+    return os.path.join(CSRC_DIR, name + ".cu"), NVCC_FLAGS
+
+
+def _host_cpu() -> bytes:
+    """The host CPU's feature flags: ``-march=native`` code built on one
+    machine need not run on another, so the host library's hash covers
+    them."""
+    try:
+        with open("/proc/cpuinfo", "rb") as f:
+            for line in f:
+                if line.startswith(b"flags"):
+                    return line
+    except OSError:
+        pass
+    return platform.processor().encode()
+
+
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC_DIR, name + ".cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    src, flags = _source(name)
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    if name in HOST_SOURCES:
+        digest.update(_host_cpu())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 
 def _start_build(name: str) -> Optional[Tuple[subprocess.Popen, str, str]]:
-    """Start nvcc for one source unless its library is already built."""
+    """Start the compiler for one source unless its library is already built."""
     out = _lib_path(name)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, name + ".cu")]
+    src, flags = _source(name)
+    compiler = _cxx() if name in HOST_SOURCES else _nvcc()
+    cmd = [compiler, *flags, "-o", tmp, src]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                             text=True)
     return proc, tmp, out
@@ -67,13 +112,13 @@ def _finish_build(name: str, started) -> None:
     log, _ = proc.communicate()
     build_logs[name] = log
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
+        raise RuntimeError(f"build failed for {os.path.relpath(_source(name)[0], _PKG_DIR)} "
                            f"(exit {proc.returncode}):\n{log}")
     os.replace(tmp, out)   # atomic, so concurrent builders never see a torn file
 
 
 def build_all(names: Iterable[str] = KERNEL_SOURCES) -> None:
-    """Compile every listed source, one nvcc each, all started together."""
+    """Compile every listed source, one compiler each, all started together."""
     names = list(names)
     with _lock:
         procs = {n: _start_build(n) for n in names}
@@ -82,7 +127,7 @@ def build_all(names: Iterable[str] = KERNEL_SOURCES) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built first if needed."""
+    """The loaded library of ``csrc/<name>``, built first if needed."""
     lib = _loaded.get(name)
     if lib is not None:
         return lib

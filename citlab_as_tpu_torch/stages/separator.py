@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from citlab_as_tpu_torch.device import DeviceLike, resolve_device
 from citlab_as_tpu_torch.ops.connected_components import remove_small_components
 from citlab_as_tpu_torch.ops.contours import trace_contours
 from citlab_as_tpu_torch.ops.kernels.separator_morphology import separator_morphology
@@ -175,15 +176,18 @@ class SeparatorNetPostProcessor:
     polygons dict per page and write nothing; ``names`` gives one key per
     page (default "0", "1", ...) for the per-page fault hook.
     ``predictor``: an ``inference.SegmentationPredictor`` (its ``model``
-    and ``device`` run the chain). Results come in input order, None for a
-    page skipped by the fault hook.
+    and ``device`` run the chain) or, for :meth:`run`, any
+    ``predict_fn(image_grey[H, W]) -> probabilities[H, W, C]``, whose CC
+    filter and morphology then run on ``device``. Results come in input
+    order, None for a page skipped by the fault hook.
     """
 
     def __init__(self, image_list: Union[str, Sequence[str], Sequence[np.ndarray]],
                  predictor, fixed_height: Optional[int] = 1500,
                  scaling_factor: float = 1.0, threshold: float = 0.05,
                  names: Optional[Sequence[str]] = None,
-                 page_paths: Optional[Sequence[str]] = None):
+                 page_paths: Optional[Sequence[str]] = None,
+                 device: DeviceLike = None):
         if isinstance(image_list, str):
             image_list = load_list_file(image_list)
         self.images = list(image_list)
@@ -207,7 +211,14 @@ class SeparatorNetPostProcessor:
         self.fixed_height = fixed_height
         self.scaling_factor = scaling_factor
         self.threshold = threshold
-        self._fused = make_fused_separator_fn(predictor.model)
+        if device is not None:
+            self.device = resolve_device(device)
+        elif hasattr(predictor, "device"):
+            self.device = predictor.device
+        else:
+            raise ValueError("a predictor without a device needs device=")
+        self._fused = (make_fused_separator_fn(predictor.model)
+                       if hasattr(predictor, "model") else None)
         # per-page fault hook: None = raise through; a callback
         # (name, stage, exc) switches to the log-and-skip contract
         self.on_page_error = None
@@ -254,7 +265,7 @@ class SeparatorNetPostProcessor:
         net_output = np.asarray(self.predictor(image_grey))
         net_output = np.asarray(net_output * 255, dtype=np.uint8)
         binary = apply_threshold(net_output[..., 0], self.threshold)
-        masks = separator_post_process(binary, self.predictor.device)
+        masks = separator_post_process(binary, self.device)
         polygons_dict = {}
         for separator_type, mask in masks.items():
             polygons_dict.update(masks_to_polygons(mask, separator_type))
@@ -314,7 +325,7 @@ class SeparatorNetPostProcessor:
                                 fixed_height=self.fixed_height)
         out_h, out_w = (h0, w0) if sc == 1.0 else (int(h0 * sc), int(w0 * sc))
         batch = torch.from_numpy(np.stack(images).astype(np.uint8, copy=False))
-        batch = batch.to(self.predictor.device)
+        batch = batch.to(self.device)
         hv_packed = self._fused(
             batch, out_h, out_w, *separator_kernel_sizes(out_h, out_w),
             threshold=self.threshold, pad_multiple=self.predictor.pad_multiple,

@@ -1,4 +1,5 @@
-"""Weight bridge from the JAX package's flax parameter trees.
+"""Weight bridge from the JAX package's flax parameter trees (the ARU-Nets
+and the relation GNN).
 
 The flax tree is carried as a flat ``{path: ndarray}`` dict with
 ``/``-joined paths (``params/featMapG/unet_down_0/conv1/conv/kernel``), as
@@ -9,6 +10,7 @@ port's module names mirror the flax scopes, so a path maps to a
 """
 from __future__ import annotations
 
+import re
 from typing import Dict
 
 import numpy as np
@@ -39,6 +41,41 @@ def arunet_state_dict_from_flax(params: Dict[str, np.ndarray]
                 arr = arr.transpose(3, 2, 0, 1)
             else:
                 arr = arr.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
+        name = ".".join(scopes) + (".weight" if leaf == "kernel" else ".bias")
+        out[name] = torch.tensor(np.ascontiguousarray(arr))
+    return out
+
+
+_GNN_SCOPE = re.compile(
+    r"(GraphLSTM1|Classification|message_fn|update_fn|compress_input|"
+    r"output_proj|head_\d+_(interaction|attention)|hidden_\d+|out|ingate|"
+    r"outgate|forgetgate|cellinput)$")
+
+
+def gnn_state_dict_from_flax(params: Dict[str, np.ndarray]
+                             ) -> Dict[str, torch.Tensor]:
+    """Map flat flax relation-GNN params to the port's ``GraphRelation``
+    state_dict.
+
+    Paths look like ``params/GraphLSTM1/message_fn/head_0_interaction/
+    hidden_0/kernel``, ``params/GraphLSTM1/update_fn/ingate/bias`` and
+    ``params/Classification/out/kernel``; the port's modules carry the same
+    names. A flax ``Dense`` kernel [in, out] becomes ``Linear.weight``
+    [out, in]. A path with a scope the relation GNN does not have (the
+    visual branch included) raises ``KeyError``."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in params.items():
+        parts = path.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        *scopes, leaf = parts
+        if (not scopes or scopes[0] not in ("GraphLSTM1", "Classification")
+                or leaf not in ("kernel", "bias")
+                or not all(_GNN_SCOPE.match(s) for s in scopes)):
+            raise KeyError(f"unexpected relation-GNN parameter path {path!r}")
+        arr = np.asarray(value, np.float32)
+        if leaf == "kernel":
+            arr = arr.T
         name = ".".join(scopes) + (".weight" if leaf == "kernel" else ".bias")
         out[name] = torch.tensor(np.ascontiguousarray(arr))
     return out

@@ -1,19 +1,30 @@
-"""Convert an ARU-Net checkpoint of the JAX package into an ``.npz`` for the
-PyTorch port.
+"""Convert a checkpoint of the JAX package into an ``.npz`` for the PyTorch
+port.
 
-The checkpoint is restored exactly as ``SegmentationPredictor(model_dir)``
-restores it; the parameter tree is flattened to ``/``-joined flax paths
-(``params/featMapG/unet_down_0/conv1/conv/kernel``) and saved as float32
-arrays. The port reads the file with numpy and maps it through
-``citlab_as_tpu_torch.weights.arunet_state_dict_from_flax``.
+An ARU-Net checkpoint is restored exactly as
+``SegmentationPredictor(model_dir)`` restores it, a relation-GNN checkpoint
+(``--kind gnn``) as ``RelationPredictor(model_dir)._ensure_params`` does
+(init at the first group's widths, then ``restore_checkpoint`` or the
+``best/<metric>`` export). The parameter tree is flattened to ``/``-joined
+flax paths (``params/featMapG/unet_down_0/conv1/conv/kernel``,
+``params/GraphLSTM1/update_fn/ingate/kernel``) and saved as float32 arrays.
+The port reads the file with numpy and maps it through
+``citlab_as_tpu_torch.weights.{arunet,gnn}_state_dict_from_flax``.
 
     python scripts/convert_weights_to_torch.py \
         --model_dir models_ckpt/separator --out models_ckpt_torch/separator.npz
     python scripts/convert_weights_to_torch.py \
         --model_dir models_ckpt/heading --out models_ckpt_torch/heading.npz
+    python scripts/convert_weights_to_torch.py --kind gnn \
+        --model_dir models_ckpt/gnn/best/f1 --out models_ckpt_torch/gnn.npz
+    python scripts/convert_weights_to_torch.py --kind gnn \
+        --model_dir models_ckpt/gnn_pipeline/best/f1 \
+        --out models_ckpt_torch/gnn_pipeline.npz
 
 Both committed ARU-Nets (separator, heading) have the same architecture; the
-defaults convert the separator's.
+defaults convert the separator's. ``--kind`` defaults to ``gnn`` for a
+``--model_dir`` under a ``gnn*`` directory. The committed relation GNNs
+(``gnn``, ``gnn_pipeline``) take 15 node and 2 edge features.
 """
 from __future__ import annotations
 
@@ -55,14 +66,46 @@ def flax_params(model_dir: str) -> Dict[str, np.ndarray]:
     return {k: np.asarray(v, np.float32) for k, v in sorted(flat.items())}
 
 
+def gnn_flax_params(model_dir: str, node_feature_dim: int = 15,
+                    edge_feature_dim: int = 2) -> Dict[str, np.ndarray]:
+    """Flat {path: float32 ndarray} of a relation-GNN checkpoint, restored by
+    ``RelationPredictor._ensure_params`` on a small graph of the given
+    feature widths (the widths fix the shapes of the init template)."""
+    from flax import traverse_util
+
+    from citlab_as_tpu.inference import RelationPredictor
+    from citlab_as_tpu.models.gnn.graph import fully_connected_edges
+    n = 4
+    edges = fully_connected_edges(n)
+    graph = {"num_nodes": n,
+             "node_features": np.zeros((n, node_feature_dim), np.float32),
+             "interacting_nodes": edges,
+             "edge_features": np.zeros((len(edges), edge_feature_dim), np.float32)}
+    pred = RelationPredictor(model_dir)
+    inputs, _ = pred._batch_inputs([graph], None)
+    pred._ensure_params(inputs)
+    flat = traverse_util.flatten_dict(pred.variables, sep="/")
+    return {k: np.asarray(v, np.float32) for k, v in sorted(flat.items())}
+
+
+def _kind_of(model_dir: str) -> str:
+    parts = os.path.normpath(os.path.abspath(model_dir)).split(os.sep)
+    return "gnn" if any(p.startswith("gnn") for p in parts) else "arunet"
+
+
 def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model_dir",
                         default=os.path.join(REPO, "models_ckpt", "separator"))
     parser.add_argument("--out", default=os.path.join(
         REPO, "models_ckpt_torch", "separator.npz"))
+    parser.add_argument("--kind", choices=("arunet", "gnn"), default=None,
+                        help="net of the checkpoint (default: gnn for a "
+                             "model_dir under a gnn* directory, else arunet)")
     args = parser.parse_args(argv)
-    params = flax_params(args.model_dir)
+    kind = args.kind or _kind_of(args.model_dir)
+    params = (gnn_flax_params(args.model_dir) if kind == "gnn"
+              else flax_params(args.model_dir))
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     np.savez(args.out, **params)
     n = sum(v.size for v in params.values())

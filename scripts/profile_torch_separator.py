@@ -7,7 +7,12 @@ timing on (a device sync around each device phase). With ``--path files``
 it runs ``chip_smoke.py``'s files-to-files path instead: the separator
 stage from PNG and PAGE-XML files, then the heading stage (fixed_height
 900, the converted heading weights) chained onto its output pages; the
-heading stage's phases are listed as ``heading <phase>``. It prints:
+heading stage's phases are listed as ``heading <phase>``. With ``--path
+workflow`` it runs ``chip_smoke.py``'s workflow phase: the port's
+``run_full_workflow`` over the same files with the converted ``gnn``
+relation net and ``clustering_method="dbscan"``; the device phases are then
+its stages (``timings`` keys), each call of a stage bracketed by device
+syncs. It prints:
 
 - the wall time of the profiled run and the device's busy share (the union
   of the CUDA kernel and memcpy intervals over that wall time);
@@ -20,7 +25,7 @@ heading stage's phases are listed as ``heading <phase>``. It prints:
   ``separator_morphology``), summed over their instantiations;
 - device time per kernel name, largest first.
 
-    python3 scripts/profile_torch_separator.py [--path memory|files]
+    python3 scripts/profile_torch_separator.py [--path memory|files|workflow]
         [--out build/profile_separator.json]
 
 Imports only the port (``citlab_as_tpu_torch``) and ``chip_smoke`` for its
@@ -39,6 +44,8 @@ import time
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PHASES = ("resize+forward", "cc", "morphology")
 HEADING_PHASES = ("resize+forward", "otsu+edt", "line features")
+WORKFLOW_STAGES = ("separator", "heading", "baseline_clustering", "textregion",
+                   "features", "gnn_clustering")
 
 
 def _union_us(intervals):
@@ -62,7 +69,8 @@ def main(argv=None) -> int:
     parser.add_argument("--out", default=os.path.join(REPO, "build",
                                                       "profile_separator.json"))
     parser.add_argument("--top", type=int, default=25)
-    parser.add_argument("--path", choices=("memory", "files"), default="memory")
+    parser.add_argument("--path", choices=("memory", "files", "workflow"),
+                        default="memory")
     args = parser.parse_args(argv)
     sys.path.insert(0, REPO)
     import torch
@@ -89,6 +97,32 @@ def main(argv=None) -> int:
                                           threshold=cs.THRESHOLD).run_batched(cs.BATCH, phase)
             torch.cuda.synchronize()
             return phase
+    elif args.path == "workflow":
+        import tempfile
+
+        from citlab_as_tpu_torch.cli.run_full_workflow import run_full_workflow
+        from citlab_as_tpu_torch.inference import RelationPredictor
+        from citlab_as_tpu_torch.utils import io as port_io
+        root = tempfile.mkdtemp(prefix="profile_torch_")
+        pages, _, layouts = cs.synthetic_newspaper(cs.N_PAGES, *cs.PAGE_SHAPE, seed=11)
+        paths = cs.write_corpus(root, pages, layouts)
+        head_pred = SegmentationPredictor(
+            os.path.join(REPO, "models_ckpt_torch", "heading.npz"),
+            dtype=torch.bfloat16, device=dev)
+        gnn = RelationPredictor(os.path.join(REPO, "models_ckpt_torch", "gnn.npz"),
+                                device=dev)
+        phase_names = list(WORKFLOW_STAGES)
+
+        def run():
+            port_io._IMAGE_CACHE.clear()
+            timings = {}
+            run_full_workflow(paths, separator_predictor=pred, heading_predictor=head_pred,
+                              gnn_predictor=gnn, clustering_method="dbscan",
+                              batch_size=cs.BATCH, separator_fixed_height=cs.FIXED_HEIGHT,
+                              heading_fixed_height=cs.HEADING_FIXED_HEIGHT,
+                              timings=timings, device=dev)
+            torch.cuda.synchronize()
+            return timings
     else:
         import tempfile
 
@@ -135,7 +169,38 @@ def main(argv=None) -> int:
         syncs.append(1)
         return orig_any(self, *a, **k)
 
-    sep._phase, torch.Tensor.any = labelled(""), counting_any
+    def synced_stage(name, fn):
+        """``fn`` as one device phase of the workflow: labelled and
+        bracketed by device syncs, so that its device work falls inside."""
+        def call(*a, **k):
+            with record_function("phase:" + name):
+                torch.cuda.synchronize()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+            return out
+        return call
+
+    # (owner, attribute, stage) of every call the workflow driver makes per
+    # stage; the driver imports the stage functions when it runs, so the
+    # module attributes are what it calls
+    stage_calls = []
+    if args.path == "workflow":
+        from citlab_as_tpu_torch.stages import (
+            baseline_clustering, features, gnn_io, heading, textregion)
+        stage_calls = [
+            (sep.SeparatorNetPostProcessor, "run_batched", "separator"),
+            (heading.HeadingNetPostProcessor, "run_batched", "heading"),
+            (baseline_clustering, "cluster_page", "baseline_clustering"),
+            (textregion, "generate_text_regions_for_page", "textregion"),
+            (features, "generate_feature_jsons", "features"),
+            (gnn_io, "gnn_confidences_dispatch", "gnn_clustering"),
+            (gnn_io, "gnn_clustering_for_page", "gnn_clustering")]
+    originals = [(owner, attr, getattr(owner, attr)) for owner, attr, _ in stage_calls]
+    for owner, attr, stage in stage_calls:
+        setattr(owner, attr, synced_stage(stage, getattr(owner, attr)))
+    if args.path != "workflow":
+        sep._phase = labelled("")
+    torch.Tensor.any = counting_any
     swt_device.reset_counts()
     if args.path == "files":
         heading._phase = labelled("heading ")
@@ -146,9 +211,12 @@ def main(argv=None) -> int:
             wall_s = time.perf_counter() - t0
     finally:
         sep._phase, torch.Tensor.any = orig_phase, orig_any
+        for owner, attr, fn in originals:
+            setattr(owner, attr, fn)
         if args.path == "files":
-            import shutil
             heading._phase = orig_phase
+        if root is not None:
+            import shutil
             shutil.rmtree(root, ignore_errors=True)
 
     intervals, by_name, windows = [], {}, {p: [] for p in phase_names}

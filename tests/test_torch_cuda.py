@@ -174,3 +174,56 @@ def test_line_feature_program_on_the_card_equals_the_cpu(cuda, monkeypatch, chun
         np.testing.assert_array_equal(g_sw, w_sw)
         np.testing.assert_array_equal(g_net, w_net)
     assert max(w_sw[:, 0].max() for _, w_sw in want) > 0
+
+
+def _delaunay_graph(rng, n):
+    """A page graph of n region centres with Delaunay edges (the feature
+    stage's interaction) and random 15 + 2 features."""
+    from scipy.spatial import Delaunay
+    pts = rng.rand(n, 2) * 1000.0
+    indptr, indices = Delaunay(pts).vertex_neighbor_vertices
+    edges = np.array([(v, u) for v in range(n) for u in indices[indptr[v]:indptr[v + 1]]])
+    return {"num_nodes": n,
+            "node_features": rng.rand(n, 15).astype(np.float32).tolist(),
+            "interacting_nodes": edges.tolist(),
+            "edge_features": rng.randint(0, 2, (len(edges), 2)).astype(float).tolist()}
+
+
+@pytest.mark.cuda
+def test_relation_gnn_on_the_card_equals_the_cpu(cuda):
+    """``RelationPredictor`` with the converted ``gnn`` weights: the card's
+    confidences within 1e-5 of the CPU's on a group of 4 pages (segment sums
+    by float atomics on the card, so not bit for bit)."""
+    import os
+    from citlab_as_tpu_torch.inference import RelationPredictor
+    npz = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "models_ckpt_torch", "gnn.npz")
+    rng = np.random.RandomState(3)
+    group = [_delaunay_graph(rng, n) for n in (12, 40, 64, 7)]
+    want = RelationPredictor(npz, device="cpu").confidences_batch(group)
+    got = RelationPredictor(npz, device="cuda").confidences_batch(group)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_host_geometry_library_builds_on_the_card_machine(cuda):
+    """The host C++ library builds with the machine's compiler and agrees
+    with its numpy plain versions there."""
+    from citlab_as_tpu_torch.geometry import native
+    from citlab_as_tpu_torch.geometry.pairwise import min_perpendicular_distances
+    from citlab_as_tpu_torch.geometry.polygon import Polygon, norm_poly_dists
+    from citlab_as_tpu_torch.geometry.util import alpha_shape, alpha_shape_plain
+    rng = np.random.RandomState(0)
+    polys = [Polygon.from_arrays(np.sort(rng.randint(0, 400, 3)) + 500 * (i % 2),
+                                 100 + 40 * (i // 2) + rng.randint(-3, 4, 3))
+             for i in range(30)]
+    normed = norm_poly_dists(polys, 5)
+    np.testing.assert_allclose(native.interline_distances_normed(normed, 5, 500),
+                               min_perpendicular_distances(normed, 5, 500),
+                               rtol=0, atol=1e-9)
+    coords, off = native.norm_poly_dists_packed(polys, 50)
+    cloud = np.concatenate([coords, coords + [1, -30]]).astype(np.int64)
+    assert alpha_shape(cloud, 75) == alpha_shape_plain(
+        cloud, 75, simplices=native.delaunay(cloud))

@@ -1,6 +1,6 @@
 """Port-wide checks: the weight converter, import hygiene (no jax, flax,
-citlab_as_tpu, lxml, PIL or shapely inside the port or chip_smoke.py), and
-device resolution."""
+citlab_as_tpu, sklearn, lxml, PIL or shapely inside the port or
+chip_smoke.py), and device resolution."""
 import ast
 import os
 import subprocess
@@ -13,8 +13,9 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PORT = os.path.join(REPO, "citlab_as_tpu_torch")
 NETS = ("separator", "heading")
+GNN_NETS = ("gnn", "gnn_pipeline")
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "citlab_as_tpu",
-             "lxml", "PIL", "shapely")
+             "sklearn", "lxml", "PIL", "shapely")
 
 
 def _npz(net):
@@ -35,6 +36,34 @@ def test_converter_reproduces_committed_npz(tmp_path, net):
         for k in want.files:
             assert got[k].dtype == np.float32
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("net", GNN_NETS)
+def test_converter_reproduces_committed_gnn_npz(tmp_path, net):
+    out = tmp_path / f"{net}.npz"
+    r = subprocess.run(
+        [sys.executable, os.path.join(REPO, "scripts", "convert_weights_to_torch.py"),
+         "--kind", "gnn", "--model_dir",
+         os.path.join(REPO, "models_ckpt", net, "best", "f1"), "--out", str(out)],
+        capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, JAX_PLATFORMS="cpu"))
+    assert r.returncode == 0, r.stdout + r.stderr
+    with np.load(_npz(net)) as want, np.load(out) as got:
+        assert sorted(got.files) == sorted(want.files)
+        for k in want.files:
+            assert got[k].dtype == np.float32
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+@pytest.mark.parametrize("net", GNN_NETS)
+def test_gnn_state_dict_covers_every_parameter(net):
+    from citlab_as_tpu_torch.models.gnn.model import GraphRelation
+    from citlab_as_tpu_torch.weights import gnn_state_dict_from_flax, load_npz
+    sd = gnn_state_dict_from_flax(load_npz(_npz(net)))
+    model = GraphRelation(node_feature_dim=15, edge_feature_dim=2)
+    assert set(sd) == set(model.state_dict())
+    for k, v in model.state_dict().items():
+        assert sd[k].shape == v.shape, k
 
 
 @pytest.mark.parametrize("net", NETS)
@@ -74,9 +103,9 @@ def test_port_file_imports_no_jax_and_no_reference(path):
 
 
 def test_running_the_slice_loads_no_jax_module():
-    """Import the port and run both stages of the slice on the CPU, in
-    memory and from files to files, in a fresh process (conftest.py has
-    loaded jax in this one)."""
+    """Import the port and run its stages on the CPU, in memory and from
+    files to files, then the whole workflow (every clustering method's
+    code), in a fresh process (conftest.py has loaded jax in this one)."""
     code = r"""
 import os, sys, tempfile
 import numpy as np, torch
@@ -106,9 +135,27 @@ written = head.run_batched_fused(1)
 assert all(Page.validate(Page(p).page_doc) for p in outs) and len(written) == 1
 assert all(tl.get_semantic_type() == "heading" for p in written
            for tl in p.textlines if tl.id.startswith("hl_"))
+from citlab_as_tpu_torch.cli.run_full_workflow import run_full_workflow
+from citlab_as_tpu_torch.inference import RelationPredictor
+def benign(image_grey):      # net outputs with no separator and no heading
+    prob = np.zeros(image_grey.shape + (2,), np.float32)
+    prob[..., 1] = 1.0
+    return prob
+res = run_full_workflow(paths, separator_predictor=benign, heading_predictor=benign,
+                        gnn_predictor=RelationPredictor(None, device="cpu"),
+                        separator_fixed_height=128, heading_fixed_height=128,
+                        out_dir=os.path.join(root, "out"), device="cpu",
+                        clustering_method="dbscan_std")
+assert res["skipped"] == [] and len(res["clustered"]) == 1
+for method in ("linkage", "greedy"):
+    from citlab_as_tpu_torch.stages.clustering import TextblockClustering
+    tb = TextblockClustering({"t": "silhouette"} if method == "linkage" else None)
+    tb.set_confs(np.random.RandomState(0).rand(6, 6))
+    tb.calc(method)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax",
-                                    "citlab_as_tpu", "lxml", "PIL", "shapely"))
+                                    "citlab_as_tpu", "sklearn", "lxml", "PIL",
+                                    "shapely"))
 print("LOADED", bad)
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
