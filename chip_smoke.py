@@ -55,7 +55,26 @@ result):
 7. gnn: the relation GNN's forward alone on one group of 4 graphs at the
    node bucket of 64 (Delaunay edges): CUDA-event ms, eager and from a
    CUDA graph, and the device launches and device time of one forward
-   (``torch.profiler``).
+   (``torch.profiler``);
+8. pipelined: 16 pages of the files phase's kind (4 groups of 4, so the
+   four-stage wave reaches a steady state) through the sequential
+   ``run_full_workflow`` and through ``run_full_workflow_pipelined`` with
+   ``host_workers=0`` and with ``min(4, cpu_count - 1)`` spawned workers,
+   two runs each on the same files. Gates on each driver's first run:
+   every written file (page XML, feature JSON, clustered XML) byte-equal to
+   the sequential run's with ``LastChange`` normalised; K1 69 x 2 and K2
+   one launch per group; an article id on every text line; the pipelined
+   ``timings`` keys. Pages/s of every run and the pipelined ``timings``
+   are printed;
+9. visual: the workflow's 8 pages with the converted visual relation net
+   (``gnn_visual``, ARU_cutted backbone, page images at 288 / 384),
+   sequential and pipelined. Gates: the pipelined files byte-equal to the
+   sequential ones; K1 and K2 launches as in the workflow, and none from
+   the visual forward alone; an article id on every text line; the card's
+   visual confidences within ``VISUAL_CONF_TOL`` of the port's CPU device
+   on the same feature JSONs and images, with equal dbscan labels. The
+   visual forward's time per group is printed: eager (CUDA events) and
+   device time (``torch.profiler``).
 
 The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
 """
@@ -85,6 +104,20 @@ N_PAGES, BATCH, FIXED_HEIGHT, THRESHOLD = 8, 4, 1500, 0.05
 HEADING_FIXED_HEIGHT = 900
 HEADLINES_PER_PAGE = 3
 CPU_CHECK_EVERY = 20                        # lines redone on the CPU device: see cpu_check_lines
+N_PIPE_PAGES = 16                           # 4 groups of 4: the wave's steady state
+# card vs CPU confidences of the visual relation net: its backbone is f32
+# convolutions (TF32 off) whose sums of up to 9 x 192 = 1728 products run in
+# another order on cuDNN than on the CPU, and the GNN's segment sums are
+# float atomics on the card (2.6e-6 apart without the backbone); 1e-4
+# leaves room for that drift, and the dbscan labels, which decide the
+# written files, are gated equal
+VISUAL_CONF_TOL = 1e-4
+VISUAL_KW = dict(image_input=True, visual_backbone="ARU_cutted_v1",
+                 image_min_dimension=288, image_max_dimension=384)
+PIPELINED_TIMINGS = {"separator_materialize", "dispatch", "separator_drain",
+                     "heading_dispatch", "heading_drain", "heading_finish",
+                     "gnn_dispatch", "gnn_materialize", "gnn_clustering",
+                     "separator_drain.contours", "separator_drain.write", "total"}
 
 
 def _draw_page(rng, h, w, yy, xx):
@@ -952,6 +985,241 @@ def phase_gnn(dev):
             "device_ms": device_ms}
 
 
+def written_files(root):
+    """Every file a workflow wrote under ``root`` (not its inputs: the PNGs
+    and the original ``page/<name>.xml``), ``LastChange`` normalised."""
+    import re
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            rel = os.path.relpath(os.path.join(dirpath, name), root)
+            if name.endswith(".png") or (os.path.dirname(rel) == "page"
+                                         and not name.endswith(".xml.xml")):
+                continue
+            with open(os.path.join(root, rel), "rb") as f:
+                out[rel] = re.sub(rb"<LastChange>[^<]*</LastChange>", b"<LastChange/>",
+                                  f.read())
+    return out
+
+
+def _workflow_runner(dev, paths, gnn):
+    """``run(driver, **kw)``: one workflow over ``paths`` with the converted
+    ARU-Nets (bf16) and ``gnn``; returns (seconds, result, the kernels'
+    launches counted from 0 just before the run, timings). The page files
+    are rewritten in place run after run."""
+    import torch
+    from citlab_as_tpu_torch.inference import SegmentationPredictor
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.utils import io as port_io
+    sep_pred, head_pred = (SegmentationPredictor(
+        os.path.join(REPO, "models_ckpt_torch", f"{net}.npz"), dtype=torch.bfloat16,
+        device=dev) for net in ("separator", "heading"))
+
+    def run(driver, **kw):
+        port_io._IMAGE_CACHE.clear()
+        timings = {}
+        k1.launches = 0
+        k2.launches = 0
+        t0 = time.perf_counter()
+        result = driver(paths, separator_predictor=sep_pred, heading_predictor=head_pred,
+                        gnn_predictor=gnn, clustering_method="dbscan", batch_size=BATCH,
+                        separator_fixed_height=FIXED_HEIGHT,
+                        heading_fixed_height=HEADING_FIXED_HEIGHT, timings=timings,
+                        device=dev, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+        return secs, result, launches, timings
+    return run
+
+
+def check_workflow_run(label, result, launches, groups, n_pages):
+    """The gates every driver run shares: no page skipped, a clustered
+    file per page with an article id on every text line, K1 69 x 2 and K2
+    one launch per page group."""
+    from citlab_as_tpu_torch.pagexml import Page
+    check(not result["skipped"], f"{label}: pages skipped: {result['skipped']}")
+    check(len(result["clustered"]) == n_pages,
+          f"{label}: {len(result['clustered'])} clustered files for {n_pages} pages")
+    for path in result["clustered"]:
+        lines = Page(path).get_textlines()
+        check(lines and all(tl.get_article_id() for tl in lines),
+              f"{label}: {path}: a text line has no article id")
+    check(launches["conv3x3"] == 69 * 2 * groups,
+          f"{label}: K1 launched {launches['conv3x3']} times, want 69 x {2 * groups}")
+    check(launches["separator_morphology"] == groups,
+          f"{label}: K2 launched {launches['separator_morphology']} times, want {groups}")
+
+
+def phase_pipelined(dev):
+    """The sequential and the wave-pipelined workflow on 16 pages, with the
+    host tail in the parent and over spawned workers."""
+    from citlab_as_tpu_torch.cli.run_full_workflow import (
+        run_full_workflow, run_full_workflow_pipelined)
+    from citlab_as_tpu_torch.inference import RelationPredictor
+
+    from citlab_as_tpu_torch.utils import workers as port_workers
+
+    n_pages = N_PIPE_PAGES
+    groups = -(-n_pages // BATCH)
+    workers = min(4, (os.cpu_count() or 2) - 1)
+    root = tempfile.mkdtemp(prefix="chip_smoke_pipelined_")
+    # seconds of each wave's host tail over the worker pool: the first
+    # wave's includes waiting for the workers' start-up
+    map_items, pool_waves = port_workers.PersistentPool.map_items, []
+
+    def timed_map_items(self, items):
+        t0 = time.perf_counter()
+        out = map_items(self, items)
+        pool_waves.append(round(time.perf_counter() - t0, 4))
+        return out
+    port_workers.PersistentPool.map_items = timed_map_items
+    try:
+        pages, _, layouts = synthetic_newspaper(n_pages, *PAGE_SHAPE, seed=13)
+        paths = write_corpus(root, pages, layouts)
+        run = _workflow_runner(dev, paths, RelationPredictor(
+            os.path.join(REPO, "models_ckpt_torch", "gnn.npz"), device=dev))
+        rates, timings_seen, reference, launches_seen = {}, {}, None, {}
+        for label, driver, kw in (
+                ("sequential", run_full_workflow, {}),
+                ("pipelined", run_full_workflow_pipelined, {"host_workers": 0}),
+                (f"pipelined, {workers} workers", run_full_workflow_pipelined,
+                 {"host_workers": workers})):
+            rates[label] = []
+            for attempt in range(2):
+                secs, result, launches, timings = run(driver, **kw)
+                rates[label].append(n_pages / secs)
+                if attempt:
+                    continue
+                check_workflow_run(label, result, launches, groups, n_pages)
+                launches_seen[label] = launches
+                files = written_files(root)
+                if reference is None:
+                    reference = files
+                    check(sum(f.endswith("_clustering.xml") for f in files) == n_pages,
+                          f"{label}: clustered files missing")
+                    continue
+                check(set(files) == set(reference),
+                      f"{label}: wrote {sorted(set(files) ^ set(reference))[:4]} "
+                      "unlike the sequential driver")
+                differ = sorted(f for f in files if files[f] != reference[f])
+                check(not differ, f"{label}: {len(differ)} files differ from the "
+                                  f"sequential driver's, e.g. {differ[:3]}")
+                check(PIPELINED_TIMINGS <= set(timings),
+                      f"{label}: timings keys {sorted(timings)}")
+                timings_seen[label] = timings
+        print(f"pipelined: {n_pages} pages, {groups} groups of {BATCH}; all "
+              f"{len(reference)} written files of both pipelined runs byte-equal to "
+              f"the sequential run's; launches " + json.dumps(launches_seen))
+        print("pipelined: pages/s (two runs each) " + json.dumps(rates))
+        for label, timings in timings_seen.items():
+            print(f"pipelined: timings ({label}) " + json.dumps(timings))
+        print(f"pipelined: host tail per wave over {workers} workers, s (two runs of "
+              f"{groups} waves) " + json.dumps(pool_waves))
+    finally:
+        port_workers.PersistentPool.map_items = map_items
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches_seen["pipelined"], "pages_per_s": rates,
+            "timings": timings_seen}
+
+
+def phase_visual(dev):
+    """The workflow's 8 pages with the converted visual relation net,
+    sequential and pipelined; its confidences against the port's CPU
+    device; its forward timed alone."""
+    import glob
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from citlab_as_tpu_torch.cli.run_full_workflow import (
+        run_full_workflow, run_full_workflow_pipelined)
+    from citlab_as_tpu_torch.inference import RelationPredictor
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.stages.clustering import TextblockClustering
+    from citlab_as_tpu_torch.utils import io as port_io
+
+    n_pages = N_PAGES
+    groups = -(-n_pages // BATCH)
+    npz = os.path.join(REPO, "models_ckpt_torch", "gnn_visual.npz")
+    root = tempfile.mkdtemp(prefix="chip_smoke_visual_")
+    try:
+        pages, _, layouts = synthetic_newspaper(n_pages, *PAGE_SHAPE, seed=11)
+        paths = write_corpus(root, pages, layouts)
+        gnn = RelationPredictor(npz, device=dev, **VISUAL_KW)
+        run = _workflow_runner(dev, paths, gnn)
+        seconds, launches_seen, written = {}, {}, {}
+        for label, driver in (("sequential", run_full_workflow),
+                              ("pipelined", run_full_workflow_pipelined)):
+            secs, result, launches, _ = run(driver)
+            check_workflow_run(f"visual {label}", result, launches, groups, n_pages)
+            seconds[label], launches_seen[label] = secs, launches
+            written[label] = written_files(root)
+        differ = sorted(f for f in written["sequential"]
+                        if written["pipelined"].get(f) != written["sequential"][f])
+        check(set(written["pipelined"]) == set(written["sequential"]) and not differ,
+              f"visual: pipelined files differ from the sequential ones: {differ[:3]}")
+        json_dirs = glob.glob(os.path.join(root, "json*"))
+        check(len(json_dirs) == 1 and "v" in os.path.basename(json_dirs[0]),
+              f"visual: feature JSON directories {json_dirs} (want one of visual regions)")
+        print(f"visual: {n_pages} pages, sequential {n_pages / seconds['sequential']:.3f} "
+              f"pages/s, pipelined {n_pages / seconds['pipelined']:.3f} pages/s; all "
+              f"{len(written['sequential'])} written files byte-equal; launches "
+              + json.dumps(launches_seen))
+
+        graphs, images = [], []
+        for path in paths:
+            name = os.path.splitext(os.path.basename(path))[0] + ".xml.json"
+            with open(os.path.join(json_dirs[0], name)) as f:
+                graphs.append(json.load(f))
+            images.append(np.asarray(port_io.load_image(path, "L")))
+        cpu = RelationPredictor(npz, device="cpu", **VISUAL_KW)
+        worst, same_labels = 0.0, True
+        k1.launches = 0
+        for g in range(groups):
+            sl = slice(g * BATCH, (g + 1) * BATCH)
+            for c_card, c_cpu in zip(gnn.confidences_batch(graphs[sl], images[sl]),
+                                     cpu.confidences_batch(graphs[sl], images[sl])):
+                worst = max(worst, float(np.abs(c_card - c_cpu).max()))
+                labels = []
+                for conf in (c_card, c_cpu):
+                    tb = TextblockClustering()
+                    tb.set_confs(conf)
+                    tb.calc("dbscan")
+                    labels.append(list(tb.tb_labels))
+                same_labels &= labels[0] == labels[1]
+        check(k1.launches == 0, f"visual: the visual forward launched K1 {k1.launches} times")
+        print(f"visual: confidences card vs CPU max abs {worst:.3g} (limit "
+              f"{VISUAL_CONF_TOL}) over {n_pages} pages of "
+              f"{[g['num_nodes'] for g in graphs]} nodes; dbscan labels equal: "
+              f"{same_labels}; K1 launches from the visual forward: {k1.launches}")
+        check(worst <= VISUAL_CONF_TOL, f"visual: card vs CPU confidences differ by {worst}")
+        check(same_labels, "visual: dbscan labels differ between card and CPU")
+
+        # one group's forward alone (backbone at 384 x 384, pooling, GNN)
+        inputs, _ = gnn._batch_inputs(graphs[:BATCH], images[:BATCH])
+        eager = cuda_ms(lambda: gnn.forward_confidences(inputs), iters=10, warmup=2)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            gnn.confidences_batch(graphs[:BATCH], images[:BATCH])
+        whole = (time.perf_counter() - t0) / 3 * 1e3
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            gnn.forward_confidences(inputs)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+        device_ms = sum(e.time_range.elapsed_us() for e in kernels) / 1e3 if kernels else None
+        print(f"visual: forward of one group of {BATCH} pages (image "
+              f"{tuple(inputs['image'].shape[1:3])}, node bucket {gnn._node_bucket}): "
+              f"{eager:.4f} ms eager (CUDA events), device time {device_ms} ms over "
+              f"{len(kernels)} device launches (torch.profiler); confidences_batch with "
+              f"host preparation (image resize) and readback {whole:.3f} ms")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches_seen["pipelined"], "eager_ms": eager,
+            "device_ms": device_ms, "max_abs_err": worst}
+
+
 def main() -> int:
     try:
         import torch
@@ -986,6 +1254,8 @@ def main() -> int:
         files_row = timed("files", phase_files, dev)
         workflow_row = timed("workflow", phase_workflow, dev)
         timed("gnn", phase_gnn, dev)
+        pipelined_row = timed("pipelined", phase_pipelined, dev)
+        visual_row = timed("visual", phase_visual, dev)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -995,20 +1265,26 @@ def main() -> int:
              replaces="citlab_as_tpu/ops/pallas/conv3x3.py:110",
              launches=main_row["launches"]["conv3x3"],
              launches_files=files_row["launches"]["conv3x3"],
-             launches_workflow=workflow_row["launches"]["conv3x3"], **k1_row),
+             launches_workflow=workflow_row["launches"]["conv3x3"],
+             launches_pipelined=pipelined_row["launches"]["conv3x3"],
+             launches_visual=visual_row["launches"]["conv3x3"], **k1_row),
         dict(name="separator_morphology", route="cuda",
              source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
              replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
              launches=main_row["launches"]["separator_morphology"],
              launches_files=files_row["launches"]["separator_morphology"],
-             launches_workflow=workflow_row["launches"]["separator_morphology"], **k2_row),
+             launches_workflow=workflow_row["launches"]["separator_morphology"],
+             launches_pipelined=pipelined_row["launches"]["separator_morphology"],
+             launches_visual=visual_row["launches"]["separator_morphology"], **k2_row),
     ]
     # ``launches``: the in-memory main path's count; ``launches_files``: the
-    # files-to-files path's; ``launches_workflow``: the whole workflow's
-    # (each counted from 0 just before its run)
+    # files-to-files path's; ``launches_workflow``: the whole workflow's;
+    # ``launches_pipelined``: the pipelined workflow's (16 pages, no
+    # workers); ``launches_visual``: the pipelined workflow's with the visual
+    # relation net (each counted from 0 just before its run)
     keys = ("name", "route", "source", "replaces", "launches", "launches_files",
-            "launches_workflow", "max_abs_err", "ms", "plain_ms", "bound_ms",
-            "bound_by", "library_ms")
+            "launches_workflow", "launches_pipelined", "launches_visual",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -21,7 +21,9 @@ from citlab_as_tpu_torch.models.gnn.graph import (
     batch_graphs, build_full_relations, correct_edges, pad_graph,
 )
 from citlab_as_tpu_torch.models.gnn.model import GraphRelation
+from citlab_as_tpu_torch.ops.image_utils import resize_image_ratio
 from citlab_as_tpu_torch.train.input_pipeline import apply_feature_masks
+from citlab_as_tpu_torch.utils.async_copy import prefetch
 from citlab_as_tpu_torch.weights import (
     arunet_state_dict_from_flax, gnn_state_dict_from_flax, load_npz,
 )
@@ -97,20 +99,31 @@ class RelationPredictor:
     --kind gnn``); None -> random init from ``seed`` (logged loudly). The
     net is built at the first group, whose feature widths it takes, as the
     JAX predictor initializes at its first call. Runs in float32 on
-    ``device`` ("cuda" unless told "cpu"). The visual branch
-    (``image_input``) is not ported yet (ROADMAP Queue 1 item 11)."""
+    ``device`` ("cuda" unless told "cpu").
+
+    ``image_input`` (the visual 'v' nets): the page images go with the
+    graphs (``confidences(graph, image)``, ``confidences_batch(graphs,
+    images)``); each is ratio-resized on the host to
+    ``image_min_dimension`` / ``image_max_dimension`` and zero-padded to a
+    square, and its regions' polygons (``visual_regions_nodes`` in the
+    feature JSON, written with ``visual_regions=True``) are scaled into it.
+    The committed ``gnn_visual`` checkpoint was trained and evaluated at
+    288 / 384 with ``visual_backbone="ARU_cutted_v1"``."""
 
     def __init__(self, model_path: Optional[str] = None, num_classes: int = 2,
                  gnn_params=None, message_params=None, update_params=None,
                  node_feature_mask: Optional[Sequence[int]] = None,
                  edge_feature_mask: Optional[Sequence[int]] = None,
                  node_buckets: Sequence[int] = (16, 32, 64, 128, 256),
-                 image_input: bool = False, seed: int = 0,
-                 device: DeviceLike = "cuda"):
-        if image_input:
+                 image_input: bool = False, visual_backbone: str = "ARU_v1",
+                 assign_visual_features_to_nodes: bool = True,
+                 assign_visual_features_to_edges: bool = False,
+                 image_min_dimension: int = 600, image_max_dimension: int = 1024,
+                 seed: int = 0, device: DeviceLike = "cuda"):
+        if image_input and visual_backbone == "inception_v3":
             raise NotImplementedError(
-                "RelationPredictor(image_input=True): the visual GNN branch is "
-                "not ported yet (ROADMAP Queue 1 item 11)")
+                "visual_backbone='inception_v3' is not ported (ROADMAP Queue 1 "
+                "item 11: no checkpoint in the repository uses it)")
         self.device = resolve_device(device)
         self.model_path = model_path
         self.num_classes = num_classes
@@ -120,10 +133,17 @@ class RelationPredictor:
         self.node_feature_mask = node_feature_mask
         self.edge_feature_mask = edge_feature_mask
         self.node_buckets = list(node_buckets)
+        self.image_input = image_input
+        self.visual_backbone = visual_backbone
+        self.assign_nodes = assign_visual_features_to_nodes
+        self.assign_edges = assign_visual_features_to_edges
+        self.image_min_dimension = image_min_dimension
+        self.image_max_dimension = image_max_dimension
         self.seed = seed
         self.model: Optional[GraphRelation] = None
         # grow-only shapes of the batched inputs (see _batch_inputs)
         self._group_bucket = self._node_bucket = self._edges_bucket = 1
+        self._points_bucket = 1
 
     def _ensure_params(self, inputs: Dict[str, torch.Tensor]) -> None:
         if self.model is not None:
@@ -132,7 +152,10 @@ class RelationPredictor:
             node_feature_dim=inputs["node_features"].shape[-1],
             edge_feature_dim=inputs["edge_features"].shape[-1],
             num_classes=self.num_classes, gnn_params=self.gnn_params,
-            message_params=self.message_params, update_params=self.update_params)
+            message_params=self.message_params, update_params=self.update_params,
+            image_input=self.image_input, visual_backbone=self.visual_backbone,
+            assign_visual_features_to_nodes=self.assign_nodes,
+            assign_visual_features_to_edges=self.assign_edges)
         if self.model_path is not None:
             model.load_state_dict(gnn_state_dict_from_flax(load_npz(self.model_path)))
             logger.info("Loaded GNN params from %s", self.model_path)
@@ -182,21 +205,64 @@ class RelationPredictor:
             np.asarray(graph["interacting_nodes"], np.int32), edge_features, n)
         return n, node_features, edges, edge_features
 
-    def confidences(self, graph: dict) -> np.ndarray:
-        return self.confidences_batch([graph])[0]
+    def _visual_inputs(self, graph: dict, image: np.ndarray, max_nodes: int,
+                       max_edges: int, max_points: int) -> Dict[str, np.ndarray]:
+        """Page image + visual regions -> the model's visual inputs: the
+        ratio-resized, zero-padded image [1, D, D, 1] in [0, 1], its true
+        shape, and the regions [1, N, 2, P] scaled into the resized frame
+        with their valid point counts, padded to the node / edge buckets and
+        the shared point bucket."""
+        orig_h, orig_w = image.shape[:2]
+        resized, (th, tw) = resize_image_ratio(
+            image, self.image_min_dimension, self.image_max_dimension,
+            pad_to_max_dimension=True)
+        if resized.max() > 1.5:
+            resized = resized / 255.0
+        out = {"image": resized[None, :, :, None],
+               "image_shape": np.asarray([[th, tw]], np.int32)}
+        sx, sy = tw / orig_w, th / orig_h
+
+        def pack(regions, num_points, max_items):
+            packed = np.zeros((1, max_items, 2, max_points), np.float32)
+            counts = np.zeros((1, max_items), np.int32)
+            for i, r in enumerate(regions):
+                a = np.asarray(r, np.float32)          # [2, P_i]
+                packed[0, i, 0, :a.shape[1]] = a[0] * sx
+                packed[0, i, 1, :a.shape[1]] = a[1] * sy
+                counts[0, i] = num_points[i]
+            return packed, counts
+
+        for kind, on, max_items in (("nodes", self.assign_nodes, max_nodes),
+                                    ("edges", self.assign_edges, max_edges)):
+            if on and f"visual_regions_{kind}" in graph:
+                packed, counts = pack(graph[f"visual_regions_{kind}"],
+                                      graph[f"num_points_visual_regions_{kind}"],
+                                      max_items)
+                out[f"visual_regions_{kind}"] = packed
+                out[f"num_points_visual_regions_{kind}"] = counts
+        return out
+
+    def confidences(self, graph: dict,
+                    image: Optional[np.ndarray] = None) -> np.ndarray:
+        return self.confidences_batch(
+            [graph], [image] if image is not None else None)[0]
 
     __call__ = confidences
 
-    def _batch_inputs(self, graphs: Sequence[dict]):
+    def _batch_inputs(self, graphs: Sequence[dict],
+                      images: Optional[Sequence[np.ndarray]] = None):
         """Shared-bucket union-graph inputs for a page group, on the device.
 
-        Buckets (nodes, edges, group size) are GROW-ONLY across calls: a
-        group smaller than a previous one pads up to the seen maximum, so a
-        corpus runs a few shapes after its first groups."""
+        Buckets (nodes, edges, group size, and for visual nets the region
+        points) are GROW-ONLY across calls: a group smaller than a previous
+        one pads up to the seen maximum, so a corpus runs a few shapes after
+        its first groups."""
         ns_real = len(graphs)
         group = max(self._group_bucket, ns_real)
         self._group_bucket = group
         graphs = list(graphs) + [graphs[-1]] * (group - ns_real)
+        if images is not None:
+            images = list(images) + [images[-1]] * (group - len(images))
         corrected = [self._correct_graph(g) for g in graphs]
         ns = [c[0] for c in corrected]
         max_nodes = max(self._node_bucket, self._bucket(max(ns)))
@@ -211,8 +277,17 @@ class RelationPredictor:
             padded.append(pad_graph(
                 n, node_features, edges, edge_features, rels, None,
                 max_nodes, max_edges, max_nodes * max_nodes))
+        batch = batch_graphs(padded)
+        if self.image_input and images is not None:
+            max_points = max(self._points_bucket, self._edge_bucket(max(
+                max((np.asarray(r).shape[1] for r in g.get("visual_regions_nodes", [])),
+                    default=1) for g in graphs)))
+            self._points_bucket = max_points
+            vis = [self._visual_inputs(g, im, max_nodes, max_edges, max_points)
+                   for g, im in zip(graphs, images)]
+            batch.update({k: np.concatenate([v[k] for v in vis], axis=0) for k in vis[0]})
         inputs = {}
-        for k, v in batch_graphs(padded).items():
+        for k, v in batch.items():
             t = torch.from_numpy(v)
             if t.dtype == torch.int32 and k in (
                     "interacting_nodes", "relations_to_consider"):
@@ -220,27 +295,32 @@ class RelationPredictor:
             inputs[k] = t.to(self.device, non_blocking=True)
         return inputs, ns
 
-    def confidences_batch(self, graphs: Sequence[dict]) -> List[np.ndarray]:
+    def confidences_batch(self, graphs: Sequence[dict],
+                          images: Optional[Sequence[np.ndarray]] = None
+                          ) -> List[np.ndarray]:
         """ONE forward over a whole page group (the union-graph batching of
         graph_gnn.py:81-119); pages pad to the group's shared node/edge
-        buckets. Returns a list of [n_i, n_i] confidence arrays."""
-        return self.confidences_batch_device(graphs)()
+        buckets. ``images``: the pages' grayscale images, for a visual net.
+        Returns a list of [n_i, n_i] confidence arrays."""
+        return self.confidences_batch_device(graphs, images)()
 
     @torch.no_grad()
     def forward_confidences(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
         """softmax(logits)[..., 1] on the device, [B, R]."""
         return torch.softmax(self.model(inputs), dim=-1)[..., 1]
 
-    def confidences_batch_device(self, graphs: Sequence[dict]
+    def confidences_batch_device(self, graphs: Sequence[dict],
+                                 images: Optional[Sequence[np.ndarray]] = None
                                  ) -> Callable[[], List[np.ndarray]]:
-        """Enqueue the group's forward (CUDA work is asynchronous) and return
-        a zero-arg callable that reads the confidences back, once per group,
-        as per-page [n_i, n_i] arrays."""
-        inputs, ns = self._batch_inputs(graphs)
+        """Queue the group's forward and the readback of its confidences
+        behind it (``utils/async_copy.py::prefetch``), and return a
+        zero-arg callable that waits for that copy and yields the per-page
+        [n_i, n_i] arrays."""
+        inputs, ns = self._batch_inputs(graphs, images)
         self._ensure_params(inputs)
-        conf = self.forward_confidences(inputs)
+        conf = prefetch(self.forward_confidences(inputs))
 
         def materialize():
-            host = conf.cpu().numpy()
+            host = conf.numpy()
             return [host[i, :n * n].reshape(n, n) for i, n in enumerate(ns)]
         return materialize

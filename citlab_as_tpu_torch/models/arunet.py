@@ -21,6 +21,9 @@ conv upsample (``_upsample_sum``) sums channels and repeats the sum.
 Every 3x3 conv with Cout in {8, 16, 32} and Cin >= 8 — where the JAX
 package routes to its Pallas kernel when ``USE_MXU_CONV`` is on — goes
 through K1 (``ops/kernels/conv3x3.py``); the rest are ``F.conv2d``.
+
+``ARUCutted`` is the down-path-only extractor of the visual relation GNN
+(featRoot 12, Cout 12 * 2^k: none of its convs is a K1 conv).
 """
 from __future__ import annotations
 
@@ -211,18 +214,29 @@ class _DetCNN(nn.Module):
             setattr(self, f"unet_up_{layer}", block(2 * feats[layer], feats[layer]))
             ch = feats[layer]
 
-    def forward(self, x):
+    def forward(self, x, end_points: Optional[Dict[str, torch.Tensor]] = None,
+                sc: int = 0):
+        """``end_points`` (optional) collects the activations under the JAX
+        package's names (``scale_<sc>_unet_down_<layer>_conv`` ...)."""
         skips = []
         for layer in range(self.n_scales):
             x = getattr(self, f"unet_down_{layer}")(x)
+            if end_points is not None:
+                end_points[f"scale_{sc}_unet_down_{layer}_conv"] = x
             skips.append(x)
             if layer < self.n_scales - 1:
                 x = _max_pool(x, self.pool)
+                if end_points is not None:
+                    end_points[f"scale_{sc}_unet_down_{layer}_maxpool"] = x
         for layer in range(self.n_scales - 2, -1, -1):
             skip = skips[layer]
             deconv = getattr(self, f"unet_up_{layer}_deconv")(x, skip.shape[1:3])
+            if end_points is not None:
+                end_points[f"scale_{sc}_unet_up_{layer}_deconv"] = deconv
             x = torch.cat([skip, deconv], dim=3)
             x = getattr(self, f"unet_up_{layer}")(x)
+            if end_points is not None:
+                end_points[f"scale_{sc}_unet_up_{layer}_conv"] = x
         return x
 
 
@@ -275,13 +289,22 @@ class ARUNet(nn.Module):
                     m.bias.fill_(0.1)
         return self
 
-    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+    def endpoint_channels(self, name: str) -> int:
+        """Channels of the end point ``scale_<sc>_unet_down_<layer>_conv``
+        (the ones the visual GNN reads)."""
+        layer = int(name.split("_unet_down_")[1].split("_")[0])
+        return self.gp["featRoot"] * self.gp["pool_size"] ** layer
+
+    def forward(self, inputs: torch.Tensor,
+                end_points: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
+        """``end_points`` (optional) collects the detCNN's activations of
+        every scale under the JAX package's names."""
         gp = self.gp
         x = inputs.to(self.logit.weight.dtype)
         if gp["mvn"]:
             x = per_image_standardization(x)
         h, w = x.shape[1], x.shape[2]
-        fmap = self.featMapG(x)
+        fmap = self.featMapG(x, end_points, 0)
         if self.use_attention:
             n_att = gp["num_scales_att"]
             inp_scale = [x]
@@ -290,13 +313,62 @@ class ARUNet(nn.Module):
             out_att = [_upsample_sum(self.attMapG(inp_scale[sc]), 8 * 2 ** sc,
                                      (h, w), 1) for sc in range(n_att)]
             out_det = [fmap] + [
-                _upsample_sum(self.featMapG(inp_scale[sc]), 2 ** sc, (h, w),
-                              gp["featRoot"]) for sc in range(1, n_att)]
+                _upsample_sum(self.featMapG(inp_scale[sc], end_points, sc), 2 ** sc,
+                              (h, w), gp["featRoot"]) for sc in range(1, n_att)]
             att_w = torch.softmax(torch.cat(out_att, dim=3), dim=3)
             fmap = out_det[0] * att_w[..., 0:1]
             for sc in range(1, n_att):
                 fmap = fmap + out_det[sc] * att_w[..., sc:sc + 1]
         return self.logit(fmap).to(torch.float32)
+
+
+ARU_CUTTED_GRAPH_PARAMS: Dict[str, Any] = {
+    "mvn": True,
+    "featRoot": 12,
+    "scale_space_num": 6,
+    "res_depth": 0,
+    "filter_size": 3,
+    "pool_size": 2,
+    "activation_name": "relu",
+}
+
+
+class ARUCutted(nn.Module):
+    """Down-path-only ARU feature extractor (ARU_cutted_v1.py:7-73), the
+    visual GNN's ``ARU_cutted_v1`` backbone: per scale one residual block
+    then a 2x2 max pool, features doubling per scale; no attention, no up
+    path. ``forward`` returns (deepest map, end points) with
+    ``end_points['res_block_<i>']`` each scale's pre-pool activation."""
+
+    def __init__(self, graph_params: Optional[Dict[str, Any]] = None, cin: int = 1):
+        super().__init__()
+        gp = dict(ARU_CUTTED_GRAPH_PARAMS)
+        if graph_params:
+            gp.update(graph_params)
+        self.gp = gp
+        feat, ch = gp["featRoot"], cin
+        for layer in range(gp["scale_space_num"]):
+            setattr(self, f"res_block_{layer}", _ResBlock(
+                ch, feat, gp["res_depth"], gp["filter_size"], gp["activation_name"]))
+            ch = feat
+            feat *= gp["pool_size"]
+
+    def endpoint_channels(self, name: str) -> int:
+        """Channels of the end point ``res_block_<i>``."""
+        return self.gp["featRoot"] * self.gp["pool_size"] ** int(name.rsplit("_", 1)[1])
+
+    def forward(self, x: torch.Tensor):
+        gp = self.gp
+        x = x.to(self.res_block_0.conv1.weight.dtype)
+        if gp["mvn"]:
+            x = per_image_standardization(x)
+        end_points: Dict[str, torch.Tensor] = {}
+        for layer in range(gp["scale_space_num"]):
+            x = getattr(self, f"res_block_{layer}")(x)
+            end_points[f"res_block_{layer}"] = x
+            if layer < gp["scale_space_num"] - 1:
+                x = _max_pool(x, gp["pool_size"])
+        return x, end_points
 
 
 def pad_to_multiple(image: torch.Tensor, multiple: int = 16):

@@ -28,7 +28,8 @@ converted parameters map by path (``weights.py::gnn_state_dict_from_flax``).
 
 PyTorch needs the input widths at construction, where flax infers them at
 the first call: ``GraphRelation`` takes ``node_feature_dim`` and
-``edge_feature_dim``.
+``edge_feature_dim``. The visual branch (``image_input``, ``visual.py``)
+adds its pooled features' width to them.
 """
 from __future__ import annotations
 
@@ -297,32 +298,74 @@ class GraphGNN(nn.Module):
         return out
 
 
+def _visual_layers(backbone: str) -> Sequence[str]:
+    """The backbone end points the visual features pool from."""
+    if backbone == "inception_v3":
+        return ("Mixed_5d", "Mixed_6e", "Mixed_7c")
+    if backbone == "ARU_cutted_v1":
+        # per-scale pre-pool maps of the cutted extractor (1/4 .. 1/16)
+        return ("res_block_2", "res_block_3", "res_block_4")
+    return ("scale_0_unet_down_2_conv", "scale_0_unet_down_3_conv",
+            "scale_0_unet_down_4_conv")
+
+
 class GraphRelation(nn.Module):
     """GNN + pairwise relation classifier (graph_relation.py:67-287).
 
     inputs: num_nodes [B], node_features [B, N, Dn], interacting_nodes
     [B, E, 2], num_interacting_nodes [B], edge_features [B, E, De],
     relations_to_consider [B, R, 2] (index tensors int64). Returns logits
-    [B, R, num_classes]. The visual branch (``image_input``) is not ported
-    yet (ROADMAP Queue 1 item 11)."""
+    [B, R, num_classes].
+
+    With ``image_input`` (the 'v' nets) the inputs also hold image
+    [B, H, W, 1], image_shape [B, 2] and visual_regions_nodes [B, N, 2, P]
+    with num_points_visual_regions_nodes [B, N] (and the edge variants);
+    the per-region pooled backbone features (``visual.py``) are appended to
+    the node (and edge) features, so the GNN's widths grow by their size.
+    """
 
     def __init__(self, node_feature_dim: int, edge_feature_dim: Optional[int],
                  num_classes: int = 2, classifier_hidden: Sequence[int] = (64, 32),
                  gnn_params: Optional[Dict[str, Any]] = None,
                  message_params: Optional[Dict[str, Any]] = None,
                  update_params: Optional[Dict[str, Any]] = None,
-                 image_input: bool = False):
+                 image_input: bool = False, visual_backbone: str = "inception_v3",
+                 visual_from_layers: Optional[Sequence[str]] = None,
+                 visual_compressed_dims: Sequence[int] = (16, 16, 16),
+                 assign_visual_features_to_nodes: bool = True,
+                 assign_visual_features_to_edges: bool = False):
         super().__init__()
+        self.image_input = image_input
         if image_input:
-            raise NotImplementedError(
-                "GraphRelation(image_input=True): the visual GNN branch is not "
-                "ported yet (ROADMAP Queue 1 item 11)")
+            from citlab_as_tpu_torch.models.gnn.visual import VisualFeatureExtractor
+            self.visual = VisualFeatureExtractor(
+                backbone=visual_backbone,
+                from_layers=tuple(visual_from_layers or _visual_layers(visual_backbone)),
+                layer_compressed_dims=tuple(visual_compressed_dims),
+                nodes=assign_visual_features_to_nodes,
+                edges=assign_visual_features_to_edges)
+            if assign_visual_features_to_nodes:
+                node_feature_dim += self.visual.out_dim
+            if assign_visual_features_to_edges:
+                edge_feature_dim = (edge_feature_dim or 0) + self.visual.out_dim
         self.GraphLSTM1 = GraphGNN(node_feature_dim, edge_feature_dim,
                                    gnn_params, message_params, update_params)
         self.Classification = _MLP(2 * self.GraphLSTM1.out_dim,
                                    tuple(classifier_hidden), num_classes)
 
     def forward(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+        if self.image_input and "image" in inputs:
+            node_vis, edge_vis = self.visual(
+                inputs["image"],
+                inputs.get("visual_regions_nodes"),
+                inputs.get("num_points_visual_regions_nodes"),
+                inputs.get("visual_regions_edges"),
+                inputs.get("num_points_visual_regions_edges"))
+            inputs = dict(inputs)
+            if node_vis is not None:
+                inputs["node_features"] = torch.cat([inputs["node_features"], node_vis], -1)
+            if edge_vis is not None:
+                inputs["edge_features"] = torch.cat([inputs["edge_features"], edge_vis], -1)
         gnn_out = self.GraphLSTM1(inputs)
         if gnn_out is None:
             gnn_out = inputs["node_features"]

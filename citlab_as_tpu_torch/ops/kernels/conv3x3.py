@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 import weakref
 from typing import Dict, Optional, Tuple
 
@@ -31,8 +32,10 @@ COUT_SUPPORTED = (8, 16, 32)
 BF16_MAX_CIN = 112
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: launches of the CUDA kernel (the plain version does not count)
+#: launches of the CUDA kernel (the plain version does not count), from
+#: whichever thread launches it
 launches = 0
+_launches_lock = threading.Lock()
 
 
 def conv3x3_plain(x: torch.Tensor, weight: torch.Tensor,
@@ -139,5 +142,6 @@ def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                              row * x.element_size(), int(relu), _DTYPES[x.dtype],
                              stream)
     build.check(lib, err, "conv3x3")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     return y

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import Tuple
 
 import torch
@@ -22,8 +23,10 @@ from citlab_as_tpu_torch.ops.morphology import morph_open
 
 _DTYPES = {torch.float32: 0, torch.uint8: 2}
 
-#: launches of the CUDA kernel (the plain version does not count)
+#: launches of the CUDA kernel (the plain version does not count), from
+#: whichever thread launches it
 launches = 0
+_launches_lock = threading.Lock()
 
 
 def separator_morphology_plain(cleaned: torch.Tensor, h_kernel: int,
@@ -79,7 +82,8 @@ def separator_morphology(cleaned: torch.Tensor, h_kernel: int, v_kernel: int,
         b, h, w, int(h_kernel), int(v_kernel), int(noise_kernel),
         _DTYPES[x.dtype], stream)
     build.check(lib, err, "separator_morphology")
-    launches += 1
+    with _launches_lock:
+        launches += 1
     if x.dim() == 2:
         return horizontal[0], vertical[0]
     return horizontal, vertical

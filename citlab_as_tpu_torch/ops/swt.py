@@ -15,8 +15,6 @@ from typing import List, Tuple
 import numpy as np
 import scipy.ndimage as ndi
 
-from citlab_as_tpu_torch.ops.binarize import otsu_binarize_host
-
 _EIGHT = np.ones((3, 3), dtype=np.int8)
 
 
@@ -44,6 +42,9 @@ class StrokeWidthDistanceTransform:
             cache.move_to_end(key)
             return cache[key]
 
+        # imported here: ops/binarize.py imports torch, which the host-tail
+        # workers (stages/host_chain.py) need not pay for at start-up
+        from citlab_as_tpu_torch.ops.binarize import otsu_binarize_host
         img = np.asarray(image)
         if img.ndim == 3:
             img = img[..., 0]

@@ -103,6 +103,12 @@ class page_cache:
         return False
 
 
+def page_cache_discard(path: str) -> None:
+    """Drop ``path`` from the scoped parse cache: its next load parses the
+    file again."""
+    _PAGE_CACHE.pop(os.path.abspath(path), None)
+
+
 class Page:
     """Load, inspect, mutate and save a PAGE-XML document (page.py:27-891)."""
 

@@ -23,7 +23,9 @@ from citlab_as_tpu_torch.stages.clustering import TextblockClustering
 from citlab_as_tpu_torch.stages.features import (
     is_aligned_heading_separated, is_aligned_horizontally_separated,
 )
-from citlab_as_tpu_torch.utils.io import get_page_from_conf_path, get_page_from_json_path
+from citlab_as_tpu_torch.utils.io import (
+    get_img_from_page_path, get_page_from_conf_path, get_page_from_json_path, load_image,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -144,15 +146,17 @@ def gnn_clustering_for_page(json_path: str,
                             mask_horizontally_separated: bool = False,
                             mask_heading_separated: bool = False,
                             page_path: Optional[str] = None,
+                            image_path: Optional[str] = None,
                             confidences: Optional[np.ndarray] = None
                             ) -> Optional[str]:
     """One page: graph JSON -> confidences -> (masking) -> clustering ->
     clustering PAGE-XML. ``confidence_fn(graph_json_dict) -> [N, N] array``
-    wraps the relation net (or loaded confidences). ``confidences``
-    short-circuits the net forward with a precomputed matrix (the batched
-    group path, :func:`gnn_clustering_for_pages`). The reference's
-    ``image_path`` (the visual nets' page image) is not taken: the visual
-    nets are not ported yet (ROADMAP Queue 1 item 11)."""
+    wraps the relation net (or loaded confidences). When the predictor takes
+    ``image_input`` (the visual 'v' nets) the page image (``image_path``,
+    else the one beside the page) is loaded and passed along
+    (run_gnn_clustering.py:223-279). ``confidences`` short-circuits the net
+    forward with a precomputed matrix (the batched group path,
+    :func:`gnn_clustering_for_pages`)."""
     with open(json_path) as f:
         graph = json.load(f)
     if page_path is None:
@@ -160,6 +164,9 @@ def gnn_clustering_for_page(json_path: str,
 
     if confidences is not None:
         confs = np.asarray(confidences, np.float64)
+    elif getattr(confidence_fn, "image_input", False):
+        img = load_image(image_path or get_img_from_page_path(page_path), mode="L")
+        confs = np.asarray(confidence_fn(graph, image=np.asarray(img)), np.float64)
     else:
         confs = np.asarray(confidence_fn(graph), np.float64)
     n = int(graph["num_nodes"])
@@ -182,9 +189,12 @@ def gnn_clustering_for_page(json_path: str,
         tb_clustering.tb_labels, page_path, out_dir, info=info)
 
 
-def gnn_confidences_dispatch(json_paths: Sequence[str], predictor):
-    """Load a page group's graph JSONs and enqueue ONE batched relation-net
-    forward (inference.RelationPredictor.confidences_batch_device). Returns
+def gnn_confidences_dispatch(json_paths: Sequence[str], predictor,
+                             image_paths: Optional[Sequence[str]] = None):
+    """Load a page group's graph JSONs (and, for a visual predictor, the
+    page images: ``image_paths``, else the ones beside the pages) and queue
+    ONE batched relation-net forward
+    (inference.RelationPredictor.confidences_batch_device). Returns
     (graphs, materialize_fn) — ``materialize_fn()`` yields the per-page
     [n, n] confidence matrices. A predictor without that method (a plain
     per-page callable) is called page by page at materialize."""
@@ -194,10 +204,19 @@ def gnn_confidences_dispatch(json_paths: Sequence[str], predictor):
     for json_path in json_paths:
         with open(json_path) as f:
             graphs.append(json.load(f))
+    images = None
+    if getattr(predictor, "image_input", False):
+        images = []
+        for i, json_path in enumerate(json_paths):
+            image_path = image_paths[i] if image_paths is not None else \
+                get_img_from_page_path(get_page_from_json_path(json_path))
+            images.append(np.asarray(load_image(image_path, mode="L")))
     if hasattr(predictor, "confidences_batch_device"):
-        return graphs, predictor.confidences_batch_device(graphs)
+        return graphs, predictor.confidences_batch_device(graphs, images)
 
     def materialize():      # plain per-page callables (test predictors)
+        if images is not None:
+            return [predictor(g, image=im) for g, im in zip(graphs, images)]
         return [predictor(g) for g in graphs]
     return graphs, materialize
 
@@ -206,11 +225,12 @@ def gnn_clustering_for_pages(json_paths: Sequence[str], predictor,
                              clustering_method: str = "dbscan",
                              clustering_params: Optional[dict] = None,
                              out_dir: str = "",
-                             page_paths: Optional[Sequence[str]] = None
+                             page_paths: Optional[Sequence[str]] = None,
+                             image_paths: Optional[Sequence[str]] = None
                              ) -> List[Optional[str]]:
     """Batched group variant of :func:`gnn_clustering_for_page`: one device
     forward for the whole group, then per-page clustering + write-out."""
-    _, materialize = gnn_confidences_dispatch(json_paths, predictor)
+    _, materialize = gnn_confidences_dispatch(json_paths, predictor, image_paths)
     confs = materialize()
     out = []
     for i, json_path in enumerate(json_paths):
@@ -218,6 +238,7 @@ def gnn_clustering_for_pages(json_paths: Sequence[str], predictor,
             json_path, predictor, clustering_method=clustering_method,
             clustering_params=clustering_params, out_dir=out_dir,
             page_path=page_paths[i] if page_paths is not None else None,
+            image_path=image_paths[i] if image_paths is not None else None,
             confidences=confs[i]))
     return out
 

@@ -19,8 +19,14 @@ back ``[n_lines, 3]`` integers per page (``ops/swt_device.py``); with
 ``use_device_swt`` off it reads the uint8 probability maps back and takes
 the SWT features on the host (``ops/swt.py``), as :meth:`run` does.
 
-Not ported: the JAX package's host C line-statistics mode, its device
-buffer pinning and its asynchronous readback prefetch.
+The pipelined workflow driver calls the group API directly:
+:meth:`HeadingNetPostProcessor.fused_dispatch` (on the batch it uploaded
+for both nets), then ``fused_drain_dispatch``, ``fused_materialize`` and
+``fused_finish``. A plain ``predict_fn`` takes the fused host path there
+(:func:`make_callable_heading_fn`).
+
+Not ported: the JAX package's host C line-statistics mode and its device
+buffer pinning.
 """
 from __future__ import annotations
 
@@ -38,9 +44,10 @@ from citlab_as_tpu_torch.ops.swt import StrokeWidthDistanceTransform
 from citlab_as_tpu_torch.ops.swt_device import DeviceLineFeatures
 from citlab_as_tpu_torch.pagexml.constants import TextRegionTypes
 from citlab_as_tpu_torch.stages.separator import (
-    SeparatorNetPostProcessor, _phase, resized_prob_u8,
+    SeparatorNetPostProcessor, _phase, callable_net_u8, resized_prob_u8,
 )
 from citlab_as_tpu_torch.stages.separator_writer import RegionToPageWriter
+from citlab_as_tpu_torch.utils.async_copy import upload
 from citlab_as_tpu_torch.utils.faults import page_guard
 from citlab_as_tpu_torch.utils.io import get_page_path, load_image, load_list_file
 from citlab_as_tpu_torch.utils.logging import setup_custom_logger
@@ -87,6 +94,20 @@ def make_fused_heading_swt_fn(model: torch.nn.Module) -> Callable:
             _, binary = otsu_binarize(inv, blur_ksize=5)
             dt_u8 = distance_transform_edt(binary, cap=255.0).to(torch.uint8)
         return prob_u8, dt_u8
+
+    return fused
+
+
+def make_callable_heading_fn(predict_fn: Callable) -> Callable:
+    """The contract of :func:`make_fused_heading_fn` for a plain
+    ``predict_fn(image_grey[H, W]) -> probabilities[H, W, C]``: the uint8
+    maps of ``stages/separator.py::callable_net_u8`` (the quantization of
+    :meth:`HeadingNetPostProcessor.run`), as a CPU tensor."""
+
+    def fused(img_u8: torch.Tensor, out_h: int, out_w: int,
+              pad_multiple: int = 64,
+              phase: Optional[Dict[str, float]] = None) -> torch.Tensor:
+        return torch.from_numpy(np.stack(callable_net_u8(predict_fn, img_u8, out_h, out_w)))
 
     return fused
 
@@ -335,25 +356,34 @@ class HeadingNetPostProcessor:
         return self.run_batched_fused(batch_size=batch_size)
 
     def fused_dispatch(self, images: List[np.ndarray], chunk: List[str],
-                       phase: Optional[Dict[str, float]] = None):
+                       phase: Optional[Dict[str, float]] = None,
+                       device_batch: Optional[torch.Tensor] = None):
         """Run the fused heading forward for one same-shape page group;
         returns the in-flight entry for :meth:`fused_drain_dispatch`. With
         the device SWT on, the chain also computes the full-resolution
-        distance transform; both outputs stay on the device."""
-        if self.use_device_swt is None:
-            self.use_device_swt = self.predictor.device.type != "cpu"
+        distance transform; both outputs stay on the device.
+        ``device_batch``: the group's pages already on the device as uint8
+        [B, H0, W0]; else they are uploaded here. A plain ``predict_fn``
+        takes the host path (:func:`make_callable_heading_fn`)."""
         if self._fused is None:
-            make = (make_fused_heading_swt_fn if self.use_device_swt
-                    else make_fused_heading_fn)
-            self._fused = make(self.predictor.model)
+            if not hasattr(self.predictor, "model"):
+                self.use_device_swt = False
+                self._fused = make_callable_heading_fn(self.predictor)
+            else:
+                if self.use_device_swt is None:
+                    self.use_device_swt = self.predictor.device.type != "cpu"
+                make = (make_fused_heading_swt_fn if self.use_device_swt
+                        else make_fused_heading_fn)
+                self._fused = make(self.predictor.model)
         h0, w0 = images[0].shape
         sc = get_scaling_factor(h0, w0, self.scaling_factor,
                                 fixed_height=self.fixed_height)
         out_h, out_w = (h0, w0) if sc == 1.0 else (int(h0 * sc), int(w0 * sc))
-        batch = torch.from_numpy(np.stack(images).astype(np.uint8, copy=False))
-        batch = batch.to(self.predictor.device)
+        batch = (device_batch if device_batch is not None
+                 else upload(images, self.predictor.device))
         out = self._fused(batch, out_h, out_w,
-                          pad_multiple=self.predictor.pad_multiple, phase=phase)
+                          pad_multiple=getattr(self.predictor, "pad_multiple", 64),
+                          phase=phase)
         maps_u8, dt_u8 = out if self.use_device_swt else (out, None)
         return chunk, maps_u8, dt_u8, list(images)
 

@@ -14,8 +14,15 @@ to the PAGE-XML writer (``stages/separator_writer.py``: text lines split at
 vertical separators, SeparatorRegions added) and saves
 ``page/<name>.xml.xml``; given in-memory pages it returns the dicts.
 
-Not ported: the JAX package's host C post-processing branch, its device
-buffer pinning and its asynchronous readback prefetch.
+For the pipelined workflow driver the group API is split as in the JAX
+package: :meth:`SeparatorNetPostProcessor.fused_dispatch` (optionally on a
+batch the caller has already uploaded), :meth:`~SeparatorNetPostProcessor.fused_prefetch`
+(the packed masks' readback started behind the group's own work),
+:meth:`~SeparatorNetPostProcessor.fused_materialize` (waits on that copy
+only) and :meth:`~SeparatorNetPostProcessor.fused_drain` (the host tail).
+
+Not ported: the JAX package's host C post-processing branch and its device
+buffer pinning.
 """
 from __future__ import annotations
 
@@ -34,6 +41,7 @@ from citlab_as_tpu_torch.ops.kernels.separator_morphology import separator_morph
 from citlab_as_tpu_torch.ops.resize import get_scaling_factor, resize_image, scale_image
 from citlab_as_tpu_torch.pagexml.constants import SEPARATORREGION
 from citlab_as_tpu_torch.stages.separator_writer import SeparatorRegionToPageWriter
+from citlab_as_tpu_torch.utils.async_copy import prefetch, to_numpy, upload
 from citlab_as_tpu_torch.utils.faults import page_guard
 from citlab_as_tpu_torch.utils.io import get_page_path, load_image, load_list_file
 from citlab_as_tpu_torch.utils.logging import setup_custom_logger
@@ -147,6 +155,45 @@ def make_fused_separator_fn(model: torch.nn.Module) -> Callable:
     return fused
 
 
+def callable_net_u8(predict_fn: Callable, img_u8: torch.Tensor, out_h: int,
+                    out_w: int) -> List[np.ndarray]:
+    """A plain ``predict_fn(image_grey[H, W]) -> probabilities[H, W, C]`` on
+    each page of the uint8 batch as the stages' page-by-page ``run`` calls
+    it: resized on the host to (out_h, out_w), in [0, 1]; its channel 0
+    quantized to uint8 (truncated) per page."""
+    maps = []
+    for page in img_u8.cpu():
+        scaled = page.to(torch.float32)
+        if (out_h, out_w) != tuple(scaled.shape):
+            scaled = resize_image(scaled, out_h, out_w)
+        net_output = np.asarray(predict_fn(scaled.numpy() / 255.0))
+        maps.append(np.asarray(net_output * 255, dtype=np.uint8)[..., 0])
+    return maps
+
+
+def make_callable_separator_fn(predict_fn: Callable) -> Callable:
+    """The contract of :func:`make_fused_separator_fn` for a plain
+    ``predict_fn``: the net outputs of :func:`callable_net_u8`, thresholded
+    as :meth:`SeparatorNetPostProcessor.process_image` does it; the CC
+    filter and the morphology run on the pages' device."""
+
+    @torch.no_grad()
+    def fused(img_u8: torch.Tensor, out_h: int, out_w: int, h_kernel: int,
+              v_kernel: int, noise_kernel: int, threshold: float,
+              pad_multiple: int = 64,
+              phase: Optional[Dict[str, float]] = None) -> torch.Tensor:
+        binary = np.stack([apply_threshold(net_u8, threshold) for net_u8 in
+                           callable_net_u8(predict_fn, img_u8, out_h, out_w)])
+        cleaned = remove_small_components(
+            torch.from_numpy(binary).to(img_u8.device), MIN_CC_SIZE)
+        horizontal, vertical = separator_morphology(
+            cleaned, h_kernel, v_kernel, noise_kernel)
+        return torch.stack([pack_bits_device(horizontal > 0),
+                            pack_bits_device(vertical > 0)])
+
+    return fused
+
+
 def masks_to_polygons(mask: np.ndarray, separator_type: Optional[str] = None
                       ) -> Dict[str, list]:
     """Contours of a separator mask keyed by region name."""
@@ -176,10 +223,11 @@ class SeparatorNetPostProcessor:
     polygons dict per page and write nothing; ``names`` gives one key per
     page (default "0", "1", ...) for the per-page fault hook.
     ``predictor``: an ``inference.SegmentationPredictor`` (its ``model``
-    and ``device`` run the chain) or, for :meth:`run`, any
+    and ``device`` run the chain) or any
     ``predict_fn(image_grey[H, W]) -> probabilities[H, W, C]``, whose CC
-    filter and morphology then run on ``device``. Results come in input
-    order, None for a page skipped by the fault hook.
+    filter and morphology then run on ``device`` (per page in :meth:`run`,
+    per group in the fused methods). Results come in input order, None for
+    a page skipped by the fault hook.
     """
 
     def __init__(self, image_list: Union[str, Sequence[str], Sequence[np.ndarray]],
@@ -218,7 +266,8 @@ class SeparatorNetPostProcessor:
         else:
             raise ValueError("a predictor without a device needs device=")
         self._fused = (make_fused_separator_fn(predictor.model)
-                       if hasattr(predictor, "model") else None)
+                       if hasattr(predictor, "model")
+                       else make_callable_separator_fn(predictor))
         # per-page fault hook: None = raise through; a callback
         # (name, stage, exc) switches to the log-and-skip contract
         self.on_page_error = None
@@ -316,37 +365,52 @@ class SeparatorNetPostProcessor:
             yield group, chunk
 
     def fused_dispatch(self, images: List[np.ndarray], chunk: List[str],
-                       phase: Optional[Dict[str, float]] = None):
+                       phase: Optional[Dict[str, float]] = None,
+                       device_batch: Optional[torch.Tensor] = None):
         """Run the device chain for one same-shape group; returns the
         in-flight entry for :meth:`fused_drain` (the masks stay on the
-        device until materialized)."""
+        device until materialized). ``device_batch``: the group's pages
+        already on the device as uint8 [B, H0, W0] (one upload serves both
+        nets of the pipelined workflow); else they are uploaded here."""
         h0, w0 = images[0].shape
         sc = get_scaling_factor(h0, w0, self.scaling_factor,
                                 fixed_height=self.fixed_height)
         out_h, out_w = (h0, w0) if sc == 1.0 else (int(h0 * sc), int(w0 * sc))
-        batch = torch.from_numpy(np.stack(images).astype(np.uint8, copy=False))
-        batch = batch.to(self.device)
+        batch = device_batch if device_batch is not None else upload(images, self.device)
         hv_packed = self._fused(
             batch, out_h, out_w, *separator_kernel_sizes(out_h, out_w),
-            threshold=self.threshold, pad_multiple=self.predictor.pad_multiple,
-            phase=phase)
+            threshold=self.threshold,
+            pad_multiple=getattr(self.predictor, "pad_multiple", 64), phase=phase)
         return chunk, hv_packed, out_w, [sc] * len(chunk)
 
+    @staticmethod
+    def fused_prefetch(entry):
+        """Start the readback of the group's packed masks behind the work
+        queued on the current stream (``utils/async_copy.py``); returns the
+        entry for :meth:`fused_materialize`, which then waits on that copy
+        only."""
+        chunk, hv_packed, out_w, scales = entry
+        return chunk, prefetch(hv_packed), out_w, scales
+
     def fused_materialize(self, entry, phase: Optional[Dict[str, float]] = None):
-        """Copy the group's packed masks to the host in one readback."""
+        """Copy the group's packed masks to the host in one readback (or
+        wait for the prefetched copy)."""
         chunk, hv_packed, out_w, scales = entry
         t0 = time.perf_counter()
-        hv = hv_packed.cpu().numpy()
+        hv = to_numpy(hv_packed)
         if phase is not None:
             phase["readback"] = phase.get("readback", 0.0) + time.perf_counter() - t0
         return chunk, hv[0], hv[1], out_w, scales
 
     def fused_drain(self, entry, results: Dict[str, object],
                     phase: Optional[Dict[str, float]] = None) -> None:
-        """Materialize one group and do the host tail: unpack, contour
-        trace, rescale, and for image files write PAGE-XML, into
+        """Materialize one group (unless ``entry`` is already
+        :meth:`fused_materialize`'s result) and do the host tail: unpack,
+        contour trace, rescale, and for image files write PAGE-XML, into
         ``results[name]``."""
-        chunk, h_packed, v_packed, out_w, scales = self.fused_materialize(entry, phase)
+        if len(entry) == 4:
+            entry = self.fused_materialize(entry, phase)
+        chunk, h_packed, v_packed, out_w, scales = entry
         for i, (name, sc) in enumerate(zip(chunk, scales)):
             def drain_one(i=i, name=name, sc=sc):
                 t0 = time.perf_counter()

@@ -15,6 +15,7 @@ import glob
 import os
 import re
 import struct
+import threading
 import zlib
 from typing import List
 
@@ -48,6 +49,9 @@ def get_page_path(image_path: str, page_folder_name: str = "page",
 
 _IMAGE_CACHE: "dict" = {}
 _IMAGE_CACHE_MAX = 16
+# the pipelined workflow loads pages on its main thread and, for a visual
+# relation net, on its device thread: every cache update holds this lock
+_IMAGE_CACHE_LOCK = threading.Lock()
 
 
 class UnsupportedImageFormat(ValueError):
@@ -273,15 +277,17 @@ def load_image(path_to_image: str, mode: str = "L") -> np.ndarray:
         mtime = os.path.getmtime(path_to_image)
     except OSError:
         mtime = None
-    entry = _IMAGE_CACHE.get(key)
-    if entry is not None and entry[0] == mtime:
-        _IMAGE_CACHE[key] = _IMAGE_CACHE.pop(key)   # LRU bump
-        return entry[1]
+    with _IMAGE_CACHE_LOCK:
+        entry = _IMAGE_CACHE.pop(key, None)
+        if entry is not None and entry[0] == mtime:
+            _IMAGE_CACHE[key] = entry               # LRU bump
+            return entry[1]
     arr = _to_mode(_decode(path_to_image), mode)
     arr.flags.writeable = False
-    _IMAGE_CACHE[key] = (mtime, arr)
-    while len(_IMAGE_CACHE) > _IMAGE_CACHE_MAX:
-        _IMAGE_CACHE.pop(next(iter(_IMAGE_CACHE)))
+    with _IMAGE_CACHE_LOCK:
+        _IMAGE_CACHE[key] = (mtime, arr)
+        while len(_IMAGE_CACHE) > _IMAGE_CACHE_MAX:
+            _IMAGE_CACHE.pop(next(iter(_IMAGE_CACHE)))
     return arr
 
 

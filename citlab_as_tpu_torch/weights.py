@@ -1,5 +1,5 @@
 """Weight bridge from the JAX package's flax parameter trees (the ARU-Nets
-and the relation GNN).
+and the relation GNNs, the visual ones included).
 
 The flax tree is carried as a flat ``{path: ndarray}`` dict with
 ``/``-joined paths (``params/featMapG/unet_down_0/conv1/conv/kernel``), as
@@ -32,8 +32,9 @@ def arunet_state_dict_from_flax(params: Dict[str, np.ndarray]
         parts = path.split("/")
         if parts[0] == "params":
             parts = parts[1:]
-        *scopes, inner, leaf = parts
-        if inner not in ("conv", "deconv") or leaf not in ("kernel", "bias"):
+        *scopes, inner, leaf = [""] * (3 - len(parts)) + parts
+        if (not scopes[0] or inner not in ("conv", "deconv")
+                or leaf not in ("kernel", "bias")):
             raise KeyError(f"unexpected ARU-Net parameter path {path!r}")
         arr = np.asarray(value, np.float32)
         if leaf == "kernel":
@@ -50,6 +51,39 @@ _GNN_SCOPE = re.compile(
     r"(GraphLSTM1|Classification|message_fn|update_fn|compress_input|"
     r"output_proj|head_\d+_(interaction|attention)|hidden_\d+|out|ingate|"
     r"outgate|forgetgate|cellinput)$")
+_FEATURE_MAP_CONV = re.compile(r"(proj_\d+_\w+|reduce_\d+|down_\d+)$")
+_COMPRESS = re.compile(r"visual_(node|edge)_compress_fm_\d+$")
+
+
+def _visual_state_dict(params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The ``params/visual`` subtree (paths relative to it) -> the port's
+    ``GraphRelation.visual`` entries: ``backbone/...`` by the ARU-Net
+    mapping, ``feature_maps/<conv>/kernel`` (a plain flax ``Conv``, HWIO)
+    to OIHW, ``visual_<node|edge>_compress_fm_<i>/kernel`` (``Dense``)
+    transposed."""
+    out: Dict[str, torch.Tensor] = {}
+    backbone = {}
+    for path, value in params.items():
+        scope, _, rest = path.partition("/")
+        if scope == "backbone":
+            backbone[rest] = value
+            continue
+        *scopes, leaf = path.split("/")
+        arr = np.asarray(value, np.float32)
+        if leaf not in ("kernel", "bias"):
+            raise KeyError(f"unexpected visual parameter path {path!r}")
+        if scopes[:1] == ["feature_maps"] and len(scopes) == 2 \
+                and _FEATURE_MAP_CONV.match(scopes[1]):
+            arr = arr.transpose(3, 2, 0, 1) if leaf == "kernel" else arr
+        elif len(scopes) == 1 and _COMPRESS.match(scopes[0]):
+            arr = arr.T if leaf == "kernel" else arr
+        else:
+            raise KeyError(f"unexpected visual parameter path {path!r}")
+        name = "visual." + ".".join(scopes) + (".weight" if leaf == "kernel" else ".bias")
+        out[name] = torch.tensor(np.ascontiguousarray(arr))
+    for name, value in arunet_state_dict_from_flax(backbone).items():
+        out["visual.backbone." + name] = value
+    return out
 
 
 def gnn_state_dict_from_flax(params: Dict[str, np.ndarray]
@@ -61,13 +95,18 @@ def gnn_state_dict_from_flax(params: Dict[str, np.ndarray]
     hidden_0/kernel``, ``params/GraphLSTM1/update_fn/ingate/bias`` and
     ``params/Classification/out/kernel``; the port's modules carry the same
     names. A flax ``Dense`` kernel [in, out] becomes ``Linear.weight``
-    [out, in]. A path with a scope the relation GNN does not have (the
-    visual branch included) raises ``KeyError``."""
+    [out, in]. The visual nets' ``params/visual/...`` subtree maps through
+    :func:`_visual_state_dict`. A path with a scope the relation GNN does
+    not have raises ``KeyError``."""
     out: Dict[str, torch.Tensor] = {}
+    visual: Dict[str, np.ndarray] = {}
     for path, value in params.items():
         parts = path.split("/")
         if parts[0] == "params":
             parts = parts[1:]
+        if parts[0] == "visual" and len(parts) > 2:
+            visual["/".join(parts[1:])] = value
+            continue
         *scopes, leaf = parts
         if (not scopes or scopes[0] not in ("GraphLSTM1", "Classification")
                 or leaf not in ("kernel", "bias")
@@ -78,6 +117,7 @@ def gnn_state_dict_from_flax(params: Dict[str, np.ndarray]
             arr = arr.T
         name = ".".join(scopes) + (".weight" if leaf == "kernel" else ".bias")
         out[name] = torch.tensor(np.ascontiguousarray(arr))
+    out.update(_visual_state_dict(visual))
     return out
 
 

@@ -20,11 +20,19 @@ The port reads the file with numpy and maps it through
     python scripts/convert_weights_to_torch.py --kind gnn \
         --model_dir models_ckpt/gnn_pipeline/best/f1 \
         --out models_ckpt_torch/gnn_pipeline.npz
+    python scripts/convert_weights_to_torch.py --kind gnn_visual \
+        --model_dir models_ckpt/gnn_visual/best/f1 \
+        --out models_ckpt_torch/gnn_visual.npz
 
 Both committed ARU-Nets (separator, heading) have the same architecture; the
-defaults convert the separator's. ``--kind`` defaults to ``gnn`` for a
-``--model_dir`` under a ``gnn*`` directory. The committed relation GNNs
-(``gnn``, ``gnn_pipeline``) take 15 node and 2 edge features.
+defaults convert the separator's. ``--kind`` defaults to ``gnn_visual`` for
+a ``--model_dir`` under a ``gnn_visual`` directory, to ``gnn`` under any
+other ``gnn*`` directory. The committed relation GNNs (``gnn``,
+``gnn_pipeline``, ``gnn_visual``) take 15 node and 2 edge features; the
+visual one is restored as ``RelationPredictor(image_input=True,
+visual_backbone="ARU_cutted_v1")`` restores it, with its
+``params/visual/...`` subtree (the ARU_cutted backbone and the three
+compress layers).
 """
 from __future__ import annotations
 
@@ -67,10 +75,12 @@ def flax_params(model_dir: str) -> Dict[str, np.ndarray]:
 
 
 def gnn_flax_params(model_dir: str, node_feature_dim: int = 15,
-                    edge_feature_dim: int = 2) -> Dict[str, np.ndarray]:
+                    edge_feature_dim: int = 2, visual: bool = False
+                    ) -> Dict[str, np.ndarray]:
     """Flat {path: float32 ndarray} of a relation-GNN checkpoint, restored by
     ``RelationPredictor._ensure_params`` on a small graph of the given
-    feature widths (the widths fix the shapes of the init template)."""
+    feature widths (the widths fix the shapes of the init template); a
+    visual net also takes one small page image and a region per node."""
     from flax import traverse_util
 
     from citlab_as_tpu.inference import RelationPredictor
@@ -81,8 +91,17 @@ def gnn_flax_params(model_dir: str, node_feature_dim: int = 15,
              "node_features": np.zeros((n, node_feature_dim), np.float32),
              "interacting_nodes": edges,
              "edge_features": np.zeros((len(edges), edge_feature_dim), np.float32)}
-    pred = RelationPredictor(model_dir)
-    inputs, _ = pred._batch_inputs([graph], None)
+    images = None
+    if visual:
+        graph["visual_regions_nodes"] = [[[0, 10, 10, 0], [0, 0, 10, 10]]] * n
+        graph["num_points_visual_regions_nodes"] = [4] * n
+        images = [np.zeros((64, 48), np.uint8)]
+        pred = RelationPredictor(model_dir, image_input=True,
+                                 visual_backbone="ARU_cutted_v1",
+                                 image_min_dimension=288, image_max_dimension=384)
+    else:
+        pred = RelationPredictor(model_dir)
+    inputs, _ = pred._batch_inputs([graph], images)
     pred._ensure_params(inputs)
     flat = traverse_util.flatten_dict(pred.variables, sep="/")
     return {k: np.asarray(v, np.float32) for k, v in sorted(flat.items())}
@@ -90,6 +109,8 @@ def gnn_flax_params(model_dir: str, node_feature_dim: int = 15,
 
 def _kind_of(model_dir: str) -> str:
     parts = os.path.normpath(os.path.abspath(model_dir)).split(os.sep)
+    if "gnn_visual" in parts:
+        return "gnn_visual"
     return "gnn" if any(p.startswith("gnn") for p in parts) else "arunet"
 
 
@@ -99,13 +120,16 @@ def main(argv=None) -> None:
                         default=os.path.join(REPO, "models_ckpt", "separator"))
     parser.add_argument("--out", default=os.path.join(
         REPO, "models_ckpt_torch", "separator.npz"))
-    parser.add_argument("--kind", choices=("arunet", "gnn"), default=None,
-                        help="net of the checkpoint (default: gnn for a "
-                             "model_dir under a gnn* directory, else arunet)")
+    parser.add_argument("--kind", choices=("arunet", "gnn", "gnn_visual"), default=None,
+                        help="net of the checkpoint (default: gnn_visual under a "
+                             "gnn_visual directory, gnn under another gnn* "
+                             "directory, else arunet)")
     args = parser.parse_args(argv)
     kind = args.kind or _kind_of(args.model_dir)
-    params = (gnn_flax_params(args.model_dir) if kind == "gnn"
-              else flax_params(args.model_dir))
+    if kind == "arunet":
+        params = flax_params(args.model_dir)
+    else:
+        params = gnn_flax_params(args.model_dir, visual=kind == "gnn_visual")
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     np.savez(args.out, **params)
     n = sum(v.size for v in params.values())

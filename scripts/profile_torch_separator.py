@@ -12,7 +12,13 @@ workflow`` it runs ``chip_smoke.py``'s workflow phase: the port's
 ``run_full_workflow`` over the same files with the converted ``gnn``
 relation net and ``clustering_method="dbscan"``; the device phases are then
 its stages (``timings`` keys), each call of a stage bracketed by device
-syncs. It prints:
+syncs. With ``--path pipelined`` it runs ``chip_smoke.py``'s pipelined
+phase's 16 pages through the sequential ``run_full_workflow`` and through
+``run_full_workflow_pipelined`` (no workers, then ``--host_workers``
+spawned workers), each once to warm up and once under ``torch.profiler``
+(device activity only, no stage syncs), and prints per driver the wall
+time, the device busy seconds and their share of the wall, the device
+events and the driver's ``timings``. Otherwise it prints:
 
 - the wall time of the profiled run and the device's busy share (the union
   of the CUDA kernel and memcpy intervals over that wall time);
@@ -25,7 +31,8 @@ syncs. It prints:
   ``separator_morphology``), summed over their instantiations;
 - device time per kernel name, largest first.
 
-    python3 scripts/profile_torch_separator.py [--path memory|files|workflow]
+    python3 scripts/profile_torch_separator.py
+        [--path memory|files|workflow|pipelined] [--host_workers N]
         [--out build/profile_separator.json]
 
 Imports only the port (``citlab_as_tpu_torch``) and ``chip_smoke`` for its
@@ -64,17 +71,74 @@ def _clip(intervals, lo, hi):
     return [(max(s, lo), min(e, hi)) for s, e in intervals if e > lo and s < hi]
 
 
+def profile_drivers(args) -> int:
+    """``--path pipelined``: the device's busy share under each driver on
+    the same 16 pages."""
+    import shutil
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from citlab_as_tpu_torch.cli.run_full_workflow import (
+        run_full_workflow, run_full_workflow_pipelined)
+    from citlab_as_tpu_torch.inference import RelationPredictor
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    root = tempfile.mkdtemp(prefix="profile_torch_")
+    drivers = [("sequential", run_full_workflow, {}),
+               ("pipelined", run_full_workflow_pipelined, {"host_workers": 0}),
+               (f"pipelined, {args.host_workers} workers", run_full_workflow_pipelined,
+                {"host_workers": args.host_workers})]
+    runs = {}
+    try:
+        pages, _, layouts = cs.synthetic_newspaper(cs.N_PIPE_PAGES, *cs.PAGE_SHAPE, seed=13)
+        paths = cs.write_corpus(root, pages, layouts)
+        run = cs._workflow_runner(dev, paths, RelationPredictor(
+            os.path.join(REPO, "models_ckpt_torch", "gnn.npz"), device=dev))
+        for label, driver, kw in drivers:
+            run(driver, **kw)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                secs, result, launches, timings = run(driver, **kw)
+            intervals = [(e.time_range.start, e.time_range.end) for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA]
+            busy_s = _union_us(intervals) / 1e6
+            runs[label] = {"wall_s": secs, "pages_per_s": cs.N_PIPE_PAGES / secs,
+                           "device_busy_s": busy_s, "device_busy_share": busy_s / secs,
+                           "device_events": len(intervals), "launches": launches,
+                           "skipped": len(result["skipped"]), "timings": timings}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi.stdout.strip(),
+           "torch": torch.__version__, "path": "pipelined", "pages": cs.N_PIPE_PAGES,
+           "batch": cs.BATCH, "runs": runs}
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join(REPO, "build",
                                                       "profile_separator.json"))
     parser.add_argument("--top", type=int, default=25)
-    parser.add_argument("--path", choices=("memory", "files", "workflow"),
+    parser.add_argument("--path", choices=("memory", "files", "workflow", "pipelined"),
                         default="memory")
+    parser.add_argument("--host_workers", type=int,
+                        default=min(4, (os.cpu_count() or 2) - 1),
+                        help="workers of the pipelined driver's second run "
+                             "(--path pipelined)")
     args = parser.parse_args(argv)
     sys.path.insert(0, REPO)
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
+    if args.path == "pipelined":
+        return profile_drivers(args)
 
     import chip_smoke as cs
     from citlab_as_tpu_torch.inference import SegmentationPredictor

@@ -227,3 +227,51 @@ def test_host_geometry_library_builds_on_the_card_machine(cuda):
     cloud = np.concatenate([coords, coords + [1, -30]]).astype(np.int64)
     assert alpha_shape(cloud, 75) == alpha_shape_plain(
         cloud, 75, simplices=native.delaunay(cloud))
+
+
+@pytest.mark.cuda
+def test_async_copies_on_the_card(cuda):
+    """``upload`` through pinned staging and ``prefetch`` into pinned memory
+    on a side stream: the values arrive, and the copy's event is the only
+    thing waited on."""
+    from citlab_as_tpu_torch.utils.async_copy import HostCopy, prefetch, upload
+    rng = np.random.RandomState(4)
+    pages = [rng.randint(0, 256, (37, 53)).astype(np.uint8) for _ in range(3)]
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        batch = upload(pages, cuda)
+        copy = prefetch(batch.to(torch.int32) * 3)
+    assert isinstance(copy, HostCopy) and copy.host.is_pinned()
+    assert np.array_equal(copy.numpy(), np.stack(pages).astype(np.int32) * 3)
+    assert copy.event.query()
+
+
+@pytest.mark.cuda
+def test_visual_relation_gnn_on_the_card_equals_the_cpu(cuda):
+    """The converted ``gnn_visual`` net (ARU_cutted backbone, page images at
+    288 / 384): the card's confidences within 1e-4 of the CPU's (f32 convs
+    summed in another order on cuDNN, segment sums by float atomics), and
+    no K1 launch from the backbone."""
+    import os
+    from citlab_as_tpu_torch.inference import RelationPredictor
+    npz = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "models_ckpt_torch", "gnn_visual.npz")
+    kw = dict(image_input=True, visual_backbone="ARU_cutted_v1",
+              image_min_dimension=288, image_max_dimension=384)
+    rng = np.random.RandomState(5)
+    group = []
+    for n in (12, 30, 7):
+        g = _delaunay_graph(rng, n)
+        xy = rng.rand(n, 2) * [1200.0, 1800.0]
+        g["visual_regions_nodes"] = [[[x, x + 150, x + 150, x], [y, y, y + 90, y + 90]]
+                                     for x, y in xy]
+        g["num_points_visual_regions_nodes"] = [4] * n
+        group.append(g)
+    images = [rng.randint(0, 256, (2000, 1420)).astype(np.uint8) for _ in group]
+    want = RelationPredictor(npz, device="cpu", **kw).confidences_batch(group, images)
+    k1.launches = 0
+    got = RelationPredictor(npz, device="cuda", **kw).confidences_batch(group, images)
+    assert k1.launches == 0
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)

@@ -38,12 +38,12 @@ def test_converter_reproduces_committed_npz(tmp_path, net):
             np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-@pytest.mark.parametrize("net", GNN_NETS)
+@pytest.mark.parametrize("net", GNN_NETS + ("gnn_visual",))
 def test_converter_reproduces_committed_gnn_npz(tmp_path, net):
     out = tmp_path / f"{net}.npz"
     r = subprocess.run(
         [sys.executable, os.path.join(REPO, "scripts", "convert_weights_to_torch.py"),
-         "--kind", "gnn", "--model_dir",
+         "--kind", "gnn_visual" if net == "gnn_visual" else "gnn", "--model_dir",
          os.path.join(REPO, "models_ckpt", net, "best", "f1"), "--out", str(out)],
         capture_output=True, text=True, timeout=300,
         env=dict(os.environ, JAX_PLATFORMS="cpu"))
@@ -105,7 +105,8 @@ def test_port_file_imports_no_jax_and_no_reference(path):
 def test_running_the_slice_loads_no_jax_module():
     """Import the port and run its stages on the CPU, in memory and from
     files to files, then the whole workflow (every clustering method's
-    code), in a fresh process (conftest.py has loaded jax in this one)."""
+    code) and the pipelined workflow with a visual relation net, in a fresh
+    process (conftest.py has loaded jax in this one)."""
     code = r"""
 import os, sys, tempfile
 import numpy as np, torch
@@ -146,6 +147,15 @@ res = run_full_workflow(paths, separator_predictor=benign, heading_predictor=ben
                         separator_fixed_height=128, heading_fixed_height=128,
                         out_dir=os.path.join(root, "out"), device="cpu",
                         clustering_method="dbscan_std")
+assert res["skipped"] == [] and len(res["clustered"]) == 1
+from citlab_as_tpu_torch.cli.run_full_workflow import run_full_workflow_pipelined
+visual = RelationPredictor(None, device="cpu", image_input=True,
+                           visual_backbone="ARU_cutted_v1", image_min_dimension=64,
+                           image_max_dimension=96)
+res = run_full_workflow_pipelined(paths, separator_predictor=benign,
+                                  heading_predictor=benign, gnn_predictor=visual,
+                                  separator_fixed_height=128, heading_fixed_height=128,
+                                  out_dir=os.path.join(root, "out"), device="cpu")
 assert res["skipped"] == [] and len(res["clustered"]) == 1
 for method in ("linkage", "greedy"):
     from citlab_as_tpu_torch.stages.clustering import TextblockClustering
