@@ -21,7 +21,9 @@ result):
    CUDA events around launches the host issues one by one; ``device_ms`` is
    the same launches replayed from a CUDA graph, the device's time alone;
    K1 is also held against its plain version, and timed the same way, at
-   the 24 instances of the heading stage's forward (4 x 960 x 640);
+   the 24 instances of the heading stage's forward (4 x 960 x 640); K1
+   under autograd (its forward, cuDNN's backward) against autograd through
+   ``F.conv2d`` at one main-path instance;
 4. main path: 8 synthetic 2000 x 1420 pages through
    ``SeparatorNetPostProcessor(..., fixed_height=1500).run_batched(4)`` in
    bf16 with the converted separator weights; the kernels' launch counts
@@ -74,7 +76,23 @@ result):
    visual confidences within ``VISUAL_CONF_TOL`` of the port's CPU device
    on the same feature JSONs and images, with equal dbscan labels. The
    visual forward's time per group is printed: eager (CUDA events) and
-   device time (``torch.profiler``).
+   device time (``torch.profiler``);
+10. formats: the six committed JPEG / TIFF fixtures (``tests/data/
+   torch_formats``: grey JPEG with restart markers, 4:2:0 colour JPEG,
+   progressive JPEG, LZW + predictor TIFF in strips, Deflate TIFF in tiles,
+   Group 4 TIFF; 2000 x 1420, made by ``scripts/make_format_fixtures.py``)
+   decoded by the host C++ decoder: size and sha256 of the "L" bytes equal
+   PIL's recorded ones; ms per page (median of 3) beside a PNG of the same
+   pixels. Then the port's stage CLIs in the workflow's order on the card:
+   ``run_net_post_processing`` separator (the fixtures and their PNG twins)
+   and heading, baseline clustering, text regions, features,
+   ``run_gnn_clustering``. Gates: K1 69 per forward and K2 one per group;
+   every written page valid; the separator's page of each fixture equal to
+   its PNG twin's (``LastChange`` and ``imageFilename`` blanked); an
+   article id on every line; card vs CPU relation confidences within 1e-5
+   with equal dbscan labels; ``gk_calc_metric`` equal to the numpy path to
+   1e-9. The port's ``run_measure`` against GT from the drawn layout
+   prints AS R/P/F (not gated).
 
 The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
 """
@@ -114,6 +132,8 @@ N_PIPE_PAGES = 16                           # 4 groups of 4: the wave's steady s
 VISUAL_CONF_TOL = 1e-4
 VISUAL_KW = dict(image_input=True, visual_backbone="ARU_cutted_v1",
                  image_min_dimension=288, image_max_dimension=384)
+FORMATS_DIR = os.path.join(REPO, "tests", "data", "torch_formats")
+FORMATS_METRIC_PAGES = 2                    # pages whose measure the numpy path redoes
 PIPELINED_TIMINGS = {"separator_materialize", "dispatch", "separator_drain",
                      "heading_dispatch", "heading_drain", "heading_finish",
                      "gnn_dispatch", "gnn_materialize", "gnn_clustering",
@@ -404,13 +424,62 @@ def phase_k1(dev):
         print(f"{label}: " + json.dumps({"batch": shape[0], "shape": list(shape),
                                          "dtype": "bf16", "instances": instances,
                                          "per_forward": per_forward}))
+    grad = k1_grad_check(dev)
     print(f"K1 ok: f32 max abs err {worst_f32:.3g} (<= 1e-4), bf16 max err "
-          f"{worst_bf16:.3g} of output scale (<= 2e-2)")
+          f"{worst_bf16:.3g} of output scale (<= 2e-2); gradients " + json.dumps(grad))
     total = {k: sum(r[k] for r in rows) for k in ("ms", "plain_ms", "library_ms",
                                                    "bound_ms")}
     return dict(total, max_abs_err=worst_f32,
                 bound_by="bytes" if all(r["bound_by"] == "bytes" for r in rows)
                 else "operations")
+
+
+def k1_grad_check(dev):
+    """K1 under autograd (the kernel's forward, the cuDNN backward of
+    ``Conv3x3Function``) against autograd through ``F.conv2d``, at one main
+    path instance (16 -> 32 at a quarter of ``K1_SHAPE``), with and without
+    ReLU: each gradient's max abs error over its largest entry, f32 (TF32
+    off) within 1e-5 (db sums 418 thousand products in another order than
+    cuDNN's), bf16 within 2e-2. Under ReLU the reference is masked by the
+    kernel's own output, as the two forwards may round an output next to 0
+    to opposite signs."""
+    import torch
+    import torch.nn.functional as F
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    b, h, w = K1_SHAPE
+    cin, cout, h, w = 16, 32, h // 4, w // 4
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        gen = torch.Generator(device=dev).manual_seed(3)
+        x = torch.randn((b, h, w, cin), generator=gen, device=dev)
+        wt = torch.randn((cout, cin, 3, 3), generator=gen, device=dev) * (
+            2.0 / (9 * cin + cout)) ** 0.5
+        bias = 0.1 + 0.02 * torch.randn((cout,), generator=gen, device=dev)
+        gy = torch.randn((b, h, w, cout), generator=gen, device=dev)
+        for dtype, limit in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+            for relu in (True, False):
+                ours = [t.detach().to(dtype).clone().requires_grad_() for t in (x, wt, bias)]
+                ref = [t.detach().to(dtype).clone().requires_grad_() for t in (x, wt, bias)]
+                before = k1.launches
+                y = k1.conv3x3(*ours, relu=relu)
+                check(k1.launches == before + 1, "K1 under autograd did not launch the kernel")
+                y.backward(gy.to(dtype))
+                y_ref = F.conv2d(ref[0].permute(0, 3, 1, 2), ref[1], ref[2],
+                                 padding=1).permute(0, 2, 3, 1)
+                if relu:
+                    y_ref = y_ref * (y.detach() > 0)
+                y_ref.backward(gy.to(dtype))
+                errs = [((a.grad.float() - r.grad.float()).abs().max()
+                         / r.grad.float().abs().max()).item() for a, r in zip(ours, ref)]
+                name = f"{str(dtype).split('.')[-1]}{'_relu' if relu else ''}"
+                out[name] = dict(zip(("dx", "dw", "db"), errs))
+                check(max(errs) <= limit, f"K1 gradients {name}: errors {errs} > {limit}")
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    return {"instance": [b, h, w, cin, cout], "errors": out}
 
 
 def k2_input(b, h, w, seed, dev):
@@ -549,10 +618,27 @@ def phase_main_path(dev):
             "launches": launches, "agree": agree, "recall": min(recalls)}
 
 
+def write_layout_xml(path, image_name, h, w, regions):
+    """The PAGE-XML of a drawn page: one TextRegion per layout region, one
+    TextLine (box and baseline 2 px above its bottom) per line."""
+    from citlab_as_tpu_torch.pagexml import Page, TextLine, TextRegion
+    doc = Page(img_filename=image_name, img_w=w, img_h=h)
+    text_regions = []
+    for region_id, lines in regions:
+        tls = [TextLine(line_id, None, "", [(x0, y1 - 2), (x1, y1 - 2)],
+                        [(x0, y0), (x1, y0), (x1, y1), (x0, y1)])
+               for line_id, (x0, y0, x1, y1) in lines]
+        xs0, ys0, xs1, ys1 = zip(*(box for _, box in lines))
+        text_regions.append(TextRegion(
+            region_id, None, [(min(xs0), min(ys0)), (max(xs1), min(ys0)),
+                              (max(xs1), max(ys1)), (min(xs0), max(ys1))], tls))
+    doc.set_text_regions(text_regions)
+    doc.write_page_xml(path)
+
+
 def write_corpus(root, pages, layouts):
     """PNG files plus one PAGE-XML per page under ``root/page``, built with
     the port's own encoder and Page API. Returns the image paths."""
-    from citlab_as_tpu_torch.pagexml import Page, TextLine, TextRegion
     from citlab_as_tpu_torch.utils.io import save_png
     os.makedirs(os.path.join(root, "page"))
     paths = []
@@ -560,18 +646,8 @@ def write_corpus(root, pages, layouts):
         h, w = page.shape
         path = os.path.join(root, f"page_{i:02d}.png")
         save_png(path, page)
-        doc = Page(img_filename=os.path.basename(path), img_w=w, img_h=h)
-        text_regions = []
-        for region_id, lines in regions:
-            tls = [TextLine(line_id, None, "", [(x0, y1 - 2), (x1, y1 - 2)],
-                            [(x0, y0), (x1, y0), (x1, y1), (x0, y1)])
-                   for line_id, (x0, y0, x1, y1) in lines]
-            xs0, ys0, xs1, ys1 = zip(*(box for _, box in lines))
-            text_regions.append(TextRegion(
-                region_id, None, [(min(xs0), min(ys0)), (max(xs1), min(ys0)),
-                                  (max(xs1), max(ys1)), (min(xs0), max(ys1))], tls))
-        doc.set_text_regions(text_regions)
-        doc.write_page_xml(os.path.join(root, "page", f"page_{i:02d}.xml"))
+        write_layout_xml(os.path.join(root, "page", f"page_{i:02d}.xml"),
+                         os.path.basename(path), h, w, regions)
         paths.append(path)
     return paths
 
@@ -1220,6 +1296,251 @@ def phase_visual(dev):
             "device_ms": device_ms, "max_abs_err": worst}
 
 
+def _normalised_xml(path):
+    """A PAGE-XML file's bytes with ``LastChange`` and ``imageFilename``
+    blanked: what a page's separator output owes to its pixels alone."""
+    import re
+    with open(path, "rb") as f:
+        data = f.read()
+    data = re.sub(rb"<LastChange>[^<]*</LastChange>", b"<LastChange/>", data)
+    return re.sub(rb'imageFilename="[^"]*"', b'imageFilename=""', data)
+
+
+def _median_ms(fn, n=3):
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def phase_formats(dev):
+    """The committed JPEG / TIFF page fixtures (tests/data/torch_formats,
+    made by scripts/make_format_fixtures.py): the host decoder against
+    PIL's recorded digests, then the port's stage CLIs over the pages on
+    the card, then the port's AS measure against the drawn layout."""
+    import glob
+    import hashlib
+
+    import torch
+    from citlab_as_tpu_torch.cli import (
+        run_baseline_clustering, run_feature_generation, run_gnn_clustering, run_measure,
+        run_net_post_processing, run_textregion_generation)
+    from citlab_as_tpu_torch.eval.measure import BaselineMeasureEval, get_data_from_pagexml
+    from citlab_as_tpu_torch.inference import RelationPredictor
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.pagexml import Page
+    from citlab_as_tpu_torch.stages.clustering import TextblockClustering
+    from citlab_as_tpu_torch.utils import io as port_io
+
+    records = []
+    for path in sorted(glob.glob(os.path.join(FORMATS_DIR, "*.json"))):
+        with open(path) as f:
+            records.append(json.load(f))
+    check(len(records) == 6, f"formats: {len(records)} fixtures in {FORMATS_DIR}, want 6")
+    npz = os.path.join(REPO, "models_ckpt_torch")
+    root = tempfile.mkdtemp(prefix="chip_smoke_formats_")
+    try:
+        # 1. decode: PIL's size and the sha256 of its "L" bytes, ms per page
+        os.makedirs(os.path.join(root, "page"))
+        fixtures, twins, decode_ms = [], [], {}
+        for rec in records:
+            name = os.path.splitext(rec["file"])[0]
+            src = os.path.join(FORMATS_DIR, rec["file"])
+            path = os.path.join(root, rec["file"])
+            shutil.copy(src, path)
+            shutil.copy(os.path.join(FORMATS_DIR, "page", f"{name}.xml"),
+                        os.path.join(root, "page", f"{name}.xml"))
+            size = port_io.image_size(path)
+            check(list(size) == rec["size"], f"formats: {rec['file']} size {size}, PIL "
+                  f"says {rec['size']}")
+            grey = port_io.load_image(path, "L")
+            digest = hashlib.sha256(np.ascontiguousarray(grey).tobytes()).hexdigest()
+            check(digest == rec["sha256_L"], f"formats: {rec['file']} decodes to other "
+                  f"pixels than PIL's ({digest} != {rec['sha256_L']})")
+            twin = os.path.join(root, f"twin_{name}.png")
+            port_io.save_png(twin, grey)
+            shutil.copy(os.path.join(FORMATS_DIR, "page", f"{name}.xml"),
+                        os.path.join(root, "page", f"twin_{name}.xml"))
+
+            def load(p):
+                port_io._IMAGE_CACHE.clear()
+                return port_io.load_image(p, "L")
+            decode_ms[rec["file"]] = {"ms": _median_ms(lambda: load(path)),
+                                      "png_twin_ms": _median_ms(lambda: load(twin)),
+                                      "bytes": os.path.getsize(path),
+                                      "png_twin_bytes": os.path.getsize(twin)}
+            fixtures.append(path)
+            twins.append(twin)
+        print("formats: decode ms per page (median of 3, host) beside the PNG of the "
+              "same pixels " + json.dumps(decode_ms))
+        print(f"formats: all {len(records)} fixtures decode to PIL's size and 'L' digest")
+
+        def write_list(name, lines):
+            path = os.path.join(root, name)
+            with open(path, "w") as f:
+                f.write("\n".join(lines) + "\n")
+            return path
+
+        def promote(images):
+            for image in images:
+                page = port_io.get_page_path(image)
+                os.replace(page + ".xml", page)
+
+        def valid_pages(paths, what):
+            for path in paths:
+                valid, _ = structurally_valid(Page(path))
+                check(valid, f"formats: {what} wrote an invalid page {path}")
+
+        pages = [port_io.get_page_path(p) for p in fixtures]
+        stage_s, launches = {}, {}
+
+        def stage(label, fn, *args):
+            port_io._IMAGE_CACHE.clear()
+            k1.launches = 0
+            k2.launches = 0
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            stage_s[label] = time.perf_counter() - t0
+            launches[label] = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+            return out
+
+        # 2. the stage CLIs in the workflow's order, on the card
+        both = fixtures + twins
+        groups = -(-len(both) // BATCH)
+        stage("separator", run_net_post_processing.main, [
+            "--path_to_image_list", write_list("separator.lst", both), "--mode", "separator",
+            "--model", os.path.join(npz, "separator.npz"), "--batch_size", str(BATCH),
+            "--fixed_height", str(FIXED_HEIGHT), "--device", str(dev)])
+        check(launches["separator"] == {"conv3x3": 69 * groups, "separator_morphology": groups},
+              f"formats: separator launches {launches['separator']}, want K1 69 x {groups} "
+              f"and K2 {groups}")
+        valid_pages([port_io.get_page_path(p) + ".xml" for p in both], "the separator")
+        separators = {}
+        for image, twin in zip(fixtures, twins):
+            a = _normalised_xml(port_io.get_page_path(image) + ".xml")
+            b = _normalised_xml(port_io.get_page_path(twin) + ".xml")
+            check(a == b, f"formats: the separator's page of {os.path.basename(image)} "
+                  "differs from its PNG twin's")
+            separators[os.path.basename(image)] = a.count(b"<SeparatorRegion")
+        print("formats: the separator's pages equal their PNG twins'; SeparatorRegions "
+              "per page " + json.dumps(separators))
+        promote(fixtures)
+
+        groups = -(-len(fixtures) // BATCH)
+        stage("heading", run_net_post_processing.main, [
+            "--path_to_image_list", write_list("heading.lst", fixtures), "--mode", "heading",
+            "--model", os.path.join(npz, "heading.npz"), "--batch_size", str(BATCH),
+            "--fixed_height", str(HEADING_FIXED_HEIGHT), "--device", str(dev)])
+        check(launches["heading"] == {"conv3x3": 69 * groups, "separator_morphology": 0},
+              f"formats: heading launches {launches['heading']}, want K1 69 x {groups}")
+        valid_pages([p + ".xml" for p in pages], "the heading stage")
+        promote(fixtures)
+
+        page_list = write_list("pages.lst", pages)
+        check(stage("baselines", run_baseline_clustering.main,
+                    ["--path_to_xml_lst", page_list]) == [], "formats: baseline clustering "
+              "skipped pages")
+        check(stage("regions", run_textregion_generation.main,
+                    ["--path_to_xml_lst", page_list]) == [], "formats: text regions skipped "
+              "pages")
+        valid_pages(pages, "the host stages")
+        jsons = stage("features", run_feature_generation.main,
+                      ["--pagexml_list", page_list, "--out_path", os.path.join(root, "json")])
+        check(len(jsons) == len(pages), f"formats: {len(jsons)} feature files")
+        cwd = os.getcwd()
+        os.chdir(root)      # the clustering pages land beside page/ under the CWD
+        try:
+            clustered = stage("gnn_clustering", run_gnn_clustering.main, [
+                "--eval_list", write_list("jsons.lst", jsons), "--model",
+                os.path.join(npz, "gnn.npz"), "--clustering_method", "dbscan",
+                "--out_dir", "", "--device", str(dev)])
+        finally:
+            os.chdir(cwd)
+        clustered = [os.path.join(root, p) for p in clustered]
+        check(len(clustered) == len(pages), f"formats: {len(clustered)} clustered pages")
+        valid_pages(clustered, "the GNN clustering")
+        for path in clustered:
+            lines = Page(path).get_textlines()
+            check(lines and all(tl.get_article_id() for tl in lines),
+                  f"formats: {path}: a text line has no article id")
+        print("formats: stage CLI seconds " + json.dumps(stage_s) + "; launches "
+              + json.dumps(launches))
+
+        # card vs CPU relation confidences on the written JSONs
+        graphs = []
+        for path in jsons:
+            with open(path) as f:
+                graphs.append(json.load(f))
+        card = RelationPredictor(os.path.join(npz, "gnn.npz"), device=dev)
+        cpu = RelationPredictor(os.path.join(npz, "gnn.npz"), device="cpu")
+        worst, same_labels = 0.0, True
+        for c_card, c_cpu in zip(card.confidences_batch(graphs), cpu.confidences_batch(graphs)):
+            worst = max(worst, float(np.abs(c_card - c_cpu).max()))
+            labels = []
+            for conf in (c_card, c_cpu):
+                tb = TextblockClustering()
+                tb.set_confs(conf)
+                tb.calc("dbscan")
+                labels.append(list(tb.tb_labels))
+            same_labels &= labels[0] == labels[1]
+        print(f"formats: relation confidences card vs CPU max abs {worst:.3g} (limit 1e-5); "
+              f"dbscan labels equal: {same_labels}")
+        check(worst <= 1e-5, f"formats: card vs CPU confidences differ by {worst}")
+        check(same_labels, "formats: dbscan labels differ between card and CPU")
+
+        # 3. the AS measure against GT written from the drawn layout: each
+        # line's article is its drawn region
+        gt_dir = os.path.join(root, "gt", "page")
+        os.makedirs(gt_dir)
+        gts = []
+        for rec in records:
+            name = os.path.splitext(rec["file"])[0]
+            page = Page(os.path.join(FORMATS_DIR, "page", f"{name}.xml"))
+            lines = []
+            for region in page.get_text_regions():
+                for tl in region.text_lines:
+                    tl.set_article_id(region.id)
+                    lines.append(tl)
+            page.set_textline_attr(lines)
+            gts.append(os.path.join(gt_dir, f"{name}.xml"))
+            page.write_page_xml(gts[-1])
+        t0 = time.perf_counter()
+        result = run_measure.main(["--path_to_gt_xml_lst", write_list("gt.lst", gts),
+                                   "--path_to_hy_xml_lst", write_list("hy.lst", clustered)])
+        measure_s = time.perf_counter() - t0
+        check(result["counts"][2] == len(gts), f"formats: the measure counted {result['counts']}")
+        worst_metric = 0.0
+        for gt, hy in list(zip(sorted(gts), sorted(clustered)))[:FORMATS_METRIC_PAGES]:
+            truth = [p for ps in get_data_from_pagexml(gt).values() for p in ps]
+            reco = [p for ps in get_data_from_pagexml(hy).values() for p in ps]
+            evals = []
+            for native in (True, False):
+                ev = BaselineMeasureEval(-1, -1)
+                ev.calc_measure_for_page_baseline_polys(truth, reco, use_native=native)
+                evals.append(ev.measure.result)
+            for attr in ("page_wise_per_dist_tol_tick_per_line_precision",
+                         "page_wise_per_dist_tol_tick_per_line_recall"):
+                a, b = getattr(evals[0], attr)[0], getattr(evals[1], attr)[0]
+                check(a.shape == b.shape, f"formats: gk_calc_metric {attr} shape")
+                worst_metric = max(worst_metric, float(np.abs(a - b).max()))
+        check(worst_metric <= 1e-9, f"formats: gk_calc_metric differs from numpy by "
+              f"{worst_metric}")
+        as_r, as_p, as_f = result["as"]
+        print(f"formats: AS measure over {len(gts)} pages (run_measure, dynamic tolerances, "
+              f"{measure_s:.3f} s): R {as_r:.6f} P {as_p:.6f} F {as_f:.6f}; baseline "
+              f"detection {json.dumps(result['bd'])}; gk_calc_metric vs numpy max abs "
+              f"{worst_metric:.3g} on {FORMATS_METRIC_PAGES} pages (limit 1e-9)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": {k: sum(launches[stage][k] for stage in launches)
+                         for k in ("conv3x3", "separator_morphology")},
+            "decode_ms": decode_ms, "stage_s": stage_s, "as": result["as"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -1256,6 +1577,7 @@ def main() -> int:
         timed("gnn", phase_gnn, dev)
         pipelined_row = timed("pipelined", phase_pipelined, dev)
         visual_row = timed("visual", phase_visual, dev)
+        formats_row = timed("formats", phase_formats, dev)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1267,7 +1589,8 @@ def main() -> int:
              launches_files=files_row["launches"]["conv3x3"],
              launches_workflow=workflow_row["launches"]["conv3x3"],
              launches_pipelined=pipelined_row["launches"]["conv3x3"],
-             launches_visual=visual_row["launches"]["conv3x3"], **k1_row),
+             launches_visual=visual_row["launches"]["conv3x3"],
+             launches_formats=formats_row["launches"]["conv3x3"], **k1_row),
         dict(name="separator_morphology", route="cuda",
              source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
              replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
@@ -1275,15 +1598,18 @@ def main() -> int:
              launches_files=files_row["launches"]["separator_morphology"],
              launches_workflow=workflow_row["launches"]["separator_morphology"],
              launches_pipelined=pipelined_row["launches"]["separator_morphology"],
-             launches_visual=visual_row["launches"]["separator_morphology"], **k2_row),
+             launches_visual=visual_row["launches"]["separator_morphology"],
+             launches_formats=formats_row["launches"]["separator_morphology"], **k2_row),
     ]
     # ``launches``: the in-memory main path's count; ``launches_files``: the
     # files-to-files path's; ``launches_workflow``: the whole workflow's;
     # ``launches_pipelined``: the pipelined workflow's (16 pages, no
     # workers); ``launches_visual``: the pipelined workflow's with the visual
-    # relation net (each counted from 0 just before its run)
+    # relation net; ``launches_formats``: the stage CLIs' over the JPEG /
+    # TIFF fixtures (separator and heading; each counted from 0 just before
+    # its run)
     keys = ("name", "route", "source", "replaces", "launches", "launches_files",
-            "launches_workflow", "launches_pipelined", "launches_visual",
+            "launches_workflow", "launches_pipelined", "launches_visual", "launches_formats",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))

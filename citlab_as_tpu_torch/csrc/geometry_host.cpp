@@ -12,6 +12,8 @@
 //   gk_cluster_features    - the fused feature pass of DBSCANBaselines
 //   gk_delaunay            - sweep-circle Delaunay triangulation
 //   gk_alpha_shape         - alpha shape boundary with the 20 % escalation
+//   gk_calc_tols           - the AS measure's tolerance per GT baseline
+//   gk_calc_metric         - the AS measure's precision / recall per page
 // Built at first use by citlab_as_tpu_torch/ops/kernels/build.py with the
 // host C++ compiler and the JAX package's flags (-O3 -march=native -fPIC
 // -shared -std=c++17), and loaded with ctypes by
@@ -250,6 +252,84 @@ std::vector<Poly> unpack(const double* coords, const int32_t* offsets,
     }
     return polys;
 }
+
+// soft hit count (eval_measure.py:126-175) for all tolerance ticks at once
+void count_rel_hits(const Poly& to_count, const Poly& ref,
+                    const double* tols, int32_t n_tols, double* out) {
+    for (int32_t t = 0; t < n_tols; ++t) out[t] = 0.0;
+    // bbox early stop against intersection extents (possibly negative)
+    double ix0 = std::max(to_count.bb_x0, ref.bb_x0);
+    double iy0 = std::max(to_count.bb_y0, ref.bb_y0);
+    double ix1 = std::min(to_count.bb_x1, ref.bb_x1);
+    double iy1 = std::min(to_count.bb_y1, ref.bb_y1);
+    if (std::min(ix1 - ix0, iy1 - iy0) < -3.0 * tols[n_tols - 1]) return;
+
+    size_t np = to_count.x.size();
+    for (size_t i = 0; i < np; ++i) {
+        double md = std::numeric_limits<double>::infinity();
+        for (size_t j = 0; j < ref.x.size(); ++j) {
+            double d = std::fabs(to_count.x[i] - ref.x[j])
+                     + std::fabs(to_count.y[i] - ref.y[j]);
+            md = std::min(md, d);
+        }
+        for (int32_t t = 0; t < n_tols; ++t) {
+            double tol = tols[t];
+            if (md <= tol) out[t] += 1.0;
+            else if (md <= 3.0 * tol) out[t] += (3.0 * tol - md) / (2.0 * tol);
+        }
+    }
+    for (int32_t t = 0; t < n_tols; ++t) out[t] /= (double)np;
+}
+
+void count_rel_hits_union(const Poly& to_count, const std::vector<Poly>& refs,
+                          const double* tols, int32_t n_tols, double* out) {
+    for (int32_t t = 0; t < n_tols; ++t) out[t] = 0.0;
+    size_t np = to_count.x.size();
+    std::vector<double> min_dist(np, std::numeric_limits<double>::infinity());
+    bool any = false;
+    for (const Poly& ref : refs) {
+        double ix0 = std::max(to_count.bb_x0, ref.bb_x0);
+        double iy0 = std::max(to_count.bb_y0, ref.bb_y0);
+        double ix1 = std::min(to_count.bb_x1, ref.bb_x1);
+        double iy1 = std::min(to_count.bb_y1, ref.bb_y1);
+        if (std::min(ix1 - ix0, iy1 - iy0) < -3.0 * tols[n_tols - 1]) continue;
+        any = true;
+        for (size_t i = 0; i < np; ++i) {
+            for (size_t j = 0; j < ref.x.size(); ++j) {
+                double d = std::fabs(to_count.x[i] - ref.x[j])
+                         + std::fabs(to_count.y[i] - ref.y[j]);
+                min_dist[i] = std::min(min_dist[i], d);
+            }
+        }
+    }
+    if (!any) return;
+    for (size_t i = 0; i < np; ++i) {
+        for (int32_t t = 0; t < n_tols; ++t) {
+            double tol = tols[t];
+            if (min_dist[i] <= tol) out[t] += 1.0;
+            else if (min_dist[i] <= 3.0 * tol) out[t] += (3.0 * tol - min_dist[i]) / (2.0 * tol);
+        }
+    }
+    for (int32_t t = 0; t < n_tols; ++t) out[t] /= (double)np;
+}
+
+std::vector<double> calc_tols_inner(const std::vector<Poly>& normed,
+                                    double tick, double max_d, double rel_tol) {
+    std::vector<double> d = min_perp_dists(normed, tick, max_d);
+    std::vector<double> tols(d.size());
+    double sum = 0; int cnt = 0;
+    for (size_t i = 0; i < d.size(); ++i) {
+        tols[i] = d[i] < max_d ? d[i] : 0.0;
+        if (tols[i] != 0) { sum += tols[i]; ++cnt; }
+    }
+    double mean = cnt ? sum / cnt : max_d;
+    for (size_t i = 0; i < tols.size(); ++i) {
+        if (tols[i] == 0) tols[i] = mean;
+        tols[i] = std::min(tols[i], mean) * rel_tol;
+    }
+    return tols;
+}
+
 }  // namespace
 
 extern "C" {
@@ -273,6 +353,75 @@ void gk_interline_distances_normed(const double* coords, const int32_t* offsets,
     std::vector<Poly> normed = unpack(coords, offsets, n_polys);
     std::vector<double> d = min_perp_dists(normed, des_dist, max_d);
     std::memcpy(out, d.data(), n_polys * sizeof(double));
+}
+
+void gk_calc_tols(const double* coords, const int32_t* offsets,
+                  int32_t n_polys, int32_t tick_dist, double max_d,
+                  double rel_tol, double* out) {
+    std::vector<Poly> normed = unpack(coords, offsets, n_polys);
+    std::vector<double> tols = calc_tols_inner(normed, tick_dist, max_d, rel_tol);
+    std::memcpy(out, tols.data(), n_polys * sizeof(double));
+}
+
+// AS measure page metric (java Util.calcMetricForPageBaseLinePolys analog):
+// truth/reco given RAW; tols: n_tols tick values, tols[0] < 0 -> dynamic.
+// out_precision: [n_tols * n_reco], out_recall: [n_tols * n_truth]
+void gk_calc_metric(const double* t_coords, const int32_t* t_offsets, int32_t n_truth,
+                    const double* r_coords, const int32_t* r_offsets, int32_t n_reco,
+                    const double* tols_in, int32_t n_tols,
+                    int32_t tick_dist, double rel_tol,
+                    double* out_precision, double* out_recall) {
+    std::vector<Poly> truth_raw = unpack(t_coords, t_offsets, n_truth);
+    std::vector<Poly> reco_raw = unpack(r_coords, r_offsets, n_reco);
+    std::vector<Poly> truth(n_truth), reco(n_reco);
+    for (int32_t i = 0; i < n_truth; ++i) truth[i] = norm_poly(truth_raw[i], tick_dist);
+    for (int32_t i = 0; i < n_reco; ++i) reco[i] = norm_poly(reco_raw[i], tick_dist);
+
+    // per-truth-line tolerance vectors [n_truth][n_tols]
+    std::vector<std::vector<double>> line_tols(n_truth, std::vector<double>(n_tols));
+    if (n_tols > 0 && tols_in[0] < 0) {
+        std::vector<double> dyn = calc_tols_inner(truth, tick_dist, 250.0, rel_tol);
+        for (int32_t i = 0; i < n_truth; ++i)
+            for (int32_t t = 0; t < n_tols; ++t) line_tols[i][t] = dyn[i];
+    } else {
+        for (int32_t i = 0; i < n_truth; ++i)
+            for (int32_t t = 0; t < n_tols; ++t) line_tols[i][t] = tols_in[t];
+    }
+
+    // precision: greedy alignment over per-pair hit counts
+    std::vector<double> hits((size_t)n_tols * n_reco * n_truth, 0.0);
+    std::vector<double> tmp(n_tols);
+    for (int32_t i = 0; i < n_reco; ++i) {
+        for (int32_t j = 0; j < n_truth; ++j) {
+            count_rel_hits(reco[i], truth[j], line_tols[j].data(), n_tols, tmp.data());
+            for (int32_t t = 0; t < n_tols; ++t)
+                hits[(size_t)t * n_reco * n_truth + (size_t)i * n_truth + j] = tmp[t];
+        }
+    }
+    for (int32_t t = 0; t < n_tols; ++t) {
+        double* h = &hits[(size_t)t * n_reco * n_truth];
+        for (int32_t i = 0; i < n_reco; ++i) out_precision[(size_t)t * n_reco + i] = 0.0;
+        while (true) {
+            double best = -1.0;
+            int32_t bi = 0, bj = 0;
+            for (int32_t i = 0; i < n_reco; ++i)
+                for (int32_t j = 0; j < n_truth; ++j) {
+                    double v = h[(size_t)i * n_truth + j];
+                    if (v > best) { best = v; bi = i; bj = j; }
+                }
+            if (best < 0) break;
+            out_precision[(size_t)t * n_reco + bi] = best;
+            for (int32_t j = 0; j < n_truth; ++j) h[(size_t)bi * n_truth + j] = -1.0;
+            for (int32_t i = 0; i < n_reco; ++i) h[(size_t)i * n_truth + bj] = -1.0;
+        }
+    }
+
+    // recall: union over reco polygons
+    for (int32_t j = 0; j < n_truth; ++j) {
+        count_rel_hits_union(truth[j], reco, line_tols[j].data(), n_tols, tmp.data());
+        for (int32_t t = 0; t < n_tols; ++t)
+            out_recall[(size_t)t * n_truth + j] = tmp[t];
+    }
 }
 
 }  // extern "C"

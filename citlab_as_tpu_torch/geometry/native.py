@@ -50,6 +50,11 @@ def get_lib() -> ctypes.CDLL:
             lib.gk_alpha_shape.restype = i32
             lib.gk_cluster_features.argtypes = [dp, ip, i32, i32, f64, f64, dp, dp]
             lib.gk_cluster_features.restype = None
+            lib.gk_calc_tols.argtypes = [dp, ip, i32, i32, f64, f64, dp]
+            lib.gk_calc_tols.restype = None
+            lib.gk_calc_metric.argtypes = [dp, ip, i32, dp, ip, i32, dp, i32, i32,
+                                           f64, dp, dp]
+            lib.gk_calc_metric.restype = None
             _lib = lib
     return _lib
 
@@ -183,3 +188,38 @@ def alpha_shape_indices(points: np.ndarray, alpha: float) -> Optional[np.ndarray
     if m < 0:
         return None
     return out[:m].copy()
+
+
+def calc_tols_native(normed_polys: Sequence[Polygon], tick_dist: int,
+                     max_d: float, rel_tol: float) -> np.ndarray:
+    """The AS measure's tolerance per already-normed GT baseline
+    (``gk_calc_tols``)."""
+    if not normed_polys:
+        return np.empty(0, np.float64)
+    coords, offsets = _pack(normed_polys)
+    out = np.empty(len(normed_polys), np.float64)
+    get_lib().gk_calc_tols(_dp(coords), _ip(offsets), len(normed_polys), int(tick_dist),
+                           float(max_d), float(rel_tol), _dp(out))
+    return out
+
+
+def calc_metric_native(polys_truth: Sequence[Polygon], polys_reco: Sequence[Polygon],
+                       tols: np.ndarray, tick_dist: int, rel_tol: float
+                       ) -> Tuple[np.ndarray, np.ndarray]:
+    """(precision [n_tols, n_reco], recall [n_tols, n_truth]) of one page's
+    RAW baselines (``gk_calc_metric``: normalized inside; ``tols[0] < 0``
+    asks for the dynamic per-line tolerances). Both lists must be
+    non-empty."""
+    if not polys_truth or not polys_reco:
+        raise ValueError("calc_metric_native needs truth and hypothesis baselines")
+    t_coords, t_offsets = _pack(polys_truth)
+    r_coords, r_offsets = _pack(polys_reco)
+    tols = np.ascontiguousarray(np.asarray(tols, np.float64))
+    precision = np.empty((len(tols), len(polys_reco)), np.float64)
+    recall = np.empty((len(tols), len(polys_truth)), np.float64)
+    get_lib().gk_calc_metric(
+        _dp(t_coords), _ip(t_offsets), len(polys_truth),
+        _dp(r_coords), _ip(r_offsets), len(polys_reco),
+        _dp(tols), len(tols), int(tick_dist), float(rel_tol),
+        _dp(precision), _dp(recall))
+    return precision, recall

@@ -1,6 +1,6 @@
 """Pairwise baseline distance core (port copy of
-``citlab_as_tpu/geometry/pairwise.py``: ``min_perpendicular_distances`` and
-``calc_interline_distances``).
+``citlab_as_tpu/geometry/pairwise.py``: ``min_perpendicular_distances``,
+``calc_interline_distances`` and the AS measure's ``calc_tols``).
 
 This replaces the Java hot-loop kernel ``java_util/Util.class``
 (``calcInterlineDistances`` / the tolerance loop of
@@ -216,3 +216,27 @@ def calc_interline_distances(
     plain version."""
     from citlab_as_tpu_torch.geometry.native import interline_distances_normed
     return interline_distances_normed(normed_polys, des_dist, max_d)
+
+
+def calc_tols_plain(polys_truth: Sequence[Polygon], tick_dist: int = 5,
+                    max_d: int = 250, rel_tol: float = 0.25) -> np.ndarray:
+    """Per-GT-baseline tolerance values of the AS measure, in numpy (the
+    plain version of :func:`calc_tols`): min perpendicular distance to the
+    other baselines, 0 where none is found, then mean-fill the zeros, clip
+    at the mean, scale by ``rel_tol`` (geometry/util.py:831-902, after
+    arXiv 1705.03311)."""
+    dists = min_perpendicular_distances(polys_truth, tick_dist=tick_dist, max_d=max_d)
+    tols = np.array([d if d < max_d else 0.0 for d in dists], dtype=np.float64)
+    nonzero = tols[tols != 0]
+    mean_tols = float(nonzero.sum() / nonzero.size) if nonzero.size else float(max_d)
+    tols = np.where(tols == 0, mean_tols, tols)
+    tols = np.minimum(tols, mean_tols)
+    return tols * rel_tol
+
+
+def calc_tols(polys_truth: Sequence[Polygon], tick_dist: int = 5, max_d: int = 250,
+              rel_tol: float = 0.25) -> np.ndarray:
+    """:func:`calc_tols_plain` in the host C++ library (``gk_calc_tols``);
+    the polygons must already be normed."""
+    from citlab_as_tpu_torch.geometry.native import calc_tols_native
+    return calc_tols_native(polys_truth, tick_dist, max_d, rel_tol)

@@ -12,6 +12,14 @@ The kernel reads its weights in the order :func:`pack_weights` gives them
 (the counterpart of the TPU kernel's ``_pack_weights``, not a copy of it).
 :func:`conv3x3` packs a weight tensor once and keeps the result until the
 tensor changes or dies.
+
+Under autograd (grad enabled and one of x, weight, bias requiring grad)
+:func:`conv3x3` goes through :class:`Conv3x3Function`: the forward is the
+same K1 launch (or plain version on the CPU), the backward computes dX and
+dW with ``torch.nn.grad.conv2d_input`` / ``conv2d_weight`` (cuDNN on the
+card: the JAX package has no backward kernel for K1 and trains through
+XLA's convolution) and db as the sum over (B, H, W). Under ``no_grad`` and
+in inference the Function is not entered.
 """
 from __future__ import annotations
 
@@ -105,9 +113,49 @@ def _lib():
     return lib
 
 
+class Conv3x3Function(torch.autograd.Function):
+    """K1 with a backward: ReLU masks the incoming gradient by y > 0; dX and
+    dW are the transposed convolutions of SAME padding 1 on NCHW views; db
+    is the sum over (B, H, W)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, relu):
+        y = _conv3x3_forward(x, weight, bias, relu)
+        ctx.relu = relu
+        ctx.save_for_backward(x, weight, y if relu else None)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, weight, y = ctx.saved_tensors
+        if ctx.relu:
+            gy = gy * (y > 0)
+        gn = gy.permute(0, 3, 1, 2)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.nn.grad.conv2d_input(
+                (x.shape[0], x.shape[3], x.shape[1], x.shape[2]), weight, gn,
+                padding=1).permute(0, 2, 3, 1)
+        if ctx.needs_input_grad[1]:
+            dw = torch.nn.grad.conv2d_weight(x.permute(0, 3, 1, 2), weight.shape,
+                                             gn, padding=1)
+        if ctx.needs_input_grad[2]:
+            db = gy.sum(dim=(0, 1, 2))
+        return dx, dw, db, None
+
+
 def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             relu: bool = False) -> torch.Tensor:
-    """K1 on a CUDA tensor, :func:`conv3x3_plain` on a CPU tensor."""
+    """K1 on a CUDA tensor, :func:`conv3x3_plain` on a CPU tensor; through
+    :class:`Conv3x3Function` when autograd has to record it."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad):
+        return Conv3x3Function.apply(x, weight, bias, relu)
+    return _conv3x3_forward(x, weight, bias, relu)
+
+
+def _conv3x3_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                     relu: bool) -> torch.Tensor:
     global launches
     if x.device.type == "cpu":
         return conv3x3_plain(x, weight, bias, relu)

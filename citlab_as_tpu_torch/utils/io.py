@@ -3,11 +3,23 @@ next to a ``page/`` folder holding ``<name>.xml``; graph features in
 ``json*/<name>.json``; confidences in
 ``confidences/<name>_confidences.json``.
 
-Images are decoded with the standard library and numpy (the JAX package
-uses PIL): non-interlaced PNG of every colour type with up to 8 bits per sample,
-binary PGM/PPM
-and ``.npy``. Any other format raises :class:`UnsupportedImageFormat`
-naming it; nothing falls back.
+Images are decoded without PIL (the JAX package uses PIL), equal bit for
+bit to ``np.asarray(Image.open(path).convert(mode))``:
+
+- PNG (non-interlaced, every colour type, up to 8 bits per sample), binary
+  PGM/PPM and ``.npy`` with the standard library and numpy;
+- JPEG (baseline or progressive Huffman, 8-bit, grey or YCbCr/RGB, restart
+  markers, any sampling factors) and TIFF (first IFD, strips or tiles; no
+  compression, PackBits, LZW, Deflate, CCITT Group 4; horizontal
+  predictor; 1- and 8-bit grey, palette and RGB) by the port's host C++
+  decoder (``csrc/image_decode.cpp``, ``utils/image_native.py``).
+
+Everything else raises :class:`UnsupportedImageFormat` naming the variant:
+interlaced or 16-bit PNG, BMP, GIF, WebP, JPEG 2000; CMYK/YCCK,
+arithmetic-coded, 12-bit, lossless and hierarchical JPEG, and a progressive
+JPEG that libjpeg would block-smooth; BigTIFF, Group 3, JPEG-in-TIFF,
+16-bit or float samples, ``PlanarConfiguration`` 2, ``FillOrder`` 2.
+Nothing falls back.
 """
 from __future__ import annotations
 
@@ -20,6 +32,8 @@ import zlib
 from typing import List
 
 import numpy as np
+
+from citlab_as_tpu_torch.utils import image_native
 
 _IMG_ENDINGS = ("tif", "jpg", "png")
 
@@ -58,10 +72,14 @@ class UnsupportedImageFormat(ValueError):
     """The file is not an image format this package decodes."""
 
 
+_SUPPORTED = ("non-interlaced PNG up to 8 bits per sample, binary PGM/PPM, "
+              ".npy, 8-bit Huffman JPEG, TIFF")
+
+
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-_MAGICS = ((b"\xff\xd8", "JPEG"), (b"II*\x00", "TIFF"), (b"MM\x00*", "TIFF"),
-           (b"GIF8", "GIF"), (b"BM", "BMP"), (b"\x00\x00\x00\x0cjP", "JPEG 2000"),
+_NATIVE_MAGICS = (b"\xff\xd8", b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
+_MAGICS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"\x00\x00\x00\x0cjP", "JPEG 2000"),
            (b"RIFF", "WebP/RIFF"))
 
 
@@ -218,10 +236,18 @@ def _decode(path: str) -> np.ndarray:
         return _decode_png(data, path)
     if data[:2] in (b"P5", b"P6"):
         return _decode_pnm(data, path)
+    if data.startswith(_NATIVE_MAGICS):
+        return _native(image_native.decode, data, path)
     raise UnsupportedImageFormat(
         f"{path}: image format {_format_name(data[:16], path)} is not "
-        "supported (non-interlaced PNG up to 8 bits per sample, binary "
-        "PGM/PPM, .npy)")
+        f"supported ({_SUPPORTED})")
+
+
+def _native(fn, data: bytes, path: str):
+    try:
+        return fn(data)
+    except image_native.NativeDecodeError as e:
+        raise UnsupportedImageFormat(f"{path}: {e}") from None
 
 
 def _to_mode(arr: np.ndarray, mode: str) -> np.ndarray:
@@ -258,10 +284,13 @@ def image_size(path_to_image: str):
         if head[:2] in (b"P5", b"P6"):
             arr = _decode_pnm(head + f.read(), path_to_image)
             return int(arr.shape[1]), int(arr.shape[0])
+        if head.startswith(_NATIVE_MAGICS):
+            # the JPEG frame header or the TIFF IFD may lie anywhere in the file
+            w, h, _ = _native(image_native.info, head + f.read(), path_to_image)
+            return w, h
     raise UnsupportedImageFormat(
         f"{path_to_image}: image format {_format_name(head, path_to_image)} "
-        "is not supported (non-interlaced PNG up to 8 bits per sample, "
-        "binary PGM/PPM, .npy)")
+        f"is not supported ({_SUPPORTED})")
 
 
 def load_image(path_to_image: str, mode: str = "L") -> np.ndarray:

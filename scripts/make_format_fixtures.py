@@ -1,0 +1,86 @@
+"""Write the JPEG and TIFF page fixtures of ``chip_smoke.py``'s ``formats``
+phase into ``tests/data/torch_formats/``:
+
+- six full-size (2000 x 1420) pages of the smoke's own newspaper generator
+  (``chip_smoke.synthetic_newspaper``, seed ``SEED``), one per format: a
+  grey baseline JPEG with restart markers, a 4:2:0 colour JPEG, a
+  progressive JPEG, a grey LZW TIFF with the horizontal predictor in
+  strips, a grey Deflate TIFF in tiles and a CCITT Group 4 bilevel TIFF;
+- ``page/<name>.xml`` for each: the drawn layout (one TextRegion per
+  sub-column or headline, one TextLine per line);
+- ``<name>.json`` for each: PIL's ``(width, height)`` and the sha256 of
+  PIL's decoded ``"L"`` bytes, which the smoke holds the port's decoder to
+  on the card's machine (that machine has no PIL).
+
+Needs PIL; run from the repository root:
+
+    python scripts/make_format_fixtures.py
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import shutil
+import sys
+
+import numpy as np
+from PIL import Image
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+OUT = os.path.join(REPO, "tests", "data", "torch_formats")
+SEED = 23
+SHAPE = (2000, 1420)
+# (name, file ending, pixels: "grey" | "colour" | "bilevel", PIL save options)
+FIXTURES = [
+    ("grey_restart", "jpg", "grey", dict(format="JPEG", quality=75, restart_marker_rows=2)),
+    ("colour_420", "jpg", "colour", dict(format="JPEG", quality=75, subsampling=2)),
+    ("progressive", "jpg", "grey", dict(format="JPEG", quality=75, progressive=True)),
+    ("lzw_predictor_strips", "tif", "grey",
+     dict(format="TIFF", compression="tiff_lzw", predictor=2, rows_per_strip=64)),
+    ("deflate_tiles", "tif", "grey",
+     dict(format="TIFF", compression="tiff_adobe_deflate", tile=(256, 256))),
+    ("group4", "tif", "bilevel", dict(format="TIFF", compression="group4")),
+]
+
+
+def pixels(page: np.ndarray, kind: str) -> Image.Image:
+    if kind == "grey":
+        return Image.fromarray(page)
+    if kind == "bilevel":
+        return Image.fromarray(page >= 128)       # mode "1": paper white, ink black
+    grey = page.astype(np.float32)
+    tint = np.stack([grey, grey * 0.94 + 6, grey * 0.82 + 12], axis=-1)   # yellowed paper
+    return Image.fromarray(tint.clip(0, 255).astype(np.uint8))
+
+
+def main() -> int:
+    sys.path.insert(0, REPO)
+    import chip_smoke
+    pages, _, layouts = chip_smoke.synthetic_newspaper(len(FIXTURES), *SHAPE, seed=SEED)
+    shutil.rmtree(OUT, ignore_errors=True)
+    os.makedirs(os.path.join(OUT, "page"))
+    total = 0
+    for (name, ending, kind, options), page, regions in zip(FIXTURES, pages, layouts):
+        path = os.path.join(OUT, f"{name}.{ending}")
+        pixels(page, kind).save(path, **options)
+        h, w = page.shape
+        chip_smoke.write_layout_xml(os.path.join(OUT, "page", f"{name}.xml"),
+                                    os.path.basename(path), h, w, regions)
+        with Image.open(path) as im:
+            record = {"file": os.path.basename(path), "size": list(im.size),
+                      "mode": im.mode,
+                      "sha256_L": hashlib.sha256(
+                          np.asarray(im.convert("L")).tobytes()).hexdigest()}
+        with open(os.path.join(OUT, f"{name}.json"), "w") as f:
+            json.dump(record, f, indent=1)
+            f.write("\n")
+        size = os.path.getsize(path)
+        total += size
+        print(f"{os.path.relpath(path, REPO)}: {size} bytes, PIL mode {record['mode']}")
+    print(f"total image bytes {total}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

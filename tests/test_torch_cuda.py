@@ -72,6 +72,59 @@ def test_conv3x3_kernel_matches_plain(cuda, pair, bhw, dtype):
     assert err <= (1e-4 if dtype == torch.float32 else 2e-2 * scale), err
 
 
+_K1_GRAD_PAIRS = [(8, 8), (8, 16), (16, 16), (16, 32), (32, 32), (16, 8), (32, 16),
+                  (64, 32)]
+
+
+def k1_grad_errors(cin, cout, bhw, dtype, device, relu=True, seed=0):
+    """K1 under autograd (``Conv3x3Function``: the kernel's forward, the
+    cuDNN backward) against autograd through ``F.conv2d`` on the same card:
+    per tensor (x, weight, bias) the max abs error of the gradient, divided
+    by the reference gradient's largest entry for bf16, and the kernel
+    launches the forward made. Under ReLU the reference is masked by the
+    kernel's own output (y > 0), since the two forwards may round an output
+    next to 0 to opposite signs."""
+    import torch.nn.functional as F
+    b, h, w = bhw
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((b, h, w, cin), generator=gen, device=device)
+    wt = torch.randn((cout, cin, 3, 3), generator=gen, device=device) * (
+        2.0 / (9 * cin + cout)) ** 0.5
+    bias = 0.1 + 0.02 * torch.randn((cout,), generator=gen, device=device)
+    gy = torch.randn((b, h, w, cout), generator=gen, device=device).to(dtype)
+    ours = [t.detach().to(dtype).clone().requires_grad_() for t in (x, wt, bias)]
+    ref = [t.detach().to(dtype).clone().requires_grad_() for t in (x, wt, bias)]
+    before = k1.launches
+    y = k1.conv3x3(*ours, relu=relu)
+    launched = k1.launches - before
+    y.backward(gy)
+    y_ref = F.conv2d(ref[0].permute(0, 3, 1, 2), ref[1], ref[2], padding=1).permute(0, 2, 3, 1)
+    if relu:
+        y_ref = y_ref * (y.detach() > 0)
+    y_ref.backward(gy)
+    errors = []
+    for a, r in zip(ours, ref):
+        err = (a.grad.float() - r.grad.float()).abs().max().item()
+        if dtype == torch.bfloat16:
+            err /= r.grad.float().abs().max().item()
+        errors.append(err)
+    return errors, launched
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pair", _K1_GRAD_PAIRS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3x3_gradients_on_the_card(cuda, pair, dtype):
+    """f32 (TF32 off) within 1e-4; bf16 within 2e-2 of the gradient's
+    scale, the forward's bound; with and without ReLU."""
+    limit = 1e-4 if dtype == torch.float32 else 2e-2
+    for relu in (True, False):
+        errors, launched = k1_grad_errors(*pair, (2, 45, 70), dtype, cuda, relu=relu,
+                                          seed=sum(pair))
+        assert launched == 1
+        assert max(errors) <= limit, (relu, errors)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernels,hw", [
     ((15, 30, 10), (150, 700)), ((4, 6, 2), (150, 700)), ((45, 30, 25), (150, 700)),

@@ -105,8 +105,9 @@ def test_port_file_imports_no_jax_and_no_reference(path):
 def test_running_the_slice_loads_no_jax_module():
     """Import the port and run its stages on the CPU, in memory and from
     files to files, then the whole workflow (every clustering method's
-    code) and the pipelined workflow with a visual relation net, in a fresh
-    process (conftest.py has loaded jax in this one)."""
+    code) and the pipelined workflow with a visual relation net, the JPEG /
+    TIFF decoder, the host stage CLIs, the AS measure and K1's backward, in
+    a fresh process (conftest.py has loaded jax in this one)."""
     code = r"""
 import os, sys, tempfile
 import numpy as np, torch
@@ -157,6 +158,28 @@ res = run_full_workflow_pipelined(paths, separator_predictor=benign,
                                   separator_fixed_height=128, heading_fixed_height=128,
                                   out_dir=os.path.join(root, "out"), device="cpu")
 assert res["skipped"] == [] and len(res["clustered"]) == 1
+# the JPEG / TIFF decoder on the committed fixtures, the stage CLIs and
+# the AS measure
+import glob
+from citlab_as_tpu_torch.utils.io import load_image
+for fixture in sorted(glob.glob(os.path.join("tests", "data", "torch_formats", "*.*"))):
+    if not fixture.endswith(".json"):
+        assert load_image(fixture, "L").shape == (2000, 1420)
+from citlab_as_tpu_torch.cli import (run_baseline_clustering, run_conf_to_cluster,
+    run_feature_generation, run_gnn_clustering, run_measure, run_net_post_processing,
+    run_textregion_generation)
+pages = [os.path.join(root, "page", os.path.basename(p)[:-4] + ".xml") for p in paths]
+lst = os.path.join(root, "pages.lst")
+open(lst, "w").write("\n".join(pages) + "\n")
+assert run_baseline_clustering.main(["--path_to_xml_lst", lst]) == []
+assert run_textregion_generation.main(["--path_to_xml_lst", lst]) == []
+measured = run_measure.main(["--path_to_gt_xml_lst", lst, "--path_to_hy_xml_lst", lst])
+assert measured["as"] is not None and abs(measured["as"][2] - 1.0) < 1e-9
+x = torch.randn(1, 6, 7, 8, requires_grad=True)
+w = torch.randn(8, 8, 3, 3, requires_grad=True)
+from citlab_as_tpu_torch.ops.kernels.conv3x3 import conv3x3
+conv3x3(x, w, torch.zeros(8, requires_grad=True), relu=True).sum().backward()
+assert x.grad is not None and w.grad is not None
 for method in ("linkage", "greedy"):
     from citlab_as_tpu_torch.stages.clustering import TextblockClustering
     tb = TextblockClustering({"t": "silhouette"} if method == "linkage" else None)
