@@ -21,8 +21,9 @@ result):
    CUDA events around launches the host issues one by one; ``device_ms`` is
    the same launches replayed from a CUDA graph, the device's time alone;
    K1 is also held against its plain version, and timed the same way, at
-   the 24 instances of the heading stage's forward (4 x 960 x 640); K1
-   under autograd (its forward, cuDNN's backward) against autograd through
+   the 24 instances of the heading stage's forward (4 x 960 x 640) and at
+   the 24 of the segmentation trainer's forward (4 x 512 x 512, bf16 and
+   f32, the two dtypes phase 11 trains in); K1 under autograd (its forward, cuDNN's backward) against autograd through
    ``F.conv2d`` at one main-path instance;
 4. main path: 8 synthetic 2000 x 1420 pages through
    ``SeparatorNetPostProcessor(..., fixed_height=1500).run_batched(4)`` in
@@ -92,7 +93,26 @@ result):
    article id on every line; card vs CPU relation confidences within 1e-5
    with equal dbscan labels; ``gk_calc_metric`` equal to the numpy path to
    1e-9. The port's ``run_measure`` against GT from the drawn layout
-   prints AS R/P/F (not gated).
+   prints AS R/P/F (not gated);
+11. train: the segmentation trainer (``train/seg_trainer.py``) at the
+   separator net's full width from its converted weights, on a GT
+   directory of 4 drawn 1000 x 710 pages written with ``save_png``, batch
+   4 x 512 x 512: 3 steps in f32 (TF32 off) on the card and on the CPU
+   (losses within 1e-4 relative), then bf16 compute with float32 weights,
+   3 steps off the clock and 10 timed, 2 eval steps (gates: K1 69 launches
+   per train step and per eval step, finite losses, the first within 2e-2
+   of the f32 one, the best export predicts through
+   ``SegmentationPredictor``); one step's device time split under
+   ``torch.profiler`` (K1 forward, the K1 convs' cuDNN backward, other
+   convs, optimizer, rest; idle share) and the weight cast and repack cost.
+   Then the relation-GNN trainer (``train/trainer.py``) from the converted
+   ``gnn`` weights on feature JSONs the feature stage writes from 8 drawn
+   pages with article ids: 4 steps on the card and on the CPU (mean loss
+   within 1e-5 relative), one epoch (batch 16 and 300 relations, the
+   defaults; 128 steps; steps/s), ``run_lav`` (finite best F1), the
+   exported ``.npz`` in ``RelationPredictor`` against the trainer's
+   confidences (1e-5). Last, ``run_train_segmentation`` and
+   ``run_train_gnn`` with tiny epochs and no ``--device`` train on the card.
 
 The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
 """
@@ -134,6 +154,19 @@ VISUAL_KW = dict(image_input=True, visual_backbone="ARU_cutted_v1",
                  image_min_dimension=288, image_max_dimension=384)
 FORMATS_DIR = os.path.join(REPO, "tests", "data", "torch_formats")
 FORMATS_METRIC_PAGES = 2                    # pages whose measure the numpy path redoes
+# the train phase: the JAX trainer's default batch and crop; drawn pages of
+# 1000 x 710 (the crops need 512 in both directions)
+SEG_BATCH, SEG_CROP = 4, (512, 512)
+SEG_GT_PAGES, TRAIN_PAGE_SHAPE = 4, (1000, 710)
+SEG_CHECK_STEPS, SEG_WARM_STEPS, SEG_TIMED_STEPS, SEG_EVAL_STEPS = 3, 3, 10, 2
+GNN_PAGES, GNN_CHECK_STEPS, GNN_PARAGRAPH_LINES = 8, 4, 6
+# one epoch of the GNN trainer: batch 16 and 300 relations as its defaults,
+# 2048 samples (128 steps) where the default is 8192: the host's input
+# pipeline (JSON parse, the JAX package's loop of Python relation draws)
+# took 39-72 ms per batch of 16 on the card's machine, so the default
+# epoch's 512 steps would take 20-37 s of the train phase's budget of about
+# 60 s on host batches alone
+GNN_EPOCH_SAMPLES = 2048
 PIPELINED_TIMINGS = {"separator_materialize", "dispatch", "separator_drain",
                      "heading_dispatch", "heading_drain", "heading_finish",
                      "gnn_dispatch", "gnn_materialize", "gnn_clustering",
@@ -399,17 +432,30 @@ def phase_k1(dev):
     print("K1 detail: " + json.dumps({"shape": list(K1_SHAPE), "dtype": "bf16",
                                       "pairs": rows}))
 
-    # every (pair, shape) the two stages' forwards launch, with launches per forward
-    for label, shape in (("K1 main path", K1_SHAPE), ("K1 heading path", K1_HEADING_SHAPE)):
+    # every (pair, shape) the two stages' forwards and the segmentation
+    # trainer's forward launch, with launches per forward; the trainer also
+    # runs K1 in f32 (its card-vs-CPU check), so that path holds both dtypes
+    for label, shape in (("K1 main path", K1_SHAPE), ("K1 heading path", K1_HEADING_SHAPE),
+                         ("K1 train path", (SEG_BATCH, *SEG_CROP))):
         instances = []
         for cin, cout, hh, ww, n in k1_main_path_instances(shape):
             x, wt, bias = inputs(cin, cout, hh, ww, shape[0])
+            extra = {}
+            if label == "K1 train path":
+                got = k1.conv3x3(x, wt, bias, relu=True)
+                want = k1.conv3x3_plain(x, wt, bias, relu=True)
+                torch.cuda.synchronize()
+                err = (got - want).abs().max().item()
+                check(err <= 1e-4, f"K1 f32 {cin}->{cout} at {hh}x{ww}: max abs err {err}")
+                worst_f32 = max(worst_f32, err)
+                extra = {"f32_max_abs_err": err}
+                del got, want
             xb, wb, bb = x.bfloat16(), wt.bfloat16(), bias.bfloat16()
             rel = bf16_error(xb, wb, bb, f"{cin}->{cout} at {hh}x{ww}")
             worst_bf16 = max(worst_bf16, rel)
             xn = xb.permute(0, 3, 1, 2)
             instances.append({
-                "cin": cin, "cout": cout, "h": hh, "w": ww, "launches": n,
+                **extra, "cin": cin, "cout": cout, "h": hh, "w": ww, "launches": n,
                 "ms": cuda_ms(lambda: k1.conv3x3(xb, wb, bb), iters=20),
                 "device_ms": cuda_graph_ms(lambda: k1.conv3x3(xb, wb, bb)),
                 "library_ms": cuda_ms(lambda: F.conv2d(xn, wb, bb, padding=1), iters=20),
@@ -1541,6 +1587,412 @@ def phase_formats(dev):
             "decode_ms": decode_ms, "stage_s": stage_s, "as": result["as"]}
 
 
+def _write_list(path, lines):
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+    return path
+
+
+def write_seg_gt(root, n, shape, seed):
+    """A segmentation GT directory of drawn pages, in the layout the JAX
+    package's GT generators write and ``train/seg_input_pipeline.py``
+    reads: the grey page ``<name>.png`` and ``C3/<name>_GT0.png`` (the
+    column rule) and ``C3/<name>_GT1.png`` (other)."""
+    from citlab_as_tpu_torch.utils.io import save_png
+    pages, rules = synthetic_pages(n, *shape, seed=seed)
+    os.makedirs(os.path.join(root, "C3"))
+    for i, (page, rule) in enumerate(zip(pages, rules)):
+        name = f"page_{i:02d}"
+        save_png(os.path.join(root, f"{name}.png"), page)
+        save_png(os.path.join(root, "C3", f"{name}_GT0.png"), rule.astype(np.uint8) * 255)
+        save_png(os.path.join(root, "C3", f"{name}_GT1.png"), (~rule).astype(np.uint8) * 255)
+    return root
+
+
+class StepLog:
+    """Wraps ``make_train_step`` / ``make_eval_step`` of a trainer module so
+    that every step it runs is logged: its loss, its K1 launches and its
+    wall time up to a device sync (the trainers read every loss back, so
+    the sync adds no wait)."""
+
+    def __init__(self, module, names, dev):
+        import torch
+        from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+        self.module, self.names, self.steps = module, names, []
+        self.originals = {n: getattr(module, n) for n in names}
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+        def recording(kind, maker):
+            def make(*args):
+                step = maker(*args)
+
+                def run(*a, **kw):
+                    before, t0 = k1.launches, time.perf_counter()
+                    out = step(*a, **kw)
+                    sync()
+                    loss = out["loss"] if isinstance(out, dict) else out
+                    self.steps.append({"kind": kind, "s": time.perf_counter() - t0,
+                                       "k1": k1.launches - before, "loss": float(loss)})
+                    return out
+                return run
+            return make
+
+        for n in names:
+            setattr(module, n, recording(n.split("_")[1], self.originals[n]))
+
+    def restore(self):
+        for n, fn in self.originals.items():
+            setattr(self.module, n, fn)
+
+    def of(self, kind):
+        return [s for s in self.steps if s["kind"] == kind]
+
+
+def _union_ms(intervals):
+    total, end = 0.0, None
+    for s, t in sorted(intervals):
+        if end is None or s > end:
+            total += t - s
+            end = t
+        elif t > end:
+            total += t - end
+            end = t
+    return total / 1e3
+
+
+LABEL = "optimizer_update"
+
+
+def profile_train_step(step, params, opt_state, batch, dev):
+    """One train step under ``torch.profiler``: its device time split into
+    K1's forward (the kernel by name), the backward of the K1-routed convs
+    (every kernel under ``Conv3x3FunctionBackward``: cuDNN's dgrad and
+    wgrad, the ReLU mask, the bias sum), the other convs and transposed
+    convs forward and backward, the optimizer update (a ``record_function``
+    range around it, ``LABEL``), the rest (with its heaviest ops) and what
+    the profiler links to no op; the step's wall under the profiler, and
+    the device's idle share of it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    step(params, opt_state, batch)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    # record_function also leaves a device-side annotation range of its name,
+    # spanning its kernels on the device timeline: a label, not device work
+    device = [e for e in events if e.device_type.name == "CUDA"
+              and e.name != LABEL and not getattr(e, "is_user_annotation", False)]
+    total_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
+
+    def category(e):
+        names = []
+        while e is not None:
+            names.append(e.name)
+            e = e.cpu_parent
+        if any("Conv3x3FunctionBackward" in n for n in names):
+            return "k1_backward"
+        if LABEL in names:
+            return "optimizer"
+        if any(n.startswith(("aten::convolution", "aten::_convolution", "aten::cudnn_conv"))
+               or "ConvolutionBackward" in n for n in names):
+            return "other_convs"
+        return "rest"
+
+    k1_fwd = [e for e in device if "conv3x3_" in e.name]
+    split = dict.fromkeys(("k1_forward", "k1_backward", "other_convs", "optimizer",
+                           "rest"), 0.0)
+    split["k1_forward"] = sum(e.time_range.elapsed_us() for e in k1_fwd) / 1e3
+    rest = {}
+    for e in events:
+        if e.device_type.name != "CPU" or not e.kernels:
+            continue
+        cat = category(e)
+        for kern in e.kernels:
+            if "conv3x3_" in kern.name or kern.name == LABEL:
+                continue
+            split[cat] += kern.duration / 1e3
+            if cat == "rest":
+                t, n = rest.get(e.name, (0.0, 0))
+                rest[e.name] = (t + kern.duration / 1e3, n + 1)
+    # device time no op claimed (the kernel-to-op link is the profiler's)
+    split["unattributed"] = total_ms - sum(split.values())
+    top_rest = sorted(([k, t, n] for k, (t, n) in rest.items()), key=lambda r: -r[1])[:12]
+    by_name = {}
+    for e in device:
+        t, n = by_name.get(e.name[:60], (0.0, 0))
+        by_name[e.name[:60]] = (t + e.time_range.elapsed_us() / 1e3, n + 1)
+    top_kernels = sorted(([k, t, n] for k, (t, n) in by_name.items()),
+                         key=lambda r: -r[1])[:8]
+    busy_ms = _union_ms([(e.time_range.start, e.time_range.end) for e in device])
+    return {"wall_ms": wall_ms, "device_ms": total_ms, "device_busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / wall_ms, "launches": len(device),
+            "k1_launches": len(k1_fwd),
+            "rest_launches": sum(n for _, n in rest.values()),
+            "split_ms": split, "rest_by_op_ms": top_rest, "top_kernels_ms": top_kernels}
+
+
+def train_segmentation(dev, root):
+    """The segmentation trainer at the separator net's full width (ARU,
+    featRoot 8, 5 scales, res_depth 3), bf16 compute with float32 weights,
+    4 x 512 x 512 crops of drawn pages, from the converted separator
+    weights."""
+    import torch
+    from citlab_as_tpu_torch.inference import SegmentationPredictor
+    from citlab_as_tpu_torch.models.arunet import _Conv
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.train import checkpoint as ckpt
+    from citlab_as_tpu_torch.train import seg_trainer
+    from citlab_as_tpu_torch.train.input_pipeline import torch_batch
+    from citlab_as_tpu_torch.train.segmentation import make_train_step
+    from citlab_as_tpu_torch.weights import load_npz
+
+    gt = write_seg_gt(os.path.join(root, "seg_gt"), SEG_GT_PAGES, TRAIN_PAGE_SHAPE, seed=31)
+    init = load_npz(os.path.join(REPO, "models_ckpt_torch", "separator.npz"))
+    flags = {"epochs": 1, "batch_size": SEG_BATCH, "crop_size": SEG_CROP}
+    log = StepLog(seg_trainer, ("make_train_step", "make_eval_step"), dev)
+    try:
+        # 1. f32 (TF32 off): card against CPU, same init, same batches
+        losses = {}
+        for name, d, dtype in (("card", dev, torch.float32),
+                               ("cpu", torch.device("cpu"), torch.float32)):
+            log.steps.clear()
+            t0 = time.perf_counter()
+            seg_trainer.TrainerSegmentation(
+                os.path.join(root, f"seg_{name}"), gt,
+                flags=dict(flags, steps_per_epoch=SEG_CHECK_STEPS), seed=0, device=d,
+                compute_dtype=dtype, init_params=init).train()
+            losses[name] = [s["loss"] for s in log.of("train")]
+            print(f"train: segmentation f32 on the {name}: {SEG_CHECK_STEPS} steps in "
+                  f"{time.perf_counter() - t0:.2f} s, losses {losses[name]}")
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"])]
+        print(f"train: segmentation f32 card vs CPU losses, relative {[f'{r:.3g}' for r in rel]}"
+              f" (limit 1e-4)")
+        check(len(rel) == SEG_CHECK_STEPS and max(rel) <= 1e-4,
+              f"train: segmentation card vs CPU losses differ by {rel}")
+
+        # 2. bf16, as the trainer runs: warm-up steps off the clock, then timed
+        log.steps.clear()
+        k1.launches = k2.launches = 0
+        steps = SEG_WARM_STEPS + SEG_TIMED_STEPS
+        model_dir = os.path.join(root, "seg_bf16")
+        trainer = seg_trainer.TrainerSegmentation(
+            model_dir, gt, eval_gt_dir=gt,
+            flags=dict(flags, steps_per_epoch=steps, eval_steps=SEG_EVAL_STEPS), seed=0,
+            device=dev, init_params=init)
+        result = trainer.train()
+        launches_train = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+        train, evals = log.of("train"), log.of("eval")
+        bf16 = [s["loss"] for s in train]
+        check(len(train) == steps and len(evals) == SEG_EVAL_STEPS,
+              f"train: {len(train)} train and {len(evals)} eval steps logged")
+        check(all(s["k1"] == 69 for s in train + evals),
+              f"train: K1 launches per step {[s['k1'] for s in train + evals]}, want 69")
+        check(launches_train == {"conv3x3": 69 * (steps + SEG_EVAL_STEPS),
+                                 "separator_morphology": 0},
+              f"train: launches in the bf16 run {launches_train}")
+        check(all(np.isfinite(bf16)), f"train: bf16 losses {bf16}")
+        first = abs(bf16[0] - losses["card"][0]) / abs(losses["card"][0])
+        check(first <= 2e-2, f"train: bf16 first loss {bf16[0]} vs f32 {losses['card'][0]}")
+        timed_s = sum(s["s"] for s in train[SEG_WARM_STEPS:])
+        steps_per_s = SEG_TIMED_STEPS / timed_s
+        print(f"train: segmentation bf16, batch {SEG_BATCH} x {SEG_CROP[0]} x {SEG_CROP[1]}: "
+              f"{steps_per_s:.3f} steps/s ({SEG_TIMED_STEPS} steps after {SEG_WARM_STEPS} "
+              f"off the clock; per step ms {[round(s['s'] * 1e3, 2) for s in train]}); "
+              f"K1 launches 69 per train step and per eval step, "
+              f"{launches_train['conv3x3']} in all; "
+              f"losses {[round(v, 5) for v in bf16]}; first loss vs f32 {first:.3g} (limit "
+              f"2e-2); eval {json.dumps({k: v for k, v in result['history'][-1].items()})}; "
+              f"trainer seconds {json.dumps({k: round(v, 3) for k, v in trainer.timings.items()})}")
+        best = ckpt.best_path(model_dir, "accuracy")
+        pred = SegmentationPredictor(best, device=dev)
+        probs = pred(synthetic_pages(1, 512, 384, seed=3)[0][0].astype(np.float32) / 255.0)
+        check(probs.shape == (512, 384, 2) and np.isfinite(probs).all(),
+              "train: the exported separator does not predict")
+
+        # 3. one step under the profiler, and the weight cast + repack cost
+        class Labelled:
+            def __init__(self, opt):
+                self.opt = opt
+
+            def step(self, *args):
+                from torch.profiler import record_function
+                with record_function(LABEL):
+                    return self.opt.step(*args)
+
+        state = result["state"]
+        batch = torch_batch(next(trainer.train_ds.batches(SEG_BATCH, 1)), dev)
+        prof = profile_train_step(make_train_step(trainer.model, Labelled(trainer.optimizer)),
+                                  state["params"], state["opt_state"], batch, dev)
+        # the profiler slows the host: the idle share of an unprofiled step
+        # takes the timed steps' mean wall
+        prof["idle_share_of_timed_step"] = 1.0 - prof["device_busy_ms"] / (
+            timed_s / SEG_TIMED_STEPS * 1e3)
+        print("train: one bf16 segmentation step under torch.profiler: " + json.dumps(prof))
+        k1_weights = [m.weight for m in trainer.model.modules()
+                      if isinstance(m, _Conv) and m.use_k1]
+        casts = [w.to(torch.bfloat16) for w in k1_weights]
+        params = list(trainer.model.parameters())
+        repack = {"k1_weights": len(k1_weights),
+                  "pack_ms": cuda_ms(lambda: [k1.pack_weights(w) for w in casts]),
+                  "cast_all_params_ms": cuda_ms(lambda: [p.to(torch.bfloat16) for p in params]),
+                  "packs_per_forward": len(k1_weights),
+                  "packs_per_forward_if_cast_per_conv": 69}
+        print("train: weight cast and K1 repack per forward: " + json.dumps(repack))
+    finally:
+        log.restore()
+    return {"launches": launches_train, "steps_per_s": steps_per_s, "profile": prof,
+            "repack": repack, "f32_rel": max(rel), "first_bf16_rel": first}
+
+
+ARTICLES = {"r_hl_0": "a0", "r_col_0": "a0", "r_hl_1": "a1", "r_col_1": "a1",
+            "r_hl_2": "a2", "r_col_2": "a2", "r_col_3": "a2"}
+
+
+def gnn_corpus(root):
+    """Feature JSONs with ``gt_relations`` from the port's feature stage, on
+    drawn pages cut into paragraph regions of ``GNN_PARAGRAPH_LINES`` lines
+    (25-33 regions a page, as a newspaper page has dozens), whose PAGE-XML gives
+    each line the article of its drawn region: a headline and the
+    sub-column under it, the last two sub-columns one article."""
+    from citlab_as_tpu_torch.cli import run_feature_generation
+    from citlab_as_tpu_torch.pagexml import Page
+    pages, _, layouts = synthetic_newspaper(GNN_PAGES, *TRAIN_PAGE_SHAPE, seed=37)
+    paragraphs = []
+    for regions in layouts:
+        cut = []
+        for region_id, lines in regions:
+            for k in range(0, len(lines), GNN_PARAGRAPH_LINES):
+                cut.append((f"{region_id}_p{k // GNN_PARAGRAPH_LINES}",
+                            lines[k:k + GNN_PARAGRAPH_LINES]))
+        paragraphs.append(cut)
+    images = write_corpus(root, pages, paragraphs)
+    xmls = []
+    for image in images:
+        path = os.path.join(root, "page", os.path.basename(image)[:-4] + ".xml")
+        page = Page(path)
+        lines = []
+        for region in page.get_text_regions():
+            for tl in region.text_lines:
+                tl.set_article_id(ARTICLES[region.id.rsplit("_p", 1)[0]])
+                lines.append(tl)
+        page.set_textline_attr(lines)
+        page.write_page_xml(path)
+        xmls.append(path)
+    jsons = run_feature_generation.main([
+        "--pagexml_list", _write_list(os.path.join(root, "pages.lst"), xmls),
+        "--out_path", os.path.join(root, "json")])
+    check(len(jsons) == GNN_PAGES, f"train: {len(jsons)} feature JSONs")
+    nodes = []
+    for path in jsons:
+        with open(path) as f:
+            graph = json.load(f)
+        nodes.append(graph["num_nodes"])
+        check(graph.get("gt_num_relations", 0) > graph["num_nodes"],
+              f"train: {path} has no same-article pairs")
+    print(f"train: {len(jsons)} feature JSONs of {nodes} regions")
+    return sorted(jsons)
+
+
+def train_gnn(dev, root):
+    """The relation-GNN trainer at the ``gnn`` checkpoint's width (15 node
+    and 2 edge features, 3 transitions, width 32), from its converted
+    weights, on feature JSONs of drawn pages."""
+    import torch
+    from citlab_as_tpu_torch.cli import run_lav
+    from citlab_as_tpu_torch.inference import RelationPredictor
+    from citlab_as_tpu_torch.train import checkpoint as ckpt
+    from citlab_as_tpu_torch.train.input_pipeline import torch_batch
+    from citlab_as_tpu_torch.train.trainer import TrainerGNN
+    from citlab_as_tpu_torch.weights import load_npz
+
+    jsons = gnn_corpus(os.path.join(root, "gnn_corpus"))
+    train, evl = jsons[:-2], jsons[-2:]
+    init = load_npz(os.path.join(REPO, "models_ckpt_torch", "gnn.npz"))
+    losses, trained = {}, {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        trainer = TrainerGNN(os.path.join(root, f"gnn_{name}"), train, [],
+                             flags={"epochs": 1, "samples_per_epoch": 16 * GNN_CHECK_STEPS},
+                             seed=0, device=d, init_params=init)
+        result = trainer.train()
+        check(all(p.device.type == d.type for p in result["state"]["params"].values()),
+              f"train: the {name} GNN trainer's parameters are not on {d}")
+        losses[name] = result["history"][0]["loss"]
+        trained[name] = {k: v.detach().cpu() for k, v in result["state"]["params"].items()}
+    rel = abs(losses["card"] - losses["cpu"]) / abs(losses["cpu"])
+    param_diff = max(float((trained["card"][k] - v).abs().max()) for k, v in trained["cpu"].items())
+    print(f"train: relation GNN card vs CPU, mean loss of {GNN_CHECK_STEPS} steps "
+          f"{losses['card']!r} / {losses['cpu']!r}, relative {rel:.3g} (limit 1e-5); "
+          f"parameters after them max abs {param_diff:.3g} apart")
+    check(rel <= 1e-5, f"train: GNN card vs CPU losses differ by {rel}")
+
+    model_dir = os.path.join(root, "gnn_epoch")
+    trainer = TrainerGNN(model_dir, train, evl,
+                         flags={"epochs": 1, "samples_per_epoch": GNN_EPOCH_SAMPLES},
+                         seed=0, device=dev, init_params=init)
+    result = trainer.train()
+    steps = trainer.steps_per_epoch
+    steps_per_s = steps / trainer.timings["steps"]
+    print(f"train: relation GNN one epoch (batch 16, 300 relations, {steps} steps): "
+          f"{steps_per_s:.3f} steps/s of train step; trainer seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in trainer.timings.items()})}; "
+          f"{json.dumps(result['history'][0])}")
+    lav = run_lav.main(["--model_dir", model_dir, "--eval_list",
+                        _write_list(os.path.join(root, "eval.lst"), evl)])
+    check(np.isfinite(lav["best_f1"]), f"train: run_lav best_f1 {lav['best_f1']}")
+    batch_np, _, graph = next(trainer.input_fn.eval_batches(evl[:1]))
+    n = int(graph["num_nodes"])
+    want = trainer.predict(torch_batch(batch_np, dev)).cpu().numpy()[0, :n * n].reshape(n, n)
+    got = RelationPredictor(ckpt.best_path(model_dir, "f1"), device=dev).confidences(graph)
+    worst = float(np.abs(got - want).max())
+    print(f"train: run_lav best_f1 {lav['best_f1']:.4f}; the exported .npz in "
+          f"RelationPredictor vs the trainer's confidences max abs {worst:.3g} (limit 1e-5)")
+    check(worst <= 1e-5, f"train: exported GNN confidences differ by {worst}")
+    return {"steps_per_s": steps_per_s, "card_vs_cpu_rel": rel, "best_f1": lav["best_f1"],
+            "train_list": train, "eval_list": evl}
+
+
+def phase_train(dev):
+    """Training on the card: the segmentation trainer and the relation-GNN
+    trainer (see the module docstring, phase 11), then both training CLIs
+    with no ``--device`` flag."""
+    import torch
+    from citlab_as_tpu_torch.cli import run_train_gnn, run_train_segmentation
+    root = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        seg = train_segmentation(dev, root)
+        gnn = train_gnn(dev, root)
+        t0 = time.perf_counter()
+        out = run_train_segmentation.main([
+            "--model_dir", os.path.join(root, "cli_seg"), "--train_gt_dir",
+            os.path.join(root, "seg_gt"), "--epochs", "1", "--steps_per_epoch", "2",
+            "--batch_size", "2", "--crop_size", "256", "256"])
+        seg_cli_s = time.perf_counter() - t0
+        check(all(p.device.type == "cuda" for p in out["state"]["params"].values())
+              and np.isfinite(out["history"][0]["loss"]),
+              "train: run_train_segmentation did not train on the card")
+        t0 = time.perf_counter()
+        out = run_train_gnn.main([
+            "--model_dir", os.path.join(root, "cli_gnn"), "--train_list",
+            _write_list(os.path.join(root, "train.lst"), gnn["train_list"]),
+            "--eval_list", _write_list(os.path.join(root, "eval2.lst"), gnn["eval_list"]),
+            "--epochs", "1", "--samples_per_epoch", "32"])
+        gnn_cli_s = time.perf_counter() - t0
+        check(all(p.device.type == "cuda" for p in out["state"]["params"].values())
+              and np.isfinite(out["history"][0]["loss"]),
+              "train: run_train_gnn did not train on the card")
+        print(f"train: run_train_segmentation {seg_cli_s:.2f} s and run_train_gnn "
+              f"{gnn_cli_s:.2f} s on the card (no --device)")
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": seg["launches"], "seg": seg, "gnn": {k: v for k, v in gnn.items() if "list" not in k}}
+
+
 def main() -> int:
     try:
         import torch
@@ -1578,6 +2030,7 @@ def main() -> int:
         pipelined_row = timed("pipelined", phase_pipelined, dev)
         visual_row = timed("visual", phase_visual, dev)
         formats_row = timed("formats", phase_formats, dev)
+        train_row = timed("train", phase_train, dev)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1590,7 +2043,8 @@ def main() -> int:
              launches_workflow=workflow_row["launches"]["conv3x3"],
              launches_pipelined=pipelined_row["launches"]["conv3x3"],
              launches_visual=visual_row["launches"]["conv3x3"],
-             launches_formats=formats_row["launches"]["conv3x3"], **k1_row),
+             launches_formats=formats_row["launches"]["conv3x3"],
+             launches_train=train_row["launches"]["conv3x3"], **k1_row),
         dict(name="separator_morphology", route="cuda",
              source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
              replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
@@ -1599,7 +2053,8 @@ def main() -> int:
              launches_workflow=workflow_row["launches"]["separator_morphology"],
              launches_pipelined=pipelined_row["launches"]["separator_morphology"],
              launches_visual=visual_row["launches"]["separator_morphology"],
-             launches_formats=formats_row["launches"]["separator_morphology"], **k2_row),
+             launches_formats=formats_row["launches"]["separator_morphology"],
+             launches_train=train_row["launches"]["separator_morphology"], **k2_row),
     ]
     # ``launches``: the in-memory main path's count; ``launches_files``: the
     # files-to-files path's; ``launches_workflow``: the whole workflow's;
@@ -1607,10 +2062,11 @@ def main() -> int:
     # workers); ``launches_visual``: the pipelined workflow's with the visual
     # relation net; ``launches_formats``: the stage CLIs' over the JPEG /
     # TIFF fixtures (separator and heading; each counted from 0 just before
-    # its run)
+    # its run); ``launches_train``: the segmentation trainer's bf16 run (13
+    # train steps and 2 eval steps, 69 each)
     keys = ("name", "route", "source", "replaces", "launches", "launches_files",
             "launches_workflow", "launches_pipelined", "launches_visual", "launches_formats",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "launches_train", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

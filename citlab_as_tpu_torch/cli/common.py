@@ -1,5 +1,5 @@
-"""Helpers the port's stage CLIs share: flags the port cannot honour raise
-by name, and the ``KEY=VAL`` clustering parameters parse as the JAX
+"""Helpers the port's CLIs share: flags the port cannot honour raise by
+name, and ``KEY=VAL`` parameters (clustering, optimizer) parse as the JAX
 package parses them."""
 from __future__ import annotations
 
@@ -23,8 +23,10 @@ def refuse_model_dir(model_dir) -> None:
 
 
 def clustering_params(pairs: Sequence[str]) -> Dict:
-    """``KEY=VAL`` strings -> dict (run_gnn_clustering.py:69-72); a string
-    without ``=`` is ignored, as in the JAX package."""
+    """``KEY=VAL`` strings -> dict (run_gnn_clustering.py:69-72; the
+    trainer CLIs parse ``--optimizer_params`` the same way,
+    run_train_gnn.py:47-51); a string without ``=`` is ignored, as in the
+    JAX package."""
     from citlab_as_tpu_torch.config.flags import _parse_dict_value
     out = {}
     for kv in pairs:

@@ -22,7 +22,7 @@ from citlab_as_tpu_torch.models.gnn.graph import (
 )
 from citlab_as_tpu_torch.models.gnn.model import GraphRelation
 from citlab_as_tpu_torch.ops.image_utils import resize_image_ratio
-from citlab_as_tpu_torch.train.input_pipeline import apply_feature_masks
+from citlab_as_tpu_torch.train.input_pipeline import apply_feature_masks, torch_batch
 from citlab_as_tpu_torch.utils.async_copy import prefetch
 from citlab_as_tpu_torch.weights import (
     arunet_state_dict_from_flax, gnn_state_dict_from_flax, load_npz,
@@ -286,14 +286,7 @@ class RelationPredictor:
             vis = [self._visual_inputs(g, im, max_nodes, max_edges, max_points)
                    for g, im in zip(graphs, images)]
             batch.update({k: np.concatenate([v[k] for v in vis], axis=0) for k in vis[0]})
-        inputs = {}
-        for k, v in batch.items():
-            t = torch.from_numpy(v)
-            if t.dtype == torch.int32 and k in (
-                    "interacting_nodes", "relations_to_consider"):
-                t = t.long()        # index tensors
-            inputs[k] = t.to(self.device, non_blocking=True)
-        return inputs, ns
+        return torch_batch(batch, self.device), ns
 
     def confidences_batch(self, graphs: Sequence[dict],
                           images: Optional[Sequence[np.ndarray]] = None

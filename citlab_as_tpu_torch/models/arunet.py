@@ -260,17 +260,27 @@ class _AttCNN(nn.Module):
 
 class ARUNet(nn.Module):
     """ARU / RU / U pixel labeler. Call with NHWC input in [0, 1]; returns
-    float32 logits [B, H, W, n_classes]. Compute runs in the parameters'
-    dtype (``model.to(torch.bfloat16)`` for bf16, as the JAX package's
-    ``dtype=bfloat16`` with float32 params cast at use)."""
+    float32 logits [B, H, W, n_classes].
+
+    Compute runs in the parameters' dtype (inference: ``model.to(
+    torch.bfloat16)``) unless ``compute_dtype`` is set and differs from it.
+    Then each forward casts every parameter to ``compute_dtype`` once
+    (``torch.func.functional_call``) and computes in it; the gradients land
+    in the parameters' dtype. That is the counterpart of the JAX package's
+    ``ARUNet(dtype=bfloat16)`` with float32 params, which the segmentation
+    trainer uses: flax casts each kernel at use. One cast per forward, not
+    per conv, serves the three scales of the shared detCNN, so K1 packs
+    each of its 23 weights once per forward."""
 
     def __init__(self, n_classes: int = 2,
-                 graph_params: Optional[Dict[str, Any]] = None):
+                 graph_params: Optional[Dict[str, Any]] = None,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
         gp = dict(DEFAULT_GRAPH_PARAMS)
         if graph_params:
             gp.update(graph_params)
         self.gp = gp
+        self.compute_dtype = compute_dtype
         self.featMapG = _DetCNN(gp)
         self.use_attention = "ARU" in gp["graph"]
         if self.use_attention:
@@ -299,8 +309,13 @@ class ARUNet(nn.Module):
                 end_points: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """``end_points`` (optional) collects the detCNN's activations of
         every scale under the JAX package's names."""
+        dtype = self.logit.weight.dtype
+        if self.compute_dtype is not None and self.compute_dtype != dtype:
+            cast = {name: p.to(self.compute_dtype)
+                    for name, p in self.named_parameters()}
+            return torch.func.functional_call(self, cast, (inputs, end_points))
         gp = self.gp
-        x = inputs.to(self.logit.weight.dtype)
+        x = inputs.to(dtype)
         if gp["mvn"]:
             x = per_image_standardization(x)
         h, w = x.shape[1], x.shape[2]

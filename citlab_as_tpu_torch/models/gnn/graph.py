@@ -1,6 +1,5 @@
 """Host-side graph preparation for the relation GNN (port copy of
-``citlab_as_tpu/models/gnn/graph.py``; ``sample_relations`` belongs to
-training and is not ported yet).
+``citlab_as_tpu/models/gnn/graph.py``).
 
 The reference does edge correction (undirect + dedup + self-loop removal)
 INSIDE the TF graph with per-example map_fn + tf.sets
@@ -8,8 +7,8 @@ INSIDE the TF graph with per-example map_fn + tf.sets
 deterministic numpy preprocessing at data-build/load time, so the device
 program sees only static padded tensors and masks.
 
-Also hosts the full N^2 relation grid for inference
-(input_dataset.py:444-457).
+Also hosts relation sampling for training (input_dataset.py:386-441) and
+the full N^2 relation grid for inference (input_dataset.py:444-457).
 """
 from __future__ import annotations
 
@@ -56,6 +55,60 @@ def correct_edges(edges: np.ndarray, edge_features: Optional[np.ndarray],
     ).astype(np.int32)
     out_features = edge_features[first_idx] if edge_features is not None else None
     return out_edges, out_features
+
+
+def sample_relations(num_nodes: int, gt_relations: Optional[np.ndarray],
+                     sample_num: int, num_classes: int, rel_components: int,
+                     rng) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Training-time relation sampling (input_dataset.py:386-441): half
+    negatives (random non-GT pairs, up to 32x oversampling attempts), half
+    positives split across the non-background classes.
+
+    ``gt_relations``: [num_gt, 1 + rel_components] with class in column 0.
+    ``rng``: random.Random-like (shuffle + randint inclusive); the same
+    calls in the same order as the JAX package, so the same ``rng`` state
+    gives the same relations.
+    """
+    relations = []
+    relations_gt = []
+    num_sample_false = sample_num // 2
+    num_true_per_class = sample_num // (2 * (num_classes - 1))
+
+    pos_rel_set = set()
+    if gt_relations is not None and len(gt_relations) > 0:
+        gt_relations = np.asarray(gt_relations)
+        gt_classes = gt_relations[:, 0]
+        gt_rels = [tuple(r) for r in gt_relations[:, 1:]]
+        pos_rel_set = set(gt_rels)
+
+        class_containers = [[] for _ in range(num_classes)]
+        indices = list(range(len(gt_rels)))
+        rng.shuffle(indices)
+        for idx in indices:
+            container = class_containers[int(gt_classes[idx])]
+            if len(container) < num_true_per_class:
+                container.append(gt_rels[idx])
+        for class_idx in range(1, num_classes):
+            container = class_containers[class_idx]
+            relations.extend(container)
+            relations_gt.extend([class_idx] * len(container))
+
+    neg = 0
+    negatives, seen = [], set()
+    for _ in range(32 * num_sample_false):
+        if neg == num_sample_false:
+            break
+        rel = tuple(rng.randint(0, num_nodes - 1) for _ in range(rel_components))
+        if rel not in seen and rel not in pos_rel_set:
+            negatives.append(rel)
+            seen.add(rel)
+            neg += 1
+    relations.extend(negatives)
+    relations_gt.extend([0] * neg)
+
+    return (np.asarray(relations, dtype=np.int32).reshape(-1, rel_components),
+            np.int32(len(relations)),
+            np.asarray(relations_gt, dtype=np.int32))
 
 
 def build_full_relations(num_nodes: int, gt_relations: Optional[np.ndarray]

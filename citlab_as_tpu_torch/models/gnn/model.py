@@ -260,7 +260,11 @@ class GraphGNN(nn.Module):
         elif gp["output_type"] == "concat_final_hidden_and_input":
             self.out_dim = h_dim + node_feature_dim
 
-    def forward(self, inputs: Dict[str, torch.Tensor]) -> Optional[torch.Tensor]:
+    def forward(self, inputs: Dict[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None) -> Optional[torch.Tensor]:
+        """``train`` with ``dropout_rate_node_features`` > 0 drops node
+        features (inverted dropout, keep mask drawn from ``generator``), as
+        flax's ``nn.Dropout`` does in train mode."""
         gp = self.gp
         if gp["num_transition_steps"] == 0:
             return None
@@ -282,6 +286,12 @@ class GraphGNN(nn.Module):
         feats = node_features
         if gp["compress_node_feature_dim"] > 0:
             feats = torch.tanh(self.compress_input(feats))
+        rate = gp["dropout_rate_node_features"]
+        if rate > 0 and train:
+            keep = 1.0 - rate
+            kept = torch.rand(feats.shape, generator=generator,
+                              device=feats.device) < keep
+            feats = torch.where(kept, feats / keep, torch.zeros_like(feats))
         u = feats.reshape(m, feats.shape[-1])
 
         h = node_features.new_zeros((m, self.h_dim))
@@ -353,7 +363,9 @@ class GraphRelation(nn.Module):
         self.Classification = _MLP(2 * self.GraphLSTM1.out_dim,
                                    tuple(classifier_hidden), num_classes)
 
-    def forward(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward(self, inputs: Dict[str, torch.Tensor], train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``train`` / ``generator``: node-feature dropout (``GraphGNN``)."""
         if self.image_input and "image" in inputs:
             node_vis, edge_vis = self.visual(
                 inputs["image"],
@@ -366,7 +378,7 @@ class GraphRelation(nn.Module):
                 inputs["node_features"] = torch.cat([inputs["node_features"], node_vis], -1)
             if edge_vis is not None:
                 inputs["edge_features"] = torch.cat([inputs["edge_features"], edge_vis], -1)
-        gnn_out = self.GraphLSTM1(inputs)
+        gnn_out = self.GraphLSTM1(inputs, train, generator)
         if gnn_out is None:
             gnn_out = inputs["node_features"]
         relations = inputs["relations_to_consider"]  # [B, R, 2]

@@ -1,2 +1,3 @@
-"""Training-side helpers of the port (so far only what inference shares
-with the input pipeline)."""
+"""Training of the port's nets (port of ``citlab_as_tpu/train/``): the
+ARU-Net segmentation trainer and the relation-GNN trainer, their
+optimizers, checkpoints, input pipelines and LAV."""

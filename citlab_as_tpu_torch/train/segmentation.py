@@ -1,0 +1,81 @@
+"""Training step for the ARU-Net segmentation nets (port of
+``citlab_as_tpu/train/segmentation.py``).
+
+Softmax cross-entropy over per-pixel class maps with an optional validity
+mask and per-class weights. The model's parameters stay float32 and the
+forward computes in ``compute_dtype`` (bf16 by default, as the JAX
+trainer's ``ARUNet(dtype=jnp.bfloat16)``; ``models/arunet.py``). Under
+autograd K1 runs its forward and cuDNN its backward
+(``ops/kernels/conv3x3.py::Conv3x3Function``). Steps are plain functions
+over the module and the optimizer's tensor dicts.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import torch
+
+from citlab_as_tpu_torch.models.arunet import ARUNet
+from citlab_as_tpu_torch.ops.losses import softmax_cross_entropy
+from citlab_as_tpu_torch.train.optimizer import Optimizer
+
+
+def create_model(n_classes: int = 2, graph_params: Optional[Dict[str, Any]] = None,
+                 dtype: Optional[torch.dtype] = torch.bfloat16) -> ARUNet:
+    """float32 parameters computing in ``dtype``."""
+    return ARUNet(n_classes=n_classes, graph_params=graph_params,
+                  compute_dtype=dtype)
+
+
+def init_params(model: ARUNet, seed: int = 0) -> ARUNet:
+    """The flax initializers' distributions (``ARUNet.init_random``) from a
+    seeded generator: the port cannot draw jax's PRNG numbers, so a JAX
+    init is carried across with ``weights.arunet_state_dict_from_flax``."""
+    return model.init_random(seed)
+
+
+def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor,
+                      mask: Optional[torch.Tensor] = None,
+                      class_weights=None) -> torch.Tensor:
+    """Mean per-pixel softmax CE; optional validity mask for padded pixels
+    and per-class weights (rare-class boosting, e.g. thin separators)."""
+    ce = softmax_cross_entropy(logits, labels)
+    weights = torch.ones_like(ce) if mask is None else mask
+    if class_weights is not None:
+        cw = torch.as_tensor(class_weights, dtype=ce.dtype, device=ce.device)
+        weights = weights * cw[labels.long()]
+    return torch.sum(ce * weights) / torch.clamp(torch.sum(weights), min=1.0)
+
+
+def make_train_step(model: ARUNet, optimizer: Optimizer):
+    """Returns ``train_step(params, opt_state, batch) -> loss`` (a 0-d
+    tensor on the device), which updates ``params`` (the model's
+    ``dict(named_parameters())``) and ``opt_state`` in place; batch =
+    {'image': [B,H,W,1] float, 'label': [B,H,W] int, 'mask': [B,H,W] float
+    or None}, tensors on the model's device."""
+
+    def train_step(params: Dict[str, torch.Tensor], opt_state, batch):
+        for p in params.values():
+            p.grad = None
+        logits = model(batch["image"])
+        loss = segmentation_loss(logits, batch["label"], batch.get("mask"))
+        loss.backward()
+        optimizer.step(params, {k: p.grad for k, p in params.items()}, opt_state)
+        return loss.detach()
+
+    return train_step
+
+
+def make_eval_step(model: ARUNet):
+    """``eval_step(batch, params=None)``: loss and pixel accuracy of the
+    model, or of the model with ``params`` (``{name: tensor}``, e.g. the EMA
+    shadow) in place of its own."""
+    @torch.no_grad()
+    def eval_step(batch, params: Optional[Dict[str, torch.Tensor]] = None):
+        logits = (model(batch["image"]) if params is None else
+                  torch.func.functional_call(model, params, (batch["image"],)))
+        loss = segmentation_loss(logits, batch["label"], batch.get("mask"))
+        pred = torch.argmax(logits, dim=-1)
+        acc = torch.mean((pred == batch["label"]).to(torch.float32))
+        return {"loss": loss, "accuracy": acc}
+    return eval_step

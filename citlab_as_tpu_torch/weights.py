@@ -1,12 +1,16 @@
-"""Weight bridge from the JAX package's flax parameter trees (the ARU-Nets
-and the relation GNNs, the visual ones included).
+"""Weight bridge between the JAX package's flax parameter trees and the
+port's modules (the ARU-Nets and the relation GNNs, the visual ones
+included), both ways.
 
 The flax tree is carried as a flat ``{path: ndarray}`` dict with
 ``/``-joined paths (``params/featMapG/unet_down_0/conv1/conv/kernel``), as
 ``scripts/convert_weights_to_torch.py`` writes it into an ``.npz``. The
 port's module names mirror the flax scopes, so a path maps to a
 ``state_dict`` key by dropping the leading ``params`` and the inner
-``conv`` / ``deconv`` scope.
+``conv`` / ``deconv`` scope. The inverse maps (``*_flax_from_state_dict``)
+give a port ``state_dict`` back as the flat flax dict, bit for bit, so a
+JAX init goes into the port and a net the port trained goes back (the
+training checkpoints and best exports name every tensor by that path).
 """
 from __future__ import annotations
 
@@ -118,6 +122,63 @@ def gnn_state_dict_from_flax(params: Dict[str, np.ndarray]
         name = ".".join(scopes) + (".weight" if leaf == "kernel" else ".bias")
         out[name] = torch.tensor(np.ascontiguousarray(arr))
     out.update(_visual_state_dict(visual))
+    return out
+
+
+def _np(t) -> np.ndarray:
+    """A tensor as numpy; bf16 (which numpy lacks) widened to float32,
+    exactly."""
+    if not isinstance(t, torch.Tensor):
+        return np.asarray(t)
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def arunet_flax_from_state_dict(state_dict: Dict[str, torch.Tensor],
+                                prefix: str = "params/") -> Dict[str, np.ndarray]:
+    """Inverse of :func:`arunet_state_dict_from_flax`: ``<scope>.weight`` of a
+    conv (OIHW) -> ``<scope>/conv/kernel`` HWIO, of a transposed conv (a
+    scope named ``*_deconv``, [I, O, kh, kw] flipped) ->
+    ``<scope>/deconv/kernel`` HWIO unflipped; ``.bias`` -> ``/bias``."""
+    out: Dict[str, np.ndarray] = {}
+    for name, value in state_dict.items():
+        *scopes, leaf = name.split(".")
+        if not scopes or leaf not in ("weight", "bias"):
+            raise KeyError(f"unexpected ARU-Net parameter {name!r}")
+        inner = "deconv" if scopes[-1].endswith("_deconv") else "conv"
+        arr = _np(value)
+        if leaf == "weight":
+            if inner == "conv":
+                arr = arr.transpose(2, 3, 1, 0)
+            else:
+                arr = arr[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+        key = "/".join(scopes + [inner, "kernel" if leaf == "weight" else "bias"])
+        out[prefix + key] = np.ascontiguousarray(arr)
+    return out
+
+
+def gnn_flax_from_state_dict(state_dict: Dict[str, torch.Tensor],
+                             prefix: str = "params/") -> Dict[str, np.ndarray]:
+    """Inverse of :func:`gnn_state_dict_from_flax`: ``Linear.weight`` [out,
+    in] -> ``kernel`` [in, out]; the ``visual.`` entries by the inverse of
+    the visual mapping (the backbone by :func:`arunet_flax_from_state_dict`,
+    feature-map convs OIHW -> HWIO, compress layers transposed)."""
+    out: Dict[str, np.ndarray] = {}
+    backbone = {}
+    for name, value in state_dict.items():
+        *scopes, leaf = name.split(".")
+        if leaf not in ("weight", "bias"):
+            raise KeyError(f"unexpected relation-GNN parameter {name!r}")
+        if scopes[:2] == ["visual", "backbone"]:
+            backbone[".".join(scopes[2:] + [leaf])] = value
+            continue
+        arr = _np(value)
+        if leaf == "weight":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
+        key = "/".join(scopes + ["kernel" if leaf == "weight" else "bias"])
+        out[prefix + key] = np.ascontiguousarray(arr)
+    for key, arr in arunet_flax_from_state_dict(backbone, prefix="").items():
+        out[prefix + "visual/backbone/" + key] = arr
     return out
 
 

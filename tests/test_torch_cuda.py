@@ -328,3 +328,168 @@ def test_visual_relation_gnn_on_the_card_equals_the_cpu(cuda):
     for g, w in zip(got, want):
         assert g.shape == w.shape
         np.testing.assert_allclose(g, w, rtol=0, atol=1e-4)
+
+
+# ---------------------------------------------------------------- training
+
+_TRAIN_GP = {"graph": "ARU", "featRoot": 8, "scale_space_num": 3, "res_depth": 1,
+             "num_scales_att": 2}
+
+
+def _seg_batch(device, seed=0, b=2, hw=64):
+    rng = np.random.RandomState(seed)
+    return {"image": torch.tensor(rng.rand(b, hw, hw, 1).astype(np.float32), device=device),
+            "label": torch.tensor(rng.randint(0, 2, (b, hw, hw)).astype(np.int32),
+                                  device=device),
+            "mask": torch.tensor((rng.rand(b, hw, hw) > 0.1).astype(np.float32),
+                                 device=device)}
+
+
+@pytest.mark.cuda
+def test_segmentation_train_steps_on_the_card_equal_the_cpu(cuda):
+    """A tiny ARU-Net (featRoot 8, so its 3x3 convs from 8 channels go
+    through K1 under autograd) in f32 with TF32 off: the first step's loss
+    and every gradient on the card within 1e-4 of the CPU's (K1's forward
+    and cuDNN's backward against the plain convs; sums in another order),
+    the losses of three Adam steps within 1e-4 relative, and K1 launched
+    for every routed conv of each forward."""
+    from citlab_as_tpu_torch.train.optimizer import build_optimizer
+    from citlab_as_tpu_torch.train.segmentation import create_model, make_train_step
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        model = create_model(2, _TRAIN_GP, torch.float32).init_random(0).to(dev)
+        params = dict(model.named_parameters())
+        opt = build_optimizer({"optimizer": "adam", "learning_rate": 1e-3}, 4, 10)
+        state, step = opt.init(params), make_train_step(model, opt)
+        k1.launches = 0
+        losses, grads = [], None
+        for i in range(3):
+            losses.append(float(step(params, state, _seg_batch(dev, seed=i))))
+            if i == 0:
+                grads = {k: p.grad.cpu().numpy() for k, p in params.items()}
+        runs[dev] = (losses, grads, k1.launches)
+    (lc, gc, _), (lg, gg, launches) = runs["cpu"], runs["cuda"]
+    assert launches > 0 and launches % 3 == 0
+    np.testing.assert_allclose(lg, lc, rtol=1e-4)
+    for k in gc:
+        scale = max(float(np.abs(gc[k]).max()), 1e-30)
+        assert float(np.abs(gg[k] - gc[k]).max()) / scale <= 1e-4, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,accum", [("adam", 1), ("nadam", 1), ("rmsprop", 1),
+                                        ("sgd", 1), ("adam", 3)])
+def test_optimizers_on_cuda_tensors_equal_the_cpu(cuda, name, accum):
+    """The port's optax update rules on CUDA tensors: 6 updates of random
+    gradients within 1e-6 of the same on the CPU, relative to each
+    parameter's scale."""
+    from citlab_as_tpu_torch.train.optimizer import build_optimizer
+    rng = np.random.RandomState(0)
+    init = {"w": rng.randn(64, 33).astype(np.float32), "b": rng.randn(33).astype(np.float32)}
+    grads = [{k: (rng.randn(*v.shape) * 10.0 ** rng.uniform(-3, 0)).astype(np.float32)
+              for k, v in init.items()} for _ in range(6)]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        opt = build_optimizer({"optimizer": name, "learning_rate": 0.01}, 2, 10,
+                              schedule_kind="decay", grad_accum_steps=accum)
+        params = {k: torch.tensor(v, device=dev) for k, v in init.items()}
+        state = opt.init(params)
+        for g in grads:
+            opt.step(params, {k: torch.tensor(v, device=dev) for k, v in g.items()}, state)
+        out[dev] = {k: v.cpu().numpy() for k, v in params.items()}
+    for k in init:
+        scale = float(np.abs(out["cpu"][k]).max())
+        assert float(np.abs(out["cuda"][k] - out["cpu"][k]).max()) / scale <= 1e-6, k
+
+
+@pytest.mark.cuda
+def test_relation_gnn_train_step_on_the_card_equals_the_cpu(cuda):
+    """One relation-GNN train step (the converted ``gnn`` weights, max
+    aggregation not needed: the checkpoint's sum) on a batch of 4 Delaunay
+    page graphs with sampled relations: loss with weight decay and every
+    gradient within 1e-5 of the CPU's (segment sums by float atomics on the
+    card)."""
+    import os
+    from citlab_as_tpu_torch.models.gnn.graph import (
+        correct_edges, pad_graph, sample_relations)
+    from citlab_as_tpu_torch.models.gnn.loss import relation_loss
+    from citlab_as_tpu_torch.models.gnn.model import GraphRelation
+    from citlab_as_tpu_torch.train.input_pipeline import InputGNN, torch_batch
+    from citlab_as_tpu_torch.weights import gnn_state_dict_from_flax, load_npz
+    import random
+    npz = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                       "models_ckpt_torch", "gnn.npz")
+    rng, py = np.random.RandomState(1), random.Random(1)
+    examples = []
+    for n in (20, 33, 41, 12):
+        g = _delaunay_graph(rng, n)
+        gt = np.array([[1, i, j] for i in range(n) for j in range(n) if i % 3 == j % 3],
+                      np.int32)
+        edges, ef = correct_edges(np.asarray(g["interacting_nodes"], np.int32),
+                                  np.asarray(g["edge_features"], np.float32), n)
+        rels, _, rel_gt = sample_relations(n, gt, 300, 2, 2, py)
+        examples.append(pad_graph(n, np.asarray(g["node_features"], np.float32), edges, ef,
+                                  rels, rel_gt, 64, 256, 300))
+    batch_np = InputGNN._stack_to_common_shape(examples)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = GraphRelation(15, 2).to(dev)
+        model.load_state_dict(gnn_state_dict_from_flax(load_npz(npz)))
+        batch = torch_batch(batch_np, dev)
+        params = dict(model.named_parameters())
+        loss = relation_loss(model(batch, train=True), batch["relations_to_consider_gt"],
+                             batch["num_relations_to_consider"], params=params,
+                             weight_decay=1e-4)
+        loss.backward()
+        out[dev] = (float(loss.detach()), {k: p.grad.cpu().numpy() for k, p in params.items()})
+    assert out["cuda"][0] == pytest.approx(out["cpu"][0], rel=1e-5)
+    for k, want in out["cpu"][1].items():
+        scale = max(float(np.abs(want).max()), 1e-30)
+        assert float(np.abs(out["cuda"][1][k] - want).max()) / scale <= 1e-5, k
+
+
+@pytest.mark.cuda
+def test_k1_weight_cache_does_not_grow_over_train_steps(cuda):
+    """bf16 compute with float32 weights casts every weight once per
+    forward, so K1 packs each cast once; the packed copies die with the
+    casts (weakref eviction), and six train steps leave the cache as one
+    step does."""
+    import gc
+    from citlab_as_tpu_torch.models.arunet import _Conv
+    from citlab_as_tpu_torch.train.optimizer import build_optimizer
+    from citlab_as_tpu_torch.train.segmentation import create_model, make_train_step
+    model = create_model(2, _TRAIN_GP, torch.bfloat16).init_random(0).to("cuda")
+    n_k1 = sum(1 for m in model.modules() if isinstance(m, _Conv) and m.use_k1)
+    params = dict(model.named_parameters())
+    opt = build_optimizer(None, 4, 10)
+    state, step = opt.init(params), make_train_step(model, opt)
+    gc.collect()
+    before = len(k1._packed)
+    sizes = []
+    for i in range(6):
+        step(params, state, _seg_batch("cuda", seed=i))
+        gc.collect()
+        sizes.append(len(k1._packed))
+    assert n_k1 > 0 and max(sizes) - before <= n_k1
+    assert sizes[-1] == sizes[0]
+
+
+@pytest.mark.cuda
+def test_synthetic_pages_on_the_card_equal_the_cpu(cuda):
+    """The synthetic page composition on the card, fed the same draws as
+    on the CPU, gives the same pages bit for bit (its float64 sums and
+    products are exact); the draws come from the card's own generator."""
+    from citlab_as_tpu_torch.train import synthetic_data
+    draws = synthetic_data.page_draws(torch.Generator().manual_seed(3), 2, 200, 150)
+    for heading_mode in (False, True):
+        want = synthetic_data.compose_pages(draws, 200, 150, heading_mode)
+        got = synthetic_data.compose_pages({k: v.cuda() for k, v in draws.items()},
+                                           200, 150, heading_mode)
+        for g, w in zip(got, want):
+            assert g.device.type == "cuda" and torch.equal(g.cpu(), w)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    img, lab = synthetic_data.synthetic_batch(gen, 3, 128, 96, device="cuda")
+    again, _ = synthetic_data.synthetic_batch(torch.Generator(device="cuda").manual_seed(0),
+                                              3, 128, 96, device="cuda")
+    assert img.shape == (3, 128, 96, 1) and lab.shape == (3, 128, 96)
+    assert torch.equal(img, again) and set(lab.unique().tolist()) <= {0, 1}

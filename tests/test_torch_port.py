@@ -197,6 +197,60 @@ print("LOADED", bad)
     assert "LOADED []" in r.stdout, r.stdout
 
 
+def test_running_the_training_path_loads_no_jax_module():
+    """The training path in a fresh process: both trainers (tiny nets, a GT
+    directory and feature JSONs written by the port), every optimizer, the
+    synthetic pages, LAV and the three training CLIs, then no module of
+    jax, flax, optax, orbax, sklearn or the JAX package is loaded."""
+    code = r"""
+import json, os, sys, tempfile
+import numpy as np, torch
+import chip_smoke
+from citlab_as_tpu_torch.cli import run_lav, run_train_gnn, run_train_segmentation
+from citlab_as_tpu_torch.train import optimizer, synthetic_data
+root = tempfile.mkdtemp()
+gt = chip_smoke.write_seg_gt(os.path.join(root, "gt"), 2, (96, 80), seed=0)
+out = run_train_segmentation.main(["--model_dir", os.path.join(root, "seg"),
+    "--train_gt_dir", gt, "--eval_gt_dir", gt, "--epochs", "1", "--steps_per_epoch", "1",
+    "--batch_size", "1", "--crop_size", "64", "64", "--graph", "RU", "--device", "cpu"])
+assert np.isfinite(out["history"][0]["loss"])
+rng = np.random.RandomState(0)
+paths = []
+for g in range(3):
+    n = 5
+    edges = [[i, j] for i in range(n) for j in range(n) if i != j]
+    graph = {"num_nodes": n, "interacting_nodes": edges, "node_features":
+             rng.rand(n, 15).tolist(), "edge_features": rng.rand(len(edges), 2).tolist(),
+             "gt_relations": [[1, i, j] for i in range(n) for j in range(n)
+                              if (i < 3) == (j < 3)]}
+    paths.append(os.path.join(root, f"g{g}.json"))
+    json.dump(graph, open(paths[-1], "w"))
+lst = chip_smoke._write_list(os.path.join(root, "g.lst"), paths)
+run_train_gnn.main(["--model_dir", os.path.join(root, "gnn"), "--train_list", lst,
+                    "--eval_list", lst, "--epochs", "1", "--samples_per_epoch", "4",
+                    "--batch_size", "2", "--sample_num_relations", "8", "--device", "cpu"])
+assert np.isfinite(run_lav.main(["--model_dir", os.path.join(root, "gnn"), "--eval_list",
+                                 lst, "--device", "cpu"])["best_f1"])
+for name in ("adam", "nadam", "rmsprop", "sgd"):
+    opt = optimizer.build_optimizer({"optimizer": name}, 2, 4, grad_accum_steps=2)
+    p = {"w": torch.ones(3)}
+    s = opt.init(p)
+    for _ in range(2):
+        opt.step(p, {"w": torch.full((3,), 0.5)}, s)
+img, lab = synthetic_data.synthetic_batch(torch.Generator().manual_seed(0), 1, 64, 64)
+assert img.shape == (1, 64, 64, 1)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax",
+                                    "citlab_as_tpu", "sklearn", "lxml", "PIL",
+                                    "shapely"))
+print("LOADED", bad)
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LOADED []" in r.stdout, r.stdout
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from citlab_as_tpu_torch.device import resolve_device
     from citlab_as_tpu_torch.inference import SegmentationPredictor
@@ -205,6 +259,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         SegmentationPredictor(None, graph_params={"featRoot": 4, "scale_space_num": 2})
+    from citlab_as_tpu_torch.train.seg_trainer import TrainerSegmentation
+    from citlab_as_tpu_torch.train.trainer import TrainerGNN
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainerGNN("unused", [], [])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TrainerSegmentation("unused", "unused")
     assert resolve_device("cpu") == torch.device("cpu")
     with pytest.raises(ValueError):
         resolve_device("meta")
