@@ -10,8 +10,9 @@ result):
 1. device: card name, ``nvidia-smi`` name and power limit, torch and CUDA
    versions;
 2. build: every kernel of the main path, from ``csrc/*.cu`` with nvcc (the
-   host geometry library, ``csrc/geometry_host.cpp``, builds with the host
-   compiler at its first call, in phase 6);
+   host libraries, ``csrc/geometry_host.cpp``, ``csrc/image_decode.cpp``
+   and ``csrc/image_encode.cpp``, build with the host compiler at their
+   first call);
 3. kernels: K1 (conv3x3) and K2 (separator morphology) against their plain
    PyTorch versions at the main path's shapes, then timed with CUDA events
    beside the plain version and, for K1, one cuDNN ``F.conv2d`` call: the
@@ -112,7 +113,26 @@ result):
    defaults; 128 steps; steps/s), ``run_lav`` (finite best F1), the
    exported ``.npz`` in ``RelationPredictor`` against the trainer's
    confidences (1e-5). Last, ``run_train_segmentation`` and
-   ``run_train_gnn`` with tiny epochs and no ``--device`` train on the card.
+   ``run_train_gnn`` with tiny epochs and no ``--device`` train on the card;
+12. gt_eval: ground truth and evaluation. The port's generators (region GT
+   with TextRegion and SeparatorRegion at scale 1 and at half resolution,
+   separator-only region GT, both BNL generators, and
+   ``cli/run_as_gt_generation.py`` without ``--device``) over the two
+   committed 2000 x 1420 fixture pages of ``tests/data/torch_gt``
+   (``scripts/make_gt_fixtures.py``): every written image's decoded
+   pixels and every ``info.txt`` / ``regions_gt.json`` equal the JAX
+   package's digests; the card's binarization and dilation equal the
+   CPU's. Two bf16 steps of the segmentation trainer from the separator
+   weights on the generated separator GT (K1 69 launches each). The heading
+   grid search (``eval/heading_eval.py::run_grid_search``, the heading net
+   at full width, 3 points) over 4 of the files phase's pages with GT
+   region types: K1 69 launches per forward, metrics in [0, 1],
+   ``f1_binary`` 1.0 at the default setting. ``cli/run_compare.py`` over the
+   workflow phase's clustered pages (with the GT itself and every line one
+   article as two more methods) against GT from the drawn layout: every
+   comparison consistent, the CSV round-trips, the XLSX is a valid zip with
+   a header and one row per method in each sheet; ``min_run_example
+   --demo``; ``AsChecker`` finds no line without an article id.
 
 The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
 """
@@ -159,6 +179,9 @@ FORMATS_METRIC_PAGES = 2                    # pages whose measure the numpy path
 SEG_BATCH, SEG_CROP = 4, (512, 512)
 SEG_GT_PAGES, TRAIN_PAGE_SHAPE = 4, (1000, 710)
 SEG_CHECK_STEPS, SEG_WARM_STEPS, SEG_TIMED_STEPS, SEG_EVAL_STEPS = 3, 3, 10, 2
+GT_TRAIN_STEPS = 2                           # bf16 steps on the generated separator GT
+GRID_PAGES = 4                               # the files phase's first pages, for the grid search
+GRID = dict(fixed_heights=(HEADING_FIXED_HEIGHT,), thresholds=(0.4,), net_weights=(0.8,))
 GNN_PAGES, GNN_CHECK_STEPS, GNN_PARAGRAPH_LINES = 8, 4, 6
 # one epoch of the GNN trainer: batch 16 and 300 relations as its defaults,
 # 2048 samples (128 steps) where the default is 8192: the host's input
@@ -181,7 +204,8 @@ def _draw_page(rng, h, w, yy, xx):
     col = rng.randint(int(0.4 * w), int(0.6 * w))
     v_sep = (np.abs(xx - col) < rule_w) & (yy >= h // 10) & (yy < h - h // 10)
     h_sep = np.zeros((h, w), bool)
-    for y in (rng.randint(h // 5, h // 3), rng.randint(h // 2, 3 * h // 4)):
+    h_rules = (rng.randint(h // 5, h // 3), rng.randint(h // 2, 3 * h // 4))
+    for y in h_rules:
         h_sep |= ((np.abs(yy - y) < max(1, rule_w - 1)) & (xx >= 10)
                   & (xx < col - rule_w - 5))
     sep = v_sep | h_sep
@@ -197,7 +221,8 @@ def _draw_page(rng, h, w, yy, xx):
     page = (img * 255).clip(0, 255).astype(np.uint8)
     speckle = rng.rand(h, w) < 0.01
     page[speckle] = rng.randint(0, 256, int(speckle.sum()))
-    return page, v_sep, {"col": col, "rule_w": rule_w, "spacing": spacing}
+    return page, v_sep, {"col": col, "rule_w": rule_w, "spacing": spacing,
+                         "h_rules": h_rules}
 
 
 def synthetic_pages(n, h, w, seed):
@@ -212,7 +237,16 @@ def synthetic_pages(n, h, w, seed):
     return [d[0] for d in drawn], [d[1] for d in drawn]
 
 
-def synthetic_newspaper(n, h, w, seed, headlines=HEADLINES_PER_PAGE):
+def rule_boxes(h, lay):
+    """The drawn rules of one page as inclusive boxes (x0, y0, x1, y1): the
+    vertical column rule first, then the two horizontal rules."""
+    col, rule_w = lay["col"], lay["rule_w"]
+    half = max(1, rule_w - 1)
+    return ([(col - rule_w + 1, h // 10, col + rule_w - 1, h - h // 10 - 1)]
+            + [(10, y - half + 1, col - rule_w - 6, y + half - 1) for y in lay["h_rules"]])
+
+
+def synthetic_newspaper(n, h, w, seed, headlines=HEADLINES_PER_PAGE, rules_out=None):
     """Pages of :func:`synthetic_pages` with a text layout on top. Each page
     gets ``headlines`` headline lines in its left column (the bands under
     them cleared to paper, then tall zigzag glyphs of thick dark strokes) and one text line
@@ -220,12 +254,15 @@ def synthetic_newspaper(n, h, w, seed, headlines=HEADLINES_PER_PAGE):
     one text region per sub-column and one per headline. Returns (pages,
     column-rule masks, layouts); a layout is a list of regions
     ``(region id, [(line id, (x0, y0, x1, y1)), ...])`` with headline ids
-    starting ``hl_``."""
+    starting ``hl_``. A list ``rules_out`` receives each page's
+    :func:`rule_boxes`."""
     rng = np.random.RandomState(seed)
     yy, xx = np.mgrid[0:h, 0:w]
     pages, rules, layouts = [], [], []
     for _ in range(n):
         page, v_sep, lay = _draw_page(rng, h, w, yy, xx)
+        if rules_out is not None:
+            rules_out.append(rule_boxes(h, lay))
         col, rule_w, spacing = lay["col"], lay["rule_w"], lay["spacing"]
         text_h = (spacing * 3) // 5
         left = (10, col - rule_w - 4)
@@ -346,11 +383,14 @@ def phase_device():
 
 
 def phase_build():
+    """Build the kernels and the host libraries, one compiler each, all
+    together, so that no later phase's timing holds a compile."""
     from citlab_as_tpu_torch.ops.kernels import build
+    names = build.KERNEL_SOURCES + build.HOST_SOURCES
     t0 = time.perf_counter()
-    build.build_all()
+    build.build_all(names)
     secs = time.perf_counter() - t0
-    print(f"build: {secs:.2f} s for {', '.join(build.KERNEL_SOURCES)}")
+    print(f"build: {secs:.2f} s for {', '.join(names)}")
     for name, log in build.build_logs.items():
         for line in log.splitlines():
             if "registers" in line or "spill" in line:
@@ -432,10 +472,13 @@ def phase_k1(dev):
     print("K1 detail: " + json.dumps({"shape": list(K1_SHAPE), "dtype": "bf16",
                                       "pairs": rows}))
 
-    # every (pair, shape) the two stages' forwards and the segmentation
-    # trainer's forward launch, with launches per forward; the trainer also
-    # runs K1 in f32 (its card-vs-CPU check), so that path holds both dtypes
+    # every (pair, shape) the two stages' forwards, the heading grid search's
+    # forwards (one page each, so the persistent kernel runs another grid)
+    # and the segmentation trainer's forward launch, with launches per
+    # forward; the trainer also runs K1 in f32 (its card-vs-CPU check), so
+    # that path holds both dtypes
     for label, shape in (("K1 main path", K1_SHAPE), ("K1 heading path", K1_HEADING_SHAPE),
+                         ("K1 grid path", (1, *K1_HEADING_SHAPE[1:])),
                          ("K1 train path", (SEG_BATCH, *SEG_CROP))):
         instances = []
         for cin, cout, hh, ww, n in k1_main_path_instances(shape):
@@ -1065,10 +1108,16 @@ def phase_workflow(dev):
               f"{[g['num_nodes'] for g in graphs]} nodes; dbscan labels equal: {same_labels}")
         check(worst <= 1e-5, f"card vs CPU confidences differ by {worst}")
         check(same_labels, "dbscan labels differ between the card's and the CPU's confidences")
+        # the clustered pages go on to the gt_eval phase's comparator
+        kept = tempfile.mkdtemp(prefix="chip_smoke_clustered_")
+        for path in result["clustered"]:
+            shutil.copy(path, kept)
     finally:
         features.StrokeWidthDistanceTransform = host_swt
         shutil.rmtree(root, ignore_errors=True)
-    return {"launches": launches, "pages_per_s": n_pages / secs, "timings": timings}
+    return {"launches": launches, "pages_per_s": n_pages / secs, "timings": timings,
+            "clustered": [os.path.join(kept, os.path.basename(p)) for p in result["clustered"]],
+            "layouts": layouts}
 
 
 def phase_gnn(dev):
@@ -1587,6 +1636,89 @@ def phase_formats(dev):
             "decode_ms": decode_ms, "stage_s": stage_s, "as": result["as"]}
 
 
+GT_DIR = os.path.join(REPO, "tests", "data", "torch_gt")
+
+
+def gt_record_dir(root):
+    """{relative path: {size, sha256_L} or {text}} of every file under
+    ``root``, images decoded by the port's own decoders (PNG in Python,
+    JPEG by the host C++ decoder) in mode "L": the shape of
+    ``tests/data/torch_gt/digests.json``."""
+    import hashlib
+    from citlab_as_tpu_torch.utils.io import load_image
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for name in sorted(files):
+            path = os.path.join(dirpath, name)
+            rel = os.path.relpath(path, root)
+            if name.endswith((".png", ".jpg")):
+                grey = np.asarray(load_image(path, "L"))
+                out[rel] = {"size": [int(grey.shape[1]), int(grey.shape[0])],
+                            "sha256_L": hashlib.sha256(grey.tobytes()).hexdigest()}
+            else:
+                with open(path, encoding="utf-8") as f:
+                    out[rel] = {"text": f.read()}
+    return dict(sorted(out.items()))
+
+
+def run_gt_generators(image_paths, work, dev, half_resolution, seconds=None):
+    """The port's counterparts of ``scripts/make_gt_fixtures.py``'s runs:
+    {run: :func:`gt_record_dir` of its output}, and the AS CLI's done count.
+    The region and BNL generators are host code; the AS CLI runs its Otsu
+    pass and dilation on ``dev``. ``seconds`` receives each run's wall
+    seconds."""
+    from citlab_as_tpu_torch.cli import run_as_gt_generation
+    from citlab_as_tpu_torch.stages.bnl_ground_truth import (
+        BNLGroundTruthGenerator, BNLHeaderGroundTruthGenerator)
+    from citlab_as_tpu_torch.stages.ground_truth import RegionGroundTruthGenerator
+    from citlab_as_tpu_torch.utils.io import get_page_path
+    runs = {
+        "region": (RegionGroundTruthGenerator, {}),
+        "region_sep": (RegionGroundTruthGenerator, {"region_types": ["SeparatorRegion"]}),
+        "region_half": (RegionGroundTruthGenerator,
+                        {"max_resolution": tuple(half_resolution)}),
+        "bnl": (BNLGroundTruthGenerator, {}),
+        "bnl_header": (BNLHeaderGroundTruthGenerator, {}),
+    }
+    seconds = {} if seconds is None else seconds
+    records = {}
+    for run, (cls, kwargs) in runs.items():
+        out = os.path.join(work, run)
+        t0 = time.perf_counter()
+        gen = cls(image_paths, **kwargs)
+        gen.run_ground_truth_generation(out)
+        if cls is RegionGroundTruthGenerator:
+            gen.create_ground_truth_json(out)
+        seconds[run] = time.perf_counter() - t0
+        records[run] = gt_record_dir(out)
+    lst = _write_list(os.path.join(work, "pages.lst"),
+                      [get_page_path(p) for p in image_paths])
+    out = os.path.join(work, "as")
+    argv = ["--pagexml_list", lst, "--save_folder", out]
+    if dev.type == "cpu":
+        argv += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    done = run_as_gt_generation.main(argv)
+    seconds["as"] = time.perf_counter() - t0
+    records["as"] = gt_record_dir(out)
+    return records, done
+
+
+def compare_gt_records(want, got):
+    """The first difference between two :func:`gt_record_dir` maps, or
+    None."""
+    for run in want:
+        if run not in got:
+            return f"{run}: not run"
+        if sorted(want[run]) != sorted(got[run]):
+            return (f"{run}: files {sorted(set(want[run]) ^ set(got[run]))} "
+                    "written by one side only")
+        for rel, entry in want[run].items():
+            if got[run][rel] != entry:
+                return f"{run}/{rel}: {got[run][rel]} != {entry}"
+    return None
+
+
 def _write_list(path, lines):
     with open(path, "w") as f:
         f.write("\n".join(lines) + "\n")
@@ -1993,6 +2125,253 @@ def phase_train(dev):
     return {"launches": seg["launches"], "seg": seg, "gnn": {k: v for k, v in gnn.items() if "list" not in k}}
 
 
+def _gt_layout_page(path, layout, articles):
+    """Rewrite a drawn page's PAGE-XML as GT: the headline regions typed
+    ``heading``; with ``articles``, every line the article of its region
+    (:data:`ARTICLES`)."""
+    from citlab_as_tpu_torch.pagexml import Page
+    page = Page(path)
+    for region_id, _ in layout:
+        if region_id.startswith("r_hl_"):
+            page.get_child_by_id(page.page_doc, region_id)[0].set("type", "heading")
+    page.mark_dom_mutated()
+    if articles:
+        lines = []
+        for region in page.get_text_regions():
+            for tl in region.text_lines:
+                tl.set_article_id(ARTICLES[region.id])
+                lines.append(tl)
+        page.set_textline_attr(lines)
+    page.write_page_xml(path)
+
+
+def gt_train_steps(dev, gt_dir, root):
+    """``GT_TRAIN_STEPS`` bf16 steps of the segmentation trainer, from the
+    converted separator weights, on a GT directory the port's generator
+    wrote. Returns the logged steps."""
+    from citlab_as_tpu_torch.train import seg_trainer
+    from citlab_as_tpu_torch.train.seg_input_pipeline import find_gt_examples
+    from citlab_as_tpu_torch.weights import load_npz
+    examples = find_gt_examples(gt_dir)
+    check(len(examples) == 2 and all(len(c) == 2 and g.endswith(".jpg") for g, c in examples),
+          f"gt_eval: find_gt_examples gave {examples}")
+    log = StepLog(seg_trainer, ("make_train_step",), dev)
+    try:
+        seg_trainer.TrainerSegmentation(
+            os.path.join(root, "seg_from_gt"), gt_dir,
+            flags={"epochs": 1, "steps_per_epoch": GT_TRAIN_STEPS, "batch_size": SEG_BATCH,
+                   "crop_size": SEG_CROP}, seed=0, device=dev,
+            init_params=load_npz(os.path.join(REPO, "models_ckpt_torch", "separator.npz"))
+        ).train()
+    finally:
+        log.restore()
+    return log.of("train")
+
+
+def phase_gt_eval(dev, workflow_row):
+    """Ground truth and evaluation on the card: the generators on the
+    committed full-size fixture pages against the JAX package's digests,
+    the card's dilation and binarization against the CPU's, a few train
+    steps on the generated GT, the heading grid search, the comparator,
+    its tournament and reports, and the checker."""
+    import torch
+    import xml.etree.ElementTree as ET
+    import zipfile
+    from citlab_as_tpu_torch.cli import min_run_example, run_compare
+    from citlab_as_tpu_torch.eval.checker import AsChecker, AsProbCode
+    from citlab_as_tpu_torch.eval.compare import SepPageCompDict
+    from citlab_as_tpu_torch.eval.heading_eval import run_grid_search
+    from citlab_as_tpu_torch.inference import SegmentationPredictor
+    from citlab_as_tpu_torch.ops.image_utils import get_binarization
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.pagexml import Page
+    from citlab_as_tpu_torch.stages.ground_truth import apply_dilation, create_baseline_gt_img
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_gt_")
+    cpu = torch.device("cpu")
+    k1.launches = 0
+    k2.launches = 0
+    try:
+        # 1. the generators on the fixture pages, on the card
+        with open(os.path.join(GT_DIR, "digests.json")) as f:
+            record = json.load(f)
+        images = [os.path.join(GT_DIR, p) for p in record["pages"]]
+        seconds = {}
+        got, done = run_gt_generators(images, os.path.join(root, "gt"), dev,
+                                      record["half_resolution"], seconds)
+        diff = compare_gt_records(record["runs"], got)
+        check(diff is None, f"gt_eval: a generated file differs from the JAX package's: {diff}")
+        check(done == len(images), f"gt_eval: the AS CLI generated {done} of {len(images)} pages")
+        n_files = sum(len(r) for r in got.values())
+        print(f"gt_eval: {n_files} files of {len(seconds)} generator runs over {len(images)} "
+              f"fixture pages of 2000 x 1420 equal the JAX package's (decoded pixels, "
+              f"info.txt and regions_gt.json bytes); seconds per page "
+              + json.dumps({k: round(v / len(images), 3) for k, v in seconds.items()}))
+        # the card's dilation and binarization against the CPU's
+        for image in images:
+            want = get_binarization(image, device=cpu)
+            check(np.array_equal(get_binarization(image, device=dev), want),
+                  f"gt_eval: {image}: the binarization differs between the card and the CPU")
+            page = Page(os.path.join(GT_DIR, "page", os.path.basename(image)[:-4] + ".xml"))
+            w, h = page.get_image_resolution()
+            baselines = create_baseline_gt_img(page.get_article_dict(), 1.0, w, h)
+            for kernel in ((3, 3), (5, 3)):
+                check(np.array_equal(apply_dilation(baselines, kernel, dev),
+                                     apply_dilation(baselines, kernel, cpu)),
+                      f"gt_eval: {image}: the dilation {kernel} differs from the CPU")
+        print(f"gt_eval: binarization (black share {float(want.mean()):.4f}) and the baseline "
+              f"channel's dilation (3 x 3, 5 x 3) on the card equal the CPU's on "
+              f"{len(images)} pages")
+
+        # 2. the generated separator GT into training
+        before = k1.launches
+        steps = gt_train_steps(dev, os.path.join(root, "gt", "region_sep"), root)
+        losses = [s["loss"] for s in steps]
+        check(len(steps) == GT_TRAIN_STEPS and all(s["k1"] == 69 for s in steps),
+              f"gt_eval: K1 launches per train step {[s['k1'] for s in steps]}, want 69")
+        check(all(np.isfinite(losses)), f"gt_eval: train losses {losses}")
+        check(k1.launches - before == 69 * GT_TRAIN_STEPS,
+              f"gt_eval: {k1.launches - before} K1 launches in training")
+        print(f"gt_eval: {GT_TRAIN_STEPS} bf16 steps of the segmentation trainer (batch "
+              f"{SEG_BATCH} x {SEG_CROP[0]} x {SEG_CROP[1]}) from separator.npz on the "
+              f"generated separator GT: losses {[round(v, 5) for v in losses]}, ms "
+              f"{[round(s['s'] * 1e3, 1) for s in steps]}, K1 69 launches per step")
+
+        # 3. the heading grid search over the files phase's pages
+        pages, _, layouts = synthetic_newspaper(GRID_PAGES, *PAGE_SHAPE, seed=11)
+        grid_dir = os.path.join(root, "grid")
+        paths = write_corpus(grid_dir, pages, layouts)
+        for path, layout in zip(paths, layouts):
+            _gt_layout_page(os.path.join(grid_dir, "page", os.path.basename(path)[:-4] + ".xml"),
+                            layout, articles=False)
+        head = SegmentationPredictor(os.path.join(REPO, "models_ckpt_torch", "heading.npz"),
+                                     dtype=torch.bfloat16, device=dev)
+        # the shapes K1 gets here are the ones phase_k1's "K1 grid path" holds
+        from citlab_as_tpu_torch.models import arunet
+        seen = set()
+
+        def recording_conv3x3(x, weight, *args, **kwargs):
+            seen.add((*x.shape, weight.shape[0]))
+            return k1_conv3x3(x, weight, *args, **kwargs)
+
+        k1_conv3x3, arunet.conv3x3 = arunet.conv3x3, recording_conv3x3
+        before = k1.launches
+        t0 = time.perf_counter()
+        try:
+            results = run_grid_search(paths, head, **GRID)
+        finally:
+            arunet.conv3x3 = k1_conv3x3
+        grid_s = time.perf_counter() - t0
+        grid_shape = (1, *K1_HEADING_SHAPE[1:])
+        want = {(1, h, w, cin, cout)
+                for cin, cout, h, w, _ in k1_main_path_instances(grid_shape)}
+        check(seen == want, f"gt_eval: K1 shapes in the grid search {sorted(seen)} are not "
+              f"the {len(want)} instances of the K1 grid path at {grid_shape}")
+        check(len(results) == 3, f"gt_eval: {len(results)} grid points, want 3")
+        check(k1.launches - before == 69 * len(results) * GRID_PAGES,
+              f"gt_eval: {k1.launches - before} K1 launches in the grid search, want 69 x "
+              f"{len(results) * GRID_PAGES} forwards")
+        for r in results:
+            vals = list(r["metrics"].values())
+            check(len(vals) == 12 and all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in vals),
+                  f"gt_eval: grid metrics {r['metrics']}")
+        default = [r for r in results if r["setting"]["weight_dict"] ==
+                   {"net": 0.8, "stroke_width": 0.0, "text_height": 0.2}]
+        check(len(default) == 1 and default[0]["metrics"]["f1_binary"] == 1.0,
+              f"gt_eval: f1_binary at the default setting {default}")
+        print(f"gt_eval: heading grid search over {GRID_PAGES} pages, {len(results)} points "
+              f"in {grid_s:.2f} s ({grid_s / len(results):.2f} s per point); K1 "
+              f"{k1.launches - before} launches; f1_binary per point "
+              + json.dumps([[r["setting"]["weight_dict"], r["metrics"]["f1_binary"]]
+                            for r in results]))
+
+        # 4. the comparator, its tournament and reports, and the checker
+        work = os.path.join(root, "work")
+        gt_page_dir = os.path.join(root, "gt_pages", "page")
+        os.makedirs(gt_page_dir)
+        gts = []
+        for path, layout in zip(workflow_row["clustered"], workflow_row["layouts"]):
+            # GT: the drawn layout with each line's article; hypotheses: the
+            # workflow's clustering, the GT itself and every line one article
+            name = os.path.basename(path)[:-len("_clustering.xml")]
+            gt = os.path.join(gt_page_dir, f"{name}.xml")
+            write_layout_xml(gt, f"{name}.png", *PAGE_SHAPE, layout)
+            _gt_layout_page(gt, layout, articles=True)
+            gts.append(gt)
+            for method in ("dbscan", "gt", "one_article"):
+                out = os.path.join(work, "run", "eval", "x", "clustering", method,
+                                   f"{name}_clustering.xml")
+                os.makedirs(os.path.dirname(out), exist_ok=True)
+                shutil.copy({"dbscan": path, "gt": gt, "one_article": path}[method], out)
+                if method == "one_article":
+                    page = Page(out)
+                    lines = page.get_textlines()
+                    for tl in lines:
+                        tl.set_article_id("a")
+                    page.set_textline_attr(lines)
+                    page.write_page_xml(out)
+        gt_list = _write_list(os.path.join(root, "gt.lst"), gts)
+        t0 = time.perf_counter()
+        spc, evaler = run_compare.main(["--gt_list", gt_list, "--work_dir", work,
+                                        "--out_dir", os.path.join(root, "cmp"),
+                                        "--dataset", "smoke"])
+        compare_s = time.perf_counter() - t0
+        comps = {(os.path.basename(g), SepPageCompDict.path2method(h)): c
+                 for g, by_hyp in spc["smoke"].items() for h, c in by_hyp.items()}
+        methods = sorted({m for _, m in comps})
+        check(len(comps) == 3 * len(gts) and len(methods) == 3,
+              f"gt_eval: {len(comps)} comparisons of methods {methods}")
+        for key, c in comps.items():
+            check(c.checkConsistency(), f"gt_eval: {key}: gtNIs + splits + merges != hypNIs: {c}")
+            if key[1].endswith("/gt"):
+                check(c.splits == c.merges == 0 and c.corrects == c.gtNIs,
+                      f"gt_eval: {key}: GT against itself {c}")
+        csv_path = os.path.join(root, "cmp", "comparison.csv")
+        back = SepPageCompDict()
+        back.loadCSV(csv_path, methods)
+        check({(g, h): c.dataDict() for g, d in back["smoke"].items() for h, c in d.items()}
+              == {(g, h): c.dataDict() for g, d in spc["smoke"].items() for h, c in d.items()},
+              "gt_eval: the comparison CSV does not round-trip")
+        with zipfile.ZipFile(os.path.join(root, "cmp", "comparison.xlsx")) as z:
+            check(z.testzip() is None, "gt_eval: the XLSX zip is corrupt")
+            sheets = {n: ET.fromstring(z.read(n)) for n in z.namelist()
+                      if n.startswith("xl/worksheets/")}
+        rows = {n: len(t.findall(".//{*}row")) for n, t in sheets.items()}
+        check(len(sheets) == 2 and sorted(rows.values()) == [4, 4],
+              f"gt_eval: XLSX sheets and rows {rows} (winner table and the dataset's "
+              f"matrix: a header and one row per method)")
+        wins = {m: d["all"] for m, d in evaler.winnerStatDict["smoke"].items()}
+        demo_spc, _ = min_run_example.main(["--demo", "--work_dir", os.path.join(root, "demo"),
+                                            "--out_dir", os.path.join(root, "demo_out")])
+        demo = {os.path.basename(os.path.dirname(h)): c.dataDict()
+                for d in demo_spc["example"].values() for h, c in d.items()}
+        check(demo["method-good"]["dist"] == 0 and demo["method-merged"]["merges"] == -1,
+              f"gt_eval: min_run_example --demo gave {demo}")
+        checker = AsChecker(set(AsProbCode))
+        checker.page_list = list(workflow_row["clustered"])
+        checker.check_pages()
+        checker.probs_to_xlsx(os.path.join(root, "problems.xlsx"))
+        check(checker.cnt_dict["TL_12"] == 0,
+              f"gt_eval: the checker finds lines without an article id: {checker.cnt_dict}")
+        print(f"gt_eval: run_compare over {len(gts)} pages x {len(methods)} methods in "
+              f"{compare_s:.2f} s, every comparison consistent; dbscan "
+              + json.dumps([comps[(os.path.basename(g), m)].dataDict()
+                            for g in gts for m in methods if m.endswith("/dbscan")][:4])
+              + f"; tournament wins {json.dumps(wins)}, winner table "
+              f"{json.dumps(evaler.winnerDict['smoke'])}; XLSX rows {rows}; CSV "
+              f"round-trips; min_run_example --demo {json.dumps(demo)}; checker counts "
+              f"{json.dumps(checker.cnt_dict)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(os.path.dirname(workflow_row["clustered"][0]), ignore_errors=True)
+    launches = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+    check(launches == {"conv3x3": 69 * (GT_TRAIN_STEPS + 3 * GRID_PAGES),
+                       "separator_morphology": 0}, f"gt_eval: launches {launches}")
+    return {"launches": launches, "seconds_per_page": {
+        k: v / len(images) for k, v in seconds.items()}, "grid_s": grid_s}
+
+
 def main() -> int:
     try:
         import torch
@@ -2031,6 +2410,7 @@ def main() -> int:
         visual_row = timed("visual", phase_visual, dev)
         formats_row = timed("formats", phase_formats, dev)
         train_row = timed("train", phase_train, dev)
+        gt_eval_row = timed("gt_eval", phase_gt_eval, dev, workflow_row)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2044,7 +2424,8 @@ def main() -> int:
              launches_pipelined=pipelined_row["launches"]["conv3x3"],
              launches_visual=visual_row["launches"]["conv3x3"],
              launches_formats=formats_row["launches"]["conv3x3"],
-             launches_train=train_row["launches"]["conv3x3"], **k1_row),
+             launches_train=train_row["launches"]["conv3x3"],
+             launches_gt_eval=gt_eval_row["launches"]["conv3x3"], **k1_row),
         dict(name="separator_morphology", route="cuda",
              source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
              replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
@@ -2054,7 +2435,8 @@ def main() -> int:
              launches_pipelined=pipelined_row["launches"]["separator_morphology"],
              launches_visual=visual_row["launches"]["separator_morphology"],
              launches_formats=formats_row["launches"]["separator_morphology"],
-             launches_train=train_row["launches"]["separator_morphology"], **k2_row),
+             launches_train=train_row["launches"]["separator_morphology"],
+             launches_gt_eval=gt_eval_row["launches"]["separator_morphology"], **k2_row),
     ]
     # ``launches``: the in-memory main path's count; ``launches_files``: the
     # files-to-files path's; ``launches_workflow``: the whole workflow's;
@@ -2063,10 +2445,12 @@ def main() -> int:
     # relation net; ``launches_formats``: the stage CLIs' over the JPEG /
     # TIFF fixtures (separator and heading; each counted from 0 just before
     # its run); ``launches_train``: the segmentation trainer's bf16 run (13
-    # train steps and 2 eval steps, 69 each)
+    # train steps and 2 eval steps, 69 each); ``launches_gt_eval``: the
+    # ground-truth and evaluation phase's (2 train steps on generated GT and
+    # the heading grid search's 12 forwards, 69 each)
     keys = ("name", "route", "source", "replaces", "launches", "launches_files",
             "launches_workflow", "launches_pipelined", "launches_visual", "launches_formats",
-            "launches_train", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "launches_train", "launches_gt_eval", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,6 +1,9 @@
 """Geometry utilities (port copy of the part of
-``citlab_as_tpu/geometry/util.py`` that the text-region and feature stages
-reach: ``bounding_box``, ``convex_hull``, ``alpha_shape`` and its helpers).
+``citlab_as_tpu/geometry/util.py`` that the text-region, feature and
+article-rectangle stages reach: ``bounding_box``, ``convex_hull``,
+``alpha_shape`` and its helpers, ``check_intersection``, ``polygon_clip``,
+``ortho_connect`` and ``smooth_surrounding_polygon`` with the helpers it
+uses).
 
 Semantics follow python_util/geometry/util.py (file:line cites inline).
 ``alpha_shape`` runs in the port's host C++ library
@@ -9,12 +12,70 @@ version.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 from scipy.spatial import Delaunay
 
-__all__ = ["bounding_box", "convex_hull", "alpha_shape", "alpha_shape_plain"]
+from citlab_as_tpu_torch.geometry.polygon import Polygon, norm_poly_dists
+
+__all__ = ["bounding_box", "convex_hull", "alpha_shape", "alpha_shape_plain",
+           "check_intersection", "polygon_clip", "ortho_connect",
+           "smooth_surrounding_polygon"]
+
+
+def check_intersection(line_1, line_2) -> Optional[list]:
+    """Segment-segment intersection (geometry/util.py:28-85).
+
+    Lines are ``[[x1, x2], [y1, y2]]``. Returns the intersection point
+    ``[x, y]``, ``["inf", "inf"]`` for overlapping collinear segments, or
+    None. Degenerate divisions yield inf/nan (treated as no overlap) instead
+    of raising.
+    """
+    x_points1, y_points1 = line_1
+    x_points2, y_points2 = line_2
+
+    us = np.array([x_points1[0], y_points1[0]], dtype=np.float64)
+    vs = np.array([x_points1[1] - x_points1[0], y_points1[1] - y_points1[0]], dtype=np.float64)
+    u = np.array([x_points2[0], y_points2[0]], dtype=np.float64)
+    v = np.array([x_points2[1] - x_points2[0], y_points2[1] - y_points2[0]], dtype=np.float64)
+
+    a = np.stack([vs, -v], axis=1)
+    b = u - us
+
+    rank_a = np.linalg.matrix_rank(a)
+    rank_ab = np.linalg.matrix_rank(np.c_[a, b])
+
+    if rank_a != rank_ab:
+        return None  # parallel, disjoint
+
+    if rank_a == rank_ab == 1:
+        # Collinear: project line_2's endpoints onto line_1's parameter.
+        # (Deviation from the reference, which divides component-wise and
+        # crashes on axis-aligned collinear segments and misses the
+        # fully-containing case; this projection handles all overlaps.)
+        denom = float(vs @ vs)
+        if denom == 0:
+            return None  # line_1 is a point
+        s_u = float((u - us) @ vs) / denom
+        s_v = float(((u + v) - us) @ vs) / denom
+        lo, hi = min(s_u, s_v), max(s_u, s_v)
+        ov_lo, ov_hi = max(lo, 0.0), min(hi, 1.0)
+        if ov_lo > ov_hi:
+            return None
+        if ov_lo < ov_hi:
+            return ["inf", "inf"]
+        pt = us + ov_lo * vs
+        return [float(pt[0]), float(pt[1])]
+
+    s, t = np.linalg.inv(a).dot(b)
+    if not (0 <= s <= 1 and 0 <= t <= 1):
+        return None
+    pt = us + s * vs
+    return [float(pt[0]), float(pt[1])]
+
+
 
 
 def bounding_box(points) -> List[Tuple[int, int]]:
@@ -210,3 +271,286 @@ def _order_boundary(edges: List[Tuple[int, int]]) -> Optional[List[Tuple[int, in
     if len(circle) != len(edges):
         return None  # several disjoint circles
     return [(circle[i], circle[(i + 1) % len(circle)]) for i in range(len(circle))]
+
+
+def polygon_clip(poly, clip_poly) -> list:
+    """Sutherland-Hodgman clipping of an arbitrary polygon against a convex
+    CCW clip polygon (util.py:700-772)."""
+
+    def is_inside(r, e):
+        p, q = e
+        return (q[0] - p[0]) * (r[1] - p[1]) - (r[0] - p[0]) * (q[1] - p[1]) > 0
+
+    def intersect(e1, e2):
+        (x1, y1), (x2, y2) = e1
+        (x3, y3), (x4, y4) = e2
+        dx12, dx34 = x1 - x2, x3 - x4
+        dy12, dy34 = y1 - y2, y3 - y4
+        n1 = x1 * y2 - y1 * x2
+        n2 = x3 * y4 - y3 * x4
+        d = 1.0 / (dx12 * dy34 - dy12 * dx34)
+        return (n1 * dx34 - dx12 * n2) * d, (n1 * dy34 - dy12 * n2) * d
+
+    output_poly = list(poly)
+    c1 = clip_poly[-1]
+    for c2 in clip_poly:
+        input_poly = output_poly
+        output_poly = []
+        clip_edge = (c1, c2)
+        p1 = input_poly[-1]
+        for p2 in input_poly:
+            if is_inside(p2, clip_edge):
+                if not is_inside(p1, clip_edge):
+                    output_poly.append(intersect((p1, p2), clip_edge))
+                output_poly.append(p2)
+            elif is_inside(p1, clip_edge):
+                output_poly.append(intersect((p1, p2), clip_edge))
+            p1 = p2
+        if not output_poly:
+            return []
+        c1 = c2
+    return output_poly
+
+
+# -- orthogonal connect + rectilinear smoothing -----------------------------
+
+def ortho_connect(rectangles: List[Rectangle]) -> List[Polygon]:
+    """2-D Orthogonal Connect-The-Dots (O'Rourke; util.py:88-182): outline
+    polygons of a union of axis-aligned rectangles. Vertices shared by an
+    even number of rectangles cancel; remaining vertices are connected by
+    alternating horizontal/vertical edges. Inner polygons (holes contained in
+    another outline) are dropped, as in the reference."""
+    points: set = set()
+    for rect in rectangles:
+        for pt in rect.get_vertices():
+            if pt in points:
+                points.remove(pt)
+            else:
+                points.add(pt)
+    points_list = list(points)
+    if not points_list:
+        return []
+
+    sort_x = sorted(points_list)
+    sort_y = sorted(points_list, key=lambda p: (p[1], p[0]))
+
+    edges_h: dict = {}
+    edges_v: dict = {}
+    i = 0
+    while i < len(points_list):
+        curr_y = sort_y[i][1]
+        while i < len(points_list) and sort_y[i][1] == curr_y:
+            edges_h[sort_y[i]] = sort_y[i + 1]
+            edges_h[sort_y[i + 1]] = sort_y[i]
+            i += 2
+    i = 0
+    while i < len(points_list):
+        curr_x = sort_x[i][0]
+        while i < len(points_list) and sort_x[i][0] == curr_x:
+            edges_v[sort_x[i]] = sort_x[i + 1]
+            edges_v[sort_x[i + 1]] = sort_x[i]
+            i += 2
+
+    all_polygons: List[Polygon] = []
+    while edges_h:
+        polygon = [(next(iter(edges_h)), 0)]
+        edges_h.pop(polygon[0][0])
+        # re-insert: popitem in the reference removes one endpoint mapping;
+        # we emulate by tracking the start vertex and walking alternately
+        start_vertex = polygon[0][0]
+        # restore the popped mapping's partner walk: the walk below only pops
+        # what it consumes, starting with a vertical edge from start_vertex
+        while True:
+            curr, e = polygon[-1]
+            if e == 0:
+                next_vertex = edges_v.pop(curr)
+                polygon.append((next_vertex, 1))
+            else:
+                next_vertex = edges_h.pop(curr)
+                polygon.append((next_vertex, 0))
+            if polygon[-1][0] == start_vertex and polygon[-1][1] == 0:
+                polygon.pop()
+                break
+        poly_pts = [pt for pt, _ in polygon]
+        for vertex in poly_pts:
+            edges_h.pop(vertex, None)
+            edges_v.pop(vertex, None)
+        xs, ys = zip(*poly_pts)
+        all_polygons.append(Polygon(list(xs), list(ys)))
+
+    # drop polygons contained in other polygons
+    final = list(all_polygons)
+    if len(all_polygons) > 1:
+        for poly in all_polygons:
+            for other in all_polygons:
+                if other is poly:
+                    continue
+                if other.contains_point((poly.x_points[0], poly.y_points[0])):
+                    final.remove(poly)
+                    break
+    return final
+
+
+def get_orientation_cones(point, dims=(600, 300, 600, 300), offset=0) -> Dict[str, Polygon]:
+    """N/E/S/W orientation cones (triangles) around a point (util.py:206-228)."""
+    height_v, width_v, height_h, width_h = dims
+    pt_x, pt_y = point
+    cone_n = Polygon([pt_x - width_v // 2, pt_x + width_v // 2, pt_x], [pt_y, pt_y, pt_y - height_v])
+    cone_n.translate(0, offset)
+    cone_s = Polygon([pt_x - width_v // 2, pt_x + width_v // 2, pt_x], [pt_y, pt_y, pt_y + height_v])
+    cone_s.translate(0, -offset)
+    cone_e = Polygon([pt_x, pt_x, pt_x + height_h], [pt_y + width_h // 2, pt_y - width_h // 2, pt_y])
+    cone_e.translate(-offset, 0)
+    cone_w = Polygon([pt_x, pt_x, pt_x - height_h], [pt_y + width_h // 2, pt_y - width_h // 2, pt_y])
+    cone_w.translate(offset, 0)
+    return {"n": cone_n, "e": cone_e, "s": cone_s, "w": cone_w}
+
+
+def check_horizontal_edge(point_a, point_b) -> bool:
+    """True if the edge between two points is more horizontal than vertical
+    (util.py:274-281)."""
+    return not (math.fabs(point_a[0] - point_b[0]) < math.fabs(point_a[1] - point_b[1]))
+
+
+def _sort_cluster_by_y_then_x(cluster, inverse_y=False, inverse_x=False):
+    """Sort (index, (point, orientation)) clusters by point coords
+    (util.py:233-271)."""
+    sy = -1 if inverse_y else 1
+    sx = -1 if inverse_x else 1
+    return sorted(cluster, key=lambda c: (sy * c[1][0][1], sx * c[1][0][0]))
+
+
+def smooth_surrounding_polygon(
+    polygon,
+    poly_norm_dist: int = 10,
+    orientation_dims: Tuple[int, int, int, int] = (400, 800, 600, 400),
+    offset: int = 0,
+) -> Polygon:
+    """Rectilinear smoothing of a 'crooked' surrounding polygon
+    (util.py:284-505): classify each vertex by N/E/S/W cone point counts into
+    vertical / horizontal / corner orientation, fix isolated mislabels,
+    collapse corner clusters, then average coordinate runs between corners
+    into axis-aligned edges and rebuild the polygon from the ray
+    intersections."""
+    if isinstance(polygon, Polygon):
+        polygon = polygon.as_list()
+    surrounding_polygon = list(polygon)
+    if surrounding_polygon[0] != surrounding_polygon[-1]:
+        surrounding_polygon.append(polygon[0])
+
+    poly_xs, poly_ys = zip(*surrounding_polygon)
+    poly = Polygon(list(poly_xs), list(poly_ys))
+    poly_norm = norm_poly_dists([poly], des_dist=poly_norm_dist)[0]
+
+    poly_bb = poly.get_bounding_box()
+    poly_h, poly_w = poly_bb.height, poly_bb.width
+    dims_flex = [poly_h // 2, poly_h // 2, poly_w // 2, poly_h // 3]
+    dims_min = [100, 80, 100, 60]
+    dims = [max(min(x, y), z) for x, y, z in zip(orientation_dims, dims_flex, dims_min)]
+
+    norm_pts = poly_norm.as_list()
+
+    # orientation per original vertex from cone point counts
+    oriented_points = []
+    for pt in polygon:
+        cones = get_orientation_cones(pt, dims, offset)
+        counts = {o: sum(1 for pn in norm_pts if cones[o].contains_point(pn)) for o in cones}
+        top_two = [k for k, _ in sorted(counts.items(), key=lambda kv: kv[1], reverse=True)][:2]
+        if "n" in top_two and "s" in top_two:
+            pt_o = "vertical"
+        elif "e" in top_two and "w" in top_two:
+            pt_o = "horizontal"
+        elif "e" in top_two and "s" in top_two:
+            pt_o = "corner_ul"
+        elif "w" in top_two and "s" in top_two:
+            pt_o = "corner_ur"
+        elif "w" in top_two and "n" in top_two:
+            pt_o = "corner_dr"
+        else:
+            pt_o = "corner_dl"
+        oriented_points.append((pt, pt_o))
+
+    n_op = len(oriented_points)
+
+    # fix isolated misclassifications between two agreeing neighbors
+    for i in range(n_op):
+        if (
+            oriented_points[i - 1][1] != oriented_points[i][1]
+            and oriented_points[i - 1][1] == oriented_points[(i + 1) % n_op][1]
+            and "corner" not in oriented_points[i - 1][1]
+        ):
+            oriented_points[i] = (oriented_points[i][0], oriented_points[i - 1][1])
+
+    # collapse same-type corner clusters down to a single corner
+    for i in range(n_op):
+        if "corner" in oriented_points[i][1]:
+            cluster = [(i, oriented_points[i])]
+            j = (i + 1) % n_op
+            while oriented_points[i][1] == oriented_points[j][1]:
+                cluster.append((j, oriented_points[j]))
+                j = (j + 1) % n_op
+            if len(cluster) > 1:
+                typ = oriented_points[i][1]
+                if "ul" in typ:
+                    cs = _sort_cluster_by_y_then_x(cluster)
+                elif "ur" in typ:
+                    cs = _sort_cluster_by_y_then_x(cluster, inverse_x=True)
+                elif "dl" in typ:
+                    cs = _sort_cluster_by_y_then_x(cluster, inverse_y=True)
+                else:
+                    cs = _sort_cluster_by_y_then_x(cluster, inverse_y=True, inverse_x=True)
+                for idx, _ in cs[1:]:
+                    oriented_points[idx] = (oriented_points[idx][0], "vertical")
+
+    # rotate list to start at a corner, wrap around
+    corner_idx = 0
+    for i, op in enumerate(oriented_points):
+        if "corner" in op[1]:
+            corner_idx = i
+            break
+    oriented_points = oriented_points[corner_idx:] + oriented_points[:corner_idx]
+    oriented_points.append(oriented_points[0])
+
+    corner_ids = [i for i, op in enumerate(oriented_points) if "corner" in op[1]]
+    if len(corner_ids) < 2:
+        # no smoothing possible; return original closed polygon
+        return poly
+
+    smoothed_edges: List[int] = []
+    start_cluster = oriented_points[corner_ids[0]:corner_ids[1] + 1]
+    if len(start_cluster) > 3:
+        is_horizontal = check_horizontal_edge(start_cluster[0][0], start_cluster[-1][0])
+    else:
+        is_horizontal = check_horizontal_edge(start_cluster[0][0], start_cluster[1][0])
+    j = int(is_horizontal)
+
+    for i in range(len(corner_ids) - 1):
+        cluster = oriented_points[corner_ids[i]:corner_ids[i + 1] + 1]
+        if len(cluster) > 3:
+            if not j == check_horizontal_edge(cluster[0][0], cluster[-1][0]):
+                smoothed_edges.append(cluster[0][0][j])
+                j = int(not j)
+            mean = round(float(sum(pt[0][j] for pt in cluster)) / len(cluster))
+            smoothed_edges.append(mean)
+            j = int(not j)
+        else:
+            if not j == check_horizontal_edge(cluster[0][0], cluster[1][0]):
+                smoothed_edges.append(cluster[0][0][j])
+                j = int(not j)
+            for pt in cluster[:-1]:
+                smoothed_edges.append(pt[0][j])
+                j = int(not j)
+        if i == len(corner_ids) - 2 and j != is_horizontal:
+            smoothed_edges.append(cluster[-1][0][j])
+
+    smoothed_polygon = Polygon()
+    for i in range(len(smoothed_edges)):
+        if is_horizontal:
+            smoothed_polygon.add_point(
+                smoothed_edges[(i + 1) % len(smoothed_edges)], smoothed_edges[i])
+            is_horizontal = int(not is_horizontal)
+        else:
+            smoothed_polygon.add_point(
+                smoothed_edges[i], smoothed_edges[(i + 1) % len(smoothed_edges)])
+            is_horizontal = int(not is_horizontal)
+    return smoothed_polygon

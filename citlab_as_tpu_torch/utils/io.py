@@ -14,6 +14,10 @@ bit to ``np.asarray(Image.open(path).convert(mode))``:
   predictor; 1- and 8-bit grey, palette and RGB) by the port's host C++
   decoder (``csrc/image_decode.cpp``, ``utils/image_native.py``).
 
+Grey images are written as PNG (:func:`save_png`, zlib) and as PIL's
+baseline JPEG (:func:`save_jpeg`, host C++ ``csrc/image_encode.cpp``);
+:func:`resize_bilinear` is PIL's bilinear resize.
+
 Everything else raises :class:`UnsupportedImageFormat` naming the variant:
 interlaced or 16-bit PNG, BMP, GIF, WebP, JPEG 2000; CMYK/YCCK,
 arithmetic-coded, 12-bit, lossless and hierarchical JPEG, and a progressive
@@ -33,7 +37,7 @@ from typing import List
 
 import numpy as np
 
-from citlab_as_tpu_torch.utils import image_native
+from citlab_as_tpu_torch.utils import image_encode_native, image_native
 
 _IMG_ENDINGS = ("tif", "jpg", "png")
 
@@ -338,6 +342,23 @@ def save_png(path: str, image: np.ndarray) -> None:
                 + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, ctype, 0, 0, 0))
                 + chunk(b"IDAT", zlib.compress(rows.tobytes(), 1))
                 + chunk(b"IEND", b""))
+
+
+def save_jpeg(path: str, image: np.ndarray) -> None:
+    """Write a uint8 [H, W] grey array as the baseline JPEG that PIL 12.1
+    writes for ``Image.fromarray(image).save(path)`` (libjpeg-turbo 3.1,
+    quality 75, JFIF 1.01), byte for byte (``csrc/image_encode.cpp``)."""
+    data = image_encode_native.jpeg_encode_grey(image)
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+def resize_bilinear(image: np.ndarray, width: int, height: int) -> np.ndarray:
+    """``Image.fromarray(image).resize((width, height), Image.BILINEAR)`` of
+    a uint8 [H, W] grey array, bit for bit: PIL's two-pass resample, its
+    support scaled by the reduction, 22-bit fixed-point coefficients
+    (``csrc/image_encode.cpp``)."""
+    return image_encode_native.resize_bilinear(image, width, height)
 
 
 def get_img_from_page_path(page_path: str) -> str:

@@ -493,3 +493,40 @@ def test_synthetic_pages_on_the_card_equal_the_cpu(cuda):
                                               3, 128, 96, device="cuda")
     assert img.shape == (3, 128, 96, 1) and lab.shape == (3, 128, 96)
     assert torch.equal(img, again) and set(lab.unique().tolist()) <= {0, 1}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", [(3, 3), (5, 3), (1, 7)])
+def test_dilation_on_the_card_equals_the_cpu(cuda, kernel):
+    from citlab_as_tpu_torch.stages.ground_truth import apply_dilation
+    img = (np.random.RandomState(sum(kernel)).rand(301, 217) < 0.02).astype(np.uint8) * 255
+    got = apply_dilation(img, kernel, device=cuda)
+    want = apply_dilation(img, kernel, device="cpu")
+    assert got.dtype == np.uint8 and np.array_equal(got, want) and got.sum() > img.sum()
+
+
+@pytest.mark.cuda
+def test_binarization_on_the_card_equals_the_cpu(cuda):
+    import chip_smoke
+    from citlab_as_tpu_torch.ops.image_utils import get_binarization
+    pages, _ = chip_smoke.synthetic_pages(2, 700, 500, seed=4)
+    for page in pages:
+        got = get_binarization(page, device=cuda)
+        want = get_binarization(page, device="cpu")
+        assert np.array_equal(got, want) and 0 < got.mean() < 1
+
+
+@pytest.mark.cuda
+def test_gt_generators_on_the_card_equal_the_cpu(cuda, tmp_path):
+    """The AS generator's channels (Otsu and dilation on the device) equal
+    the CPU device's."""
+    import chip_smoke
+    from citlab_as_tpu_torch.stages.ground_truth import generate_as_ground_truth
+    from citlab_as_tpu_torch.utils.io import get_page_path
+    pages, _, layouts = chip_smoke.synthetic_newspaper(1, 800, 560, seed=2)
+    paths = chip_smoke.write_corpus(str(tmp_path), pages, layouts)
+    got = generate_as_ground_truth(get_page_path(paths[0]), device=cuda)
+    want = generate_as_ground_truth(get_page_path(paths[0]), device="cpu")
+    assert list(got) == list(want) == ["article", "baseline", "other"]
+    for name in want:
+        assert np.array_equal(got[name], want[name]), name

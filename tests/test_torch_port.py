@@ -1,6 +1,6 @@
 """Port-wide checks: the weight converter, import hygiene (no jax, flax,
-citlab_as_tpu, sklearn, lxml, PIL or shapely inside the port or
-chip_smoke.py), and device resolution."""
+citlab_as_tpu, sklearn, lxml, PIL, shapely, openpyxl or matplotlib inside
+the port or chip_smoke.py), and device resolution."""
 import ast
 import os
 import subprocess
@@ -15,7 +15,7 @@ PORT = os.path.join(REPO, "citlab_as_tpu_torch")
 NETS = ("separator", "heading")
 GNN_NETS = ("gnn", "gnn_pipeline")
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "citlab_as_tpu",
-             "sklearn", "lxml", "PIL", "shapely")
+             "sklearn", "lxml", "PIL", "shapely", "openpyxl", "matplotlib")
 
 
 def _npz(net):
@@ -243,6 +243,60 @@ bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax",
                                     "citlab_as_tpu", "sklearn", "lxml", "PIL",
                                     "shapely"))
+print("LOADED", bad)
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LOADED []" in r.stdout, r.stdout
+
+
+def test_running_the_gt_and_eval_path_loads_no_jax_module():
+    """Ground truth and evaluation in a fresh process: every generator and
+    the AS CLI on a drawn page, the JPEG writer and the resize, the
+    comparator with its CSV and XLSX, the checker, the two comparison CLIs
+    and the heading grid search, then no module of jax, sklearn, PIL,
+    openpyxl, matplotlib or the JAX package is loaded."""
+    code = r"""
+import os, sys, tempfile
+import numpy as np, torch
+import chip_smoke
+from citlab_as_tpu_torch.utils.io import get_page_path
+from citlab_as_tpu_torch.stages.ground_truth import (RegionGroundTruthGenerator,
+    create_text_files_from_page_list)
+from citlab_as_tpu_torch.stages.bnl_ground_truth import (BNLGroundTruthGenerator,
+    BNLHeaderGroundTruthGenerator)
+from citlab_as_tpu_torch.cli import min_run_example, run_as_gt_generation, run_compare
+from citlab_as_tpu_torch.eval.checker import AsChecker, AsProbCode
+from citlab_as_tpu_torch.eval.heading_eval import run_grid_search
+torch.set_num_threads(1)
+root = tempfile.mkdtemp()
+pages, _, layouts = chip_smoke.synthetic_newspaper(1, 800, 560, seed=0)
+paths = chip_smoke.write_corpus(root, pages, layouts)
+for cls, kw in ((RegionGroundTruthGenerator, {"max_resolution": (400, 0)}),
+                (BNLGroundTruthGenerator, {}), (BNLHeaderGroundTruthGenerator, {})):
+    gen = cls(paths, **kw)
+    assert gen.run_ground_truth_generation(os.path.join(root, cls.__name__))
+lst = chip_smoke._write_list(os.path.join(root, "p.lst"), [get_page_path(paths[0])])
+assert run_as_gt_generation.main(["--pagexml_list", lst, "--save_folder",
+                                  os.path.join(root, "as"), "--device", "cpu"]) == 1
+create_text_files_from_page_list([get_page_path(paths[0])], os.path.join(root, "txt"))
+spc, ev = min_run_example.main(["--demo", "--work_dir", os.path.join(root, "w"),
+                                "--out_dir", os.path.join(root, "wo")])
+run_compare.main(["--gt_dir", os.path.join(root, "w"), "--work_dir", os.path.join(root, "w"),
+                  "--out_dir", os.path.join(root, "co")])
+checker = AsChecker(set(AsProbCode))
+checker.page_list = [get_page_path(paths[0])]
+checker.check_pages()
+checker.probs_to_xlsx(os.path.join(root, "c.xlsx"))
+def net(image_grey):
+    p0 = (1.0 - image_grey).astype(np.float32)
+    return np.stack([p0, 1.0 - p0], axis=-1)
+res = run_grid_search(paths, net, fixed_heights=(800,))
+assert len(res) == 3
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "citlab_as_tpu", "sklearn",
+                                    "lxml", "PIL", "shapely", "openpyxl", "matplotlib"))
 print("LOADED", bad)
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
