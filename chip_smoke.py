@@ -132,7 +132,28 @@ result):
    article as two more methods) against GT from the drawn layout: every
    comparison consistent, the CSV round-trips, the XLSX is a valid zip with
    a header and one row per method in each sheet; ``min_run_example
-   --demo``; ``AsChecker`` finds no line without an article id.
+   --demo``; ``AsChecker`` finds no line without an article id;
+13. models: the separator net exported from ``separator.npz`` to a bf16
+   ``.frozen`` (``train/export.py``) and written into a TF ``.pb`` by this
+   script's wire encoder, imported by ``models/pb_import.py``: on 4 main-path
+   pages resized to height 1500, both forwards equal the ``.npz`` one bit
+   for bit with 69 K1 launches each, and one separator-stage group from the
+   ``.frozen`` net writes the ``.npz`` one's files (69 K1, 1 K2). The
+   Inception v3 visual relation net at the ``gnn`` widths (seeded, its
+   BatchNorm statistics calibrated on a seeded image) exported to a
+   ``.frozen`` and served by ``run_gnn_clustering --image_input
+   --visual_backbone inception_v3 --model_dir <.frozen>`` over 8 pages'
+   visual feature JSONs at the defaults (600 / 1024: a 1024 x 1024 padded
+   input): no K1 launch, one page's confidences card vs CPU within
+   ``MODELS_CONF_TOL`` with equal dbscan labels and equal written
+   PAGE-XML; eager and device ms per group of 4, the backbone's share,
+   GFLOP and the f32 bound, peak memory. ``run_feature_generation
+   --language german --wv_path`` (seeded vectors): the other features
+   unchanged and the similarity equal to this script's recomputation from
+   the page texts. The text-block post-processor's mask and polygons card
+   vs CPU. ``run_page_preprocessing`` in every flag combination against
+   the JAX package's digests (``tests/data/torch_preprocessing``,
+   ``scripts/make_preprocessing_fixtures.py``).
 
 The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
 """
@@ -2372,6 +2393,427 @@ def phase_gt_eval(dev, workflow_row):
         k: v / len(images) for k, v in seconds.items()}, "grid_s": grid_s}
 
 
+# ---------------------------------------------------------------- models
+
+MODELS_PAGES = 8                            # the Inception visual net's pages: 2 groups of 4
+MODELS_CONF_TOL = 1e-4                      # card vs CPU, as VISUAL_CONF_TOL
+WV_DIM = 300                                # word2vec's usual width
+WV_WORDS = ("zeitung", "regierung", "stadt", "bericht", "wahl", "markt", "preis",
+            "schule", "kirche", "krieg", "frieden", "bahn", "hafen", "wetter",
+            "rat", "gericht", "theater", "handel", "post", "land")
+PREPROCESSING_DIR = os.path.join(REPO, "tests", "data", "torch_preprocessing")
+CALIBRATION_SHAPE = (2, 1024, 1024, 1)      # the visual net's padded input at 600 / 1024
+
+
+def _tf_const_name(path):
+    """The TF const name of the reference's ARU_v1 graph for a flat flax
+    ARU-Net path (the inverse of ``pb_import._tf_to_flax_name``)."""
+    scope, inner, leaf = path[len("params/"):].rsplit("/", 2)
+    if inner == "deconv":
+        return f"aru_net/{scope[:-len('_deconv')]}/deconv/" + \
+            ("weights" if leaf == "kernel" else "bias")
+    tf_leaf = "weights" if leaf == "kernel" else "biases"
+    if scope.startswith("attMapG/"):
+        return f"aru_net/attMapG/attPart/{scope.split('/')[1]}/{tf_leaf}"
+    if scope == "logit":
+        return f"aru_net/logit/class/{tf_leaf}"
+    return f"aru_net/{scope}/{tf_leaf}"
+
+
+def write_arunet_pb(path, flat):
+    """A frozen TF1 GraphDef (protobuf wire bytes, no TensorFlow) holding
+    every weight of a flat flax ARU-Net as a float32 Const node in TF's
+    layouts: conv kernels HWIO, transposed-conv kernels [k, k, out, in]
+    flipped."""
+    def varint(v):
+        out = b""
+        while True:
+            b, v = v & 0x7F, v >> 7
+            if not v:
+                return out + bytes([b])
+            out += bytes([b | 0x80])
+
+    def field(num, payload):
+        return varint(num << 3 | 2) + varint(len(payload)) + payload
+
+    graph = b""
+    for key in sorted(flat):
+        arr = np.asarray(flat[key], np.float32)
+        if key.endswith("deconv/kernel"):
+            arr = arr[::-1, ::-1].transpose(0, 1, 3, 2)
+        shape = b"".join(field(2, varint(1 << 3) + varint(d)) for d in arr.shape)
+        tensor = (varint(1 << 3) + varint(1) + field(2, shape)
+                  + field(4, np.ascontiguousarray(arr).tobytes()))
+        attr = field(1, b"value") + field(2, field(8, tensor))
+        node = field(1, _tf_const_name(key).encode()) + field(2, b"Const") + field(5, attr)
+        graph += field(1, node)
+    with open(path, "wb") as f:
+        f.write(graph)
+    return path
+
+
+def calibrate_batch_norm(backbone, image):
+    """Set every BatchNorm's running statistics of a seeded Inception v3 to
+    the per-channel mean and variance its conv gives on ``image`` (one
+    forward, in order), so a randomly initialised net keeps its activations
+    at unit scale through its 94 units instead of fading out."""
+    import torch
+    from citlab_as_tpu_torch.models.inception_v3 import ConvUnit
+
+    def hook(unit):
+        def set_stats(_, __, out):
+            unit.BatchNorm_0.running_mean.copy_(out.mean(dim=(0, 2, 3)))
+            unit.BatchNorm_0.running_var.copy_(out.var(dim=(0, 2, 3), unbiased=False))
+        return set_stats
+    handles = [m.Conv_0.register_forward_hook(hook(m))
+               for m in backbone.modules() if isinstance(m, ConvUnit)]
+    try:
+        with torch.no_grad():
+            backbone(image)
+    finally:
+        for h in handles:
+            h.remove()
+
+
+def inception_visual_gnn(seed, dev):
+    """``GraphRelation(image_input=True, visual_backbone="inception_v3")`` at
+    the ``gnn`` widths (15 node and 2 edge features, 3 transitions, width
+    32): lecun-normal kernels and zero biases from a seeded generator (the
+    flax initializers), BatchNorm calibrated on a seeded 2 x 1024 x 1024
+    page-like image on ``dev``."""
+    import torch
+    from citlab_as_tpu_torch.models.gnn.model import GraphRelation
+    model = GraphRelation(15, 2, image_input=True, visual_backbone="inception_v3")
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.startswith("visual.backbone."):
+                continue
+            if name.endswith("bias"):
+                p.zero_()
+            else:
+                fan_in = p[0].numel()
+                p.copy_(torch.randn(p.shape, generator=gen) * fan_in ** -0.5)
+    backbone = model.visual.backbone.init_random(seed)
+    image = (torch.rand(CALIBRATION_SHAPE, generator=gen) > 0.1).float()
+    calibrate_batch_norm(backbone.to(dev), image.to(dev))
+    return model.cpu()
+
+
+def _fill_words(page_path, rng):
+    """Seeded German words (with stop words, numbers and punctuation) in
+    every empty ``Unicode`` of a PAGE-XML file."""
+    import re
+    pool = list(WV_WORDS) * 2 + ["der", "die", "Die", "und", "in", "Der", "1923", ",", "."]
+    with open(page_path, encoding="utf-8") as f:
+        xml = f.read()
+    xml = re.sub(r"<Unicode\s*/>|<Unicode></Unicode>", lambda _: "<Unicode>" + " ".join(
+        pool[i].capitalize() if pool[i] in WV_WORDS and rng.rand() < 0.5 else pool[i]
+        for i in rng.randint(0, len(pool), rng.randint(2, 9))) + "</Unicode>", xml)
+    with open(page_path, "w", encoding="utf-8") as f:
+        f.write(xml)
+
+
+def _similarity_reference(page_path, vectors, stop_words):
+    """The word-vector similarity of every region pair of a page, computed
+    here from the PAGE-XML's texts (the reference's rule: at least 5
+    tokens, alphabetic ones not in the stop list, lower-cased, summed,
+    cosine mapped to [0, 1], 0.5 where a side has no vector)."""
+    import re
+    from citlab_as_tpu_torch.pagexml import Page
+    regions = Page(page_path).get_regions()["TextRegion"]
+    sums = []
+    for tr in regions:
+        tokens = re.findall(r"\w+|[^\w\s]", "\n".join(tl.text for tl in tr.text_lines))
+        if len(tokens) < 5:
+            sums.append(None)
+            continue
+        vs = [vectors[w.lower()] for w in tokens
+              if w.isalpha() and w not in stop_words and w.lower() in vectors]
+        sums.append(np.sum(vs, axis=0) if vs else np.zeros(1))
+
+    def sim(a, b):
+        if sums[a] is None or sums[b] is None:
+            return 0.5
+        x, y = sums[a], sums[b]
+        cos = float(np.dot(x, y) / (np.linalg.norm(x) * np.linalg.norm(y))) \
+            if np.any(x) and np.any(y) else 0.0
+        return (cos + 1) / 2
+    return sim
+
+
+def phase_models(dev):
+    """``.frozen`` and ``.pb`` ARU-Nets against the ``.npz`` one; the
+    Inception v3 visual relation net exported to a ``.frozen`` and served by
+    ``run_gnn_clustering``; the word-vector feature CLI; the text-block
+    post-processor; the page-preprocessing CLI against the JAX package's
+    digests."""
+    import glob
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from citlab_as_tpu_torch.cli import (run_feature_generation, run_gnn_clustering,
+                                         run_page_preprocessing)
+    from citlab_as_tpu_torch.inference import RelationPredictor, SegmentationPredictor
+    from citlab_as_tpu_torch.models.pb_import import import_arunet_weights
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.ops.resize import resize_image
+    from citlab_as_tpu_torch.stages.clustering import TextblockClustering
+    from citlab_as_tpu_torch.stages.separator import SeparatorNetPostProcessor
+    from citlab_as_tpu_torch.stages.textblock_postprocess import TextBlockNetPostProcessor
+    from citlab_as_tpu_torch.stages.textblock_similarity import (
+        _FALLBACK_STOPWORDS, load_word_vectors)
+    from citlab_as_tpu_torch.train.export import export_checkpoint_frozen, export_frozen
+    from citlab_as_tpu_torch.utils import io as port_io
+    from citlab_as_tpu_torch.weights import (arunet_flax_from_state_dict,
+                                             arunet_state_dict_from_flax, load_npz)
+    from scripts.make_preprocessing_fixtures import run_in_copy
+
+    launches = {"conv3x3": 0, "separator_morphology": 0}
+
+    def counted(fn):
+        k1.launches = k2.launches = 0
+        out = fn()
+        torch.cuda.synchronize()
+        seen = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+        for k, v in seen.items():
+            launches[k] += v
+        return out, seen
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_models_")
+    build_dir = os.path.join(REPO, "build", "chip_smoke_models")
+    os.makedirs(build_dir, exist_ok=True)
+    try:
+        # -- .frozen and .pb ARU-Nets against the .npz one
+        npz = os.path.join(REPO, "models_ckpt_torch", "separator.npz")
+        frozen = export_checkpoint_frozen(npz, os.path.join(build_dir, "separator.frozen"),
+                                          "arunet", model_kwargs={"dtype": "bfloat16"})
+        pb = write_arunet_pb(os.path.join(build_dir, "separator.pb"), load_npz(npz))
+        preds = {"npz": SegmentationPredictor(npz, device=dev),
+                 "frozen": SegmentationPredictor(frozen, device=dev),
+                 "pb": SegmentationPredictor(None, device=dev)}
+        flat, matched, unmatched = import_arunet_weights(
+            pb, arunet_flax_from_state_dict(preds["pb"].model.state_dict()))
+        check(len(matched) == len(flat) and not unmatched,
+              f"models: .pb import matched {len(matched)} of {len(flat)}, {unmatched[:3]} left")
+        preds["pb"].model.load_state_dict(arunet_state_dict_from_flax(flat))
+        pages, _ = synthetic_pages(BATCH, *PAGE_SHAPE, seed=7)
+        out_h = FIXED_HEIGHT
+        out_w = int(PAGE_SHAPE[1] * FIXED_HEIGHT / PAGE_SHAPE[0])
+        x = resize_image(torch.from_numpy(np.stack(pages)).to(dev).float(), out_h, out_w)
+        x = torch.nn.functional.pad(x, (0, -out_w % 64, 0, -out_h % 64))[..., None] / 255.0
+        probs = {}
+        for name, pred in preds.items():
+            probs[name], seen = counted(lambda: pred._forward(x))
+            check(seen["conv3x3"] == 69, f"models: the {name} ARU forward launched K1 "
+                  f"{seen['conv3x3']} times, want 69")
+        same = {name: bool(torch.equal(probs[name], probs["npz"])) for name in ("frozen", "pb")}
+        print(f"models: ARU-Net forward at {tuple(x.shape)} bf16 from .frozen and .pb equal "
+              f"to the .npz one bit for bit: {same}; 69 K1 launches each")
+        check(all(same.values()), f"models: ARU forwards differ from the .npz one: {same}")
+
+        sep_pages, _, layouts = synthetic_newspaper(BATCH, *PAGE_SHAPE, seed=13)
+        paths = write_corpus(os.path.join(root, "sep"), sep_pages, layouts)
+        written = {}
+        for name in ("npz", "frozen"):
+            proc = SeparatorNetPostProcessor(paths, preds[name], fixed_height=FIXED_HEIGHT,
+                                             threshold=THRESHOLD)
+            _, seen = counted(lambda: proc.run_batched_fused(BATCH))
+            check(seen == {"conv3x3": 69, "separator_morphology": 1},
+                  f"models: separator group from .{name} launched {seen}")
+            written[name] = {p: _normalised_xml(p) for p in
+                             glob.glob(os.path.join(root, "sep", "page", "*.xml.xml"))}
+            for p in written[name]:
+                os.remove(p)
+        check(len(written["npz"]) == BATCH and written["frozen"] == written["npz"],
+              "models: the separator stage from the .frozen net wrote other files")
+        print(f"models: separator stage, one group of {BATCH} pages from .frozen writes the "
+              f"same {len(written['npz'])} files as from .npz (69 K1 and 1 K2 launches each)")
+        del preds, probs, x
+
+        # -- pages with words; feature JSONs with and without word vectors
+        rng = np.random.RandomState(17)
+        pages, _, layouts = synthetic_newspaper(MODELS_PAGES, *PAGE_SHAPE, seed=17)
+        images = write_corpus(root, pages, layouts)
+        page_paths = [port_io.get_page_path(p) for p in images]
+        for p in page_paths:
+            _fill_words(p, rng)
+        wv = os.path.join(root, "wv.txt")
+        with open(wv, "w", encoding="utf-8") as f:
+            f.write(f"{len(WV_WORDS)} {WV_DIM}\n")
+            for w in WV_WORDS:
+                f.write(w + " " + " ".join(f"{v:.6f}" for v in rng.randn(WV_DIM)) + "\n")
+        lst = _write_list(os.path.join(root, "pages.lst"), page_paths)
+        t0 = time.perf_counter()
+        run_feature_generation.main(["--pagexml_list", lst, "--visual_regions", "--out_path",
+                                     os.path.join(root, "json_plain")])
+        plain_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        run_feature_generation.main(["--pagexml_list", lst, "--visual_regions", "--out_path",
+                                     os.path.join(root, "json_wv"), "--language", "german",
+                                     "--wv_path", wv])
+        wv_s = time.perf_counter() - t0
+        vectors = load_word_vectors(wv)
+        worst_sim, distinct = 0.0, set()
+        for p in page_paths:
+            name = os.path.splitext(os.path.basename(p))[0] + ".json"
+            with open(os.path.join(root, "json_plain", name)) as f:
+                plain = json.load(f)
+            with open(os.path.join(root, "json_wv", name)) as f:
+                withwv = json.load(f)
+            check(withwv["node_features"] == plain["node_features"]
+                  and [e[:2] for e in withwv["edge_features"]] == plain["edge_features"],
+                  f"models: word vectors moved other features of {name}")
+            sim = _similarity_reference(p, vectors, _FALLBACK_STOPWORDS["german"])
+            for (a, b), e in zip(withwv["interacting_nodes"], withwv["edge_features"]):
+                worst_sim = max(worst_sim, abs(e[2] - sim(a, b)))
+                distinct.add(e[2])
+        print(f"models: run_feature_generation --language german --wv_path ({len(WV_WORDS)} "
+              f"seeded {WV_DIM}-d vectors) over {MODELS_PAGES} pages in {wv_s:.2f} s "
+              f"({plain_s:.2f} s without); similarity vs the smoke's recomputation from "
+              f"the texts max abs {worst_sim:.3g}; {len(distinct)} distinct values")
+        check(worst_sim <= 1e-6 and len(distinct) > 2,
+              f"models: word-vector similarity off by {worst_sim} ({len(distinct)} values)")
+
+        # -- the Inception v3 visual relation net: export, serve, time
+        t0 = time.perf_counter()
+        model = inception_visual_gnn(19, dev)
+        frozen_gnn = export_frozen(
+            os.path.join(build_dir, "inception_visual.frozen"), "graph_relation", model,
+            model_kwargs={"image_input": True, "visual_backbone": "inception_v3"})
+        print(f"models: Inception visual GNN initialised, calibrated and exported in "
+              f"{time.perf_counter() - t0:.2f} s ({os.path.getsize(frozen_gnn) / 2**20:.1f} MiB)")
+        del model
+        json_paths = sorted(glob.glob(os.path.join(root, "json_plain", "*.json")))
+        json_lst = _write_list(os.path.join(root, "json.lst"), json_paths)
+        cli_args = ["--image_input", "--visual_backbone", "inception_v3",
+                    "--model_dir", frozen_gnn]
+        _, seen = counted(lambda: run_gnn_clustering.main(
+            ["--eval_list", json_lst, "--out_dir", os.path.join(root, "warm")] + cli_args))
+        t0 = time.perf_counter()
+        card_written, seen = counted(lambda: run_gnn_clustering.main(
+            ["--eval_list", json_lst, "--out_dir", os.path.join(root, "card")] + cli_args))
+        cli_s = time.perf_counter() - t0
+        check(len(card_written) == MODELS_PAGES and seen["conv3x3"] == 0,
+              f"models: run_gnn_clustering wrote {len(card_written)} pages, K1 {seen}")
+        cpu_written = run_gnn_clustering.main(
+            ["--eval_list", _write_list(os.path.join(root, "one.lst"), json_paths[:1]),
+             "--out_dir", os.path.join(root, "cpu"), "--device", "cpu"] + cli_args)
+        same_xml = _normalised_xml(cpu_written[0]) == _normalised_xml(card_written[0])
+        with open(json_paths[0]) as f:
+            graph = json.load(f)
+        image = np.asarray(port_io.load_image(images[0], "L"))
+        kw = dict(image_input=True, visual_backbone="inception_v3")
+        card_pred = RelationPredictor(frozen_gnn, device=dev, **kw)
+        c_card = card_pred.confidences(graph, image)
+        c_cpu = RelationPredictor(frozen_gnn, device="cpu", **kw).confidences(graph, image)
+        conf_err = float(np.abs(c_card - c_cpu).max())
+        labels = []
+        for conf in (c_card, c_cpu):
+            tb = TextblockClustering()
+            tb.set_confs(conf)
+            tb.calc("dbscan")
+            labels.append(list(tb.tb_labels))
+        print(f"models: run_gnn_clustering --image_input --visual_backbone inception_v3 "
+              f"--model_dir <.frozen> over {MODELS_PAGES} pages on the card in {cli_s:.2f} s "
+              f"(K1 launches {seen['conv3x3']}); one page card vs CPU: confidences max abs "
+              f"{conf_err:.3g} (limit {MODELS_CONF_TOL}), dbscan labels equal "
+              f"{labels[0] == labels[1]}, PAGE-XML equal {same_xml}; conf spread "
+              f"{float(c_card.min()):.4f}-{float(c_card.max()):.4f}")
+        check(conf_err <= MODELS_CONF_TOL, f"models: Inception GNN card vs CPU {conf_err}")
+        check(labels[0] == labels[1], "models: dbscan labels differ between card and CPU")
+        check(same_xml, "models: the card's clustered PAGE-XML differs from the CPU's")
+
+        graphs, imgs = [], []
+        for jp, ip in zip(json_paths[:BATCH], images[:BATCH]):
+            with open(jp) as f:
+                graphs.append(json.load(f))
+            imgs.append(np.asarray(port_io.load_image(ip, "L")))
+        inputs, _ = card_pred._batch_inputs(graphs, imgs)
+        backbone = card_pred.model.visual.backbone
+        flops = [0]
+
+        def count_flops(mod, inp, out):
+            flops[0] += 2 * out.numel() * mod.in_channels * mod.kernel_size[0] * \
+                mod.kernel_size[1] // mod.groups
+        handles = [m.register_forward_hook(count_flops) for m in card_pred.model.modules()
+                   if isinstance(m, torch.nn.Conv2d)]
+        card_pred.forward_confidences(inputs)
+        for h in handles:
+            h.remove()
+
+        @torch.no_grad()
+        def backbone_fn():
+            return backbone(inputs["image"])
+        eager = cuda_ms(lambda: card_pred.forward_confidences(inputs), iters=5, warmup=2)
+        backbone_eager = cuda_ms(backbone_fn, iters=5, warmup=1)
+        device_ms = {}
+        for label, fn in (("forward", lambda: card_pred.forward_confidences(inputs)),
+                          ("backbone", backbone_fn)):
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events() if e.device_type.name == "CUDA"]
+            device_ms[label] = (sum(e.time_range.elapsed_us() for e in kernels) / 1e3
+                                if kernels else None, len(kernels))
+        torch.cuda.reset_peak_memory_stats()
+        card_pred.forward_confidences(inputs)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        bound_ms = flops[0] / PEAK_OPS_PER_S["f32"] * 1e3
+        fwd_dev, fwd_n = device_ms["forward"]
+        bb_dev, bb_n = device_ms["backbone"]
+        share = f"{bb_dev / fwd_dev:.3f}" if fwd_dev and bb_dev else "not measured"
+        print(f"models: Inception visual forward, one group of {BATCH} pages (image "
+              f"{tuple(inputs['image'].shape[1:3])}, node bucket {card_pred._node_bucket}, "
+              f"f32, TF32 off): {eager:.3f} ms eager (CUDA events), device {fwd_dev} ms over "
+              f"{fwd_n} launches (torch.profiler); backbone alone {backbone_eager:.3f} ms "
+              f"eager, device {bb_dev} ms over {bb_n} launches, share of the forward's "
+              f"device time {share}; {flops[0] / 1e9:.1f} GFLOP of convolution, f32 "
+              f"CUDA-core bound {bound_ms:.3f} ms; peak memory {peak:.2f} GiB")
+        inception = {"eager_ms": eager, "device_ms": fwd_dev, "backbone_eager_ms": backbone_eager,
+                     "backbone_device_ms": bb_dev, "gflop": flops[0] / 1e9,
+                     "bound_ms": bound_ms, "peak_gib": peak, "cli_s": cli_s,
+                     "conf_err": conf_err}
+        del card_pred, inputs
+
+        # -- the text-block post-processor: card vs CPU on a page-sized map
+        prng = np.random.RandomState(23)
+        prob = prng.rand(*PAGE_SHAPE).astype(np.float32) * 0.04
+        for _ in range(60):
+            y, x0 = prng.randint(0, PAGE_SHAPE[0] - 300), prng.randint(0, PAGE_SHAPE[1] - 300)
+            prob[y:y + prng.randint(4, 150), x0:x0 + prng.randint(4, 150)] = prng.uniform(0.05, 1)
+        net_output = np.stack([prob, 1 - prob], axis=-1)
+        post = {d: TextBlockNetPostProcessor(device=d) for d in (dev, "cpu")}
+        t0 = time.perf_counter()
+        mask_card = post[dev].post_process(net_output)
+        post_s = time.perf_counter() - t0
+        mask_cpu = post["cpu"].post_process(net_output)
+        polys = [post[d].to_polygons(m) for d, m in ((dev, mask_card), ("cpu", mask_cpu))]
+        print(f"models: text-block post-processor on a {PAGE_SHAPE} map: mask card vs CPU "
+              f"equal {bool(np.array_equal(mask_card, mask_cpu))} ({post_s * 1e3:.1f} ms on the "
+              f"card), {len(polys[0])} polygons, equal {polys[0] == polys[1]}")
+        check(np.array_equal(mask_card, mask_cpu) and polys[0] == polys[1] and polys[0],
+              "models: the text-block post-processor differs between card and CPU")
+
+        # -- page preprocessing against the JAX package's digests
+        with open(os.path.join(PREPROCESSING_DIR, "digests.json")) as f:
+            runs = json.load(f)["runs"]
+        bad = [name for name, run in runs.items()
+               if run_in_copy(run_page_preprocessing.main, run["argv"], PREPROCESSING_DIR,
+                              os.path.join(root, "pre", name)) != run["files"]]
+        print(f"models: run_page_preprocessing, {len(runs)} flag combinations: written files "
+              f"equal the JAX package's digests in {len(runs) - len(bad)}")
+        check(not bad, f"models: preprocessing differs from the digests in {bad}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"models: launches {json.dumps(launches)}")
+    return {"launches": launches, "inception": inception}
+
+
 def main() -> int:
     try:
         import torch
@@ -2411,6 +2853,7 @@ def main() -> int:
         formats_row = timed("formats", phase_formats, dev)
         train_row = timed("train", phase_train, dev)
         gt_eval_row = timed("gt_eval", phase_gt_eval, dev, workflow_row)
+        models_row = timed("models", phase_models, dev)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2425,7 +2868,8 @@ def main() -> int:
              launches_visual=visual_row["launches"]["conv3x3"],
              launches_formats=formats_row["launches"]["conv3x3"],
              launches_train=train_row["launches"]["conv3x3"],
-             launches_gt_eval=gt_eval_row["launches"]["conv3x3"], **k1_row),
+             launches_gt_eval=gt_eval_row["launches"]["conv3x3"],
+             launches_models=models_row["launches"]["conv3x3"], **k1_row),
         dict(name="separator_morphology", route="cuda",
              source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
              replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
@@ -2436,7 +2880,8 @@ def main() -> int:
              launches_visual=visual_row["launches"]["separator_morphology"],
              launches_formats=formats_row["launches"]["separator_morphology"],
              launches_train=train_row["launches"]["separator_morphology"],
-             launches_gt_eval=gt_eval_row["launches"]["separator_morphology"], **k2_row),
+             launches_gt_eval=gt_eval_row["launches"]["separator_morphology"],
+             launches_models=models_row["launches"]["separator_morphology"], **k2_row),
     ]
     # ``launches``: the in-memory main path's count; ``launches_files``: the
     # files-to-files path's; ``launches_workflow``: the whole workflow's;
@@ -2447,10 +2892,13 @@ def main() -> int:
     # its run); ``launches_train``: the segmentation trainer's bf16 run (13
     # train steps and 2 eval steps, 69 each); ``launches_gt_eval``: the
     # ground-truth and evaluation phase's (2 train steps on generated GT and
-    # the heading grid search's 12 forwards, 69 each)
+    # the heading grid search's 12 forwards, 69 each); ``launches_models``:
+    # the models phase's (the .npz, .frozen and .pb separator forwards and
+    # one separator-stage group each from .npz and .frozen: K1 69 x 5, K2 2)
     keys = ("name", "route", "source", "replaces", "launches", "launches_files",
             "launches_workflow", "launches_pipelined", "launches_visual", "launches_formats",
-            "launches_train", "launches_gt_eval", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "launches_train", "launches_gt_eval", "launches_models", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

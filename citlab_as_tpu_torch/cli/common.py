@@ -14,12 +14,21 @@ def refuse(flag: str, why: str) -> None:
     raise UnsupportedFlag(f"{flag} is not supported by the port: {why}")
 
 
-def refuse_model_dir(model_dir) -> None:
-    """The JAX CLIs read orbax checkpoint directories; the port reads the
-    converted ``.npz`` files (``scripts/convert_weights_to_torch.py``)."""
-    if model_dir is not None:
-        refuse("--model_dir", "it reads converted .npz weights, not orbax checkpoints "
-               "(convert with scripts/convert_weights_to_torch.py and pass --model)")
+def model_path(model, model_dir):
+    """The weights a CLI loads: ``--model`` (a converted ``.npz`` or a
+    ``.frozen``), or ``--model_dir`` where it names a ``.frozen`` artifact,
+    as the JAX predictors read one from there. An orbax checkpoint
+    directory is refused: the port reads converted ``.npz`` weights
+    (``scripts/convert_weights_to_torch.py``) and ``.frozen`` artifacts."""
+    if model_dir is None:
+        return model
+    if not model_dir.endswith(".frozen"):
+        refuse("--model_dir", "it reads converted .npz weights and .frozen artifacts, "
+               "not orbax checkpoints (convert with scripts/convert_weights_to_torch.py "
+               "and pass --model)")
+    if model is not None:
+        raise ValueError("pass --model or --model_dir, not both")
+    return model_dir
 
 
 def clustering_params(pairs: Sequence[str]) -> Dict:

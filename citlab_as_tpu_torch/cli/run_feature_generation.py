@@ -2,15 +2,15 @@
 ``citlab_as_tpu/cli/run_feature_generation.py``): one graph JSON per page
 (nodes = text regions, Delaunay or full interaction). Host only.
 ``--num_workers`` fans pages over a process pool (``utils/workers.py``).
-``--language`` / ``--wv_path`` (the word-vector text-block similarity
-feature) raise: that feature is not ported."""
+``--language`` with ``--wv_path`` (word2vec text or ``.npz``) adds the
+word-vector text-block similarity to every edge's features
+(``stages/textblock_similarity.py``)."""
 from __future__ import annotations
 
 import argparse
 import functools
 from typing import Optional, Sequence
 
-from citlab_as_tpu_torch.cli.common import refuse
 from citlab_as_tpu_torch.stages.features import generate_feature_jsons
 from citlab_as_tpu_torch.utils.io import load_list_file
 
@@ -34,21 +34,19 @@ def main(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--separators", type=str, default="bb",
                         choices=["bb", "line"])
     parser.add_argument("--language", type=str, default=None,
-                        help="word-vector similarity feature: not ported")
+                        help="stop-word language of the text-block similarity")
     parser.add_argument("--wv_path", type=str, default=None,
-                        help="word-vector similarity feature: not ported")
+                        help="word vectors (word2vec text or .npz) of the "
+                             "text-block similarity")
     parser.add_argument("--num_workers", type=int, default=0,
                         help="Fan pages over a process pool (0 = in-process).")
     args = parser.parse_args(argv)
-    for flag, value in (("--language", args.language), ("--wv_path", args.wv_path)):
-        if value is not None:
-            refuse(flag, "the word-vector text-block similarity feature is not "
-                   "ported (ROADMAP Queue 1 item 19)")
 
     page_paths = load_list_file(args.pagexml_list)
     kwargs = dict(
         out_path=args.out_path, interaction=args.interaction,
         visual_regions=args.visual_regions, json_list=args.external_jsons,
+        tb_similarity_setup=(args.language, args.wv_path),
         separators=args.separators)
     if args.num_workers <= 1:
         return generate_feature_jsons(page_paths, **kwargs)

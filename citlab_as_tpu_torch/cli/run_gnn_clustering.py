@@ -6,14 +6,15 @@ confidences per page graph, clustered into articles and written as
     python -m citlab_as_tpu_torch.cli.run_gnn_clustering \\
         --eval_list jsons.lst --model models_ckpt_torch/gnn.npz [--device cpu]
 
-``--model_dir`` (orbax) raises; the relation net runs on ``--device``.
+``--model`` or ``--model_dir`` may name a ``.frozen`` artifact (an orbax
+directory raises); the relation net runs on ``--device``.
 """
 from __future__ import annotations
 
 import argparse
 from typing import Optional, Sequence
 
-from citlab_as_tpu_torch.cli.common import clustering_params, refuse_model_dir
+from citlab_as_tpu_torch.cli.common import clustering_params, model_path
 from citlab_as_tpu_torch.utils.io import load_list_file
 from citlab_as_tpu_torch.utils.logging import setup_custom_logger
 
@@ -29,9 +30,10 @@ def _parse_mask(mask_str):
 def main(argv: Optional[Sequence[str]] = None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--model", type=str, default=None,
-                        help="converted relation GNN (.npz); none = random weights")
+                        help="converted relation GNN (.npz) or a .frozen artifact; "
+                             "none = random weights")
     parser.add_argument("--model_dir", type=str, default=None,
-                        help="orbax checkpoint directory: not read by the port")
+                        help="a .frozen artifact (an orbax checkpoint directory raises)")
     parser.add_argument("--eval_list", type=str, required=True,
                         help="List of graph-feature JSON paths.")
     parser.add_argument("--clustering_method", type=str, default="dbscan",
@@ -58,14 +60,14 @@ def main(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    refuse_model_dir(args.model_dir)
+    weights = model_path(args.model, args.model_dir)
 
     from citlab_as_tpu_torch.inference import RelationPredictor
     from citlab_as_tpu_torch.stages.gnn_io import gnn_clustering_for_page
 
     params = clustering_params(args.clustering_params)
     predictor = RelationPredictor(
-        args.model,
+        weights,
         node_feature_mask=_parse_mask(args.node_input_feature_mask),
         edge_feature_mask=_parse_mask(args.edge_input_feature_mask),
         image_input=args.image_input,

@@ -9,14 +9,15 @@
 Each image needs ``page/<name>.xml`` beside it; the stage writes
 ``page/<name>.xml.xml``. ``--batch_size N`` runs groups of N pages through
 the fused device path of the stage (both modes); 0 runs page by page.
-``--sharded`` (multi-GPU) and ``--model_dir`` (orbax) raise.
+``--model`` or ``--model_dir`` may name a ``.frozen`` artifact;
+``--sharded`` (multi-GPU) and an orbax ``--model_dir`` raise.
 """
 from __future__ import annotations
 
 import argparse
 from typing import Optional, Sequence
 
-from citlab_as_tpu_torch.cli.common import refuse, refuse_model_dir
+from citlab_as_tpu_torch.cli.common import refuse, model_path
 from citlab_as_tpu_torch.utils.io import load_list_file
 
 
@@ -25,9 +26,10 @@ def main(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--path_to_image_list", type=str, required=True,
                         help="List file holding the image paths.")
     parser.add_argument("--model", type=str, default=None,
-                        help="converted ARU-Net (.npz); none = random weights")
+                        help="converted ARU-Net (.npz) or a .frozen artifact; "
+                             "none = random weights")
     parser.add_argument("--model_dir", type=str, default=None,
-                        help="orbax checkpoint directory: not read by the port")
+                        help="a .frozen artifact (an orbax checkpoint directory raises)")
     parser.add_argument("--mode", type=str, required=True,
                         choices=["heading", "separator"])
     parser.add_argument("--fixed_height", type=int, default=None)
@@ -42,7 +44,7 @@ def main(argv: Optional[Sequence[str]] = None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
     args = parser.parse_args(argv)
-    refuse_model_dir(args.model_dir)
+    weights = model_path(args.model, args.model_dir)
     if args.sharded:
         refuse("--sharded", "multi-GPU inference is not ported (ROADMAP Queue 1 item 17)")
 
@@ -53,7 +55,7 @@ def main(argv: Optional[Sequence[str]] = None):
     fixed_height = args.fixed_height
     if fixed_height is None:
         fixed_height = 900 if args.mode == "heading" else 1500
-    predictor = SegmentationPredictor(args.model, dtype=torch.bfloat16, device=args.device)
+    predictor = SegmentationPredictor(weights, dtype=torch.bfloat16, device=args.device)
 
     if args.mode == "separator":
         from citlab_as_tpu_torch.stages.separator import SeparatorNetPostProcessor

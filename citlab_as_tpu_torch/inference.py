@@ -34,9 +34,12 @@ logger = logging.getLogger(__name__)
 class SegmentationPredictor:
     """ARU-Net forward: grayscale [H, W] in [0, 1] -> probabilities [H, W, C].
 
-    ``model_path``: a converted ``.npz`` (``scripts/convert_weights_to_torch.py``);
-    None -> random init from ``seed`` (logged loudly). ``dtype`` is the
-    compute dtype (bf16 by default, as the JAX predictor); parameters are
+    ``model_path``: a converted ``.npz`` (``scripts/convert_weights_to_torch.py``)
+    or a ``.frozen`` artifact (``train/export.py``, written by either
+    package), which brings its own architecture kwargs and compute dtype
+    (float32 unless its kwargs say otherwise), as in the JAX predictor; None
+    -> random init from ``seed`` (logged loudly). ``dtype`` is the compute
+    dtype otherwise (bf16 by default, as the JAX predictor); parameters are
     held in it. Runs on ``device`` ("cuda" unless told "cpu")."""
 
     def __init__(self, model_path: Optional[str] = None, n_classes: int = 2,
@@ -45,15 +48,24 @@ class SegmentationPredictor:
                  seed: int = 0, device: DeviceLike = "cuda"):
         self.device = resolve_device(device)
         self.pad_multiple = pad_multiple
-        self.model = ARUNet(n_classes=n_classes, graph_params=graph_params)
-        if model_path is not None:
-            self.model.load_state_dict(
-                arunet_state_dict_from_flax(load_npz(model_path)))
-            logger.info("Loaded ARU-Net params from %s", model_path)
+        if model_path is not None and model_path.endswith(".frozen"):
+            from citlab_as_tpu_torch.train.export import load_frozen
+            self.model, _, _ = load_frozen(model_path)
+            if not isinstance(self.model, ARUNet):
+                raise ValueError(f"{model_path} does not hold an ARU-Net")
+            dtype = self.model.compute_dtype or torch.float32
+            self.model.compute_dtype = None
+            logger.info("Loaded frozen ARU-Net from %s", model_path)
         else:
-            self.model.init_random(seed)
-            logger.warning("SegmentationPredictor using RANDOM params "
-                           "(no model_path given).")
+            self.model = ARUNet(n_classes=n_classes, graph_params=graph_params)
+            if model_path is not None:
+                self.model.load_state_dict(
+                    arunet_state_dict_from_flax(load_npz(model_path)))
+                logger.info("Loaded ARU-Net params from %s", model_path)
+            else:
+                self.model.init_random(seed)
+                logger.warning("SegmentationPredictor using RANDOM params "
+                               "(no model_path given).")
         self.model = self.model.to(device=self.device, dtype=dtype).eval()
 
     @torch.no_grad()
@@ -96,10 +108,11 @@ class RelationPredictor:
     group on the union graph.
 
     ``model_path``: a converted ``.npz`` (``scripts/convert_weights_to_torch.py
-    --kind gnn``); None -> random init from ``seed`` (logged loudly). The
-    net is built at the first group, whose feature widths it takes, as the
-    JAX predictor initializes at its first call. Runs in float32 on
-    ``device`` ("cuda" unless told "cpu").
+    --kind gnn``) or a ``.frozen`` artifact, whose kwargs then build the net
+    in place of this predictor's (as the JAX predictor does); None -> random
+    init from ``seed`` (logged loudly). The net is built at the first group,
+    whose feature widths it takes, as the JAX predictor initializes at its
+    first call. Runs in float32 on ``device`` ("cuda" unless told "cpu").
 
     ``image_input`` (the visual 'v' nets): the page images go with the
     graphs (``confidences(graph, image)``, ``confidences_batch(graphs,
@@ -108,7 +121,8 @@ class RelationPredictor:
     square, and its regions' polygons (``visual_regions_nodes`` in the
     feature JSON, written with ``visual_regions=True``) are scaled into it.
     The committed ``gnn_visual`` checkpoint was trained and evaluated at
-    288 / 384 with ``visual_backbone="ARU_cutted_v1"``."""
+    288 / 384 with ``visual_backbone="ARU_cutted_v1"``; ``inception_v3``
+    (the JAX package's default) runs at the defaults, 600 / 1024."""
 
     def __init__(self, model_path: Optional[str] = None, num_classes: int = 2,
                  gnn_params=None, message_params=None, update_params=None,
@@ -120,10 +134,6 @@ class RelationPredictor:
                  assign_visual_features_to_edges: bool = False,
                  image_min_dimension: int = 600, image_max_dimension: int = 1024,
                  seed: int = 0, device: DeviceLike = "cuda"):
-        if image_input and visual_backbone == "inception_v3":
-            raise NotImplementedError(
-                "visual_backbone='inception_v3' is not ported (ROADMAP Queue 1 "
-                "item 11: no checkpoint in the repository uses it)")
         self.device = resolve_device(device)
         self.model_path = model_path
         self.num_classes = num_classes
@@ -148,9 +158,17 @@ class RelationPredictor:
     def _ensure_params(self, inputs: Dict[str, torch.Tensor]) -> None:
         if self.model is not None:
             return
+        if self.model_path is not None and self.model_path.endswith(".frozen"):
+            from citlab_as_tpu_torch.train.export import load_frozen
+            model, _, _ = load_frozen(self.model_path, *self._input_widths(inputs))
+            if not isinstance(model, GraphRelation):
+                raise ValueError(f"{self.model_path} does not hold a relation GNN")
+            logger.info("Loaded frozen GNN from %s", self.model_path)
+            self.model = model.to(self.device).eval()
+            return
+        node_dim, edge_dim = self._input_widths(inputs)
         model = GraphRelation(
-            node_feature_dim=inputs["node_features"].shape[-1],
-            edge_feature_dim=inputs["edge_features"].shape[-1],
+            node_feature_dim=node_dim, edge_feature_dim=edge_dim,
             num_classes=self.num_classes, gnn_params=self.gnn_params,
             message_params=self.message_params, update_params=self.update_params,
             image_input=self.image_input, visual_backbone=self.visual_backbone,
@@ -170,6 +188,10 @@ class RelationPredictor:
                         param.zero_()
             logger.warning("RelationPredictor using RANDOM params.")
         self.model = model.to(self.device).eval()
+
+    @staticmethod
+    def _input_widths(inputs: Dict[str, torch.Tensor]):
+        return inputs["node_features"].shape[-1], inputs["edge_features"].shape[-1]
 
     def _bucket(self, n: int) -> int:
         for b in self.node_buckets:

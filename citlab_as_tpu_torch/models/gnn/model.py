@@ -365,14 +365,17 @@ class GraphRelation(nn.Module):
 
     def forward(self, inputs: Dict[str, torch.Tensor], train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """``train`` / ``generator``: node-feature dropout (``GraphGNN``)."""
+        """``train`` / ``generator``: node-feature dropout (``GraphGNN``);
+        with the Inception v3 visual backbone ``train`` raises
+        (``inception_v3.TrainModeUnsupported``), as the JAX package's
+        train mode does: its batch statistics are never mutable."""
         if self.image_input and "image" in inputs:
             node_vis, edge_vis = self.visual(
                 inputs["image"],
                 inputs.get("visual_regions_nodes"),
                 inputs.get("num_points_visual_regions_nodes"),
                 inputs.get("visual_regions_edges"),
-                inputs.get("num_points_visual_regions_edges"))
+                inputs.get("num_points_visual_regions_edges"), train)
             inputs = dict(inputs)
             if node_vis is not None:
                 inputs["node_features"] = torch.cat([inputs["node_features"], node_vis], -1)

@@ -1,12 +1,12 @@
 """Visual features for the relation GNN, the 'v' nets (port of
 ``citlab_as_tpu/models/gnn/visual.py``).
 
-A visual backbone (``ARU_cutted_v1``: ``models/arunet.py::ARUCutted``;
-``ARU_v1``: the full ``ARUNet``) gives multi-resolution feature maps; per
-region the map cells inside the region's bounding box are max-pooled and
-compressed to 16 values per map; the concatenated vector is appended to the
-node (or edge) features. The Inception v3 backbone is not ported (ROADMAP
-Queue 1 item 11: no checkpoint in the repository uses it).
+A visual backbone (``inception_v3``, the default:
+``models/inception_v3.py::InceptionV3``; ``ARU_cutted_v1``:
+``models/arunet.py::ARUCutted``; ``ARU_v1``: the full ``ARUNet``) gives
+multi-resolution feature maps; per region the map cells inside the
+region's bounding box are max-pooled and compressed to 16 values per map;
+the concatenated vector is appended to the node (or edge) features.
 
 The JAX package leaves the masked max to XLA, which fuses the ``where`` into
 the reduction. Eager PyTorch would build the [B, N, H, W, C] intermediate
@@ -169,9 +169,8 @@ class VisualFeatureExtractor(nn.Module):
             from citlab_as_tpu_torch.models.arunet import ARUNet
             self.backbone = ARUNet(n_classes=2)
         elif backbone == "inception_v3":
-            raise NotImplementedError(
-                "visual_backbone='inception_v3' is not ported (ROADMAP Queue 1 "
-                "item 11: no checkpoint in the repository uses it)")
+            from citlab_as_tpu_torch.models.inception_v3 import InceptionV3
+            self.backbone = InceptionV3()
         else:
             raise ValueError(f"Unknown visual backbone '{backbone}'")
         self.backbone_name = backbone
@@ -184,7 +183,9 @@ class VisualFeatureExtractor(nn.Module):
                 setattr(self, f"{scope}_compress_fm_{i}", nn.Linear(cin, dim))
         self.out_dim = sum(layer_compressed_dims)
 
-    def _end_points(self, image: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _end_points(self, image: torch.Tensor, train: bool) -> Dict[str, torch.Tensor]:
+        if self.backbone_name == "inception_v3":
+            return self.backbone(image, train)[1]
         if self.backbone_name == "ARU_cutted_v1":
             return self.backbone(image)[1]
         end_points: Dict[str, torch.Tensor] = {}
@@ -195,11 +196,13 @@ class VisualFeatureExtractor(nn.Module):
                 visual_regions_nodes: Optional[torch.Tensor] = None,
                 num_points_nodes: Optional[torch.Tensor] = None,
                 visual_regions_edges: Optional[torch.Tensor] = None,
-                num_points_edges: Optional[torch.Tensor] = None):
+                num_points_edges: Optional[torch.Tensor] = None,
+                train: bool = False):
         """``image`` [B, H, W, 1]; regions [B, N, 2, P] in absolute pixels of
         the padded image's frame. Returns (node_feats, edge_feats), each
-        [B, N, out_dim] or None."""
-        feature_maps = self.feature_maps(self._end_points(image))
+        [B, N, out_dim] or None. ``train`` reaches the backbone as in the
+        JAX package: the Inception v3 backbone refuses it."""
+        feature_maps = self.feature_maps(self._end_points(image, train))
         pad_h, pad_w = image.shape[1], image.shape[2]
 
         def pooled(regions, num_points, scope):

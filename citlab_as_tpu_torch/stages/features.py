@@ -8,8 +8,8 @@ input JSON: nodes = TextRegions with a 15-d handcrafted feature vector
 1-d); edges = Delaunay triangulation over 50-px-rounded region centers
 (fully-connected for < 4 nodes); edge features = 2-d binary h/v separator
 crossings ('bb' bounding-box rules or 'line' segment-intersection variant),
-optionally external (e.g. BERT) JSON features (the word-vector similarity
-features of ``TextblockSimilarity`` are not ported yet); GT
+optionally the word-vector text-block similarity
+(``stages/textblock_similarity.py``) and external (e.g. BERT) JSON features; GT
 relations from per-region majority article ids. The output JSON schema and
 default directory naming (json{n}{i}{e}{v}{sep}) match the reference so
 downstream tooling interoperates.
@@ -368,6 +368,7 @@ def build_input_and_target(page_path: str,
                            interaction: str = "delaunay",
                            visual_regions: bool = False,
                            external_data: Optional[list] = None,
+                           sim_feat_extractor=None,
                            separators: str = "bb",
                            image: Optional[np.ndarray] = None,
                            img_path: Optional[str] = None,
@@ -428,6 +429,14 @@ def build_input_and_target(page_path: str,
         interacting_nodes = delaunay_edges(num_nodes, centers)
     num_interacting_nodes = interacting_nodes.shape[0]
 
+    tb_sim_dict = None
+    if sim_feat_extractor is not None:
+        tb_dict = {tr.id: "\n".join(tl.text for tl in tr.text_lines)
+                   for tr in text_regions}
+        sim_feat_extractor.set_tb_dict(tb_dict)
+        sim_feat_extractor.run()
+        tb_sim_dict = sim_feat_extractor.feature_dict
+
     separator_regions = regions.get("SeparatorRegion")
 
     edge_features = []
@@ -442,6 +451,12 @@ def build_input_and_target(page_path: str,
                 feat.extend(get_edge_separator_feature_bb(tr_a, tr_b, separator_regions))
         else:
             feat.extend([0.0, 0.0])
+        if tb_sim_dict:
+            ef = tb_sim_dict["edge_features"]
+            try:
+                feat.extend(ef[tr_a.id][tr_b.id])
+            except KeyError:
+                feat.extend(ef.get("default", [0.5]))
         if external_data:
             for ext in external_data:
                 ext_page = ext.get(page_basename)
@@ -499,6 +514,7 @@ def generate_feature_jsons(page_paths: Sequence[str],
                            interaction: str = "delaunay",
                            visual_regions: bool = True,
                            json_list: Optional[Sequence[str]] = None,
+                           tb_similarity_setup=(None, None),
                            separators: str = "line",
                            image_paths: Optional[Sequence[str]] = None,
                            line_features: Optional[dict] = None) -> List[str]:
@@ -514,6 +530,12 @@ def generate_feature_jsons(page_paths: Sequence[str],
             with open(json_path) as f:
                 external.append(json.load(f))
 
+    sim_feat_extractor = None
+    if tb_similarity_setup[0] and tb_similarity_setup[1]:
+        from citlab_as_tpu_torch.stages.textblock_similarity import TextblockSimilarity
+        sim_feat_extractor = TextblockSimilarity(
+            language=tb_similarity_setup[0], wv_path=tb_similarity_setup[1])
+
     create_default_dir = out_path is None
     written, skipped = [], []
     start = time.time()
@@ -525,7 +547,7 @@ def generate_feature_jsons(page_paths: Sequence[str],
         img_path = image_paths[idx] if image_paths is not None else None
         out = build_input_and_target(
             page_path, interaction=interaction, visual_regions=visual_regions,
-            external_data=external,
+            external_data=external, sim_feat_extractor=sim_feat_extractor,
             separators=separators, img_path=img_path,
             precomputed_swt=(line_features or {}).get(page_path))
         if out is None:

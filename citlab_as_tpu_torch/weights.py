@@ -1,6 +1,6 @@
 """Weight bridge between the JAX package's flax parameter trees and the
-port's modules (the ARU-Nets and the relation GNNs, the visual ones
-included), both ways.
+port's modules (the ARU-Nets, Inception v3 and the relation GNNs, the
+visual ones included), both ways.
 
 The flax tree is carried as a flat ``{path: ndarray}`` dict with
 ``/``-joined paths (``params/featMapG/unet_down_0/conv1/conv/kernel``), as
@@ -15,7 +15,7 @@ training checkpoints and best exports name every tensor by that path).
 from __future__ import annotations
 
 import re
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -59,12 +59,23 @@ _FEATURE_MAP_CONV = re.compile(r"(proj_\d+_\w+|reduce_\d+|down_\d+)$")
 _COMPRESS = re.compile(r"visual_(node|edge)_compress_fm_\d+$")
 
 
-def _visual_state_dict(params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """The ``params/visual`` subtree (paths relative to it) -> the port's
-    ``GraphRelation.visual`` entries: ``backbone/...`` by the ARU-Net
-    mapping, ``feature_maps/<conv>/kernel`` (a plain flax ``Conv``, HWIO)
-    to OIHW, ``visual_<node|edge>_compress_fm_<i>/kernel`` (``Dense``)
-    transposed."""
+def _is_inception(paths) -> bool:
+    """True when backbone paths (flax ``/`` or torch ``.`` joined) are the
+    Inception v3's: its units' inner scopes are ``Conv_0`` / ``BatchNorm_0``,
+    the ARU-Nets' ``conv`` / ``deconv``."""
+    return any(part in ("Conv_0", "BatchNorm_0")
+               for p in paths for part in p.replace(".", "/").split("/"))
+
+
+def _visual_state_dict(params: Dict[str, np.ndarray],
+                       batch_stats: Optional[Dict[str, np.ndarray]] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """The ``params/visual`` subtree (paths relative to it; with
+    ``batch_stats``, the ``batch_stats/visual`` one) -> the port's
+    ``GraphRelation.visual`` entries: ``backbone/...`` by the ARU-Net or the
+    Inception v3 mapping, ``feature_maps/<conv>/kernel`` (a plain flax
+    ``Conv``, HWIO) to OIHW, ``visual_<node|edge>_compress_fm_<i>/kernel``
+    (``Dense``) transposed."""
     out: Dict[str, torch.Tensor] = {}
     backbone = {}
     for path, value in params.items():
@@ -85,7 +96,19 @@ def _visual_state_dict(params: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]
             raise KeyError(f"unexpected visual parameter path {path!r}")
         name = "visual." + ".".join(scopes) + (".weight" if leaf == "kernel" else ".bias")
         out[name] = torch.tensor(np.ascontiguousarray(arr))
-    for name, value in arunet_state_dict_from_flax(backbone).items():
+    stats = {}
+    for path, value in (batch_stats or {}).items():
+        scope, _, rest = path.partition("/")
+        if scope != "backbone":
+            raise KeyError(f"unexpected visual batch_stats path {path!r}")
+        stats[rest] = value
+    if stats or _is_inception(backbone):
+        mapped = inception_state_dict_from_flax(
+            {**{"params/" + k: v for k, v in backbone.items()},
+             **{"batch_stats/" + k: v for k, v in stats.items()}})
+    else:
+        mapped = arunet_state_dict_from_flax(backbone)
+    for name, value in mapped.items():
         out["visual.backbone." + name] = value
     return out
 
@@ -100,12 +123,17 @@ def gnn_state_dict_from_flax(params: Dict[str, np.ndarray]
     ``params/Classification/out/kernel``; the port's modules carry the same
     names. A flax ``Dense`` kernel [in, out] becomes ``Linear.weight``
     [out, in]. The visual nets' ``params/visual/...`` subtree maps through
-    :func:`_visual_state_dict`. A path with a scope the relation GNN does
-    not have raises ``KeyError``."""
+    :func:`_visual_state_dict`, with the Inception backbone's
+    ``batch_stats/visual/backbone/...``. A path with a scope the relation
+    GNN does not have raises ``KeyError``."""
     out: Dict[str, torch.Tensor] = {}
     visual: Dict[str, np.ndarray] = {}
+    visual_stats: Dict[str, np.ndarray] = {}
     for path, value in params.items():
         parts = path.split("/")
+        if parts[0] == "batch_stats" and parts[1:2] == ["visual"]:
+            visual_stats["/".join(parts[2:])] = value
+            continue
         if parts[0] == "params":
             parts = parts[1:]
         if parts[0] == "visual" and len(parts) > 2:
@@ -121,7 +149,7 @@ def gnn_state_dict_from_flax(params: Dict[str, np.ndarray]
             arr = arr.T
         name = ".".join(scopes) + (".weight" if leaf == "kernel" else ".bias")
         out[name] = torch.tensor(np.ascontiguousarray(arr))
-    out.update(_visual_state_dict(visual))
+    out.update(_visual_state_dict(visual, visual_stats))
     return out
 
 
@@ -162,23 +190,83 @@ def gnn_flax_from_state_dict(state_dict: Dict[str, torch.Tensor],
     """Inverse of :func:`gnn_state_dict_from_flax`: ``Linear.weight`` [out,
     in] -> ``kernel`` [in, out]; the ``visual.`` entries by the inverse of
     the visual mapping (the backbone by :func:`arunet_flax_from_state_dict`,
-    feature-map convs OIHW -> HWIO, compress layers transposed)."""
+    feature-map convs OIHW -> HWIO, compress layers transposed; an
+    Inception backbone by :func:`inception_flax_from_state_dict`, its
+    running statistics under ``batch_stats/``)."""
     out: Dict[str, np.ndarray] = {}
     backbone = {}
     for name, value in state_dict.items():
         *scopes, leaf = name.split(".")
-        if leaf not in ("weight", "bias"):
-            raise KeyError(f"unexpected relation-GNN parameter {name!r}")
         if scopes[:2] == ["visual", "backbone"]:
             backbone[".".join(scopes[2:] + [leaf])] = value
             continue
+        if leaf not in ("weight", "bias"):
+            raise KeyError(f"unexpected relation-GNN parameter {name!r}")
         arr = _np(value)
         if leaf == "weight":
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         key = "/".join(scopes + ["kernel" if leaf == "weight" else "bias"])
         out[prefix + key] = np.ascontiguousarray(arr)
-    for key, arr in arunet_flax_from_state_dict(backbone, prefix="").items():
-        out[prefix + "visual/backbone/" + key] = arr
+    if _is_inception(backbone):
+        for key, arr in inception_flax_from_state_dict(backbone).items():
+            collection, _, rest = key.partition("/")
+            out[prefix.replace("params", collection, 1) + "visual/backbone/" + rest] = arr
+    else:
+        for key, arr in arunet_flax_from_state_dict(backbone, prefix="").items():
+            out[prefix + "visual/backbone/" + key] = arr
+    return out
+
+
+_BN_LEAVES = {("params", "scale"): "weight", ("params", "bias"): "bias",
+              ("batch_stats", "mean"): "running_mean",
+              ("batch_stats", "var"): "running_var"}
+
+
+def inception_state_dict_from_flax(variables: Dict[str, np.ndarray]
+                                   ) -> Dict[str, torch.Tensor]:
+    """Map flat flax Inception v3 variables (``params/...`` and
+    ``batch_stats/...`` paths) to the port's ``InceptionV3`` state_dict:
+    ``<scope>/Conv_0/kernel`` HWIO -> ``<scope>.Conv_0.weight`` OIHW;
+    ``<scope>/BatchNorm_0/{scale,bias}`` and the batch statistics
+    ``{mean,var}`` -> ``weight``, ``bias``, ``running_mean``,
+    ``running_var`` (``num_batches_tracked``, which flax does not keep,
+    set to 0)."""
+    out: Dict[str, torch.Tensor] = {}
+    for path, value in variables.items():
+        collection, *scopes, inner, leaf = path.split("/")
+        arr = np.asarray(value, np.float32)
+        if inner == "Conv_0" and collection == "params" and leaf == "kernel" and scopes:
+            name = ".".join(scopes + [inner, "weight"])
+            arr = arr.transpose(3, 2, 0, 1)
+        elif inner == "BatchNorm_0" and (collection, leaf) in _BN_LEAVES and scopes:
+            name = ".".join(scopes + [inner, _BN_LEAVES[collection, leaf]])
+            out[".".join(scopes + [inner, "num_batches_tracked"])] = torch.tensor(0)
+        else:
+            raise KeyError(f"unexpected Inception v3 variable path {path!r}")
+        out[name] = torch.tensor(np.ascontiguousarray(arr))
+    return out
+
+
+def inception_flax_from_state_dict(state_dict: Dict[str, torch.Tensor]
+                                   ) -> Dict[str, np.ndarray]:
+    """Inverse of :func:`inception_state_dict_from_flax`, with the
+    collection prefixes ``params/`` and ``batch_stats/``;
+    ``num_batches_tracked`` is dropped."""
+    leaves = {v: k for k, v in _BN_LEAVES.items()}
+    out: Dict[str, np.ndarray] = {}
+    for name, value in state_dict.items():
+        *scopes, inner, leaf = name.split(".")
+        if leaf == "num_batches_tracked":
+            continue
+        arr = _np(value)
+        if inner == "Conv_0" and leaf == "weight":
+            collection, key = "params", "kernel"
+            arr = arr.transpose(2, 3, 1, 0)
+        elif inner == "BatchNorm_0" and leaf in leaves:
+            collection, key = leaves[leaf]
+        else:
+            raise KeyError(f"unexpected Inception v3 parameter {name!r}")
+        out["/".join([collection] + scopes + [inner, key])] = np.ascontiguousarray(arr)
     return out
 
 

@@ -211,12 +211,11 @@ def test_stage_clis_write_the_jax_clis_files(tmp_path, monkeypatch, batch_size):
                                  "--sharded"], "--sharded"),
     ("run_net_post_processing", ["--path_to_image_list", "x.lst", "--mode", "heading",
                                  "--model_dir", "models_ckpt/heading"], "--model_dir"),
-    ("run_feature_generation", ["--pagexml_list", "x.lst", "--language", "de"],
-     "--language"),
-    ("run_feature_generation", ["--pagexml_list", "x.lst", "--wv_path", "wv.bin"],
-     "--wv_path"),
-    ("run_gnn_clustering", ["--eval_list", "x.lst", "--model_dir", "models_ckpt/gnn"],
-     "--model_dir"),
+    # the id it had beside the two word-vector cases, which went with the
+    # refusal they tested
+    pytest.param("run_gnn_clustering", ["--eval_list", "x.lst", "--model_dir",
+                                        "models_ckpt/gnn"], "--model_dir",
+                 id="run_gnn_clustering-argv4---model_dir"),
 ])
 def test_unported_flags_raise_by_name(module, argv, flag):
     import importlib

@@ -530,3 +530,66 @@ def test_gt_generators_on_the_card_equal_the_cpu(cuda, tmp_path):
     assert list(got) == list(want) == ["article", "baseline", "other"]
     for name in want:
         assert np.array_equal(got[name], want[name]), name
+
+
+@pytest.mark.cuda
+def test_inception_on_the_card_equals_the_cpu(cuda):
+    """Inception v3 at 1 x 299 x 299 x 1 (f32, TF32 off), seeded weights
+    and batch statistics: every end point within 1e-4 of the output's scale;
+    no K1 launch (its convs are F.conv2d)."""
+    from citlab_as_tpu_torch.models.inception_v3 import InceptionV3
+    model = InceptionV3().init_random(3)
+    gen = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.endswith("running_mean"):
+                buf.copy_(torch.randn(buf.shape, generator=gen) * 0.1)
+            elif name.endswith("running_var"):
+                buf.copy_(torch.rand(buf.shape, generator=gen) * 0.5 + 0.75)
+    x = torch.rand(1, 299, 299, 1, generator=gen)
+    with torch.no_grad():
+        _, want = model(x)
+        k1.launches = 0
+        _, got = model.to(cuda)(x.to(cuda))
+    assert k1.launches == 0
+    for name, w in want.items():
+        scale = float(w.abs().max())
+        assert float((got[name].cpu() - w).abs().max()) <= 1e-4 * scale, name
+
+
+@pytest.mark.cuda
+def test_frozen_arunet_forward_equals_npz_on_the_card(cuda, tmp_path):
+    """The committed separator net exported to a bf16 ``.frozen``: its
+    forward on the card equals the ``.npz`` predictor's bit for bit, with 69
+    K1 launches each."""
+    import os
+    from citlab_as_tpu_torch.inference import SegmentationPredictor
+    from citlab_as_tpu_torch.train.export import export_checkpoint_frozen
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    npz = os.path.join(repo, "models_ckpt_torch", "separator.npz")
+    frozen = export_checkpoint_frozen(npz, str(tmp_path / "separator.frozen"), "arunet",
+                                      model_kwargs={"dtype": "bfloat16"})
+    image = _synthetic(256, 320) / 255.0
+    outs = []
+    for path in (npz, frozen):
+        pred = SegmentationPredictor(path, device=cuda)
+        k1.launches = 0
+        outs.append(pred(image))
+        assert k1.launches == 69
+    np.testing.assert_array_equal(outs[0], outs[1])
+
+
+@pytest.mark.cuda
+def test_text_block_post_processor_on_the_card_equals_the_cpu(cuda):
+    from citlab_as_tpu_torch.stages.textblock_postprocess import TextBlockNetPostProcessor
+    rng = np.random.RandomState(5)
+    prob = rng.rand(400, 300).astype(np.float32) * 0.04
+    for _ in range(30):
+        y, x = rng.randint(0, 380), rng.randint(0, 280)
+        prob[y:y + rng.randint(3, 20), x:x + rng.randint(3, 20)] = rng.uniform(0.05, 1)
+    net_output = np.stack([prob, 1 - prob], axis=-1)
+    card, cpu = TextBlockNetPostProcessor(device=cuda), TextBlockNetPostProcessor(device="cpu")
+    got, want = card.post_process(net_output), cpu.post_process(net_output)
+    np.testing.assert_array_equal(got, want)
+    assert got.any()
+    assert card.to_polygons(got) == cpu.to_polygons(want)

@@ -148,18 +148,24 @@ def test_padded_group_member_is_independent():
 
 def test_unknown_paths_and_visual_branch_raise():
     """Paths the relation GNN does not have raise; the visual branch builds
-    with the ARU backbones and raises only for the Inception v3 backbone,
-    which is not ported."""
+    with every backbone, Inception v3 included, and raises for an unknown
+    one and for the Inception net's train mode (its batch statistics are
+    never mutable, as in the JAX package)."""
+    from citlab_as_tpu_torch.models.inception_v3 import InceptionV3, TrainModeUnsupported
     with pytest.raises(KeyError):
         gnn_state_dict_from_flax({"params/visual/attention_head/kernel": np.zeros((2, 2))})
     with pytest.raises(KeyError):
         gnn_state_dict_from_flax({"params/GraphLSTM1/update_fn/ingate/scale": np.zeros(2)})
     assert GraphRelation(15, 2, image_input=True, visual_backbone="ARU_cutted_v1").visual
     assert RelationPredictor(image_input=True, device="cpu").image_input
-    with pytest.raises(NotImplementedError, match="item 11"):
-        GraphRelation(15, 2, image_input=True, visual_backbone="inception_v3")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        RelationPredictor(image_input=True, visual_backbone="inception_v3", device="cpu")
+    model = GraphRelation(15, 2, image_input=True, visual_backbone="inception_v3")
+    assert isinstance(model.visual.backbone, InceptionV3)
+    assert RelationPredictor(image_input=True, visual_backbone="inception_v3",
+                             device="cpu").visual_backbone == "inception_v3"
+    with pytest.raises(ValueError, match="Unknown visual backbone"):
+        GraphRelation(15, 2, image_input=True, visual_backbone="resnet")
+    with pytest.raises(TrainModeUnsupported):
+        model.visual.backbone(torch.zeros(1, 80, 80, 1), train=True)
 
 
 @pytest.fixture(scope="module")

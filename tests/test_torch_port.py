@@ -1,6 +1,7 @@
 """Port-wide checks: the weight converter, import hygiene (no jax, flax,
-citlab_as_tpu, sklearn, lxml, PIL, shapely, openpyxl or matplotlib inside
-the port or chip_smoke.py), and device resolution."""
+citlab_as_tpu, sklearn, lxml, PIL, shapely, openpyxl, matplotlib, msgpack,
+nltk, gensim, tensorflow or google inside the port or chip_smoke.py), and
+device resolution."""
 import ast
 import os
 import subprocess
@@ -15,7 +16,8 @@ PORT = os.path.join(REPO, "citlab_as_tpu_torch")
 NETS = ("separator", "heading")
 GNN_NETS = ("gnn", "gnn_pipeline")
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "citlab_as_tpu",
-             "sklearn", "lxml", "PIL", "shapely", "openpyxl", "matplotlib")
+             "sklearn", "lxml", "PIL", "shapely", "openpyxl", "matplotlib",
+             "msgpack", "nltk", "gensim", "tensorflow", "google")
 
 
 def _npz(net):
@@ -297,6 +299,95 @@ assert len(res) == 3
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "citlab_as_tpu", "sklearn",
                                     "lxml", "PIL", "shapely", "openpyxl", "matplotlib"))
+print("LOADED", bad)
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LOADED []" in r.stdout, r.stdout
+
+
+def test_running_the_models_path_loads_no_jax_module():
+    """The models slice in a fresh process: ``.frozen`` export and load of
+    the three architectures (``run_export`` too), both predictors from
+    artifacts, the Inception visual relation net, the .pb importer, the
+    flags registry, the word-vector feature CLI, the text-block
+    post-processor and the preprocessing CLI; then no module of jax, flax,
+    msgpack, nltk, gensim, tensorflow, protobuf or the JAX package is
+    loaded."""
+    code = r"""
+import json, os, shutil, sys, tempfile
+import numpy as np, torch
+import chip_smoke
+from citlab_as_tpu_torch.cli import run_export, run_feature_generation, run_page_preprocessing
+from citlab_as_tpu_torch.config import flags
+from citlab_as_tpu_torch.inference import RelationPredictor, SegmentationPredictor
+from citlab_as_tpu_torch.models.arunet import ARUNet
+from citlab_as_tpu_torch.models.gnn.model import GraphRelation
+from citlab_as_tpu_torch.models.inception_v3 import InceptionV3
+from citlab_as_tpu_torch.models.pb_import import import_arunet_weights
+from citlab_as_tpu_torch.stages.textblock_postprocess import TextBlockNetPostProcessor, xy_cut
+from citlab_as_tpu_torch.train.export import export_frozen, load_frozen
+from citlab_as_tpu_torch.weights import arunet_flax_from_state_dict
+torch.set_num_threads(1)
+root = tempfile.mkdtemp()
+gp = {"featRoot": 8, "scale_space_num": 2, "res_depth": 1, "num_scales_att": 2}
+aru = ARUNet(graph_params=gp).init_random(0)
+path = export_frozen(os.path.join(root, "aru.frozen"), "arunet", aru,
+                     {"graph_params": gp, "dtype": torch.bfloat16})
+pred = SegmentationPredictor(path, device="cpu")
+assert pred(np.random.rand(40, 30).astype(np.float32)).shape == (40, 30, 2)
+np.savez(os.path.join(root, "aru.npz"), **arunet_flax_from_state_dict(aru.state_dict()))
+assert run_export.main(["--checkpoint_dir", os.path.join(root, "aru.npz"), "--out",
+                        os.path.join(root, "aru2.frozen"), "--architecture", "arunet",
+                        "--model_kwargs", json.dumps({"graph_params": gp})])
+inc = export_frozen(os.path.join(root, "inc.frozen"), "inception_v3", InceptionV3().init_random(0))
+assert load_frozen(inc)[0](torch.rand(1, 80, 80, 1))[0].shape == (1, 1, 1, 2048)
+gnn = GraphRelation(15, 2, image_input=True, visual_backbone="inception_v3")
+gnn.visual.backbone.init_random(1)
+gpath = export_frozen(os.path.join(root, "gnn.frozen"), "graph_relation", gnn,
+                      {"image_input": True, "visual_backbone": "inception_v3"})
+rng = np.random.RandomState(0)
+graph = {"num_nodes": 4, "interacting_nodes": [[0, 1], [1, 2], [2, 3]],
+         "node_features": rng.rand(4, 15).tolist(), "edge_features": rng.rand(3, 2).tolist(),
+         "visual_regions_nodes": [[[10, 50, 50, 10], [10, 10, 40, 40]]] * 4,
+         "num_points_visual_regions_nodes": [4] * 4}
+conf = RelationPredictor(gpath, device="cpu", image_input=True, visual_backbone="inception_v3",
+                         image_min_dimension=96, image_max_dimension=128
+                         ).confidences(graph, rng.randint(0, 255, (200, 150)).astype(np.uint8))
+assert conf.shape == (4, 4) and np.isfinite(conf).all()
+flat = arunet_flax_from_state_dict(aru.state_dict())
+assert import_arunet_weights(b"", flat)[1] == []
+reg = flags.Flags()
+reg.define_integer("k", 1, "k")
+assert reg.parse_flags(["--k", "3"]) == [] and reg.k == 3
+prob = np.zeros((60, 50, 2), np.float32)
+prob[10:30, 10:30, 0] = 1.0
+post = TextBlockNetPostProcessor(device="cpu")
+assert len(post.run_on_probability_map(prob)) == 1 and xy_cut(np.zeros((40, 30), np.uint8))
+data = os.path.join("tests", "data", "torch_preprocessing")
+work = os.path.join(root, "pre")
+shutil.copytree(data, work)
+pages = [os.path.join(work, d, "page", f) for d in ("a", "b")
+         for f in sorted(os.listdir(os.path.join(work, d, "page")))]
+lst = chip_smoke._write_list(os.path.join(root, "pre.lst"), pages)
+run_page_preprocessing.main(["--page_path_list", lst, "--delete_border_textlines"])
+run_page_preprocessing.main(["--page_path_list", lst, "--fix_incorrect_regions"])
+pages, _, layouts = chip_smoke.synthetic_newspaper(1, 400, 300, seed=0, headlines=1)
+paths = chip_smoke.write_corpus(os.path.join(root, "c"), pages, layouts)
+from citlab_as_tpu_torch.utils.io import get_page_path
+wv = os.path.join(root, "wv.txt")
+open(wv, "w").write("2 3\nzeitung 1 0 0\nstadt 0 1 0\n")
+lst = chip_smoke._write_list(os.path.join(root, "p.lst"), [get_page_path(paths[0])])
+run_feature_generation.main(["--pagexml_list", lst, "--out_path", os.path.join(root, "j"),
+                             "--language", "german", "--wv_path", wv])
+# torch itself loads the ``google`` namespace (``google.cloud``); protobuf
+# is what a .pb reader would have pulled in
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax", "citlab_as_tpu",
+                                    "msgpack", "nltk", "gensim", "tensorflow",
+                                    "sklearn", "lxml", "PIL", "shapely")
+             or m.startswith("google.protobuf"))
 print("LOADED", bad)
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,

@@ -209,10 +209,33 @@ def test_graph_relation_visual_logits_match_flax(backbone):
 
 
 def test_inception_backbone_raises():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        GraphRelation(15, 2, image_input=True, visual_backbone="inception_v3")
-    with pytest.raises(NotImplementedError, match="item 11"):
-        RelationPredictor(image_input=True, visual_backbone="inception_v3", device="cpu")
+    """Both packages refuse a train step with the Inception visual net: the
+    JAX package never makes ``batch_stats`` mutable, so flax raises
+    ``ModifyScopeVariableError`` at the first BatchNorm of a train-mode
+    forward, and the port's ``GraphRelation`` raises
+    ``TrainModeUnsupported`` before its backbone runs. Inference runs."""
+    from flax.errors import ModifyScopeVariableError
+    from citlab_as_tpu_torch.models.inception_v3 import TrainModeUnsupported
+    rng = np.random.RandomState(6)
+    graphs = [_graph(rng, n) for n in (4, 6)]
+    images = [rng.randint(0, 256, (300, 200)).astype(np.uint8) for _ in graphs]
+    batch, _ = JRelationPredictor(image_input=True, visual_backbone="inception_v3",
+                                  image_min_dimension=80, image_max_dimension=96
+                                  )._batch_inputs(graphs, images)
+    jmodel = JGraphRelation(image_input=True, visual_backbone="inception_v3")
+    variables = jax.tree_util.tree_map(
+        lambda s: jnp.zeros(s.shape, s.dtype),
+        jax.eval_shape(jmodel.init, jax.random.PRNGKey(0), batch))
+    with pytest.raises(ModifyScopeVariableError):
+        jmodel.apply(variables, batch, train=True)
+    tmodel = GraphRelation(15, 2, image_input=True, visual_backbone="inception_v3")
+    inputs = {k: torch.from_numpy(np.array(v)) for k, v in batch.items()}
+    for k in ("interacting_nodes", "relations_to_consider"):
+        inputs[k] = inputs[k].long()
+    with pytest.raises(TrainModeUnsupported, match="batch statistics"):
+        tmodel(inputs, train=True)
+    with torch.no_grad():
+        assert tmodel.eval()(inputs).shape[:2] == batch["relations_to_consider"].shape[:2]
 
 
 def test_visual_state_dict_consumes_every_leaf_once():
