@@ -153,7 +153,20 @@ result):
    the page texts. The text-block post-processor's mask and polygons card
    vs CPU. ``run_page_preprocessing`` in every flag combination against
    the JAX package's digests (``tests/data/torch_preprocessing``,
-   ``scripts/make_preprocessing_fixtures.py``).
+   ``scripts/make_preprocessing_fixtures.py``);
+14. parallel: data parallelism on the one card, over a mesh whose 2 shards
+   both name it (``parallel/mesh.py``): ``ShardedSegmentationPredictor``
+   over ``make_mesh()`` and over the 2 shards bit-equal to
+   ``SegmentationPredictor`` at the same per-shard batch (69 K1 launches per
+   shard forward); the pipelined workflow over the mesh on the pipelined
+   phase's 16 pages (groups of 8, 4 per shard), with that phase's outputs
+   deleted first, writing that phase's files byte for byte, K1 552 and K2 4 launches, pages/s beside the unsharded
+   run's; ``run_net_post_processing --sharded`` writing the unsharded
+   CLI's files in both modes; ``plot_net_output`` over 2 pages (K1 138)
+   with each overlay equal to ``apply_mask`` of the card's probabilities;
+   ``apply_transform`` card = CPU for every transform and kernel type on a
+   2000 x 1420 page; ``initialize_multihost`` with a world-size-1 ``nccl``
+   group. One card shows no scaling: the pages/s are printed, not claimed.
 
 The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
 """
@@ -1256,7 +1269,9 @@ def phase_pipelined(dev):
     n_pages = N_PIPE_PAGES
     groups = -(-n_pages // BATCH)
     workers = min(4, (os.cpu_count() or 2) - 1)
+    # the corpus stays for the parallel phase, which deletes it
     root = tempfile.mkdtemp(prefix="chip_smoke_pipelined_")
+    kept = False
     # seconds of each wave's host tail over the worker pool: the first
     # wave's includes waiting for the workers' start-up
     map_items, pool_waves = port_workers.PersistentPool.map_items, []
@@ -1309,11 +1324,13 @@ def phase_pipelined(dev):
             print(f"pipelined: timings ({label}) " + json.dumps(timings))
         print(f"pipelined: host tail per wave over {workers} workers, s (two runs of "
               f"{groups} waves) " + json.dumps(pool_waves))
+        kept = True
     finally:
         port_workers.PersistentPool.map_items = map_items
-        shutil.rmtree(root, ignore_errors=True)
+        if not kept:
+            shutil.rmtree(root, ignore_errors=True)
     return {"launches": launches_seen["pipelined"], "pages_per_s": rates,
-            "timings": timings_seen}
+            "timings": timings_seen, "corpus": (root, paths, reference)}
 
 
 def phase_visual(dev):
@@ -2814,6 +2831,224 @@ def phase_models(dev):
     return {"launches": launches, "inception": inception}
 
 
+PARALLEL_SHARDS = 2                         # shards of the one card's mesh
+PARALLEL_CLI_PAGES = 4                      # pages of the --sharded CLI check
+PARALLEL_PLOT_PAGES = 2                     # pages of plot_net_output
+TRANSFORMS = ("erosion", "dilation", "opening", "closing", "gradient", "tophat",
+              "blackhat")
+
+
+def _free_port():
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_parallel(dev, pipelined_row):
+    """The data-parallel path on one card: a mesh of ``PARALLEL_SHARDS``
+    shards that all name ``dev`` (and ``make_mesh()``, every card: one
+    here). Gates: (a) ``ShardedSegmentationPredictor`` equals
+    ``SegmentationPredictor`` bit for bit at the same per-shard batch and
+    padded shape, 69 K1 launches per shard forward; (b) the pipelined
+    workflow over the mesh, from the inputs alone (the earlier runs' files
+    deleted), writes the pipelined phase's files byte for byte over its 16
+    pages, with K1 552 and K2 4 launches (pages/s beside the
+    unsharded run's); (c) ``run_net_post_processing --sharded`` writes the
+    unsharded CLI's files, both modes; (d) ``plot_net_output`` over 2 pages,
+    K1 138 launches, each overlay equal to ``apply_mask`` recomputed in
+    numpy from the card's probabilities; (e) ``apply_transform`` for every
+    transform and kernel type on a full page, card equal to CPU; (f)
+    ``initialize_multihost()`` brings up a world-size-1 ``nccl`` group."""
+    import torch
+    import torch.distributed as dist
+    from citlab_as_tpu_torch.cli import plot_net_output, run_net_post_processing
+    from citlab_as_tpu_torch.cli.run_full_workflow import run_full_workflow_pipelined
+    from citlab_as_tpu_torch.inference import (RelationPredictor, SegmentationPredictor,
+                                               ShardedSegmentationPredictor)
+    from citlab_as_tpu_torch.ops.image_utils import apply_transform
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.ops.resize import scale_image
+    from citlab_as_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+    from citlab_as_tpu_torch.utils.io import load_image, save_png
+
+    root, paths, reference = pipelined_row["corpus"]
+    work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
+    mesh = make_mesh([dev] * PARALLEL_SHARDS)
+    npz = {net: os.path.join(REPO, "models_ckpt_torch", f"{net}.npz")
+           for net in ("separator", "heading", "gnn")}
+    try:
+        # (a) sharded forwards against the unsharded predictor
+        pages, _ = synthetic_pages(BATCH * PARALLEL_SHARDS, *PAGE_SHAPE, seed=41)
+        scaled = [scale_image(torch.from_numpy(p.astype(np.float32)), FIXED_HEIGHT,
+                              1.0)[0].numpy() / 255.0 for p in pages]
+        single = SegmentationPredictor(npz["separator"], dtype=torch.bfloat16, device=dev)
+        want = [out for g in range(PARALLEL_SHARDS)
+                for out in single.predict_batch(scaled[g * BATCH:(g + 1) * BATCH])]
+        for label, shard_mesh in (("make_mesh()", make_mesh()), ("2 shards", mesh)):
+            sharded = ShardedSegmentationPredictor.from_predictor(single, shard_mesh)
+            n = sharded.n_data
+            k1.launches = 0
+            got = sharded.predict_batch(scaled[:BATCH * n])
+            torch.cuda.synchronize()
+            check(k1.launches == 69 * n, f"parallel (a) {label}: K1 launched "
+                                         f"{k1.launches} times, want 69 x {n}")
+            differ = [i for i, (a, b) in enumerate(zip(got, want)) if not np.array_equal(a, b)]
+            check(not differ, f"parallel (a) {label}: pages {differ} differ from the "
+                              "unsharded predictor's")
+            print(f"parallel (a): {label}: {n} shard(s) of {BATCH} pages at "
+                  f"{scaled[0].shape}, bit-equal to SegmentationPredictor; K1 {k1.launches}")
+
+        # (b) the pipelined workflow over the mesh, on the pipelined phase's
+        # pages, from inputs alone: every file the earlier runs wrote goes
+        # first, so no file can pass on another run's bytes
+        n_pages = len(paths)
+        for rel in written_files(root):
+            os.remove(os.path.join(root, rel))
+        run = _workflow_runner(dev, paths, RelationPredictor(npz["gnn"], device=dev))
+        rates, launches = [], None
+        for attempt in range(2):
+            secs, result, seen, timings = run(run_full_workflow_pipelined, mesh=mesh)
+            rates.append(n_pages / secs)
+            if attempt:
+                continue
+            launches = seen
+            groups = -(-n_pages // (BATCH * PARALLEL_SHARDS))
+            check_workflow_run("parallel (b)", result, seen, groups * PARALLEL_SHARDS,
+                               n_pages)
+            files = written_files(root)
+            check(set(files) == set(reference),
+                  f"parallel (b): wrote {sorted(set(files) ^ set(reference))[:4]} unlike "
+                  "the pipelined phase")
+            differ = sorted(f for f in files if files[f] != reference[f])
+            check(not differ, f"parallel (b): {len(differ)} files differ from the "
+                              f"pipelined phase's, e.g. {differ[:3]}")
+            check(PIPELINED_TIMINGS <= set(timings), f"parallel (b): timings keys "
+                                                     f"{sorted(timings)}")
+        print(f"parallel (b): {n_pages} pages over {PARALLEL_SHARDS} shards of one card, "
+              f"groups of {BATCH * PARALLEL_SHARDS}: all {len(reference)} written files "
+              f"byte-equal to the pipelined phase's; launches {json.dumps(launches)}")
+        print(f"parallel (b): pages/s, 2 shards (two runs) {json.dumps(rates)}; unsharded "
+              f"pipelined, no workers (pipelined phase) "
+              f"{json.dumps(pipelined_row['pages_per_s']['pipelined'])}")
+
+        # (c) run_net_post_processing --sharded against the unsharded CLI
+        news, _, layouts = synthetic_newspaper(PARALLEL_CLI_PAGES, *PAGE_SHAPE, seed=43)
+        cli_corpus = os.path.join(work, "cli")
+        write_corpus(cli_corpus, news, layouts)
+        cli_mesh = run_net_post_processing._mesh_for
+        run_net_post_processing._mesh_for = lambda device: mesh
+        try:
+            for mode in ("separator", "heading"):
+                outs = {}
+                for label, extra in (("unsharded", []), ("sharded", ["--sharded"])):
+                    sub = os.path.join(work, f"cli_{mode}_{label}")
+                    shutil.copytree(cli_corpus, sub)
+                    lst = _write_list(sub + ".lst", [
+                        os.path.join(sub, f"page_{i:02d}.png")
+                        for i in range(PARALLEL_CLI_PAGES)])
+                    k1.launches = k2.launches = 0
+                    t0 = time.perf_counter()
+                    run_net_post_processing.main(
+                        ["--path_to_image_list", lst, "--mode", mode, "--model", npz[mode],
+                         "--batch_size", "2"] + extra)
+                    torch.cuda.synchronize()
+                    outs[label] = (written_files(sub), round(time.perf_counter() - t0, 3),
+                                   k1.launches, k2.launches)
+                check(len(outs["sharded"][0]) == PARALLEL_CLI_PAGES
+                      and outs["sharded"][0] == outs["unsharded"][0],
+                      f"parallel (c): --sharded {mode} wrote other files than the "
+                      "unsharded CLI")
+                print(f"parallel (c): run_net_post_processing --mode {mode}: "
+                      f"{PARALLEL_CLI_PAGES} pages, --sharded over {PARALLEL_SHARDS} shards "
+                      "writes the unsharded files; (s, K1, K2) unsharded "
+                      f"{outs['unsharded'][1:]}, sharded {outs['sharded'][1:]}")
+        finally:
+            run_net_post_processing._mesh_for = cli_mesh
+
+        # (d) plot_net_output on the card
+        plot_dir = os.path.join(work, "plot")
+        plot_paths = []
+        os.makedirs(plot_dir)
+        for i in range(PARALLEL_PLOT_PAGES):
+            plot_paths.append(os.path.join(plot_dir, f"page_{i:02d}.png"))
+            save_png(plot_paths[-1], pages[i])
+        lst = _write_list(os.path.join(plot_dir, "images.lst"), plot_paths)
+        seen_probs = []
+        overlay = plot_net_output.plot_image_with_net_output
+
+        def recording(image, net_output, save_path=None):
+            seen_probs.append((image, net_output))
+            return overlay(image, net_output, save_path=save_path)
+        plot_net_output.plot_image_with_net_output = recording
+        try:
+            k1.launches = 0
+            t0 = time.perf_counter()
+            written = plot_net_output.main(["--path_to_img_lst", lst, "--model",
+                                            npz["separator"], "--save_folder",
+                                            os.path.join(plot_dir, "out")])
+            torch.cuda.synchronize()
+            plot_secs = time.perf_counter() - t0
+        finally:
+            plot_net_output.plot_image_with_net_output = overlay
+        check(k1.launches == 69 * PARALLEL_PLOT_PAGES,
+              f"parallel (d): K1 launched {k1.launches} times, want 69 x "
+              f"{PARALLEL_PLOT_PAGES}")
+        check(len(written) == len(seen_probs) == PARALLEL_PLOT_PAGES,
+              f"parallel (d): plot_net_output wrote {len(written)} files")
+        for path, (image, probs) in zip(written, seen_probs):
+            want_overlay = np.stack([image] * 3, axis=-1)
+            colors = plot_net_output.random_colors(max(probs.shape[-1] - 1, 1))
+            for c in range(probs.shape[-1] - 1):
+                want_overlay = plot_net_output.apply_mask(
+                    want_overlay, (probs[..., c] > 0.5).astype(np.uint8), colors[c])
+            check(np.array_equal(np.asarray(load_image(path, mode="RGB")), want_overlay),
+                  f"parallel (d): {path} is not the overlay of the card's probabilities")
+        print(f"parallel (d): plot_net_output over {PARALLEL_PLOT_PAGES} pages in "
+              f"{plot_secs:.3f} s, K1 {k1.launches}; overlays equal apply_mask of the card's "
+              "probabilities")
+
+        # (e) apply_transform, card against CPU, on a full page
+        page = pages[0]
+        t0 = time.perf_counter()
+        for kind in ("rect", "ellipse", "cross"):
+            for transform in TRANSFORMS:
+                got = apply_transform(page, transform, (5, 3), kind, device=dev)
+                check(np.array_equal(got, apply_transform(page, transform, (5, 3), kind,
+                                                          device="cpu")),
+                      f"parallel (e): {transform} / {kind}: card differs from the CPU")
+        print(f"parallel (e): apply_transform, {len(TRANSFORMS)} transforms x 3 kernel "
+              f"types on {page.shape}: card = CPU ({time.perf_counter() - t0:.1f} s both)")
+
+        # (f) multi-process bring-up, world size 1
+        env = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+                                               "RANK")}
+        os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+                          WORLD_SIZE="1", RANK="0")
+        try:
+            check(initialize_multihost() is True and dist.is_initialized()
+                  and dist.get_backend() == "nccl", "parallel (f): no nccl group")
+            ones = torch.ones(4, device=dev)
+            dist.all_reduce(ones)
+            torch.cuda.synchronize()
+            check(ones.tolist() == [1.0] * 4, "parallel (f): all_reduce over one rank")
+            check(initialize_multihost() is True, "parallel (f): a second call failed")
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
+            for k, v in env.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        print("parallel (f): initialize_multihost: nccl, world size 1, all_reduce ok")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "pages_per_s": rates}
+
+
 def main() -> int:
     try:
         import torch
@@ -2838,6 +3073,7 @@ def main() -> int:
         seconds[label] = round(time.perf_counter() - t0, 1)
         return out
 
+    pipelined_row = None
     try:
         dev = resolve_device("cuda")
         name, smi_line = timed("device", phase_device)
@@ -2854,9 +3090,13 @@ def main() -> int:
         train_row = timed("train", phase_train, dev)
         gt_eval_row = timed("gt_eval", phase_gt_eval, dev, workflow_row)
         models_row = timed("models", phase_models, dev)
+        parallel_row = timed("parallel", phase_parallel, dev, pipelined_row)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        if pipelined_row is not None:     # the parallel phase's input corpus
+            shutil.rmtree(pipelined_row["corpus"][0], ignore_errors=True)
     print(f"phase seconds {json.dumps(seconds)}; all {sum(seconds.values()):.1f} s")
     kernels = [
         dict(name="conv3x3", route="cuda", source="citlab_as_tpu_torch/csrc/conv3x3.cu",
@@ -2869,7 +3109,8 @@ def main() -> int:
              launches_formats=formats_row["launches"]["conv3x3"],
              launches_train=train_row["launches"]["conv3x3"],
              launches_gt_eval=gt_eval_row["launches"]["conv3x3"],
-             launches_models=models_row["launches"]["conv3x3"], **k1_row),
+             launches_models=models_row["launches"]["conv3x3"],
+             launches_parallel=parallel_row["launches"]["conv3x3"], **k1_row),
         dict(name="separator_morphology", route="cuda",
              source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
              replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
@@ -2881,7 +3122,8 @@ def main() -> int:
              launches_formats=formats_row["launches"]["separator_morphology"],
              launches_train=train_row["launches"]["separator_morphology"],
              launches_gt_eval=gt_eval_row["launches"]["separator_morphology"],
-             launches_models=models_row["launches"]["separator_morphology"], **k2_row),
+             launches_models=models_row["launches"]["separator_morphology"],
+             launches_parallel=parallel_row["launches"]["separator_morphology"], **k2_row),
     ]
     # ``launches``: the in-memory main path's count; ``launches_files``: the
     # files-to-files path's; ``launches_workflow``: the whole workflow's;
@@ -2894,11 +3136,13 @@ def main() -> int:
     # ground-truth and evaluation phase's (2 train steps on generated GT and
     # the heading grid search's 12 forwards, 69 each); ``launches_models``:
     # the models phase's (the .npz, .frozen and .pb separator forwards and
-    # one separator-stage group each from .npz and .frozen: K1 69 x 5, K2 2)
+    # one separator-stage group each from .npz and .frozen: K1 69 x 5, K2 2);
+    # ``launches_parallel``: the pipelined workflow's over a 2-shard mesh of
+    # the card (16 pages, 2 groups of 8: K1 69 x 2 nets x 2 shards x 2, K2 4)
     keys = ("name", "route", "source", "replaces", "launches", "launches_files",
             "launches_workflow", "launches_pipelined", "launches_visual", "launches_formats",
-            "launches_train", "launches_gt_eval", "launches_models", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "launches_train", "launches_gt_eval", "launches_models", "launches_parallel",
+            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

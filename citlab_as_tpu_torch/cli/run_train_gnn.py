@@ -1,9 +1,11 @@
 """GNN relation trainer CLI (port of ``citlab_as_tpu/cli/run_train_gnn.py``;
 reference: gnn/trainer/trainer_rel.py:62-69).
 
-The JAX CLI's flags and defaults, plus ``--device`` (default cuda). The JAX
-CLI's multi-host bring-up (``initialize_multihost``) has no counterpart:
-the port's trainer takes one device (ROADMAP item 17)."""
+The JAX CLI's flags and defaults, plus ``--device`` (default cuda). As the
+JAX CLI, it first brings up multi-process ``torch.distributed`` when a
+coordinator is configured (``parallel/mesh.py::initialize_multihost``;
+torchrun's variables; a no-op in one process); the trainer itself, as the
+JAX one, trains on one device and shards no batch."""
 from __future__ import annotations
 
 import argparse
@@ -11,6 +13,10 @@ from typing import Optional, Sequence
 
 
 def main(argv: Optional[Sequence[str]] = None):
+    # multi-process bring-up when torchrun's coordinator variables are set;
+    # a no-op in one process (parallel/mesh.py)
+    from citlab_as_tpu_torch.parallel.mesh import initialize_multihost
+    initialize_multihost()
     parser = argparse.ArgumentParser()
     parser.add_argument("--model_dir", type=str, required=True)
     parser.add_argument("--train_list", type=str, required=True)

@@ -6,7 +6,12 @@
 //   then the scan-line fill of polygon_generic with its corner rules,
 //   horizontal edges drawn as spans) and ImageDraw.line(xy, fill=ink,
 //   width=w) for w > 1 (vertices truncated to int, every segment a wide-line
-//   quad of ImagingDrawWideLine, no joints; a zero-length segment one pixel).
+//   quad of ImagingDrawWideLine, no joints; a zero-length segment one pixel),
+//   width 1 (line8's Bresenham per segment, then the last point),
+//   ImageDraw.ellipse (ellipseNew: quarter arcs on a doubled grid joined into
+//   horizontal spans, filled or width pixels wide) and ImageDraw.rectangle
+//   (ImagingDrawRectangle, filled or width pixels wide); the float
+//   coordinates are truncated to int, as _imaging.c does.
 // - ImagingResample's reducing or enlarging bilinear resize of an 8-bit
 //   grey image (Resample.c): the triangle filter's support scaled by the
 //   reduction, coefficients normalised then rounded to 22-bit fixed point,
@@ -236,6 +241,243 @@ void draw_wide_line(const Canvas& im, int x0, int y0, int x1, int y1, int ink, i
         add_edge(e + q, vertices[q][0], vertices[q][1], vertices[(q + 1) % 4][0],
                  vertices[(q + 1) % 4][1]);
     polygon_fill(im, 4, e, ink);
+}
+
+// line8 of Draw.c: Bresenham, the end point not drawn
+void line8(const Canvas& im, int x0, int y0, int x1, int y1, int ink) {
+    int i, n, e;
+    int dx, dy;
+    int xs, ys;
+    dx = x1 - x0;
+    if (dx < 0) {
+        dx = -dx, xs = -1;
+    } else {
+        xs = 1;
+    }
+    dy = y1 - y0;
+    if (dy < 0) {
+        dy = -dy, ys = -1;
+    } else {
+        ys = 1;
+    }
+    if (dx == 0) {
+        for (i = 0; i < dy; i++) {
+            point8(im, x0, y0, ink);
+            y0 += ys;
+        }
+    } else if (dy == 0) {
+        for (i = 0; i < dx; i++) {
+            point8(im, x0, y0, ink);
+            x0 += xs;
+        }
+    } else if (dx > dy) {
+        n = dx;
+        dy += dy;
+        e = dy - dx;
+        dx += dx;
+        for (i = 0; i < n; i++) {
+            point8(im, x0, y0, ink);
+            if (e >= 0) {
+                y0 += ys;
+                e -= dx;
+            }
+            e += dy;
+            x0 += xs;
+        }
+    } else {
+        n = dy;
+        dx += dx;
+        e = dx - dy;
+        dy += dy;
+        for (i = 0; i < n; i++) {
+            point8(im, x0, y0, ink);
+            if (e >= 0) {
+                x0 += xs;
+                e -= dy;
+            }
+            e += dx;
+            y0 += ys;
+        }
+    }
+}
+
+// ImagingDrawRectangle
+void draw_rectangle(const Canvas& im, int x0, int y0, int x1, int y1, int ink, int fill,
+                    int width) {
+    if (y0 > y1) {
+        int tmp = y0;
+        y0 = y1;
+        y1 = tmp;
+    }
+    if (fill) {
+        if (y0 < 0) {
+            y0 = 0;
+        } else if (y0 >= im.ysize) {
+            return;
+        }
+        if (y1 < 0) {
+            return;
+        } else if (y1 > im.ysize) {
+            y1 = im.ysize;
+        }
+        for (int y = y0; y <= y1; y++) hline8(im, x0, y, x1, ink);
+    } else {
+        if (width == 0) width = 1;
+        for (int i = 0; i < width; i++) {
+            hline8(im, x0, y0 + i, x1, ink);
+            hline8(im, x0, y1 - i, x1, ink);
+            line8(im, x1 - i, y0 + width, x1 - i, y1 - width + 1, ink);
+            line8(im, x0 + i, y0 + width, x0 + i, y1 - width + 1, ink);
+        }
+    }
+}
+
+// ellipseNew of Draw.c: a quarter of an ellipse of thickness 1 on a grid of
+// doubled coordinates (0 is the centre), stepped by Bresenham on the
+// ellipse equation's deviation ...
+struct QuarterState {
+    int32_t a, b, cx, cy, ex, ey;
+    int64_t a2, b2, a2b2;
+    int8_t finished;
+};
+
+void quarter_init(QuarterState* s, int32_t a, int32_t b) {
+    if (a < 0 || b < 0) {
+        s->finished = 1;
+    } else {
+        s->a = a;
+        s->b = b;
+        s->cx = a;
+        s->cy = b % 2;
+        s->ex = a % 2;
+        s->ey = b;
+        s->a2 = a * a;
+        s->b2 = b * b;
+        s->a2b2 = s->a2 * s->b2;
+        s->finished = 0;
+    }
+}
+
+int64_t quarter_delta(const QuarterState* s, int64_t x, int64_t y) {
+    return llabs(s->a2 * y * y + s->b2 * x * x - s->a2b2);
+}
+
+int8_t quarter_next(QuarterState* s, int32_t* ret_x, int32_t* ret_y) {
+    if (s->finished) return -1;
+    *ret_x = s->cx;
+    *ret_y = s->cy;
+    if (s->cx == s->ex && s->cy == s->ey) {
+        s->finished = 1;
+    } else {
+        int32_t nx = s->cx;
+        int32_t ny = s->cy + 2;
+        int64_t ndelta = quarter_delta(s, nx, ny);
+        if (nx > 1) {
+            int64_t newdelta = quarter_delta(s, s->cx - 2, s->cy + 2);
+            if (ndelta > newdelta) {
+                nx = s->cx - 2;
+                ny = s->cy + 2;
+                ndelta = newdelta;
+            }
+            newdelta = quarter_delta(s, s->cx - 2, s->cy);
+            if (ndelta > newdelta) {
+                nx = s->cx - 2;
+                ny = s->cy;
+            }
+        }
+        s->cx = nx;
+        s->cy = ny;
+    }
+    return 0;
+}
+
+// ... and two such quarters (the outer ellipse and the one width pixels
+// inside it) joined into the horizontal spans of all four quadrants
+struct EllipseState {
+    QuarterState st_o, st_i;
+    int32_t py, pl, pr;
+    int32_t cy[4], cl[4], cr[4];
+    int8_t bufcnt;
+    int8_t finished;
+    int8_t leftmost;
+};
+
+void ellipse_init(EllipseState* s, int32_t a, int32_t b, int32_t w) {
+    s->bufcnt = 0;
+    s->leftmost = a % 2;
+    quarter_init(&s->st_o, a, b);
+    if (w < 1 || quarter_next(&s->st_o, &s->pr, &s->py) == -1) {
+        s->finished = 1;
+    } else {
+        s->finished = 0;
+        quarter_init(&s->st_i, a - 2 * (w - 1), b - 2 * (w - 1));
+        s->pl = s->leftmost;
+    }
+}
+
+int8_t ellipse_next(EllipseState* s, int32_t* ret_x0, int32_t* ret_y, int32_t* ret_x1) {
+    if (s->bufcnt == 0) {
+        if (s->finished) return -1;
+        int32_t y = s->py;
+        int32_t l = s->pl;
+        int32_t r = s->pr;
+        int32_t cx = 0, cy = 0;
+        int8_t next_ret;
+        while ((next_ret = quarter_next(&s->st_o, &cx, &cy)) != -1 && cy <= y) {
+        }
+        if (next_ret == -1) {
+            s->finished = 1;
+        } else {
+            s->pr = cx;
+            s->py = cy;
+        }
+        next_ret = quarter_next(&s->st_i, &cx, &cy);
+        while (next_ret != -1 && cy <= y) {
+            l = cx;
+            next_ret = quarter_next(&s->st_i, &cx, &cy);
+        }
+        s->pl = next_ret == -1 ? s->leftmost : cx;
+        if ((l > 0 || l < r) && y > 0) {
+            s->cl[s->bufcnt] = l == 0 ? 2 : l;
+            s->cy[s->bufcnt] = y;
+            s->cr[s->bufcnt] = r;
+            ++s->bufcnt;
+        }
+        if (y > 0) {
+            s->cl[s->bufcnt] = -r;
+            s->cy[s->bufcnt] = y;
+            s->cr[s->bufcnt] = -l;
+            ++s->bufcnt;
+        }
+        if (l > 0 || l < r) {
+            s->cl[s->bufcnt] = l == 0 ? 2 : l;
+            s->cy[s->bufcnt] = -y;
+            s->cr[s->bufcnt] = r;
+            ++s->bufcnt;
+        }
+        s->cl[s->bufcnt] = -r;
+        s->cy[s->bufcnt] = -y;
+        s->cr[s->bufcnt] = -l;
+        ++s->bufcnt;
+    }
+    --s->bufcnt;
+    *ret_x0 = s->cl[s->bufcnt];
+    *ret_y = s->cy[s->bufcnt];
+    *ret_x1 = s->cr[s->bufcnt];
+    return 0;
+}
+
+void draw_ellipse(const Canvas& im, int x0, int y0, int x1, int y1, int ink, int fill,
+                  int width) {
+    int a = x1 - x0;
+    int b = y1 - y0;
+    if (a < 0 || b < 0) return;
+    if (fill) width = a + b;
+    EllipseState st;
+    ellipse_init(&st, a, b, width);
+    int32_t X0, Y, X1;
+    while (ellipse_next(&st, &X0, &Y, &X1) != -1)
+        hline8(im, x0 + (X0 + a) / 2, y0 + (Y + b) / 2, x0 + (X1 + a) / 2, ink);
 }
 
 // ------------------------------------------------------------- resample
@@ -682,6 +924,32 @@ void citlab_draw_wide_lines(uint8_t* canvas, int32_t w, int32_t h, const double*
         const double* p = xy + 2 * i;
         draw_wide_line(im, (int)p[0], (int)p[1], (int)p[2], (int)p[3], ink, width);
     }
+}
+
+// ImageDraw.line(xy, fill=ink) (width 1): line8 per segment of the n
+// points, then the last point.
+void citlab_draw_lines(uint8_t* canvas, int32_t w, int32_t h, const double* xy, int32_t n,
+                       int32_t ink) {
+    const Canvas im{canvas, w, h};
+    for (int i = 0; i < n - 1; ++i) {
+        const double* p = xy + 2 * i;
+        line8(im, (int)p[0], (int)p[1], (int)p[2], (int)p[3], ink);
+    }
+    if (n > 1) point8(im, (int)xy[2 * n - 2], (int)xy[2 * n - 1], ink);
+}
+
+// ImagingDrawEllipse / ImagingDrawRectangle of the box (x0, y0, x1, y1):
+// fill != 0 fills it, else its outline width pixels wide.
+void citlab_draw_ellipse(uint8_t* canvas, int32_t w, int32_t h, const double* box,
+                         int32_t ink, int32_t fill, int32_t width) {
+    draw_ellipse(Canvas{canvas, w, h}, (int)box[0], (int)box[1], (int)box[2], (int)box[3],
+                 ink, fill, width);
+}
+
+void citlab_draw_rectangle(uint8_t* canvas, int32_t w, int32_t h, const double* box,
+                           int32_t ink, int32_t fill, int32_t width) {
+    draw_rectangle(Canvas{canvas, w, h}, (int)box[0], (int)box[1], (int)box[2],
+                   (int)box[3], ink, fill, width);
 }
 
 // Image.resize((ow, oh), Image.BILINEAR) of an 8-bit grey image.

@@ -6,7 +6,8 @@ CUDA request on a machine without a CUDA device raises.
 """
 from __future__ import annotations
 
-from typing import Union
+import contextlib
+from typing import Optional, Union
 
 import torch
 
@@ -30,3 +31,15 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def device_scope(device: torch.device, stream: Optional["torch.cuda.Stream"] = None):
+    """The context that runs work on ``device``: the device current and,
+    given one, ``stream`` the current stream; nothing on the CPU."""
+    if device.type != "cuda":
+        return contextlib.nullcontext()
+    scope = contextlib.ExitStack()
+    scope.enter_context(torch.cuda.device(device))
+    if stream is not None:
+        scope.enter_context(torch.cuda.stream(stream))
+    return scope

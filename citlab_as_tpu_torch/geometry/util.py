@@ -3,7 +3,8 @@
 article-rectangle stages reach: ``bounding_box``, ``convex_hull``,
 ``alpha_shape`` and its helpers, ``check_intersection``, ``polygon_clip``,
 ``ortho_connect`` and ``smooth_surrounding_polygon`` with the helpers it
-uses).
+uses, the inline / offline distances ``get_dist_fast``, ``get_in_dist``,
+``get_off_dist``, and the orientation rectangles and cones).
 
 Semantics follow python_util/geometry/util.py (file:line cites inline).
 ``alpha_shape`` runs in the port's host C++ library
@@ -19,10 +20,12 @@ import numpy as np
 from scipy.spatial import Delaunay
 
 from citlab_as_tpu_torch.geometry.polygon import Polygon, norm_poly_dists
+from citlab_as_tpu_torch.geometry.rectangle import Rectangle
 
 __all__ = ["bounding_box", "convex_hull", "alpha_shape", "alpha_shape_plain",
            "check_intersection", "polygon_clip", "ortho_connect",
-           "smooth_surrounding_polygon"]
+           "smooth_surrounding_polygon", "get_dist_fast", "get_in_dist", "get_off_dist",
+           "get_orientation_rectangles", "get_orientation_cones"]
 
 
 def check_intersection(line_1, line_2) -> Optional[list]:
@@ -391,6 +394,22 @@ def ortho_connect(rectangles: List[Rectangle]) -> List[Polygon]:
     return final
 
 
+def get_orientation_rectangles(point, dims=(600, 300, 600, 300),
+                               offset=0) -> Dict[str, Rectangle]:
+    """N/E/S/W orientation rectangles around a point (util.py:185-203)."""
+    height_v, width_v, height_h, width_h = dims
+    pt_x, pt_y = point
+    rect_n = Rectangle(pt_x - width_v // 2, pt_y - height_v, width_v, height_v)
+    rect_n.translate(0, offset)
+    rect_s = Rectangle(pt_x - width_v // 2, pt_y, width_v, height_v)
+    rect_s.translate(0, -offset)
+    rect_e = Rectangle(pt_x, pt_y - height_h // 2, width_h, height_h)
+    rect_e.translate(-offset, 0)
+    rect_w = Rectangle(pt_x - width_h, pt_y - height_h // 2, width_h, height_h)
+    rect_w.translate(offset, 0)
+    return {"n": rect_n, "e": rect_e, "s": rect_s, "w": rect_w}
+
+
 def get_orientation_cones(point, dims=(600, 300, 600, 300), offset=0) -> Dict[str, Polygon]:
     """N/E/S/W orientation cones (triangles) around a point (util.py:206-228)."""
     height_v, width_v, height_h, width_h = dims
@@ -554,3 +573,34 @@ def smooth_surrounding_polygon(
                 smoothed_edges[i], smoothed_edges[(i + 1) % len(smoothed_edges)])
             is_horizontal = int(not is_horizontal)
     return smoothed_polygon
+
+
+# -- inline / offline distances (util.py:775-829) ---------------------------
+
+def get_dist_fast(point, bb: Rectangle) -> float:
+    """L1 distance from a point to a bounding box (0 inside)."""
+    dist = 0.0
+    if point[0] < bb.x:
+        dist += bb.x - point[0]
+    if point[0] > bb.x + bb.width:
+        dist += point[0] - bb.x - bb.width
+    if point[1] < bb.y:
+        dist += bb.y - point[1]
+    if point[1] > bb.y + bb.height:
+        dist += point[1] - bb.y - bb.height
+    return dist
+
+
+def get_in_dist(p1, p2, or_vec_x, or_vec_y) -> float:
+    """Inline (parallel) component of p1 - p2 along the orientation vector;
+    y is flipped into math coordinates."""
+    diff_x = p1[0] - p2[0]
+    diff_y = -p1[1] + p2[1]
+    return diff_x * or_vec_x + diff_y * or_vec_y
+
+
+def get_off_dist(p1, p2, or_vec_x, or_vec_y) -> float:
+    """Offline (perpendicular) component of p1 - p2 to the orientation."""
+    diff_x = p1[0] - p2[0]
+    diff_y = -p1[1] + p2[1]
+    return diff_x * or_vec_y - diff_y * or_vec_x

@@ -1,21 +1,24 @@
 """Inference wrappers (port of ``citlab_as_tpu/inference.py``):
 ``SegmentationPredictor`` (``__init__``, ``__call__``, ``predict_batch``,
-``predict_batch_device``) and ``RelationPredictor`` (the relation GNN over
-page groups).
+``predict_batch_device``), its data-parallel ``ShardedSegmentationPredictor``
+and ``RelationPredictor`` (the relation GNN over page groups, optionally
+over a mesh).
 
 Pages are zero-padded to a multiple of ``pad_multiple`` and cropped back.
-The batch is the caller's: there is no device batch cap (the JAX package's
-``MAX_DEVICE_BATCH`` was a TPU measurement and does not carry over).
+The unsharded batch is the caller's: there is no device batch cap (the JAX
+package's ``MAX_DEVICE_BATCH`` was a TPU measurement and does not carry
+over); the sharded predictor keeps the JAX package's per-shard chunking.
 """
 from __future__ import annotations
 
+import copy
 import logging
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from citlab_as_tpu_torch.device import DeviceLike, resolve_device
+from citlab_as_tpu_torch.device import DeviceLike, device_scope, resolve_device
 from citlab_as_tpu_torch.models.arunet import ARUNet
 from citlab_as_tpu_torch.models.gnn.graph import (
     batch_graphs, build_full_relations, correct_edges, pad_graph,
@@ -29,6 +32,10 @@ from citlab_as_tpu_torch.weights import (
 )
 
 logger = logging.getLogger(__name__)
+
+
+def _round_up(x: int, multiple: int) -> int:
+    return ((x + multiple - 1) // multiple) * multiple
 
 
 class SegmentationPredictor:
@@ -72,13 +79,29 @@ class SegmentationPredictor:
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.softmax(self.model(x), dim=-1)
 
-    def _pack(self, images: Sequence[np.ndarray]) -> torch.Tensor:
-        ph = -(-max(im.shape[0] for im in images) // self.pad_multiple) * self.pad_multiple
-        pw = -(-max(im.shape[1] for im in images) // self.pad_multiple) * self.pad_multiple
-        x = np.zeros((len(images), ph, pw, 1), np.float32)
+    def _pack_host(self, images: Sequence[np.ndarray], batch: Optional[int] = None
+                   ) -> np.ndarray:
+        """The pages zero-padded to the batch's common shape (a multiple of
+        ``pad_multiple``), [batch, H, W, 1] float32; ``batch`` (default the
+        number of pages) adds all-zero pages."""
+        ph = _round_up(max(im.shape[0] for im in images), self.pad_multiple)
+        pw = _round_up(max(im.shape[1] for im in images), self.pad_multiple)
+        x = np.zeros((batch or len(images), ph, pw, 1), np.float32)
         for i, im in enumerate(images):
             x[i, :im.shape[0], :im.shape[1], 0] = im
-        return torch.from_numpy(x).to(self.device)
+        return x
+
+    def _pack(self, images: Sequence[np.ndarray]) -> torch.Tensor:
+        return torch.from_numpy(self._pack_host(images)).to(self.device)
+
+    @classmethod
+    def view(cls, model: torch.nn.Module, device: torch.device,
+             pad_multiple: int = 64) -> "SegmentationPredictor":
+        """A predictor over an existing ``model`` on ``device`` (one shard
+        of a :class:`ShardedSegmentationPredictor`), without loading."""
+        pred = cls.__new__(cls)
+        pred.model, pred.device, pred.pad_multiple = model, device, pad_multiple
+        return pred
 
     def __call__(self, image_grey: np.ndarray) -> np.ndarray:
         return self.predict_batch([image_grey])[0]
@@ -98,6 +121,81 @@ class SegmentationPredictor:
 
         def materialize():
             host = probs.cpu().numpy()
+            return [host[i, :h, :w, :] for i, (h, w) in enumerate(shapes)]
+        return materialize
+
+
+class ShardedSegmentationPredictor(SegmentationPredictor):
+    """Data-parallel ARU-Net inference over a mesh (port of the JAX
+    package's ``ShardedSegmentationPredictor``).
+
+    One replica of the net per data shard of ``mesh`` (default
+    ``parallel.mesh.make_mesh()``: every CUDA device), each on its shard's
+    device (the mesh's devices replace ``device``). A batch is padded to its
+    common padded shape and, with all-zero pages, to a multiple of
+    ``n_data``, then split into equal consecutive shards; each shard's
+    forward is issued on its own device and CUDA stream, so shards on
+    different GPUs overlap, and the probabilities are gathered in page
+    order. Batches above ``MAX_SHARD_BATCH * n_data`` pages are chunked, as
+    the JAX predictor chunks at ``MAX_DEVICE_BATCH * n_data`` (7 per shard,
+    the reference's cap, not an H100 measurement). Other arguments as
+    :class:`SegmentationPredictor`."""
+
+    MAX_SHARD_BATCH = 7
+
+    def __init__(self, model_path: Optional[str] = None, mesh=None, **kwargs):
+        from citlab_as_tpu_torch.parallel.mesh import make_mesh
+        mesh = mesh if mesh is not None else make_mesh()
+        kwargs["device"] = mesh.data_devices[0]
+        super().__init__(model_path, **kwargs)
+        self._shard_over(mesh)
+
+    @classmethod
+    def from_predictor(cls, predictor: SegmentationPredictor, mesh
+                       ) -> "ShardedSegmentationPredictor":
+        """Shard an already loaded predictor's net over ``mesh``."""
+        sharded = cls.__new__(cls)
+        sharded.model, sharded.pad_multiple = predictor.model, predictor.pad_multiple
+        sharded.device = mesh.data_devices[0]
+        sharded._shard_over(mesh)
+        return sharded
+
+    def _shard_over(self, mesh) -> None:
+        from citlab_as_tpu_torch.parallel.mesh import replicate
+        self.mesh = mesh
+        self.n_data = mesh.shape["data"]
+        self.devices = mesh.data_devices
+        self.replicas = [r.eval() for r in replicate(mesh, self.model)]
+        self.model = self.replicas[0]
+        self.MAX_DEVICE_BATCH = self.MAX_SHARD_BATCH * self.n_data
+        self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
+                         for d in self.devices]
+
+    def shards(self) -> List[SegmentationPredictor]:
+        """One plain predictor per data shard, over that shard's replica."""
+        return [SegmentationPredictor.view(r, d, self.pad_multiple)
+                for r, d in zip(self.replicas, self.devices)]
+
+    def predict_batch_device(self, images: Sequence[np.ndarray]
+                             ) -> Callable[[], List[np.ndarray]]:
+        if not images:
+            return lambda: []
+        if len(images) > self.MAX_DEVICE_BATCH:
+            parts = [self.predict_batch_device(images[start:start + self.MAX_DEVICE_BATCH])
+                     for start in range(0, len(images), self.MAX_DEVICE_BATCH)]
+            return lambda: [out for part in parts for out in part()]
+        x = self._pack_host(images, _round_up(len(images), self.n_data))
+        per = x.shape[0] // self.n_data
+        copies = []
+        for i, (replica, dev, stream) in enumerate(
+                zip(self.replicas, self.devices, self._streams)):
+            with device_scope(dev, stream), torch.no_grad():
+                shard = torch.from_numpy(x[i * per:(i + 1) * per]).to(dev)
+                copies.append(prefetch(torch.softmax(replica(shard), dim=-1)))
+        shapes = [im.shape[:2] for im in images]
+
+        def materialize():
+            host = np.concatenate([c.numpy() for c in copies], axis=0)
             return [host[i, :h, :w, :] for i, (h, w) in enumerate(shapes)]
         return materialize
 
@@ -122,7 +220,14 @@ class RelationPredictor:
     feature JSON, written with ``visual_regions=True``) are scaled into it.
     The committed ``gnn_visual`` checkpoint was trained and evaluated at
     288 / 384 with ``visual_backbone="ARU_cutted_v1"``; ``inception_v3``
-    (the JAX package's default) runs at the defaults, 600 / 1024."""
+    (the JAX package's default) runs at the defaults, 600 / 1024.
+
+    ``mesh`` (``parallel.mesh.make_mesh``): data-parallel over its data
+    shards, as the JAX predictor over its mesh. The group bucket rounds up
+    to a multiple of ``n_data``, the union-graph batch splits on its page
+    axis into one equal piece per shard, each piece runs on its shard's
+    replica and device, and the confidences are gathered in page order. The
+    mesh's first device then replaces ``device``."""
 
     def __init__(self, model_path: Optional[str] = None, num_classes: int = 2,
                  gnn_params=None, message_params=None, update_params=None,
@@ -133,8 +238,8 @@ class RelationPredictor:
                  assign_visual_features_to_nodes: bool = True,
                  assign_visual_features_to_edges: bool = False,
                  image_min_dimension: int = 600, image_max_dimension: int = 1024,
-                 seed: int = 0, device: DeviceLike = "cuda"):
-        self.device = resolve_device(device)
+                 seed: int = 0, device: DeviceLike = "cuda", mesh=None):
+        self.device = resolve_device(mesh.data_devices[0] if mesh is not None else device)
         self.model_path = model_path
         self.num_classes = num_classes
         self.gnn_params = gnn_params
@@ -151,9 +256,23 @@ class RelationPredictor:
         self.image_max_dimension = image_max_dimension
         self.seed = seed
         self.model: Optional[GraphRelation] = None
+        self.mesh = mesh
+        self._replicas: Optional[List[GraphRelation]] = None
+        self._replicas_mesh = None
         # grow-only shapes of the batched inputs (see _batch_inputs)
         self._group_bucket = self._node_bucket = self._edges_bucket = 1
         self._points_bucket = 1
+
+    def over_mesh(self, mesh) -> "RelationPredictor":
+        """A view of this predictor that runs over ``mesh``: it shares the
+        net once built, and keeps its own mesh, replicas and grow-only
+        buckets, so this predictor is left as it was."""
+        view = copy.copy(self)
+        view.device = resolve_device(mesh.data_devices[0])
+        view.mesh = mesh
+        view.node_buckets = list(self.node_buckets)
+        view._replicas = view._replicas_mesh = None
+        return view
 
     def _ensure_params(self, inputs: Dict[str, torch.Tensor]) -> None:
         if self.model is not None:
@@ -281,6 +400,8 @@ class RelationPredictor:
         its first groups."""
         ns_real = len(graphs)
         group = max(self._group_bucket, ns_real)
+        # over a mesh the page axis splits evenly over the data shards
+        group = _round_up(group, self.n_data)
         self._group_bucket = group
         graphs = list(graphs) + [graphs[-1]] * (group - ns_real)
         if images is not None:
@@ -308,6 +429,10 @@ class RelationPredictor:
             vis = [self._visual_inputs(g, im, max_nodes, max_edges, max_points)
                    for g, im in zip(graphs, images)]
             batch.update({k: np.concatenate([v[k] for v in vis], axis=0) for k in vis[0]})
+        if self.mesh is not None:
+            per = group // self.n_data
+            return [torch_batch({k: v[i * per:(i + 1) * per] for k, v in batch.items()}, dev)
+                    for i, dev in enumerate(self.mesh.data_devices)], ns
         return torch_batch(batch, self.device), ns
 
     def confidences_batch(self, graphs: Sequence[dict],
@@ -319,10 +444,24 @@ class RelationPredictor:
         Returns a list of [n_i, n_i] confidence arrays."""
         return self.confidences_batch_device(graphs, images)()
 
+    @property
+    def n_data(self) -> int:
+        return self.mesh.shape["data"] if self.mesh is not None else 1
+
     @torch.no_grad()
-    def forward_confidences(self, inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
+    def forward_confidences(self, inputs: Dict[str, torch.Tensor],
+                            model: Optional[torch.nn.Module] = None) -> torch.Tensor:
         """softmax(logits)[..., 1] on the device, [B, R]."""
-        return torch.softmax(self.model(inputs), dim=-1)[..., 1]
+        return torch.softmax((model or self.model)(inputs), dim=-1)[..., 1]
+
+    def _mesh_replicas(self) -> List[GraphRelation]:
+        """The net's replica on each data shard of the mesh (made once, or
+        again when the mesh changes)."""
+        from citlab_as_tpu_torch.parallel.mesh import replicate
+        if self._replicas is None or self._replicas_mesh is not self.mesh:
+            self._replicas = replicate(self.mesh, self.model)
+            self._replicas_mesh = self.mesh
+        return self._replicas
 
     def confidences_batch_device(self, graphs: Sequence[dict],
                                  images: Optional[Sequence[np.ndarray]] = None
@@ -332,10 +471,18 @@ class RelationPredictor:
         zero-arg callable that waits for that copy and yields the per-page
         [n_i, n_i] arrays."""
         inputs, ns = self._batch_inputs(graphs, images)
-        self._ensure_params(inputs)
-        conf = prefetch(self.forward_confidences(inputs))
+        if self.mesh is None:
+            self._ensure_params(inputs)
+            copies = [prefetch(self.forward_confidences(inputs))]
+        else:
+            self._ensure_params(inputs[0])
+            copies = []
+            for shard, replica, dev in zip(inputs, self._mesh_replicas(),
+                                           self.mesh.data_devices):
+                with device_scope(dev):
+                    copies.append(prefetch(self.forward_confidences(shard, replica)))
 
         def materialize():
-            host = conf.numpy()
+            host = np.concatenate([c.numpy() for c in copies], axis=0)
             return [host[i, :n * n].reshape(n, n) for i, n in enumerate(ns)]
         return materialize

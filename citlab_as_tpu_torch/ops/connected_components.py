@@ -1,6 +1,7 @@
 """Connected-component filter on the device (port of
 ``citlab_as_tpu/ops/connected_components.py``: ``connected_components``,
-``_component_sizes``, ``remove_small_components``). The propagation sweep
+``_component_sizes``, ``remove_small_components``, ``cc_stats``,
+``segment_max_per_component``). The propagation sweep
 :func:`propagate_max_step` is the one definition of the reference's
 ``ops/swt_device.py::_propagate_step_stack``; the per-line component
 statistics (``ops/swt_device.py`` here) run on it too.
@@ -24,6 +25,10 @@ iteration's convergence test is a host sync (the reference's
 """
 from __future__ import annotations
 
+import math
+from typing import List, Tuple
+
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -143,3 +148,44 @@ def remove_small_components(binary: torch.Tensor, min_size: int = 100
             break
     keep = fg & (field >= min(int(min_size), SIZE_CAP))
     return torch.where(keep, 255, 0).to(torch.uint8)
+
+
+def cc_stats(binary: torch.Tensor) -> Tuple[np.ndarray, List[Tuple[int, int, int, int, int]]]:
+    """Labels of one [H, W] page on its device and per-component (x, y, w,
+    h, size): (labels int32 ndarray, BG at background; stats in the order
+    of each component's first pixel in row-major order, the order
+    cv2.connectedComponentsWithStats finds them)."""
+    labels = connected_components(binary[None])[0]
+    h, w = labels.shape
+    n = h * w
+    fg = labels < BG
+    seg = torch.where(fg, labels, n).reshape(-1).to(torch.int64)
+    yy = torch.arange(h, device=labels.device).repeat_interleave(w)
+    xx = torch.arange(w, device=labels.device).repeat(h)
+    size = torch.bincount(seg, minlength=n + 1)[:n]
+
+    def reduce(vals, how, init):
+        out = torch.full((n + 1,), init, dtype=torch.int64, device=labels.device)
+        return out.scatter_reduce(0, seg, vals, how)[:n]
+    x0, x1 = reduce(xx, "amin", n), reduce(xx, "amax", -1)
+    y0, y1 = reduce(yy, "amin", n), reduce(yy, "amax", -1)
+    labels_np = labels.cpu().numpy()
+    roots = np.unique(labels_np[labels_np < BG])
+    size, x0, y0, x1, y1 = (t.cpu().numpy() for t in (size, x0, y0, x1, y1))
+    stats = [(int(x0[r]), int(y0[r]), int(x1[r] - x0[r] + 1), int(y1[r] - y0[r] + 1),
+              int(size[r])) for r in roots]
+    return labels_np, stats
+
+
+def segment_max_per_component(labels: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """Max of ``values`` [H, W] per component of ``labels`` [H, W] (the
+    flat per-root array, [H * W]; a label that is no root holds the dtype's
+    lowest value, -inf for floats, as ``jax.ops.segment_max``); per-CC
+    stroke width, the max distance-transform value inside the CC."""
+    h, w = labels.shape
+    n = h * w
+    seg = torch.where(labels < BG, labels, n).reshape(-1).to(torch.int64)
+    low = (-math.inf if values.dtype.is_floating_point
+           else torch.iinfo(values.dtype).min)
+    out = torch.full((n + 1,), low, dtype=values.dtype, device=values.device)
+    return out.scatter_reduce(0, seg, values.reshape(-1), "amax")[:n]

@@ -127,6 +127,13 @@ class Conv3x3Function(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gy):
+        if gy.device.type == "cuda":
+            with torch.cuda.device(gy.device):
+                return Conv3x3Function._backward(ctx, gy)
+        return Conv3x3Function._backward(ctx, gy)
+
+    @staticmethod
+    def _backward(ctx, gy):
         x, weight, y = ctx.saved_tensors
         if ctx.relu:
             gy = gy * (y > 0)
@@ -176,19 +183,22 @@ def _conv3x3_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         if t.device != x.device or t.dtype != x.dtype:
             raise ValueError(f"conv3x3: {name} is {t.dtype} on {t.device}, "
                              f"x is {x.dtype} on {x.device}")
-    x = x.contiguous()
-    if x.data_ptr() % 16:           # the kernel copies 16-byte pieces
-        x = x.clone()
-    packed = _packed_weights(weight)
-    bias = bias.contiguous()
-    cinp, row = packed_layout(cin, x.dtype)
-    y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    lib = _lib()
-    err = lib.citlab_conv3x3(x.data_ptr(), packed.data_ptr(), bias.data_ptr(),
-                             y.data_ptr(), b, h, w, cin, cout, cinp,
-                             row * x.element_size(), int(relu), _DTYPES[x.dtype],
-                             stream)
+    # the library sizes its grid for, and launches on, the current device:
+    # make it x's (a caller on another GPU would launch into that one)
+    with torch.cuda.device(x.device):
+        x = x.contiguous()
+        if x.data_ptr() % 16:           # the kernel copies 16-byte pieces
+            x = x.clone()
+        packed = _packed_weights(weight)
+        bias = bias.contiguous()
+        cinp, row = packed_layout(cin, x.dtype)
+        y = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        lib = _lib()
+        err = lib.citlab_conv3x3(x.data_ptr(), packed.data_ptr(), bias.data_ptr(),
+                                 y.data_ptr(), b, h, w, cin, cout, cinp,
+                                 row * x.element_size(), int(relu), _DTYPES[x.dtype],
+                                 stream)
     build.check(lib, err, "conv3x3")
     with _launches_lock:
         launches += 1

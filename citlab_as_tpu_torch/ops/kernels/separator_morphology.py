@@ -70,17 +70,19 @@ def separator_morphology(cleaned: torch.Tensor, h_kernel: int, v_kernel: int,
                          f"got {tuple(cleaned.shape)}")
     if min(h_kernel, v_kernel, noise_kernel) < 1:
         raise ValueError("separator_morphology: kernel sizes must be >= 1")
-    x = cleaned.contiguous()
-    batched = x if x.dim() == 3 else x[None]
-    b, h, w = batched.shape
-    horizontal = torch.empty_like(batched)
-    vertical = torch.empty_like(batched)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    lib = _lib()
-    err = lib.citlab_separator_morphology(
-        batched.data_ptr(), horizontal.data_ptr(), vertical.data_ptr(),
-        b, h, w, int(h_kernel), int(v_kernel), int(noise_kernel),
-        _DTYPES[x.dtype], stream)
+    # the library launches on the current device: make it the tensor's
+    with torch.cuda.device(cleaned.device):
+        x = cleaned.contiguous()
+        batched = x if x.dim() == 3 else x[None]
+        b, h, w = batched.shape
+        horizontal = torch.empty_like(batched)
+        vertical = torch.empty_like(batched)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        lib = _lib()
+        err = lib.citlab_separator_morphology(
+            batched.data_ptr(), horizontal.data_ptr(), vertical.data_ptr(),
+            b, h, w, int(h_kernel), int(v_kernel), int(noise_kernel),
+            _DTYPES[x.dtype], stream)
     build.check(lib, err, "separator_morphology")
     with _launches_lock:
         launches += 1

@@ -1,0 +1,5 @@
+from citlab_as_tpu_torch.parallel.mesh import (
+    make_mesh, shard_batch, replicate, data_parallel_jit,
+)
+
+__all__ = ["make_mesh", "shard_batch", "replicate", "data_parallel_jit"]

@@ -57,6 +57,18 @@ def get_list_of_interline_distances(lst_of_polygons: Sequence[Polygon],
     return out
 
 
+def get_list_of_scaled_polygons(lst_of_polygons: Sequence[Polygon],
+                                scaling_factor: float = 1.0) -> List[Polygon]:
+    """Scale polygons with float -> int truncation (dbscan_baselines.py:14-32;
+    truncation, not the half-up rounding used elsewhere)."""
+    out = []
+    for polygon in lst_of_polygons:
+        xs = (scaling_factor * np.asarray(polygon.x_points)).astype(int)
+        ys = (scaling_factor * np.asarray(polygon.y_points)).astype(int)
+        out.append(Polygon.from_arrays(xs, ys))
+    return out
+
+
 def cluster_features_plain(polys: Sequence[Polygon], des_dist: int, max_d: float,
                            target_avg: float) -> Tuple[np.ndarray, np.ndarray]:
     """numpy version of ``geometry/native.py::cluster_features`` (the

@@ -1,7 +1,7 @@
 """ctypes bindings of the port's host image writer
-(``csrc/image_encode.cpp``): Pillow's polygon and wide-line drawing, its
-bilinear resize and libjpeg-turbo's baseline grey JPEG, each equal bit for
-bit to PIL 12.1. The drawing calls are bound in ``utils/draw.py``.
+(``csrc/image_encode.cpp``): Pillow's polygon, line, ellipse and
+rectangle drawing, its bilinear resize and libjpeg-turbo's baseline grey
+JPEG, each equal bit for bit to PIL 12.1. The drawing calls are bound in ``utils/draw.py``.
 
 The library is built with the host C++ compiler at first use
 (``ops/kernels/build.py``); a failed build raises. The calls keep no
@@ -26,6 +26,11 @@ def lib() -> ctypes.CDLL:
     lib.citlab_draw_polygon.restype = None
     lib.citlab_draw_wide_lines.argtypes = [vp, i32, i32, vp, i32, i32, i32]
     lib.citlab_draw_wide_lines.restype = None
+    lib.citlab_draw_lines.argtypes = [vp, i32, i32, vp, i32, i32]
+    lib.citlab_draw_lines.restype = None
+    for name in ("citlab_draw_ellipse", "citlab_draw_rectangle"):
+        getattr(lib, name).argtypes = [vp, i32, i32, vp, i32, i32, i32]
+        getattr(lib, name).restype = None
     lib.citlab_resize_bilinear.argtypes = [vp, i32, i32, vp, i32, i32]
     lib.citlab_resize_bilinear.restype = None
     lib.citlab_jpeg_encode_grey.argtypes = [vp, i32, i32, vp, ctypes.c_int64,

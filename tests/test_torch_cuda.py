@@ -593,3 +593,84 @@ def test_text_block_post_processor_on_the_card_equals_the_cpu(cuda):
     np.testing.assert_array_equal(got, want)
     assert got.any()
     assert card.to_polygons(got) == cpu.to_polygons(want)
+
+
+@pytest.fixture
+def two_gpus(cuda):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda", 0), torch.device("cuda", 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_launch_on_their_tensors_gpu(two_gpus, dtype):
+    """K1 and K2 on tensors of the second GPU while the first is current:
+    each wrapper launches on its tensor's device (its grid sized for that
+    device) and equals its plain version there."""
+    first, second = two_gpus
+    x, w3, bias = _k1_inputs((2, 45, 70, 16, 32), seed=3)
+    xt = torch.from_numpy(x).to(second, dtype)
+    wt = _to_oihw(w3).to(second, dtype)
+    bt = torch.from_numpy(bias).to(second, dtype)
+    imgs = torch.from_numpy(np.stack([_synthetic(seed=s) for s in (0, 1)])).to(
+        second, torch.uint8)
+    with torch.cuda.device(first):
+        before = k1.launches, k2.launches
+        got = k1.conv3x3(xt, wt, bt, relu=True)
+        got_h, got_v = k2.separator_morphology(imgs, 15, 30, 10)
+        assert torch.cuda.current_device() == first.index
+    assert (k1.launches, k2.launches) == (before[0] + 1, before[1] + 1)
+    assert got.device == second and got_h.device == second
+    torch.cuda.synchronize(second)
+    want = k1.conv3x3_plain(xt, wt, bt, relu=True)
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    assert err <= (1e-4 if dtype == torch.float32 else 2e-2 * scale), err
+    want_h, want_v = k2.separator_morphology_plain(imgs, 15, 30, 10)
+    assert torch.equal(got_h, want_h) and torch.equal(got_v, want_v)
+
+
+def _sharded_against_single(mesh, device):
+    """A sharded predictor over ``mesh`` against the unsharded one on
+    ``device``: every page equal bit for bit at the same per-shard batch
+    and padded shape, 69 K1 launches per shard forward."""
+    import os
+    from citlab_as_tpu_torch.inference import (
+        SegmentationPredictor, ShardedSegmentationPredictor)
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    npz = os.path.join(repo, "models_ckpt_torch", "separator.npz")
+    single = SegmentationPredictor(npz, device=device)
+    sharded = ShardedSegmentationPredictor(npz, mesh=mesh)
+    n = sharded.n_data
+    images = [_synthetic(256, 320, seed=s) / 255.0 for s in range(2 * n)]
+    k1.launches = 0
+    got = sharded.predict_batch(images)
+    assert k1.launches == 69 * n
+    for i in range(n):
+        for a, b in zip(got[2 * i:2 * i + 2], single.predict_batch(images[2 * i:2 * i + 2])):
+            np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+def test_sharded_predictor_over_two_shards_of_one_gpu(cuda):
+    from citlab_as_tpu_torch.parallel.mesh import make_mesh
+    _sharded_against_single(make_mesh([cuda, cuda]), cuda)
+
+
+@pytest.mark.cuda
+def test_sharded_predictor_over_every_gpu(two_gpus):
+    from citlab_as_tpu_torch.parallel.mesh import make_mesh
+    _sharded_against_single(make_mesh(), two_gpus[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel_type", ["rect", "ellipse", "cross"])
+def test_apply_transform_on_the_card_equals_the_cpu(cuda, kernel_type):
+    from citlab_as_tpu_torch.ops.image_utils import apply_transform
+    img = (255 - _synthetic(200, 260)).astype(np.uint8)
+    for transform in ("erosion", "dilation", "opening", "closing", "gradient", "tophat",
+                      "blackhat"):
+        np.testing.assert_array_equal(
+            apply_transform(img, transform, (5, 3), kernel_type, 2, device=cuda),
+            apply_transform(img, transform, (5, 3), kernel_type, 2, device="cpu"))

@@ -210,8 +210,12 @@ def test_image_writers_refuse_what_they_do_not_write():
         tio.resize_bilinear(np.zeros((4, 4, 3), np.uint8), 2, 2)
     with pytest.raises(ValueError):
         tio.resize_bilinear(np.zeros((4, 4), np.uint8), 0, 2)
+    # width 1 is drawn since the raster took PIL's Bresenham line; a canvas
+    # that is not uint8 is still refused, and so are reversed boxes
     with pytest.raises(ValueError):
-        draw.line(draw.new_canvas(4, 4), [(0, 0), (3, 3)], 255, width=1)
+        draw.line(np.zeros((4, 4), np.float32), [(0, 0), (3, 3)], 255, width=1)
+    with pytest.raises(ValueError):
+        draw.ellipse(draw.new_canvas(4, 4), (3, 0, 1, 2), fill=255)
     with pytest.raises(ValueError):
         draw.polygon(np.zeros((4, 4), np.float32), [(0, 0), (3, 3), (0, 3)], 255)
     with pytest.raises(ValueError):             # PIL raises TypeError here

@@ -396,6 +396,87 @@ print("LOADED", bad)
     assert "LOADED []" in r.stdout, r.stdout
 
 
+def test_only_the_mesh_imports_torch_distributed():
+    users = sorted(os.path.relpath(p, REPO) for p in _port_files()
+                   if p.startswith(PORT)
+                   and any(m.startswith("torch.distributed") for m in _imports(p)))
+    assert users == [os.path.join("citlab_as_tpu_torch", "parallel", "mesh.py")]
+
+
+def test_running_the_parallel_and_plot_paths_loads_no_jax_module():
+    """The data-parallel path and the plotting path in a fresh process: a
+    sharded ARU predictor and relation net over a 2-shard CPU mesh, the
+    pipelined workflow over it, ``run_net_post_processing --sharded``,
+    ``initialize_multihost``, the page plots, ``plot_net_output``, the
+    image transforms and the corpus, KWS and profiling tools; then no
+    module of jax, matplotlib, PIL, sklearn or the JAX package is loaded."""
+    code = r"""
+import os, sys, tempfile
+import numpy as np, torch
+import chip_smoke
+from citlab_as_tpu_torch.cli import plot_net_output, run_net_post_processing
+from citlab_as_tpu_torch.cli.run_full_workflow import run_full_workflow_pipelined
+from citlab_as_tpu_torch.inference import (RelationPredictor, SegmentationPredictor,
+                                           ShardedSegmentationPredictor)
+from citlab_as_tpu_torch.ops.image_utils import apply_transform, shape_to_mask
+from citlab_as_tpu_torch.pagexml import plot
+from citlab_as_tpu_torch.parallel.mesh import initialize_multihost, make_mesh
+from citlab_as_tpu_torch.utils import corpus_tools, kws_eval, profiling
+from citlab_as_tpu_torch.utils.io import get_page_path, save_png
+torch.set_num_threads(1)
+mesh = make_mesh(["cpu", "cpu"])
+gp = {"featRoot": 4, "scale_space_num": 3, "res_depth": 1, "num_scales_att": 2}
+sharded = ShardedSegmentationPredictor(None, mesh=mesh, graph_params=gp,
+                                       dtype=torch.float32, pad_multiple=16)
+assert len(sharded.predict_batch([np.random.rand(30, 20).astype(np.float32)] * 3)) == 3
+root = tempfile.mkdtemp()
+pages, _, layouts = chip_smoke.synthetic_newspaper(2, 260, 200, seed=0, headlines=1)
+paths = chip_smoke.write_corpus(root, pages, layouts)
+def benign(image_grey):
+    prob = np.zeros(image_grey.shape + (2,), np.float32)
+    prob[..., 1] = 1.0
+    return prob
+res = run_full_workflow_pipelined(paths, separator_predictor=benign,
+                                  heading_predictor=sharded,
+                                  gnn_predictor=RelationPredictor(None, device="cpu"),
+                                  separator_fixed_height=128, heading_fixed_height=128,
+                                  batch_size=1, out_dir=os.path.join(root, "out"),
+                                  device="cpu", mesh=mesh)
+assert res["skipped"] == [] and len(res["clustered"]) == 2
+lst = chip_smoke._write_list(os.path.join(root, "img.lst"), paths)
+run_net_post_processing._mesh_for = lambda device: mesh
+assert len(run_net_post_processing.main(["--path_to_image_list", lst, "--mode", "heading",
+    "--sharded", "--batch_size", "1", "--fixed_height", "128", "--device", "cpu"])) == 2
+assert initialize_multihost() is False
+canvas = plot.plot_pagexml(res["clustered"][0], paths[0], plot_legend=True,
+                           save_path=os.path.join(root, "plot.png"))
+assert len(canvas) > 0 and os.path.exists(os.path.join(root, "plot_legend.json"))
+assert plot.plot_folder(root, out_dir=os.path.join(root, "folder"))
+assert len(plot_net_output.main(["--path_to_img_lst", lst, "--save_folder",
+    os.path.join(root, "net"), "--fixed_height", "64", "--device", "cpu"])) == 2
+img = np.random.RandomState(0).randint(0, 255, (30, 40)).astype(np.uint8)
+for kind in ("rect", "ellipse", "cross"):
+    apply_transform(img, "gradient", (3, 3), kind, device="cpu")
+for shape in ("circle", "rectangle", "line", "point", None):
+    pts = {"circle": [(10, 10), (14, 12)], "rectangle": [(2, 2), (9, 9)],
+           "line": [(1, 1), (20, 20)], "point": [(5, 5)]}.get(shape, [(1, 1), (9, 2), (5, 8)])
+    assert shape_to_mask((30, 40), pts, shape).any()
+corpus_tools.get_page_stats(get_page_path(paths[0]))
+assert kws_eval.evaluate_queries({"A": []}, ["a"]) == {"a": []}
+with profiling.profile_trace(os.path.join(root, "trace")):
+    with profiling.annotate("x"):
+        torch.ones(2).sum()
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax", "citlab_as_tpu",
+                                    "sklearn", "lxml", "PIL", "shapely", "matplotlib"))
+print("LOADED", bad)
+"""
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LOADED []" in r.stdout, r.stdout
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from citlab_as_tpu_torch.device import resolve_device
     from citlab_as_tpu_torch.inference import SegmentationPredictor
