@@ -24,7 +24,7 @@ result):
    K1 is also held against its plain version, and timed the same way, at
    the 24 instances of the heading stage's forward (4 x 960 x 640) and at
    the 24 of the segmentation trainer's forward (4 x 512 x 512, bf16 and
-   f32, the two dtypes phase 11 trains in); K1 under autograd (its forward, cuDNN's backward) against autograd through
+   f32, the two dtypes phase 13 trains in); K1 under autograd (its forward, cuDNN's backward) against autograd through
    ``F.conv2d`` at one main-path instance;
 4. main path: 8 synthetic 2000 x 1420 pages through
    ``SeparatorNetPostProcessor(..., fixed_height=1500).run_batched(4)`` in
@@ -95,7 +95,39 @@ result):
    with equal dbscan labels; ``gk_calc_metric`` equal to the numpy path to
    1e-9. The port's ``run_measure`` against GT from the drawn layout
    prints AS R/P/F (not gated);
-11. train: the segmentation trainer (``train/seg_trainer.py``) at the
+11. variants: the PNM, PNG and TIFF variants of the host decoders. Every
+   small fixture of ``tests/data/torch_formats_variants/small``
+   (128 files: ASCII and 16-bit PNM, PNG at every colour type and depth
+   with and without Adam7, TIFF with CCITT modified Huffman / Group 3,
+   FillOrder 2, 2- to 32-bit and float samples, both predictors, planar
+   layouts, CMYK, JPEG-in-TIFF, old-style JPEG, YCbCr under LZW / Deflate /
+   PackBits, BigTIFF; ``scripts/make_format_fixtures.py``)
+   decodes to PIL's recorded size and "L" and "RGB" digests. Five
+   2000 x 1420 pages: an Adam7 PNG and a 16-bit PNG (holding the 8-bit
+   values) written from the newspaper generator's arrays by the test
+   encoders of ``scripts/format_variants.py`` (pure numpy and zlib),
+   and the committed Group 3 2-D TIFF, YCbCr JPEG-in-TIFF and 16-bit LZW
+   TIFF with the predictor, each decoded to its oracle (the written array,
+   or PIL's digest) and saved as an 8-bit PNG twin; the ten pages through
+   ``run_full_workflow_pipelined`` with the production nets. Gates: each
+   variant's ``_clustering.xml`` equal to its twin's (``LastChange`` and
+   ``imageFilename`` blanked), K1 69 x 2 and K2 one launch per group, an
+   article id on every line. A PBM (P4) page and its twin through the
+   separator CLI (PNM does not reach the workflow's page lookup): equal
+   pages, K1 69 and K2 1. The host decode ms per page (median of 3) is
+   printed beside each twin's;
+12. blind: the JAX package's three blind article-quality oracles on the
+   card: their pages (``tests/data/torch_blind``, made by
+   ``scripts/make_blind_fixtures.py``: one multi-article page, two hard
+   corpus pages, three pages for the visual relation net), article ids
+   stripped, through ``run_full_workflow`` with the converted nets in
+   bf16 through K1 (``gnn_pipeline``, or ``gnn_visual`` at 288 / 384),
+   scored by the port's ``run_measure`` against the generators' ground
+   truth. Gates: AS F1 above 0.98 (multi), 0.96 with baseline detection
+   above 0.9 (hard), 0.95 mean (visual); K1 69 x 2 and K2 one launch per
+   page group. The same pages with the ARU-Nets in f32 are measured
+   beside, printed;
+13. train: the segmentation trainer (``train/seg_trainer.py``) at the
    separator net's full width from its converted weights, on a GT
    directory of 4 drawn 1000 x 710 pages written with ``save_png``, batch
    4 x 512 x 512: 3 steps in f32 (TF32 off) on the card and on the CPU
@@ -114,7 +146,7 @@ result):
    exported ``.npz`` in ``RelationPredictor`` against the trainer's
    confidences (1e-5). Last, ``run_train_segmentation`` and
    ``run_train_gnn`` with tiny epochs and no ``--device`` train on the card;
-12. gt_eval: ground truth and evaluation. The port's generators (region GT
+14. gt_eval: ground truth and evaluation. The port's generators (region GT
    with TextRegion and SeparatorRegion at scale 1 and at half resolution,
    separator-only region GT, both BNL generators, and
    ``cli/run_as_gt_generation.py`` without ``--device``) over the two
@@ -133,7 +165,7 @@ result):
    comparison consistent, the CSV round-trips, the XLSX is a valid zip with
    a header and one row per method in each sheet; ``min_run_example
    --demo``; ``AsChecker`` finds no line without an article id;
-13. models: the separator net exported from ``separator.npz`` to a bf16
+15. models: the separator net exported from ``separator.npz`` to a bf16
    ``.frozen`` (``train/export.py``) and written into a TF ``.pb`` by this
    script's wire encoder, imported by ``models/pb_import.py``: on 4 main-path
    pages resized to height 1500, both forwards equal the ``.npz`` one bit
@@ -154,7 +186,7 @@ result):
    vs CPU. ``run_page_preprocessing`` in every flag combination against
    the JAX package's digests (``tests/data/torch_preprocessing``,
    ``scripts/make_preprocessing_fixtures.py``);
-14. parallel: data parallelism on the one card, over a mesh whose 2 shards
+16. parallel: data parallelism on the one card, over a mesh whose 2 shards
    both name it (``parallel/mesh.py``): ``ShardedSegmentationPredictor``
    over ``make_mesh()`` and over the 2 shards bit-equal to
    ``SegmentationPredictor`` at the same per-shard batch (69 K1 launches per
@@ -208,6 +240,8 @@ VISUAL_KW = dict(image_input=True, visual_backbone="ARU_cutted_v1",
                  image_min_dimension=288, image_max_dimension=384)
 FORMATS_DIR = os.path.join(REPO, "tests", "data", "torch_formats")
 FORMATS_METRIC_PAGES = 2                    # pages whose measure the numpy path redoes
+VARIANTS_DIR = os.path.join(REPO, "tests", "data", "torch_formats_variants")
+BLIND_DIR = os.path.join(REPO, "tests", "data", "torch_blind")
 # the train phase: the JAX trainer's default batch and crop; drawn pages of
 # 1000 x 710 (the crops need 512 in both directions)
 SEG_BATCH, SEG_CROP = 4, (512, 512)
@@ -1674,6 +1708,239 @@ def phase_formats(dev):
             "decode_ms": decode_ms, "stage_s": stage_s, "as": result["as"]}
 
 
+def phase_variants(dev):
+    """The PNM, PNG and TIFF variants of this slice: the committed small
+    variant fixtures against PIL's recorded digests, full-size pages of the
+    variants through the pipelined workflow beside 8-bit PNG twins of the
+    same decoded pixels, and a PBM page through the separator CLI."""
+    import glob
+    import hashlib
+
+    from citlab_as_tpu_torch.cli import run_net_post_processing
+    from citlab_as_tpu_torch.cli.run_full_workflow import run_full_workflow_pipelined
+    from citlab_as_tpu_torch.inference import RelationPredictor
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.utils import io as port_io
+    from scripts.format_variants import png_bytes, pnm_bytes
+
+    def digest(arr):
+        return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+    # 1. every small variant decodes to PIL's size and "L" / "RGB" bytes
+    with open(os.path.join(VARIANTS_DIR, "small", "small.json")) as f:
+        small = json.load(f)
+    check(len(small) >= 100, f"variants: {len(small)} small fixtures")
+    for rec in small:
+        path = os.path.join(VARIANTS_DIR, "small", rec["file"])
+        check(list(port_io.image_size(path)) == rec["size"],
+              f"variants: {rec['file']} size differs from PIL's {rec['size']}")
+        for mode in ("L", "RGB"):
+            port_io._IMAGE_CACHE.clear()
+            check(digest(port_io.load_image(path, mode)) == rec[f"sha256_{mode}"],
+                  f"variants: {rec['file']} decodes to other {mode} pixels than PIL's")
+    print(f"variants: all {len(small)} small PNM / PNG / TIFF variants decode to PIL's size "
+          "and 'L' and 'RGB' digests")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_variants_")
+    try:
+        os.makedirs(os.path.join(root, "page"))
+        pages, _, layouts = synthetic_newspaper(3, *PAGE_SHAPE, seed=31)
+        # (file, the oracle of its "L" pixels: an array or PIL's digest); the
+        # PNG pages come from the test encoders (filters at random), a 16-bit
+        # one holding the 8-bit values
+        variants = []
+        for name, page, depth, interlace in (("adam7.png", pages[0], 8, True),
+                                             ("grey16.png", pages[1], 16, False)):
+            with open(os.path.join(root, name), "wb") as f:
+                f.write(png_bytes(page[..., None], 0, depth, interlace, seed=31))
+            variants.append((name, page))
+        for rec_path, layout in zip(sorted(glob.glob(os.path.join(VARIANTS_DIR, "*.json"))),
+                                    layouts):
+            with open(rec_path) as f:
+                rec = json.load(f)
+            shutil.copy(os.path.join(VARIANTS_DIR, rec["file"]), os.path.join(root, rec["file"]))
+            stem = os.path.splitext(rec["file"])[0]
+            shutil.copy(os.path.join(VARIANTS_DIR, "page", f"{stem}.xml"),
+                        os.path.join(root, "page", f"{stem}.xml"))
+            variants.append((rec["file"], rec["sha256_L"]))
+        check(len(variants) == 5, f"variants: {len(variants)} full-size pages, want 5")
+        for (name, _), page, layout in zip(variants[:2], pages, layouts):
+            write_layout_xml(os.path.join(root, "page", f"{os.path.splitext(name)[0]}.xml"),
+                             name, *page.shape, layout)
+        paths, decode_ms = [], {}
+        for name, oracle in variants:
+            path = os.path.join(root, name)
+            stem = os.path.splitext(name)[0]
+            check(port_io.image_size(path) == PAGE_SHAPE[::-1],
+                  f"variants: {name} size {port_io.image_size(path)}")
+            grey = port_io.load_image(path, "L")
+            if isinstance(oracle, str):
+                check(digest(grey) == oracle, f"variants: {name} decodes to other pixels "
+                      "than PIL's")
+            else:
+                check(np.array_equal(grey, oracle), f"variants: {name} decodes to other "
+                      "pixels than the array written")
+            twin = os.path.join(root, f"twin_{stem}.png")
+            port_io.save_png(twin, grey)
+            shutil.copy(os.path.join(root, "page", f"{stem}.xml"),
+                        os.path.join(root, "page", f"twin_{stem}.xml"))
+
+            def load(p):
+                port_io._IMAGE_CACHE.clear()
+                return port_io.load_image(p, "L")
+            decode_ms[name] = {"ms": _median_ms(lambda: load(path)),
+                               "png_twin_ms": _median_ms(lambda: load(twin)),
+                               "bytes": os.path.getsize(path),
+                               "png_twin_bytes": os.path.getsize(twin)}
+            paths += [path, twin]
+        print("variants: the 5 full-size pages decode to their oracles; host decode ms per "
+              "page (median of 3) beside the PNG twin's " + json.dumps(decode_ms))
+
+        # 2. the pipelined workflow over the variants and their twins
+        run = _workflow_runner(dev, paths, RelationPredictor(
+            os.path.join(REPO, "models_ckpt_torch", "gnn.npz"), device=dev))
+        secs, result, launches, _ = run(run_full_workflow_pipelined, host_workers=0)
+        check_workflow_run("variants", result, launches, -(-len(paths) // BATCH), len(paths))
+        clustered = dict(zip(paths, result["clustered"]))
+        for name, _ in variants:
+            stem = os.path.splitext(name)[0]
+            a = _normalised_xml(clustered[os.path.join(root, name)])
+            b = _normalised_xml(clustered[os.path.join(root, f"twin_{stem}.png")])
+            check(a == b, f"variants: the clustered page of {name} differs from its PNG "
+                  "twin's")
+        print(f"variants: pipelined workflow over {len(paths)} pages in {secs:.3f} s "
+              f"({len(paths) / secs:.3f} pages/s), launches {json.dumps(launches)}; every "
+              "variant's _clustering.xml equals its PNG twin's")
+
+        # 3. a PBM page (PNM does not reach the workflow's page lookup)
+        # through the separator CLI, beside its twin
+        black = pages[2] < 128
+        pbm = os.path.join(root, "bilevel.pbm")
+        with open(pbm, "wb") as f:
+            f.write(pnm_bytes(b"P4", PAGE_SHAPE[1], PAGE_SHAPE[0], None, black))
+        grey = port_io.load_image(pbm, "L")
+        check(np.array_equal(grey, np.where(black, 0, 255).astype(np.uint8)),
+              "variants: the PBM page decodes to other pixels than the array written")
+        twin = os.path.join(root, "twin_bilevel.png")
+        port_io.save_png(twin, grey)
+        write_layout_xml(os.path.join(root, "page", "bilevel.xml"), "bilevel.pbm",
+                         *PAGE_SHAPE, layouts[2])
+        shutil.copy(os.path.join(root, "page", "bilevel.xml"),
+                    os.path.join(root, "page", "twin_bilevel.xml"))
+        image_list = os.path.join(root, "pnm.lst")
+        with open(image_list, "w") as f:
+            f.write(f"{pbm}\n{twin}\n")
+        port_io._IMAGE_CACHE.clear()
+        k1.launches = 0
+        k2.launches = 0
+        run_net_post_processing.main([
+            "--path_to_image_list", image_list, "--mode", "separator", "--model",
+            os.path.join(REPO, "models_ckpt_torch", "separator.npz"), "--batch_size",
+            str(BATCH), "--fixed_height", str(FIXED_HEIGHT), "--device", str(dev)])
+        pnm_launches = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+        check(pnm_launches == {"conv3x3": 69, "separator_morphology": 1},
+              f"variants: separator CLI launches {pnm_launches}, want K1 69 and K2 1")
+        check(_normalised_xml(port_io.get_page_path(pbm) + ".xml")
+              == _normalised_xml(port_io.get_page_path(twin) + ".xml"),
+              "variants: the separator's page of the PBM differs from its PNG twin's")
+        print("variants: the separator CLI's page of the PBM equals its PNG twin's, "
+              f"launches {json.dumps(pnm_launches)}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": {k: launches[k] + pnm_launches[k]
+                         for k in ("conv3x3", "separator_morphology")},
+            "decode_ms": decode_ms, "pages_per_s": len(paths) / secs}
+
+
+def phase_blind(dev):
+    """The blind article-quality oracles on the card: the committed pages of
+    the JAX package's three blind tests (tests/data/torch_blind, made by
+    scripts/make_blind_fixtures.py; article ids stripped from the input)
+    through run_full_workflow in bf16 through K1, scored by the port's AS
+    measure against the generators' ground truth at the JAX tests' floors.
+    The same pages with the ARU-Nets in f32 are measured beside, printed."""
+    import torch
+    from citlab_as_tpu_torch.cli import run_measure
+    from citlab_as_tpu_torch.cli.run_full_workflow import run_full_workflow
+    from citlab_as_tpu_torch.inference import RelationPredictor, SegmentationPredictor
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.utils import io as port_io
+
+    npz = os.path.join(REPO, "models_ckpt_torch")
+    with open(os.path.join(BLIND_DIR, "blind.json")) as f:
+        sets = json.load(f)
+    readings, launches = {}, {"conv3x3": 0, "separator_morphology": 0}
+    for kind, spec in sets.items():
+        for dtype in ("bf16", "f32"):
+            root = tempfile.mkdtemp(prefix=f"chip_smoke_blind_{kind}_")
+            try:
+                os.makedirs(os.path.join(root, "page"))
+                images, gts = [], []
+                for name in spec["pages"]:
+                    images.append(os.path.join(root, f"{name}.png"))
+                    shutil.copy(os.path.join(BLIND_DIR, f"{name}.png"), images[-1])
+                    shutil.copy(os.path.join(BLIND_DIR, "page", f"{name}.xml"),
+                                os.path.join(root, "page", f"{name}.xml"))
+                    gts.append(os.path.join(BLIND_DIR, "gt", "page", f"{name}.xml"))
+                sizes = {port_io.image_size(p) for p in images}
+                gnn = os.path.join(npz, spec["gnn"])
+                kw = ({"gnn_predictor": RelationPredictor(gnn, device=dev, **VISUAL_KW)}
+                      if kind == "visual" else {"gnn_model_path": gnn})
+                if dtype == "f32":
+                    kw.update({f"{net}_predictor": SegmentationPredictor(
+                        os.path.join(npz, f"{net}.npz"), dtype=torch.float32, device=dev)
+                        for net in ("separator", "heading")})
+                else:     # the predictors the paths make: the port's default, bf16
+                    kw.update(separator_model_path=os.path.join(npz, "separator.npz"),
+                              heading_model_path=os.path.join(npz, "heading.npz"))
+                port_io._IMAGE_CACHE.clear()
+                k1.launches = 0
+                k2.launches = 0
+                t0 = time.perf_counter()
+                result = run_full_workflow(images, clustering_method="dbscan",
+                                           out_dir=os.path.join(root, "out"), device=dev, **kw)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counted = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+                check(not result["skipped"] and len(result["clustered"]) == len(images),
+                      f"blind {kind} {dtype}: pages skipped {result['skipped']}")
+                lists = []
+                for name, lines in (("gt.lst", gts), ("hy.lst", result["clustered"])):
+                    lists.append(os.path.join(root, name))
+                    with open(lists[-1], "w") as f:
+                        f.write("\n".join(lines) + "\n")
+                out = run_measure.main(["--path_to_gt_xml_lst", lists[0],
+                                        "--path_to_hy_xml_lst", lists[1],
+                                        "--min_tol", "10", "--max_tol", "30"])
+            finally:
+                shutil.rmtree(root, ignore_errors=True)
+            readings[f"{kind} {dtype}"] = {"as": [float(x) for x in out["as"]],
+                                           "bd": [float(x) for x in out["bd"]],
+                                           "s": round(secs, 3), "launches": counted}
+            if dtype == "bf16":
+                # one page group per page size (the skewed pages differ)
+                groups = len(sizes)
+                check(counted == {"conv3x3": 69 * 2 * groups, "separator_morphology": groups},
+                      f"blind {kind}: launches {counted}, want K1 69 x 2 x {groups} and K2 "
+                      f"{groups}")
+                for k in launches:
+                    launches[k] += counted[k]
+    print("blind: AS / BD (R, P, F) per set, bf16 gated, f32 beside "
+          + json.dumps(readings))
+    for kind, spec in sets.items():
+        got = readings[f"{kind} bf16"]
+        check(got["as"][2] > spec["as_f1"], f"blind {kind}: AS F1 {got['as'][2]} not above "
+              f"{spec['as_f1']} in bf16 (f32: {readings[f'{kind} f32']['as'][2]})")
+        if "bd_f1" in spec:
+            check(got["bd"][2] > spec["bd_f1"], f"blind {kind}: baseline-detection F1 "
+                  f"{got['bd'][2]} not above {spec['bd_f1']}")
+    print("blind: every set above its floor in bf16 through K1 ("
+          + ", ".join(f"{k} AS F1 > {v['as_f1']}" for k, v in sets.items()) + ")")
+    return {"launches": launches, "readings": readings}
+
+
 GT_DIR = os.path.join(REPO, "tests", "data", "torch_gt")
 
 
@@ -3087,6 +3354,8 @@ def main() -> int:
         pipelined_row = timed("pipelined", phase_pipelined, dev)
         visual_row = timed("visual", phase_visual, dev)
         formats_row = timed("formats", phase_formats, dev)
+        variants_row = timed("variants", phase_variants, dev)
+        blind_row = timed("blind", phase_blind, dev)
         train_row = timed("train", phase_train, dev)
         gt_eval_row = timed("gt_eval", phase_gt_eval, dev, workflow_row)
         models_row = timed("models", phase_models, dev)
@@ -3107,6 +3376,8 @@ def main() -> int:
              launches_pipelined=pipelined_row["launches"]["conv3x3"],
              launches_visual=visual_row["launches"]["conv3x3"],
              launches_formats=formats_row["launches"]["conv3x3"],
+             launches_variants=variants_row["launches"]["conv3x3"],
+             launches_blind=blind_row["launches"]["conv3x3"],
              launches_train=train_row["launches"]["conv3x3"],
              launches_gt_eval=gt_eval_row["launches"]["conv3x3"],
              launches_models=models_row["launches"]["conv3x3"],
@@ -3120,6 +3391,8 @@ def main() -> int:
              launches_pipelined=pipelined_row["launches"]["separator_morphology"],
              launches_visual=visual_row["launches"]["separator_morphology"],
              launches_formats=formats_row["launches"]["separator_morphology"],
+             launches_variants=variants_row["launches"]["separator_morphology"],
+             launches_blind=blind_row["launches"]["separator_morphology"],
              launches_train=train_row["launches"]["separator_morphology"],
              launches_gt_eval=gt_eval_row["launches"]["separator_morphology"],
              launches_models=models_row["launches"]["separator_morphology"],
@@ -3131,7 +3404,13 @@ def main() -> int:
     # workers); ``launches_visual``: the pipelined workflow's with the visual
     # relation net; ``launches_formats``: the stage CLIs' over the JPEG /
     # TIFF fixtures (separator and heading; each counted from 0 just before
-    # its run); ``launches_train``: the segmentation trainer's bf16 run (13
+    # its run); ``launches_variants``: the pipelined workflow's over the five
+    # full-size variant pages and their PNG twins (10 pages, 3 groups: K1
+    # 69 x 2 x 3, K2 3) plus the separator CLI's over the PBM page and its
+    # twin (K1 69, K2 1); ``launches_blind``: the three blind-quality bf16
+    # workflow runs' (one group per page size: K1 69 x 2 and K2 1 per group,
+    # 4 groups in all; each run counted from 0 just before it);
+    # ``launches_train``: the segmentation trainer's bf16 run (13
     # train steps and 2 eval steps, 69 each); ``launches_gt_eval``: the
     # ground-truth and evaluation phase's (2 train steps on generated GT and
     # the heading grid search's 12 forwards, 69 each); ``launches_models``:
@@ -3141,7 +3420,8 @@ def main() -> int:
     # the card (16 pages, 2 groups of 8: K1 69 x 2 nets x 2 shards x 2, K2 4)
     keys = ("name", "route", "source", "replaces", "launches", "launches_files",
             "launches_workflow", "launches_pipelined", "launches_visual", "launches_formats",
-            "launches_train", "launches_gt_eval", "launches_models", "launches_parallel",
+            "launches_variants", "launches_blind", "launches_train", "launches_gt_eval",
+            "launches_models", "launches_parallel",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))

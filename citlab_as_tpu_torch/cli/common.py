@@ -14,20 +14,22 @@ def refuse(flag: str, why: str) -> None:
     raise UnsupportedFlag(f"{flag} is not supported by the port: {why}")
 
 
-def model_path(model, model_dir):
+def model_path(model, model_dir, flag="--model"):
     """The weights a CLI loads: ``--model`` (a converted ``.npz`` or a
     ``.frozen``), or ``--model_dir`` where it names a ``.frozen`` artifact,
     as the JAX predictors read one from there. An orbax checkpoint
     directory is refused: the port reads converted ``.npz`` weights
-    (``scripts/convert_weights_to_torch.py``) and ``.frozen`` artifacts."""
+    (``scripts/convert_weights_to_torch.py``) and ``.frozen`` artifacts.
+    ``flag`` names the pair in messages (``--gnn_model`` stands for
+    ``--gnn_model`` and ``--gnn_model_dir``)."""
     if model_dir is None:
         return model
     if not model_dir.endswith(".frozen"):
-        refuse("--model_dir", "it reads converted .npz weights and .frozen artifacts, "
+        refuse(f"{flag}_dir", "it reads converted .npz weights and .frozen artifacts, "
                "not orbax checkpoints (convert with scripts/convert_weights_to_torch.py "
-               "and pass --model)")
+               f"and pass {flag})")
     if model is not None:
-        raise ValueError("pass --model or --model_dir, not both")
+        raise ValueError(f"pass {flag} or {flag}_dir, not both")
     return model_dir
 
 

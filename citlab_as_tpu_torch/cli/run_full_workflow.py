@@ -18,6 +18,11 @@ either driver as an injected ``gnn_predictor``, as in the JAX package.
         --gnn_model models_ckpt_torch/gnn.npz --out_dir out \\
         [--pipelined [--host_workers N]] [--data_parallel] [--device cpu]
 
+The JAX CLI's ``--separator_model_dir``, ``--heading_model_dir`` and
+``--gnn_model_dir`` are taken too: each may name a ``.frozen`` artifact; an
+orbax checkpoint directory raises ``UnsupportedFlag``, and passing both
+flags of a pair is an error.
+
 ``--data_parallel`` (implies ``--pipelined``) runs the page groups over
 every visible CUDA device when there is more than one, as the JAX CLI does
 over its devices. The JAX driver's ``runtime.validate()`` and
@@ -35,6 +40,7 @@ from typing import Optional, Sequence
 
 import torch
 
+from citlab_as_tpu_torch.cli.common import model_path
 from citlab_as_tpu_torch.device import DeviceLike, device_scope
 from citlab_as_tpu_torch.utils.io import get_page_path, load_list_file
 
@@ -588,12 +594,13 @@ def run_full_workflow_pipelined(image_paths: Sequence[str],
 def main(argv: Optional[Sequence[str]] = None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path_to_image_list", type=str, required=True)
-    parser.add_argument("--separator_model", type=str, default=None,
-                        help="converted separator ARU-Net (.npz)")
-    parser.add_argument("--heading_model", type=str, default=None,
-                        help="converted heading ARU-Net (.npz)")
-    parser.add_argument("--gnn_model", type=str, default=None,
-                        help="converted relation GNN (.npz)")
+    for net, what in (("separator", "separator ARU-Net"), ("heading", "heading ARU-Net"),
+                      ("gnn", "relation GNN")):
+        parser.add_argument(f"--{net}_model", type=str, default=None,
+                            help=f"converted {what} (.npz or .frozen)")
+        parser.add_argument(f"--{net}_model_dir", type=str, default=None,
+                            help=f"the JAX CLI's flag: a .frozen {what} (an orbax "
+                                 "checkpoint directory is refused)")
     parser.add_argument("--clustering_method", type=str, default="dbscan")
     parser.add_argument("--out_dir", type=str, default="")
     parser.add_argument("--skip_heading", action="store_true", default=False)
@@ -623,6 +630,10 @@ def main(argv: Optional[Sequence[str]] = None):
         from citlab_as_tpu_torch.config.flags import parse_dict_flag
         clustering_params = parse_dict_flag(args.clustering_params)
 
+    separator_model, heading_model, gnn_model = (
+        model_path(getattr(args, f"{net}_model"), getattr(args, f"{net}_model_dir"),
+                   f"--{net}_model")
+        for net in ("separator", "heading", "gnn"))
     image_paths = load_list_file(args.path_to_image_list)
     if ((args.pipelined or args.data_parallel)
             and not args.skip_heading and not args.skip_gnn):
@@ -632,13 +643,13 @@ def main(argv: Optional[Sequence[str]] = None):
             from citlab_as_tpu_torch.parallel.mesh import make_mesh
             mesh = make_mesh()
         result = run_full_workflow_pipelined(
-            image_paths, args.separator_model, args.heading_model, args.gnn_model,
+            image_paths, separator_model, heading_model, gnn_model,
             args.clustering_method, args.out_dir, batch_size=args.batch_size,
             host_workers=args.host_workers, clustering_params=clustering_params,
             device=args.device, mesh=mesh)
     else:
         result = run_full_workflow(
-            image_paths, args.separator_model, args.heading_model, args.gnn_model,
+            image_paths, separator_model, heading_model, gnn_model,
             args.clustering_method, args.out_dir, args.skip_heading, args.skip_gnn,
             batch_size=args.batch_size, clustering_params=clustering_params,
             device=args.device)

@@ -1,4 +1,4 @@
-// Host image decoder of the port: JPEG and TIFF pages to 8-bit samples,
+// Host image decoder of the port: JPEG and TIFF pages to their samples,
 // equal bit for bit to what PIL 12.1 (libjpeg-turbo 3.1, libtiff 4.7)
 // gives for Image.open(path) in the file's own mode.
 //
@@ -10,10 +10,21 @@
 // samples, box upsampling otherwise), jdcolor.c ycc_rgb_convert, and
 // jdapimin.c default_decompress_parms for the colour space.
 //
-// TIFF: the first IFD, little- or big-endian, strips or tiles,
-// PlanarConfiguration 1; no compression, PackBits, LZW, Deflate (inflated
-// by the caller's function) and CCITT Group 4; horizontal predictor on
-// 8-bit samples; 1- and 8-bit MinIsBlack / MinIsWhite, palette and RGB(A).
+// TIFF: the first IFD of a classic or BigTIFF file, little- or big-endian,
+// strips or tiles, PlanarConfiguration 1 or 2, FillOrder 1 or 2 (libtiff
+// reverses the bits of every strip byte); no compression, PackBits, LZW,
+// Deflate (inflated by the caller's function), CCITT modified Huffman,
+// Group 3 (1-D and 2-D rows after EOLs, as tif_fax3.c syncs them) and
+// Group 4, and JPEG (one stream per strip or tile after the JPEGTables
+// stream; YCbCr converted to RGB as libjpeg does when libtiff asks for
+// JPEGCOLORMODE_RGB); old-style JPEG from its JPEGInterchangeFormat stream and
+// YCbCr under the other codecs as libtiff's RGBA interface gives them (the
+// chroma of each sampling unit on its pixels, tif_color.c's conversion);
+// the horizontal predictor on 8-, 16- and 32-bit samples
+// and the floating-point predictor (tif_predict.c fpAcc); 1-, 2-, 4-, 8-,
+// 16- and 32-bit samples. The samples come out as stored (native byte
+// order; a palette expanded to RGB): which layouts PIL opens, and how it
+// reads them, is decided by the caller.
 //
 // Every variant outside that raises by name (the message says which). The
 // code keeps no state between calls and writes only into the caller's
@@ -183,6 +194,7 @@ struct Jpeg {
     bool jfif = false, adobe = false;
     int adobe_transform = -1;
     int restart_interval = 0;
+    int colorspace = -1;   // 0 YCbCr, 1 as coded (no conversion), -1 from the markers
     uint16_t qt[4][64];
     bool qt_present[4] = {false, false, false, false};
     Huffman dc[4], ac[4];
@@ -328,6 +340,7 @@ struct Jpeg {
 
     bool rgb_colorspace() const {
         if (comps.size() != 3) return false;
+        if (colorspace >= 0) return colorspace == 1;
         if (jfif) return false;
         if (adobe) return adobe_transform == 0;
         int c0 = comps[0].id, c1 = comps[1].id, c2 = comps[2].id;
@@ -852,40 +865,287 @@ struct Jpeg {
 
 // ------------------------------------------------------------------ TIFF
 
+// CCITT run-length codes (T.4 tables 2 and 3)
+struct RunTable {
+    std::vector<int16_t> run;   // indexed by the next 13 bits
+    std::vector<uint8_t> len;
+    RunTable() : run(8192, -1), len(8192, 0) {}
+    void add(const char* bits, int value) {
+        int l = (int)std::strlen(bits), code = 0;
+        for (int i = 0; i < l; ++i) code = (code << 1) | (bits[i] - '0');
+        int lo = code << (13 - l), hi = (code + 1) << (13 - l);
+        for (int i = lo; i < hi; ++i) {
+            run[i] = (int16_t)value;
+            len[i] = (uint8_t)l;
+        }
+    }
+};
+
+void fill_tables(RunTable& white, RunTable& black) {
+    static const char* const kWhiteTerm[64] = {
+        "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111",
+        "10011", "10100", "00111", "01000", "001000", "000011", "110100", "110101",
+        "101010", "101011", "0100111", "0001100", "0001000", "0010111", "0000011",
+        "0000100", "0101000", "0101011", "0010011", "0100100", "0011000", "00000010",
+        "00000011", "00011010", "00011011", "00010010", "00010011", "00010100",
+        "00010101", "00010110", "00010111", "00101000", "00101001", "00101010",
+        "00101011", "00101100", "00101101", "00000100", "00000101", "00001010",
+        "00001011", "01010010", "01010011", "01010100", "01010101", "00100100",
+        "00100101", "01011000", "01011001", "01011010", "01011011", "01001010",
+        "01001011", "00110010", "00110011", "00110100"};
+    static const char* const kWhiteMakeup[27] = {
+        "11011", "10010", "010111", "0110111", "00110110", "00110111", "01100100",
+        "01100101", "01101000", "01100111", "011001100", "011001101", "011010010",
+        "011010011", "011010100", "011010101", "011010110", "011010111", "011011000",
+        "011011001", "011011010", "011011011", "010011000", "010011001", "010011010",
+        "011000", "010011011"};
+    static const char* const kBlackTerm[64] = {
+        "0000110111", "010", "11", "10", "011", "0011", "0010", "00011", "000101",
+        "000100", "0000100", "0000101", "0000111", "00000100", "00000111",
+        "000011000", "0000010111", "0000011000", "0000001000", "00001100111",
+        "00001101000", "00001101100", "00000110111", "00000101000", "00000010111",
+        "00000011000", "000011001010", "000011001011", "000011001100",
+        "000011001101", "000001101000", "000001101001", "000001101010",
+        "000001101011", "000011010010", "000011010011", "000011010100",
+        "000011010101", "000011010110", "000011010111", "000001101100",
+        "000001101101", "000011011010", "000011011011", "000001010100",
+        "000001010101", "000001010110", "000001010111", "000001100100",
+        "000001100101", "000001010010", "000001010011", "000000100100",
+        "000000110111", "000000111000", "000000100111", "000000101000",
+        "000001011000", "000001011001", "000000101011", "000000101100",
+        "000001011010", "000001100110", "000001100111"};
+    static const char* const kBlackMakeup[27] = {
+        "0000001111", "000011001000", "000011001001", "000001011011", "000000110011",
+        "000000110100", "000000110101", "0000001101100", "0000001101101",
+        "0000001001010", "0000001001011", "0000001001100", "0000001001101",
+        "0000001110010", "0000001110011", "0000001110100", "0000001110101",
+        "0000001110110", "0000001110111", "0000001010010", "0000001010011",
+        "0000001010100", "0000001010101", "0000001011010", "0000001011011",
+        "0000001100100", "0000001100101"};
+    static const char* const kExtMakeup[13] = {
+        "00000001000", "00000001100", "00000001101", "000000010010", "000000010011",
+        "000000010100", "000000010101", "000000010110", "000000010111",
+        "000000011100", "000000011101", "000000011110", "000000011111"};
+    for (int i = 0; i < 64; ++i) {
+        white.add(kWhiteTerm[i], i);
+        black.add(kBlackTerm[i], i);
+    }
+    for (int i = 0; i < 27; ++i) {
+        white.add(kWhiteMakeup[i], 64 * (i + 1));
+        black.add(kBlackMakeup[i], 64 * (i + 1));
+    }
+    for (int i = 0; i < 13; ++i) {
+        white.add(kExtMakeup[i], 1792 + 64 * i);
+        black.add(kExtMakeup[i], 1792 + 64 * i);
+    }
+}
+
+// CCITT modified Huffman, Group 3 (T.4, 1-D and 2-D) and Group 4 (T.6)
+// rows, as libtiff's tif_fax3.c decodes them: changing elements of the
+// coding line, painted into rows of bits, MSB first, 1 = black.
+struct Fax {
+    const uint8_t* s;
+    size_t nbits, bitpos = 0;
+    const RunTable& white;
+    const RunTable& black;
+    const int W;
+    std::vector<int> ref, cur;
+
+    Fax(const uint8_t* src, size_t n, int width, const RunTable& w, const RunTable& b)
+        : s(src), nbits(n * 8), white(w), black(b), W(width) {
+        ref.assign({W, W, W, W});   // the imaginary all-white line above the first
+    }
+
+    int peek(int k) const {
+        int v = 0;
+        for (int i = 0; i < k; ++i) {
+            size_t b = bitpos + i;
+            int bit = b < nbits ? (s[b >> 3] >> (7 - (b & 7))) & 1 : 0;
+            v = (v << 1) | bit;
+        }
+        return v;
+    }
+
+    int run_length(const RunTable& t) {
+        int total = 0;
+        while (true) {
+            if (bitpos >= nbits) fail("TIFF: CCITT data ends early");
+            int look = peek(13);
+            int r = t.run[look];
+            if (r < 0) fail("TIFF: corrupt CCITT run code");
+            bitpos += t.len[look];
+            total += r;
+            if (r < 64) return total;
+        }
+    }
+
+    // libtiff's SYNC_EOL: skip to 11 zero bits, then past the zeros and the
+    // 1 that end the EOL code (fill bits before an EOL are zeros too)
+    void sync_eol() {
+        while (true) {
+            if (bitpos + 11 > nbits) fail("TIFF: Group 3 data ends early (no EOL)");
+            if (peek(11) == 0) break;
+            ++bitpos;
+        }
+        while (true) {
+            if (bitpos >= nbits) fail("TIFF: Group 3 data ends early (no EOL)");
+            if (peek(1)) break;
+            ++bitpos;
+        }
+        ++bitpos;
+    }
+
+    int bit() {
+        if (bitpos >= nbits) fail("TIFF: CCITT data ends early");
+        int b = peek(1);
+        ++bitpos;
+        return b;
+    }
+
+    void align_byte() { bitpos = (bitpos + 7) & ~(size_t)7; }
+
+    // one row of white and black runs, starting white (EXPAND1D)
+    void row_1d() {
+        cur.clear();
+        int a0 = 0, color = 0;
+        while (a0 < W) {
+            a0 += run_length(color ? black : white);
+            cur.push_back(std::min(a0, W));
+            color ^= 1;
+        }
+    }
+
+    // one row coded against the reference line (EXPAND2D)
+    void row_2d() {
+        cur.clear();
+        int a0 = -1, color = 0;   // 0 white, 1 black
+        size_t ib = 0;
+        while (a0 < W) {
+            // b1: first changing element of the reference line right of
+            // a0 whose colour is opposite to a0's
+            while (ib > 0 && ref[ib - 1] > a0) --ib;
+            while (ref[ib] <= a0 || (int)(ib & 1) != color) ++ib;
+            int b1 = ref[ib], b2 = ref[ib + 1];
+            if (bitpos >= nbits) fail("TIFF: CCITT data ends early");
+            int look = peek(7);
+            if (look >> 6 == 1) {                      // V0: 1
+                bitpos += 1;
+                cur.push_back(b1);
+                a0 = b1;
+                color ^= 1;
+            } else if (look >> 4 == 3 || look >> 4 == 2) {   // VR1 011, VL1 010
+                bitpos += 3;
+                int a1 = (look >> 4 == 3) ? b1 + 1 : b1 - 1;
+                cur.push_back(a1);
+                a0 = a1;
+                color ^= 1;
+            } else if (look >> 4 == 1) {               // H: 001
+                bitpos += 3;
+                int start = a0 < 0 ? 0 : a0;
+                int r1 = run_length(color ? black : white);
+                int r2 = run_length(color ? white : black);
+                int a1 = start + r1, a2 = a1 + r2;
+                cur.push_back(a1);
+                cur.push_back(a2);
+                a0 = a2;
+            } else if (look >> 3 == 1) {               // P: 0001
+                bitpos += 4;
+                a0 = b2;   // a0..b2 keeps a0's colour: no change to record
+            } else if (look >> 1 == 3 || look >> 1 == 2) {   // VR2 000011, VL2 000010
+                bitpos += 6;
+                int a1 = (look >> 1 == 3) ? b1 + 2 : b1 - 2;
+                cur.push_back(a1);
+                a0 = a1;
+                color ^= 1;
+            } else if (look == 3 || look == 2) {       // VR3 0000011, VL3 0000010
+                bitpos += 7;
+                int a1 = look == 3 ? b1 + 3 : b1 - 3;
+                cur.push_back(a1);
+                a0 = a1;
+                color ^= 1;
+            } else {
+                if (peek(12) == 1) fail("TIFF: CCITT data ends before the last row");
+                fail("TIFF: CCITT extension or uncompressed mode is not supported");
+            }
+            if (!cur.empty() && cur.back() > W) cur.back() = W;
+            if (a0 > W) a0 = W;
+        }
+    }
+
+    // paints the coding line into `row` and makes it the reference line
+    void finish_row(uint8_t* row) {
+        const size_t rowbytes = (W + 7) / 8;
+        std::memset(row, 0, rowbytes);
+        // changes alternate white -> black -> white ...
+        for (size_t i = 0; i < cur.size(); i += 2) {
+            int x0 = std::min(cur[i], W);
+            int x1 = i + 1 < cur.size() ? std::min(cur[i + 1], W) : W;
+            for (int x = std::max(x0, 0); x < x1; ++x) row[x >> 3] |= (uint8_t)(0x80 >> (x & 7));
+        }
+        // the changes of a reference line strictly increase; a repeated
+        // position cancels a pair
+        ref.clear();
+        for (int x : cur) {
+            if (!ref.empty() && ref.back() >= x) {
+                if (ref.back() == x) {
+                    ref.pop_back();
+                    continue;
+                }
+            }
+            ref.push_back(x);
+        }
+        while (!ref.empty() && ref.back() >= W) ref.pop_back();
+        for (int i = 0; i < 4; ++i) ref.push_back(W);
+    }
+};
+
+inline uint8_t reverse_bits(uint8_t b) {
+    b = (uint8_t)((b & 0xF0) >> 4 | (b & 0x0F) << 4);
+    b = (uint8_t)((b & 0xCC) >> 2 | (b & 0x33) << 2);
+    return (uint8_t)((b & 0xAA) >> 1 | (b & 0x55) << 1);
+}
+
 struct Tiff {
     const uint8_t* d;
     size_t n;
-    bool big_endian = false;
-    uint32_t width = 0, height = 0, spp = 1, bps = 1, compression = 1,
-             photometric = 99, planar = 1, predictor = 1, fillorder = 1,
-             sampleformat = 1, rows_per_strip = 0xFFFFFFFF, tile_w = 0, tile_h = 0,
+    bool big_endian = false, bigtiff = false;
+    uint32_t width = 0, height = 0, spp = 1, bps = 1, compression = 1, photometric = 0,
+             planar = 1, predictor = 1, fillorder = 1, sampleformat = 1,
+             rows_per_strip = 0xFFFFFFFF, tile_w = 0, tile_h = 0, t4options = 0,
              t6options = 0;
-    bool tiled = false, have_photometric = false;
-    std::vector<uint32_t> offsets, counts, colormap, extrasamples, bps_all;
+    bool tiled = false, have_photometric = false, have_spp = false, sf_uniform = true;
+    size_t n_sf = 0, jpegtables_at = 0, jpegtables_len = 0, ojpeg_at = 0, ojpeg_len = 0;
+    uint32_t ycc_h = 2, ycc_v = 2;   // YCbCrSubsampling (libtiff's default)
+    bool custom_ycc = false;         // YCbCrCoefficients or ReferenceBlackWhite not the default
+    std::vector<uint64_t> offsets, counts;
+    std::vector<uint32_t> colormap, extrasamples, bps_all;
 
     Tiff(const uint8_t* data, size_t size) : d(data), n(size) {}
 
-    uint32_t rd16(size_t p) const {
-        if (p + 2 > n) fail("TIFF: truncated");
-        return big_endian ? (d[p] << 8) | d[p + 1] : d[p] | (d[p + 1] << 8);
+    uint64_t rd(size_t p, int size) const {
+        if (p + size > n) fail("TIFF: truncated");
+        uint64_t v = 0;
+        for (int i = 0; i < size; ++i)
+            v |= (uint64_t)d[p + i] << (8 * (big_endian ? size - 1 - i : i));
+        return v;
     }
-    uint32_t rd32(size_t p) const {
-        if (p + 4 > n) fail("TIFF: truncated");
-        return big_endian ? ((uint32_t)d[p] << 24) | (d[p + 1] << 16) | (d[p + 2] << 8) | d[p + 3]
-                          : d[p] | (d[p + 1] << 8) | (d[p + 2] << 16) | ((uint32_t)d[p + 3] << 24);
-    }
+    uint32_t rd16(size_t p) const { return (uint32_t)rd(p, 2); }
+    uint32_t rd32(size_t p) const { return (uint32_t)rd(p, 4); }
 
-    std::vector<uint32_t> values(size_t entry) const {
-        uint32_t type = rd16(entry + 2), count = rd32(entry + 4);
-        int size = type == 3 ? 2 : type == 4 ? 4 : (type == 1 || type == 2 || type == 7) ? 1 : 0;
-        if (type == 16 || type == 17 || type == 18) fail("TIFF: 64-bit tag values (BigTIFF)");
-        if (size == 0) return {};
-        size_t total = (size_t)size * count;
-        size_t p = total <= 4 ? entry + 8 : rd32(entry + 8);
+    std::vector<uint64_t> values(size_t entry) const {
+        uint32_t type = rd16(entry + 2);
+        uint64_t count = bigtiff ? rd(entry + 4, 8) : rd32(entry + 4);
+        int size = type == 3 || type == 8 ? 2 : type == 4 || type == 9 || type == 13 ? 4
+                 : type == 16 || type == 17 || type == 18 ? 8
+                 : (type == 1 || type == 2 || type == 6 || type == 7) ? 1 : 0;
+        if (size == 8 && !bigtiff) fail("TIFF: 64-bit tag type in a classic TIFF");
+        if (size == 0 || count > n) return {};
+        size_t total = (size_t)size * count, inline_room = bigtiff ? 8 : 4;
+        size_t at = entry + (bigtiff ? 12 : 8);
+        size_t p = total <= inline_room ? at : (size_t)rd(at, bigtiff ? 8 : 4);
         if (p + total > n) fail("TIFF: tag data past the end of the file");
-        std::vector<uint32_t> out(count);
-        for (uint32_t i = 0; i < count; ++i)
-            out[i] = size == 1 ? d[p + i] : size == 2 ? rd16(p + 2 * i) : rd32(p + 4 * i);
+        std::vector<uint64_t> out(count);
+        for (uint64_t i = 0; i < count; ++i) out[i] = rd(p + size * i, size);
         return out;
     }
 
@@ -895,103 +1155,214 @@ struct Tiff {
         else if (d[0] == 'M' && d[1] == 'M') big_endian = true;
         else fail("TIFF: bad byte-order mark");
         uint32_t version = rd16(2);
-        if (version == 43) fail("TIFF: BigTIFF is not supported");
-        if (version != 42) fail("TIFF: bad version");
-        size_t ifd = rd32(4);
-        uint32_t count = rd16(ifd);
-        for (uint32_t i = 0; i < count; ++i) {
-            size_t e = ifd + 2 + 12 * (size_t)i;
+        size_t ifd;
+        if (version == 43) {
+            bigtiff = true;
+            if (n < 16 || rd16(4) != 8) fail("TIFF: bad BigTIFF header");
+            ifd = (size_t)rd(8, 8);
+        } else if (version == 42) {
+            ifd = rd32(4);
+        } else {
+            fail("TIFF: bad version");
+        }
+        const size_t entry_size = bigtiff ? 20 : 12;
+        uint64_t count = bigtiff ? rd(ifd, 8) : rd16(ifd);
+        const size_t first = ifd + (bigtiff ? 8 : 2);
+        if (count > n / entry_size) fail("TIFF: truncated IFD");
+        for (uint64_t i = 0; i < count; ++i) {
+            size_t e = first + entry_size * (size_t)i;
             uint32_t tag = rd16(e);
-            std::vector<uint32_t> v;
+            std::vector<uint64_t> v;
             switch (tag) {
                 case 256: case 257: case 258: case 259: case 262: case 266:
-                case 273: case 277: case 278: case 279: case 284: case 293:
+                case 273: case 277: case 278: case 279: case 284: case 292: case 293:
                 case 317: case 320: case 322: case 323: case 324: case 325:
-                case 338: case 339:
+                case 338: case 339: case 513: case 514: case 530:
                     v = values(e);
                     if (v.empty()) fail("TIFF: empty tag " + std::to_string(tag));
                     break;
+                case 529: case 532: {
+                    // RATIONALs; only libtiff's defaults are decoded
+                    static const double luma[3] = {0.299, 0.587, 0.114};
+                    static const double refbw[6] = {0, 255, 128, 255, 128, 255};
+                    uint64_t cnt = bigtiff ? rd(e + 4, 8) : rd32(e + 4);
+                    size_t want = tag == 529 ? 3 : 6;
+                    if (rd16(e + 2) != 5 || cnt != want) {
+                        custom_ycc = true;
+                        continue;
+                    }
+                    size_t p = (size_t)rd(e + (bigtiff ? 12 : 8), bigtiff ? 8 : 4);
+                    for (size_t k = 0; k < want; ++k) {
+                        double num = rd32(p + 8 * k), den = rd32(p + 8 * k + 4);
+                        double value = den ? num / den : 0;
+                        double expect = tag == 529 ? luma[k] : refbw[k];
+                        if ((float)value != (float)expect) custom_ycc = true;
+                    }
+                    continue;
+                }
+                case 347: {
+                    // JPEGTables: an abbreviated JPEG stream of the tables
+                    uint64_t cnt = bigtiff ? rd(e + 4, 8) : rd32(e + 4);
+                    size_t at = e + (bigtiff ? 12 : 8);
+                    size_t p = cnt <= (bigtiff ? 8u : 4u) ? at : (size_t)rd(at, bigtiff ? 8 : 4);
+                    if (p + cnt > n) fail("TIFF: JPEGTables past the end of the file");
+                    jpegtables_at = p;
+                    jpegtables_len = (size_t)cnt;
+                    continue;
+                }
                 default:
                     continue;
             }
+            auto u32 = [](uint64_t x) { return (uint32_t)std::min<uint64_t>(x, 0xFFFFFFFFu); };
             switch (tag) {
-                case 256: width = v[0]; break;
-                case 257: height = v[0]; break;
-                case 258: bps_all = v; bps = v[0]; break;
-                case 259: compression = v[0]; break;
-                case 262: photometric = v[0]; have_photometric = true; break;
-                case 266: fillorder = v[0]; break;
+                case 256: width = u32(v[0]); break;
+                case 257: height = u32(v[0]); break;
+                case 258:
+                    bps_all.clear();
+                    for (uint64_t b : v) bps_all.push_back(u32(b));
+                    bps = bps_all[0];
+                    break;
+                case 259: compression = u32(v[0]); break;
+                case 262: photometric = u32(v[0]); have_photometric = true; break;
+                case 266: fillorder = u32(v[0]); break;
                 case 273: case 324: offsets = v; tiled |= tag == 324; break;
-                case 277: spp = v[0]; break;
-                case 278: rows_per_strip = v[0]; break;
+                case 277: spp = u32(v[0]); have_spp = true; break;
+                case 278: rows_per_strip = u32(v[0]); break;
                 case 279: case 325: counts = v; break;
-                case 284: planar = v[0]; break;
-                case 293: t6options = v[0]; break;
-                case 317: predictor = v[0]; break;
-                case 320: colormap = v; break;
-                case 322: tile_w = v[0]; break;
-                case 323: tile_h = v[0]; break;
-                case 338: extrasamples = v; break;
-                case 339: sampleformat = v[0]; break;
+                case 284: planar = u32(v[0]); break;
+                case 292: t4options = u32(v[0]); break;
+                case 293: t6options = u32(v[0]); break;
+                case 317: predictor = u32(v[0]); break;
+                case 320:
+                    colormap.clear();
+                    for (uint64_t c : v) colormap.push_back(u32(c));
+                    break;
+                case 322: tile_w = u32(v[0]); break;
+                case 323: tile_h = u32(v[0]); break;
+                case 513: ojpeg_at = (size_t)v[0]; break;
+                case 514: ojpeg_len = (size_t)v[0]; break;
+                case 530:
+                    ycc_h = u32(v[0]);
+                    ycc_v = v.size() > 1 ? u32(v[1]) : ycc_v;
+                    break;
+                case 338:
+                    extrasamples.clear();
+                    for (uint64_t x : v) extrasamples.push_back(u32(x));
+                    break;
+                case 339:
+                    sampleformat = u32(v[0]);
+                    n_sf = v.size();
+                    for (uint64_t x : v) sf_uniform &= x == v[0];
+                    break;
             }
         }
         if (!width || !height) fail("TIFF: missing image size");
+        if (compression == 6) {   // PIL: old-style JPEG is YCbCr, of 3 samples by default
+            photometric = 6;
+            have_photometric = true;
+            if (!have_spp) spp = 3;
+        }
     }
 
+    bool jpeg() const { return compression == 7; }
+    // YCbCr that libtiff's RGBA interface converts (PIL reads old-style
+    // JPEG and YCbCr under other codecs through it)
+    bool ycc_rgba() const { return photometric == 6 && !jpeg(); }
+    bool fax() const { return compression == 2 || compression == 3 || compression == 4; }
+    bool predicted() const { return compression == 5 || compression == 8 || compression == 32946; }
+
+    // what PIL's Image.open refuses of the header itself
+    void check_open() const {
+        if (bigtiff && big_endian) fail("TIFF: big-endian BigTIFF is not supported (PIL does not open it)");
+    }
+
+    // the codecs' limits, met when the pixels are decoded; which sample
+    // layouts PIL opens, and how it reads them, is decided by the caller
+    // (utils/image_native.py)
     void check_supported() const {
+        check_open();
         for (uint32_t b : bps_all)
             if (b != bps) fail("TIFF: mixed bits per sample");
-        if (bps != 1 && bps != 8)
+        if (bps != 1 && bps != 2 && bps != 4 && bps != 8 && bps != 16 && bps != 32)
             fail("TIFF: " + std::to_string(bps) + "-bit samples are not supported "
-                 "(1- and 8-bit only)");
-        if (sampleformat != 1)
-            fail("TIFF: sample format " + std::to_string(sampleformat) +
-                 " (signed or float samples) is not supported");
-        if (planar != 1) fail("TIFF: PlanarConfiguration 2 is not supported");
-        if (fillorder != 1) fail("TIFF: FillOrder 2 is not supported");
+                 "(1, 2, 4, 8, 16 and 32 bits are)");
+        if (planar != 1 && planar != 2)
+            fail("TIFF: PlanarConfiguration " + std::to_string(planar));
+        if (fillorder != 1 && fillorder != 2) fail("TIFF: FillOrder " + std::to_string(fillorder));
         switch (compression) {
-            case 1: case 4: case 5: case 8: case 32946: case 32773: break;
-            case 2: fail("TIFF: CCITT modified Huffman (compression 2) is not supported");
-            case 3: fail("TIFF: CCITT Group 3 compression is not supported");
-            case 6: case 7: fail("TIFF: JPEG-in-TIFF compression is not supported");
+            case 1: case 2: case 3: case 4: case 5: case 7: case 8: case 32946: case 32773: break;
+            case 6:
+                if (!ojpeg_at || !ojpeg_len)
+                    fail("TIFF: old-style JPEG-in-TIFF (compression 6) without "
+                         "JPEGInterchangeFormat is not supported");
+                break;
             default:
                 fail("TIFF: compression " + std::to_string(compression) + " is not supported");
         }
-        if (compression == 4 && (bps != 1 || spp != 1))
-            fail("TIFF: Group 4 needs 1-bit samples");
+        if (fax() && (bps != 1 || spp != 1))
+            fail("TIFF: CCITT compression needs 1-bit samples");
+        if (compression == 3 && (t4options & 2))
+            fail("TIFF: Group 3 uncompressed mode is not supported");
         if (compression == 4 && (t6options & 2))
             fail("TIFF: Group 4 uncompressed mode is not supported");
-        if (predictor == 2 && bps != 8)
-            fail("TIFF: horizontal predictor on 1-bit samples is not supported");
-        if (predictor != 1 && predictor != 2)
+        if (jpeg()) {
+            if (bps != 8) fail("TIFF: JPEG-in-TIFF with " + std::to_string(bps) + "-bit samples");
+            if (planar != 1) fail("TIFF: planar (PlanarConfiguration 2) JPEG-in-TIFF is not supported");
+            if (!((photometric <= 1 && spp == 1) || ((photometric == 2 || photometric == 6) && spp == 3)))
+                fail("TIFF: JPEG-in-TIFF of photometric interpretation " +
+                     std::to_string(photometric) + " with " + std::to_string(spp) + " samples");
+        }
+        if (predicted() && predictor == 2 && bps != 8 && bps != 16 && bps != 32)
+            fail("TIFF: horizontal predictor on " + std::to_string(bps) + "-bit samples is not supported");
+        if (predicted() && predictor == 3 && !(bps == 32 && sampleformat == 3))
+            fail("TIFF: floating-point predictor on samples that are not 32-bit floats");
+        if (predicted() && predictor != 1 && predictor != 2 && predictor != 3)
             fail("TIFF: predictor " + std::to_string(predictor) + " is not supported");
-        if (!have_photometric) fail("TIFF: no PhotometricInterpretation");
         switch (photometric) {
-            case 0: case 1:
-                if (!(spp == 1 || (spp == 2 && bps == 8 && extrasamples.size() == 1)))
-                    fail("TIFF: grey image with " + std::to_string(spp) + " samples per pixel");
-                break;
-            case 2:
-                if (bps != 8 || spp < 3 || spp > 4)
-                    fail("TIFF: RGB image with " + std::to_string(spp) + " x " +
-                         std::to_string(bps) + "-bit samples is not supported");
-                break;
+            case 0: case 1: case 2: break;
             case 3:
                 if (spp != 1) fail("TIFF: palette image with several samples per pixel");
+                if (bps > 8) fail("TIFF: palette image with " + std::to_string(bps) + "-bit samples");
                 if (colormap.size() != 3u << bps) fail("TIFF: palette image without a full ColorMap");
                 break;
-            case 5: fail("TIFF: CMYK (separated) TIFF is not supported");
-            case 6: fail("TIFF: YCbCr TIFF is not supported");
+            case 5: break;
+            case 6:
+                if (jpeg()) break;
+                if (compression == 1)
+                    fail("TIFF: uncompressed YCbCr TIFF is not supported (PIL does not read it)");
+                if (compression != 6 && compression != 5 && compression != 8 &&
+                    compression != 32946 && compression != 32773)
+                    fail("TIFF: YCbCr TIFF under compression " + std::to_string(compression) +
+                         " is not supported");
+                if (bps != 8 || spp != 3 || planar != 1)
+                    fail("TIFF: YCbCr TIFF other than 3 x 8-bit contiguous samples");
+                if (custom_ycc)
+                    fail("TIFF: YCbCr TIFF with its own YCbCrCoefficients or "
+                         "ReferenceBlackWhite is not supported");
+                // the subsamplings libtiff's RGBA interface has a reader for
+                // (tif_getimage.c putcontig8bitYCbCr{44,42,41,22,21,12,11}tile)
+                if (compression != 6 &&
+                    (predictor != 1 ||
+                     !((ycc_h == 4 && (ycc_v == 4 || ycc_v == 2 || ycc_v == 1)) ||
+                       ((ycc_h == 2 || ycc_h == 1) && (ycc_v == 2 || ycc_v == 1)))))
+                    fail("TIFF: YCbCr subsampling " + std::to_string(ycc_h) + "x" +
+                         std::to_string(ycc_v) + " or a predictor is not supported");
+                break;
             default:
                 fail("TIFF: photometric interpretation " + std::to_string(photometric) +
                      " is not supported");
         }
     }
 
+    // decoded layout: uint8 RGB for a palette or YCbCr image, else
+    // spp samples per pixel of 1, 2 or 4 bytes (native byte order)
     int channels() const {
-        if (photometric == 3) return 3;
-        if (photometric == 2) return (int)spp;
-        return (int)spp;   // 1, or 2 (grey + alpha)
+        if (photometric == 3 || photometric == 6) return 3;
+        return (int)spp;
+    }
+    int sample_bytes() const {
+        if (photometric == 3 || photometric == 6 || jpeg() || bps <= 8) return 1;
+        return (int)bps / 8;
     }
 
     // ---- decompression of one strip or tile into exactly `want` bytes
@@ -1071,254 +1442,268 @@ struct Tiff {
         if (k < want) fail("TIFF: LZW data ends early");
     }
 
-    // ---- CCITT T.6 (Group 4)
-    struct RunTable {
-        std::vector<int16_t> run;   // indexed by the next 13 bits
-        std::vector<uint8_t> len;
-        RunTable() : run(8192, -1), len(8192, 0) {}
-        void add(const char* bits, int value) {
-            int l = (int)std::strlen(bits), code = 0;
-            for (int i = 0; i < l; ++i) code = (code << 1) | (bits[i] - '0');
-            int lo = code << (13 - l), hi = (code + 1) << (13 - l);
-            for (int i = lo; i < hi; ++i) {
-                run[i] = (int16_t)value;
-                len[i] = (uint8_t)l;
+    // rows of CCITT data into rows of (w + 7) / 8 bytes
+    void fax_rows(const uint8_t* s, size_t cnt, uint8_t* o, uint32_t w, uint32_t rows,
+                  const RunTable& white, const RunTable& black) const {
+        Fax f(s, cnt, (int)w, white, black);
+        const size_t rowbytes = (w + 7) / 8;
+        for (uint32_t y = 0; y < rows; ++y) {
+            if (compression == 2) {          // modified Huffman: byte-aligned 1-D rows
+                f.row_1d();
+                f.align_byte();
+            } else if (compression == 3) {   // Group 3: EOL, then a 1-D or 2-D row
+                f.sync_eol();
+                bool one_d = !(t4options & 1) || f.bit();
+                if (one_d) f.row_1d();
+                else f.row_2d();
+            } else {
+                f.row_2d();
             }
+            f.finish_row(o + rowbytes * y);
+        }
+    }
+
+    // one strip or tile into exactly `want` bytes
+    void decompress(const uint8_t* src, size_t cnt, uint8_t* out, size_t want, uint32_t cw,
+                    uint32_t rows, inflate_fn inflate, const RunTable& white,
+                    const RunTable& black) const {
+        switch (compression) {
+            case 1:
+                if (cnt < want) fail("TIFF: truncated strip or tile");
+                std::memcpy(out, src, want);
+                break;
+            case 32773: packbits(src, cnt, out, want); break;
+            case 5: lzw(src, cnt, out, want); break;
+            case 8: case 32946: {
+                int64_t got = inflate(src, (int64_t)cnt, out, (int64_t)want);
+                if (got < 0) fail("TIFF: corrupt Deflate data");
+                if ((size_t)got < want) fail("TIFF: Deflate data ends early");
+                break;
+            }
+            case 2: case 3: case 4:
+                fax_rows(src, cnt, out, cw, rows, white, black);
+                break;
+        }
+    }
+
+    // libtiff's TIFFYCbCrToRGBInit / TIFFYCbCrtoRGB (tif_color.c) for the
+    // default YCbCrCoefficients and ReferenceBlackWhite: 16-bit fixed point
+    // from float coefficients
+    struct YccToRgb {
+        int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
+        YccToRgb() {
+            auto fix = [](float x) { return (int32_t)(x * (1L << 16) + 0.5); };
+            const float lr = 0.299f, lg = 0.587f, lb = 0.114f;
+            const float f1 = 2 - 2 * lr, f2 = lr * f1 / lg, f3 = 2 - 2 * lb, f4 = lb * f3 / lg;
+            const int32_t d1 = fix(f1), d2 = -fix(f2), d3 = fix(f3), d4 = -fix(f4);
+            for (int i = 0, x = -128; i < 256; ++i, ++x) {
+                cr_r[i] = (d1 * x + (1 << 15)) >> 16;
+                cb_b[i] = (d3 * x + (1 << 15)) >> 16;
+                cr_g[i] = d2 * x;
+                cb_g[i] = d4 * x + (1 << 15);
+            }
+        }
+        void put(int y, int cb, int cr, uint8_t* rgb) const {
+            auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+            rgb[0] = clamp(y + cr_r[cr]);
+            rgb[1] = clamp(y + ((cb_g[cb] + cr_g[cr]) >> 16));
+            rgb[2] = clamp(y + cb_b[cb]);
         }
     };
 
-    static void fill_tables(RunTable& white, RunTable& black) {
-        static const char* const kWhiteTerm[64] = {
-            "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111",
-            "10011", "10100", "00111", "01000", "001000", "000011", "110100", "110101",
-            "101010", "101011", "0100111", "0001100", "0001000", "0010111", "0000011",
-            "0000100", "0101000", "0101011", "0010011", "0100100", "0011000", "00000010",
-            "00000011", "00011010", "00011011", "00010010", "00010011", "00010100",
-            "00010101", "00010110", "00010111", "00101000", "00101001", "00101010",
-            "00101011", "00101100", "00101101", "00000100", "00000101", "00001010",
-            "00001011", "01010010", "01010011", "01010100", "01010101", "00100100",
-            "00100101", "01011000", "01011001", "01011010", "01011011", "01001010",
-            "01001011", "00110010", "00110011", "00110100"};
-        static const char* const kWhiteMakeup[27] = {
-            "11011", "10010", "010111", "0110111", "00110110", "00110111", "01100100",
-            "01100101", "01101000", "01100111", "011001100", "011001101", "011010010",
-            "011010011", "011010100", "011010101", "011010110", "011010111", "011011000",
-            "011011001", "011011010", "011011011", "010011000", "010011001", "010011010",
-            "011000", "010011011"};
-        static const char* const kBlackTerm[64] = {
-            "0000110111", "010", "11", "10", "011", "0011", "0010", "00011", "000101",
-            "000100", "0000100", "0000101", "0000111", "00000100", "00000111",
-            "000011000", "0000010111", "0000011000", "0000001000", "00001100111",
-            "00001101000", "00001101100", "00000110111", "00000101000", "00000010111",
-            "00000011000", "000011001010", "000011001011", "000011001100",
-            "000011001101", "000001101000", "000001101001", "000001101010",
-            "000001101011", "000011010010", "000011010011", "000011010100",
-            "000011010101", "000011010110", "000011010111", "000001101100",
-            "000001101101", "000011011010", "000011011011", "000001010100",
-            "000001010101", "000001010110", "000001010111", "000001100100",
-            "000001100101", "000001010010", "000001010011", "000000100100",
-            "000000110111", "000000111000", "000000100111", "000000101000",
-            "000001011000", "000001011001", "000000101011", "000000101100",
-            "000001011010", "000001100110", "000001100111"};
-        static const char* const kBlackMakeup[27] = {
-            "0000001111", "000011001000", "000011001001", "000001011011", "000000110011",
-            "000000110100", "000000110101", "0000001101100", "0000001101101",
-            "0000001001010", "0000001001011", "0000001001100", "0000001001101",
-            "0000001110010", "0000001110011", "0000001110100", "0000001110101",
-            "0000001110110", "0000001110111", "0000001010010", "0000001010011",
-            "0000001010100", "0000001010101", "0000001011010", "0000001011011",
-            "0000001100100", "0000001100101"};
-        static const char* const kExtMakeup[13] = {
-            "00000001000", "00000001100", "00000001101", "000000010010", "000000010011",
-            "000000010100", "000000010101", "000000010110", "000000010111",
-            "000000011100", "000000011101", "000000011110", "000000011111"};
-        for (int i = 0; i < 64; ++i) {
-            white.add(kWhiteTerm[i], i);
-            black.add(kBlackTerm[i], i);
-        }
-        for (int i = 0; i < 27; ++i) {
-            white.add(kWhiteMakeup[i], 64 * (i + 1));
-            black.add(kBlackMakeup[i], 64 * (i + 1));
-        }
-        for (int i = 0; i < 13; ++i) {
-            white.add(kExtMakeup[i], 1792 + 64 * i);
-            black.add(kExtMakeup[i], 1792 + 64 * i);
-        }
-    }
-
-    // rows x width bits, packed MSB first into rows of (width + 7) / 8 bytes
-    static void group4(const uint8_t* s, size_t n, uint8_t* o, uint32_t width,
-                       uint32_t rows, const RunTable& white, const RunTable& black) {
-        const size_t rowbytes = (width + 7) / 8;
-        std::memset(o, 0, rowbytes * rows);
-        size_t bitpos = 0;
-        const size_t nbits = n * 8;
-        auto peek = [&](int k) -> int {
-            int v = 0;
-            for (int i = 0; i < k; ++i) {
-                size_t b = bitpos + i;
-                int bit = b < nbits ? (s[b >> 3] >> (7 - (b & 7))) & 1 : 0;
-                v = (v << 1) | bit;
-            }
-            return v;
-        };
-        auto run_length = [&](const RunTable& t) -> int {
-            int total = 0;
-            while (true) {
-                if (bitpos >= nbits) fail("TIFF: Group 4 data ends early");
-                int look = peek(13);
-                int r = t.run[look];
-                if (r < 0) fail("TIFF: corrupt Group 4 run code");
-                bitpos += t.len[look];
-                total += r;
-                if (r < 64) return total;
-            }
-        };
-        const int W = (int)width;
-        std::vector<int> ref, cur;
-        ref.assign({W, W, W, W});
-        for (uint32_t y = 0; y < rows; ++y) {
-            cur.clear();
-            int a0 = -1, color = 0;   // 0 white, 1 black
-            size_t ib = 0;
-            while (a0 < W) {
-                // b1: first changing element of the reference line right of
-                // a0 whose colour is opposite to a0's
-                while (ib > 0 && ref[ib - 1] > a0) --ib;
-                while (ref[ib] <= a0 || (int)(ib & 1) != color) ++ib;
-                int b1 = ref[ib], b2 = ref[ib + 1];
-                if (bitpos >= nbits) fail("TIFF: Group 4 data ends early");
-                int look = peek(7);
-                if (look >> 6 == 1) {                      // V0: 1
-                    bitpos += 1;
-                    cur.push_back(b1);
-                    a0 = b1;
-                    color ^= 1;
-                } else if (look >> 4 == 3 || look >> 4 == 2) {   // VR1 011, VL1 010
-                    bitpos += 3;
-                    int a1 = (look >> 4 == 3) ? b1 + 1 : b1 - 1;
-                    cur.push_back(a1);
-                    a0 = a1;
-                    color ^= 1;
-                } else if (look >> 4 == 1) {               // H: 001
-                    bitpos += 3;
-                    int start = a0 < 0 ? 0 : a0;
-                    int r1 = run_length(color ? black : white);
-                    int r2 = run_length(color ? white : black);
-                    int a1 = start + r1, a2 = a1 + r2;
-                    cur.push_back(a1);
-                    cur.push_back(a2);
-                    a0 = a2;
-                } else if (look >> 3 == 1) {               // P: 0001
-                    bitpos += 4;
-                    a0 = b2;   // a0..b2 keeps a0's colour: no change to record
-                } else if (look >> 1 == 3 || look >> 1 == 2) {   // VR2 000011, VL2 000010
-                    bitpos += 6;
-                    int a1 = (look >> 1 == 3) ? b1 + 2 : b1 - 2;
-                    cur.push_back(a1);
-                    a0 = a1;
-                    color ^= 1;
-                } else if (look == 3 || look == 2) {       // VR3 0000011, VL3 0000010
-                    bitpos += 7;
-                    int a1 = look == 3 ? b1 + 3 : b1 - 3;
-                    cur.push_back(a1);
-                    a0 = a1;
-                    color ^= 1;
-                } else {
-                    int l12 = peek(12);
-                    if (l12 == 1) {   // EOL / EOFB before the last row
-                        fail("TIFF: Group 4 data ends before the last row");
-                    }
-                    fail("TIFF: Group 4 extension or uncompressed mode is not supported");
-                }
-                if (!cur.empty() && cur.back() > W) cur.back() = W;
-                if (a0 > W) a0 = W;
-            }
-            // paint the row: changes alternate white -> black -> white ...
-            uint8_t* row = o + rowbytes * y;
-            for (size_t i = 0; i + 1 <= cur.size(); i += 2) {
-                int x0 = std::min(cur[i], W);
-                int x1 = i + 1 < cur.size() ? std::min(cur[i + 1], W) : W;
-                for (int x = std::max(x0, 0); x < x1; ++x) row[x >> 3] |= (uint8_t)(0x80 >> (x & 7));
-            }
-            // the coding line becomes the reference line (its changes strictly
-            // increase; a repeated position cancels a pair)
-            ref.clear();
-            for (int x : cur) {
-                if (!ref.empty() && ref.back() >= x) {
-                    if (ref.back() == x) {
-                        ref.pop_back();
-                        continue;
-                    }
-                }
-                ref.push_back(x);
-            }
-            while (!ref.empty() && ref.back() >= W) ref.pop_back();
-            for (int i = 0; i < 4; ++i) ref.push_back(W);
-        }
-    }
-
-    void decode(uint8_t* dst, inflate_fn inflate) {
-        check_supported();
+    // YCbCr under a codec other than JPEG, as libtiff's RGBA interface
+    // reads it: strips or tiles of sampling units (the h x v Y samples, Cb,
+    // Cr), each unit's chroma on all its pixels
+    void decode_ycc_units(uint8_t* dst, inflate_fn inflate) const {
         const uint32_t cw = tiled ? tile_w : width;
         const uint32_t ch = tiled ? tile_h : std::min(rows_per_strip, height);
         if (!cw || !ch) fail("TIFF: bad strip or tile size");
-        const size_t rowbytes = ((size_t)cw * spp * bps + 7) / 8;
         const uint32_t across = tiled ? (width + cw - 1) / cw : 1;
         const uint32_t down = (height + ch - 1) / ch;
         if (offsets.size() < (size_t)across * down) fail("TIFF: missing strip or tile offsets");
+        const uint32_t unit = ycc_h * ycc_v + 2, units_across = (cw + ycc_h - 1) / ycc_h;
+        const YccToRgb conv;
         RunTable white, black;
-        if (compression == 4) fill_tables(white, black);
-        std::vector<uint8_t> chunk;
-        // samples of the whole image, rows of width * spp bytes (bit images:
-        // one byte per pixel holding 0 or 1)
-        std::vector<uint8_t> samples((size_t)width * height * spp);
+        std::vector<uint8_t> chunk, reversed;
         for (uint32_t ty = 0; ty < down; ++ty)
             for (uint32_t tx = 0; tx < across; ++tx) {
                 size_t idx = (size_t)ty * across + tx;
                 uint32_t rows = tiled ? ch : std::min(ch, height - ty * ch);
-                size_t want = rowbytes * rows;
-                size_t off = offsets[idx];
-                size_t cnt = idx < counts.size() ? counts[idx] : want;
+                uint32_t unit_rows = (rows + ycc_v - 1) / ycc_v;
+                size_t want = (size_t)unit_rows * units_across * unit;
+                size_t off = (size_t)offsets[idx];
                 if (off > n) fail("TIFF: strip or tile past the end of the file");
-                cnt = std::min(cnt, n - off);
+                size_t cnt = std::min(idx < counts.size() ? (size_t)counts[idx] : want, n - off);
                 const uint8_t* src = d + off;
+                if (fillorder == 2) {
+                    reversed.resize(cnt);
+                    for (size_t i = 0; i < cnt; ++i) reversed[i] = reverse_bits(src[i]);
+                    src = reversed.data();
+                }
                 chunk.assign(want, 0);
-                switch (compression) {
-                    case 1:
-                        if (cnt < want) fail("TIFF: truncated strip or tile");
-                        std::memcpy(chunk.data(), src, want);
-                        break;
-                    case 32773: packbits(src, cnt, chunk.data(), want); break;
-                    case 5: lzw(src, cnt, chunk.data(), want); break;
-                    case 8: case 32946: {
-                        int64_t got = inflate(src, (int64_t)cnt, chunk.data(), (int64_t)want);
-                        if (got < 0) fail("TIFF: corrupt Deflate data");
-                        if ((size_t)got < want) fail("TIFF: Deflate data ends early");
-                        break;
+                decompress(src, cnt, chunk.data(), want, cw, rows, inflate, white, black);
+                const uint32_t x0 = tx * cw, y0 = ty * ch;
+                for (uint32_t uy = 0; uy < unit_rows; ++uy)
+                    for (uint32_t ux = 0; ux < units_across; ++ux) {
+                        const uint8_t* u = chunk.data() + ((size_t)uy * units_across + ux) * unit;
+                        const int cb = u[ycc_h * ycc_v], cr = u[ycc_h * ycc_v + 1];
+                        for (uint32_t j = 0; j < ycc_v; ++j)
+                            for (uint32_t i = 0; i < ycc_h; ++i) {
+                                uint32_t x = x0 + ux * ycc_h + i, y = y0 + uy * ycc_v + j;
+                                if (x >= width || y >= height || ux * ycc_h + i >= cw ||
+                                    uy * ycc_v + j >= rows)
+                                    continue;
+                                conv.put(u[j * ycc_h + i], cb, cr, dst + ((size_t)y * width + x) * 3);
+                            }
                     }
-                    case 4: group4(src, cnt, chunk.data(), cw, rows, white, black); break;
-                }
-                if (predictor == 2) {
-                    for (uint32_t r = 0; r < rows; ++r) {
-                        uint8_t* p = chunk.data() + rowbytes * r;
-                        for (size_t i = spp; i < (size_t)cw * spp; ++i)
-                            p[i] = (uint8_t)(p[i] + p[i - spp]);
-                    }
-                }
-                uint32_t x0 = tx * cw, y0 = ty * ch;
-                uint32_t w_here = std::min(cw, width - x0);
-                for (uint32_t r = 0; r < rows && y0 + r < height; ++r) {
-                    const uint8_t* p = chunk.data() + rowbytes * r;
-                    uint8_t* q = &samples[((size_t)(y0 + r) * width + x0) * spp];
-                    if (bps == 8) {
-                        std::memcpy(q, p, (size_t)w_here * spp);
-                    } else {
-                        for (uint32_t x = 0; x < w_here; ++x)
-                            q[x] = (p[x >> 3] >> (7 - (x & 7))) & 1;
-                    }
-                }
             }
+    }
+
+    // old-style JPEG (compression 6) from its JPEGInterchangeFormat stream,
+    // as libtiff's tif_ojpeg.c hands it to the RGBA interface: the
+    // components as the inverse DCT leaves them, not upsampled, and each
+    // chroma sample on its whole sampling unit
+    void decode_ojpeg(uint8_t* dst) const {
+        if (ojpeg_at > n || ojpeg_len > n - ojpeg_at)
+            fail("TIFF: JPEGInterchangeFormat past the end of the file");
+        Jpeg j(d + ojpeg_at, ojpeg_len);
+        j.decode_coefficients();
+        if (j.comps.size() != 3) fail("TIFF: old-style JPEG-in-TIFF without 3 components");
+        const Component &yc = j.comps[0], &cbc = j.comps[1], &crc = j.comps[2];
+        if (yc.h != j.hmax || yc.v != j.vmax || cbc.h != 1 || cbc.v != 1 || crc.h != 1 ||
+            crc.v != 1)
+            fail("TIFF: old-style JPEG-in-TIFF whose chroma is not sampled 1 x 1");
+        if ((uint32_t)j.width < width || (uint32_t)j.height < height)
+            fail("TIFF: old-style JPEG stream smaller than the image");
+        j.inverse_dct();
+        const YccToRgb conv;
+        const int ys = yc.bw * 8, cs = cbc.bw * 8;
+        for (uint32_t y = 0; y < height; ++y)
+            for (uint32_t x = 0; x < width; ++x) {
+                size_t c = (size_t)(y / yc.v) * cs + x / yc.h;
+                conv.put(yc.plane[(size_t)y * ys + x], cbc.plane[c], crc.plane[c],
+                         dst + ((size_t)y * width + x) * 3);
+            }
+    }
+
+    // one JPEG stream (tables from JPEGTables first) -> its pixels, placed
+    // at (x0, y0) of the image
+    void jpeg_chunk(const uint8_t* src, size_t cnt, uint32_t x0, uint32_t y0, uint8_t* dst) const {
+        std::vector<uint8_t> stream;
+        if (jpegtables_len >= 4 && cnt >= 2 && src[0] == 0xFF && src[1] == 0xD8) {
+            const uint8_t* t = d + jpegtables_at;
+            size_t tl = jpegtables_len;
+            if (t[tl - 2] == 0xFF && t[tl - 1] == 0xD9) tl -= 2;
+            stream.assign(t, t + tl);
+            stream.insert(stream.end(), src + 2, src + cnt);
+        } else {
+            stream.assign(src, src + cnt);
+        }
+        Jpeg j(stream.data(), stream.size());
+        // libtiff: YCbCr is converted to RGB (PIL asks for JPEGCOLORMODE_RGB);
+        // any other photometric comes out as coded
+        j.colorspace = photometric == 6 ? 0 : 1;
+        j.decode_coefficients();
+        const int ch = channels();
+        if (j.channels() != ch) fail("TIFF: JPEG strip or tile has the wrong number of components");
+        if (photometric != 6 && ch == 3 && (j.hmax != 1 || j.vmax != 1))
+            fail("TIFF: subsampled JPEG-in-TIFF that is not YCbCr is not supported");
+        j.inverse_dct();
+        std::vector<uint8_t> px((size_t)j.width * j.height * ch);
+        j.to_pixels(px.data());
+        uint32_t w_here = std::min((uint32_t)j.width, width - x0);
+        uint32_t h_here = std::min((uint32_t)j.height, height - y0);
+        for (uint32_t r = 0; r < h_here; ++r)
+            std::memcpy(dst + ((size_t)(y0 + r) * width + x0) * ch,
+                        px.data() + (size_t)r * j.width * ch, (size_t)w_here * ch);
+    }
+
+    void decode(uint8_t* dst, inflate_fn inflate) {
+        check_supported();
+        if (compression == 6) return decode_ojpeg(dst);
+        if (ycc_rgba()) return decode_ycc_units(dst, inflate);
+        const uint32_t cw = tiled ? tile_w : width;
+        const uint32_t ch = tiled ? tile_h : std::min(rows_per_strip, height);
+        if (!cw || !ch) fail("TIFF: bad strip or tile size");
+        const uint32_t planes = planar == 2 ? spp : 1, spc = planar == 2 ? 1 : spp;
+        const size_t rowbytes = ((size_t)cw * spc * bps + 7) / 8;
+        const uint32_t across = tiled ? (width + cw - 1) / cw : 1;
+        const uint32_t down = (height + ch - 1) / ch;
+        // PIL reads an uncompressed file strip by strip as far as its
+        // offsets go and leaves the rest black; libtiff needs them all
+        if (compression != 1 && offsets.size() < (size_t)across * down * planes)
+            fail("TIFF: missing strip or tile offsets");
+        const int sb = sample_bytes();
+        RunTable white, black;
+        if (fax()) fill_tables(white, black);
+        std::vector<uint8_t> chunk, reversed;
+        std::vector<uint32_t> row(cw * spc);
+        // samples of the whole image (a palette image: its indices)
+        std::vector<uint8_t> samples(photometric == 3 ? (size_t)width * height
+                                                       : jpeg() ? 0 : (size_t)width * height * spp * sb);
+        for (uint32_t plane = 0; plane < planes; ++plane)
+            for (uint32_t ty = 0; ty < down; ++ty)
+                for (uint32_t tx = 0; tx < across; ++tx) {
+                    size_t idx = ((size_t)plane * down + ty) * across + tx;
+                    if (idx >= offsets.size()) continue;
+                    uint32_t rows = tiled ? ch : std::min(ch, height - ty * ch);
+                    size_t want = rowbytes * rows;
+                    size_t off = (size_t)offsets[idx];
+                    if (off > n) fail("TIFF: strip or tile past the end of the file");
+                    size_t cnt = idx < counts.size() ? (size_t)counts[idx] : want;
+                    cnt = std::min(cnt, n - off);
+                    const uint8_t* src = d + off;
+                    if (fillorder == 2) {
+                        reversed.resize(cnt);
+                        for (size_t i = 0; i < cnt; ++i) reversed[i] = reverse_bits(src[i]);
+                        src = reversed.data();
+                    }
+                    uint32_t x0 = tx * cw, y0 = ty * ch;
+                    if (jpeg()) {
+                        jpeg_chunk(src, cnt, x0, y0, dst);
+                        continue;
+                    }
+                    chunk.assign(want, 0);
+                    decompress(src, cnt, chunk.data(), want, cw, rows, inflate, white, black);
+                    uint32_t w_here = std::min(cw, width - x0);
+                    const size_t nvals = (size_t)cw * spc;
+                    for (uint32_t r = 0; r < rows && y0 + r < height; ++r) {
+                        const uint8_t* p = chunk.data() + rowbytes * r;
+                        // the row's sample values
+                        if (predicted() && predictor == 3) {
+                            // libtiff fpAcc: bytes summed along the row, then
+                            // un-shuffled from byte planes, most significant first
+                            std::vector<uint8_t> b(p, p + rowbytes);
+                            for (size_t i = spc; i < rowbytes; ++i) b[i] = (uint8_t)(b[i] + b[i - spc]);
+                            for (size_t i = 0; i < nvals; ++i)
+                                row[i] = ((uint32_t)b[i] << 24) | ((uint32_t)b[nvals + i] << 16) |
+                                         ((uint32_t)b[2 * nvals + i] << 8) | b[3 * nvals + i];
+                        } else if (bps >= 8) {
+                            for (size_t i = 0; i < nvals; ++i)
+                                row[i] = (uint32_t)rd_sample(p + i * (bps / 8));
+                            if (predicted() && predictor == 2) {
+                                const uint32_t mask = bps == 32 ? 0xFFFFFFFFu : (1u << bps) - 1;
+                                for (size_t i = spc; i < nvals; ++i) row[i] = (row[i] + row[i - spc]) & mask;
+                            }
+                        } else {
+                            for (size_t i = 0; i < nvals; ++i) {
+                                size_t bit = i * bps;
+                                row[i] = (p[bit >> 3] >> (8 - bps - (bit & 7))) & ((1u << bps) - 1);
+                            }
+                        }
+                        // into the image
+                        for (uint32_t x = 0; x < w_here; ++x)
+                            for (uint32_t c = 0; c < spc; ++c) {
+                                uint32_t v = row[(size_t)x * spc + c];
+                                size_t at = ((size_t)(y0 + r) * width + x0 + x) *
+                                            (photometric == 3 ? 1 : spp) + plane + c;
+                                if (sb == 1) samples[at] = (uint8_t)v;
+                                else if (sb == 2) { uint16_t h = (uint16_t)v; std::memcpy(&samples[at * 2], &h, 2); }
+                                else std::memcpy(&samples[at * 4], &v, 4);
+                            }
+                    }
+                }
+        if (jpeg()) return;
         const size_t npix = (size_t)width * height;
         if (photometric == 3) {
             const size_t ncol = (size_t)1 << bps;
@@ -1330,17 +1715,16 @@ struct Tiff {
             }
             return;
         }
-        if (photometric == 2) {
-            std::memcpy(dst, samples.data(), npix * spp);
-            return;
-        }
-        const bool invert = photometric == 0;
-        for (size_t i = 0; i < npix * spp; ++i) {
-            uint8_t v = samples[i];
-            bool grey = spp == 1 || i % spp == 0;
-            if (bps == 1) v = v ? 255 : 0;
-            dst[i] = invert && grey ? (uint8_t)(255 - v) : v;
-        }
+        std::memcpy(dst, samples.data(), samples.size());
+    }
+
+    // one 8-, 16- or 32-bit sample in the file's byte order
+    uint32_t rd_sample(const uint8_t* p) const {
+        if (bps == 8) return p[0];
+        uint32_t v = 0;
+        const int k = (int)bps / 8;
+        for (int i = 0; i < k; ++i) v |= (uint32_t)p[i] << (8 * (big_endian ? k - 1 - i : i));
+        return v;
     }
 };
 
@@ -1365,12 +1749,21 @@ void copy_error(const char* msg, char* err, int32_t errlen) {
 
 extern "C" {
 
-// info: [width, height, channels (1 grey, 2 grey + alpha, 3 RGB, 4 RGBA),
-// kind (1 JPEG, 2 TIFF)], read from the headers only. Returns 0, or 1
-// with a message in err.
+// info: [width, height, channels (1 grey, 2 grey + alpha, 3 RGB, 4 RGBA
+// or more samples), kind (1 JPEG, 2 TIFF), bytes per sample (1, 2 or 4)]
+// and, for a TIFF, the tags that decide PIL's mode: [5] photometric (-1
+// absent), [6] compression, [7] planar configuration, [8] fill order,
+// [9] big-endian, [10] BigTIFF, [11] samples per pixel (-1 absent),
+// [12] count of BitsPerSample values, [13] bits per sample, [14] count of
+// SampleFormat values, [15] sample format, [16] 1 if all SampleFormat
+// values are equal, [17] count of ExtraSamples, [18..20] the first three
+// ExtraSamples, [21] predictor. Read from the headers only; a TIFF that
+// PIL opens but cannot decode passes here and raises in
+// citlab_image_decode. Returns 0, or 1 with a message in err.
 int32_t citlab_image_info(const uint8_t* data, int64_t n, int32_t* info, char* err,
                           int32_t errlen) {
     try {
+        std::memset(info, 0, sizeof(int32_t) * 24);
         int kind = kind_of(data, (size_t)n);
         if (kind == 1) {
             Jpeg j(data, (size_t)n);
@@ -1378,13 +1771,31 @@ int32_t citlab_image_info(const uint8_t* data, int64_t n, int32_t* info, char* e
             info[0] = j.width;
             info[1] = j.height;
             info[2] = j.channels();
+            info[4] = 1;
         } else if (kind == 2) {
             Tiff t(data, (size_t)n);
             t.parse();
-            t.check_supported();
+            t.check_open();
             info[0] = (int32_t)t.width;
             info[1] = (int32_t)t.height;
             info[2] = t.channels();
+            info[4] = t.sample_bytes();
+            info[5] = t.have_photometric ? (int32_t)t.photometric : -1;
+            info[6] = (int32_t)t.compression;
+            info[7] = (int32_t)t.planar;
+            info[8] = (int32_t)t.fillorder;
+            info[9] = t.big_endian;
+            info[10] = t.bigtiff;
+            info[11] = t.have_spp ? (int32_t)t.spp : -1;
+            info[12] = (int32_t)t.bps_all.size();
+            info[13] = (int32_t)t.bps;
+            info[14] = (int32_t)t.n_sf;
+            info[15] = (int32_t)t.sampleformat;
+            info[16] = t.sf_uniform;
+            info[17] = (int32_t)t.extrasamples.size();
+            for (size_t i = 0; i < 3 && i < t.extrasamples.size(); ++i)
+                info[18 + i] = (int32_t)t.extrasamples[i];
+            info[21] = (int32_t)t.predictor;
         } else {
             fail("not a JPEG or TIFF file");
         }
@@ -1413,7 +1824,7 @@ int32_t citlab_image_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_
             Tiff t(data, (size_t)n);
             t.parse();
             t.check_supported();
-            if ((int64_t)t.width * t.height * t.channels() != out_size)
+            if ((int64_t)t.width * t.height * t.channels() * t.sample_bytes() != out_size)
                 fail("output buffer size does not match the image");
             t.decode(out, inflate);
         } else {

@@ -1,7 +1,13 @@
 """ctypes bindings of the port's host image decoder
-(``csrc/image_decode.cpp``): JPEG and TIFF files to uint8 arrays equal to
-PIL's decode in the file's own mode (see the source for what is decoded
-and what raises).
+(``csrc/image_decode.cpp``): JPEG and TIFF files to arrays equal to PIL's
+decode (see the source for what is decoded and what raises).
+
+The decoder yields a TIFF's samples as they are stored (1-, 2- and 4-bit
+samples unpacked, 16- and 32-bit ones in native byte order, palettes and
+YCbCr already RGB); :func:`decode` then applies PIL 12.1's reading of
+the tags (``TiffImagePlugin.OPEN_INFO``: which layouts PIL opens, in which
+mode, with which unpacking), so that the result is PIL's image in the
+representation ``utils/io.py`` converts from.
 
 The library is built with the host C++ compiler at first use
 (``ops/kernels/build.py``); a failed build raises, and there is no other
@@ -20,6 +26,7 @@ from typing import Tuple
 import numpy as np
 
 _ERRLEN = 512
+_INFO_LEN = 24
 _INFLATE_FN = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
                                ctypes.c_void_p, ctypes.c_int64)
 
@@ -55,22 +62,192 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def info(data: bytes) -> Tuple[int, int, int]:
-    """(width, height, channels) from the headers alone."""
-    out = (ctypes.c_int32 * 4)()
+# PIL 12.1's TiffImagePlugin.OPEN_INFO: (big-endian, photometric,
+# SampleFormat, FillOrder, BitsPerSample, ExtraSamples) -> (mode, rawmode)
+# for the layouts this decoder yields. A key PIL lacks is a file PIL does
+# not open. Bilevel, 2- and 4-bit samples follow PIL's rawmodes "1", "L;2",
+# "L;4" and their inverted ("I") forms; the bit reversal of FillOrder 2
+# (the "R" forms) is undone by the decoder, as libtiff does.
+_OPEN_INFO = {}
+for _be in (False, True):
+    for _fill in (1, 2):
+        for _photo in (0, 1):
+            _inv = "I" if _photo == 0 else ""
+            _OPEN_INFO[(_be, _photo, (1,), _fill, (1,), ())] = ("1", "1;" + _inv)
+            for _bits in (2, 4):
+                _OPEN_INFO[(_be, _photo, (1,), _fill, (_bits,), ())] = ("L", f"L;{_bits}{_inv}")
+            _OPEN_INFO[(_be, _photo, (1,), _fill, (8,), ())] = ("L", "L;" + _inv)
+        for _bits in (1, 2, 4, 8):
+            _OPEN_INFO[(_be, 3, (1,), _fill, (_bits,), ())] = ("P", "P")
+    _OPEN_INFO[(_be, 1, (2,), 1, (8,), ())] = ("L", "L;")
+    for _photo in (0, 1):
+        _OPEN_INFO[(_be, _photo, (3,), 1, (32,), ())] = ("F", "F;32BF" if _be else "F;32F")
+    _OPEN_INFO[(_be, 1, (2,), 1, (16,), ())] = ("I", "I;16BS" if _be else "I;16S")
+    _OPEN_INFO[(_be, 1, (2,), 1, (32,), ())] = ("I", "I;32BS" if _be else "I;32S")
+    _OPEN_INFO[(_be, 1, (1,), 1, (8, 8), (2,))] = ("LA", "LA")
+    _OPEN_INFO[(_be, 2, (1,), 1, (8, 8, 8), ())] = ("RGB", "RGB")
+    _OPEN_INFO[(_be, 2, (1,), 2, (8, 8, 8), ())] = ("RGB", "RGB")
+    _OPEN_INFO[(_be, 2, (1,), 1, (8, 8, 8, 8), ())] = ("RGBA", "RGBA")
+    for _extra, _mode in (((0,), "RGB"), ((0, 0), "RGB"), ((0, 0, 0), "RGB"),
+                          ((1,), "RGBa"), ((1, 0), "RGBa"), ((1, 0, 0), "RGBa"),
+                          ((2,), "RGBA"), ((2, 0), "RGBA"), ((2, 0, 0), "RGBA"),
+                          ((999,), "RGBA")):
+        _OPEN_INFO[(_be, 2, (1,), 1, (8,) * (3 + len(_extra)), _extra)] = (
+            _mode.upper(), _mode)
+    _OPEN_INFO[(_be, 2, (1,), 1, (16, 16, 16), ())] = ("RGB", "RGB;16")
+    _OPEN_INFO[(_be, 2, (1,), 1, (16,) * 4, ())] = ("RGBA", "RGBA;16")
+    _OPEN_INFO[(_be, 2, (1,), 1, (16,) * 4, (0,))] = ("RGB", "RGB;16")
+    _OPEN_INFO[(_be, 2, (1,), 1, (16,) * 4, (1,))] = ("RGBA", "RGBa;16")
+    _OPEN_INFO[(_be, 2, (1,), 1, (16,) * 4, (2,))] = ("RGBA", "RGBA;16")
+    for _extra in ((), (0,), (0, 0)):
+        _OPEN_INFO[(_be, 5, (1,), 1, (8,) * (4 + len(_extra)), _extra)] = ("CMYK", "CMYK")
+    _OPEN_INFO[(_be, 5, (1,), 1, (16,) * 4, ())] = ("CMYK", "CMYK;16")
+    _OPEN_INFO[(_be, 6, (1,), 1, (8,), ())] = ("L", "L;")
+    _OPEN_INFO[(_be, 6, (1,), 1, (8, 8, 8), ())] = ("RGB", "RGB")
+# 16-bit grey and unsigned 32-bit exist in PIL's table for one byte order only
+_OPEN_INFO[(False, 0, (1,), 1, (16,), ())] = ("I;16", "I;16")
+_OPEN_INFO[(False, 1, (1,), 1, (16,), ())] = ("I;16", "I;16")
+_OPEN_INFO[(True, 1, (1,), 1, (16,), ())] = ("I;16", "I;16")
+_OPEN_INFO[(False, 1, (1,), 2, (16,), ())] = ("I;16", "I;16")
+_OPEN_INFO[(False, 1, (1,), 1, (32,), ())] = ("I", "I;32N")
+del (_be, _fill, _photo, _inv, _bits, _extra, _mode)
+
+
+def _info(data: bytes) -> np.ndarray:
+    out = np.zeros(_INFO_LEN, np.int32)
     err = ctypes.create_string_buffer(_ERRLEN)
-    if _lib().citlab_image_info(data, len(data), out, err, _ERRLEN):
+    if _lib().citlab_image_info(data, len(data), out.ctypes.data_as(
+            ctypes.POINTER(ctypes.c_int32)), err, _ERRLEN):
         raise NativeDecodeError(err.value.decode())
-    return out[0], out[1], out[2]
+    return out
+
+
+def _pil_tiff_mode(m: np.ndarray) -> Tuple[str, str]:
+    """PIL's (mode, rawmode) of a TIFF (TiffImageFile._setup), from the
+    tags ``citlab_image_info`` read; raises where PIL does not open it."""
+    photo = int(m[5]) if m[5] >= 0 else 0           # PIL's default: MinIsWhite
+    n_sf, sf = int(m[14]), int(m[15])
+    if n_sf == 0 or (n_sf > 1 and m[16] and sf == 1):
+        sample_format = (1,)
+    else:
+        sample_format = (sf,) * n_sf if m[16] else (-1,) * n_sf
+    # PIL's default: an old-style JPEG (compression 6) has 3 samples
+    spp = int(m[11]) if m[11] >= 0 else (3 if int(m[6]) == 6 else 1)
+    n_bps = max(int(m[12]), 1)
+    if spp > 6:
+        raise NativeDecodeError(f"TIFF: {spp} samples per pixel")
+    if spp < n_bps or n_bps == 1:
+        n_bps = spp
+    if int(m[17]) > 3:
+        raise NativeDecodeError("TIFF: more than three extra samples")
+    extra = tuple(int(x) for x in m[18:18 + int(m[17])])
+    key = (bool(m[9]), photo, sample_format, int(m[8]), (int(m[13]),) * n_bps, extra)
+    if n_bps != spp or key not in _OPEN_INFO:
+        raise NativeDecodeError(
+            f"TIFF: PIL does not read this sample layout (photometric {photo}, "
+            f"SampleFormat {sample_format}, FillOrder {int(m[8])}, "
+            f"{spp} x {int(m[13])}-bit samples, ExtraSamples {extra})")
+    return _OPEN_INFO[key]
+
+
+def cmyk_to_rgb(cmyk: np.ndarray) -> np.ndarray:
+    """PIL's CMYK -> RGB: ``255 - c`` scaled by ``(255 - k) / 255``, with
+    its rounding (``MULDIV255``); PIL's CMYK -> L is the luma of this."""
+    inv = 255 - cmyk.astype(np.int32)
+    t = inv[..., :3] * inv[..., 3:] + 128
+    return (((t >> 8) + t) >> 8).astype(np.uint8)
+
+
+def _unpremultiply(rgba: np.ndarray) -> np.ndarray:
+    """PIL's "RGBa" unpacking: colour * 255 / alpha, truncated and clipped;
+    zero alpha gives a zero pixel."""
+    a = rgba[..., 3:].astype(np.int32)
+    rgb = np.where(a == 0, 0, np.minimum(rgba[..., :3].astype(np.int32) * 255
+                                         // np.maximum(a, 1), 255))
+    rgb = np.where(a == 255, rgba[..., :3], rgb)
+    return np.concatenate([rgb.astype(np.uint8), rgba[..., 3:]], axis=-1)
+
+
+def _raw_planar_rawmode(mode: str, rawmode: str, m: np.ndarray) -> str:
+    """PIL reads each plane of an uncompressed planar TIFF with one letter
+    of its rawmode: whole-byte bands come out as stored (a MinIsWhite image
+    is not inverted), 32-bit little-endian "I" and "F" planes too; any
+    other layout is read wrongly or refused by PIL, and raises here."""
+    bps, spp = int(m[13]), int(m[11]) if m[11] >= 0 else 1
+    bands = 1 if mode in ("1", "L", "P", "I", "F") else len(mode)
+    plain = (int(m[8]) == 1 and spp == bands and not rawmode.startswith("RGBa")
+             and (bps == 8 or (bps == 1 and mode == "1")
+                  or (bps == 32 and not m[9] and mode in ("I", "F"))))
+    if not plain:
+        raise NativeDecodeError(
+            f"TIFF: uncompressed PlanarConfiguration 2 with {spp} x {bps}-bit samples "
+            f"(rawmode {rawmode}) is not read as stored by PIL")
+    return {"1": "1;", "L": "L;"}.get(mode, rawmode)
+
+
+def _tiff_as_pil(raw: np.ndarray, m: np.ndarray) -> np.ndarray:
+    """The decoder's samples -> PIL's image (uint8 for 8-bit modes, CMYK as
+    RGB; uint16 "I;16"; int32 "I"; float32 "F")."""
+    mode, rawmode = _pil_tiff_mode(m)
+    if int(m[6]) == 1 and int(m[7]) == 2:
+        rawmode = _raw_planar_rawmode(mode, rawmode, m)
+    if mode == "P" or int(m[5]) == 6:     # palette and YCbCr: RGB from the decoder
+        out = raw
+    elif mode == "1":
+        out = (raw[..., 0] if rawmode == "1;" else 1 - raw[..., 0]) * np.uint8(255)
+    elif rawmode.startswith("L;") and mode == "L":
+        bits = int(m[13])
+        scale = 255 // ((1 << bits) - 1) if bits < 8 else 1
+        out = raw[..., 0] * np.uint8(scale)
+        if rawmode.endswith("I"):
+            out = 255 - out
+    else:
+        # libtiff hands PIL native-order samples; these three rawmodes read
+        # them as big-endian all the same (PIL rewrites only ";16B" to ";16N")
+        if int(m[6]) != 1 and rawmode in ("F;32BF", "I;16BS", "I;32BS"):
+            raw = raw.byteswap()
+        if mode in ("I;16", "F"):
+            out = raw[..., 0].view(np.float32) if mode == "F" else raw[..., 0]
+        elif mode == "I":
+            out = raw[..., 0].view(np.int16 if raw.dtype == np.uint16 else np.int32)
+            out = out.astype(np.int32)
+        else:
+            if raw.dtype == np.uint16:
+                raw = (raw >> 8).astype(np.uint8)     # the high byte of each sample
+            if mode == "LA":
+                out = raw
+            elif mode == "CMYK":
+                out = cmyk_to_rgb(raw[..., :4])
+            elif rawmode.startswith("RGBa"):
+                out = _unpremultiply(raw[..., :4])
+            else:
+                out = raw[..., :len(mode)]
+    return np.ascontiguousarray(out)
+
+
+def info(data: bytes) -> Tuple[int, int, int]:
+    """(width, height, channels of the decoded samples) from the headers
+    alone; a TIFF that PIL does not open raises."""
+    m = _info(data)
+    if m[3] == 2:
+        _pil_tiff_mode(m)
+    return int(m[0]), int(m[1]), int(m[2])
 
 
 def decode(data: bytes) -> np.ndarray:
-    """[H, W] grey, [H, W, 2] grey + alpha, [H, W, 3] RGB or [H, W, 4] RGBA
-    uint8 (a palette image comes expanded to RGB, a bilevel one as 0/255)."""
-    w, h, ch = info(data)
-    out = np.empty((h, w, ch), np.uint8)
+    """PIL's image: uint8 [H, W] grey ("1" as 0/255), [H, W, 2] grey +
+    alpha, [H, W, 3] RGB (palette, YCbCr and CMYK converted) or
+    [H, W, 4] RGBA; uint16 [H, W] for PIL's "I;16", int32 [H, W] for "I",
+    float32 [H, W] for "F"."""
+    m = _info(data)
+    if m[3] == 2:
+        _pil_tiff_mode(m)
+    w, h, ch, sb = int(m[0]), int(m[1]), int(m[2]), int(m[4])
+    out = np.empty((h, w, ch), {1: np.uint8, 2: np.uint16, 4: np.uint32}[sb])
     err = ctypes.create_string_buffer(_ERRLEN)
-    if _lib().citlab_image_decode(data, len(data), out.ctypes.data, out.size, _inflate,
+    if _lib().citlab_image_decode(data, len(data), out.ctypes.data, out.nbytes, _inflate,
                                   err, _ERRLEN):
         raise NativeDecodeError(err.value.decode())
+    if m[3] == 2:
+        return _tiff_as_pil(out, m)
     return out[..., 0] if ch == 1 else out

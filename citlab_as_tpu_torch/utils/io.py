@@ -4,26 +4,39 @@ next to a ``page/`` folder holding ``<name>.xml``; graph features in
 ``confidences/<name>_confidences.json``.
 
 Images are decoded without PIL (the JAX package uses PIL), equal bit for
-bit to ``np.asarray(Image.open(path).convert(mode))``:
+bit to ``np.asarray(Image.open(path).convert(mode))`` under PIL 12.1:
 
-- PNG (non-interlaced, every colour type, up to 8 bits per sample), binary
-  PGM/PPM and ``.npy`` with the standard library and numpy;
+- PNG (every colour type and bit depth, interlaced (Adam7) or not; 16-bit
+  grey is PIL's "I;16", other 16-bit samples keep their high byte), PNM
+  (P1 to P6, ASCII or binary, any maxval, rescaled as PIL rescales; P0CMYK
+  and PFM) and ``.npy`` with the standard library and numpy;
 - JPEG (baseline or progressive Huffman, 8-bit, grey or YCbCr/RGB, restart
-  markers, any sampling factors) and TIFF (first IFD, strips or tiles; no
-  compression, PackBits, LZW, Deflate, CCITT Group 4; horizontal
-  predictor; 1- and 8-bit grey, palette and RGB) by the port's host C++
-  decoder (``csrc/image_decode.cpp``, ``utils/image_native.py``).
+  markers, any sampling factors) and TIFF (classic or little-endian
+  BigTIFF, strips or tiles, either PlanarConfiguration, either FillOrder;
+  no compression, PackBits, LZW, Deflate, CCITT modified Huffman, Group 3
+  (1-D and 2-D) and Group 4, JPEG with JPEGTables (grey, RGB or YCbCr),
+  old-style JPEG behind JPEGInterchangeFormat, YCbCr under LZW, Deflate or
+  PackBits as libtiff's RGBA interface converts it;
+  horizontal and floating-point predictors; 1-, 2-, 4-, 8-, 16-bit and
+  32-bit integer or float samples; grey, palette, RGB(A), CMYK, as PIL's
+  ``OPEN_INFO`` table reads them) by the port's host C++ decoder
+  (``csrc/image_decode.cpp``, ``utils/image_native.py``).
+
+PIL's mode conversions follow: 16- and 32-bit grey clip to 0-255 (a
+16-bit scan comes out almost white, as in the JAX package), floats
+truncate, CMYK goes through PIL's RGB.
 
 Grey images are written as PNG (:func:`save_png`, zlib) and as PIL's
 baseline JPEG (:func:`save_jpeg`, host C++ ``csrc/image_encode.cpp``);
 :func:`resize_bilinear` is PIL's bilinear resize.
 
 Everything else raises :class:`UnsupportedImageFormat` naming the variant:
-interlaced or 16-bit PNG, BMP, GIF, WebP, JPEG 2000; CMYK/YCCK,
-arithmetic-coded, 12-bit, lossless and hierarchical JPEG, and a progressive
-JPEG that libjpeg would block-smooth; BigTIFF, Group 3, JPEG-in-TIFF,
-16-bit or float samples, ``PlanarConfiguration`` 2, ``FillOrder`` 2.
-Nothing falls back.
+BMP, GIF, WebP, JPEG 2000; CMYK/YCCK, arithmetic-coded, 12-bit, lossless
+and hierarchical JPEG, and a progressive JPEG that libjpeg would
+block-smooth; old-style JPEG-in-TIFF without JPEGInterchangeFormat,
+uncompressed YCbCr TIFF (PIL does not read it either),
+big-endian BigTIFF, 12-bit samples and every TIFF layout PIL does not open;
+PIL's test-only PNM extensions ("Py" magics). Nothing falls back.
 """
 from __future__ import annotations
 
@@ -76,8 +89,7 @@ class UnsupportedImageFormat(ValueError):
     """The file is not an image format this package decodes."""
 
 
-_SUPPORTED = ("non-interlaced PNG up to 8 bits per sample, binary PGM/PPM, "
-              ".npy, 8-bit Huffman JPEG, TIFF")
+_SUPPORTED = "PNG, PNM, .npy, 8-bit Huffman JPEG, TIFF"
 
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
@@ -164,17 +176,43 @@ def _png_unfilter(raw: bytes, h: int, w: int, bpp: int) -> np.ndarray:
     return out.reshape(h, stride)
 
 
+# Adam7 passes: (first column, first row, column step, row step)
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+          (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _png_samples(raw: bytes, h: int, w: int, depth: int, ch: int) -> np.ndarray:
+    """One (sub-)image's filtered scanlines -> its samples [h, w, ch]:
+    uint8 for up to 8 bits (packed samples unpacked, unscaled), big-endian
+    16-bit samples as uint16."""
+    if depth >= 8:
+        bpp = ch * depth // 8
+        rows = _png_unfilter(raw, h, w, bpp)
+        if depth == 16:
+            return rows.reshape(h, w * ch, 2).view(">u2").astype(np.uint16).reshape(h, w, ch)
+        return rows.reshape(h, w, ch)
+    # 1, 2 or 4 bits per sample (grey or palette): the filters work on
+    # whole bytes; samples are packed most significant first
+    packed = _png_unfilter(raw, h, -(-w * depth // 8), 1)
+    bits = np.unpackbits(packed, axis=1)[:, :w * depth].reshape(h, w, depth)
+    return (bits @ (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8))[..., None]
+
+
 def _decode_png(data: bytes, path: str) -> np.ndarray:
-    """[H, W] grey, [H, W, 2] grey+alpha, [H, W, 3] RGB or [H, W, 4] RGBA
-    uint8 (a palette image is expanded to RGB, or RGBA with a tRNS chunk)."""
+    """As PIL 12.1 decodes PNG, interlaced (Adam7) or not, at every colour
+    type and depth: [H, W] grey, [H, W, 2] grey+alpha, [H, W, 3] RGB or
+    [H, W, 4] RGBA uint8 (a palette image is expanded to RGB, or RGBA with
+    a tRNS chunk); 16-bit colour samples keep their high byte, and 16-bit
+    grey is PIL's mode "I;16", uint16 [H, W]. tRNS on a grey or RGB image
+    changes no pixel of PIL's "L" or "RGB" conversion, so it is ignored."""
     w, h, depth, ctype, interlace = _png_header(data, path)
     if ctype not in _PNG_CHANNELS:
         raise UnsupportedImageFormat(f"{path}: PNG colour type {ctype}")
-    if depth == 16 or (depth < 8 and ctype not in (0, 3)):
-        raise UnsupportedImageFormat(
-            f"{path}: {depth}-bit PNG (samples of at most 8 bits are decoded)")
-    if interlace:
-        raise UnsupportedImageFormat(f"{path}: interlaced (Adam7) PNG")
+    allowed = {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8)}.get(ctype, (8, 16))
+    if depth not in allowed:
+        raise UnsupportedImageFormat(f"{path}: {depth}-bit PNG of colour type {ctype}")
+    if interlace > 1:
+        raise UnsupportedImageFormat(f"{path}: PNG interlace method {interlace}")
     idat, palette, trns = [], None, None
     for kind, body in _png_chunks(data):
         if kind == b"IDAT":
@@ -187,44 +225,175 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
             break
     ch = _PNG_CHANNELS[ctype]
     raw = zlib.decompress(b"".join(idat))
-    if depth == 8:
-        px = _png_unfilter(raw, h, w, ch)
+    if not interlace:
+        px = _png_samples(raw, h, w, depth, ch)
     else:
-        # 1, 2 or 4 bits per sample (grey or palette): the filters work on
-        # whole bytes; samples are packed most significant first
-        packed = _png_unfilter(raw, h, -(-w * depth // 8), 1)
-        bits = np.unpackbits(packed, axis=1)[:, :w * depth].reshape(h, w, depth)
-        px = bits @ (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8)
+        px = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+        pos = 0
+        for x0, y0, dx, dy in _ADAM7:
+            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
+            if pw <= 0 or ph <= 0:
+                continue
+            size = ph * (1 + -(-pw * ch * depth // 8))
+            px[y0::dy, x0::dx] = _png_samples(raw[pos:pos + size], ph, pw, depth, ch)
+            pos += size
+    if depth == 16:
         if ctype == 0:
-            px = px * (255 // ((1 << depth) - 1))
-        px = px.astype(np.uint8)
+            return px[..., 0]
+        px = (px >> 8).astype(np.uint8)
+    elif depth < 8 and ctype == 0:
+        px = px * (255 // ((1 << depth) - 1))
     if ctype == 3:
         if palette is None:
             raise UnsupportedImageFormat(f"{path}: palette PNG without PLTE")
-        rgb = palette[px]
+        idx = px[..., 0]
+        rgb = palette[idx]
         if trns is None:
             return rgb
         alpha = np.full(len(palette), 255, np.uint8)
         alpha[:len(trns)] = trns[:len(palette)]
-        return np.concatenate([rgb, alpha[px][..., None]], axis=-1)
-    return px if ch == 1 else px.reshape(h, w, ch)
+        return np.concatenate([rgb, alpha[idx][..., None]], axis=-1)
+    return px[..., 0] if ch == 1 else px
+
+
+_PNM_WHITESPACE = b" \t\n\v\f\r"
+# magic -> PIL's mode (PpmImagePlugin.MODES, without its test-only "Py"
+# extensions, which are refused by name)
+_PNM_MODES = {b"P1": "1", b"P2": "L", b"P3": "RGB", b"P4": "1", b"P5": "L",
+              b"P6": "RGB", b"P0CMYK": "CMYK", b"Pf": "F"}
+_PNM_BANDS = {"1": 1, "L": 1, "RGB": 3, "CMYK": 4, "F": 1}
+
+
+def _pnm_magic(data: bytes) -> bytes:
+    """The magic as PIL reads it: up to six bytes, ended by whitespace."""
+    magic = b""
+    for c in data[:6]:
+        if c in _PNM_WHITESPACE:
+            break
+        magic += bytes([c])
+    return magic
+
+
+def _pnm_token(data: bytes, pos: int, path: str):
+    """One header token and the position after the byte that ended it
+    (PpmImageFile._read_token: a comment runs from '#' to CR or LF, and a
+    token has at most ten bytes)."""
+    token = b""
+    while len(token) <= 10 and pos < len(data):
+        c = data[pos]
+        pos += 1
+        if c in _PNM_WHITESPACE:
+            if token:
+                break
+        elif c == ord("#"):
+            while pos < len(data) and data[pos] not in b"\r\n":
+                pos += 1
+            pos += 1
+        else:
+            token += bytes([c])
+    if not token or len(token) > 10:
+        raise UnsupportedImageFormat(f"{path}: malformed PNM header")
+    return token, pos
+
+
+def _pnm_header(data: bytes, path: str):
+    """(magic, PIL's mode, width, height, maxval or the Pf scale, offset of
+    the samples)."""
+    magic = _pnm_magic(data)
+    if magic not in _PNM_MODES:
+        raise UnsupportedImageFormat(
+            f"{path}: PNM variant {magic.decode(errors='replace')!r} is not supported "
+            f"(P1 to P6, P0CMYK and Pf are)")
+    pos = len(magic) + (len(magic) < 6)     # the whitespace that ended it
+    mode = _PNM_MODES[magic]
+    try:
+        tokens = []
+        for _ in range(2 if mode == "1" else 3):
+            token, pos = _pnm_token(data, pos, path)
+            tokens.append(float(token) if mode == "F" and len(tokens) == 2 else int(token))
+    except ValueError:
+        raise UnsupportedImageFormat(f"{path}: malformed PNM header") from None
+    w, h = tokens[:2]
+    level = tokens[2] if len(tokens) == 3 else 1
+    if mode == "F" and (level == 0 or not np.isfinite(level)):
+        raise UnsupportedImageFormat(f"{path}: PFM scale must be finite and non-zero")
+    if mode != "F" and not 0 < level < 65536:
+        raise UnsupportedImageFormat(f"{path}: PNM maxval {level} out of range")
+    if mode == "L" and level > 255:
+        mode = "I"
+    return magic, mode, w, h, level, pos
+
+
+def _pnm_plain_values(data: bytes, count: int, path: str) -> np.ndarray:
+    """The first ``count`` decimal tokens of an ASCII body, comments cut
+    (PpmPlainDecoder._decode_blocks)."""
+    body = re.sub(rb"#[^\r\n]*(?:[\r\n]|$)", b"", data)
+    tokens = body.split()[:count]
+    if any(len(t) > 10 for t in tokens):
+        raise UnsupportedImageFormat(f"{path}: PNM token too long")
+    try:
+        values = np.array([int(t) for t in tokens], np.int64)
+    except ValueError:
+        raise UnsupportedImageFormat(f"{path}: PNM sample is not a number") from None
+    if values.size < count:
+        raise UnsupportedImageFormat(f"{path}: PNM data is truncated")
+    return values
 
 
 def _decode_pnm(data: bytes, path: str) -> np.ndarray:
-    tokens = []
-    pos = 2
-    while len(tokens) < 3:
-        m = re.compile(rb"\s*(?:#[^\n]*\n\s*)*(\d+)").match(data, pos)
-        if m is None:
-            raise UnsupportedImageFormat(f"{path}: malformed PNM header")
-        tokens.append(int(m.group(1)))
-        pos = m.end()
-    w, h, maxval = tokens
-    if maxval > 255:
-        raise UnsupportedImageFormat(f"{path}: 16-bit PNM")
-    ch = 1 if data[:2] == b"P5" else 3
-    px = np.frombuffer(data, np.uint8, h * w * ch, pos + 1)
-    return px.reshape(h, w) if ch == 1 else px.reshape(h, w, ch)
+    """PBM, PGM, PPM (ASCII or binary, any maxval), P0CMYK and PFM as PIL
+    12.1 decodes them: samples rescaled to 0-255 as
+    ``round(v / maxval * 255)`` (round half to even) where maxval is not
+    255; a grey map of maxval over 255 becomes PIL's 32-bit mode "I",
+    scaled to 0-65535 (unscaled at 65535); a colour map of 16-bit samples
+    is scaled to 0-255. Returns uint8 [H, W] / [H, W, C] (CMYK already
+    converted to RGB), int32 [H, W] for mode "I", float32 [H, W] for PFM."""
+    magic, mode, w, h, level, pos = _pnm_header(data, path)
+    bands = 1 if mode == "I" else _PNM_BANDS[mode]
+    count = w * h * bands
+    body = data[pos:]
+    if magic == b"P1":
+        digits = re.sub(rb"#[^\r\n]*(?:[\r\n]|$)", b"", body)
+        digits = b"".join(digits.split())[:count]
+        if digits.strip(b"01"):
+            raise UnsupportedImageFormat(f"{path}: PBM data holds other digits than 0 and 1")
+        if len(digits) < count:
+            raise UnsupportedImageFormat(f"{path}: PNM data is truncated")
+        px = np.where(np.frombuffer(digits, np.uint8) == ord("1"), 0, 255).astype(np.uint8)
+    elif magic == b"P4":
+        stride = (w + 7) // 8
+        if len(body) < stride * h:
+            raise UnsupportedImageFormat(f"{path}: PNM data is truncated")
+        bits = np.unpackbits(np.frombuffer(body, np.uint8, stride * h).reshape(h, stride),
+                             axis=1)[:, :w]
+        px = np.where(bits == 1, 0, 255).astype(np.uint8)
+    elif mode == "F":
+        if len(body) < 4 * count:
+            raise UnsupportedImageFormat(f"{path}: PNM data is truncated")
+        px = np.frombuffer(body, "<f4" if level < 0 else ">f4", count)
+        px = px.reshape(h, w)[::-1].astype(np.float32)     # rows run bottom to top
+    else:
+        out_max = 65535 if mode == "I" else 255
+        if magic in (b"P2", b"P3"):
+            values = _pnm_plain_values(body, count, path)
+            if (values > level).any():
+                raise UnsupportedImageFormat(f"{path}: PNM sample above maxval {level}")
+        else:
+            width = 1 if level < 256 else 2
+            if len(body) < width * count:
+                raise UnsupportedImageFormat(f"{path}: PNM data is truncated")
+            values = np.frombuffer(body, np.uint8 if width == 1 else ">u2", count)
+        if level != out_max:
+            values = np.minimum(np.rint(values / level * out_max), out_max)
+        px = values.astype(np.int32 if mode == "I" else np.uint8)
+    if bands == 1:
+        return px.reshape(h, w)
+    px = px.reshape(h, w, bands)
+    return image_native.cmyk_to_rgb(px) if mode == "CMYK" else px
+
+
+def _is_pnm(head: bytes) -> bool:
+    return head[:1] == b"P" and head[1:2] != b"" and head[1:2] in b"0123456fy"
 
 
 def _decode(path: str) -> np.ndarray:
@@ -238,7 +407,7 @@ def _decode(path: str) -> np.ndarray:
         data = f.read()
     if data.startswith(_PNG_SIG):
         return _decode_png(data, path)
-    if data[:2] in (b"P5", b"P6"):
+    if _is_pnm(data):
         return _decode_pnm(data, path)
     if data.startswith(_NATIVE_MAGICS):
         return _native(image_native.decode, data, path)
@@ -254,10 +423,28 @@ def _native(fn, data: bytes, path: str):
         raise UnsupportedImageFormat(f"{path}: {e}") from None
 
 
+def _grey8(arr: np.ndarray) -> np.ndarray:
+    """PIL's conversion of a single-band 16-bit ("I;16"), 32-bit ("I") or
+    float ("F") image to "L": values clip to 0-255, floats truncate toward
+    zero (NaN becomes 0); "RGB" repeats the result."""
+    if arr.dtype == np.float32:
+        out = np.zeros(arr.shape, np.uint8)
+        inside = (arr > 0) & (arr < 255)
+        out[inside] = arr[inside].astype(np.uint8)
+        out[arr >= 255] = 255
+        return out
+    return np.clip(arr, 0, 255).astype(np.uint8)
+
+
 def _to_mode(arr: np.ndarray, mode: str) -> np.ndarray:
-    """uint8 image -> 'L' [H, W] or 'RGB' [H, W, 3]. Alpha is dropped; grey
-    from colour is ITU-R 601-2 luma in 16-bit fixed point,
-    ``(R*19595 + G*38470 + B*7471 + 0x8000) >> 16``."""
+    """Decoded image -> 'L' [H, W] or 'RGB' [H, W, 3] uint8, by PIL's
+    rules. The decoders give uint8 [H, W, C] for PIL's 8-bit modes (1 to 4
+    channels: L, LA, RGB, RGBA; "1" as 0/255, palette and CMYK already as
+    RGB), uint16 [H, W] for "I;16", int32 [H, W] for "I" and float32
+    [H, W] for "F". Alpha is dropped; grey from colour is ITU-R 601-2 luma
+    in 16-bit fixed point, ``(R*19595 + G*38470 + B*7471 + 0x8000) >> 16``."""
+    if arr.dtype != np.uint8:
+        arr = _grey8(arr)
     ch = 1 if arr.ndim == 2 else arr.shape[2]
     if ch in (2, 4):
         arr = arr[..., :ch - 1]
@@ -285,9 +472,9 @@ def image_size(path_to_image: str):
         if head.startswith(_PNG_SIG):
             w, h = _png_header(head, path_to_image)[:2]
             return w, h
-        if head[:2] in (b"P5", b"P6"):
-            arr = _decode_pnm(head + f.read(), path_to_image)
-            return int(arr.shape[1]), int(arr.shape[0])
+        if _is_pnm(head):
+            _, _, w, h, _, _ = _pnm_header(head + f.read(), path_to_image)
+            return w, h
         if head.startswith(_NATIVE_MAGICS):
             # the JPEG frame header or the TIFF IFD may lie anywhere in the file
             w, h, _ = _native(image_native.info, head + f.read(), path_to_image)

@@ -12,7 +12,22 @@ phase into ``tests/data/torch_formats/``:
   PIL's decoded ``"L"`` bytes, which the smoke holds the port's decoder to
   on the card's machine (that machine has no PIL).
 
-Needs PIL; run from the repository root:
+Then the fixtures of the smoke's ``variants`` phase, in
+``tests/data/torch_formats_variants/``:
+
+- ``small/``: every decodable PNM, PNG and TIFF variant of
+  ``scripts/format_variants.py``'s catalog at its small size, with
+  ``small.json``: each file's PIL size and the sha256 of PIL's ``"L"`` and
+  ``"RGB"`` bytes;
+- three full-size pages of the newspaper generator (seed ``VARIANT_SEED``)
+  in the variants the smoke cannot write itself: a CCITT Group 3 2-D TIFF,
+  a JPEG-in-TIFF in YCbCr (4:2:0, strips of 64 rows) and a 16-bit LZW TIFF
+  with the horizontal predictor whose samples hold the 8-bit values, each
+  with ``page/<name>.xml`` and ``<name>.json`` as above. (The smoke writes
+  its Adam7 PNG, 16-bit PNG and PNM pages itself.)
+
+Needs PIL (and, for the TIFF variants, the libtiff Pillow bundles); run
+from the repository root:
 
     python scripts/make_format_fixtures.py
 """
@@ -29,7 +44,9 @@ from PIL import Image
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "tests", "data", "torch_formats")
+VARIANTS_OUT = os.path.join(REPO, "tests", "data", "torch_formats_variants")
 SEED = 23
+VARIANT_SEED = 29
 SHAPE = (2000, 1420)
 # (name, file ending, pixels: "grey" | "colour" | "bilevel", PIL save options)
 FIXTURES = [
@@ -79,6 +96,57 @@ def main() -> int:
         total += size
         print(f"{os.path.relpath(path, REPO)}: {size} bytes, PIL mode {record['mode']}")
     print(f"total image bytes {total}")
+    return write_variants()
+
+
+def record(path, modes=("L",)):
+    with Image.open(path) as im:
+        out = {"file": os.path.basename(path), "size": list(im.size), "mode": im.mode}
+        for mode in modes:
+            out[f"sha256_{mode}"] = hashlib.sha256(
+                np.asarray(im.convert(mode)).tobytes()).hexdigest()
+    return out
+
+
+def write_variants() -> int:
+    import chip_smoke
+    from scripts import format_variants as fv
+    shutil.rmtree(VARIANTS_OUT, ignore_errors=True)
+    os.makedirs(os.path.join(VARIANTS_OUT, "small"))
+    os.makedirs(os.path.join(VARIANTS_OUT, "page"))
+    records = []
+    for name, write in fv.small_variants():
+        path = os.path.join(VARIANTS_OUT, "small", name)
+        write(path)
+        records.append(record(path, ("L", "RGB")))
+    with open(os.path.join(VARIANTS_OUT, "small", "small.json"), "w") as f:
+        json.dump(records, f, indent=0)
+        f.write("\n")
+    pages, _, layouts = chip_smoke.synthetic_newspaper(3, *SHAPE, seed=VARIANT_SEED)
+    grey, bilevel = pages[0], (pages[1] < 128).astype(np.uint8)
+    colour = np.asarray(pixels(pages[2], "colour"))
+    full = [("group3_2d", dict(samples=bilevel, bps=1, photometric=0, compression=3,
+                               t4options=1, rows_per_strip=128)),
+            ("jpeg_ycbcr", dict(samples=colour, bps=8, photometric=6, compression=7,
+                                jpegcolormode=1, rows_per_strip=64)),
+            ("lzw16_predictor", dict(samples=grey.astype(np.uint16), bps=16, photometric=1,
+                                     compression=5, predictor=2, rows_per_strip=64))]
+    total = 0
+    for (name, options), page, regions in zip(full, [pages[1], pages[2], pages[0]],
+                                              [layouts[1], layouts[2], layouts[0]]):
+        path = os.path.join(VARIANTS_OUT, f"{name}.tif")
+        fv.write_tiff(path, **options)
+        h, w = page.shape
+        chip_smoke.write_layout_xml(os.path.join(VARIANTS_OUT, "page", f"{name}.xml"),
+                                    os.path.basename(path), h, w, regions)
+        with open(os.path.join(VARIANTS_OUT, f"{name}.json"), "w") as f:
+            json.dump(record(path), f, indent=1)
+            f.write("\n")
+        total += os.path.getsize(path)
+        print(f"{os.path.relpath(path, REPO)}: {os.path.getsize(path)} bytes")
+    small = sum(os.path.getsize(os.path.join(VARIANTS_OUT, "small", r["file"]))
+                for r in records)
+    print(f"{len(records)} small variants, {small} bytes; full-size pages {total} bytes")
     return 0
 
 

@@ -248,3 +248,56 @@ def test_num_workers_fans_pages_over_processes(tmp_path):
         texts = [re.sub(r"<LastChange>[^<]*</LastChange>", "",
                         open(os.path.join(r, "page", f"d{i}.xml")).read()) for r in (a, b)]
         assert texts[0] == texts[1]
+
+
+@pytest.fixture(scope="module")
+def frozen_nets(tmp_path_factory):
+    """The converted separator, heading and pipeline relation nets as
+    ``.frozen`` artifacts."""
+    from citlab_as_tpu_torch.train.export import export_checkpoint_frozen
+    out = tmp_path_factory.mktemp("frozen")
+    npz = os.path.join(REPO, "models_ckpt_torch")
+    return {net: export_checkpoint_frozen(os.path.join(npz, f"{src}.npz"),
+                                          str(out / f"{net}.frozen"), arch)
+            for net, src, arch in (("separator", "separator", "arunet"),
+                                   ("heading", "heading", "arunet"),
+                                   ("gnn", "gnn_pipeline", "graph_relation"))}
+
+
+@pytest.mark.parametrize("pipelined", [False, True], ids=["sequential", "pipelined"])
+def test_workflow_model_dir_flags_take_frozen_artifacts(tmp_path, frozen_nets, pipelined):
+    """The JAX CLI's --separator_model_dir, --heading_model_dir and
+    --gnn_model_dir: a .frozen through each runs the workflow, for either
+    driver, to clustered pages whose lines all carry an article id."""
+    from scripts.train_pipeline_gnn import make_article_page
+    from citlab_as_tpu_torch.cli.run_full_workflow import main
+    from citlab_as_tpu_torch.pagexml import Page
+    root = str(tmp_path)
+    img, _, _ = make_article_page(root, "p", np.random.RandomState(777), w=600, h=800)
+    image_list = _write_list(root, "images.lst", [img])
+    argv = ["--path_to_image_list", image_list, "--out_dir", os.path.join(root, "out"),
+            "--device", "cpu"] + (["--pipelined"] if pipelined else [])
+    for net in ("separator", "heading", "gnn"):
+        argv += [f"--{net}_model_dir", frozen_nets[net]]
+    result = main(argv)
+    assert result["skipped"] == [] and len(result["clustered"]) == 1
+    lines = Page(result["clustered"][0]).get_textlines()
+    assert lines and all(tl.get_article_id() for tl in lines)
+
+
+@pytest.mark.parametrize("pipelined", [False, True], ids=["sequential", "pipelined"])
+@pytest.mark.parametrize("net", ["separator", "heading", "gnn"])
+def test_workflow_model_dir_flags_refuse_orbax_directories(tmp_path, net, pipelined):
+    """An orbax checkpoint directory through a *_model_dir flag raises
+    UnsupportedFlag naming the flag, and a pair given twice is an error."""
+    from citlab_as_tpu_torch.cli.common import UnsupportedFlag
+    from citlab_as_tpu_torch.cli.run_full_workflow import main
+    image_list = _write_list(str(tmp_path), "images.lst", ["x.png"])
+    argv = ["--path_to_image_list", image_list, "--device", "cpu"] + (
+        ["--pipelined"] if pipelined else [])
+    orbax = {"separator": "models_ckpt/separator", "heading": "models_ckpt/heading",
+             "gnn": "models_ckpt/gnn_pipeline/best/f1"}[net]
+    with pytest.raises(UnsupportedFlag, match=f"--{net}_model_dir"):
+        main(argv + [f"--{net}_model_dir", os.path.join(REPO, orbax)])
+    with pytest.raises(ValueError, match=f"--{net}_model or --{net}_model_dir"):
+        main(argv + [f"--{net}_model", "x.npz", f"--{net}_model_dir", "x.frozen"])

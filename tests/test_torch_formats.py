@@ -3,8 +3,10 @@ through ``utils/io.py``) against PIL, on images PIL writes here.
 
 ``load_image(path, "L")`` and ``load_image(path, "RGB")`` equal
 ``np.asarray(Image.open(path).convert(mode))`` bit for bit, and
-``image_size`` equals ``Image.open(path).size``. Every variant the decoder
-does not take raises ``UnsupportedImageFormat`` naming it.
+``image_size`` equals ``Image.open(path).size``. Every JPEG variant the
+decoder does not take raises ``UnsupportedImageFormat`` naming it; the TIFF
+variants it once refused now equal PIL too (more PNM, PNG and TIFF variants
+are in ``tests/test_torch_formats_variants.py``).
 """
 import io as _io
 import os
@@ -289,12 +291,6 @@ UNSUPPORTED = [
     ("arithmetic_jpeg", _arithmetic_jpeg, "arithmetic"),
     ("lossless_jpeg", _lossless_jpeg, "lossless"),
     ("smoothed_progressive_jpeg", _smoothed_progressive, "block smoothing"),
-    ("group3_tiff", _group3_tiff, "Group 3"),
-    ("tiff16", _tiff16, "16-bit"),
-    ("planar2_tiff", _planar2, "PlanarConfiguration 2"),
-    ("jpeg_in_tiff", _jpeg_in_tiff, "JPEG-in-TIFF"),
-    ("bigtiff", _bigtiff, "BigTIFF"),
-    ("float_tiff", _float_tiff, "32-bit"),
 ]
 
 
@@ -309,11 +305,28 @@ def test_unsupported_variants_raise_by_name(tmp_path, kind, make, word):
             tio.image_size(p)
 
 
-def test_fill_order_2_raises_by_name(tmp_path):
-    p = str(tmp_path / "f2.tif")
+def _fill_order_2(p):
     _tiff_image("1", 16, 24, 1).save(p, format="TIFF", tiffinfo={266: 2})
-    with pytest.raises(tio.UnsupportedImageFormat, match="FillOrder 2"):
-        tio.load_image(p, "L")
+
+
+# TIFF variants the decoder once refused and now reads as PIL does
+# (tests/test_torch_formats_variants.py holds many more, written by libtiff)
+FORMER_REFUSALS = [
+    ("group3_tiff", _group3_tiff),
+    ("tiff16", _tiff16),
+    ("planar2_tiff", _planar2),
+    ("jpeg_in_tiff", _jpeg_in_tiff),
+    ("bigtiff", _bigtiff),
+    ("float_tiff", _float_tiff),
+    ("fill_order_2", _fill_order_2),
+]
+
+
+@pytest.mark.parametrize("kind,make", FORMER_REFUSALS, ids=[f[0] for f in FORMER_REFUSALS])
+def test_former_refusals_equal_pil(tmp_path, kind, make):
+    p = str(tmp_path / f"{kind}.tif")
+    make(p)
+    _check_equal(p)
 
 
 def test_truncated_jpeg_raises(tmp_path):

@@ -2,7 +2,8 @@
 numpy; the JAX package (and this test) with PIL. ``load_image`` must equal
 PIL's ``convert("L")`` / ``convert("RGB")`` exactly on every supported PNG
 colour type, and refuse the formats it does not take by name (JPEG and
-TIFF decoding is tested in ``tests/test_torch_formats.py``)."""
+TIFF decoding is tested in ``tests/test_torch_formats.py``, the PNM, PNG
+and TIFF variants in ``tests/test_torch_formats_variants.py``)."""
 import os
 
 import numpy as np
@@ -145,35 +146,53 @@ def test_save_png_roundtrip_and_pil_reads_it(tmp_path):
             tio.load_image(p, "L" if arr.ndim == 2 else "RGB"), arr)
 
 
-@pytest.mark.parametrize("kind,word", [("cmyk_jpeg", "CMYK"), ("group3_tiff", "Group 3"),
-                                       ("interlaced", "interlaced"),
-                                       ("png16", "16-bit"), ("bmp", "BMP")])
+@pytest.mark.parametrize("kind,word", [("cmyk_jpeg", "CMYK"), ("bmp", "BMP")])
 def test_unsupported_formats_raise_by_name(tmp_path, kind, word):
     im = Image.fromarray(_pixels(11, 1)[..., 0], "L")
     p = str(tmp_path / f"x_{kind}.img")
     if kind == "cmyk_jpeg":
         im.convert("CMYK").save(p, format="JPEG")
-    elif kind == "group3_tiff":
-        im.convert("1").save(p, format="TIFF", compression="group3")
-    elif kind == "bmp":
-        im.save(p, format="BMP")
-    elif kind == "png16":
-        Image.fromarray((_pixels(11, 1)[..., 0].astype(np.uint16) * 257)).save(p, format="PNG")
     else:
-        # PIL cannot write Adam7: flip the interlace byte of a real header and
-        # repair the IHDR checksum
-        import struct
-        import zlib
-        im.save(p, format="PNG")
-        data = bytearray(open(p, "rb").read())
-        data[28] = 1
-        data[29:33] = struct.pack(">I", zlib.crc32(bytes(data[12:29])))
-        open(p, "wb").write(bytes(data))
+        im.save(p, format="BMP")
     with pytest.raises(tio.UnsupportedImageFormat, match=word):
         tio.load_image(p, "L")
-    if kind in ("cmyk_jpeg", "group3_tiff", "bmp"):
-        with pytest.raises(tio.UnsupportedImageFormat, match=word):
-            tio.image_size(p)
+    with pytest.raises(tio.UnsupportedImageFormat, match=word):
+        tio.image_size(p)
+
+
+@pytest.mark.parametrize("kind", ["group3_tiff", "interlaced", "png16"])
+def test_former_refusals_equal_pil(tmp_path, kind):
+    """Variants the port once refused by name, now decoded as PIL decodes
+    them: a Group 3 TIFF, an Adam7 PNG and a 16-bit grey PNG."""
+    grey = _pixels(11, 1)[..., 0]
+    p = str(tmp_path / f"x_{kind}.img")
+    if kind == "group3_tiff":
+        Image.fromarray(grey, "L").convert("1").save(p, format="TIFF", compression="group3")
+    elif kind == "png16":
+        Image.fromarray(grey.astype(np.uint16) * 257).save(p, format="PNG")
+    else:
+        # PIL cannot write Adam7: the scanlines of the seven passes, each
+        # with filter 0, behind a header whose interlace byte is 1
+        import struct
+        import zlib
+        passes = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4), (0, 2, 2, 4),
+                  (1, 0, 2, 2), (0, 1, 1, 2))
+        raw = b"".join(b"\x00" + row.tobytes() for x0, y0, dx, dy in passes
+                       for row in grey[y0::dy, x0::dx] if row.size)
+
+        def chunk(name, body):
+            return (struct.pack(">I", len(body)) + name + body
+                    + struct.pack(">I", zlib.crc32(name + body)))
+        with open(p, "wb") as f:
+            f.write(b"\x89PNG\r\n\x1a\n"
+                    + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 0, 0, 0, 1))
+                    + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+    with Image.open(p) as im:
+        assert tio.image_size(p) == im.size
+        want = {m: np.asarray(im.convert(m)) for m in ("L", "RGB")}
+    for mode in ("L", "RGB"):
+        tio._IMAGE_CACHE.clear()
+        np.testing.assert_array_equal(tio.load_image(p, mode), want[mode])
 
 
 def test_cache_is_keyed_by_mtime_and_bounded(tmp_path):
