@@ -95,27 +95,35 @@ result):
    with equal dbscan labels; ``gk_calc_metric`` equal to the numpy path to
    1e-9. The port's ``run_measure`` against GT from the drawn layout
    prints AS R/P/F (not gated);
-11. variants: the PNM, PNG and TIFF variants of the host decoders. Every
-   small fixture of ``tests/data/torch_formats_variants/small``
-   (128 files: ASCII and 16-bit PNM, PNG at every colour type and depth
-   with and without Adam7, TIFF with CCITT modified Huffman / Group 3,
-   FillOrder 2, 2- to 32-bit and float samples, both predictors, planar
-   layouts, CMYK, JPEG-in-TIFF, old-style JPEG, YCbCr under LZW / Deflate /
-   PackBits, BigTIFF; ``scripts/make_format_fixtures.py``)
-   decodes to PIL's recorded size and "L" and "RGB" digests. Five
-   2000 x 1420 pages: an Adam7 PNG and a 16-bit PNG (holding the 8-bit
-   values) written from the newspaper generator's arrays by the test
-   encoders of ``scripts/format_variants.py`` (pure numpy and zlib),
-   and the committed Group 3 2-D TIFF, YCbCr JPEG-in-TIFF and 16-bit LZW
-   TIFF with the predictor, each decoded to its oracle (the written array,
-   or PIL's digest) and saved as an 8-bit PNG twin; the ten pages through
+11. variants: the PNM, PNG, TIFF, JPEG, BMP and GIF variants of the host
+   decoders. Every small fixture of
+   ``tests/data/torch_formats_variants/small`` (234 files: ASCII and
+   16-bit PNM, PNG at every colour type and depth with and without Adam7,
+   TIFF with CCITT modified Huffman / Group 3, FillOrder 2, 2- to 32-bit
+   and float samples, both predictors, planar layouts, CMYK, JPEG-in-TIFF,
+   old-style JPEG, YCbCr under LZW / Deflate / PackBits, BigTIFF; JPEG in
+   CMYK / YCCK, arithmetic-coded, lossless, block-smoothed progressive and
+   4:4:0; BMP of every header, depth, RLE and bitfields layout; GIF
+   interlaced or not, with global / local tables and transparency;
+   ``scripts/make_format_fixtures.py``) decodes to PIL's recorded size and
+   "L" and "RGB" digests. Ten 2000 x 1420 pages: an Adam7 PNG and a
+   16-bit PNG (holding the 8-bit values) written from the newspaper
+   generator's arrays by the test encoders of ``scripts/format_variants.py``
+   (pure numpy and zlib), the committed Group 3 2-D TIFF, YCbCr
+   JPEG-in-TIFF and 16-bit LZW TIFF with the predictor, and the committed
+   CMYK (Adobe), YCCK, arithmetic-coded progressive, lossless grey and
+   block-smoothed progressive JPEGs (``tests/data/torch_formats_jpeg``),
+   each decoded to its oracle (the written array, or PIL's digests; for
+   the arithmetic-coded page, which PIL cannot read whole, libjpeg-turbo's)
+   and saved as an 8-bit PNG twin; the twenty pages through
    ``run_full_workflow_pipelined`` with the production nets. Gates: each
    variant's ``_clustering.xml`` equal to its twin's (``LastChange`` and
    ``imageFilename`` blanked), K1 69 x 2 and K2 one launch per group, an
-   article id on every line. A PBM (P4) page and its twin through the
-   separator CLI (PNM does not reach the workflow's page lookup): equal
-   pages, K1 69 and K2 1. The host decode ms per page (median of 3) is
-   printed beside each twin's;
+   article id on every line. A PBM (P4) page, an RLE8 BMP page and an
+   interlaced GIF page, each beside its twin, through the separator CLI
+   (they do not reach the workflow's page lookup): equal pages, K1 69 and
+   K2 1 per group. The host decode ms per page (median of 3) is printed
+   beside each twin's;
 12. blind: the JAX package's three blind article-quality oracles on the
    card: their pages (``tests/data/torch_blind``, made by
    ``scripts/make_blind_fixtures.py``: one multi-article page, two hard
@@ -241,6 +249,7 @@ VISUAL_KW = dict(image_input=True, visual_backbone="ARU_cutted_v1",
 FORMATS_DIR = os.path.join(REPO, "tests", "data", "torch_formats")
 FORMATS_METRIC_PAGES = 2                    # pages whose measure the numpy path redoes
 VARIANTS_DIR = os.path.join(REPO, "tests", "data", "torch_formats_variants")
+JPEG_VARIANTS_DIR = os.path.join(REPO, "tests", "data", "torch_formats_jpeg")
 BLIND_DIR = os.path.join(REPO, "tests", "data", "torch_blind")
 # the train phase: the JAX trainer's default batch and crop; drawn pages of
 # 1000 x 710 (the crops need 512 in both directions)
@@ -1709,10 +1718,11 @@ def phase_formats(dev):
 
 
 def phase_variants(dev):
-    """The PNM, PNG and TIFF variants of this slice: the committed small
+    """The PNM, PNG, TIFF, JPEG, BMP and GIF variants: the committed small
     variant fixtures against PIL's recorded digests, full-size pages of the
     variants through the pipelined workflow beside 8-bit PNG twins of the
-    same decoded pixels, and a PBM page through the separator CLI."""
+    same decoded pixels, and PBM, BMP and GIF pages through the separator
+    CLI."""
     import glob
     import hashlib
 
@@ -1722,7 +1732,8 @@ def phase_variants(dev):
     from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
     from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
     from citlab_as_tpu_torch.utils import io as port_io
-    from scripts.format_variants import png_bytes, pnm_bytes
+    from scripts.format_variants import (
+        bmp_bytes, bmp_rle_bytes, gif_bytes, png_bytes, pnm_bytes)
 
     def digest(arr):
         return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
@@ -1739,8 +1750,10 @@ def phase_variants(dev):
             port_io._IMAGE_CACHE.clear()
             check(digest(port_io.load_image(path, mode)) == rec[f"sha256_{mode}"],
                   f"variants: {rec['file']} decodes to other {mode} pixels than PIL's")
-    print(f"variants: all {len(small)} small PNM / PNG / TIFF variants decode to PIL's size "
-          "and 'L' and 'RGB' digests")
+    kinds = sorted({rec["file"].split("_")[0] for rec in small})
+    check({"bmp", "gif", "jpeg"} <= set(kinds), f"variants: small fixtures of {kinds}")
+    print(f"variants: all {len(small)} small {' / '.join(kinds)} variants decode to PIL's "
+          "size and 'L' and 'RGB' digests")
 
     root = tempfile.mkdtemp(prefix="chip_smoke_variants_")
     try:
@@ -1765,6 +1778,17 @@ def phase_variants(dev):
                         os.path.join(root, "page", f"{stem}.xml"))
             variants.append((rec["file"], rec["sha256_L"]))
         check(len(variants) == 5, f"variants: {len(variants)} full-size pages, want 5")
+        # the JPEG pages: their "L" and "RGB" digests (a pair of oracles)
+        for rec_path in sorted(glob.glob(os.path.join(JPEG_VARIANTS_DIR, "*.json"))):
+            with open(rec_path) as f:
+                rec = json.load(f)
+            shutil.copy(os.path.join(JPEG_VARIANTS_DIR, rec["file"]),
+                        os.path.join(root, rec["file"]))
+            stem = os.path.splitext(rec["file"])[0]
+            shutil.copy(os.path.join(JPEG_VARIANTS_DIR, "page", f"{stem}.xml"),
+                        os.path.join(root, "page", f"{stem}.xml"))
+            variants.append((rec["file"], (rec["sha256_L"], rec["sha256_RGB"])))
+        check(len(variants) == 10, f"variants: {len(variants)} full-size pages, want 10")
         for (name, _), page, layout in zip(variants[:2], pages, layouts):
             write_layout_xml(os.path.join(root, "page", f"{os.path.splitext(name)[0]}.xml"),
                              name, *page.shape, layout)
@@ -1775,7 +1799,12 @@ def phase_variants(dev):
             check(port_io.image_size(path) == PAGE_SHAPE[::-1],
                   f"variants: {name} size {port_io.image_size(path)}")
             grey = port_io.load_image(path, "L")
-            if isinstance(oracle, str):
+            if isinstance(oracle, tuple):
+                check(digest(grey) == oracle[0]
+                      and digest(port_io.load_image(path, "RGB")) == oracle[1],
+                      f"variants: {name} decodes to other 'L' or 'RGB' pixels than the "
+                      "recorded ones")
+            elif isinstance(oracle, str):
                 check(digest(grey) == oracle, f"variants: {name} decodes to other pixels "
                       "than PIL's")
             else:
@@ -1794,8 +1823,8 @@ def phase_variants(dev):
                                "bytes": os.path.getsize(path),
                                "png_twin_bytes": os.path.getsize(twin)}
             paths += [path, twin]
-        print("variants: the 5 full-size pages decode to their oracles; host decode ms per "
-              "page (median of 3) beside the PNG twin's " + json.dumps(decode_ms))
+        print(f"variants: the {len(variants)} full-size pages decode to their oracles; host "
+              "decode ms per page (median of 3) beside the PNG twin's " + json.dumps(decode_ms))
 
         # 2. the pipelined workflow over the variants and their twins
         run = _workflow_runner(dev, paths, RelationPredictor(
@@ -1813,24 +1842,51 @@ def phase_variants(dev):
               f"({len(paths) / secs:.3f} pages/s), launches {json.dumps(launches)}; every "
               "variant's _clustering.xml equals its PNG twin's")
 
-        # 3. a PBM page (PNM does not reach the workflow's page lookup)
-        # through the separator CLI, beside its twin
+        # 3. a PBM page, an RLE8 BMP page (a grey-ramp palette: PIL's "L")
+        # and an interlaced GIF page (a palette of greys that is not the
+        # identity: PIL's "P"), written by the test encoders from the
+        # generator's arrays, through the separator CLI (they do not reach
+        # the workflow's page lookup), each beside its twin
         black = pages[2] < 128
-        pbm = os.path.join(root, "bilevel.pbm")
-        with open(pbm, "wb") as f:
-            f.write(pnm_bytes(b"P4", PAGE_SHAPE[1], PAGE_SHAPE[0], None, black))
-        grey = port_io.load_image(pbm, "L")
-        check(np.array_equal(grey, np.where(black, 0, 255).astype(np.uint8)),
-              "variants: the PBM page decodes to other pixels than the array written")
-        twin = os.path.join(root, "twin_bilevel.png")
-        port_io.save_png(twin, grey)
-        write_layout_xml(os.path.join(root, "page", "bilevel.xml"), "bilevel.pbm",
-                         *PAGE_SHAPE, layouts[2])
-        shutil.copy(os.path.join(root, "page", "bilevel.xml"),
-                    os.path.join(root, "page", "twin_bilevel.xml"))
-        image_list = os.path.join(root, "pnm.lst")
+        ramp = np.repeat(np.arange(256)[:, None], 3, axis=1)
+        cli_pages = [
+            ("bilevel.pbm", pnm_bytes(b"P4", PAGE_SHAPE[1], PAGE_SHAPE[0], None, black),
+             np.where(black, 0, 255).astype(np.uint8), layouts[2]),
+            ("rle8.bmp", bmp_bytes(pages[0], 8, palette=ramp, compression=1,
+                                   rle_body=bmp_rle_bytes(pages[0], False, seed=31)),
+             pages[0], layouts[0]),
+            ("interlaced.gif", gif_bytes(255 - pages[1], ramp[::-1], interlace=True),
+             pages[1], layouts[1])]
+        cli_paths = []
+        for name, data, want, layout in cli_pages:
+            path = os.path.join(root, name)
+            stem = os.path.splitext(name)[0]
+            with open(path, "wb") as f:
+                f.write(data)
+            check(port_io.image_size(path) == PAGE_SHAPE[::-1],
+                  f"variants: {name} size {port_io.image_size(path)}")
+            grey = port_io.load_image(path, "L")
+            check(np.array_equal(grey, want),
+                  f"variants: the {name} page decodes to other pixels than the array written")
+            twin = os.path.join(root, f"twin_{stem}.png")
+            port_io.save_png(twin, grey)
+            write_layout_xml(os.path.join(root, "page", f"{stem}.xml"), name, *PAGE_SHAPE,
+                             layout)
+            shutil.copy(os.path.join(root, "page", f"{stem}.xml"),
+                        os.path.join(root, "page", f"twin_{stem}.xml"))
+            if not name.endswith(".pbm"):
+
+                def load(p):
+                    port_io._IMAGE_CACHE.clear()
+                    return port_io.load_image(p, "L")
+                decode_ms[name] = {"ms": _median_ms(lambda: load(path)),
+                                   "png_twin_ms": _median_ms(lambda: load(twin)),
+                                   "bytes": os.path.getsize(path),
+                                   "png_twin_bytes": os.path.getsize(twin)}
+            cli_paths += [path, twin]
+        image_list = os.path.join(root, "cli.lst")
         with open(image_list, "w") as f:
-            f.write(f"{pbm}\n{twin}\n")
+            f.write("".join(f"{p}\n" for p in cli_paths))
         port_io._IMAGE_CACHE.clear()
         k1.launches = 0
         k2.launches = 0
@@ -1838,17 +1894,23 @@ def phase_variants(dev):
             "--path_to_image_list", image_list, "--mode", "separator", "--model",
             os.path.join(REPO, "models_ckpt_torch", "separator.npz"), "--batch_size",
             str(BATCH), "--fixed_height", str(FIXED_HEIGHT), "--device", str(dev)])
-        pnm_launches = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
-        check(pnm_launches == {"conv3x3": 69, "separator_morphology": 1},
-              f"variants: separator CLI launches {pnm_launches}, want K1 69 and K2 1")
-        check(_normalised_xml(port_io.get_page_path(pbm) + ".xml")
-              == _normalised_xml(port_io.get_page_path(twin) + ".xml"),
-              "variants: the separator's page of the PBM differs from its PNG twin's")
-        print("variants: the separator CLI's page of the PBM equals its PNG twin's, "
-              f"launches {json.dumps(pnm_launches)}")
+        cli_launches = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+        groups = -(-len(cli_paths) // BATCH)
+        check(cli_launches == {"conv3x3": 69 * groups, "separator_morphology": groups},
+              f"variants: separator CLI launches {cli_launches}, want K1 69 and K2 1 per "
+              f"group of {groups}")
+        for name, _, _, _ in cli_pages:
+            path = os.path.join(root, name)
+            twin = os.path.join(root, f"twin_{os.path.splitext(name)[0]}.png")
+            check(_normalised_xml(port_io.get_page_path(path) + ".xml")
+                  == _normalised_xml(port_io.get_page_path(twin) + ".xml"),
+                  f"variants: the separator's page of {name} differs from its PNG twin's")
+        print("variants: the separator CLI's pages of the PBM, BMP and GIF equal their PNG "
+              f"twins', launches {json.dumps(cli_launches)}; host decode ms "
+              + json.dumps({k: decode_ms[k] for k in ("rle8.bmp", "interlaced.gif")}))
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"launches": {k: launches[k] + pnm_launches[k]
+    return {"launches": {k: launches[k] + cli_launches[k]
                          for k in ("conv3x3", "separator_morphology")},
             "decode_ms": decode_ms, "pages_per_s": len(paths) / secs}
 
@@ -3404,10 +3466,11 @@ def main() -> int:
     # workers); ``launches_visual``: the pipelined workflow's with the visual
     # relation net; ``launches_formats``: the stage CLIs' over the JPEG /
     # TIFF fixtures (separator and heading; each counted from 0 just before
-    # its run); ``launches_variants``: the pipelined workflow's over the five
-    # full-size variant pages and their PNG twins (10 pages, 3 groups: K1
-    # 69 x 2 x 3, K2 3) plus the separator CLI's over the PBM page and its
-    # twin (K1 69, K2 1); ``launches_blind``: the three blind-quality bf16
+    # its run); ``launches_variants``: the pipelined workflow's over the ten
+    # full-size variant pages and their PNG twins (20 pages, 5 groups: K1
+    # 69 x 2 x 5, K2 5) plus the separator CLI's over the PBM, BMP and GIF
+    # pages and their twins (6 pages, 2 groups: K1 69 x 2, K2 2);
+    # ``launches_blind``: the three blind-quality bf16
     # workflow runs' (one group per page size: K1 69 x 2 and K2 1 per group,
     # 4 groups in all; each run counted from 0 just before it);
     # ``launches_train``: the segmentation trainer's bf16 run (13

@@ -1,14 +1,21 @@
 // Host image decoder of the port: JPEG and TIFF pages to their samples,
 // equal bit for bit to what PIL 12.1 (libjpeg-turbo 3.1, libtiff 4.7)
-// gives for Image.open(path) in the file's own mode.
+// gives for Image.open(path) in the file's own mode, and the RLE and LZW
+// stages of PIL's BMP and GIF readers.
 //
-// JPEG: baseline and extended sequential or progressive Huffman, 8 bits,
-// 1 or 3 components, restart markers, non-interleaved scans, any integral
-// sampling factors. The pixel path follows libjpeg-turbo's C code:
-// jidctint.c jpeg_idct_islow (JDCT_ISLOW, the default), jdsample.c
-// (h2v1 / h2v2 / h1v2 fancy upsampling where the component is wider than 2
-// samples, box upsampling otherwise), jdcolor.c ycc_rgb_convert, and
-// jdapimin.c default_decompress_parms for the colour space.
+// JPEG: 8 bits, 1, 3 or 4 components; baseline, extended sequential or
+// progressive, Huffman or arithmetic coding (jdarith.c: T.81 annex D, the
+// DAC conditioning, statistics reset at restarts), and lossless Huffman
+// (jdlossls.c / jddiffct.c: predictors 1-7, the point transform, the
+// first-row rule after each restart); restart markers, non-interleaved
+// scans, any integral sampling factors. The pixel path follows
+// libjpeg-turbo's C code: jidctint.c jpeg_idct_islow (JDCT_ISLOW, the
+// default), jdcoefct.c decompress_smooth_data (the 5 x 5 block smoothing
+// of a progressive image whose low coefficients are not all known),
+// jdsample.c (h2v1 / h2v2 / h1v2 fancy upsampling where the component is
+// wider than 2 samples, box upsampling otherwise and for lossless files),
+// jdcolor.c ycc_rgb_convert and ycck_cmyk_convert, and jdapimin.c
+// default_decompress_parms for the colour space.
 //
 // TIFF: the first IFD of a classic or BigTIFF file, little- or big-endian,
 // strips or tiles, PlanarConfiguration 1 or 2, FillOrder 1 or 2 (libtiff
@@ -173,16 +180,114 @@ inline int extend(int v, int s) {
     return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
 }
 
+// T.81 Table D.2 (Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS), packed as
+// libjpeg's jaricom.c packs it: Qe << 16 | NMPS << 8 | Switch_MPS << 7 | NLPS.
+// Entry 113 is the fixed probability 0.5 of T.851 that libjpeg codes sign and
+// refinement bits with.
+const int32_t kAritab[114] = {
+    0x5a1d0181, 0x2586020e, 0x11140310, 0x080b0412, 0x03d80514, 0x01da0617,
+    0x00e50719, 0x006f081c, 0x0036091e, 0x001a0a21, 0x000d0b23, 0x00060c09,
+    0x00030d0a, 0x00010d0c, 0x5a7f0f8f, 0x3f251024, 0x2cf21126, 0x207c1227,
+    0x17b91328, 0x1182142a, 0x0cef152b, 0x09a1162d, 0x072f172e, 0x055c1830,
+    0x04061931, 0x03031a33, 0x02401b34, 0x01b11c36, 0x01441d38, 0x00f51e39,
+    0x00b71f3b, 0x008a203c, 0x0068213e, 0x004e223f, 0x003b2320, 0x002c0921,
+    0x5ae125a5, 0x484c2640, 0x3a0d2741, 0x2ef12843, 0x261f2944, 0x1f332a45,
+    0x19a82b46, 0x15182c48, 0x11772d49, 0x0e742e4a, 0x0bfb2f4b, 0x09f8304d,
+    0x0861314e, 0x0706324f, 0x05cd3330, 0x04de3432, 0x040f3532, 0x03633633,
+    0x02d43734, 0x025c3835, 0x01f83936, 0x01a43a37, 0x01603b38, 0x01253c39,
+    0x00f63d3a, 0x00cb3e3b, 0x00ab3f3d, 0x008f203d, 0x5b1241c1, 0x4d044250,
+    0x412c4351, 0x37d84452, 0x2fe84553, 0x293c4654, 0x23794756, 0x1edf4857,
+    0x1aa94957, 0x174e4a48, 0x14244b48, 0x119c4c4a, 0x0f6b4d4a, 0x0d514e4b,
+    0x0bb64f4d, 0x0a40304d, 0x583251d0, 0x4d1c5258, 0x438e5359, 0x3bdd545a,
+    0x34ee555b, 0x2eae565c, 0x299a575d, 0x25164756, 0x557059d8, 0x4ca95a5f,
+    0x44d95b60, 0x3e225c61, 0x38245d63, 0x32b45e63, 0x2e17565d, 0x56a860df,
+    0x4f466165, 0x47e56266, 0x41cf6367, 0x3c3d6468, 0x375e5d63, 0x52316669,
+    0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
+    0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
+
+// the arithmetic decoder of T.81 annex D as jdarith.c runs it: C and A
+// registers, a bit counter that starts at -16 (two bytes to fill C), zero
+// data once a marker is reached (legal in arithmetic coding), ct = -1 after a
+// bad code, which stops the decoding of the scan's MCUs until the next restart
+struct ArithDecoder {
+    const uint8_t* d;
+    size_t n, pos;
+    int64_t c = 0, a = 0;
+    int ct = -16;
+    bool marker = false, past_end = false;
+
+    ArithDecoder(const uint8_t* data, size_t size, size_t start)
+        : d(data), n(size), pos(start) {}
+
+    int byte() {
+        if (marker) return 0;
+        if (pos >= n) {
+            past_end = marker = true;
+            return 0;
+        }
+        if (d[pos] != 0xFF) return d[pos++];
+        size_t q = pos + 1;
+        while (q < n && d[q] == 0xFF) ++q;     // fill bytes
+        if (q >= n) {
+            past_end = marker = true;
+            return 0;
+        }
+        if (d[q] == 0) {                       // stuffed zero
+            pos = q + 1;
+            return 0xFF;
+        }
+        pos = q - 1;                           // left on the marker
+        marker = true;
+        return 0;
+    }
+
+    int decode(uint8_t* st) {
+        while (a < 0x8000) {
+            if (--ct < 0) {
+                c = (c << 8) | byte();
+                if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
+            }
+            a <<= 1;
+        }
+        int sv = *st;
+        int32_t qe = kAritab[sv & 0x7F];
+        const int nl = qe & 0xFF, nm = (qe >> 8) & 0xFF;
+        qe >>= 16;
+        int64_t temp = a - qe;
+        a = temp;
+        temp <<= ct;
+        if (c >= temp) {
+            c -= temp;
+            if (a < qe) {
+                a = qe;
+                *st = (uint8_t)((sv & 0x80) ^ nm);
+            } else {
+                a = qe;
+                *st = (uint8_t)((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            }
+        } else if (a < 0x8000) {
+            if (a < qe) {
+                *st = (uint8_t)((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            } else {
+                *st = (uint8_t)((sv & 0x80) ^ nm);
+            }
+        }
+        return sv >> 7;
+    }
+};
+
 struct Component {
     int id = 0, h = 1, v = 1, tq = 0;
-    int bw = 0, bh = 0;      // blocks per line / column, padded to whole MCUs
+    int bw = 0, bh = 0;      // blocks (lossless: samples) per line / column, whole MCUs
     int dw = 0, dh = 0;      // downsampled width / height (real samples)
-    int dc_tbl = 0, ac_tbl = 0, dc_pred = 0;
+    int dc_tbl = 0, ac_tbl = 0, dc_pred = 0, dc_ctx = 0;
     bool quant_latched = false;
     uint16_t quant[64] = {0};
     int coef_bits[64];
     std::vector<int16_t> coef;
-    std::vector<uint8_t> plane;  // bw*8 x bh*8 samples after the IDCT
+    std::vector<uint8_t> plane;  // samples after the IDCT (lossless: undifferenced)
 };
 
 struct Jpeg {
@@ -190,17 +295,27 @@ struct Jpeg {
     size_t n;
     int width = 0, height = 0, precision = 8;
     int hmax = 1, vmax = 1, mcux = 0, mcuy = 0;
-    bool progressive = false, frame = false;
+    int bs = 8;            // samples per block side (lossless: 1)
+    bool progressive = false, arith = false, lossless = false, frame = false;
     bool jfif = false, adobe = false;
     int adobe_transform = -1;
     int restart_interval = 0;
-    int colorspace = -1;   // 0 YCbCr, 1 as coded (no conversion), -1 from the markers
+    int colorspace = -1;   // 0 YCbCr (YCCK), 1 as coded (no conversion), -1 from the markers
     uint16_t qt[4][64];
     bool qt_present[4] = {false, false, false, false};
     Huffman dc[4], ac[4];
+    // arithmetic conditioning (DAC, defaults L = 0, U = 1, Kx = 5) and the
+    // statistics bins of each table (jdarith.c DC_STAT_BINS, AC_STAT_BINS)
+    uint8_t dac_L[16], dac_U[16], dac_K[16];
+    uint8_t dc_stats[16][64], ac_stats[16][256];
+    uint8_t fixed_bin[4] = {113, 0, 0, 0};
     std::vector<Component> comps;
 
-    Jpeg(const uint8_t* data, size_t size) : d(data), n(size) {}
+    Jpeg(const uint8_t* data, size_t size) : d(data), n(size) {
+        std::fill(dac_L, dac_L + 16, 0);
+        std::fill(dac_U, dac_U + 16, 1);
+        std::fill(dac_K, dac_K + 16, 5);
+    }
 
     int u16(size_t p) const {
         if (p + 2 > n) fail("JPEG: truncated header");
@@ -222,28 +337,36 @@ struct Jpeg {
         fail("JPEG: truncated file (no EOI marker)");
     }
 
-    void read_sof(size_t p, int marker) {
+    // the frame header; PIL's SOF handler refuses other precisions than 8
+    // and other layer counts than 1, 3 and 4 when the file is opened, and
+    // libjpeg-turbo the other processes when it is decoded
+    void read_sof(size_t p, int marker, bool decoding) {
         if (frame) fail("JPEG: more than one frame (hierarchical JPEG)");
         frame = true;
-        if (marker == 0xC3) fail("JPEG: lossless JPEG is not supported");
-        if (marker >= 0xC5 && marker <= 0xC7)
-            fail("JPEG: hierarchical (differential) JPEG is not supported");
-        if (marker >= 0xC9)
-            fail("JPEG: arithmetic-coded JPEG is not supported");
-        progressive = marker == 0xC2;
+        progressive = marker == 0xC2 || marker == 0xCA;
+        arith = marker >= 0xC8;
+        lossless = marker == 0xC3 || marker == 0xCB;
+        bs = lossless ? 1 : 8;
         if (p + 6 > n) fail("JPEG: truncated SOF");
         precision = d[p];
         if (precision != 8)
             fail("JPEG: " + std::to_string(precision) +
-                 "-bit JPEG is not supported (8-bit samples only)");
+                 "-bit JPEG is not supported (PIL reads 8-bit samples only)");
         height = u16(p + 1);
         width = u16(p + 3);
         int nc = d[p + 5];
         if (height == 0) fail("JPEG: height 0 (DNL marker) is not supported");
         if (width == 0) fail("JPEG: width 0");
-        if (nc == 4) fail("JPEG: CMYK/YCCK JPEG (4 components) is not supported");
-        if (nc != 1 && nc != 3)
-            fail("JPEG: " + std::to_string(nc) + " components are not supported");
+        if (nc != 1 && nc != 3 && nc != 4)
+            fail("JPEG: " + std::to_string(nc) +
+                 "-component JPEG is not supported (PIL reads 1, 3 or 4 components)");
+        if (decoding) {
+            if ((marker >= 0xC5 && marker <= 0xC7) || marker >= 0xCD)
+                fail("JPEG: hierarchical (differential) JPEG is not supported");
+            if (marker == 0xCB)
+                fail("JPEG: arithmetic-coded lossless JPEG is not supported "
+                     "(libjpeg-turbo does not decode it)");
+        }
         if (p + 6 + 3 * (size_t)nc > n) fail("JPEG: truncated SOF");
         comps.resize(nc);
         for (int i = 0; i < nc; ++i) {
@@ -257,8 +380,8 @@ struct Jpeg {
             hmax = std::max(hmax, c.h);
             vmax = std::max(vmax, c.v);
         }
-        mcux = (width + 8 * hmax - 1) / (8 * hmax);
-        mcuy = (height + 8 * vmax - 1) / (8 * vmax);
+        mcux = (width + bs * hmax - 1) / (bs * hmax);
+        mcuy = (height + bs * vmax - 1) / (bs * vmax);
         for (Component& c : comps) {
             if (hmax % c.h || vmax % c.v)
                 fail("JPEG: non-integral sampling factor ratio is not supported");
@@ -266,7 +389,11 @@ struct Jpeg {
             c.bh = mcuy * c.v;
             c.dw = (int)(((int64_t)width * c.h + hmax - 1) / hmax);
             c.dh = (int)(((int64_t)height * c.v + vmax - 1) / vmax);
-            c.coef.assign((size_t)c.bw * c.bh * 64, 0);
+            if (!decoding) continue;
+            if (lossless)
+                c.plane.assign((size_t)c.bw * c.bh, 0);
+            else
+                c.coef.assign((size_t)c.bw * c.bh * 64, 0);
             std::fill(c.coef_bits, c.coef_bits + 64, -1);
         }
     }
@@ -307,6 +434,21 @@ struct Jpeg {
         }
     }
 
+    // jdmarker.c get_dac: Tc Tb, then the DC bounds (U << 4 | L) or Kx
+    void read_dac(size_t p, size_t end) {
+        for (; p + 1 < end; p += 2) {
+            int index = d[p], val = d[p + 1];
+            if (index >= 32) fail("JPEG: bad DAC table index");
+            if (index >= 16) {
+                dac_K[index - 16] = (uint8_t)val;
+            } else {
+                dac_L[index] = (uint8_t)(val & 15);
+                dac_U[index] = (uint8_t)(val >> 4);
+                if (dac_L[index] > dac_U[index]) fail("JPEG: bad DAC conditioning value");
+            }
+        }
+    }
+
     void read_app(size_t p, size_t len, int marker) {
         if (marker == 0xE0 && len >= 5 && std::memcmp(d + p, "JFIF\0", 5) == 0)
             jfif = true;
@@ -315,6 +457,8 @@ struct Jpeg {
             adobe_transform = d[p + 11];
         }
     }
+
+    static bool is_sof(int m) { return m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC; }
 
     // header only: dimensions and output channels
     void parse_header() {
@@ -327,28 +471,37 @@ struct Jpeg {
             int len = u16(pos);
             size_t body = pos + 2, end = pos + len;
             if (end > n) fail("JPEG: truncated marker segment");
-            if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
-                read_sof(body, m);
+            if (is_sof(m)) {
+                read_sof(body, m, false);
                 return;
             }
-            if (m == 0xCC) fail("JPEG: arithmetic-coded JPEG is not supported");
             pos = end;
         }
     }
 
-    int channels() const { return (int)comps.size() == 1 ? 1 : 3; }
+    int channels() const { return (int)comps.size(); }
 
+    // jdapimin.c default_decompress_parms (libjpeg-turbo 3: a lossless file
+    // without markers whose component ids are not 'R', 'G', 'B' is RGB too)
     bool rgb_colorspace() const {
         if (comps.size() != 3) return false;
         if (colorspace >= 0) return colorspace == 1;
         if (jfif) return false;
         if (adobe) return adobe_transform == 0;
         int c0 = comps[0].id, c1 = comps[1].id, c2 = comps[2].id;
-        if (c0 == 1 && c1 == 2 && c2 == 3) return false;
-        return c0 == 82 && c1 == 71 && c2 == 66;
+        if (c0 == 82 && c1 == 71 && c2 == 66) return true;
+        return lossless;
     }
 
-    // ---- entropy decoding into coefficient arrays
+    // a 4-component file is YCCK under an Adobe marker whose transform is
+    // not 0, CMYK otherwise
+    bool ycck() const {
+        if (comps.size() != 4) return false;
+        if (colorspace >= 0) return colorspace == 0;
+        return adobe && adobe_transform != 0;
+    }
+
+    // ---- entropy decoding into coefficient arrays (lossless: samples)
     struct Scan {
         std::vector<int> comp;
         int ss = 0, se = 63, ah = 0, al = 0;
@@ -380,7 +533,19 @@ struct Jpeg {
         }
     }
 
+    // the scan's units (MCUs, or the blocks of its one component) in order
+    int64_t scan_units(const Scan& sc, int& units_x) const {
+        if (sc.comp.size() == 1) {
+            const Component& c = comps[sc.comp[0]];
+            units_x = (c.dw + 7) / 8;
+            return (int64_t)units_x * ((c.dh + 7) / 8);
+        }
+        units_x = mcux;
+        return (int64_t)mcux * mcuy;
+    }
+
     void decode_scan(size_t& pos, const Scan& sc) {
+        if (lossless) return decode_scan_lossless(pos, sc);
         for (int ci : sc.comp) {
             Component& c = comps[ci];
             if (!c.quant_latched) {
@@ -389,32 +554,31 @@ struct Jpeg {
                 c.quant_latched = true;
             }
             c.dc_pred = 0;
+            if (arith) continue;
             bool need_dc = !progressive || (sc.ss == 0 && sc.ah == 0);
             bool need_ac = !progressive || sc.ss > 0;
-            if (need_dc && !dc[c.dc_tbl].present) fail("JPEG: missing Huffman table");
-            if (need_ac && !ac[c.ac_tbl].present) fail("JPEG: missing Huffman table");
+            if (need_dc && (c.dc_tbl > 3 || !dc[c.dc_tbl].present))
+                fail("JPEG: missing Huffman table");
+            if (need_ac && (c.ac_tbl > 3 || !ac[c.ac_tbl].present))
+                fail("JPEG: missing Huffman table");
         }
         if (progressive) {
-            if (sc.ss == 0 && sc.se != 0) fail("JPEG: bad progressive scan");
-            if (sc.ss > 0 && sc.comp.size() != 1) fail("JPEG: bad progressive scan");
+            // jdphuff.c / jdarith.c start_pass
+            bool bad = sc.ss == 0 ? sc.se != 0
+                                  : sc.se < sc.ss || sc.se > 63 || sc.comp.size() != 1;
+            if (bad || (sc.ah != 0 && sc.al != sc.ah - 1) || sc.al > 13)
+                fail("JPEG: bad progressive scan parameters");
             for (int ci : sc.comp) {
                 Component& c = comps[ci];
                 for (int k = sc.ss; k <= sc.se; ++k) c.coef_bits[k] = sc.al;
             }
         }
+        if (arith) return decode_scan_arith(pos, sc);
         BitReader br(d, n, pos);
         int eobrun = 0;
         bool single = sc.comp.size() == 1;
-        int units_x, units_y;
-        if (single) {
-            const Component& c = comps[sc.comp[0]];
-            units_x = (c.dw + 7) / 8;
-            units_y = (c.dh + 7) / 8;
-        } else {
-            units_x = mcux;
-            units_y = mcuy;
-        }
-        int64_t total = (int64_t)units_x * units_y;
+        int units_x;
+        const int64_t total = scan_units(sc, units_x);
         int64_t until_restart = restart_interval;
         for (int64_t u = 0; u < total; ++u) {
             if (restart_interval && until_restart == 0) {
@@ -525,6 +689,304 @@ struct Jpeg {
         }
     }
 
+    // ---- arithmetic decoding (jdarith.c, T.81 annex F.2.4 and G.2)
+
+    // Figures F.19-F.24: one DC difference into c.dc_pred (mod 2^16) and
+    // the conditioning category c.dc_ctx; false after a bad code
+    bool arith_dc(ArithDecoder& ad, Component& c) {
+        const int tbl = c.dc_tbl;
+        uint8_t* st = dc_stats[tbl] + c.dc_ctx;
+        if (ad.decode(st) == 0) {
+            c.dc_ctx = 0;
+            return true;
+        }
+        const int sign = ad.decode(st + 1);
+        st += 2 + sign;
+        int m = ad.decode(st);
+        if (m != 0) {
+            st = dc_stats[tbl] + 20;
+            while (ad.decode(st)) {
+                if ((m <<= 1) == 0x8000) {
+                    ad.ct = -1;                 // magnitude overflow
+                    return false;
+                }
+                st += 1;
+            }
+        }
+        if (m < ((1 << dac_L[tbl]) >> 1))
+            c.dc_ctx = 0;
+        else if (m > ((1 << dac_U[tbl]) >> 1))
+            c.dc_ctx = 12 + sign * 4;
+        else
+            c.dc_ctx = 4 + sign * 4;
+        int v = m;
+        st += 14;
+        while (m >>= 1)
+            if (ad.decode(st)) v |= m;
+        v += 1;
+        if (sign) v = -v;
+        c.dc_pred = (c.dc_pred + v) & 0xFFFF;
+        return true;
+    }
+
+    // Figure F.20: the AC coefficients ss..se of one block, scaled by al;
+    // false after a bad code
+    bool arith_ac(ArithDecoder& ad, int tbl, int16_t* blk, int ss, int se, int al) {
+        uint8_t* stats = ac_stats[tbl];
+        for (int k = ss; k <= se; ++k) {
+            uint8_t* st = stats + 3 * (k - 1);
+            if (ad.decode(st)) break;           // EOB
+            while (ad.decode(st + 1) == 0) {
+                st += 3;
+                if (++k > se) {
+                    ad.ct = -1;                 // spectral overflow
+                    return false;
+                }
+            }
+            const int sign = ad.decode(fixed_bin);
+            st += 2;
+            int m = ad.decode(st);
+            if (m != 0 && ad.decode(st)) {
+                m <<= 1;
+                st = stats + (k <= dac_K[tbl] ? 189 : 217);
+                while (ad.decode(st)) {
+                    if ((m <<= 1) == 0x8000) {
+                        ad.ct = -1;             // magnitude overflow
+                        return false;
+                    }
+                    st += 1;
+                }
+            }
+            int v = m;
+            st += 14;
+            while (m >>= 1)
+                if (ad.decode(st)) v |= m;
+            v += 1;
+            if (sign) v = -v;
+            blk[kNatural[k]] = (int16_t)(uint16_t)((unsigned)v << al);
+        }
+        return true;
+    }
+
+    // jdarith.c decode_mcu_AC_refine: one more bit of the band's
+    // coefficients; false after a bad code
+    bool arith_ac_refine(ArithDecoder& ad, int tbl, int16_t* blk, int ss, int se, int al) {
+        uint8_t* stats = ac_stats[tbl];
+        const int p1 = 1 << al, m1 = -1 * (1 << al);
+        int kex = se;                           // end of block of the previous stage
+        for (; kex > 0; --kex)
+            if (blk[kNatural[kex]]) break;
+        for (int k = ss; k <= se; ++k) {
+            uint8_t* st = stats + 3 * (k - 1);
+            if (k > kex && ad.decode(st)) break;   // EOB
+            for (;;) {
+                int16_t* coef = blk + kNatural[k];
+                if (*coef) {
+                    if (ad.decode(st + 2))
+                        *coef = (int16_t)(*coef < 0 ? *coef + m1 : *coef + p1);
+                    break;
+                }
+                if (ad.decode(st + 1)) {
+                    *coef = (int16_t)(ad.decode(fixed_bin) ? m1 : p1);
+                    break;
+                }
+                st += 3;
+                if (++k > se) {
+                    ad.ct = -1;                 // spectral overflow
+                    return false;
+                }
+            }
+        }
+        return true;
+    }
+
+    // the statistics of the scan's tables to zero, DC predictions too
+    // (jdarith.c start_pass / process_restart)
+    void reset_arith(const Scan& sc) {
+        for (int ci : sc.comp) {
+            Component& c = comps[ci];
+            if (!progressive || (sc.ss == 0 && sc.ah == 0)) {
+                std::memset(dc_stats[c.dc_tbl], 0, sizeof(dc_stats[0]));
+                c.dc_pred = 0;
+                c.dc_ctx = 0;
+            }
+            if (!progressive || sc.ss) std::memset(ac_stats[c.ac_tbl], 0, sizeof(ac_stats[0]));
+        }
+    }
+
+    // one block of an arithmetic-coded scan; false after a bad code
+    bool arith_unit(ArithDecoder& ad, const Scan& sc, Component& c, int16_t* blk) {
+        if (!progressive) {
+            if (!arith_dc(ad, c)) return false;
+            blk[0] = (int16_t)(uint16_t)c.dc_pred;
+            return arith_ac(ad, c.ac_tbl, blk, 1, 63, 0);
+        }
+        if (sc.ss == 0 && sc.ah == 0) {
+            if (!arith_dc(ad, c)) return false;
+            blk[0] = (int16_t)(uint16_t)((unsigned)c.dc_pred << sc.al);
+            return true;
+        }
+        if (sc.ss == 0) {
+            if (ad.decode(fixed_bin)) blk[0] = (int16_t)(blk[0] | (1 << sc.al));
+            return true;
+        }
+        if (sc.ah == 0) return arith_ac(ad, c.ac_tbl, blk, sc.ss, sc.se, sc.al);
+        return arith_ac_refine(ad, c.ac_tbl, blk, sc.ss, sc.se, sc.al);
+    }
+
+    void decode_scan_arith(size_t& pos, const Scan& sc) {
+        const bool dc_refine = progressive && sc.ss == 0 && sc.ah != 0;
+        reset_arith(sc);
+        ArithDecoder ad(d, n, pos);
+        const bool single = sc.comp.size() == 1;
+        int units_x;
+        const int64_t total = scan_units(sc, units_x);
+        int64_t until_restart = restart_interval;
+        for (int64_t u = 0; u < total; ++u) {
+            if (restart_interval) {
+                if (until_restart == 0) {
+                    size_t p = ad.pos;
+                    int m = next_marker(p);
+                    if (m < 0xD0 || m > 0xD7) fail("JPEG: missing restart marker");
+                    reset_arith(sc);
+                    ad = ArithDecoder(d, n, p);
+                    until_restart = restart_interval;
+                }
+                --until_restart;
+            }
+            // after a bad code every MCU is skipped (the DC refinement
+            // procedure does not check)
+            if (ad.ct == -1 && !dc_refine) continue;
+            int ux = (int)(u % units_x), uy = (int)(u / units_x);
+            if (single) {
+                Component& c = comps[sc.comp[0]];
+                arith_unit(ad, sc, c, block(c, uy, ux));
+                continue;
+            }
+            bool ok = true;
+            for (size_t i = 0; ok && i < sc.comp.size(); ++i) {
+                Component& c = comps[sc.comp[i]];
+                for (int by = 0; ok && by < c.v; ++by)
+                    for (int bx = 0; ok && bx < c.h; ++bx)
+                        ok = arith_unit(ad, sc, c, block(c, uy * c.v + by, ux * c.h + bx));
+            }
+        }
+        if (ad.past_end) fail("JPEG: truncated file (entropy data runs past its end)");
+        pos = ad.pos;
+    }
+
+    // ---- lossless (jdlossls.c, jddiffct.c, jdlhuff.c; T.81 annex H)
+
+    void decode_scan_lossless(size_t& pos, const Scan& sc) {
+        const int psv = sc.ss, pt = sc.al;
+        if (psv < 1 || psv > 7 || sc.se != 0 || sc.ah != 0 || pt >= precision)
+            fail("JPEG: bad lossless scan parameters (predictor " + std::to_string(psv) +
+                 ", point transform " + std::to_string(pt) + ")");
+        for (int ci : sc.comp) {
+            const Component& c = comps[ci];
+            if (c.dc_tbl > 3 || !dc[c.dc_tbl].present) fail("JPEG: missing Huffman table");
+        }
+        const bool single = sc.comp.size() == 1;
+        const int mcus_per_row = single ? comps[sc.comp[0]].dw : mcux;
+        if (restart_interval % mcus_per_row)
+            fail("JPEG: lossless restart interval is not a whole number of MCU rows");
+        const int restart_rows = restart_interval / mcus_per_row;
+        // the iMCU row's differences and all undifferenced rows of each
+        // component of the scan
+        std::vector<std::vector<int32_t>> diff(comps.size()), undiff(comps.size());
+        std::vector<char> first_row(comps.size(), 1);
+        for (int ci : sc.comp) {
+            const Component& c = comps[ci];
+            diff[ci].assign((size_t)c.v * c.bw, 0);
+            undiff[ci].assign((size_t)c.bh * c.bw, 0);
+        }
+        BitReader br(d, n, pos);
+        int rows_to_go = restart_rows;
+        for (int imcu = 0; imcu < mcuy; ++imcu) {
+            // MCU rows of the iMCU row: one of an interleaved scan, the
+            // component's rows of a scan of one component
+            const Component& c0 = comps[sc.comp[0]];
+            const int mcu_rows = !single ? 1 : imcu < mcuy - 1 ? c0.v : last_rows(c0);
+            for (int yoff = 0; yoff < mcu_rows; ++yoff) {
+                if (restart_interval && rows_to_go == 0) {
+                    size_t p = br.pos;
+                    int m = next_marker(p);
+                    if (m < 0xD0 || m > 0xD7) fail("JPEG: missing restart marker");
+                    br = BitReader(d, n, p);
+                    std::fill(first_row.begin(), first_row.end(), 1);
+                    rows_to_go = restart_rows;
+                }
+                for (int mcu = 0; mcu < mcus_per_row; ++mcu) {
+                    if (single) {
+                        const int ci = sc.comp[0];
+                        diff[ci][(size_t)yoff * comps[ci].bw + mcu] = lossless_diff(br, comps[ci]);
+                        continue;
+                    }
+                    for (int ci : sc.comp) {
+                        const Component& c = comps[ci];
+                        for (int y = 0; y < c.v; ++y)
+                            for (int x = 0; x < c.h; ++x)
+                                diff[ci][(size_t)y * c.bw + mcu * c.h + x] = lossless_diff(br, c);
+                    }
+                }
+                if (restart_interval) --rows_to_go;
+            }
+            // undifference and scale the real rows of the iMCU row
+            for (int ci : sc.comp) {
+                Component& c = comps[ci];
+                const int rows = imcu < mcuy - 1 ? c.v : last_rows(c);
+                for (int r = 0; r < rows; ++r) {
+                    const int y = imcu * c.v + r;
+                    const int32_t* df = &diff[ci][(size_t)r * c.bw];
+                    int32_t* cur = &undiff[ci][(size_t)y * c.bw];
+                    if (first_row[ci]) {
+                        int ra = (df[0] + (1 << (precision - pt - 1))) & 0xFFFF;
+                        cur[0] = ra;
+                        for (int x = 1; x < c.dw; ++x) cur[x] = ra = (df[x] + ra) & 0xFFFF;
+                        first_row[ci] = 0;
+                    } else {
+                        const int32_t* up = cur - c.bw;
+                        int rb = up[0], ra = (df[0] + rb) & 0xFFFF, rc;
+                        cur[0] = ra;
+                        for (int x = 1; x < c.dw; ++x) {
+                            rc = rb;
+                            rb = up[x];
+                            int pred;
+                            switch (psv) {
+                                case 1: pred = ra; break;
+                                case 2: pred = rb; break;
+                                case 3: pred = rc; break;
+                                case 4: pred = ra + rb - rc; break;
+                                case 5: pred = ra + ((rb - rc) >> 1); break;
+                                case 6: pred = rb + ((ra - rc) >> 1); break;
+                                default: pred = (ra + rb) >> 1; break;
+                            }
+                            cur[x] = ra = (df[x] + pred) & 0xFFFF;
+                        }
+                    }
+                    uint8_t* out = &c.plane[(size_t)y * c.bw];
+                    for (int x = 0; x < c.dw; ++x) out[x] = (uint8_t)(cur[x] << pt);
+                }
+            }
+        }
+        if (br.past_end) fail("JPEG: truncated file (entropy data runs past its end)");
+        pos = br.pos;
+    }
+
+    // rows of a component in the last iMCU row
+    int last_rows(const Component& c) const {
+        int r = c.dh % c.v;
+        return r ? r : c.v;
+    }
+
+    // H.2.2: one sample difference (category 16 is 32768, no extra bits)
+    int32_t lossless_diff(BitReader& br, const Component& c) {
+        int s = br.decode(dc[c.dc_tbl]);
+        if (s == 16) return 32768;
+        if (s > 16) fail("JPEG: corrupt lossless difference");
+        return s ? extend(br.bits(s), s) : 0;
+    }
+
     void read_sos(size_t& pos, size_t body, size_t end) {
         if (!frame) fail("JPEG: scan before the frame header");
         Scan sc;
@@ -536,8 +998,8 @@ struct Jpeg {
             for (size_t c = 0; c < comps.size(); ++c)
                 if (comps[c].id == cid) found = (int)c;
             if (found < 0) fail("JPEG: scan names an unknown component");
-            comps[found].dc_tbl = tbl >> 4 & 3;
-            comps[found].ac_tbl = tbl & 3;
+            comps[found].dc_tbl = tbl >> 4;
+            comps[found].ac_tbl = tbl & 15;
             sc.comp.push_back(found);
         }
         size_t q = body + 1 + 2 * ns;
@@ -545,18 +1007,16 @@ struct Jpeg {
         sc.se = d[q + 1];
         sc.ah = d[q + 2] >> 4;
         sc.al = d[q + 2] & 15;
-        if (!progressive) {
+        if (!progressive && !lossless) {
             sc.ss = 0;
             sc.se = 63;
             sc.ah = sc.al = 0;
-        } else if (sc.se > 63 || sc.ss > sc.se || sc.al > 13) {
-            fail("JPEG: bad progressive scan parameters");
         }
         pos = end;
         decode_scan(pos, sc);
     }
 
-    void decode_coefficients() {
+    void decode_scans() {
         if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) fail("JPEG: no SOI marker");
         size_t pos = 2;
         bool scanned = false;
@@ -568,12 +1028,12 @@ struct Jpeg {
             int len = u16(pos);
             size_t body = pos + 2, end = pos + len;
             if (len < 2 || end > n) fail("JPEG: truncated marker segment");
-            if (m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC) {
-                read_sof(body, m);
+            if (is_sof(m)) {
+                read_sof(body, m, true);
             } else if (m == 0xC4) {
                 read_dht(body, end);
             } else if (m == 0xCC) {
-                fail("JPEG: arithmetic-coded JPEG is not supported");
+                read_dac(body, end);
             } else if (m == 0xDB) {
                 read_dqt(body, end);
             } else if (m == 0xDD) {
@@ -590,16 +1050,6 @@ struct Jpeg {
             pos = end;
         }
         if (!frame || !scanned) fail("JPEG: no image data");
-        if (progressive) {
-            // libjpeg smooths the blocks of a progressive image whose first
-            // AC coefficients still miss low bits (jdcoefct.c
-            // decompress_smooth_data); that path is not ported
-            for (const Component& c : comps)
-                for (int k = 0; k < 10; ++k)
-                    if (c.coef_bits[k] != 0)
-                        fail("JPEG: progressive JPEG with unrefined coefficients "
-                             "(libjpeg block smoothing) is not supported");
-        }
     }
 
     // ---- jidctint.c jpeg_idct_islow, 8-bit
@@ -726,23 +1176,161 @@ struct Jpeg {
         }
     }
 
+    // jdcoefct.c smoothing_ok: libjpeg smooths a progressive image whose
+    // first nine AC coefficients are not all known to full precision, if
+    // every component has its DC and nonzero quantizers there
+    bool smoothing_ok() const {
+        if (!progressive) return false;
+        bool useful = false;
+        for (const Component& c : comps) {
+            const uint16_t* q = c.quant;
+            if (!c.quant_latched || !q[0] || !q[1] || !q[8] || !q[16] || !q[9] || !q[2] ||
+                !q[3] || !q[10] || !q[17] || !q[24])
+                return false;
+            if (c.coef_bits[0] < 0) return false;
+            for (int k = 1; k < 10; ++k)
+                if (c.coef_bits[k] != 0) useful = true;
+        }
+        return useful;
+    }
+
+    // jdcoefct.c decompress_smooth_data (libjpeg-turbo >= 2.1): each block's
+    // still-unknown low AC coefficients (and, when no AC data came at all,
+    // its DC) estimated from the DC values of its 5 x 5 neighbourhood, then
+    // the IDCT; the neighbourhood's edges follow libjpeg's indexing, rows by
+    // iMCU row and columns by a sliding window
+    void smooth_idct(Component& c, uint8_t* plane, int stride) {
+        const int wib = (c.dw + 7) / 8, hib = (c.dh + 7) / 8, last_col = wib - 1;
+        const int* cb = c.coef_bits;
+        bool change_dc = true;
+        for (int k = 1; k < 10; ++k) change_dc = change_dc && cb[k] == -1;
+        const int64_t Q00 = c.quant[0], Q01 = c.quant[1], Q10 = c.quant[8], Q20 = c.quant[16],
+                      Q11 = c.quant[9], Q02 = c.quant[2], Q03 = c.quant[3], Q12 = c.quant[10],
+                      Q21 = c.quant[17], Q30 = c.quant[24];
+        // the rounded estimate num / (q * 256), clipped below 2^al when al > 0
+        auto estimate = [](int64_t num, int64_t q, int al) {
+            int64_t pred = ((q << 7) + (num >= 0 ? num : -num)) / (q << 8);
+            if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+            return (int16_t)(num >= 0 ? pred : -pred);
+        };
+        int16_t ws[64];
+        for (int imcu = 0; imcu < mcuy; ++imcu) {
+            int block_rows = c.v;
+            if (imcu == mcuy - 1) {
+                block_rows = hib % c.v;
+                if (block_rows == 0) block_rows = c.v;
+            }
+            const int image_block_rows = block_rows * mcuy;
+            for (int br = 0; br < block_rows; ++br) {
+                const int ibr = imcu * block_rows + br, row = imcu * c.v + br;
+                const int prev = ibr > 0 ? row - 1 : row;
+                const int pprev = ibr > 1 ? row - 2 : prev;
+                const int next = ibr < image_block_rows - 1 ? row + 1 : row;
+                const int nnext = ibr < image_block_rows - 2 ? row + 2 : next;
+                const int rows[5] = {pprev, prev, row, next, nnext};
+                // DC[5 * r + i]: row r of the window, column i (i = 2 the block)
+                int DC[25];
+                for (int r = 0; r < 5; ++r)
+                    for (int i = 0; i < 5; ++i) DC[5 * r + i] = block(c, rows[r], 0)[0];
+                for (int col = 0; col <= last_col; ++col) {
+                    std::memcpy(ws, block(c, row, col), sizeof(ws));
+                    if (col == 0 && col < last_col)
+                        for (int r = 0; r < 5; ++r)
+                            DC[5 * r + 3] = DC[5 * r + 4] = block(c, rows[r], 1)[0];
+                    if (col + 1 < last_col)
+                        for (int r = 0; r < 5; ++r) DC[5 * r + 4] = block(c, rows[r], col + 2)[0];
+                    const int DC01 = DC[0], DC02 = DC[1], DC03 = DC[2], DC04 = DC[3],
+                              DC05 = DC[4], DC06 = DC[5], DC07 = DC[6], DC08 = DC[7],
+                              DC09 = DC[8], DC10 = DC[9], DC11 = DC[10], DC12 = DC[11],
+                              DC13 = DC[12], DC14 = DC[13], DC15 = DC[14], DC16 = DC[15],
+                              DC17 = DC[16], DC18 = DC[17], DC19 = DC[18], DC20 = DC[19],
+                              DC21 = DC[20], DC22 = DC[21], DC23 = DC[22], DC24 = DC[23],
+                              DC25 = DC[24];
+                    int al;
+                    if ((al = cb[1]) != 0 && ws[1] == 0)
+                        ws[1] = estimate(Q00 * (change_dc
+                            ? -DC01 - DC02 + DC04 + DC05 - 3 * DC06 + 13 * DC07 - 13 * DC09 +
+                              3 * DC10 - 3 * DC11 + 38 * DC12 - 38 * DC14 + 3 * DC15 -
+                              3 * DC16 + 13 * DC17 - 13 * DC19 + 3 * DC20 - DC21 - DC22 +
+                              DC24 + DC25
+                            : -7 * DC11 + 50 * DC12 - 50 * DC14 + 7 * DC15), Q01, al);
+                    if ((al = cb[2]) != 0 && ws[8] == 0)
+                        ws[8] = estimate(Q00 * (change_dc
+                            ? -DC01 - 3 * DC02 - 3 * DC03 - 3 * DC04 - DC05 - DC06 +
+                              13 * DC07 + 38 * DC08 + 13 * DC09 - DC10 + DC16 - 13 * DC17 -
+                              38 * DC18 - 13 * DC19 + DC20 + DC21 + 3 * DC22 + 3 * DC23 +
+                              3 * DC24 + DC25
+                            : -7 * DC03 + 50 * DC08 - 50 * DC18 + 7 * DC23), Q10, al);
+                    if ((al = cb[3]) != 0 && ws[16] == 0)
+                        ws[16] = estimate(Q00 * (change_dc
+                            ? DC03 + 2 * DC07 + 7 * DC08 + 2 * DC09 - 5 * DC12 - 14 * DC13 -
+                              5 * DC14 + 2 * DC17 + 7 * DC18 + 2 * DC19 + DC23
+                            : -DC03 + 13 * DC08 - 24 * DC13 + 13 * DC18 - DC23), Q20, al);
+                    if ((al = cb[4]) != 0 && ws[9] == 0)
+                        ws[9] = estimate(Q00 * (change_dc
+                            ? -DC01 + DC05 + 9 * DC07 - 9 * DC09 - 9 * DC17 + 9 * DC19 +
+                              DC21 - DC25
+                            : DC10 + DC16 - 10 * DC17 + 10 * DC19 - DC02 - DC20 + DC22 -
+                              DC24 + DC04 - DC06 + 10 * DC07 - 10 * DC09), Q11, al);
+                    if ((al = cb[5]) != 0 && ws[2] == 0)
+                        ws[2] = estimate(Q00 * (change_dc
+                            ? 2 * DC07 - 5 * DC08 + 2 * DC09 + DC11 + 7 * DC12 - 14 * DC13 +
+                              7 * DC14 + DC15 + 2 * DC17 - 5 * DC18 + 2 * DC19
+                            : -DC11 + 13 * DC12 - 24 * DC13 + 13 * DC14 - DC15), Q02, al);
+                    if (change_dc) {
+                        if ((al = cb[6]) != 0 && ws[3] == 0)
+                            ws[3] = estimate(Q00 * (DC07 - DC09 + 2 * DC12 - 2 * DC14 + DC17 -
+                                                    DC19), Q03, al);
+                        if ((al = cb[7]) != 0 && ws[10] == 0)
+                            ws[10] = estimate(Q00 * (DC07 - 3 * DC08 + DC09 - DC17 +
+                                                     3 * DC18 - DC19), Q12, al);
+                        if ((al = cb[8]) != 0 && ws[17] == 0)
+                            ws[17] = estimate(Q00 * (DC07 - DC09 - 3 * DC12 + 3 * DC14 +
+                                                     DC17 - DC19), Q21, al);
+                        if ((al = cb[9]) != 0 && ws[24] == 0)
+                            ws[24] = estimate(Q00 * (DC07 + 2 * DC08 + DC09 - DC17 -
+                                                     2 * DC18 - DC19), Q30, al);
+                        ws[0] = estimate(Q00 * (
+                            -2 * DC01 - 6 * DC02 - 8 * DC03 - 6 * DC04 - 2 * DC05 -
+                            6 * DC06 + 6 * DC07 + 42 * DC08 + 6 * DC09 - 6 * DC10 -
+                            8 * DC11 + 42 * DC12 + 152 * DC13 + 42 * DC14 - 8 * DC15 -
+                            6 * DC16 + 6 * DC17 + 42 * DC18 + 6 * DC19 - 6 * DC20 -
+                            2 * DC21 - 6 * DC22 - 8 * DC23 - 6 * DC24 - 2 * DC25), Q00, 0);
+                    }
+                    idct_islow(ws, c.quant, plane + (size_t)row * 8 * stride + col * 8, stride);
+                    for (int r = 0; r < 5; ++r)        // slide the window one column
+                        std::memmove(&DC[5 * r], &DC[5 * r + 1], 4 * sizeof(int));
+                }
+            }
+        }
+    }
+
     void inverse_dct() {
+        const bool smooth = smoothing_ok();
         for (Component& c : comps) {
+            if (lossless) continue;
             int stride = c.bw * 8;
             c.plane.assign((size_t)stride * c.bh * 8, 0);
-            for (int by = 0; by < c.bh; ++by)
-                for (int bx = 0; bx < c.bw; ++bx)
-                    idct_islow(block(c, by, bx), c.quant,
-                               &c.plane[(size_t)by * 8 * stride + bx * 8], stride);
+            if (smooth) {
+                smooth_idct(c, c.plane.data(), stride);
+            } else {
+                for (int by = 0; by < c.bh; ++by)
+                    for (int bx = 0; bx < c.bw; ++bx)
+                        idct_islow(block(c, by, bx), c.quant,
+                                   &c.plane[(size_t)by * 8 * stride + bx * 8], stride);
+            }
             std::vector<int16_t>().swap(c.coef);
         }
     }
 
-    // ---- jdsample.c: one component to width x height samples
+    // ---- jdsample.c: one component to width x height samples (fancy
+    // upsampling where libjpeg uses it: not for lossless files, whose
+    // DCT_scaled_size is 1)
     std::vector<uint8_t> upsample(const Component& c) const {
-        const int stride = c.bw * 8;
+        const int stride = c.bw * bs;
         const int W = width, H = height;
         const int he = hmax / c.h, ve = vmax / c.v;
+        const bool fancy = !lossless;
         const uint8_t* in = c.plane.data();
         std::vector<uint8_t> out((size_t)W * H);
         if (he == 1 && ve == 1) {
@@ -755,7 +1343,7 @@ struct Jpeg {
         auto put = [&](int y, const uint8_t* r) {
             if (y < H) std::memcpy(&out[(size_t)y * W], r, W);
         };
-        if (he == 2 && ve == 1 && dw > 2) {         // h2v1_fancy_upsample
+        if (fancy && he == 2 && ve == 1 && dw > 2) {         // h2v1_fancy_upsample
             for (int y = 0; y < H; ++y) {
                 const uint8_t* ip = in + (size_t)y * stride;
                 uint8_t* op = row.data();
@@ -774,7 +1362,7 @@ struct Jpeg {
             }
             return out;
         }
-        if (he == 1 && ve == 2) {                   // h1v2_fancy_upsample
+        if (fancy && he == 1 && ve == 2) {                   // h1v2_fancy_upsample
             for (int r = 0; r < dh; ++r) {
                 const uint8_t* i0 = in + (size_t)r * stride;
                 for (int v = 0; v < 2; ++v) {
@@ -788,7 +1376,7 @@ struct Jpeg {
             }
             return out;
         }
-        if (he == 2 && ve == 2 && dw > 2) {         // h2v2_fancy_upsample
+        if (fancy && he == 2 && ve == 2 && dw > 2) {         // h2v2_fancy_upsample
             for (int r = 0; r < dh; ++r) {
                 const uint8_t* i0 = in + (size_t)r * stride;
                 for (int v = 0; v < 2; ++v) {
@@ -824,24 +1412,24 @@ struct Jpeg {
         return out;
     }
 
+    // pixels as libjpeg gives them to PIL: grey, RGB, or CMYK as stored
+    // (PIL inverts it: rawmode "CMYK;I")
     void to_pixels(uint8_t* dst) const {
         const size_t npix = (size_t)width * height;
-        if (comps.size() == 1) {
-            std::vector<uint8_t> y = upsample(comps[0]);
-            std::memcpy(dst, y.data(), npix);
+        const size_t nc = comps.size();
+        std::vector<std::vector<uint8_t>> p;
+        for (const Component& c : comps) p.push_back(upsample(c));
+        if (nc == 1) {
+            std::memcpy(dst, p[0].data(), npix);
             return;
         }
-        std::vector<uint8_t> p0 = upsample(comps[0]), p1 = upsample(comps[1]),
-                             p2 = upsample(comps[2]);
-        if (rgb_colorspace()) {
-            for (size_t i = 0; i < npix; ++i) {
-                dst[3 * i] = p0[i];
-                dst[3 * i + 1] = p1[i];
-                dst[3 * i + 2] = p2[i];
-            }
+        if ((nc == 3 && rgb_colorspace()) || (nc == 4 && !ycck())) {
+            for (size_t i = 0; i < npix; ++i)
+                for (size_t k = 0; k < nc; ++k) dst[nc * i + k] = p[k][i];
             return;
         }
-        // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert
+        // jdcolor.c build_ycc_rgb_table / ycc_rgb_convert; ycck_cmyk_convert
+        // inverts the three colours and passes K through
         const int SCALEBITS = 16;
         const int64_t ONE_HALF = (int64_t)1 << (SCALEBITS - 1);
         auto fix = [](double x) { return (int64_t)(x * (1L << 16) + 0.5); };
@@ -854,11 +1442,14 @@ struct Jpeg {
             cb_g[i] = -fix(0.34414) * x + ONE_HALF;
         }
         auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
+        const uint8_t flip = nc == 4 ? 255 : 0;
         for (size_t i = 0; i < npix; ++i) {
-            int y = p0[i], cb = p1[i], cr = p2[i];
-            dst[3 * i] = clamp(y + cr_r[cr]);
-            dst[3 * i + 1] = clamp(y + (int)((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
-            dst[3 * i + 2] = clamp(y + cb_b[cb]);
+            int y = p[0][i], cb = p[1][i], cr = p[2][i];
+            uint8_t* o = dst + nc * i;
+            o[0] = flip ^ clamp(y + cr_r[cr]);
+            o[1] = flip ^ clamp(y + (int)((cb_g[cb] + cr_g[cr]) >> SCALEBITS));
+            o[2] = flip ^ clamp(y + cb_b[cb]);
+            if (nc == 4) o[3] = p[3][i];
         }
     }
 };
@@ -1308,7 +1899,8 @@ struct Tiff {
         if (jpeg()) {
             if (bps != 8) fail("TIFF: JPEG-in-TIFF with " + std::to_string(bps) + "-bit samples");
             if (planar != 1) fail("TIFF: planar (PlanarConfiguration 2) JPEG-in-TIFF is not supported");
-            if (!((photometric <= 1 && spp == 1) || ((photometric == 2 || photometric == 6) && spp == 3)))
+            if (!((photometric <= 1 && spp == 1) || ((photometric == 2 || photometric == 6) && spp == 3) ||
+                  (photometric == 5 && spp == 4)))
                 fail("TIFF: JPEG-in-TIFF of photometric interpretation " +
                      std::to_string(photometric) + " with " + std::to_string(spp) + " samples");
         }
@@ -1567,8 +2159,9 @@ struct Tiff {
         if (ojpeg_at > n || ojpeg_len > n - ojpeg_at)
             fail("TIFF: JPEGInterchangeFormat past the end of the file");
         Jpeg j(d + ojpeg_at, ojpeg_len);
-        j.decode_coefficients();
-        if (j.comps.size() != 3) fail("TIFF: old-style JPEG-in-TIFF without 3 components");
+        j.decode_scans();
+        if (j.comps.size() != 3 || j.lossless)
+            fail("TIFF: old-style JPEG-in-TIFF without 3 DCT components");
         const Component &yc = j.comps[0], &cbc = j.comps[1], &crc = j.comps[2];
         if (yc.h != j.hmax || yc.v != j.vmax || cbc.h != 1 || cbc.v != 1 || crc.h != 1 ||
             crc.v != 1)
@@ -1603,7 +2196,7 @@ struct Tiff {
         // libtiff: YCbCr is converted to RGB (PIL asks for JPEGCOLORMODE_RGB);
         // any other photometric comes out as coded
         j.colorspace = photometric == 6 ? 0 : 1;
-        j.decode_coefficients();
+        j.decode_scans();
         const int ch = channels();
         if (j.channels() != ch) fail("TIFF: JPEG strip or tile has the wrong number of components");
         if (photometric != 6 && ch == 3 && (j.hmax != 1 || j.vmax != 1))
@@ -1728,6 +2321,138 @@ struct Tiff {
     }
 };
 
+// ------------------------------------------------------------------ BMP, GIF
+
+// PIL's BmpRleDecoder (BmpImagePlugin.py), quirks included: a delta code
+// skips two bytes before the two it reads, an absolute run of RLE4 yields
+// 2 * (count / 2) samples but advances x by count, the word alignment
+// after it goes by the byte's position in the file, and an encoded run is
+// cut at the row's end. The samples go to data until it holds
+// width * height of them or the codes end.
+void bmp_rle(const uint8_t* d, size_t n, size_t pos, bool rle4, int64_t xsize, int64_t ysize,
+             std::vector<uint8_t>& data) {
+    const size_t dest = (size_t)(xsize * ysize);
+    int64_t x = 0;
+    while (data.size() < dest) {
+        if (pos + 2 > n) break;
+        int num = d[pos], byte = d[pos + 1];
+        pos += 2;
+        if (num) {                                      // encoded run
+            if (x + num > xsize) num = (int)std::max<int64_t>(0, xsize - x);
+            for (int i = 0; i < num; ++i)
+                data.push_back(rle4 ? (uint8_t)(i % 2 ? byte & 15 : byte >> 4) : (uint8_t)byte);
+            x += num;
+        } else if (byte == 0) {                         // end of line
+            while (data.size() % (size_t)xsize) data.push_back(0);
+            x = 0;
+        } else if (byte == 1) {                         // end of bitmap
+            break;
+        } else if (byte == 2) {                         // delta
+            if (pos + 2 > n) break;
+            pos += 2;
+            if (pos + 2 > n) fail("BMP: RLE delta runs past the end of the file");
+            int right = d[pos], up = d[pos + 1];
+            pos += 2;
+            data.insert(data.end(), (size_t)(right + up * xsize), 0);
+            x = (int64_t)(data.size() % (size_t)xsize);
+        } else {                                        // absolute run
+            const size_t count = rle4 ? byte / 2 : byte;
+            const size_t got = std::min(count, n - pos);
+            for (size_t i = 0; i < got; ++i) {
+                if (rle4) {
+                    data.push_back(d[pos + i] >> 4);
+                    data.push_back(d[pos + i] & 15);
+                } else {
+                    data.push_back(d[pos + i]);
+                }
+            }
+            pos += got;
+            if (got < count) break;
+            x += byte;
+            if (pos % 2) ++pos;
+        }
+    }
+}
+
+// GIF LZW (the variable-length codes of the image data, sub-blocks joined)
+// into a w x h frame, rows in interlaced order if asked, as PIL's
+// GifDecode.c writes them; stops at the end code, when the frame is full
+// or when the data ends. Returns the count of pixels written.
+int64_t gif_lzw(const uint8_t* d, size_t n, int bits, int w, int h, bool interlace,
+                uint8_t* out) {
+    if (bits < 0 || bits > 12) fail("GIF: LZW minimum code size " + std::to_string(bits));
+    const int clear = 1 << bits, end = clear + 1;
+    std::vector<uint16_t> prefix(4096);
+    std::vector<uint8_t> suffix(4096), stack(4097);
+    for (int i = 0; i < clear && i < 4096; ++i) suffix[i] = (uint8_t)i;
+    int codesize = bits + 1, next = clear + 2, prev = -1, first = 0;
+    uint64_t acc = 0;
+    int have = 0;
+    size_t pos = 0;
+    int64_t written = 0;
+    const int64_t total = (int64_t)w * h;
+    int x = 0, y = 0, step = interlace ? 8 : 1, pass = interlace ? 1 : 0;
+    auto put = [&](uint8_t v) {
+        if (y < h) out[(size_t)y * w + x] = v;
+        ++written;
+        if (++x < w) return;
+        x = 0;
+        y += step;
+        while (pass && y >= h) {                    // the next interlace pass
+            if (pass == 1) { y = 4; pass = 2; }
+            else if (pass == 2) { y = 2; step = 4; pass = 3; }
+            else if (pass == 3) { y = 1; step = 2; pass = 4; }
+            else break;
+        }
+    };
+    while (written < total) {
+        while (have < codesize && pos < n) {
+            acc |= (uint64_t)d[pos++] << have;
+            have += 8;
+        }
+        if (have < codesize) break;                 // the data ends
+        int code = (int)(acc & ((1u << codesize) - 1));
+        acc >>= codesize;
+        have -= codesize;
+        if (code == clear) {
+            codesize = bits + 1;
+            next = clear + 2;
+            prev = -1;
+            continue;
+        }
+        if (code == end) break;
+        int sp = 0, c = code;
+        if (prev < 0) {
+            if (code >= clear) fail("GIF: corrupt LZW data (first code is not a colour)");
+            first = code;
+            put((uint8_t)code);
+            prev = code;
+            continue;
+        }
+        if (code > next || (code == next && next >= 4096))
+            fail("GIF: corrupt LZW data (code beyond the table)");
+        if (code == next) {                             // the KwKwK case
+            stack[sp++] = (uint8_t)first;
+            c = prev;
+        }
+        while (c >= clear) {
+            stack[sp++] = suffix[c];
+            c = prefix[c];
+        }
+        stack[sp++] = (uint8_t)c;
+        first = c;
+        while (sp > 0 && written < total) put(stack[--sp]);
+        if (next < 4096) {
+            prefix[next] = (uint16_t)prev;
+            suffix[next] = (uint8_t)first;
+            if (next == (1 << codesize) - 1 && codesize < 12) ++codesize;
+            ++next;
+        }
+        prev = code;
+    }
+    return written;
+}
+
 int kind_of(const uint8_t* d, size_t n) {
     if (n >= 2 && d[0] == 0xFF && d[1] == 0xD8) return 1;
     if (n >= 4 && ((d[0] == 'I' && d[1] == 'I' && d[2] == 42 && d[3] == 0) ||
@@ -1815,7 +2540,7 @@ int32_t citlab_image_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_
         int kind = kind_of(data, (size_t)n);
         if (kind == 1) {
             Jpeg j(data, (size_t)n);
-            j.decode_coefficients();
+            j.decode_scans();
             if ((int64_t)j.width * j.height * j.channels() != out_size)
                 fail("output buffer size does not match the image");
             j.inverse_dct();
@@ -1834,6 +2559,39 @@ int32_t citlab_image_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_
     } catch (const std::exception& e) {
         copy_error(e.what(), err, errlen);
         return 1;
+    }
+}
+
+// PIL's RLE8 (rle4 = 0) or RLE4 decoding of a BMP from data[start:] into out
+// (width * height index samples in the order of the file's rows); returns
+// how many samples PIL's decoder would have produced (fewer than width *
+// height: PIL refuses the file), or -1 with a message in err.
+int64_t citlab_bmp_rle(const uint8_t* data, int64_t n, int64_t start, int32_t rle4,
+                       int32_t width, int32_t height, uint8_t* out, char* err, int32_t errlen) {
+    try {
+        std::vector<uint8_t> samples;
+        if (width <= 0 || height <= 0) fail("BMP: empty image");
+        bmp_rle(data, (size_t)n, (size_t)start, rle4 != 0, width, height, samples);
+        const size_t want = (size_t)width * height;
+        std::memcpy(out, samples.data(), std::min(want, samples.size()));
+        return (int64_t)samples.size();
+    } catch (const std::exception& e) {
+        copy_error(e.what(), err, errlen);
+        return -1;
+    }
+}
+
+// GIF LZW of one frame's image data (its sub-blocks joined) with the given
+// minimum code size into out (width x height, left as it is where the
+// data ends early); returns the pixels written, or -1 with a message in err.
+int64_t citlab_gif_lzw(const uint8_t* data, int64_t n, int32_t min_code_size, int32_t width,
+                       int32_t height, int32_t interlace, uint8_t* out, char* err,
+                       int32_t errlen) {
+    try {
+        return gif_lzw(data, (size_t)n, min_code_size, width, height, interlace != 0, out);
+    } catch (const std::exception& e) {
+        copy_error(e.what(), err, errlen);
+        return -1;
     }
 }
 

@@ -1,6 +1,7 @@
 """ctypes bindings of the port's host image decoder
 (``csrc/image_decode.cpp``): JPEG and TIFF files to arrays equal to PIL's
-decode (see the source for what is decoded and what raises).
+decode (see the source for what is decoded and what raises), and the RLE
+and LZW stages of the BMP and GIF readers (``utils/bmp_gif.py``).
 
 The decoder yields a TIFF's samples as they are stored (1-, 2- and 4-bit
 samples unpacked, 16- and 32-bit ones in native byte order, palettes and
@@ -59,6 +60,14 @@ def _lib() -> ctypes.CDLL:
                                         ctypes.c_int64, _INFLATE_FN, ctypes.c_char_p,
                                         ctypes.c_int32]
     lib.citlab_image_decode.restype = ctypes.c_int32
+    lib.citlab_bmp_rle.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64,
+                                   ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                                   ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int32]
+    lib.citlab_bmp_rle.restype = ctypes.c_int64
+    lib.citlab_gif_lzw.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
+                                   ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
+                                   ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int32]
+    lib.citlab_gif_lzw.restype = ctypes.c_int64
     return lib
 
 
@@ -225,6 +234,32 @@ def _tiff_as_pil(raw: np.ndarray, m: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(out)
 
 
+def bmp_rle(data: bytes, start: int, rle4: bool, width: int, height: int):
+    """PIL's RLE8 / RLE4 decoding of a BMP's samples from ``data[start:]``:
+    (uint8 [height, width] in the file's row order, the count of samples
+    PIL's decoder produced; fewer than width * height and PIL refuses)."""
+    out = np.zeros((height, width), np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    got = _lib().citlab_bmp_rle(data, len(data), start, int(rle4), width, height,
+                                out.ctypes.data, err, _ERRLEN)
+    if got < 0:
+        raise NativeDecodeError(err.value.decode())
+    return out, int(got)
+
+
+def gif_lzw(data: bytes, min_code_size: int, frame: np.ndarray, interlace: bool) -> int:
+    """GIF LZW of one frame's joined sub-blocks into ``frame`` (uint8
+    [h, w], pre-filled with the background; rows in interlaced order if
+    asked); returns the pixels written."""
+    err = ctypes.create_string_buffer(_ERRLEN)
+    h, w = frame.shape
+    got = _lib().citlab_gif_lzw(data, len(data), min_code_size, w, h, int(interlace),
+                                frame.ctypes.data, err, _ERRLEN)
+    if got < 0:
+        raise NativeDecodeError(err.value.decode())
+    return int(got)
+
+
 def info(data: bytes) -> Tuple[int, int, int]:
     """(width, height, channels of the decoded samples) from the headers
     alone; a TIFF that PIL does not open raises."""
@@ -250,4 +285,6 @@ def decode(data: bytes) -> np.ndarray:
         raise NativeDecodeError(err.value.decode())
     if m[3] == 2:
         return _tiff_as_pil(out, m)
+    if ch == 4:     # CMYK as stored, which PIL reads inverted (rawmode "CMYK;I")
+        return cmyk_to_rgb(~out)
     return out[..., 0] if ch == 1 else out

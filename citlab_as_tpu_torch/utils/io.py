@@ -10,17 +10,29 @@ bit to ``np.asarray(Image.open(path).convert(mode))`` under PIL 12.1:
   grey is PIL's "I;16", other 16-bit samples keep their high byte), PNM
   (P1 to P6, ASCII or binary, any maxval, rescaled as PIL rescales; P0CMYK
   and PFM) and ``.npy`` with the standard library and numpy;
-- JPEG (baseline or progressive Huffman, 8-bit, grey or YCbCr/RGB, restart
-  markers, any sampling factors) and TIFF (classic or little-endian
-  BigTIFF, strips or tiles, either PlanarConfiguration, either FillOrder;
-  no compression, PackBits, LZW, Deflate, CCITT modified Huffman, Group 3
-  (1-D and 2-D) and Group 4, JPEG with JPEGTables (grey, RGB or YCbCr),
-  old-style JPEG behind JPEGInterchangeFormat, YCbCr under LZW, Deflate or
-  PackBits as libtiff's RGBA interface converts it;
+- JPEG (8-bit; baseline, extended sequential or progressive, Huffman or
+  arithmetic coding with its DAC conditioning, lossless with predictors
+  1-7 and any point transform; grey, YCbCr/RGB, CMYK or YCCK; restart
+  markers, any sampling factors; libjpeg's block smoothing of progressive
+  files whose low coefficients stop short) and TIFF (classic or
+  little-endian BigTIFF, strips or tiles, either PlanarConfiguration,
+  either FillOrder; no compression, PackBits, LZW, Deflate, CCITT modified
+  Huffman, Group 3 (1-D and 2-D) and Group 4, JPEG with JPEGTables (grey,
+  RGB, YCbCr or CMYK), old-style JPEG behind JPEGInterchangeFormat, YCbCr under
+  LZW, Deflate or PackBits as libtiff's RGBA interface converts it;
   horizontal and floating-point predictors; 1-, 2-, 4-, 8-, 16-bit and
   32-bit integer or float samples; grey, palette, RGB(A), CMYK, as PIL's
   ``OPEN_INFO`` table reads them) by the port's host C++ decoder
-  (``csrc/image_decode.cpp``, ``utils/image_native.py``).
+  (``csrc/image_decode.cpp``, ``utils/image_native.py``);
+- BMP (OS/2 and Windows headers, 1- to 32-bit samples, RLE8 / RLE4,
+  bitfields) and the first frame of a GIF (LZW, interlaced or not, global
+  or local colour table, transparency) as PIL reads them
+  (``utils/bmp_gif.py``, its RLE and LZW in the same C++ library).
+
+One deliberate difference: an arithmetic-coded JPEG over 64 KiB, which PIL
+12.1 fails on (it feeds libjpeg 64 KiB at a time, and the arithmetic
+decoder cannot wait for more), decodes to libjpeg-turbo's pixels of the
+whole file.
 
 PIL's mode conversions follow: 16- and 32-bit grey clip to 0-255 (a
 16-bit scan comes out almost white, as in the JAX package), floats
@@ -31,12 +43,14 @@ baseline JPEG (:func:`save_jpeg`, host C++ ``csrc/image_encode.cpp``);
 :func:`resize_bilinear` is PIL's bilinear resize.
 
 Everything else raises :class:`UnsupportedImageFormat` naming the variant:
-BMP, GIF, WebP, JPEG 2000; CMYK/YCCK, arithmetic-coded, 12-bit, lossless
-and hierarchical JPEG, and a progressive JPEG that libjpeg would
-block-smooth; old-style JPEG-in-TIFF without JPEGInterchangeFormat,
-uncompressed YCbCr TIFF (PIL does not read it either),
-big-endian BigTIFF, 12-bit samples and every TIFF layout PIL does not open;
-PIL's test-only PNM extensions ("Py" magics). Nothing falls back.
+WebP and JPEG 2000; JPEG of another precision than 8 bits, with 2
+components, hierarchical, arithmetic-coded lossless or with a DNL marker
+(PIL or libjpeg-turbo refuse them all); JPEG- or PNG-in-BMP and the BMP
+headers, depths and bitfields layouts PIL refuses; old-style
+JPEG-in-TIFF without JPEGInterchangeFormat, uncompressed YCbCr TIFF (PIL
+does not read it either), big-endian BigTIFF, 12-bit samples and every
+TIFF layout PIL does not open; PIL's test-only PNM extensions ("Py"
+magics). Nothing falls back.
 """
 from __future__ import annotations
 
@@ -50,7 +64,7 @@ from typing import List
 
 import numpy as np
 
-from citlab_as_tpu_torch.utils import image_encode_native, image_native
+from citlab_as_tpu_torch.utils import bmp_gif, image_encode_native, image_native
 
 _IMG_ENDINGS = ("tif", "jpg", "png")
 
@@ -89,14 +103,13 @@ class UnsupportedImageFormat(ValueError):
     """The file is not an image format this package decodes."""
 
 
-_SUPPORTED = "PNG, PNM, .npy, 8-bit Huffman JPEG, TIFF"
+_SUPPORTED = "PNG, PNM, .npy, 8-bit JPEG (Huffman, arithmetic, lossless), TIFF, BMP, GIF"
 
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _NATIVE_MAGICS = (b"\xff\xd8", b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
-_MAGICS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"\x00\x00\x00\x0cjP", "JPEG 2000"),
-           (b"RIFF", "WebP/RIFF"))
+_MAGICS = ((b"\x00\x00\x00\x0cjP", "JPEG 2000"), (b"RIFF", "WebP/RIFF"))
 
 
 def _format_name(head: bytes, path: str) -> str:
@@ -396,7 +409,7 @@ def _is_pnm(head: bytes) -> bool:
     return head[:1] == b"P" and head[1:2] != b"" and head[1:2] in b"0123456fy"
 
 
-def _decode(path: str) -> np.ndarray:
+def _decode(path: str, mode: str = "L") -> np.ndarray:
     if path.endswith(".npy"):
         arr = np.load(path)
         if arr.dtype != np.uint8 or arr.ndim not in (2, 3):
@@ -411,6 +424,8 @@ def _decode(path: str) -> np.ndarray:
         return _decode_pnm(data, path)
     if data.startswith(_NATIVE_MAGICS):
         return _native(image_native.decode, data, path)
+    if bmp_gif.is_bmp(data) or bmp_gif.is_gif(data):
+        return _native(lambda d: bmp_gif.decode(d, mode), data, path)
     raise UnsupportedImageFormat(
         f"{path}: image format {_format_name(data[:16], path)} is not "
         f"supported ({_SUPPORTED})")
@@ -479,6 +494,8 @@ def image_size(path_to_image: str):
             # the JPEG frame header or the TIFF IFD may lie anywhere in the file
             w, h, _ = _native(image_native.info, head + f.read(), path_to_image)
             return w, h
+        if bmp_gif.is_bmp(head) or bmp_gif.is_gif(head):
+            return _native(bmp_gif.size, head + f.read(), path_to_image)
     raise UnsupportedImageFormat(
         f"{path_to_image}: image format {_format_name(head, path_to_image)} "
         f"is not supported ({_SUPPORTED})")
@@ -502,7 +519,7 @@ def load_image(path_to_image: str, mode: str = "L") -> np.ndarray:
         if entry is not None and entry[0] == mtime:
             _IMAGE_CACHE[key] = entry               # LRU bump
             return entry[1]
-    arr = _to_mode(_decode(path_to_image), mode)
+    arr = _to_mode(_decode(path_to_image, mode), mode)
     arr.flags.writeable = False
     with _IMAGE_CACHE_LOCK:
         _IMAGE_CACHE[key] = (mtime, arr)

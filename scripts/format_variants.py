@@ -3,12 +3,17 @@ catalog: ``tests/test_torch_formats_variants.py`` holds the port to PIL on
 every variant, and ``scripts/make_format_fixtures.py`` writes each as a
 small fixture that ``chip_smoke.py`` decodes on the card's machine.
 
-PIL writes few of these variants. PNM and PNG (Adam7 interlacing, 16-bit
-samples, every scanline filter) are written here byte by byte; TIFF
-through the libtiff that Pillow bundles (``pillow.libs``), called with
-ctypes, which writes every codec, predictor, fill order, planar layout and
-byte order PIL reads back. Only the TIFF writer needs PIL (for its
-libtiff); nothing here is imported by the port.
+PIL writes few of these variants. PNM, PNG (Adam7 interlacing, 16-bit
+samples, every scanline filter), BMP (every header, depth, RLE and
+bitfields layout PIL reads) and GIF (LZW, interlacing, colour tables,
+transparency) are written here byte by byte; TIFF through the libtiff that
+Pillow bundles (``pillow.libs``), called with ctypes, which writes every
+codec, predictor, fill order, planar layout and byte order PIL reads back;
+JPEG through Pillow's libjpeg-turbo and a small C layer over its API
+(``scripts/jpeg_test_encoder.c``, built with gcc), which writes CMYK /
+YCCK, arithmetic coding, lossless predictors, any sampling factors and scan
+script. Only the TIFF and JPEG writers need PIL (for its libraries);
+nothing here is imported by the port.
 """
 from __future__ import annotations
 
@@ -136,6 +141,134 @@ def libtiff() -> ctypes.CDLL:
                                        ctypes.c_ssize_t]
         getattr(lib, name).restype = ctypes.c_ssize_t
     return lib
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@functools.cache
+def jpeg_encoder() -> ctypes.CDLL:
+    """``scripts/jpeg_test_encoder.c`` built with gcc (into ``build/``,
+    keyed by the source's hash) against the libjpeg-turbo Pillow bundles,
+    which is loaded first so that the helper's calls resolve to it."""
+    import hashlib
+    import subprocess
+    import tempfile
+
+    import PIL
+    from PIL import Image  # noqa: F401
+    root = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+    ctypes.CDLL(glob.glob(os.path.join(root, "libjpeg-*.so*"))[0], mode=ctypes.RTLD_GLOBAL)
+    src = os.path.join(REPO, "scripts", "jpeg_test_encoder.c")
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    out_dir = os.path.join(REPO, "build", "test_encoders")
+    so = os.path.join(out_dir, f"jpeg_test_encoder_{tag}.so")
+    if not os.path.exists(so):
+        os.makedirs(out_dir, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        subprocess.run([os.environ.get("CC", "gcc"), "-O1", "-shared", "-fPIC", src, "-o", tmp],
+                       check=True)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    ptr, ulong = ctypes.c_void_p, ctypes.c_ulong
+    lib.tenc_encode.argtypes = ([ptr] + [ctypes.c_int] * 5 + [ptr] + [ctypes.c_int] * 3
+                                + [ptr, ctypes.c_int] + [ctypes.c_int] * 4
+                                + [ptr] + [ctypes.c_int] * 3
+                                + [ctypes.POINTER(ptr), ctypes.POINTER(ulong), ctypes.c_char_p])
+    lib.tenc_transcode.argtypes = [ptr, ulong] + [ctypes.c_int] * 3 + [
+        ctypes.POINTER(ptr), ctypes.POINTER(ulong), ctypes.c_char_p]
+    lib.tenc_decode.argtypes = [ptr, ulong, ctypes.POINTER(ptr), ctypes.POINTER(ctypes.c_int),
+                                ctypes.c_char_p]
+    lib.tenc_free.argtypes = [ptr]
+    return lib
+
+
+# libjpeg's J_COLOR_SPACE values
+JCS = {"unknown": 0, "grey": 1, "rgb": 2, "ycbcr": 3, "cmyk": 4, "ycck": 5}
+
+
+def _ints(values):
+    if values is None:
+        return None
+    arr = (ctypes.c_int * len(values))(*values)
+    return ctypes.cast(arr, ctypes.c_void_p), arr
+
+
+def _jpeg_call(fn, *args):
+    out, size = ctypes.c_void_p(), ctypes.c_ulong()
+    err = ctypes.create_string_buffer(256)
+    rc = fn(*args, ctypes.byref(out), ctypes.byref(size), err)
+    lib = jpeg_encoder()
+    if rc:
+        raise ValueError(err.value.decode())
+    data = ctypes.string_at(out, size.value)
+    lib.tenc_free(out)
+    return data
+
+
+def jpeg_bytes(samples, *, colorspace=None, sampling=None, quality=75, arith=False,
+               progressive=False, scans=None, restart_interval=0, restart_rows=0,
+               adobe=None, jfif=None, dac=None, lossless=None, optimize=False):
+    """A JPEG of ``samples`` ([h, w] or [h, w, c] uint8; 3 channels are
+    RGB, 4 CMYK, 2 of no colour space) written by Pillow's libjpeg-turbo:
+    ``colorspace`` the file's (a ``JCS`` key), ``sampling`` (h, v) per
+    component, ``arith`` arithmetic coding with ``dac`` {"dc_L", "dc_U",
+    "ac_K": [per table]}, ``scans`` a script of (components, Ss, Se, Ah,
+    Al), ``adobe`` / ``jfif`` whether those markers are written,
+    ``lossless`` (predictor, point transform)."""
+    lib = jpeg_encoder()
+    px = np.ascontiguousarray(samples, np.uint8)
+    if px.ndim == 2:
+        px = px[..., None]
+    h, w, nc = px.shape
+    in_cs = {1: JCS["grey"], 3: JCS["rgb"], 4: JCS["cmyk"]}.get(nc, JCS["unknown"])
+    samp = _ints([v for hv in sampling for v in hv]) if sampling else None
+    script = None
+    if scans:
+        flat = []
+        for comps, ss, se, ah, al in scans:
+            flat += [len(comps)] + list(comps) + [0] * (4 - len(comps)) + [ss, se, ah, al]
+        script = _ints(flat)
+    dac_v = None
+    if dac:
+        dac_v = _ints([(list(dac.get(k, ())) + [-1] * 4)[i] for k in ("dc_L", "dc_U", "ac_K")
+                       for i in range(4)])
+    psv, pt = lossless or (0, 0)
+    return _jpeg_call(
+        lib.tenc_encode, px.ctypes.data, w, h, nc, in_cs,
+        -1 if colorspace is None else JCS[colorspace], samp and samp[0], quality, int(arith),
+        int(progressive), script and script[0], len(scans or ()), restart_interval,
+        restart_rows, -1 if adobe is None else int(adobe), -1 if jfif is None else int(jfif),
+        dac_v and dac_v[0], psv, pt, int(optimize))
+
+
+def libjpeg_decode(data):
+    """The JPEG decoded by Pillow's libjpeg-turbo from one in-memory buffer
+    with PIL's settings, converted to PIL's image: what PIL 12.1 would
+    give if its decoder got the whole file at once (it feeds libjpeg 64
+    KiB at a time, and the arithmetic decoder cannot resume, so PIL fails
+    on larger arithmetic-coded files)."""
+    from PIL import Image
+    lib = jpeg_encoder()
+    out, dims = ctypes.c_void_p(), (ctypes.c_int * 3)()
+    err = ctypes.create_string_buffer(256)
+    if lib.tenc_decode(data, len(data), ctypes.byref(out), dims, err):
+        raise ValueError(err.value.decode())
+    w, h, c = dims
+    raw = ctypes.string_at(out, w * h * c)
+    lib.tenc_free(out)
+    mode, rawmode = {1: ("L", "L"), 3: ("RGB", "RGB"), 4: ("CMYK", "CMYK;I")}[c]
+    return Image.frombytes(mode, (w, h), raw, "raw", rawmode)
+
+
+def jpeg_transcode(data, *, arith=True, progressive=False, restart_interval=0):
+    """The coefficients of JPEG ``data`` re-coded, unchanged, with another
+    entropy coder or progression (jpeg_read_coefficients ->
+    jpeg_write_coefficients)."""
+    return _jpeg_call(jpeg_encoder().tenc_transcode, data, len(data), int(arith),
+                      int(progressive), restart_interval)
 
 
 def _tiff_bytes(rows, bps):
@@ -371,6 +504,10 @@ TIFF_VARIANTS = {
                                            subsampling=(2, 1), tile=(32, 16)),
     "jpeg-ycbcr-440": lambda r: dict(samples=_values(r, 3, 8), bps=8, photometric=6,
                                      compression=7, jpegcolormode=1, subsampling=(1, 2)),
+    "jpeg-cmyk": lambda r: dict(samples=_values(r, 4, 8), bps=8, photometric=5,
+                                compression=7, rows_per_strip=16),
+    "jpeg-cmyk-tiles": lambda r: dict(samples=_values(r, 4, 8), bps=8, photometric=5,
+                                      compression=7, tile=(16, 16)),
     # BigTIFF (little-endian)
     "bigtiff-L": lambda r: dict(samples=_values(r, 1, 8), bps=8, photometric=1, big=True),
     "bigtiff-RGB-lzw-tiles": lambda r: dict(samples=_values(r, 3, 8), bps=8, photometric=2,
@@ -484,7 +621,7 @@ OLD_JPEG_VARIANTS = {"ojpeg-420": (32, 48, 2), "ojpeg-420-odd": (35, 45, 2),
 def small_variants():
     """[(file name, write(path))] of every decodable variant of the
     catalog at the tests' small size: the PNM cases, each PNG layout
-    interlaced and not, each TIFF variant."""
+    interlaced and not, each TIFF, JPEG, BMP and GIF variant."""
     out = []
     for name, magic, maxval, plain in PNM_CASES:
         bands = {b"P2": 1, b"P5": 1, b"P3": 3, b"P6": 3, b"P0CMYK": 4}[magic]
@@ -508,9 +645,521 @@ def small_variants():
     for name, args in OLD_JPEG_VARIANTS.items():
         out.append((f"tiff_{name}.tif",
                     lambda p, args=args: _write_bytes(p, old_style_jpeg_tiff(*args))))
+    for name, make in JPEG_VARIANTS.items():
+        out.append((f"jpeg_{name}.jpg", lambda p, make=make: _write_bytes(p, make())))
+    for name, make in BMP_VARIANTS.items():
+        out.append((f"bmp_{name}.bmp", lambda p, name=name, make=make: _write_bytes(
+            p, bmp_bytes(**make(np.random.RandomState(len(name)))))))
+    for name, make in GIF_VARIANTS.items():
+        out.append((f"gif_{name}.gif", lambda p, make=make: _write_bytes(p, gif_bytes(**make()))))
     return out
 
 
 def _write_bytes(path, data):
     with open(path, "wb") as f:
         f.write(data)
+
+
+# ------------------------------------------------------------------ BMP
+
+def _bmp_rows(px, bits):
+    """[h, w] indices or [h, w, k] bytes -> rows padded to 4 bytes, bottom
+    row first is the caller's choice."""
+    h = px.shape[0]
+    if bits < 8:
+        vals = px.astype(np.uint8)
+        b = (vals[..., None] >> np.arange(bits - 1, -1, -1)) & 1
+        rows = np.packbits(b.reshape(h, -1).astype(np.uint8), axis=1)
+    else:
+        rows = px.reshape(h, -1).astype(np.uint8)
+    stride = -(-rows.shape[1] // 4) * 4
+    out = np.zeros((h, stride), np.uint8)
+    out[:, :rows.shape[1]] = rows
+    return out
+
+
+def bmp_rle_bytes(index, rle4, seed=0, delta=False):
+    """RLE8 / RLE4 codes of [h, w] indices, bottom row first: encoded runs
+    where samples repeat (or, at random, for any stretch), absolute runs
+    otherwise, an end of line per row and an end of bitmap; ``delta``
+    puts a delta code over some zero samples."""
+    rng = np.random.RandomState(seed)
+    h, w = index.shape
+    out = bytearray()
+    for row in index[::-1].astype(np.uint8):
+        x = 0
+        while x < w:
+            if delta and rng.rand() < 0.1 and x + 3 <= w and not row[x:x + 3].any():
+                n = int(np.argmax(np.append(row[x:], 1) != 0))
+                out += bytes([0, 2, 0, 0, n, 0])     # PIL reads two bytes after the skipped two
+                x += n
+                continue
+            run = 1
+            if rle4:
+                while x + run < w and run < 255 and row[x + run] == row[x + run % 2]:
+                    run += 1
+            else:
+                while x + run < w and run < 255 and row[x + run] == row[x]:
+                    run += 1
+            if run >= 3 or w - x < 3 or rng.rand() < 0.3:
+                first = row[x]
+                second = row[x + 1] if rle4 and run > 1 else first
+                out += bytes([run, (first << 4 | second) if rle4 else first])
+                x += run
+                continue
+            n = min(int(rng.randint(3, 40)), w - x, 254)
+            if rle4:
+                n -= n % 2
+                if n < 4:
+                    out += bytes([1, row[x] << 4])
+                    x += 1
+                    continue
+                vals = row[x:x + n]
+                body = bytes((vals[0::2] << 4) | vals[1::2])
+            else:
+                body = bytes(row[x:x + n])
+            out += bytes([0, n]) + body + (b"\0" if len(body) % 2 else b"")
+            x += n
+        out += b"\0\0"
+    return bytes(out + b"\0\1")
+
+
+def bmp_bytes(px, bits, header=40, top_down=False, palette=None, compression=0,
+              masks=None, colors=None, rle_body=None):
+    """A BMP of ``px`` ([h, w] palette indices for 1-8 bits; [h, w, 3] RGB
+    for 24 bits; [h, w] 16- or 32-bit words for 16 and 32 bits, laid out by
+    ``masks``), with the given header size (12: OS/2 v1), row order,
+    palette ([n, 3] RGB), compression and bitfields masks."""
+    h, w = px.shape[:2]
+    if bits == 24:
+        body = _bmp_rows(np.asarray(px)[..., ::-1], 24)
+    elif bits in (16, 32):
+        words = np.asarray(px).astype("<u2" if bits == 16 else "<u4")
+        body = _bmp_rows(words.view(np.uint8).reshape(h, -1), 8)
+    else:
+        body = _bmp_rows(np.asarray(px), bits)
+    if rle_body is not None:
+        data = rle_body
+    else:
+        data = (body if top_down else body[::-1]).tobytes()
+    pal = b""
+    if palette is not None:
+        p = np.asarray(palette, np.uint8)[:, ::-1]
+        if header != 12:
+            p = np.concatenate([p, np.zeros((len(p), 1), np.uint8)], axis=1)
+        pal = p.tobytes()
+    if header == 12:
+        info = struct.pack("<IHHHH", 12, w, h, 1, bits)
+    else:
+        info = struct.pack("<IiiHHIIiiII", header, w, -h if top_down else h, 1, bits,
+                           compression, len(data), 2835, 2835,
+                           len(palette) if colors is None and palette is not None
+                           else (colors or 0), 0)
+        extra = b""
+        if masks is not None:
+            extra = struct.pack("<" + "I" * len(masks), *masks)
+        if header == 40:
+            info += extra                       # three masks after the header
+        else:
+            info += (extra + bytes(header)).ljust(header - 40, b"\0")[:header - 40]
+    offset = 14 + len(info) + len(pal)
+    return (b"BM" + struct.pack("<IHHI", offset + len(data), 0, 0, offset) + info + pal
+            + data)
+
+
+def _grey_ramp(n):
+    return np.repeat(np.arange(n)[:, None], 3, axis=1)
+
+
+def _bmp_case(kind, seed, h=29, w=37):
+    r = np.random.RandomState(seed)
+    if kind.startswith("P"):
+        bits = int(kind[1])
+        idx = r.randint(0, 1 << bits, (h, w))
+        return dict(px=idx, bits=bits, palette=r.randint(0, 256, (1 << bits, 3)))
+    if kind == "rgb24":
+        return dict(px=r.randint(0, 256, (h, w, 3)), bits=24)
+    if kind == "w16":
+        return dict(px=r.randint(0, 1 << 16, (h, w)), bits=16)
+    return dict(px=r.randint(0, 1 << 32, (h, w), dtype=np.uint64), bits=32)
+
+
+BMP_VARIANTS = {
+    "os2-P1": lambda r: dict(_bmp_case("P1", 1), header=12),
+    "os2-P4": lambda r: dict(_bmp_case("P4", 2), header=12),
+    "os2-P8": lambda r: dict(_bmp_case("P8", 3), header=12),
+    "os2-rgb24": lambda r: dict(_bmp_case("rgb24", 4), header=12),
+    "P1": lambda r: dict(_bmp_case("P1", 5)),
+    "P1-black-white": lambda r: dict(_bmp_case("P1", 6), palette=[(0, 0, 0), (255, 255, 255)]),
+    "P1-white-black": lambda r: dict(_bmp_case("P1", 6), palette=[(255, 255, 255), (0, 0, 0)]),
+    "P4": lambda r: dict(_bmp_case("P4", 7)),
+    "P4-top-down": lambda r: dict(_bmp_case("P4", 8), top_down=True),
+    "P8": lambda r: dict(_bmp_case("P8", 9)),
+    "P8-grey-ramp": lambda r: dict(_bmp_case("P8", 10), palette=_grey_ramp(256)),
+    "P8-grey-ramp-top-down": lambda r: dict(_bmp_case("P8", 11), palette=_grey_ramp(256),
+                                            top_down=True),
+    "P8-short-palette": lambda r: dict(_bmp_case("P8", 12), palette=r.randint(0, 256, (20, 3))),
+    "P8-short-grey-ramp": lambda r: dict(px=r.randint(0, 16, (29, 37)), bits=8,
+                                         palette=_grey_ramp(16)),
+    "P8-two-colours-black-white": lambda r: dict(px=r.randint(0, 2, (29, 37)), bits=8,
+                                                 palette=[(0, 0, 0), (255, 255, 255)]),
+    "rgb16-555": lambda r: dict(_bmp_case("w16", 13)),
+    "rgb24": lambda r: dict(_bmp_case("rgb24", 14)),
+    "rgb24-top-down": lambda r: dict(_bmp_case("rgb24", 15), top_down=True),
+    "rgb24-odd-1x1": lambda r: dict(_bmp_case("rgb24", 16, 1, 1)),
+    "rgbx32": lambda r: dict(_bmp_case("w32", 17)),
+    "rgb24-header52": lambda r: dict(_bmp_case("rgb24", 18), header=52),
+    "rgb24-header56": lambda r: dict(_bmp_case("rgb24", 19), header=56),
+    "rgb24-header64": lambda r: dict(_bmp_case("rgb24", 20), header=64),
+    "rgb24-header108": lambda r: dict(_bmp_case("rgb24", 21), header=108),
+    "P8-header124": lambda r: dict(_bmp_case("P8", 22), header=124),
+    "bitfields16-565": lambda r: dict(_bmp_case("w16", 23), compression=3,
+                                      masks=(0xF800, 0x7E0, 0x1F)),
+    "bitfields16-555-header56": lambda r: dict(_bmp_case("w16", 24), compression=3, header=56,
+                                               masks=(0x7C00, 0x3E0, 0x1F, 0)),
+    "bitfields24": lambda r: dict(_bmp_case("rgb24", 25), compression=3,
+                                  masks=(0xFF0000, 0xFF00, 0xFF)),
+    **{f"bitfields32-{'-'.join(f'{m:x}' for m in masks)}": (
+        lambda r, masks=masks, header=header: dict(_bmp_case("w32", sum(masks) % 97),
+                                                   compression=3, masks=masks, header=header))
+       for masks, header in (((0xFF0000, 0xFF00, 0xFF), 40),
+                             ((0xFF000000, 0xFF0000, 0xFF00, 0x0), 56),
+                             ((0xFF000000, 0xFF00, 0xFF, 0x0), 108),
+                             ((0xFF000000, 0xFF0000, 0xFF00, 0xFF), 124),
+                             ((0xFF, 0xFF00, 0xFF0000, 0xFF000000), 56),
+                             ((0xFF0000, 0xFF00, 0xFF, 0xFF000000), 108),
+                             ((0xFF000000, 0xFF00, 0xFF, 0xFF0000), 124),
+                             ((0, 0, 0, 0), 56),
+                             ((0xFF0000, 0xFF00, 0xFF), 52))},
+}
+
+
+def _rle_case(bits, seed, h=29, w=37, grey=False, delta=False, top_down=False):
+    r = np.random.RandomState(seed)
+    # runs of equal samples and noise, zeros for the delta codes
+    idx = np.repeat(r.randint(0, 1 << bits, (h, w // 4 + 1)), 4, axis=1)[:, :w]
+    idx[:, ::7] = r.randint(0, 1 << bits, idx[:, ::7].shape)
+    if delta:
+        idx[:, 5:14] = 0
+    palette = _grey_ramp(256) if grey else r.randint(0, 256, (1 << bits, 3))
+    # bmp_rle_bytes writes its argument's bottom row first
+    body = bmp_rle_bytes(idx[::-1] if top_down else idx, bits == 4, seed, delta)
+    return dict(px=idx, bits=bits, palette=palette, compression=1 if bits == 8 else 2,
+                rle_body=body, top_down=top_down)
+
+
+BMP_VARIANTS.update({
+    "rle8": lambda r: _rle_case(8, 31),
+    "rle8-grey-ramp": lambda r: _rle_case(8, 32, grey=True),
+    "rle8-delta": lambda r: _rle_case(8, 33, delta=True),
+    "rle8-odd-width": lambda r: _rle_case(8, 34, h=9, w=1),
+    "rle4": lambda r: _rle_case(4, 35),
+    "rle4-delta": lambda r: _rle_case(4, 36, delta=True),
+    "rle4-odd": lambda r: _rle_case(4, 37, h=7, w=11),
+    "rle8-top-down": lambda r: _rle_case(8, 38, top_down=True),
+})
+
+BMP_REFUSED = {
+    # (the writer's arguments, a word of the refusal); PIL refuses these too
+    "jpeg-in-bmp": (lambda r: dict(_bmp_case("rgb24", 41), compression=4), "JPEG"),
+    "png-in-bmp": (lambda r: dict(_bmp_case("rgb24", 42), compression=5), "PNG"),
+    "header20": (lambda r: dict(_bmp_case("rgb24", 43), header=20), "header of 20 bytes"),
+    "P2": (lambda r: dict(px=r.randint(0, 4, (29, 37)), bits=2, palette=_grey_ramp(4)),
+           "2-bit"),
+    "bitfields16-444": (lambda r: dict(_bmp_case("w16", 44), compression=3,
+                                       masks=(0xF00, 0xF0, 0xF)), "bitfields layout"),
+    "bitfields8": (lambda r: dict(_bmp_case("P8", 45), compression=3,
+                                  masks=(0xE0, 0x1C, 0x3)), "bitfields layout"),
+    "rle24": (lambda r: dict(_bmp_case("rgb24", 46), compression=1,
+                             rle_body=b"\x02\x05\x00\x00\x00\x01"), "RLE"),
+}
+
+
+# ------------------------------------------------------------------ GIF
+
+def gif_lzw_bytes(index, bits, clear_when_full=True):
+    """GIF LZW codes of the indices (flattened, in the order given), with
+    a clear code first and whenever the table fills (or, if not
+    ``clear_when_full``, the full table kept: a deferred clear)."""
+    clear, end = 1 << bits, (1 << bits) + 1
+    out, acc, nacc = bytearray(), 0, 0
+
+    def emit(code, size):
+        nonlocal acc, nacc
+        acc |= code << nacc
+        nacc += size
+        while nacc >= 8:
+            out.append(acc & 255)
+            acc >>= 8
+            nacc -= 8
+
+    flat = [int(v) for v in np.asarray(index).ravel()]
+    size, nxt, table = bits + 1, clear + 2, {}
+    emit(clear, size)
+    cur = flat[0]
+    for k in flat[1:]:
+        key = (cur, k)
+        if key in table:
+            cur = table[key]
+            continue
+        emit(cur, size)
+        if nxt < 4096:
+            table[key] = nxt
+            nxt += 1
+            if nxt > (1 << size) and size < 12:
+                size += 1
+            if nxt == 4096 and clear_when_full:
+                emit(clear, size)
+                size, nxt, table = bits + 1, clear + 2, {}
+        cur = k
+    emit(cur, size)
+    emit(end, size)
+    if nacc:
+        out.append(acc & 255)
+    return bytes(out)
+
+
+def _sub_blocks(data):
+    return b"".join(bytes([len(data[i:i + 255])]) + data[i:i + 255]
+                    for i in range(0, len(data), 255)) + b"\0"
+
+
+def _interlaced_rows(index):
+    h = index.shape[0]
+    order = (list(range(0, h, 8)) + list(range(4, h, 8)) + list(range(2, h, 4))
+             + list(range(1, h, 2)))
+    return index[order]
+
+
+def gif_bytes(index, palette=None, local_palette=None, interlace=False, transparency=None,
+              screen=None, offset=(0, 0), bits=None, clear_when_full=True, extensions=False,
+              second_frame=False):
+    """A GIF89a of [h, w] indices: a global and / or local colour table
+    ([2^k, 3] RGB), interlaced or not, a graphic control extension with
+    the transparency index, the logical screen and the frame's offset, the
+    LZW minimum code size, comment and NETSCAPE extensions before the
+    frame, a second frame after it."""
+    index = np.asarray(index)
+    h, w = index.shape
+    sw, sh = screen or (w, h)
+
+    def table_bits(p):
+        return max(1, int(np.ceil(np.log2(max(len(p), 2)))))
+    flags = 0
+    out = b"GIF89a"
+    gp = b""
+    if palette is not None:
+        k = table_bits(palette)
+        flags = 0x80 | (k - 1)
+        gp = np.asarray(palette, np.uint8).tobytes().ljust(3 << k, b"\0")
+    out += struct.pack("<HHBBB", sw, sh, flags, 0, 0) + gp
+    if extensions:
+        out += b"!\xfe" + _sub_blocks(b"written by a test")
+        out += b"!\xff\x0bNETSCAPE2.0\x03\x01\x00\x00\x00"
+    if transparency is not None:
+        out += b"!\xf9\x04" + struct.pack("<BHB", 1, 0, transparency) + b"\0"
+    lflags = 0x40 if interlace else 0
+    lp = b""
+    if local_palette is not None:
+        k = table_bits(local_palette)
+        lflags |= 0x80 | (k - 1)
+        lp = np.asarray(local_palette, np.uint8).tobytes().ljust(3 << k, b"\0")
+    code_bits = bits or max(2, int(np.ceil(np.log2(max(int(index.max()) + 1, 2)))))
+    rows = _interlaced_rows(index) if interlace else index
+    frame = (b"," + struct.pack("<HHHHB", offset[0], offset[1], w, h, lflags) + lp
+             + bytes([code_bits]) + _sub_blocks(gif_lzw_bytes(rows, code_bits,
+                                                               clear_when_full)))
+    out += frame
+    if second_frame:
+        out += b"," + struct.pack("<HHHHB", 0, 0, 1, 1, 0) + bytes([2]) + _sub_blocks(
+            gif_lzw_bytes(np.zeros((1, 1), np.uint8), 2))
+    return out + b";"
+
+
+def _gif_case(seed, h=29, w=37, colours=256):
+    r = np.random.RandomState(seed)
+    # runs, so that the LZW table grows long strings
+    idx = np.repeat(r.randint(0, colours, (h, w // 3 + 1)), 3, axis=1)[:, :w]
+    idx[::3, ::5] = r.randint(0, colours, idx[::3, ::5].shape)
+    return idx, r.randint(0, 256, (colours, 3))
+
+
+GIF_VARIANTS = {
+    "global": lambda: dict(zip(("index", "palette"), _gif_case(1))),
+    "global-interlaced": lambda: dict(zip(("index", "palette"), _gif_case(2)), interlace=True),
+    "interlaced-heights": lambda: dict(zip(("index", "palette"), _gif_case(3, h=5, w=7)),
+                                       interlace=True),
+    "interlaced-1-row": lambda: dict(zip(("index", "palette"), _gif_case(4, h=1, w=9)),
+                                     interlace=True),
+    "local": lambda: dict(index=_gif_case(5)[0], local_palette=_gif_case(5)[1]),
+    "local-over-global": lambda: dict(index=_gif_case(6)[0], palette=_gif_case(7)[1],
+                                      local_palette=_gif_case(6)[1]),
+    "grey-ramp-palette": lambda: dict(index=_gif_case(8)[0], palette=_grey_ramp(256)),
+    "local-grey-ramp-over-global": lambda: dict(index=_gif_case(9)[0],
+                                                palette=_gif_case(9)[1],
+                                                local_palette=_grey_ramp(256)),
+    "no-palette": lambda: dict(index=_gif_case(10)[0]),
+    "two-colours": lambda: dict(zip(("index", "palette"), _gif_case(11, colours=2))),
+    "16-colours-code-size-8": lambda: dict(zip(("index", "palette"), _gif_case(12, colours=16)),
+                                           bits=8),
+    "transparency-offset": lambda: dict(zip(("index", "palette"), _gif_case(13, h=20, w=25)),
+                                        transparency=7, screen=(37, 29), offset=(5, 4)),
+    "frame-beyond-screen": lambda: dict(zip(("index", "palette"), _gif_case(14)),
+                                        screen=(20, 10), offset=(3, 2)),
+    "background-zero": lambda: dict(zip(("index", "palette"), _gif_case(15, h=10, w=11)),
+                                    screen=(30, 20), offset=(9, 6)),
+    "full-table-clear": lambda: dict(zip(("index", "palette"), _gif_case(16, h=90, w=97))),
+    "full-table-deferred-clear": lambda: dict(zip(("index", "palette"), _gif_case(17, h=90,
+                                                                                  w=97)),
+                                              clear_when_full=False),
+    "extensions-and-second-frame": lambda: dict(zip(("index", "palette"), _gif_case(18)),
+                                                extensions=True, second_frame=True,
+                                                transparency=3),
+    "short-palette-high-indices": lambda: dict(index=_gif_case(19)[0],
+                                               palette=_gif_case(19, colours=4)[1]),
+}
+
+
+def gif_refused():
+    """(name, file bytes, a word of the refusal) of GIFs PIL refuses."""
+    idx, pal = _gif_case(21)
+    whole = gif_bytes(idx, pal)
+    return [("no-frame", b"GIF89a" + struct.pack("<HHBBB", 4, 4, 0, 0, 0) + b";", "no image"),
+            ("truncated", whole[:len(whole) // 2], "truncated")]
+
+
+# ------------------------------------------------------------------ JPEG
+
+def strip_segments(data, marker):
+    """The JPEG without its ``marker`` segments (e.g. 0xCC, DAC: an
+    arithmetic-coded file then uses the default conditioning)."""
+    out, pos = bytearray(data[:2]), 2
+    while pos + 4 <= len(data) and data[pos] == 0xFF and data[pos + 1] != 0xDA:
+        n = struct.unpack(">H", data[pos + 2:pos + 4])[0]
+        if data[pos + 1] != marker:
+            out += data[pos:pos + 2 + n]
+        pos += 2 + n
+    return bytes(out + data[pos:])
+
+
+def patch_sof(data, marker=None, precision=None, height=None):
+    """The JPEG with its frame header's marker, precision or height
+    rewritten (the entropy-coded data stays as it is)."""
+    out = bytearray(data)
+    i = next(i for i in range(2, len(out) - 1)
+             if out[i] == 0xFF and 0xC0 <= out[i + 1] <= 0xCF and out[i + 1] not in
+             (0xC4, 0xC8, 0xCC))
+    if marker is not None:
+        out[i + 1] = marker
+    if precision is not None:
+        out[i + 4] = precision
+    if height is not None:
+        out[i + 5:i + 7] = struct.pack(">H", height)
+    return bytes(out)
+
+
+def jpeg_page(h, w, channels, seed):
+    """Text-like strokes over a smooth background with noise, grey or in
+    ``channels`` colours (for CMYK, ink in K over tinted CMY)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    base = 200 + 40 * np.sin(xx / 9.0) * np.cos(yy / 7.0)
+    ink = (np.sin(xx / 2.1 + rng.rand()) > 0.5) & (np.sin(yy / 3.3) > 0.1)
+    grey = base - 150 * ink + rng.randn(h, w) * 12
+    planes = [grey * (0.7 + 0.1 * k) + 25 * k * np.cos(xx / (5.0 + k))
+              for k in range(channels)]
+    return np.clip(np.stack(planes, -1), 0, 255).astype(np.uint8)
+
+
+# [(Ss, Se, Ah, Al) per component set] progressive scan scripts whose
+# first AC coefficients stop short of full precision: libjpeg smooths them
+SMOOTHING_SCRIPTS = {
+    "final-al": [((0, 1, 2), 0, 0, 0, 1), ((0,), 1, 5, 0, 2), ((0,), 6, 63, 0, 1),
+                 ((1,), 1, 63, 0, 1), ((2,), 1, 63, 0, 1), ((0,), 1, 5, 2, 1)],
+    "bands-never-sent": [((0, 1, 2), 0, 0, 0, 0), ((0,), 1, 2, 0, 0), ((1,), 1, 63, 0, 0)],
+    "dc-only": [((0, 1, 2), 0, 0, 0, 0)],
+    "dc-refined-only": [((0, 1, 2), 0, 0, 0, 2), ((0, 1, 2), 0, 0, 2, 1)],
+    "dc-and-5-ac": [((0, 1, 2), 0, 0, 0, 0), ((0,), 1, 5, 0, 0), ((1,), 1, 5, 0, 0),
+                    ((2,), 1, 5, 0, 0)],
+}
+
+
+def _j(h, w, channels, seed, **kw):
+    return lambda: jpeg_bytes(jpeg_page(h, w, channels, seed), **kw)
+
+
+JPEG_VARIANTS = {
+    # four components: CMYK with and without the Adobe marker, YCCK
+    "cmyk-adobe": _j(37, 53, 4, 1),
+    "cmyk-no-adobe": _j(37, 53, 4, 2, adobe=False),
+    "cmyk-odd-progressive": _j(17, 9, 4, 3, progressive=True),
+    "ycck": _j(37, 53, 4, 4, colorspace="ycck"),
+    "ycck-subsampled": _j(45, 61, 4, 5, colorspace="ycck",
+                          sampling=[(2, 2), (1, 1), (1, 1), (2, 2)]),
+    "ycck-restarts": _j(33, 47, 4, 6, colorspace="ycck", restart_interval=2),
+    # arithmetic coding: sequential, progressive, DAC conditioning, restarts
+    "arith-grey": _j(37, 53, 1, 7, arith=True),
+    "arith-420": _j(45, 61, 3, 8, arith=True),
+    "arith-444-restarts": _j(33, 47, 3, 9, arith=True, sampling=[(1, 1)] * 3,
+                             restart_interval=3),
+    "arith-dac": _j(37, 53, 3, 10, arith=True, dac={"dc_L": [2, 1], "dc_U": [5, 3],
+                                                     "ac_K": [2, 20]}),
+    "arith-no-dac": lambda: strip_segments(jpeg_bytes(jpeg_page(37, 53, 3, 11), arith=True),
+                                           0xCC),
+    "arith-progressive": _j(45, 61, 3, 12, arith=True, progressive=True),
+    "arith-progressive-restarts": _j(37, 53, 3, 13, arith=True, progressive=True,
+                                     restart_interval=2),
+    "arith-progressive-dac-odd": _j(17, 9, 3, 14, arith=True, progressive=True,
+                                    dac={"dc_L": [1], "dc_U": [4], "ac_K": [9, 3]}),
+    "arith-cmyk": _j(21, 29, 4, 15, arith=True),
+    "arith-transcoded": lambda: jpeg_transcode(jpeg_bytes(jpeg_page(37, 53, 3, 16),
+                                                          progressive=True)),
+    "sof9-over-huffman-data": lambda: patch_sof(jpeg_bytes(jpeg_page(24, 40, 3, 17)), 0xC9),
+    # lossless (SOF3): every predictor, point transforms, subsampling, restarts
+    **{f"lossless-p{p}-pt{pt}": _j(23, 31, 3 if p % 2 else 1, 20 + p, lossless=(p, pt))
+       for p in range(1, 8) for pt in ((0, 3) if p in (1, 4, 7) else (p % 3,))},
+    "lossless-ycc-420": _j(23, 31, 3, 30, lossless=(4, 0), colorspace="ycbcr",
+                           sampling=[(2, 2), (1, 1), (1, 1)]),
+    "lossless-ycc-mixed-sampling": _j(19, 27, 3, 31, lossless=(6, 1), colorspace="ycbcr",
+                                      sampling=[(2, 2), (1, 2), (2, 1)]),
+    "lossless-restarts": _j(23, 31, 3, 32, lossless=(5, 0), restart_rows=2),
+    "lossless-ids-123-no-jfif": _j(23, 31, 3, 33, lossless=(2, 0), colorspace="ycbcr",
+                                   jfif=False),
+    "lossless-cmyk": _j(15, 21, 4, 34, lossless=(7, 1)),
+    # progressive scripts that libjpeg block-smooths
+    **{f"smoothed-{name}": _j(45, 61, 3, 40 + i, progressive=True, scans=script)
+       for i, (name, script) in enumerate(SMOOTHING_SCRIPTS.items())},
+    "smoothed-grey-2-blocks-wide": _j(17, 9, 1, 46, progressive=True,
+                                      scans=[((0,), 0, 0, 0, 0), ((0,), 1, 63, 0, 2)]),
+    "smoothed-arith": _j(37, 53, 3, 47, arith=True, progressive=True,
+                         scans=SMOOTHING_SCRIPTS["final-al"]),
+    "smoothed-odd-422": _j(21, 35, 3, 48, progressive=True, sampling=[(2, 1), (1, 1), (1, 1)],
+                           scans=SMOOTHING_SCRIPTS["bands-never-sent"]),
+    # 4:4:0 (component 0 sampled 1 x 2)
+    "h1v2-440": _j(37, 53, 3, 50, sampling=[(1, 2), (1, 1), (1, 1)]),
+    "h1v2-440-odd-progressive": _j(17, 9, 3, 51, sampling=[(1, 2), (1, 1), (1, 1)],
+                                   progressive=True),
+}
+
+
+def _lossless_grey():
+    return jpeg_bytes(jpeg_page(16, 16, 1, 60), lossless=(1, 0))
+
+
+def _baseline_grey():
+    return jpeg_bytes(jpeg_page(16, 16, 1, 61))
+
+
+# (file bytes, a word of the port's refusal); PIL refuses every one
+JPEG_REFUSED = {
+    "12-bit": (lambda: patch_sof(_baseline_grey(), precision=12), "12-bit"),
+    "2-components": (lambda: jpeg_bytes(jpeg_page(16, 16, 2, 62)), "2-component"),
+    "dnl-height-0": (lambda: patch_sof(_baseline_grey(), height=0), "DNL"),
+    **{f"hierarchical-sof{m - 0xC0}": (lambda m=m: patch_sof(_baseline_grey(), m),
+                                        "hierarchical")
+       for m in (0xC5, 0xC6, 0xC7, 0xCD, 0xCE, 0xCF)},
+    "lossless-arithmetic-sof11": (lambda: patch_sof(_lossless_grey(), 0xCB),
+                                  "arithmetic-coded lossless"),
+    "lossless-sof3-over-dct-scans": (lambda: patch_sof(_baseline_grey(), 0xC3),
+                                     "lossless scan parameters"),
+}

@@ -26,10 +26,22 @@ Then the fixtures of the smoke's ``variants`` phase, in
   with ``page/<name>.xml`` and ``<name>.json`` as above. (The smoke writes
   its Adam7 PNG, 16-bit PNG and PNM pages itself.)
 
-Needs PIL (and, for the TIFF variants, the libtiff Pillow bundles); run
-from the repository root:
+Then the full-size JPEG pages of the smoke's ``variants`` phase in
+``tests/data/torch_formats_jpeg/``: five pages of the newspaper generator
+(seed ``JPEG_SEED``) in the JPEG variants PIL reads and PIL does not write,
+through Pillow's libjpeg-turbo (``scripts/format_variants.py``): a CMYK
+JPEG with an Adobe marker, a YCCK JPEG, an arithmetic-coded progressive
+colour JPEG (PIL's own progressive JPEG re-coded), a lossless grey JPEG
+and a progressive colour JPEG whose last scan leaves the low coefficients
+short (libjpeg block-smooths it), each with ``page/<name>.xml`` and
+``<name>.json`` as above.
 
-    python scripts/make_format_fixtures.py
+Needs PIL (and, for the TIFF and JPEG variants, the libraries Pillow
+bundles, and gcc); run from the repository root:
+
+    python scripts/make_format_fixtures.py [--only formats variants jpeg]
+
+(the page XMLs get new timestamps on every run).
 """
 from __future__ import annotations
 
@@ -45,8 +57,10 @@ from PIL import Image
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "tests", "data", "torch_formats")
 VARIANTS_OUT = os.path.join(REPO, "tests", "data", "torch_formats_variants")
+JPEG_OUT = os.path.join(REPO, "tests", "data", "torch_formats_jpeg")
 SEED = 23
 VARIANT_SEED = 29
+JPEG_SEED = 37
 SHAPE = (2000, 1420)
 # (name, file ending, pixels: "grey" | "colour" | "bilevel", PIL save options)
 FIXTURES = [
@@ -72,7 +86,22 @@ def pixels(page: np.ndarray, kind: str) -> Image.Image:
 
 
 def main() -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--only", nargs="+", choices=("formats", "variants", "jpeg"),
+                        default=("formats", "variants", "jpeg"))
+    only = parser.parse_args().only
     sys.path.insert(0, REPO)
+    if "formats" in only:
+        write_formats()
+    if "variants" in only:
+        write_variants()
+    if "jpeg" in only:
+        write_jpeg_pages()
+    return 0
+
+
+def write_formats() -> None:
     import chip_smoke
     pages, _, layouts = chip_smoke.synthetic_newspaper(len(FIXTURES), *SHAPE, seed=SEED)
     shutil.rmtree(OUT, ignore_errors=True)
@@ -96,11 +125,12 @@ def main() -> int:
         total += size
         print(f"{os.path.relpath(path, REPO)}: {size} bytes, PIL mode {record['mode']}")
     print(f"total image bytes {total}")
-    return write_variants()
 
 
-def record(path, modes=("L",)):
-    with Image.open(path) as im:
+def record(path, modes=("L",), oracle=None):
+    """PIL's size and digests of the file (or of ``oracle``, the image PIL
+    would give, where PIL itself cannot read the file)."""
+    with (oracle or Image.open(path)) as im:
         out = {"file": os.path.basename(path), "size": list(im.size), "mode": im.mode}
         for mode in modes:
             out[f"sha256_{mode}"] = hashlib.sha256(
@@ -108,7 +138,7 @@ def record(path, modes=("L",)):
     return out
 
 
-def write_variants() -> int:
+def write_variants() -> None:
     import chip_smoke
     from scripts import format_variants as fv
     shutil.rmtree(VARIANTS_OUT, ignore_errors=True)
@@ -147,7 +177,54 @@ def write_variants() -> int:
     small = sum(os.path.getsize(os.path.join(VARIANTS_OUT, "small", r["file"]))
                 for r in records)
     print(f"{len(records)} small variants, {small} bytes; full-size pages {total} bytes")
-    return 0
+
+
+def cmyk_of(rgb: np.ndarray) -> np.ndarray:
+    """RGB -> the samples a print-side CMYK JPEG stores: ink with grey
+    component replacement (K = min(C, M, Y)), inverted as Adobe writes it."""
+    cmy = 255 - rgb.astype(np.int32)
+    k = cmy.min(axis=-1, keepdims=True)
+    return (255 - np.concatenate([cmy - k, k], axis=-1)).astype(np.uint8)
+
+
+def write_jpeg_pages() -> None:
+    import io
+
+    import chip_smoke
+    from scripts import format_variants as fv
+    shutil.rmtree(JPEG_OUT, ignore_errors=True)
+    os.makedirs(os.path.join(JPEG_OUT, "page"))
+    pages, _, layouts = chip_smoke.synthetic_newspaper(5, *SHAPE, seed=JPEG_SEED)
+    colour = [np.asarray(pixels(p, "colour")) for p in pages]
+    buf = io.BytesIO()
+    Image.fromarray(colour[2]).save(buf, format="JPEG", quality=75, progressive=True)
+    full = [("cmyk_adobe", fv.jpeg_bytes(cmyk_of(colour[0]), quality=50)),
+            ("ycck", fv.jpeg_bytes(cmyk_of(colour[1]), colorspace="ycck", quality=50,
+                                   sampling=[(2, 2), (1, 1), (1, 1), (2, 2)])),
+            ("arith_progressive", fv.jpeg_transcode(buf.getvalue(), progressive=True)),
+            ("lossless_grey", fv.jpeg_bytes(pages[3], lossless=(6, 0), restart_rows=16)),
+            ("smoothed_progressive", fv.jpeg_bytes(colour[4], quality=75, progressive=True,
+                                                   scans=fv.SMOOTHING_SCRIPTS["final-al"]))]
+    total = 0
+    for (name, data), page, regions in zip(full, pages, layouts):
+        path = os.path.join(JPEG_OUT, f"{name}.jpg")
+        with open(path, "wb") as f:
+            f.write(data)
+        h, w = page.shape
+        chip_smoke.write_layout_xml(os.path.join(JPEG_OUT, "page", f"{name}.xml"),
+                                    os.path.basename(path), h, w, regions)
+        # PIL 12.1 fails on arithmetic-coded files over 64 KiB: their
+        # digests are libjpeg-turbo's own decode of the whole file
+        arith = name == "arith_progressive"
+        rec = record(path, ("L", "RGB"), fv.libjpeg_decode(data) if arith else None)
+        if arith:
+            rec["oracle"] = "libjpeg-turbo of pillow.libs, whole file in memory"
+        with open(os.path.join(JPEG_OUT, f"{name}.json"), "w") as f:
+            json.dump(rec, f, indent=1)
+            f.write("\n")
+        total += len(data)
+        print(f"{os.path.relpath(path, REPO)}: {len(data)} bytes")
+    print(f"full-size JPEG pages {total} bytes")
 
 
 if __name__ == "__main__":

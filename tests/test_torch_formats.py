@@ -3,10 +3,11 @@ through ``utils/io.py``) against PIL, on images PIL writes here.
 
 ``load_image(path, "L")`` and ``load_image(path, "RGB")`` equal
 ``np.asarray(Image.open(path).convert(mode))`` bit for bit, and
-``image_size`` equals ``Image.open(path).size``. Every JPEG variant the
-decoder does not take raises ``UnsupportedImageFormat`` naming it; the TIFF
-variants it once refused now equal PIL too (more PNM, PNG and TIFF variants
-are in ``tests/test_torch_formats_variants.py``).
+``image_size`` equals ``Image.open(path).size``. Every JPEG variant PIL
+refuses raises ``UnsupportedImageFormat`` naming it; the JPEG and TIFF
+variants the decoder once refused now equal PIL too (more PNM, PNG and TIFF
+variants are in ``tests/test_torch_formats_variants.py``, more JPEG
+variants in ``tests/test_torch_formats_jpeg_variants.py``).
 """
 import io as _io
 import os
@@ -258,6 +259,9 @@ def _twelve_bit_jpeg(p):
 
 
 def _arithmetic_jpeg(p):
+    """A baseline file's Huffman-coded data under an arithmetic frame
+    header: libjpeg decodes it as arithmetic-coded data, whatever comes
+    out, and so does the port."""
     buf = _io.BytesIO()
     Image.fromarray(_page(16, 16, 1, False)).save(buf, format="JPEG")
     data = bytearray(buf.getvalue())
@@ -285,33 +289,45 @@ def _smoothed_progressive(p):
     open(p, "wb").write(data[:sos[2]] + b"\xff\xd9")
 
 
+# JPEG variants PIL refuses (more in tests/test_torch_formats_jpeg_variants.py)
 UNSUPPORTED = [
-    ("cmyk_jpeg", _cmyk_jpeg, "CMYK"),
     ("twelve_bit_jpeg", _twelve_bit_jpeg, "12-bit"),
-    ("arithmetic_jpeg", _arithmetic_jpeg, "arithmetic"),
     ("lossless_jpeg", _lossless_jpeg, "lossless"),
-    ("smoothed_progressive_jpeg", _smoothed_progressive, "block smoothing"),
 ]
 
 
 @pytest.mark.parametrize("kind,make,word", UNSUPPORTED, ids=[u[0] for u in UNSUPPORTED])
 def test_unsupported_variants_raise_by_name(tmp_path, kind, make, word):
+    """A 12-bit frame header (PIL refuses it when opening) and a lossless
+    frame header over DCT scans (PIL opens it and libjpeg refuses the
+    scan's predictor 0): the port raises by name, and ``image_size`` gives
+    PIL's size where PIL opens the file."""
     p = str(tmp_path / f"{kind}.img")
     make(p)
+    with pytest.raises(Exception):
+        with Image.open(p) as im:
+            im.load()
     with pytest.raises(tio.UnsupportedImageFormat, match=word):
         tio.load_image(p, "L")
-    if kind != "smoothed_progressive_jpeg":     # only the scans show that one
+    if kind == "twelve_bit_jpeg":
         with pytest.raises(tio.UnsupportedImageFormat, match=word):
             tio.image_size(p)
+    else:
+        with Image.open(p) as im:
+            assert tio.image_size(p) == im.size
 
 
 def _fill_order_2(p):
     _tiff_image("1", 16, 24, 1).save(p, format="TIFF", tiffinfo={266: 2})
 
 
-# TIFF variants the decoder once refused and now reads as PIL does
-# (tests/test_torch_formats_variants.py holds many more, written by libtiff)
+# variants the decoder once refused and now reads as PIL does
+# (tests/test_torch_formats_variants.py and
+# tests/test_torch_formats_jpeg_variants.py hold many more)
 FORMER_REFUSALS = [
+    ("cmyk_jpeg", _cmyk_jpeg),
+    ("arithmetic_jpeg", _arithmetic_jpeg),
+    ("smoothed_progressive_jpeg", _smoothed_progressive),
     ("group3_tiff", _group3_tiff),
     ("tiff16", _tiff16),
     ("planar2_tiff", _planar2),
@@ -324,7 +340,7 @@ FORMER_REFUSALS = [
 
 @pytest.mark.parametrize("kind,make", FORMER_REFUSALS, ids=[f[0] for f in FORMER_REFUSALS])
 def test_former_refusals_equal_pil(tmp_path, kind, make):
-    p = str(tmp_path / f"{kind}.tif")
+    p = str(tmp_path / f"{kind}.img")
     make(p)
     _check_equal(p)
 

@@ -3,7 +3,9 @@ numpy; the JAX package (and this test) with PIL. ``load_image`` must equal
 PIL's ``convert("L")`` / ``convert("RGB")`` exactly on every supported PNG
 colour type, and refuse the formats it does not take by name (JPEG and
 TIFF decoding is tested in ``tests/test_torch_formats.py``, the PNM, PNG
-and TIFF variants in ``tests/test_torch_formats_variants.py``)."""
+and TIFF variants in ``tests/test_torch_formats_variants.py``, the JPEG
+variants in ``tests/test_torch_formats_jpeg_variants.py``, BMP and GIF in
+``tests/test_torch_formats_bmp_gif.py``)."""
 import os
 
 import numpy as np
@@ -146,27 +148,29 @@ def test_save_png_roundtrip_and_pil_reads_it(tmp_path):
             tio.load_image(p, "L" if arr.ndim == 2 else "RGB"), arr)
 
 
-@pytest.mark.parametrize("kind,word", [("cmyk_jpeg", "CMYK"), ("bmp", "BMP")])
+@pytest.mark.parametrize("kind,word", [("webp", "WebP"), ("jpeg2000", "JPEG 2000")])
 def test_unsupported_formats_raise_by_name(tmp_path, kind, word):
     im = Image.fromarray(_pixels(11, 1)[..., 0], "L")
     p = str(tmp_path / f"x_{kind}.img")
-    if kind == "cmyk_jpeg":
-        im.convert("CMYK").save(p, format="JPEG")
-    else:
-        im.save(p, format="BMP")
+    im.save(p, format="WEBP" if kind == "webp" else "JPEG2000")
     with pytest.raises(tio.UnsupportedImageFormat, match=word):
         tio.load_image(p, "L")
     with pytest.raises(tio.UnsupportedImageFormat, match=word):
         tio.image_size(p)
 
 
-@pytest.mark.parametrize("kind", ["group3_tiff", "interlaced", "png16"])
+@pytest.mark.parametrize("kind", ["group3_tiff", "interlaced", "png16", "cmyk_jpeg", "bmp"])
 def test_former_refusals_equal_pil(tmp_path, kind):
     """Variants the port once refused by name, now decoded as PIL decodes
-    them: a Group 3 TIFF, an Adam7 PNG and a 16-bit grey PNG."""
+    them: a Group 3 TIFF, an Adam7 PNG, a 16-bit grey PNG, a CMYK JPEG and
+    a BMP."""
     grey = _pixels(11, 1)[..., 0]
     p = str(tmp_path / f"x_{kind}.img")
-    if kind == "group3_tiff":
+    if kind == "cmyk_jpeg":
+        Image.fromarray(grey, "L").convert("CMYK").save(p, format="JPEG")
+    elif kind == "bmp":
+        Image.fromarray(grey, "L").save(p, format="BMP")
+    elif kind == "group3_tiff":
         Image.fromarray(grey, "L").convert("1").save(p, format="TIFF", compression="group3")
     elif kind == "png16":
         Image.fromarray(grey.astype(np.uint16) * 257).save(p, format="PNG")
