@@ -95,16 +95,18 @@ result):
    with equal dbscan labels; ``gk_calc_metric`` equal to the numpy path to
    1e-9. The port's ``run_measure`` against GT from the drawn layout
    prints AS R/P/F (not gated);
-11. variants: the PNM, PNG, TIFF, JPEG, BMP and GIF variants of the host
-   decoders. Every small fixture of
-   ``tests/data/torch_formats_variants/small`` (234 files: ASCII and
+11. variants: the PNM, PNG, TIFF, JPEG, BMP, GIF and WebP variants of the
+   host decoders. Every small fixture of
+   ``tests/data/torch_formats_variants/small`` (303 files: ASCII and
    16-bit PNM, PNG at every colour type and depth with and without Adam7,
    TIFF with CCITT modified Huffman / Group 3, FillOrder 2, 2- to 32-bit
    and float samples, both predictors, planar layouts, CMYK, JPEG-in-TIFF,
    old-style JPEG, YCbCr under LZW / Deflate / PackBits, BigTIFF; JPEG in
    CMYK / YCCK, arithmetic-coded, lossless, block-smoothed progressive and
    4:4:0; BMP of every header, depth, RLE and bitfields layout; GIF
-   interlaced or not, with global / local tables and transparency;
+   interlaced or not, with global / local tables and transparency; WebP
+   lossy at every loop filter, partition and segment setting, with ALPH
+   alpha under each filter, lossless, VP8X and animated;
    ``scripts/make_format_fixtures.py``) decodes to PIL's recorded size and
    "L" and "RGB" digests. Ten 2000 x 1420 pages: an Adam7 PNG and a
    16-bit PNG (holding the 8-bit values) written from the newspaper
@@ -120,10 +122,12 @@ result):
    variant's ``_clustering.xml`` equal to its twin's (``LastChange`` and
    ``imageFilename`` blanked), K1 69 x 2 and K2 one launch per group, an
    article id on every line. A PBM (P4) page, an RLE8 BMP page and an
-   interlaced GIF page, each beside its twin, through the separator CLI
-   (they do not reach the workflow's page lookup): equal pages, K1 69 and
-   K2 1 per group. The host decode ms per page (median of 3) is printed
-   beside each twin's;
+   interlaced GIF page and the committed lossy, lossless and alpha WebP
+   pages (``tests/data/torch_formats_webp``, each at PIL's "L" and "RGB"
+   digests), each beside its twin, through the separator CLI (they do not
+   reach the workflow's page lookup): equal pages, K1 69 and K2 1 per
+   group. The host decode ms per page (median of 3) is printed beside each
+   twin's;
 12. blind: the JAX package's three blind article-quality oracles on the
    card: their pages (``tests/data/torch_blind``, made by
    ``scripts/make_blind_fixtures.py``: one multi-article page, two hard
@@ -250,6 +254,7 @@ FORMATS_DIR = os.path.join(REPO, "tests", "data", "torch_formats")
 FORMATS_METRIC_PAGES = 2                    # pages whose measure the numpy path redoes
 VARIANTS_DIR = os.path.join(REPO, "tests", "data", "torch_formats_variants")
 JPEG_VARIANTS_DIR = os.path.join(REPO, "tests", "data", "torch_formats_jpeg")
+WEBP_DIR = os.path.join(REPO, "tests", "data", "torch_formats_webp")
 BLIND_DIR = os.path.join(REPO, "tests", "data", "torch_blind")
 # the train phase: the JAX trainer's default batch and crop; drawn pages of
 # 1000 x 710 (the crops need 512 in both directions)
@@ -1718,11 +1723,11 @@ def phase_formats(dev):
 
 
 def phase_variants(dev):
-    """The PNM, PNG, TIFF, JPEG, BMP and GIF variants: the committed small
-    variant fixtures against PIL's recorded digests, full-size pages of the
-    variants through the pipelined workflow beside 8-bit PNG twins of the
-    same decoded pixels, and PBM, BMP and GIF pages through the separator
-    CLI."""
+    """The PNM, PNG, TIFF, JPEG, BMP, GIF and WebP variants: the committed
+    small variant fixtures against PIL's recorded digests, full-size pages
+    of the variants through the pipelined workflow beside 8-bit PNG twins of
+    the same decoded pixels, and PBM, BMP, GIF and WebP pages through the
+    separator CLI."""
     import glob
     import hashlib
 
@@ -1738,6 +1743,16 @@ def phase_variants(dev):
     def digest(arr):
         return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
 
+    def load(p):
+        port_io._IMAGE_CACHE.clear()
+        return port_io.load_image(p, "L")
+
+    def decode_row(path, twin):
+        """Host decode ms of a page (median of 3) beside its PNG twin's."""
+        return {"ms": _median_ms(lambda: load(path)),
+                "png_twin_ms": _median_ms(lambda: load(twin)),
+                "bytes": os.path.getsize(path), "png_twin_bytes": os.path.getsize(twin)}
+
     # 1. every small variant decodes to PIL's size and "L" / "RGB" bytes
     with open(os.path.join(VARIANTS_DIR, "small", "small.json")) as f:
         small = json.load(f)
@@ -1751,7 +1766,7 @@ def phase_variants(dev):
             check(digest(port_io.load_image(path, mode)) == rec[f"sha256_{mode}"],
                   f"variants: {rec['file']} decodes to other {mode} pixels than PIL's")
     kinds = sorted({rec["file"].split("_")[0] for rec in small})
-    check({"bmp", "gif", "jpeg"} <= set(kinds), f"variants: small fixtures of {kinds}")
+    check({"bmp", "gif", "jpeg", "webp"} <= set(kinds), f"variants: small fixtures of {kinds}")
     print(f"variants: all {len(small)} small {' / '.join(kinds)} variants decode to PIL's "
           "size and 'L' and 'RGB' digests")
 
@@ -1814,14 +1829,7 @@ def phase_variants(dev):
             port_io.save_png(twin, grey)
             shutil.copy(os.path.join(root, "page", f"{stem}.xml"),
                         os.path.join(root, "page", f"twin_{stem}.xml"))
-
-            def load(p):
-                port_io._IMAGE_CACHE.clear()
-                return port_io.load_image(p, "L")
-            decode_ms[name] = {"ms": _median_ms(lambda: load(path)),
-                               "png_twin_ms": _median_ms(lambda: load(twin)),
-                               "bytes": os.path.getsize(path),
-                               "png_twin_bytes": os.path.getsize(twin)}
+            decode_ms[name] = decode_row(path, twin)
             paths += [path, twin]
         print(f"variants: the {len(variants)} full-size pages decode to their oracles; host "
               "decode ms per page (median of 3) beside the PNG twin's " + json.dumps(decode_ms))
@@ -1875,15 +1883,33 @@ def phase_variants(dev):
             shutil.copy(os.path.join(root, "page", f"{stem}.xml"),
                         os.path.join(root, "page", f"twin_{stem}.xml"))
             if not name.endswith(".pbm"):
-
-                def load(p):
-                    port_io._IMAGE_CACHE.clear()
-                    return port_io.load_image(p, "L")
-                decode_ms[name] = {"ms": _median_ms(lambda: load(path)),
-                                   "png_twin_ms": _median_ms(lambda: load(twin)),
-                                   "bytes": os.path.getsize(path),
-                                   "png_twin_bytes": os.path.getsize(twin)}
+                decode_ms[name] = decode_row(path, twin)
             cli_paths += [path, twin]
+        # the committed full-size WebP pages (lossy, lossless, lossy with a
+        # filtered VP8L alpha plane), held to PIL's recorded "L" and "RGB"
+        # digests, through the same CLI run
+        webp_names = []
+        for rec_path in sorted(glob.glob(os.path.join(WEBP_DIR, "*.json"))):
+            with open(rec_path) as f:
+                rec = json.load(f)
+            name, stem = rec["file"], os.path.splitext(rec["file"])[0]
+            path = os.path.join(root, name)
+            shutil.copy(os.path.join(WEBP_DIR, name), path)
+            check(port_io.image_size(path) == PAGE_SHAPE[::-1],
+                  f"variants: {name} size {port_io.image_size(path)}")
+            for mode in ("L", "RGB"):
+                port_io._IMAGE_CACHE.clear()
+                check(digest(port_io.load_image(path, mode)) == rec[f"sha256_{mode}"],
+                      f"variants: the {name} page decodes to other {mode} pixels than PIL's")
+            twin = os.path.join(root, f"twin_{stem}.png")
+            port_io.save_png(twin, port_io.load_image(path, "L"))
+            for s in (stem, f"twin_{stem}"):
+                shutil.copy(os.path.join(WEBP_DIR, "page", f"{stem}.xml"),
+                            os.path.join(root, "page", f"{s}.xml"))
+            decode_ms[name] = decode_row(path, twin)
+            webp_names.append(name)
+            cli_paths += [path, twin]
+        check(len(webp_names) == 3, f"variants: {len(webp_names)} WebP pages, want 3")
         image_list = os.path.join(root, "cli.lst")
         with open(image_list, "w") as f:
             f.write("".join(f"{p}\n" for p in cli_paths))
@@ -1899,15 +1925,17 @@ def phase_variants(dev):
         check(cli_launches == {"conv3x3": 69 * groups, "separator_morphology": groups},
               f"variants: separator CLI launches {cli_launches}, want K1 69 and K2 1 per "
               f"group of {groups}")
-        for name, _, _, _ in cli_pages:
+        for name in [p[0] for p in cli_pages] + webp_names:
             path = os.path.join(root, name)
             twin = os.path.join(root, f"twin_{os.path.splitext(name)[0]}.png")
             check(_normalised_xml(port_io.get_page_path(path) + ".xml")
                   == _normalised_xml(port_io.get_page_path(twin) + ".xml"),
                   f"variants: the separator's page of {name} differs from its PNG twin's")
-        print("variants: the separator CLI's pages of the PBM, BMP and GIF equal their PNG "
-              f"twins', launches {json.dumps(cli_launches)}; host decode ms "
-              + json.dumps({k: decode_ms[k] for k in ("rle8.bmp", "interlaced.gif")}))
+        print("variants: the separator CLI's pages of the PBM, BMP, GIF and the three WebP "
+              f"pages equal their PNG twins', launches {json.dumps(cli_launches)}; host "
+              "decode ms per page (median of 3) beside the PNG twin's "
+              + json.dumps({k: decode_ms[k]
+                            for k in ["rle8.bmp", "interlaced.gif"] + webp_names}))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"launches": {k: launches[k] + cli_launches[k]
@@ -3468,8 +3496,8 @@ def main() -> int:
     # TIFF fixtures (separator and heading; each counted from 0 just before
     # its run); ``launches_variants``: the pipelined workflow's over the ten
     # full-size variant pages and their PNG twins (20 pages, 5 groups: K1
-    # 69 x 2 x 5, K2 5) plus the separator CLI's over the PBM, BMP and GIF
-    # pages and their twins (6 pages, 2 groups: K1 69 x 2, K2 2);
+    # 69 x 2 x 5, K2 5) plus the separator CLI's over the PBM, BMP, GIF and
+    # three WebP pages and their twins (12 pages, 3 groups: K1 69 x 3, K2 3);
     # ``launches_blind``: the three blind-quality bf16
     # workflow runs' (one group per page size: K1 69 x 2 and K2 1 per group,
     # 4 groups in all; each run counted from 0 just before it);

@@ -27,7 +27,11 @@ bit to ``np.asarray(Image.open(path).convert(mode))`` under PIL 12.1:
 - BMP (OS/2 and Windows headers, 1- to 32-bit samples, RLE8 / RLE4,
   bitfields) and the first frame of a GIF (LZW, interlaced or not, global
   or local colour table, transparency) as PIL reads them
-  (``utils/bmp_gif.py``, its RLE and LZW in the same C++ library).
+  (``utils/bmp_gif.py``, its RLE and LZW in the same C++ library);
+- WebP (lossy VP8 with libwebp's loop filters and upsampler, lossless VP8L,
+  ALPH alpha, the extended VP8X format, the first frame of an animation)
+  as PIL reads it through libwebp (``utils/webp.py``, host C++
+  ``csrc/webp_decode.cpp``).
 
 One deliberate difference: an arithmetic-coded JPEG over 64 KiB, which PIL
 12.1 fails on (it feeds libjpeg 64 KiB at a time, and the arithmetic
@@ -43,7 +47,7 @@ baseline JPEG (:func:`save_jpeg`, host C++ ``csrc/image_encode.cpp``);
 :func:`resize_bilinear` is PIL's bilinear resize.
 
 Everything else raises :class:`UnsupportedImageFormat` naming the variant:
-WebP and JPEG 2000; JPEG of another precision than 8 bits, with 2
+JPEG 2000 and other RIFF files than WebP; a WebP file PIL refuses; JPEG of another precision than 8 bits, with 2
 components, hierarchical, arithmetic-coded lossless or with a DNL marker
 (PIL or libjpeg-turbo refuse them all); JPEG- or PNG-in-BMP and the BMP
 headers, depths and bitfields layouts PIL refuses; old-style
@@ -64,7 +68,7 @@ from typing import List
 
 import numpy as np
 
-from citlab_as_tpu_torch.utils import bmp_gif, image_encode_native, image_native
+from citlab_as_tpu_torch.utils import bmp_gif, image_encode_native, image_native, webp
 
 _IMG_ENDINGS = ("tif", "jpg", "png")
 
@@ -103,19 +107,25 @@ class UnsupportedImageFormat(ValueError):
     """The file is not an image format this package decodes."""
 
 
-_SUPPORTED = "PNG, PNM, .npy, 8-bit JPEG (Huffman, arithmetic, lossless), TIFF, BMP, GIF"
+_SUPPORTED = ("PNG, PNM, .npy, 8-bit JPEG (Huffman, arithmetic, lossless), TIFF, BMP, GIF, "
+              "WebP")
 
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _NATIVE_MAGICS = (b"\xff\xd8", b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
-_MAGICS = ((b"\x00\x00\x00\x0cjP", "JPEG 2000"), (b"RIFF", "WebP/RIFF"))
+_MAGICS = ((b"\x00\x00\x00\x0cjP", "JPEG 2000"),)
 
 
 def _format_name(head: bytes, path: str) -> str:
     for magic, name in _MAGICS:
         if head.startswith(magic):
             return name
+    if head.startswith(b"RIFF"):
+        if head[8:12] == b"WEBP":
+            return (f"WebP whose first chunk is {head[12:16]!r} (PIL opens 'VP8 ', 'VP8L' "
+                    "and 'VP8X')")
+        return "RIFF, not WebP"
     ext = os.path.splitext(path)[1]
     return f"unknown ({ext or 'no extension'})"
 
@@ -426,6 +436,8 @@ def _decode(path: str, mode: str = "L") -> np.ndarray:
         return _native(image_native.decode, data, path)
     if bmp_gif.is_bmp(data) or bmp_gif.is_gif(data):
         return _native(lambda d: bmp_gif.decode(d, mode), data, path)
+    if webp.is_webp(data):
+        return _native(webp.decode, data, path)
     raise UnsupportedImageFormat(
         f"{path}: image format {_format_name(data[:16], path)} is not "
         f"supported ({_SUPPORTED})")
@@ -496,6 +508,8 @@ def image_size(path_to_image: str):
             return w, h
         if bmp_gif.is_bmp(head) or bmp_gif.is_gif(head):
             return _native(bmp_gif.size, head + f.read(), path_to_image)
+        if webp.is_webp(head):
+            return _native(webp.size, head + f.read(), path_to_image)
     raise UnsupportedImageFormat(
         f"{path_to_image}: image format {_format_name(head, path_to_image)} "
         f"is not supported ({_SUPPORTED})")

@@ -12,8 +12,12 @@ codec, predictor, fill order, planar layout and byte order PIL reads back;
 JPEG through Pillow's libjpeg-turbo and a small C layer over its API
 (``scripts/jpeg_test_encoder.c``, built with gcc), which writes CMYK /
 YCCK, arithmetic coding, lossless predictors, any sampling factors and scan
-script. Only the TIFF and JPEG writers need PIL (for its libraries);
-nothing here is imported by the port.
+script; WebP through Pillow's libwebp and a small C layer over its encoder
+(``scripts/webp_test_encoder.c``, built with gcc), which sets the loop
+filter, partitions, segments and alpha coding PIL's save hides, with the
+extended and animated containers and ALPH chunks written byte by byte
+around its frames. Only the TIFF, JPEG and WebP writers need PIL (for its
+libraries); nothing here is imported by the port.
 """
 from __future__ import annotations
 
@@ -652,7 +656,14 @@ def small_variants():
             p, bmp_bytes(**make(np.random.RandomState(len(name)))))))
     for name, make in GIF_VARIANTS.items():
         out.append((f"gif_{name}.gif", lambda p, make=make: _write_bytes(p, gif_bytes(**make()))))
+    out += webp_small_variants()
     return out
+
+
+def webp_small_variants():
+    """[(file name, write(path))] of every WebP variant of the catalog."""
+    return [(f"webp_{name}.webp", lambda p, make=make: _write_bytes(p, make()))
+            for name, make in WEBP_VARIANTS.items()]
 
 
 def _write_bytes(path, data):
@@ -1163,3 +1174,369 @@ JPEG_REFUSED = {
     "lossless-sof3-over-dct-scans": (lambda: patch_sof(_baseline_grey(), 0xC3),
                                      "lossless scan parameters"),
 }
+
+
+# ------------------------------------------------------------------ WebP
+
+@functools.cache
+def webp_encoder() -> ctypes.CDLL:
+    """``scripts/webp_test_encoder.c`` built with gcc (into ``build/``,
+    keyed by the source's hash) against the libwebp Pillow bundles, which
+    is loaded first so that the helper's calls resolve to it."""
+    import hashlib
+    import subprocess
+    import tempfile
+
+    import PIL
+    from PIL import Image  # noqa: F401
+    root = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+    ctypes.CDLL(glob.glob(os.path.join(root, "libsharpyuv-*.so*"))[0], mode=ctypes.RTLD_GLOBAL)
+    ctypes.CDLL(glob.glob(os.path.join(root, "libwebp-*.so*"))[0], mode=ctypes.RTLD_GLOBAL)
+    src = os.path.join(REPO, "scripts", "webp_test_encoder.c")
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    out_dir = os.path.join(REPO, "build", "test_encoders")
+    so = os.path.join(out_dir, f"webp_test_encoder_{tag}.so")
+    if not os.path.exists(so):
+        os.makedirs(out_dir, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        subprocess.run([os.environ.get("CC", "gcc"), "-O1", "-shared", "-fPIC", src, "-o", tmp],
+                       check=True)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    ptr = ctypes.c_void_p
+    lib.wenc_encode.argtypes = [ptr, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr,
+                                ctypes.POINTER(ptr), ctypes.POINTER(ctypes.c_size_t)]
+    lib.wenc_free.argtypes = [ptr]
+    return lib
+
+
+WEBP_OPTIONS = ("quality", "method", "filter_type", "filter_strength", "filter_sharpness",
+                "partitions", "segments", "sns_strength", "alpha_compression",
+                "alpha_filtering", "alpha_quality", "exact", "near_lossless", "image_hint")
+
+
+def webp_bytes(samples, lossless=False, **options):
+    """A WebP of ``samples`` ([h, w] grey, [h, w, 3] RGB or [h, w, 4] RGBA
+    uint8; an alpha of all 255 is written as none) by Pillow's libwebp,
+    with the ``WEBP_OPTIONS`` of its WebPConfig (``quality`` a float)."""
+    px = np.ascontiguousarray(samples, np.uint8)
+    if px.ndim == 2:
+        px = np.repeat(px[..., None], 3, axis=-1)
+    if px.shape[2] == 3:
+        px = np.concatenate([px, np.full(px.shape[:2] + (1,), 255, np.uint8)], axis=-1)
+    px = np.ascontiguousarray(px)
+    unknown = set(options) - set(WEBP_OPTIONS)
+    if unknown:
+        raise ValueError(f"unknown WebP options {sorted(unknown)}")
+    opts = [-1] * len(WEBP_OPTIONS)
+    for name, value in options.items():
+        if name == "quality":
+            value = round(value * 100)
+        opts[WEBP_OPTIONS.index(name)] = int(value)
+    arr = (ctypes.c_int * len(opts))(*opts)
+    out, size = ctypes.c_void_p(), ctypes.c_size_t()
+    lib = webp_encoder()
+    h, w = px.shape[:2]
+    rc = lib.wenc_encode(px.ctypes.data, w, h, int(lossless), ctypes.cast(arr, ctypes.c_void_p),
+                         ctypes.byref(out), ctypes.byref(size))
+    if rc:
+        raise ValueError(f"WebPEncode failed ({rc})")
+    data = ctypes.string_at(out, size.value)
+    lib.wenc_free(out)
+    return data
+
+
+def webp_chunk(tag: bytes, payload: bytes) -> bytes:
+    """One RIFF chunk, padded to an even size."""
+    return tag + struct.pack("<I", len(payload)) + payload + b"\0" * (len(payload) & 1)
+
+
+def riff_webp(*chunks: bytes) -> bytes:
+    body = b"WEBP" + b"".join(chunks)
+    return b"RIFF" + struct.pack("<I", len(body)) + body
+
+
+def webp_chunks(data: bytes):
+    """[(tag, payload)] of a WebP file's top-level chunks."""
+    out, pos = [], 12
+    while pos + 8 <= len(data):
+        tag, n = data[pos:pos + 4], struct.unpack_from("<I", data, pos + 4)[0]
+        out.append((tag, data[pos + 8:pos + 8 + n]))
+        pos += 8 + n + (n & 1)
+    return out
+
+
+def webp_image_chunk(data: bytes) -> bytes:
+    """The "VP8 " or "VP8L" chunk of an encoder's file, header included."""
+    for tag, payload in webp_chunks(data):
+        if tag in (b"VP8 ", b"VP8L"):
+            return webp_chunk(tag, payload)
+    raise ValueError("no image chunk")
+
+
+# VP8X feature flags
+WEBP_ANIMATION, WEBP_XMP, WEBP_EXIF, WEBP_ALPHA, WEBP_ICCP = 0x02, 0x04, 0x08, 0x10, 0x20
+
+
+def vp8x_chunk(flags, w, h):
+    return webp_chunk(b"VP8X", bytes([flags, 0, 0, 0]) + struct.pack("<I", w - 1)[:3]
+                      + struct.pack("<I", h - 1)[:3])
+
+
+def alpha_filter(alpha, method):
+    """libwebp's forward alpha filters (0 none, 1 horizontal, 2 vertical,
+    3 gradient): the first row is predicted from its left neighbour (0
+    before the first pixel), the first column from the pixel above."""
+    a = alpha.astype(np.int32)
+    pred = np.zeros_like(a)
+    pred[0, 1:] = a[0, :-1]
+    pred[1:, 0] = a[:-1, 0]
+    if method == 1:
+        pred[1:, 1:] = a[1:, :-1]
+    elif method == 2:
+        pred[1:, 1:] = a[:-1, 1:]
+    elif method == 3:
+        pred[1:, 1:] = np.clip(a[1:, :-1] + a[:-1, 1:] - a[:-1, :-1], 0, 255)
+    if method == 0:
+        pred[:] = 0
+    return ((a - pred) & 255).astype(np.uint8)
+
+
+def alph_chunk(alpha, compression, method, pre_processing=0):
+    """An ALPH chunk of ``alpha`` ([h, w] uint8) written byte by byte:
+    raw (0) or VP8L-compressed (1, a lossless picture whose green channel
+    holds the filtered plane, its 5-byte VP8L header cut) under filter
+    ``method``."""
+    deltas = alpha_filter(alpha, method)
+    if compression == 0:
+        body = deltas.tobytes()
+    else:
+        vp8l = webp_image_chunk(webp_bytes(deltas, lossless=True, exact=1))
+        n = struct.unpack_from("<I", vp8l, 4)[0]
+        body = vp8l[8 + 5:8 + n]
+    return webp_chunk(b"ALPH", bytes([compression | method << 2 | pre_processing << 4]) + body)
+
+
+def anmf_chunk(x, y, w, h, frame: bytes):
+    """An animation frame at (x, y) (even offsets), 100 ms, holding
+    ``frame``'s ALPH / image chunks."""
+    le24 = [struct.pack("<I", v)[:3] for v in (x // 2, y // 2, w - 1, h - 1, 100)]
+    return webp_chunk(b"ANMF", b"".join(le24) + b"\0" + frame)
+
+
+def webp_source(h, w, kind, seed):
+    """Pixels of a test picture: "grey" (a page: paper with strokes and
+    noise), "colour" (ramps and noise), "alpha" (colour over a varying
+    alpha) or "palette-N" (N colours)."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    if kind == "grey":
+        px = 235 + rng.randint(0, 20, (h, w))
+        px[(yy // 3 + xx // 5) % 7 == 0] = 20 + rng.randint(0, 40)
+        return px.clip(0, 255).astype(np.uint8)
+    if kind.startswith("palette-"):
+        n = int(kind.split("-")[1])
+        colours = rng.randint(0, 256, (n, 3))
+        return colours[(yy * 7 + xx * 3 + rng.randint(0, 2, (h, w))) % n].astype(np.uint8)
+    base = (yy * 3 + xx * 5)[..., None] + 40 * np.arange(3)
+    px = ((base + rng.randint(0, 60, (h, w, 3))) % 256).astype(np.uint8)
+    if kind == "alpha":
+        alpha = ((yy * 255 // max(h - 1, 1) + rng.randint(0, 16, (h, w))) % 256)
+        alpha[: h // 3] = 255
+        return np.concatenate([px, alpha[..., None].astype(np.uint8)], axis=-1)
+    return px
+
+
+def _lossy_alpha(h, w, seed, compression, method, pre_processing=0):
+    """VP8X + a byte-written ALPH chunk + the encoder's VP8 frame."""
+    px = webp_source(h, w, "alpha", seed)
+    vp8 = webp_image_chunk(webp_bytes(px[..., :3], quality=75))
+    return riff_webp(vp8x_chunk(WEBP_ALPHA, w, h),
+                     alph_chunk(px[..., 3], compression, method, pre_processing), vp8)
+
+
+def _with_chunks(data, flags, before=(), after=()):
+    """A simple file re-wrapped as VP8X with extra chunks around its
+    image chunk."""
+    (w, h) = _webp_size(data)
+    return riff_webp(vp8x_chunk(flags, w, h), *before, webp_image_chunk(data), *after)
+
+
+def _webp_size(data):
+    from PIL import Image
+    import io
+    with Image.open(io.BytesIO(data)) as im:
+        return im.size
+
+
+def _animation(canvas, frames, flags=0):
+    """VP8X (animation) + ANIM (an opaque blue background, which PIL does
+    not paint) + ANMF chunks: ``frames`` of (x, y, file bytes of a still
+    frame, with_alpha)."""
+    cw, ch = canvas
+    anmfs = []
+    for x, y, data, alpha in frames:
+        w, h = _webp_size(data)
+        body = b"".join(webp_chunk(t, p) for t, p in webp_chunks(data)
+                        if t in (b"ALPH", b"VP8 ", b"VP8L") and (alpha or t != b"ALPH"))
+        anmfs.append(anmf_chunk(x, y, w, h, body))
+    return riff_webp(vp8x_chunk(WEBP_ANIMATION | flags, cw, ch),
+                     webp_chunk(b"ANIM", struct.pack("<IH", 0xff336699, 0)), *anmfs)
+
+
+def _w(h, w, kind, seed, lossless=False, **options):
+    return lambda: webp_bytes(webp_source(h, w, kind, seed), lossless, **options)
+
+
+WEBP_VARIANTS = {
+    # VP8 (lossy): sizes, quality, the loop filter, partitions, segments
+    "vp8-1x1": _w(1, 1, "colour", 1, quality=75),
+    "vp8-17x3": _w(3, 17, "colour", 2, quality=75),
+    "vp8-3x17-grey": _w(17, 3, "grey", 3, quality=75),
+    "vp8-33x47": _w(47, 33, "colour", 4, quality=75),
+    "vp8-q0": _w(45, 67, "colour", 5, quality=0),
+    "vp8-q100": _w(45, 67, "colour", 6, quality=100),
+    "vp8-grey-page": _w(61, 83, "grey", 7, quality=90),
+    "vp8-filter-simple": _w(45, 67, "colour", 8, quality=60, filter_type=0, filter_strength=80),
+    "vp8-filter-normal": _w(45, 67, "colour", 9, quality=60, filter_type=1, filter_strength=80),
+    "vp8-filter-none": _w(45, 67, "colour", 10, quality=60, filter_strength=0),
+    "vp8-sharpness-0": _w(45, 67, "grey", 11, quality=50, filter_type=1, filter_strength=60,
+                          filter_sharpness=0),
+    "vp8-sharpness-7": _w(45, 67, "grey", 12, quality=50, filter_type=1, filter_strength=60,
+                          filter_sharpness=7),
+    "vp8-simple-sharpness-5": _w(45, 67, "grey", 13, quality=40, filter_type=0,
+                                 filter_strength=100, filter_sharpness=5),
+    **{f"vp8-partitions-{1 << p}": _w(150, 70, "colour", 14 + p, quality=70, partitions=p)
+       for p in range(4)},
+    "vp8-segments-1": _w(64, 96, "colour", 18, quality=70, segments=1),
+    "vp8-segments-4-sns": _w(64, 96, "colour", 19, quality=70, segments=4, sns_strength=100),
+    "vp8-sns-0": _w(64, 96, "grey", 20, quality=70, sns_strength=0),
+    "vp8-method-0": _w(50, 70, "colour", 21, quality=80, method=0),
+    "vp8-method-6": _w(50, 70, "colour", 22, quality=80, method=6),
+    # lossy with alpha: ALPH raw and VP8L-compressed, each filter method
+    **{f"alph-raw-filter{m}": (lambda m=m: _lossy_alpha(35, 45, 30 + m, 0, m)) for m in range(4)},
+    **{f"alph-vp8l-filter{m}": (lambda m=m: _lossy_alpha(35, 45, 34 + m, 1, m))
+       for m in range(4)},
+    "alph-preprocessing-bit": lambda: _lossy_alpha(35, 45, 38, 1, 2, pre_processing=1),
+    "alph-encoder-default": _w(40, 50, "alpha", 39, quality=75),
+    "alph-encoder-best-filter": _w(40, 50, "alpha", 40, quality=75, alpha_filtering=2),
+    "alph-encoder-raw": _w(40, 50, "alpha", 41, quality=75, alpha_compression=0),
+    "alph-encoder-quality-30": _w(40, 50, "alpha", 42, quality=75, alpha_quality=30),
+    # VP8L (lossless)
+    "vp8l-1x1": _w(1, 1, "colour", 50, lossless=True),
+    "vp8l-17x3": _w(3, 17, "colour", 51, lossless=True),
+    "vp8l-method-0": _w(45, 67, "colour", 52, lossless=True, method=0),
+    "vp8l-method-6": _w(45, 67, "colour", 53, lossless=True, method=6, quality=100),
+    "vp8l-grey": _w(61, 83, "grey", 54, lossless=True),
+    "vp8l-alpha-exact": _w(40, 50, "alpha", 55, lossless=True, exact=1),
+    "vp8l-alpha": _w(40, 50, "alpha", 56, lossless=True),
+    "vp8l-near-lossless-60": _w(45, 67, "colour", 57, lossless=True, near_lossless=60),
+    **{f"vp8l-palette-{n}": _w(37, 53, f"palette-{n}", 58 + i, lossless=True)
+       for i, n in enumerate((2, 3, 4, 11, 16, 256))},
+    "vp8l-colours-300": _w(37, 53, "palette-300", 64, lossless=True),
+    **{f"vp8l-hint-{name}": _w(45, 67, "colour", 65 + i, lossless=True, image_hint=i + 1)
+       for i, name in enumerate(("picture", "photo", "graph"))},
+    # containers written around the encoder's frames
+    "vp8x-iccp-exif-xmp-unknown": lambda: _with_chunks(
+        webp_bytes(webp_source(33, 47, "colour", 70), quality=75),
+        WEBP_ICCP | WEBP_EXIF | WEBP_XMP,
+        before=(webp_chunk(b"ICCP", bytes(range(131))),),
+        after=(webp_chunk(b"EXIF", b"Exif\0\0MM\0*" + bytes(7)),
+               webp_chunk(b"XMP ", b"<x:xmpmeta xmlns:x='adobe:ns:meta/'/>"),
+               webp_chunk(b"ABCD", b"odd"))),
+    "vp8x-lossless": lambda: _with_chunks(
+        webp_bytes(webp_source(33, 47, "colour", 71), lossless=True), 0),
+    "vp8x-lossless-alpha": lambda: _with_chunks(
+        webp_bytes(webp_source(33, 47, "alpha", 72), lossless=True, exact=1), WEBP_ALPHA),
+    "vp8x-alph-without-alpha-flag": lambda: riff_webp(
+        *[c if not c.startswith(b"VP8X") else vp8x_chunk(0, 45, 35)
+          for c in _split_chunks(_lossy_alpha(35, 45, 73, 1, 1))]),
+    "vp8x-unknown-odd-chunks": lambda: _with_chunks(
+        webp_bytes(webp_source(29, 31, "grey", 74), quality=80), 0,
+        before=(webp_chunk(b"abcd", b"x"), webp_chunk(b"wxyz", b"12345")),
+        after=(webp_chunk(b"odd1", b"abc"),)),
+    "vp8x-vp8l-alpha-hint-without-flag": lambda: _with_chunks(
+        webp_bytes(webp_source(33, 47, "alpha", 82), lossless=True, exact=1), 0),
+    "vp8x-alpha-flag-opaque-vp8l": lambda: _with_chunks(
+        webp_bytes(webp_source(33, 47, "colour", 83), lossless=True), WEBP_ALPHA),
+    "vp8x-alpha-flag-without-alph": lambda: _with_chunks(
+        webp_bytes(webp_source(33, 47, "colour", 84), quality=70), WEBP_ALPHA),
+    # an ALPH chunk after the frame: ignored, and no "RGBA" mode (libwebp
+    # looks for alpha only before the frame of an extended file)
+    "simple-vp8-then-alph": lambda: riff_webp(
+        webp_image_chunk(webp_bytes(webp_source(29, 31, "colour", 85), quality=80)),
+        alph_chunk(np.full((29, 31), 200, np.uint8), 0, 0)),
+    "vp8x-vp8-then-alph-without-flag": lambda: riff_webp(
+        vp8x_chunk(0, 31, 29),
+        webp_image_chunk(webp_bytes(webp_source(29, 31, "colour", 86), quality=80)),
+        alph_chunk(np.full((29, 31), 200, np.uint8), 0, 0)),
+    "simple-trailing-chunk": lambda: riff_webp(
+        webp_image_chunk(webp_bytes(webp_source(29, 31, "colour", 75), quality=80)),
+        webp_chunk(b"EXIF", b"trailing")),
+    "trailing-bytes-after-riff": lambda: webp_bytes(webp_source(29, 31, "colour", 76),
+                                                    quality=80) + b"junk after the RIFF chunk",
+    "anim-first-frame-offset": lambda: _animation((60, 50), [
+        (6, 10, webp_bytes(webp_source(31, 41, "colour", 77), quality=80), False),
+        (0, 0, webp_bytes(webp_source(50, 60, "colour", 78), quality=80), False)]),
+    "anim-offset-alpha": lambda: _animation((64, 48), [
+        (8, 4, webp_bytes(webp_source(30, 40, "alpha", 79), quality=80), True)], WEBP_ALPHA),
+    "anim-lossless-offset": lambda: _animation((52, 44), [
+        (12, 2, webp_bytes(webp_source(33, 27, "colour", 80), lossless=True), False)]),
+    "anim-lossless-alpha-offset": lambda: _animation((52, 44), [
+        (2, 14, webp_bytes(webp_source(23, 37, "alpha", 81), lossless=True, exact=1), False)],
+        WEBP_ALPHA),
+}
+
+
+def _split_chunks(data):
+    return [webp_chunk(t, p) for t, p in webp_chunks(data)]
+
+
+def webp_refused(lossy: bytes, lossless: bytes):
+    """[(name, file bytes, a word of the port's refusal)]: hand-made header
+    faults, built from a simple lossy and a simple lossless file, that PIL
+    refuses too."""
+    vp8_at = lossy.index(b"VP8 ") + 8
+    vp8l_at = lossless.index(b"VP8L") + 8
+
+    def patch(data, at, new):
+        return data[:at] + new + data[at + len(new):]
+    w = (struct.unpack_from("<H", lossy, vp8_at + 6)[0] & 0x3fff)
+    h = (struct.unpack_from("<H", lossy, vp8_at + 8)[0] & 0x3fff)
+    wide = riff_webp(vp8x_chunk(0, w + 1, h), webp_image_chunk(lossy))
+    return [
+        ("bad-vp8-start-code", patch(lossy, vp8_at + 3, b"\x9d\x01\x2b"), "start code"),
+        ("bad-vp8l-signature", patch(lossless, vp8l_at, b"\x2e"), "signature"),
+        ("vp8-zero-width", patch(lossy, vp8_at + 6, b"\0\0"), "0 x"),
+        ("vp8-not-a-key-frame", patch(lossy, vp8_at, bytes([lossy[vp8_at] | 1])), "key frame"),
+        ("chunk-size-past-the-end", patch(lossy, vp8_at - 4, struct.pack("<I", len(lossy))),
+         "past the end"),
+        ("riff-size-past-the-end", patch(lossy, 4, struct.pack("<I", len(lossy))), "truncated"),
+        ("vp8x-canvas-not-frame-size", wide, "canvas"),
+        ("vp8x-reserved-flag", patch(riff_webp(vp8x_chunk(0, w, h), webp_image_chunk(lossy)),
+                                     20, b"\x01"), "reserved"),
+        ("vp8x-chunk-of-12-bytes", riff_webp(
+            webp_chunk(b"VP8X", vp8x_chunk(0, w, h)[8:] + b"\0\0"), webp_image_chunk(lossy)),
+         "VP8X chunk"),
+        ("binary-chunk-tag-past-the-end", riff_webp(
+            vp8x_chunk(0, w, h), webp_image_chunk(lossy),
+            b"\xa4\xff\x00\x01" + struct.pack("<I", 1000) + bytes(8)), "past the end"),
+        ("canvas-past-pils-pixel-limit", riff_webp(
+            vp8x_chunk(WEBP_ANIMATION, 16384, 16384),
+            webp_chunk(b"ANIM", struct.pack("<IH", 0, 0)),
+            anmf_chunk(0, 0, w, h, webp_image_chunk(lossy))), "decompression bomb"),
+        ("riff-wave", b"RIFF" + struct.pack("<I", 28) + b"WAVEfmt " + bytes(24),
+         "RIFF, not WebP"),
+        ("first-chunk-alph", riff_webp(webp_chunk(b"ALPH", b"\0" * 10),
+                                       webp_image_chunk(lossy)), "first chunk"),
+        ("alph-before-vp8l", riff_webp(vp8x_chunk(WEBP_ALPHA, *_vp8l_size(lossless)),
+                                       webp_chunk(b"ALPH", b"\0" * 10),
+                                       webp_image_chunk(lossless)), "ALPH"),
+    ]
+
+
+def _vp8l_size(data):
+    bits = struct.unpack_from("<I", data, data.index(b"VP8L") + 9)[0]
+    return (bits & 0x3fff) + 1, ((bits >> 14) & 0x3fff) + 1

@@ -36,10 +36,20 @@ and a progressive colour JPEG whose last scan leaves the low coefficients
 short (libjpeg block-smooths it), each with ``page/<name>.xml`` and
 ``<name>.json`` as above.
 
-Needs PIL (and, for the TIFF and JPEG variants, the libraries Pillow
+Then the WebP fixtures: ``--only webp`` rewrites just the ``webp_*``
+files of ``tests/data/torch_formats_variants/small/`` and their records in
+``small.json`` (a full ``variants`` run writes them too), and writes
+three full-size pages of the newspaper generator (seed ``WEBP_SEED``) into
+``tests/data/torch_formats_webp/``: a lossy colour page (quality 90, the
+normal loop filter, 4 token partitions, 4 segments), a lossless grey page
+and a lossy colour page with an alpha plane in a VP8L-compressed ALPH
+chunk under the gradient filter, each with ``page/<name>.xml`` and
+``<name>.json`` (PIL's "L" and "RGB" digests).
+
+Needs PIL (and, for the TIFF, JPEG and WebP variants, the libraries Pillow
 bundles, and gcc); run from the repository root:
 
-    python scripts/make_format_fixtures.py [--only formats variants jpeg]
+    python scripts/make_format_fixtures.py [--only formats variants jpeg webp]
 
 (the page XMLs get new timestamps on every run).
 """
@@ -58,9 +68,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OUT = os.path.join(REPO, "tests", "data", "torch_formats")
 VARIANTS_OUT = os.path.join(REPO, "tests", "data", "torch_formats_variants")
 JPEG_OUT = os.path.join(REPO, "tests", "data", "torch_formats_jpeg")
+WEBP_OUT = os.path.join(REPO, "tests", "data", "torch_formats_webp")
 SEED = 23
 VARIANT_SEED = 29
 JPEG_SEED = 37
+WEBP_SEED = 41
 SHAPE = (2000, 1420)
 # (name, file ending, pixels: "grey" | "colour" | "bilevel", PIL save options)
 FIXTURES = [
@@ -88,8 +100,8 @@ def pixels(page: np.ndarray, kind: str) -> Image.Image:
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", nargs="+", choices=("formats", "variants", "jpeg"),
-                        default=("formats", "variants", "jpeg"))
+    parser.add_argument("--only", nargs="+", choices=("formats", "variants", "jpeg", "webp"),
+                        default=("formats", "variants", "jpeg", "webp"))
     only = parser.parse_args().only
     sys.path.insert(0, REPO)
     if "formats" in only:
@@ -98,6 +110,10 @@ def main() -> int:
         write_variants()
     if "jpeg" in only:
         write_jpeg_pages()
+    if "webp" in only:
+        if "variants" not in only:
+            write_webp_small()
+        write_webp_pages()
     return 0
 
 
@@ -225,6 +241,63 @@ def write_jpeg_pages() -> None:
         total += len(data)
         print(f"{os.path.relpath(path, REPO)}: {len(data)} bytes")
     print(f"full-size JPEG pages {total} bytes")
+
+
+def write_webp_small() -> None:
+    """The ``webp_*`` small variants and their records, the rest of
+    ``small/`` left as it is."""
+    from scripts import format_variants as fv
+    small = os.path.join(VARIANTS_OUT, "small")
+    with open(os.path.join(small, "small.json")) as f:
+        records = [r for r in json.load(f) if not r["file"].startswith("webp_")]
+    for stale in os.listdir(small):
+        if stale.startswith("webp_"):
+            os.remove(os.path.join(small, stale))
+    for name, write in fv.webp_small_variants():
+        path = os.path.join(small, name)
+        write(path)
+        records.append(record(path, ("L", "RGB")))
+    with open(os.path.join(small, "small.json"), "w") as f:
+        json.dump(records, f, indent=0)
+        f.write("\n")
+    print(f"{len(fv.WEBP_VARIANTS)} small WebP variants")
+
+
+def webp_alpha(h: int, w: int) -> np.ndarray:
+    """An alpha plane for a page: opaque paper, the margins fading out."""
+    yy, xx = np.mgrid[0:h, 0:w]
+    edge = np.minimum(np.minimum(yy, h - 1 - yy), np.minimum(xx, w - 1 - xx))
+    return np.clip(90 + edge * 3, 0, 255).astype(np.uint8)
+
+
+def write_webp_pages() -> None:
+    import chip_smoke
+    from scripts import format_variants as fv
+    shutil.rmtree(WEBP_OUT, ignore_errors=True)
+    os.makedirs(os.path.join(WEBP_OUT, "page"))
+    pages, _, layouts = chip_smoke.synthetic_newspaper(3, *SHAPE, seed=WEBP_SEED)
+    colour = [np.asarray(pixels(p, "colour")) for p in pages]
+    h, w = SHAPE
+    full = [("lossy_q90", fv.webp_bytes(colour[0], quality=90, filter_type=1, partitions=2,
+                                        segments=4)),
+            ("lossless", fv.webp_bytes(pages[1], lossless=True)),
+            ("lossy_alpha", fv.riff_webp(
+                fv.vp8x_chunk(fv.WEBP_ALPHA, w, h),
+                fv.alph_chunk(webp_alpha(h, w), compression=1, method=3),
+                fv.webp_image_chunk(fv.webp_bytes(colour[2], quality=90))))]
+    total = 0
+    for (name, data), page, regions in zip(full, pages, layouts):
+        path = os.path.join(WEBP_OUT, f"{name}.webp")
+        with open(path, "wb") as f:
+            f.write(data)
+        chip_smoke.write_layout_xml(os.path.join(WEBP_OUT, "page", f"{name}.xml"),
+                                    os.path.basename(path), h, w, regions)
+        with open(os.path.join(WEBP_OUT, f"{name}.json"), "w") as f:
+            json.dump(record(path, ("L", "RGB")), f, indent=1)
+            f.write("\n")
+        total += len(data)
+        print(f"{os.path.relpath(path, REPO)}: {len(data)} bytes")
+    print(f"full-size WebP pages {total} bytes")
 
 
 if __name__ == "__main__":

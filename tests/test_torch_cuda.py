@@ -726,3 +726,56 @@ def test_jpeg_variant_pages_through_the_separator_on_the_card(cuda, tmp_path):
         return re.sub(rb'imageFilename="[^"]*"', b"", data)
     for path, twin in zip(images[::2], images[1::2]):
         assert b"SeparatorRegion" in written(path) and written(path) == written(twin), path
+
+
+@pytest.mark.cuda
+def test_webp_pages_through_the_separator_on_the_card(cuda, tmp_path):
+    """The committed full-size WebP pages (lossy with the normal loop filter,
+    4 partitions and 4 segments; lossless; lossy with a filtered
+    VP8L-compressed alpha plane; ``tests/data/torch_formats_webp``) decode on
+    the card's machine to their recorded "L" and "RGB" digests (PIL's), and
+    the separator stage on the card writes for each the PAGE-XML it writes
+    for the page's PNG twin, with K1 69 and K2 one launch per group of 4."""
+    import hashlib
+    import json
+    import os
+    import re
+    import shutil
+    from citlab_as_tpu_torch.inference import SegmentationPredictor
+    from citlab_as_tpu_torch.stages.separator import SeparatorNetPostProcessor
+    from citlab_as_tpu_torch.utils import io as tio
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    src = os.path.join(repo, "tests", "data", "torch_formats_webp")
+    os.makedirs(tmp_path / "page")
+    images = []
+    for name in sorted(os.listdir(src)):
+        if not name.endswith(".json"):
+            continue
+        with open(os.path.join(src, name)) as f:
+            rec = json.load(f)
+        stem = os.path.splitext(rec["file"])[0]
+        path, twin = str(tmp_path / rec["file"]), str(tmp_path / f"twin_{stem}.png")
+        shutil.copy(os.path.join(src, rec["file"]), path)
+        for mode in ("L", "RGB"):
+            tio._IMAGE_CACHE.clear()
+            assert hashlib.sha256(np.ascontiguousarray(tio.load_image(path, mode)).tobytes()
+                                  ).hexdigest() == rec[f"sha256_{mode}"], (path, mode)
+        tio.save_png(twin, tio.load_image(path, "L"))
+        for s in (stem, f"twin_{stem}"):
+            shutil.copy(os.path.join(src, "page", f"{stem}.xml"), tmp_path / "page" / f"{s}.xml")
+        images += [path, twin]
+    assert len(images) == 6
+    pred = SegmentationPredictor(os.path.join(repo, "models_ckpt_torch", "separator.npz"),
+                                 dtype=torch.bfloat16, device=cuda)
+    tio._IMAGE_CACHE.clear()
+    k1.launches = 0
+    k2.launches = 0
+    SeparatorNetPostProcessor(images, pred, fixed_height=1500).run_batched_fused(4)
+    assert (k1.launches, k2.launches) == (69 * 2, 2)
+
+    def written(image):
+        with open(tio.get_page_path(image) + ".xml", "rb") as f:
+            data = re.sub(rb"<LastChange>[^<]*</LastChange>", b"", f.read())
+        return re.sub(rb'imageFilename="[^"]*"', b"", data)
+    for path, twin in zip(images[::2], images[1::2]):
+        assert b"SeparatorRegion" in written(path) and written(path) == written(twin), path

@@ -5,7 +5,8 @@ colour type, and refuse the formats it does not take by name (JPEG and
 TIFF decoding is tested in ``tests/test_torch_formats.py``, the PNM, PNG
 and TIFF variants in ``tests/test_torch_formats_variants.py``, the JPEG
 variants in ``tests/test_torch_formats_jpeg_variants.py``, BMP and GIF in
-``tests/test_torch_formats_bmp_gif.py``)."""
+``tests/test_torch_formats_bmp_gif.py``, WebP in
+``tests/test_torch_formats_webp.py``)."""
 import os
 
 import numpy as np
@@ -148,25 +149,33 @@ def test_save_png_roundtrip_and_pil_reads_it(tmp_path):
             tio.load_image(p, "L" if arr.ndim == 2 else "RGB"), arr)
 
 
-@pytest.mark.parametrize("kind,word", [("webp", "WebP"), ("jpeg2000", "JPEG 2000")])
+@pytest.mark.parametrize("kind,word", [("riff", "RIFF, not WebP"), ("jpeg2000", "JPEG 2000")])
 def test_unsupported_formats_raise_by_name(tmp_path, kind, word):
-    im = Image.fromarray(_pixels(11, 1)[..., 0], "L")
     p = str(tmp_path / f"x_{kind}.img")
-    im.save(p, format="WEBP" if kind == "webp" else "JPEG2000")
+    if kind == "riff":     # a RIFF file of another form than WebP: a WAVE header
+        import struct
+        with open(p, "wb") as f:
+            f.write(b"RIFF" + struct.pack("<I", 36) + b"WAVEfmt " + struct.pack(
+                "<IHHIIHH", 16, 1, 1, 8000, 8000, 1, 8) + b"data" + struct.pack("<I", 0))
+    else:
+        Image.fromarray(_pixels(11, 1)[..., 0], "L").save(p, format="JPEG2000")
     with pytest.raises(tio.UnsupportedImageFormat, match=word):
         tio.load_image(p, "L")
     with pytest.raises(tio.UnsupportedImageFormat, match=word):
         tio.image_size(p)
 
 
-@pytest.mark.parametrize("kind", ["group3_tiff", "interlaced", "png16", "cmyk_jpeg", "bmp"])
+@pytest.mark.parametrize("kind", ["group3_tiff", "interlaced", "png16", "cmyk_jpeg", "bmp",
+                                  "webp"])
 def test_former_refusals_equal_pil(tmp_path, kind):
     """Variants the port once refused by name, now decoded as PIL decodes
-    them: a Group 3 TIFF, an Adam7 PNG, a 16-bit grey PNG, a CMYK JPEG and
-    a BMP."""
+    them: a Group 3 TIFF, an Adam7 PNG, a 16-bit grey PNG, a CMYK JPEG, a
+    BMP and PIL's own lossy WebP."""
     grey = _pixels(11, 1)[..., 0]
     p = str(tmp_path / f"x_{kind}.img")
-    if kind == "cmyk_jpeg":
+    if kind == "webp":
+        Image.fromarray(grey, "L").save(p, format="WEBP")
+    elif kind == "cmyk_jpeg":
         Image.fromarray(grey, "L").convert("CMYK").save(p, format="JPEG")
     elif kind == "bmp":
         Image.fromarray(grey, "L").save(p, format="BMP")
