@@ -95,9 +95,9 @@ result):
    with equal dbscan labels; ``gk_calc_metric`` equal to the numpy path to
    1e-9. The port's ``run_measure`` against GT from the drawn layout
    prints AS R/P/F (not gated);
-11. variants: the PNM, PNG, TIFF, JPEG, BMP, GIF and WebP variants of the
-   host decoders. Every small fixture of
-   ``tests/data/torch_formats_variants/small`` (303 files: ASCII and
+11. variants: the PNM, PNG, TIFF, JPEG, BMP, GIF, WebP and JPEG 2000
+   variants of the host decoders. Every small fixture of
+   ``tests/data/torch_formats_variants/small`` (379 files: ASCII and
    16-bit PNM, PNG at every colour type and depth with and without Adam7,
    TIFF with CCITT modified Huffman / Group 3, FillOrder 2, 2- to 32-bit
    and float samples, both predictors, planar layouts, CMYK, JPEG-in-TIFF,
@@ -106,7 +106,10 @@ result):
    4:4:0; BMP of every header, depth, RLE and bitfields layout; GIF
    interlaced or not, with global / local tables and transparency; WebP
    lossy at every loop filter, partition and segment setting, with ALPH
-   alpha under each filter, lossless, VP8X and animated;
+   alpha under each filter, lossless, VP8X and animated; JPEG 2000 as JP2,
+   JPX and raw codestreams in every progression order, with POC, tiles and
+   tile-parts, every code-block style, SOP / EPH, PPM / PPT / PLT / PLM /
+   TLM, ROI, 1- to 16-bit, signed and subsampled components, palettes;
    ``scripts/make_format_fixtures.py``) decodes to PIL's recorded size and
    "L" and "RGB" digests. Ten 2000 x 1420 pages: an Adam7 PNG and a
    16-bit PNG (holding the 8-bit values) written from the newspaper
@@ -122,11 +125,13 @@ result):
    variant's ``_clustering.xml`` equal to its twin's (``LastChange`` and
    ``imageFilename`` blanked), K1 69 x 2 and K2 one launch per group, an
    article id on every line. A PBM (P4) page, an RLE8 BMP page and an
-   interlaced GIF page and the committed lossy, lossless and alpha WebP
-   pages (``tests/data/torch_formats_webp``, each at PIL's "L" and "RGB"
-   digests), each beside its twin, through the separator CLI (they do not
-   reach the workflow's page lookup): equal pages, K1 69 and K2 1 per
-   group. The host decode ms per page (median of 3) is printed beside each
+   interlaced GIF page, the committed lossy, lossless and alpha WebP
+   pages (``tests/data/torch_formats_webp``) and the committed lossy 9/7
+   RPCL-tiled, lossless 5/3 and lossy ICT colour JPEG 2000 pages
+   (``tests/data/torch_formats_jpeg2000``), each at PIL's "L" and "RGB"
+   digests and beside its twin, through the separator CLI (18 pages; they
+   do not reach the workflow's page lookup): equal pages, K1 69 and K2 1
+   per group. The host decode ms per page (median of 3) is printed beside each
    twin's;
 12. blind: the JAX package's three blind article-quality oracles on the
    card: their pages (``tests/data/torch_blind``, made by
@@ -255,6 +260,7 @@ FORMATS_METRIC_PAGES = 2                    # pages whose measure the numpy path
 VARIANTS_DIR = os.path.join(REPO, "tests", "data", "torch_formats_variants")
 JPEG_VARIANTS_DIR = os.path.join(REPO, "tests", "data", "torch_formats_jpeg")
 WEBP_DIR = os.path.join(REPO, "tests", "data", "torch_formats_webp")
+JPEG2000_DIR = os.path.join(REPO, "tests", "data", "torch_formats_jpeg2000")
 BLIND_DIR = os.path.join(REPO, "tests", "data", "torch_blind")
 # the train phase: the JAX trainer's default batch and crop; drawn pages of
 # 1000 x 710 (the crops need 512 in both directions)
@@ -1723,11 +1729,11 @@ def phase_formats(dev):
 
 
 def phase_variants(dev):
-    """The PNM, PNG, TIFF, JPEG, BMP, GIF and WebP variants: the committed
-    small variant fixtures against PIL's recorded digests, full-size pages
-    of the variants through the pipelined workflow beside 8-bit PNG twins of
-    the same decoded pixels, and PBM, BMP, GIF and WebP pages through the
-    separator CLI."""
+    """The PNM, PNG, TIFF, JPEG, BMP, GIF, WebP and JPEG 2000 variants: the
+    committed small variant fixtures against PIL's recorded digests,
+    full-size pages of the variants through the pipelined workflow beside
+    8-bit PNG twins of the same decoded pixels, and PBM, BMP, GIF, WebP and
+    JPEG 2000 pages through the separator CLI."""
     import glob
     import hashlib
 
@@ -1766,7 +1772,8 @@ def phase_variants(dev):
             check(digest(port_io.load_image(path, mode)) == rec[f"sha256_{mode}"],
                   f"variants: {rec['file']} decodes to other {mode} pixels than PIL's")
     kinds = sorted({rec["file"].split("_")[0] for rec in small})
-    check({"bmp", "gif", "jpeg", "webp"} <= set(kinds), f"variants: small fixtures of {kinds}")
+    check({"bmp", "gif", "jpeg", "webp", "jpeg2000"} <= set(kinds),
+          f"variants: small fixtures of {kinds}")
     print(f"variants: all {len(small)} small {' / '.join(kinds)} variants decode to PIL's "
           "size and 'L' and 'RGB' digests")
 
@@ -1886,30 +1893,35 @@ def phase_variants(dev):
                 decode_ms[name] = decode_row(path, twin)
             cli_paths += [path, twin]
         # the committed full-size WebP pages (lossy, lossless, lossy with a
-        # filtered VP8L alpha plane), held to PIL's recorded "L" and "RGB"
-        # digests, through the same CLI run
-        webp_names = []
-        for rec_path in sorted(glob.glob(os.path.join(WEBP_DIR, "*.json"))):
-            with open(rec_path) as f:
-                rec = json.load(f)
-            name, stem = rec["file"], os.path.splitext(rec["file"])[0]
-            path = os.path.join(root, name)
-            shutil.copy(os.path.join(WEBP_DIR, name), path)
-            check(port_io.image_size(path) == PAGE_SHAPE[::-1],
-                  f"variants: {name} size {port_io.image_size(path)}")
-            for mode in ("L", "RGB"):
-                port_io._IMAGE_CACHE.clear()
-                check(digest(port_io.load_image(path, mode)) == rec[f"sha256_{mode}"],
-                      f"variants: the {name} page decodes to other {mode} pixels than PIL's")
-            twin = os.path.join(root, f"twin_{stem}.png")
-            port_io.save_png(twin, port_io.load_image(path, "L"))
-            for s in (stem, f"twin_{stem}"):
-                shutil.copy(os.path.join(WEBP_DIR, "page", f"{stem}.xml"),
-                            os.path.join(root, "page", f"{s}.xml"))
-            decode_ms[name] = decode_row(path, twin)
-            webp_names.append(name)
-            cli_paths += [path, twin]
+        # filtered VP8L alpha plane) and JPEG 2000 pages (lossy 9/7 RPCL
+        # tiles with PLT, lossless 5/3, lossy colour with the ICT), held to
+        # PIL's recorded "L" and "RGB" digests, through the same CLI run
+        webp_names, jpeg2000_names = [], []
+        for pages_dir, names in ((WEBP_DIR, webp_names), (JPEG2000_DIR, jpeg2000_names)):
+            for rec_path in sorted(glob.glob(os.path.join(pages_dir, "*.json"))):
+                with open(rec_path) as f:
+                    rec = json.load(f)
+                name, stem = rec["file"], os.path.splitext(rec["file"])[0]
+                path = os.path.join(root, name)
+                shutil.copy(os.path.join(pages_dir, name), path)
+                check(port_io.image_size(path) == PAGE_SHAPE[::-1],
+                      f"variants: {name} size {port_io.image_size(path)}")
+                for mode in ("L", "RGB"):
+                    port_io._IMAGE_CACHE.clear()
+                    check(digest(port_io.load_image(path, mode)) == rec[f"sha256_{mode}"],
+                          f"variants: the {name} page decodes to other {mode} pixels than "
+                          "PIL's")
+                twin = os.path.join(root, f"twin_{stem}.png")
+                port_io.save_png(twin, port_io.load_image(path, "L"))
+                for s in (stem, f"twin_{stem}"):
+                    shutil.copy(os.path.join(pages_dir, "page", f"{stem}.xml"),
+                                os.path.join(root, "page", f"{s}.xml"))
+                decode_ms[name] = decode_row(path, twin)
+                names.append(name)
+                cli_paths += [path, twin]
         check(len(webp_names) == 3, f"variants: {len(webp_names)} WebP pages, want 3")
+        check(len(jpeg2000_names) == 3,
+              f"variants: {len(jpeg2000_names)} JPEG 2000 pages, want 3")
         image_list = os.path.join(root, "cli.lst")
         with open(image_list, "w") as f:
             f.write("".join(f"{p}\n" for p in cli_paths))
@@ -1925,17 +1937,18 @@ def phase_variants(dev):
         check(cli_launches == {"conv3x3": 69 * groups, "separator_morphology": groups},
               f"variants: separator CLI launches {cli_launches}, want K1 69 and K2 1 per "
               f"group of {groups}")
-        for name in [p[0] for p in cli_pages] + webp_names:
+        for name in [p[0] for p in cli_pages] + webp_names + jpeg2000_names:
             path = os.path.join(root, name)
             twin = os.path.join(root, f"twin_{os.path.splitext(name)[0]}.png")
             check(_normalised_xml(port_io.get_page_path(path) + ".xml")
                   == _normalised_xml(port_io.get_page_path(twin) + ".xml"),
                   f"variants: the separator's page of {name} differs from its PNG twin's")
-        print("variants: the separator CLI's pages of the PBM, BMP, GIF and the three WebP "
-              f"pages equal their PNG twins', launches {json.dumps(cli_launches)}; host "
-              "decode ms per page (median of 3) beside the PNG twin's "
-              + json.dumps({k: decode_ms[k]
-                            for k in ["rle8.bmp", "interlaced.gif"] + webp_names}))
+        print("variants: the separator CLI's pages of the PBM, BMP, GIF, the three WebP and "
+              "the three JPEG 2000 pages equal their PNG twins', launches "
+              f"{json.dumps(cli_launches)}; host decode ms per page (median of 3) beside "
+              "the PNG twin's " + json.dumps(
+                  {k: decode_ms[k]
+                   for k in ["rle8.bmp", "interlaced.gif"] + webp_names + jpeg2000_names}))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"launches": {k: launches[k] + cli_launches[k]
@@ -3496,8 +3509,9 @@ def main() -> int:
     # TIFF fixtures (separator and heading; each counted from 0 just before
     # its run); ``launches_variants``: the pipelined workflow's over the ten
     # full-size variant pages and their PNG twins (20 pages, 5 groups: K1
-    # 69 x 2 x 5, K2 5) plus the separator CLI's over the PBM, BMP, GIF and
-    # three WebP pages and their twins (12 pages, 3 groups: K1 69 x 3, K2 3);
+    # 69 x 2 x 5, K2 5) plus the separator CLI's over the PBM, BMP, GIF,
+    # three WebP and three JPEG 2000 pages and their twins (18 pages, 5
+    # groups: K1 69 x 5, K2 5);
     # ``launches_blind``: the three blind-quality bf16
     # workflow runs' (one group per page size: K1 69 x 2 and K2 1 per group,
     # 4 groups in all; each run counted from 0 just before it);

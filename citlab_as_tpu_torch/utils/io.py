@@ -31,7 +31,12 @@ bit to ``np.asarray(Image.open(path).convert(mode))`` under PIL 12.1:
 - WebP (lossy VP8 with libwebp's loop filters and upsampler, lossless VP8L,
   ALPH alpha, the extended VP8X format, the first frame of an animation)
   as PIL reads it through libwebp (``utils/webp.py``, host C++
-  ``csrc/webp_decode.cpp``).
+  ``csrc/webp_decode.cpp``);
+- JPEG 2000 (JP2, JPX and raw J2K codestreams: every progression order,
+  tiles and tile-parts, PPM / PPT, every code-block style, ROI, the 5/3 and
+  9/7 wavelets, RCT / ICT; grey, "I;16", LA, RGB(A), CMYK, sYCC, palette)
+  as PIL reads it through OpenJPEG (``utils/jpeg2000.py``, host C++
+  ``csrc/jpeg2000_decode.cpp``).
 
 One deliberate difference: an arithmetic-coded JPEG over 64 KiB, which PIL
 12.1 fails on (it feeds libjpeg 64 KiB at a time, and the arithmetic
@@ -47,7 +52,9 @@ baseline JPEG (:func:`save_jpeg`, host C++ ``csrc/image_encode.cpp``);
 :func:`resize_bilinear` is PIL's bilinear resize.
 
 Everything else raises :class:`UnsupportedImageFormat` naming the variant:
-JPEG 2000 and other RIFF files than WebP; a WebP file PIL refuses; JPEG of another precision than 8 bits, with 2
+other RIFF files than WebP; a WebP or JPEG 2000 file PIL refuses (and a
+JPEG 2000 file with high-throughput code-blocks or a Part 2
+multi-component transform, which no oracle file here holds); JPEG of another precision than 8 bits, with 2
 components, hierarchical, arithmetic-coded lossless or with a DNL marker
 (PIL or libjpeg-turbo refuse them all); JPEG- or PNG-in-BMP and the BMP
 headers, depths and bitfields layouts PIL refuses; old-style
@@ -68,7 +75,8 @@ from typing import List
 
 import numpy as np
 
-from citlab_as_tpu_torch.utils import bmp_gif, image_encode_native, image_native, webp
+from citlab_as_tpu_torch.utils import (bmp_gif, image_encode_native, image_native, jpeg2000,
+                                       webp)
 
 _IMG_ENDINGS = ("tif", "jpg", "png")
 
@@ -108,19 +116,19 @@ class UnsupportedImageFormat(ValueError):
 
 
 _SUPPORTED = ("PNG, PNM, .npy, 8-bit JPEG (Huffman, arithmetic, lossless), TIFF, BMP, GIF, "
-              "WebP")
+              "WebP, JPEG 2000")
 
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
 _NATIVE_MAGICS = (b"\xff\xd8", b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
-_MAGICS = ((b"\x00\x00\x00\x0cjP", "JPEG 2000"),)
 
 
 def _format_name(head: bytes, path: str) -> str:
-    for magic, name in _MAGICS:
-        if head.startswith(magic):
-            return name
+    if head.startswith(b"\x00\x00\x00\x0cjP"):
+        return "JPEG 2000 whose signature box is malformed (PIL refuses it)"
+    if head.startswith(b"\xff\x4f"):
+        return "JPEG 2000 codestream whose SOC is not followed by SIZ (PIL refuses it)"
     if head.startswith(b"RIFF"):
         if head[8:12] == b"WEBP":
             return (f"WebP whose first chunk is {head[12:16]!r} (PIL opens 'VP8 ', 'VP8L' "
@@ -438,6 +446,8 @@ def _decode(path: str, mode: str = "L") -> np.ndarray:
         return _native(lambda d: bmp_gif.decode(d, mode), data, path)
     if webp.is_webp(data):
         return _native(webp.decode, data, path)
+    if jpeg2000.is_jpeg2000(data):
+        return _native(lambda d: jpeg2000.decode(d, mode), data, path)
     raise UnsupportedImageFormat(
         f"{path}: image format {_format_name(data[:16], path)} is not "
         f"supported ({_SUPPORTED})")
@@ -510,6 +520,8 @@ def image_size(path_to_image: str):
             return _native(bmp_gif.size, head + f.read(), path_to_image)
         if webp.is_webp(head):
             return _native(webp.size, head + f.read(), path_to_image)
+        if jpeg2000.is_jpeg2000(head):
+            return _native(jpeg2000.size, head + f.read(), path_to_image)
     raise UnsupportedImageFormat(
         f"{path_to_image}: image format {_format_name(head, path_to_image)} "
         f"is not supported ({_SUPPORTED})")

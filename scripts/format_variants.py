@@ -16,8 +16,15 @@ script; WebP through Pillow's libwebp and a small C layer over its encoder
 (``scripts/webp_test_encoder.c``, built with gcc), which sets the loop
 filter, partitions, segments and alpha coding PIL's save hides, with the
 extended and animated containers and ALPH chunks written byte by byte
-around its frames. Only the TIFF, JPEG and WebP writers need PIL (for its
-libraries); nothing here is imported by the port.
+around its frames; JPEG 2000 through Pillow's libopenjp2 and a small C
+layer over its compressor (``scripts/jpeg2000_test_encoder.c``, built with
+gcc), which sets the code-block styles, SOP / EPH, ROI, subsampling,
+precisions, signs, progression order changes and tile-parts PIL's save
+hides, with PPM / PPT / PLM markers, interleaved tile-parts and the JP2
+boxes OpenJPEG does not write (pclr, cmap, cdef, res, ICC colr, unknown
+boxes, JPX branding) rewritten byte by byte around its codestreams. Only
+the TIFF, JPEG, WebP and JPEG 2000 writers need PIL (for its libraries);
+nothing here is imported by the port.
 """
 from __future__ import annotations
 
@@ -657,6 +664,7 @@ def small_variants():
     for name, make in GIF_VARIANTS.items():
         out.append((f"gif_{name}.gif", lambda p, make=make: _write_bytes(p, gif_bytes(**make()))))
     out += webp_small_variants()
+    out += jpeg2000_small_variants()
     return out
 
 
@@ -1540,3 +1548,604 @@ def webp_refused(lossy: bytes, lossless: bytes):
 def _vp8l_size(data):
     bits = struct.unpack_from("<I", data, data.index(b"VP8L") + 9)[0]
     return (bits & 0x3fff) + 1, ((bits >> 14) & 0x3fff) + 1
+
+
+# ------------------------------------------------------------------ JPEG 2000
+
+@functools.cache
+def jpeg2000_encoder() -> ctypes.CDLL:
+    """``scripts/jpeg2000_test_encoder.c`` built with gcc (into ``build/``,
+    keyed by the source's hash) against the libopenjp2 Pillow bundles,
+    which is loaded first so that the helper's calls resolve to it; the
+    offsets of ``CPARAM_INTS`` are checked against the library's defaults."""
+    import hashlib
+    import subprocess
+    import tempfile
+
+    import PIL
+    from PIL import Image  # noqa: F401
+    root = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
+    opj = ctypes.CDLL(glob.glob(os.path.join(root, "libopenjp2-*.so*"))[0],
+                      mode=ctypes.RTLD_GLOBAL)
+    defaults = (ctypes.c_int32 * (CPARAM_SIZE // 4))()
+    opj.opj_set_default_encoder_parameters(defaults)
+    for name, want in (("numresolution", 6), ("cblockw_init", 64), ("cblockh_init", 64),
+                       ("roi_compno", -1), ("mode", 0), ("irreversible", 0)):
+        if defaults[CPARAM_INTS[name]] != want:
+            raise RuntimeError(f"opj_cparameters_t.{name} is not at int "
+                               f"{CPARAM_INTS[name]} in this libopenjp2")
+    src = os.path.join(REPO, "scripts", "jpeg2000_test_encoder.c")
+    with open(src, "rb") as f:
+        tag = hashlib.sha256(f.read()).hexdigest()[:16]
+    out_dir = os.path.join(REPO, "build", "test_encoders")
+    so = os.path.join(out_dir, f"jpeg2000_test_encoder_{tag}.so")
+    if not os.path.exists(so):
+        os.makedirs(out_dir, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
+        os.close(fd)
+        subprocess.run([os.environ.get("CC", "gcc"), "-O1", "-shared", "-fPIC", src, "-o", tmp],
+                       check=True)
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(so)
+    ptr = ctypes.c_void_p
+    lib.jenc_encode.argtypes = [ptr, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+                                ctypes.c_uint32, ctypes.c_int, ptr, ctypes.c_int, ctypes.c_int,
+                                ptr, ctypes.c_int, ptr, ctypes.c_int, ptr, ctypes.POINTER(ptr),
+                                ctypes.POINTER(ctypes.c_size_t)]
+    lib.jenc_error.restype = ctypes.c_char_p
+    lib.jenc_free.argtypes = [ptr]
+    return lib
+
+
+# OpenJPEG 2.5's opj_cparameters_t: its size and the int offsets of the
+# fields set here (each opj_poc_t of POC[32] is 37 ints), and the byte
+# offsets of its char fields
+CPARAM_SIZE = 18720
+CPARAM_INTS = {"tile_size_on": 0, "cp_tx0": 1, "cp_ty0": 2, "cp_tdx": 3, "cp_tdy": 4,
+               "cp_disto_alloc": 5, "cp_fixed_quality": 7, "csty": 12, "prog_order": 13,
+               "POC": 14, "numpocs": 1198, "tcp_numlayers": 1199, "tcp_rates": 1200,
+               "tcp_distoratio": 1300, "numresolution": 1400, "cblockw_init": 1401,
+               "cblockh_init": 1402, "mode": 1403, "irreversible": 1404, "roi_compno": 1405,
+               "roi_shift": 1406, "res_spec": 1407, "prcw_init": 1408, "prch_init": 1441}
+CPARAM_BYTES = {"tp_on": 18696, "tp_flag": 18697, "tcp_mct": 18698}
+POC_INTS, POC_FIELDS = 37, {"resno0": 0, "compno0": 1, "layno1": 2, "resno1": 3, "compno1": 4,
+                            "prg1": 8, "tile": 12}
+PROGRESSIONS = ("LRCP", "RLCP", "RPCL", "PCRL", "CPRL")
+CBLK_STYLES = {"bypass": 1, "reset": 2, "termall": 4, "vsc": 8, "pterm": 16, "segsym": 32}
+COLOR_SPACES = {"unspecified": 0, "srgb": 1, "grey": 2, "sycc": 3, "cmyk": 5}
+
+
+def _f32_bits(v):
+    return struct.unpack("<i", struct.pack("<f", v))[0]
+
+
+def jpeg2000_bytes(planes, *, dxdy=None, precision=8, signed=False, offset=(0, 0), jp2=False,
+                   color_space="unspecified", levels=5, cblk=(64, 64), styles=(), sop=False,
+                   eph=False, irreversible=False, rates=None, psnr=None, progression="LRCP",
+                   pocs=(), tile=None, tile_offset=(0, 0), precincts=None, mct=False,
+                   roi=None, tile_parts=None, plt=False, tlm=False):
+    """A JPEG 2000 codestream (or JP2 file) of ``planes`` (one int array per
+    component, each of its component's size) by Pillow's libopenjp2, with
+    the settings PIL's save hides: per-component subsampling ``dxdy``,
+    ``precision`` and ``signed`` (a value or one per component), the
+    code-block ``styles`` (names of ``CBLK_STYLES``), SOP / EPH markers,
+    the ROI ``(component, shift)``, precinct sizes (one (w, h) per
+    resolution, highest first), progression order changes ``pocs``
+    ((resno0, compno0, layno1, resno1, compno1, order) each), tile-parts
+    split by "R", "L" or "C", and PLT / TLM markers."""
+    nc = len(planes)
+    dxdy = dxdy or [(1, 1)] * nc
+    prec = precision if isinstance(precision, (list, tuple)) else [precision] * nc
+    sgnd = signed if isinstance(signed, (list, tuple)) else [signed] * nc
+    x0, y0 = offset
+    x1 = _grid_end([p.shape[1] for p in planes], [d[0] for d in dxdy], x0)
+    y1 = _grid_end([p.shape[0] for p in planes], [d[1] for d in dxdy], y0)
+    comps = []
+    for (dx, dy), p_, s in zip(dxdy, prec, sgnd):
+        comps += [dx, dy, p_, int(s)]
+    samples = np.concatenate([np.ascontiguousarray(p, np.int32).ravel() for p in planes])
+    ints = {"numresolution": levels + 1, "cblockw_init": cblk[0], "cblockh_init": cblk[1],
+            "mode": sum(CBLK_STYLES[s] for s in styles), "irreversible": int(irreversible),
+            "prog_order": PROGRESSIONS.index(progression),
+            "csty": (2 if sop else 0) | (4 if eph else 0) | (1 if precincts else 0)}
+    sets = list(ints.items())
+    if psnr:
+        sets += [("cp_fixed_quality", 1), ("tcp_numlayers", len(psnr))]
+        sets += [(CPARAM_INTS["tcp_distoratio"] + i, _f32_bits(v)) for i, v in enumerate(psnr)]
+    else:
+        rates = rates or [0]
+        sets += [("cp_disto_alloc", 1), ("tcp_numlayers", len(rates))]
+        sets += [(CPARAM_INTS["tcp_rates"] + i, _f32_bits(v)) for i, v in enumerate(rates)]
+    if tile:
+        sets += [("tile_size_on", 1), ("cp_tdx", tile[0]), ("cp_tdy", tile[1]),
+                 ("cp_tx0", tile_offset[0]), ("cp_ty0", tile_offset[1])]
+    if precincts:
+        sets += [("res_spec", len(precincts))]
+        sets += [(CPARAM_INTS["prcw_init"] + i, w) for i, (w, _) in enumerate(precincts)]
+        sets += [(CPARAM_INTS["prch_init"] + i, h) for i, (_, h) in enumerate(precincts)]
+    if roi:
+        sets += [("roi_compno", roi[0]), ("roi_shift", roi[1])]
+    for i, (r0, c0, l1, r1, c1, order) in enumerate(pocs):
+        base = CPARAM_INTS["POC"] + i * POC_INTS
+        for name, v in (("resno0", r0), ("compno0", c0), ("layno1", l1), ("resno1", r1),
+                        ("compno1", c1), ("prg1", PROGRESSIONS.index(order)), ("tile", 1)):
+            sets.append((base + POC_FIELDS[name], v))
+    if pocs:
+        sets.append(("numpocs", len(pocs)))
+    int_sets = [(CPARAM_INTS[k] if isinstance(k, str) else k, v) for k, v in sets]
+    byte_sets = [(CPARAM_BYTES["tcp_mct"], int(mct))]
+    if tile_parts:
+        byte_sets += [(CPARAM_BYTES["tp_on"], 1), (CPARAM_BYTES["tp_flag"], ord(tile_parts))]
+    extra = [o for o, on in (("PLT=YES", plt), ("TLM=YES", tlm)) if on]
+    lib = jpeg2000_encoder()
+    iarr = (ctypes.c_int * (2 * len(int_sets)))(*[v for pair in int_sets for v in pair])
+    barr = (ctypes.c_int * (2 * len(byte_sets)))(*[v for pair in byte_sets for v in pair])
+    carr = (ctypes.c_int * len(comps))(*comps)
+    earr = (ctypes.c_char_p * (len(extra) + 1))(*[o.encode() for o in extra], None)
+    out, size = ctypes.c_void_p(), ctypes.c_size_t()
+    rc = lib.jenc_encode(samples.ctypes.data, x0, y0, x1, y1, nc, ctypes.cast(carr, ctypes.c_void_p),
+                         COLOR_SPACES[color_space], int(jp2), ctypes.cast(iarr, ctypes.c_void_p),
+                         len(int_sets), ctypes.cast(barr, ctypes.c_void_p), len(byte_sets),
+                         ctypes.cast(earr, ctypes.c_void_p) if extra else None,
+                         ctypes.byref(out), ctypes.byref(size))
+    if rc:
+        raise ValueError(f"OpenJPEG's encoder failed ({rc}): {lib.jenc_error().decode().strip()}")
+    data = ctypes.string_at(out, size.value)
+    lib.jenc_free(out)
+    return data
+
+
+def _grid_end(sizes, steps, start):
+    """The smallest end of the reference grid from ``start`` whose
+    components, one sample every ``steps``, have ``sizes`` samples."""
+    lo = max((n + -(-start // d) - 1) * d + 1 for n, d in zip(sizes, steps))
+    hi = min((n + -(-start // d)) * d for n, d in zip(sizes, steps))
+    if lo > hi:
+        raise ValueError(f"no reference grid gives components of {sizes} samples")
+    return max(lo, start + 1)
+
+
+def j2k_parse(cs: bytes):
+    """A codestream as (main-header markers, tile-parts, tail): markers are
+    (code, body) pairs, each tile-part (Isot, TPsot, TNsot, header markers,
+    data), the tail whatever follows the last tile-part (EOC)."""
+    assert cs[:2] == b"\xff\x4f"
+    pos, main = 2, []
+    while cs[pos:pos + 2] != b"\xff\x90":
+        code, length = struct.unpack_from(">HH", cs, pos)
+        main.append((code, cs[pos + 4:pos + 2 + length]))
+        pos += 2 + length
+    parts = []
+    while cs[pos:pos + 2] == b"\xff\x90":
+        _, _, isot, psot, tpsot, tnsot = struct.unpack_from(">HHHIBB", cs, pos)
+        end = pos + psot
+        pos += 12
+        markers = []
+        while cs[pos:pos + 2] != b"\xff\x93":
+            code, length = struct.unpack_from(">HH", cs, pos)
+            markers.append((code, cs[pos + 4:pos + 2 + length]))
+            pos += 2 + length
+        parts.append((isot, tpsot, tnsot, markers, cs[pos + 2:end]))
+        pos = end
+    return main, parts, cs[pos:]
+
+
+def _marker(code: int, body: bytes) -> bytes:
+    return struct.pack(">HH", code, len(body) + 2) + body
+
+
+def j2k_build(main, parts, tail=b"\xff\xd9") -> bytes:
+    """The codestream of ``j2k_parse``'s pieces, each Psot recomputed."""
+    out = [b"\xff\x4f"] + [_marker(c, b) for c, b in main]
+    for isot, tpsot, tnsot, markers, data in parts:
+        header = b"".join(_marker(c, b) for c, b in markers)
+        psot = 12 + len(header) + 2 + len(data)
+        out.append(struct.pack(">HHHIBB", 0xff90, 10, isot, psot, tpsot, tnsot) + header
+                   + b"\xff\x93" + data)
+    return b"".join(out) + tail
+
+
+def plt_lengths(markers):
+    """The packet lengths of a tile-part's PLT markers."""
+    out, v = [], 0
+    for code, body in markers:
+        if code != 0xff58:
+            continue
+        for b in body[1:]:
+            v = (v << 7) | (b & 0x7f)
+            if not b & 0x80:
+                out.append(v)
+                v = 0
+    return out
+
+
+def _plt_body(index: int, lengths) -> bytes:
+    out = bytearray([index])
+    for n in lengths:
+        groups = []
+        while True:
+            groups.append(n & 0x7f)
+            n >>= 7
+            if not n:
+                break
+        for i, g in enumerate(reversed(groups)):
+            out.append(g | (0x80 if i < len(groups) - 1 else 0))
+    return bytes(out)
+
+
+def split_packets(data: bytes, lengths):
+    out, pos = [], 0
+    for n in lengths:
+        out.append(data[pos:pos + n])
+        pos += n
+    assert pos == len(data), (pos, len(data))
+    return out
+
+
+def packed_headers(cs: bytes, where: str) -> bytes:
+    """``cs`` (written with SOP, EPH and PLT markers, one tile) with its
+    packet headers moved into PPM markers of the main header (``where`` =
+    "ppm") or PPT markers of the tile-part headers ("ppt"): each packet's
+    header runs from after its SOP marker through its EPH marker. The tile
+    is split into two tile-parts, and the headers over two markers."""
+    main, parts, tail = j2k_parse(cs)
+    assert len(parts) == 1
+    isot, _, _, markers, data = parts[0]
+    packets = split_packets(data, plt_lengths(markers))
+    heads, bodies = [], []
+    for p in packets:
+        assert p[:2] == b"\xff\x91"
+        eph = p.index(b"\xff\x92", 6) + 2
+        heads.append(p[6:eph])
+        bodies.append(p[:6] + p[eph:])
+    half = len(packets) // 2
+    groups = [(0, half), (half, len(packets))]
+    new_parts = []
+    if where == "ppm":
+        ippm = b"".join(struct.pack(">I", sum(len(h) for h in heads[a:b]))
+                        + b"".join(heads[a:b]) for a, b in groups)
+        cut = len(ippm) // 2
+        main = main + [(0xff60, b"\x00" + ippm[:cut]), (0xff60, b"\x01" + ippm[cut:])]
+        for k, (a, b) in enumerate(groups):
+            new_parts.append((isot, k, 2, [], b"".join(bodies[a:b])))
+    else:
+        for k, (a, b) in enumerate(groups):
+            hs = b"".join(heads[a:b])
+            cut = len(hs) // 2
+            ppt = [(0xff61, bytes([2 * k]) + hs[:cut]), (0xff61, bytes([2 * k + 1]) + hs[cut:])]
+            new_parts.append((isot, k, 2, ppt, b"".join(bodies[a:b])))
+    return j2k_build(main, new_parts, tail)
+
+
+def interleaved_tile_parts(cs: bytes) -> bytes:
+    """``cs`` (written with tiles and PLT markers) with each tile split into
+    two tile-parts at a packet boundary, all first parts before all second
+    ones (TNsot 2, the second part's PLT dropped)."""
+    main, parts, tail = j2k_parse(cs)
+    first, second = [], []
+    for isot, _, _, markers, data in parts:
+        packets = split_packets(data, plt_lengths(markers))
+        half = max(1, len(packets) // 2)
+        keep = [(c, b) for c, b in markers if c != 0xff58]
+        first.append((isot, 0, 2, keep + [(0xff58, _plt_body(0, map(len, packets[:half])))],
+                      b"".join(packets[:half])))
+        second.append((isot, 1, 2, [], b"".join(packets[half:])))
+    return j2k_build(main, first + second, tail)
+
+
+def jp2_box(kind: bytes, payload: bytes, xl: bool = False) -> bytes:
+    if xl:
+        return struct.pack(">I", 1) + kind + struct.pack(">Q", len(payload) + 16) + payload
+    return struct.pack(">I", len(payload) + 8) + kind + payload
+
+
+def jp2_file(cs: bytes, *, nc: int, bpc: int, header=None, colr=None, brand=b"jp2 ",
+             compat=(b"jp2 ",), before=(), after=(), jp2c_length=None, size=None) -> bytes:
+    """A JP2 file around codestream ``cs``, byte by byte: the signature and
+    file type boxes, a jp2h box of ihdr (``nc`` components of ``bpc``), a
+    colr box (``colr``: an enumerated colour space number, bytes of an ICC
+    profile, or None for none) and the boxes of ``header``, then ``before``
+    boxes, the codestream box (``jp2c_length``: 0 for "to the end", "xl"
+    for an XLBox) and ``after`` boxes."""
+    _, _, tail = j2k_parse(cs)
+    xsiz, ysiz, xo, yo = struct.unpack_from(">IIII", cs, 8)
+    w, h = size or (xsiz - xo, ysiz - yo)
+    ihdr = jp2_box(b"ihdr", struct.pack(">IIHBBBB", h, w, nc, bpc, 7, 0, 0))
+    boxes = [ihdr]
+    if isinstance(colr, int):
+        boxes.append(jp2_box(b"colr", struct.pack(">BBBI", 1, 0, 0, colr)))
+    elif colr is not None:
+        boxes.append(jp2_box(b"colr", bytes([2, 0, 0]) + colr))
+    boxes += list(header or ())
+    ftyp = jp2_box(b"ftyp", brand + struct.pack(">I", 0) + b"".join(compat))
+    if jp2c_length == 0:
+        jp2c = struct.pack(">I", 0) + b"jp2c" + cs
+    else:
+        jp2c = jp2_box(b"jp2c", cs, xl=jp2c_length == "xl")
+    return (jp2_box(b"jP  ", b"\r\n\x87\n") + ftyp + jp2_box(b"jp2h", b"".join(boxes))
+            + b"".join(before) + jp2c + b"".join(after))
+
+
+def pclr_box(palette, depths=None) -> bytes:
+    palette = np.asarray(palette, np.uint8)
+    ne, npc = palette.shape
+    depths = depths or [7] * npc
+    return jp2_box(b"pclr", struct.pack(">HB", ne, npc) + bytes(depths) + palette.tobytes())
+
+
+def cmap_box(entries) -> bytes:
+    """(component, mapping type, palette column) per output channel."""
+    return jp2_box(b"cmap", b"".join(struct.pack(">HBB", *e) for e in entries))
+
+
+def cdef_box(entries) -> bytes:
+    """(channel, type, association) per channel."""
+    return jp2_box(b"cdef", struct.pack(">H", len(entries))
+                   + b"".join(struct.pack(">HHH", *e) for e in entries))
+
+
+def jpeg2000_planes(h, w, nc, seed, bits=8, signed=False, dxdy=None):
+    """Component planes of a test picture (ramps and noise) on an h x w
+    grid: ``bits``-bit samples, signed or not, each component subsampled
+    by its ``dxdy``."""
+    rng = np.random.RandomState(seed)
+    out = []
+    for c, (dx, dy) in enumerate(dxdy or [(1, 1)] * nc):
+        yy, xx = np.mgrid[0:-(-h // dy), 0:-(-w // dx)]
+        ramp = (yy * 7 + xx * 3) * max(1, (1 << bits) // 256) + c * (1 << bits) // 5
+        v = (ramp + rng.randint(0, max(2, (1 << bits) // 6), yy.shape)) % (1 << bits)
+        out.append(v - (1 << (bits - 1)) if signed else v)
+    return out
+
+
+def _jp(h, w, nc, seed, **kw):
+    return lambda: jpeg2000_bytes(jpeg2000_planes(h, w, nc, seed), **kw)
+
+
+_SUB420 = [(1, 1), (2, 2), (2, 2)]
+_PAGE_PCLR = np.random.RandomState(7).randint(0, 256, (40, 3))
+_PAGE_PCLR[11] = _PAGE_PCLR[4]        # a repeated colour: PIL's palette keeps one
+_CMAP3 = [(0, 1, 0), (0, 1, 1), (0, 1, 2)]
+
+
+def _pclr(nc, ncolours=48, seed=90):
+    """A palette image: an index plane (values past the palette too) and,
+    for ``nc`` = 2, an alpha plane, in a JP2 file with pclr and cmap."""
+    index = jpeg2000_planes(33, 47, 1, seed)[0] % ncolours
+    planes = [index] + jpeg2000_planes(33, 47, 1, seed + 1)[:nc - 1]
+    cmap = _CMAP3 + [(1, 0, 0)] * (nc - 1)
+    return jp2_file(jpeg2000_bytes(planes), nc=nc, bpc=7, colr=16,
+                    header=[pclr_box(_PAGE_PCLR), cmap_box(cmap)])
+
+
+def _with_markers(cs, main=(), tile=()):
+    """``cs`` with marker segments added to the main header and to the
+    first tile-part's header."""
+    m, parts, tail = j2k_parse(cs)
+    isot, tp, tn, markers, data = parts[0]
+    return j2k_build(m + list(main), [(isot, tp, tn, markers + list(tile), data)] + parts[1:],
+                     tail)
+
+
+def _plm(cs):
+    """The PLT markers of every tile-part moved into one PLM marker of the
+    main header (Nplm, then the Iplm bytes of each tile-part)."""
+    main, parts, tail = j2k_parse(cs)
+    iplm = b""
+    new = []
+    for isot, tp, tn, markers, data in parts:
+        body = _plt_body(0, plt_lengths(markers))[1:]
+        iplm += bytes([len(body)]) + body
+        new.append((isot, tp, tn, [(c, b) for c, b in markers if c != 0xff58], data))
+    return j2k_build(main + [(0xff57, b"\x00" + iplm)], new, tail)
+
+
+def _coc_qcc(cs, nc):
+    """COC and QCC markers for component 1 restating the COD and QCD
+    settings, in the main header and again in the tile-part header."""
+    main, _, _ = j2k_parse(cs)
+    cod = next(b for c, b in main if c == 0xff52)
+    qcd = next(b for c, b in main if c == 0xff5c)
+    coc = bytes([1, cod[0] & 1]) + cod[5:]
+    qcc = bytes([1]) + qcd
+    return _with_markers(cs, main=[(0xff53, coc), (0xff5d, qcc)],
+                         tile=[(0xff53, coc), (0xff5d, qcc)])
+
+
+def _crg_com(cs, nc):
+    return _with_markers(cs, main=[(0xff63, struct.pack(">HH", 0, 0) * nc),
+                                   (0xff64, b"\x00\x01main-header comment")],
+                         tile=[(0xff64, b"\x00\x00\x00\x01\x02tile-part comment")])
+
+
+# name -> (file ending, bytes)
+JPEG2000_VARIANTS = {
+    "grey-1x1": ("j2k", _jp(1, 1, 1, 1, levels=0)),
+    "grey-17x3": ("j2k", _jp(17, 3, 1, 2, levels=1)),
+    "grey-3x17-97": ("j2k", _jp(3, 17, 1, 3, levels=1, irreversible=True)),
+    "rgb-33x47-rct": ("j2k", _jp(33, 47, 3, 4, mct=True)),
+    "rgb-33x47-ict": ("j2k", _jp(33, 47, 3, 5, mct=True, irreversible=True, rates=[12])),
+    "rgb-no-mct-97": ("j2k", _jp(33, 47, 3, 6, irreversible=True)),
+    "image-offset-odd": ("j2k", _jp(41, 37, 1, 7, offset=(5, 3), levels=2)),
+    "tiles-odd-offsets-97": ("j2k", _jp(45, 61, 3, 8, offset=(5, 3), tile=(16, 16),
+                                        tile_offset=(2, 1), levels=2, irreversible=True,
+                                        mct=True)),
+    "tiles-13x20": ("j2k", _jp(45, 61, 1, 9, tile=(13, 20), levels=2)),
+    "levels-0-53": ("j2k", _jp(33, 47, 1, 10, levels=0)),
+    "levels-0-97": ("j2k", _jp(33, 47, 1, 11, levels=0, irreversible=True)),
+    "levels-1-97": ("j2k", _jp(33, 47, 3, 12, levels=1, irreversible=True, mct=True)),
+    "levels-5-53": ("j2k", _jp(64, 64, 1, 13, levels=5)),
+    "levels-max-53": ("j2k", _jp(64, 96, 1, 14, levels=6)),
+    "levels-max-97": ("j2k", _jp(64, 96, 3, 15, levels=6, irreversible=True, mct=True)),
+    "layers-3-rates": ("j2k", _jp(33, 47, 3, 16, irreversible=True, rates=[40, 10, 3])),
+    "layers-2-psnr": ("j2k", _jp(33, 47, 1, 17, irreversible=True, psnr=[30, 45])),
+    "layers-3-lossless-last": ("j2k", _jp(33, 47, 1, 18, rates=[20, 5, 0])),
+    "order-lrcp-precincts": ("j2k", _jp(45, 61, 3, 19, rates=[10, 3, 1], cblk=(8, 8),
+                                        precincts=[(32, 32), (16, 16), (16, 16), (8, 8)],
+                                        levels=3)),
+    "order-rlcp": ("j2k", _jp(45, 61, 3, 20, rates=[10, 3, 1], progression="RLCP",
+                              precincts=[(32, 32), (16, 16), (8, 8)], levels=2, cblk=(8, 8))),
+    "order-rpcl": ("j2k", _jp(45, 61, 3, 21, rates=[10, 3, 1], progression="RPCL",
+                              precincts=[(32, 32), (16, 16), (8, 8)], levels=2, cblk=(8, 8),
+                              offset=(3, 7))),
+    "order-pcrl": ("j2k", _jp(45, 61, 3, 22, rates=[10, 3, 1], progression="PCRL",
+                              precincts=[(32, 32), (16, 16), (8, 8)], levels=2, cblk=(8, 8),
+                              tile=(40, 24), tile_offset=(1, 2),
+                              offset=(3, 4))),
+    "order-cprl": ("j2k", _jp(45, 61, 3, 23, rates=[10, 3, 1], progression="CPRL",
+                              precincts=[(32, 32), (16, 16), (8, 8)], levels=2, cblk=(8, 8))),
+    "order-rpcl-420": ("jp2", lambda: jpeg2000_bytes(
+        jpeg2000_planes(45, 61, 3, 24, dxdy=_SUB420), dxdy=_SUB420, levels=2, cblk=(8, 8),
+        progression="RPCL", precincts=[(32, 32), (16, 16), (8, 8)], rates=[8, 2], jp2=True,
+        color_space="sycc")),
+    "poc-rlcp-cprl": ("j2k", _jp(33, 47, 3, 25, rates=[20, 5, 1],
+                                 pocs=[(0, 0, 3, 2, 3, "RLCP"), (2, 0, 3, 6, 3, "CPRL")])),
+    "poc-three-orders": ("j2k", _jp(33, 47, 3, 26, rates=[20, 5, 1],
+                                    pocs=[(0, 0, 2, 3, 2, "LRCP"), (0, 2, 3, 3, 3, "PCRL"),
+                                          (0, 0, 3, 6, 3, "RLCP")])),
+    "tile-parts-by-resolution": ("j2k", _jp(45, 61, 3, 27, tile=(32, 32), tile_parts="R",
+                                            levels=3)),
+    "tile-parts-by-layer": ("j2k", _jp(45, 61, 1, 28, tile=(32, 32), tile_parts="L",
+                                       rates=[10, 3], levels=3)),
+    "tile-parts-by-component-tlm": ("j2k", _jp(45, 61, 3, 29, tile=(32, 32), tile_parts="C",
+                                               tlm=True, plt=True, levels=3)),
+    "tile-parts-interleaved": ("j2k", lambda: interleaved_tile_parts(jpeg2000_bytes(
+        jpeg2000_planes(45, 61, 3, 30), tile=(32, 32), plt=True, rates=[10, 2], levels=3))),
+    "cblk-4x4": ("j2k", _jp(33, 47, 1, 31, cblk=(4, 4))),
+    "cblk-8x128": ("j2k", _jp(33, 140, 1, 32, cblk=(128, 8), levels=3)),
+    "cblk-1024x4-97": ("j2k", _jp(9, 150, 1, 33, cblk=(1024, 4), levels=2, irreversible=True)),
+    "style-bypass": ("j2k", _jp(40, 47, 1, 34, styles=("bypass",), rates=[6, 2, 1])),
+    "style-reset": ("j2k", _jp(40, 47, 1, 35, styles=("reset",), rates=[6, 2])),
+    "style-termall": ("j2k", _jp(40, 47, 1, 36, styles=("termall",), rates=[6, 2])),
+    "style-vsc": ("j2k", _jp(40, 47, 1, 37, styles=("vsc",), cblk=(16, 16))),
+    "style-pterm": ("j2k", _jp(40, 47, 1, 38, styles=("pterm",), rates=[6, 2])),
+    "style-segsym": ("j2k", _jp(40, 47, 1, 39, styles=("segsym",), cblk=(8, 32))),
+    "style-bypass-termall-97": ("j2k", _jp(40, 47, 3, 40, styles=("bypass", "termall"),
+                                           irreversible=True, rates=[10, 3])),
+    "style-bypass-vsc-reset": ("j2k", _jp(64, 64, 1, 41, styles=("bypass", "vsc", "reset"))),
+    "style-all": ("j2k", _jp(40, 47, 3, 42, styles=tuple(CBLK_STYLES), rates=[12, 4, 0])),
+    "sop": ("j2k", _jp(33, 47, 3, 43, sop=True, rates=[10, 3])),
+    "eph": ("j2k", _jp(33, 47, 1, 44, eph=True, rates=[10, 3])),
+    "sop-eph-97": ("j2k", _jp(33, 47, 3, 45, sop=True, eph=True, irreversible=True,
+                              rates=[10, 3])),
+    "ppm": ("j2k", lambda: packed_headers(jpeg2000_bytes(
+        jpeg2000_planes(33, 47, 3, 46), sop=True, eph=True, plt=True, rates=[20, 5, 1]), "ppm")),
+    "ppt": ("j2k", lambda: packed_headers(jpeg2000_bytes(
+        jpeg2000_planes(33, 47, 3, 47), sop=True, eph=True, plt=True, rates=[20, 5, 1]), "ppt")),
+    "plt": ("j2k", _jp(33, 47, 1, 48, plt=True, rates=[10, 3])),
+    "plm": ("j2k", lambda: _plm(jpeg2000_bytes(jpeg2000_planes(45, 61, 1, 49), plt=True,
+                                               tile=(32, 32), levels=3))),
+    "coc-qcc-crg-com": ("j2k", lambda: _crg_com(_coc_qcc(jpeg2000_bytes(
+        jpeg2000_planes(33, 47, 3, 50)), 3), 3)),
+    "rgn-53": ("j2k", _jp(33, 47, 1, 51, roi=(0, 5))),
+    "rgn-97": ("j2k", _jp(33, 47, 3, 52, roi=(1, 7), irreversible=True, rates=[8])),
+    "la": ("jp2", _jp(33, 47, 2, 53, jp2=True, color_space="grey")),
+    "rgba-97": ("jp2", _jp(33, 47, 4, 54, jp2=True, color_space="srgb", irreversible=True)),
+    "cmyk": ("jp2", _jp(33, 47, 4, 55, jp2=True, color_space="cmyk")),
+    "i16-jp2": ("jp2", lambda: jpeg2000_bytes(jpeg2000_planes(33, 47, 1, 56, bits=16),
+                                              precision=16, jp2=True, color_space="grey")),
+    "prec-1": ("j2k", lambda: jpeg2000_bytes(jpeg2000_planes(33, 47, 1, 57, bits=1),
+                                             precision=1)),
+    "prec-4": ("j2k", lambda: jpeg2000_bytes(jpeg2000_planes(33, 47, 1, 58, bits=4),
+                                             precision=4)),
+    "prec-12-i16": ("j2k", lambda: jpeg2000_bytes(jpeg2000_planes(33, 47, 1, 59, bits=12),
+                                                  precision=12)),
+    "prec-12-rgb-97": ("j2k", lambda: jpeg2000_bytes(jpeg2000_planes(33, 47, 3, 60, bits=12),
+                                                     precision=12, irreversible=True)),
+    "prec-mixed-bpcc": ("jp2", lambda: jp2_file(jpeg2000_bytes(
+        [jpeg2000_planes(33, 47, 1, 61, bits=b)[0] for b in (8, 12, 5)], precision=[8, 12, 5]),
+        nc=3, bpc=255, colr=16, header=[jp2_box(b"bpcc", bytes([7, 11, 4]))])),
+    "signed-8": ("j2k", lambda: jpeg2000_bytes(jpeg2000_planes(33, 47, 1, 62, signed=True),
+                                               signed=True)),
+    "signed-12-rgb-97": ("j2k", lambda: jpeg2000_bytes(
+        jpeg2000_planes(33, 47, 3, 63, bits=12, signed=True), precision=12, signed=True,
+        irreversible=True)),
+    "sycc-420-odd": ("jp2", lambda: jpeg2000_bytes(
+        jpeg2000_planes(33, 47, 3, 64, dxdy=_SUB420), dxdy=_SUB420, levels=3, jp2=True,
+        color_space="sycc")),
+    "sycc-422-97": ("jp2", lambda: jpeg2000_bytes(
+        jpeg2000_planes(32, 48, 3, 65, dxdy=[(1, 1), (2, 1), (2, 1)]),
+        dxdy=[(1, 1), (2, 1), (2, 1)], levels=3, jp2=True, color_space="sycc",
+        irreversible=True)),
+    "raw-420-guessed-sycc": ("j2k", lambda: jpeg2000_bytes(
+        jpeg2000_planes(33, 47, 3, 66, dxdy=_SUB420), dxdy=_SUB420, levels=3)),
+    "pclr-p": ("jp2", lambda: _pclr(1)),
+    "pclr-pa": ("jp2", lambda: _pclr(2, seed=91)),
+    "jpx-brand": ("jpx", lambda: jp2_file(jpeg2000_bytes(jpeg2000_planes(33, 47, 3, 67)), nc=3,
+                                          bpc=7, colr=16, brand=b"jpx ",
+                                          compat=(b"jp2 ", b"jpx ", b"jpxb"))),
+    "jp2c-to-end-of-file": ("jp2", lambda: jp2_file(
+        jpeg2000_bytes(jpeg2000_planes(33, 47, 1, 68)), nc=1, bpc=7, colr=17, jp2c_length=0)),
+    "jp2c-xl-box": ("jp2", lambda: jp2_file(
+        jpeg2000_bytes(jpeg2000_planes(33, 47, 3, 69)), nc=3, bpc=7, colr=16, jp2c_length="xl")),
+    "boxes-skipped": ("jp2", lambda: jp2_file(
+        jpeg2000_bytes(jpeg2000_planes(33, 47, 3, 70)), nc=3, bpc=7, colr=16,
+        header=[jp2_box(b"res ", jp2_box(b"resc", struct.pack(">HHHHBB", 3, 1, 3, 1, 2, 2))
+                        + jp2_box(b"resd", struct.pack(">HHHHBB", 3, 1, 3, 1, 2, 2)))],
+        before=(jp2_box(b"xml ", b"<page/>"), jp2_box(b"uuid", bytes(range(20))),
+                jp2_box(b"jp2i", b"\x00" * 6)),
+        after=(jp2_box(b"xml ", b"<after/>"),))),
+    "cdef-rgba-and-swap": ("jp2", lambda: jp2_file(
+        jpeg2000_bytes(jpeg2000_planes(33, 47, 4, 71)), nc=4, bpc=7, colr=16,
+        header=[cdef_box([(0, 0, 3), (1, 0, 2), (2, 0, 1), (3, 1, 0)])])),
+    "colr-icc-profile": ("jp2", lambda: jp2_file(
+        jpeg2000_bytes(jpeg2000_planes(33, 47, 3, 72)), nc=3, bpc=7, colr=bytes(range(128)))),
+    "colr-none-guessed-sycc": ("jp2", lambda: jp2_file(
+        jpeg2000_bytes(jpeg2000_planes(33, 47, 3, 73, dxdy=_SUB420), dxdy=_SUB420, levels=3),
+        nc=3, bpc=7, colr=None)),
+    "colr-two-boxes": ("jp2", lambda: jp2_file(
+        jpeg2000_bytes(jpeg2000_planes(33, 47, 3, 74)), nc=3, bpc=7, colr=16,
+        header=[jp2_box(b"colr", struct.pack(">BBBI", 1, 0, 0, 17))])),
+}
+
+
+def jpeg2000_small_variants():
+    """[(file name, write(path))] of every JPEG 2000 variant of the catalog."""
+    return [(f"jpeg2000_{name}.{ending}", lambda p, make=make: _write_bytes(p, make()))
+            for name, (ending, make) in JPEG2000_VARIANTS.items()]
+
+
+def jpeg2000_refused(grey_j2k: bytes, rgb_jp2: bytes):
+    """[(name, file bytes, a word of the port's refusal)]: hand-made faults,
+    built from a raw grey codestream and a JP2 colour file of the catalog,
+    that PIL refuses too."""
+    main, parts, tail = j2k_parse(grey_j2k)
+    xsiz, ysiz = struct.unpack_from(">II", grey_j2k, 8)
+    jp2h = rgb_jp2.index(b"jp2h") - 4
+    ihdr = rgb_jp2.index(b"ihdr") - 4
+    jp2h_len = struct.unpack_from(">I", rgb_jp2, jp2h)[0]
+    no_ihdr = (rgb_jp2[:jp2h] + struct.pack(">I", jp2h_len - 22) + rgb_jp2[jp2h + 4:ihdr]
+               + rgb_jp2[ihdr + 22:])
+    wide = rgb_jp2[:ihdr + 12] + struct.pack(">I", struct.unpack_from(
+        ">I", rgb_jp2, ihdr + 12)[0] + 1) + rgb_jp2[ihdr + 16:]
+
+    def patched_siz(x, y):
+        m = [(c, b[:2] + struct.pack(">II", x, y) + b[10:] if c == 0xff51 else b)
+             for c, b in main]
+        return j2k_build(m, parts, tail)
+    isot, tp, tn, markers, data = parts[0]
+    return [
+        ("jp2h-without-ihdr", no_ihdr, "JP2 header is malformed"),
+        ("ihdr-size-not-the-codestreams", wide, "ihdr box's size"),
+        ("grey-in-srgb", jp2_file(grey_j2k, nc=1, bpc=7, colr=16), "no unpacker"),
+        ("eycc-colour-space", jp2_file(rgb_jp2[rgb_jp2.index(b"jp2c") + 4:], nc=3, bpc=7,
+                                       colr=24), "no unpacker"),
+        ("first-component-subsampled", jpeg2000_bytes(
+            jpeg2000_planes(33, 47, 1, 80, dxdy=[(2, 1)]), dxdy=[(2, 1)], levels=3),
+         "no unpacker"),
+        ("no-cod-marker", j2k_build([(c, b) for c, b in main if c != 0xff52], parts, tail),
+         "no COD marker"),
+        ("cod-with-zero-layers", j2k_build(
+            [(c, b[:2] + b"\0\0" + b[4:] if c == 0xff52 else b) for c, b in main], parts, tail),
+         "0 layers"),
+        ("tile-part-out-of-order", j2k_build(main, [(isot, 1, tn, markers, data)], tail),
+         "out of order"),
+        ("psot-past-the-end", grey_j2k[:grey_j2k.index(b"\xff\x90") + 6] + struct.pack(
+            ">I", len(grey_j2k)) + grey_j2k[grey_j2k.index(b"\xff\x90") + 10:], "past the end"),
+        ("soc-without-siz", b"\xff\x4f\xff\x52" + grey_j2k[4:], "SOC is not followed by SIZ"),
+        ("signature-box-damaged", rgb_jp2[:8] + b"\x0d\x0a\x87\x0b" + rgb_jp2[12:],
+         "signature box is malformed"),
+        ("decompression-bomb", patched_siz(20000, 20000), "decompression-bomb"),
+        ("truncated-after-main-header", grey_j2k[:grey_j2k.index(b"\xff\x90") + 20],
+         "past the end"),
+    ]

@@ -46,10 +46,21 @@ and a lossy colour page with an alpha plane in a VP8L-compressed ALPH
 chunk under the gradient filter, each with ``page/<name>.xml`` and
 ``<name>.json`` (PIL's "L" and "RGB" digests).
 
-Needs PIL (and, for the TIFF, JPEG and WebP variants, the libraries Pillow
-bundles, and gcc); run from the repository root:
+Then the JPEG 2000 fixtures: ``--only jpeg2000`` rewrites just the
+``jpeg2000_*`` files of ``small/`` (written by PIL's save, by
+``scripts/jpeg2000_test_encoder.c`` over Pillow's libopenjp2, and byte by
+byte around its codestreams) and their records in ``small.json``, and
+writes three full-size pages of the newspaper generator (seed
+``JPEG2000_SEED``) into ``tests/data/torch_formats_jpeg2000/`` with PIL's
+save: a lossy 9/7 grey page at rate 8 in RPCL order with 6 levels, 512 x
+512 tiles and PLT markers (an archive access copy), a lossless 5/3 grey
+page and a lossy colour page with the ICT, each with ``page/<name>.xml``
+and ``<name>.json`` (PIL's "L" and "RGB" digests).
 
-    python scripts/make_format_fixtures.py [--only formats variants jpeg webp]
+Needs PIL (and, for the TIFF, JPEG, WebP and JPEG 2000 variants, the
+libraries Pillow bundles, and gcc); run from the repository root:
+
+    python scripts/make_format_fixtures.py [--only formats variants jpeg webp jpeg2000]
 
 (the page XMLs get new timestamps on every run).
 """
@@ -69,10 +80,12 @@ OUT = os.path.join(REPO, "tests", "data", "torch_formats")
 VARIANTS_OUT = os.path.join(REPO, "tests", "data", "torch_formats_variants")
 JPEG_OUT = os.path.join(REPO, "tests", "data", "torch_formats_jpeg")
 WEBP_OUT = os.path.join(REPO, "tests", "data", "torch_formats_webp")
+JPEG2000_OUT = os.path.join(REPO, "tests", "data", "torch_formats_jpeg2000")
 SEED = 23
 VARIANT_SEED = 29
 JPEG_SEED = 37
 WEBP_SEED = 41
+JPEG2000_SEED = 43
 SHAPE = (2000, 1420)
 # (name, file ending, pixels: "grey" | "colour" | "bilevel", PIL save options)
 FIXTURES = [
@@ -100,8 +113,8 @@ def pixels(page: np.ndarray, kind: str) -> Image.Image:
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--only", nargs="+", choices=("formats", "variants", "jpeg", "webp"),
-                        default=("formats", "variants", "jpeg", "webp"))
+    kinds = ("formats", "variants", "jpeg", "webp", "jpeg2000")
+    parser.add_argument("--only", nargs="+", choices=kinds, default=kinds)
     only = parser.parse_args().only
     sys.path.insert(0, REPO)
     if "formats" in only:
@@ -110,10 +123,15 @@ def main() -> int:
         write_variants()
     if "jpeg" in only:
         write_jpeg_pages()
+    from scripts import format_variants as fv
     if "webp" in only:
         if "variants" not in only:
-            write_webp_small()
+            write_small("webp_", fv.webp_small_variants())
         write_webp_pages()
+    if "jpeg2000" in only:
+        if "variants" not in only:
+            write_small("jpeg2000_", fv.jpeg2000_small_variants())
+        write_jpeg2000_pages()
     return 0
 
 
@@ -243,24 +261,23 @@ def write_jpeg_pages() -> None:
     print(f"full-size JPEG pages {total} bytes")
 
 
-def write_webp_small() -> None:
-    """The ``webp_*`` small variants and their records, the rest of
-    ``small/`` left as it is."""
-    from scripts import format_variants as fv
+def write_small(prefix: str, variants) -> None:
+    """The small variants whose names start with ``prefix`` and their
+    records, the rest of ``small/`` left as it is."""
     small = os.path.join(VARIANTS_OUT, "small")
     with open(os.path.join(small, "small.json")) as f:
-        records = [r for r in json.load(f) if not r["file"].startswith("webp_")]
+        records = [r for r in json.load(f) if not r["file"].startswith(prefix)]
     for stale in os.listdir(small):
-        if stale.startswith("webp_"):
+        if stale.startswith(prefix):
             os.remove(os.path.join(small, stale))
-    for name, write in fv.webp_small_variants():
+    for name, write in variants:
         path = os.path.join(small, name)
         write(path)
         records.append(record(path, ("L", "RGB")))
     with open(os.path.join(small, "small.json"), "w") as f:
         json.dump(records, f, indent=0)
         f.write("\n")
-    print(f"{len(fv.WEBP_VARIANTS)} small WebP variants")
+    print(f"{len(variants)} small {prefix.rstrip('_')} variants")
 
 
 def webp_alpha(h: int, w: int) -> np.ndarray:
@@ -298,6 +315,32 @@ def write_webp_pages() -> None:
         total += len(data)
         print(f"{os.path.relpath(path, REPO)}: {len(data)} bytes")
     print(f"full-size WebP pages {total} bytes")
+
+
+def write_jpeg2000_pages() -> None:
+    import chip_smoke
+    shutil.rmtree(JPEG2000_OUT, ignore_errors=True)
+    os.makedirs(os.path.join(JPEG2000_OUT, "page"))
+    pages, _, layouts = chip_smoke.synthetic_newspaper(3, *SHAPE, seed=JPEG2000_SEED)
+    h, w = SHAPE
+    full = [("lossy_97_rpcl_tiles", pixels(pages[0], "grey"),
+             dict(irreversible=True, quality_mode="rates", quality_layers=[8],
+                  progression="RPCL", num_resolutions=7, tile_size=(512, 512), plt=True)),
+            ("lossless_53", pixels(pages[1], "grey"), dict()),
+            ("lossy_colour_ict", pixels(pages[2], "colour"),
+             dict(irreversible=True, mct=1, quality_mode="rates", quality_layers=[24]))]
+    total = 0
+    for (name, image, options), regions in zip(full, layouts):
+        path = os.path.join(JPEG2000_OUT, f"{name}.jp2")
+        image.save(path, format="JPEG2000", **options)
+        chip_smoke.write_layout_xml(os.path.join(JPEG2000_OUT, "page", f"{name}.xml"),
+                                    os.path.basename(path), h, w, regions)
+        with open(os.path.join(JPEG2000_OUT, f"{name}.json"), "w") as f:
+            json.dump(record(path, ("L", "RGB")), f, indent=1)
+            f.write("\n")
+        total += os.path.getsize(path)
+        print(f"{os.path.relpath(path, REPO)}: {os.path.getsize(path)} bytes")
+    print(f"full-size JPEG 2000 pages {total} bytes")
 
 
 if __name__ == "__main__":

@@ -729,13 +729,11 @@ def test_jpeg_variant_pages_through_the_separator_on_the_card(cuda, tmp_path):
 
 
 @pytest.mark.cuda
-def test_webp_pages_through_the_separator_on_the_card(cuda, tmp_path):
-    """The committed full-size WebP pages (lossy with the normal loop filter,
-    4 partitions and 4 segments; lossless; lossy with a filtered
-    VP8L-compressed alpha plane; ``tests/data/torch_formats_webp``) decode on
-    the card's machine to their recorded "L" and "RGB" digests (PIL's), and
-    the separator stage on the card writes for each the PAGE-XML it writes
-    for the page's PNG twin, with K1 69 and K2 one launch per group of 4."""
+def _pages_through_the_separator(cuda, tmp_path, folder):
+    """The committed full-size pages of ``tests/data/<folder>`` decode on the
+    card's machine to their recorded "L" and "RGB" digests (PIL's), and the
+    separator stage on the card writes for each the PAGE-XML it writes for
+    the page's PNG twin, with K1 69 and K2 one launch per group of 4."""
     import hashlib
     import json
     import os
@@ -745,7 +743,7 @@ def test_webp_pages_through_the_separator_on_the_card(cuda, tmp_path):
     from citlab_as_tpu_torch.stages.separator import SeparatorNetPostProcessor
     from citlab_as_tpu_torch.utils import io as tio
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    src = os.path.join(repo, "tests", "data", "torch_formats_webp")
+    src = os.path.join(repo, "tests", "data", folder)
     os.makedirs(tmp_path / "page")
     images = []
     for name in sorted(os.listdir(src)):
@@ -779,3 +777,19 @@ def test_webp_pages_through_the_separator_on_the_card(cuda, tmp_path):
         return re.sub(rb'imageFilename="[^"]*"', b"", data)
     for path, twin in zip(images[::2], images[1::2]):
         assert b"SeparatorRegion" in written(path) and written(path) == written(twin), path
+
+
+def test_webp_pages_through_the_separator_on_the_card(cuda, tmp_path):
+    """The committed full-size WebP pages (lossy with the normal loop filter,
+    4 partitions and 4 segments; lossless; lossy with a filtered
+    VP8L-compressed alpha plane; ``tests/data/torch_formats_webp``) through
+    the separator stage on the card beside their PNG twins."""
+    _pages_through_the_separator(cuda, tmp_path, "torch_formats_webp")
+
+
+def test_jpeg2000_pages_through_the_separator_on_the_card(cuda, tmp_path):
+    """The committed full-size JPEG 2000 pages (lossy 9/7 at rate 8 in RPCL
+    order with 512 x 512 tiles and PLT; lossless 5/3; lossy colour with the
+    ICT; ``tests/data/torch_formats_jpeg2000``) through the separator stage
+    on the card beside their PNG twins."""
+    _pages_through_the_separator(cuda, tmp_path, "torch_formats_jpeg2000")

@@ -6,7 +6,8 @@ TIFF decoding is tested in ``tests/test_torch_formats.py``, the PNM, PNG
 and TIFF variants in ``tests/test_torch_formats_variants.py``, the JPEG
 variants in ``tests/test_torch_formats_jpeg_variants.py``, BMP and GIF in
 ``tests/test_torch_formats_bmp_gif.py``, WebP in
-``tests/test_torch_formats_webp.py``)."""
+``tests/test_torch_formats_webp.py``, JPEG 2000 in
+``tests/test_torch_formats_jpeg2000.py``)."""
 import os
 
 import numpy as np
@@ -149,16 +150,30 @@ def test_save_png_roundtrip_and_pil_reads_it(tmp_path):
             tio.load_image(p, "L" if arr.ndim == 2 else "RGB"), arr)
 
 
-@pytest.mark.parametrize("kind,word", [("riff", "RIFF, not WebP"), ("jpeg2000", "JPEG 2000")])
+@pytest.mark.parametrize("kind,word", [("riff", "RIFF, not WebP"),
+                                       ("jpeg2000", "JPEG 2000: the JP2 header is malformed")])
 def test_unsupported_formats_raise_by_name(tmp_path, kind, word):
+    import struct
     p = str(tmp_path / f"x_{kind}.img")
     if kind == "riff":     # a RIFF file of another form than WebP: a WAVE header
-        import struct
         with open(p, "wb") as f:
             f.write(b"RIFF" + struct.pack("<I", 36) + b"WAVEfmt " + struct.pack(
                 "<IHHIIHH", 16, 1, 1, 8000, 8000, 1, 8) + b"data" + struct.pack("<I", 0))
     else:
+        # PIL's own JP2 file with its jp2h box holding no ihdr box: PIL
+        # refuses the malformed header
         Image.fromarray(_pixels(11, 1)[..., 0], "L").save(p, format="JPEG2000")
+        with open(p, "rb") as f:
+            data = f.read()
+        at = data.index(b"jp2h") - 4
+        end = at + struct.unpack_from(">I", data, at)[0]
+        ihdr = data.index(b"ihdr") - 4
+        data = (data[:at] + struct.pack(">I", end - at - 22) + data[at + 4:ihdr]
+                + data[ihdr + 22:])
+        with open(p, "wb") as f:
+            f.write(data)
+        with pytest.raises(Exception):
+            Image.open(p).load()
     with pytest.raises(tio.UnsupportedImageFormat, match=word):
         tio.load_image(p, "L")
     with pytest.raises(tio.UnsupportedImageFormat, match=word):
@@ -166,15 +181,17 @@ def test_unsupported_formats_raise_by_name(tmp_path, kind, word):
 
 
 @pytest.mark.parametrize("kind", ["group3_tiff", "interlaced", "png16", "cmyk_jpeg", "bmp",
-                                  "webp"])
+                                  "webp", "jpeg2000"])
 def test_former_refusals_equal_pil(tmp_path, kind):
     """Variants the port once refused by name, now decoded as PIL decodes
     them: a Group 3 TIFF, an Adam7 PNG, a 16-bit grey PNG, a CMYK JPEG, a
-    BMP and PIL's own lossy WebP."""
+    BMP, PIL's own lossy WebP and PIL's own JP2 file."""
     grey = _pixels(11, 1)[..., 0]
     p = str(tmp_path / f"x_{kind}.img")
     if kind == "webp":
         Image.fromarray(grey, "L").save(p, format="WEBP")
+    elif kind == "jpeg2000":
+        Image.fromarray(grey, "L").save(p, format="JPEG2000")
     elif kind == "cmyk_jpeg":
         Image.fromarray(grey, "L").convert("CMYK").save(p, format="JPEG")
     elif kind == "bmp":
