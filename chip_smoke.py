@@ -1729,11 +1729,13 @@ def phase_formats(dev):
 
 
 def phase_variants(dev):
-    """The PNM, PNG, TIFF, JPEG, BMP, GIF, WebP and JPEG 2000 variants: the
-    committed small variant fixtures against PIL's recorded digests,
-    full-size pages of the variants through the pipelined workflow beside
-    8-bit PNG twins of the same decoded pixels, and PBM, BMP, GIF, WebP and
-    JPEG 2000 pages through the separator CLI."""
+    """The PNM, PNG, TIFF, JPEG, BMP, GIF, WebP, JPEG 2000 and raster (PCX,
+    DCX, PSD, TGA, ICO, CUR, DIB, SGI, SUN, QOI, MSP, IM, XBM, XPM, PIXAR,
+    SPIDER, GBR, IMT, MCIDAS, XVTHUMB) variants: the committed small
+    variant fixtures against PIL's recorded digests, full-size pages of the
+    variants through the pipelined workflow beside 8-bit PNG twins of the
+    same decoded pixels, and PBM, BMP, GIF, WebP, JPEG 2000, PCX, DCX, TGA,
+    PSD, SGI, SUN and QOI pages through the separator CLI."""
     import glob
     import hashlib
 
@@ -1744,7 +1746,7 @@ def phase_variants(dev):
     from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
     from citlab_as_tpu_torch.utils import io as port_io
     from scripts.format_variants import (
-        bmp_bytes, bmp_rle_bytes, gif_bytes, png_bytes, pnm_bytes)
+        bmp_bytes, bmp_rle_bytes, gif_bytes, png_bytes, pnm_bytes, raster_pages)
 
     def digest(arr):
         return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
@@ -1771,9 +1773,10 @@ def phase_variants(dev):
             port_io._IMAGE_CACHE.clear()
             check(digest(port_io.load_image(path, mode)) == rec[f"sha256_{mode}"],
                   f"variants: {rec['file']} decodes to other {mode} pixels than PIL's")
-    kinds = sorted({rec["file"].split("_")[0] for rec in small})
-    check({"bmp", "gif", "jpeg", "webp", "jpeg2000"} <= set(kinds),
-          f"variants: small fixtures of {kinds}")
+    kinds = sorted({rec["file"].split("_")[0].split(".")[0] for rec in small})
+    check({"bmp", "gif", "jpeg", "webp", "jpeg2000", "pcx", "dcx", "psd", "tga", "ico", "cur",
+           "dib", "sgi", "sun", "qoi", "msp", "im", "xbm", "xpm", "pixar", "spider", "gbr", "imt",
+           "mcidas", "xvthumb"} <= set(kinds), f"variants: small fixtures of {kinds}")
     print(f"variants: all {len(small)} small {' / '.join(kinds)} variants decode to PIL's "
           "size and 'L' and 'RGB' digests")
 
@@ -1872,6 +1875,13 @@ def phase_variants(dev):
              pages[0], layouts[0]),
             ("interlaced.gif", gif_bytes(255 - pages[1], ramp[::-1], interlace=True),
              pages[1], layouts[1])]
+        # the raster formats, written byte by byte from the same arrays (all
+        # lossless): 8-bit grey PCX runs, a DCX of two bilevel pages (PIL
+        # reads the first), grey TGA RLE, grey PSD PackBits, grey SGI RLE,
+        # 8-bit SUN RLE and the grey page as RGB QOI
+        raster = raster_pages(pages)
+        cli_pages += [(name, data, want, layouts[k % 3])
+                      for k, (name, data, want) in enumerate(raster)]
         cli_paths = []
         for name, data, want, layout in cli_pages:
             path = os.path.join(root, name)
@@ -1943,12 +1953,13 @@ def phase_variants(dev):
             check(_normalised_xml(port_io.get_page_path(path) + ".xml")
                   == _normalised_xml(port_io.get_page_path(twin) + ".xml"),
                   f"variants: the separator's page of {name} differs from its PNG twin's")
-        print("variants: the separator CLI's pages of the PBM, BMP, GIF, the three WebP and "
-              "the three JPEG 2000 pages equal their PNG twins', launches "
-              f"{json.dumps(cli_launches)}; host decode ms per page (median of 3) beside "
-              "the PNG twin's " + json.dumps(
+        print("variants: the separator CLI's pages of the PBM, BMP, GIF, the three WebP, "
+              "the three JPEG 2000 and the seven raster pages equal their PNG twins', "
+              f"launches {json.dumps(cli_launches)} ({groups} groups of {BATCH}); host decode "
+              "ms per page (median of 3) beside the PNG twin's " + json.dumps(
                   {k: decode_ms[k]
-                   for k in ["rle8.bmp", "interlaced.gif"] + webp_names + jpeg2000_names}))
+                   for k in ["rle8.bmp", "interlaced.gif"] + webp_names + jpeg2000_names
+                   + [name for name, _, _ in raster]}))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"launches": {k: launches[k] + cli_launches[k]
@@ -3510,8 +3521,8 @@ def main() -> int:
     # its run); ``launches_variants``: the pipelined workflow's over the ten
     # full-size variant pages and their PNG twins (20 pages, 5 groups: K1
     # 69 x 2 x 5, K2 5) plus the separator CLI's over the PBM, BMP, GIF,
-    # three WebP and three JPEG 2000 pages and their twins (18 pages, 5
-    # groups: K1 69 x 5, K2 5);
+    # three WebP, three JPEG 2000 and seven raster (PCX, DCX, TGA, PSD, SGI,
+    # SUN, QOI) pages and their twins (32 pages, 8 groups: K1 69 x 8, K2 8);
     # ``launches_blind``: the three blind-quality bf16
     # workflow runs' (one group per page size: K1 69 x 2 and K2 1 per group,
     # 4 groups in all; each run counted from 0 just before it);

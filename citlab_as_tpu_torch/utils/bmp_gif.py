@@ -61,19 +61,27 @@ def _u16(data: bytes, at: int) -> int:
 
 
 def _bmp_header(data: bytes) -> dict:
-    """BmpImageFile._bitmap: size, row direction, sample layout, palette
-    and where the samples start; raises where PIL's open does."""
+    """BmpImageFile._bitmap of a BMP file: size, row direction, sample
+    layout, palette and where the samples start; raises where PIL's open
+    does."""
     if len(data) < 18:
         raise NativeDecodeError("BMP: truncated header")
-    offset, hsize = _u32(data, 10), _u32(data, 14)
+    return _dib_header(data, 14, _u32(data, 10))
+
+
+def _dib_header(data: bytes, at: int, offset: int, check_size: bool = True) -> dict:
+    """The info header at ``at`` (a BMP's after its file header, a DIB's,
+    CUR's or ICO's at its own start), the samples at ``offset`` (0: right
+    after the header and palette, as PIL reads a DIB)."""
+    hsize = _u32(data, at)
     if hsize not in (12, 40, 52, 56, 64, 108, 124):
         raise NativeDecodeError(
             f"BMP: header of {hsize} bytes is not supported (PIL reads 12, 40, 52, 56, 64, "
             "108 and 124)")
-    hd = data[18:14 + hsize]
+    hd = data[at + 4:at + hsize]
     if len(hd) < hsize - 4:
         raise NativeDecodeError("BMP: truncated header")
-    pos = 14 + hsize
+    pos = at + hsize
     masks = None
     if hsize == 12:
         width, height, bits = _u16(hd, 0), _u16(hd, 2), _u16(hd, 6)
@@ -94,7 +102,7 @@ def _bmp_header(data: bytes) -> dict:
                     raise NativeDecodeError("BMP: truncated bitfields masks")
                 masks = tuple(_u32(data, pos + 4 * i) for i in range(3)) + (0,)
                 pos += 12
-    if width <= 0 or height <= 0:
+    if check_size and (width <= 0 or height <= 0):
         raise NativeDecodeError(f"BMP: image of {width} x {height} pixels")
     colors = colors or (1 << bits)
     if offset == 14 + hsize and bits <= 8:
@@ -175,7 +183,13 @@ def _bmp_raw(data: bytes, h: dict) -> np.ndarray:
 
 
 def _decode_bmp(data: bytes) -> np.ndarray:
-    h = _bmp_header(data)
+    return _decode_dib(data, _bmp_header(data))
+
+
+def _decode_dib(data: bytes, h: dict) -> np.ndarray:
+    """The samples a header of :func:`_dib_header` describes."""
+    if h["width"] <= 0 or h["height"] <= 0:
+        raise NativeDecodeError(f"BMP: image of {h['width']} x {h['height']} pixels")
     if h["rle"]:
         if h["mode"] not in ("P", "L"):
             raise NativeDecodeError(

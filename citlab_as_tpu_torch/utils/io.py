@@ -37,6 +37,14 @@ bit to ``np.asarray(Image.open(path).convert(mode))`` under PIL 12.1:
   9/7 wavelets, RCT / ICT; grey, "I;16", LA, RGB(A), CMYK, sYCC, palette)
   as PIL reads it through OpenJPEG (``utils/jpeg2000.py``, host C++
   ``csrc/jpeg2000_decode.cpp``).
+- the lossless raster formats of PIL's registry: PCX, DCX, PSD, TGA, ICO,
+  CUR, DIB, SGI, SUN, QOI, MSP, IM, XBM, XPM, PIXAR, SPIDER, GBR, IMT,
+  MCIDAS and XVTHUMB (``utils/raster_formats.py``, host C++
+  ``csrc/raster_decode.cpp``).
+
+Every file's format is the one ``Image.open`` finds: its plugin order and
+the exceptions it catches (``raster_formats.identify``), so a header that
+two plugins' tests let in ends where PIL ends.
 
 One deliberate difference: an arithmetic-coded JPEG over 64 KiB, which PIL
 12.1 fails on (it feeds libjpeg 64 KiB at a time, and the arithmetic
@@ -52,8 +60,13 @@ baseline JPEG (:func:`save_jpeg`, host C++ ``csrc/image_encode.cpp``);
 :func:`resize_bilinear` is PIL's bilinear resize.
 
 Everything else raises :class:`UnsupportedImageFormat` naming the variant:
-other RIFF files than WebP; a WebP or JPEG 2000 file PIL refuses (and a
-JPEG 2000 file with high-throughput code-blocks or a Part 2
+the formats PIL identifies and the port does not decode (``_NOT_DECODED``:
+the block-texture formats, ICNS, PCD, FITS, FLI, IPTC and AVIF queued;
+EPS, WMF, MPEG, BUFR, GRIB, HDF5, which PIL cannot decode here either);
+a raster file PIL refuses, and a file whose header PIL's reader rejects,
+by the plugin that let it in; other RIFF files than WebP; a WebP or JPEG
+2000 file PIL refuses (and a JPEG 2000 file with high-throughput
+code-blocks or a Part 2
 multi-component transform, which no oracle file here holds); JPEG of another precision than 8 bits, with 2
 components, hierarchical, arithmetic-coded lossless or with a DNL marker
 (PIL or libjpeg-turbo refuse them all); JPEG- or PNG-in-BMP and the BMP
@@ -76,7 +89,7 @@ from typing import List
 import numpy as np
 
 from citlab_as_tpu_torch.utils import (bmp_gif, image_encode_native, image_native, jpeg2000,
-                                       webp)
+                                       raster_formats, webp)
 
 _IMG_ENDINGS = ("tif", "jpg", "png")
 
@@ -116,15 +129,31 @@ class UnsupportedImageFormat(ValueError):
 
 
 _SUPPORTED = ("PNG, PNM, .npy, 8-bit JPEG (Huffman, arithmetic, lossless), TIFF, BMP, GIF, "
-              "WebP, JPEG 2000")
+              "WebP, JPEG 2000, PCX, DCX, PSD, TGA, ICO, CUR, DIB, SGI, SUN, QOI, MSP, IM, XBM, "
+              "XPM, PIXAR, SPIDER, GBR, IMT, MCIDAS, XVTHUMB")
+# the formats of PIL's registry that PIL identifies and the port does not decode
+_NOT_DECODED = {
+    "AVIF": "AVIF (queued, ROADMAP item 20: an AV1 intra-frame decoder)",
+    "BLP": "BLP (queued, ROADMAP item 20: BC1-BC7 block textures)",
+    "DDS": "DDS (queued, ROADMAP item 20: BC1-BC7 block textures)",
+    "FTEX": "FTEX (queued, ROADMAP item 20: BC1-BC7 block textures)",
+    "ICNS": "ICNS (queued, ROADMAP item 20)", "PCD": "PCD (queued, ROADMAP item 20)",
+    "FITS": "FITS (queued, ROADMAP item 20)", "FLI": "FLI (queued, ROADMAP item 20)",
+    "IPTC": "IPTC (queued, ROADMAP item 20)",
+    "EPS": "EPS (PIL needs Ghostscript)", "WMF": "WMF (PIL draws it only on Windows)",
+    "MPEG": "MPEG (PIL identifies it and has no decoder)",
+    "BUFR": "BUFR (PIL's stub plugin has no decoder)",
+    "GRIB": "GRIB (PIL's stub plugin has no decoder)",
+    "HDF5": "HDF5 (PIL's stub plugin has no decoder)"}
 
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
 _PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
-_NATIVE_MAGICS = (b"\xff\xd8", b"II*\x00", b"MM\x00*", b"II+\x00", b"MM\x00+")
 
 
-def _format_name(head: bytes, path: str) -> str:
+def _format_name(head: bytes, path: str, tried=()) -> str:
+    """A file no plugin of PIL's opens: the format whose accept test let it
+    in, and why PIL's reader turned it away."""
     if head.startswith(b"\x00\x00\x00\x0cjP"):
         return "JPEG 2000 whose signature box is malformed (PIL refuses it)"
     if head.startswith(b"\xff\x4f"):
@@ -134,8 +163,28 @@ def _format_name(head: bytes, path: str) -> str:
             return (f"WebP whose first chunk is {head[12:16]!r} (PIL opens 'VP8 ', 'VP8L' "
                     "and 'VP8X')")
         return "RIFF, not WebP"
+    if head.startswith(b"8BPS") and len(head) >= 26:
+        bits, mode = struct.unpack_from(">H", head, 22)[0], struct.unpack_from(">H", head, 24)[0]
+        return (f"PSD of {bits}-bit samples in colour mode {mode} (PIL has no mode for it and "
+                "cannot identify the file)")
+    if tried:
+        return " / ".join(f"{name} whose header PIL's reader rejects ({why})"
+                          for name, why in tried)
     ext = os.path.splitext(path)[1]
     return f"unknown ({ext or 'no extension'})"
+
+
+def _identify(data: bytes, path: str):
+    """PIL's format of the file (raster_formats.identify) or a refusal."""
+    try:
+        fmt, im = raster_formats.identify(data)
+    except image_native.NativeDecodeError as e:
+        raise UnsupportedImageFormat(f"{path}: {e}") from None
+    if fmt is None or fmt in _NOT_DECODED:
+        name = _NOT_DECODED.get(fmt) or _format_name(data[:64], path, im or ())
+        raise UnsupportedImageFormat(
+            f"{path}: image format {name} is not supported ({_SUPPORTED})")
+    return fmt, im
 
 
 def _png_chunks(data: bytes):
@@ -143,6 +192,31 @@ def _png_chunks(data: bytes):
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         yield kind, data[pos + 8:pos + 8 + length]
+        pos += 12 + length
+
+
+def _png_broken(data: bytes):
+    """Why PIL's PNG open rejects the chunks before the first IDAT (a chunk
+    type of other than four word characters, a bad or missing CRC), else
+    None: PIL then cannot identify the file."""
+    pos = len(_PNG_SIG)
+    while True:
+        head = data[pos:pos + 8]
+        if len(head) < 8:
+            return None
+        length, kind = struct.unpack(">I4s", head)
+        if kind == b"IDAT":
+            return None
+        if not re.match(rb"\w\w\w\w", kind):
+            return f"chunk type {kind!r}"
+        body = data[pos + 8:pos + 8 + length]
+        crc = data[pos + 8 + length:pos + 12 + length]
+        if len(body) < length:
+            return None
+        if len(crc) < 4 or struct.unpack(">I", crc)[0] != zlib.crc32(kind + body):
+            return f"bad checksum in {kind!r}"
+        if kind == b"IEND":
+            return None
         pos += 12 + length
 
 
@@ -237,6 +311,9 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
     grey is PIL's mode "I;16", uint16 [H, W]. tRNS on a grey or RGB image
     changes no pixel of PIL's "L" or "RGB" conversion, so it is ignored."""
     w, h, depth, ctype, interlace = _png_header(data, path)
+    broken = _png_broken(data)
+    if broken:
+        raise UnsupportedImageFormat(f"{path}: broken PNG ({broken}; PIL cannot identify it)")
     if ctype not in _PNG_CHANNELS:
         raise UnsupportedImageFormat(f"{path}: PNG colour type {ctype}")
     allowed = {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8)}.get(ctype, (8, 16))
@@ -423,10 +500,6 @@ def _decode_pnm(data: bytes, path: str) -> np.ndarray:
     return image_native.cmyk_to_rgb(px) if mode == "CMYK" else px
 
 
-def _is_pnm(head: bytes) -> bool:
-    return head[:1] == b"P" and head[1:2] != b"" and head[1:2] in b"0123456fy"
-
-
 def _decode(path: str, mode: str = "L") -> np.ndarray:
     if path.endswith(".npy"):
         arr = np.load(path)
@@ -436,21 +509,20 @@ def _decode(path: str, mode: str = "L") -> np.ndarray:
         return arr
     with open(path, "rb") as f:
         data = f.read()
-    if data.startswith(_PNG_SIG):
+    fmt, im = _identify(data, path)
+    if fmt == "PNG":
         return _decode_png(data, path)
-    if _is_pnm(data):
+    if fmt == "PPM":
         return _decode_pnm(data, path)
-    if data.startswith(_NATIVE_MAGICS):
+    if fmt in ("JPEG", "TIFF"):
         return _native(image_native.decode, data, path)
-    if bmp_gif.is_bmp(data) or bmp_gif.is_gif(data):
+    if fmt in ("BMP", "GIF"):
         return _native(lambda d: bmp_gif.decode(d, mode), data, path)
-    if webp.is_webp(data):
+    if fmt == "WEBP":
         return _native(webp.decode, data, path)
-    if jpeg2000.is_jpeg2000(data):
+    if fmt == "JPEG2000":
         return _native(lambda d: jpeg2000.decode(d, mode), data, path)
-    raise UnsupportedImageFormat(
-        f"{path}: image format {_format_name(data[:16], path)} is not "
-        f"supported ({_SUPPORTED})")
+    return _native(lambda d: im.decode(d, mode), data, path)
 
 
 def _native(fn, data: bytes, path: str):
@@ -505,26 +577,26 @@ def image_size(path_to_image: str):
         arr = np.load(path_to_image, mmap_mode="r")
         return int(arr.shape[1]), int(arr.shape[0])
     with open(path_to_image, "rb") as f:
-        head = f.read(64)
-        if head.startswith(_PNG_SIG):
-            w, h = _png_header(head, path_to_image)[:2]
-            return w, h
-        if _is_pnm(head):
-            _, _, w, h, _, _ = _pnm_header(head + f.read(), path_to_image)
-            return w, h
-        if head.startswith(_NATIVE_MAGICS):
-            # the JPEG frame header or the TIFF IFD may lie anywhere in the file
-            w, h, _ = _native(image_native.info, head + f.read(), path_to_image)
-            return w, h
-        if bmp_gif.is_bmp(head) or bmp_gif.is_gif(head):
-            return _native(bmp_gif.size, head + f.read(), path_to_image)
-        if webp.is_webp(head):
-            return _native(webp.size, head + f.read(), path_to_image)
-        if jpeg2000.is_jpeg2000(head):
-            return _native(jpeg2000.size, head + f.read(), path_to_image)
-    raise UnsupportedImageFormat(
-        f"{path_to_image}: image format {_format_name(head, path_to_image)} "
-        f"is not supported ({_SUPPORTED})")
+        data = f.read()
+    fmt, im = _identify(data, path_to_image)
+    if fmt == "PNG":
+        broken = _png_broken(data)
+        if broken:
+            raise UnsupportedImageFormat(
+                f"{path_to_image}: broken PNG ({broken}; PIL cannot identify it)")
+        return _png_header(data, path_to_image)[:2]
+    if fmt == "PPM":
+        return _pnm_header(data, path_to_image)[2:4]
+    if fmt in ("JPEG", "TIFF"):
+        # the JPEG frame header or the TIFF IFD may lie anywhere in the file
+        return _native(image_native.info, data, path_to_image)[:2]
+    if fmt in ("BMP", "GIF"):
+        return _native(bmp_gif.size, data, path_to_image)
+    if fmt == "WEBP":
+        return _native(webp.size, data, path_to_image)
+    if fmt == "JPEG2000":
+        return _native(jpeg2000.size, data, path_to_image)
+    return tuple(im.size)
 
 
 def load_image(path_to_image: str, mode: str = "L") -> np.ndarray:

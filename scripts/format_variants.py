@@ -32,6 +32,7 @@ import ctypes
 import functools
 import glob
 import os
+import re
 import struct
 import zlib
 
@@ -665,6 +666,7 @@ def small_variants():
         out.append((f"gif_{name}.gif", lambda p, make=make: _write_bytes(p, gif_bytes(**make()))))
     out += webp_small_variants()
     out += jpeg2000_small_variants()
+    out += raster_small_variants()
     return out
 
 
@@ -2149,3 +2151,1224 @@ def jpeg2000_refused(grey_j2k: bytes, rgb_jp2: bytes):
         ("truncated-after-main-header", grey_j2k[:grey_j2k.index(b"\xff\x90") + 20],
          "past the end"),
     ]
+
+
+# ------------------------------------------------------------------ raster formats
+# PCX / DCX, PSD, TGA, ICO / CUR, DIB, SGI, SUN, QOI, MSP, IM, XBM, XPM,
+# PIXAR, SPIDER, GBR, IMT, MCIDAS and XVTHUMB, byte by byte (no PIL): the
+# layouts PIL's readers take, and the faults they refuse.
+
+def _pack_bits(bits):
+    """[h, w] 0/1 -> rows of whole bytes, most significant bit first."""
+    return np.packbits(np.asarray(bits, np.uint8), axis=1)
+
+
+def _bit_planes(index, planes):
+    """[h, w] indices -> [h, planes * ceil(w / 8)]: plane k holds bit k."""
+    return np.concatenate([_pack_bits((np.asarray(index) >> k) & 1) for k in range(planes)],
+                          axis=1)
+
+
+def pcx_rle(lines, rng):
+    """PCX runs of each line (bytes >= 0xC0 always as a run, other runs of
+    2-63 at random), no run across a line's end."""
+    out = bytearray()
+    for line in lines:
+        x = 0
+        while x < len(line):
+            run = 1
+            while x + run < len(line) and run < 63 and line[x + run] == line[x]:
+                run += 1
+            v = int(line[x])
+            if run > 1 or v >= 0xC0 or rng.rand() < 0.05:
+                if run > 1 and rng.rand() < 0.3:
+                    run = int(rng.randint(1, run + 1))
+                out += bytes([0xC0 | run, v])
+            else:
+                out.append(v)
+            x += run
+    return bytes(out)
+
+
+def pcx_bytes(samples, bits, planes, version=5, palette=None, end_palette=None,
+              provided_stride=None, seed=0):
+    """A PCX of ``samples``: [h, w] 0/1 for 1 bit, indices for the 2- and
+    4-plane bit planes, bytes for 8 bits, [h, w, 3] for planar RGB. Each
+    plane line holds PIL's stride (the samples' bytes, made even where the
+    header's bytes per line, ``provided_stride``, differ). ``palette``: the
+    16 header entries; ``end_palette``: 256 RGB entries after a 12 byte."""
+    samples = np.asarray(samples)
+    h, w = samples.shape[:2]
+    if bits == 1 and planes == 1:
+        plane_rows = [_pack_bits(samples)]
+    elif bits == 1:
+        plane_rows = [_pack_bits((samples >> k) & 1) for k in range(planes)]
+    elif planes == 1:
+        plane_rows = [samples.astype(np.uint8)]
+    else:
+        plane_rows = [samples[..., k].astype(np.uint8) for k in range(planes)]
+    stride = (w * bits + 7) // 8
+    provided = stride if provided_stride is None else provided_stride
+    if provided != stride:
+        stride += stride % 2
+    lines = np.zeros((h, planes * stride), np.uint8)
+    for k, p in enumerate(plane_rows):
+        lines[:, k * stride:k * stride + p.shape[1]] = p
+    head = struct.pack("<BBBBHHHHHH", 10, version, 1, bits, 0, 0, w - 1, h - 1, 300, 300)
+    pal = np.zeros(48, np.uint8)
+    if palette is not None:
+        pal[:np.asarray(palette).size] = np.asarray(palette, np.uint8).ravel()[:48]
+    head += pal.tobytes() + bytes([0, planes]) + struct.pack("<HH", provided, 1)
+    head = head.ljust(128, b"\0")
+    out = head + pcx_rle(lines, np.random.RandomState(seed))
+    if end_palette is not None:
+        out += b"\x0c" + np.asarray(end_palette, np.uint8).tobytes()
+    return out
+
+
+def dcx_bytes(pages):
+    """An Intel DCX of PCX files: the magic, the page offsets, a zero."""
+    offset = 4 + 4 * (len(pages) + 1)
+    table = b""
+    for p in pages:
+        table += struct.pack("<I", offset)
+        offset += len(p)
+    return struct.pack("<I", 0x3ADE68B1) + table + b"\0\0\0\0" + b"".join(pages)
+
+
+def packbits_row(row, rng):
+    """PackBits of one row: runs of 2-128 repeated bytes, literals of 1-128."""
+    out = bytearray()
+    x, n = 0, len(row)
+    while x < n:
+        run = 1
+        while x + run < n and run < 128 and row[x + run] == row[x]:
+            run += 1
+        if run >= 2 and (run >= 3 or rng.rand() < 0.5):
+            out += bytes([257 - run, int(row[x])])
+            x += run
+            continue
+        lit = 1
+        while x + lit < n and lit < 128 and not (x + lit + 1 < n
+                                                 and row[x + lit] == row[x + lit + 1]):
+            lit += 1
+        if rng.rand() < 0.2 and lit > 1:
+            lit = int(rng.randint(1, lit + 1))
+        out += bytes([lit - 1]) + bytes(row[x:x + lit].astype(np.uint8))
+        x += lit
+    return bytes(out)
+
+
+def psd_bytes(channels, mode, bits=8, compression=0, colour_data=b"", resources=False,
+              layers=False, seed=0):
+    """A PSD whose composite image holds ``channels`` ([c, h, w] bytes, or
+    [c, h, w] 0/1 for 1 bit), colour mode ``mode`` (0 bitmap, 1 grey, 2
+    indexed, 3 RGB, 4 CMYK, 7 multichannel, 8 duotone, 9 Lab), raw or
+    PackBits; ``colour_data`` is the colour mode data section (an indexed
+    image's 768-byte palette), ``resources`` and ``layers`` add an image
+    resource block and a layer section (PIL skips both for the composite)."""
+    rng = np.random.RandomState(seed)
+    channels = np.asarray(channels)
+    c, h, w = channels.shape
+    out = b"8BPS" + struct.pack(">H6xHIIHH", 1, c, h, w, bits, mode)
+    out += struct.pack(">I", len(colour_data)) + colour_data
+    res = b""
+    if resources:
+        for rid, body in ((1005, bytes(16)), (1039, b"icc-profile")):
+            res += b"8BIM" + struct.pack(">H", rid) + b"\x04name\x00" + struct.pack(
+                ">I", len(body)) + body + (b"\0" if len(body) % 2 else b"")
+    out += struct.pack(">I", len(res)) + res
+    lay = b""
+    if layers:
+        record = struct.pack(">iiiiH", 0, 0, h, w, 1) + struct.pack(">hI", 0, h * w + 2)
+        record += b"8BIMnorm" + bytes([255, 0, 0, 0]) + struct.pack(">I", 8) + bytes(8)
+        info = struct.pack(">h", 1) + record + struct.pack(">H", 0) + bytes(h * w)
+        info += b"\0" * (len(info) % 2)
+        lay = struct.pack(">I", len(info)) + info + struct.pack(">I", 0)
+    out += struct.pack(">I", len(lay)) + lay
+    rows = [_pack_bits(ch) if bits == 1 else ch.astype(np.uint8) for ch in channels]
+    if compression == 0:
+        return out + struct.pack(">H", 0) + b"".join(r.tobytes() for r in rows)
+    coded = [[packbits_row(row, rng) for row in r] for r in rows]
+    counts = b"".join(struct.pack(">H", len(x)) for r in coded for x in r)
+    return out + struct.pack(">H", 1) + counts + b"".join(x for r in coded for x in r)
+
+
+def tga_rle(pixels, w, depth_bytes, rng):
+    """TGA RLE packets of the file's pixel stream ([n, depth] bytes, rows of
+    w pixels): runs stay inside a row, literals may cross rows."""
+    out = bytearray()
+    n, i = len(pixels), 0
+    while i < n:
+        row_end = (i // w + 1) * w
+        run = 1
+        while i + run < row_end and run < 128 and (pixels[i + run] == pixels[i]).all():
+            run += 1
+        if run >= 2 and rng.rand() < 0.8:
+            out += bytes([0x80 | (run - 1)]) + pixels[i].tobytes()
+            i += run
+            continue
+        lit = int(min(rng.randint(1, 129), n - i))
+        out += bytes([lit - 1]) + pixels[i:i + lit].tobytes()
+        i += lit
+    return bytes(out)
+
+
+def tga_bytes(pixels, imagetype, depth, colormap=None, flags=0x20, id_field=b"",
+              colormaptype=None, seed=0):
+    """A Targa of ``pixels``: [h, w, depth / 8] bytes as stored for each
+    pixel (indices, grey, grey + alpha, BGR(A), 16-bit words), or [h, w]
+    0/1 for 1 bit; written in the order ``flags`` (bits 4-5) gives, raw
+    for image types 1-3, RLE for 9-11. ``colormap``: (first entry, [n,
+    map depth / 8] bytes, map depth)."""
+    pixels = np.asarray(pixels, np.uint8)
+    h, w = pixels.shape[:2]
+    stored = pixels if flags & 0x20 else pixels[::-1]
+    if flags & 0x10:
+        stored = stored[:, ::-1]
+    start, entries, mapdepth = colormap if colormap is not None else (0, np.zeros((0, 1)), 0)
+    entries = np.asarray(entries, np.uint8)
+    cmt = (1 if colormap is not None else 0) if colormaptype is None else colormaptype
+    head = struct.pack("<BBBHHBHHHHBB", len(id_field), cmt, imagetype, start, len(entries),
+                       mapdepth, 0, 0, w, h, depth, flags)
+    if depth == 1:
+        body = _pack_bits(stored).tobytes()
+    elif imagetype & 8:
+        nb = depth // 8
+        body = tga_rle(stored.reshape(h * w, nb), w, nb, np.random.RandomState(seed))
+    else:
+        body = stored.tobytes()
+    return head + id_field + entries.tobytes() + body
+
+
+def dib_icon(index_or_rgb, bits, palette=None, mask=None, alpha=None):
+    """An icon's DIB: a 40-byte header of twice the height, the XOR image
+    bottom row first, then the AND mask (1 bit, rows of 4 bytes)."""
+    px = np.asarray(index_or_rgb)
+    h, w = px.shape[:2]
+    if bits == 32:
+        bgra = np.concatenate([px[..., ::-1], (alpha if alpha is not None else
+                                               np.full((h, w), 255))[..., None]], axis=-1)
+        xor = bgra.astype(np.uint8).reshape(h, -1)[::-1].tobytes()
+    elif bits == 24:
+        xor = _bmp_rows(px[..., ::-1], 24)[::-1].tobytes()
+    else:
+        xor = _bmp_rows(px, bits)[::-1].tobytes()
+    pal = b""
+    if palette is not None:
+        p = np.asarray(palette, np.uint8)[:, ::-1]
+        pal = np.concatenate([p, np.zeros((len(p), 1), np.uint8)], axis=1).tobytes()
+    m = np.zeros((h, w), np.uint8) if mask is None else np.asarray(mask, np.uint8)
+    and_rows = _bmp_rows(m, 1)[::-1].tobytes()
+    info = struct.pack("<IiiHHIIiiII", 40, w, 2 * h, 1, bits, 0, len(xor) + len(and_rows),
+                       0, 0, 0 if palette is None else len(palette), 0)
+    return info + pal + xor + and_rows
+
+
+def icon_file(images, kind=1):
+    """An ICO (``kind`` 1) or CUR (2) of [(image bytes, width byte, height
+    byte, colours, bpp)] in directory order."""
+    out = struct.pack("<HHH", 0, kind, len(images))
+    offset = 6 + 16 * len(images)
+    body = b""
+    for data, wb, hb, colours, bpp in images:
+        out += struct.pack("<BBBBHHII", wb, hb, colours, 0, 1 if kind == 1 else 3,
+                           bpp if kind == 1 else 4, len(data), offset + len(body))
+        body += data
+    return out + body
+
+
+def sgi_rle_row(row, bpc, rng):
+    """SGI RLE of one row of one channel: copies (0x80 | n) and runs, ended
+    by a zero atom; 16-bit atoms are big-endian words."""
+    atoms = []
+    x, n = 0, len(row)
+    while x < n:
+        run = 1
+        while x + run < n and run < 127 and row[x + run] == row[x]:
+            run += 1
+        if run >= 2 and rng.rand() < 0.8:
+            atoms += [run, int(row[x])]
+            x += run
+            continue
+        lit = int(min(rng.randint(1, 128), n - x))
+        atoms += [0x80 | lit] + [int(v) for v in row[x:x + lit]]
+        x += lit
+    atoms.append(0)
+    return struct.pack(">" + ("B" if bpc == 1 else "H") * len(atoms), *atoms)
+
+
+def sgi_bytes(samples, bpc=1, dimension=None, rle=False, seed=0, name=b"test"):
+    """An SGI image of ``samples`` [h, w, z] (uint8 or uint16), bottom row
+    first, channel after channel; RLE with its offset and length tables."""
+    s = np.asarray(samples)
+    h, w, z = s.shape
+    dimension = dimension or (3 if z > 1 else 2)
+    head = struct.pack(">HBBHHHHII4x", 474, int(rle), bpc, dimension, w, h, z, 0,
+                       255 if bpc == 1 else 65535)
+    head = (head + name.ljust(80, b"\0")[:80] + struct.pack(">I", 0)).ljust(512, b"\0")
+    planes = s.transpose(2, 0, 1)[:, ::-1]
+    if not rle:
+        dt = ">u1" if bpc == 1 else ">u2"
+        return head + planes.astype(dt).tobytes()
+    rng = np.random.RandomState(seed)
+    rows = [[sgi_rle_row(r, bpc, rng) for r in plane] for plane in planes]
+    offset = 512 + 8 * h * z
+    starts, lengths, body = [], [], b""
+    for plane in rows:
+        for r in plane:
+            starts.append(offset + len(body))
+            lengths.append(len(r))
+            body += r
+    return head + struct.pack(f">{h * z}I", *starts) + struct.pack(f">{h * z}I", *lengths) + body
+
+
+def sun_rle(data):
+    """SUN RLE: 0x80 as 0x80 0, runs of 3-256 (or of 0x80) as 0x80 n-1 v."""
+    out = bytearray()
+    i, n = 0, len(data)
+    while i < n:
+        run = 1
+        while i + run < n and run < 256 and data[i + run] == data[i]:
+            run += 1
+        if run >= 3 or (data[i] == 0x80 and run >= 2):
+            out += bytes([0x80, run - 1, data[i]])
+            i += run
+        elif data[i] == 0x80:
+            out += b"\x80\x00"
+            i += 1
+        else:
+            out.append(data[i])
+            i += 1
+    return bytes(out)
+
+
+def sun_bytes(pixels, depth, file_type=1, palette=None, palette_type=1):
+    """A Sun raster of ``pixels`` ([h, w] 0/1 for 1 bit, indices or grey for
+    4 and 8 bits, [h, w, 3 or 4] as stored for 24 and 32 bits), rows padded
+    to 16 bits; file type 2 RLE-codes the padded rows."""
+    p = np.asarray(pixels)
+    h, w = p.shape[:2]
+    if depth == 1:
+        rows = _pack_bits(p)
+    elif depth == 4:
+        rows = _pack_bits(((p[..., None] >> np.arange(3, -1, -1)) & 1).reshape(h, -1))
+    else:
+        rows = p.reshape(h, -1).astype(np.uint8)
+    stride = ((w * depth + 15) // 16) * 2
+    padded = np.zeros((h, stride), np.uint8)
+    padded[:, :rows.shape[1]] = rows
+    body = padded.tobytes()
+    if file_type == 2:
+        body = sun_rle(body)
+    pal = b"" if palette is None else np.asarray(palette, np.uint8).T.tobytes()
+    head = struct.pack(">8I", 0x59A66A95, w, h, depth, len(body), file_type,
+                       palette_type if pal else 0, len(pal))
+    return head + pal + body
+
+
+def qoi_bytes(pixels, seed=0, ops=("index", "diff", "luma", "run", "rgb", "rgba")):
+    """QOI of [h, w, 3 or 4] pixels with every op, against the state PIL's
+    decoder keeps (a run leaves the index as it is); ``ops`` limits the ops
+    used (RGBA always where alpha changes)."""
+    rng = np.random.RandomState(seed)
+    px = np.asarray(pixels, np.uint8)
+    h, w, ch = px.shape
+    flat = px.reshape(-1, ch)
+    index = [(0, 0, 0, 0)] * 64
+    prev = (0, 0, 0, 255)
+    out = bytearray(b"qoif" + struct.pack(">IIBB", w, h, ch, 0))
+    i, n = 0, len(flat)
+    while i < n:
+        v = tuple(int(c) for c in flat[i]) + ((prev[3],) if ch == 3 else ())
+        if "run" in ops and v == prev:
+            run = 1
+            while i + run < n and run < 62 and tuple(int(c) for c in flat[i + run]) == v[:ch]:
+                run += 1
+            out.append(0xC0 | (run - 1))
+            i += run
+            continue
+        hsh = (v[0] * 3 + v[1] * 5 + v[2] * 7 + v[3] * 11) % 64
+        d = [(v[k] - prev[k] + 128) % 256 - 128 for k in range(3)]
+        if "index" in ops and index[hsh] == v and rng.rand() < 0.9:
+            out.append(hsh)
+        elif v[3] != prev[3] or "rgb" not in ops and "rgba" in ops and rng.rand() < 0.5:
+            out += bytes([0xFF, *v])
+        elif "diff" in ops and all(-2 <= x <= 1 for x in d) and rng.rand() < 0.9:
+            out.append(0x40 | (d[0] + 2) << 4 | (d[1] + 2) << 2 | (d[2] + 2))
+        elif ("luma" in ops and -32 <= d[1] <= 31 and -8 <= d[0] - d[1] <= 7
+              and -8 <= d[2] - d[1] <= 7 and rng.rand() < 0.9):
+            out += bytes([0x80 | (d[1] + 32), (d[0] - d[1] + 8) << 4 | (d[2] - d[1] + 8)])
+        elif "rgb" in ops:
+            out += bytes([0xFE, *v[:3]])
+        else:
+            out += bytes([0xFF, *v])
+        index[hsh] = v
+        prev = v
+        i += 1
+    return bytes(out + b"\0" * 7 + b"\1")
+
+
+def msp_bytes(bits, version=1, seed=0):
+    """A Windows Paint file of [h, w] 0/1 (1 white): version 1 raw rows,
+    version 2 a row map and per-row runs (0, count, value) and literals."""
+    b = np.asarray(bits, np.uint8)
+    h, w = b.shape
+    rows = _pack_bits(b)
+    words = [0x6144, 0x4D6E, w, h, 1, 1, 0, 0, 0, 0, 0, 0, 0, 0, 0, 0]
+    if version == 2:
+        words[:2] = [0x694C, 0x536E]
+    chk = 0
+    for x in words:
+        chk ^= x
+    words[12] = chk
+    head = struct.pack("<16H", *words)
+    if version == 1:
+        return head + rows.tobytes()
+    rng = np.random.RandomState(seed)
+    coded = []
+    for row in rows:
+        out, x = bytearray(), 0
+        if (row == 0xFF).all() and rng.rand() < 0.5:
+            coded.append(b"")                  # PIL: an empty row is a white line
+            continue
+        while x < len(row):
+            run = 1
+            while x + run < len(row) and run < 255 and row[x + run] == row[x]:
+                run += 1
+            if run >= 3 or rng.rand() < 0.3:
+                out += bytes([0, run, int(row[x])])
+                x += run
+            else:
+                lit = int(min(rng.randint(1, 20), len(row) - x))
+                out += bytes([lit]) + row[x:x + lit].tobytes()
+                x += lit
+        coded.append(bytes(out))
+    return head + struct.pack(f"<{h}H", *map(len, coded)) + b"".join(coded)
+
+
+def im_bytes(type_name, w, h, body, lut=None, lines=(), pad=True):
+    """An IFUNC IM file: the header lines, ``Lut`` if a 768-byte palette is
+    given, padding to 511 bytes and a 0x1A, the palette, then ``body``
+    (the samples as the type stores them, bottom row first)."""
+    head = f"Image type: {type_name}\r\nName: test\r\nImage size (x*y): {w}*{h}\r\n"
+    head += "".join(f"{x}\r\n" for x in lines)
+    if lut is not None:
+        head += "Lut: 1\r\n"
+    data = head.encode("latin-1")
+    data = (data.ljust(511, b"\0") if pad else data) + b"\x1a"
+    if lut is not None:
+        data += np.asarray(lut, np.uint8).tobytes()
+    return data + body
+
+
+def im_samples(type_name, w, h, rng):
+    """A random body for each IM header type (its bytes per line, h lines)."""
+    from math import ceil
+    table = {"1": 1, "L": 8, "P;2": 2, "P;4": 4, "RGB": 24, "RGB;L": 24, "RLB": 24,
+             "LA;L": 16, "PA;L": 16, "RGBA;L": 32, "RGBX;L": 32, "CMYK;L": 32,
+             "YCbCr;L": 24, "I;16": 16, "I;16L": 16, "I;16B": 16, "I;32": 32, "I;32S": 32}
+    raw = IM_TYPES[type_name][1]
+    if raw in ("RGB;T", "RYB;T"):
+        return rng.randint(0, 256, 3 * w * h).astype(np.uint8).tobytes()
+    if raw.startswith("F;"):
+        t = raw[2:]
+        if t in ("8", "8S", "16", "16S", "32", "32F"):
+            n = {"8": 1, "8S": 1, "16": 2, "16S": 2, "32": 4, "32F": 4}[t]
+            if t == "32F":
+                return (rng.uniform(-20, 300, w * h).astype("<f4")).tobytes()
+            if t == "32":
+                return rng.randint(0, 400, w * h).astype("<u4").tobytes()
+            return rng.randint(0, 256, n * w * h).astype(np.uint8).tobytes()
+        bits = int(t)
+        return rng.randint(0, 256, ceil(w * bits / 8) * h + 4).astype(np.uint8).tobytes()
+    n = ceil(w * table[raw] / 8) * h
+    data = rng.randint(0, 256, n).astype(np.uint8)
+    if raw in ("I;32", "I;32S"):
+        data = rng.randint(-100, 400, w * h).astype("<i4").view(np.uint8)
+    return data.tobytes()
+
+
+# PIL 12.1's ImImagePlugin.OPEN: header type -> (mode, rawmode)
+IM_TYPES = {"0 1 image": ("1", "1"), "L 1 image": ("1", "1"), "Greyscale image": ("L", "L"),
+            "Grayscale image": ("L", "L"), "RGB image": ("RGB", "RGB;L"),
+            "RLB image": ("RGB", "RLB"), "RYB image": ("RGB", "RLB"), "B1 image": ("1", "1"),
+            "B2 image": ("P", "P;2"), "B4 image": ("P", "P;4"), "X 24 image": ("RGB", "RGB"),
+            "L 32 S image": ("I", "I;32"), "L 32 F image": ("F", "F;32"),
+            "RGB3 image": ("RGB", "RGB;T"), "RYB3 image": ("RGB", "RYB;T"),
+            "LA image": ("LA", "LA;L"), "PA image": ("LA", "PA;L"),
+            "RGBA image": ("RGBA", "RGBA;L"), "RGBX image": ("RGB", "RGBX;L"),
+            "CMYK image": ("CMYK", "CMYK;L"), "YCC image": ("YCbCr", "YCbCr;L")}
+for _t in ("8", "8S", "16", "16S", "32", "32F"):
+    IM_TYPES[f"L {_t} image"] = IM_TYPES[f"L*{_t} image"] = ("F", f"F;{_t}")
+for _t in ("16", "16L", "16B"):
+    IM_TYPES[f"L {_t} image"] = IM_TYPES[f"L*{_t} image"] = (f"I;{_t}", f"I;{_t}")
+IM_TYPES["L 32S image"] = IM_TYPES["L*32S image"] = ("I", "I;32S")
+for _t in range(2, 33):
+    IM_TYPES[f"L*{_t} image"] = ("F", f"F;{_t}")
+
+
+def xbm_bytes(bits, name="img", hotspot=None, per_line=12):
+    """An X11 bitmap of [h, w] 0/1 (bit 0 of each byte the leftmost pixel)."""
+    b = np.asarray(bits, np.uint8)
+    h, w = b.shape
+    rows = np.packbits(b, axis=1, bitorder="little")
+    head = f"#define {name}_width {w}\n#define {name}_height {h}\n"
+    if hotspot is not None:
+        head += f"#define {name}_x_hot {hotspot[0]}\n#define {name}_y_hot {hotspot[1]}\n"
+    vals = [f"0x{v:02x}" for v in rows.ravel()]
+    body = ",\n".join(", ".join(vals[i:i + per_line]) for i in range(0, len(vals), per_line))
+    return (head + f"static char {name}_bits[] = {{\n{body}}};\n").encode()
+
+
+def xpm_bytes(index, colours, cpp=1, transparent=None, pixels_comment=True):
+    """An XPM of [h, w] indices into ``colours`` ([n, 3] RGB), ``cpp``
+    characters per pixel; ``transparent``: a key given the colour None."""
+    idx = np.asarray(index)
+    h, w = idx.shape
+    chars = [chr(c) for c in range(35, 127) if chr(c) not in '"\\']
+    keys = ["".join(chars[(i // len(chars) ** k) % len(chars)] for k in range(cpp))
+            for i in range(len(colours))]
+    n = len(colours) + (transparent is not None)
+    lines = ["/* XPM */", "static char *img[] = {", "/* columns rows colors chars-per-pixel */",
+             f'"{w} {h} {n} {cpp} ",']
+    lines += [f'"{k} c #{r:02X}{g:02X}{b:02X}",' for k, (r, g, b) in zip(keys, colours)]
+    if transparent is not None:
+        lines.append(f'"{transparent} c None",')
+    if pixels_comment:
+        lines.append("/* pixels */")
+    lines += [f'"{"".join(keys[v] for v in row)}"' + ("," if y < h - 1 else "")
+              for y, row in enumerate(idx)]
+    return ("\n".join(lines) + "\n};\n").encode()
+
+
+def pixar_bytes(rgb):
+    """A PIXAR raster: the magic, height at 416, width at 418, the RGB mode
+    words (14, 2) at 424, samples from byte 1024."""
+    p = np.asarray(rgb, np.uint8)
+    h, w = p.shape[:2]
+    head = bytearray(1024)
+    head[:4] = b"\x80\xe8\x00\x00"
+    struct.pack_into("<HHxxxxHH", head, 416, h, w, 14, 2)
+    return bytes(head) + p.tobytes()
+
+
+def spider_bytes(values, big=True, stack=False):
+    """A SPIDER 2-D image of float32 [h, w]: a header of labrec records of
+    the line length, or a stack header and one image's header."""
+    v = np.asarray(values, np.float32)
+    h, w = v.shape
+    lenbyt = w * 4
+    labrec = -(-1024 // lenbyt)
+    labbyt = labrec * lenbyt
+    hdr = np.zeros(labbyt // 4, np.float32)
+
+    def header(istack, imgnum):
+        t = hdr.copy()
+        t[:27] = 0
+        t[0], t[1], t[4], t[11], t[12] = 1, h, 1, w, labrec
+        t[21], t[22], t[23], t[25], t[26] = labbyt, lenbyt, istack, 1, imgnum
+        return t.astype(">f4" if big else "<f4").tobytes()
+    dt = ">f4" if big else "<f4"
+    if stack:
+        return header(2, 0) + header(0, 1) + v.astype(dt).tobytes()
+    return header(0, 0) + v.astype(dt).tobytes()
+
+
+def gbr_bytes(pixels, version=2, name=b"brush"):
+    """A GIMP brush: [h, w] grey (depth 1) or [h, w, 4] RGBA (depth 4)."""
+    p = np.asarray(pixels, np.uint8)
+    h, w = p.shape[:2]
+    depth = 1 if p.ndim == 2 else 4
+    comment = name + b"\0"
+    if version == 1:
+        head = struct.pack(">5I", 20 + len(comment), 1, w, h, depth)
+    else:
+        head = struct.pack(">5I", 28 + len(comment), 2, w, h, depth) + b"GIMP" + struct.pack(
+            ">I", 25)
+    return head + comment + p.tobytes()
+
+
+def imt_bytes(grey, comment=True):
+    g = np.asarray(grey, np.uint8)
+    h, w = g.shape
+    head = ("* IM Tools image\n" if comment else "") + f"width {w}\nheight {h}\npixel n8\n"
+    return head.encode() + b"\x0c" + g.tobytes()
+
+
+def mcidas_bytes(values, nbytes, prefix=0):
+    """A McIdas area of [h, w] values of 1, 2 or 4 big-endian bytes, each
+    line after ``prefix`` bytes."""
+    v = np.asarray(values)
+    h, w = v.shape
+    words = np.zeros(64, ">i4")
+    words[1] = 4                               # w[2]: the area format
+    words[8], words[9], words[10] = h, w, nbytes
+    words[13], words[14], words[33] = 1, prefix, 256
+    dt = {1: ">u1", 2: ">u2", 4: ">i4"}[nbytes]
+    lines = np.zeros((h, prefix + w * nbytes), np.uint8)
+    lines[:, :prefix] = 7
+    lines[:, prefix:] = v.astype(dt).view(np.uint8).reshape(h, -1)
+    return words.tobytes() + lines.tobytes()
+
+
+def xvthumb_bytes(index):
+    idx = np.asarray(index, np.uint8)
+    h, w = idx.shape
+    return (f"P7 332\n#XVVERSION:Version 2.28\n#BUILTIN:STIPPLE\n#END_OF_COMMENTS\n"
+            f"{w} {h} 255\n").encode() + idx.tobytes()
+
+
+def _rs(name):
+    return np.random.RandomState(sum(map(ord, name)))
+
+
+def _pcx_case(bits, planes, version=5, h=13, w=6, end="grey", provided=None):
+    def make(name):
+        r = _rs(name)
+        if bits == 1 and planes == 1:
+            return pcx_bytes(r.randint(0, 2, (h, w)), 1, 1, version, provided_stride=provided,
+                             seed=r.randint(1 << 30))
+        if bits == 1:
+            return pcx_bytes(r.randint(0, 1 << planes, (h, w)), 1, planes, version,
+                             palette=r.randint(0, 256, (16, 3)), provided_stride=provided,
+                             seed=r.randint(1 << 30))
+        if planes == 3:
+            return pcx_bytes(r.randint(0, 256, (h, w, 3)), 8, 3, version,
+                             provided_stride=provided, seed=r.randint(1 << 30))
+        pal = {"grey": _grey_ramp(256), "colour": r.randint(0, 256, (256, 3)),
+               "none": None}[end]
+        return pcx_bytes(r.randint(0, 256, (h, w)), 8, 1, version, end_palette=pal,
+                         provided_stride=provided, seed=r.randint(1 << 30))
+    return make
+
+
+def _psd_case(mode, n, bits=8, compression=0, h=13, w=6, **kw):
+    def make(name):
+        r = _rs(name)
+        ch = r.randint(0, 2 if bits == 1 else 256, (n, h, w))
+        colour = kw.pop("colour_data", None)
+        if colour == "palette":
+            colour = r.randint(0, 256, 768).astype(np.uint8).tobytes()
+        elif colour == "duotone":
+            colour = bytes(r.randint(0, 256, 40).astype(np.uint8))
+        return psd_bytes(ch, mode, bits, compression, colour_data=colour or b"",
+                         seed=r.randint(1 << 30), **kw)
+    return make
+
+
+def _tga_case(imagetype, depth, flags=0x20, cmap=None, h=13, w=6, cmt=None, ident=b""):
+    def make(name):
+        r = _rs(name)
+        nb = max(1, depth // 8)
+        if depth == 1:
+            px = r.randint(0, 2, (h, w))
+        elif imagetype & 7 == 1:
+            px = r.randint(0, 40, (h, w, 1))
+        else:
+            px = r.randint(0, 256, (h, w, nb))
+            px[:, :w // 2] = px[:, :1]                 # runs for the RLE coder
+        colormap = None
+        if cmap is not None:
+            start, mapdepth, n = cmap
+            colormap = (start, r.randint(0, 256, (n, mapdepth // 8)), mapdepth)
+        return tga_bytes(px, imagetype, depth, colormap, flags, ident, cmt,
+                         seed=r.randint(1 << 30))
+    return make
+
+
+def _ico_bmp_entry(r, bits, h, w, alpha=False):
+    if bits == 32:
+        return dib_icon(r.randint(0, 256, (h, w, 3)), 32,
+                        alpha=r.randint(0, 256, (h, w)) if alpha else None)
+    if bits == 24:
+        return dib_icon(r.randint(0, 256, (h, w, 3)), 24, mask=r.randint(0, 2, (h, w)))
+    return dib_icon(r.randint(0, 1 << bits, (h, w)), bits,
+                    palette=r.randint(0, 256, (1 << bits, 3)), mask=r.randint(0, 2, (h, w)))
+
+
+def _ico_png_entry(r, h, w, ctype=6):
+    ch = {0: 1, 2: 3, 3: 1, 6: 4}[ctype]
+    pal = r.randint(0, 256, (256, 3)) if ctype == 3 else None
+    return png_bytes(r.randint(0, 256, (h, w, ch)), ctype, 8, False, seed=r.randint(100),
+                     palette=pal)
+
+
+def _ico_case(entries, kind=1):
+    """entries: [(kind "png" / bits, h, w, directory width byte or None, bpp
+    field or None, colours byte)]"""
+    def make(name):
+        r = _rs(name)
+        images = []
+        for e, h, w, wb, bpp, colours in entries:
+            data = (_ico_png_entry(r, h, w) if e == "png"
+                    else _ico_bmp_entry(r, e, h, w, alpha=True))
+            images.append((data, (w if wb is None else wb) % 256, (h if wb is None else wb) % 256,
+                           colours, (32 if e == "png" else e) if bpp is None else bpp))
+        return icon_file(images, kind)
+    return make
+
+
+def _dib_case(header, bits, **kw):
+    def make(name):
+        case = _bmp_case(f"P{bits}" if bits <= 8 else "rgb24", sum(map(ord, name)), 13, 6) \
+            if bits in (1, 4, 8, 24) else None
+        if case is None:
+            r = _rs(name)
+            case = dict(px=r.randint(0, 1 << 16 if bits == 16 else 1 << 31, (13, 6)),
+                        bits=bits)
+        case.update(kw)
+        return bmp_bytes(header=header, **case)[14:]
+    return make
+
+
+def _sgi_case(bpc, z, dimension=None, rle=False, h=13, w=6):
+    def make(name):
+        r = _rs(name)
+        s = r.randint(0, 256 if bpc == 1 else 65536, (h, w, z))
+        s[:, :3] = s[:, :1]
+        return sgi_bytes(s, bpc, dimension, rle, seed=r.randint(1 << 30))
+    return make
+
+
+def _sun_case(depth, file_type=1, palette=None, h=13, w=7):
+    def make(name):
+        r = _rs(name)
+        if depth == 1:
+            px = r.randint(0, 2, (h, w))
+        elif depth == 4:
+            px = r.randint(0, 16, (h, w))
+        elif depth == 8:
+            px = r.randint(0, palette or 256, (h, w))
+            px[:, :4] = 0x80
+        else:
+            px = r.randint(0, 256, (h, w, depth // 8))
+        pal = r.randint(0, 256, (palette, 3)) if palette else None
+        return sun_bytes(px, depth, file_type, pal)
+    return make
+
+
+def _qoi_case(ch, h=13, w=6, ops=("index", "diff", "luma", "run", "rgb", "rgba")):
+    def make(name):
+        r = _rs(name)
+        base = r.randint(0, 256, (1, 1, ch))
+        px = (base + np.cumsum(r.randint(-3, 3, (h, w, ch)), axis=1)) % 256
+        px[:, w // 2:] = px[:, w // 2:w // 2 + 1]
+        px[h // 2] = px[1]
+        if ch == 4:
+            px[..., 3] = np.where(r.rand(h, w) < 0.8, 255, r.randint(0, 256, (h, w)))
+        return qoi_bytes(px, seed=r.randint(1 << 30), ops=ops)
+    return make
+
+
+def _im_case(type_name, lut=None, h=13, w=6):
+    def make(name):
+        r = _rs(name)
+        pal = None
+        if lut == "grey":
+            pal = np.repeat(np.arange(256, dtype=np.uint8)[None], 3, 0)
+        elif lut == "grey-nonlinear":
+            pal = np.repeat(r.randint(0, 256, 256).astype(np.uint8)[None], 3, 0)
+        elif lut == "colour":
+            pal = r.randint(0, 256, (3, 256)).astype(np.uint8)
+        return im_bytes(type_name, w, h, im_samples(type_name, w, h, r), lut=pal)
+    return make
+
+
+def _seeded(fn, shape, high=256, **kw):
+    def make(name):
+        return fn(_rs(name).randint(0, high, shape), **kw)
+    return make
+
+
+def _xpm_case(n, cpp, transparent=None, h=13, w=6):
+    def make(name):
+        r = _rs(name)
+        return xpm_bytes(r.randint(0, n, (h, w)), r.randint(0, 256, (n, 3)), cpp, transparent)
+    return make
+
+
+RASTER_VARIANTS = {}
+for _bits, _planes in ((1, 1), (1, 2), (1, 4), (8, 1), (8, 3)):
+    # (width, the header's bytes per line: None for PIL's own, 99 for a
+    # value that makes PIL pad each plane line to an even length)
+    _widths = ((6, None), (20, 99), (33, None)) + (((1, None),) if _bits == 1 else ())
+    if _planes in (2, 4):
+        _widths += ((6, 99),)
+    for _ver in ((0, 2, 3, 5) if (_bits, _planes) == (1, 1) else (5,) if _bits == 8 else (2, 5)):
+        for _w, _prov in _widths:
+            RASTER_VARIANTS[f"pcx_{_bits}bit_{_planes}planes_v{_ver}_w{_w}"
+                            f"{'_padded' if _prov else ''}.pcx"] = _pcx_case(
+                _bits, _planes, _ver, 13 if _w != 1 else 1, _w, provided=_prov)
+for _end in ("colour", "none"):
+    RASTER_VARIANTS[f"pcx_8bit_{_end}_palette.pcx"] = _pcx_case(8, 1, end=_end, w=47, h=33)
+RASTER_VARIANTS.update({
+    "dcx_one_page.dcx": lambda name: dcx_bytes([_pcx_case(1, 1, w=33, h=47)(name)]),
+    "dcx_three_pages.dcx": lambda name: dcx_bytes(
+        [_pcx_case(1, 1, w=13, h=6)(name), _pcx_case(8, 1, w=7, h=5)(name + "2"),
+         _pcx_case(1, 4, w=9, h=3)(name + "3")]),
+    "dcx_grey_page.dcx": lambda name: dcx_bytes([_pcx_case(8, 1, w=33, h=13)(name)]),
+})
+for _c in (0, 1):
+    _cn = "packbits" if _c else "raw"
+    RASTER_VARIANTS.update({
+        f"psd_bitmap_{_cn}.psd": _psd_case(0, 1, bits=1, compression=_c, w=13),
+        f"psd_grey_{_cn}.psd": _psd_case(1, 1, compression=_c),
+        f"psd_grey_mode0_{_cn}.psd": _psd_case(0, 1, compression=_c),
+        f"psd_duotone_{_cn}.psd": _psd_case(8, 1, compression=_c, colour_data="duotone"),
+        f"psd_palette_{_cn}.psd": _psd_case(2, 1, compression=_c, colour_data="palette"),
+        f"psd_rgb_{_cn}.psd": _psd_case(3, 3, compression=_c),
+        f"psd_rgba_{_cn}.psd": _psd_case(3, 4, compression=_c, w=33, h=47),
+        f"psd_rgb_extra_channel_{_cn}.psd": _psd_case(3, 5, compression=_c),
+        f"psd_cmyk_{_cn}.psd": _psd_case(4, 4, compression=_c),
+        f"psd_multichannel_{_cn}.psd": _psd_case(7, 2, compression=_c),
+        f"psd_rgb_layers_resources_{_cn}.psd": _psd_case(3, 3, compression=_c, layers=True,
+                                                         resources=True),
+        f"psd_grey_layers_{_cn}.psd": _psd_case(1, 1, compression=_c, layers=True),
+    })
+RASTER_VARIANTS["psd_palette_short_colour_data.psd"] = _psd_case(
+    2, 1, colour_data=bytes(range(48)))
+_TGA_KINDS = [(1, 8, (0, 24, 40)), (3, 1, None), (3, 8, None), (3, 16, None), (2, 16, None),
+              (2, 24, None), (2, 32, None)]
+for _type, _depth, _cmap in _TGA_KINDS:
+    for _rle in ((False,) if _depth == 1 else (False, True)):
+        for _flags in (0x00, 0x10, 0x20, 0x30):
+            RASTER_VARIANTS[f"tga_type{_type}_{_depth}bit_{'rle' if _rle else 'raw'}"
+                            f"_o{_flags:02x}.tga"] = _tga_case(
+                _type | (8 if _rle else 0), _depth, _flags, _cmap)
+for _md in (16, 24, 32):
+    RASTER_VARIANTS[f"tga_palette_map{_md}_start5.tga"] = _tga_case(1, 8, cmap=(5, _md, 35))
+    RASTER_VARIANTS[f"tga_palette_map{_md}_rle.tga"] = _tga_case(9, 8, 0x28, cmap=(0, _md, 40))
+RASTER_VARIANTS.update({
+    "tga_grey_with_colour_map.tga": _tga_case(3, 8, cmap=(0, 24, 256)),
+    "tga_grey_alpha_with_colour_map.tga": _tga_case(3, 16, cmap=(0, 24, 256)),
+    "tga_grey_with_16bit_colour_map.tga": _tga_case(3, 8, cmap=(2, 16, 100)),
+    "tga_id_field_rle_wide.tga": _tga_case(10, 24, 0x20, ident=b"made by a test", w=150, h=9),
+    "tga_rle_32bit_wide.tga": _tga_case(10, 32, 0x00, w=300, h=5),
+    "tga_rle_1x1.tga": _tga_case(11, 8, h=1, w=1),
+})
+RASTER_VARIANTS.update({
+    "ico_png_bmp_sizes.ico": _ico_case([("png", 16, 16, None, None, 0),
+                                        (8, 32, 32, None, None, 0),
+                                        ("png", 48, 48, None, None, 0)]),
+    "ico_tie_in_area.ico": _ico_case([(32, 24, 24, None, None, 0), (8, 24, 24, None, None, 0),
+                                      (4, 24, 24, None, None, 16), (24, 16, 16, None, None, 0)]),
+    "ico_png_first_tie.ico": _ico_case([("png", 20, 20, None, None, 0),
+                                        (1, 20, 20, None, None, 2)]),
+    "ico_bmp_1bit.ico": _ico_case([(1, 13, 6, None, None, 2)]),
+    "ico_bmp_4bit.ico": _ico_case([(4, 33, 17, None, None, 16)]),
+    "ico_bmp_8bit.ico": _ico_case([(8, 13, 6, None, None, 0)]),
+    "ico_bmp_24bit.ico": _ico_case([(24, 13, 6, None, None, 0)]),
+    "ico_bmp_32bit_alpha.ico": _ico_case([(32, 13, 6, None, None, 0)]),
+    "ico_png_size_differs.ico": _ico_case([("png", 12, 10, 16, None, 0)]),
+    "ico_256_png.ico": _ico_case([("png", 256, 256, 0, None, 0), (8, 16, 16, None, None, 0)]),
+    "ico_colour_count_depth.ico": _ico_case([(8, 16, 16, None, 0, 0), (4, 16, 16, None, 0, 16)]),
+    "cur_two_sizes.cur": _ico_case([(8, 16, 16, None, None, 0), (24, 32, 32, None, None, 0)],
+                                   kind=2),
+    "cur_zero_means_256.cur": _ico_case([(8, 16, 16, None, None, 0),
+                                         (4, 256, 256, 0, None, 16)], kind=2),
+    "cur_1bit.cur": _ico_case([(1, 13, 6, None, None, 2)], kind=2),
+    "cur_32bit.cur": _ico_case([(32, 9, 7, None, None, 0)], kind=2),
+})
+for _hs in (12, 40, 52, 56, 64, 108, 124):
+    RASTER_VARIANTS[f"dib_header{_hs}_8bit.dib"] = _dib_case(_hs, 8)
+RASTER_VARIANTS.update({
+    "dib_1bit.dib": _dib_case(40, 1), "dib_4bit.dib": _dib_case(40, 4),
+    "dib_24bit_top_down.dib": _dib_case(40, 24, top_down=True),
+    "dib_16bit_bitfields.dib": _dib_case(40, 16, compression=3, masks=(0xF800, 0x7E0, 0x1F)),
+    "dib_32bit.dib": _dib_case(108, 32),
+})
+for _bpc in (1, 2):
+    for _z, _dims in ((1, (1, 2)), (3, (3,)), (4, (3,))):
+        for _dim in _dims:
+            for _rle in (False, True):
+                RASTER_VARIANTS[f"sgi_{_bpc}byte_{_z}ch_dim{_dim}_{'rle' if _rle else 'raw'}"
+                                ".sgi"] = _sgi_case(_bpc, _z, _dim, _rle, 1 if _dim == 1 else 13)
+RASTER_VARIANTS["sgi_rle_wide.sgi"] = _sgi_case(1, 3, 3, True, 9, 300)
+for _ft in (1, 2):
+    _fn = "rle" if _ft == 2 else "raw"
+    RASTER_VARIANTS.update({
+        f"sun_1bit_{_fn}.sun": _sun_case(1, _ft),
+        f"sun_4bit_{_fn}.sun": _sun_case(4, _ft),
+        f"sun_8bit_{_fn}.sun": _sun_case(8, _ft),
+        f"sun_8bit_palette_{_fn}.sun": _sun_case(8, _ft, palette=200),
+        f"sun_4bit_palette_{_fn}.sun": _sun_case(4, _ft, palette=16),
+        f"sun_24bit_bgr_{_fn}.sun": _sun_case(24, _ft),
+        f"sun_32bit_bgrx_{_fn}.sun": _sun_case(32, _ft),
+        f"sun_8bit_even_{_fn}.sun": _sun_case(8, _ft, w=10),
+    })
+RASTER_VARIANTS.update({
+    "sun_24bit_rgb.sun": _sun_case(24, 3), "sun_32bit_rgbx.sun": _sun_case(32, 3),
+    "sun_8bit_type0.sun": _sun_case(8, 0), "sun_24bit_type4.sun": _sun_case(24, 4),
+    "qoi_rgb.qoi": _qoi_case(3), "qoi_rgba.qoi": _qoi_case(4),
+    "qoi_rgb_index_run_only.qoi": _qoi_case(3, ops=("index", "run", "rgb")),
+    "qoi_rgba_rgba_only.qoi": _qoi_case(4, ops=("rgba",)),
+    "qoi_rgb_wide.qoi": _qoi_case(3, 9, 300),
+    "msp_v1.msp": _seeded(lambda b: msp_bytes(b, 1), (13, 6), 2),
+    "msp_v1_wide.msp": _seeded(lambda b: msp_bytes(b, 1), (33, 47), 2),
+    "msp_v2.msp": _seeded(lambda b: msp_bytes(b, 2, 3), (13, 6), 2),
+    "msp_v2_white_rows.msp": _seeded(lambda b: msp_bytes(
+        np.where(np.arange(33)[:, None] % 3 == 0, 1, b), 2, 4), (33, 47), 2),
+})
+for _t in IM_TYPES:
+    RASTER_VARIANTS[f"im_{re.sub('[^0-9A-Za-z]+', '_', _t).strip('_')}.im"] = _im_case(_t)
+for _t in ("Greyscale image", "L 1 image", "B2 image", "B4 image", "RGB image", "LA image",
+           "PA image"):
+    for _lut in ("grey", "grey-nonlinear", "colour"):
+        RASTER_VARIANTS[f"im_{re.sub('[^0-9A-Za-z]+', '_', _t).strip('_')}_lut_"
+                        f"{_lut.replace('-', '_')}.im"] = _im_case(_t, _lut)
+RASTER_VARIANTS.update({
+    "xbm_x11.xbm": _seeded(xbm_bytes, (13, 6), 2),
+    "xbm_hotspot.xbm": _seeded(lambda b: xbm_bytes(b, "cursor", (3, 4)), (33, 47), 2),
+    "xbm_1x1.xbm": _seeded(xbm_bytes, (1, 1), 2),
+    "xpm_1cpp.xpm": _xpm_case(20, 1),
+    "xpm_2cpp.xpm": _xpm_case(200, 2, w=17),
+    "xpm_rgb_300_colours.xpm": _xpm_case(300, 2, w=33, h=47),
+    "xpm_none_unused.xpm": _xpm_case(20, 1, transparent=" "),
+    "pixar_rgb.pxr": _seeded(pixar_bytes, (13, 6, 3)),
+    "spider_big_endian.spi": lambda name: spider_bytes(
+        _rs(name).uniform(-40, 300, (13, 6)), True),
+    "spider_little_endian.spi": lambda name: spider_bytes(
+        _rs(name).uniform(-40, 300, (33, 47)), False),
+    "spider_stack.spi": lambda name: spider_bytes(_rs(name).uniform(0, 255, (13, 6)), True,
+                                                  stack=True),
+    "gbr_v1_grey.gbr": _seeded(lambda p: gbr_bytes(p, 1), (13, 6)),
+    "gbr_v2_grey.gbr": _seeded(lambda p: gbr_bytes(p, 2), (13, 6)),
+    "gbr_v2_rgba.gbr": _seeded(lambda p: gbr_bytes(p, 2), (13, 6, 4)),
+    "imt_grey.imt": _seeded(imt_bytes, (13, 6)),
+    "imt_no_comment.imt": _seeded(lambda g: imt_bytes(g, False), (33, 47)),
+    "mcidas_1byte.area": _seeded(lambda v: mcidas_bytes(v, 1), (13, 6)),
+    "mcidas_2byte.area": _seeded(lambda v: mcidas_bytes(v, 2, 4), (13, 6), 600),
+    "mcidas_4byte.area": _seeded(lambda v: mcidas_bytes(v, 4), (13, 6), 1000),
+    # a line prefix of -8 bytes: lines overlap, which PIL's memory map of the
+    # file allows for "L" and "I;16B" samples
+    "mcidas_2byte_overlapping_lines.area": lambda name: _patch(
+        mcidas_bytes(_rs(name).randint(0, 600, (13, 6)), 2, 4), 56, struct.pack(">i", -8)),
+    "xvthumb.p7": _seeded(xvthumb_bytes, (13, 6)),
+})
+
+
+# the variants of the loops above that PIL refuses (see raster_refused)
+RASTER_REFUSED_VARIANTS = {name: RASTER_VARIANTS.pop(name) for name in (
+    "psd_rgb_extra_channel_packbits.psd", "tga_palette_map32_start5.tga",
+    "tga_palette_map32_rle.tga", "im_RLB_image.im", "im_RYB_image.im", "im_PA_image.im",
+    "im_B2_image_lut_colour.im", "im_B4_image_lut_colour.im", "im_PA_image_lut_grey.im",
+    "im_PA_image_lut_grey_nonlinear.im")}
+
+
+def raster_small_variants():
+    """[(file name, write(path))] of every raster variant of the catalog."""
+    return [(name, lambda p, name=name, make=make: _write_bytes(p, make(name)))
+            for name, make in RASTER_VARIANTS.items()]
+
+
+def _patch(data, at, raw):
+    return data[:at] + raw + data[at + len(raw):]
+
+
+def _xpm_transparent_pixel(index, r):
+    """An XPM whose first pixel is the key given the colour None (PIL keeps
+    no palette entry for it)."""
+    data = xpm_bytes(index, r.randint(0, 256, (3, 3)), transparent=" ")
+    at = data.index(b"/* pixels */\n") + len(b"/* pixels */\n") + 1
+    return data[:at] + b" " + data[at + 1:]
+
+
+def raster_refused():
+    """[(name, file bytes, a word of the port's refusal)]: one file for each
+    way PIL refuses a raster format, at its open or at its load."""
+    def v(name):
+        return {**RASTER_VARIANTS, **RASTER_REFUSED_VARIANTS}[name](name)
+    r = np.random.RandomState(5)
+    grey = r.randint(0, 256, (13, 6))
+    pcx8 = v("pcx_8bit_1planes_v5_w6.pcx")
+    tga24 = v("tga_type2_24bit_raw_o20.tga")
+    sgi_rle = v("sgi_1byte_1ch_dim2_rle.sgi")
+    msp2 = v("msp_v2.msp")
+    ico8 = v("ico_bmp_8bit.ico")
+    out = [
+        ("pcx_unknown_mode", _patch(pcx8, 3, b"\x02"), "unknown PCX mode"),
+        ("pcx_truncated", v("pcx_1bit_1planes_v5_w33.pcx")[:150], "truncated"),
+        ("pcx_run_past_line", pcx_bytes(r.randint(0, 256, (13, 6, 3)), 8, 3)[:128]
+         + b"\xc7\x07" * 40, "buffer overrun"),
+        ("pcx_grey_shorter_than_its_palette", pcx_bytes(grey[:2, :3], 8, 1),
+         "invalid argument"),
+        ("pcx_empty_window", _patch(pcx8, 4, struct.pack("<H", 6)), "PCX whose header"),
+        ("dcx_no_pages", struct.pack("<II", 0x3ADE68B1, 0) + pcx8, "DCX whose header"),
+        ("psd_16bit", _patch(v("psd_rgb_raw.psd"), 22, b"\x00\x10"), "16-bit"),
+        ("psd_not_enough_channels", _patch(v("psd_rgb_raw.psd"), 12, b"\x00\x02"),
+         "not enough channels"),
+        ("psd_zip_compressed", _patch(v("psd_grey_raw.psd"), 38, b"\x00\x02"),
+         "cannot load"),
+        ("psd_lab", psd_bytes(r.randint(0, 256, (3, 13, 6)), 9), "LAB"),
+        ("psd_truncated", v("psd_rgb_raw.psd")[:-20], "truncated"),
+        # PIL reads the byte counts of the mode's channels only
+        ("psd_packbits_extra_channel", v("psd_rgb_extra_channel_packbits.psd"), "truncated"),
+        ("tga_32bit_colour_map", v("tga_palette_map32_start5.tga"), "unrecognized raw mode"),
+        ("tga_15bit_colour_map", _patch(v("tga_palette_map16_start5.tga"), 7, b"\x0f"),
+         "map depth 15"),
+        ("tga_type1_without_colour_map", tga_bytes(grey[..., None], 1, 8), "unpacker"),
+        ("tga_type1_16bit", tga_bytes(r.randint(0, 256, (13, 6, 2)), 1, 16,
+                                      (0, r.randint(0, 256, (8, 3)), 24)), "cannot load"),
+        ("tga_rle_run_across_rows", _patch(tga24, 2, b"\x0a")[:18]
+         + bytes([0x80 | 9]) + b"\1\2\3" * 1 + b"\0" * 200, "buffer overrun"),
+        ("tga_rle_1bit", tga_bytes(r.randint(0, 2, (13, 6)), 11, 1), "truncated"),
+        ("tga_truncated", tga24[:-7], "truncated"),
+        ("tga_colour_map_on_rgb", tga_bytes(r.randint(0, 256, (5, 9, 3)), 2, 24,
+                                            (0, r.randint(0, 256, (4, 3)), 24)),
+         "colour map on a RGB image"),
+        ("ico_and_mask_truncated", ico8[:-20], "AND mask"),
+        ("ico_alpha_truncated", v("ico_bmp_32bit_alpha.ico")[:-60], "alpha"),
+        ("ico_no_entries", struct.pack("<HHH", 0, 1, 0) + bytes(40), "ICO whose header"),
+        ("ico_png_bad_crc", _patch(v("ico_png_size_differs.ico"), 6 + 16 + 29, b"\x00"),
+         "ICO whose header"),
+        ("cur_no_cursors", struct.pack("<HHH", 0, 2, 0), "CUR whose header"),
+        ("dib_2bit", _patch(v("dib_header40_8bit.dib"), 14, b"\x02\x00"), "2-bit"),
+        ("dib_jpeg_compressed", _patch(v("dib_header40_8bit.dib"), 16, b"\x04"), "JPEG"),
+        ("dib_truncated_header", v("dib_header124_8bit.dib")[:60], "Truncated File Read"),
+        ("dib_truncated", v("dib_24bit_top_down.dib")[:-9], "truncated"),
+        ("sgi_two_channels", sgi_bytes(r.randint(0, 256, (13, 6, 2)), 1, 3), "Unsupported SGI"),
+        ("sgi_compression_2", _patch(v("sgi_1byte_1ch_dim2_raw.sgi"), 2, b"\x02"),
+         "cannot load"),
+        ("sgi_rle_offset_in_header", _patch(sgi_rle, 512, struct.pack(">I", 100)),
+         "buffer overrun"),
+        ("sgi_rle_run_past_row", _patch(sgi_rle, struct.unpack_from(">I", sgi_rle, 512)[0],
+                                        b"\x7f"), "buffer overrun"),
+        ("sgi_rle_tables_past_end", sgi_rle[:560], "buffer overrun"),
+        ("sgi_truncated", v("sgi_1byte_3ch_dim3_raw.sgi")[:-11], "truncated"),
+        ("sun_16bit", _patch(v("sun_8bit_raw.sun"), 12, struct.pack(">I", 16)),
+         "SUN whose header"),
+        ("sun_palette_type_2", sun_bytes(grey, 8, 1, r.randint(0, 256, (16, 3)), 2),
+         "SUN whose header"),
+        ("sun_palette_of_300", sun_bytes(grey, 8, 1, r.randint(0, 256, (300, 3))),
+         "palette of 300"),
+        ("sun_file_type_6", _patch(v("sun_8bit_raw.sun"), 20, struct.pack(">I", 6)),
+         "SUN whose header"),
+        ("sun_rle_truncated", v("sun_24bit_bgr_rle.sun")[:-30], "truncated"),
+        ("sun_colour_map_on_1bit", sun_bytes(r.randint(0, 2, (5, 9)), 1, 1,
+                                             r.randint(0, 256, (2, 3))), "colour map on a 1 image"),
+        ("qoi_truncated", v("qoi_rgb.qoi")[:-40], "truncated"),
+        ("msp_bad_checksum", _patch(v("msp_v1.msp"), 24, b"\x01\x02"), "MSP whose header"),
+        ("msp_v1_truncated", v("msp_v1.msp")[:-3], "truncated"),
+        ("msp_v2_row_truncated", msp2[:-3], "truncated"),
+        ("msp_v2_row_map_truncated", msp2[:40], "truncated"),
+        ("msp_v2_run_cut_short", _patch(msp2, 32, struct.pack("<H", 2)) [:32 + 26]
+         + b"\0\4" + msp2[32 + 26 + 2:], "corrupt"),
+        ("msp_v2_rows_too_short", msp2[:32] + struct.pack("<13H", *[1] * 13) + b"\1" * 13,
+         "fewer bytes"),
+        ("im_rlb", v("im_RLB_image.im"), "unpacker"),
+        ("im_pa", v("im_PA_image.im"), "unpacker"),
+        ("im_ryb", v("im_RYB_image.im"), "unpacker"),
+        ("im_pa_grey_lut", v("im_PA_image_lut_grey.im"), "unpacker"),
+        ("im_b2_colour_lut", v("im_B2_image_lut_colour.im"), "truncated"),
+        ("im_size_not_a_number", im_bytes("Greyscale image", 6, 13, bytes(78)).replace(
+            b"6*13", b"6*1x"), "not a number"),
+        ("im_no_end_of_header", im_bytes("Greyscale image", 6, 13, b"", pad=False)[:-1],
+         "IM whose header"),
+        ("im_truncated", v("im_Greyscale_image.im")[:-10], "truncated"),
+        ("xbm_truncated", v("xbm_hotspot.xbm")[:-60], "truncated"),
+        ("xpm_colour_name", xpm_bytes(grey % 3, r.randint(0, 256, (3, 3))).replace(
+            b"c #", b"c white #", 1).replace(b"c white #", b"c white ", 1), "cannot read"),
+        ("xpm_transparent_pixel", _xpm_transparent_pixel(grey % 3, r), "no colour"),
+        ("pixar_grey", _patch(v("pixar_rgb.pxr"), 424, struct.pack("<HH", 1, 1)),
+         "PIXAR whose header"),
+        ("pixar_truncated", v("pixar_rgb.pxr")[:-5], "truncated"),
+        ("spider_image_of_a_stack", spider_bytes(r.uniform(0, 9, (13, 6)))
+         .replace(b"", b"", 0), "stkoffset"),
+        ("spider_truncated", v("spider_big_endian.spi")[:-8], "truncated"),
+        ("gbr_truncated", v("gbr_v2_rgba.gbr")[:-4], "not enough image data"),
+        ("gbr_depth_3", _patch(v("gbr_v1_grey.gbr"), 16, struct.pack(">I", 3)),
+         "GBR whose header"),
+        ("imt_no_form_feed", b"width 6\nheight 13\npixel n8\n" + bytes(78), "form feed"),
+        ("mcidas_3_bytes", _patch(v("mcidas_1byte.area"), 40, struct.pack(">i", 3)),
+         "MCIDAS whose header"),
+        ("mcidas_lines_past_the_end", _patch(v("mcidas_4byte.area"), 56, struct.pack(">i", 9)),
+         "truncated"),
+        ("mcidas_truncated", v("mcidas_4byte.area")[:-6], "truncated"),
+        ("xvthumb_one_number", v("xvthumb.p7").replace(b"6 13 255", b"613"),
+         "invalid literal"),
+        ("xvthumb_truncated", v("xvthumb.p7")[:-6], "truncated"),
+    ]
+    # SPIDER: a 2-D image's header that says it is image 1 of a stack
+    spi = bytearray(v("spider_big_endian.spi"))
+    struct.pack_into(">f", spi, 26 * 4, 1.0)
+    out = [(n, bytes(spi) if n == "spider_image_of_a_stack" else d, w) for n, d, w in out]
+    return out
+
+
+def raster_identified():
+    """[(name, file bytes, PIL's format or None and a word of the port's
+    refusal)]: files that more than one plugin's test lets in, where PIL's
+    order and its caught exceptions decide."""
+    r = np.random.RandomState(9)
+    grey = r.randint(0, 256, (5, 7)).astype(np.uint8)
+    # a DIB header of 108 bytes (a letter "l" first) for an image 0 pixels
+    # wide: PIL's DIB open fails on the size, and IM opens the file
+    dib = (b"l\0\0\0" + struct.pack("<iiHHI", 0, 1, 1, 24, 0) + bytes(4) + b": 1\n")
+    im_text = b"Image type: L 8 image\r\nImage size (x*y): 7*5\r\n"
+    dib_im = (dib + im_text).ljust(511, b"\0") + b"\x1a" + grey.tobytes()
+    # a PCX header with an empty window: PIL's PCX open fails, TGA opens it
+    # (id of 10 bytes, grey, 7 x 5 from the PCX's dpi fields, top-down)
+    pcx_tga = bytearray(128)
+    pcx_tga[:4] = bytes([10, 0, 3, 8])
+    struct.pack_into("<HHHHHH", pcx_tga, 4, 5, 0, 0, 0, 7, 5)
+    pcx_tga[16:18] = bytes([8, 0x20])
+    pcx_tga = bytes(pcx_tga[:28]) + grey.tobytes()
+    # a headerless Targa whose id field is 10 bytes long: PIL's PCX test
+    # takes it, and PCX's open refuses it
+    tga_id10 = tga_bytes(np.repeat(grey[..., None], 3, -1), 2, 24, id_field=b"0123456789")
+    # the same with a colour map length that empties the PCX window: PCX
+    # fails as PIL catches it, and TGA decodes the file
+    tga_id10_pcx_fails = _patch(tga_id10, 5, struct.pack("<H", 9))
+    # a Targa whose first 8 bytes pass GBR's test (header size 512, version
+    # 1) and whose GBR width is 0: GBR fails, TGA decodes
+    tga_gbr = tga_bytes(grey[..., None], 3, 8, colormap=None)
+    tga_gbr = _patch(tga_gbr, 0, b"\x00\x00\x03\x00\x00\x00\x00\x01")
+    return [
+        ("dib_then_im", dib_im, ("IM", None)),
+        ("pcx_then_tga", pcx_tga, ("TGA", None)),
+        ("tga_taken_by_pcx", tga_id10, (None, "unknown PCX mode")),
+        ("tga_after_pcx_fails", tga_id10_pcx_fails, ("TGA", None)),
+        ("gbr_prefix_then_tga", tga_gbr, ("TGA", None)),
+        ("mcidas_after_iptc", RASTER_VARIANTS["mcidas_1byte.area"]("mcidas_1byte.area"),
+         ("MCIDAS", None)),
+    ]
+
+
+# full-size pages: the same formats with vectorised run coders (numpy only),
+# for chip_smoke.py's variants phase on the card's machine
+
+def _row_runs(rows, most):
+    """Runs of equal bytes within each row of [h, n] bytes, cut into pieces
+    of at most ``most``: (values, counts, row of each piece)."""
+    h, n = rows.shape
+    flat = np.ascontiguousarray(rows).ravel()
+    brk = np.ones(h * n, bool)
+    brk[1:] = flat[1:] != flat[:-1]
+    brk[::n] = True
+    starts = np.flatnonzero(brk)
+    lengths = np.diff(np.append(starts, h * n))
+    pieces = -(-lengths // most)
+    counts = np.full(int(pieces.sum()), most, np.int64)
+    counts[np.cumsum(pieces) - 1] = lengths - (pieces - 1) * most
+    return np.repeat(flat[starts], pieces), counts, np.repeat(starts // n, pieces)
+
+
+def _packets(sizes, fill):
+    """Concatenated packets: ``fill(out, offsets)`` writes each packet's
+    bytes at its offset."""
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]]).astype(np.int64)
+    out = np.zeros(int(np.sum(sizes)), np.uint8)
+    fill(out, offsets)
+    return out
+
+
+def pcx_rle_fast(lines):
+    v, c, _ = _row_runs(lines, 63)
+    two = (c > 1) | (v >= 0xC0)
+
+    def fill(out, off):
+        out[off[~two]] = v[~two]
+        out[off[two]] = 0xC0 | c[two]
+        out[off[two] + 1] = v[two]
+    return _packets(np.where(two, 2, 1), fill).tobytes()
+
+
+def _pair_packets(v, c, head):
+    def fill(out, off):
+        out[off] = head(c)
+        out[off + 1] = v
+    return _packets(np.full(len(v), 2), fill)
+
+
+def raster_pages(grey_pages):
+    """chip_smoke.py's seven full-size raster pages of three grey pages:
+    [(file name, file bytes, the "L" pixels PIL decodes it to)]. Runs are
+    coded as runs (a single byte as a run of one) where the format allows."""
+    a, b, c = (np.ascontiguousarray(p, np.uint8) for p in grey_pages)
+    h, w = a.shape
+    pages = []
+
+    def pcx_page(samples, bits, end_palette=None):
+        lines = _pack_bits(samples) if bits == 1 else samples
+        head = pcx_bytes(samples[:1, :8], bits, 1)[:128]
+        head = head[:8] + struct.pack("<HH", w - 1, h - 1) + head[12:66] + struct.pack(
+            "<H", lines.shape[1]) + head[68:]
+        out = head + pcx_rle_fast(lines)
+        if end_palette is not None:
+            out += b"\x0c" + np.asarray(end_palette, np.uint8).tobytes()
+        return out
+    pages.append(("pcx_grey_rle.pcx", pcx_page(a, 8, _grey_ramp(256)), a))
+    ink = [(p < 128).astype(np.uint8) for p in (b, c)]
+    pages.append(("dcx_bilevel.dcx", dcx_bytes([pcx_page(1 - k, 1) for k in ink]),
+                  np.where(ink[0] == 1, 0, 255).astype(np.uint8)))
+    # TGA, bottom row first: runs of up to 128
+    v, n, _ = _row_runs(c[::-1], 128)
+    tga = tga_bytes(c[:1, :1, None], 11, 8, flags=0x00)[:18]
+    tga = tga[:12] + struct.pack("<HH", w, h) + tga[16:]
+    pages.append(("tga_grey_rle.tga", tga + _pair_packets(v, n, lambda k: 0x80 | (k - 1))
+                  .tobytes(), c))
+    # PSD: PackBits rows, their byte counts first
+    v, n, row = _row_runs(a, 128)
+    body = _pair_packets(v, n, lambda k: np.where(k == 1, 0, 257 - k)).tobytes()
+    counts = (np.bincount(row, minlength=h) * 2).astype(">u2").tobytes()
+    psd = psd_bytes(a[None, :1, :1], 1)[:-3]
+    psd = psd[:14] + struct.pack(">II", h, w) + psd[22:] + struct.pack(">H", 1)
+    pages.append(("psd_grey_packbits.psd", psd + counts + body, a))
+    # SGI: per-row runs of up to 127 and a zero atom, with the tables
+    flipped = b[::-1]
+    v, n, row = _row_runs(flipped, 127)
+    per_row = np.bincount(row, minlength=h) * 2 + 1
+    atoms = np.zeros(int(per_row.sum()), np.uint8)
+    row_at = np.concatenate([[0], np.cumsum(per_row)[:-1]])
+    k = np.arange(len(v)) - np.concatenate([[0], np.cumsum(np.bincount(row, minlength=h))
+                                            [:-1]])[row]
+    atoms[row_at[row] + 2 * k] = n
+    atoms[row_at[row] + 2 * k + 1] = v
+    head = sgi_bytes(b[:1, :1, None], 1, 2, rle=False)[:512]
+    head = head[:6] + struct.pack(">HH", w, h) + head[10:]
+    head = _patch(head, 2, b"\x01")
+    starts = 512 + 8 * h + row_at
+    pages.append(("sgi_grey_rle.sgi", head + starts.astype(">u4").tobytes()
+                  + per_row.astype(">u4").tobytes() + atoms.tobytes(), b))
+    # SUN: one stream of runs across rows (w is even: no row padding)
+    v, n, _ = _row_runs(c.reshape(1, -1), 256)
+    three = (n >= 3) | ((v == 0x80) & (n > 1))
+    single80 = (v == 0x80) & (n == 1)
+    lit = ~three & ~single80
+
+    def fill(out, off):
+        out[off[three]], out[off[three] + 1], out[off[three] + 2] = 0x80, n[three] - 1, v[three]
+        out[off[single80]] = 0x80
+        out[off[single80] + 1] = 0
+        out[off[lit]] = v[lit]
+        out[off[lit & (n == 2)] + 1] = v[lit & (n == 2)]
+    body = _packets(np.where(three, 3, np.where(single80, 2, n)), fill)
+    pages.append(("sun_grey_rle.sun", sun_bytes(c[:1, :2], 8, 2)[:4] + struct.pack(
+        ">7I", w, h, 8, len(body), 2, 0, 0) + body.tobytes(), c))
+    # QOI of the grey page as RGB: runs of the previous pixel, RGB otherwise
+    flat = a.ravel()
+    same = np.empty(flat.size, bool)
+    same[0] = flat[0] == 0
+    same[1:] = flat[1:] == flat[:-1]
+    brk = np.ones(flat.size, bool)
+    brk[1:] = same[1:] != same[:-1]
+    starts = np.flatnonzero(brk)
+    lengths = np.diff(np.append(starts, flat.size))
+    run = same[starts]
+    pieces = np.where(run, -(-lengths // 62), lengths)
+    pos = np.repeat(starts, pieces) + (np.arange(int(pieces.sum()))
+                                       - np.repeat(np.cumsum(pieces) - pieces, pieces)) \
+        * np.where(np.repeat(run, pieces), 62, 1)
+    is_run = np.repeat(run, pieces)
+    run_len = np.minimum(62, np.repeat(starts + lengths, pieces) - pos)
+
+    def fill(out, off):
+        out[off[is_run]] = 0xC0 | (run_len[is_run] - 1)
+        o = off[~is_run]
+        out[o] = 0xFE
+        out[o + 1] = out[o + 2] = out[o + 3] = flat[pos[~is_run]]
+    body = _packets(np.where(is_run, 1, 4), fill)
+    pages.append(("qoi_grey_as_rgb.qoi", b"qoif" + struct.pack(">IIBB", w, h, 3, 0)
+                  + body.tobytes() + b"\0" * 7 + b"\1", a))
+    return pages

@@ -57,10 +57,16 @@ save: a lossy 9/7 grey page at rate 8 in RPCL order with 6 levels, 512 x
 page and a lossy colour page with the ICT, each with ``page/<name>.xml``
 and ``<name>.json`` (PIL's "L" and "RGB" digests).
 
+Then the raster fixtures: ``--only raster`` rewrites just the small
+variants of PCX, DCX, PSD, TGA, ICO, CUR, DIB, SGI, SUN, QOI, MSP, IM,
+XBM, XPM, PIXAR, SPIDER, GBR, IMT, MCIDAS and XVTHUMB (written byte by
+byte by ``scripts/format_variants.py``, no PIL) and their records in
+``small.json``; a full ``variants`` run writes them too.
+
 Needs PIL (and, for the TIFF, JPEG, WebP and JPEG 2000 variants, the
 libraries Pillow bundles, and gcc); run from the repository root:
 
-    python scripts/make_format_fixtures.py [--only formats variants jpeg webp jpeg2000]
+    python scripts/make_format_fixtures.py [--only formats variants jpeg webp jpeg2000 raster]
 
 (the page XMLs get new timestamps on every run).
 """
@@ -113,7 +119,7 @@ def pixels(page: np.ndarray, kind: str) -> Image.Image:
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    kinds = ("formats", "variants", "jpeg", "webp", "jpeg2000")
+    kinds = ("formats", "variants", "jpeg", "webp", "jpeg2000", "raster")
     parser.add_argument("--only", nargs="+", choices=kinds, default=kinds)
     only = parser.parse_args().only
     sys.path.insert(0, REPO)
@@ -132,6 +138,8 @@ def main() -> int:
         if "variants" not in only:
             write_small("jpeg2000_", fv.jpeg2000_small_variants())
         write_jpeg2000_pages()
+    if "raster" in only and "variants" not in only:
+        write_small(RASTER_PREFIXES, fv.raster_small_variants())
     return 0
 
 
@@ -261,9 +269,15 @@ def write_jpeg_pages() -> None:
     print(f"full-size JPEG pages {total} bytes")
 
 
-def write_small(prefix: str, variants) -> None:
-    """The small variants whose names start with ``prefix`` and their
-    records, the rest of ``small/`` left as it is."""
+RASTER_PREFIXES = ("pcx_", "dcx_", "psd_", "tga_", "ico_", "cur_", "dib_", "sgi_", "sun_",
+                   "qoi_", "msp_", "im_", "xbm_", "xpm_", "pixar_", "spider_", "gbr_", "imt_",
+                   "mcidas_", "xvthumb")
+
+
+def write_small(prefix, variants) -> None:
+    """The small variants whose names start with ``prefix`` (a string or a
+    tuple of them) and their records, the rest of ``small/`` left as it
+    is."""
     small = os.path.join(VARIANTS_OUT, "small")
     with open(os.path.join(small, "small.json")) as f:
         records = [r for r in json.load(f) if not r["file"].startswith(prefix)]
@@ -277,7 +291,7 @@ def write_small(prefix: str, variants) -> None:
     with open(os.path.join(small, "small.json"), "w") as f:
         json.dump(records, f, indent=0)
         f.write("\n")
-    print(f"{len(variants)} small {prefix.rstrip('_')} variants")
+    print(f"{len(variants)} small {prefix if isinstance(prefix, str) else 'raster'} variants")
 
 
 def webp_alpha(h: int, w: int) -> np.ndarray:

@@ -254,3 +254,60 @@ def test_path_helpers_equal(tmp_path):
     lst.write_text("a.png \nb.png\n")
     assert tio.load_list_file(str(lst)) == jio.load_list_file(str(lst)) == ["a.png", "b.png"]
     assert tio.load_text_file(str(lst)) == jio.load_text_file(str(lst))
+
+
+def _registry_file(kind, path):
+    """A small file of a format in PIL's registry that the port does not
+    decode, as PIL writes it or byte by byte: PIL identifies each."""
+    import struct
+    grey = Image.fromarray(_pixels(7, 1)[..., 0], "L")
+    if kind in ("AVIF", "BLP", "DDS", "ICNS", "EPS"):
+        mode = {"AVIF": "RGB", "DDS": "RGB", "ICNS": "RGB", "BLP": "P"}.get(kind, "L")
+        grey.convert(mode).save(path, format=kind)
+        return
+    data = {
+        "BUFR": b"BUFR" + bytes(60),
+        "GRIB": b"GRIB\0\0\0\x01" + bytes(60),
+        "HDF5": b"\x89HDF\r\n\x1a\n" + bytes(60),
+        "MPEG": b"\x00\x00\x01\xb3\x01\x00\x10" + bytes(60),
+        "PCD": bytes(2048) + b"PCD_" + bytes(1540),
+        "FITS": b"".join(c.ljust(80).encode() for c in (
+            "SIMPLE  =                    T", "BITPIX  =                    8",
+            "NAXIS   =                    2", "NAXIS1  =                    4",
+            "NAXIS2  =                    3", "END")).ljust(2880) + bytes(12),
+        "FTEX": b"FTEX" + struct.pack("<7i", 1, 4, 4, 1, 1, 1, 32) + struct.pack("<i", 48)
+        + bytes(48),
+        "IPTC": (b"\x1c\x03\x3c\x00\x02\x01\x00" + b"\x1c\x03\x14\x00\x01\x04"
+                 + b"\x1c\x03\x1e\x00\x01\x03" + b"\x1c\x03\x78\x00\x01\x01"
+                 + b"\x1c\x08\x0a\x00\x0c" + bytes(12)),
+        "WMF": (b"\xd7\xcd\xc6\x9a\x00\x00" + struct.pack("<hhhhH", 0, 0, 100, 50, 1440)
+                + bytes(6) + b"\x01\x00\x09\x00" + bytes(60)),
+        "FLI": (struct.pack("<IHHHHHHI", 128 + 16, 0xAF11, 1, 4, 3, 8, 0, 5) + bytes(108)
+                + struct.pack("<IHH", 16, 0xF1FA, 0) + bytes(8)),
+    }[kind]
+    with open(path, "wb") as f:
+        f.write(data)
+
+
+NOT_DECODED = {"AVIF": "AVIF (queued", "BLP": "BLP (queued", "DDS": "DDS (queued",
+               "FTEX": "FTEX (queued", "ICNS": "ICNS (queued", "PCD": "PCD (queued",
+               "FITS": "FITS (queued", "FLI": "FLI (queued", "IPTC": "IPTC (queued",
+               "EPS": "EPS (PIL needs Ghostscript)", "WMF": "WMF (PIL draws it only",
+               "MPEG": "MPEG (PIL identifies", "BUFR": "BUFR (PIL's stub",
+               "GRIB": "GRIB (PIL's stub", "HDF5": "HDF5 (PIL's stub"}
+
+
+@pytest.mark.parametrize("kind", sorted(NOT_DECODED))
+def test_registry_formats_not_decoded_are_named(tmp_path, kind):
+    """Every format of PIL's registry that PIL identifies and the port does
+    not decode is refused by its name and why, never as "unknown"."""
+    path = str(tmp_path / f"x.{kind.lower()}")
+    _registry_file(kind, path)
+    with Image.open(path) as im:
+        assert im.format == kind
+    import re
+    word = re.escape(NOT_DECODED[kind])
+    with pytest.raises(tio.UnsupportedImageFormat, match=word):
+        tio.load_image(path, "L")
+    with pytest.raises(tio.UnsupportedImageFormat, match=word):
+        tio.image_size(path)
