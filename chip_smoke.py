@@ -260,6 +260,8 @@ FORMATS_METRIC_PAGES = 2                    # pages whose measure the numpy path
 VARIANTS_DIR = os.path.join(REPO, "tests", "data", "torch_formats_variants")
 JPEG_VARIANTS_DIR = os.path.join(REPO, "tests", "data", "torch_formats_jpeg")
 WEBP_DIR = os.path.join(REPO, "tests", "data", "torch_formats_webp")
+MAIN_FORMATS_DIR = os.path.join(REPO, "tests", "data", "torch_formats_main")
+BOMB_SHAPE = (10000, 20000)                 # a PNG header past PIL's decompression-bomb limit
 JPEG2000_DIR = os.path.join(REPO, "tests", "data", "torch_formats_jpeg2000")
 BLIND_DIR = os.path.join(REPO, "tests", "data", "torch_blind")
 # the train phase: the JAX trainer's default batch and crop; drawn pages of
@@ -1483,6 +1485,19 @@ def phase_visual(dev):
             "device_ms": device_ms, "max_abs_err": worst}
 
 
+def png_header_bytes(w, h):
+    """A grey PNG of w x h pixels whose image data holds one row: a header
+    a decoder must refuse before it allocates the image."""
+    import struct
+    import zlib
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body)))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(bytes(w + 1))) + chunk(b"IEND", b""))
+
+
 def _normalised_xml(path):
     """A PAGE-XML file's bytes with ``LastChange`` and ``imageFilename``
     blanked: what a page's separator output owes to its pixels alone."""
@@ -1734,8 +1749,11 @@ def phase_variants(dev):
     SPIDER, GBR, IMT, MCIDAS, XVTHUMB) variants: the committed small
     variant fixtures against PIL's recorded digests, full-size pages of the
     variants through the pipelined workflow beside 8-bit PNG twins of the
-    same decoded pixels, and PBM, BMP, GIF, WebP, JPEG 2000, PCX, DCX, TGA,
-    PSD, SGI, SUN and QOI pages through the separator CLI."""
+    same decoded pixels (among them the main path's formats under damage
+    and at the edges of PIL's table, and a PNG header past PIL's
+    decompression-bomb limit, which the workflow skips), and PBM, BMP,
+    GIF, WebP, JPEG 2000, PCX, DCX, TGA, PSD, SGI, SUN and QOI pages
+    through the separator CLI."""
     import glob
     import hashlib
 
@@ -1814,6 +1832,21 @@ def phase_variants(dev):
                         os.path.join(root, "page", f"{stem}.xml"))
             variants.append((rec["file"], (rec["sha256_L"], rec["sha256_RGB"])))
         check(len(variants) == 10, f"variants: {len(variants)} full-size pages, want 10")
+        # the main path's formats under damage and at the edges of PIL's
+        # table: a JPEG PIL decodes through libjpeg-turbo's recovery of
+        # changed entropy-coded bytes, an RGBA JPEG-in-TIFF, separate YCbCr
+        # planes under LZW and a palette page with alpha ("PA"); PIL's "L"
+        # and "RGB" digests
+        for rec_path in sorted(glob.glob(os.path.join(MAIN_FORMATS_DIR, "*.json"))):
+            with open(rec_path) as f:
+                rec = json.load(f)
+            shutil.copy(os.path.join(MAIN_FORMATS_DIR, rec["file"]),
+                        os.path.join(root, rec["file"]))
+            stem = os.path.splitext(rec["file"])[0]
+            shutil.copy(os.path.join(MAIN_FORMATS_DIR, "page", f"{stem}.xml"),
+                        os.path.join(root, "page", f"{stem}.xml"))
+            variants.append((rec["file"], (rec["sha256_L"], rec["sha256_RGB"])))
+        check(len(variants) == 14, f"variants: {len(variants)} full-size pages, want 14")
         for (name, _), page, layout in zip(variants[:2], pages, layouts):
             write_layout_xml(os.path.join(root, "page", f"{os.path.splitext(name)[0]}.xml"),
                              name, *page.shape, layout)
@@ -1844,10 +1877,29 @@ def phase_variants(dev):
         print(f"variants: the {len(variants)} full-size pages decode to their oracles; host "
               "decode ms per page (median of 3) beside the PNG twin's " + json.dumps(decode_ms))
 
+        # a PNG header past PIL's decompression-bomb limit, among the pages:
+        # refused by image_size, and skipped by the workflow with a logged
+        # UnsupportedImageFormat while the other pages are written
+        bomb = os.path.join(root, "bomb.png")
+        with open(bomb, "wb") as f:
+            f.write(png_header_bytes(*BOMB_SHAPE[::-1]))
+        shutil.copy(os.path.join(root, "page", "adam7.xml"), os.path.join(root, "page", "bomb.xml"))
+        try:
+            port_io.image_size(bomb)
+            check(False, "variants: image_size of the bomb page does not raise")
+        except port_io.UnsupportedImageFormat as e:
+            check("decompression-bomb" in str(e), f"variants: bomb page refused with {e}")
+
         # 2. the pipelined workflow over the variants and their twins
-        run = _workflow_runner(dev, paths, RelationPredictor(
+        run = _workflow_runner(dev, paths + [bomb], RelationPredictor(
             os.path.join(REPO, "models_ckpt_torch", "gnn.npz"), device=dev))
         secs, result, launches, _ = run(run_full_workflow_pipelined, host_workers=0)
+        skipped = result["skipped"]
+        check(len(skipped) == 1 and os.path.basename(skipped[0]["page"]) == "bomb.png"
+              and skipped[0]["stage"] == "load"
+              and skipped[0]["error"].startswith("UnsupportedImageFormat"),
+              f"variants: skipped {skipped}, want the bomb page alone at load")
+        result = dict(result, skipped=[])
         check_workflow_run("variants", result, launches, -(-len(paths) // BATCH), len(paths))
         clustered = dict(zip(paths, result["clustered"]))
         for name, _ in variants:
@@ -1858,7 +1910,8 @@ def phase_variants(dev):
                   "twin's")
         print(f"variants: pipelined workflow over {len(paths)} pages in {secs:.3f} s "
               f"({len(paths) / secs:.3f} pages/s), launches {json.dumps(launches)}; every "
-              "variant's _clustering.xml equals its PNG twin's")
+              "variant's _clustering.xml equals its PNG twin's; the bomb page skipped: "
+              f"{skipped[0]['error'][:120]}")
 
         # 3. a PBM page, an RLE8 BMP page (a grey-ramp palette: PIL's "L")
         # and an interlaced GIF page (a palette of greys that is not the
@@ -3518,9 +3571,10 @@ def main() -> int:
     # workers); ``launches_visual``: the pipelined workflow's with the visual
     # relation net; ``launches_formats``: the stage CLIs' over the JPEG /
     # TIFF fixtures (separator and heading; each counted from 0 just before
-    # its run); ``launches_variants``: the pipelined workflow's over the ten
-    # full-size variant pages and their PNG twins (20 pages, 5 groups: K1
-    # 69 x 2 x 5, K2 5) plus the separator CLI's over the PBM, BMP, GIF,
+    # its run); ``launches_variants``: the pipelined workflow's over the
+    # fourteen full-size variant pages and their PNG twins (28 pages, 7
+    # groups: K1 69 x 2 x 7, K2 7; the bomb page among them is skipped at
+    # load) plus the separator CLI's over the PBM, BMP, GIF,
     # three WebP, three JPEG 2000 and seven raster (PCX, DCX, TGA, PSD, SGI,
     # SUN, QOI) pages and their twins (32 pages, 8 groups: K1 69 x 8, K2 8);
     # ``launches_blind``: the three blind-quality bf16

@@ -15,21 +15,25 @@
 // jdsample.c (h2v1 / h2v2 / h1v2 fancy upsampling where the component is
 // wider than 2 samples, box upsampling otherwise and for lossless files),
 // jdcolor.c ycc_rgb_convert and ycck_cmyk_convert, and jdapimin.c
-// default_decompress_parms for the colour space.
+// default_decompress_parms for the colour space; the inverse DCT is the
+// x86 SIMD one PIL's libjpeg-turbo runs. Damaged entropy-coded data is read
+// as libjpeg-turbo reads it (see the JPEG section).
 //
 // TIFF: the first IFD of a classic or BigTIFF file, little- or big-endian,
 // strips or tiles, PlanarConfiguration 1 or 2, FillOrder 1 or 2 (libtiff
 // reverses the bits of every strip byte); no compression, PackBits, LZW,
 // Deflate (inflated by the caller's function), CCITT modified Huffman,
-// Group 3 (1-D and 2-D rows after EOLs, as tif_fax3.c syncs them) and
-// Group 4, and JPEG (one stream per strip or tile after the JPEGTables
+// Group 3 (1-D and 2-D) and Group 4 as libtiff 4.7's tif_fax3.c decodes
+// them, damaged rows included, and JPEG (one stream per strip or tile after the JPEGTables
 // stream; YCbCr converted to RGB as libjpeg does when libtiff asks for
 // JPEGCOLORMODE_RGB); old-style JPEG from its JPEGInterchangeFormat stream and
 // YCbCr under the other codecs as libtiff's RGBA interface gives them (the
 // chroma of each sampling unit on its pixels, tif_color.c's conversion);
 // the horizontal predictor on 8-, 16- and 32-bit samples
 // and the floating-point predictor (tif_predict.c fpAcc); 1-, 2-, 4-, 8-,
-// 16- and 32-bit samples. The samples come out as stored (native byte
+// 12-, 16- and 32-bit samples. The IFD is read as PIL reads it (an entry
+// past the end of the file ends it), and what libtiff needs of it where
+// libtiff decodes. The samples come out as stored (native byte
 // order; a palette expanded to RGB): which layouts PIL opens, and how it
 // reads them, is decided by the caller.
 //
@@ -56,6 +60,19 @@ typedef int64_t (*inflate_fn)(const uint8_t* src, int64_t n, uint8_t* dst,
                               int64_t dst_n);
 
 // ------------------------------------------------------------------ JPEG
+//
+// The reading follows libjpeg-turbo 3.1 as PIL drives it: jdmarker.c's
+// marker reader (next_marker's skipping of stray bytes, read_restart_marker
+// and jpeg_resync_to_restart after a damaged or missing RSTn), jdhuff.c's
+// bit buffer (fill to 57 bits, stop at a marker; a code needed past a
+// marker takes zero bits and leaves the rest of the segment's MCUs
+// untouched: "insufficient data"), jdhuff.c / jdphuff.c / jdlhuff.c
+// decoding with its recovery (a Huffman code longer than 16 bits decodes
+// as 0 after 17 bits, a run past coefficient 63 lands on the 16 extra
+// entries of jpeg_natural_order), and jdarith.c. PIL's source hands libjpeg
+// the whole file and suspends at its end, which PIL reports as a truncated
+// file, except after the last row of an image of one scan; libtiff's source
+// (JPEG-in-TIFF) hands out a fake EOI marker instead.
 
 const int kNatural[64 + 16] = {
     0,  1,  8,  16, 9,  2,  3,  10, 17, 24, 32, 25, 18, 11, 4,  5,
@@ -64,20 +81,37 @@ const int kNatural[64 + 16] = {
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63,
     63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63, 63};
 
+// the source ran out where PIL's decoder would suspend for more data
+struct Truncated : DecodeError {
+    Truncated() : DecodeError("JPEG: truncated file (PIL: image file is truncated)") {}
+};
+
+// a Huffman table as DHT defines it (bits, huffval zero-filled) and as
+// jdhuff.c's jpeg_make_d_derived_tbl derives it at the start of a scan
 struct Huffman {
     bool present = false;
+    uint8_t bits[17] = {0};
     uint8_t vals[256] = {0};
-    int32_t maxcode[18] = {0};
-    int32_t valoffset[18] = {0};
-    uint16_t fast[512] = {0};    // (length << 8) | value for codes of <= 9 bits
+    int32_t maxcode[18];
+    int32_t valoffset[18];
+    uint16_t lookup[256];   // HUFF_LOOKAHEAD = 8: (length << 8) | value, 9 << 8 if longer
 
-    void build(const uint8_t* bits, const uint8_t* values, int nvals) {
-        std::memcpy(vals, values, nvals);
+    void define(const uint8_t* b, const uint8_t* v, int count) {
+        std::memcpy(bits, b, 17);
+        std::memset(vals, 0, sizeof(vals));
+        std::memcpy(vals, v, count);
+        present = true;
+    }
+
+    void derive(bool is_dc, bool lossless) {
         int huffsize[257], huffcode[257];
         int p = 0;
-        for (int l = 1; l <= 16; ++l)
+        for (int l = 1; l <= 16; ++l) {
+            if (p + bits[l] > 256) fail("JPEG: bad Huffman table");
             for (int i = 0; i < bits[l]; ++i) huffsize[p++] = l;
+        }
         huffsize[p] = 0;
+        const int numsymbols = p;
         int code = 0, si = huffsize[0];
         p = 0;
         while (huffsize[p]) {
@@ -96,85 +130,58 @@ struct Huffman {
                 maxcode[l] = -1;
             }
         }
-        maxcode[17] = 0x7FFFFFFF;
-        std::memset(fast, 0, sizeof(fast));
+        valoffset[17] = 0;
+        maxcode[17] = 0xFFFFF;
+        for (int i = 0; i < 256; ++i) lookup[i] = 9 << 8;
         p = 0;
-        for (int l = 1; l <= 9; ++l)
-            for (int i = 0; i < bits[l]; ++i, ++p) {
-                int lookbits = huffcode[p] << (9 - l);
-                for (int c = 0; c < (1 << (9 - l)); ++c)
-                    fast[lookbits + c] = (uint16_t)((l << 8) | vals[p]);
+        for (int l = 1; l <= 8; ++l)
+            for (int i = 1; i <= bits[l]; ++i, ++p) {
+                int lookbits = huffcode[p] << (8 - l);
+                for (int c = 1 << (8 - l); c > 0; --c) lookup[lookbits++] = (uint16_t)((l << 8) | vals[p]);
             }
-        present = true;
+        if (is_dc)
+            for (int i = 0; i < numsymbols; ++i)
+                if (vals[i] > (lossless ? 16 : 15)) fail("JPEG: bad Huffman table");
     }
 };
 
-// entropy-coded segment reader: removes stuffed zeros and feeds zeros once
-// a marker is reached (libjpeg's fill_bit_buffer)
-struct BitReader {
-    const uint8_t* d;
-    size_t n, pos;
-    uint64_t buf = 0;
-    int cnt = 0;
-    bool marker = false;
-    bool past_end = false;
-
-    BitReader(const uint8_t* data, size_t size, size_t start)
-        : d(data), n(size), pos(start) {}
-
-    void fill() {
-        while (cnt <= 56) {
-            uint32_t b = 0;
-            if (!marker) {
-                if (pos >= n) {
-                    past_end = true;
-                    marker = true;
-                } else if (d[pos] == 0xFF) {
-                    uint8_t nx = pos + 1 < n ? d[pos + 1] : 0xD9;
-                    if (nx == 0) {
-                        b = 0xFF;
-                        pos += 2;
-                    } else {
-                        marker = true;
-                    }
-                } else {
-                    b = d[pos++];
-                }
-            }
-            buf |= (uint64_t)b << (56 - cnt);
-            cnt += 8;
-        }
-    }
-    int peek(int k) {
-        if (cnt < k) fill();
-        return (int)(buf >> (64 - k));
-    }
-    void skip(int k) {
-        buf <<= k;
-        cnt -= k;
-    }
-    int bits(int k) {
-        if (k == 0) return 0;
-        int v = peek(k);
-        skip(k);
-        return v;
-    }
-    int bit() { return bits(1); }
-    int decode(const Huffman& h) {
-        int look = peek(9);
-        uint16_t f = h.fast[look];
-        if (f) {
-            skip(f >> 8);
-            return f & 0xFF;
-        }
-        int code = peek(16);
-        int l = 10;
-        while (l <= 16 && (code >> (16 - l)) > h.maxcode[l]) ++l;
-        if (l > 16) fail("JPEG: corrupt Huffman code");
-        skip(l);
-        return h.vals[(code >> (16 - l)) + h.valoffset[l]];
-    }
-};
+// jstdhuff.c: the tables of T.81 K.3 that libjpeg-turbo takes for a
+// missing table 0 or 1 (Motion-JPEG streams carry none)
+void std_huffman(Huffman& h, bool dc, int tbl) {
+    static const uint8_t dc_bits[2][17] = {{0, 0, 1, 5, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0, 0, 0},
+                                           {0, 0, 3, 1, 1, 1, 1, 1, 1, 1, 1, 1, 0, 0, 0, 0, 0}};
+    static const uint8_t dc_vals[12] = {0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11};
+    static const uint8_t ac_bits[2][17] = {
+        {0, 0, 2, 1, 3, 3, 2, 4, 3, 5, 5, 4, 4, 0, 0, 1, 0x7d},
+        {0, 0, 2, 1, 2, 4, 4, 3, 4, 7, 5, 4, 4, 0, 1, 2, 0x77}};
+    static const uint8_t ac_vals[2][162] = {
+        {0x01, 0x02, 0x03, 0x00, 0x04, 0x11, 0x05, 0x12, 0x21, 0x31, 0x41, 0x06, 0x13, 0x51,
+         0x61, 0x07, 0x22, 0x71, 0x14, 0x32, 0x81, 0x91, 0xa1, 0x08, 0x23, 0x42, 0xb1, 0xc1,
+         0x15, 0x52, 0xd1, 0xf0, 0x24, 0x33, 0x62, 0x72, 0x82, 0x09, 0x0a, 0x16, 0x17, 0x18,
+         0x19, 0x1a, 0x25, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x34, 0x35, 0x36, 0x37, 0x38, 0x39,
+         0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56, 0x57,
+         0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74, 0x75,
+         0x76, 0x77, 0x78, 0x79, 0x7a, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89, 0x8a, 0x92,
+         0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5, 0xa6, 0xa7,
+         0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba, 0xc2, 0xc3,
+         0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6, 0xd7, 0xd8,
+         0xd9, 0xda, 0xe1, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf1, 0xf2,
+         0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa},
+        {0x00, 0x01, 0x02, 0x03, 0x11, 0x04, 0x05, 0x21, 0x31, 0x06, 0x12, 0x41, 0x51, 0x07,
+         0x61, 0x71, 0x13, 0x22, 0x32, 0x81, 0x08, 0x14, 0x42, 0x91, 0xa1, 0xb1, 0xc1, 0x09,
+         0x23, 0x33, 0x52, 0xf0, 0x15, 0x62, 0x72, 0xd1, 0x0a, 0x16, 0x24, 0x34, 0xe1, 0x25,
+         0xf1, 0x17, 0x18, 0x19, 0x1a, 0x26, 0x27, 0x28, 0x29, 0x2a, 0x35, 0x36, 0x37, 0x38,
+         0x39, 0x3a, 0x43, 0x44, 0x45, 0x46, 0x47, 0x48, 0x49, 0x4a, 0x53, 0x54, 0x55, 0x56,
+         0x57, 0x58, 0x59, 0x5a, 0x63, 0x64, 0x65, 0x66, 0x67, 0x68, 0x69, 0x6a, 0x73, 0x74,
+         0x75, 0x76, 0x77, 0x78, 0x79, 0x7a, 0x82, 0x83, 0x84, 0x85, 0x86, 0x87, 0x88, 0x89,
+         0x8a, 0x92, 0x93, 0x94, 0x95, 0x96, 0x97, 0x98, 0x99, 0x9a, 0xa2, 0xa3, 0xa4, 0xa5,
+         0xa6, 0xa7, 0xa8, 0xa9, 0xaa, 0xb2, 0xb3, 0xb4, 0xb5, 0xb6, 0xb7, 0xb8, 0xb9, 0xba,
+         0xc2, 0xc3, 0xc4, 0xc5, 0xc6, 0xc7, 0xc8, 0xc9, 0xca, 0xd2, 0xd3, 0xd4, 0xd5, 0xd6,
+         0xd7, 0xd8, 0xd9, 0xda, 0xe2, 0xe3, 0xe4, 0xe5, 0xe6, 0xe7, 0xe8, 0xe9, 0xea, 0xf2,
+         0xf3, 0xf4, 0xf5, 0xf6, 0xf7, 0xf8, 0xf9, 0xfa}};
+    if (dc) h.define(dc_bits[tbl], dc_vals, 12);
+    else h.define(ac_bits[tbl], ac_vals[tbl], 162);
+}
 
 inline int extend(int v, int s) {
     return v < (1 << (s - 1)) ? v - (1 << s) + 1 : v;
@@ -205,79 +212,6 @@ const int32_t kAritab[114] = {
     0x4c0f676a, 0x4639686b, 0x415e6367, 0x56276ae9, 0x50e76b6c, 0x4b85676d,
     0x55976d6e, 0x504f6b6f, 0x5a106fee, 0x55226d70, 0x59eb6ff0, 0x5a1d7171};
 
-// the arithmetic decoder of T.81 annex D as jdarith.c runs it: C and A
-// registers, a bit counter that starts at -16 (two bytes to fill C), zero
-// data once a marker is reached (legal in arithmetic coding), ct = -1 after a
-// bad code, which stops the decoding of the scan's MCUs until the next restart
-struct ArithDecoder {
-    const uint8_t* d;
-    size_t n, pos;
-    int64_t c = 0, a = 0;
-    int ct = -16;
-    bool marker = false, past_end = false;
-
-    ArithDecoder(const uint8_t* data, size_t size, size_t start)
-        : d(data), n(size), pos(start) {}
-
-    int byte() {
-        if (marker) return 0;
-        if (pos >= n) {
-            past_end = marker = true;
-            return 0;
-        }
-        if (d[pos] != 0xFF) return d[pos++];
-        size_t q = pos + 1;
-        while (q < n && d[q] == 0xFF) ++q;     // fill bytes
-        if (q >= n) {
-            past_end = marker = true;
-            return 0;
-        }
-        if (d[q] == 0) {                       // stuffed zero
-            pos = q + 1;
-            return 0xFF;
-        }
-        pos = q - 1;                           // left on the marker
-        marker = true;
-        return 0;
-    }
-
-    int decode(uint8_t* st) {
-        while (a < 0x8000) {
-            if (--ct < 0) {
-                c = (c << 8) | byte();
-                if ((ct += 8) < 0 && ++ct == 0) a = 0x8000;
-            }
-            a <<= 1;
-        }
-        int sv = *st;
-        int32_t qe = kAritab[sv & 0x7F];
-        const int nl = qe & 0xFF, nm = (qe >> 8) & 0xFF;
-        qe >>= 16;
-        int64_t temp = a - qe;
-        a = temp;
-        temp <<= ct;
-        if (c >= temp) {
-            c -= temp;
-            if (a < qe) {
-                a = qe;
-                *st = (uint8_t)((sv & 0x80) ^ nm);
-            } else {
-                a = qe;
-                *st = (uint8_t)((sv & 0x80) ^ nl);
-                sv ^= 0x80;
-            }
-        } else if (a < 0x8000) {
-            if (a < qe) {
-                *st = (uint8_t)((sv & 0x80) ^ nl);
-                sv ^= 0x80;
-            } else {
-                *st = (uint8_t)((sv & 0x80) ^ nm);
-            }
-        }
-        return sv >> 7;
-    }
-};
-
 struct Component {
     int id = 0, h = 1, v = 1, tq = 0;
     int bw = 0, bh = 0;      // blocks (lossless: samples) per line / column, whole MCUs
@@ -286,6 +220,7 @@ struct Component {
     bool quant_latched = false;
     uint16_t quant[64] = {0};
     int coef_bits[64];
+    int prev_coef_bits[64] = {0};   // as they stood before the last scan of the component
     std::vector<int16_t> coef;
     std::vector<uint8_t> plane;  // samples after the IDCT (lossless: undifferenced)
 };
@@ -311,30 +246,220 @@ struct Jpeg {
     uint8_t fixed_bin[4] = {113, 0, 0, 0};
     std::vector<Component> comps;
 
+    // the source (jdmarker.c's view of it) and the entropy decoder's state
+    size_t pos = 0;
+    bool tiff_source = false;   // libtiff's: a fake EOI marker at the end of the data
+    int eoi_phase = 0;
+    int unread_marker = 0, next_restart_num = 0;
+    uint64_t get_buffer = 0;    // jdhuff.c's bit buffer
+    int bits_left = 0;
+    bool insufficient = false;
+    int64_t arith_c = 0, arith_a = 0;   // jdarith.c's registers
+    int arith_ct = -16;
+    // jdmarker.c input_scan_number, and the last iMCU row an MCU of the
+    // last scan began with data (jdcoefct.c last_good_iMCU_row)
+    int scans_read = 0, last_good_imcu = 0;
+
     Jpeg(const uint8_t* data, size_t size) : d(data), n(size) {
         std::fill(dac_L, dac_L + 16, 0);
         std::fill(dac_U, dac_U + 16, 1);
         std::fill(dac_K, dac_K + 16, 5);
     }
 
+    // ---- the source: INPUT_BYTE
+    int byte() {
+        if (pos < n) return d[pos++];
+        if (!tiff_source) throw Truncated();
+        return (eoi_phase ^= 1) ? 0xFF : 0xD9;
+    }
+    int input_u16() {
+        int a = byte();
+        return (a << 8) | byte();
+    }
+    // skip_input_data: past the end, PIL's source suspends and libtiff's
+    // hands out its fake EOI
+    void skip(int64_t k) {
+        if (k <= 0) return;
+        if ((uint64_t)k > n - std::min(pos, n)) {
+            if (!tiff_source) throw Truncated();
+            pos = n;
+            eoi_phase = 0;
+            return;
+        }
+        pos += (size_t)k;
+    }
+
+    // jdmarker.c next_marker: skips anything up to an FF, the FF fill
+    // bytes, and FF 00 pairs
+    void next_marker() {
+        for (;;) {
+            int c = byte();
+            while (c != 0xFF) c = byte();
+            do c = byte(); while (c == 0xFF);
+            if (c != 0) {
+                unread_marker = c;
+                return;
+            }
+        }
+    }
+
+    // jdmarker.c read_restart_marker and jpeg_resync_to_restart
+    void read_restart_marker() {
+        if (unread_marker == 0) next_marker();
+        if (unread_marker == 0xD0 + next_restart_num) {
+            unread_marker = 0;
+        } else {
+            const int desired = next_restart_num;
+            for (;;) {
+                const int m = unread_marker;
+                int action;
+                if (m < 0xC0) action = 2;                      // not a valid marker
+                else if (m < 0xD0 || m > 0xD7) action = 3;     // a marker that is no RSTn
+                else if (m == 0xD0 + ((desired + 1) & 7) || m == 0xD0 + ((desired + 2) & 7))
+                    action = 3;                                // one of the next two
+                else if (m == 0xD0 + ((desired - 1) & 7) || m == 0xD0 + ((desired - 2) & 7))
+                    action = 2;                                // a prior one: scan on
+                else
+                    action = 1;                                // too far away: discard it
+                if (action == 1) {
+                    unread_marker = 0;
+                    break;
+                }
+                if (action == 3) break;                        // an empty segment follows
+                next_marker();
+            }
+        }
+        next_restart_num = (next_restart_num + 1) & 7;
+    }
+
+    // ---- jdhuff.c's bit buffer
+    // jpeg_fill_bit_buffer: up to 57 bits, never past a marker; where more
+    // bits are needed than are left before the marker, zeros (and the
+    // "insufficient data" flag of the segment)
+    void fill(int nbits) {
+        if (unread_marker == 0) {
+            while (bits_left < 57) {
+                int c = byte();
+                if (c == 0xFF) {
+                    do c = byte(); while (c == 0xFF);
+                    if (c == 0) {
+                        c = 0xFF;
+                    } else {
+                        unread_marker = c;
+                        break;
+                    }
+                }
+                get_buffer = (get_buffer << 8) | (uint64_t)c;
+                bits_left += 8;
+            }
+            if (unread_marker == 0) return;
+        }
+        if (nbits > bits_left) {
+            insufficient = true;
+            get_buffer <<= 57 - bits_left;
+            bits_left = 57;
+        }
+    }
+    void check(int nbits) {
+        if (bits_left < nbits) fill(nbits);
+    }
+    int get_bits(int k) {
+        bits_left -= k;
+        return (int)(get_buffer >> bits_left) & ((1 << k) - 1);
+    }
+    int get_bit() {
+        check(1);
+        return get_bits(1);
+    }
+    // HUFF_DECODE and jpeg_huff_decode: a code longer than 16 bits gives 0
+    int huff_decode(const Huffman& h) {
+        int nb;
+        if (bits_left < 8) {
+            fill(0);
+            if (bits_left < 8) return huff_slow(h, 1);
+        }
+        const int look = (int)(get_buffer >> (bits_left - 8)) & 0xFF;
+        nb = h.lookup[look] >> 8;
+        if (nb <= 8) {
+            bits_left -= nb;
+            return h.lookup[look] & 0xFF;
+        }
+        return huff_slow(h, nb);
+    }
+    int huff_slow(const Huffman& h, int l) {
+        check(l);
+        int32_t code = get_bits(l);
+        while (code > h.maxcode[l]) {
+            code <<= 1;
+            check(1);
+            code |= get_bits(1);
+            ++l;
+        }
+        if (l > 16) return 0;
+        return h.vals[(code + h.valoffset[l]) & 0xFF];
+    }
+    // the value of an s-bit difference (HUFF_EXTEND)
+    int received(int s) {
+        if (!s) return 0;
+        check(s);
+        return extend(get_bits(s), s);
+    }
+
+    // ---- jdarith.c arith_decode: bytes as needed, zeros once a marker is
+    // met (legal in arithmetic coding); ct = -1 after a bad code
+    int arith_decode(uint8_t* st) {
+        while (arith_a < 0x8000) {
+            if (--arith_ct < 0) {
+                int data = 0;
+                if (!unread_marker) {
+                    data = byte();
+                    if (data == 0xFF) {
+                        do data = byte(); while (data == 0xFF);
+                        if (data == 0) {
+                            data = 0xFF;
+                        } else {
+                            unread_marker = data;
+                            data = 0;
+                        }
+                    }
+                }
+                arith_c = (arith_c << 8) | data;
+                if ((arith_ct += 8) < 0 && ++arith_ct == 0) arith_a = 0x8000;
+            }
+            arith_a <<= 1;
+        }
+        int sv = *st;
+        int32_t qe = kAritab[sv & 0x7F];
+        const int nl = qe & 0xFF, nm = (qe >> 8) & 0xFF;
+        qe >>= 16;
+        int64_t temp = arith_a - qe;
+        arith_a = temp;
+        temp <<= arith_ct;
+        if (arith_c >= temp) {
+            arith_c -= temp;
+            if (arith_a < qe) {
+                arith_a = qe;
+                *st = (uint8_t)((sv & 0x80) ^ nm);
+            } else {
+                arith_a = qe;
+                *st = (uint8_t)((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            }
+        } else if (arith_a < 0x8000) {
+            if (arith_a < qe) {
+                *st = (uint8_t)((sv & 0x80) ^ nl);
+                sv ^= 0x80;
+            } else {
+                *st = (uint8_t)((sv & 0x80) ^ nm);
+            }
+        }
+        return sv >> 7;
+    }
+
+    // ---- markers (jdmarker.c read_markers and its get_* readers)
     int u16(size_t p) const {
         if (p + 2 > n) fail("JPEG: truncated header");
         return (d[p] << 8) | d[p + 1];
-    }
-
-    // the marker at pos (skipping fill bytes and garbage); pos moves past it
-    int next_marker(size_t& pos) const {
-        while (pos < n) {
-            if (d[pos] != 0xFF) {
-                ++pos;
-                continue;
-            }
-            while (pos < n && d[pos] == 0xFF) ++pos;
-            if (pos >= n) break;
-            int m = d[pos++];
-            if (m != 0) return m;
-        }
-        fail("JPEG: truncated file (no EOI marker)");
     }
 
     // the frame header; PIL's SOF handler refuses other precisions than 8
@@ -357,11 +482,11 @@ struct Jpeg {
         int nc = d[p + 5];
         if (height == 0) fail("JPEG: height 0 (DNL marker) is not supported");
         if (width == 0) fail("JPEG: width 0");
-        if (nc != 1 && nc != 3 && nc != 4)
+        if (nc != 1 && nc != 3 && nc != 4 && !(tiff_source && nc == 2))
             fail("JPEG: " + std::to_string(nc) +
                  "-component JPEG is not supported (PIL reads 1, 3 or 4 components)");
         if (decoding) {
-            if ((marker >= 0xC5 && marker <= 0xC7) || marker >= 0xCD)
+            if ((marker >= 0xC5 && marker <= 0xC7) || marker >= 0xCD || marker == 0xC8)
                 fail("JPEG: hierarchical (differential) JPEG is not supported");
             if (marker == 0xCB)
                 fail("JPEG: arithmetic-coded lossless JPEG is not supported "
@@ -374,9 +499,16 @@ struct Jpeg {
             c.id = d[p + 6 + 3 * i];
             c.h = d[p + 7 + 3 * i] >> 4;
             c.v = d[p + 7 + 3 * i] & 15;
-            c.tq = d[p + 8 + 3 * i] & 3;
-            if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4)
-                fail("JPEG: bad sampling factors");
+            c.tq = d[p + 8 + 3 * i];
+        }
+    }
+
+    // jdinput.c initial_setup (at the first SOS): the sampling factors, the
+    // MCU geometry and the buffers
+    void initial_setup() {
+        if (width > 65500 || height > 65500) fail("JPEG: image too big for libjpeg");
+        for (Component& c : comps) {
+            if (c.h < 1 || c.h > 4 || c.v < 1 || c.v > 4) fail("JPEG: bad sampling factors");
             hmax = std::max(hmax, c.h);
             vmax = std::max(vmax, c.v);
         }
@@ -389,7 +521,6 @@ struct Jpeg {
             c.bh = mcuy * c.v;
             c.dw = (int)(((int64_t)width * c.h + hmax - 1) / hmax);
             c.dh = (int)(((int64_t)height * c.v + vmax - 1) / vmax);
-            if (!decoding) continue;
             if (lossless)
                 c.plane.assign((size_t)c.bw * c.bh, 0);
             else
@@ -398,46 +529,50 @@ struct Jpeg {
         }
     }
 
-    void read_dqt(size_t p, size_t end) {
-        while (p < end) {
-            int pq = d[p] >> 4, tq = d[p] & 3;
-            ++p;
-            for (int i = 0; i < 64; ++i) {
-                int val;
-                if (pq) {
-                    val = u16(p);
-                    p += 2;
-                } else {
-                    if (p >= n) fail("JPEG: truncated DQT");
-                    val = d[p++];
-                }
-                qt[tq][kNatural[i]] = (uint16_t)val;
-            }
-            qt_present[tq] = true;
-        }
-    }
-
-    void read_dht(size_t p, size_t end) {
-        while (p < end) {
-            if (p + 17 > n) fail("JPEG: truncated DHT");
-            int tc = d[p] >> 4, th = d[p] & 3;
+    void get_dht() {
+        int64_t length = input_u16() - 2;
+        while (length > 16) {
+            int index = byte();
             uint8_t bits[17];
             bits[0] = 0;
             int count = 0;
-            for (int l = 1; l <= 16; ++l) {
-                bits[l] = d[p + l];
-                count += bits[l];
+            for (int i = 1; i <= 16; ++i) {
+                bits[i] = (uint8_t)byte();
+                count += bits[i];
             }
-            if (count > 256 || p + 17 + count > n) fail("JPEG: bad DHT");
-            (tc ? ac[th] : dc[th]).build(bits, d + p + 17, count);
-            p += 17 + count;
+            length -= 17;
+            if (count > 256 || count > length) fail("JPEG: bad Huffman table");
+            uint8_t vals[256];
+            for (int i = 0; i < count; ++i) vals[i] = (uint8_t)byte();
+            length -= count;
+            Huffman* tbl = (index & 0x10) ? ac : dc;
+            index &= ~0x10;
+            if (index < 0 || index >= 4) fail("JPEG: bad DHT table index");
+            tbl[index].define(bits, vals, count);
         }
+        if (length != 0) fail("JPEG: bad DHT length");
+    }
+
+    void get_dqt() {
+        int64_t length = input_u16() - 2;
+        while (length > 0) {
+            --length;
+            int v = byte();
+            const int prec = v >> 4, tq = v & 15;
+            if (tq >= 4) fail("JPEG: bad DQT table index");
+            for (int i = 0; i < 64; ++i) qt[tq][kNatural[i]] = (uint16_t)(prec ? input_u16() : byte());
+            qt_present[tq] = true;
+            length -= prec ? 128 : 64;
+        }
+        if (length != 0) fail("JPEG: bad DQT length");
     }
 
     // jdmarker.c get_dac: Tc Tb, then the DC bounds (U << 4 | L) or Kx
-    void read_dac(size_t p, size_t end) {
-        for (; p + 1 < end; p += 2) {
-            int index = d[p], val = d[p + 1];
+    void get_dac() {
+        int64_t length = input_u16() - 2;
+        while (length > 0) {
+            int index = byte(), val = byte();
+            length -= 2;
             if (index >= 32) fail("JPEG: bad DAC table index");
             if (index >= 16) {
                 dac_K[index - 16] = (uint8_t)val;
@@ -447,35 +582,145 @@ struct Jpeg {
                 if (dac_L[index] > dac_U[index]) fail("JPEG: bad DAC conditioning value");
             }
         }
+        if (length != 0) fail("JPEG: bad DAC length");
     }
 
-    void read_app(size_t p, size_t len, int marker) {
-        if (marker == 0xE0 && len >= 5 && std::memcmp(d + p, "JFIF\0", 5) == 0)
-            jfif = true;
-        if (marker == 0xEE && len >= 12 && std::memcmp(d + p, "Adobe", 5) == 0) {
+    // get_interesting_appn: the first 14 bytes of APP0 and APP14 examined
+    void get_app(int marker) {
+        int64_t length = input_u16() - 2;
+        const int64_t take = length >= 14 ? 14 : length > 0 ? length : 0;
+        uint8_t b[14];
+        for (int64_t i = 0; i < take; ++i) b[i] = (uint8_t)byte();
+        length -= take;
+        if (marker == 0xE0 && take >= 14 && std::memcmp(b, "JFIF\0", 5) == 0) jfif = true;
+        if (marker == 0xEE && take >= 12 && std::memcmp(b, "Adobe", 5) == 0) {
             adobe = true;
-            adobe_transform = d[p + 11];
+            adobe_transform = b[11];
+        }
+        skip(length);
+    }
+
+    void skip_variable() { skip(input_u16() - 2); }
+
+    struct Scan {
+        std::vector<int> comp;
+        int ss = 0, se = 63, ah = 0, al = 0;
+    };
+
+    Scan get_sos() {
+        if (!frame) fail("JPEG: scan before the frame header");
+        const int length = input_u16();
+        const int ns = byte();
+        if (length != ns * 2 + 6 || ns < 1 || ns > 4) fail("JPEG: bad SOS");
+        Scan sc;
+        int cur[4] = {-1, -1, -1, -1};
+        for (int i = 0; i < ns; ++i) {
+            int cid = byte(), tbl = byte();
+            int found = -1;
+            for (int ci = 0; ci < (int)comps.size() && ci < 4; ++ci)
+                if (comps[ci].id == cid && cur[ci] < 0) {
+                    found = ci;
+                    break;
+                }
+            if (found < 0) fail("JPEG: scan names an unknown component");
+            cur[i] = found;
+            comps[found].dc_tbl = tbl >> 4;
+            comps[found].ac_tbl = tbl & 15;
+            sc.comp.push_back(found);
+        }
+        sc.ss = byte();
+        sc.se = byte();
+        int c = byte();
+        sc.ah = c >> 4;
+        sc.al = c & 15;
+        next_restart_num = 0;
+        ++scans_read;
+        return sc;
+    }
+
+    // read_markers: up to the next SOS (returns true, the scan's header
+    // read) or EOI (false)
+    bool read_markers(Scan& sc) {
+        for (;;) {
+            if (unread_marker == 0) next_marker();
+            const int m = unread_marker;
+            if (m == 0xDA) {
+                sc = get_sos();
+                unread_marker = 0;
+                return true;
+            }
+            if (m == 0xD9) {
+                unread_marker = 0;
+                return false;
+            }
+            if (m == 0xD8) {
+                fail("JPEG: a second SOI marker");
+            } else if (is_sof(m) || m == 0xC8) {
+                if (m == 0xC8 || (m >= 0xC5 && m <= 0xC7) || m >= 0xCD)
+                    fail("JPEG: hierarchical (differential) JPEG is not supported");
+                if (frame) fail("JPEG: more than one frame (hierarchical JPEG)");
+                const size_t at = pos;
+                const int length = input_u16();
+                if (at + length > n) throw Truncated();
+                read_sof(at + 2, m, true);
+                if (length - 8 != 3 * (int)comps.size()) fail("JPEG: bad SOF length");
+                pos = at + length;
+            } else if (m == 0xC4) {
+                get_dht();
+            } else if (m == 0xCC) {
+                get_dac();
+            } else if (m == 0xDB) {
+                get_dqt();
+            } else if (m == 0xDD) {
+                if (input_u16() != 4) fail("JPEG: bad DRI length");
+                restart_interval = input_u16();
+            } else if (m == 0xE0 || m == 0xEE) {
+                get_app(m);
+            } else if ((m >= 0xE1 && m <= 0xEF) || m == 0xFE || m == 0xDC) {
+                skip_variable();
+            } else if ((m >= 0xD0 && m <= 0xD7) || m == 0x01) {
+                // parameterless
+            } else {
+                fail("JPEG: unknown marker 0x" + std::to_string(m) + " (libjpeg refuses it)");
+            }
+            unread_marker = 0;
         }
     }
 
     static bool is_sof(int m) { return m >= 0xC0 && m <= 0xCF && m != 0xC4 && m != 0xC8 && m != 0xCC; }
 
+    // the marker at pos (skipping fill bytes and garbage), for the header
+    // that PIL's open reads
+    int header_marker(size_t& p) const {
+        while (p < n) {
+            if (d[p] != 0xFF) {
+                ++p;
+                continue;
+            }
+            while (p < n && d[p] == 0xFF) ++p;
+            if (p >= n) break;
+            int m = d[p++];
+            if (m != 0) return m;
+        }
+        fail("JPEG: truncated file (no frame header)");
+    }
+
     // header only: dimensions and output channels
     void parse_header() {
         if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) fail("JPEG: no SOI marker");
-        size_t pos = 2;
+        size_t p = 2;
         while (true) {
-            int m = next_marker(pos);
+            int m = header_marker(p);
             if (m == 0xD9 || m == 0xDA) fail("JPEG: no frame header before the scan");
             if (m >= 0xD0 && m <= 0xD7) continue;
-            int len = u16(pos);
-            size_t body = pos + 2, end = pos + len;
+            int len = u16(p);
+            size_t body = p + 2, end = p + len;
             if (end > n) fail("JPEG: truncated marker segment");
             if (is_sof(m)) {
                 read_sof(body, m, false);
                 return;
             }
-            pos = end;
+            p = end;
         }
     }
 
@@ -502,35 +747,14 @@ struct Jpeg {
     }
 
     // ---- entropy decoding into coefficient arrays (lossless: samples)
-    struct Scan {
-        std::vector<int> comp;
-        int ss = 0, se = 63, ah = 0, al = 0;
-    };
-
     int16_t* block(Component& c, int row, int col) {
         return &c.coef[((size_t)row * c.bw + col) * 64];
     }
 
-    void decode_block_baseline(BitReader& br, Component& c, int16_t* blk) {
-        const Huffman& hd = dc[c.dc_tbl];
-        const Huffman& ha = ac[c.ac_tbl];
-        int s = br.decode(hd);
-        int diff = s ? extend(br.bits(s), s) : 0;
-        c.dc_pred += diff;
-        blk[0] = (int16_t)c.dc_pred;
-        for (int k = 1; k < 64; ++k) {
-            int rs = br.decode(ha);
-            int r = rs >> 4;
-            s = rs & 15;
-            if (s) {
-                k += r;
-                if (k > 63) fail("JPEG: corrupt AC coefficients");
-                blk[kNatural[k]] = (int16_t)extend(br.bits(s), s);
-            } else {
-                if (r != 15) break;
-                k += 15;
-            }
-        }
+    // the iMCU row of a scan's unit
+    int imcu_of(const Scan& sc, int64_t u, int units_x) const {
+        const int uy = (int)(u / units_x);
+        return sc.comp.size() == 1 ? uy / comps[sc.comp[0]].v : uy;
     }
 
     // the scan's units (MCUs, or the blocks of its one component) in order
@@ -544,23 +768,34 @@ struct Jpeg {
         return (int64_t)mcux * mcuy;
     }
 
-    void decode_scan(size_t& pos, const Scan& sc) {
-        if (lossless) return decode_scan_lossless(pos, sc);
-        for (int ci : sc.comp) {
+    // jdhuff.c jpeg_make_d_derived_tbl at the start of a scan; the
+    // sequential decoder (jinit_huff_decoder) takes the standard table for a
+    // missing table 0 or 1, the progressive and lossless ones refuse
+    const Huffman& derived(bool is_dc, int tbl) {
+        if (tbl > 3) fail("JPEG: missing Huffman table");
+        Huffman& h = (is_dc ? dc : ac)[tbl];
+        if (!h.present) {
+            if (tbl > 1 || progressive || lossless) fail("JPEG: missing Huffman table");
+            std_huffman(h, is_dc, tbl);
+        }
+        h.derive(is_dc, lossless);
+        return h;
+    }
+
+    void decode_scan(const Scan& sc) {
+        if (sc.comp.size() > 1) {     // jdinput.c per_scan_setup
+            int blocks = 0;
+            for (int ci : sc.comp) blocks += comps[ci].h * comps[ci].v;
+            if (blocks > 10) fail("JPEG: too many blocks in an MCU");
+        }
+        if (lossless) return decode_scan_lossless(sc);
+        for (int ci : sc.comp) {      // jdinput.c latch_quant_tables
             Component& c = comps[ci];
             if (!c.quant_latched) {
-                if (!qt_present[c.tq]) fail("JPEG: missing quantization table");
+                if (c.tq > 3 || !qt_present[c.tq]) fail("JPEG: missing quantization table");
                 std::memcpy(c.quant, qt[c.tq], sizeof(c.quant));
                 c.quant_latched = true;
             }
-            c.dc_pred = 0;
-            if (arith) continue;
-            bool need_dc = !progressive || (sc.ss == 0 && sc.ah == 0);
-            bool need_ac = !progressive || sc.ss > 0;
-            if (need_dc && (c.dc_tbl > 3 || !dc[c.dc_tbl].present))
-                fail("JPEG: missing Huffman table");
-            if (need_ac && (c.ac_tbl > 3 || !ac[c.ac_tbl].present))
-                fail("JPEG: missing Huffman table");
         }
         if (progressive) {
             // jdphuff.c / jdarith.c start_pass
@@ -570,82 +805,114 @@ struct Jpeg {
                 fail("JPEG: bad progressive scan parameters");
             for (int ci : sc.comp) {
                 Component& c = comps[ci];
+                for (int k = std::min(sc.ss, 1); k <= std::max(sc.se, 9); ++k)
+                    c.prev_coef_bits[k] = scans_read > 1 ? c.coef_bits[k] : 0;
                 for (int k = sc.ss; k <= sc.se; ++k) c.coef_bits[k] = sc.al;
             }
         }
-        if (arith) return decode_scan_arith(pos, sc);
-        BitReader br(d, n, pos);
+        if (arith) return decode_scan_arith(sc);
+        // the scan's derived tables (jdhuff.c / jdphuff.c start_pass)
+        std::vector<const Huffman*> dct(comps.size()), act(comps.size());
+        for (int ci : sc.comp) {
+            Component& c = comps[ci];
+            if (!progressive || (sc.ss == 0 && sc.ah == 0)) dct[ci] = &derived(true, c.dc_tbl);
+            if (!progressive) act[ci] = &derived(false, c.ac_tbl);
+            else if (sc.ss > 0) act[ci] = &derived(false, c.ac_tbl);
+            c.dc_pred = 0;
+        }
+        bits_left = 0;
+        get_buffer = 0;
+        insufficient = false;
         int eobrun = 0;
-        bool single = sc.comp.size() == 1;
+        const bool single = sc.comp.size() == 1;
         int units_x;
         const int64_t total = scan_units(sc, units_x);
-        int64_t until_restart = restart_interval;
+        int64_t restarts_to_go = restart_interval;
         for (int64_t u = 0; u < total; ++u) {
-            if (restart_interval && until_restart == 0) {
-                // expect RSTn at the reader's position
-                size_t p = br.pos;
-                int m = next_marker(p);
-                if (m < 0xD0 || m > 0xD7) fail("JPEG: missing restart marker");
-                br = BitReader(d, n, p);
+            if (!insufficient) last_good_imcu = imcu_of(sc, u, units_x);
+            if (restart_interval && restarts_to_go == 0) {
+                // jdhuff.c / jdphuff.c process_restart
+                bits_left = 0;
+                read_restart_marker();
                 for (int ci : sc.comp) comps[ci].dc_pred = 0;
                 eobrun = 0;
-                until_restart = restart_interval;
+                restarts_to_go = restart_interval;
+                if (unread_marker == 0) insufficient = false;
             }
-            int ux = (int)(u % units_x), uy = (int)(u / units_x);
-            if (single) {
-                Component& c = comps[sc.comp[0]];
-                decode_unit(br, sc, c, block(c, uy, ux), eobrun);
-            } else {
-                for (int ci : sc.comp) {
-                    Component& c = comps[ci];
-                    for (int by = 0; by < c.v; ++by)
-                        for (int bx = 0; bx < c.h; ++bx)
-                            decode_unit(br, sc, c, block(c, uy * c.v + by, ux * c.h + bx),
-                                        eobrun);
+            // an MCU after the data ran into a marker is left as it is
+            // (DC refinement reads its zero bits all the same)
+            const bool dc_refine = progressive && sc.ss == 0 && sc.ah != 0;
+            if (!insufficient || dc_refine) {
+                const int ux = (int)(u % units_x), uy = (int)(u / units_x);
+                if (single) {
+                    Component& c = comps[sc.comp[0]];
+                    decode_unit(sc, c, block(c, uy, ux), eobrun, dct[sc.comp[0]],
+                                act[sc.comp[0]]);
+                } else {
+                    for (int ci : sc.comp) {
+                        Component& c = comps[ci];
+                        for (int by = 0; by < c.v; ++by)
+                            for (int bx = 0; bx < c.h; ++bx)
+                                decode_unit(sc, c, block(c, uy * c.v + by, ux * c.h + bx), eobrun,
+                                            dct[ci], act[ci]);
+                    }
                 }
             }
-            if (restart_interval) --until_restart;
+            --restarts_to_go;
         }
-        if (br.past_end) fail("JPEG: truncated file (entropy data runs past its end)");
-        pos = br.pos;
     }
 
-    void decode_unit(BitReader& br, const Scan& sc, Component& c, int16_t* blk,
-                     int& eobrun) {
-        if (!progressive) {
-            decode_block_baseline(br, c, blk);
+    void decode_unit(const Scan& sc, Component& c, int16_t* blk, int& eobrun,
+                     const Huffman* hd, const Huffman* ha) {
+        if (!progressive) {                // jdhuff.c decode_mcu_slow
+            c.dc_pred = (int)((unsigned)received(huff_decode(*hd)) + (unsigned)c.dc_pred);
+            blk[0] = (int16_t)c.dc_pred;
+            for (int k = 1; k < 64; ++k) {
+                int rs = huff_decode(*ha);
+                int r = rs >> 4, s = rs & 15;
+                if (s) {
+                    k += r;
+                    blk[kNatural[k]] = (int16_t)received(s);
+                } else {
+                    if (r != 15) break;
+                    k += 15;
+                }
+            }
             return;
         }
         if (sc.ss == 0) {                  // DC scans
             if (sc.ah == 0) {
-                int s = br.decode(dc[c.dc_tbl]);
-                int diff = s ? extend(br.bits(s), s) : 0;
-                c.dc_pred += diff;
+                const int s = received(huff_decode(*hd));
+                const int last = c.dc_pred;
+                if ((last >= 0 && s > INT32_MAX - last) || (last < 0 && s < INT32_MIN - last))
+                    fail("JPEG: corrupt DC coefficient (libjpeg: bad DCT coefficient)");
+                c.dc_pred = last + s;
                 blk[0] = (int16_t)(uint16_t)((unsigned)c.dc_pred << sc.al);
-            } else if (br.bit()) {
+            } else if (get_bit()) {
                 blk[0] = (int16_t)(blk[0] | (1 << sc.al));
             }
             return;
         }
-        const Huffman& ha = ac[c.ac_tbl];
         if (sc.ah == 0) {                  // AC first
             if (eobrun > 0) {
                 --eobrun;
                 return;
             }
             for (int k = sc.ss; k <= sc.se; ++k) {
-                int rs = br.decode(ha);
+                int rs = huff_decode(*ha);
                 int r = rs >> 4, s = rs & 15;
                 if (s) {
                     k += r;
-                    if (k > 63) fail("JPEG: corrupt AC coefficients");
-                    int v = extend(br.bits(s), s);
+                    int v = received(s);
                     blk[kNatural[k]] = (int16_t)(uint16_t)((unsigned)v << sc.al);
                 } else if (r == 15) {
                     k += 15;
                 } else {
                     eobrun = 1 << r;
-                    if (r) eobrun += br.bits(r);
+                    if (r) {
+                        check(r);
+                        eobrun += get_bits(r);
+                    }
                     --eobrun;
                     break;
                 }
@@ -657,32 +924,35 @@ struct Jpeg {
         int k = sc.ss;
         if (eobrun == 0) {
             for (; k <= sc.se; ++k) {
-                int rs = br.decode(ha);
+                int rs = huff_decode(*ha);
                 int r = rs >> 4, s = rs & 15;
                 if (s) {
-                    s = br.bit() ? p1 : m1;
+                    s = get_bit() ? p1 : m1;
                 } else if (r != 15) {
                     eobrun = 1 << r;
-                    if (r) eobrun += br.bits(r);
+                    if (r) {
+                        check(r);
+                        eobrun += get_bits(r);
+                    }
                     break;
                 }
                 do {
                     int16_t* coef = blk + kNatural[k];
                     if (*coef != 0) {
-                        if (br.bit() && (*coef & p1) == 0)
+                        if (get_bit() && (*coef & p1) == 0)
                             *coef = (int16_t)(*coef >= 0 ? *coef + p1 : *coef + m1);
                     } else if (--r < 0) {
                         break;
                     }
                     ++k;
                 } while (k <= sc.se);
-                if (s) blk[kNatural[std::min(k, 79)]] = (int16_t)s;
+                if (s) blk[kNatural[k]] = (int16_t)s;
             }
         }
         if (eobrun > 0) {
             for (; k <= sc.se; ++k) {
                 int16_t* coef = blk + kNatural[k];
-                if (*coef != 0 && br.bit() && (*coef & p1) == 0)
+                if (*coef != 0 && get_bit() && (*coef & p1) == 0)
                     *coef = (int16_t)(*coef >= 0 ? *coef + p1 : *coef + m1);
             }
             --eobrun;
@@ -693,21 +963,21 @@ struct Jpeg {
 
     // Figures F.19-F.24: one DC difference into c.dc_pred (mod 2^16) and
     // the conditioning category c.dc_ctx; false after a bad code
-    bool arith_dc(ArithDecoder& ad, Component& c) {
+    bool arith_dc(Component& c) {
         const int tbl = c.dc_tbl;
         uint8_t* st = dc_stats[tbl] + c.dc_ctx;
-        if (ad.decode(st) == 0) {
+        if (arith_decode(st) == 0) {
             c.dc_ctx = 0;
             return true;
         }
-        const int sign = ad.decode(st + 1);
+        const int sign = arith_decode(st + 1);
         st += 2 + sign;
-        int m = ad.decode(st);
+        int m = arith_decode(st);
         if (m != 0) {
             st = dc_stats[tbl] + 20;
-            while (ad.decode(st)) {
+            while (arith_decode(st)) {
                 if ((m <<= 1) == 0x8000) {
-                    ad.ct = -1;                 // magnitude overflow
+                    arith_ct = -1;              // magnitude overflow
                     return false;
                 }
                 st += 1;
@@ -722,7 +992,7 @@ struct Jpeg {
         int v = m;
         st += 14;
         while (m >>= 1)
-            if (ad.decode(st)) v |= m;
+            if (arith_decode(st)) v |= m;
         v += 1;
         if (sign) v = -v;
         c.dc_pred = (c.dc_pred + v) & 0xFFFF;
@@ -731,27 +1001,27 @@ struct Jpeg {
 
     // Figure F.20: the AC coefficients ss..se of one block, scaled by al;
     // false after a bad code
-    bool arith_ac(ArithDecoder& ad, int tbl, int16_t* blk, int ss, int se, int al) {
+    bool arith_ac(int tbl, int16_t* blk, int ss, int se, int al) {
         uint8_t* stats = ac_stats[tbl];
         for (int k = ss; k <= se; ++k) {
             uint8_t* st = stats + 3 * (k - 1);
-            if (ad.decode(st)) break;           // EOB
-            while (ad.decode(st + 1) == 0) {
+            if (arith_decode(st)) break;        // EOB
+            while (arith_decode(st + 1) == 0) {
                 st += 3;
                 if (++k > se) {
-                    ad.ct = -1;                 // spectral overflow
+                    arith_ct = -1;              // spectral overflow
                     return false;
                 }
             }
-            const int sign = ad.decode(fixed_bin);
+            const int sign = arith_decode(fixed_bin);
             st += 2;
-            int m = ad.decode(st);
-            if (m != 0 && ad.decode(st)) {
+            int m = arith_decode(st);
+            if (m != 0 && arith_decode(st)) {
                 m <<= 1;
                 st = stats + (k <= dac_K[tbl] ? 189 : 217);
-                while (ad.decode(st)) {
+                while (arith_decode(st)) {
                     if ((m <<= 1) == 0x8000) {
-                        ad.ct = -1;             // magnitude overflow
+                        arith_ct = -1;          // magnitude overflow
                         return false;
                     }
                     st += 1;
@@ -760,7 +1030,7 @@ struct Jpeg {
             int v = m;
             st += 14;
             while (m >>= 1)
-                if (ad.decode(st)) v |= m;
+                if (arith_decode(st)) v |= m;
             v += 1;
             if (sign) v = -v;
             blk[kNatural[k]] = (int16_t)(uint16_t)((unsigned)v << al);
@@ -770,7 +1040,7 @@ struct Jpeg {
 
     // jdarith.c decode_mcu_AC_refine: one more bit of the band's
     // coefficients; false after a bad code
-    bool arith_ac_refine(ArithDecoder& ad, int tbl, int16_t* blk, int ss, int se, int al) {
+    bool arith_ac_refine(int tbl, int16_t* blk, int ss, int se, int al) {
         uint8_t* stats = ac_stats[tbl];
         const int p1 = 1 << al, m1 = -1 * (1 << al);
         int kex = se;                           // end of block of the previous stage
@@ -778,21 +1048,21 @@ struct Jpeg {
             if (blk[kNatural[kex]]) break;
         for (int k = ss; k <= se; ++k) {
             uint8_t* st = stats + 3 * (k - 1);
-            if (k > kex && ad.decode(st)) break;   // EOB
+            if (k > kex && arith_decode(st)) break;   // EOB
             for (;;) {
                 int16_t* coef = blk + kNatural[k];
                 if (*coef) {
-                    if (ad.decode(st + 2))
+                    if (arith_decode(st + 2))
                         *coef = (int16_t)(*coef < 0 ? *coef + m1 : *coef + p1);
                     break;
                 }
-                if (ad.decode(st + 1)) {
-                    *coef = (int16_t)(ad.decode(fixed_bin) ? m1 : p1);
+                if (arith_decode(st + 1)) {
+                    *coef = (int16_t)(arith_decode(fixed_bin) ? m1 : p1);
                     break;
                 }
                 st += 3;
                 if (++k > se) {
-                    ad.ct = -1;                 // spectral overflow
+                    arith_ct = -1;              // spectral overflow
                     return false;
                 }
             }
@@ -800,8 +1070,8 @@ struct Jpeg {
         return true;
     }
 
-    // the statistics of the scan's tables to zero, DC predictions too
-    // (jdarith.c start_pass / process_restart)
+    // the statistics of the scan's tables to zero, DC predictions too, and
+    // the registers (jdarith.c start_pass / process_restart)
     void reset_arith(const Scan& sc) {
         for (int ci : sc.comp) {
             Component& c = comps[ci];
@@ -812,55 +1082,55 @@ struct Jpeg {
             }
             if (!progressive || sc.ss) std::memset(ac_stats[c.ac_tbl], 0, sizeof(ac_stats[0]));
         }
+        arith_c = 0;
+        arith_a = 0;
+        arith_ct = -16;
     }
 
     // one block of an arithmetic-coded scan; false after a bad code
-    bool arith_unit(ArithDecoder& ad, const Scan& sc, Component& c, int16_t* blk) {
+    bool arith_unit(const Scan& sc, Component& c, int16_t* blk) {
         if (!progressive) {
-            if (!arith_dc(ad, c)) return false;
+            if (!arith_dc(c)) return false;
             blk[0] = (int16_t)(uint16_t)c.dc_pred;
-            return arith_ac(ad, c.ac_tbl, blk, 1, 63, 0);
+            return arith_ac(c.ac_tbl, blk, 1, 63, 0);
         }
         if (sc.ss == 0 && sc.ah == 0) {
-            if (!arith_dc(ad, c)) return false;
+            if (!arith_dc(c)) return false;
             blk[0] = (int16_t)(uint16_t)((unsigned)c.dc_pred << sc.al);
             return true;
         }
         if (sc.ss == 0) {
-            if (ad.decode(fixed_bin)) blk[0] = (int16_t)(blk[0] | (1 << sc.al));
+            if (arith_decode(fixed_bin)) blk[0] = (int16_t)(blk[0] | (1 << sc.al));
             return true;
         }
-        if (sc.ah == 0) return arith_ac(ad, c.ac_tbl, blk, sc.ss, sc.se, sc.al);
-        return arith_ac_refine(ad, c.ac_tbl, blk, sc.ss, sc.se, sc.al);
+        if (sc.ah == 0) return arith_ac(c.ac_tbl, blk, sc.ss, sc.se, sc.al);
+        return arith_ac_refine(c.ac_tbl, blk, sc.ss, sc.se, sc.al);
     }
 
-    void decode_scan_arith(size_t& pos, const Scan& sc) {
+    void decode_scan_arith(const Scan& sc) {
         const bool dc_refine = progressive && sc.ss == 0 && sc.ah != 0;
         reset_arith(sc);
-        ArithDecoder ad(d, n, pos);
         const bool single = sc.comp.size() == 1;
         int units_x;
         const int64_t total = scan_units(sc, units_x);
         int64_t until_restart = restart_interval;
         for (int64_t u = 0; u < total; ++u) {
+            last_good_imcu = imcu_of(sc, u, units_x);
             if (restart_interval) {
                 if (until_restart == 0) {
-                    size_t p = ad.pos;
-                    int m = next_marker(p);
-                    if (m < 0xD0 || m > 0xD7) fail("JPEG: missing restart marker");
+                    read_restart_marker();
                     reset_arith(sc);
-                    ad = ArithDecoder(d, n, p);
                     until_restart = restart_interval;
                 }
                 --until_restart;
             }
             // after a bad code every MCU is skipped (the DC refinement
             // procedure does not check)
-            if (ad.ct == -1 && !dc_refine) continue;
+            if (arith_ct == -1 && !dc_refine) continue;
             int ux = (int)(u % units_x), uy = (int)(u / units_x);
             if (single) {
                 Component& c = comps[sc.comp[0]];
-                arith_unit(ad, sc, c, block(c, uy, ux));
+                arith_unit(sc, c, block(c, uy, ux));
                 continue;
             }
             bool ok = true;
@@ -868,24 +1138,20 @@ struct Jpeg {
                 Component& c = comps[sc.comp[i]];
                 for (int by = 0; ok && by < c.v; ++by)
                     for (int bx = 0; ok && bx < c.h; ++bx)
-                        ok = arith_unit(ad, sc, c, block(c, uy * c.v + by, ux * c.h + bx));
+                        ok = arith_unit(sc, c, block(c, uy * c.v + by, ux * c.h + bx));
             }
         }
-        if (ad.past_end) fail("JPEG: truncated file (entropy data runs past its end)");
-        pos = ad.pos;
     }
 
     // ---- lossless (jdlossls.c, jddiffct.c, jdlhuff.c; T.81 annex H)
 
-    void decode_scan_lossless(size_t& pos, const Scan& sc) {
+    void decode_scan_lossless(const Scan& sc) {
         const int psv = sc.ss, pt = sc.al;
         if (psv < 1 || psv > 7 || sc.se != 0 || sc.ah != 0 || pt >= precision)
             fail("JPEG: bad lossless scan parameters (predictor " + std::to_string(psv) +
                  ", point transform " + std::to_string(pt) + ")");
-        for (int ci : sc.comp) {
-            const Component& c = comps[ci];
-            if (c.dc_tbl > 3 || !dc[c.dc_tbl].present) fail("JPEG: missing Huffman table");
-        }
+        std::vector<const Huffman*> dct(comps.size());
+        for (int ci : sc.comp) dct[ci] = &derived(true, comps[ci].dc_tbl);
         const bool single = sc.comp.size() == 1;
         const int mcus_per_row = single ? comps[sc.comp[0]].dw : mcux;
         if (restart_interval % mcus_per_row)
@@ -900,7 +1166,9 @@ struct Jpeg {
             diff[ci].assign((size_t)c.v * c.bw, 0);
             undiff[ci].assign((size_t)c.bh * c.bw, 0);
         }
-        BitReader br(d, n, pos);
+        bits_left = 0;
+        get_buffer = 0;
+        insufficient = false;
         int rows_to_go = restart_rows;
         for (int imcu = 0; imcu < mcuy; ++imcu) {
             // MCU rows of the iMCU row: one of an interleaved scan, the
@@ -909,24 +1177,37 @@ struct Jpeg {
             const int mcu_rows = !single ? 1 : imcu < mcuy - 1 ? c0.v : last_rows(c0);
             for (int yoff = 0; yoff < mcu_rows; ++yoff) {
                 if (restart_interval && rows_to_go == 0) {
-                    size_t p = br.pos;
-                    int m = next_marker(p);
-                    if (m < 0xD0 || m > 0xD7) fail("JPEG: missing restart marker");
-                    br = BitReader(d, n, p);
+                    // jdlhuff.c / jddiffct.c process_restart: the first-row
+                    // predictor again
+                    bits_left = 0;
+                    read_restart_marker();
+                    if (unread_marker == 0) insufficient = false;
                     std::fill(first_row.begin(), first_row.end(), 1);
                     rows_to_go = restart_rows;
                 }
-                for (int mcu = 0; mcu < mcus_per_row; ++mcu) {
-                    if (single) {
-                        const int ci = sc.comp[0];
-                        diff[ci][(size_t)yoff * comps[ci].bw + mcu] = lossless_diff(br, comps[ci]);
-                        continue;
-                    }
+                if (insufficient) {
+                    // jdlhuff.c decode_mcus: zero differences, and the
+                    // undifferencer restarted (the first-row predictor)
                     for (int ci : sc.comp) {
                         const Component& c = comps[ci];
-                        for (int y = 0; y < c.v; ++y)
-                            for (int x = 0; x < c.h; ++x)
-                                diff[ci][(size_t)y * c.bw + mcu * c.h + x] = lossless_diff(br, c);
+                        const int y0 = single ? yoff : 0, y1 = single ? yoff + 1 : c.v;
+                        for (int y = y0; y < y1; ++y)
+                            std::fill(&diff[ci][(size_t)y * c.bw], &diff[ci][(size_t)y * c.bw] + c.bw, 0);
+                    }
+                    std::fill(first_row.begin(), first_row.end(), 1);
+                } else {
+                    for (int mcu = 0; mcu < mcus_per_row; ++mcu) {
+                        if (single) {
+                            const int ci = sc.comp[0];
+                            diff[ci][(size_t)yoff * comps[ci].bw + mcu] = lossless_diff(*dct[ci]);
+                            continue;
+                        }
+                        for (int ci : sc.comp) {
+                            const Component& c = comps[ci];
+                            for (int y = 0; y < c.v; ++y)
+                                for (int x = 0; x < c.h; ++x)
+                                    diff[ci][(size_t)y * c.bw + mcu * c.h + x] = lossless_diff(*dct[ci]);
+                        }
                     }
                 }
                 if (restart_interval) --rows_to_go;
@@ -969,8 +1250,6 @@ struct Jpeg {
                 }
             }
         }
-        if (br.past_end) fail("JPEG: truncated file (entropy data runs past its end)");
-        pos = br.pos;
     }
 
     // rows of a component in the last iMCU row
@@ -980,199 +1259,106 @@ struct Jpeg {
     }
 
     // H.2.2: one sample difference (category 16 is 32768, no extra bits)
-    int32_t lossless_diff(BitReader& br, const Component& c) {
-        int s = br.decode(dc[c.dc_tbl]);
+    int32_t lossless_diff(const Huffman& h) {
+        int s = huff_decode(h);
         if (s == 16) return 32768;
-        if (s > 16) fail("JPEG: corrupt lossless difference");
-        return s ? extend(br.bits(s), s) : 0;
+        return received(s);
     }
 
-    void read_sos(size_t& pos, size_t body, size_t end) {
-        if (!frame) fail("JPEG: scan before the frame header");
-        Scan sc;
-        int ns = d[body];
-        if (ns < 1 || ns > 4 || body + 1 + 2 * ns + 3 > end) fail("JPEG: bad SOS");
-        for (int i = 0; i < ns; ++i) {
-            int cid = d[body + 1 + 2 * i], tbl = d[body + 2 + 2 * i];
-            int found = -1;
-            for (size_t c = 0; c < comps.size(); ++c)
-                if (comps[c].id == cid) found = (int)c;
-            if (found < 0) fail("JPEG: scan names an unknown component");
-            comps[found].dc_tbl = tbl >> 4;
-            comps[found].ac_tbl = tbl & 15;
-            sc.comp.push_back(found);
-        }
-        size_t q = body + 1 + 2 * ns;
-        sc.ss = d[q];
-        sc.se = d[q + 1];
-        sc.ah = d[q + 2] >> 4;
-        sc.al = d[q + 2] & 15;
-        if (!progressive && !lossless) {
-            sc.ss = 0;
-            sc.se = 63;
-            sc.ah = sc.al = 0;
-        }
-        pos = end;
-        decode_scan(pos, sc);
-    }
-
+    // PIL's decoding of the file: libjpeg's markers from SOI on, each scan
+    // as it comes. A file of one scan is whole once its scan is decoded (a
+    // missing EOI after it is no fault); a file of several is read to EOI
+    // before any row is output
     void decode_scans() {
-        if (n < 4 || d[0] != 0xFF || d[1] != 0xD8) fail("JPEG: no SOI marker");
-        size_t pos = 2;
-        bool scanned = false;
-        while (true) {
-            int m = next_marker(pos);
-            if (m == 0xD9) break;
-            if (m >= 0xD0 && m <= 0xD7) continue;
-            if (m == 0x01) continue;
-            int len = u16(pos);
-            size_t body = pos + 2, end = pos + len;
-            if (len < 2 || end > n) fail("JPEG: truncated marker segment");
-            if (is_sof(m)) {
-                read_sof(body, m, true);
-            } else if (m == 0xC4) {
-                read_dht(body, end);
-            } else if (m == 0xCC) {
-                read_dac(body, end);
-            } else if (m == 0xDB) {
-                read_dqt(body, end);
-            } else if (m == 0xDD) {
-                restart_interval = u16(body);
-            } else if (m == 0xDC) {
-                fail("JPEG: DNL marker is not supported");
-            } else if (m >= 0xE0 && m <= 0xEF) {
-                read_app(body, len - 2, m);
-            } else if (m == 0xDA) {
-                read_sos(pos, body, end);
-                scanned = true;
-                continue;
+        pos = 0;
+        if (byte() != 0xFF || byte() != 0xD8) fail("JPEG: no SOI marker");
+        bool scanned = false, several = false;
+        Scan sc;
+        for (;;) {
+            bool at_sos;
+            try {
+                at_sos = read_markers(sc);
+            } catch (const Truncated&) {
+                if (scanned && !several) return;
+                throw;
+            } catch (const DecodeError&) {
+                // libtiff's JPEGDecode takes the rows of a stream of one scan
+                // and ignores what jpeg_finish_decompress then fails on
+                if (tiff_source && scanned && !several) return;
+                throw;
             }
-            pos = end;
+            if (!at_sos) break;
+            if (!scanned) {
+                initial_setup();
+                // jdcolor.c: the samples of a lossless file are not colour-converted
+                if (lossless && ((comps.size() == 3 && !rgb_colorspace()) || ycck()))
+                    fail("JPEG: lossless YCbCr or YCCK (libjpeg: unsupported color conversion "
+                         "request)");
+                several = sc.comp.size() < comps.size() || progressive;
+            } else if (!several) {
+                fail("JPEG: a second scan in a file of one scan (libjpeg: EOI expected)");
+            }
+            decode_scan(sc);
+            scanned = true;
         }
-        if (!frame || !scanned) fail("JPEG: no image data");
+        if (!scanned) fail("JPEG: no image data");
     }
 
-    // ---- jidctint.c jpeg_idct_islow, 8-bit
-    static inline uint8_t range_limit(int64_t v) {
-        int idx = (int)(v & 1023);
-        if (idx < 128) return (uint8_t)(idx + 128);
-        if (idx < 512) return 255;
-        if (idx < 896) return 0;
-        return (uint8_t)(idx - 896);
+    // ---- the inverse DCT PIL runs on x86-64: libjpeg-turbo's
+    // jsimd_idct_islow_avx2 (jidctint-avx2.asm; the SSE2 version computes
+    // the same). It is jidctint.c's algorithm in 16-bit lanes: coefficients
+    // dequantized modulo 2^16, sums of two inputs in 16 bits, products and
+    // sums in 32 bits, each pass's results saturated to 16 bits and the
+    // samples to 8 (where jidctint.c's range-limit table wraps); and a block
+    // whose rows 1-7 are all zero takes the DC shortcut in 16 bits. On the
+    // coefficients of an undamaged file the two agree.
+    static void simd_pass(const int16_t* in, int16_t* out, int shift) {
+        auto w16 = [](uint32_t v) { return (uint32_t)(int32_t)(int16_t)(uint16_t)v; };
+        auto mul = [](int16_t a, int32_t k) { return (uint32_t)((int32_t)a * k); };
+        const uint32_t tmp3 = mul(in[2], 10703) + mul(in[6], 4433);
+        const uint32_t tmp2 = mul(in[6], -10704) + mul(in[2], 4433);
+        const uint32_t tmp0 = w16((uint32_t)in[0] + (uint32_t)in[4]) * 8192u;
+        const uint32_t tmp1 = w16((uint32_t)in[0] - (uint32_t)in[4]) * 8192u;
+        const uint32_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
+        const uint32_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
+        const int16_t z3 = (int16_t)(uint16_t)w16((uint32_t)in[7] + (uint32_t)in[3]);
+        const int16_t z4 = (int16_t)(uint16_t)w16((uint32_t)in[5] + (uint32_t)in[1]);
+        const uint32_t z3p = mul(z3, -6436) + mul(z4, 9633);
+        const uint32_t z4p = mul(z4, 6437) + mul(z3, 9633);
+        const uint32_t t0 = mul(in[7], -4927) + mul(in[1], -7373) + z3p;
+        const uint32_t t1 = mul(in[5], -4176) + mul(in[3], -20995) + z4p;
+        const uint32_t t3 = mul(in[7], -7373) + mul(in[1], 4926) + z4p;
+        const uint32_t t2 = mul(in[5], -20995) + mul(in[3], 4177) + z3p;
+        const uint32_t o[8] = {tmp10 + t3, tmp11 + t2, tmp12 + t1, tmp13 + t0,
+                               tmp13 - t0, tmp12 - t1, tmp11 - t2, tmp10 - t3};
+        for (int i = 0; i < 8; ++i) {
+            const int32_t v = (int32_t)(o[i] + (1u << (shift - 1))) >> shift;
+            out[i] = (int16_t)std::min(32767, std::max(-32768, v));
+        }
     }
 
-    static void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out,
-                           int stride) {
-        const int CONST_BITS = 13, PASS1_BITS = 2;
-        const int64_t F0298 = 2446, F0390 = 3196, F0541 = 4433, F0765 = 6270,
-                      F0899 = 7373, F1175 = 9633, F1501 = 12299, F1847 = 15137,
-                      F1961 = 16069, F2053 = 16819, F2562 = 20995, F3072 = 25172;
-        auto descale = [](int64_t x, int nb) {
-            return (x + ((int64_t)1 << (nb - 1))) >> nb;
-        };
-        int ws[64];
-        for (int c = 0; c < 8; ++c) {
-            const int16_t* ip = in + c;
-            const uint16_t* qp = q + c;
-            int* wp = ws + c;
-            if (ip[8] == 0 && ip[16] == 0 && ip[24] == 0 && ip[32] == 0 &&
-                ip[40] == 0 && ip[48] == 0 && ip[56] == 0) {
-                int dcval = (int)((int64_t)ip[0] * qp[0] * (1 << PASS1_BITS));
-                for (int r = 0; r < 8; ++r) wp[8 * r] = dcval;
-                continue;
+    static void idct_islow(const int16_t* in, const uint16_t* q, uint8_t* out, int stride) {
+        int16_t ws[64], col[8], res[8];
+        bool ac = false;
+        for (int i = 8; i < 64; ++i) ac = ac || in[i] != 0;
+        if (!ac) {
+            for (int c = 0; c < 8; ++c) {
+                const int16_t v = (int16_t)(uint16_t)((uint32_t)(uint16_t)in[c] * q[c] << 2);
+                for (int r = 0; r < 8; ++r) ws[8 * r + c] = v;
             }
-            int64_t z2 = (int64_t)ip[16] * qp[16], z3 = (int64_t)ip[48] * qp[48];
-            int64_t z1 = (z2 + z3) * F0541;
-            int64_t tmp2 = z1 + z3 * (-F1847);
-            int64_t tmp3 = z1 + z2 * F0765;
-            z2 = (int64_t)ip[0] * qp[0];
-            z3 = (int64_t)ip[32] * qp[32];
-            int64_t tmp0 = (z2 + z3) * (1 << CONST_BITS);
-            int64_t tmp1 = (z2 - z3) * (1 << CONST_BITS);
-            int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-            int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-            tmp0 = (int64_t)ip[56] * qp[56];
-            tmp1 = (int64_t)ip[40] * qp[40];
-            tmp2 = (int64_t)ip[24] * qp[24];
-            tmp3 = (int64_t)ip[8] * qp[8];
-            z1 = tmp0 + tmp3;
-            z2 = tmp1 + tmp2;
-            z3 = tmp0 + tmp2;
-            int64_t z4 = tmp1 + tmp3;
-            int64_t z5 = (z3 + z4) * F1175;
-            tmp0 *= F0298;
-            tmp1 *= F2053;
-            tmp2 *= F3072;
-            tmp3 *= F1501;
-            z1 *= -F0899;
-            z2 *= -F2562;
-            z3 *= -F1961;
-            z4 *= -F0390;
-            z3 += z5;
-            z4 += z5;
-            tmp0 += z1 + z3;
-            tmp1 += z2 + z4;
-            tmp2 += z2 + z3;
-            tmp3 += z1 + z4;
-            const int sh = CONST_BITS - PASS1_BITS;
-            wp[0] = (int)descale(tmp10 + tmp3, sh);
-            wp[56] = (int)descale(tmp10 - tmp3, sh);
-            wp[8] = (int)descale(tmp11 + tmp2, sh);
-            wp[48] = (int)descale(tmp11 - tmp2, sh);
-            wp[16] = (int)descale(tmp12 + tmp1, sh);
-            wp[40] = (int)descale(tmp12 - tmp1, sh);
-            wp[24] = (int)descale(tmp13 + tmp0, sh);
-            wp[32] = (int)descale(tmp13 - tmp0, sh);
+        } else {
+            for (int c = 0; c < 8; ++c) {
+                for (int k = 0; k < 8; ++k)
+                    col[k] = (int16_t)(uint16_t)((uint32_t)(uint16_t)in[8 * k + c] * q[8 * k + c]);
+                simd_pass(col, res, 11);
+                for (int r = 0; r < 8; ++r) ws[8 * r + c] = res[r];
+            }
         }
         for (int r = 0; r < 8; ++r) {
-            const int* wp = ws + 8 * r;
+            simd_pass(ws + 8 * r, res, 18);
             uint8_t* op = out + (size_t)r * stride;
-            if (wp[1] == 0 && wp[2] == 0 && wp[3] == 0 && wp[4] == 0 && wp[5] == 0 &&
-                wp[6] == 0 && wp[7] == 0) {
-                uint8_t v = range_limit(descale(wp[0], PASS1_BITS + 3));
-                for (int c = 0; c < 8; ++c) op[c] = v;
-                continue;
-            }
-            int64_t z2 = wp[2], z3 = wp[6];
-            int64_t z1 = (z2 + z3) * F0541;
-            int64_t tmp2 = z1 + z3 * (-F1847);
-            int64_t tmp3 = z1 + z2 * F0765;
-            int64_t tmp0 = ((int64_t)wp[0] + wp[4]) * (1 << CONST_BITS);
-            int64_t tmp1 = ((int64_t)wp[0] - wp[4]) * (1 << CONST_BITS);
-            int64_t tmp10 = tmp0 + tmp3, tmp13 = tmp0 - tmp3;
-            int64_t tmp11 = tmp1 + tmp2, tmp12 = tmp1 - tmp2;
-            tmp0 = wp[7];
-            tmp1 = wp[5];
-            tmp2 = wp[3];
-            tmp3 = wp[1];
-            z1 = tmp0 + tmp3;
-            z2 = tmp1 + tmp2;
-            z3 = tmp0 + tmp2;
-            int64_t z4 = tmp1 + tmp3;
-            int64_t z5 = (z3 + z4) * F1175;
-            tmp0 *= F0298;
-            tmp1 *= F2053;
-            tmp2 *= F3072;
-            tmp3 *= F1501;
-            z1 *= -F0899;
-            z2 *= -F2562;
-            z3 *= -F1961;
-            z4 *= -F0390;
-            z3 += z5;
-            z4 += z5;
-            tmp0 += z1 + z3;
-            tmp1 += z2 + z4;
-            tmp2 += z2 + z3;
-            tmp3 += z1 + z4;
-            const int sh = CONST_BITS + PASS1_BITS + 3;
-            op[0] = range_limit(descale(tmp10 + tmp3, sh));
-            op[7] = range_limit(descale(tmp10 - tmp3, sh));
-            op[1] = range_limit(descale(tmp11 + tmp2, sh));
-            op[6] = range_limit(descale(tmp11 - tmp2, sh));
-            op[2] = range_limit(descale(tmp12 + tmp1, sh));
-            op[5] = range_limit(descale(tmp12 - tmp1, sh));
-            op[3] = range_limit(descale(tmp13 + tmp0, sh));
-            op[4] = range_limit(descale(tmp13 - tmp0, sh));
+            for (int c = 0; c < 8; ++c)
+                op[c] = (uint8_t)(std::min(127, std::max(-128, (int)res[c])) + 128);
         }
     }
 
@@ -1201,9 +1387,12 @@ struct Jpeg {
     // iMCU row and columns by a sliding window
     void smooth_idct(Component& c, uint8_t* plane, int stride) {
         const int wib = (c.dw + 7) / 8, hib = (c.dh + 7) / 8, last_col = wib - 1;
-        const int* cb = c.coef_bits;
-        bool change_dc = true;
-        for (int k = 1; k < 10; ++k) change_dc = change_dc && cb[k] == -1;
+        // the coefficient bits libjpeg latched, and those before the last
+        // scan, which hold for the iMCU rows past the last one of that scan
+        // that began with data
+        int prev[10];
+        prev[0] = c.coef_bits[0];
+        for (int k = 1; k < 10; ++k) prev[k] = scans_read > 1 ? c.prev_coef_bits[k] : -1;
         const int64_t Q00 = c.quant[0], Q01 = c.quant[1], Q10 = c.quant[8], Q20 = c.quant[16],
                       Q11 = c.quant[9], Q02 = c.quant[2], Q03 = c.quant[3], Q12 = c.quant[10],
                       Q21 = c.quant[17], Q30 = c.quant[24];
@@ -1215,6 +1404,9 @@ struct Jpeg {
         };
         int16_t ws[64];
         for (int imcu = 0; imcu < mcuy; ++imcu) {
+            const int* cb = imcu > last_good_imcu ? prev : c.coef_bits;
+            bool change_dc = true;
+            for (int k = 1; k < 10; ++k) change_dc = change_dc && cb[k] == -1;
             int block_rows = c.v;
             if (imcu == mcuy - 1) {
                 block_rows = hib % c.v;
@@ -1423,7 +1615,7 @@ struct Jpeg {
             std::memcpy(dst, p[0].data(), npix);
             return;
         }
-        if ((nc == 3 && rgb_colorspace()) || (nc == 4 && !ycck())) {
+        if (!(nc == 3 && !rgb_colorspace()) && !(nc == 4 && ycck())) {
             for (size_t i = 0; i < npix; ++i)
                 for (size_t k = 0; k < nc; ++k) dst[nc * i + k] = p[k][i];
             return;
@@ -1456,237 +1648,452 @@ struct Jpeg {
 
 // ------------------------------------------------------------------ TIFF
 
-// CCITT run-length codes (T.4 tables 2 and 3)
-struct RunTable {
-    std::vector<int16_t> run;   // indexed by the next 13 bits
-    std::vector<uint8_t> len;
-    RunTable() : run(8192, -1), len(8192, 0) {}
-    void add(const char* bits, int value) {
-        int l = (int)std::strlen(bits), code = 0;
-        for (int i = 0; i < l; ++i) code = (code << 1) | (bits[i] - '0');
-        int lo = code << (13 - l), hi = (code + 1) << (13 - l);
-        for (int i = lo; i < hi; ++i) {
-            run[i] = (int16_t)value;
-            len[i] = (uint8_t)l;
+// CCITT modified Huffman, Group 3 (T.4, 1-D and 2-D) and Group 4 (T.6) as
+// libtiff 4.7's tif_fax3.c decodes a strip, damaged data included: its
+// state tables (tif_fax3sm.c, built here from the T.4 codes as mkg3states
+// builds them: an invalid code matches an entry of width 0), its bit
+// reader (bytes bit-reversed into an accumulator, zeros padded where the
+// data ends with bits left), and its row expanders (EXPAND1D, EXPAND2D,
+// SYNC_EOL, CLEANUP_RUNS and _TIFFFax3fillruns): a bad code ends the row
+// (its runs completed with white) and decoding goes on with the next.
+enum FaxState : uint8_t { S_Null = 0, S_Pass, S_Horiz, S_V0, S_VR, S_VL, S_Ext, S_TermW,
+                          S_TermB, S_MakeUpW, S_MakeUpB, S_MakeUp, S_EOL };
+
+struct FaxEnt {
+    uint8_t state = S_Null, width = 0;
+    uint32_t param = 0;
+};
+
+struct FaxTables {
+    FaxEnt main[128], white[4096], black[8192];
+
+    // every index of a (1 << bits)-entry table whose low bits are the
+    // code, bit-reversed (the decoder reads codes least significant first)
+    static void add(FaxEnt* t, int bits, const char* code, uint8_t state, uint32_t param) {
+        const int len = (int)std::strlen(code);
+        int rev = 0;
+        for (int k = 0; k < len; ++k) rev |= (code[k] - '0') << k;
+        for (int idx = rev; idx < (1 << bits); idx += 1 << len) {
+            t[idx].state = state;
+            t[idx].width = (uint8_t)len;
+            t[idx].param = param;
         }
+    }
+
+    FaxTables() {
+        static const char* const kWhiteTerm[64] = {
+            "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111",
+            "10011", "10100", "00111", "01000", "001000", "000011", "110100", "110101",
+            "101010", "101011", "0100111", "0001100", "0001000", "0010111", "0000011",
+            "0000100", "0101000", "0101011", "0010011", "0100100", "0011000", "00000010",
+            "00000011", "00011010", "00011011", "00010010", "00010011", "00010100",
+            "00010101", "00010110", "00010111", "00101000", "00101001", "00101010",
+            "00101011", "00101100", "00101101", "00000100", "00000101", "00001010",
+            "00001011", "01010010", "01010011", "01010100", "01010101", "00100100",
+            "00100101", "01011000", "01011001", "01011010", "01011011", "01001010",
+            "01001011", "00110010", "00110011", "00110100"};
+        static const char* const kWhiteMakeup[27] = {
+            "11011", "10010", "010111", "0110111", "00110110", "00110111", "01100100",
+            "01100101", "01101000", "01100111", "011001100", "011001101", "011010010",
+            "011010011", "011010100", "011010101", "011010110", "011010111", "011011000",
+            "011011001", "011011010", "011011011", "010011000", "010011001", "010011010",
+            "011000", "010011011"};
+        static const char* const kBlackTerm[64] = {
+            "0000110111", "010", "11", "10", "011", "0011", "0010", "00011", "000101",
+            "000100", "0000100", "0000101", "0000111", "00000100", "00000111",
+            "000011000", "0000010111", "0000011000", "0000001000", "00001100111",
+            "00001101000", "00001101100", "00000110111", "00000101000", "00000010111",
+            "00000011000", "000011001010", "000011001011", "000011001100",
+            "000011001101", "000001101000", "000001101001", "000001101010",
+            "000001101011", "000011010010", "000011010011", "000011010100",
+            "000011010101", "000011010110", "000011010111", "000001101100",
+            "000001101101", "000011011010", "000011011011", "000001010100",
+            "000001010101", "000001010110", "000001010111", "000001100100",
+            "000001100101", "000001010010", "000001010011", "000000100100",
+            "000000110111", "000000111000", "000000100111", "000000101000",
+            "000001011000", "000001011001", "000000101011", "000000101100",
+            "000001011010", "000001100110", "000001100111"};
+        static const char* const kBlackMakeup[27] = {
+            "0000001111", "000011001000", "000011001001", "000001011011", "000000110011",
+            "000000110100", "000000110101", "0000001101100", "0000001101101",
+            "0000001001010", "0000001001011", "0000001001100", "0000001001101",
+            "0000001110010", "0000001110011", "0000001110100", "0000001110101",
+            "0000001110110", "0000001110111", "0000001010010", "0000001010011",
+            "0000001010100", "0000001010101", "0000001011010", "0000001011011",
+            "0000001100100", "0000001100101"};
+        static const char* const kExtMakeup[13] = {
+            "00000001000", "00000001100", "00000001101", "000000010010", "000000010011",
+            "000000010100", "000000010101", "000000010110", "000000010111",
+            "000000011100", "000000011101", "000000011110", "000000011111"};
+        add(white, 12, "00000000000", S_EOL, 0);
+        add(black, 13, "00000000000", S_EOL, 0);
+        for (int i = 0; i < 64; ++i) {
+            add(white, 12, kWhiteTerm[i], S_TermW, i);
+            add(black, 13, kBlackTerm[i], S_TermB, i);
+        }
+        for (int i = 0; i < 27; ++i) {
+            add(white, 12, kWhiteMakeup[i], S_MakeUpW, 64 * (i + 1));
+            add(black, 13, kBlackMakeup[i], S_MakeUpB, 64 * (i + 1));
+        }
+        for (int i = 0; i < 13; ++i) {
+            add(white, 12, kExtMakeup[i], S_MakeUp, 1792 + 64 * i);
+            add(black, 13, kExtMakeup[i], S_MakeUp, 1792 + 64 * i);
+        }
+        static const struct { const char* code; uint8_t state; uint32_t param; } kMain[] = {
+            {"1", S_V0, 0},       {"011", S_VR, 1},   {"000011", S_VR, 2}, {"0000011", S_VR, 3},
+            {"010", S_VL, 1},     {"000010", S_VL, 2}, {"0000010", S_VL, 3}, {"0001", S_Pass, 0},
+            {"001", S_Horiz, 0},  {"0000001", S_Ext, 0}, {"0000000", S_EOL, 0}};
+        for (const auto& m : kMain) add(main, 7, m.code, m.state, m.param);
     }
 };
 
-void fill_tables(RunTable& white, RunTable& black) {
-    static const char* const kWhiteTerm[64] = {
-        "00110101", "000111", "0111", "1000", "1011", "1100", "1110", "1111",
-        "10011", "10100", "00111", "01000", "001000", "000011", "110100", "110101",
-        "101010", "101011", "0100111", "0001100", "0001000", "0010111", "0000011",
-        "0000100", "0101000", "0101011", "0010011", "0100100", "0011000", "00000010",
-        "00000011", "00011010", "00011011", "00010010", "00010011", "00010100",
-        "00010101", "00010110", "00010111", "00101000", "00101001", "00101010",
-        "00101011", "00101100", "00101101", "00000100", "00000101", "00001010",
-        "00001011", "01010010", "01010011", "01010100", "01010101", "00100100",
-        "00100101", "01011000", "01011001", "01011010", "01011011", "01001010",
-        "01001011", "00110010", "00110011", "00110100"};
-    static const char* const kWhiteMakeup[27] = {
-        "11011", "10010", "010111", "0110111", "00110110", "00110111", "01100100",
-        "01100101", "01101000", "01100111", "011001100", "011001101", "011010010",
-        "011010011", "011010100", "011010101", "011010110", "011010111", "011011000",
-        "011011001", "011011010", "011011011", "010011000", "010011001", "010011010",
-        "011000", "010011011"};
-    static const char* const kBlackTerm[64] = {
-        "0000110111", "010", "11", "10", "011", "0011", "0010", "00011", "000101",
-        "000100", "0000100", "0000101", "0000111", "00000100", "00000111",
-        "000011000", "0000010111", "0000011000", "0000001000", "00001100111",
-        "00001101000", "00001101100", "00000110111", "00000101000", "00000010111",
-        "00000011000", "000011001010", "000011001011", "000011001100",
-        "000011001101", "000001101000", "000001101001", "000001101010",
-        "000001101011", "000011010010", "000011010011", "000011010100",
-        "000011010101", "000011010110", "000011010111", "000001101100",
-        "000001101101", "000011011010", "000011011011", "000001010100",
-        "000001010101", "000001010110", "000001010111", "000001100100",
-        "000001100101", "000001010010", "000001010011", "000000100100",
-        "000000110111", "000000111000", "000000100111", "000000101000",
-        "000001011000", "000001011001", "000000101011", "000000101100",
-        "000001011010", "000001100110", "000001100111"};
-    static const char* const kBlackMakeup[27] = {
-        "0000001111", "000011001000", "000011001001", "000001011011", "000000110011",
-        "000000110100", "000000110101", "0000001101100", "0000001101101",
-        "0000001001010", "0000001001011", "0000001001100", "0000001001101",
-        "0000001110010", "0000001110011", "0000001110100", "0000001110101",
-        "0000001110110", "0000001110111", "0000001010010", "0000001010011",
-        "0000001010100", "0000001010101", "0000001011010", "0000001011011",
-        "0000001100100", "0000001100101"};
-    static const char* const kExtMakeup[13] = {
-        "00000001000", "00000001100", "00000001101", "000000010010", "000000010011",
-        "000000010100", "000000010101", "000000010110", "000000010111",
-        "000000011100", "000000011101", "000000011110", "000000011111"};
-    for (int i = 0; i < 64; ++i) {
-        white.add(kWhiteTerm[i], i);
-        black.add(kBlackTerm[i], i);
-    }
-    for (int i = 0; i < 27; ++i) {
-        white.add(kWhiteMakeup[i], 64 * (i + 1));
-        black.add(kBlackMakeup[i], 64 * (i + 1));
-    }
-    for (int i = 0; i < 13; ++i) {
-        white.add(kExtMakeup[i], 1792 + 64 * i);
-        black.add(kExtMakeup[i], 1792 + 64 * i);
-    }
-}
+inline uint8_t reverse_bits(uint8_t b);
 
-// CCITT modified Huffman, Group 3 (T.4, 1-D and 2-D) and Group 4 (T.6)
-// rows, as libtiff's tif_fax3.c decodes them: changing elements of the
-// coding line, painted into rows of bits, MSB first, 1 = black.
-struct Fax {
-    const uint8_t* s;
-    size_t nbits, bitpos = 0;
-    const RunTable& white;
-    const RunTable& black;
-    const int W;
-    std::vector<int> ref, cur;
+// one strip of CCITT data (tif_fax3.c Fax3PreDecode, then Fax3DecodeRLE,
+// Fax3Decode1D, Fax3Decode2D or Fax4Decode with the whole strip asked for)
+struct FaxDecoder {
+    enum Kind { RLE, G3_1D, G3_2D, G4 };
+    const FaxTables& T;
+    const uint8_t* strip;
+    const uint8_t* cp;
+    const uint8_t* ep;
+    bool& noeol;                        // FAXMODE_NOEOL, for the rest of the image
+    uint32_t acc = 0;
+    int avail = 0, EOLcnt = 0;
+    int32_t lastx;
+    size_t nruns;
+    std::vector<uint32_t>& runs;        // libtiff's run arrays: kept from strip to strip
+    uint32_t *curruns, *refruns = nullptr;
+    // the row being expanded
+    uint32_t *thisrun = nullptr, *pa = nullptr, *pb = nullptr;
+    int32_t a0 = 0, RunLength = 0, b1 = 0;
+    int rows_done = 0;
 
-    Fax(const uint8_t* src, size_t n, int width, const RunTable& w, const RunTable& b)
-        : s(src), nbits(n * 8), white(w), black(b), W(width) {
-        ref.assign({W, W, W, W});   // the imaginary all-white line above the first
-    }
-
-    int peek(int k) const {
-        int v = 0;
-        for (int i = 0; i < k; ++i) {
-            size_t b = bitpos + i;
-            int bit = b < nbits ? (s[b >> 3] >> (7 - (b & 7))) & 1 : 0;
-            v = (v << 1) | bit;
-        }
-        return v;
-    }
-
-    int run_length(const RunTable& t) {
-        int total = 0;
-        while (true) {
-            if (bitpos >= nbits) fail("TIFF: CCITT data ends early");
-            int look = peek(13);
-            int r = t.run[look];
-            if (r < 0) fail("TIFF: corrupt CCITT run code");
-            bitpos += t.len[look];
-            total += r;
-            if (r < 64) return total;
+    FaxDecoder(const FaxTables& t, const uint8_t* data, size_t n, uint32_t width, bool ref_line,
+               bool& no_eol, std::vector<uint32_t>& run_arrays)
+        : T(t), strip(data), cp(data), ep(data + n), noeol(no_eol), lastx((int32_t)width),
+          runs(run_arrays) {
+        nruns = (((size_t)width + 1 + 31) / 32) * 32 * (ref_line ? 2 : 1);
+        if (runs.size() != 2 * nruns) runs.assign(2 * nruns, 0);
+        curruns = runs.data();
+        if (ref_line) {
+            refruns = runs.data() + nruns;      // the white line above the first
+            refruns[0] = width;
+            refruns[1] = 0;
         }
     }
 
-    // libtiff's SYNC_EOL: skip to 11 zero bits, then past the zeros and the
-    // 1 that end the EOL code (fill bits before an EOL are zeros too)
-    void sync_eol() {
-        while (true) {
-            if (bitpos + 11 > nbits) fail("TIFF: Group 3 data ends early (no EOL)");
-            if (peek(11) == 0) break;
-            ++bitpos;
-        }
-        while (true) {
-            if (bitpos >= nbits) fail("TIFF: Group 3 data ends early (no EOL)");
-            if (peek(1)) break;
-            ++bitpos;
-        }
-        ++bitpos;
-    }
-
-    int bit() {
-        if (bitpos >= nbits) fail("TIFF: CCITT data ends early");
-        int b = peek(1);
-        ++bitpos;
-        return b;
-    }
-
-    void align_byte() { bitpos = (bitpos + 7) & ~(size_t)7; }
-
-    // one row of white and black runs, starting white (EXPAND1D)
-    void row_1d() {
-        cur.clear();
-        int a0 = 0, color = 0;
-        while (a0 < W) {
-            a0 += run_length(color ? black : white);
-            cur.push_back(std::min(a0, W));
-            color ^= 1;
-        }
-    }
-
-    // one row coded against the reference line (EXPAND2D)
-    void row_2d() {
-        cur.clear();
-        int a0 = -1, color = 0;   // 0 white, 1 black
-        size_t ib = 0;
-        while (a0 < W) {
-            // b1: first changing element of the reference line right of
-            // a0 whose colour is opposite to a0's
-            while (ib > 0 && ref[ib - 1] > a0) --ib;
-            while (ref[ib] <= a0 || (int)(ib & 1) != color) ++ib;
-            int b1 = ref[ib], b2 = ref[ib + 1];
-            if (bitpos >= nbits) fail("TIFF: CCITT data ends early");
-            int look = peek(7);
-            if (look >> 6 == 1) {                      // V0: 1
-                bitpos += 1;
-                cur.push_back(b1);
-                a0 = b1;
-                color ^= 1;
-            } else if (look >> 4 == 3 || look >> 4 == 2) {   // VR1 011, VL1 010
-                bitpos += 3;
-                int a1 = (look >> 4 == 3) ? b1 + 1 : b1 - 1;
-                cur.push_back(a1);
-                a0 = a1;
-                color ^= 1;
-            } else if (look >> 4 == 1) {               // H: 001
-                bitpos += 3;
-                int start = a0 < 0 ? 0 : a0;
-                int r1 = run_length(color ? black : white);
-                int r2 = run_length(color ? white : black);
-                int a1 = start + r1, a2 = a1 + r2;
-                cur.push_back(a1);
-                cur.push_back(a2);
-                a0 = a2;
-            } else if (look >> 3 == 1) {               // P: 0001
-                bitpos += 4;
-                a0 = b2;   // a0..b2 keeps a0's colour: no change to record
-            } else if (look >> 1 == 3 || look >> 1 == 2) {   // VR2 000011, VL2 000010
-                bitpos += 6;
-                int a1 = (look >> 1 == 3) ? b1 + 2 : b1 - 2;
-                cur.push_back(a1);
-                a0 = a1;
-                color ^= 1;
-            } else if (look == 3 || look == 2) {       // VR3 0000011, VL3 0000010
-                bitpos += 7;
-                int a1 = look == 3 ? b1 + 3 : b1 - 3;
-                cur.push_back(a1);
-                a0 = a1;
-                color ^= 1;
+    // NeedBits8 / NeedBits16: false where no bit is left
+    bool need8(int n) {
+        if (avail < n) {
+            if (cp >= ep) {
+                if (avail == 0) return false;
+                avail = n;
             } else {
-                if (peek(12) == 1) fail("TIFF: CCITT data ends before the last row");
-                fail("TIFF: CCITT extension or uncompressed mode is not supported");
+                acc |= (uint32_t)reverse_bits(*cp++) << avail;
+                avail += 8;
             }
-            if (!cur.empty() && cur.back() > W) cur.back() = W;
-            if (a0 > W) a0 = W;
         }
+        return true;
     }
-
-    // paints the coding line into `row` and makes it the reference line
-    void finish_row(uint8_t* row) {
-        const size_t rowbytes = (W + 7) / 8;
-        std::memset(row, 0, rowbytes);
-        // changes alternate white -> black -> white ...
-        for (size_t i = 0; i < cur.size(); i += 2) {
-            int x0 = std::min(cur[i], W);
-            int x1 = i + 1 < cur.size() ? std::min(cur[i + 1], W) : W;
-            for (int x = std::max(x0, 0); x < x1; ++x) row[x >> 3] |= (uint8_t)(0x80 >> (x & 7));
-        }
-        // the changes of a reference line strictly increase; a repeated
-        // position cancels a pair
-        ref.clear();
-        for (int x : cur) {
-            if (!ref.empty() && ref.back() >= x) {
-                if (ref.back() == x) {
-                    ref.pop_back();
-                    continue;
+    bool need16(int n) {
+        if (avail < n) {
+            if (cp >= ep) {
+                if (avail == 0) return false;
+                avail = n;
+            } else {
+                acc |= (uint32_t)reverse_bits(*cp++) << avail;
+                if ((avail += 8) < n) {
+                    if (cp >= ep) {
+                        avail = n;
+                    } else {
+                        acc |= (uint32_t)reverse_bits(*cp++) << avail;
+                        avail += 8;
+                    }
                 }
             }
-            ref.push_back(x);
         }
-        while (!ref.empty() && ref.back() >= W) ref.pop_back();
-        for (int i = 0; i < 4; ++i) ref.push_back(W);
+        return true;
+    }
+    uint32_t get(int n) const { return acc & ((1u << n) - 1); }
+    void clr(int n) {
+        avail -= n;
+        acc >>= n;
+    }
+    const FaxEnt* lookup(const FaxEnt* tab, int bits) {
+        const FaxEnt* e = tab + get(bits);
+        clr(e->width);
+        return e;
+    }
+
+    [[noreturn]] static void overflow() { fail("TIFF: damaged CCITT data (libtiff: buffer overflow)"); }
+    void setvalue(int32_t x) {
+        if (pa >= thisrun + nruns) overflow();
+        *pa++ = (uint32_t)(RunLength + x);
+        a0 += x;
+        RunLength = 0;
+    }
+    void cleanup_runs() {
+        if (RunLength) setvalue(0);
+        if (a0 != lastx) {
+            while (a0 > lastx && pa > thisrun) a0 -= (int32_t)*--pa;
+            if (a0 < lastx) {
+                if (a0 < 0) a0 = 0;
+                if ((pa - thisrun) & 1) setvalue(0);
+                setvalue(lastx - a0);
+            } else if (a0 > lastx) {
+                setvalue(lastx);
+                setvalue(0);
+            }
+        }
+    }
+
+    // EXPAND1D: false at a premature end of the data (the runs cleaned up)
+    bool expand1d() {
+        for (;;) {
+            for (;;) {
+                if (!need16(12)) goto eof;
+                const FaxEnt* e = lookup(T.white, 12);
+                if (e->state == S_EOL) { EOLcnt = 1; goto done; }
+                if (e->state == S_TermW) { setvalue((int32_t)e->param); break; }
+                if (e->state == S_MakeUpW || e->state == S_MakeUp) {
+                    a0 += (int32_t)e->param;
+                    RunLength += (int32_t)e->param;
+                    continue;
+                }
+                goto done;                                      // unexpected code
+            }
+            if (a0 >= lastx) goto done;
+            for (;;) {
+                if (!need16(13)) goto eof;
+                const FaxEnt* e = lookup(T.black, 13);
+                if (e->state == S_EOL) { EOLcnt = 1; goto done; }
+                if (e->state == S_TermB) { setvalue((int32_t)e->param); break; }
+                if (e->state == S_MakeUpB || e->state == S_MakeUp) {
+                    a0 += (int32_t)e->param;
+                    RunLength += (int32_t)e->param;
+                    continue;
+                }
+                goto done;
+            }
+            if (a0 >= lastx) goto done;
+            if (*(pa - 1) == 0 && *(pa - 2) == 0) pa -= 2;
+        }
+    eof:
+        cleanup_runs();
+        return false;
+    done:
+        cleanup_runs();
+        return true;
+    }
+
+    void check_b1() {
+        if (pa != thisrun)
+            while (b1 <= a0 && b1 < lastx) {
+                if (pb + 1 >= refruns + nruns) overflow();
+                b1 += (int32_t)(pb[0] + pb[1]);
+                pb += 2;
+            }
+    }
+
+    // one run of horizontal mode: false at the end of the data, the state
+    // of a bad code in *bad
+    bool horiz_run(bool black, bool& bad) {
+        for (;;) {
+            if (!need16(black ? 13 : 12)) return false;
+            const FaxEnt* e = lookup(black ? T.black : T.white, black ? 13 : 12);
+            if (e->state == (black ? S_TermB : S_TermW)) {
+                setvalue((int32_t)e->param);
+                return true;
+            }
+            if (e->state == (black ? S_MakeUpB : S_MakeUpW) || e->state == S_MakeUp) {
+                a0 += (int32_t)e->param;
+                RunLength += (int32_t)e->param;
+                continue;
+            }
+            bad = true;
+            return true;
+        }
+    }
+
+    // EXPAND2D: false at a premature end of the data (the runs cleaned up)
+    bool expand2d() {
+        while (a0 < lastx) {
+            if (pa >= thisrun + nruns) overflow();
+            if (!need8(7)) goto eof;
+            const FaxEnt* e = lookup(T.main, 7);
+            switch (e->state) {
+                case S_Pass:
+                    check_b1();
+                    if (pb + 1 >= refruns + nruns) overflow();
+                    b1 += (int32_t)*pb++;
+                    RunLength += b1 - a0;
+                    a0 = b1;
+                    b1 += (int32_t)*pb++;
+                    break;
+                case S_Horiz: {
+                    bool bad = false;
+                    const bool black_first = (pa - thisrun) & 1;
+                    if (!horiz_run(black_first, bad)) goto eof;
+                    if (bad) goto eol;
+                    if (!horiz_run(!black_first, bad)) goto eof;
+                    if (bad) goto eol;
+                    check_b1();
+                    break;
+                }
+                case S_V0:
+                    check_b1();
+                    setvalue(b1 - a0);
+                    if (pb >= refruns + nruns) overflow();
+                    b1 += (int32_t)*pb++;
+                    break;
+                case S_VR:
+                    check_b1();
+                    setvalue(b1 - a0 + (int32_t)e->param);
+                    if (pb >= refruns + nruns) overflow();
+                    b1 += (int32_t)*pb++;
+                    break;
+                case S_VL:
+                    check_b1();
+                    if (b1 < (int32_t)(a0 + e->param)) goto eol;
+                    setvalue(b1 - a0 - (int32_t)e->param);
+                    b1 -= (int32_t)*--pb;
+                    break;
+                case S_Ext:
+                    *pa++ = (uint32_t)(lastx - a0);
+                    goto eol;
+                case S_EOL:
+                    *pa++ = (uint32_t)(lastx - a0);
+                    if (!need8(4)) goto eof;
+                    clr(4);
+                    EOLcnt = 1;
+                    goto eol;
+                default:
+                    goto eol;
+            }
+        }
+        if (RunLength) {
+            if (RunLength + a0 < lastx) {
+                if (!need8(1)) goto eof;
+                if (!get(1)) goto eol;
+                clr(1);
+            }
+            setvalue(0);
+        }
+    eol:
+        cleanup_runs();
+        return true;
+    eof:
+        cleanup_runs();
+        return false;
+    }
+
+    // SYNC_EOL: false where the data ends before an EOL; where it ends
+    // within the EOL's zeros, libtiff (tryG3WithoutEOL) sets FAXMODE_NOEOL,
+    // which holds for the rest of the image, and reads the strip's data
+    // again from its start for the current row on, without EOLs
+    bool sync_eol() {
+        if (noeol) return true;
+        if (EOLcnt == 0) {
+            for (;;) {
+                if (!need16(11)) return false;
+                if (get(11) == 0) break;
+                clr(1);
+            }
+        }
+        for (;;) {
+            if (!need8(8)) {
+                noeol = true;
+                cp = strip;
+                acc = 0;
+                avail = 0;
+                EOLcnt = 0;
+                return true;
+            }
+            if (get(8)) break;
+            clr(8);
+        }
+        while (get(1) == 0) clr(1);
+        clr(1);
+        EOLcnt = 0;
+        return true;
+    }
+
+    // _TIFFFax3fillruns: white runs clear bits, black runs set them
+    void fill(uint8_t* buf, uint32_t* rl, uint32_t* erun) {
+        if ((erun - rl) & 1) *erun++ = 0;
+        uint32_t x = 0;
+        for (; rl < erun; rl += 2) {
+            for (int k = 0; k < 2; ++k) {
+                uint32_t run = rl[k];
+                if (x + run > (uint32_t)lastx || run > (uint32_t)lastx)
+                    run = rl[k] = (uint32_t)lastx - x;
+                for (uint32_t i = 0; i < run; ++i) {
+                    const uint32_t px = x + i;
+                    if (k) buf[px >> 3] |= (uint8_t)(0x80 >> (px & 7));
+                    else buf[px >> 3] &= (uint8_t)~(0x80 >> (px & 7));
+                }
+                x += rl[k];
+            }
+        }
+    }
+
+    // the strip's rows (rowbytes each) into buf; libtiff's result: 1, or -1
+    int decode(Kind kind, uint8_t* buf, uint32_t rows, size_t rowbytes) {
+        for (uint32_t y = 0; y < rows; ++y, buf += rowbytes) {
+            a0 = 0;
+            RunLength = 0;
+            thisrun = pa = curruns;
+            bool ok = true;
+            if (kind == RLE) {
+                ok = expand1d();
+                fill(buf, thisrun, pa);
+                if (!ok) return -1;
+                clr(avail - (avail & ~7));              // FAXMODE_BYTEALIGN
+            } else if (kind == G3_1D) {
+                if (!sync_eol()) {
+                    cleanup_runs();
+                    fill(buf, thisrun, pa);
+                    return -1;
+                }
+                ok = expand1d();
+                fill(buf, thisrun, pa);
+                if (!ok) return -1;
+            } else if (kind == G3_2D) {
+                if (!sync_eol() || !need8(1)) {
+                    cleanup_runs();
+                    fill(buf, thisrun, pa);
+                    return -1;
+                }
+                const bool is1d = get(1);
+                clr(1);
+                pb = refruns;
+                b1 = (int32_t)*pb++;
+                ok = is1d ? expand1d() : expand2d();
+                fill(buf, thisrun, pa);
+                if (!ok) return -1;
+                if (pa < thisrun + nruns) setvalue(0);
+                std::swap(curruns, refruns);
+            } else {
+                pb = refruns;
+                b1 = (int32_t)*pb++;
+                ok = expand2d();
+                if (ok && !EOLcnt) {
+                    fill(buf, thisrun, pa);
+                    setvalue(0);
+                    std::swap(curruns, refruns);
+                    ++rows_done;
+                    continue;
+                }
+                // EOFB or the end of the data: the row, and no more
+                if (need16(13)) clr(13);
+                fill(buf, thisrun, pa);
+                rows_done = (int)y + 1;
+                return y > 0 ? 1 : -1;
+            }
+            ++rows_done;
+        }
+        return 1;
     }
 };
 
@@ -1705,6 +2112,12 @@ struct Tiff {
              rows_per_strip = 0xFFFFFFFF, tile_w = 0, tile_h = 0, t4options = 0,
              t6options = 0;
     bool tiled = false, have_photometric = false, have_spp = false, sf_uniform = true;
+    bool ifd_cut = false;   // the IFD's entries run past the end of the file
+    bool libtiff_bad = false;   // a tag libtiff's TIFFReadDirectory fails on
+    mutable bool fax_noeol = false;   // libtiff's FAXMODE_NOEOL, once set for an image
+    // libtiff's run arrays of the CCITT decoder, allocated once for the
+    // image (a damaged row may read entries an earlier strip left there)
+    mutable std::vector<uint32_t> fax_runs;
     size_t n_sf = 0, jpegtables_at = 0, jpegtables_len = 0, ojpeg_at = 0, ojpeg_len = 0;
     uint32_t ycc_h = 2, ycc_v = 2;   // YCbCrSubsampling (libtiff's default)
     bool custom_ycc = false;         // YCbCrCoefficients or ReferenceBlackWhite not the default
@@ -1723,21 +2136,154 @@ struct Tiff {
     uint32_t rd16(size_t p) const { return (uint32_t)rd(p, 2); }
     uint32_t rd32(size_t p) const { return (uint32_t)rd(p, 4); }
 
-    std::vector<uint64_t> values(size_t entry) const {
-        uint32_t type = rd16(entry + 2);
-        uint64_t count = bigtiff ? rd(entry + 4, 8) : rd32(entry + 4);
-        int size = type == 3 || type == 8 ? 2 : type == 4 || type == 9 || type == 13 ? 4
-                 : type == 16 || type == 17 || type == 18 ? 8
-                 : (type == 1 || type == 2 || type == 6 || type == 7) ? 1 : 0;
-        if (size == 8 && !bigtiff) fail("TIFF: 64-bit tag type in a classic TIFF");
-        if (size == 0 || count > n) return {};
-        size_t total = (size_t)size * count, inline_room = bigtiff ? 8 : 4;
-        size_t at = entry + (bigtiff ? 12 : 8);
-        size_t p = total <= inline_room ? at : (size_t)rd(at, bigtiff ? 8 : 4);
-        if (p + total > n) fail("TIFF: tag data past the end of the file");
+    // PIL's ImageFileDirectory_v2.load of one entry: where its values are
+    // and how many bytes they take (0 where PIL skips the tag: a type it has
+    // no reader for, no values), or false where they run past the end of the
+    // file (PIL stops reading the IFD there)
+    bool entry_data(size_t entry, uint32_t& type, uint64_t& count, size_t& at, size_t& size) const {
+        type = rd16(entry + 2);
+        count = bigtiff ? rd(entry + 4, 8) : rd32(entry + 4);
+        static const int kUnit[19] = {0, 1, 1, 2, 4, 8, 1, 1, 2, 4, 8, 4, 8, 4, 0, 0, 8, 0, 0};
+        const int unit = type < 19 ? kUnit[type] : 0;
+        size = 0;
+        at = 0;
+        if (unit == 0 || count == 0) return true;
+        if (count > n) return false;
+        size = (size_t)unit * count;
+        const size_t inline_room = bigtiff ? 8 : 4, field = entry + (bigtiff ? 12 : 8);
+        at = size <= inline_room ? field : (size_t)rd(field, bigtiff ? 8 : 4);
+        return at <= n && size <= n - at;
+    }
+
+    // the values of a numeric entry as PIL reads them (signed types sign
+    // extended); a tag of another type holds what PIL cannot use as a number
+    std::vector<uint64_t> values(uint32_t tag, uint32_t type, uint64_t count, size_t at) const {
+        int size;
+        bool is_signed = false;
+        switch (type) {
+            case 1: size = 1; break;
+            case 3: size = 2; break;
+            case 4: case 13: size = 4; break;
+            case 16: size = 8; break;
+            case 6: size = 1; is_signed = true; break;
+            case 8: size = 2; is_signed = true; break;
+            case 9: size = 4; is_signed = true; break;
+            default:
+                fail("TIFF: tag " + std::to_string(tag) + " of type " + std::to_string(type) +
+                     " is no number to PIL");
+        }
         std::vector<uint64_t> out(count);
-        for (uint64_t i = 0; i < count; ++i) out[i] = rd(p + size * i, size);
+        for (uint64_t i = 0; i < count; ++i) {
+            uint64_t v = rd(at + size * i, size);
+            if (is_signed && size < 8 && ((v >> (8 * size - 1)) & 1)) v |= ~0ull << (8 * size);
+            out[i] = v;
+        }
         return out;
+    }
+
+    // tif_dirread.c EstimateStripByteCounts for a compressed image without
+    // StripByteCounts: every strip the bytes the directory leaves of the
+    // file, the last one trimmed to the file's end
+    void estimate_counts(size_t first, uint64_t count) {
+        const size_t planes = planar == 2 ? spp : 1;
+        if (tiled || (planar != 2 && offsets.size() > 1) || (planar == 2 && offsets.size() != spp))
+            fail("TIFF: no StripByteCounts (libtiff refuses it)");
+        static const int kWidth[19] = {0, 1, 1, 2, 4, 8, 1, 1, 2, 4, 8, 4, 8, 4, 0, 0, 8, 8, 8};
+        const size_t entry_size = bigtiff ? 20 : 12, room = bigtiff ? 8 : 4;
+        uint64_t space = bigtiff ? 16 + 8 + count * 20 + 8 : 8 + 2 + count * 12 + 4;
+        for (uint64_t i = 0; i < count; ++i) {
+            const size_t e = first + entry_size * (size_t)i;
+            const uint32_t type = rd16(e + 2);
+            const uint64_t cnt = bigtiff ? rd(e + 4, 8) : rd32(e + 4);
+            const int width = type < 19 ? kWidth[type] : 0;
+            if (width == 0) fail("TIFF: a tag of unknown type (libtiff cannot size the directory)");
+            const uint64_t size = cnt * width;
+            if (size > room) space += size;
+        }
+        space = n < space ? n : n - space;
+        space /= planes;
+        counts.assign(offsets.size(), space);
+        const uint64_t last = offsets.back();
+        if (last + counts.back() > n) counts.back() = last >= n ? 0 : n - last;
+    }
+
+    // one IFD entry's value, of the tags the decoder reads
+    void take(uint32_t tag, uint32_t type, uint64_t cnt, size_t at, size_t size) {
+        std::vector<uint64_t> v;
+        switch (tag) {
+            case 256: case 257: case 258: case 259: case 262: case 266:
+            case 273: case 277: case 278: case 279: case 284: case 292: case 293:
+            case 317: case 320: case 322: case 323: case 324: case 325:
+            case 338: case 339: case 513: case 514: case 530:
+                v = values(tag, type, cnt, at);
+                break;
+            case 529: case 532: {
+                // RATIONALs; only libtiff's defaults are decoded
+                static const double luma[3] = {0.299, 0.587, 0.114};
+                static const double refbw[6] = {0, 255, 128, 255, 128, 255};
+                size_t want = tag == 529 ? 3 : 6;
+                if (type != 5 || cnt != want) {
+                    custom_ycc = true;
+                    return;
+                }
+                for (size_t k = 0; k < want; ++k) {
+                    double num = rd32(at + 8 * k), den = rd32(at + 8 * k + 4);
+                    double value = den ? num / den : 0;
+                    double expect = tag == 529 ? luma[k] : refbw[k];
+                    if ((float)value != (float)expect) custom_ycc = true;
+                }
+                return;
+            }
+            case 347:
+                // JPEGTables: an abbreviated JPEG stream of the tables
+                jpegtables_at = at;
+                jpegtables_len = size;
+                return;
+            default:
+                return;
+        }
+        auto u32 = [](uint64_t x) { return (uint32_t)std::min<uint64_t>(x, 0xFFFFFFFFu); };
+        switch (tag) {
+            case 256: width = u32(v[0]); break;
+            case 257: height = u32(v[0]); break;
+            case 258:
+                bps_all.clear();
+                for (uint64_t b : v) bps_all.push_back(u32(b));
+                bps = bps_all[0];
+                break;
+            case 259: compression = u32(v[0]); break;
+            case 262: photometric = u32(v[0]); have_photometric = true; break;
+            case 266: fillorder = u32(v[0]); break;
+            case 273: case 324: offsets = v; tiled |= tag == 324; break;
+            case 277: spp = u32(v[0]); have_spp = true; break;
+            case 278: rows_per_strip = u32(v[0]); break;
+            case 279: case 325: counts = v; break;
+            case 284: planar = u32(v[0]); break;
+            case 292: t4options = u32(v[0]); break;
+            case 293: t6options = u32(v[0]); break;
+            case 317: predictor = u32(v[0]); break;
+            case 320:
+                colormap.clear();
+                for (uint64_t c : v) colormap.push_back(u32(c));
+                break;
+            case 322: tile_w = u32(v[0]); break;
+            case 323: tile_h = u32(v[0]); break;
+            case 513: ojpeg_at = (size_t)v[0]; break;
+            case 514: ojpeg_len = (size_t)v[0]; break;
+            case 530:
+                ycc_h = u32(v[0]);
+                ycc_v = v.size() > 1 ? u32(v[1]) : ycc_v;
+                break;
+            case 338:
+                extrasamples.clear();
+                for (uint64_t x : v) extrasamples.push_back(u32(x));
+                break;
+            case 339:
+                sampleformat = u32(v[0]);
+                n_sf = v.size();
+                for (uint64_t x : v) sf_uniform &= x == v[0];
+                break;
+        }
     }
 
     void parse() {
@@ -1757,97 +2303,97 @@ struct Tiff {
             fail("TIFF: bad version");
         }
         const size_t entry_size = bigtiff ? 20 : 12;
+        if (ifd > n || n - ifd < (bigtiff ? 8u : 2u)) fail("TIFF: truncated IFD (no entry count)");
         uint64_t count = bigtiff ? rd(ifd, 8) : rd16(ifd);
         const size_t first = ifd + (bigtiff ? 8 : 2);
-        if (count > n / entry_size) fail("TIFF: truncated IFD");
+        int64_t stop = -1;      // the entry PIL stopped at
+        uint32_t cut_tag = 0;   // a strip-layout tag whose values run past the end
+        size_t cut_entry = 0;
         for (uint64_t i = 0; i < count; ++i) {
             size_t e = first + entry_size * (size_t)i;
-            uint32_t tag = rd16(e);
-            std::vector<uint64_t> v;
-            switch (tag) {
-                case 256: case 257: case 258: case 259: case 262: case 266:
-                case 273: case 277: case 278: case 279: case 284: case 292: case 293:
-                case 317: case 320: case 322: case 323: case 324: case 325:
-                case 338: case 339: case 513: case 514: case 530:
-                    v = values(e);
-                    if (v.empty()) fail("TIFF: empty tag " + std::to_string(tag));
-                    break;
-                case 529: case 532: {
-                    // RATIONALs; only libtiff's defaults are decoded
-                    static const double luma[3] = {0.299, 0.587, 0.114};
-                    static const double refbw[6] = {0, 255, 128, 255, 128, 255};
-                    uint64_t cnt = bigtiff ? rd(e + 4, 8) : rd32(e + 4);
-                    size_t want = tag == 529 ? 3 : 6;
-                    if (rd16(e + 2) != 5 || cnt != want) {
-                        custom_ycc = true;
-                        continue;
-                    }
-                    size_t p = (size_t)rd(e + (bigtiff ? 12 : 8), bigtiff ? 8 : 4);
-                    for (size_t k = 0; k < want; ++k) {
-                        double num = rd32(p + 8 * k), den = rd32(p + 8 * k + 4);
-                        double value = den ? num / den : 0;
-                        double expect = tag == 529 ? luma[k] : refbw[k];
-                        if ((float)value != (float)expect) custom_ycc = true;
-                    }
-                    continue;
-                }
-                case 347: {
-                    // JPEGTables: an abbreviated JPEG stream of the tables
-                    uint64_t cnt = bigtiff ? rd(e + 4, 8) : rd32(e + 4);
-                    size_t at = e + (bigtiff ? 12 : 8);
-                    size_t p = cnt <= (bigtiff ? 8u : 4u) ? at : (size_t)rd(at, bigtiff ? 8 : 4);
-                    if (p + cnt > n) fail("TIFF: JPEGTables past the end of the file");
-                    jpegtables_at = p;
-                    jpegtables_len = (size_t)cnt;
-                    continue;
-                }
-                default:
-                    continue;
+            if (e > n || n - e < entry_size) {
+                ifd_cut = true;     // PIL keeps the entries before; libtiff cannot read them
+                break;
             }
-            auto u32 = [](uint64_t x) { return (uint32_t)std::min<uint64_t>(x, 0xFFFFFFFFu); };
-            switch (tag) {
-                case 256: width = u32(v[0]); break;
-                case 257: height = u32(v[0]); break;
-                case 258:
-                    bps_all.clear();
-                    for (uint64_t b : v) bps_all.push_back(u32(b));
-                    bps = bps_all[0];
-                    break;
-                case 259: compression = u32(v[0]); break;
-                case 262: photometric = u32(v[0]); have_photometric = true; break;
-                case 266: fillorder = u32(v[0]); break;
-                case 273: case 324: offsets = v; tiled |= tag == 324; break;
-                case 277: spp = u32(v[0]); have_spp = true; break;
-                case 278: rows_per_strip = u32(v[0]); break;
-                case 279: case 325: counts = v; break;
-                case 284: planar = u32(v[0]); break;
-                case 292: t4options = u32(v[0]); break;
-                case 293: t6options = u32(v[0]); break;
-                case 317: predictor = u32(v[0]); break;
-                case 320:
-                    colormap.clear();
-                    for (uint64_t c : v) colormap.push_back(u32(c));
-                    break;
-                case 322: tile_w = u32(v[0]); break;
-                case 323: tile_h = u32(v[0]); break;
-                case 513: ojpeg_at = (size_t)v[0]; break;
-                case 514: ojpeg_len = (size_t)v[0]; break;
-                case 530:
-                    ycc_h = u32(v[0]);
-                    ycc_v = v.size() > 1 ? u32(v[1]) : ycc_v;
-                    break;
-                case 338:
-                    extrasamples.clear();
-                    for (uint64_t x : v) extrasamples.push_back(u32(x));
-                    break;
-                case 339:
-                    sampleformat = u32(v[0]);
-                    n_sf = v.size();
-                    for (uint64_t x : v) sf_uniform &= x == v[0];
-                    break;
+            uint32_t tag = rd16(e), type;
+            uint64_t cnt;
+            size_t at, size;
+            {
+                // TIFFReadDirectory "goto bad" on these tags where it cannot
+                // read an integer of them (PIL skips such a tag)
+                const uint32_t ty = rd16(e + 2);
+                const uint64_t c = bigtiff ? rd(e + 4, 8) : rd32(e + 4);
+                const bool int_type = ty == 1 || ty == 3 || ty == 4 || ty == 6 || ty == 8 ||
+                                      ty == 9 || ty == 16 || ty == 17;
+                if ((tag == 256 || tag == 257 || tag == 258 || tag == 259 || tag == 277 ||
+                     tag == 278 || tag == 284 || tag == 322 || tag == 323 || tag == 338 ||
+                     tag == 339) && (!int_type || c == 0))
+                    libtiff_bad = true;
+                // TIFFFetchNormalTag of a single value: exactly one
+                if ((tag == 256 || tag == 257 || tag == 278 || tag == 284 || tag == 322 ||
+                     tag == 323) && c != 1)
+                    libtiff_bad = true;
             }
+            if (!entry_data(e, type, cnt, at, size)) {
+                // PIL stops reading the IFD here; libtiff ignores such a tag
+                // unless it cannot do without it
+                static const uint32_t kEssential[] = {256, 257, 258, 259, 273, 278, 279, 284,
+                                                      322, 323, 324, 325, 338, 339};
+                for (uint32_t t : kEssential) libtiff_bad = libtiff_bad || t == tag;
+                if (tag == 273 || tag == 279 || tag == 324 || tag == 325) {
+                    libtiff_bad = false;    // libtiff reads as many values as it needs
+                    cut_tag = tag;
+                    cut_entry = e;
+                }
+                stop = (int64_t)i;
+                break;
+            }
+            if (!size) continue;    // PIL skips the tag
+            take(tag, type, cnt, at, size);
         }
+        // libtiff reads the entries PIL did not get to: the layout of the
+        // strips or tiles it decodes (the mode stays PIL's)
+        if (stop >= 0 && compression != 1)
+            for (uint64_t i = (uint64_t)stop + 1; i < count; ++i) {
+                size_t e = first + entry_size * (size_t)i;
+                if (e > n || n - e < entry_size) break;
+                uint32_t tag = rd16(e), type;
+                uint64_t cnt;
+                size_t at, size;
+                if (!entry_data(e, type, cnt, at, size) || !size) continue;
+                switch (tag) {
+                    case 273: case 278: case 279: case 292: case 293: case 317: case 322:
+                    case 323: case 324: case 325: case 347: case 513: case 514: case 530:
+                        take(tag, type, cnt, at, size);
+                }
+            }
         if (!width || !height) fail("TIFF: missing image size");
+        if (cut_tag && compression != 1) {
+            // libtiff (TIFFFetchStripThing) reads the values of the strips or
+            // tiles the image has, and fails where those run past the end
+            const uint32_t cw = tiled ? tile_w : width;
+            const uint32_t ch = tiled ? tile_h : std::min(rows_per_strip, height);
+            if (!cw || !ch) fail("TIFF: bad strip or tile size");
+            const uint64_t need = (uint64_t)(tiled ? (width + cw - 1) / cw : 1) *
+                                  ((height + ch - 1) / ch) * (planar == 2 ? spp : 1);
+            const uint32_t type = rd16(cut_entry + 2);
+            const int unit = type == 3 ? 2 : type == 4 ? 4 : type == 16 ? 8 : 0;
+            const size_t at = (size_t)rd(cut_entry + (bigtiff ? 12 : 8), bigtiff ? 8 : 4);
+            if (!unit || need > n || at > n || need * unit > n - at)
+                fail("TIFF: StripOffsets or StripByteCounts past the end of the file (libtiff "
+                     "refuses it)");
+            take(cut_tag, type, need, at, (size_t)(need * unit));
+        }
+        if (offsets.empty())
+            fail(compression == 1 ? "TIFF: no StripOffsets or TileOffsets (PIL: unknown data "
+                                    "organization)"
+                                  : "TIFF: no StripOffsets or TileOffsets (libtiff refuses it)");
+        // libtiff's ByteCountLooksBad: one strip of 0 bytes is estimated too
+        if (compression != 1 && (counts.empty() || (!tiled && offsets.size() == 1 &&
+                                                     counts[0] == 0 && offsets[0] != 0)))
+            estimate_counts(first, count);
+        // PIL's raw decoder reads anything but PlanarConfiguration 2 as contiguous
+        if (compression == 1 && planar != 2) planar = 1;
         if (compression == 6) {   // PIL: old-style JPEG is YCbCr, of 3 samples by default
             photometric = 6;
             have_photometric = true;
@@ -1872,11 +2418,15 @@ struct Tiff {
     // (utils/image_native.py)
     void check_supported() const {
         check_open();
+        if (ifd_cut && compression != 1)
+            fail("TIFF: the IFD runs past the end of the file (libtiff cannot read it)");
+        if (libtiff_bad && compression != 1)
+            fail("TIFF: a tag of a type or count libtiff cannot read (libtiff refuses the directory)");
         for (uint32_t b : bps_all)
             if (b != bps) fail("TIFF: mixed bits per sample");
-        if (bps != 1 && bps != 2 && bps != 4 && bps != 8 && bps != 16 && bps != 32)
+        if (bps != 1 && bps != 2 && bps != 4 && bps != 8 && bps != 12 && bps != 16 && bps != 32)
             fail("TIFF: " + std::to_string(bps) + "-bit samples are not supported "
-                 "(1, 2, 4, 8, 16 and 32 bits are)");
+                 "(1, 2, 4, 8, 12, 16 and 32 bits are)");
         if (planar != 1 && planar != 2)
             fail("TIFF: PlanarConfiguration " + std::to_string(planar));
         if (fillorder != 1 && fillorder != 2) fail("TIFF: FillOrder " + std::to_string(fillorder));
@@ -1898,9 +2448,8 @@ struct Tiff {
             fail("TIFF: Group 4 uncompressed mode is not supported");
         if (jpeg()) {
             if (bps != 8) fail("TIFF: JPEG-in-TIFF with " + std::to_string(bps) + "-bit samples");
-            if (planar != 1) fail("TIFF: planar (PlanarConfiguration 2) JPEG-in-TIFF is not supported");
-            if (!((photometric <= 1 && spp == 1) || ((photometric == 2 || photometric == 6) && spp == 3) ||
-                  (photometric == 5 && spp == 4)))
+            if (!((photometric <= 1 && spp <= 2) || (photometric == 2 && (spp == 3 || spp == 4)) ||
+                  (photometric == 6 && spp == 3) || (photometric == 5 && spp == 4)))
                 fail("TIFF: JPEG-in-TIFF of photometric interpretation " +
                      std::to_string(photometric) + " with " + std::to_string(spp) + " samples");
         }
@@ -1913,7 +2462,8 @@ struct Tiff {
         switch (photometric) {
             case 0: case 1: case 2: break;
             case 3:
-                if (spp != 1) fail("TIFF: palette image with several samples per pixel");
+                if (spp > 2 || (spp == 2 && (bps != 8 || planar != 1)))
+                    fail("TIFF: palette image with several samples per pixel");
                 if (bps > 8) fail("TIFF: palette image with " + std::to_string(bps) + "-bit samples");
                 if (colormap.size() != 3u << bps) fail("TIFF: palette image without a full ColorMap");
                 break;
@@ -1921,13 +2471,18 @@ struct Tiff {
             case 6:
                 if (jpeg()) break;
                 if (compression == 1)
-                    fail("TIFF: uncompressed YCbCr TIFF is not supported (PIL does not read it)");
+                    fail("TIFF: uncompressed YCbCr, which PIL reads with rawmode RGBX, 4 bytes a "
+                         "pixel of 3 samples, unconverted: a misreading the port refuses (decided "
+                         "divergence)");
                 if (compression != 6 && compression != 5 && compression != 8 &&
                     compression != 32946 && compression != 32773)
                     fail("TIFF: YCbCr TIFF under compression " + std::to_string(compression) +
                          " is not supported");
-                if (bps != 8 || spp != 3 || planar != 1)
-                    fail("TIFF: YCbCr TIFF other than 3 x 8-bit contiguous samples");
+                if (bps != 8 || spp != 3)
+                    fail("TIFF: YCbCr TIFF other than 3 x 8-bit samples");
+                if (planar == 2 && (ycc_h != 1 || ycc_v != 1))
+                    fail("TIFF: separate YCbCr planes subsampled " + std::to_string(ycc_h) + "x" +
+                         std::to_string(ycc_v) + " (libtiff's RGBA interface reads only 1x1)");
                 if (custom_ycc)
                     fail("TIFF: YCbCr TIFF with its own YCbCrCoefficients or "
                          "ReferenceBlackWhite is not supported");
@@ -1948,47 +2503,71 @@ struct Tiff {
 
     // decoded layout: uint8 RGB for a palette or YCbCr image, else
     // spp samples per pixel of 1, 2 or 4 bytes (native byte order)
+    // a palette image with an extra sample comes out as RGB and the sample
     int channels() const {
-        if (photometric == 3 || photometric == 6) return 3;
+        if (photometric == 3) return spp == 2 ? 4 : 3;
+        if (photometric == 6 && !jpeg()) return 3;
+        if (photometric == 6) return planar == 1 ? 3 : (int)spp;
         return (int)spp;
     }
     int sample_bytes() const {
-        if (photometric == 3 || photometric == 6 || jpeg() || bps <= 8) return 1;
-        return (int)bps / 8;
+        if (photometric == 3 || (photometric == 6 && planar == 1) || jpeg() || bps <= 8) return 1;
+        return bps == 12 ? 2 : (int)bps / 8;
     }
 
     // ---- decompression of one strip or tile into exactly `want` bytes
-    static void packbits(const uint8_t* s, size_t n, uint8_t* o, size_t want) {
+    // tif_packbits.c PackBitsDecode: a run cut by the end of the data is
+    // dropped; where the data ends first the rest is zeroed and libtiff
+    // reports an error (raised here, unless `partial`: the bytes kept)
+    static void packbits(const uint8_t* s, size_t n, uint8_t* o, size_t want, bool partial) {
         size_t i = 0, k = 0;
         while (i < n && k < want) {
             int c = (int8_t)s[i++];
-            if (c >= 0) {
-                size_t len = std::min((size_t)c + 1, std::min(n - i, want - k));
-                std::memcpy(o + k, s + i, len);
-                i += c + 1;
-                k += len;
-            } else if (c != -128) {
-                if (i >= n) break;
+            if (c < 0) {
+                if (c == -128) continue;
                 size_t len = std::min((size_t)(1 - c), want - k);
+                if (i >= n) break;
                 std::memset(o + k, s[i++], len);
+                k += len;
+            } else {
+                size_t len = std::min((size_t)c + 1, want - k);
+                if (n - i < len) break;
+                std::memcpy(o + k, s + i, len);
+                i += len;
                 k += len;
             }
         }
-        if (k < want) fail("TIFF: PackBits data ends early");
+        if (k < want) {
+            std::memset(o + k, 0, want - k);
+            if (!partial) fail("TIFF: PackBits data ends early");
+        }
     }
 
-    static void lzw(const uint8_t* s, size_t n, uint8_t* o, size_t want) {
+    // tif_lzw.c LZWDecode: a code not yet in the table, or the data ending
+    // first, zeroes the rest and is an error (raised, unless `partial`)
+    static void lzw(const uint8_t* s, size_t n, uint8_t* o, size_t want, bool partial) {
         if (n >= 2 && s[0] == 0 && (s[1] & 1)) fail("TIFF: old-style LZW is not supported");
-        std::vector<int32_t> prefix(4096, -1);
-        std::vector<uint8_t> suffix(4096), first(4096);
-        std::vector<int32_t> length(4096, 0);
+        size_t k = 0;
+        auto broken = [&](const char* why) {
+            std::memset(o + k, 0, want - k);
+            if (!partial) fail(why);
+        };
+        // libtiff's table holds 5119 entries (codes reach 4095; the rest are
+        // registered and never read), and its next free entry starts out as
+        // the one a full table leaves (LZWPreDecode): a code other than CLEAR
+        // or EOI before the first CLEAR is "not yet in the table"
+        const int kTable = 5119;
+        std::vector<int32_t> prefix(kTable, -1);
+        std::vector<uint8_t> suffix(kTable), first(kTable);
+        std::vector<int32_t> length(kTable, 0);
         for (int i = 0; i < 256; ++i) {
             suffix[i] = (uint8_t)i;
             first[i] = (uint8_t)i;
             length[i] = 1;
         }
-        size_t bitpos = 0, k = 0;
+        size_t bitpos = 0;
         int width = 9, next = 258, prev = -1;
+        bool fresh = true;
         auto read = [&]() -> int {
             if (bitpos + width > n * 8) return 257;
             int v = 0;
@@ -2010,15 +2589,17 @@ struct Tiff {
                 width = 9;
                 next = 258;
                 prev = -1;
+                fresh = false;
                 continue;
             }
+            if (fresh) return broken("TIFF: LZW data that does not start with a CLEAR code");
             if (prev < 0) {
-                if (code > 255) fail("TIFF: corrupt LZW data");
+                if (code > 255) return broken("TIFF: corrupt LZW data");
                 emit(code);
                 prev = code;
                 continue;
             }
-            if (code > next || next >= 4096) fail("TIFF: corrupt LZW data");
+            if (code > next || next >= kTable) return broken("TIFF: corrupt LZW data");
             int fc = code < next ? first[code] : first[prev];
             prefix[next] = prev;
             suffix[next] = (uint8_t)fc;
@@ -2031,49 +2612,48 @@ struct Tiff {
             else if (next >= 1023) width = 11;
             else if (next >= 511) width = 10;
         }
-        if (k < want) fail("TIFF: LZW data ends early");
+        if (k < want) broken("TIFF: LZW data ends early");
     }
 
-    // rows of CCITT data into rows of (w + 7) / 8 bytes
-    void fax_rows(const uint8_t* s, size_t cnt, uint8_t* o, uint32_t w, uint32_t rows,
-                  const RunTable& white, const RunTable& black) const {
-        Fax f(s, cnt, (int)w, white, black);
-        const size_t rowbytes = (w + 7) / 8;
-        for (uint32_t y = 0; y < rows; ++y) {
-            if (compression == 2) {          // modified Huffman: byte-aligned 1-D rows
-                f.row_1d();
-                f.align_byte();
-            } else if (compression == 3) {   // Group 3: EOL, then a 1-D or 2-D row
-                f.sync_eol();
-                bool one_d = !(t4options & 1) || f.bit();
-                if (one_d) f.row_1d();
-                else f.row_2d();
-            } else {
-                f.row_2d();
-            }
-            f.finish_row(o + rowbytes * y);
-        }
+    // rows of CCITT data into rows of (w + 7) / 8 bytes, as libtiff
+    // decodes the strip; a strip libtiff fails on raises, and so does one
+    // whose Group 4 data ends rows short of the strip (libtiff then reports
+    // success and PIL keeps its buffer's earlier bytes for those rows)
+    void fax_rows(const uint8_t* s, size_t cnt, uint8_t* o, uint32_t w, uint32_t rows) const {
+        static const FaxTables kTables;
+        const FaxDecoder::Kind kind = compression == 2 ? FaxDecoder::RLE
+                                    : compression == 4 ? FaxDecoder::G4
+                                    : (t4options & 1) ? FaxDecoder::G3_2D : FaxDecoder::G3_1D;
+        FaxDecoder f(kTables, s, cnt, w, kind == FaxDecoder::G3_2D || kind == FaxDecoder::G4,
+                     fax_noeol, fax_runs);
+        if (f.decode(kind, o, rows, (w + 7) / 8) < 0)
+            fail("TIFF: damaged CCITT data (libtiff: premature end of the strip)");
+        if (f.rows_done < (int)rows)
+            fail("TIFF: Group 4 data that ends rows short of its strip (PIL's pixels there are its "
+                 "buffer's earlier contents: decided divergence, not had from the file)");
     }
 
     // one strip or tile into exactly `want` bytes
+    // (`partial`: as libtiff leaves a strip it fails on in the buffer of
+    // its RGBA interface, which reads on past such a strip)
     void decompress(const uint8_t* src, size_t cnt, uint8_t* out, size_t want, uint32_t cw,
-                    uint32_t rows, inflate_fn inflate, const RunTable& white,
-                    const RunTable& black) const {
+                    uint32_t rows, inflate_fn inflate, bool partial = false) const {
         switch (compression) {
             case 1:
                 if (cnt < want) fail("TIFF: truncated strip or tile");
                 std::memcpy(out, src, want);
                 break;
-            case 32773: packbits(src, cnt, out, want); break;
-            case 5: lzw(src, cnt, out, want); break;
+            case 32773: packbits(src, cnt, out, want, partial); break;
+            case 5: lzw(src, cnt, out, want, partial); break;
             case 8: case 32946: {
+                // the callback returns -(bytes + 1) after corrupt data
                 int64_t got = inflate(src, (int64_t)cnt, out, (int64_t)want);
-                if (got < 0) fail("TIFF: corrupt Deflate data");
-                if ((size_t)got < want) fail("TIFF: Deflate data ends early");
+                if (got < 0 && !partial) fail("TIFF: corrupt Deflate data");
+                if (got >= 0 && (size_t)got < want && !partial) fail("TIFF: Deflate data ends early");
                 break;
             }
             case 2: case 3: case 4:
-                fax_rows(src, cnt, out, cw, rows, white, black);
+                fax_rows(src, cnt, out, cw, rows);
                 break;
         }
     }
@@ -2112,43 +2692,97 @@ struct Tiff {
         if (!cw || !ch) fail("TIFF: bad strip or tile size");
         const uint32_t across = tiled ? (width + cw - 1) / cw : 1;
         const uint32_t down = (height + ch - 1) / ch;
-        if (offsets.size() < (size_t)across * down) fail("TIFF: missing strip or tile offsets");
-        const uint32_t unit = ycc_h * ycc_v + 2, units_across = (cw + ycc_h - 1) / ycc_h;
+        const uint32_t planes = planar == 2 ? 3 : 1;
+        if (offsets.size() < (size_t)across * down * planes)
+            fail("TIFF: missing strip or tile offsets");
+        // contiguous: sampling units (the h x v Y samples, Cb, Cr); separate
+        // planes: unsubsampled samples of each (check_supported)
+        const uint32_t unit = planar == 2 ? 1 : ycc_h * ycc_v + 2;
+        const uint32_t hs = planar == 2 ? 1 : ycc_h, vs = planar == 2 ? 1 : ycc_v;
+        const uint32_t units_across = (cw + hs - 1) / hs;
         const YccToRgb conv;
-        RunTable white, black;
         std::vector<uint8_t> chunk, reversed;
-        for (uint32_t ty = 0; ty < down; ++ty)
+        // PIL asks the RGBA interface for one strip or row of tiles at a
+        // time (TIFFRGBAImageGet, stop on error 0): its buffer, zeroed when
+        // allocated, is kept from tile to tile of the row; a strip or tile
+        // libtiff fails to decode leaves in it what it got, and only the
+        // first plane's strip must be there to be read at all
+        for (uint32_t ty = 0; ty < down; ++ty) {
+            chunk.clear();
             for (uint32_t tx = 0; tx < across; ++tx) {
-                size_t idx = (size_t)ty * across + tx;
-                uint32_t rows = tiled ? ch : std::min(ch, height - ty * ch);
-                uint32_t unit_rows = (rows + ycc_v - 1) / ycc_v;
-                size_t want = (size_t)unit_rows * units_across * unit;
-                size_t off = (size_t)offsets[idx];
-                if (off > n) fail("TIFF: strip or tile past the end of the file");
-                size_t cnt = std::min(idx < counts.size() ? (size_t)counts[idx] : want, n - off);
-                const uint8_t* src = d + off;
-                if (fillorder == 2) {
-                    reversed.resize(cnt);
-                    for (size_t i = 0; i < cnt; ++i) reversed[i] = reverse_bits(src[i]);
-                    src = reversed.data();
+                const uint32_t rows = tiled ? ch : std::min(ch, height - ty * ch);
+                const uint32_t unit_rows = (rows + vs - 1) / vs;
+                const size_t want = (size_t)unit_rows * units_across * unit;
+                if (chunk.size() != want * planes) chunk.assign(want * planes, 0);
+                for (uint32_t plane = 0; plane < planes; ++plane) {
+                    const size_t idx = ((size_t)plane * down + ty) * across + tx;
+                    const size_t off = (size_t)offsets[idx];
+                    const bool missing = off > n || (idx < counts.size() &&
+                                                     (counts[idx] == 0 || counts[idx] > n - off));
+                    if (missing) {
+                        if (plane == 0)
+                            fail("TIFF: a strip or tile past the end of the file (libtiff: read "
+                                 "error)");
+                        continue;
+                    }
+                    const size_t cnt = std::min(idx < counts.size() ? (size_t)counts[idx] : want,
+                                                n - off);
+                    const uint8_t* src = d + off;
+                    if (fillorder == 2) {
+                        reversed.resize(cnt);
+                        for (size_t i = 0; i < cnt; ++i) reversed[i] = reverse_bits(src[i]);
+                        src = reversed.data();
+                    }
+                    decompress(src, cnt, chunk.data() + want * plane, want, cw, rows, inflate, true);
                 }
-                chunk.assign(want, 0);
-                decompress(src, cnt, chunk.data(), want, cw, rows, inflate, white, black);
                 const uint32_t x0 = tx * cw, y0 = ty * ch;
                 for (uint32_t uy = 0; uy < unit_rows; ++uy)
                     for (uint32_t ux = 0; ux < units_across; ++ux) {
-                        const uint8_t* u = chunk.data() + ((size_t)uy * units_across + ux) * unit;
-                        const int cb = u[ycc_h * ycc_v], cr = u[ycc_h * ycc_v + 1];
-                        for (uint32_t j = 0; j < ycc_v; ++j)
-                            for (uint32_t i = 0; i < ycc_h; ++i) {
-                                uint32_t x = x0 + ux * ycc_h + i, y = y0 + uy * ycc_v + j;
-                                if (x >= width || y >= height || ux * ycc_h + i >= cw ||
-                                    uy * ycc_v + j >= rows)
+                        const size_t at = ((size_t)uy * units_across + ux) * unit;
+                        const uint8_t* u = chunk.data() + at;
+                        const int cb = planar == 2 ? chunk[want + at] : u[hs * vs];
+                        const int cr = planar == 2 ? chunk[2 * want + at] : u[hs * vs + 1];
+                        for (uint32_t j = 0; j < vs; ++j)
+                            for (uint32_t i = 0; i < hs; ++i) {
+                                uint32_t x = x0 + ux * hs + i, y = y0 + uy * vs + j;
+                                if (x >= width || y >= height || ux * hs + i >= cw ||
+                                    uy * vs + j >= rows)
                                     continue;
-                                conv.put(u[j * ycc_h + i], cb, cr, dst + ((size_t)y * width + x) * 3);
+                                conv.put(u[j * hs + i], cb, cr, dst + ((size_t)y * width + x) * 3);
                             }
                     }
             }
+        }
+    }
+
+    // tif_ojpeg.c OJPEGReadHeaderInfoSec: libtiff reads the stream's markers
+    // itself, one right after the other, up to SOS (a byte other than FF
+    // where a marker belongs ends its reading, and the tables are missing)
+    static void ojpeg_header(const uint8_t* s, size_t len) {
+        size_t p = 0;
+        auto word = [&](size_t at) -> size_t {
+            if (at + 2 > len) fail("TIFF: old-style JPEG stream ends in its header");
+            return ((size_t)s[at] << 8) | s[at + 1];
+        };
+        for (;;) {
+            if (p >= len) fail("TIFF: old-style JPEG stream ends in its header");
+            if (s[p] != 0xFF)
+                fail("TIFF: old-style JPEG header broken before SOS (libtiff: missing JPEG tables)");
+            while (p < len && s[p] == 0xFF) ++p;
+            if (p >= len) fail("TIFF: old-style JPEG stream ends in its header");
+            const int m = s[p++];
+            if (m == 0xD8) continue;
+            if (m == 0xDA) return;
+            if (m == 0xFE || (m >= 0xE0 && m <= 0xEF) || m == 0xDD || m == 0xDB || m == 0xC4 ||
+                m == 0xC0 || m == 0xC1 || m == 0xC3) {
+                const size_t n = word(p);
+                if (n < 2) fail("TIFF: corrupt old-style JPEG data (libtiff refuses it)");
+                p += n;
+                continue;
+            }
+            fail("TIFF: unknown marker " + std::to_string(m) + " in old-style JPEG data "
+                 "(libtiff refuses it)");
+        }
     }
 
     // old-style JPEG (compression 6) from its JPEGInterchangeFormat stream,
@@ -2156,9 +2790,12 @@ struct Tiff {
     // components as the inverse DCT leaves them, not upsampled, and each
     // chroma sample on its whole sampling unit
     void decode_ojpeg(uint8_t* dst) const {
-        if (ojpeg_at > n || ojpeg_len > n - ojpeg_at)
-            fail("TIFF: JPEGInterchangeFormat past the end of the file");
-        Jpeg j(d + ojpeg_at, ojpeg_len);
+        if (ojpeg_at > n) fail("TIFF: JPEGInterchangeFormat past the end of the file");
+        // libtiff reads the stream as far as the file goes
+        const size_t len = std::min(ojpeg_len, n - ojpeg_at);
+        ojpeg_header(d + ojpeg_at, len);
+        Jpeg j(d + ojpeg_at, len);
+        j.tiff_source = true;
         j.decode_scans();
         if (j.comps.size() != 3 || j.lossless)
             fail("TIFF: old-style JPEG-in-TIFF without 3 DCT components");
@@ -2180,8 +2817,10 @@ struct Tiff {
     }
 
     // one JPEG stream (tables from JPEGTables first) -> its pixels, placed
-    // at (x0, y0) of the image
-    void jpeg_chunk(const uint8_t* src, size_t cnt, uint32_t x0, uint32_t y0, uint8_t* dst) const {
+    // at (x0, y0) of the image (PlanarConfiguration 2: its one component
+    // into sample `plane`), with the checks of libtiff's JPEGPreDecode
+    void jpeg_chunk(const uint8_t* src, size_t cnt, uint32_t x0, uint32_t y0, uint32_t plane,
+                    uint32_t rows, uint8_t* dst) const {
         std::vector<uint8_t> stream;
         if (jpegtables_len >= 4 && cnt >= 2 && src[0] == 0xFF && src[1] == 0xD8) {
             const uint8_t* t = d + jpegtables_at;
@@ -2193,22 +2832,52 @@ struct Tiff {
             stream.assign(src, src + cnt);
         }
         Jpeg j(stream.data(), stream.size());
-        // libtiff: YCbCr is converted to RGB (PIL asks for JPEGCOLORMODE_RGB);
-        // any other photometric comes out as coded
-        j.colorspace = photometric == 6 ? 0 : 1;
+        j.tiff_source = true;
+        // libtiff: contiguous YCbCr is converted to RGB (PIL asks for
+        // JPEGCOLORMODE_RGB); anything else comes out as coded
+        const bool to_rgb = photometric == 6 && planar == 1;
+        j.colorspace = to_rgb ? 0 : 1;
         j.decode_scans();
-        const int ch = channels();
-        if (j.channels() != ch) fail("TIFF: JPEG strip or tile has the wrong number of components");
-        if (photometric != 6 && ch == 3 && (j.hmax != 1 || j.vmax != 1))
-            fail("TIFF: subsampled JPEG-in-TIFF that is not YCbCr is not supported");
+        const int ncomp = planar == 1 ? (int)spp : 1;
+        if (j.channels() != ncomp)
+            fail("TIFF: JPEG strip or tile has the wrong number of components");
+        // the strip or tile the stream should fill (a subsampled plane smaller)
+        const uint32_t hs = photometric == 6 ? ycc_h : 1, vs = photometric == 6 ? ycc_v : 1;
+        uint32_t seg_w = tiled ? tile_w : width, seg_h = tiled ? tile_h : rows;
+        if (planar == 2 && plane > 0) {
+            if (hs != 1 || vs != 1)
+                fail("TIFF: subsampled separate JPEG planes are not supported");
+        }
+        const uint32_t jw = (uint32_t)j.width, jh = (uint32_t)j.height;
+        if (jw < seg_w || jh < seg_h)
+            fail("TIFF: a JPEG strip or tile smaller than its strip or tile (PIL's pixels past it "
+                 "are uninitialized memory: decided divergence, not had from the file)");
+        const bool last_strip_taller = jw == seg_w && jh > seg_h && y0 + seg_h == height && !tiled;
+        if (!last_strip_taller && (jw > seg_w || jh > seg_h))
+            fail("TIFF: a JPEG strip or tile larger than its strip or tile (libtiff refuses it)");
+        if (planar == 1) {
+            if (j.comps[0].h != (int)hs || j.comps[0].v != (int)vs)
+                fail("TIFF: improper JPEG sampling factors (libtiff refuses them)");
+            for (size_t ci = 1; ci < j.comps.size(); ++ci)
+                if (j.comps[ci].h != 1 || j.comps[ci].v != 1)
+                    fail("TIFF: improper JPEG sampling factors (libtiff refuses them)");
+        } else if (j.comps[0].h != 1 || j.comps[0].v != 1) {
+            fail("TIFF: improper JPEG sampling factors (libtiff refuses them)");
+        }
         j.inverse_dct();
-        std::vector<uint8_t> px((size_t)j.width * j.height * ch);
+        std::vector<uint8_t> px((size_t)jw * jh * ncomp);
         j.to_pixels(px.data());
-        uint32_t w_here = std::min((uint32_t)j.width, width - x0);
-        uint32_t h_here = std::min((uint32_t)j.height, height - y0);
-        for (uint32_t r = 0; r < h_here; ++r)
-            std::memcpy(dst + ((size_t)(y0 + r) * width + x0) * ch,
-                        px.data() + (size_t)r * j.width * ch, (size_t)w_here * ch);
+        const int ch = channels();
+        const uint32_t w_here = std::min(jw, width - x0), h_here = std::min(jh, height - y0);
+        for (uint32_t r = 0; r < h_here; ++r) {
+            const uint8_t* in = px.data() + (size_t)r * jw * ncomp;
+            uint8_t* out = dst + ((size_t)(y0 + r) * width + x0) * ch;
+            if (planar == 1) {
+                std::memcpy(out, in, (size_t)w_here * ch);
+            } else {
+                for (uint32_t x = 0; x < w_here; ++x) out[(size_t)x * ch + plane] = in[x];
+            }
+        }
     }
 
     void decode(uint8_t* dst, inflate_fn inflate) {
@@ -2227,13 +2896,10 @@ struct Tiff {
         if (compression != 1 && offsets.size() < (size_t)across * down * planes)
             fail("TIFF: missing strip or tile offsets");
         const int sb = sample_bytes();
-        RunTable white, black;
-        if (fax()) fill_tables(white, black);
         std::vector<uint8_t> chunk, reversed;
         std::vector<uint32_t> row(cw * spc);
         // samples of the whole image (a palette image: its indices)
-        std::vector<uint8_t> samples(photometric == 3 ? (size_t)width * height
-                                                       : jpeg() ? 0 : (size_t)width * height * spp * sb);
+        std::vector<uint8_t> samples(jpeg() ? 0 : (size_t)width * height * spp * sb);
         for (uint32_t plane = 0; plane < planes; ++plane)
             for (uint32_t ty = 0; ty < down; ++ty)
                 for (uint32_t tx = 0; tx < across; ++tx) {
@@ -2243,7 +2909,16 @@ struct Tiff {
                     size_t want = rowbytes * rows;
                     size_t off = (size_t)offsets[idx];
                     if (off > n) fail("TIFF: strip or tile past the end of the file");
-                    size_t cnt = idx < counts.size() ? (size_t)counts[idx] : want;
+                    // PIL's raw decoder reads from the offset on, whatever the
+                    // byte count says
+                    size_t cnt = idx < counts.size() && compression != 1 ? (size_t)counts[idx] : n - off;
+                    if (compression != 1 && idx < counts.size()) {
+                        // libtiff's TIFFFillStrip / TIFFFillTile
+                        if (cnt == 0) fail("TIFF: a strip or tile of 0 bytes (libtiff refuses it)");
+                        if (cnt > n - off)
+                            fail("TIFF: a strip or tile runs past the end of the file (libtiff: "
+                                 "read error)");
+                    }
                     cnt = std::min(cnt, n - off);
                     const uint8_t* src = d + off;
                     if (fillorder == 2) {
@@ -2253,11 +2928,11 @@ struct Tiff {
                     }
                     uint32_t x0 = tx * cw, y0 = ty * ch;
                     if (jpeg()) {
-                        jpeg_chunk(src, cnt, x0, y0, dst);
+                        jpeg_chunk(src, cnt, x0, y0, plane, rows, dst);
                         continue;
                     }
                     chunk.assign(want, 0);
-                    decompress(src, cnt, chunk.data(), want, cw, rows, inflate, white, black);
+                    decompress(src, cnt, chunk.data(), want, cw, rows, inflate);
                     uint32_t w_here = std::min(cw, width - x0);
                     const size_t nvals = (size_t)cw * spc;
                     for (uint32_t r = 0; r < rows && y0 + r < height; ++r) {
@@ -2271,7 +2946,7 @@ struct Tiff {
                             for (size_t i = 0; i < nvals; ++i)
                                 row[i] = ((uint32_t)b[i] << 24) | ((uint32_t)b[nvals + i] << 16) |
                                          ((uint32_t)b[2 * nvals + i] << 8) | b[3 * nvals + i];
-                        } else if (bps >= 8) {
+                        } else if (bps == 8 || bps == 16 || bps == 32) {
                             for (size_t i = 0; i < nvals; ++i)
                                 row[i] = (uint32_t)rd_sample(p + i * (bps / 8));
                             if (predicted() && predictor == 2) {
@@ -2280,31 +2955,46 @@ struct Tiff {
                             }
                         } else {
                             for (size_t i = 0; i < nvals; ++i) {
+                                // samples of 1-12 bits, most significant bit first
                                 size_t bit = i * bps;
-                                row[i] = (p[bit >> 3] >> (8 - bps - (bit & 7))) & ((1u << bps) - 1);
+                                uint32_t two = (uint32_t)p[bit >> 3] << 8;
+                                if ((bit >> 3) + 1 < rowbytes) two |= p[(bit >> 3) + 1];
+                                row[i] = (two >> (16 - bps - (bit & 7))) & ((1u << bps) - 1);
                             }
                         }
                         // into the image
                         for (uint32_t x = 0; x < w_here; ++x)
                             for (uint32_t c = 0; c < spc; ++c) {
                                 uint32_t v = row[(size_t)x * spc + c];
-                                size_t at = ((size_t)(y0 + r) * width + x0 + x) *
-                                            (photometric == 3 ? 1 : spp) + plane + c;
+                                size_t at = ((size_t)(y0 + r) * width + x0 + x) * spp + plane + c;
                                 if (sb == 1) samples[at] = (uint8_t)v;
                                 else if (sb == 2) { uint16_t h = (uint16_t)v; std::memcpy(&samples[at * 2], &h, 2); }
                                 else std::memcpy(&samples[at * 4], &v, 4);
                             }
                     }
                 }
-        if (jpeg()) return;
         const size_t npix = (size_t)width * height;
+        if (jpeg()) {
+            // separate YCbCr JPEG planes: PIL reads them through libtiff's
+            // RGBA interface, which converts them (putseparate8bitYCbCr11tile)
+            if (photometric == 6 && planar == 2) {
+                const YccToRgb conv;
+                for (size_t i = 0; i < npix; ++i) {
+                    uint8_t* px = dst + 3 * i;
+                    conv.put(px[0], px[1], px[2], px);
+                }
+            }
+            return;
+        }
+
         if (photometric == 3) {
-            const size_t ncol = (size_t)1 << bps;
+            const size_t ncol = (size_t)1 << bps, ch = channels();
             for (size_t i = 0; i < npix; ++i) {
-                size_t v = samples[i];
-                dst[3 * i] = (uint8_t)(colormap[v] >> 8);
-                dst[3 * i + 1] = (uint8_t)(colormap[ncol + v] >> 8);
-                dst[3 * i + 2] = (uint8_t)(colormap[2 * ncol + v] >> 8);
+                size_t v = samples[spp * i];
+                dst[ch * i] = (uint8_t)(colormap[v] >> 8);
+                dst[ch * i + 1] = (uint8_t)(colormap[ncol + v] >> 8);
+                dst[ch * i + 2] = (uint8_t)(colormap[2 * ncol + v] >> 8);
+                if (spp == 2) dst[ch * i + 3] = samples[spp * i + 1];
             }
             return;
         }
@@ -2376,10 +3066,13 @@ void bmp_rle(const uint8_t* d, size_t n, size_t pos, bool rle4, int64_t xsize, i
 
 // GIF LZW (the variable-length codes of the image data, sub-blocks joined)
 // into a w x h frame, rows in interlaced order if asked, as PIL's
-// GifDecode.c writes them; stops at the end code, when the frame is full
-// or when the data ends. Returns the count of pixels written.
+// GifDecode.c writes them; stops when the frame is full, when the data
+// ends, or at an end code whose bits end past the first `end_skip` bytes
+// (PIL's decoder returns at an end code, and goes on with the codes after
+// it when its reader has more of the file to hand it). Returns the count
+// of pixels written.
 int64_t gif_lzw(const uint8_t* d, size_t n, int bits, int w, int h, bool interlace,
-                uint8_t* out) {
+                size_t end_skip, uint8_t* out) {
     if (bits < 0 || bits > 12) fail("GIF: LZW minimum code size " + std::to_string(bits));
     const int clear = 1 << bits, end = clear + 1;
     std::vector<uint16_t> prefix(4096);
@@ -2420,7 +3113,10 @@ int64_t gif_lzw(const uint8_t* d, size_t n, int bits, int w, int h, bool interla
             prev = -1;
             continue;
         }
-        if (code == end) break;
+        if (code == end) {
+            if (pos <= end_skip) continue;
+            break;
+        }
         int sp = 0, c = code;
         if (prev < 0) {
             if (code >= clear) fail("GIF: corrupt LZW data (first code is not a colour)");
@@ -2501,8 +3197,10 @@ int32_t citlab_image_info(const uint8_t* data, int64_t n, int32_t* info, char* e
             Tiff t(data, (size_t)n);
             t.parse();
             t.check_open();
-            info[0] = (int32_t)t.width;
-            info[1] = (int32_t)t.height;
+            // a side past 2^31 - 1 is reported as 2^31 - 1: past PIL's
+            // decompression-bomb limit all the same (utils/io.py refuses it)
+            info[0] = (int32_t)std::min<uint32_t>(t.width, INT32_MAX);
+            info[1] = (int32_t)std::min<uint32_t>(t.height, INT32_MAX);
             info[2] = t.channels();
             info[4] = t.sample_bytes();
             info[5] = t.have_photometric ? (int32_t)t.photometric : -1;
@@ -2583,12 +3281,14 @@ int64_t citlab_bmp_rle(const uint8_t* data, int64_t n, int64_t start, int32_t rl
 
 // GIF LZW of one frame's image data (its sub-blocks joined) with the given
 // minimum code size into out (width x height, left as it is where the
-// data ends early); returns the pixels written, or -1 with a message in err.
+// data ends early); an end code read from the first end_skip bytes does
+// not stop it. Returns the pixels written, or -1 with a message in err.
 int64_t citlab_gif_lzw(const uint8_t* data, int64_t n, int32_t min_code_size, int32_t width,
-                       int32_t height, int32_t interlace, uint8_t* out, char* err,
-                       int32_t errlen) {
+                       int32_t height, int32_t interlace, int64_t end_skip, uint8_t* out,
+                       char* err, int32_t errlen) {
     try {
-        return gif_lzw(data, (size_t)n, min_code_size, width, height, interlace != 0, out);
+        return gif_lzw(data, (size_t)n, min_code_size, width, height, interlace != 0,
+                       (size_t)std::max<int64_t>(end_skip, 0), out);
     } catch (const std::exception& e) {
         copy_error(e.what(), err, errlen);
         return -1;

@@ -327,13 +327,10 @@ PilHeader pil_header(const uint8_t* d, uint64_t n) {
   return ph;
 }
 
-// ImageFile's check of the size and Image.open's decompression-bomb check
+// ImageFile's check of the size (Image.open's decompression-bomb check is
+// utils/io.py's, on the size this library reports)
 void pil_size_checks(const PilHeader& ph) {
-  const int64_t kMaxPixels = 89478485;   // Image.MAX_IMAGE_PIXELS
   if (ph.w <= 0 || ph.h <= 0) fail("an image of zero or negative size (PIL refuses it)");
-  if (ph.w * ph.h > 2 * kMaxPixels)
-    fail("%lld x %lld pixels: past PIL's decompression-bomb limit",
-         (long long)ph.w, (long long)ph.h);
 }
 
 // ------------------------------------------------------------------ codestream parameters
@@ -2717,8 +2714,9 @@ int citlab_j2k_info(const uint8_t* data, int64_t n, int32_t* out, char* err, int
   try {
     PilHeader ph = pil_header(data, (uint64_t)n);
     pil_size_checks(ph);
-    out[0] = (int32_t)ph.w;
-    out[1] = (int32_t)ph.h;
+    // a side past 2^31 - 1 is reported as 2^31 - 1: past the bomb limit all the same
+    out[0] = (int32_t)std::min<int64_t>(ph.w, INT32_MAX);
+    out[1] = (int32_t)std::min<int64_t>(ph.h, INT32_MAX);
     out[2] = ph.mode;
     return 0;
   } catch (const Fail& f) {

@@ -59,8 +59,6 @@ std::string tag_str(const uint8_t* p) {
 
 constexpr uint32_t kMaxChunkPayload = ~0u - 8 - 1;
 constexpr uint64_t kMaxImageArea = 1ull << 32;
-// PIL's DecompressionBombError: more than twice Image.MAX_IMAGE_PIXELS
-constexpr uint64_t kPilMaxPixels = 2ull * 89478485ull;
 
 // VP8X feature flags
 constexpr uint32_t kAnimationFlag = 0x02, kXmpFlag = 0x04, kExifFlag = 0x08,
@@ -2362,8 +2360,6 @@ Canvas parse(const uint8_t* d, size_t n) {
   if (dm.is_ext && (dm.c.flags & kAnimationFlag)) dm.c.rgba = dm.c.flags & kAlphaFlag;
   else if (f.lossless) dm.c.rgba = f.vp8l_alpha_bit;
   else dm.c.rgba = dm.is_ext && ((dm.c.flags & kAlphaFlag) || f.had_alph);
-  if ((uint64_t)dm.c.width * dm.c.height > kPilMaxPixels)
-    fail("canvas of %d x %d pixels is a decompression bomb for PIL", dm.c.width, dm.c.height);
   return dm.c;
 }
 

@@ -26,7 +26,8 @@ from typing import Tuple
 
 import numpy as np
 
-from citlab_as_tpu_torch.utils.image_native import NativeDecodeError, bmp_rle, gif_lzw
+from citlab_as_tpu_torch.utils.image_native import (DECODER_BLOCK, NativeDecodeError, bmp_rle,
+                                                    gif_lzw)
 
 # ------------------------------------------------------------------ BMP
 
@@ -190,6 +191,9 @@ def _decode_dib(data: bytes, h: dict) -> np.ndarray:
     """The samples a header of :func:`_dib_header` describes."""
     if h["width"] <= 0 or h["height"] <= 0:
         raise NativeDecodeError(f"BMP: image of {h['width']} x {h['height']} pixels")
+    if h["palette"] is not None and len(h["palette"]) > 256:
+        raise NativeDecodeError(f"BMP: palette of {len(h['palette'])} colours (PIL's load "
+                                "refuses more than 256: invalid palette size)")
     if h["rle"]:
         if h["mode"] not in ("P", "L"):
             raise NativeDecodeError(
@@ -301,18 +305,24 @@ def _decode_gif(data: bytes, mode: str) -> np.ndarray:
     (w, h), (x0, y0, fw, fh) = g["size"], g["extent"]
     canvas = np.full((h, w), g["transparency"] or 0, np.uint8)
     if fw and fh:
-        blocks, pos, ended = [], g["offset"], False
-        while pos < len(data):
+        # PIL's GifDecode reads sub-blocks to the end of the file (a
+        # terminator is an empty block, the trailer one more block), each
+        # only once it is whole; it returns at an end code, and ImageFile
+        # hands it more only where its reads of 64 KiB have not reached the
+        # end of the file; a frame it leaves short is a truncated file
+        last_read = g["offset"] + (len(data) - 1 - g["offset"]) // DECODER_BLOCK * DECODER_BLOCK
+        blocks, pos, end_skip = [], g["offset"], 0
+        while pos < len(data) and pos + 1 + data[pos] <= len(data):
             n = data[pos]
-            if n == 0:
-                ended = True
-                break
             blocks.append(data[pos + 1:pos + 1 + n])
             pos += 1 + n
+            if pos <= last_read:
+                end_skip += n
         frame = canvas[y0:y0 + fh, x0:x0 + fw].copy()
-        got = gif_lzw(b"".join(blocks), g["bits"], frame, g["interlace"])
-        if got < fw * fh and not ended:
-            raise NativeDecodeError("GIF: truncated file (the image data runs past its end)")
+        got = gif_lzw(b"".join(blocks), g["bits"], frame, g["interlace"], end_skip)
+        if got < fw * fh:
+            raise NativeDecodeError("GIF: the image data ends before the frame is full "
+                                    "(PIL: image file is truncated)")
         canvas[y0:y0 + fh, x0:x0 + fw] = frame
     palette = g["palette"]
     if palette is None and mode == "RGB":

@@ -21,6 +21,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import struct
 import zlib
 from typing import Tuple
 
@@ -32,6 +33,12 @@ _INFLATE_FN = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
                                ctypes.c_void_p, ctypes.c_int64)
 
 
+# ImageFile.decodermaxblock: PIL hands its decoders at most this many bytes
+# of the file at a time (where a decoder stops at such a boundary decides
+# what PIL makes of a damaged GIF or PNG)
+DECODER_BLOCK = 65536
+
+
 class NativeDecodeError(ValueError):
     """The decoder refused the file; the message names the variant."""
 
@@ -39,11 +46,27 @@ class NativeDecodeError(ValueError):
 @_INFLATE_FN
 def _inflate(src, n, dst, dst_n):
     """zlib stream at ``src`` -> at most ``dst_n`` bytes at ``dst``; the
-    count written, or -1 for corrupt data."""
+    count written, or ``-(count + 1)`` for corrupt data, the bytes inflate
+    gave before it met the fault written (as libtiff's ZIPDecode leaves
+    them)."""
+    data = ctypes.string_at(src, n)
     try:
-        out = zlib.decompressobj().decompress(ctypes.string_at(src, n), dst_n)
+        out = zlib.decompressobj().decompress(data, dst_n)
     except zlib.error:
-        return -1
+        # again a byte at a time, to the fault
+        d, parts, got = zlib.decompressobj(), [], 0
+        try:
+            for k in range(n):
+                part = d.decompress(data[k:k + 1], dst_n - got)
+                parts.append(part)
+                got += len(part)
+                if got >= dst_n:
+                    break
+        except zlib.error:
+            pass
+        out = b"".join(parts)[:dst_n]
+        ctypes.memmove(dst, out, len(out))
+        return -len(out) - 1
     ctypes.memmove(dst, out, len(out))
     return len(out)
 
@@ -66,7 +89,8 @@ def _lib() -> ctypes.CDLL:
     lib.citlab_bmp_rle.restype = ctypes.c_int64
     lib.citlab_gif_lzw.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int32,
                                    ctypes.c_int32, ctypes.c_int32, ctypes.c_int32,
-                                   ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int32]
+                                   ctypes.c_int64, ctypes.c_void_p, ctypes.c_char_p,
+                                   ctypes.c_int32]
     lib.citlab_gif_lzw.restype = ctypes.c_int64
     return lib
 
@@ -110,6 +134,10 @@ for _be in (False, True):
     _OPEN_INFO[(_be, 2, (1,), 1, (16,) * 4, (2,))] = ("RGBA", "RGBA;16")
     for _extra in ((), (0,), (0, 0)):
         _OPEN_INFO[(_be, 5, (1,), 1, (8,) * (4 + len(_extra)), _extra)] = ("CMYK", "CMYK")
+    # a palette index with an extra sample: alpha ("PA") or ignored ("PX")
+    _OPEN_INFO[(_be, 3, (1,), 1, (8, 8), (2,))] = ("PA", "PA")
+    _OPEN_INFO[(_be, 3, (1,), 1, (8, 8), (0,))] = ("P", "PX")
+    _OPEN_INFO[(_be, 8, (1,), 1, (8, 8, 8), ())] = ("LAB", "LAB")
     _OPEN_INFO[(_be, 5, (1,), 1, (16,) * 4, ())] = ("CMYK", "CMYK;16")
     _OPEN_INFO[(_be, 6, (1,), 1, (8,), ())] = ("L", "L;")
     _OPEN_INFO[(_be, 6, (1,), 1, (8, 8, 8), ())] = ("RGB", "RGB")
@@ -119,6 +147,7 @@ _OPEN_INFO[(False, 1, (1,), 1, (16,), ())] = ("I;16", "I;16")
 _OPEN_INFO[(True, 1, (1,), 1, (16,), ())] = ("I;16", "I;16")
 _OPEN_INFO[(False, 1, (1,), 2, (16,), ())] = ("I;16", "I;16")
 _OPEN_INFO[(False, 1, (1,), 1, (32,), ())] = ("I", "I;32N")
+_OPEN_INFO[(False, 1, (1,), 1, (12,), ())] = ("I;16", "I;12")
 del (_be, _fill, _photo, _inv, _bits, _extra, _mode)
 
 
@@ -180,11 +209,18 @@ def _unpremultiply(rgba: np.ndarray) -> np.ndarray:
 def _raw_planar_rawmode(mode: str, rawmode: str, m: np.ndarray) -> str:
     """PIL reads each plane of an uncompressed planar TIFF with one letter
     of its rawmode: whole-byte bands come out as stored (a MinIsWhite image
-    is not inverted), 32-bit little-endian "I" and "F" planes too; any
-    other layout is read wrongly or refused by PIL, and raises here."""
+    is not inverted), 32-bit little-endian "I" and "F" planes too; a letter
+    PIL has no unpacker for in the mode ("LA": "L" and "A", "PA", "RGBX":
+    "X", "RGBa": "a") is refused by PIL ("unknown raw mode"), and any other
+    layout is read wrongly or refused by PIL, and raises here."""
     bps, spp = int(m[13]), int(m[11]) if m[11] >= 0 else 1
-    bands = 1 if mode in ("1", "L", "P", "I", "F") else len(mode)
-    plain = (int(m[8]) == 1 and spp == bands and not rawmode.startswith("RGBa")
+    if (mode in ("LA", "PA") or rawmode == "PX" or rawmode.startswith("RGBa")
+            or (mode == "RGB" and spp > 3)):
+        raise NativeDecodeError(
+            f"TIFF: uncompressed PlanarConfiguration 2 of PIL mode {mode} (rawmode "
+            f"{rawmode}): PIL has no unpacker for its planes (unknown raw mode)")
+    bands = 1 if mode in ("1", "L", "P", "I", "F", "I;16") else len(mode)
+    plain = (int(m[8]) == 1 and spp == bands
              and (bps == 8 or (bps == 1 and mode == "1")
                   or (bps == 32 and not m[9] and mode in ("I", "F"))))
     if not plain:
@@ -200,8 +236,10 @@ def _tiff_as_pil(raw: np.ndarray, m: np.ndarray) -> np.ndarray:
     mode, rawmode = _pil_tiff_mode(m)
     if int(m[6]) == 1 and int(m[7]) == 2:
         rawmode = _raw_planar_rawmode(mode, rawmode, m)
-    if mode == "P" or int(m[5]) == 6:     # palette and YCbCr: RGB from the decoder
-        out = raw
+    if mode in ("P", "PA") or (int(m[5]) == 6 and raw.shape[-1] == 3):
+        # palette (RGB, and the extra sample as alpha for "PA") and YCbCr:
+        # RGB from the decoder
+        out = raw if mode == "PA" else raw[..., :3]
     elif mode == "1":
         out = (raw[..., 0] if rawmode == "1;" else 1 - raw[..., 0]) * np.uint8(255)
     elif rawmode.startswith("L;") and mode == "L":
@@ -247,26 +285,149 @@ def bmp_rle(data: bytes, start: int, rle4: bool, width: int, height: int):
     return out, int(got)
 
 
-def gif_lzw(data: bytes, min_code_size: int, frame: np.ndarray, interlace: bool) -> int:
+def gif_lzw(data: bytes, min_code_size: int, frame: np.ndarray, interlace: bool,
+            end_skip: int = 0) -> int:
     """GIF LZW of one frame's joined sub-blocks into ``frame`` (uint8
     [h, w], pre-filled with the background; rows in interlaced order if
-    asked); returns the pixels written."""
+    asked), going on past an end code read from the first ``end_skip``
+    bytes; returns the pixels written."""
     err = ctypes.create_string_buffer(_ERRLEN)
     h, w = frame.shape
     got = _lib().citlab_gif_lzw(data, len(data), min_code_size, w, h, int(interlace),
-                                frame.ctypes.data, err, _ERRLEN)
+                                end_skip, frame.ctypes.data, err, _ERRLEN)
     if got < 0:
         raise NativeDecodeError(err.value.decode())
     return int(got)
 
 
+# JpegImagePlugin.MARKER: the markers PIL's open knows, and which of them
+# it reads a segment of (Skip, APP, COM, SOF, DQT)
+_JPEG_SEGMENTS = {0xFFC4, 0xFFCC, 0xFFDA, 0xFFDC, 0xFFDD, 0xFFDE, 0xFFDF, 0xFFFE, 0xFFDB,
+                  *range(0xFFE0, 0xFFF0), *(m for m in range(0xFFC0, 0xFFD0)
+                                            if m not in (0xFFC4, 0xFFC8, 0xFFCC))}
+_JPEG_MARKERS = {*range(0xFFC0, 0xFFFF)} - {0xFFFF}
+
+
+def _i16(s: bytes, at: int = 0) -> int:
+    if len(s) < at + 2:
+        raise NativeDecodeError("JPEG: a segment PIL's open cannot read (struct.error)")
+    return (s[at] << 8) | s[at + 1]
+
+
+def _i32(s: bytes, at: int) -> int:
+    if len(s) < at + 4:
+        raise struct.error
+    return struct.unpack_from(">I", s, at)[0]
+
+
+def _index(s: bytes, at: int) -> int:
+    if at >= len(s):
+        raise NativeDecodeError("JPEG: a segment PIL's open cannot read (IndexError)")
+    return s[at]
+
+
+def pil_jpeg_open(data: bytes) -> Tuple[int, int]:
+    """JpegImagePlugin's open: its own reading of the markers before the
+    first SOS (the handlers' parsing of APPn, SOF and DQT included); the
+    size of the last SOF, or NativeDecodeError where PIL's open raises."""
+    if data[:3] != b"\xff\xd8\xff":
+        raise NativeDecodeError("JPEG: not a JPEG file (PIL: no FF D8 FF)")
+    pos, cur, size, icc = 3, b"\xff", None, []
+
+    def read(k):
+        nonlocal pos
+        out = data[pos:pos + k]
+        pos += len(out)
+        return out
+
+    def segment():
+        n = _i16(read(2)) - 2
+        if n <= 0:
+            return b""
+        s = read(n)
+        if len(s) < n:
+            raise NativeDecodeError("JPEG: truncated marker segment (PIL: Truncated File Read)")
+        return s
+
+    while True:
+        if not cur:
+            raise NativeDecodeError("JPEG: no scan before the end of the file (PIL refuses it)")
+        if cur[0] != 0xFF:
+            cur = read(1)
+            continue
+        marker = _i16(cur + read(1))
+        if marker in _JPEG_MARKERS:
+            if marker in _JPEG_SEGMENTS:
+                s = segment()
+                if marker == 0xFFE0 and s[:4] == b"JFIF":
+                    _i16(s, 5)
+                elif marker == 0xFFE2 and s[:12] == b"ICC_PROFILE\0":
+                    icc.append(s)
+                elif marker == 0xFFED and s[:14] == b"Photoshop 3.0\x00":
+                    at = 14
+                    try:        # the image resource blocks, to the first short one
+                        while s[at:at + 4] == b"8BIM":
+                            at += 4
+                            if len(s) < at + 2:
+                                raise struct.error
+                            code = (s[at] << 8) | s[at + 1]
+                            at += 2
+                            at += 1 + _index(s, at)
+                            at += at & 1
+                            length = _i32(s, at)
+                            at += 4
+                            if code == 0x03ED and len(s[at:at + length]) < 14:
+                                raise struct.error
+                            at += length
+                            at += at & 1
+                    except struct.error:
+                        pass
+                elif marker == 0xFFEE and s[:5] == b"Adobe":
+                    _i16(s, 5)
+                elif 0xFFC0 <= marker <= 0xFFCF and marker not in (0xFFC4, 0xFFC8, 0xFFCC):
+                    size = (_i16(s, 3), _i16(s, 1))
+                    if _index(s, 0) != 8:
+                        raise NativeDecodeError(f"JPEG: {s[0]}-bit layers (PIL cannot handle "
+                                                "them)")
+                    if _index(s, 5) not in (1, 3, 4):
+                        raise NativeDecodeError(f"JPEG: {s[5]}-layer image (PIL cannot handle "
+                                                "it)")
+                    if icc:
+                        icc.sort()
+                        _index(icc[0], 13)
+                        icc = []
+                    for at in range(6, len(s), 3):
+                        _index(s, at + 2)
+                elif marker == 0xFFDB:
+                    while s:
+                        qt_length = 1 + (1 if s[0] // 16 == 0 else 2) * 64
+                        if len(s) < qt_length:
+                            raise NativeDecodeError("JPEG: bad quantization table marker "
+                                                    "(PIL refuses it)")
+                        s = s[qt_length:]
+            if marker == 0xFFDA:
+                break
+            cur = read(1)
+        elif marker == 0xFFFF:
+            cur = b"\xff"
+        elif marker == 0xFF00:
+            cur = read(1)
+        else:
+            raise NativeDecodeError(f"JPEG: no marker found at 0x{marker:04X} (PIL refuses it)")
+    if size is None or size[0] <= 0 or size[1] <= 0:
+        raise NativeDecodeError("JPEG: no frame of a size before the scan (PIL refuses it)")
+    return size
+
+
 def info(data: bytes) -> Tuple[int, int, int]:
     """(width, height, channels of the decoded samples) from the headers
-    alone; a TIFF that PIL does not open raises."""
+    alone (a JPEG's size as PIL's open reads it); a TIFF or JPEG that PIL
+    does not open raises."""
     m = _info(data)
     if m[3] == 2:
         _pil_tiff_mode(m)
-    return int(m[0]), int(m[1]), int(m[2])
+        return int(m[0]), int(m[1]), int(m[2])
+    return (*pil_jpeg_open(data), int(m[2]))
 
 
 def decode(data: bytes) -> np.ndarray:
@@ -276,7 +437,13 @@ def decode(data: bytes) -> np.ndarray:
     float32 [H, W] for "F"."""
     m = _info(data)
     if m[3] == 2:
-        _pil_tiff_mode(m)
+        if _pil_tiff_mode(m)[0] == "LAB":
+            raise NativeDecodeError(
+                "TIFF: a CIELAB image, which PIL converts to RGB only through LittleCMS "
+                "(ImageCms: its LAB D50 profile to sRGB) and not to L at all; the port does "
+                "not carry LittleCMS's transform (decided divergence)")
+    else:
+        pil_jpeg_open(data)
     w, h, ch, sb = int(m[0]), int(m[1]), int(m[2]), int(m[4])
     out = np.empty((h, w, ch), {1: np.uint8, 2: np.uint16, 4: np.uint32}[sb])
     err = ctypes.create_string_buffer(_ERRLEN)

@@ -20,10 +20,12 @@ bit to ``np.asarray(Image.open(path).convert(mode))`` under PIL 12.1:
   Huffman, Group 3 (1-D and 2-D) and Group 4, JPEG with JPEGTables (grey,
   RGB, YCbCr or CMYK), old-style JPEG behind JPEGInterchangeFormat, YCbCr under
   LZW, Deflate or PackBits as libtiff's RGBA interface converts it;
-  horizontal and floating-point predictors; 1-, 2-, 4-, 8-, 16-bit and
-  32-bit integer or float samples; grey, palette, RGB(A), CMYK, as PIL's
-  ``OPEN_INFO`` table reads them) by the port's host C++ decoder
-  (``csrc/image_decode.cpp``, ``utils/image_native.py``);
+  horizontal and floating-point predictors; 1-, 2-, 4-, 8-, 12-, 16-bit and
+  32-bit integer or float samples; grey, palette (with an extra sample:
+  "PA", "PX"), RGB(A), CMYK, as PIL's ``OPEN_INFO`` table reads them;
+  JPEG-in-TIFF with extra samples or separate planes, separate YCbCr planes)
+  by the port's host C++ decoder (``csrc/image_decode.cpp``,
+  ``utils/image_native.py``);
 - BMP (OS/2 and Windows headers, 1- to 32-bit samples, RLE8 / RLE4,
   bitfields) and the first frame of a GIF (LZW, interlaced or not, global
   or local colour table, transparency) as PIL reads them
@@ -44,7 +46,17 @@ bit to ``np.asarray(Image.open(path).convert(mode))`` under PIL 12.1:
 
 Every file's format is the one ``Image.open`` finds: its plugin order and
 the exceptions it catches (``raster_formats.identify``), so a header that
-two plugins' tests let in ends where PIL ends.
+two plugins' tests let in ends where PIL ends. A size past PIL's
+decompression-bomb limit (``MAX_IMAGE_PIXELS``) is refused from the header,
+once for every format, before any buffer is allocated.
+
+Damaged files of the main path's formats decode as PIL decodes them or
+are refused where PIL refuses: JPEG as libjpeg-turbo 3.1 recovers from
+corrupt entropy-coded data (its x86 SIMD inverse DCT included), TIFF as
+PIL's IFD reader, libtiff's directory reader, CCITT decoder and RGBA
+interface leave it, PNG as PIL's ZipDecode inflates it row by row (the
+zlib check is met only where inflate reaches it before the last row), GIF
+as far as PIL's reads of the file go (``scripts/fuzz_main_formats.py``).
 
 One deliberate difference: an arithmetic-coded JPEG over 64 KiB, which PIL
 12.1 fails on (it feeds libjpeg 64 KiB at a time, and the arithmetic
@@ -72,9 +84,10 @@ components, hierarchical, arithmetic-coded lossless or with a DNL marker
 (PIL or libjpeg-turbo refuse them all); JPEG- or PNG-in-BMP and the BMP
 headers, depths and bitfields layouts PIL refuses; old-style
 JPEG-in-TIFF without JPEGInterchangeFormat, uncompressed YCbCr TIFF (PIL
-does not read it either), big-endian BigTIFF, 12-bit samples and every
-TIFF layout PIL does not open; PIL's test-only PNM extensions ("Py"
-magics). Nothing falls back.
+misreads it as RGBX), CIELAB TIFF (PIL's "RGB" of it is LittleCMS's),
+big-endian BigTIFF and every TIFF layout PIL does not open; pages whose
+PIL pixels are memory the file never wrote; PIL's test-only PNM extensions
+("Py" magics). Nothing falls back.
 """
 from __future__ import annotations
 
@@ -92,6 +105,9 @@ from citlab_as_tpu_torch.utils import (bmp_gif, image_encode_native, image_nativ
                                        raster_formats, webp)
 
 _IMG_ENDINGS = ("tif", "jpg", "png")
+# PIL 12.1's Image.MAX_IMAGE_PIXELS: Image.open refuses more than twice as
+# many pixels (DecompressionBombError) in every format
+MAX_IMAGE_PIXELS = 89_478_485
 
 
 def load_text_file(filename: str) -> List[str]:
@@ -303,13 +319,92 @@ def _png_samples(raw: bytes, h: int, w: int, depth: int, ch: int) -> np.ndarray:
     return (bits @ (1 << np.arange(depth - 1, -1, -1)).astype(np.uint8))[..., None]
 
 
+def _png_idat_pieces(data: bytes, path: str):
+    """The image data as PngImageFile.load_read hands it to PIL's decoder:
+    the IDAT chunks from the first on, at most 64 KiB and at most to a
+    chunk's end at a time, ended by the first other chunk; and the position
+    after the chunk being read, where PIL's load_end goes on."""
+    pieces, pos = [], len(_PNG_SIG)
+    while True:                        # the chunks before the first IDAT
+        head = data[pos:pos + 8]
+        if len(head) < 8:
+            raise UnsupportedImageFormat(f"{path}: PNG without image data (PIL: truncated)")
+        length, kind = struct.unpack(">I4s", head)
+        if kind == b"IDAT":
+            break
+        pos += 12 + length
+    while kind == b"IDAT":
+        start, end = pos + 8, min(pos + 8 + length, len(data))
+        for at in range(start, end, image_native.DECODER_BLOCK):
+            pieces.append(data[at:min(at + image_native.DECODER_BLOCK, end)])
+        pos += 12 + length
+        head = data[pos:pos + 8]
+        if len(head) < 8 or end < start + length:
+            break                      # the file ends: PIL's read gives nothing more
+        length, kind = struct.unpack(">I4s", head)
+    return pieces, pos
+
+
+def _png_inflate(pieces, row_ends, path: str) -> bytes:
+    """PIL's ZipDecode: one inflate call for each scanline of ``row_ends``
+    (the end of each scanline in the decompressed stream), input as
+    ``pieces`` arrive. PIL stops at the last scanline, so the zlib check
+    value is met only where inflate reaches it before that; a stream that
+    ends at the end of a scanline in a call that completed it ends the
+    image there (the rows below stay zero); anything else short of the
+    last row is a truncated file. Returns the decompressed scanlines PIL
+    applied."""
+    total = row_ends[-1]
+    d = zlib.decompressobj()
+    out = []
+    got = 0
+    for piece in pieces:
+        try:
+            chunk = d.decompress(piece, total - got)
+        except zlib.error as e:
+            raise UnsupportedImageFormat(
+                f"{path}: broken PNG data stream ({e}; PIL: broken data stream)") from None
+        out.append(chunk)
+        got += len(chunk)
+        if got == total:
+            return b"".join(out)
+        if d.eof:
+            # inflate ended the stream in the call that completed a row:
+            # PIL keeps the rows so far
+            if chunk and got in set(row_ends):
+                return b"".join(out)
+            break
+    raise UnsupportedImageFormat(f"{path}: truncated PNG (the image data ends early; PIL: "
+                                 "image file is truncated)")
+
+
+def _png_load_end(data: bytes, pos: int, path: str) -> None:
+    """PngImageFile.load_end after the image: the chunks up to IEND are
+    read whole, and one that runs past the end of the file raises."""
+    while True:
+        head = data[pos + 4:pos + 12]
+        if len(head) < 8 or not re.match(rb"\w\w\w\w", head[4:]) or head[4:] == b"IEND":
+            return
+        length, kind = struct.unpack(">I4s", head)
+        body = data[pos + 12:pos + 12 + length]
+        if len(body) < length:
+            raise UnsupportedImageFormat(
+                f"{path}: PNG chunk {kind!r} after the image data runs past the end of the "
+                "file (PIL: Truncated File Read)")
+        if kind == b"IHDR" and (length < 13 or body[11]):
+            raise UnsupportedImageFormat(f"{path}: a second IHDR chunk PIL's reader rejects")
+        pos += 8 + length
+
+
 def _decode_png(data: bytes, path: str) -> np.ndarray:
     """As PIL 12.1 decodes PNG, interlaced (Adam7) or not, at every colour
     type and depth: [H, W] grey, [H, W, 2] grey+alpha, [H, W, 3] RGB or
     [H, W, 4] RGBA uint8 (a palette image is expanded to RGB, or RGBA with
     a tRNS chunk); 16-bit colour samples keep their high byte, and 16-bit
     grey is PIL's mode "I;16", uint16 [H, W]. tRNS on a grey or RGB image
-    changes no pixel of PIL's "L" or "RGB" conversion, so it is ignored."""
+    changes no pixel of PIL's "L" or "RGB" conversion, so it is ignored.
+    Damaged data is read as PIL's ZipDecode reads it (:func:`_png_inflate`):
+    the rows PIL never reaches stay zero."""
     w, h, depth, ctype, interlace = _png_header(data, path)
     broken = _png_broken(data)
     if broken:
@@ -321,30 +416,35 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
         raise UnsupportedImageFormat(f"{path}: {depth}-bit PNG of colour type {ctype}")
     if interlace > 1:
         raise UnsupportedImageFormat(f"{path}: PNG interlace method {interlace}")
-    idat, palette, trns = [], None, None
+    palette, trns = None, None
     for kind, body in _png_chunks(data):
         if kind == b"IDAT":
-            idat.append(body)
-        elif kind == b"PLTE":
-            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
+            break
+        if kind == b"PLTE":
+            palette = np.frombuffer(body, np.uint8)[:len(body) // 3 * 3].reshape(-1, 3)
         elif kind == b"tRNS":
             trns = np.frombuffer(body, np.uint8)
-        elif kind == b"IEND":
-            break
     ch = _PNG_CHANNELS[ctype]
-    raw = zlib.decompress(b"".join(idat))
-    if not interlace:
-        px = _png_samples(raw, h, w, depth, ch)
-    else:
-        px = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
-        pos = 0
-        for x0, y0, dx, dy in _ADAM7:
-            pw, ph = -(-(w - x0) // dx), -(-(h - y0) // dy)
-            if pw <= 0 or ph <= 0:
-                continue
-            size = ph * (1 + -(-pw * ch * depth // 8))
-            px[y0::dy, x0::dx] = _png_samples(raw[pos:pos + size], ph, pw, depth, ch)
-            pos += size
+    # the scanlines (filter byte first) of the image or of each Adam7 pass
+    passes = [(0, 0, 1, 1)] if not interlace else _ADAM7
+    shapes = [(-(-(h - y0) // dy), -(-(w - x0) // dx)) for x0, y0, dx, dy in passes]
+    row_bytes = [1 + -(-pw * ch * depth // 8) for _, pw in shapes]
+    row_ends = np.cumsum([n for (ph, pw), n in zip(shapes, row_bytes) if ph > 0 and pw > 0
+                          for _ in range(ph)]).tolist()
+    pieces, end = _png_idat_pieces(data, path)
+    raw = _png_inflate(pieces, row_ends, path)
+    if len(raw) == row_ends[-1]:
+        _png_load_end(data, end, path)
+    px = np.zeros((h, w, ch), np.uint16 if depth == 16 else np.uint8)
+    pos = 0
+    for (x0, y0, dx, dy), (ph, pw), size in zip(passes, shapes, row_bytes):
+        if ph <= 0 or pw <= 0:
+            continue
+        rows = min(ph, (len(raw) - pos) // size)
+        if rows > 0:
+            px[y0:y0 + rows * dy:dy, x0::dx] = _png_samples(raw[pos:pos + rows * size], rows,
+                                                             pw, depth, ch)
+        pos += ph * size
     if depth == 16:
         if ctype == 0:
             return px[..., 0]
@@ -355,11 +455,13 @@ def _decode_png(data: bytes, path: str) -> np.ndarray:
         if palette is None:
             raise UnsupportedImageFormat(f"{path}: palette PNG without PLTE")
         idx = px[..., 0]
-        rgb = palette[idx]
+        full = np.zeros((256, 3), np.uint8)       # PIL's palette: the entries past the file's black
+        full[:min(len(palette), 256)] = palette[:256]
+        rgb = full[idx]
         if trns is None:
             return rgb
-        alpha = np.full(len(palette), 255, np.uint8)
-        alpha[:len(trns)] = trns[:len(palette)]
+        alpha = np.full(256, 255, np.uint8)
+        alpha[:min(len(trns), 256)] = trns[:256]
         return np.concatenate([rgb, alpha[idx][..., None]], axis=-1)
     return px[..., 0] if ch == 1 else px
 
@@ -510,6 +612,7 @@ def _decode(path: str, mode: str = "L") -> np.ndarray:
     with open(path, "rb") as f:
         data = f.read()
     fmt, im = _identify(data, path)
+    _bomb_check(_size(data, path, fmt, im), path)
     if fmt == "PNG":
         return _decode_png(data, path)
     if fmt == "PPM":
@@ -571,32 +674,51 @@ def _to_mode(arr: np.ndarray, mode: str) -> np.ndarray:
     return luma.astype(np.uint8)
 
 
+def _size(data: bytes, path: str, fmt: str, im):
+    """(width, height) of the file as PIL's open reports it, from the
+    headers alone."""
+    if fmt == "PNG":
+        broken = _png_broken(data)
+        if broken:
+            raise UnsupportedImageFormat(f"{path}: broken PNG ({broken}; PIL cannot identify it)")
+        return _png_header(data, path)[:2]
+    if fmt == "PPM":
+        return _pnm_header(data, path)[2:4]
+    if fmt in ("JPEG", "TIFF"):
+        # the JPEG frame header or the TIFF IFD may lie anywhere in the file
+        return _native(image_native.info, data, path)[:2]
+    if fmt in ("BMP", "GIF"):
+        return _native(bmp_gif.size, data, path)
+    if fmt == "WEBP":
+        return _native(webp.size, data, path)
+    if fmt == "JPEG2000":
+        return _native(jpeg2000.size, data, path)
+    return tuple(im.size)
+
+
+def _bomb_check(size, path: str) -> None:
+    """Image.open's ``_decompression_bomb_check``: past twice
+    MAX_IMAGE_PIXELS, PIL raises DecompressionBombError before any pixel is
+    decoded."""
+    w, h = size
+    if max(1, w) * max(1, h) > 2 * MAX_IMAGE_PIXELS:
+        raise UnsupportedImageFormat(
+            f"{path}: {w} x {h} pixels is a decompression bomb for PIL (past its "
+            f"decompression-bomb limit of {2 * MAX_IMAGE_PIXELS} pixels)")
+
+
 def image_size(path_to_image: str):
-    """(width, height) without decoding the pixels."""
+    """(width, height) without decoding the pixels; a size past PIL's
+    decompression-bomb limit raises, as ``Image.open`` does."""
     if path_to_image.endswith(".npy"):
         arr = np.load(path_to_image, mmap_mode="r")
         return int(arr.shape[1]), int(arr.shape[0])
     with open(path_to_image, "rb") as f:
         data = f.read()
     fmt, im = _identify(data, path_to_image)
-    if fmt == "PNG":
-        broken = _png_broken(data)
-        if broken:
-            raise UnsupportedImageFormat(
-                f"{path_to_image}: broken PNG ({broken}; PIL cannot identify it)")
-        return _png_header(data, path_to_image)[:2]
-    if fmt == "PPM":
-        return _pnm_header(data, path_to_image)[2:4]
-    if fmt in ("JPEG", "TIFF"):
-        # the JPEG frame header or the TIFF IFD may lie anywhere in the file
-        return _native(image_native.info, data, path_to_image)[:2]
-    if fmt in ("BMP", "GIF"):
-        return _native(bmp_gif.size, data, path_to_image)
-    if fmt == "WEBP":
-        return _native(webp.size, data, path_to_image)
-    if fmt == "JPEG2000":
-        return _native(jpeg2000.size, data, path_to_image)
-    return tuple(im.size)
+    size = _size(data, path_to_image, fmt, im)
+    _bomb_check(size, path_to_image)
+    return size
 
 
 def load_image(path_to_image: str, mode: str = "L") -> np.ndarray:

@@ -14,9 +14,9 @@ subsampled components into "L", "I;16", "LA", "RGB", "RGBA", "CMYK", "P" or
 tables); then PIL's conversion to "L" or "RGB".
 
 A file PIL refuses (a malformed or truncated box or codestream, a colour
-space Pillow has no unpacker for, a first component subsampled, a size past
-PIL's decompression-bomb limit) raises ``NativeDecodeError`` naming the
-fault, and so do the features no oracle file can be written for
+space Pillow has no unpacker for, a first component subsampled) raises
+``NativeDecodeError`` naming the fault (a size past PIL's
+decompression-bomb limit is refused by ``utils/io.py``), and so do the features no oracle file can be written for
 (high-throughput code-blocks, Part 2 multi-component transforms): the
 decoder returns no partial image.
 """

@@ -43,8 +43,6 @@ import numpy as np
 from citlab_as_tpu_torch.utils import bmp_gif, jpeg2000, webp
 from citlab_as_tpu_torch.utils.image_native import NativeDecodeError, cmyk_to_rgb
 
-# Image.MAX_IMAGE_PIXELS: past twice this, Image.open raises
-_BOMB_PIXELS = 2 * (1024 * 1024 * 1024 // 4 // 3)
 # the exceptions after which Image.open tries the next plugin
 _CAUGHT = (SyntaxError, IndexError, TypeError, KeyError, EOFError, struct.error)
 
@@ -1097,7 +1095,6 @@ def _open_gbr(f: _File):
             raise SyntaxError
         _u32be(f.read(4))
     f.read(comment)
-    _bomb_check("GBR", (w, h))
     offset = f.tell()
     mode = "L" if depth == 1 else "RGBA"
 
@@ -1291,7 +1288,7 @@ _PLUGINS = [
     ("DIB", _dib_accept, _open_dib),
     ("GIF", bmp_gif.is_gif, None),
     # PIL's test is FF D8 FF; no later plugin opens the files between
-    ("JPEG", _starts(b"\xff\xd8"), None),
+    ("JPEG", _starts(b"\xff\xd8\xff"), None),
     ("PPM", lambda p: p[:1] == b"P" and len(p) >= 2 and p[1] in b"0123456fy", None),
     ("PNG", _starts(b"\x89PNG\r\n\x1a\n"), None),
     ("AVIF", _avif_accept, None),
@@ -1341,7 +1338,10 @@ FORMATS = ("PCX", "DCX", "PSD", "TGA", "ICO", "CUR", "DIB", "SGI", "SUN", "QOI",
 
 
 def _bomb_check(fmt: str, size) -> None:
-    if max(1, size[0]) * max(1, size[1]) > _BOMB_PIXELS:
+    """PIL's decompression-bomb check of an ICO entry, which has a size of
+    its own (the file's size is checked in ``utils/io.py``)."""
+    from citlab_as_tpu_torch.utils.io import MAX_IMAGE_PIXELS
+    if max(1, size[0]) * max(1, size[1]) > 2 * MAX_IMAGE_PIXELS:
         _refuse(fmt, f"{size[0]} x {size[1]} pixels (PIL: decompression bomb)")
 
 
@@ -1365,6 +1365,5 @@ def identify(data: bytes):
             if accept is not None or str(e).startswith(name):
                 tried.append((name, f"{type(e).__name__}: {e}" if str(e) else type(e).__name__))
             continue
-        _bomb_check(name, im.size)
         return name, im if im.decode is not None else None
     return None, tried

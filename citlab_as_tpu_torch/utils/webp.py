@@ -18,9 +18,10 @@ overridden by the alpha hint of a VP8L frame; the VP8X flag alone for an
 animation; the alpha hint alone for a simple lossless file), else "RGB". A
 file PIL refuses (a RIFF chunk that runs past the file's end, a chunk past
 the RIFF chunk's end, a bad VP8 start code or VP8L signature, a VP8X
-canvas another size than its frame, a canvas past PIL's decompression-bomb
-limit, a damaged bitstream) raises ``NativeDecodeError`` naming the fault;
-the decoder returns no partial image.
+canvas another size than its frame, a damaged bitstream) raises
+``NativeDecodeError`` naming the fault; the decoder returns no partial
+image. A canvas past PIL's decompression-bomb limit is refused by
+``utils/io.py`` from the size :func:`size` reports.
 """
 from __future__ import annotations
 

@@ -138,6 +138,22 @@ PNG_LAYOUTS = [(0, 1), (0, 2), (0, 4), (0, 8), (0, 16), (2, 8), (2, 16), (3, 1),
                (3, 4), (3, 8), (4, 8), (4, 16), (6, 8), (6, 16)]
 
 
+
+
+def _pil_image(kind, seed, h=96, w=128):
+    from PIL import Image
+    if kind == "P":
+        return Image.fromarray(jpeg_page(h, w, 3, seed)).quantize(64)
+    return Image.fromarray(jpeg_page(h, w, 3 if kind == "RGB" else 1, seed)[..., :3]
+                           if kind == "RGB" else jpeg_page(h, w, 1, seed)[..., 0])
+
+
+# pages as PIL's own writer compresses them (zlib level 6, IDAT chunks as
+# its encoder flushes them): the bases of the damaged-file fuzz of PNG
+PNG_PIL_VARIANTS = {f"pil-{kind.lower()}": (lambda kind=kind, seed=seed: _pil_image(kind, seed))
+                    for seed, kind in enumerate(("L", "RGB", "P"), 80)}
+
+
 @functools.cache
 def libtiff() -> ctypes.CDLL:
     """Pillow's bundled libtiff (its dependencies are loaded by PIL.Image)."""
@@ -612,6 +628,102 @@ def old_style_jpeg_tiff(h, w, subsampling, seed=0):
             + struct.pack("<H", len(tags)) + body + b"\0\0\0\0" + extra)
 
 
+# the sample layouts of PIL's OPEN_INFO the port read last (palette with an
+# extra sample, 12-bit grey) and JPEG-in-TIFF with extra samples or planes,
+# separate YCbCr planes under the other codecs, written by libtiff
+TIFF_LAYOUT_VARIANTS = {
+    "PA": lambda r: dict(samples=_values(r, 2, 8), bps=8, photometric=3, extrasamples=(2,),
+                         colormap=_palette(r, 8)),
+    "PX": lambda r: dict(samples=_values(r, 2, 8), bps=8, photometric=3, extrasamples=(0,),
+                         colormap=_palette(r, 8)),
+    "PA-lzw": lambda r: dict(samples=_values(r, 2, 8), bps=8, photometric=3, extrasamples=(2,),
+                             colormap=_palette(r, 8), compression=5),
+    "L12": lambda r: dict(samples=_values(r, 1, 12), bps=12, photometric=1),
+    "L12-lzw": lambda r: dict(samples=_values(r, 1, 12), bps=12, photometric=1, compression=5),
+    "jpeg-LA": lambda r: dict(samples=_values(r, 2, 8), bps=8, photometric=1, extrasamples=(2,),
+                              compression=7),
+    "jpeg-RGBA": lambda r: dict(samples=_values(r, 4, 8), bps=8, photometric=2,
+                                extrasamples=(2,), compression=7, rows_per_strip=16),
+    "jpeg-RGBX": lambda r: dict(samples=_values(r, 4, 8), bps=8, photometric=2,
+                                extrasamples=(0,), compression=7),
+    "jpeg-RGBa": lambda r: dict(samples=_values(r, 4, 8), bps=8, photometric=2,
+                                extrasamples=(1,), compression=7),
+    "jpeg-planar-L": lambda r: dict(samples=_values(r, 1, 8), bps=8, photometric=1, planar=2,
+                                    compression=7),
+    "jpeg-planar-RGB": lambda r: dict(samples=_values(r, 3, 8), bps=8, photometric=2, planar=2,
+                                      compression=7, tile=(16, 16)),
+    "jpeg-planar-RGBA": lambda r: dict(samples=_values(r, 4, 8), bps=8, photometric=2, planar=2,
+                                       extrasamples=(2,), compression=7),
+    "jpeg-planar-ycbcr": lambda r: dict(samples=_values(r, 3, 8), bps=8, photometric=6,
+                                        planar=2, compression=7, subsampling=(1, 1)),
+    "ycbcr-planar-lzw": lambda r: dict(samples=_values(r, 3, 8), bps=8, photometric=6, planar=2,
+                                       compression=5, subsampling=(1, 1), rows_per_strip=8),
+    "ycbcr-planar-deflate": lambda r: dict(samples=_values(r, 3, 8), bps=8, photometric=6,
+                                           planar=2, compression=8, subsampling=(1, 1)),
+    "ycbcr-planar-packbits": lambda r: dict(samples=_values(r, 3, 8), bps=8, photometric=6,
+                                            planar=2, compression=32773, subsampling=(1, 1)),
+}
+# (the layout, a word of the port's refusal); PIL refuses each but LAB, whose
+# "RGB" only LittleCMS gives (ImageCms): a divergence ROADMAP.md records
+TIFF_LAYOUT_REFUSED = {
+    "LAB": (lambda r: dict(samples=_values(r, 3, 8), bps=8, photometric=8), "CIELAB"),
+    "L12-minwhite": (lambda r: dict(samples=_values(r, 1, 12), bps=12, photometric=0),
+                     "sample layout"),
+    "ycbcr-planar-lzw-22": (lambda r: dict(samples=_values(r, 3, 8), bps=8, photometric=6,
+                                           planar=2, compression=5), "separate YCbCr"),
+    "planar-RGBX-raw": (lambda r: dict(samples=_values(r, 4, 8), bps=8, photometric=2, planar=2,
+                                       extrasamples=(0,)), "unknown raw mode"),
+    "planar-LA-raw": (lambda r: dict(samples=_values(r, 2, 8), bps=8, photometric=1, planar=2,
+                                     extrasamples=(2,)), "unknown raw mode"),
+}
+
+
+def _patched(write, patches):
+    """``write(path)``, then single bytes of the file overwritten: a
+    damaged copy of a variant."""
+    def out(path):
+        write(path)
+        with open(path, "r+b") as f:
+            for at, value in patches:
+                f.seek(at)
+                f.write(bytes([value]))
+    return out
+
+
+# damaged copies of small variants that PIL still decodes, through libjpeg's
+# recovery of corrupt entropy data, libtiff's of bad CCITT codes and of a
+# strip its RGBA interface reads past, and GIF LZW codes that still decode:
+# (the variant's file, [(offset, new byte)])
+DAMAGED_VARIANTS = {
+    "jpeg_damaged-grey.jpg": ("jpeg_huffman-grey.jpg", [(639, 69)]),
+    "jpeg_damaged-420.jpg": ("jpeg_huffman-420.jpg", [(1929, 86)]),
+    "jpeg_damaged-progressive.jpg": ("jpeg_huffman-progressive.jpg", [(256, 204)]),
+    "jpeg_damaged-restarts.jpg": ("jpeg_huffman-restarts.jpg", [(1805, 148)]),
+    "tiff_damaged-g4.tif": ("tiff_g4-fillorder2.tif", [(345, 227)]),
+    "tiff_damaged-g3-1d.tif": ("tiff_g3-1d.tif", [(292, 135)]),
+    "tiff_damaged-ycbcr-lzw.tif": ("tiff_ycbcr-22-lzw-odd.tif", [(675, 162)]),
+    "gif_damaged-global.gif": ("gif_global.gif", [(722, 19)]),
+}
+
+
+def png_adler_unchecked(seed=80):
+    """A PNG whose zlib check value sits in an IDAT chunk of its own and a
+    literal byte of the stored deflate data changed: PIL's ZipDecode stops
+    at the last row before inflate reaches the check, and decodes it."""
+    import struct as st
+    img = np.asarray(_pil_image("L", seed))
+    h, w = img.shape
+    rows = np.zeros((h, w + 1), np.uint8)
+    rows[:, 1:] = img
+    z = bytearray(zlib.compress(rows.tobytes(), 0))
+    z[len(z) // 2] ^= 0x5A
+
+    def chunk(kind, body):
+        return st.pack(">I", len(body)) + kind + body + st.pack(">I", zlib.crc32(kind + body))
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", st.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0))
+            + chunk(b"IDAT", bytes(z[:-4])) + chunk(b"IDAT", bytes(z[-4:])) + chunk(b"IEND", b""))
+
+
 # YCbCr under other codecs than JPEG: (h, w, subsampling, compression,
 # tile, rows per strip), every subsampling libtiff's RGBA interface reads
 TIFF_YCBCR_VARIANTS = {
@@ -649,8 +761,13 @@ def small_variants():
             data = png_bytes(samples, ctype, depth, interlace, ctype + depth, palette)
             name = f"png_type{ctype}_{depth}bit_{'adam7' if interlace else 'plain'}.png"
             out.append((name, lambda p, data=data: _write_bytes(p, data)))
+    for name, make in PNG_PIL_VARIANTS.items():
+        out.append((f"png_{name}.png", lambda p, make=make: make().save(p, format="PNG")))
     for name, make in TIFF_VARIANTS.items():
         out.append((f"tiff_{name}.tif", lambda p, name=name, make=make: write_tiff(
+            p, **make(np.random.RandomState(sum(map(ord, name)))))))
+    for name, make in TIFF_LAYOUT_VARIANTS.items():
+        out.append((f"tiff_layout-{name}.tif", lambda p, name=name, make=make: write_tiff(
             p, **make(np.random.RandomState(sum(map(ord, name)))))))
     for name, args in TIFF_YCBCR_VARIANTS.items():
         out.append((f"tiff_{name}.tif", lambda p, args=args: write_ycbcr_units(p, *args)))
@@ -664,6 +781,11 @@ def small_variants():
             p, bmp_bytes(**make(np.random.RandomState(len(name)))))))
     for name, make in GIF_VARIANTS.items():
         out.append((f"gif_{name}.gif", lambda p, make=make: _write_bytes(p, gif_bytes(**make()))))
+    writers = dict(out)
+    out += [(name, _patched(writers[base], patches))
+            for name, (base, patches) in DAMAGED_VARIANTS.items()]
+    out.append(("png_damaged-adler-unchecked.png",
+                lambda p: _write_bytes(p, png_adler_unchecked())))
     out += webp_small_variants()
     out += jpeg2000_small_variants()
     out += raster_small_variants()
@@ -1161,6 +1283,16 @@ JPEG_VARIANTS = {
     "h1v2-440-odd-progressive": _j(17, 9, 3, 51, sampling=[(1, 2), (1, 1), (1, 1)],
                                    progressive=True),
 }
+# Huffman-coded pages of 128 x 96 as archives hold them (grey, 4:2:0
+# colour, progressive colour, grey with restart markers): the bases of the
+# damaged-file fuzz of the main path's formats
+JPEG_HUFFMAN_VARIANTS = {
+    "huffman-grey": _j(96, 128, 1, 70),
+    "huffman-420": _j(96, 128, 3, 71, sampling=[(2, 2), (1, 1), (1, 1)]),
+    "huffman-progressive": _j(96, 128, 3, 72, progressive=True),
+    "huffman-restarts": _j(96, 128, 1, 73, restart_interval=4),
+}
+JPEG_VARIANTS.update(JPEG_HUFFMAN_VARIANTS)
 
 
 def _lossless_grey():

@@ -63,10 +63,19 @@ XBM, XPM, PIXAR, SPIDER, GBR, IMT, MCIDAS and XVTHUMB (written byte by
 byte by ``scripts/format_variants.py``, no PIL) and their records in
 ``small.json``; a full ``variants`` run writes them too.
 
+Then the main path's formats under damage and at the edges of PIL's table:
+``--only main`` rewrites just the small variants named in ``MAIN_PREFIXES``
+(Huffman-coded JPEG and PIL-written PNG bases of the damaged-file fuzz, the
+TIFF layouts of ``TIFF_LAYOUT_VARIANTS``, the damaged copies of
+``DAMAGED_VARIANTS`` and a PNG whose zlib check is never reached) and
+their records in ``small.json``, and writes four full-size pages of the
+newspaper generator (seed ``MAIN_SEED``) into
+``tests/data/torch_formats_main/`` (``write_main_pages``).
+
 Needs PIL (and, for the TIFF, JPEG, WebP and JPEG 2000 variants, the
 libraries Pillow bundles, and gcc); run from the repository root:
 
-    python scripts/make_format_fixtures.py [--only formats variants jpeg webp jpeg2000 raster]
+    python scripts/make_format_fixtures.py [--only formats variants jpeg webp jpeg2000 raster main]
 
 (the page XMLs get new timestamps on every run).
 """
@@ -87,11 +96,13 @@ VARIANTS_OUT = os.path.join(REPO, "tests", "data", "torch_formats_variants")
 JPEG_OUT = os.path.join(REPO, "tests", "data", "torch_formats_jpeg")
 WEBP_OUT = os.path.join(REPO, "tests", "data", "torch_formats_webp")
 JPEG2000_OUT = os.path.join(REPO, "tests", "data", "torch_formats_jpeg2000")
+MAIN_OUT = os.path.join(REPO, "tests", "data", "torch_formats_main")
 SEED = 23
 VARIANT_SEED = 29
 JPEG_SEED = 37
 WEBP_SEED = 41
 JPEG2000_SEED = 43
+MAIN_SEED = 47
 SHAPE = (2000, 1420)
 # (name, file ending, pixels: "grey" | "colour" | "bilevel", PIL save options)
 FIXTURES = [
@@ -119,7 +130,7 @@ def pixels(page: np.ndarray, kind: str) -> Image.Image:
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    kinds = ("formats", "variants", "jpeg", "webp", "jpeg2000", "raster")
+    kinds = ("formats", "variants", "jpeg", "webp", "jpeg2000", "raster", "main")
     parser.add_argument("--only", nargs="+", choices=kinds, default=kinds)
     only = parser.parse_args().only
     sys.path.insert(0, REPO)
@@ -140,6 +151,11 @@ def main() -> int:
         write_jpeg2000_pages()
     if "raster" in only and "variants" not in only:
         write_small(RASTER_PREFIXES, fv.raster_small_variants())
+    if "main" in only:
+        if "variants" not in only:
+            write_small(MAIN_PREFIXES, [(name, write) for name, write in fv.small_variants()
+                                        if name.startswith(MAIN_PREFIXES)])
+        write_main_pages()
     return 0
 
 
@@ -355,6 +371,86 @@ def write_jpeg2000_pages() -> None:
         total += os.path.getsize(path)
         print(f"{os.path.relpath(path, REPO)}: {os.path.getsize(path)} bytes")
     print(f"full-size JPEG 2000 pages {total} bytes")
+
+
+# the small variants of the main path's formats under damage and at the
+# edges of PIL's table
+MAIN_PREFIXES = ("jpeg_huffman-", "png_pil-", "tiff_layout-", "jpeg_damaged-", "tiff_damaged-",
+                 "gif_damaged-", "png_damaged-")
+
+
+def damaged_jpeg(data: bytes, places=(0.3, 0.55, 0.8)) -> bytes:
+    """``data`` with one byte of its entropy-coded data changed at each of
+    ``places`` (fractions of the scan), to the first value after which PIL
+    still decodes the page to other pixels (libjpeg-turbo's recovery)."""
+    import io
+
+    from scripts.fuzz_main_formats import jpeg_entropy_spans
+    (start, end), = jpeg_entropy_spans(data)
+    out = bytearray(data)
+    with Image.open(io.BytesIO(data)) as im:
+        clean = np.asarray(im.convert("L"))
+    for frac in places:
+        at = start + int((end - start) * frac)
+        for value in range(1, 256):
+            trial = bytearray(out)
+            trial[at] = (out[at] + value) & 0xFF
+            try:
+                with Image.open(io.BytesIO(bytes(trial))) as im:
+                    grey = np.asarray(im.convert("L"))
+            except Exception:       # noqa: BLE001 - PIL refuses this one: try the next
+                continue
+            if not np.array_equal(grey, clean):
+                out = trial
+                break
+    return bytes(out)
+
+
+def write_main_pages() -> None:
+    """Four full-size pages of the main path's formats that PIL 12.1 reads
+    and the port read last: a JPEG with three bytes of its entropy-coded
+    data changed (PIL decodes it through libjpeg-turbo's recovery), an
+    RGBA JPEG-in-TIFF, separate YCbCr planes under LZW and a palette page
+    with alpha ("PA", Deflate), each with ``page/<name>.xml`` and
+    ``<name>.json`` (PIL's "L" and "RGB" digests)."""
+    import io
+
+    import chip_smoke
+    from scripts import format_variants as fv
+    shutil.rmtree(MAIN_OUT, ignore_errors=True)
+    os.makedirs(os.path.join(MAIN_OUT, "page"))
+    pages, _, layouts = chip_smoke.synthetic_newspaper(4, *SHAPE, seed=MAIN_SEED)
+    colour = [np.asarray(pixels(p, "colour")) for p in pages]
+    h, w = SHAPE
+    alpha = webp_alpha(h, w)
+    buf = io.BytesIO()
+    Image.fromarray(pages[0]).save(buf, format="JPEG", quality=75)
+    paletted = Image.fromarray(colour[3]).quantize(256)
+    lut = np.asarray(paletted.getpalette()[:768], np.uint16).reshape(-1, 3).T * 257
+    colormap = np.zeros((3, 256), np.uint16)
+    colormap[:, :lut.shape[1]] = lut
+    full = [("damaged", "jpg", lambda p: open(p, "wb").write(damaged_jpeg(buf.getvalue()))),
+            ("jpeg_rgba", "tif", lambda p: fv.write_tiff(
+                p, samples=np.dstack([colour[1], alpha]), bps=8, photometric=2,
+                extrasamples=(2,), compression=7, rows_per_strip=64)),
+            ("ycbcr_planar_lzw", "tif", lambda p: fv.write_tiff(
+                p, samples=np.asarray(Image.fromarray(colour[2]).convert("YCbCr")), bps=8,
+                photometric=6, planar=2, compression=5, subsampling=(1, 1), rows_per_strip=64)),
+            ("palette_alpha", "tif", lambda p: fv.write_tiff(
+                p, samples=np.dstack([np.asarray(paletted), alpha]), bps=8, photometric=3,
+                extrasamples=(2,), colormap=colormap, compression=8, rows_per_strip=64))]
+    total = 0
+    for (name, ending, write), regions in zip(full, layouts):
+        path = os.path.join(MAIN_OUT, f"{name}.{ending}")
+        write(path)
+        chip_smoke.write_layout_xml(os.path.join(MAIN_OUT, "page", f"{name}.xml"),
+                                    os.path.basename(path), h, w, regions)
+        with open(os.path.join(MAIN_OUT, f"{name}.json"), "w") as f:
+            json.dump(record(path, ("L", "RGB")), f, indent=1)
+            f.write("\n")
+        total += os.path.getsize(path)
+        print(f"{os.path.relpath(path, REPO)}: {os.path.getsize(path)} bytes")
+    print(f"full-size main-path pages {total} bytes")
 
 
 if __name__ == "__main__":
