@@ -263,6 +263,7 @@ WEBP_DIR = os.path.join(REPO, "tests", "data", "torch_formats_webp")
 MAIN_FORMATS_DIR = os.path.join(REPO, "tests", "data", "torch_formats_main")
 BOMB_SHAPE = (10000, 20000)                 # a PNG header past PIL's decompression-bomb limit
 JPEG2000_DIR = os.path.join(REPO, "tests", "data", "torch_formats_jpeg2000")
+REGISTRY_DIR = os.path.join(REPO, "tests", "data", "torch_formats_registry")
 BLIND_DIR = os.path.join(REPO, "tests", "data", "torch_blind")
 # the train phase: the JAX trainer's default batch and crop; drawn pages of
 # 1000 x 710 (the crops need 512 in both directions)
@@ -1744,15 +1745,16 @@ def phase_formats(dev):
 
 
 def phase_variants(dev):
-    """The PNM, PNG, TIFF, JPEG, BMP, GIF, WebP, JPEG 2000 and raster (PCX,
+    """The PNM, PNG, TIFF, JPEG, BMP, GIF, WebP, JPEG 2000, raster (PCX,
     DCX, PSD, TGA, ICO, CUR, DIB, SGI, SUN, QOI, MSP, IM, XBM, XPM, PIXAR,
-    SPIDER, GBR, IMT, MCIDAS, XVTHUMB) variants: the committed small
-    variant fixtures against PIL's recorded digests, full-size pages of the
-    variants through the pipelined workflow beside 8-bit PNG twins of the
-    same decoded pixels (among them the main path's formats under damage
-    and at the edges of PIL's table, and a PNG header past PIL's
-    decompression-bomb limit, which the workflow skips), and PBM, BMP,
-    GIF, WebP, JPEG 2000, PCX, DCX, TGA, PSD, SGI, SUN and QOI pages
+    SPIDER, GBR, IMT, MCIDAS, XVTHUMB) and registry (DDS, BLP, FTEX, ICNS,
+    FITS, FLI, IPTC) variants: the committed small variant fixtures against
+    PIL's recorded digests, full-size pages of the variants through the
+    pipelined workflow beside 8-bit PNG twins of the same decoded pixels
+    (among them the main path's formats under damage and at the edges of
+    PIL's table, and a PNG header past PIL's decompression-bomb limit,
+    which the workflow skips), and PBM, BMP, GIF, WebP, JPEG 2000, PCX, DCX,
+    TGA, PSD, SGI, SUN, QOI, DDS (uncompressed and BC1) and FITS pages
     through the separator CLI."""
     import glob
     import hashlib
@@ -1765,6 +1767,7 @@ def phase_variants(dev):
     from citlab_as_tpu_torch.utils import io as port_io
     from scripts.format_variants import (
         bmp_bytes, bmp_rle_bytes, gif_bytes, png_bytes, pnm_bytes, raster_pages)
+    from scripts.registry_variants import registry_pages
 
     def digest(arr):
         return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
@@ -1794,7 +1797,8 @@ def phase_variants(dev):
     kinds = sorted({rec["file"].split("_")[0].split(".")[0] for rec in small})
     check({"bmp", "gif", "jpeg", "webp", "jpeg2000", "pcx", "dcx", "psd", "tga", "ico", "cur",
            "dib", "sgi", "sun", "qoi", "msp", "im", "xbm", "xpm", "pixar", "spider", "gbr", "imt",
-           "mcidas", "xvthumb"} <= set(kinds), f"variants: small fixtures of {kinds}")
+           "mcidas", "xvthumb", "dds", "blp", "ftex", "icns", "fits", "fli", "iptc"} <= set(kinds),
+          f"variants: small fixtures of {kinds}")
     print(f"variants: all {len(small)} small {' / '.join(kinds)} variants decode to PIL's "
           "size and 'L' and 'RGB' digests")
 
@@ -1935,6 +1939,11 @@ def phase_variants(dev):
         raster = raster_pages(pages)
         cli_pages += [(name, data, want, layouts[k % 3])
                       for k, (name, data, want) in enumerate(raster)]
+        # the registry's formats written byte by byte from the same arrays:
+        # an uncompressed luminance DDS and an 8-bit FITS (rows bottom-up)
+        registry = registry_pages(pages)
+        cli_pages += [(name, data, want, layouts[k % 3])
+                      for k, (name, data, want) in enumerate(registry)]
         cli_paths = []
         for name, data, want, layout in cli_pages:
             path = os.path.join(root, name)
@@ -1956,11 +1965,13 @@ def phase_variants(dev):
                 decode_ms[name] = decode_row(path, twin)
             cli_paths += [path, twin]
         # the committed full-size WebP pages (lossy, lossless, lossy with a
-        # filtered VP8L alpha plane) and JPEG 2000 pages (lossy 9/7 RPCL
-        # tiles with PLT, lossless 5/3, lossy colour with the ICT), held to
-        # PIL's recorded "L" and "RGB" digests, through the same CLI run
-        webp_names, jpeg2000_names = [], []
-        for pages_dir, names in ((WEBP_DIR, webp_names), (JPEG2000_DIR, jpeg2000_names)):
+        # filtered VP8L alpha plane), JPEG 2000 pages (lossy 9/7 RPCL tiles
+        # with PLT, lossless 5/3, lossy colour with the ICT) and the BC1 DDS
+        # page PIL's writer made, held to PIL's recorded "L" and "RGB"
+        # digests, through the same CLI run
+        webp_names, jpeg2000_names, texture_names = [], [], []
+        for pages_dir, names in ((WEBP_DIR, webp_names), (JPEG2000_DIR, jpeg2000_names),
+                                 (REGISTRY_DIR, texture_names)):
             for rec_path in sorted(glob.glob(os.path.join(pages_dir, "*.json"))):
                 with open(rec_path) as f:
                     rec = json.load(f)
@@ -1985,6 +1996,7 @@ def phase_variants(dev):
         check(len(webp_names) == 3, f"variants: {len(webp_names)} WebP pages, want 3")
         check(len(jpeg2000_names) == 3,
               f"variants: {len(jpeg2000_names)} JPEG 2000 pages, want 3")
+        check(len(texture_names) == 1, f"variants: {len(texture_names)} BC1 DDS pages, want 1")
         image_list = os.path.join(root, "cli.lst")
         with open(image_list, "w") as f:
             f.write("".join(f"{p}\n" for p in cli_paths))
@@ -2000,19 +2012,21 @@ def phase_variants(dev):
         check(cli_launches == {"conv3x3": 69 * groups, "separator_morphology": groups},
               f"variants: separator CLI launches {cli_launches}, want K1 69 and K2 1 per "
               f"group of {groups}")
-        for name in [p[0] for p in cli_pages] + webp_names + jpeg2000_names:
+        for name in [p[0] for p in cli_pages] + webp_names + jpeg2000_names + texture_names:
             path = os.path.join(root, name)
             twin = os.path.join(root, f"twin_{os.path.splitext(name)[0]}.png")
             check(_normalised_xml(port_io.get_page_path(path) + ".xml")
                   == _normalised_xml(port_io.get_page_path(twin) + ".xml"),
                   f"variants: the separator's page of {name} differs from its PNG twin's")
         print("variants: the separator CLI's pages of the PBM, BMP, GIF, the three WebP, "
-              "the three JPEG 2000 and the seven raster pages equal their PNG twins', "
+              "the three JPEG 2000, the seven raster and the three registry (DDS "
+              "uncompressed and BC1, FITS) pages equal their PNG twins', "
               f"launches {json.dumps(cli_launches)} ({groups} groups of {BATCH}); host decode "
               "ms per page (median of 3) beside the PNG twin's " + json.dumps(
                   {k: decode_ms[k]
                    for k in ["rle8.bmp", "interlaced.gif"] + webp_names + jpeg2000_names
-                   + [name for name, _, _ in raster]}))
+                   + [name for name, _, _ in raster] + [name for name, _, _ in registry]
+                   + texture_names}))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"launches": {k: launches[k] + cli_launches[k]

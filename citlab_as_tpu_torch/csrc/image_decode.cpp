@@ -41,6 +41,7 @@
 // code keeps no state between calls and writes only into the caller's
 // buffers, so concurrent calls from threads are safe.
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstring>
 #include <stdexcept>
@@ -623,6 +624,9 @@ struct Jpeg {
                     break;
                 }
             if (found < 0) fail("JPEG: scan names an unknown component");
+            // libjpeg-turbo: each component of a scan differs from the ones before
+            for (int pi = 0; pi < i; ++pi)
+                if (cur[pi] == found) fail("JPEG: a scan names one component twice");
             cur[i] = found;
             comps[found].dc_tbl = tbl >> 4;
             comps[found].ac_tbl = tbl & 15;
@@ -2112,15 +2116,19 @@ struct Tiff {
              rows_per_strip = 0xFFFFFFFF, tile_w = 0, tile_h = 0, t4options = 0,
              t6options = 0;
     bool tiled = false, have_photometric = false, have_spp = false, sf_uniform = true;
-    bool ifd_cut = false;   // the IFD's entries run past the end of the file
-    bool libtiff_bad = false;   // a tag libtiff's TIFFReadDirectory fails on
+    size_t ifd_at = 0;       // where the first IFD is
+    bool keep_indices = false;   // decode: a palette image's indices, not its colours
+    bool rps_set = false;        // libtiff's view: RowsPerStrip read from the directory
     mutable bool fax_noeol = false;   // libtiff's FAXMODE_NOEOL, once set for an image
     // libtiff's run arrays of the CCITT decoder, allocated once for the
     // image (a damaged row may read entries an earlier strip left there)
     mutable std::vector<uint32_t> fax_runs;
     size_t n_sf = 0, jpegtables_at = 0, jpegtables_len = 0, ojpeg_at = 0, ojpeg_len = 0;
     uint32_t ycc_h = 2, ycc_v = 2;   // YCbCrSubsampling (libtiff's default)
-    bool custom_ycc = false;         // YCbCrCoefficients or ReferenceBlackWhite not the default
+    // YCbCrCoefficients and ReferenceBlackWhite as libtiff reads them (floats;
+    // the defaults of a YCbCr image where absent or unreadable)
+    float ycc_luma[3] = {0.299f, 0.587f, 0.114f};
+    float ycc_refbw[6] = {0.0f, 255.0f, 128.0f, 255.0f, 128.0f, 255.0f};
     std::vector<uint64_t> offsets, counts;
     std::vector<uint32_t> colormap, extrasamples, bps_all;
 
@@ -2211,27 +2219,70 @@ struct Tiff {
     void take(uint32_t tag, uint32_t type, uint64_t cnt, size_t at, size_t size) {
         std::vector<uint64_t> v;
         switch (tag) {
+            case 292: case 293: case 317: case 513: case 514: case 530: {
+                // tags only libtiff reads (PIL keeps what it cannot read as a
+                // number, and libtiff ignores such an entry)
+                const bool number = type == 1 || type == 3 || type == 4 || type == 6 ||
+                                    type == 8 || type == 9 || type == 13 || type == 16;
+                if (!number) return;
+                v = values(tag, type, cnt, at);
+                break;
+            }
+            case 284:
+                if (type == 5 || type == 10) {
+                    // a rational PlanarConfiguration: PIL compares it with 2
+                    const int64_t num = (int64_t)rd32(at), den = (int64_t)rd32(at + 4);
+                    planar = den != 0 && (type == 5 ? num == 2 * den
+                                                    : (int32_t)num == 2 * (int32_t)den) ? 2 : 1;
+                    return;
+                }
+                v = values(tag, type, cnt, at);
+                break;
             case 256: case 257: case 258: case 259: case 262: case 266:
-            case 273: case 277: case 278: case 279: case 284: case 292: case 293:
-            case 317: case 320: case 322: case 323: case 324: case 325:
-            case 338: case 339: case 513: case 514: case 530:
+            case 273: case 277: case 278: case 279:
+            case 320: case 322: case 323: case 324: case 325:
+            case 338: case 339:
                 v = values(tag, type, cnt, at);
                 break;
             case 529: case 532: {
-                // RATIONALs; only libtiff's defaults are decoded
-                static const double luma[3] = {0.299, 0.587, 0.114};
-                static const double refbw[6] = {0, 255, 128, 255, 128, 255};
-                size_t want = tag == 529 ? 3 : 6;
-                if (type != 5 || cnt != want) {
-                    custom_ycc = true;
-                    return;
-                }
+                // TIFFReadDirEntryFloatArray of exactly 3 or 6 values (a
+                // rational as float numerator over float denominator, 0 over
+                // 0); another count is ignored
+                const size_t want = tag == 529 ? 3 : 6;
+                if (cnt != want) return;
+                float f[6];
                 for (size_t k = 0; k < want; ++k) {
-                    double num = rd32(at + 8 * k), den = rd32(at + 8 * k + 4);
-                    double value = den ? num / den : 0;
-                    double expect = tag == 529 ? luma[k] : refbw[k];
-                    if ((float)value != (float)expect) custom_ycc = true;
+                    switch (type) {
+                        case 1: f[k] = d[at + k]; break;
+                        case 6: f[k] = (int8_t)d[at + k]; break;
+                        case 3: f[k] = (float)rd16(at + 2 * k); break;
+                        case 8: f[k] = (float)(int16_t)rd16(at + 2 * k); break;
+                        case 4: f[k] = (float)rd32(at + 4 * k); break;
+                        case 9: f[k] = (float)(int32_t)rd32(at + 4 * k); break;
+                        case 5: case 10: {
+                            const uint32_t num = rd32(at + 8 * k), den = rd32(at + 8 * k + 4);
+                            f[k] = den == 0 ? 0.0f
+                                   : type == 5 ? (float)num / (float)den
+                                               : (float)(int32_t)num / (float)(int32_t)den;
+                            break;
+                        }
+                        case 11: {
+                            const uint32_t u = rd32(at + 4 * k);
+                            std::memcpy(&f[k], &u, 4);
+                            break;
+                        }
+                        case 12: {
+                            const uint64_t u = rd(at + 8 * k, 8);
+                            double x;
+                            std::memcpy(&x, &u, 8);
+                            f[k] = x > 3.402823466e38 ? 3.402823466e38f
+                                   : x < -3.402823466e38 ? -3.402823466e38f : (float)x;
+                            break;
+                        }
+                        default: return;
+                    }
                 }
+                std::memcpy(tag == 529 ? ycc_luma : ycc_refbw, f, want * sizeof(float));
                 return;
             }
             case 347:
@@ -2295,7 +2346,7 @@ struct Tiff {
         size_t ifd;
         if (version == 43) {
             bigtiff = true;
-            if (n < 16 || rd16(4) != 8) fail("TIFF: bad BigTIFF header");
+            if (n < 16) fail("TIFF: bad BigTIFF header");
             ifd = (size_t)rd(8, 8);
         } else if (version == 42) {
             ifd = rd32(4);
@@ -2305,100 +2356,372 @@ struct Tiff {
         const size_t entry_size = bigtiff ? 20 : 12;
         if (ifd > n || n - ifd < (bigtiff ? 8u : 2u)) fail("TIFF: truncated IFD (no entry count)");
         uint64_t count = bigtiff ? rd(ifd, 8) : rd16(ifd);
+        ifd_at = ifd;
         const size_t first = ifd + (bigtiff ? 8 : 2);
-        int64_t stop = -1;      // the entry PIL stopped at
-        uint32_t cut_tag = 0;   // a strip-layout tag whose values run past the end
-        size_t cut_entry = 0;
         for (uint64_t i = 0; i < count; ++i) {
             size_t e = first + entry_size * (size_t)i;
-            if (e > n || n - e < entry_size) {
-                ifd_cut = true;     // PIL keeps the entries before; libtiff cannot read them
-                break;
-            }
+            if (e > n || n - e < entry_size) break;     // PIL keeps the entries before
             uint32_t tag = rd16(e), type;
             uint64_t cnt;
             size_t at, size;
-            {
-                // TIFFReadDirectory "goto bad" on these tags where it cannot
-                // read an integer of them (PIL skips such a tag)
-                const uint32_t ty = rd16(e + 2);
-                const uint64_t c = bigtiff ? rd(e + 4, 8) : rd32(e + 4);
-                const bool int_type = ty == 1 || ty == 3 || ty == 4 || ty == 6 || ty == 8 ||
-                                      ty == 9 || ty == 16 || ty == 17;
-                if ((tag == 256 || tag == 257 || tag == 258 || tag == 259 || tag == 277 ||
-                     tag == 278 || tag == 284 || tag == 322 || tag == 323 || tag == 338 ||
-                     tag == 339) && (!int_type || c == 0))
-                    libtiff_bad = true;
-                // TIFFFetchNormalTag of a single value: exactly one
-                if ((tag == 256 || tag == 257 || tag == 278 || tag == 284 || tag == 322 ||
-                     tag == 323) && c != 1)
-                    libtiff_bad = true;
-            }
-            if (!entry_data(e, type, cnt, at, size)) {
-                // PIL stops reading the IFD here; libtiff ignores such a tag
-                // unless it cannot do without it
-                static const uint32_t kEssential[] = {256, 257, 258, 259, 273, 278, 279, 284,
-                                                      322, 323, 324, 325, 338, 339};
-                for (uint32_t t : kEssential) libtiff_bad = libtiff_bad || t == tag;
-                if (tag == 273 || tag == 279 || tag == 324 || tag == 325) {
-                    libtiff_bad = false;    // libtiff reads as many values as it needs
-                    cut_tag = tag;
-                    cut_entry = e;
-                }
-                stop = (int64_t)i;
-                break;
-            }
+            if (!entry_data(e, type, cnt, at, size)) break;   // PIL stops reading the IFD here
             if (!size) continue;    // PIL skips the tag
             take(tag, type, cnt, at, size);
         }
-        // libtiff reads the entries PIL did not get to: the layout of the
-        // strips or tiles it decodes (the mode stays PIL's)
-        if (stop >= 0 && compression != 1)
-            for (uint64_t i = (uint64_t)stop + 1; i < count; ++i) {
-                size_t e = first + entry_size * (size_t)i;
-                if (e > n || n - e < entry_size) break;
-                uint32_t tag = rd16(e), type;
-                uint64_t cnt;
-                size_t at, size;
-                if (!entry_data(e, type, cnt, at, size) || !size) continue;
-                switch (tag) {
-                    case 273: case 278: case 279: case 292: case 293: case 317: case 322:
-                    case 323: case 324: case 325: case 347: case 513: case 514: case 530:
-                        take(tag, type, cnt, at, size);
-                }
-            }
         if (!width || !height) fail("TIFF: missing image size");
-        if (cut_tag && compression != 1) {
-            // libtiff (TIFFFetchStripThing) reads the values of the strips or
-            // tiles the image has, and fails where those run past the end
-            const uint32_t cw = tiled ? tile_w : width;
-            const uint32_t ch = tiled ? tile_h : std::min(rows_per_strip, height);
-            if (!cw || !ch) fail("TIFF: bad strip or tile size");
-            const uint64_t need = (uint64_t)(tiled ? (width + cw - 1) / cw : 1) *
-                                  ((height + ch - 1) / ch) * (planar == 2 ? spp : 1);
-            const uint32_t type = rd16(cut_entry + 2);
-            const int unit = type == 3 ? 2 : type == 4 ? 4 : type == 16 ? 8 : 0;
-            const size_t at = (size_t)rd(cut_entry + (bigtiff ? 12 : 8), bigtiff ? 8 : 4);
-            if (!unit || need > n || at > n || need * unit > n - at)
-                fail("TIFF: StripOffsets or StripByteCounts past the end of the file (libtiff "
-                     "refuses it)");
-            take(cut_tag, type, need, at, (size_t)(need * unit));
-        }
-        if (offsets.empty())
-            fail(compression == 1 ? "TIFF: no StripOffsets or TileOffsets (PIL: unknown data "
-                                    "organization)"
-                                  : "TIFF: no StripOffsets or TileOffsets (libtiff refuses it)");
-        // libtiff's ByteCountLooksBad: one strip of 0 bytes is estimated too
-        if (compression != 1 && (counts.empty() || (!tiled && offsets.size() == 1 &&
-                                                     counts[0] == 0 && offsets[0] != 0)))
-            estimate_counts(first, count);
+        if (compression == 1 && offsets.empty())
+            fail("TIFF: no StripOffsets or TileOffsets (PIL: unknown data organization)");
         // PIL's raw decoder reads anything but PlanarConfiguration 2 as contiguous
         if (compression == 1 && planar != 2) planar = 1;
+        // PIL's tiles of an uncompressed image: a strip that covers the image
+        // is read from the last offset alone; strips taller than the image
+        // all cover it, and PIL, reading its tiles in file order, keeps the
+        // last (TiffImageFile._setup, ImageFile.load)
+        if (compression == 1 && planar == 1 && !tiled && offsets.size() > 1 &&
+            rows_per_strip >= height) {
+            const uint64_t keep = rows_per_strip == height
+                                      ? offsets.back()
+                                      : *std::max_element(offsets.begin(), offsets.end());
+            offsets.assign(1, keep);
+        }
         if (compression == 6) {   // PIL: old-style JPEG is YCbCr, of 3 samples by default
             photometric = 6;
             have_photometric = true;
             if (!have_spp) spp = 3;
         }
+    }
+
+    // ---- libtiff's own reading of the directory (tif_dirread.c
+    // TIFFReadDirectory and TIFFFetchDirectory, libtiff 4.7). PIL opens a
+    // page from its own IFD reader (parse: the last of duplicate tags, the
+    // entries before one whose values run past the end of the file) and
+    // decodes a compressed one through libtiff, which reads the directory
+    // again by its own rules: every entry, the first of duplicate tags, a
+    // failure on some tags and a warning on the rest, its guesses for
+    // missing tags, strip arrays cut short or padded with zeros. This view
+    // decides whether the directory opens, the strips' offsets and counts,
+    // and the layout of the rows libtiff hands PIL's unpacker.
+    enum { LT_OK, LT_COUNT, LT_TYPE, LT_IO, LT_RANGE };
+
+    // TIFFReadDirEntry{Short,Long,Long8}[Array]: up to `limit` integer values
+    // of an entry, converted to unsigned integers no larger than `max`
+    int lt_ints(size_t e, uint64_t max, uint64_t limit, std::vector<uint64_t>& out,
+                bool one) const {
+        const uint32_t type = rd16(e + 2);
+        const uint64_t count = bigtiff ? rd(e + 4, 8) : rd32(e + 4);
+        if (one && count != 1) return LT_COUNT;
+        int unit;
+        bool sgn = false;
+        switch (type) {
+            case 1: unit = 1; break;
+            case 6: unit = 1; sgn = true; break;
+            case 3: unit = 2; break;
+            case 8: unit = 2; sgn = true; break;
+            case 4: case 13: unit = 4; break;
+            case 9: unit = 4; sgn = true; break;
+            case 16: case 18: unit = 8; break;
+            case 17: unit = 8; sgn = true; break;
+            default: return LT_TYPE;
+        }
+        if (max <= 0xFFFF && (type == 13 || type == 18)) return LT_TYPE;
+        const uint64_t take_n = std::min(count, limit);
+        out.clear();
+        if (take_n == 0) return LT_OK;
+        const size_t room = bigtiff ? 8 : 4;
+        size_t at;
+        if (take_n > n / unit) return LT_IO;
+        // the whole of the values is where libtiff looks for them: inline
+        // if all `count` of them fit the entry, else at its offset
+        const uint64_t full = count > n ? n + 1 : count * (uint64_t)unit;
+        if (full <= room) {
+            at = e + (bigtiff ? 12 : 8);
+        } else {
+            const uint64_t off = rd(e + (bigtiff ? 12 : 8), bigtiff ? 8 : 4);
+            if (off > n || take_n * unit > n - off) return LT_IO;
+            at = (size_t)off;
+        }
+        out.resize(take_n);
+        for (uint64_t i = 0; i < take_n; ++i) {
+            uint64_t v = rd(at + unit * i, unit);
+            if (sgn) {
+                if (unit < 8 && ((v >> (8 * unit - 1)) & 1)) return LT_RANGE;
+                if (unit == 8 && (v >> 63)) return LT_RANGE;
+            }
+            if (v > max) return LT_RANGE;
+            out[i] = v;
+        }
+        return LT_OK;
+    }
+
+    // TIFFReadDirEntryPersampleShort after a count error: the first
+    // SamplesPerPixel values, all equal
+    int lt_persample(size_t e, uint32_t samples, uint64_t& v) const {
+        const uint64_t count = bigtiff ? rd(e + 4, 8) : rd32(e + 4);
+        if (count < samples) return LT_COUNT;
+        std::vector<uint64_t> vals;
+        int err = lt_ints(e, 0xFFFF, samples, vals, false);
+        if (err != LT_OK) return err;
+        for (uint64_t x : vals)
+            if (x != vals[0]) return LT_RANGE;
+        v = vals.empty() ? 0 : vals[0];
+        return LT_OK;
+    }
+
+    // a Short (or Long) of count 1, or per sample where allowed
+    int lt_short(size_t e, uint64_t max, uint64_t& v, uint32_t persample = 0) const {
+        std::vector<uint64_t> vals;
+        int err = lt_ints(e, max, 1, vals, true);
+        if (err == LT_COUNT && persample) return lt_persample(e, persample, v);
+        if (err == LT_OK) v = vals[0];
+        return err;
+    }
+
+    Tiff libtiff_view() const {
+        Tiff L(d, n);
+        L.big_endian = big_endian;
+        L.bigtiff = bigtiff;
+        const size_t ifd = ifd_at, entry_size = bigtiff ? 20 : 12;
+        // TIFFClientOpen: a BigTIFF's offset size is 8, the two bytes after
+        // it 0 (PIL's own reader reads neither)
+        if (bigtiff && (rd16(4) != 8 || rd16(6) != 0))
+            fail("TIFF: a BigTIFF header of another offset size than 8 or unused bytes other "
+                 "than 0 (libtiff: Not a TIFF file)");
+        // TIFFFetchDirectory (the file is mapped)
+        uint64_t count = bigtiff ? rd(ifd, 8) : rd16(ifd);
+        if (count > 4096) fail("TIFF: libtiff refuses a directory of more than 4096 entries");
+        const size_t first = ifd + (bigtiff ? 8 : 2);
+        if (first > n || count * entry_size > n - first)
+            fail("TIFF: the IFD runs past the end of the file (libtiff cannot read it)");
+        auto bad = [](const std::string& why) {
+            fail("TIFF: " + why + " (libtiff's TIFFReadDirectory refuses the directory)");
+        };
+        // the first of duplicate tags (later ones are ignored)
+        std::vector<size_t> entries;
+        std::vector<uint32_t> seen;
+        for (uint64_t i = 0; i < count; ++i) {
+            const size_t e = first + entry_size * (size_t)i;
+            const uint32_t tag = rd16(e);
+            if (std::find(seen.begin(), seen.end(), tag) != seen.end()) continue;
+            seen.push_back(tag);
+            entries.push_back(e);
+        }
+        auto find = [&](uint32_t tag) -> size_t {
+            for (size_t e : entries)
+                if (rd16(e) == tag) return e;
+            return 0;
+        };
+        auto cnt_of = [&](size_t e) { return bigtiff ? rd(e + 4, 8) : (uint64_t)rd32(e + 4); };
+        uint64_t v = 0;
+        bool have_width = false, have_height = false, have_tile = false, have_offsets = false,
+             have_counts = false, have_bps = false, have_colormap = false;
+        size_t offsets_entry = 0, counts_entry = 0;
+        // SamplesPerPixel first, then Compression
+        if (size_t e = find(277)) {
+            if (lt_short(e, 0xFFFF, v) != LT_OK || v == 0) bad("SamplesPerPixel");
+            L.spp = (uint32_t)v;
+            L.have_spp = true;
+        }
+        if (size_t e = find(259)) {
+            if (lt_short(e, 0xFFFF, v, L.spp) != LT_OK) bad("Compression");
+            L.compression = (uint32_t)v;
+        }
+        auto codec_tag = [&](uint32_t tag) {
+            // _TIFFCheckFieldIsValidForCodec: a codec's own tags count only
+            // under that codec
+            const uint32_t c = L.compression;
+            switch (tag) {
+                case 317: return c == 5 || c == 8 || c == 32946 || c == 34925 || c == 50000 ||
+                                 c == 32909;
+                case 292: return c == 3;
+                case 293: return c == 4;
+                case 326: case 327: case 328: return c == 2 || c == 3 || c == 4;
+                case 347: return c == 7;
+                case 512: case 513: case 514: case 515: case 517: case 518: case 519: case 520:
+                case 521: return c == 6;
+                default: return true;
+            }
+        };
+        // the first pass
+        for (size_t e : entries) {
+            const uint32_t tag = rd16(e);
+            switch (tag) {
+                case 273: case 324: have_offsets = true; break;
+                case 279: case 325: have_counts = true; break;
+                case 256: case 257: case 32997: case 322: case 323: case 32998: {
+                    if (lt_short(e, 0xFFFFFFFFull, v) != LT_OK) bad("tag " + std::to_string(tag));
+                    if (tag == 256) { L.width = (uint32_t)v; have_width = true; }
+                    if (tag == 257) { L.height = (uint32_t)v; have_height = true; }
+                    if (tag == 322) { L.tile_w = (uint32_t)v; have_tile = true; }
+                    if (tag == 323) { L.tile_h = (uint32_t)v; have_tile = true; }
+                    break;
+                }
+                case 284:
+                    if (lt_short(e, 0xFFFF, v) != LT_OK || (v != 1 && v != 2)) bad("PlanarConfiguration");
+                    L.planar = (uint32_t)v;
+                    break;
+                case 278:
+                    if (lt_short(e, 0xFFFFFFFFull, v) != LT_OK || v == 0) bad("RowsPerStrip");
+                    L.rows_per_strip = (uint32_t)v;
+                    L.rps_set = true;
+                    break;
+                case 338: {
+                    std::vector<uint64_t> vals;
+                    if (lt_ints(e, 0xFFFF, cnt_of(e), vals, false) != LT_OK ||
+                        vals.size() > L.spp)
+                        bad("ExtraSamples");
+                    L.extrasamples.clear();
+                    for (uint64_t x : vals) {
+                        if (x > 2 && x != 999) bad("ExtraSamples");
+                        L.extrasamples.push_back(x == 999 ? 2 : (uint32_t)x);
+                    }
+                    break;
+                }
+            }
+        }
+        // an old-style JPEG "separate" plane of one strip is contiguous
+        if (L.compression == 6 && L.planar == 2) {
+            const size_t so = find(273), sb = find(279);
+            if (so && cnt_of(so) == 1 && sb && cnt_of(sb) == 1) L.planar = 1;
+        }
+        if (!have_width && !have_height) bad("no ImageWidth or ImageLength");
+        L.tiled = have_tile;
+        auto howmany = [](uint32_t x, uint32_t y) -> uint32_t {
+            return x < 0xFFFFFFFFu - (y - 1) ? (x + y - 1) / y : 0;
+        };
+        uint64_t nstrips;
+        if (L.tiled) {
+            const uint32_t dx = L.tile_w, dy = L.tile_h;
+            nstrips = (dx == 0 || dy == 0) ? 0
+                      : (uint64_t)howmany(L.width, dx) * howmany(L.height, dy);
+        } else {
+            nstrips = L.rows_per_strip == 0xFFFFFFFFu ? 1 : howmany(L.height, L.rows_per_strip);
+        }
+        if (L.planar == 2) nstrips *= L.spp;
+        if (nstrips == 0 || nstrips > 0xFFFFFFFFull) bad("no strips or tiles");
+        if (!have_offsets && !(L.compression == 6 && !L.tiled && nstrips == 1))
+            bad("no StripOffsets or TileOffsets");
+        // the second pass
+        for (size_t e : entries) {
+            const uint32_t tag = rd16(e);
+            if (tag == 277 || tag == 259 || tag == 256 || tag == 257 || tag == 32997 ||
+                tag == 322 || tag == 323 || tag == 32998 || tag == 284 || tag == 278 || tag == 338)
+                continue;
+            const uint64_t c = cnt_of(e);
+            switch (tag) {
+                case 258: case 339: case 280: case 281: case 32996:
+                    if (lt_short(e, 0xFFFF, v, L.spp) != LT_OK) bad("tag " + std::to_string(tag));
+                    if (tag == 258) { L.bps = (uint32_t)v; have_bps = true; }
+                    if (tag == 339) {
+                        if (v < 1 || v > 6) bad("SampleFormat");
+                        L.sampleformat = (uint32_t)v;
+                        L.n_sf = 1;
+                    }
+                    break;
+                case 273: case 324: offsets_entry = e; break;
+                case 279: case 325: counts_entry = e; break;
+                case 320: {
+                    // ColorMap: exactly 3 << BitsPerSample values, else ignored
+                    std::vector<uint64_t> vals;
+                    if (L.bps <= 24 && c == (3ull << L.bps) &&
+                        lt_ints(e, 0xFFFF, c, vals, false) == LT_OK) {
+                        L.colormap.assign(vals.begin(), vals.end());
+                        have_colormap = true;
+                    }
+                    break;
+                }
+                default: {
+                    // TIFFFetchNormalTag with recovery: a tag it cannot read
+                    // is ignored
+                    if (!codec_tag(tag)) break;
+                    switch (tag) {
+                        case 262: case 266: case 317:
+                            if (lt_short(e, 0xFFFF, v) != LT_OK) break;
+                            if (tag == 262) { L.photometric = (uint32_t)v; L.have_photometric = true; }
+                            if (tag == 266 && (v == 1 || v == 2)) L.fillorder = (uint32_t)v;
+                            if (tag == 317) L.predictor = (uint32_t)v;
+                            break;
+                        case 292: case 293: case 513: case 514:
+                            if (lt_short(e, 0xFFFFFFFFull, v) != LT_OK) break;
+                            if (tag == 292) L.t4options = (uint32_t)v;
+                            if (tag == 293) L.t6options = (uint32_t)v;
+                            if (tag == 513) L.ojpeg_at = (size_t)v;
+                            if (tag == 514) L.ojpeg_len = (size_t)v;
+                            break;
+                        case 530: {
+                            std::vector<uint64_t> vals;
+                            if (c != 2 || lt_ints(e, 0xFFFF, 2, vals, false) != LT_OK) break;
+                            L.ycc_h = (uint32_t)vals[0];
+                            L.ycc_v = (uint32_t)vals[1];
+                            break;
+                        }
+                        case 347: case 529: case 532: {
+                            uint32_t ty;
+                            uint64_t cn;
+                            size_t at, size;
+                            if (entry_data(e, ty, cn, at, size) && size) L.take(tag, ty, cn, at, size);
+                            break;
+                        }
+                    }
+                }
+            }
+        }
+        // the old-style JPEG guesses
+        if (L.compression == 6) {
+            if (!L.have_photometric || L.photometric == 2) {
+                L.photometric = 6;
+                L.have_photometric = true;
+            }
+            if (!have_bps) L.bps = 8;
+            if (!L.have_spp) {
+                if (L.photometric == 2 || L.photometric == 6) L.spp = 3;
+                else if (L.photometric <= 1) L.spp = 1;
+            }
+        }
+        // a palette image without a (valid) ColorMap
+        if (L.have_photometric && L.photometric == 3 && !have_colormap) {
+            if (L.bps >= 8 && L.spp == 3) L.photometric = 2;
+            else if (L.bps >= 8) L.photometric = 1;
+            else bad("a palette image without a ColorMap");
+        }
+        L.bps_all.assign(1, L.bps);
+        // the strips' offsets and counts (TIFFFetchStripThing): the values of
+        // the strips the image has, zeros past a short array
+        const uint64_t ns = nstrips;
+        auto strip_thing = [&](size_t e, std::vector<uint64_t>& out) {
+            std::vector<uint64_t> vals;
+            if (lt_ints(e, ~0ull, ns, vals, false) != LT_OK)
+                fail("TIFF: StripOffsets or StripByteCounts past the end of the file (libtiff "
+                     "refuses it)");
+            vals.resize(ns, 0);
+            out = vals;
+        };
+        if (offsets_entry) strip_thing(offsets_entry, L.offsets);
+        else L.offsets.assign(ns, 0);
+        if (counts_entry) strip_thing(counts_entry, L.counts);
+        if (L.compression != 6) {
+            if (!have_counts) {
+                if ((L.planar == 1 && ns > 1) || (L.planar == 2 && ns != L.spp))
+                    bad("no StripByteCounts");
+                L.estimate_counts(first, count);
+            } else if (ns == 1 && !L.tiled && L.offsets[0] != 0 &&
+                       (L.counts[0] == 0 ||
+                        (L.compression == 1 &&
+                         ((L.offsets[0] <= n && L.counts[0] > n - L.offsets[0]) ||
+                          L.counts[0] < (uint64_t)L.scanline_bytes() * L.height)))) {
+                L.estimate_counts(first, count);    // ByteCountLooksBad
+            } else if (L.planar == 1 && ns > 2 && L.compression == 1 && L.counts[0] != L.counts[1] &&
+                       L.counts[0] && L.counts[1]) {
+                L.estimate_counts(first, count);
+            }
+        }
+        if (L.scanline_bytes() == 0) bad("a scanline of 0 bytes");
+        return L;
+    }
+
+    // TIFFScanlineSize64 of a contiguous or separate image (not YCbCr)
+    uint64_t scanline_bytes() const {
+        const uint64_t samples = (uint64_t)width * (planar == 2 ? 1 : spp);
+        return (samples * bps + 7) / 8;
     }
 
     bool jpeg() const { return compression == 7; }
@@ -2418,10 +2741,6 @@ struct Tiff {
     // (utils/image_native.py)
     void check_supported() const {
         check_open();
-        if (ifd_cut && compression != 1)
-            fail("TIFF: the IFD runs past the end of the file (libtiff cannot read it)");
-        if (libtiff_bad && compression != 1)
-            fail("TIFF: a tag of a type or count libtiff cannot read (libtiff refuses the directory)");
         for (uint32_t b : bps_all)
             if (b != bps) fail("TIFF: mixed bits per sample");
         if (bps != 1 && bps != 2 && bps != 4 && bps != 8 && bps != 12 && bps != 16 && bps != 32)
@@ -2432,20 +2751,12 @@ struct Tiff {
         if (fillorder != 1 && fillorder != 2) fail("TIFF: FillOrder " + std::to_string(fillorder));
         switch (compression) {
             case 1: case 2: case 3: case 4: case 5: case 7: case 8: case 32946: case 32773: break;
-            case 6:
-                if (!ojpeg_at || !ojpeg_len)
-                    fail("TIFF: old-style JPEG-in-TIFF (compression 6) without "
-                         "JPEGInterchangeFormat is not supported");
-                break;
+            case 6: break;
             default:
                 fail("TIFF: compression " + std::to_string(compression) + " is not supported");
         }
         if (fax() && (bps != 1 || spp != 1))
             fail("TIFF: CCITT compression needs 1-bit samples");
-        if (compression == 3 && (t4options & 2))
-            fail("TIFF: Group 3 uncompressed mode is not supported");
-        if (compression == 4 && (t6options & 2))
-            fail("TIFF: Group 4 uncompressed mode is not supported");
         if (jpeg()) {
             if (bps != 8) fail("TIFF: JPEG-in-TIFF with " + std::to_string(bps) + "-bit samples");
             if (!((photometric <= 1 && spp <= 2) || (photometric == 2 && (spp == 3 || spp == 4)) ||
@@ -2462,13 +2773,23 @@ struct Tiff {
         switch (photometric) {
             case 0: case 1: case 2: break;
             case 3:
-                if (spp > 2 || (spp == 2 && (bps != 8 || planar != 1)))
-                    fail("TIFF: palette image with several samples per pixel");
-                if (bps > 8) fail("TIFF: palette image with " + std::to_string(bps) + "-bit samples");
-                if (colormap.size() != 3u << bps) fail("TIFF: palette image without a full ColorMap");
+                check_palette();
                 break;
             case 5: break;
             case 6:
+                // libtiff's RGBA interface has a reader for separate YCbCr
+                // planes only where they are not subsampled
+                // (putseparate8bitYCbCr11tile)
+                if (planar == 2 && (ycc_h != 1 || ycc_v != 1))
+                    fail("TIFF: separate YCbCr planes subsampled " + std::to_string(ycc_h) + "x" +
+                         std::to_string(ycc_v) + " (libtiff's RGBA interface reads only 1x1)");
+                // tif_getimage.c initYCbCrConversion: the RGBA interface
+                // refuses coefficients it cannot divide by
+                if ((planar == 2 || !jpeg()) &&
+                    (std::isnan(ycc_luma[0]) || std::isnan(ycc_luma[1]) || ycc_luma[1] == 0.0f ||
+                     std::isnan(ycc_luma[2])))
+                    fail("TIFF: YCbCrCoefficients the RGBA interface cannot use (libtiff: Invalid "
+                         "values for YCbCrCoefficients tag)");
                 if (jpeg()) break;
                 if (compression == 1)
                     fail("TIFF: uncompressed YCbCr, which PIL reads with rawmode RGBX, 4 bytes a "
@@ -2480,12 +2801,6 @@ struct Tiff {
                          " is not supported");
                 if (bps != 8 || spp != 3)
                     fail("TIFF: YCbCr TIFF other than 3 x 8-bit samples");
-                if (planar == 2 && (ycc_h != 1 || ycc_v != 1))
-                    fail("TIFF: separate YCbCr planes subsampled " + std::to_string(ycc_h) + "x" +
-                         std::to_string(ycc_v) + " (libtiff's RGBA interface reads only 1x1)");
-                if (custom_ycc)
-                    fail("TIFF: YCbCr TIFF with its own YCbCrCoefficients or "
-                         "ReferenceBlackWhite is not supported");
                 // the subsamplings libtiff's RGBA interface has a reader for
                 // (tif_getimage.c putcontig8bitYCbCr{44,42,41,22,21,12,11}tile)
                 if (compression != 6 &&
@@ -2499,6 +2814,15 @@ struct Tiff {
                 fail("TIFF: photometric interpretation " + std::to_string(photometric) +
                      " is not supported");
         }
+    }
+
+    // a palette image as PIL reads it: one index (and an extra sample) of
+    // at most 8 bits, and PIL's palette from the whole ColorMap
+    void check_palette() const {
+        if (spp > 2 || (spp == 2 && (bps != 8 || planar != 1)))
+            fail("TIFF: palette image with several samples per pixel");
+        if (bps > 8) fail("TIFF: palette image with " + std::to_string(bps) + "-bit samples");
+        if (colormap.size() != 3u << bps) fail("TIFF: palette image without a full ColorMap");
     }
 
     // decoded layout: uint8 RGB for a palette or YCbCr image, else
@@ -2620,17 +2944,27 @@ struct Tiff {
     // whose Group 4 data ends rows short of the strip (libtiff then reports
     // success and PIL keeps its buffer's earlier bytes for those rows)
     void fax_rows(const uint8_t* s, size_t cnt, uint8_t* o, uint32_t w, uint32_t rows) const {
+        bool failed = false;
+        const uint32_t written = fax_decode(s, cnt, o, w, rows, failed);
+        if (failed) fail("TIFF: damaged CCITT data (libtiff: premature end of the strip)");
+        if (written < rows)
+            fail("TIFF: Group 4 data that ends rows short of its strip (PIL's pixels there are its "
+                 "buffer's earlier contents: decided divergence, not had from the file)");
+    }
+
+    // the CCITT decoder over one strip or tile: the rows it wrote (a row it
+    // failed in is filled all the same), `failed` where it returned an error
+    uint32_t fax_decode(const uint8_t* s, size_t cnt, uint8_t* o, uint32_t w, uint32_t rows,
+                        bool& failed) const {
         static const FaxTables kTables;
         const FaxDecoder::Kind kind = compression == 2 ? FaxDecoder::RLE
                                     : compression == 4 ? FaxDecoder::G4
                                     : (t4options & 1) ? FaxDecoder::G3_2D : FaxDecoder::G3_1D;
         FaxDecoder f(kTables, s, cnt, w, kind == FaxDecoder::G3_2D || kind == FaxDecoder::G4,
                      fax_noeol, fax_runs);
-        if (f.decode(kind, o, rows, (w + 7) / 8) < 0)
-            fail("TIFF: damaged CCITT data (libtiff: premature end of the strip)");
-        if (f.rows_done < (int)rows)
-            fail("TIFF: Group 4 data that ends rows short of its strip (PIL's pixels there are its "
-                 "buffer's earlier contents: decided divergence, not had from the file)");
+        failed = f.decode(kind, o, rows, (w + 7) / 8) < 0;
+        const uint32_t done = (uint32_t)f.rows_done;
+        return failed && kind != FaxDecoder::G4 ? std::min(done + 1, rows) : done;
     }
 
     // one strip or tile into exactly `want` bytes
@@ -2658,28 +2992,40 @@ struct Tiff {
         }
     }
 
-    // libtiff's TIFFYCbCrToRGBInit / TIFFYCbCrtoRGB (tif_color.c) for the
-    // default YCbCrCoefficients and ReferenceBlackWhite: 16-bit fixed point
-    // from float coefficients
+    // libtiff's TIFFYCbCrToRGBInit / TIFFYCbCrtoRGB (tif_color.c): 16-bit
+    // fixed point from the float YCbCrCoefficients, the samples mapped
+    // through ReferenceBlackWhite (Code2V, clamped to +-4096)
     struct YccToRgb {
-        int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256];
-        YccToRgb() {
+        int32_t cr_r[256], cb_b[256], cr_g[256], cb_g[256], y_tab[256];
+        YccToRgb(const float* luma, const float* refbw) {
             auto fix = [](float x) { return (int32_t)(x * (1L << 16) + 0.5); };
-            const float lr = 0.299f, lg = 0.587f, lb = 0.114f;
+            auto clamp = [](float f, float lo, float hi) { return f < lo ? lo : f > hi ? hi : f; };
+            auto code2v = [](int c, float rb, float rw, float cr) {
+                return ((float)(c - (int32_t)rb) * cr) / (rw - rb != 0 ? rw - rb : 1.0f);
+            };
+            const float lr = luma[0], lg = luma[1], lb = luma[2];
             const float f1 = 2 - 2 * lr, f2 = lr * f1 / lg, f3 = 2 - 2 * lb, f4 = lb * f3 / lg;
-            const int32_t d1 = fix(f1), d2 = -fix(f2), d3 = fix(f3), d4 = -fix(f4);
+            const int32_t d1 = fix(clamp(f1, 0.0f, 2.0f)), d2 = -fix(clamp(f2, 0.0f, 2.0f));
+            const int32_t d3 = fix(clamp(f3, 0.0f, 2.0f)), d4 = -fix(clamp(f4, 0.0f, 2.0f));
             for (int i = 0, x = -128; i < 256; ++i, ++x) {
-                cr_r[i] = (d1 * x + (1 << 15)) >> 16;
-                cb_b[i] = (d3 * x + (1 << 15)) >> 16;
-                cr_g[i] = d2 * x;
-                cb_g[i] = d4 * x + (1 << 15);
+                const int32_t cr = (int32_t)clamp(
+                    code2v(x, refbw[4] - 128.0f, refbw[5] - 128.0f, 127), -4096.0f, 4096.0f);
+                const int32_t cb = (int32_t)clamp(
+                    code2v(x, refbw[2] - 128.0f, refbw[3] - 128.0f, 127), -4096.0f, 4096.0f);
+                cr_r[i] = (d1 * cr + (1 << 15)) >> 16;
+                cb_b[i] = (d3 * cb + (1 << 15)) >> 16;
+                cr_g[i] = d2 * cr;
+                cb_g[i] = d4 * cb + (1 << 15);
+                y_tab[i] = (int32_t)clamp(code2v(x + 128, refbw[0], refbw[1], 255), -4096.0f,
+                                          4096.0f);
             }
         }
         void put(int y, int cb, int cr, uint8_t* rgb) const {
             auto clamp = [](int v) { return (uint8_t)(v < 0 ? 0 : v > 255 ? 255 : v); };
-            rgb[0] = clamp(y + cr_r[cr]);
-            rgb[1] = clamp(y + ((cb_g[cb] + cr_g[cr]) >> 16));
-            rgb[2] = clamp(y + cb_b[cb]);
+            const int yy = y_tab[y];
+            rgb[0] = clamp(yy + cr_r[cr]);
+            rgb[1] = clamp(yy + ((cb_g[cb] + cr_g[cr]) >> 16));
+            rgb[2] = clamp(yy + cb_b[cb]);
         }
     };
 
@@ -2700,7 +3046,7 @@ struct Tiff {
         const uint32_t unit = planar == 2 ? 1 : ycc_h * ycc_v + 2;
         const uint32_t hs = planar == 2 ? 1 : ycc_h, vs = planar == 2 ? 1 : ycc_v;
         const uint32_t units_across = (cw + hs - 1) / hs;
-        const YccToRgb conv;
+        const YccToRgb conv(ycc_luma, ycc_refbw);
         std::vector<uint8_t> chunk, reversed;
         // PIL asks the RGBA interface for one strip or row of tiles at a
         // time (TIFFRGBAImageGet, stop on error 0): its buffer, zeroed when
@@ -2758,21 +3104,26 @@ struct Tiff {
     // tif_ojpeg.c OJPEGReadHeaderInfoSec: libtiff reads the stream's markers
     // itself, one right after the other, up to SOS (a byte other than FF
     // where a marker belongs ends its reading, and the tables are missing)
-    static void ojpeg_header(const uint8_t* s, size_t len) {
+    // (false where the stream holds no frame header before a byte other
+    // than FF or SOS: libtiff then takes the frame and tables from tags)
+    static bool ojpeg_header(const uint8_t* s, size_t len) {
         size_t p = 0;
+        bool sof = false;
         auto word = [&](size_t at) -> size_t {
             if (at + 2 > len) fail("TIFF: old-style JPEG stream ends in its header");
             return ((size_t)s[at] << 8) | s[at + 1];
         };
         for (;;) {
             if (p >= len) fail("TIFF: old-style JPEG stream ends in its header");
+            if (s[p] != 0xFF && !sof) return false;
             if (s[p] != 0xFF)
                 fail("TIFF: old-style JPEG header broken before SOS (libtiff: missing JPEG tables)");
             while (p < len && s[p] == 0xFF) ++p;
             if (p >= len) fail("TIFF: old-style JPEG stream ends in its header");
             const int m = s[p++];
             if (m == 0xD8) continue;
-            if (m == 0xDA) return;
+            if (m == 0xDA) return sof;
+            sof |= m == 0xC0 || m == 0xC1 || m == 0xC3;
             if (m == 0xFE || (m >= 0xE0 && m <= 0xEF) || m == 0xDD || m == 0xDB || m == 0xC4 ||
                 m == 0xC0 || m == 0xC1 || m == 0xC3) {
                 const size_t n = word(p);
@@ -2790,11 +3141,28 @@ struct Tiff {
     // components as the inverse DCT leaves them, not upsampled, and each
     // chroma sample on its whole sampling unit
     void decode_ojpeg(uint8_t* dst) const {
-        if (ojpeg_at > n) fail("TIFF: JPEGInterchangeFormat past the end of the file");
-        // libtiff reads the stream as far as the file goes
-        const size_t len = std::min(ojpeg_len, n - ojpeg_at);
-        ojpeg_header(d + ojpeg_at, len);
-        Jpeg j(d + ojpeg_at, len);
+        // tif_ojpeg.c OJPEGReadBufferFill: the JPEGInterchangeFormat bytes
+        // (as far as the file goes), then every strip's bytes in turn (a
+        // count of 0: to the end of the file; an offset of 0 or past the
+        // end: none); a read that finds the file's end stops the stream
+        // (OJPEGReadHeaderInfoSec: a JPEGInterchangeFormat past the end of
+        // the file is dropped, a length of 0 or past the end runs to the end)
+        std::vector<uint8_t> stream;
+        if (ojpeg_at && ojpeg_at < n) {
+            const size_t len = ojpeg_len && ojpeg_len <= n - ojpeg_at ? ojpeg_len : n - ojpeg_at;
+            stream.assign(d + ojpeg_at, d + ojpeg_at + len);
+        }
+        for (size_t k = 0; k < offsets.size(); ++k) {
+            const uint64_t off = offsets[k];
+            if (off == 0 || off >= n) continue;
+            const uint64_t cnt = k < counts.size() && counts[k] ? counts[k] : n - off;
+            stream.insert(stream.end(), d + off, d + off + std::min<uint64_t>(cnt, n - off));
+        }
+        if (!ojpeg_header(stream.data(), stream.size()))
+            fail("TIFF: old-style JPEG-in-TIFF without a JPEG stream behind JPEGInterchangeFormat "
+                 "or in its strips (libtiff builds the frame from the JPEGQTables / JPEGDCTables / "
+                 "JPEGACTables tags; no oracle file of the layout: decided divergence)");
+        Jpeg j(stream.data(), stream.size());
         j.tiff_source = true;
         j.decode_scans();
         if (j.comps.size() != 3 || j.lossless)
@@ -2805,8 +3173,11 @@ struct Tiff {
             fail("TIFF: old-style JPEG-in-TIFF whose chroma is not sampled 1 x 1");
         if ((uint32_t)j.width < width || (uint32_t)j.height < height)
             fail("TIFF: old-style JPEG stream smaller than the image");
+        // OJPEGReadHeaderInfoSecStreamSof
+        if (!tiled && (uint32_t)j.width > width)
+            fail("TIFF: old-style JPEG stream wider than the image (libtiff refuses it)");
         j.inverse_dct();
-        const YccToRgb conv;
+        const YccToRgb conv(ycc_luma, ycc_refbw);
         const int ys = yc.bw * 8, cs = cbc.bw * 8;
         for (uint32_t y = 0; y < height; ++y)
             for (uint32_t x = 0; x < width; ++x) {
@@ -2880,6 +3251,28 @@ struct Tiff {
         }
     }
 
+    // one JPEG strip or tile of the directory, as TIFFFillStrip /
+    // TIFFFillTile read it, into the image
+    void read_jpeg_chunk(size_t idx, uint32_t x0, uint32_t y0, uint32_t plane, uint32_t rows,
+                         uint8_t* dst, std::vector<uint8_t>& reversed) const {
+        const size_t off = (size_t)offsets[idx];
+        if (off > n) fail("TIFF: strip or tile past the end of the file");
+        size_t cnt = idx < counts.size() ? (size_t)counts[idx] : n - off;
+        if (idx < counts.size()) {
+            if (cnt == 0) fail("TIFF: a strip or tile of 0 bytes (libtiff refuses it)");
+            if (cnt > n - off)
+                fail("TIFF: a strip or tile runs past the end of the file (libtiff: read error)");
+        }
+        cnt = std::min(cnt, n - off);
+        const uint8_t* src = d + off;
+        if (fillorder == 2) {
+            reversed.resize(cnt);
+            for (size_t i = 0; i < cnt; ++i) reversed[i] = reverse_bits(src[i]);
+            src = reversed.data();
+        }
+        jpeg_chunk(src, cnt, x0, y0, plane, rows, dst);
+    }
+
     void decode(uint8_t* dst, inflate_fn inflate) {
         check_supported();
         if (compression == 6) return decode_ojpeg(dst);
@@ -2900,12 +3293,33 @@ struct Tiff {
         std::vector<uint32_t> row(cw * spc);
         // samples of the whole image (a palette image: its indices)
         std::vector<uint8_t> samples(jpeg() ? 0 : (size_t)width * height * spp * sb);
+        // separate YCbCr JPEG strips go through libtiff's RGBA interface
+        // (gtStripSeparate, PIL: stop on error 0): the first strip of the
+        // first plane must be read (its buffer is allocated after it), and
+        // after that a plane's strip libtiff fails to read or decode leaves
+        // the interface's strip buffer as it was, that plane's rows of the
+        // strip before (zeros at first)
+        const bool rgba_planes = jpeg() && planar == 2 && photometric == 6 && !tiled;
         for (uint32_t plane = 0; plane < planes; ++plane)
             for (uint32_t ty = 0; ty < down; ++ty)
                 for (uint32_t tx = 0; tx < across; ++tx) {
                     size_t idx = ((size_t)plane * down + ty) * across + tx;
                     if (idx >= offsets.size()) continue;
                     uint32_t rows = tiled ? ch : std::min(ch, height - ty * ch);
+                    if (rgba_planes) {
+                        try {
+                            read_jpeg_chunk(idx, tx * cw, ty * ch, plane, rows, dst, reversed);
+                        } catch (const std::exception&) {
+                            if (idx == 0) throw;
+                            const int nch = channels();
+                            for (uint32_t r = 0; r < rows; ++r)
+                                for (uint32_t x = 0; x < width; ++x) {
+                                    const size_t at = ((size_t)(ty * ch + r) * width + x) * nch + plane;
+                                    dst[at] = ty ? dst[at - (size_t)ch * width * nch] : 0;
+                                }
+                        }
+                        continue;
+                    }
                     size_t want = rowbytes * rows;
                     size_t off = (size_t)offsets[idx];
                     if (off > n) fail("TIFF: strip or tile past the end of the file");
@@ -2931,8 +3345,22 @@ struct Tiff {
                         jpeg_chunk(src, cnt, x0, y0, plane, rows, dst);
                         continue;
                     }
-                    chunk.assign(want, 0);
-                    decompress(src, cnt, chunk.data(), want, cw, rows, inflate);
+                    if (tiled && fax()) {
+                        // TIFFReadEncodedTile takes the CCITT decoders' error
+                        // (-1) for success: the rows after the one it failed
+                        // in, or after the data's end, keep PIL's tile buffer's
+                        // earlier contents, the tile read before
+                        if (chunk.size() != want) chunk.assign(want, 0);
+                        bool failed = false;
+                        if (fax_decode(src, cnt, chunk.data(), cw, rows, failed) < rows &&
+                            idx == 0)
+                            fail("TIFF: CCITT data that ends rows short of the first tile (PIL's "
+                                 "pixels there are its buffer's earlier contents: decided "
+                                 "divergence, not had from the file)");
+                    } else {
+                        chunk.assign(want, 0);
+                        decompress(src, cnt, chunk.data(), want, cw, rows, inflate);
+                    }
                     uint32_t w_here = std::min(cw, width - x0);
                     const size_t nvals = (size_t)cw * spc;
                     for (uint32_t r = 0; r < rows && y0 + r < height; ++r) {
@@ -2978,7 +3406,7 @@ struct Tiff {
             // separate YCbCr JPEG planes: PIL reads them through libtiff's
             // RGBA interface, which converts them (putseparate8bitYCbCr11tile)
             if (photometric == 6 && planar == 2) {
-                const YccToRgb conv;
+                const YccToRgb conv(ycc_luma, ycc_refbw);
                 for (size_t i = 0; i < npix; ++i) {
                     uint8_t* px = dst + 3 * i;
                     conv.put(px[0], px[1], px[2], px);
@@ -2987,7 +3415,7 @@ struct Tiff {
             return;
         }
 
-        if (photometric == 3) {
+        if (photometric == 3 && !keep_indices) {
             const size_t ncol = (size_t)1 << bps, ch = channels();
             for (size_t i = 0; i < npix; ++i) {
                 size_t v = samples[spp * i];
@@ -2999,6 +3427,78 @@ struct Tiff {
             return;
         }
         std::memcpy(dst, samples.data(), samples.size());
+    }
+
+    // whether libtiff, reading the directory its own way, hands PIL rows of
+    // the layout PIL's IFD reader expects (then the samples are decoded
+    // directly)
+    bool same_layout(const Tiff& L) const {
+        // libtiff's RGBA interface hands PIL RGBA pixels whatever the
+        // layout, which PIL's YCbCr rawmode ("RGBX") reads
+        if (L.compression == 6 || L.ycc_rgba())
+            return (compression == 6 || photometric == 6) && spp == 3 && bps == 8 &&
+                   !(jpeg() && planar == 1);
+        return L.spp == spp && L.bps == bps && L.planar == planar &&
+               (L.photometric == 3) == (photometric == 3) && L.ycc_rgba() == ycc_rgba() &&
+               L.jpeg() == jpeg() && (L.compression == 6) == (compression == 6) &&
+               (!jpeg() || (L.photometric == 6) == (photometric == 6));
+    }
+
+    // bytes of one row of the buffer PIL's TiffDecode.c reads libtiff's data
+    // into: RGBA pixels from the RGBA interface (YCbCr under another codec
+    // than JPEG, old-style JPEG), the pixels libjpeg gives, or a scanline
+    // (TIFFScanlineSize); 0 for a layout read otherwise (tiles, separate
+    // planes)
+    uint64_t pil_row_bytes() const {
+        if (compression == 6 || ycc_rgba()) return (uint64_t)width * 4;
+        if (tiled || planar == 2) return 0;
+        if (jpeg()) return (uint64_t)width * channels();
+        return scanline_bytes();
+    }
+
+    // TiffDecode.c _decodeStrip: the rows per strip PIL steps by (the tag's,
+    // unless absent or 2^32 - 1: the image's height; -1 where the value
+    // reads negative as an int, which PIL refuses) and TIFFStripSize
+    int64_t pil_rows_per_strip() const {
+        if (!rps_set || rows_per_strip == 0xFFFFFFFFu) return height;
+        return rows_per_strip >= 0x80000000u ? -1 : (int64_t)rows_per_strip;
+    }
+    uint64_t strip_bytes() const {
+        return scanline_bytes() * std::min(rows_per_strip, height);
+    }
+
+    // the rows of that buffer (height x pil_row_bytes()), for PIL's unpacker
+    // to read the start of each as its own layout
+    void decode_rows(uint8_t* dst, inflate_fn inflate) {
+        const uint64_t rb = pil_row_bytes();
+        keep_indices = true;
+        const int ch = photometric == 3 ? (int)spp : channels(), sb = photometric == 3 ? 1 : sample_bytes();
+        std::vector<uint8_t> px((size_t)width * height * ch * sb);
+        decode(px.data(), inflate);
+        const size_t row_px = (size_t)width * ch * sb;
+        for (uint32_t y = 0; y < height; ++y) {
+            const uint8_t* in = px.data() + row_px * y;
+            uint8_t* out = dst + rb * y;
+            if (compression == 6 || ycc_rgba()) {
+                for (uint32_t x = 0; x < width; ++x) {
+                    std::memcpy(out + 4 * x, in + 3 * x, 3);
+                    out[4 * x + 3] = 255;
+                }
+            } else if (jpeg() || bps == 8 || bps == 16 || bps == 32) {
+                std::memcpy(out, in, std::min<uint64_t>(rb, row_px));
+            } else {
+                // packed samples, most significant bit first
+                std::memset(out, 0, rb);
+                const size_t nvals = (size_t)width * spp;
+                for (size_t i = 0; i < nvals; ++i) {
+                    uint32_t val = sb == 1 ? in[i] : (uint32_t)(in[2 * i] | in[2 * i + 1] << 8);
+                    for (uint32_t b = 0; b < bps; ++b) {
+                        const size_t bit = i * bps + b;
+                        if ((val >> (bps - 1 - b)) & 1) out[bit >> 3] |= (uint8_t)(0x80 >> (bit & 7));
+                    }
+                }
+            }
+        }
     }
 
     // one 8-, 16- or 32-bit sample in the file's byte order
@@ -3184,7 +3684,7 @@ extern "C" {
 int32_t citlab_image_info(const uint8_t* data, int64_t n, int32_t* info, char* err,
                           int32_t errlen) {
     try {
-        std::memset(info, 0, sizeof(int32_t) * 24);
+        std::memset(info, 0, sizeof(int32_t) * 32);
         int kind = kind_of(data, (size_t)n);
         if (kind == 1) {
             Jpeg j(data, (size_t)n);
@@ -3219,6 +3719,30 @@ int32_t citlab_image_info(const uint8_t* data, int64_t n, int32_t* info, char* e
             for (size_t i = 0; i < 3 && i < t.extrasamples.size(); ++i)
                 info[18 + i] = (int32_t)t.extrasamples[i];
             info[21] = (int32_t)t.predictor;
+            // [22] how libtiff's reading of the directory relates to PIL's
+            // (0 the same layout, 1 other rows for PIL's unpacker, [23]
+            // bytes each; 2 libtiff refuses the directory or the layout);
+            // [24] libtiff's BitsPerSample; for other rows in strips, [25]
+            // TIFFStripSize and [26] the rows per strip PIL steps by
+            // (-1: PIL refuses them), [27] 1 for RGBA rows
+            if (t.compression != 1) {
+                try {
+                    Tiff L = t.libtiff_view();
+                    info[24] = (int32_t)L.bps;
+                    if (L.width != t.width || L.height != t.height) {
+                        info[22] = 2;
+                    } else if (!t.same_layout(L)) {
+                        const uint64_t rb = L.pil_row_bytes();
+                        info[22] = rb && rb < INT32_MAX ? 1 : 2;
+                        info[23] = (int32_t)std::min<uint64_t>(rb, INT32_MAX);
+                        info[25] = (int32_t)std::min<uint64_t>(L.strip_bytes(), INT32_MAX);
+                        info[26] = (int32_t)std::max<int64_t>(L.pil_rows_per_strip(), -1);
+                        info[27] = L.compression == 6 || L.ycc_rgba();
+                    }
+                } catch (const std::exception&) {
+                    info[22] = 2;
+                }
+            }
         } else {
             fail("not a JPEG or TIFF file");
         }
@@ -3246,10 +3770,47 @@ int32_t citlab_image_decode(const uint8_t* data, int64_t n, uint8_t* out, int64_
         } else if (kind == 2) {
             Tiff t(data, (size_t)n);
             t.parse();
-            t.check_supported();
-            if ((int64_t)t.width * t.height * t.channels() * t.sample_bytes() != out_size)
-                fail("output buffer size does not match the image");
-            t.decode(out, inflate);
+            if (t.compression == 1) {
+                // PIL reads uncompressed strips itself
+                t.check_supported();
+                if ((int64_t)t.width * t.height * t.channels() * t.sample_bytes() != out_size)
+                    fail("output buffer size does not match the image");
+                t.decode(out, inflate);
+            } else {
+                // libtiff decodes what its own reading of the directory says
+                t.check_open();
+                if (t.photometric == 3) t.check_palette();
+                Tiff L = t.libtiff_view();
+                if (L.width != t.width || L.height != t.height)
+                    fail("TIFF: libtiff reads an image of " + std::to_string(L.width) + " x " +
+                         std::to_string(L.height) + " where PIL's IFD reader reads " +
+                         std::to_string(t.width) + " x " + std::to_string(t.height) +
+                         " (PIL: inconsistent image, decoder error)");
+                if (L.photometric == 3 && t.photometric == 3) L.colormap = t.colormap;
+                L.check_supported();
+                // TiffDecode.c _decodeTile: PIL's tile of its rows (its bits
+                // per pixel) must hold TIFFTileSize
+                const uint64_t bits = L.planar == 2 ? L.bps : (uint64_t)L.spp * L.bps;
+                if (L.tiled && L.compression != 6 && !L.ycc_rgba() &&
+                    ((uint64_t)L.tile_h * bits + 7) / 8 * L.tile_w <
+                        (uint64_t)L.tile_h * (((uint64_t)L.tile_w * (L.planar == 2 ? 1 : L.spp) *
+                                               L.bps + 7) / 8))
+                    fail("TIFF: a tile of " + std::to_string(L.tile_w) + " x " +
+                         std::to_string(L.tile_h) + " holds more bytes than PIL's tile buffer "
+                         "(PIL: decoder error)");
+                if (!L.tiled && L.compression != 6 && !L.ycc_rgba() && L.pil_rows_per_strip() < 0)
+                    fail("TIFF: RowsPerStrip " + std::to_string(L.rows_per_strip) +
+                         " reads negative in PIL's decoder (PIL: decoder error)");
+                if (t.same_layout(L)) {
+                    if ((int64_t)t.width * t.height * t.channels() * t.sample_bytes() != out_size)
+                        fail("output buffer size does not match the image");
+                    L.decode(out, inflate);
+                } else {
+                    if ((int64_t)L.pil_row_bytes() * L.height != out_size)
+                        fail("output buffer size does not match libtiff's rows");
+                    L.decode_rows(out, inflate);
+                }
+            }
         } else {
             fail("not a JPEG or TIFF file");
         }

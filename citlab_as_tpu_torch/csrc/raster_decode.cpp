@@ -12,11 +12,16 @@
 //   MspImagePlugin    MSP version 2 rows of its row map, one byte stream
 //   QoiImagePlugin    the QOI op stream (INDEX, DIFF, LUMA, RUN, RGB, RGBA)
 //   BitDecode.c       IM's "F;<bits>" samples, least significant bit first
+//   FliDecode.c       the first frame of an FLI / FLC animation (BRUN, LC,
+//                     SS2, BLACK, COPY, PSTAMP chunks), fed as ImageFile.load
+//                     feeds it: the frame's size in bytes at a time
 //
 // Every read is bounds-checked. A stream that ends before the image is full
 // returns kTruncated (PIL: "image file is truncated"), a run PIL rejects
 // kOverrun; nothing is returned as a partial image. The code keeps no state
 // between calls and writes only into the caller's buffers.
+#include <algorithm>
+#include <climits>
 #include <cstdint>
 #include <cstring>
 #include <vector>
@@ -397,6 +402,193 @@ int64_t citlab_bit_decode(const uint8_t* data, int64_t n, int64_t pos, int32_t b
         }
     }
     return kTruncated;
+}
+
+// FliDecode.c on one buffer: the frame chunk at buf[0], `bytes` bytes of
+// it in hand. Returns the bytes consumed (0: wait for more) or -1 with
+// `err` (0: the frame is done; else the decoder's error).
+static int64_t fli_frame(const uint8_t* buf, int64_t bytes, int32_t xsize, int32_t ysize,
+                         uint8_t* im, int& err) {
+    auto i16 = [](const uint8_t* p) { return (int)p[0] | (int)p[1] << 8; };
+    auto i32 = [](const uint8_t* p) {
+        return (int32_t)((uint32_t)p[0] | (uint32_t)p[1] << 8 | (uint32_t)p[2] << 16 |
+                         (uint32_t)p[3] << 24);
+    };
+    err = 0;
+    if (bytes < 4) return 0;
+    const uint8_t* ptr = buf;
+    // the frame's size as PIL's build compares it: unsigned
+    const int64_t framesize = (uint32_t)i32(ptr);
+    // a full frame in hand first (one pad byte may be missing)
+    if (bytes + (bytes % 2) < framesize) return 0;
+    if (bytes < 8) {
+        err = kOverrun;
+        return -1;
+    }
+    if (i16(ptr + 4) != 0xF1FA) {
+        err = kCorrupt;
+        return -1;
+    }
+    const int chunks = i16(ptr + 6);
+    ptr += 16;
+    bytes -= 16;
+    for (int c = 0; c < chunks; ++c) {
+        if (bytes < 10) {
+            err = kOverrun;
+            return -1;
+        }
+        const uint8_t* data = ptr + 6;
+        // the chunk's data must lie in what is in hand
+        auto oob = [&](int64_t k) { return data + k > ptr + bytes; };
+        switch (i16(ptr + 4)) {
+            case 4: case 11: case 18:   // palettes (read at open), postage stamp
+                break;
+            case 7: {                    // SS2: word delta
+                const int lines = i16(data);
+                data += 2;
+                int l = 0, y = 0;
+                for (; l < lines && y < ysize; ++l, ++y) {
+                    uint8_t* row = im + (int64_t)y * xsize;
+                    if (oob(2)) { err = kOverrun; return -1; }
+                    int packets = i16(data);
+                    data += 2;
+                    while (packets & 0x8000) {
+                        if (packets & 0x4000) {
+                            y += 65536 - packets;       // skip lines
+                            if (y >= ysize) { err = kOverrun; return -1; }
+                            row = im + (int64_t)y * xsize;
+                        } else {
+                            row[xsize - 1] = (uint8_t)packets;   // the odd last byte
+                        }
+                        if (oob(2)) { err = kOverrun; return -1; }
+                        packets = i16(data);
+                        data += 2;
+                    }
+                    int p = 0, x = 0;
+                    for (; p < packets; ++p) {
+                        if (oob(2)) { err = kOverrun; return -1; }
+                        x += data[0];
+                        if (data[1] >= 128) {
+                            if (oob(4)) { err = kOverrun; return -1; }
+                            const int i = 256 - data[1];
+                            if (x + i + i > xsize) break;
+                            for (int j = 0; j < i; ++j) {
+                                row[x++] = data[2];
+                                row[x++] = data[3];
+                            }
+                            data += 4;
+                        } else {
+                            const int i = 2 * (int)data[1];
+                            if (x + i > xsize) break;
+                            if (oob(2 + i)) { err = kOverrun; return -1; }
+                            std::memcpy(row + x, data + 2, i);
+                            data += 2 + i;
+                            x += i;
+                        }
+                    }
+                    if (p < packets) break;
+                }
+                if (l < lines) { err = kOverrun; return -1; }
+                break;
+            }
+            case 12: {                   // LC: byte delta
+                int y = i16(data);
+                const int ymax = y + i16(data + 2);
+                data += 4;
+                for (; y < ymax && y < ysize; ++y) {
+                    uint8_t* row = im + (int64_t)y * xsize;
+                    if (oob(1)) { err = kOverrun; return -1; }
+                    const int packets = *data++;
+                    int p = 0, x = 0, i = 0;
+                    for (; p < packets; ++p, x += i) {
+                        if (oob(2)) { err = kOverrun; return -1; }
+                        x += data[0];
+                        if (data[1] & 0x80) {
+                            i = 256 - data[1];
+                            if (x + i > xsize) break;
+                            if (oob(3)) { err = kOverrun; return -1; }
+                            std::memset(row + x, data[2], i);
+                            data += 3;
+                        } else {
+                            i = data[1];
+                            if (x + i > xsize) break;
+                            if (oob(2 + i)) { err = kOverrun; return -1; }
+                            std::memcpy(row + x, data + 2, i);
+                            data += i + 2;
+                        }
+                    }
+                    if (p < packets) break;
+                }
+                if (y < ymax) { err = kOverrun; return -1; }
+                break;
+            }
+            case 13:                     // BLACK
+                std::memset(im, 0, (size_t)xsize * ysize);
+                break;
+            case 15:                     // BRUN: byte run length, the whole frame
+                for (int y = 0; y < ysize; ++y) {
+                    uint8_t* row = im + (int64_t)y * xsize;
+                    data += 1;           // the packet count is not used
+                    int x = 0, i = 0;
+                    for (; x < xsize; x += i) {
+                        if (oob(2)) { err = kOverrun; return -1; }
+                        if (data[0] & 0x80) {
+                            i = 256 - data[0];
+                            if (x + i > xsize) break;
+                            if (oob(i + 1)) { err = kOverrun; return -1; }
+                            std::memcpy(row + x, data + 1, i);
+                            data += i + 1;
+                        } else {
+                            i = data[0];
+                            if (x + i > xsize) break;
+                            std::memset(row + x, data[1], i);
+                            data += 2;
+                        }
+                    }
+                    if (x != xsize) { err = kOverrun; return -1; }
+                }
+                break;
+            case 16:                     // COPY: the frame's pixels as they are
+                if (INT32_MAX / xsize < ysize) { err = kOverrun; return -1; }
+                if (oob((int64_t)xsize * ysize)) return ptr - buf;
+                std::memcpy(im, data, (size_t)xsize * ysize);
+                break;
+            default:
+                err = kCorrupt;
+                return -1;
+        }
+        const int32_t advance = i32(ptr);
+        if (advance == 0 || advance < 0 || advance > bytes) {
+            err = kOverrun;
+            return -1;
+        }
+        ptr += advance;
+        bytes -= advance;
+    }
+    return -1;
+}
+
+// The first frame of an FLI / FLC file into im (xsize x ysize palette
+// indices, zero to start with), as ImageFile.load drives FliDecode.c: the
+// frame at `offset`, read framesize bytes at a time (PIL's decodermaxblock
+// for the frame) and handed over with what the decoder left. Returns 0, or
+// kTruncated where the file ends first, kOverrun / kCorrupt where the
+// decoder fails.
+int64_t citlab_fli_decode(const uint8_t* data, int64_t n, int64_t offset, int64_t framesize,
+                          int32_t xsize, int32_t ysize, uint8_t* im) {
+    if (xsize <= 0 || ysize <= 0) return kCorrupt;
+    std::vector<uint8_t> buf;
+    int64_t pos = offset;
+    while (true) {
+        const int64_t take = pos < n ? std::min(framesize, n - pos) : 0;
+        if (take <= 0) return kTruncated;
+        buf.insert(buf.end(), data + pos, data + pos + take);
+        pos += take;
+        int err = 0;
+        const int64_t used = fli_frame(buf.data(), (int64_t)buf.size(), xsize, ysize, im, err);
+        if (used < 0) return err ? err : 0;
+        buf.erase(buf.begin(), buf.begin() + used);
+    }
 }
 
 }  // extern "C"

@@ -28,7 +28,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "citlab_kernels")
 KERNEL_SOURCES = ("conv3x3", "separator_morphology")
 HOST_SOURCES = ("geometry_host", "image_decode", "image_encode", "webp_decode",
-                "jpeg2000_decode", "raster_decode")
+                "jpeg2000_decode", "raster_decode", "bcn_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the JAX package's native/Makefile flags: -march=native lets the compiler
@@ -36,9 +36,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # agree bit for bit on the same host (numpy, which never fuses, agrees to
 # the last bits of a double)
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
-# the image writer reproduces Pillow's float expressions and the JPEG 2000
-# decoder OpenJPEG's, which their generic x86-64 builds never fuse
-EXTRA_FLAGS = {"image_encode": ("-ffp-contract=off",),
+# the image writer reproduces Pillow's float expressions, the decoder
+# libtiff's YCbCr coefficients and the JPEG 2000 decoder OpenJPEG's, which
+# their generic x86-64 builds never fuse
+EXTRA_FLAGS = {"image_encode": ("-ffp-contract=off",), "image_decode": ("-ffp-contract=off",),
                "jpeg2000_decode": ("-ffp-contract=off",)}
 
 _lock = threading.Lock()

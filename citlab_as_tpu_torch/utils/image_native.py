@@ -28,7 +28,7 @@ from typing import Tuple
 import numpy as np
 
 _ERRLEN = 512
-_INFO_LEN = 24
+_INFO_LEN = 32
 _INFLATE_FN = ctypes.CFUNCTYPE(ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
                                ctypes.c_void_p, ctypes.c_int64)
 
@@ -272,6 +272,57 @@ def _tiff_as_pil(raw: np.ndarray, m: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(out)
 
 
+def _libtiff_rows_as_pil(data: bytes, m: np.ndarray) -> np.ndarray:
+    """A compressed TIFF whose directory libtiff reads otherwise than PIL's
+    IFD reader (a tag PIL never reached, the first of duplicate tags):
+    PIL's TiffDecode.c reads libtiff's rows (scanlines, or RGBA pixels
+    from its RGBA interface) and unpacks the start of each with its own
+    rawmode. The decoder gives those rows; this reads them as PIL does,
+    into the samples :func:`_tiff_as_pil` takes."""
+    mode, rawmode = _pil_tiff_mode(m)
+    w, h, row_bytes = int(m[0]), int(m[1]), int(m[23])
+    photo = int(m[5]) if m[5] >= 0 else 0
+    if mode in ("P", "PA"):
+        raise NativeDecodeError(
+            "TIFF: a palette image whose directory libtiff reads otherwise than PIL's IFD "
+            "reader is not supported")
+    rows = np.empty((h, row_bytes), np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    if _lib().citlab_image_decode(data, len(data), rows.ctypes.data, rows.nbytes, _inflate,
+                                  err, _ERRLEN):
+        raise NativeDecodeError(err.value.decode())
+    bps = int(m[13])
+    spp = int(m[11]) if m[11] >= 0 else (3 if int(m[6]) == 6 else 1)
+    # PIL's unpacker: YCbCr pixels come as "RGBX" (4 bytes), but straight
+    # RGB from new-style JPEG in one plane
+    if photo == 6 and not (int(m[6]) == 7 and int(m[7]) == 1):
+        per_pixel, k = 4, 4
+    else:
+        per_pixel, k = spp, spp
+    need = (w * per_pixel * bps + 7) // 8
+    if row_bytes < need:
+        raise NativeDecodeError(
+            f"TIFF: libtiff's rows of {row_bytes} bytes are shorter than the {need} bytes "
+            "PIL's unpacker reads (PIL: strip is not large enough, decoder error)")
+    # TiffDecode.c _decodeStrip: PIL's strip of rows per strip rows of its
+    # own bytes must hold TIFFStripSize (RGBA rows are not checked)
+    strip_bytes, pil_rows = int(m[25]), int(m[26])
+    if not m[27] and (pil_rows < 0 or pil_rows * need < strip_bytes):
+        raise NativeDecodeError(
+            f"TIFF: libtiff's strips of {strip_bytes} bytes are larger than PIL's strip of "
+            f"{max(pil_rows, 0)} rows of {need} bytes (PIL: decoder error)")
+    head = rows[:, :need]
+    if bps in (8, 16, 32):
+        vals = np.ascontiguousarray(head).view({8: np.uint8, 16: np.uint16, 32: np.uint32}[bps])
+    else:
+        bits = np.unpackbits(head, axis=1)[:, :w * k * bps].reshape(h, w * k, bps)
+        vals = (bits.astype(np.uint16) << np.arange(bps - 1, -1, -1, dtype=np.uint16)).sum(
+            -1, dtype=np.uint16)
+        vals = vals.astype(np.uint8) if bps < 8 else vals
+    vals = vals.reshape(h, w, k)
+    return vals[..., :3] if photo == 6 else vals
+
+
 def bmp_rle(data: bytes, start: int, rle4: bool, width: int, height: int):
     """PIL's RLE8 / RLE4 decoding of a BMP's samples from ``data[start:]``:
     (uint8 [height, width] in the file's row order, the count of samples
@@ -445,6 +496,8 @@ def decode(data: bytes) -> np.ndarray:
     else:
         pil_jpeg_open(data)
     w, h, ch, sb = int(m[0]), int(m[1]), int(m[2]), int(m[4])
+    if m[3] == 2 and m[22] == 1:
+        return _tiff_as_pil(_libtiff_rows_as_pil(data, m), m)
     out = np.empty((h, w, ch), {1: np.uint8, 2: np.uint16, 4: np.uint32}[sb])
     err = ctypes.create_string_buffer(_ERRLEN)
     if _lib().citlab_image_decode(data, len(data), out.ctypes.data, out.nbytes, _inflate,

@@ -19,7 +19,8 @@ bit to ``np.asarray(Image.open(path).convert(mode))`` under PIL 12.1:
   either FillOrder; no compression, PackBits, LZW, Deflate, CCITT modified
   Huffman, Group 3 (1-D and 2-D) and Group 4, JPEG with JPEGTables (grey,
   RGB, YCbCr or CMYK), old-style JPEG behind JPEGInterchangeFormat, YCbCr under
-  LZW, Deflate or PackBits as libtiff's RGBA interface converts it;
+  LZW, Deflate or PackBits as libtiff's RGBA interface converts it (with
+  the file's YCbCrCoefficients and ReferenceBlackWhite);
   horizontal and floating-point predictors; 1-, 2-, 4-, 8-, 12-, 16-bit and
   32-bit integer or float samples; grey, palette (with an extra sample:
   "PA", "PX"), RGB(A), CMYK, as PIL's ``OPEN_INFO`` table reads them;
@@ -42,6 +43,10 @@ bit to ``np.asarray(Image.open(path).convert(mode))`` under PIL 12.1:
 - the lossless raster formats of PIL's registry: PCX, DCX, PSD, TGA, ICO,
   CUR, DIB, SGI, SUN, QOI, MSP, IM, XBM, XPM, PIXAR, SPIDER, GBR, IMT,
   MCIDAS and XVTHUMB (``utils/raster_formats.py``, host C++
+  ``csrc/raster_decode.cpp``);
+- the block textures DDS, BLP and FTEX over one BC1-BC7 decoder
+  (``utils/textures.py``, host C++ ``csrc/bcn_decode.cpp``), and ICNS, PCD,
+  FITS, FLI / FLC and IPTC (``utils/registry_formats.py``, FLI's chunks in
   ``csrc/raster_decode.cpp``).
 
 Every file's format is the one ``Image.open`` finds: its plugin order and
@@ -53,8 +58,8 @@ once for every format, before any buffer is allocated.
 Damaged files of the main path's formats decode as PIL decodes them or
 are refused where PIL refuses: JPEG as libjpeg-turbo 3.1 recovers from
 corrupt entropy-coded data (its x86 SIMD inverse DCT included), TIFF as
-PIL's IFD reader, libtiff's directory reader, CCITT decoder and RGBA
-interface leave it, PNG as PIL's ZipDecode inflates it row by row (the
+PIL's IFD reader opens it and libtiff's own reading of the directory, its
+CCITT decoder and RGBA interface decode it, PNG as PIL's ZipDecode inflates it row by row (the
 zlib check is met only where inflate reaches it before the last row), GIF
 as far as PIL's reads of the file go (``scripts/fuzz_main_formats.py``).
 
@@ -73,8 +78,8 @@ baseline JPEG (:func:`save_jpeg`, host C++ ``csrc/image_encode.cpp``);
 
 Everything else raises :class:`UnsupportedImageFormat` naming the variant:
 the formats PIL identifies and the port does not decode (``_NOT_DECODED``:
-the block-texture formats, ICNS, PCD, FITS, FLI, IPTC and AVIF queued;
-EPS, WMF, MPEG, BUFR, GRIB, HDF5, which PIL cannot decode here either);
+AVIF queued; EPS, WMF, MPEG, BUFR, GRIB, HDF5, which PIL cannot decode here
+either);
 a raster file PIL refuses, and a file whose header PIL's reader rejects,
 by the plugin that let it in; other RIFF files than WebP; a WebP or JPEG
 2000 file PIL refuses (and a JPEG 2000 file with high-throughput
@@ -146,16 +151,11 @@ class UnsupportedImageFormat(ValueError):
 
 _SUPPORTED = ("PNG, PNM, .npy, 8-bit JPEG (Huffman, arithmetic, lossless), TIFF, BMP, GIF, "
               "WebP, JPEG 2000, PCX, DCX, PSD, TGA, ICO, CUR, DIB, SGI, SUN, QOI, MSP, IM, XBM, "
-              "XPM, PIXAR, SPIDER, GBR, IMT, MCIDAS, XVTHUMB")
+              "XPM, PIXAR, SPIDER, GBR, IMT, MCIDAS, XVTHUMB, DDS, BLP, FTEX, ICNS, PCD, FITS, "
+              "FLI, IPTC")
 # the formats of PIL's registry that PIL identifies and the port does not decode
 _NOT_DECODED = {
     "AVIF": "AVIF (queued, ROADMAP item 20: an AV1 intra-frame decoder)",
-    "BLP": "BLP (queued, ROADMAP item 20: BC1-BC7 block textures)",
-    "DDS": "DDS (queued, ROADMAP item 20: BC1-BC7 block textures)",
-    "FTEX": "FTEX (queued, ROADMAP item 20: BC1-BC7 block textures)",
-    "ICNS": "ICNS (queued, ROADMAP item 20)", "PCD": "PCD (queued, ROADMAP item 20)",
-    "FITS": "FITS (queued, ROADMAP item 20)", "FLI": "FLI (queued, ROADMAP item 20)",
-    "IPTC": "IPTC (queued, ROADMAP item 20)",
     "EPS": "EPS (PIL needs Ghostscript)", "WMF": "WMF (PIL draws it only on Windows)",
     "MPEG": "MPEG (PIL identifies it and has no decoder)",
     "BUFR": "BUFR (PIL's stub plugin has no decoder)",
@@ -524,6 +524,8 @@ def _pnm_header(data: bytes, path: str):
     except ValueError:
         raise UnsupportedImageFormat(f"{path}: malformed PNM header") from None
     w, h = tokens[:2]
+    if w <= 0 or h <= 0:
+        raise UnsupportedImageFormat(f"{path}: PNM of {w} x {h} pixels (PIL cannot identify it)")
     level = tokens[2] if len(tokens) == 3 else 1
     if mode == "F" and (level == 0 or not np.isfinite(level)):
         raise UnsupportedImageFormat(f"{path}: PFM scale must be finite and non-zero")
@@ -586,6 +588,9 @@ def _decode_pnm(data: bytes, path: str) -> np.ndarray:
         out_max = 65535 if mode == "I" else 255
         if magic in (b"P2", b"P3"):
             values = _pnm_plain_values(body, count, path)
+            if (values < 0).any():
+                raise UnsupportedImageFormat(f"{path}: negative PNM sample (PIL: channel value "
+                                             "is negative)")
             if (values > level).any():
                 raise UnsupportedImageFormat(f"{path}: PNM sample above maxval {level}")
         else:
@@ -611,6 +616,12 @@ def _decode(path: str, mode: str = "L") -> np.ndarray:
         return arr
     with open(path, "rb") as f:
         data = f.read()
+    return _decode_data(data, path, mode)
+
+
+def _decode_data(data: bytes, path: str, mode: str = "L") -> np.ndarray:
+    """An image file's bytes, identified and decoded as ``Image.open``
+    identifies and loads them (``path`` names it in errors)."""
     fmt, im = _identify(data, path)
     _bomb_check(_size(data, path, fmt, im), path)
     if fmt == "PNG":

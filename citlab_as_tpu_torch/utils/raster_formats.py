@@ -12,7 +12,9 @@ mode or size), the next plugin is tried, and any other failure refuses
 the file. The openers below follow PIL's own reading of each header, so
 they fail where PIL fails. Formats the port decodes elsewhere (BMP, GIF,
 JPEG, PNM, PNG, TIFF, WebP, JPEG 2000) are named here and decoded by their
-own modules.
+own modules; DDS, BLP and FTEX (``utils/textures.py``) and ICNS, PCD,
+FITS, FLI and IPTC (``utils/registry_formats.py``) are opened and decoded
+by theirs.
 
 Decoded here: PCX (1-bit, 2- and 4-plane bit planes, 8-bit grey or palette,
 planar RGB), DCX (its first page), PSD (the composite image: bitmap, grey,
@@ -118,6 +120,7 @@ def _lib() -> ctypes.CDLL:
         "citlab_msp_decode": [ctypes.c_char_p, i64, i32, i32, p, i64],
         "citlab_qoi_decode": [ctypes.c_char_p, i64, i64, i64, i32, p],
         "citlab_bit_decode": [ctypes.c_char_p, i64, i64, i32, i32, i32, p],
+        "citlab_fli_decode": [ctypes.c_char_p, i64, i64, i64, i32, i32, p],
     }
     for name, args in sigs.items():
         fn = getattr(lib, name)
@@ -1205,57 +1208,49 @@ def _open_xvthumb(f: _File):
                lambda data, want: _XV_PALETTE[_raw("XVTHUMB", data, offset, w, h, "P")])
 
 
+# the block-texture formats (utils/textures.py) and the rest of the registry
+# (utils/registry_formats.py)
+
+def _open_dds(f: _File):
+    from citlab_as_tpu_torch.utils import textures
+    return textures.open_dds(f)
+
+
+def _open_blp(f: _File):
+    from citlab_as_tpu_torch.utils import textures
+    return textures.open_blp(f)
+
+
+def _open_ftex(f: _File):
+    from citlab_as_tpu_torch.utils import textures
+    return textures.open_ftex(f)
+
+
 # plugins this port does not decode: enough of their open to end where PIL ends
 
+def _open_icns(f: _File):
+    from citlab_as_tpu_torch.utils import registry_formats
+    return registry_formats.open_icns(f)
+
+
 def _open_pcd(f: _File):
-    f.seek(2048)
-    s = f.read(1539)
-    if not s.startswith(b"PCD_"):
-        raise SyntaxError
-    s[1538]
-    return _im("PCD", "RGB", (768, 512), None)
+    from citlab_as_tpu_torch.utils import registry_formats
+    return registry_formats.open_pcd(f)
 
 
-_IPTC_TAGS = (1, 2, 3, 4, 5, 6, 7, 8, 9, 240)
+def _open_fits(f: _File):
+    from citlab_as_tpu_torch.utils import registry_formats
+    return registry_formats.open_fits(f)
+
+
+def _open_fli(f: _File):
+    from citlab_as_tpu_torch.utils import registry_formats
+    return registry_formats.open_fli(f)
 
 
 def _open_iptc(f: _File):
-    info = {}
-    while True:
-        s = f.read(5)
-        if not s.strip(b"\0"):
-            tag = None
-        else:
-            tag = (s[1], s[2])
-            if s[0] != 0x1C or tag[0] not in _IPTC_TAGS:
-                raise SyntaxError
-            size = s[3]
-            if size > 132:
-                _refuse("IPTC", "illegal field length")
-            elif size == 128:
-                size = 0
-            elif size > 128:
-                size = _u32be((bytes(4) + f.read(size - 128))[-4:])
-            else:
-                size = _u16be(s, 3)
-        if not tag or tag == (8, 10):
-            break
-        data = f.read(size) if size else None
-        info[tag] = [info[tag], data] if tag in info else data
-    layers, component = info[(3, 60)][0], info[(3, 60)][1]
-    if layers == 1 and not component:
-        mode = "L"
-    elif layers in (3, 4) and component:
-        mode = "RGB" if layers == 3 else "CMYK"
-    else:
-        mode = ""
-
-    def getint(key):
-        return _u32be((bytes(4) + info[key])[-4:])
-    size = getint((3, 20)), getint((3, 30))
-    if getint((3, 120)) not in (1, 5):
-        _refuse("IPTC", "unknown compression")
-    return _im("IPTC", mode, size, None)
+    from citlab_as_tpu_torch.utils import registry_formats
+    return registry_formats.open_iptc(f)
 
 
 def _open_wmf(f: _File):
@@ -1292,23 +1287,23 @@ _PLUGINS = [
     ("PPM", lambda p: p[:1] == b"P" and len(p) >= 2 and p[1] in b"0123456fy", None),
     ("PNG", _starts(b"\x89PNG\r\n\x1a\n"), None),
     ("AVIF", _avif_accept, None),
-    ("BLP", _starts(b"BLP1", b"BLP2"), None),
+    ("BLP", _starts(b"BLP1", b"BLP2"), _open_blp),
     ("BUFR", _starts(b"BUFR", b"ZCZC"), None),
     ("CUR", _starts(b"\0\0\2\0"), _open_cur),
     ("PCX", _pcx_accept, _open_pcx),
     ("DCX", lambda p: len(p) >= 4 and _u32le(p) == 0x3ADE68B1, _open_dcx),
-    ("DDS", _starts(b"DDS "), None),
+    ("DDS", _starts(b"DDS "), _open_dds),
     ("EPS", lambda p: p.startswith(b"%!PS") or (len(p) >= 4 and _u32le(p) == 0xC6D3D0C5),
      None),
-    ("FITS", _starts(b"SIMPLE"), None),
+    ("FITS", _starts(b"SIMPLE"), _open_fits),
     ("FLI", lambda p: len(p) >= 16 and _u16le(p, 4) in (0xAF11, 0xAF12)
-     and _u16le(p, 14) in (0, 3), None),
-    ("FTEX", _starts(b"FTEX"), None),
+     and _u16le(p, 14) in (0, 3), _open_fli),
+    ("FTEX", _starts(b"FTEX"), _open_ftex),
     ("GBR", lambda p: len(p) >= 8 and _u32be(p) >= 20 and _u32be(p, 4) in (1, 2), _open_gbr),
     ("GRIB", lambda p: len(p) >= 8 and p.startswith(b"GRIB") and p[7] == 1, None),
     ("HDF5", _starts(b"\x89HDF\r\n\x1a\n"), None),
     ("JPEG2000", jpeg2000.is_jpeg2000, None),
-    ("ICNS", _starts(b"icns"), None),
+    ("ICNS", _starts(b"icns"), _open_icns),
     ("ICO", _starts(b"\0\0\1\0"), _open_ico),
     ("IM", None, _open_im),
     ("IMT", None, _open_imt),
@@ -1334,7 +1329,8 @@ _PLUGINS = [
 ]
 # the formats decoded here
 FORMATS = ("PCX", "DCX", "PSD", "TGA", "ICO", "CUR", "DIB", "SGI", "SUN", "QOI", "MSP", "IM",
-           "XBM", "XPM", "PIXAR", "SPIDER", "GBR", "IMT", "MCIDAS", "XVTHUMB")
+           "XBM", "XPM", "PIXAR", "SPIDER", "GBR", "IMT", "MCIDAS", "XVTHUMB", "DDS", "BLP",
+           "FTEX", "ICNS", "PCD", "FITS", "FLI", "IPTC")
 
 
 def _bomb_check(fmt: str, size) -> None:

@@ -72,10 +72,19 @@ their records in ``small.json``, and writes four full-size pages of the
 newspaper generator (seed ``MAIN_SEED``) into
 ``tests/data/torch_formats_main/`` (``write_main_pages``).
 
+Then the rest of PIL's registry: ``--only registry`` rewrites just the
+small variants of DDS, BLP, FTEX, ICNS, FITS, FLI and IPTC
+(``scripts/registry_variants.py``: byte by byte from seeds, or by PIL's
+writers) and their records in ``small.json``, and writes one full-size
+page of the newspaper generator (seed ``REGISTRY_SEED``) into
+``tests/data/torch_formats_registry/``: a BC1 (DXT1) DDS by PIL's writer,
+with ``page/<name>.xml`` and ``<name>.json`` (PIL's "L" and "RGB"
+digests). PCD's files (786 KB each) are made by the tests from a seed.
+
 Needs PIL (and, for the TIFF, JPEG, WebP and JPEG 2000 variants, the
 libraries Pillow bundles, and gcc); run from the repository root:
 
-    python scripts/make_format_fixtures.py [--only formats variants jpeg webp jpeg2000 raster main]
+    python scripts/make_format_fixtures.py [--only formats variants jpeg webp jpeg2000 raster main registry]
 
 (the page XMLs get new timestamps on every run).
 """
@@ -97,12 +106,14 @@ JPEG_OUT = os.path.join(REPO, "tests", "data", "torch_formats_jpeg")
 WEBP_OUT = os.path.join(REPO, "tests", "data", "torch_formats_webp")
 JPEG2000_OUT = os.path.join(REPO, "tests", "data", "torch_formats_jpeg2000")
 MAIN_OUT = os.path.join(REPO, "tests", "data", "torch_formats_main")
+REGISTRY_OUT = os.path.join(REPO, "tests", "data", "torch_formats_registry")
 SEED = 23
 VARIANT_SEED = 29
 JPEG_SEED = 37
 WEBP_SEED = 41
 JPEG2000_SEED = 43
 MAIN_SEED = 47
+REGISTRY_SEED = 53
 SHAPE = (2000, 1420)
 # (name, file ending, pixels: "grey" | "colour" | "bilevel", PIL save options)
 FIXTURES = [
@@ -130,7 +141,7 @@ def pixels(page: np.ndarray, kind: str) -> Image.Image:
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    kinds = ("formats", "variants", "jpeg", "webp", "jpeg2000", "raster", "main")
+    kinds = ("formats", "variants", "jpeg", "webp", "jpeg2000", "raster", "main", "registry")
     parser.add_argument("--only", nargs="+", choices=kinds, default=kinds)
     only = parser.parse_args().only
     sys.path.insert(0, REPO)
@@ -156,6 +167,10 @@ def main() -> int:
             write_small(MAIN_PREFIXES, [(name, write) for name, write in fv.small_variants()
                                         if name.startswith(MAIN_PREFIXES)])
         write_main_pages()
+    if "registry" in only:
+        from scripts import registry_variants as rv
+        write_small(REGISTRY_PREFIXES, rv.registry_small_variants())
+        write_registry_pages()
     return 0
 
 
@@ -290,6 +305,9 @@ RASTER_PREFIXES = ("pcx_", "dcx_", "psd_", "tga_", "ico_", "cur_", "dib_", "sgi_
                    "mcidas_", "xvthumb")
 
 
+REGISTRY_PREFIXES = ("dds_", "blp_", "ftex_", "icns_", "fits_", "fli_", "iptc_")
+
+
 def write_small(prefix, variants) -> None:
     """The small variants whose names start with ``prefix`` (a string or a
     tuple of them) and their records, the rest of ``small/`` left as it
@@ -307,7 +325,7 @@ def write_small(prefix, variants) -> None:
     with open(os.path.join(small, "small.json"), "w") as f:
         json.dump(records, f, indent=0)
         f.write("\n")
-    print(f"{len(variants)} small {prefix if isinstance(prefix, str) else 'raster'} variants")
+    print(f"{len(variants)} small {prefix if isinstance(prefix, str) else prefix[0]}... variants")
 
 
 def webp_alpha(h: int, w: int) -> np.ndarray:
@@ -451,6 +469,26 @@ def write_main_pages() -> None:
         total += os.path.getsize(path)
         print(f"{os.path.relpath(path, REPO)}: {os.path.getsize(path)} bytes")
     print(f"full-size main-path pages {total} bytes")
+
+
+def write_registry_pages() -> None:
+    """One full-size page of the block-texture formats that PIL's writer
+    makes: BC1 (DXT1) of the tinted colour page in a DDS, with
+    ``page/<name>.xml`` and ``<name>.json`` (PIL's "L" and "RGB"
+    digests)."""
+    import chip_smoke
+    shutil.rmtree(REGISTRY_OUT, ignore_errors=True)
+    os.makedirs(os.path.join(REGISTRY_OUT, "page"))
+    pages, _, layouts = chip_smoke.synthetic_newspaper(1, *SHAPE, seed=REGISTRY_SEED)
+    h, w = SHAPE
+    path = os.path.join(REGISTRY_OUT, "dds_bc1.dds")
+    pixels(pages[0], "colour").save(path, format="DDS", pixel_format="DXT1")
+    chip_smoke.write_layout_xml(os.path.join(REGISTRY_OUT, "page", "dds_bc1.xml"),
+                                os.path.basename(path), h, w, layouts[0])
+    with open(os.path.join(REGISTRY_OUT, "dds_bc1.json"), "w") as f:
+        json.dump(record(path, ("L", "RGB")), f, indent=1)
+        f.write("\n")
+    print(f"{os.path.relpath(path, REPO)}: {os.path.getsize(path)} bytes")
 
 
 if __name__ == "__main__":

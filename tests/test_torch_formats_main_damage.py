@@ -191,6 +191,102 @@ def test_damaged_files_decode_as_pil_or_raise(tmp_path, name):
             raise AssertionError(f"{label}: {e}") from None
 
 
+# the damaged TIFF files where PIL's IFD reader and libtiff's directory
+# reader part ways, as the fuzz found them at seeds 0-14: (seed, fixture,
+# label of the damaged copy). A Photometric, SamplesPerPixel,
+# PlanarConfiguration, StripByteCounts or TileOffsets of a bad count, type
+# or value, a duplicate ImageWidth, StripOffsets of count 0, a T4Options
+# PIL cannot read as a number, a BigTIFF header libtiff refuses; libtiff's
+# old-style JPEG stream (wider than the image, without its length or its
+# interchange format: the strips' bytes), its RGBA interface over separate
+# YCbCr JPEG planes (a plane it fails on keeps the strip before), the
+# CCITT decoders' error taken for success in tiles, PIL's own checks of
+# libtiff's strips and tiles, a scan naming one component twice, a
+# ReferenceBlackWhite of the file's own.
+DIRECTORY_CASES = [
+    (0, "tiff_damaged-ycbcr-lzw.tif", "bytes 2"),
+    (1, "tiff_g3-1d-fillbits-fillorder2.tif", "bytes 14"),
+    (1, "tiff_g3-1d.tif", "bytes 23"),
+    (1, "tiff_ojpeg-420-odd.tif", "bytes 17"),
+    (1, "tiff_planar-CMYK-raw.tif", "bytes 17"),
+    (1, "tiff_ycbcr-21-deflate.tif", "bytes 11"),
+    (2, "tiff_bigtiff-RGB16-deflate-predictor.tif", "bytes 2"),
+    (2, "tiff_bigtiff-g4.tif", "bytes 23"),
+    (2, "tiff_layout-jpeg-planar-ycbcr.tif", "bytes 2"),
+    (3, "tiff_g3-2d-tiles.tif", "bytes 23"),
+    (3, "tiff_jpeg-ycbcr-422-tiles.tif", "bytes 2"),
+    (3, "tiff_ojpeg-420.tif", "bytes 23"),
+    (3, "tiff_ojpeg-444.tif", "bytes 5"),
+    (4, "tiff_bigtiff-RGB16-deflate-predictor.tif", "bytes 9"),
+    (4, "tiff_layout-jpeg-planar-ycbcr.tif", "bytes 2"),
+    (4, "tiff_layout-jpeg-planar-ycbcr.tif", "bytes 23"),
+    (5, "tiff_jpeg-cmyk-tiles.tif", "bytes 9"),
+    (7, "tiff_bigtiff-RGB16-deflate-predictor.tif", "bytes 20"),
+    (7, "tiff_g3-2d-tiles.tif", "bytes 17"),
+    (8, "tiff_ojpeg-422.tif", "bytes 20"),
+    (8, "tiff_ojpeg-444.tif", "bytes 8"),
+    (9, "tiff_g3-2d-tiles.tif", "bytes 2"),
+    (10, "tiff_bigtiff-L.tif", "bytes 15"),
+    (10, "tiff_g3-2d.tif", "bytes 2"),
+    (11, "tiff_layout-ycbcr-planar-deflate.tif", "bytes 2"),
+    (11, "tiff_layout-jpeg-planar-ycbcr.tif", "bytes 23"),
+    (12, "tiff_g3-2d-fillbits.tif", "bytes 5"),
+    (14, "tiff_P4-raw.tif", "bytes 2"),
+]
+
+
+@pytest.mark.parametrize("seed,name,label", DIRECTORY_CASES,
+                         ids=[f"{s}-{n}-{lab.replace(' ', '')}" for s, n, lab in DIRECTORY_CASES])
+def test_tiff_directory_read_as_libtiff_reads_it(tmp_path, seed, name, label):
+    """PIL opens the page from its own IFD reader and decodes it through
+    libtiff, which reads the directory again by its own rules
+    (``csrc/image_decode.cpp::Tiff::libtiff_view``); each file the fuzz
+    found the two readers part ways on decodes or is refused as PIL does."""
+    with open(os.path.join(SMALL, name), "rb") as f:
+        data = f.read()
+    body = dict(damaged(data, "TIFF", 12, 24, 24, seed + sum(map(ord, name))))[label]
+    p = str(tmp_path / "d.tif")
+    with open(p, "wb") as f:
+        f.write(body)
+    _agree(p)
+
+
+# plain PNM files the fuzz found at seeds 3 and 4: a negative sample, and a
+# negative width PIL's open rejects
+PNM_CASES = [(3, "pnm_P3-255.pnm", "bytes 3"), (4, "pnm_P3-7.pnm", "bytes 18")]
+
+
+@pytest.mark.parametrize("seed,name,label", PNM_CASES,
+                         ids=[f"{s}-{n}-{lab.replace(' ', '')}" for s, n, lab in PNM_CASES])
+def test_damaged_plain_pnm_refused_as_pil_refuses(tmp_path, seed, name, label):
+    with open(os.path.join(SMALL, name), "rb") as f:
+        data = f.read()
+    body = dict(damaged(data, "PNM", 12, 24, 24, seed + sum(map(ord, name))))[label]
+    p = str(tmp_path / "d.pnm")
+    with open(p, "wb") as f:
+        f.write(body)
+    assert _agree(p) == "refused"
+
+
+@pytest.mark.parametrize("tile", [0, 2, 3])
+def test_ccitt_tile_that_ends_early_keeps_the_tile_before(tmp_path, tile):
+    """TIFFReadEncodedTile takes the CCITT decoders' error for success: a
+    tile whose data ends in its first row leaves the rest of PIL's tile
+    buffer as the tile before left it, which the port gives; in the first
+    tile that is memory the file never wrote (a decided divergence)."""
+    with open(os.path.join(SMALL, "tiff_g3-2d-tiles.tif"), "rb") as f:
+        data = bytearray(f.read())
+    struct.pack_into("<I", data, 858 + 4 * tile, 3)     # TileByteCounts[tile] = 3
+    p = str(tmp_path / "t.tif")
+    with open(p, "wb") as f:
+        f.write(bytes(data))
+    if tile == 0:
+        with pytest.raises(tio.UnsupportedImageFormat, match=DECIDED):
+            tio.load_image(p, "L")
+        return
+    assert _agree(p) == "decoded"
+
+
 @pytest.mark.parametrize("base", ["grey", "420", "progressive", "restarts"])
 def test_entropy_damaged_jpeg_decodes_as_libjpeg_recovers(tmp_path, base):
     """Huffman-coded pages with one or two bytes of their entropy-coded data

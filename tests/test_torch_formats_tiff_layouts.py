@@ -12,11 +12,14 @@ JPEG-in-TIFF and planar layouts, against the JAX package's ``load_image``
 - the layouts PIL refuses, refused by name (and CIELAB, whose "RGB" PIL
   gets only from LittleCMS: a divergence ROADMAP.md records as decided);
 - the full-size pages of ``chip_smoke.py``'s variants phase in these
-  layouts, held to PIL's recorded digests.
+  layouts, held to PIL's recorded digests;
+- YCbCr under libtiff's RGBA interface with YCbCrCoefficients and
+  ReferenceBlackWhite of their own, in every type libtiff reads them as.
 """
 import hashlib
 import json
 import os
+import struct
 import sys
 
 import numpy as np
@@ -115,3 +118,78 @@ def test_committed_full_size_page_decodes_to_pils_digests(name):
         got = np.ascontiguousarray(tio.load_image(path, mode)).tobytes()
         assert hashlib.sha256(got).hexdigest() == rec[f"sha256_{mode}"], mode
     assert os.path.isfile(os.path.join(MAIN, "page", f"{name}.xml"))
+
+
+def _with_tags(data, extra):
+    """A classic little-endian TIFF whose first IFD is written again at the
+    end of the file with the entries of ``extra`` ({tag: (type, count,
+    value bytes)}) added or replacing the file's."""
+    ifd = struct.unpack_from("<I", data, 4)[0]
+    entries = {}
+    for i in range(struct.unpack_from("<H", data, ifd)[0]):
+        at = ifd + 2 + 12 * i
+        tag, typ, cnt = struct.unpack_from("<HHI", data, at)
+        entries[tag] = (typ, cnt, data[at + 8:at + 12])
+    out = bytearray(data)
+    for tag, (typ, cnt, raw) in extra.items():
+        if len(raw) > 4:
+            out += b"\0" * (len(out) % 2)
+            raw, out = struct.pack("<I", len(out)), out + raw
+        entries[tag] = (typ, cnt, raw.ljust(4, b"\0"))
+    out += b"\0" * (len(out) % 2)
+    struct.pack_into("<I", out, 4, len(out))
+    out += struct.pack("<H", len(entries))
+    for tag in sorted(entries):
+        typ, cnt, raw = entries[tag]
+        out += struct.pack("<HHI", tag, typ, cnt) + raw
+    return bytes(out + struct.pack("<I", 0))
+
+
+def _rationals(values, den=1000000, signed=False):
+    return (10 if signed else 5, len(values),
+            b"".join(struct.pack("<ii" if signed else "<II", int(round(v * den)), den)
+                     for v in values))
+
+
+# YCbCrCoefficients (529) and ReferenceBlackWhite (532) of their own
+YCC_TAGS = {
+    "refbw-video-range": {532: _rationals([16, 235, 128, 240, 128, 240])},
+    "refbw-fractions": {532: _rationals([3.3, 200.7, 50.1, 180.9, 90.25, 150.5], 7)},
+    "refbw-empty-range": {532: _rationals([10, 10, 128, 128, 0, 255])},
+    "refbw-srational": {532: _rationals([-20, 300, 100, 255, 128, 200], 1, signed=True)},
+    "refbw-five-values": {532: _rationals([16, 235, 128, 240, 128])},
+    "luma-bt709": {529: _rationals([0.2126, 0.7152, 0.0722])},
+    "luma-fractions": {529: _rationals([0.333, 0.5, 0.4], 999983)},
+    "luma-shorts": {529: (3, 3, struct.pack("<3H", 1, 2, 1))},
+    "luma-floats": {529: (11, 3, struct.pack("<3f", 0.25, 0.6, 0.15))},
+    "luma-doubles": {529: (12, 3, struct.pack("<3d", 0.25, 0.6, 0.15))},
+    "luma-green-zero": {529: _rationals([0.3, 0, 0.1])},
+    "both-bt709-video": {529: _rationals([0.2126, 0.7152, 0.0722]),
+                         532: _rationals([16, 235, 128, 240, 128, 240])},
+}
+
+
+@pytest.mark.parametrize("tags", sorted(YCC_TAGS))
+@pytest.mark.parametrize("name", ["tiff_ycbcr-22-lzw-tiles.tif", "tiff_layout-ycbcr-planar-lzw.tif",
+                                  "tiff_layout-jpeg-planar-ycbcr.tif", "tiff_ojpeg-420.tif",
+                                  "tiff_jpeg-ycbcr-420-strips.tif"])
+def test_ycbcr_coefficients_and_reference_black_white_equal_pil(tmp_path, name, tags):
+    """libtiff's RGBA interface converts YCbCr with the file's coefficients
+    and reference black and white (TIFFYCbCrToRGBInit), and refuses a green
+    coefficient of 0; libjpeg's conversion of contiguous JPEG-in-TIFF uses
+    neither."""
+    with open(os.path.join(SMALL, name), "rb") as f:
+        data = f.read()
+    p = str(tmp_path / "y.tif")
+    with open(p, "wb") as f:
+        f.write(_with_tags(data, YCC_TAGS[tags]))
+    for mode in ("L", "RGB"):
+        jio._IMAGE_CACHE.clear()
+        tio._IMAGE_CACHE.clear()
+        try:
+            want = jio.load_image(p, mode)
+        except OSError:
+            with pytest.raises(tio.UnsupportedImageFormat, match="YCbCrCoefficients"):
+                tio.load_image(p, mode)
+            return
+        np.testing.assert_array_equal(tio.load_image(p, mode), want)

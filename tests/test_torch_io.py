@@ -257,8 +257,8 @@ def test_path_helpers_equal(tmp_path):
 
 
 def _registry_file(kind, path):
-    """A small file of a format in PIL's registry that the port does not
-    decode, as PIL writes it or byte by byte: PIL identifies each."""
+    """A small file of a format in PIL's registry, as PIL writes it or byte
+    by byte: PIL identifies each."""
     import struct
     grey = Image.fromarray(_pixels(7, 1)[..., 0], "L")
     if kind in ("AVIF", "BLP", "DDS", "ICNS", "EPS"):
@@ -289,9 +289,10 @@ def _registry_file(kind, path):
         f.write(data)
 
 
-NOT_DECODED = {"AVIF": "AVIF (queued", "BLP": "BLP (queued", "DDS": "DDS (queued",
-               "FTEX": "FTEX (queued", "ICNS": "ICNS (queued", "PCD": "PCD (queued",
-               "FITS": "FITS (queued", "FLI": "FLI (queued", "IPTC": "IPTC (queued",
+# the formats the port refused by name until it decoded them (None), and
+# the ones it still refuses, with the start of the reason it names
+NOT_DECODED = {"AVIF": "AVIF (queued", "BLP": None, "DDS": None, "FTEX": None, "ICNS": None,
+               "PCD": None, "FITS": None, "FLI": None, "IPTC": None,
                "EPS": "EPS (PIL needs Ghostscript)", "WMF": "WMF (PIL draws it only",
                "MPEG": "MPEG (PIL identifies", "BUFR": "BUFR (PIL's stub",
                "GRIB": "GRIB (PIL's stub", "HDF5": "HDF5 (PIL's stub"}
@@ -300,11 +301,27 @@ NOT_DECODED = {"AVIF": "AVIF (queued", "BLP": "BLP (queued", "DDS": "DDS (queued
 @pytest.mark.parametrize("kind", sorted(NOT_DECODED))
 def test_registry_formats_not_decoded_are_named(tmp_path, kind):
     """Every format of PIL's registry that PIL identifies and the port does
-    not decode is refused by its name and why, never as "unknown"."""
+    not decode is refused by its name and why, never as "unknown"; the ones
+    the port now decodes give PIL's pixels, or are refused where PIL
+    refuses the file."""
     path = str(tmp_path / f"x.{kind.lower()}")
     _registry_file(kind, path)
     with Image.open(path) as im:
         assert im.format == kind
+    if NOT_DECODED[kind] is None:
+        for mode in ("L", "RGB"):
+            jio._IMAGE_CACHE.clear()
+            tio._IMAGE_CACHE.clear()
+            try:
+                want = jio.load_image(path, mode)
+            except Exception:       # noqa: BLE001 - PIL refuses: so must the port
+                with pytest.raises(tio.UnsupportedImageFormat, match=kind):
+                    tio.load_image(path, mode)
+                continue
+            np.testing.assert_array_equal(tio.load_image(path, mode), want)
+        with Image.open(path) as im:
+            assert tio.image_size(path) == im.size
+        return
     import re
     word = re.escape(NOT_DECODED[kind])
     with pytest.raises(tio.UnsupportedImageFormat, match=word):
