@@ -215,7 +215,21 @@ result):
    with each overlay equal to ``apply_mask`` of the card's probabilities;
    ``apply_transform`` card = CPU for every transform and kernel type on a
    2000 x 1420 page; ``initialize_multihost`` with a world-size-1 ``nccl``
-   group. One card shows no scaling: the pages/s are printed, not claimed.
+   group. One card shows no scaling: the pages/s are printed, not claimed;
+17. spatial: the height-sharded ARU forward (``parallel/spatial.py``) over
+   meshes whose ``model`` devices all name the one card: the main-path
+   batch (4 x 1536 x 1088, separator and heading nets in bf16, the
+   separator's in f32 too) at k = 2 and 4, and a 9984 x 7040 broadsheet
+   page at k = 1 and 4, against the unsharded forward (logits within 2e-2
+   of their scale in bf16 and 1e-5 in f32, masks at ``THRESHOLD`` agreeing
+   on 99.9 % of pixels, at most 0.1 % of pixels with probabilities 2e-2
+   apart, K1 69 launches per shard), with eager and device ms,
+   halo bytes and peak memory printed; ``ShardedSegmentationPredictor``
+   over (data=2, model=2) against the unsharded predictor; the pipelined
+   workflow over (2, 2) on the pipelined phase's 16 pages (valid files, an
+   article id on every line, K1 1104 and K2 4; the files byte-equal to the
+   pipelined phase's where the sharded forward is bit for bit, else their
+   differences printed).
 
 The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
 """
@@ -1326,7 +1340,7 @@ def phase_pipelined(dev):
     n_pages = N_PIPE_PAGES
     groups = -(-n_pages // BATCH)
     workers = min(4, (os.cpu_count() or 2) - 1)
-    # the corpus stays for the parallel phase, which deletes it
+    # the corpus stays for the parallel and spatial phases; main deletes it
     root = tempfile.mkdtemp(prefix="chip_smoke_pipelined_")
     kept = False
     # seconds of each wave's host tail over the worker pool: the first
@@ -3493,8 +3507,307 @@ def phase_parallel(dev, pipelined_row):
         print("parallel (f): initialize_multihost: nccl, world size 1, all_reduce ok")
     finally:
         shutil.rmtree(work, ignore_errors=True)
-        shutil.rmtree(root, ignore_errors=True)
     return {"launches": launches, "pages_per_s": rates}
+
+
+SPATIAL_SHARDS = (2, 4)                     # k of the main-path batch's sharded forward
+BROADSHEET_SHAPE = (9984, 7040)             # a broadsheet page at 600 dpi, not resized
+# a sharded forward against the unsharded one: the logits within these
+# shares of their scale (bf16: K1's limit; f32 with TF32 off), and at most
+# SPATIAL_PIXEL_SHARE of the pixels with a probability SPATIAL_PROB_TOL
+# apart. bf16's own rounding moves a few pixels' probabilities that far:
+# the unsharded bf16 forward is up to 0.14 (separator) and 0.44 (heading)
+# from the f32 one, at 0.02 % and 0.09 % of the pixels of the main-path
+# batch (NVIDIA H100 80GB HBM3, 700 W), so no bound on every pixel's
+# probability holds in bf16
+SPATIAL_BF16_TOL, SPATIAL_F32_TOL = 2e-2, 1e-5
+SPATIAL_PROB_TOL, SPATIAL_PIXEL_SHARE = 2e-2, 1e-3
+
+
+class HaloMeter:
+    """Counts what the row exchanges of ``parallel/spatial.py`` move while
+    it is entered: ``halo_bytes``, the rows copied from a neighbour shard,
+    and ``ext_bytes``, the shards' rows with their neighbours' that the
+    layers concatenate (one more copy of each layer input per shard)."""
+
+    def __init__(self):
+        self.halo_bytes = self.ext_bytes = 0
+
+    def __enter__(self):
+        from citlab_as_tpu_torch.parallel import spatial
+        self._spatial, self._exchange = spatial, spatial.exchange_rows
+
+        def counting(shards, top, bottom, axis=1):
+            out = self._exchange(shards, top, bottom, axis)
+            for x, halo in zip(shards, out):
+                moved = sum(h.numel() * h.element_size() for h in halo if h is not None)
+                self.halo_bytes += moved
+                if moved:
+                    self.ext_bytes += moved + x.numel() * x.element_size()
+            return out
+        spatial.exchange_rows = counting
+        return self
+
+    def __exit__(self, *exc):
+        self._spatial.exchange_rows = self._exchange
+
+
+def spatial_net(net, dev, k):
+    """``net`` height-sharded over a (1, k) mesh whose devices all name
+    ``dev``, from the mesh's own replicas."""
+    from citlab_as_tpu_torch.parallel.mesh import make_mesh, replicate
+    from citlab_as_tpu_torch.parallel.spatial import SpatialARU
+    mesh = make_mesh([dev] * k, data=1, model=k)
+    return SpatialARU(replicate(mesh, net, over_model=True)[0], mesh.model_devices(0)).eval()
+
+
+def prob_readings(got, want):
+    """How far two forwards' probabilities are apart: the largest
+    difference, the share of pixels with one above ``SPATIAL_PROB_TOL``,
+    and the share on which the channel-0 masks at ``THRESHOLD`` agree."""
+    import torch
+    diff = (got - want).abs()
+    return {"prob_err": diff.max().item(),
+            "pixels_off": (diff > SPATIAL_PROB_TOL).any(-1).float().mean().item(),
+            "mask_agree": ((got[..., 0] > THRESHOLD) == (want[..., 0] > THRESHOLD)
+                           ).float().mean().item(),
+            "bit_equal": bool(torch.equal(got, want))}
+
+
+def compare_probs(label, got, want):
+    """The gates of a sharded forward's probabilities against the
+    unsharded ones: masks agreeing on at least 99.9 % of pixels, at most
+    ``SPATIAL_PIXEL_SHARE`` of them ``SPATIAL_PROB_TOL`` apart."""
+    out = prob_readings(got, want)
+    check(out["mask_agree"] >= 0.999,
+          f"spatial {label}: masks agree on {out['mask_agree']} of pixels (< 0.999)")
+    check(out["pixels_off"] <= SPATIAL_PIXEL_SHARE,
+          f"spatial {label}: {out['pixels_off']} of pixels have probabilities more than "
+          f"{SPATIAL_PROB_TOL} apart (> {SPATIAL_PIXEL_SHARE})")
+    return out
+
+
+def compare_forwards(label, got, want, f32=False):
+    """:func:`compare_probs` of two forwards, and their logits within
+    ``SPATIAL_BF16_TOL`` (f32: ``SPATIAL_F32_TOL``) of the logits' scale."""
+    import torch
+    out = compare_probs(label, torch.softmax(got.float(), -1),
+                        torch.softmax(want.float(), -1))
+    err = (got.float() - want.float()).abs().max().item()
+    scale = want.float().abs().max().item()
+    limit = (SPATIAL_F32_TOL if f32 else SPATIAL_BF16_TOL) * scale
+    check(err <= limit, f"spatial {label}: logits {err} apart (> {limit})")
+    return dict(out, logit_err=err, logit_scale=scale, bit_equal=bool(torch.equal(got, want)))
+
+
+def timed_forward(fn, x, iters):
+    """(eager ms, device ms, peak bytes) of ``fn(x)`` without autograd:
+    CUDA events around host-issued calls, a CUDA graph's replay, the
+    allocator's peak over one call."""
+    import torch
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fn(x)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        return (cuda_ms(lambda: fn(x), iters=iters, warmup=1),
+                cuda_graph_ms(lambda: fn(x), iters=iters), peak)
+
+
+def differing_lines(files, reference, names):
+    """What differs between two runs' files ``names``: the count of lines
+    of each that differ, and over all of them the element that each such
+    line of ``reference`` opens ("text" where it opens none)."""
+    import re
+    lines, elements = {}, {}
+    for name in names:
+        got, want = files[name].splitlines(), reference[name].splitlines()
+        lines[name] = abs(len(got) - len(want))
+        for a, b in zip(got, want):
+            if a != b:
+                lines[name] += 1
+                tag = re.search(rb"<([A-Za-z]+)", b)
+                element = tag.group(1).decode() if tag else "text"
+                elements[element] = elements.get(element, 0) + 1
+    return lines, elements
+
+
+def phase_spatial(dev, pipelined_row):
+    """The height-sharded ARU forward (``parallel/spatial.py``) on one card,
+    over meshes whose model devices all name it. Gates: (a) the main-path
+    batch (4 x 1536 x 1088, the separator's and the heading's converted
+    nets, bf16) at k = 2 and 4 against the unsharded forward: logits within
+    2e-2 of their scale, masks at ``THRESHOLD`` agreeing on 99.9 % of
+    pixels, at most 0.1 % of the pixels with probabilities 2e-2 apart
+    (:func:`compare_forwards`), K1 69 launches per shard; the separator net
+    in f32 (TF32 off), its logits within 1e-5 of their scale; (b) a
+    broadsheet page of 9984 x 7040 at k = 1 and 4, the same gates (device
+    ms, halo bytes and peak memory printed; on one card every shard shares
+    the memory, so it is not divided by k); (c) ``ShardedSegmentationPredictor``
+    over (data=2, model=2) against the unsharded predictor at the same
+    per-shard batch, the probability gates, K1 276; (d) the pipelined
+    workflow over (2, 2) on the pipelined phase's 16 pages (earlier files
+    deleted first): no page skipped, each clustered and valid with an
+    article id on every line; K1 69 x 2 nets x 2 shards x 2 rows x 2
+    groups = 1104 and K2 4; the files byte-equal to the pipelined phase's
+    where (a) found the sharded forward bit for bit, else their differences
+    counted and printed."""
+    import torch
+    from citlab_as_tpu_torch.cli.run_full_workflow import run_full_workflow_pipelined
+    from citlab_as_tpu_torch.inference import (RelationPredictor, SegmentationPredictor,
+                                               ShardedSegmentationPredictor)
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.ops.resize import scale_image
+    from citlab_as_tpu_torch.pagexml import Page
+    from citlab_as_tpu_torch.parallel.mesh import make_mesh
+
+    npz = {net: os.path.join(REPO, "models_ckpt_torch", f"{net}.npz")
+           for net in ("separator", "heading", "gnn")}
+    preds = {net: SegmentationPredictor(npz[net], dtype=torch.bfloat16, device=dev)
+             for net in ("separator", "heading")}
+    out = {}
+
+    def sharded_run(fn, x, k):
+        with HaloMeter() as meter, torch.no_grad():
+            k1.launches = 0
+            y = fn(x)
+            torch.cuda.synchronize()
+            launches = k1.launches
+        check(launches == 69 * k, f"spatial: K1 launched {launches} times, want 69 x {k}")
+        return y, meter
+
+    # (a) the main-path batch
+    pages, _ = synthetic_pages(BATCH, *PAGE_SHAPE, seed=47)
+    scaled = [scale_image(torch.from_numpy(p.astype(np.float32)), FIXED_HEIGHT,
+                          1.0)[0].numpy() / 255.0 for p in pages]
+    x = torch.from_numpy(preds["separator"]._pack_host(scaled)).to(dev)
+    bit_equal = True
+    rows = []
+    for net_name, pred in preds.items():
+        with torch.no_grad():
+            want = pred.model(x)
+        eager, device, peak = timed_forward(pred.model, x, 5)
+        rows.append({"net": net_name, "k": 1, "eager_ms": eager, "device_ms": device,
+                     "peak_bytes": peak})
+        for k in SPATIAL_SHARDS:
+            net = spatial_net(pred.model, dev, k)
+            got, meter = sharded_run(net, x, k)
+            gates = compare_forwards(f"(a) {net_name} k={k}", got, want)
+            bit_equal &= gates["bit_equal"]
+            eager, device, peak = timed_forward(net, x, 5)
+            rows.append({"net": net_name, "k": k, **gates, "eager_ms": eager,
+                         "device_ms": device, "peak_bytes": peak,
+                         "halo_bytes": meter.halo_bytes, "ext_bytes": meter.ext_bytes})
+            del got
+    f32 = SegmentationPredictor(npz["separator"], dtype=torch.float32, device=dev).model
+    with torch.no_grad():
+        want = f32(x)
+        # bf16's own error: the unsharded bf16 forward against this f32 one
+        floor = prob_readings(torch.softmax(preds["separator"].model(x), -1),
+                              torch.softmax(want, -1))
+    rows.append({"net": "separator bf16 against f32, unsharded", **floor})
+    for k in SPATIAL_SHARDS:
+        got, _ = sharded_run(spatial_net(f32, dev, k), x, k)
+        rows.append({"net": "separator f32", "k": k,
+                     **compare_forwards(f"(a) separator f32 k={k}", got, want, f32=True)})
+    del f32, want, got
+    torch.cuda.empty_cache()
+    print(f"spatial (a): {tuple(x.shape)} bf16 at k = {SPATIAL_SHARDS}, K1 69 per shard; "
+          f"bit-equal to the unsharded forward: {bit_equal}; " + json.dumps(rows))
+    out["main_batch"] = rows
+
+    # (b) a broadsheet page at 600 dpi, tiled from a drawn page
+    tile, _ = synthetic_pages(1, *PAGE_SHAPE, seed=53)
+    h, w = BROADSHEET_SHAPE
+    reps = (-(-h // PAGE_SHAPE[0]), -(-w // PAGE_SHAPE[1]))
+    page = np.tile(tile[0], reps)[:h, :w]
+    xb = torch.from_numpy(page.astype(np.float32) / 255.0)[None, :, :, None].to(dev)
+    rows = []
+    sep = preds["separator"].model
+    with torch.no_grad():
+        want = sep(xb)
+    eager, device, peak = timed_forward(sep, xb, 2)
+    rows.append({"k": 1, "eager_ms": eager, "device_ms": device, "peak_bytes": peak})
+    net = spatial_net(sep, dev, 4)
+    got, meter = sharded_run(net, xb, 4)
+    gates = compare_forwards("(b) broadsheet k=4", got, want)
+    del got, want
+    eager, device, peak = timed_forward(net, xb, 2)
+    rows.append({"k": 4, **gates, "eager_ms": eager, "device_ms": device,
+                 "peak_bytes": peak, "halo_bytes": meter.halo_bytes,
+                 "ext_bytes": meter.ext_bytes})
+    f32 = SegmentationPredictor(npz["separator"], dtype=torch.float32, device=dev).model
+    with torch.no_grad():
+        want = f32(xb)
+    got, _ = sharded_run(spatial_net(f32, dev, 4), xb, 4)
+    rows.append({"k": 4, "dtype": "f32",
+                 **compare_forwards("(b) broadsheet f32 k=4", got, want, f32=True)})
+    del f32, want, got, xb
+    torch.cuda.empty_cache()
+    print(f"spatial (b): broadsheet 1 x {h} x {w}, separator net bf16, k = 1 and 4 "
+          "(peak memory on one card, which every shard shares: not divided by k) "
+          + json.dumps(rows))
+    out["broadsheet"] = rows
+
+    # (c) the predictor over (data=2, model=2)
+    mesh = make_mesh([dev] * 4, data=2, model=2)
+    more, _ = synthetic_pages(BATCH, *PAGE_SHAPE, seed=59)
+    scaled += [scale_image(torch.from_numpy(p.astype(np.float32)), FIXED_HEIGHT,
+                           1.0)[0].numpy() / 255.0 for p in more]
+    single = preds["separator"]
+    want = [o for g in range(2) for o in single.predict_batch(scaled[g * BATCH:(g + 1) * BATCH])]
+    sharded = ShardedSegmentationPredictor.from_predictor(single, mesh)
+    k1.launches = 0
+    got = sharded.predict_batch(scaled)
+    torch.cuda.synchronize()
+    check(k1.launches == 69 * 4, f"spatial (c): K1 launched {k1.launches} times, want 276")
+    gates = compare_probs("(c) predictor", torch.from_numpy(np.stack(got)),
+                          torch.from_numpy(np.stack(want)))
+    print(f"spatial (c): ShardedSegmentationPredictor over (2, 2), {len(scaled)} pages: "
+          f"K1 {k1.launches}; " + json.dumps(gates))
+
+    # (d) the pipelined workflow over (2, 2), from the inputs alone
+    root, paths, reference = pipelined_row["corpus"]
+    for rel in written_files(root):
+        os.remove(os.path.join(root, rel))
+    run = _workflow_runner(dev, paths, RelationPredictor(npz["gnn"], device=dev))
+    secs, result, launches, _ = run(run_full_workflow_pipelined, mesh=mesh)
+    n_pages = len(paths)
+    groups = -(-n_pages // (BATCH * 2))
+    check(not result["skipped"], f"spatial (d): pages skipped: {result['skipped']}")
+    check(len(result["clustered"]) == n_pages,
+          f"spatial (d): {len(result['clustered'])} clustered files for {n_pages} pages")
+    for path in result["clustered"]:
+        page = Page(path)
+        lines = page.get_textlines()
+        check(lines and all(tl.get_article_id() for tl in lines),
+              f"spatial (d): {path}: a text line has no article id")
+        check(structurally_valid(page)[0], f"spatial (d): {path} is not valid PAGE-XML")
+    want_k1 = 69 * 2 * 2 * 2 * groups
+    check(launches["conv3x3"] == want_k1,
+          f"spatial (d): K1 launched {launches['conv3x3']} times, want {want_k1}")
+    check(launches["separator_morphology"] == 2 * groups,
+          f"spatial (d): K2 launched {launches['separator_morphology']} times, "
+          f"want {2 * groups}")
+    files = written_files(root)
+    check(set(files) == set(reference),
+          f"spatial (d): wrote {sorted(set(files) ^ set(reference))[:4]} unlike the "
+          "pipelined phase")
+    differ = sorted(f for f in files if files[f] != reference[f])
+    lines_differ, elements = differing_lines(files, reference, differ)
+    if bit_equal:
+        check(not differ, f"spatial (d): {len(differ)} files differ from the pipelined "
+                          f"phase's though the sharded forward is bit for bit: {differ[:3]}")
+    print(f"spatial (d): {n_pages} pages over (2, 2) of one card, {groups} groups of "
+          f"{BATCH * 2}: {n_pages / secs:.3f} pages/s; launches {json.dumps(launches)}; "
+          f"{len(differ)} of {len(files)} written files differ from the pipelined phase's "
+          f"(lines that differ per file: {json.dumps(lines_differ)}; by element: "
+          f"{json.dumps(elements)})")
+    out["launches"] = launches
+    out["files_differ"] = len(differ)
+    return out
 
 
 def main() -> int:
@@ -3541,11 +3854,12 @@ def main() -> int:
         gt_eval_row = timed("gt_eval", phase_gt_eval, dev, workflow_row)
         models_row = timed("models", phase_models, dev)
         parallel_row = timed("parallel", phase_parallel, dev, pipelined_row)
+        spatial_row = timed("spatial", phase_spatial, dev, pipelined_row)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
-        if pipelined_row is not None:     # the parallel phase's input corpus
+        if pipelined_row is not None:     # the parallel and spatial phases' corpus
             shutil.rmtree(pipelined_row["corpus"][0], ignore_errors=True)
     print(f"phase seconds {json.dumps(seconds)}; all {sum(seconds.values()):.1f} s")
     kernels = [
@@ -3562,7 +3876,8 @@ def main() -> int:
              launches_train=train_row["launches"]["conv3x3"],
              launches_gt_eval=gt_eval_row["launches"]["conv3x3"],
              launches_models=models_row["launches"]["conv3x3"],
-             launches_parallel=parallel_row["launches"]["conv3x3"], **k1_row),
+             launches_parallel=parallel_row["launches"]["conv3x3"],
+             launches_spatial=spatial_row["launches"]["conv3x3"], **k1_row),
         dict(name="separator_morphology", route="cuda",
              source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
              replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
@@ -3577,7 +3892,8 @@ def main() -> int:
              launches_train=train_row["launches"]["separator_morphology"],
              launches_gt_eval=gt_eval_row["launches"]["separator_morphology"],
              launches_models=models_row["launches"]["separator_morphology"],
-             launches_parallel=parallel_row["launches"]["separator_morphology"], **k2_row),
+             launches_parallel=parallel_row["launches"]["separator_morphology"],
+             launches_spatial=spatial_row["launches"]["separator_morphology"], **k2_row),
     ]
     # ``launches``: the in-memory main path's count; ``launches_files``: the
     # files-to-files path's; ``launches_workflow``: the whole workflow's;
@@ -3601,11 +3917,15 @@ def main() -> int:
     # the models phase's (the .npz, .frozen and .pb separator forwards and
     # one separator-stage group each from .npz and .frozen: K1 69 x 5, K2 2);
     # ``launches_parallel``: the pipelined workflow's over a 2-shard mesh of
-    # the card (16 pages, 2 groups of 8: K1 69 x 2 nets x 2 shards x 2, K2 4)
+    # the card (16 pages, 2 groups of 8: K1 69 x 2 nets x 2 shards x 2, K2 4);
+    # ``launches_spatial``: the pipelined workflow's over a (data=2, model=2)
+    # mesh of the card, each data row's forwards height-sharded over its 2
+    # devices (16 pages, 2 groups of 8: K1 69 x 2 nets x 2 row shards x 2
+    # data rows x 2 groups = 1104, K2 4)
     keys = ("name", "route", "source", "replaces", "launches", "launches_files",
             "launches_workflow", "launches_pipelined", "launches_visual", "launches_formats",
             "launches_variants", "launches_blind", "launches_train", "launches_gt_eval",
-            "launches_models", "launches_parallel",
+            "launches_models", "launches_parallel", "launches_spatial",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))

@@ -41,7 +41,7 @@ from typing import Optional, Sequence
 import torch
 
 from citlab_as_tpu_torch.cli.common import model_path
-from citlab_as_tpu_torch.device import DeviceLike, device_scope
+from citlab_as_tpu_torch.device import DeviceLike, device_scope, row_streams
 from citlab_as_tpu_torch.utils.io import get_page_path, load_list_file
 
 logger = logging.getLogger(__name__)
@@ -255,9 +255,10 @@ def _run_post_separator_stages(image_paths, page_paths, heading_model_path,
 
 
 class _DeviceThread:
-    """One thread that issues a device's share of every page group's device
-    work, in the order it is submitted, with that device current and on a
-    CUDA stream of its own (on the CPU: the same thread, no stream).
+    """One thread that issues a mesh row's share of every page group's
+    device work, in the order it is submitted, with the row's first device
+    current and a CUDA stream of its own on each of the row's devices (on
+    the CPU: the same thread, no stream).
     :meth:`submit` returns a future at once, as the JAX package's dispatch
     returns before its programs run, so the caller's host work overlaps
     the device work. The port's device chains read flags back
@@ -265,16 +266,14 @@ class _DeviceThread:
     so issuing them blocks the issuing thread: this thread takes those
     waits instead of the host tail's."""
 
-    def __init__(self, device: torch.device):
-        self._device = device
-        self._stream = torch.cuda.Stream(device) if device.type == "cuda" else None
-        if self._stream is not None:
-            # the nets' weights were copied on the device's current stream
-            self._stream.wait_stream(torch.cuda.current_stream(device))
+    def __init__(self, devices: Sequence[torch.device]):
+        self._device = devices[0]
+        # each ordered after the nets' weights, copied on the current streams
+        self._streams = row_streams(devices)
         self._executor = ThreadPoolExecutor(1, thread_name_prefix="citlab-device")
 
     def _run(self, fn, *args):
-        with torch.no_grad(), device_scope(self._device, self._stream):
+        with torch.no_grad(), device_scope(self._device, self._streams):
             return fn(*args)
 
     def submit(self, fn, *args):
@@ -566,7 +565,8 @@ def run_full_workflow_pipelined(image_paths: Sequence[str],
     groups = SeparatorNetPostProcessor.group_by_shape(
         list(image_paths), list(image_paths), batch_size * n_data,
         on_error=skipped.record if skipped is not None else None)
-    device_threads = [_DeviceThread(proc.device) for proc in sep_procs]
+    device_threads = [_DeviceThread([proc.device] if mesh is None else mesh.model_devices(i))
+                      for i, proc in enumerate(sep_procs)]
     pool = PersistentPool(host_chain_builder, host_workers) if host_workers > 1 else None
     try:
         # page_cache: each host stage re-reads the page file the previous

@@ -42,7 +42,7 @@ def _run_sharded(procs, image_paths, batch_size, device_work, host_work):
     results)`` on this one, in page order."""
     from citlab_as_tpu_torch.cli.run_full_workflow import _DeviceThread
     from citlab_as_tpu_torch.stages.separator import SeparatorNetPostProcessor
-    threads = [_DeviceThread(proc.predictor.device) for proc in procs]
+    threads = [_DeviceThread([proc.predictor.device]) for proc in procs]
     results: dict = {}
     try:
         for images, chunk in SeparatorNetPostProcessor.group_by_shape(

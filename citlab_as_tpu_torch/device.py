@@ -7,7 +7,7 @@ CUDA request on a machine without a CUDA device raises.
 from __future__ import annotations
 
 import contextlib
-from typing import Optional, Union
+from typing import Dict, Sequence, Union
 
 import torch
 
@@ -33,13 +33,29 @@ def resolve_device(device: DeviceLike = "cuda") -> torch.device:
     return dev
 
 
-def device_scope(device: torch.device, stream: Optional["torch.cuda.Stream"] = None):
+def device_scope(device: torch.device, stream=None):
     """The context that runs work on ``device``: the device current and,
-    given one, ``stream`` the current stream; nothing on the CPU."""
+    given one, ``stream`` the current stream (a dict of streams: each its
+    device's current stream, as :func:`row_streams` makes them for the
+    devices of a mesh row); nothing on the CPU."""
     if device.type != "cuda":
         return contextlib.nullcontext()
     scope = contextlib.ExitStack()
+    # entering a stream makes its device current: the device comes last
+    for s in (stream.values() if isinstance(stream, dict) else [stream]):
+        if s is not None:
+            scope.enter_context(torch.cuda.stream(s))
     scope.enter_context(torch.cuda.device(device))
-    if stream is not None:
-        scope.enter_context(torch.cuda.stream(stream))
     return scope
+
+
+def row_streams(devices: Sequence[torch.device]) -> Dict[torch.device, "torch.cuda.Stream"]:
+    """A new CUDA stream on each distinct CUDA device of ``devices``, each
+    ordered after the work already queued on its device's current stream
+    (the nets' weights were copied there)."""
+    streams = {}
+    for dev in dict.fromkeys(devices):
+        if dev.type == "cuda":
+            streams[dev] = torch.cuda.Stream(dev)
+            streams[dev].wait_stream(torch.cuda.current_stream(dev))
+    return streams

@@ -18,7 +18,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from citlab_as_tpu_torch.device import DeviceLike, device_scope, resolve_device
+from citlab_as_tpu_torch.device import DeviceLike, device_scope, resolve_device, row_streams
 from citlab_as_tpu_torch.models.arunet import ARUNet
 from citlab_as_tpu_torch.models.gnn.graph import (
     batch_graphs, build_full_relations, correct_edges, pad_graph,
@@ -139,7 +139,13 @@ class ShardedSegmentationPredictor(SegmentationPredictor):
     order. Batches above ``MAX_SHARD_BATCH * n_data`` pages are chunked, as
     the JAX predictor chunks at ``MAX_DEVICE_BATCH * n_data`` (7 per shard,
     the reference's cap, not an H100 measurement). Other arguments as
-    :class:`SegmentationPredictor`."""
+    :class:`SegmentationPredictor`.
+
+    Over a mesh with ``model > 1`` each data shard's sub-batch runs the
+    height-sharded forward (``parallel/spatial.py::SpatialARU``) over its
+    row's devices, one replica on each distinct device of the row and a
+    stream on each; its logits are gathered on the row's first device,
+    which holds the data shard and its probabilities."""
 
     MAX_SHARD_BATCH = 7
 
@@ -162,17 +168,23 @@ class ShardedSegmentationPredictor(SegmentationPredictor):
 
     def _shard_over(self, mesh) -> None:
         from citlab_as_tpu_torch.parallel.mesh import replicate
+        from citlab_as_tpu_torch.parallel.spatial import SpatialARU
         self.mesh = mesh
         self.n_data = mesh.shape["data"]
         self.devices = mesh.data_devices
-        self.replicas = [r.eval() for r in replicate(mesh, self.model)]
-        self.model = self.replicas[0]
+        if mesh.shape["model"] > 1:
+            self.replicas = [SpatialARU(nets, mesh.model_devices(i)).eval() for i, nets
+                             in enumerate(replicate(mesh, self.model, over_model=True))]
+            self.model = self.replicas[0].net
+        else:
+            self.replicas = [r.eval() for r in replicate(mesh, self.model)]
+            self.model = self.replicas[0]
         self.MAX_DEVICE_BATCH = self.MAX_SHARD_BATCH * self.n_data
-        self._streams = [torch.cuda.Stream(d) if d.type == "cuda" else None
-                         for d in self.devices]
+        self._streams = [row_streams(mesh.model_devices(i)) for i in range(self.n_data)]
 
     def shards(self) -> List[SegmentationPredictor]:
-        """One plain predictor per data shard, over that shard's replica."""
+        """One plain predictor per data shard, over that shard's replica
+        (a ``SpatialARU`` over a mesh with ``model > 1``)."""
         return [SegmentationPredictor.view(r, d, self.pad_multiple)
                 for r, d in zip(self.replicas, self.devices)]
 
@@ -226,8 +238,9 @@ class RelationPredictor:
     shards, as the JAX predictor over its mesh. The group bucket rounds up
     to a multiple of ``n_data``, the union-graph batch splits on its page
     axis into one equal piece per shard, each piece runs on its shard's
-    replica and device, and the confidences are gathered in page order. The
-    mesh's first device then replaces ``device``."""
+    replica and device (one replica per data row, on the row's first
+    device, whatever the ``model`` axis), and the confidences are gathered
+    in page order. The mesh's first device then replaces ``device``."""
 
     def __init__(self, model_path: Optional[str] = None, num_classes: int = 2,
                  gnn_params=None, message_params=None, update_params=None,

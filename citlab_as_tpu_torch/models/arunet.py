@@ -24,6 +24,14 @@ through K1 (``ops/kernels/conv3x3.py``); the rest are ``F.conv2d``.
 
 ``ARUCutted`` is the down-path-only extractor of the visual relation GNN
 (featRoot 12, Cout 12 * 2^k: none of its convs is a K1 conv).
+
+The forward also runs height-sharded (``parallel/spatial.py``): passed a
+``RowShards`` in place of a tensor, every module walks the same code over
+the page's row shards. :func:`_each` runs a layer without neighbours on
+each shard; the convs and transposed convs take the rows they need from
+the neighbouring shards (``RowShards.with_halo``) in place of their SAME
+zero rows, and the input standardization reduces over all shards.
+:func:`row_alignment` is the row multiple the shard boundaries fall on.
 """
 from __future__ import annotations
 
@@ -53,17 +61,57 @@ _ACTIVATIONS = {"relu": F.relu, "elu": F.elu, "leaky": F.leaky_relu}
 
 
 def per_image_standardization(image: torch.Tensor) -> torch.Tensor:
-    """(x - mean) / adjusted_stddev per image of a batch [B, ...]."""
+    """(x - mean) / adjusted_stddev per image of a batch [B, ...]. Mean and
+    std are taken in float64 and rounded to x's dtype once, so that a
+    row-sharded forward, which reduces the same sums in another order
+    (``parallel/spatial.py``), finds the same values."""
     dims = tuple(range(1, image.dim()))
-    n = math.prod(image.shape[1:])
-    mean = image.mean(dim=dims, keepdim=True)
-    std = image.std(dim=dims, keepdim=True, unbiased=False)
+    x64 = image.to(torch.float64)
+    return standardize(image, x64.mean(dim=dims, keepdim=True),
+                       x64.std(dim=dims, keepdim=True, unbiased=False),
+                       math.prod(image.shape[1:]))
+
+
+def standardize(image: torch.Tensor, mean: torch.Tensor, std: torch.Tensor,
+                n: int) -> torch.Tensor:
+    """(x - mean) / max(std, 1 / sqrt(n)), the JAX formula, with the float64
+    ``mean`` and ``std`` rounded to x's dtype."""
     adjusted = torch.clamp(std, min=1.0 / math.sqrt(n))
-    return (image - mean) / adjusted
+    return (image - mean.to(image.dtype)) / adjusted.to(image.dtype)
+
+
+def _standardized(x):
+    """:func:`per_image_standardization` of a tensor or of row shards."""
+    if isinstance(x, torch.Tensor):
+        return per_image_standardization(x)
+    return x.standardized()
+
+
+def _each(fn, *xs):
+    """``fn`` on tensors, or on each row shard of ``RowShards`` (``fn`` then
+    takes the shards of the same rows, one from each argument)."""
+    if isinstance(xs[0], torch.Tensor):
+        return fn(*xs)
+    return xs[0].each(fn, *xs[1:])
 
 
 def _same_pads(k: int) -> Tuple[int, int]:
     return (k - 1) // 2, k - 1 - (k - 1) // 2
+
+
+def _deconv_padding(k: int, s: int) -> int:
+    """The ``F.conv_transpose2d`` padding of ``lax.conv_transpose(padding=
+    "SAME")`` (see :class:`_Deconv`)."""
+    pad_a = k - 1 if s > k - 1 else int(np.ceil((k + s - 2) / 2))
+    return k - 1 - pad_a
+
+
+def _deconv_halo(k: int, s: int) -> Tuple[int, int]:
+    """(above, below): the input rows beyond its own that a stride-``s``
+    transposed conv needs for the ``s`` output rows of each input row
+    (``F.conv_transpose2d``: out[y] = sum_i in[i] w[y + padding - s i])."""
+    padding = _deconv_padding(k, s)
+    return (k - 1 - padding) // s, max(0, (padding - 1) // s + 1)
 
 
 class _Conv(nn.Module):
@@ -78,15 +126,31 @@ class _Conv(nn.Module):
         self.use_k1 = kernel == 3 and features in COUT_SUPPORTED and cin >= 8
         self.init_std = float(np.sqrt(2.0 / (kernel * kernel * cin + features)))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x):
+        if not isinstance(x, torch.Tensor):
+            return x.with_halo(self, *_same_pads(self.kernel))
+        return self.rows(x, self.weight, self.bias)
+
+    def rows(self, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+             above: Optional[torch.Tensor] = None,
+             below: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The layer on the rows ``x``; ``above`` / ``below`` (row shards)
+        are the neighbouring shards' rows that take the place of the SAME
+        padding's zero rows, None at the page's edges. K1 runs on the rows
+        with their neighbours' and its output is cropped back to ``x``'s."""
+        n, top = x.shape[1], 0 if above is None else above.shape[1]
+        if above is not None or below is not None:
+            x = torch.cat([r for r in (above, x, below) if r is not None], dim=1)
         if self.use_k1:
-            y = conv3x3(x, self.weight, self.bias, relu=self.act == "relu")
+            y = conv3x3(x, weight, bias, relu=self.act == "relu")
+            if y.shape[1] != n:
+                y = y[:, top:top + n]
             if self.act not in (None, "relu"):
                 y = _ACTIVATIONS[self.act](y)
             return y
         lo, hi = _same_pads(self.kernel)
-        y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), (lo, hi, lo, hi)),
-                     self.weight, self.bias)
+        pads = (lo, hi, 0 if above is not None else lo, 0 if below is not None else hi)
+        y = F.conv2d(F.pad(x.permute(0, 3, 1, 2), pads), weight, bias)
         if self.act is not None:
             y = _ACTIVATIONS[self.act](y)
         return y.permute(0, 2, 3, 1)
@@ -108,12 +172,12 @@ class _ResBlock(nn.Module):
     def forward(self, x):
         x = self.conv1(x)
         orig = x
-        x = F.relu(x)
+        x = _each(F.relu, x)
         if self.res_depth == 0:
             return x
         for i in range(self.res_depth):
             x = getattr(self, f"convR_{i}")(x)
-        return _ACTIVATIONS[self.act](x + orig)
+        return _each(lambda a, b: _ACTIVATIONS[self.act](a + b), x, orig)
 
 
 class _PlainBlock(nn.Module):
@@ -129,7 +193,9 @@ class _PlainBlock(nn.Module):
 
 
 class _Deconv(nn.Module):
-    """Stride-s transposed conv + bias + act, cropped to the skip's shape.
+    """Stride-s transposed conv + bias + act, cropped to ``target``: an
+    (h, w), or the skip tensor whose (h, w) it is (row shards: each
+    shard's).
 
     ``weight`` is [Cin, Cout, k, k] holding the flax HWIO kernel spatially
     flipped: then ``F.conv_transpose2d`` with padding k-1-pad_a computes
@@ -142,16 +208,30 @@ class _Deconv(nn.Module):
         super().__init__()
         self.stride, self.act = stride, act
         k, s = filter_size, stride
-        pad_a = k - 1 if s > k - 1 else int(np.ceil((k + s - 2) / 2))
-        self.padding = k - 1 - pad_a
+        self.padding = _deconv_padding(k, s)
+        self.halo = _deconv_halo(k, s)
         self.weight = nn.Parameter(torch.empty(cin, features, k, k))
         self.bias = nn.Parameter(torch.full((features,), 0.1))
         self.init_std = float(np.sqrt(2.0 / (k * k * features + cin)))
 
-    def forward(self, x, target_hw):
-        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+    def forward(self, x, target):
+        if not isinstance(x, torch.Tensor):
+            return x.with_halo(self, *self.halo, target)
+        return self.rows(x, self.weight, self.bias, target)
+
+    def rows(self, x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+             target, above: Optional[torch.Tensor] = None,
+             below: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """The layer on the rows ``x`` (``above`` / ``below`` as
+        ``_Conv.rows``): the output of ``above``'s rows is cropped away."""
+        h, w = target.shape[1:3] if isinstance(target, torch.Tensor) else target
+        top = 0 if above is None else above.shape[1]
+        if above is not None or below is not None:
+            x = torch.cat([r for r in (above, x, below) if r is not None], dim=1)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), weight, bias,
                                stride=self.stride, padding=self.padding)
-        y = y[:, :, :target_hw[0], :target_hw[1]]
+        y0 = self.stride * top
+        y = y[:, :, y0:y0 + h, :w]
         return _ACTIVATIONS[self.act](y).permute(0, 2, 3, 1)
 
 
@@ -225,15 +305,15 @@ class _DetCNN(nn.Module):
                 end_points[f"scale_{sc}_unet_down_{layer}_conv"] = x
             skips.append(x)
             if layer < self.n_scales - 1:
-                x = _max_pool(x, self.pool)
+                x = _each(lambda t: _max_pool(t, self.pool), x)
                 if end_points is not None:
                     end_points[f"scale_{sc}_unet_down_{layer}_maxpool"] = x
         for layer in range(self.n_scales - 2, -1, -1):
             skip = skips[layer]
-            deconv = getattr(self, f"unet_up_{layer}_deconv")(x, skip.shape[1:3])
+            deconv = getattr(self, f"unet_up_{layer}_deconv")(x, skip)
             if end_points is not None:
                 end_points[f"scale_{sc}_unet_up_{layer}_deconv"] = deconv
-            x = torch.cat([skip, deconv], dim=3)
+            x = _each(lambda a, b: torch.cat([a, b], dim=3), skip, deconv)
             x = getattr(self, f"unet_up_{layer}")(x)
             if end_points is not None:
                 end_points[f"scale_{sc}_unet_up_{layer}_conv"] = x
@@ -252,9 +332,8 @@ class _AttCNN(nn.Module):
         self.conv4 = _Conv(32, 1, 4, act)
 
     def forward(self, x):
-        x = _max_pool(self.conv1(x), 2)
-        x = _max_pool(self.conv2(x), 2)
-        x = _max_pool(self.conv3(x), 2)
+        for conv in (self.conv1, self.conv2, self.conv3):
+            x = _each(lambda t: _max_pool(t, 2), conv(x))
         return self.conv4(x)
 
 
@@ -308,33 +387,72 @@ class ARUNet(nn.Module):
     def forward(self, inputs: torch.Tensor,
                 end_points: Optional[Dict[str, torch.Tensor]] = None) -> torch.Tensor:
         """``end_points`` (optional) collects the detCNN's activations of
-        every scale under the JAX package's names."""
+        every scale under the JAX package's names. ``inputs`` may be a
+        ``parallel/spatial.py::RowShards``; the logits are then row shards
+        too."""
         dtype = self.logit.weight.dtype
         if self.compute_dtype is not None and self.compute_dtype != dtype:
             cast = {name: p.to(self.compute_dtype)
                     for name, p in self.named_parameters()}
             return torch.func.functional_call(self, cast, (inputs, end_points))
         gp = self.gp
-        x = inputs.to(dtype)
+        x = _each(lambda t: t.to(dtype), inputs)
         if gp["mvn"]:
-            x = per_image_standardization(x)
-        h, w = x.shape[1], x.shape[2]
+            x = _standardized(x)
         fmap = self.featMapG(x, end_points, 0)
         if self.use_attention:
             n_att = gp["num_scales_att"]
             inp_scale = [x]
             for _ in range(1, n_att):
-                inp_scale.append(_avg_pool(inp_scale[-1], 2))
-            out_att = [_upsample_sum(self.attMapG(inp_scale[sc]), 8 * 2 ** sc,
-                                     (h, w), 1) for sc in range(n_att)]
+                inp_scale.append(_each(lambda t: _avg_pool(t, 2), inp_scale[-1]))
+
+            def upsampled(y, up, channels):
+                # to the page's (h, w), or to each row shard's
+                return _each(lambda a, ref: _upsample_sum(a, up, ref.shape[1:3], channels),
+                             y, x)
+            out_att = [upsampled(self.attMapG(inp_scale[sc]), 8 * 2 ** sc, 1)
+                       for sc in range(n_att)]
             out_det = [fmap] + [
-                _upsample_sum(self.featMapG(inp_scale[sc], end_points, sc), 2 ** sc,
-                              (h, w), gp["featRoot"]) for sc in range(1, n_att)]
-            att_w = torch.softmax(torch.cat(out_att, dim=3), dim=3)
-            fmap = out_det[0] * att_w[..., 0:1]
-            for sc in range(1, n_att):
-                fmap = fmap + out_det[sc] * att_w[..., sc:sc + 1]
-        return self.logit(fmap).to(torch.float32)
+                upsampled(self.featMapG(inp_scale[sc], end_points, sc), 2 ** sc,
+                          gp["featRoot"]) for sc in range(1, n_att)]
+
+            def weighted(*maps):
+                att_w = torch.softmax(torch.cat(maps[:n_att], dim=3), dim=3)
+                det = maps[n_att:]
+                out = det[0] * att_w[..., 0:1]
+                for sc in range(1, n_att):
+                    out = out + det[sc] * att_w[..., sc:sc + 1]
+                return out
+            fmap = _each(weighted, *out_att, *out_det)
+        return _each(lambda t: t.to(torch.float32), self.logit(fmap))
+
+
+def row_alignment(gp: Dict[str, Any]) -> int:
+    """The row multiple ``A`` on which the shards of a height-sharded
+    forward begin (``parallel/spatial.py``), from the graph parameters.
+
+    Every shard but the last then holds a multiple of ``A`` rows, so each
+    pool of every scale splits at the shards' boundaries (the SAME padding
+    of an odd count falls at the page's bottom, in the last shard), and at
+    every level each shard holds the rows its neighbours' convs need: one
+    for a 3 x 3 conv and the transposed conv's input, two below for the
+    4 x 4 convs (flax's SAME (1, 2)) of the logit and the attention net.
+    2^(scale_space_num - 1 + num_scales_att - 1) for an ARU graph of 3
+    input scales (64 for the committed nets), 2^(scale_space_num - 1) for a
+    U or RU graph."""
+    pool, fs = gp["pool_size"], gp["filter_size"]
+    scales = 2 ** (gp["num_scales_att"] - 1) if "ARU" in gp["graph"] else 1
+    deepest = scales * pool ** (gp["scale_space_num"] - 1)
+    # (level, rows each shard has to hold at it)
+    needs = [(deepest, max(fs // 2, *_deconv_halo(fs, pool))), (1, 2)]
+    levels = [deepest]
+    if "ARU" in gp["graph"]:
+        levels.append(scales * 8)      # the attention net's three 2 x 2 pools
+        needs.append((scales * 8, 2))  # and its last 4 x 4 conv there
+    align = math.lcm(*levels)
+    while any(align // level < rows for level, rows in needs):
+        align *= 2
+    return align
 
 
 ARU_CUTTED_GRAPH_PARAMS: Dict[str, Any] = {

@@ -1,24 +1,28 @@
-"""Device mesh and data-parallel helpers (port of
+"""Device mesh, data-parallel and row-sharded placement (port of
 ``citlab_as_tpu/parallel/mesh.py``).
 
-The JAX package places a batch on a ``jax.sharding.Mesh`` and lets GSPMD
+The JAX package places arrays on a ``jax.sharding.Mesh`` and lets GSPMD
 derive the per-chip programs. PyTorch has no such compiler, so the port's
-mesh is an explicit grid of ``torch.device`` s, and data parallelism is
-explicit too: :func:`shard_batch` splits the leading axis into one tensor
-per data shard on that shard's device, :func:`replicate` gives one copy of
-a module or state dict per shard, and the callers run each shard on its own
-device (``inference.py::ShardedSegmentationPredictor``, the pipelined
-workflow's ``mesh``).
+mesh is an explicit grid of ``torch.device`` s, and the placements are
+explicit too:
+
+- ``data`` axis: :func:`shard_batch` splits the leading axis into one
+  tensor per data row of the mesh, on the row's first device (where the
+  JAX package's batch sharding, replicated over ``model``, also holds it);
+  :func:`replicate` gives one copy of a module or state dict per row, and
+  the callers run each row on its own device
+  (``inference.py::ShardedSegmentationPredictor``, the pipelined
+  workflow's ``mesh``).
+- ``model`` axis: :func:`spatial_sharding` is the placement that splits an
+  NHWC page's height over a row's model devices, and :func:`place_rows`
+  applies it: one row range per device, boundaries on a multiple of the
+  net's alignment (:func:`row_partition`). ``parallel/spatial.py`` runs
+  the ARU-Net over such shards with explicit halo exchanges, which GSPMD
+  inserts in JAX.
 
 A device list may name one device more than once: each entry is a shard of
 its own, so a one-GPU machine (or the CPU) runs a multi-shard mesh, as the
 JAX tests get eight CPU devices from ``--xla_force_host_platform_device_count``.
-The ``model`` axis is kept for the JAX package's layout (``make_mesh`` builds
-the same grid), but nothing here shards over it: its one use in JAX is
-``spatial_sharding`` (the height-sharded ARU forward), which is not ported
-(ROADMAP item 21): it is a GSPMD annotation, and in PyTorch it would need a
-hand-written halo exchange at every ARU scale. So the data-parallel paths
-refuse a mesh with ``model > 1`` rather than leave its devices idle.
 
 ``initialize_multihost`` brings up ``torch.distributed`` from torchrun's
 variables (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``).
@@ -29,7 +33,7 @@ import copy
 import logging
 import os
 from dataclasses import dataclass
-from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -54,14 +58,13 @@ class Mesh:
 
     @property
     def data_devices(self) -> List[torch.device]:
-        """The device of each data shard. A ``model`` axis above 1 raises
-        ``NotImplementedError``: nothing shards over it (ROADMAP item 21)."""
-        if self.shape["model"] > 1:
-            raise NotImplementedError(
-                f"citlab_as_tpu_torch: a mesh with model={self.shape['model']} would "
-                "leave devices idle; the model axis serves spatial_sharding, which "
-                "is not ported (ROADMAP item 21)")
+        """The device of each data shard: its row's first device."""
         return list(self.devices[:, 0])
+
+    def model_devices(self, row: int) -> List[torch.device]:
+        """The devices of data row ``row``, over which a page's height is
+        sharded."""
+        return list(self.devices[row])
 
     def __repr__(self) -> str:
         return f"Mesh(data={self.shape['data']}, model={self.shape['model']}, " \
@@ -111,6 +114,66 @@ def batch_sharding(mesh: Mesh, ndim: int = 4, batch_axis: int = 0) -> BatchShard
     return BatchSharding(mesh, ndim, batch_axis)
 
 
+@dataclass(frozen=True)
+class SpatialSharding:
+    """How :func:`place_rows` places an array of ``ndim`` axes: axis
+    ``h_axis`` (the height of an NHWC page) split over the model devices of
+    a data row."""
+    mesh: Mesh
+    ndim: int = 4
+    h_axis: int = 1
+
+    def devices(self, row: int = 0) -> List[torch.device]:
+        return self.mesh.model_devices(row)
+
+
+def spatial_sharding(mesh: Mesh, ndim: int = 4, h_axis: int = 1) -> SpatialSharding:
+    """The placement that splits the height axis ``h_axis`` over 'model'
+    (the JAX package's ``NamedSharding(mesh, P(None, 'model'))``)."""
+    return SpatialSharding(mesh, ndim, h_axis)
+
+
+def row_partition(height: int, shards: int, align: int) -> List[Tuple[int, int]]:
+    """(start, stop) of each row shard of a page of ``height`` rows over at
+    most ``shards`` devices. Every shard starts on a multiple of ``align``
+    and holds at least ``align`` rows; the ``height // align`` whole blocks
+    spread as evenly as they go, the earlier shards taking one more, and
+    the last shard takes the remainder too (1500 rows over 4 at 64:
+    384 / 384 / 384 / 348). Under ``align * shards`` rows fewer shards hold
+    rows (256 over 8 at 64: 4 of 64), under ``align`` one holds them all."""
+    blocks = height // align
+    k = max(1, min(shards, blocks))
+    q, extra = divmod(blocks, k)
+    sizes = [(q + (j < extra)) * align for j in range(k)]
+    sizes[-1] += height - sum(sizes)
+    bounds = np.cumsum([0] + sizes).tolist()
+    return list(zip(bounds[:-1], bounds[1:]))
+
+
+def split_rows(x: torch.Tensor, devices: Sequence[torch.device], align: int,
+               axis: int = 1) -> List[torch.Tensor]:
+    """``x`` split along ``axis`` by :func:`row_partition` over ``devices``:
+    one tensor per shard that holds rows, in page order, each on its device
+    (a view of ``x`` where ``x`` is there already, else a ``non_blocking``
+    copy)."""
+    parts = row_partition(x.shape[axis], len(devices), align)
+    logger.debug("split_rows: %d rows over %d of %d devices: %s", x.shape[axis],
+                 len(parts), len(devices), [stop - start for start, stop in parts])
+    return [x.narrow(axis, start, stop - start).to(dev, non_blocking=True)
+            for (start, stop), dev in zip(parts, devices)]
+
+
+def place_rows(sharding: SpatialSharding, x, align: int, row: int = 0
+               ) -> List[torch.Tensor]:
+    """``x`` placed with ``sharding`` over the model devices of data row
+    ``row`` (:func:`split_rows` along its ``h_axis``)."""
+    x = torch.as_tensor(x)
+    if x.dim() != sharding.ndim:
+        raise ValueError(f"place_rows: a {x.dim()}-axis array for a {sharding.ndim}-axis "
+                         "sharding")
+    return split_rows(x, sharding.devices(row), align, sharding.h_axis)
+
+
 def _map_tree(fn: Callable[[Any], Any], tree):
     if isinstance(tree, dict):
         return {k: _map_tree(fn, v) for k, v in tree.items()}
@@ -150,21 +213,26 @@ def shard_batch(mesh: Mesh, batch, batch_axis: int = 0) -> list:
     return [piece(i) for i in range(n)]
 
 
-def replicate(mesh: Mesh, tree) -> list:
-    """One copy of ``tree`` per data shard, on the shard's device: an
-    ``nn.Module`` is deep-copied (a repeated device gets a copy of its own,
-    so shards never share parameters or buffers), a tensor or a dict /
-    list / tuple of tensors is copied to each device. The copies are
+def replicate(mesh: Mesh, tree, over_model: bool = False) -> list:
+    """One copy of ``tree`` per data row, on the row's first device; with
+    ``over_model`` a dict per row instead, with one copy on each distinct
+    device of the row (the replicas a row-sharded forward runs on). An
+    ``nn.Module`` is deep-copied (a device repeated across rows gets a copy
+    for each, so rows never share parameters or buffers), a tensor or a
+    dict / list / tuple of tensors is copied to each device. The copies are
     finished when it returns: they run on the devices' current streams, and
     the callers read the replicas from streams of their own."""
-    out = []
-    for dev in mesh.data_devices:
+    def one(dev):
         if isinstance(tree, torch.nn.Module):
-            out.append(copy.deepcopy(tree).to(dev))
-        else:
-            out.append(_map_tree(lambda x, dev=dev: torch.as_tensor(x).to(dev, copy=True),
-                                 tree))
-    if any(dev.type == "cuda" for dev in mesh.data_devices):
+            return copy.deepcopy(tree).to(dev)
+        return _map_tree(lambda x: torch.as_tensor(x).to(dev, copy=True), tree)
+
+    if over_model:
+        out = [{dev: one(dev) for dev in dict.fromkeys(mesh.model_devices(i))}
+               for i in range(mesh.shape["data"])]
+    else:
+        out = [one(dev) for dev in mesh.data_devices]
+    if any(dev.type == "cuda" for dev in mesh.devices.ravel()):
         for index in range(torch.cuda.device_count()):   # sources and targets
             torch.cuda.synchronize(index)
     return out

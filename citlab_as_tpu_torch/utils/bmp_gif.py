@@ -304,26 +304,32 @@ def _decode_gif(data: bytes, mode: str) -> np.ndarray:
     g = _gif_header(data)
     (w, h), (x0, y0, fw, fh) = g["size"], g["extent"]
     canvas = np.full((h, w), g["transparency"] or 0, np.uint8)
-    if fw and fh:
-        # PIL's GifDecode reads sub-blocks to the end of the file (a
-        # terminator is an empty block, the trailer one more block), each
-        # only once it is whole; it returns at an end code, and ImageFile
-        # hands it more only where its reads of 64 KiB have not reached the
-        # end of the file; a frame it leaves short is a truncated file
-        last_read = g["offset"] + (len(data) - 1 - g["offset"]) // DECODER_BLOCK * DECODER_BLOCK
-        blocks, pos, end_skip = [], g["offset"], 0
-        while pos < len(data) and pos + 1 + data[pos] <= len(data):
-            n = data[pos]
-            blocks.append(data[pos + 1:pos + 1 + n])
-            pos += 1 + n
-            if pos <= last_read:
-                end_skip += n
-        frame = canvas[y0:y0 + fh, x0:x0 + fw].copy()
-        got = gif_lzw(b"".join(blocks), g["bits"], frame, g["interlace"], end_skip)
-        if got < fw * fh:
-            raise NativeDecodeError("GIF: the image data ends before the frame is full "
-                                    "(PIL: image file is truncated)")
-        canvas[y0:y0 + fh, x0:x0 + fw] = frame
+    if x0 == 0 and fw == 0:
+        # PIL's decoder.setimage (decode.c) reads a tile whose x0 and x1
+        # are both 0 as the whole image, whatever its y0 and height
+        x0, y0, fw, fh = 0, 0, w, h
+    elif not fw or not fh:
+        raise NativeDecodeError("GIF: a frame of width or height 0 (PIL: tile cannot "
+                                "extend outside image)")
+    # PIL's GifDecode reads sub-blocks to the end of the file (a
+    # terminator is an empty block, the trailer one more block), each
+    # only once it is whole; it returns at an end code, and ImageFile
+    # hands it more only where its reads of 64 KiB have not reached the
+    # end of the file; a frame it leaves short is a truncated file
+    last_read = g["offset"] + (len(data) - 1 - g["offset"]) // DECODER_BLOCK * DECODER_BLOCK
+    blocks, pos, end_skip = [], g["offset"], 0
+    while pos < len(data) and pos + 1 + data[pos] <= len(data):
+        n = data[pos]
+        blocks.append(data[pos + 1:pos + 1 + n])
+        pos += 1 + n
+        if pos <= last_read:
+            end_skip += n
+    frame = canvas[y0:y0 + fh, x0:x0 + fw].copy()
+    got = gif_lzw(b"".join(blocks), g["bits"], frame, g["interlace"], end_skip)
+    if got < fw * fh:
+        raise NativeDecodeError("GIF: the image data ends before the frame is full "
+                                "(PIL: image file is truncated)")
+    canvas[y0:y0 + fh, x0:x0 + fw] = frame
     palette = g["palette"]
     if palette is None and mode == "RGB":
         # a local grey ramp under a global table: PIL's image is "L", but

@@ -18,7 +18,15 @@ phase's 16 pages through the sequential ``run_full_workflow`` and through
 spawned workers), each once to warm up and once under ``torch.profiler``
 (device activity only, no stage syncs), and prints per driver the wall
 time, the device busy seconds and their share of the wall, the device
-events and the driver's ``timings``. Otherwise it prints:
+events and the driver's ``timings``. With ``--path spatial`` it profiles
+the separator net's forward on ``chip_smoke.py``'s main-path batch (4 x
+1536 x 1088, bf16) unsharded and height-sharded over k = 2 and 4 shards
+of the card (``parallel/spatial.py``), and on its broadsheet page (1 x
+9984 x 7040) unsharded and at k = 4, each once to warm up and once under
+``torch.profiler``, and prints per input and k the device time split into
+K1, the concatenations of the halo rows, other copies, the library's
+convolutions and the rest, with the launches of each. Otherwise it
+prints:
 
 - the wall time of the profiled run and the device's busy share (the union
   of the CUDA kernel and memcpy intervals over that wall time);
@@ -32,7 +40,7 @@ events and the driver's ``timings``. Otherwise it prints:
 - device time per kernel name, largest first.
 
     python3 scripts/profile_torch_separator.py
-        [--path memory|files|workflow|pipelined] [--host_workers N]
+        [--path memory|files|workflow|pipelined|spatial] [--host_workers N]
         [--out build/profile_separator.json]
 
 Imports only the port (``citlab_as_tpu_torch``) and ``chip_smoke`` for its
@@ -122,12 +130,75 @@ def profile_drivers(args) -> int:
     return 0
 
 
+#: (part, substrings of a kernel's name) in the order they are tried
+SPATIAL_PARTS = (("K1", ("conv3x3",)), ("concatenation", ("CatArray",)),
+                 ("other copies", ("copy", "Memcpy", "memcpy")),
+                 ("library convolutions", ("conv", "xmma", "cudnn", "cutlass", "wgrad",
+                                           "dgrad")))
+
+
+def profile_spatial(args) -> int:
+    """``--path spatial``: the separator forward's device time by part,
+    unsharded and over k row shards of the card."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import chip_smoke as cs
+    from citlab_as_tpu_torch.inference import SegmentationPredictor
+    from citlab_as_tpu_torch.ops.resize import scale_image
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True)
+    pred = SegmentationPredictor(os.path.join(REPO, "models_ckpt_torch", "separator.npz"),
+                                 dtype=torch.bfloat16, device=dev)
+    pages, _ = cs.synthetic_pages(cs.BATCH, *cs.PAGE_SHAPE, seed=47)
+    batch = torch.from_numpy(pred._pack_host([
+        scale_image(torch.from_numpy(p.astype(np.float32)), cs.FIXED_HEIGHT, 1.0)[0].numpy()
+        / 255.0 for p in pages])).to(dev)
+    tile, _ = cs.synthetic_pages(1, *cs.PAGE_SHAPE, seed=53)
+    h, w = cs.BROADSHEET_SHAPE
+    page = np.tile(tile[0], (-(-h // cs.PAGE_SHAPE[0]), -(-w // cs.PAGE_SHAPE[1])))[:h, :w]
+    broadsheet = torch.from_numpy(page.astype(np.float32) / 255.0)[None, :, :, None].to(dev)
+    runs = {}
+    for label, x, k in (("batch", batch, 1), ("batch", batch, 2), ("batch", batch, 4),
+                        ("broadsheet", broadsheet, 1), ("broadsheet", broadsheet, 4)):
+        net = pred.model if k == 1 else cs.spatial_net(pred.model, dev, k)
+        with torch.no_grad():
+            net(x)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                net(x)
+                torch.cuda.synchronize()
+        parts = {name: [0.0, 0] for name, _ in SPATIAL_PARTS + (("rest", ()),)}
+        for e in prof.events():
+            if e.device_type != torch.autograd.DeviceType.CUDA:
+                continue
+            part = next((name for name, keys in SPATIAL_PARTS
+                         if any(key in e.name for key in keys)), "rest")
+            parts[part][0] += (e.time_range.end - e.time_range.start) / 1e3
+            parts[part][1] += 1
+        runs[f"{label} k={k}"] = {"shape": list(x.shape),
+                                  "device_ms": sum(v[0] for v in parts.values()),
+                                  "parts_ms": {n: v[0] for n, v in parts.items()},
+                                  "launches": {n: v[1] for n, v in parts.items()}}
+    out = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi.stdout.strip(),
+           "torch": torch.__version__, "path": "spatial", "runs": runs}
+    os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+    with open(args.out, "w") as f:
+        json.dump(out, f, indent=1)
+    print(json.dumps(out))
+    return 0
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out", default=os.path.join(REPO, "build",
                                                       "profile_separator.json"))
     parser.add_argument("--top", type=int, default=25)
-    parser.add_argument("--path", choices=("memory", "files", "workflow", "pipelined"),
+    parser.add_argument("--path", choices=("memory", "files", "workflow", "pipelined",
+                                           "spatial"),
                         default="memory")
     parser.add_argument("--host_workers", type=int,
                         default=min(4, (os.cpu_count() or 2) - 1),
@@ -139,6 +210,8 @@ def main(argv=None) -> int:
     from torch.profiler import ProfilerActivity, profile, record_function
     if args.path == "pipelined":
         return profile_drivers(args)
+    if args.path == "spatial":
+        return profile_spatial(args)
 
     import chip_smoke as cs
     from citlab_as_tpu_torch.inference import SegmentationPredictor

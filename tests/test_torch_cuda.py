@@ -664,6 +664,79 @@ def test_sharded_predictor_over_every_gpu(two_gpus):
     _sharded_against_single(make_mesh(), two_gpus[0])
 
 
+def _spatial_net(net, devices):
+    """``net`` height-sharded over a (1, len(devices)) mesh."""
+    from citlab_as_tpu_torch.parallel.mesh import make_mesh, replicate
+    from citlab_as_tpu_torch.parallel.spatial import SpatialARU
+    mesh = make_mesh(devices, data=1, model=len(devices))
+    return SpatialARU(replicate(mesh, net, over_model=True)[0], mesh.model_devices(0))
+
+
+def _separator_net(device, dtype):
+    import os
+    from citlab_as_tpu_torch.inference import SegmentationPredictor
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return SegmentationPredictor(os.path.join(repo, "models_ckpt_torch", "separator.npz"),
+                                 dtype=dtype, device=device).model
+
+
+def _page_batch(h=700, w=320):
+    return torch.from_numpy(np.stack([_synthetic(h, w, seed=s) / 255.0
+                                      for s in (0, 1)]).astype(np.float32))[..., None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_spatial_forward_on_the_card_equals_its_cpu_run(cuda, dtype):
+    """The separator net height-sharded over 3 row shards of the card
+    (256 / 192 / 252 rows) against the same sharded forward on the CPU:
+    f32 (TF32 off) within 1e-4 of the logits' scale; bf16 within 2e-2 of
+    the card's unsharded forward. Every 3 x 3 conv of every shard is a K1
+    launch: 69 per shard."""
+    x = _page_batch()
+    net = _separator_net(cuda, dtype)
+    with torch.no_grad():
+        k1.launches = 0
+        got = _spatial_net(net, [cuda] * 3)(x.to(cuda))
+        torch.cuda.synchronize()
+        assert k1.launches == 69 * 3
+        if dtype == torch.float32:
+            want = _spatial_net(_separator_net("cpu", dtype), [torch.device("cpu")] * 3)(x)
+        else:
+            want = net(x.to(cuda)).cpu()
+    scale = want.abs().max().item()
+    err = (got.cpu() - want).abs().max().item()
+    assert err <= (1e-4 if dtype == torch.float32 else 2e-2) * scale, err
+
+
+@pytest.mark.cuda
+def test_spatial_forward_over_two_gpus(two_gpus):
+    """Row shards on two cards, each with its own replica: the halo rows
+    cross between them, the logits land on the first card, f32 within 1e-5
+    of the logits' scale of the unsharded forward there, 69 K1 launches on
+    each card; and the predictor over a (data=1, model=2) mesh."""
+    from citlab_as_tpu_torch.inference import SegmentationPredictor, ShardedSegmentationPredictor
+    from citlab_as_tpu_torch.parallel.mesh import make_mesh
+    first, second = two_gpus
+    x = _page_batch().to(first)
+    net = _separator_net(first, torch.float32)
+    with torch.no_grad():
+        k1.launches = 0
+        got = _spatial_net(net, [first, second])(x)
+        torch.cuda.synchronize(first)
+        torch.cuda.synchronize(second)
+        assert k1.launches == 69 * 2 and got.device == first
+        want = net(x)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5 * want.abs().max().item(), err
+    single = SegmentationPredictor.view(net, first)
+    sharded = ShardedSegmentationPredictor.from_predictor(
+        single, make_mesh([first, second], data=1, model=2))
+    images = [_synthetic(700, 320, seed=s) / 255.0 for s in (0, 1)]
+    for a, b in zip(sharded.predict_batch(images), single.predict_batch(images)):
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-5)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel_type", ["rect", "ellipse", "cross"])
 def test_apply_transform_on_the_card_equals_the_cpu(cuda, kernel_type):

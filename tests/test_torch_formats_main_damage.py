@@ -268,6 +268,43 @@ def test_damaged_plain_pnm_refused_as_pil_refuses(tmp_path, seed, name, label):
     assert _agree(p) == "refused"
 
 
+# the GIF the fuzz found at seed 8: its image descriptor's width set to 0.
+# PIL's decoder.setimage (decode.c) takes a tile whose x0 and x1 are both 0
+# for the whole image, so PIL decodes the frame over the whole screen
+GIF_CASES = [(8, "gif_no-palette.gif", "bytes 9")]
+
+
+@pytest.mark.parametrize("seed,name,label", GIF_CASES,
+                         ids=[f"{s}-{n}-{lab.replace(' ', '')}" for s, n, lab in GIF_CASES])
+def test_gif_frame_of_width_0_decodes_as_pil(tmp_path, seed, name, label):
+    with open(os.path.join(SMALL, name), "rb") as f:
+        data = f.read()
+    body = dict(damaged(data, "GIF", 12, 24, 24, seed + sum(map(ord, name))))[label]
+    p = str(tmp_path / "d.gif")
+    with open(p, "wb") as f:
+        f.write(body)
+    assert _agree(p) == "decoded"
+
+
+@pytest.mark.parametrize("extent,outcome", [
+    ((0, 0, 0, None), "decoded"), ((0, 5, 0, 0), "decoded"), ((0, 0, 0, 0), "decoded"),
+    ((0, 3, 0, None), "refused"), ((2, 0, 0, None), "refused"), ((0, 0, None, 0), "refused")])
+def test_gif_frame_of_width_or_height_0(tmp_path, extent, outcome):
+    """The first frame's (x0, y0, width, height) with a width or height of
+    0 (None keeps the file's): x0 and width both 0 decode the whole screen,
+    whatever y0 and the height (y0 grows the screen, and its frame then
+    runs out of data); any other width or height of 0 is refused, as PIL
+    refuses a tile of no pixels."""
+    with open(os.path.join(SMALL, "gif_no-palette.gif"), "rb") as f:
+        data = bytearray(f.read())
+    old = struct.unpack_from("<HHHH", data, 14)
+    struct.pack_into("<HHHH", data, 14, *(o if e is None else e for e, o in zip(extent, old)))
+    p = str(tmp_path / "d.gif")
+    with open(p, "wb") as f:
+        f.write(bytes(data))
+    assert _agree(p) == outcome
+
+
 @pytest.mark.parametrize("tile", [0, 2, 3])
 def test_ccitt_tile_that_ends_early_keeps_the_tile_before(tmp_path, tile):
     """TIFFReadEncodedTile takes the CCITT decoders' error for success: a

@@ -59,13 +59,19 @@ def test_make_mesh_shapes_and_errors_match_jax():
             tmesh.make_mesh(CPU8, **kw)
         assert str(got.value) == str(want.value)
     assert tmesh.make_mesh(CPU8).data_devices == [torch.device("cpu")] * 8
-    # nothing shards over the model axis (spatial_sharding is not ported):
-    # the data-parallel paths refuse it rather than leave devices idle
+    # the model axis: a data shard lies on its row's first device, the
+    # row's devices carry the height shards (tests/test_torch_spatial.py),
+    # in the JAX mesh's grid
+    jmesh = jmake_mesh(jax.devices()[:4], data=2, model=2)
+    names = ["cpu:0", "cpu:1", "cpu:2", "cpu:3"]   # one name per JAX device
     mesh = tmesh.make_mesh(["cpu", "cpu", "cpu", "cpu"], data=2, model=2)
-    with pytest.raises(NotImplementedError, match="spatial_sharding"):
-        mesh.data_devices
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tmesh.shard_batch(mesh, torch.zeros(4, 1))
+    grid = np.vectorize(lambda d: names[d.id])(jmesh.devices)
+    labelled = np.asarray(names, dtype=object).reshape(2, 2)
+    assert (grid == labelled).all() and mesh.devices.shape == grid.shape
+    assert mesh.data_devices == list(mesh.devices[:, 0]) == [torch.device("cpu")] * 2
+    assert [mesh.model_devices(i) for i in range(2)] == [list(row) for row in mesh.devices]
+    pieces = tmesh.shard_batch(mesh, torch.arange(4.0).reshape(4, 1))
+    assert [p.tolist() for p in pieces] == [[[0.0], [1.0]], [[2.0], [3.0]]]
 
 
 def test_make_mesh_defaults_to_the_cards():
