@@ -97,7 +97,7 @@ result):
    prints AS R/P/F (not gated);
 11. variants: the PNM, PNG, TIFF, JPEG, BMP, GIF, WebP and JPEG 2000
    variants of the host decoders. Every small fixture of
-   ``tests/data/torch_formats_variants/small`` (379 files: ASCII and
+   ``tests/data/torch_formats_variants/small`` (999 files: ASCII and
    16-bit PNM, PNG at every colour type and depth with and without Adam7,
    TIFF with CCITT modified Huffman / Group 3, FillOrder 2, 2- to 32-bit
    and float samples, both predictors, planar layouts, CMYK, JPEG-in-TIFF,
@@ -128,11 +128,14 @@ result):
    interlaced GIF page, the committed lossy, lossless and alpha WebP
    pages (``tests/data/torch_formats_webp``) and the committed lossy 9/7
    RPCL-tiled, lossless 5/3 and lossy ICT colour JPEG 2000 pages
-   (``tests/data/torch_formats_jpeg2000``), each at PIL's "L" and "RGB"
-   digests and beside its twin, through the separator CLI (18 pages; they
-   do not reach the workflow's page lookup): equal pages, K1 69 and K2 1
-   per group. The host decode ms per page (median of 3) is printed beside each
-   twin's;
+   (``tests/data/torch_formats_jpeg2000``) and the committed AVIF pages
+   (``tests/data/torch_formats_avif``: PIL's defaults with palette and
+   IntraBC, speed 8 with palette, a deblocked scanned copy; the small
+   fixtures include the AVIF variants of ``scripts/avif_variants.py``),
+   each at PIL's "L" and "RGB" digests and beside its twin, through the
+   separator CLI (they do not reach the workflow's page lookup): equal
+   pages, K1 69 and K2 1 per group. The host decode ms per page (median of
+   3) is printed beside each twin's;
 12. blind: the JAX package's three blind article-quality oracles on the
    card: their pages (``tests/data/torch_blind``, made by
    ``scripts/make_blind_fixtures.py``: one multi-article page, two hard
@@ -278,6 +281,7 @@ MAIN_FORMATS_DIR = os.path.join(REPO, "tests", "data", "torch_formats_main")
 BOMB_SHAPE = (10000, 20000)                 # a PNG header past PIL's decompression-bomb limit
 JPEG2000_DIR = os.path.join(REPO, "tests", "data", "torch_formats_jpeg2000")
 REGISTRY_DIR = os.path.join(REPO, "tests", "data", "torch_formats_registry")
+AVIF_DIR = os.path.join(REPO, "tests", "data", "torch_formats_avif")
 BLIND_DIR = os.path.join(REPO, "tests", "data", "torch_blind")
 # the train phase: the JAX trainer's default batch and crop; drawn pages of
 # 1000 x 710 (the crops need 512 in both directions)
@@ -1811,7 +1815,8 @@ def phase_variants(dev):
     kinds = sorted({rec["file"].split("_")[0].split(".")[0] for rec in small})
     check({"bmp", "gif", "jpeg", "webp", "jpeg2000", "pcx", "dcx", "psd", "tga", "ico", "cur",
            "dib", "sgi", "sun", "qoi", "msp", "im", "xbm", "xpm", "pixar", "spider", "gbr", "imt",
-           "mcidas", "xvthumb", "dds", "blp", "ftex", "icns", "fits", "fli", "iptc"} <= set(kinds),
+           "mcidas", "xvthumb", "dds", "blp", "ftex", "icns", "fits", "fli", "iptc",
+           "avif"} <= set(kinds),
           f"variants: small fixtures of {kinds}")
     print(f"variants: all {len(small)} small {' / '.join(kinds)} variants decode to PIL's "
           "size and 'L' and 'RGB' digests")
@@ -1983,9 +1988,9 @@ def phase_variants(dev):
         # with PLT, lossless 5/3, lossy colour with the ICT) and the BC1 DDS
         # page PIL's writer made, held to PIL's recorded "L" and "RGB"
         # digests, through the same CLI run
-        webp_names, jpeg2000_names, texture_names = [], [], []
+        webp_names, jpeg2000_names, texture_names, avif_names = [], [], [], []
         for pages_dir, names in ((WEBP_DIR, webp_names), (JPEG2000_DIR, jpeg2000_names),
-                                 (REGISTRY_DIR, texture_names)):
+                                 (REGISTRY_DIR, texture_names), (AVIF_DIR, avif_names)):
             for rec_path in sorted(glob.glob(os.path.join(pages_dir, "*.json"))):
                 with open(rec_path) as f:
                     rec = json.load(f)
@@ -2011,6 +2016,9 @@ def phase_variants(dev):
         check(len(jpeg2000_names) == 3,
               f"variants: {len(jpeg2000_names)} JPEG 2000 pages, want 3")
         check(len(texture_names) == 1, f"variants: {len(texture_names)} BC1 DDS pages, want 1")
+        # the AVIF pages: PIL's defaults (palette and IntraBC), speed 8
+        # (palette) and a scanned copy (deblocked)
+        check(len(avif_names) == 3, f"variants: {len(avif_names)} AVIF pages, want 3")
         image_list = os.path.join(root, "cli.lst")
         with open(image_list, "w") as f:
             f.write("".join(f"{p}\n" for p in cli_paths))
@@ -2026,21 +2034,22 @@ def phase_variants(dev):
         check(cli_launches == {"conv3x3": 69 * groups, "separator_morphology": groups},
               f"variants: separator CLI launches {cli_launches}, want K1 69 and K2 1 per "
               f"group of {groups}")
-        for name in [p[0] for p in cli_pages] + webp_names + jpeg2000_names + texture_names:
+        for name in ([p[0] for p in cli_pages] + webp_names + jpeg2000_names + texture_names
+                     + avif_names):
             path = os.path.join(root, name)
             twin = os.path.join(root, f"twin_{os.path.splitext(name)[0]}.png")
             check(_normalised_xml(port_io.get_page_path(path) + ".xml")
                   == _normalised_xml(port_io.get_page_path(twin) + ".xml"),
                   f"variants: the separator's page of {name} differs from its PNG twin's")
         print("variants: the separator CLI's pages of the PBM, BMP, GIF, the three WebP, "
-              "the three JPEG 2000, the seven raster and the three registry (DDS "
-              "uncompressed and BC1, FITS) pages equal their PNG twins', "
+              "the three JPEG 2000, the seven raster, the three registry (DDS "
+              "uncompressed and BC1, FITS) and the three AVIF pages equal their PNG twins', "
               f"launches {json.dumps(cli_launches)} ({groups} groups of {BATCH}); host decode "
               "ms per page (median of 3) beside the PNG twin's " + json.dumps(
                   {k: decode_ms[k]
                    for k in ["rle8.bmp", "interlaced.gif"] + webp_names + jpeg2000_names
                    + [name for name, _, _ in raster] + [name for name, _, _ in registry]
-                   + texture_names}))
+                   + texture_names + avif_names}))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {"launches": {k: launches[k] + cli_launches[k]

@@ -4,16 +4,18 @@ Each ``csrc/<name>.cu`` compiles on its own with nvcc, and each
 ``csrc/<name>.cpp`` (host code) with the host C++ compiler (``$CXX``, else
 ``g++``), with a plain C interface, into
 ``build/citlab_kernels/<name>-<hash>.so`` at the repository root (listed in
-``.gitignore``). The hash covers the source and the compiler flags (and,
-for host code built with ``-march=native``, the host CPU's feature flags),
-so an edited source rebuilds and an unchanged one loads at once. ``build_all``
-starts one compiler per source, all together. A failed build raises;
+``.gitignore``). The hash covers the source, every header in ``csrc/``, the
+compiler flags (and, for host code built with ``-march=native``, the host
+CPU's feature flags), so an edited source or header rebuilds and an
+unchanged one loads at once. ``build_all`` starts one compiler per source,
+all together. A failed build raises;
 nothing here is imported or run until a kernel is first launched on a CUDA
 tensor, or the host library is first called.
 """
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import platform
@@ -28,7 +30,7 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "citlab_kernels")
 KERNEL_SOURCES = ("conv3x3", "separator_morphology")
 HOST_SOURCES = ("geometry_host", "image_decode", "image_encode", "webp_decode",
-                "jpeg2000_decode", "raster_decode", "bcn_decode")
+                "jpeg2000_decode", "raster_decode", "bcn_decode", "av1_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the JAX package's native/Makefile flags: -march=native lets the compiler
@@ -91,6 +93,9 @@ def _lib_path(name: str) -> str:
     src, flags = _source(name)
     with open(src, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(flags).encode())
+    for header in sorted(glob.glob(os.path.join(CSRC_DIR, "*.h"))):
+        with open(header, "rb") as f:
+            digest.update(f.read())
     if name in HOST_SOURCES:
         digest.update(_host_cpu())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")

@@ -47,7 +47,14 @@ bit to ``np.asarray(Image.open(path).convert(mode))`` under PIL 12.1:
 - the block textures DDS, BLP and FTEX over one BC1-BC7 decoder
   (``utils/textures.py``, host C++ ``csrc/bcn_decode.cpp``), and ICNS, PCD,
   FITS, FLI / FLC and IPTC (``utils/registry_formats.py``, FLI's chunks in
-  ``csrc/raster_decode.cpp``).
+  ``csrc/raster_decode.cpp``);
+- AVIF as PIL reads it through libavif, dav1d and libyuv: the HEIF
+  container, an AV1 intra frame with palette, IntraBC, filter intra, CfL,
+  quantizer matrices and deblocking, 8-bit 4:0:0 / 4:2:0 / 4:2:2 / 4:4:4,
+  and libyuv's YUV -> RGB (``utils/avif.py``, host C++
+  ``csrc/av1_decode.cpp``); CDEF with non-zero strengths, loop restoration,
+  superres, film grain, 10- and 12-bit samples, ``grid`` items, ``avis``
+  sequences and premultiplied alpha are refused by name (part 2).
 
 Every file's format is the one ``Image.open`` finds: its plugin order and
 the exceptions it catches (``raster_formats.identify``), so a header that
@@ -78,8 +85,7 @@ baseline JPEG (:func:`save_jpeg`, host C++ ``csrc/image_encode.cpp``);
 
 Everything else raises :class:`UnsupportedImageFormat` naming the variant:
 the formats PIL identifies and the port does not decode (``_NOT_DECODED``:
-AVIF queued; EPS, WMF, MPEG, BUFR, GRIB, HDF5, which PIL cannot decode here
-either);
+EPS, WMF, MPEG, BUFR, GRIB, HDF5, which PIL cannot decode here either);
 a raster file PIL refuses, and a file whose header PIL's reader rejects,
 by the plugin that let it in; other RIFF files than WebP; a WebP or JPEG
 2000 file PIL refuses (and a JPEG 2000 file with high-throughput
@@ -152,10 +158,9 @@ class UnsupportedImageFormat(ValueError):
 _SUPPORTED = ("PNG, PNM, .npy, 8-bit JPEG (Huffman, arithmetic, lossless), TIFF, BMP, GIF, "
               "WebP, JPEG 2000, PCX, DCX, PSD, TGA, ICO, CUR, DIB, SGI, SUN, QOI, MSP, IM, XBM, "
               "XPM, PIXAR, SPIDER, GBR, IMT, MCIDAS, XVTHUMB, DDS, BLP, FTEX, ICNS, PCD, FITS, "
-              "FLI, IPTC")
+              "FLI, IPTC, AVIF (8-bit AV1 intra frames)")
 # the formats of PIL's registry that PIL identifies and the port does not decode
 _NOT_DECODED = {
-    "AVIF": "AVIF (queued, ROADMAP item 20: an AV1 intra-frame decoder)",
     "EPS": "EPS (PIL needs Ghostscript)", "WMF": "WMF (PIL draws it only on Windows)",
     "MPEG": "MPEG (PIL identifies it and has no decoder)",
     "BUFR": "BUFR (PIL's stub plugin has no decoder)",

@@ -1276,6 +1276,13 @@ def _avif_accept(prefix: bytes) -> bool:
         b"avif", b"avis", b"mif1", b"msf1")
 
 
+def _open_avif(f: _File):
+    from citlab_as_tpu_torch.utils import avif
+    info = avif.open_avif(f.data)
+    return _im("AVIF", info.mode, (info.width, info.height),
+               lambda data, want: avif.decode(data, info))
+
+
 # (name, accept(prefix) or None, opener or None: named here, decoded by io.py
 # or refused by name)
 _PLUGINS = [
@@ -1286,7 +1293,7 @@ _PLUGINS = [
     ("JPEG", _starts(b"\xff\xd8\xff"), None),
     ("PPM", lambda p: p[:1] == b"P" and len(p) >= 2 and p[1] in b"0123456fy", None),
     ("PNG", _starts(b"\x89PNG\r\n\x1a\n"), None),
-    ("AVIF", _avif_accept, None),
+    ("AVIF", _avif_accept, _open_avif),
     ("BLP", _starts(b"BLP1", b"BLP2"), _open_blp),
     ("BUFR", _starts(b"BUFR", b"ZCZC"), None),
     ("CUR", _starts(b"\0\0\2\0"), _open_cur),
@@ -1330,7 +1337,7 @@ _PLUGINS = [
 # the formats decoded here
 FORMATS = ("PCX", "DCX", "PSD", "TGA", "ICO", "CUR", "DIB", "SGI", "SUN", "QOI", "MSP", "IM",
            "XBM", "XPM", "PIXAR", "SPIDER", "GBR", "IMT", "MCIDAS", "XVTHUMB", "DDS", "BLP",
-           "FTEX", "ICNS", "PCD", "FITS", "FLI", "IPTC")
+           "FTEX", "ICNS", "PCD", "FITS", "FLI", "IPTC", "AVIF")
 
 
 def _bomb_check(fmt: str, size) -> None:

@@ -84,7 +84,7 @@ digests). PCD's files (786 KB each) are made by the tests from a seed.
 Needs PIL (and, for the TIFF, JPEG, WebP and JPEG 2000 variants, the
 libraries Pillow bundles, and gcc); run from the repository root:
 
-    python scripts/make_format_fixtures.py [--only formats variants jpeg webp jpeg2000 raster main registry]
+    python scripts/make_format_fixtures.py [--only formats variants jpeg webp jpeg2000 raster main registry avif]
 
 (the page XMLs get new timestamps on every run).
 """
@@ -107,6 +107,7 @@ WEBP_OUT = os.path.join(REPO, "tests", "data", "torch_formats_webp")
 JPEG2000_OUT = os.path.join(REPO, "tests", "data", "torch_formats_jpeg2000")
 MAIN_OUT = os.path.join(REPO, "tests", "data", "torch_formats_main")
 REGISTRY_OUT = os.path.join(REPO, "tests", "data", "torch_formats_registry")
+AVIF_OUT = os.path.join(REPO, "tests", "data", "torch_formats_avif")
 SEED = 23
 VARIANT_SEED = 29
 JPEG_SEED = 37
@@ -114,6 +115,7 @@ WEBP_SEED = 41
 JPEG2000_SEED = 43
 MAIN_SEED = 47
 REGISTRY_SEED = 53
+AVIF_SEED = 61
 SHAPE = (2000, 1420)
 # (name, file ending, pixels: "grey" | "colour" | "bilevel", PIL save options)
 FIXTURES = [
@@ -141,7 +143,8 @@ def pixels(page: np.ndarray, kind: str) -> Image.Image:
 def main() -> int:
     import argparse
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    kinds = ("formats", "variants", "jpeg", "webp", "jpeg2000", "raster", "main", "registry")
+    kinds = ("formats", "variants", "jpeg", "webp", "jpeg2000", "raster", "main", "registry",
+             "avif")
     parser.add_argument("--only", nargs="+", choices=kinds, default=kinds)
     only = parser.parse_args().only
     sys.path.insert(0, REPO)
@@ -171,6 +174,10 @@ def main() -> int:
         from scripts import registry_variants as rv
         write_small(REGISTRY_PREFIXES, rv.registry_small_variants())
         write_registry_pages()
+    if "avif" in only:
+        from scripts import avif_variants as av
+        write_small("avif_", av.avif_small_variants())
+        write_avif_pages()
     return 0
 
 
@@ -489,6 +496,37 @@ def write_registry_pages() -> None:
         json.dump(record(path, ("L", "RGB")), f, indent=1)
         f.write("\n")
     print(f"{os.path.relpath(path, REPO)}: {os.path.getsize(path)} bytes")
+
+
+
+def write_avif_pages() -> None:
+    """The three full-size AVIF pages PIL's writer makes from the tinted
+    colour pages (``scripts/avif_variants.avif_pages``: PIL's defaults with
+    palette and IntraBC, speed 8 with palette and no IntraBC, a scanned
+    copy with no screen content, deblocked), each with ``page/<name>.xml``
+    and ``<name>.json`` (PIL's "L" and "RGB" digests). Their PNG twins are
+    written where they are used, from the recorded pixels."""
+    import chip_smoke
+    from scripts.avif_variants import avif_pages
+    shutil.rmtree(AVIF_OUT, ignore_errors=True)
+    os.makedirs(os.path.join(AVIF_OUT, "page"))
+    pages, _, layouts = chip_smoke.synthetic_newspaper(3, *SHAPE, seed=AVIF_SEED)
+    h, w = SHAPE
+    total = 0
+    for (name, data), layout in zip(avif_pages(pages, lambda p: np.asarray(pixels(p, "colour"))),
+                                    layouts):
+        stem = os.path.splitext(name)[0]
+        path = os.path.join(AVIF_OUT, name)
+        with open(path, "wb") as f:
+            f.write(data)
+        chip_smoke.write_layout_xml(os.path.join(AVIF_OUT, "page", f"{stem}.xml"), name, h, w,
+                                    layout)
+        with open(os.path.join(AVIF_OUT, f"{stem}.json"), "w") as f:
+            json.dump(record(path, ("L", "RGB")), f, indent=1)
+            f.write("\n")
+        total += len(data)
+        print(f"{os.path.relpath(path, REPO)}: {len(data)} bytes")
+    print(f"full-size AVIF pages {total} bytes")
 
 
 if __name__ == "__main__":

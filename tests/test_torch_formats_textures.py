@@ -156,9 +156,9 @@ def test_damaged_textures_decode_as_pil_or_raise(tmp_path, name):
 
 
 def test_registry_formats_leave_not_decoded():
-    """DDS, BLP and FTEX are decoded: only AVIF and the six formats PIL
+    """DDS, BLP and FTEX (and AVIF) are decoded: only the six formats PIL
     cannot decode either are refused by name."""
-    assert set(tio._NOT_DECODED) == {"AVIF", "EPS", "WMF", "MPEG", "BUFR", "GRIB", "HDF5"}
+    assert set(tio._NOT_DECODED) == {"EPS", "WMF", "MPEG", "BUFR", "GRIB", "HDF5"}
     from citlab_as_tpu_torch.utils import raster_formats
     assert {"DDS", "BLP", "FTEX"} <= set(raster_formats.FORMATS)
 

@@ -334,9 +334,11 @@ def test_committed_small_variants_decode_to_the_recorded_digests():
     catalog, each file's recorded size and "L" / "RGB" digests are PIL's,
     and the port decodes to them."""
     import hashlib
+    from scripts.avif_variants import avif_small_variants
     from scripts.registry_variants import registry_small_variants
     records = _small_records()
-    assert len(records) == len(fv_small_variants()) + len(registry_small_variants())
+    assert len(records) == (len(fv_small_variants()) + len(registry_small_variants())
+                            + len(avif_small_variants()))
     for rec in records:
         path = os.path.join(VARIANTS_DIR, "small", rec["file"])
         with Image.open(path) as im:

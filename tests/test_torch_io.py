@@ -291,7 +291,7 @@ def _registry_file(kind, path):
 
 # the formats the port refused by name until it decoded them (None), and
 # the ones it still refuses, with the start of the reason it names
-NOT_DECODED = {"AVIF": "AVIF (queued", "BLP": None, "DDS": None, "FTEX": None, "ICNS": None,
+NOT_DECODED = {"AVIF": None, "BLP": None, "DDS": None, "FTEX": None, "ICNS": None,
                "PCD": None, "FITS": None, "FLI": None, "IPTC": None,
                "EPS": "EPS (PIL needs Ghostscript)", "WMF": "WMF (PIL draws it only",
                "MPEG": "MPEG (PIL identifies", "BUFR": "BUFR (PIL's stub",
