@@ -1,5 +1,6 @@
 // AV1 intra-frame decoder: the shown key frame (or intra-only frame) of an
-// AVIF image item, decoded to 8-bit planes as dav1d 1.5.1 decodes it.
+// AVIF image item, decoded to 8-, 10- or 12-bit planes as dav1d 1.5.1
+// decodes it, and libavif 1.3.0's conversion of such planes to 8-bit RGB.
 //
 // It covers the OBU layer (temporal delimiter, sequence header reduced or
 // full, frame header / frame / tile group OBUs), uniform and explicit tile
@@ -11,14 +12,15 @@
 // type, coefficients), IntraBC (the reference DV stack of an intra frame, the
 // DV read and the copy with AV1's bilinear chroma filter), every intra
 // predictor with the edge filter and upsampling, the inverse transforms
-// (DCT 4-64, ADST 4-16, flipped ADST, identity, WHT) and the deblocking
-// filter. CDEF with non-zero strengths, loop restoration, superres, film
-// grain and bit depths above 8 are refused by name. The constant tables are
-// generated into av1_tables.h by scripts/make_av1_tables.py.
+// (DCT 4-64, ADST 4-16, flipped ADST, identity, WHT), and the in-loop
+// filters: deblocking, CDEF, superres upscaling and loop restoration
+// (Wiener and self-guided). Film grain is refused by name. The constant
+// tables are generated into av1_tables.h by scripts/make_av1_tables.py.
 //
 // The flow follows the AV1 specification's decoding process; the names of
 // its syntax elements and variables are kept where they help.
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
@@ -311,6 +313,7 @@ struct CdfContext {
     uint16_t palette_size[2][7][8], palette_color[2][7][5][9];
     uint16_t tx_depth[4][3][4], delta_q[5], delta_lf[5][5], skip[3][3];
     uint16_t palette_y_mode[7][3][3], palette_uv_mode[2][3], intrabc[3];
+    uint16_t restoration_type[4], use_wiener[3], use_sgrproj[3];
     MvCdf mv;
 
     void init(int base_q_idx) {
@@ -336,6 +339,8 @@ struct CdfContext {
         CP(delta_q, delta_q_cdf[0]); CP(delta_lf, delta_lf_cdf); CP(skip, skip_cdf);
         CP(palette_y_mode, palette_y_mode_cdf); CP(palette_uv_mode, palette_uv_mode_cdf);
         CP(intrabc, intrabc_cdf[0]);
+        CP(restoration_type, restoration_type_cdf[0]); CP(use_wiener, use_wiener_cdf[0]);
+        CP(use_sgrproj, use_sgrproj_cdf[0]);
         CP(mv.joints, mv_joints_cdf);
         for (int c = 0; c < 2; c++) {
             CP(mv.classes[c], mv_classes_cdf); CP(mv.class0[c], mv_class0_cdf);
@@ -474,6 +479,10 @@ void parse_sequence_header(BitReader& b, SequenceHeader& s) {
     s.film_grain_params_present = b.f(1);
 }
 
+#define PART3 "queued for part 3 of the AVIF decoder"
+
+enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
+
 const int seg_feature_bits[8] = {8, 6, 6, 6, 6, 3, 0, 0};
 const int seg_feature_signed[8] = {1, 1, 1, 1, 1, 0, 0, 0};
 const int seg_feature_max[8] = {255, 63, 63, 63, 63, 7, 0, 0};
@@ -484,6 +493,7 @@ struct FrameHeader {
     int disable_cdf_update = 0, allow_screen_content_tools = 0, force_integer_mv = 0;
     int frame_size_override = 0;
     int width = 0, height = 0, upscaled_width = 0, mi_cols = 0, mi_rows = 0;
+    int superres_denom = 8;  // SUPERRES_NUM: no superres
     int allow_intrabc = 0;
     int disable_frame_end_update_cdf = 1;
     // tiles
@@ -509,6 +519,11 @@ struct FrameHeader {
     // cdef
     int cdef_damping = 3, cdef_bits = 0;
     int cdef_y_pri[8] = {0}, cdef_y_sec[8] = {0}, cdef_uv_pri[8] = {0}, cdef_uv_sec[8] = {0};
+    bool cdef_on = false;  // a strength is not zero
+    // loop restoration: FrameRestorationType per plane (RESTORE_*) and
+    // LoopRestorationSize
+    int lr_type[3] = {0, 0, 0}, lr_unit_size[3] = {0, 0, 0};
+    bool uses_lr = false;
     int tx_mode_select = 0, only_4x4 = 0, reduced_tx_set = 0;
 };
 
@@ -582,8 +597,14 @@ void parse_frame_header(BitReader& b, const SequenceHeader& s, FrameHeader& h, i
     } else {
         h.width = s.max_w; h.height = s.max_h;
     }
-    if (s.enable_superres && b.f(1)) fail("AV1 superres (queued for part 2 of the AVIF decoder)");
+    // superres_params: the frame is coded at the downscaled width, as dav1d
+    // computes it (at least 16 pixels, or the whole width below that)
     h.upscaled_width = h.width;
+    if (s.enable_superres && b.f(1)) {
+        h.superres_denom = int(b.f(3)) + 9;
+        h.width = std::max((h.upscaled_width * 8 + (h.superres_denom >> 1)) / h.superres_denom,
+                           std::min(16, h.upscaled_width));
+    }
     // dav1d's frame_size_limit, which libavif sets to its image size limit
     if (int64_t(h.upscaled_width) * h.height > int64_t(16384) * 16384)
         fail("AV1 frame of " + std::to_string(h.upscaled_width) + " x " +
@@ -739,12 +760,26 @@ void parse_frame_header(BitReader& b, const SequenceHeader& s, FrameHeader& h, i
             }
             any = any || h.cdef_y_pri[i] || h.cdef_y_sec[i] || h.cdef_uv_pri[i] || h.cdef_uv_sec[i];
         }
-        if (any) fail("AV1 CDEF with non-zero strengths (queued for part 2 of the AVIF decoder)");
+        h.cdef_on = any;
     }
-    // loop restoration params
+    // loop restoration params: lr_type remapped to NONE, SWITCHABLE, WIENER,
+    // SGRPROJ
     if (!(h.all_lossless || h.allow_intrabc || !s.enable_restoration)) {
-        for (int i = 0; i < s.num_planes(); i++)
-            if (b.f(2)) fail("AV1 loop restoration (queued for part 2 of the AVIF decoder)");
+        static const int remap_lr_type[4] = {RESTORE_NONE, RESTORE_SWITCHABLE, RESTORE_WIENER,
+                                             RESTORE_SGRPROJ};
+        bool chroma = false;
+        for (int i = 0; i < s.num_planes(); i++) {
+            h.lr_type[i] = remap_lr_type[b.f(2)];
+            if (h.lr_type[i] != RESTORE_NONE) { h.uses_lr = true; chroma = chroma || i > 0; }
+        }
+        if (h.uses_lr) {
+            int shift = b.f(1);
+            if (s.sb128) shift++;
+            else if (shift) shift += b.f(1);
+            h.lr_unit_size[0] = 256 >> (2 - shift);
+            int uv_shift = (s.ss_x && s.ss_y && chroma) ? b.f(1) : 0;
+            h.lr_unit_size[1] = h.lr_unit_size[2] = h.lr_unit_size[0] >> uv_shift;
+        }
     }
     // tx mode
     if (h.coded_lossless) h.only_4x4 = 1;
@@ -753,7 +788,7 @@ void parse_frame_header(BitReader& b, const SequenceHeader& s, FrameHeader& h, i
     h.reduced_tx_set = b.f(1);
     // global motion params: absent in an intra frame
     if (s.film_grain_params_present && (h.show_frame || h.showable_frame)) {
-        if (b.f(1)) fail("AV1 film grain (queued for part 2 of the AVIF decoder)");
+        if (b.f(1)) fail("AV1 film grain (" PART3 ")");
     }
 }
 
@@ -987,11 +1022,13 @@ int qm_offset(int tx) {
     return off[tx];
 }
 
+// samples of every bit depth are held in 16 bits
 struct Plane {
-    std::vector<uint8_t> px;
+    std::vector<uint16_t> px;
     int stride = 0, w = 0, h = 0;  // allocated size
-    uint8_t* row(int y) { return px.data() + size_t(y) * stride; }
-    uint8_t& at(int x, int y) { return px[size_t(y) * stride + x]; }
+    uint16_t* row(int y) { return px.data() + size_t(y) * stride; }
+    uint16_t& at(int x, int y) { return px[size_t(y) * stride + x]; }
+    const uint16_t& at(int x, int y) const { return px[size_t(y) * stride + x]; }
 };
 
 struct Decoder {
@@ -1030,8 +1067,19 @@ struct Decoder {
     int tx_size = 0;
     int mv[2] = {0, 0};
     int max_luma_w = 0, max_luma_h = 0;
+    // loop restoration units (LrType, LrWiener, LrSgrSet, LrSgrXqd) of each
+    // plane, and the references of the tile being read
+    struct LrUnit {
+        uint8_t type = RESTORE_NONE, sgr_set = 0;
+        int8_t wiener[2][3] = {{0}};
+        int16_t xqd[2] = {0, 0};
+    };
+    std::vector<LrUnit> lr_units[3];
+    int lr_rows[3] = {0, 0, 0}, lr_cols[3] = {0, 0, 0};
+    int ref_wiener[3][2][3], ref_sgr_xqd[3][2];
     // counts of the tools the frame used
-    int n_intrabc = 0, n_palette = 0, n_filter_intra = 0, n_cfl = 0;
+    int n_intrabc = 0, n_palette = 0, n_filter_intra = 0, n_cfl = 0, n_cdef = 0, n_wiener = 0,
+        n_sgrproj = 0;
     // coefficients
     int32_t quant[1024];
     int32_t dequant_buf[1024];
@@ -1065,6 +1113,16 @@ struct Decoder {
             above_level[p].assign(micols_alloc, 0); above_dc[p].assign(micols_alloc, 0);
             left_level[p].assign(mirows_alloc, 0); left_dc[p].assign(mirows_alloc, 0);
         }
+        for (int p = 0; p < num_planes; p++) {
+            if (h.lr_type[p] == RESTORE_NONE) continue;
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            lr_rows[p] = count_units(h.lr_unit_size[p], (h.height + sy) >> sy);
+            lr_cols[p] = count_units(h.lr_unit_size[p], (h.upscaled_width + sx) >> sx);
+            lr_units[p].assign(size_t(lr_rows[p]) * lr_cols[p], LrUnit());
+        }
+    }
+    static int count_units(int unit_size, int frame_size) {
+        return std::max((frame_size + (unit_size >> 1)) / unit_size, 1);
     }
     size_t mi(int r, int c) const { return size_t(r) * mis + c; }
     bool is_inside(int r, int c) const {
@@ -1086,6 +1144,12 @@ struct Decoder {
             }
         }
         for (int i = 0; i < 4; i++) delta_lf[i] = 0;
+        static const int wiener_taps_mid[3] = {3, -7, 15}, sgrproj_xqd_mid[2] = {-32, 31};
+        for (int p = 0; p < 3; p++)
+            for (int pass = 0; pass < 2; pass++) {
+                ref_sgr_xqd[p][pass] = sgrproj_xqd_mid[pass];
+                for (int i = 0; i < 3; i++) ref_wiener[p][pass][i] = wiener_taps_mid[i];
+            }
         int sb4 = s.sb128 ? 32 : 16;
         int sb_size = s.sb128 ? BLOCK_128X128 : BLOCK_64X64;
         for (int r = mi_row_start; r < mi_row_end; r += sb4) {
@@ -1095,6 +1159,7 @@ struct Decoder {
                 read_deltas = h.delta_q_present;
                 clear_cdef(r, c);
                 clear_block_decoded_flags(r, c, sb4);
+                read_lr(r, c, sb_size);
                 decode_partition(r, c, sb_size);
             }
             // dav1d errors out on a symbol decoder that read 15 or more bits
@@ -1123,6 +1188,90 @@ struct Decoder {
                     block_decoded[p][y + 1][x + 1] = v;
                 }
             block_decoded[p][(sb4 >> sy) + 1][0] = 0;
+        }
+    }
+
+    // ---- loop restoration units (read before each superblock's partition)
+    void read_lr(int r, int c, int b) {
+        if (h.allow_intrabc) return;
+        int w = bw4(b), hh = bh4(b);
+        for (int p = 0; p < num_planes; p++) {
+            if (h.lr_type[p] == RESTORE_NONE) continue;
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            int unit = h.lr_unit_size[p];
+            int row_start = (r * (4 >> sy) + unit - 1) / unit;
+            int row_end = std::min(lr_rows[p], ((r + hh) * (4 >> sy) + unit - 1) / unit);
+            // under superres the units count columns of the upscaled frame
+            int num = (4 >> sx) * h.superres_denom, den = unit * 8;
+            int col_start = (c * num + den - 1) / den;
+            int col_end = std::min(lr_cols[p], ((c + w) * num + den - 1) / den);
+            for (int ur = row_start; ur < row_end; ur++)
+                for (int uc = col_start; uc < col_end; uc++) read_lr_unit(p, ur, uc);
+        }
+    }
+    int decode_subexp_bool(int num_syms, int k) {
+        int i = 0, mk = 0;
+        while (true) {
+            int b2 = i ? k + i - 1 : k;
+            int a = 1 << b2;
+            if (num_syms <= mk + 3 * a) return sd.ns(num_syms - mk) + mk;
+            if (!lit(1)) return lit(b2) + mk;
+            i++;
+            mk += a;
+        }
+    }
+    static int inverse_recenter(int r, int v) {
+        if (v > 2 * r) return v;
+        if (v & 1) return r - ((v + 1) >> 1);
+        return r + (v >> 1);
+    }
+    // decode_signed_subexp_with_ref_bool
+    int subexp_with_ref(int low, int high, int k, int r) {
+        int mx = high - low;
+        r -= low;
+        int v = decode_subexp_bool(mx, k);
+        v = (r << 1) <= mx ? inverse_recenter(r, v) : mx - 1 - inverse_recenter(mx - 1 - r, v);
+        return v + low;
+    }
+    void read_lr_unit(int p, int unit_row, int unit_col) {
+        static const int wiener_min[3] = {-5, -23, -17}, wiener_max[3] = {10, 8, 46},
+                         wiener_k[3] = {1, 2, 3};
+        static const int xqd_min[2] = {-96, -32}, xqd_max[2] = {31, 95};
+        LrUnit& u = lr_units[p][size_t(unit_row) * lr_cols[p] + unit_col];
+        int type;
+        if (h.lr_type[p] == RESTORE_WIENER)
+            type = sym(cdf.use_wiener, 2) ? RESTORE_WIENER : RESTORE_NONE;
+        else if (h.lr_type[p] == RESTORE_SGRPROJ)
+            type = sym(cdf.use_sgrproj, 2) ? RESTORE_SGRPROJ : RESTORE_NONE;
+        else
+            type = sym(cdf.restoration_type, 3);
+        u.type = uint8_t(type);
+        if (type == RESTORE_WIENER) {
+            n_wiener++;
+            for (int pass = 0; pass < 2; pass++) {
+                int first = p ? 1 : 0;
+                u.wiener[pass][0] = 0;
+                for (int j = first; j < 3; j++) {
+                    int v = subexp_with_ref(wiener_min[j], wiener_max[j] + 1, wiener_k[j],
+                                            ref_wiener[p][pass][j]);
+                    u.wiener[pass][j] = int8_t(v);
+                    ref_wiener[p][pass][j] = v;
+                }
+            }
+        } else if (type == RESTORE_SGRPROJ) {
+            n_sgrproj++;
+            u.sgr_set = uint8_t(lit(4));
+            for (int i = 0; i < 2; i++) {
+                int v;
+                if (av1t::sgr_params[u.sgr_set][i]) {
+                    v = subexp_with_ref(xqd_min[i], xqd_max[i] + 1, 4, ref_sgr_xqd[p][i]);
+                } else {
+                    v = 0;
+                    if (i == 1) v = clip3(xqd_min[1], xqd_max[1], 128 - ref_sgr_xqd[p][0]);
+                }
+                u.xqd[i] = int16_t(v);
+                ref_sgr_xqd[p][i] = v;
+            }
         }
     }
 
@@ -1845,6 +1994,8 @@ struct Decoder {
         int start_x = ((x << 4) + ((2 * mv[1]) >> sx)) * 64 + 32;
         int start_y = ((y << 4) + ((2 * mv[0]) >> sy)) * 64 + 32;
         Plane& pl = planes[p];
+        // the specification's InterRound0 / InterRound1 of a single prediction
+        int round0 = bd == 12 ? 5 : 3, round1 = bd == 12 ? 9 : 11;
         int ih = hh + 7;
         std::vector<int32_t> inter_buf(size_t(ih) * w);
         for (int r = 0; r < ih; r++) {
@@ -1854,10 +2005,10 @@ struct Decoder {
                 int f = (px >> 6) & 15;
                 int x0 = clip3(0, last_x, (px >> 10)), x1 = clip3(0, last_x, (px >> 10) + 1);
                 int sum = (128 - 8 * f) * pl.at(x0, ry) + 8 * f * pl.at(x1, ry);
-                inter_buf[size_t(r) * w + c] = round2(sum, 3);
+                inter_buf[size_t(r) * w + c] = round2(sum, round0);
             }
         }
-        std::vector<uint8_t> out(size_t(w) * hh);
+        std::vector<uint16_t> out(size_t(w) * hh);
         for (int r = 0; r < hh; r++) {
             int py = (start_y & 1023) + 1024 * r;
             int f = (py >> 6) & 15;
@@ -1865,11 +2016,11 @@ struct Decoder {
             for (int c = 0; c < w; c++) {
                 int sum = (128 - 8 * f) * inter_buf[size_t(base) * w + c] +
                           8 * f * inter_buf[size_t(base + 1) * w + c];
-                out[size_t(r) * w + c] = uint8_t(clip3(0, (1 << bd) - 1, round2(sum, 11)));
+                out[size_t(r) * w + c] = uint16_t(clip3(0, (1 << bd) - 1, round2(sum, round1)));
             }
         }
         for (int r = 0; r < hh; r++)
-            memcpy(&pl.at(x, y + r), &out[size_t(r) * w], w);
+            memcpy(&pl.at(x, y + r), &out[size_t(r) * w], w * sizeof(uint16_t));
     }
     void compute_prediction() {
         if (!use_intrabc) return;
@@ -2208,12 +2359,12 @@ struct Decoder {
     int dc_q(int p) {
         int q = get_qindex(h, 0, segment_id, current_q);
         int d = p == 0 ? h.dq_y_dc : (p == 1 ? h.dq_u_dc : h.dq_v_dc);
-        return av1t::dc_qlookup[clip3(0, 255, q + d)];
+        return av1t::dc_qlookup[(bd - 8) >> 1][clip3(0, 255, q + d)];
     }
     int ac_q(int p) {
         int q = get_qindex(h, 0, segment_id, current_q);
         int d = p == 0 ? 0 : (p == 1 ? h.dq_u_ac : h.dq_v_ac);
-        return av1t::ac_qlookup[clip3(0, 255, q + d)];
+        return av1t::ac_qlookup[(bd - 8) >> 1][clip3(0, 255, q + d)];
     }
     void reconstruct(int p, int x, int y, int tx) {
         int pels = txw(tx) * txh(tx);
@@ -2241,8 +2392,9 @@ struct Decoder {
         Plane& pl = planes[p];
         int pmax = (1 << bd) - 1;
         for (int i = 0; i < hh; i++) {
-            uint8_t* row = pl.row(y + i) + x;
-            for (int j = 0; j < w; j++) row[j] = uint8_t(clip3(0, pmax, row[j] + resid[i * w + j]));
+            uint16_t* row = pl.row(y + i) + x;
+            for (int j = 0; j < w; j++)
+                row[j] = uint16_t(clip3(0, pmax, row[j] + resid[i * w + j]));
         }
     }
 
@@ -2343,7 +2495,7 @@ struct Decoder {
         else above[-1] = half;
         left[-1] = above[-1];
         int pmax = (1 << bd) - 1;
-        auto put = [&](int i, int j, int v) { pl.at(x + j, y + i) = uint8_t(v); };
+        auto put = [&](int i, int j, int v) { pl.at(x + j, y + i) = uint16_t(v); };
         if (p == 0 && use_filter_intra) {
             int w4 = w >> 2, h2 = hh >> 1;
             for (int i2 = 0; i2 < h2; i2++)
@@ -2501,7 +2653,7 @@ struct Decoder {
         Plane& pl = planes[p];
         for (int i = 0; i < hh; i++)
             for (int j = 0; j < w; j++)
-                pl.at(sx0 + j, sy0 + i) = uint8_t(pal[map[(y * 4 + i) * bw + x * 4 + j]]);
+                pl.at(sx0 + j, sy0 + i) = pal[map[(y * 4 + i) * bw + x * 4 + j]];
     }
     void predict_cfl(int p, int sx0, int sy0, int tx) {
         int w = txw(tx), hh = txh(tx);
@@ -2531,7 +2683,7 @@ struct Decoder {
             for (int j = 0; j < w; j++) {
                 int dc = pl.at(sx0 + j, sy0 + i);
                 int scaled = round2signed(alpha * (cfl_buf[i * w + j] - avg), 6);
-                pl.at(sx0 + j, sy0 + i) = uint8_t(clip3(0, pmax, dc + scaled));
+                pl.at(sx0 + j, sy0 + i) = uint16_t(clip3(0, pmax, dc + scaled));
             }
     }
 
@@ -2605,7 +2757,7 @@ struct Decoder {
     void sample_filter(int p, int x, int y, int limit, int blimit, int thresh, int dx, int dy,
                        int filter_size) {
         Plane& pl = planes[p];
-        auto S = [&](int k) -> uint8_t& { return pl.at(x + dx * k, y + dy * k); };  // k<0: p side
+        auto S = [&](int k) -> uint16_t& { return pl.at(x + dx * k, y + dy * k); };  // k<0: p side
         int q0 = S(0), q1 = S(1), q2 = S(2), q3 = S(3);
         int p0 = S(-1), p1 = S(-2), p2 = S(-3), p3 = S(-4);
         int sh = bd - 8;
@@ -2649,12 +2801,12 @@ struct Decoder {
             filter = clip3(lo, hi, filter + 3 * (qs0 - ps0));
             int f1 = clip3(lo, hi, filter + 4) >> 3;
             int f2 = clip3(lo, hi, filter + 3) >> 3;
-            S(0) = uint8_t(clip3(lo, hi, qs0 - f1) + off);
-            S(-1) = uint8_t(clip3(lo, hi, ps0 + f2) + off);
+            S(0) = uint16_t(clip3(lo, hi, qs0 - f1) + off);
+            S(-1) = uint16_t(clip3(lo, hi, ps0 + f2) + off);
             if (!hev) {
                 filter = round2(f1, 1);
-                S(1) = uint8_t(clip3(lo, hi, qs1 - filter) + off);
-                S(-2) = uint8_t(clip3(lo, hi, ps1 + filter) + off);
+                S(1) = uint16_t(clip3(lo, hi, qs1 - filter) + off);
+                S(-2) = uint16_t(clip3(lo, hi, ps1 + filter) + off);
             }
         } else {
             int log2size = (filter_size == 8 || !flat2) ? 3 : 4;
@@ -2674,7 +2826,321 @@ struct Decoder {
                 }
                 out[i + 8] = round2(t, log2size);
             }
-            for (int i = -n; i < n; i++) S(i) = uint8_t(out[i + 8]);
+            for (int i = -n; i < n; i++) S(i) = uint16_t(out[i + 8]);
+        }
+    }
+
+    // ---- CDEF (specification 7.15): each 8 x 8 block that is not all skip,
+    // in a 64 x 64 unit whose cdef_idx is not -1, filtered from the
+    // deblocked planes into dst (a copy of them)
+    void cdef(Plane* dst) {
+        for (int r = 0; r < h.mi_rows; r += 2)
+            for (int c = 0; c < h.mi_cols; c += 2) {
+                int idx = cdef_idx[mi(r & ~15, c & ~15)];
+                if (idx == -1) continue;
+                if (skip_map[mi(r, c)] && skip_map[mi(r + 1, c)] && skip_map[mi(r, c + 1)] &&
+                    skip_map[mi(r + 1, c + 1)])
+                    continue;
+                cdef_block(r, c, idx, dst);
+            }
+    }
+    void cdef_block(int r, int c, int idx, Plane* dst) {
+        // Cdef_Uv_Dir[ss_x][ss_y]: 4:2:2 chroma turns the luma direction
+        static const int uv_dir[2][2][8] = {{{0, 1, 2, 3, 4, 5, 6, 7}, {1, 2, 2, 2, 3, 4, 6, 0}},
+                                            {{7, 0, 2, 4, 5, 6, 6, 6}, {0, 1, 2, 3, 4, 5, 6, 7}}};
+        int shift = bd - 8;
+        int64_t var = 0;
+        int ydir = cdef_direction(r, c, var);
+        int pri = h.cdef_y_pri[idx] << shift, sec = h.cdef_y_sec[idx] << shift;
+        int dir = pri == 0 ? 0 : ydir;
+        int var_str = (var >> 6) ? std::min(floor_log2(uint32_t(var >> 6)), 12) : 0;
+        pri = var ? (pri * (4 + var_str) + 8) >> 4 : 0;
+        n_cdef += pri || sec || h.cdef_uv_pri[idx] || h.cdef_uv_sec[idx];
+        cdef_filter(0, r, c, pri, sec, h.cdef_damping + shift, dir, dst);
+        if (num_planes == 1) return;
+        pri = h.cdef_uv_pri[idx] << shift;
+        sec = h.cdef_uv_sec[idx] << shift;
+        dir = pri == 0 ? 0 : uv_dir[ssx][ssy][ydir];
+        cdef_filter(1, r, c, pri, sec, h.cdef_damping + shift - 1, dir, dst);
+        cdef_filter(2, r, c, pri, sec, h.cdef_damping + shift - 1, dir, dst);
+    }
+    int cdef_direction(int r, int c, int64_t& var) {
+        static const int div_table[9] = {0, 840, 420, 280, 210, 168, 140, 120, 105};
+        int64_t cost[8] = {0};
+        int partial[8][15] = {{0}};
+        int x0 = c * 4, y0 = r * 4;
+        for (int i = 0; i < 8; i++)
+            for (int j = 0; j < 8; j++) {
+                int x = (planes[0].at(x0 + j, y0 + i) >> (bd - 8)) - 128;
+                partial[0][i + j] += x;
+                partial[1][i + j / 2] += x;
+                partial[2][i] += x;
+                partial[3][3 + i - j / 2] += x;
+                partial[4][7 + i - j] += x;
+                partial[5][3 - i / 2 + j] += x;
+                partial[6][j] += x;
+                partial[7][i / 2 + j] += x;
+            }
+        auto sq = [](int v) { return int64_t(v) * v; };
+        for (int i = 0; i < 8; i++) { cost[2] += sq(partial[2][i]); cost[6] += sq(partial[6][i]); }
+        cost[2] *= div_table[8];
+        cost[6] *= div_table[8];
+        for (int i = 0; i < 7; i++) {
+            cost[0] += (sq(partial[0][i]) + sq(partial[0][14 - i])) * div_table[i + 1];
+            cost[4] += (sq(partial[4][i]) + sq(partial[4][14 - i])) * div_table[i + 1];
+        }
+        cost[0] += sq(partial[0][7]) * div_table[8];
+        cost[4] += sq(partial[4][7]) * div_table[8];
+        for (int i = 1; i < 8; i += 2) {
+            for (int j = 0; j < 5; j++) cost[i] += sq(partial[i][3 + j]);
+            cost[i] *= div_table[8];
+            for (int j = 0; j < 3; j++)
+                cost[i] += (sq(partial[i][j]) + sq(partial[i][10 - j])) * div_table[2 * j + 2];
+        }
+        int64_t best = 0;
+        int ydir = 0;
+        for (int i = 0; i < 8; i++)
+            if (cost[i] > best) { best = cost[i]; ydir = i; }
+        var = (best - cost[(ydir + 4) & 7]) >> 10;
+        return ydir;
+    }
+    // constrain() with its damping shift, Max(0, damping - FloorLog2(threshold)),
+    // worked out once per block
+    static int constrain(int diff, int threshold, int shift) {
+        // a threshold of 0 gives 0: Min(|diff|, Max(0, -(|diff| >> shift)))
+        int a = std::abs(diff);
+        int val = std::min(a, std::max(0, threshold - (a >> shift)));
+        return diff < 0 ? -val : val;
+    }
+    void cdef_filter(int p, int r, int c, int pri, int sec, int damping, int dir, Plane* dst) {
+        static const int pri_taps[2][2] = {{4, 2}, {3, 3}}, sec_taps[2] = {2, 1};
+        if (!pri && !sec) return;  // the sum is 0: dst keeps the copy
+        int sx = p ? ssx : 0, sy = p ? ssy : 0;
+        int x0 = (c * 4) >> sx, y0 = (r * 4) >> sy;
+        int w = 8 >> sx, hh = 8 >> sy;
+        // CdefAvailable: inside the frame's 4 x 4 blocks (MiRows x MiCols);
+        // the taps reach 2 samples out
+        int avail_w = (h.mi_cols * 4) >> sx, avail_h = (h.mi_rows * 4) >> sy;
+        bool inner = x0 >= 2 && y0 >= 2 && x0 + w + 2 <= avail_w && y0 + hh + 2 <= avail_h;
+        const Plane& src = planes[p];
+        int tap_set = (pri >> (bd - 8)) & 1;
+        int pri_shift = pri ? std::max(0, damping - floor_log2(uint32_t(pri))) : 0;
+        int sec_shift = sec ? std::max(0, damping - floor_log2(uint32_t(sec))) : 0;
+        // the taps: k, direction (primary, then the two secondary ones)
+        const int dirs[3] = {dir, (dir + 6) & 7, (dir + 2) & 7};
+        int dy[2][3], dx[2][3], weight[2][3], strength[3] = {pri, sec, sec},
+            shift[3] = {pri_shift, sec_shift, sec_shift};
+        ptrdiff_t off[2][3];
+        for (int k = 0; k < 2; k++)
+            for (int t = 0; t < 3; t++) {
+                dy[k][t] = av1t::cdef_directions[dirs[t]][k][0];
+                dx[k][t] = av1t::cdef_directions[dirs[t]][k][1];
+                off[k][t] = ptrdiff_t(dy[k][t]) * src.stride + dx[k][t];
+                weight[k][t] = t == 0 ? pri_taps[tap_set][k] : sec_taps[k];
+            }
+        for (int i = 0; i < hh; i++) {
+            const uint16_t* row = &src.at(x0, y0 + i);
+            int sum[8] = {0}, mx[8], mn[8];
+            for (int j = 0; j < w; j++) mx[j] = mn[j] = row[j];
+            for (int k = 0; k < 2; k++)
+                for (int t = 0; t < 3; t++)
+                    for (int sign = -1; sign <= 1; sign += 2) {
+                        const uint16_t* q = row + sign * off[k][t];
+                        const int wt = weight[k][t], st = strength[t], sh = shift[t];
+                        // a row of taps at once: all inside the frame, or each checked
+                        int j0 = 0, j1 = w;
+                        if (!inner) {
+                            int yy = y0 + i + sign * dy[k][t];
+                            if (yy < 0 || yy >= avail_h) continue;
+                            j0 = std::max(0, -(x0 + sign * dx[k][t]));
+                            j1 = std::min(w, avail_w - (x0 + sign * dx[k][t]));
+                        }
+                        for (int j = j0; j < j1; j++) {
+                            int v = q[j];
+                            sum[j] += wt * constrain(v - row[j], st, sh);
+                            mx[j] = std::max(mx[j], v);
+                            mn[j] = std::min(mn[j], v);
+                        }
+                    }
+            uint16_t* out = &dst[p].at(x0, y0 + i);
+            for (int j = 0; j < w; j++)
+                out[j] = uint16_t(clip3(mn[j], mx[j], row[j] + ((8 + sum[j] - (sum[j] < 0)) >> 4)));
+        }
+    }
+
+    // ---- superres (specification 7.16): each plane's rows upscaled with the
+    // 8-tap filter, stepping as dav1d steps (initialSubpelX with its
+    // SUPERRES_EXTRA_BITS error term), clamped to the 8-aligned decoded width
+    void upscale(const Plane* src, Plane* dst) {
+        int pmax = (1 << bd) - 1;
+        for (int p = 0; p < num_planes; p++) {
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            int down_w = (h.width + sx) >> sx, up_w = (h.upscaled_width + sx) >> sx;
+            int ph = (h.height + sy) >> sy;
+            int step = ((down_w << 14) + (up_w >> 1)) / up_w;
+            int err = up_w * step - (down_w << 14);
+            int x0 = ((-((up_w - down_w) << 13) + (up_w >> 1)) / up_w + 128 - err / 2) & 0x3fff;
+            int src_w = (4 * h.mi_cols + sx) >> sx;
+            Plane& d = dst[p];
+            d.w = d.stride = up_w;
+            d.h = ph;
+            d.px.assign(size_t(up_w) * ph, 0);
+            for (int y = 0; y < ph; y++) {
+                int mx = x0, src_x = -1;
+                for (int x = 0; x < up_w; x++) {
+                    const int8_t* f = av1t::upscale_filter[mx >> 8];
+                    int sum = 0;
+                    for (int k = 0; k < 8; k++)
+                        sum += f[k] * src[p].at(clip3(0, src_w - 1, src_x + k - 3), y);
+                    d.at(x, y) = uint16_t(clip3(0, pmax, (sum + 64) >> 7));
+                    mx += step;
+                    src_x += mx >> 14;
+                    mx &= 0x3fff;
+                }
+            }
+        }
+    }
+
+    // ---- loop restoration (specification 7.17), stripe by stripe: the
+    // rows of a 64-row stripe (8 rows up, shifted by ss_y) are read from the
+    // upscaled CDEF output, the two rows above and below it from the
+    // upscaled deblocked frame (cur), each clamped to the plane
+    void loop_restoration(const Plane* cur, const Plane* cdef_out, Plane* dst) {
+        for (int p = 0; p < num_planes; p++) {
+            if (h.lr_type[p] == RESTORE_NONE) continue;
+            int sx = p ? ssx : 0, sy = p ? ssy : 0;
+            int unit = h.lr_unit_size[p];
+            int end_x = ((h.upscaled_width + sx) >> sx) - 1, end_y = ((h.height + sy) >> sy) - 1;
+            int pw = end_x + 1;
+            const int m = 4;  // the buffer's margin: 3 rows / columns and one more
+            int bw = pw + 2 * m;
+            std::vector<int32_t> buf;
+            for (int k = 0;; k++) {
+                int start = (-8 + 64 * k) >> sy, stop = start + (64 >> sy) - 1;
+                if (start > end_y) break;
+                int ys = std::max(0, start), ye = std::min(end_y, stop);
+                if (ys > ye) continue;
+                int rows = ye - ys + 1 + 2 * m;
+                buf.assign(size_t(rows) * bw, 0);
+                for (int r = 0; r < rows; r++) {
+                    int y = clip3(0, end_y, ys - m + r);
+                    const Plane* from = cdef_out;
+                    if (y < start) { y = std::max(start - 2, y); from = cur; }
+                    else if (y > stop) { y = std::min(stop + 2, y); from = cur; }
+                    for (int c = 0; c < bw; c++)
+                        buf[size_t(r) * bw + c] = from[p].at(clip3(0, end_x, c - m), y);
+                }
+                int unit_row = std::min(lr_rows[p] - 1, ((64 * k) >> sy) / unit);
+                for (int uc = 0; uc < lr_cols[p]; uc++) {
+                    // the last unit takes the rest of the plane
+                    int xs = uc * unit;
+                    int xe = uc == lr_cols[p] - 1 ? end_x : std::min(end_x, xs + unit - 1);
+                    if (xs > xe) continue;
+                    const LrUnit& u = lr_units[p][size_t(unit_row) * lr_cols[p] + uc];
+                    const int32_t* origin = &buf[size_t(m) * bw + m + xs];
+                    if (u.type == RESTORE_WIENER)
+                        wiener(u, origin, bw, xe - xs + 1, ye - ys + 1, dst[p], xs, ys);
+                    else if (u.type == RESTORE_SGRPROJ)
+                        self_guided(u, origin, bw, xe - xs + 1, ye - ys + 1, dst[p], xs, ys);
+                }
+            }
+        }
+    }
+    // src: the rectangle's first sample in a buffer of stride bw with 4
+    // samples of margin on every side
+    void wiener(const LrUnit& u, const int32_t* src, int bw, int w, int hh, Plane& dst, int x,
+                int y) {
+        int round0 = bd == 12 ? 5 : 3, round1 = bd == 12 ? 9 : 11;
+        int offset = 1 << (bd + 7 - round0 - 1), limit = (1 << (bd + 1 + 7 - round0)) - 1;
+        int vf[7], hf[7];
+        for (int pass = 0; pass < 2; pass++) {
+            int* f = pass ? hf : vf;
+            f[3] = 128;
+            for (int i = 0; i < 3; i++) {
+                int c = u.wiener[pass][i];
+                f[i] = f[6 - i] = c;
+                f[3] -= 2 * c;
+            }
+        }
+        std::vector<int32_t> inter(size_t(hh + 6) * w);
+        for (int r = 0; r < hh + 6; r++)
+            for (int c = 0; c < w; c++) {
+                const int32_t* s = src + ptrdiff_t(r - 3) * bw + c - 3;
+                int sum = 0;
+                for (int t = 0; t < 7; t++) sum += hf[t] * s[t];
+                inter[size_t(r) * w + c] = clip3(-offset, limit - offset, round2(sum, round0));
+            }
+        int pmax = (1 << bd) - 1;
+        for (int r = 0; r < hh; r++)
+            for (int c = 0; c < w; c++) {
+                int64_t sum = 0;
+                for (int t = 0; t < 7; t++) sum += int64_t(vf[t]) * inter[size_t(r + t) * w + c];
+                dst.at(x + c, y + r) = uint16_t(clip3(0, pmax, int(round2l(sum, round1))));
+            }
+    }
+    void self_guided(const LrUnit& u, const int32_t* src, int bw, int w, int hh, Plane& dst, int x,
+                     int y) {
+        std::vector<int32_t> f0, f1;
+        int s0 = av1t::sgr_params[u.sgr_set][0], s1 = av1t::sgr_params[u.sgr_set][1];
+        if (s0) box_filter(src, bw, w, hh, 2, s0, f0);
+        if (s1) box_filter(src, bw, w, hh, 1, s1, f1);
+        int w0 = u.xqd[0], w1 = u.xqd[1], w2 = 128 - w0 - w1;
+        int pmax = (1 << bd) - 1;
+        for (int i = 0; i < hh; i++)
+            for (int j = 0; j < w; j++) {
+                int64_t px = int64_t(src[ptrdiff_t(i) * bw + j]) << 4;
+                int64_t v = w1 * px;
+                v += w0 * (s0 ? int64_t(f0[size_t(i) * w + j]) : px);
+                v += w2 * (s1 ? int64_t(f1[size_t(i) * w + j]) : px);
+                dst.at(x + j, y + i) = uint16_t(clip3(0, pmax, int(round2l(v, 11))));
+            }
+    }
+    void box_filter(const int32_t* src, int bw, int w, int hh, int r, int s,
+                    std::vector<int32_t>& out) {
+        int n = (2 * r + 1) * (2 * r + 1);
+        int one_over_n = ((1 << 12) + (n >> 1)) / n;
+        int aw = w + 2;
+        std::vector<int32_t> A(size_t(hh + 2) * aw), B(size_t(hh + 2) * aw);
+        for (int i = -1; i < hh + 1; i++)
+            for (int j = -1; j < w + 1; j++) {
+                int64_t a = 0, b = 0;
+                for (int dy = -r; dy <= r; dy++) {
+                    const int32_t* row = src + ptrdiff_t(i + dy) * bw + j;
+                    for (int dx = -r; dx <= r; dx++) {
+                        int64_t c = row[dx];
+                        a += c * c;
+                        b += c;
+                    }
+                }
+                a = round2l(a, 2 * (bd - 8));
+                int64_t d = round2l(b, bd - 8);
+                int64_t p = std::max<int64_t>(0, a * n - d * d);
+                int64_t z = round2l(p * s, 20);
+                int a2;
+                if (z >= 255) a2 = 256;
+                else if (z == 0) a2 = 1;
+                else a2 = int(((z << 8) + (z / 2)) / (z + 1));
+                int64_t b2 = int64_t(256 - a2) * b * one_over_n;
+                A[size_t(i + 1) * aw + j + 1] = a2;
+                B[size_t(i + 1) * aw + j + 1] = int32_t(round2l(b2, 12));
+            }
+        out.assign(size_t(w) * hh, 0);
+        for (int i = 0; i < hh; i++) {
+            int shift = (r == 2 && (i & 1)) ? 4 : 5;
+            for (int j = 0; j < w; j++) {
+                int64_t a = 0, b = 0;
+                for (int dy = -1; dy <= 1; dy++)
+                    for (int dx = -1; dx <= 1; dx++) {
+                        int weight;
+                        if (r == 2) weight = ((i + dy) & 1) ? (dx == 0 ? 6 : 5) : 0;
+                        else weight = (dx == 0 || dy == 0) ? 4 : 3;
+                        size_t k = size_t(i + 1 + dy) * aw + j + 1 + dx;
+                        a += weight * A[k];
+                        b += weight * B[k];
+                    }
+                int64_t v = a * src[ptrdiff_t(i) * bw + j] + b;
+                out[size_t(i) * w + j] = int32_t(round2l(v, 8 + shift - 4));
+            }
         }
     }
 };
@@ -2684,8 +3150,9 @@ struct Result {
     int w = 0, h = 0, mono = 0, ssx = 0, ssy = 0, bit_depth = 8;
     int matrix = 2, range = 0, primaries = 2, transfer = 2;
     int allow_intrabc = 0, n_intrabc = 0, n_palette = 0, n_filter_intra = 0, n_cfl = 0,
-        deblocked = 0;
-    std::vector<uint8_t> planes[3];
+        deblocked = 0, coded_w = 0, superres_denom = 8, n_cdef = 0, n_wiener = 0, n_sgrproj = 0,
+        lr_types = 0;
+    std::vector<uint16_t> planes[3];
 };
 
 uint64_t read_leb128(const uint8_t* p, size_t n, size_t& pos) {
@@ -2762,9 +3229,6 @@ void decode_obus(const uint8_t* data, size_t size, Result& res, int cap_w, int c
                 BitReader b(obu, osz);
                 SequenceHeader s2;
                 parse_sequence_header(b, s2);
-                if (s2.bit_depth != 8)
-                    fail("AV1 " + std::to_string(s2.bit_depth) +
-                         "-bit samples (queued for part 2 of the AVIF decoder)");
                 seq = s2;
                 have_seq = true;
                 break;
@@ -2839,49 +3303,90 @@ void decode_obus(const uint8_t* data, size_t size, Result& res, int cap_w, int c
     }
     if (!have_seq) fail("AV1 data without a sequence header");
     if (!done) fail("AV1 data ends before the frame's last tile");
+    // the in-loop filters: deblocking in place, CDEF into a copy, both
+    // frames upscaled under superres, loop restoration from both
     dec->loop_filter();
+    int np = seq.num_planes();
+    Plane cdef_out[3], up_cur[3], up_cdef[3], restored[3];
+    const Plane* out = dec->planes;
+    if (fh.cdef_on) {
+        for (int p = 0; p < np; p++) cdef_out[p] = dec->planes[p];
+        dec->cdef(cdef_out);
+        out = cdef_out;
+    }
+    const Plane* cur = dec->planes;
+    if (fh.width != fh.upscaled_width) {
+        dec->upscale(dec->planes, up_cur);
+        cur = up_cur;
+        if (out != dec->planes) dec->upscale(out, up_cdef);
+        out = out != dec->planes ? up_cdef : up_cur;
+    }
+    if (fh.uses_lr) {
+        for (int p = 0; p < np; p++) restored[p] = out[p];
+        dec->loop_restoration(cur, out, restored);
+        out = restored;
+    }
     header_info();
     res.n_intrabc = dec->n_intrabc;
     res.n_palette = dec->n_palette;
     res.n_filter_intra = dec->n_filter_intra;
     res.n_cfl = dec->n_cfl;
     res.deblocked = !fh.allow_intrabc && !fh.coded_lossless && (fh.lf_level[0] || fh.lf_level[1]);
-    for (int p = 0; p < seq.num_planes(); p++) {
+    res.coded_w = fh.width;
+    res.superres_denom = fh.superres_denom;
+    res.n_cdef = dec->n_cdef;
+    res.n_wiener = dec->n_wiener;
+    res.n_sgrproj = dec->n_sgrproj;
+    res.lr_types = fh.lr_type[0] | fh.lr_type[1] << 2 | fh.lr_type[2] << 4;
+    for (int p = 0; p < np; p++) {
         int sx = p ? seq.ss_x : 0, sy = p ? seq.ss_y : 0;
         int pw = (res.w + sx) >> sx, ph = (res.h + sy) >> sy;
         res.planes[p].resize(size_t(pw) * ph);
         for (int y = 0; y < ph; y++)
-            memcpy(&res.planes[p][size_t(y) * pw], dec->planes[p].row(y), pw);
+            memcpy(&res.planes[p][size_t(y) * pw], &out[p].at(0, y), pw * sizeof(uint16_t));
     }
+}
+
+template <typename T>
+void copy_plane(const std::vector<uint16_t>& src, void* dst) {
+    T* d = static_cast<T*>(dst);
+    for (size_t i = 0; i < src.size(); i++) d[i] = T(src[i]);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Decodes an AV1 bitstream (the OBUs of an AVIF item). info[0..15]: width,
+// Decodes an AV1 bitstream (the OBUs of an AVIF item). info[0..21]: width,
 // height, monochrome, ss_x, ss_y, bit depth, matrix, range, primaries,
 // transfer, then allow_intrabc and the number of blocks that used IntraBC,
-// palette, filter intra and CfL, and whether the frame was deblocked. The
-// frame is decoded, and its planes written where the pointers are not
-// null, only where it is cap_w x cap_h (the item's ispe): y (w*h) and,
-// unless monochrome, u and v (((w+ss_x)>>ss_x) * ((h+ss_y)>>ss_y) each, at
-// most w*h); otherwise only the headers are read and info[0..10] filled.
-// 0 on success, -1 with a message in err.
-int citlab_av1_decode(const uint8_t* data, int64_t size, int32_t* info, uint8_t* y, uint8_t* u,
-                      uint8_t* v, int32_t cap_w, int32_t cap_h, char* err, int32_t errlen) {
+// palette, filter intra and CfL, whether the frame was deblocked, the coded
+// (downscaled) width, the superres denominator (8: none), the number of
+// 8 x 8 blocks CDEF filtered, of Wiener and of self-guided restoration
+// units, and the frame's restoration type of each plane (2 bits each, plane
+// 0 lowest: 0 none, 1 Wiener, 2 self-guided, 3 switchable). The frame is
+// decoded, and its planes written where the pointers are not null, only
+// where it is cap_w x cap_h (the item's ispe): y (w*h)
+// and, unless monochrome, u and v (((w+ss_x)>>ss_x) * ((h+ss_y)>>ss_y)
+// each, at most w*h), one byte a sample at 8 bits and two (uint16) above;
+// otherwise only the headers are read and info[0..10] filled. 0 on
+// success, -1 with a message in err.
+int citlab_av1_decode(const uint8_t* data, int64_t size, int32_t* info, void* y, void* u,
+                      void* v, int32_t cap_w, int32_t cap_h, char* err, int32_t errlen) {
     try {
         Result r;
         decode_obus(data, size_t(size), r, cap_w, cap_h);
-        int vals[16] = {r.w, r.h, r.mono, r.ssx, r.ssy, r.bit_depth, r.matrix, r.range,
+        int vals[22] = {r.w, r.h, r.mono, r.ssx, r.ssy, r.bit_depth, r.matrix, r.range,
                         r.primaries, r.transfer, r.allow_intrabc, r.n_intrabc, r.n_palette,
-                        r.n_filter_intra, r.n_cfl, r.deblocked};
-        for (int i = 0; i < 16; i++) info[i] = vals[i];
+                        r.n_filter_intra, r.n_cfl, r.deblocked, r.coded_w, r.superres_denom,
+                        r.n_cdef, r.n_wiener, r.n_sgrproj, r.lr_types};
+        for (int i = 0; i < 22; i++) info[i] = vals[i];
         if (r.w != cap_w || r.h != cap_h) return 0;
-        if (y) memcpy(y, r.planes[0].data(), r.planes[0].size());
-        if (!r.mono) {
-            if (u) memcpy(u, r.planes[1].data(), r.planes[1].size());
-            if (v) memcpy(v, r.planes[2].data(), r.planes[2].size());
+        void* dst[3] = {y, u, v};
+        for (int p = 0; p < (r.mono ? 1 : 3); p++) {
+            if (!dst[p]) continue;
+            if (r.bit_depth > 8) copy_plane<uint16_t>(r.planes[p], dst[p]);
+            else copy_plane<uint8_t>(r.planes[p], dst[p]);
         }
         return 0;
     } catch (const std::exception& e) {
@@ -2890,20 +3395,36 @@ int citlab_av1_decode(const uint8_t* data, int64_t size, int32_t* info, uint8_t*
     }
 }
 
-// libavif's avifImageYUVToRGB of 8-bit planes as PIL's decoder calls it
-// (AVIF_CHROMA_UPSAMPLING_AUTOMATIC): libyuv's fixed-point conversion with
-// the 6-bit coefficients of kYuv<...>Constants (yg, yb, ub, ug, vg, vr in
-// coef) after libyuv's bilinear 2x chroma upsampling (3:1 taps, the first
-// output the first sample, horizontally the last output the sample
-// (w - 1) / 2). rgb: h x w x 3.
-void citlab_yuv_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t* v, int32_t w,
-                       int32_t h, int32_t ssx, int32_t ssy, const int32_t* coef, uint8_t* rgb) {
+// libavif 1.3.0's avifImageYUVToRGB to 8-bit RGB as PIL's decoder calls it
+// (AVIF_CHROMA_UPSAMPLING_AUTOMATIC), through libyuv where libavif finds
+// libyuv constants: libyuv's fixed-point conversion with the 6-bit
+// coefficients of kYuv<...>Constants (yg, yb, ub, ug, vg, vr in coef).
+// Planes are uint8 at depth 8, uint16 above; u == nullptr is monochrome
+// (I400: the chroma terms vanish). mode 0: the samples shifted to 8 bits
+// first (libyuv's Convert16To8Plane, as libavif does for 3-byte RGB), then
+// libyuv's bilinear 2x chroma upsampling (3:1 taps, the first output the
+// first sample, horizontally the last output the sample (w - 1) / 2) and the
+// 8-bit conversion; mode 1: the upsampling at the samples' depth, then
+// libyuv's 10/12-bit conversion (I010/I210/I410ToARGBMatrixFilter: luma
+// widened to 16 bits by repeating its top bits, chroma shifted to 8 bits);
+// mode 2: as 1 with each chroma sample repeated (I012ToARGBMatrix).
+// rgb: h x w x 3.
+void citlab_yuv_to_rgb(const void* y, const void* u, const void* v, int32_t w, int32_t h,
+                       int32_t ssx, int32_t ssy, int32_t depth, int32_t mode, const int32_t* coef,
+                       uint8_t* rgb) {
     int cw = (w + ssx) >> ssx, ch = (h + ssy) >> ssy;
     int yg = coef[0], yb = coef[1], ub = coef[2], ug = coef[3], vg = coef[4], vr = coef[5];
+    int sh = depth - 8;
+    auto sample = [&](const void* p, size_t i) -> int {
+        int x = depth > 8 ? static_cast<const uint16_t*>(p)[i] : static_cast<const uint8_t*>(p)[i];
+        return mode == 0 ? std::min(255, x >> sh) : x;
+    };
+    int out_sh = mode == 0 ? 0 : sh;                     // chroma to 8 bits after upsampling
+    bool nearest = mode == 2;
     // per output column: the two chroma columns and the weight of the first
     std::vector<int> xa(w), xb(w), xw(w);
     for (int j = 0; j < w; j++) {
-        if (!ssx) { xa[j] = xb[j] = j; xw[j] = 4; continue; }
+        if (!ssx || nearest) { xa[j] = xb[j] = j >> ssx; xw[j] = 4; continue; }
         int k = j == 0 ? 0 : (j - 1) >> 1;
         xa[j] = k; xb[j] = std::min(k + 1, cw - 1);
         xw[j] = (j % 2 == 1 || j == 0) ? 3 : 1;
@@ -2912,34 +3433,161 @@ void citlab_yuv_to_rgb(const uint8_t* y, const uint8_t* u, const uint8_t* v, int
     }
     std::vector<int> hu0(w), hv0(w), hu1(w), hv1(w);
     auto hrow = [&](int r, std::vector<int>& ou, std::vector<int>& ov) {
-        const uint8_t* ur = u + size_t(r) * cw;
-        const uint8_t* vr_ = v + size_t(r) * cw;
+        size_t base = size_t(r) * cw;
         for (int j = 0; j < w; j++) {
-            ou[j] = ur[xa[j]] * xw[j] + ur[xb[j]] * (4 - xw[j]);
-            ov[j] = vr_[xa[j]] * xw[j] + vr_[xb[j]] * (4 - xw[j]);
+            ou[j] = sample(u, base + xa[j]) * xw[j] + sample(u, base + xb[j]) * (4 - xw[j]);
+            ov[j] = sample(v, base + xa[j]) * xw[j] + sample(v, base + xb[j]) * (4 - xw[j]);
         }
     };
     for (int i = 0; i < h; i++) {
-        int ra, rb, rw;
-        if (!ssy) { ra = rb = i; rw = 4; }
+        int ra = 0, rb = 0, rw = 4;
+        if (!ssy || nearest) { ra = rb = i >> ssy; }
         else {
             int k = i == 0 ? 0 : (i - 1) >> 1;
             ra = k; rb = std::min(k + 1, ch - 1);
             rw = (i % 2 == 1 || i == 0) ? 3 : 1;
             if (i == 0) rb = 0;
         }
-        hrow(ra, hu0, hv0);
-        hrow(rb, hu1, hv1);
-        const uint8_t* yr = y + size_t(i) * w;
+        if (u) { hrow(ra, hu0, hv0); hrow(rb, hu1, hv1); }
         uint8_t* out = rgb + size_t(i) * w * 3;
         for (int j = 0; j < w; j++) {
-            int uu = (hu0[j] * rw + hu1[j] * (4 - rw) + 8) >> 4;
-            int vv = (hv0[j] * rw + hv1[j] * (4 - rw) + 8) >> 4;
-            int y1 = int((uint32_t(yr[j]) * 0x0101u * uint32_t(yg)) >> 16) + yb;
-            int du = uu - 128, dv = vv - 128;
+            int du = 0, dv = 0;
+            if (u) {
+                int uu = (hu0[j] * rw + hu1[j] * (4 - rw) + 8) >> 4;
+                int vv = (hv0[j] * rw + hv1[j] * (4 - rw) + 8) >> 4;
+                du = std::min(255, uu >> out_sh) - 128;
+                dv = std::min(255, vv >> out_sh) - 128;
+            }
+            uint32_t yy = uint32_t(sample(y, size_t(i) * w + j)), y32;
+            if (mode == 0 || depth == 8) y32 = yy * 0x0101u;
+            else y32 = (yy << (16 - depth)) | (yy >> (2 * depth - 16));
+            int y1 = int((y32 * uint32_t(yg)) >> 16) + yb;
             out[3 * j] = uint8_t(clip3(0, 255, (y1 + vr * dv) >> 6));
             out[3 * j + 1] = uint8_t(clip3(0, 255, (y1 - ug * du - vg * dv) >> 6));
             out[3 * j + 2] = uint8_t(clip3(0, 255, (y1 + ub * du) >> 6));
+        }
+    }
+}
+
+// libavif's Kr and Kb of matrix coefficients 12 (chromaticity-derived
+// non-constant luminance), from the colour primaries' float table as
+// avifColorPrimariesGetValues gives it (BT.709's for unknown primaries),
+// in libavif's float arithmetic (H.273 equations 32 to 37). kr_kb: 2 floats.
+void citlab_avif_derived_kr_kb(int32_t primaries, float* kr_kb) {
+    static const struct { int id; float p[8]; } table[] = {
+        {1, {0.64f, 0.33f, 0.30f, 0.60f, 0.15f, 0.06f, 0.3127f, 0.3290f}},
+        {4, {0.67f, 0.33f, 0.21f, 0.71f, 0.14f, 0.08f, 0.310f, 0.316f}},
+        {5, {0.64f, 0.33f, 0.29f, 0.60f, 0.15f, 0.06f, 0.3127f, 0.3290f}},
+        {6, {0.630f, 0.340f, 0.310f, 0.595f, 0.155f, 0.070f, 0.3127f, 0.3290f}},
+        {7, {0.630f, 0.340f, 0.310f, 0.595f, 0.155f, 0.070f, 0.3127f, 0.3290f}},
+        {8, {0.681f, 0.319f, 0.243f, 0.692f, 0.145f, 0.049f, 0.310f, 0.316f}},
+        {9, {0.708f, 0.292f, 0.170f, 0.797f, 0.131f, 0.046f, 0.3127f, 0.3290f}},
+        {10, {1.0f, 0.0f, 0.0f, 1.0f, 0.0f, 0.0f, 0.3333f, 0.3333f}},
+        {11, {0.680f, 0.320f, 0.265f, 0.690f, 0.150f, 0.060f, 0.314f, 0.351f}},
+        {12, {0.680f, 0.320f, 0.265f, 0.690f, 0.150f, 0.060f, 0.3127f, 0.3290f}},
+        {22, {0.630f, 0.340f, 0.295f, 0.605f, 0.155f, 0.077f, 0.3127f, 0.3290f}}};
+    const float* p = table[0].p;
+    for (const auto& t : table)
+        if (t.id == primaries) p = t.p;
+    const float rX = p[0], rY = p[1], gX = p[2], gY = p[3], bX = p[4], bY = p[5], wX = p[6],
+                wY = p[7];
+    const float rZ = 1.0f - (rX + rY), gZ = 1.0f - (gX + gY), bZ = 1.0f - (bX + bY),
+                wZ = 1.0f - (wX + wY);
+    const float den = wY * (rX * (gY * bZ - bY * gZ) + gX * (bY * rZ - rY * bZ) +
+                            bX * (rY * gZ - gY * rZ));
+    kr_kb[0] = (rY * (wX * (gY * bZ - bY * gZ) + wY * (bX * gZ - gX * bZ) +
+                      wZ * (gX * bY - bX * gY))) / den;
+    kr_kb[1] = (bY * (wX * (rY * gZ - gY * rZ) + wY * (gX * rZ - rX * gZ) +
+                      wZ * (rX * gY - gX * rY))) / den;
+}
+
+// libavif's own conversion (avifImageYUVAnyToRGBAnySlow and its 4:4:4 and
+// 4:0:0 fast paths, which compute the same): each sample through the unorm
+// float tables of its range, chroma bilinear (9/16, 3/16, 3/16, 1/16 of the
+// nearest, the adjacent column, the adjacent row and the diagonal sample;
+// 4:2:2 vertically not at all), then kind 0 the Kr / Kb matrix, 1 the
+// identity (G = Y, B = U, R = V), 2 YCgCo, 3 YCgCo-Re; each channel clamped to [0, 1]
+// and stored as (uint8)(0.5 + 255 x). Planes as in citlab_yuv_to_rgb; the
+// float arithmetic is libavif's, operation by operation (built with
+// -ffp-contract=off).
+void citlab_yuv_to_rgb_float(const void* y, const void* u, const void* v, int32_t w, int32_t h,
+                             int32_t ssx, int32_t ssy, int32_t depth, int32_t full, int32_t kind,
+                             float kr, float kb, uint8_t* rgb) {
+    const int maxc = (1 << depth) - 1;
+    const float bias_y = full ? 0.0f : float(16 << (depth - 8));
+    const float range_y = full ? float(maxc) : float(219 << (depth - 8));
+    const float bias_uv = float(1 << (depth - 1));
+    const float range_uv = full ? float(maxc) : float(224 << (depth - 8));
+    std::vector<float> tab_y(size_t(maxc) + 1), tab_uv(size_t(maxc) + 1);
+    for (int cp = 0; cp <= maxc; cp++) {
+        tab_y[cp] = (float(cp) - bias_y) / range_y;
+        tab_uv[cp] = kind == 1 ? tab_y[cp] : (float(cp) - bias_uv) / range_uv;
+    }
+    const float kg = 1.0f - kr - kb;
+    const int cw = (w + ssx) >> ssx;
+    auto at = [&](const void* p, size_t i) -> int {
+        int x = depth > 8 ? static_cast<const uint16_t*>(p)[i] : static_cast<const uint8_t*>(p)[i];
+        return std::min(x, maxc);
+    };
+    const bool sub = ssx || ssy;
+    for (int j = 0; j < h; j++) {
+        uint8_t* out = rgb + size_t(j) * w * 3;
+        const int uvj = j >> ssy;
+        int adj_row = 0;
+        if (!(j == 0 || (j == h - 1 && j % 2 != 0) || (ssx && !ssy)))
+            adj_row = j % 2 != 0 ? cw : -cw;
+        for (int i = 0; i < w; i++) {
+            const float Y = tab_y[at(y, size_t(j) * w + i)];
+            float R, G, B;
+            if (!u) {
+                R = G = B = Y;
+            } else {
+                const int uvi = i >> ssx;
+                const size_t c0 = size_t(uvj) * cw + uvi;
+                float Cb, Cr;
+                if (!sub) {
+                    Cb = tab_uv[at(u, c0)];
+                    Cr = tab_uv[at(v, c0)];
+                } else {
+                    int adj_col = 0;
+                    if (!(i == 0 || (i == w - 1 && i % 2 != 0))) adj_col = i % 2 != 0 ? 1 : -1;
+                    const size_t c10 = c0 + adj_col, c01 = c0 + adj_row;
+                    const size_t c11 = c0 + adj_col + adj_row;
+                    auto bilinear = [&](const void* p) {
+                        return (tab_uv[at(p, c0)] * (9.0f / 16.0f)) +
+                               (tab_uv[at(p, c10)] * (3.0f / 16.0f)) +
+                               (tab_uv[at(p, c01)] * (3.0f / 16.0f)) +
+                               (tab_uv[at(p, c11)] * (1.0f / 16.0f));
+                    };
+                    Cb = bilinear(u);
+                    Cr = bilinear(v);
+                }
+                if (kind == 1) {
+                    G = Y; B = Cb; R = Cr;
+                } else if (kind == 3) {
+                    // YCgCo-Re (H.273 equations 62 to 65): 10-bit YUV to 8-bit RGB
+                    const int yy = at(y, size_t(j) * w + i);
+                    const int cg = int(std::floor(Cb * float(maxc) + 0.5f));
+                    const int co = int(std::floor(Cr * float(maxc) + 0.5f));
+                    const int t = yy - (cg >> 1);
+                    const int g = clip3(0, 255, t + cg), b = clip3(0, 255, t - (co >> 1));
+                    G = float(g) / 255.0f;
+                    B = float(b) / 255.0f;
+                    R = float(clip3(0, 255, b + co)) / 255.0f;
+                } else if (kind == 2) {
+                    const float t = Y - Cb;
+                    G = Y + Cb; B = t - Cr; R = t + Cr;
+                } else {
+                    R = Y + (2 * (1 - kr)) * Cr;
+                    B = Y + (2 * (1 - kb)) * Cb;
+                    G = Y - ((2 * ((kr * (1 - kr) * Cr) + (kb * (1 - kb) * Cb))) / kg);
+                }
+            }
+            const float c[3] = {R, G, B};
+            for (int k = 0; k < 3; k++) {
+                const float x = c[k] < 0.0f ? 0.0f : (c[k] > 1.0f ? 1.0f : c[k]);
+                out[3 * i + k] = uint8_t(0.5f + (x * 255.0f));
+            }
         }
     }
 }

@@ -42,7 +42,7 @@ CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17")
 # libtiff's YCbCr coefficients and the JPEG 2000 decoder OpenJPEG's, which
 # their generic x86-64 builds never fuse
 EXTRA_FLAGS = {"image_encode": ("-ffp-contract=off",), "image_decode": ("-ffp-contract=off",),
-               "jpeg2000_decode": ("-ffp-contract=off",)}
+               "jpeg2000_decode": ("-ffp-contract=off",), "av1_decode": ("-ffp-contract=off",)}
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -9,7 +9,7 @@ The container is parsed here as libavif parses it under PIL's settings
 PIL clears): ``ftyp`` with its brands; ``meta`` with ``hdlr`` ``pict``,
 ``pitm``, ``iinf`` / ``infe`` v2-v3, ``iloc`` v0-v2 (construction methods
 0 and 1, the latter from ``idat``), ``iref`` (``auxl``, ``prem``, ``thmb``,
-``cdsc``; a ``grid`` item's ``dimg`` is part 2's) and ``iprp`` / ``ipco`` / ``ipma`` with ``ispe``,
+``cdsc``; a ``grid`` item's ``dimg`` is part 3's) and ``iprp`` / ``ipco`` / ``ipma`` with ``ispe``,
 ``av1C``, ``pixi``, ``colr`` (``nclx``, ``prof``, ``rICC``), ``auxC``,
 ``irot``, ``imir``, ``clap``, ``pasp``. The primary item's OBUs go to the
 port's AV1 intra-frame decoder (``csrc/av1_decode.cpp``, built with the
@@ -18,22 +18,25 @@ PIL's EXIF orientation and info only, never the pixels. An alpha item is
 decoded (so that a damaged one fails as it fails in PIL) and dropped, as
 PIL's ``convert`` drops alpha.
 
-The YUV -> RGB conversion is libyuv's fixed-point one (6-bit coefficients,
-``kYuvJPEGConstants`` and its siblings) after libyuv's bilinear 2x chroma
-upsampling, for BT.601 (matrix 5, 6 and unspecified), BT.709 and
-BT.2020-NCL in full and limited range; the identity matrix and monochrome
-are libavif's own. The matrix and range come from the ``colr`` ``nclx``
-box, else from the AV1 sequence header.
+The decoder gives 8-, 10- or 12-bit planes (uint8 or uint16). The YUV ->
+RGB conversion takes the route libavif takes (:func:`conversion`):
+libyuv's fixed-point one (6-bit coefficients, ``kYuvJPEGConstants`` and its
+siblings) after libyuv's bilinear 2x chroma upsampling, for BT.601 (matrix
+5, 6 and unspecified), BT.709, BT.2020-NCL and matrix 12 over their
+primaries, in full and limited range (samples above 8 bits shifted to 8
+first, or for a file with alpha converted at their depth); else libavif's
+own float conversion (FCC, SMPTE 240M, YCgCo, YCgCo-Re, matrix 12 from its
+primaries, the identity matrix, monochrome). The matrix, primaries and
+range come from the ``colr`` ``nclx`` box, else from the AV1 sequence
+header.
 
 A file PIL's open rejects as not AVIF (a ``SyntaxError`` from libavif's
 ``BMFF_PARSE_FAILED``, ``INVALID_FTYP``, ``TRUNCATED_DATA``, ``NO_CONTENT``)
 raises ``SyntaxError`` here, so that :func:`raster_formats.identify` tries
 PIL's next plugin; any other failure of PIL's raises
-:class:`raster_formats.Refused`. The tools this decoder leaves to a later
-part (CDEF with non-zero strengths, loop restoration, superres, film grain,
-10- and 12-bit samples, ``grid`` items, ``avis`` sequences, premultiplied
-alpha, other matrices, a frame of another size than ``ispe``) are refused
-by name, naming "part 2".
+:class:`raster_formats.Refused`. The tools this decoder leaves to part 3
+(film grain, ``grid`` items, ``avis`` sequences, premultiplied alpha, a
+frame of another size than ``ispe``) are refused by name, naming "part 3".
 """
 from __future__ import annotations
 
@@ -48,8 +51,8 @@ import numpy as np
 from citlab_as_tpu_torch.utils.raster_formats import Refused
 
 _ERRLEN = 512
-_INFO_LEN = 16
-PART2 = "queued for part 2 of the AVIF decoder"
+_INFO_LEN = 22
+PART3 = "queued for part 3 of the AVIF decoder"
 
 
 @functools.cache
@@ -61,9 +64,14 @@ def _lib() -> ctypes.CDLL:
                                       ctypes.c_int32, ctypes.c_int32, ctypes.c_char_p,
                                       ctypes.c_int32]
     lib.citlab_av1_decode.restype = ctypes.c_int32
-    lib.citlab_yuv_to_rgb.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int32] * 4 + [
+    lib.citlab_yuv_to_rgb.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int32] * 6 + [
         ctypes.c_void_p, ctypes.c_void_p]
     lib.citlab_yuv_to_rgb.restype = None
+    lib.citlab_yuv_to_rgb_float.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int32] * 7 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    lib.citlab_yuv_to_rgb_float.restype = None
+    lib.citlab_avif_derived_kr_kb.argtypes = [ctypes.c_int32, ctypes.c_void_p]
+    lib.citlab_avif_derived_kr_kb.restype = None
     return lib
 
 
@@ -552,7 +560,15 @@ def open_avif(data: bytes) -> AvifInfo:
     settings; PIL's mode and size."""
     meta, major = _parse_file(data)
     if meta is None or major == b"avis":
-        raise Refused(f"AVIF image sequence ('avis' tracks; {PART2})")
+        raise Refused(f"AVIF image sequence ('avis' tracks; {PART3})")
+    # avifDecoderParse's sanity check: every item it would decode has an
+    # ispe (an alpha item's is checked below, with its own message)
+    for item_id in meta.order:
+        item = meta.items[item_id]
+        aux = item.prop(b"auxC")
+        if (not _skipped(item) and item.prop(b"ispe") is None
+                and not (aux is not None and aux in _ALPHA_URNS)):
+            raise SyntaxError(f"AVIF item {item.id} without its mandatory ispe property")
     color = None
     for item_id in meta.order:
         item = meta.items[item_id]
@@ -564,7 +580,7 @@ def open_avif(data: bytes) -> AvifInfo:
     if color is None:
         raise Refused("AVIF: no primary image item (libavif: missing image item)")
     if color.type == b"grid":
-        raise Refused(f"AVIF grid item ({PART2})")
+        raise Refused(f"AVIF grid item ({PART3})")
     ispe = color.prop(b"ispe")
     if ispe is None:
         raise SyntaxError(f"AVIF item {color.id} without its mandatory ispe property")
@@ -600,7 +616,7 @@ def open_avif(data: bytes) -> AvifInfo:
             raise SyntaxError(f"AVIF alpha item {alpha.id} without its mandatory av1C property")
         _check_pixi(alpha, a1c)
         if color.prem_by == alpha.id:
-            raise Refused(f"AVIF premultiplied alpha ({PART2})")
+            raise Refused(f"AVIF premultiplied alpha ({PART3})")
     w, h = ispe
     if w == 0 or h == 0:
         raise Refused("AVIF: ispe of zero size")
@@ -654,20 +670,24 @@ def _check_pixi(item: _Item, av1c: dict) -> None:
 
 
 def _decode_av1(obus: bytes, what: str, w: int, h: int, planes: bool = True):
-    """The AV1 stream's info row and planes (None where the frame is not w x
-    h: the item's ispe, or where ``planes`` is false)."""
+    """The AV1 stream's info row and planes (uint8 at 8 bits, uint16 above;
+    None where the frame is not w x h: the item's ispe, or where ``planes``
+    is false)."""
     info = np.zeros(_INFO_LEN, np.int32)
     err = ctypes.create_string_buffer(_ERRLEN)
-    y, u, v = ((np.empty((h, w), np.uint8), np.empty(w * h, np.uint8),
-                np.empty(w * h, np.uint8)) if planes else (None, None, None))
+    # room for two bytes a sample; the decoder writes one at 8 bits
+    bufs = [np.empty(2 * w * h, np.uint8) for _ in range(3)] if planes else [None] * 3
     ptr = lambda a: None if a is None else a.ctypes.data  # noqa: E731
-    if _lib().citlab_av1_decode(obus, len(obus), info.ctypes.data, ptr(y), ptr(u), ptr(v),
+    if _lib().citlab_av1_decode(obus, len(obus), info.ctypes.data, *(ptr(b) for b in bufs),
                                 w, h, err, _ERRLEN):
         raise Refused(f"{what}: {err.value.decode(errors='replace')}")
-    fw, fh, mono, ssx, ssy = (int(x) for x in info[:5])
+    fw, fh, mono, ssx, ssy, depth = (int(x) for x in info[:6])
     if (fw, fh) != (w, h) or not planes:
         return info, None, None, None
     cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
+    dtype = np.uint16 if depth > 8 else np.uint8
+    y, u, v = (b.view(dtype) for b in bufs)
+    y = y[:w * h].reshape(h, w)
     if mono:
         return info, y, None, None
     return info, y, u[:cw * ch].reshape(ch, cw), v[:cw * ch].reshape(ch, cw)
@@ -702,9 +722,17 @@ _LIBYUV = {
     "V2020": (16320, 32, 120, 11, 37, 94),     # BT.2020 full range
     "2020": (19003, -1160, 128, 12, 42, 107),  # BT.2020 limited range
 }
+# (Kr, Kb) of the matrices libavif converts in floating point with its
+# matrixCoefficientsTables: FCC, SMPTE 240M, and 15, which is not in the
+# table and takes libavif's default, BT.601's
+_KR_KB = {4: (0.30, 0.11), 7: (0.212, 0.087), 15: (0.299, 0.114)}
 
 
-def _libyuv_constants(matrix: int, full: bool) -> Optional[tuple]:
+def _libyuv_constants(matrix: int, primaries: int, full: bool) -> Optional[tuple]:
+    """getLibYUVConstants: the matrix's libyuv constants; matrix 12 takes
+    those of its colour primaries where libyuv has them."""
+    if matrix == 12:
+        matrix = {1: 1, 2: 1, 5: 5, 6: 6, 9: 9}.get(primaries, -1)
     if matrix in (5, 6, 2):
         return _LIBYUV["JPEG" if full else "I601"]
     if matrix == 1:
@@ -714,41 +742,68 @@ def _libyuv_constants(matrix: int, full: bool) -> Optional[tuple]:
     return None
 
 
-def yuv_to_rgb(y: np.ndarray, u: Optional[np.ndarray], v: Optional[np.ndarray], ssx: int,
-               ssy: int, matrix: int, full: bool) -> np.ndarray:
-    """avifImageYUVToRGB of 8-bit planes to 8-bit RGB, as PIL's decoder
-    calls it (AVIF_CHROMA_UPSAMPLING_AUTOMATIC)."""
-    h, w = y.shape
-    # avifPrepareReformatState: matrices libavif cannot convert at all
-    if matrix in (3, 10, 11, 13) or matrix >= 14 or (matrix == 8 and not full):
+def conversion(depth: int, mono: bool, ssx: int, ssy: int, matrix: int, primaries: int,
+               full: bool, alpha: bool = False) -> tuple:
+    """The route avifImageYUVToRGB takes to PIL's 8-bit RGB (RGBA where the
+    file has alpha): ("libyuv", mode, constants) (the modes of
+    ``citlab_yuv_to_rgb``) or ("float", kind, Kr, Kb) (libavif's own,
+    ``citlab_yuv_to_rgb_float``); refused as PIL refuses it. Read off
+    libavif 1.3.0 through ctypes (tests/test_torch_formats_avif.py holds
+    every route to it on random planes)."""
+    # avifPrepareReformatState: what libavif cannot convert at all (YCgCo-Re
+    # needs full-range 10-bit samples for 8-bit RGB; YCgCo-Ro 9-bit ones)
+    if (matrix in (3, 10, 11, 13, 14) or matrix >= 17 or (matrix == 8 and not full)
+            or (matrix == 16 and (depth != 10 or not full))):
         raise Refused(f"AVIF matrix coefficients {matrix} in {'full' if full else 'limited'} "
                       "range (libavif: reformat failed)")
-    if u is None:
-        # monochrome: libavif's own conversion, grey repeated
-        g = y if full else _limited_to_full(y).astype(np.uint8)
-        return np.repeat(g[..., None], 3, axis=-1)
-    if matrix == 0:
-        if ssx or ssy:
-            raise Refused(f"AVIF identity matrix with subsampled chroma ({PART2})")
-        planes = [v, y, u]
-        if not full:
-            planes = [_limited_to_full(p).astype(np.uint8) for p in planes]
-        return np.stack(planes, -1)
-    const = _libyuv_constants(matrix, full)
-    if const is None:
-        raise Refused(f"AVIF matrix coefficients {matrix} (libavif's built-in conversion; "
-                      f"{PART2})")
+    if matrix == 0 and not mono and (ssx or ssy):
+        raise Refused("AVIF identity matrix with subsampled chroma (libavif: reformat failed)")
+    # monochrome to RGBA: libyuv's I400 with the matrix's constants (BT.601's
+    # for the identity)
+    const = _libyuv_constants(6 if mono and matrix == 0 else matrix, primaries, full)
+    if const is not None and (not mono or alpha):
+        if not alpha or depth == 8 or mono:
+            return ("libyuv", 0, const)       # samples shifted to 8 bits, 3-byte RGB
+        if depth == 12 and ssy:
+            return ("libyuv", 2, const)       # I012ToARGBMatrix: chroma repeated
+        return ("libyuv", 1 if depth == 10 else 0, const)
+    if mono:
+        return ("float", 0, 0.0, 0.0)
+    if matrix in (0, 8, 16):
+        return ("float", {0: 1, 8: 2, 16: 3}[matrix], 0.0, 0.0)
+    if matrix == 12:
+        kr_kb = np.zeros(2, np.float32)
+        _lib().citlab_avif_derived_kr_kb(primaries, kr_kb.ctypes.data)
+        return ("float", 0, float(kr_kb[0]), float(kr_kb[1]))
+    return ("float", 0) + _KR_KB[matrix]
+
+
+def yuv_to_rgb(y: np.ndarray, u: Optional[np.ndarray], v: Optional[np.ndarray], ssx: int,
+               ssy: int, matrix: int, full: bool, depth: int = 8, primaries: int = 2,
+               alpha: bool = False) -> np.ndarray:
+    """avifImageYUVToRGB of the planes (uint8 at depth 8, uint16 above) to
+    8-bit RGB, as PIL's decoder calls it (AVIF_CHROMA_UPSAMPLING_AUTOMATIC;
+    RGBA where the file has alpha, whose route may differ)."""
+    h, w = y.shape
+    if u is not None:
+        # a chroma plane as tall or as wide as luma (a frame 1 pixel high or
+        # wide) is not subsampled in that direction, to libavif's routes too
+        ssy, ssx = int(u.shape[0] != h) and ssy, int(u.shape[1] != w) and ssx
+    route = conversion(depth, u is None, ssx, ssy, matrix, primaries, full, alpha)
     out = np.empty((h, w, 3), np.uint8)
-    coef = np.asarray(const, np.int32)
-    _lib().citlab_yuv_to_rgb(np.ascontiguousarray(y).ctypes.data,
-                             np.ascontiguousarray(u).ctypes.data,
-                             np.ascontiguousarray(v).ctypes.data, w, h, ssx, ssy,
-                             coef.ctypes.data, out.ctypes.data)
+    planes = [None if p is None else np.ascontiguousarray(p).ctypes.data for p in (y, u, v)]
+    if route[0] == "libyuv":
+        coef = np.asarray(route[2], np.int32)
+        _lib().citlab_yuv_to_rgb(*planes, w, h, ssx, ssy, depth, route[1], coef.ctypes.data,
+                                 out.ctypes.data)
+    else:
+        _lib().citlab_yuv_to_rgb_float(*planes, w, h, ssx, ssy, depth, int(full), route[1],
+                                       route[2], route[3], out.ctypes.data)
     return out
 
 
 def _limited_to_full(p: np.ndarray) -> np.ndarray:
-    """libavif's built-in conversion of a limited-range sample (float)."""
+    """libavif's built-in conversion of an 8-bit limited-range sample (float)."""
     f = (p.astype(np.float32) - np.float32(16)) / np.float32(219)
     return (np.float32(0.5) + np.clip(f, 0, 1) * np.float32(255)).astype(np.int32)
 
@@ -758,12 +813,19 @@ def decode(data: bytes, info: Optional[AvifInfo] = None) -> np.ndarray:
     is the file's :func:`open_avif`, where the caller has it."""
     info = info or open_avif(data)
     row, y, u, v = decode_planes(data, info)
-    w, h, mono, ssx, ssy, depth, seq_matrix, seq_range = (int(x) for x in row[:8])
+    w, h, mono, ssx, ssy, depth = (int(x) for x in row[:6])
     if y is None:
         raise Refused(f"AVIF frame of {w} x {h} in an item whose ispe says {info.width} x "
-                      f"{info.height} (libavif rescales it; {PART2})")
+                      f"{info.height} (libavif rescales it; {PART3})")
+    matrix, primaries, full = cicp(info, row)
+    return yuv_to_rgb(y, u, v, ssx, ssy, matrix, full, depth, primaries,
+                      info.alpha is not None)
+
+
+def cicp(info: AvifInfo, row: np.ndarray) -> Tuple[int, int, bool]:
+    """(matrix coefficients, colour primaries, full range) as libavif takes
+    them: from the ``colr`` ``nclx`` box, else from the AV1 sequence header
+    (the decoder's info row)."""
     if info.nclx is not None:
-        matrix, full = info.nclx[3], bool(info.nclx[4])
-    else:
-        matrix, full = seq_matrix, bool(seq_range)
-    return yuv_to_rgb(y, u, v, ssx, ssy, matrix, full)
+        return info.nclx[3], info.nclx[1], bool(info.nclx[4])
+    return int(row[6]), int(row[8]), bool(row[7])

@@ -50,11 +50,12 @@ bit to ``np.asarray(Image.open(path).convert(mode))`` under PIL 12.1:
   ``csrc/raster_decode.cpp``);
 - AVIF as PIL reads it through libavif, dav1d and libyuv: the HEIF
   container, an AV1 intra frame with palette, IntraBC, filter intra, CfL,
-  quantizer matrices and deblocking, 8-bit 4:0:0 / 4:2:0 / 4:2:2 / 4:4:4,
-  and libyuv's YUV -> RGB (``utils/avif.py``, host C++
-  ``csrc/av1_decode.cpp``); CDEF with non-zero strengths, loop restoration,
-  superres, film grain, 10- and 12-bit samples, ``grid`` items, ``avis``
-  sequences and premultiplied alpha are refused by name (part 2).
+  quantizer matrices, deblocking, CDEF, loop restoration and superres,
+  8-, 10- and 12-bit 4:0:0 / 4:2:0 / 4:2:2 / 4:4:4, and libavif's YUV ->
+  RGB through libyuv or its own float code (``utils/avif.py``, host C++
+  ``csrc/av1_decode.cpp``); film grain, ``grid`` items, ``avis``
+  sequences, premultiplied alpha and a frame libavif rescales to its
+  ``ispe`` are refused by name (part 3).
 
 Every file's format is the one ``Image.open`` finds: its plugin order and
 the exceptions it catches (``raster_formats.identify``), so a header that

@@ -13,13 +13,17 @@ output.
   ranges, or taken away (the sequence header's colour config applies);
   EXIF (with an orientation PIL writes as ``irot`` / ``imir``), XMP, ICC
   and alpha. Each returns the file's bytes.
-- ``AVIF_REFUSED``: files whose decoding needs a tool of part 2 (loop
-  restoration, CDEF, superres, film grain, 10- and 12-bit samples, a
-  ``grid`` item, an ``avis`` sequence, premultiplied alpha, a matrix
-  libavif converts in floating point): ``(bytes, the word the port's
-  refusal names)``.
+  Since part 2 also loop restoration, CDEF (4:2:2, 128 x 128
+  superblocks), 10- and 12-bit streams in every layout and range (8-bit
+  streams PIL wrote, their sequence header rewritten: PIL's aom has no
+  high bit depth), superres (a half-width encode, its headers rewritten)
+  and the matrices libavif converts in floating point.
+- ``AVIF_REFUSED``: files whose decoding needs a tool of part 3 (film
+  grain, a ``grid`` item, an ``avis`` sequence, premultiplied alpha):
+  ``(bytes, the word the port's refusal names)``.
 - ``AVIF_FAULTS``: container faults PIL refuses (a brand, a missing or
-  malformed box, an extent past the file's end, a truncated file);
+  malformed box, an extent past the file's end, a truncated file, the
+  identity matrix over subsampled chroma);
   ``huge_frame_bytes``: a frame past dav1d's size limit.
 - ``avif_pages``: the full-size pages of ``chip_smoke.py``'s variants
   phase (``tests/data/torch_formats_avif/``).
@@ -28,7 +32,7 @@ from __future__ import annotations
 
 import io
 import struct
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 from PIL import Image, ImageDraw
@@ -272,10 +276,83 @@ def _variants() -> Dict[str, Callable[[], bytes]]:
     v["icc"] = lambda: avif_bytes(pg(), icc_profile=_icc())
     v["alpha"] = lambda: avif_bytes(_rgba(pg()))
     v["alpha-444"] = lambda: avif_bytes(_rgba(ph()), subsampling="4:4:4")
+    # libyuv's I400 to RGBA (monochrome with alpha, limited range)
+    v["alpha-400-limited"] = lambda: avif_bytes(_rgba(ph()), subsampling="4:0:0",
+                                                range="limited")
+    v.update(_part2_variants())
     return v
 
 
-AVIF_VARIANTS = _variants()
+def _part2_variants() -> Dict[str, Callable[[], bytes]]:
+    """The files of the decoder's part 2: loop restoration (aom turns it on
+    at speed 0 for the page and 0-4 for the photo), CDEF, 10- and 12-bit
+    samples, superres, and the matrices libavif converts in floating point
+    or through libyuv's I400."""
+    pg = lambda seed=3: page_rgb(*PAGE, seed=seed)   # noqa: E731
+    ph = lambda seed=4: photo_rgb(*PHOTO, seed=seed)  # noqa: E731
+    wide = lambda: photo_rgb(320, 192, seed=6)       # noqa: E731
+    both = {"enable-cdef": "1", "enable-restoration": "1"}
+    v: Dict[str, Callable[[], bytes]] = {}
+    v["page-speed0"] = lambda: avif_bytes(pg(), speed=0)
+    for speed in range(5):
+        v[f"photo-speed{speed}"] = lambda s=speed: avif_bytes(ph(), speed=s)
+    v["photo-cdef"] = lambda: avif_bytes(ph(), advanced={"enable-cdef": "1"})
+    v["photo-cdef-422"] = lambda: avif_bytes(ph(), subsampling="4:2:2",
+                                             advanced={"enable-cdef": "1"})
+    v["photo-cdef-sb128"] = lambda: avif_bytes(wide(), speed=4, advanced={
+        "enable-cdef": "1", "sb-size": "128"})
+    v["page-cdef-restoration"] = lambda: avif_bytes(pg(), speed=2, advanced=both)
+    # loop restoration over several units: tiles, every layout, 128 x 128
+    # superblocks, a low quality (self-guided and switchable frames)
+    v["restoration-tiles"] = lambda: avif_bytes(wide(), speed=2, tile_rows=1, tile_cols=1,
+                                                advanced=both)
+    for ss in ("4:0:0", "4:2:0", "4:2:2", "4:4:4"):
+        v[f"restoration-{ss.replace(':', '')}"] = lambda ss=ss: avif_bytes(
+            wide(), speed=1, subsampling=ss, advanced={"enable-restoration": "1"})
+    v["restoration-sb128"] = lambda: avif_bytes(wide(), speed=2, advanced={
+        "enable-restoration": "1", "sb-size": "128"})
+    for q in (20, 40, 80):
+        v[f"restoration-q{q}"] = lambda q=q: avif_bytes(wide(), speed=0, quality=q)
+    # 10 and 12 bits in every layout and range, CDEF and loop restoration on
+    v["ten-bit"] = lambda: depth_bytes(ph(), 10)
+    v["twelve-bit"] = lambda: depth_bytes(ph(), 12)
+    for depth in (10, 12):
+        for ss in ("4:0:0", "4:2:0", "4:2:2", "4:4:4"):
+            for rng in ("full", "limited"):
+                v[f"depth{depth}-{ss.replace(':', '')}-{rng}"] = (
+                    lambda d=depth, ss=ss, r=rng: depth_bytes(
+                        ph(), d, subsampling=ss, range=r, speed=3, advanced=both))
+    v["depth10-restoration"] = lambda: depth_bytes(wide(), 10, speed=1, advanced=both)
+    v["depth12-restoration-444"] = lambda: depth_bytes(wide(), 12, speed=1,
+                                                       subsampling="4:4:4", advanced=both)
+    # superres (denominator 16), with CDEF and loop restoration, in 4:4:4 and 4:0:0
+    v["superres"] = superres_bytes
+    v["superres-cdef-restoration"] = lambda: superres_bytes(speed=2, advanced=both)
+    v["superres-444"] = lambda: superres_bytes(wide(), speed=2, subsampling="4:4:4",
+                                               advanced=both)
+    v["superres-400"] = lambda: superres_bytes(wide(), subsampling="4:0:0",
+                                               advanced={"enable-cdef": "1"})
+    # the matrices libavif converts in floating point: FCC, SMPTE 240M,
+    # YCgCo, chroma-derived over DCI-P3 (12 over BT.709 and BT.2020 goes
+    # through libyuv), YCgCo-Re of 10-bit samples, and 15 (BT.601's Kr, Kb)
+    v["matrix-ycgco"] = lambda: patch_nclx(avif_bytes(pg()), matrix=8)
+    v["matrix-fcc"] = lambda: patch_nclx(avif_bytes(pg()), matrix=4)
+    for ss in ("4:0:0", "4:2:0", "4:2:2", "4:4:4"):
+        tag = ss.replace(":", "")
+        v[f"matrix-smpte240-{tag}"] = lambda ss=ss: patch_nclx(
+            avif_bytes(ph(), subsampling=ss), matrix=7)
+        v[f"matrix-derived-p3-{tag}"] = lambda ss=ss: patch_nclx(
+            avif_bytes(ph(), subsampling=ss), matrix=12, primaries=12)
+    v["matrix-derived-bt709"] = lambda: patch_nclx(avif_bytes(pg()), matrix=12, primaries=1)
+    v["matrix-derived-bt2020-limited"] = lambda: patch_nclx(avif_bytes(pg()), matrix=12,
+                                                            primaries=9, full=0)
+    v["matrix-smpte240-limited"] = lambda: patch_nclx(avif_bytes(ph()), matrix=7, full=0)
+    v["matrix-ycgco-re-10bit"] = lambda: patch_nclx(depth_bytes(ph(), 10, subsampling="4:4:4"),
+                                                    matrix=16)
+    v["matrix-15"] = lambda: patch_nclx(avif_bytes(ph()), matrix=15)
+    v["matrix-smpte240-12bit"] = lambda: patch_nclx(depth_bytes(ph(), 12, subsampling="4:2:2"),
+                                                    matrix=7)
+    return v
 
 
 def avif_small_variants():
@@ -464,28 +541,38 @@ def _set_depth(data: bytes, depth: int) -> bytes:
     return bytes(d)
 
 
-def ten_bit_bytes() -> bytes:
-    """A file PIL wrote with its sequence header's high_bitdepth bit set (and
-    av1C's and pixi's to match): a 10-bit stream to the decoder."""
-    def edit(bits):
-        at = _seq_fields(bits)["high_bitdepth"]
-        return bits[:at] + "1" + bits[at + 1:]
-    return _set_depth(_edit_seq(avif_bytes(photo_rgb(*PHOTO, seed=4)), edit), 10)
+def _with_depth(bits: str, depth: int) -> str:
+    """The bits of a reduced still-picture sequence header PIL wrote (8-bit,
+    any layout, not the sRGB special case) with its colour config set to
+    ``depth`` bits and the layout kept: at 10 bits high_bitdepth is set
+    (profiles 0, 1 and 2 each keep their layout; profile 2 then reads
+    twelve_bit, 0); at 12 bits the profile is
+    2, with twelve_bit, the mono_chrome bit profile 1 lacks and the
+    subsampling bits profile 2 reads at 12 bits."""
+    at = _seq_fields(bits)["high_bitdepth"]
+    assert bits[at] == "0", "not an 8-bit header"
+    profile = int(bits[:3], 2)
+    if depth == 10:                                      # profile 2 reads twelve_bit = 0
+        return bits[:at] + ("10" if profile == 2 else "1") + bits[at + 1:]
+    pos = at + 1
+    mono = profile != 1 and bits[pos] == "1"
+    if profile != 1:
+        pos += 1
+    desc = bits[pos] == "1"
+    end = pos + 1 + (24 if desc else 0) + 1             # the description and color_range
+    ss = "" if mono else {0: "11", 1: "0", 2: "10"}[profile]
+    return ("010" + bits[3:at] + "11" + ("1" if mono else "0") + bits[pos:end] + ss
+            + bits[end:])
 
 
-def twelve_bit_bytes() -> bytes:
-    """A 4:2:0 file PIL wrote, its sequence header made profile 2 with
-    high_bitdepth and twelve_bit set (and the subsampling bits profile 2
-    reads at 12 bits), av1C and pixi to match: a 12-bit stream."""
-    def edit(bits):
-        at = _seq_fields(bits)["high_bitdepth"]
-        assert bits[:3] == "000" and bits[at] == "0" and bits[at + 1] == "0", "not 8-bit 4:2:0"
-        rest = at + 2                                    # after high_bitdepth and mono_chrome
-        if bits[rest] == "1":                            # colour description
-            rest += 24
-        rest += 1                                        # colour range
-        return "010" + bits[3:at] + "110" + bits[at + 2:rest] + "11" + bits[rest:]
-    return _set_depth(_edit_seq(avif_bytes(photo_rgb(*PHOTO, seed=4)), edit), 12)
+def depth_bytes(arr: np.ndarray, depth: int, **save) -> bytes:
+    """A file PIL wrote (8-bit: PIL's aom is built without high bit depth)
+    rewritten to a ``depth``-bit stream of the same layout: the sequence
+    header's colour config, av1C and pixi. The tile data is the 8-bit
+    encoder's, read at ``depth`` bits: prediction, dequantisation, CDEF,
+    loop restoration and the conversion run at that depth."""
+    data = avif_bytes(arr, **save)
+    return _set_depth(_edit_seq(data, lambda bits: _with_depth(bits, depth)), depth)
 
 
 def huge_frame_bytes(w: int = 65536, h: int = 65536) -> bytes:
@@ -509,7 +596,7 @@ def _intra_header_bits(bits: str, seq: str, w: int, h: int) -> int:
     f = _seq_fields(seq)
     t = f["tools"]
     sb128, superres, cdef, lr = (int(seq[t + k]) for k in (0, 3, 4, 5))
-    assert not (superres or cdef or lr)
+    assert not superres
     pos = 0
 
     def read(n):
@@ -570,21 +657,36 @@ def _intra_header_bits(bits: str, seq: str, w: int, h: int) -> int:
             for _ in range(10):
                 if read(1):
                     read(7)
+    if cdef and not lossless:
+        read(2)                                          # cdef_damping_minus_3
+        for _ in range(1 << read(2)):                    # cdef_bits
+            read(6 if mono else 12)                      # y (and uv) strengths
+    if lr and not lossless:
+        types = [read(2) for _ in range(1 if mono else 3)]
+        if any(types):
+            if read(1) and not sb128:                    # lr_unit_shift
+                read(1)                                  # lr_unit_extra_shift
+            if not mono and any(types[1:]) and int(seq[:3], 2) == 0:
+                read(1)                                  # lr_uv_shift (4:2:0)
+    if not lossless:
         read(1)                                          # tx_mode_select
     read(1)                                              # reduced_tx_set
     return pos
 
 
-def superres_bytes() -> bytes:
-    """A 96 x 72 photo coded as AV1 superres codes it: PIL wrote the photo
-    at half its width (48 x 72), then the sequence header says 96 x 72 with
-    enable_superres, the frame header use_superres with the denominator 16
-    (coded width (96 * 8 + 8) // 16 = 48), and ispe 96 x 72. dav1d decodes
-    it and upscales it to 96 x 72."""
-    full = photo_rgb(*PHOTO, seed=4)
+def superres_bytes(full: Optional[np.ndarray] = None, **save) -> bytes:
+    """An image (by default the 96 x 72 photo; an even width) coded as AV1
+    superres codes it: PIL wrote it at half its width (``save`` passed on),
+    then the sequence header says the full width with enable_superres, the
+    frame header use_superres with the denominator 16 (coded width (w * 8 +
+    8) // 16 = w / 2), and ispe the full size. dav1d decodes it and upscales
+    it to the full width. With loop restoration on, the units are counted
+    on the upscaled width, so the tile data is read past what the encoder
+    meant: the stream stays one that dav1d decodes."""
+    full = photo_rgb(*PHOTO, seed=4) if full is None else full
     half = ((full[:, 0::2].astype(np.int32) + full[:, 1::2]) // 2).astype(np.uint8)
     w, h = half.shape[1], half.shape[0]
-    data = avif_bytes(np.ascontiguousarray(half))
+    data = avif_bytes(np.ascontiguousarray(half), **save)
     seq = _seq_payload(_to_bits(next(b for _, k, b in _obus(_mdat_payload(data)) if k == 1)))
 
     def edit(kind, body):
@@ -607,21 +709,12 @@ def _refused() -> Dict[str, Tuple[Callable[[], bytes], str]]:
     pg = lambda: page_rgb(*PAGE, seed=3)      # noqa: E731
     ph = lambda: photo_rgb(*PHOTO, seed=4)    # noqa: E731
     return {
-        "page-speed0": (lambda: avif_bytes(pg(), speed=0), "loop restoration"),
-        **{f"photo-speed{speed}": (lambda s=speed: avif_bytes(ph(), speed=s), "loop restoration")
-           for speed in range(5)},
-        "photo-cdef": (lambda: avif_bytes(ph(), advanced={"enable-cdef": "1"}), "CDEF"),
-        "ten-bit": (ten_bit_bytes, "10-bit"),
-        "twelve-bit": (twelve_bit_bytes, "12-bit"),
-        "superres": (superres_bytes, "superres"),
         "film-grain": (lambda: avif_bytes(ph(), advanced={"film-grain-test": "1"}),
                        "film grain"),
         "grid": (grid_bytes, "grid"),
         "avis": (lambda: _sequence(), "avis"),
         "premultiplied": (lambda: avif_bytes(_rgba(pg()), alpha_premultiplied=True),
                           "premultiplied"),
-        "matrix-ycgco": (lambda: patch_nclx(avif_bytes(pg()), matrix=8), "matrix coefficients 8"),
-        "matrix-fcc": (lambda: patch_nclx(avif_bytes(pg()), matrix=4), "matrix coefficients 4"),
     }
 
 
@@ -662,6 +755,7 @@ def _sequence() -> bytes:
     return buf.getvalue()
 
 
+AVIF_VARIANTS = _variants()
 AVIF_REFUSED = _refused()
 
 
@@ -702,6 +796,10 @@ def _faults() -> Dict[str, Callable[[], bytes]]:
         "truncated-meta": lambda: base()[:150],
         "truncated-mdat": lambda: base()[:-40],
         "av1-garbage": lambda: base()[:-60] + bytes(60),
+        # the identity matrix needs chroma as large as luma
+        "identity-420": lambda: patch_nclx(base(), matrix=0),
+        "identity-422": lambda: patch_nclx(avif_bytes(page_rgb(64, 48, seed=2),
+                                                      subsampling="4:2:2"), matrix=0),
     }
 
 
@@ -711,12 +809,15 @@ AVIF_FAULTS = _faults()
 # ------------------------------------------------------------------ pages
 
 def avif_pages(pages, tint):
-    """The three full-size AVIF pages of the variants phase: (name, bytes).
+    """The five full-size AVIF pages of the variants phase: (name, bytes).
     The generator's pages cleaned of their scan noise (ink and paper at two
     levels, as a born-digital page) and tinted: at PIL's defaults (palette
     and IntraBC), at speed 8 (palette, no IntraBC), and as a scanned copy
     (blurred twice, with uneven paper shading: no screen content, so the
-    frame is deblocked) at quality 50."""
+    frame is deblocked) at quality 50; the scanned copy again at speed 4
+    with CDEF on (loop restoration and CDEF over the whole page), and coded
+    at half its width with a superres denominator of 16 (upscaled to the
+    full width)."""
     clean = [tint(np.where(p < 128, 40, 248).astype(np.uint8)) for p in pages[:3]]
     scan = clean[2].astype(np.float32)
     for _ in range(2):
@@ -725,6 +826,10 @@ def avif_pages(pages, tint):
     h, w = scan.shape[:2]
     yy, xx = np.mgrid[0:h, 0:w]
     scan += (10 * np.sin(xx / 170.0) * np.cos(yy / 230.0) - 8 * (yy / h))[..., None]
+    scan = scan.clip(0, 255).astype(np.uint8)
     return [("defaults.avif", avif_bytes(clean[0])),
             ("speed8.avif", avif_bytes(clean[1], speed=8)),
-            ("scan.avif", avif_bytes(scan.clip(0, 255).astype(np.uint8), quality=50))]
+            ("scan.avif", avif_bytes(scan, quality=50)),
+            ("restored.avif", avif_bytes(scan, quality=50, speed=4,
+                                         advanced={"enable-cdef": "1"})),
+            ("superres.avif", superres_bytes(scan, quality=50))]

@@ -18,10 +18,14 @@ a zero count). The sources, by table:
   transform split, CfL sign, filter-intra mode,
   segment id, palette sizes and colour maps, transform depth, delta q / lf,
   skip, palette use and IntraBC;
-- aom: the 8-bit DC and AC quantizer lookups, the inverse quantizer
+- aom: the 8-, 10- and 12-bit DC and AC quantizer lookups, the inverse quantizer
   matrices (15 levels, luma and chroma, 3344 weights each), the smooth
   weights, the directional-prediction derivatives and the filter-intra taps;
-  dav1d: the coefficient-context offsets of square, wide and tall blocks.
+  dav1d: the coefficient-context offsets of square, wide and tall blocks,
+  the loop-restoration CDFs (switchable type, use_wiener, use_sgrproj), the
+  self-guided parameter sets, the CDEF directions and the superres
+  upscaling filter; its self-guided 1 / x table is checked against the
+  specification's formula.
 
 The motion-vector CDFs of IntraBC are written here as the AV1 default
 context (joints, classes, class0, bits, sign) and checked against dav1d's
@@ -215,6 +219,15 @@ def main() -> None:
                              const(2), dav1d=True)
     tabs.append((name, t, end))
     tabs.append(cdf_table(img, "intrabc_cdf", None, (1,), 2, const(2), dav1d=True, offset=end))
+    # loop restoration: switchable (3 symbols), use_wiener, use_sgrproj
+    name, t, end = cdf_table(img, "restoration_type_cdf", [23355, 10187, 0, 0, 21198, 0, 15913],
+                             (1,), 4, const(3), dav1d=True)
+    tabs.append((name, t, end))
+    name, t, end = cdf_table(img, "use_wiener_cdf", None, (1,), 2, const(2), dav1d=True,
+                             offset=end)
+    tabs.append((name, t, end))
+    tabs.append(cdf_table(img, "use_sgrproj_cdf", None, (1,), 2, const(2), dav1d=True,
+                          offset=end))
 
     # the motion-vector context: written from the standard, found in dav1d
     for key in ("classes", "joints"):
@@ -233,7 +246,15 @@ def main() -> None:
     dc = img.read(img.find([4, 8, 8, 9, 10, 11, 12, 12, 13, 14], "<i2"), 256, "<i2")
     ac = img.read(img.find([4, 8, 9, 10, 11, 12, 13, 14, 15, 16], "<i2"), 256, "<i2")
     assert dc[-1] == 1336 and ac[-1] == 1828, (dc[-1], ac[-1])
-    other += [("dc_qlookup", dc, "int16_t"), ("ac_qlookup", ac, "int16_t")]
+    dc10 = img.read(img.find([4, 9, 10, 13, 15, 17, 20, 22, 25, 28], "<i2"), 256, "<i2")
+    ac10 = img.read(img.find([4, 9, 11, 13, 16, 18, 21, 24, 27, 30], "<i2"), 256, "<i2")
+    dc12 = img.read(img.find([4, 12, 18, 25, 33, 41, 50, 60, 70, 80], "<i2"), 256, "<i2")
+    ac12 = img.read(img.find([4, 13, 19, 27, 35, 44, 54, 64, 75, 87], "<i2"), 256, "<i2")
+    assert (dc10[-1], ac10[-1], dc12[-1], ac12[-1]) == (5347, 7312, 21387, 29247)
+    for t in (dc10, ac10, dc12, ac12):
+        assert np.all(np.diff(t.astype(np.int64)) > 0)
+    other += [("dc_qlookup", np.stack([dc, dc10, dc12]), "int16_t"),
+              ("ac_qlookup", np.stack([ac, ac10, ac12]), "int16_t")]
     qm = img.read(img.find([32, 43, 73, 97, 43, 67, 94, 110, 73, 94], "<u1"), 15 * 2 * 3344,
                   "<u1").reshape(15, 2, 3344)
     assert qm.min() >= 30 and qm[14].max() <= 40
@@ -256,6 +277,25 @@ def main() -> None:
     assert np.array_equal(img.read(off, 64, "<i4"), cospi), "cospi"
     img.find([0, 1321, 2482, 3344, 3803], "<i4")
     other.append(("cospi", cospi, "int32_t"))
+    # the in-loop filters after deblocking: dav1d's self-guided parameters
+    # (s0, s1 of each set; the radii follow from the zeros), its 1 / x table
+    # (checked against the specification's a2), the CDEF directions (offsets
+    # in a 12-wide buffer) and the upscaling filter (stored negated)
+    sgr = img.read(img.find([140, 3236, 112, 2158, 93, 1618], "<u2"), 32, "<u2").reshape(16, 2)
+    assert sgr[14, 1] == 0 and sgr[10, 0] == 0
+    other.append(("sgr_params", sgr, "uint16_t"))
+    z = np.arange(256)
+    a2 = np.where(z >= 255, 256, np.where(z == 0, 1, ((z << 8) + z // 2) // (z + 1)))
+    x_by_x = img.read(img.find([255, 128, 85, 64, 51, 43, 37, 32], "<u1"), 256, "<u1")
+    assert np.array_equal(x_by_x, 256 - a2), "sgr x_by_x"
+    dirs = [[(-1, 1), (-2, 2)], [(0, 1), (-1, 2)], [(0, 1), (0, 2)], [(0, 1), (1, 2)],
+            [(1, 1), (2, 2)], [(1, 0), (2, 1)], [(1, 0), (2, 0)], [(1, 0), (2, -1)]]
+    img.find([r * 12 + c for d in dirs for r, c in d], "<i1")
+    other.append(("cdef_directions", np.array(dirs, np.int8), "int8_t"))
+    rf = -img.read(img.find([0, 0, 0, -128, 0, 0, 0, 0, 0, 0, 1, -128, -2, 1, 0, 0], "<i1"),
+                   512, "<i1").astype(np.int16).reshape(64, 8)
+    assert np.all(rf.sum(1) == 128) and rf[32, 3] == 79
+    other.append(("upscale_filter", rf.astype(np.int8), "int8_t"))
 
     lines = ["// Generated by scripts/make_av1_tables.py: AV1's default CDFs and constant",
              "// tables, read out of dav1d 1.5.1 and aom 3.12.1 as linked into PIL 12.1's",

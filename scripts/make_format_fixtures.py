@@ -500,10 +500,11 @@ def write_registry_pages() -> None:
 
 
 def write_avif_pages() -> None:
-    """The three full-size AVIF pages PIL's writer makes from the tinted
+    """The five full-size AVIF pages PIL's writer makes from the tinted
     colour pages (``scripts/avif_variants.avif_pages``: PIL's defaults with
     palette and IntraBC, speed 8 with palette and no IntraBC, a scanned
-    copy with no screen content, deblocked), each with ``page/<name>.xml``
+    copy with no screen content, deblocked; the scanned copy with loop
+    restoration and CDEF, and under superres), each with ``page/<name>.xml``
     and ``<name>.json`` (PIL's "L" and "RGB" digests). Their PNG twins are
     written where they are used, from the recorded pixels."""
     import chip_smoke
@@ -513,8 +514,9 @@ def write_avif_pages() -> None:
     pages, _, layouts = chip_smoke.synthetic_newspaper(3, *SHAPE, seed=AVIF_SEED)
     h, w = SHAPE
     total = 0
+    # the last two pages are the scanned third page again
     for (name, data), layout in zip(avif_pages(pages, lambda p: np.asarray(pixels(p, "colour"))),
-                                    layouts):
+                                    layouts + [layouts[2], layouts[2]]):
         stem = os.path.splitext(name)[0]
         path = os.path.join(AVIF_OUT, name)
         with open(path, "wb") as f:

@@ -5,15 +5,19 @@ Every small AVIF fixture of ``tests/data/torch_formats_variants/small/``
 (``scripts/avif_variants.py``: a drawn page and a photo at every speed,
 quality 0-100, 4:0:0 / 4:2:0 / 4:2:2 / 4:4:4, full and limited range,
 tiles, aom's intra options one at a time, odd sizes, the colour box
-relabelled, EXIF / XMP / ICC / alpha) and the three full-size pages of
-``tests/data/torch_formats_avif/`` decode through the port's
-``load_image`` to exactly PIL's "L" and "RGB" bytes (tolerance 0) and to
-PIL's recorded digests. The AV1 planes equal dav1d's, read through the
-``dav1d_*`` calls of the libavif PIL ships (ctypes, tests only); on the
-identity-relabelled 4:4:4 files PIL's "RGB" bytes are the planes
-themselves (G = Y, B = U, R = V). Part 2's tools and PIL's container
-refusals raise ``UnsupportedImageFormat`` by name, and a seeded sample of
-``scripts/fuzz_avif.py`` holds damaged files to PIL.
+relabelled, EXIF / XMP / ICC / alpha; loop restoration, CDEF, 10- and
+12-bit streams, superres and the matrices libavif converts in floating
+point) and the five full-size pages of ``tests/data/torch_formats_avif/``
+decode through the port's ``load_image`` to exactly PIL's "L" and "RGB"
+bytes (tolerance 0) and to PIL's recorded digests. The AV1 planes equal
+dav1d's, 8- or 16-bit, read through the ``dav1d_*`` calls of the libavif
+PIL ships (ctypes, tests only); on the identity-relabelled 4:4:4 files
+PIL's "RGB" bytes are the planes themselves (G = Y, B = U, R = V). Every
+route of the YUV to RGB conversion equals libavif's ``avifImageYUVToRGB``
+on random planes of every depth, layout, range and matrix. Part 3's tools
+and PIL's container refusals raise ``UnsupportedImageFormat`` by name,
+and a seeded sample of ``scripts/fuzz_avif.py`` holds damaged files to
+PIL.
 """
 import ctypes
 import glob
@@ -59,51 +63,6 @@ def _read(path):
         return f.read()
 
 
-# ------------------------------------------------------------ dav1d, the oracle
-
-def _dav1d():
-    import PIL
-    libs = os.path.join(os.path.dirname(os.path.dirname(PIL.__file__)), "pillow.libs")
-    lib = ctypes.CDLL(glob.glob(os.path.join(libs, "libavif-*.so*"))[0])
-    lib.dav1d_data_create.restype = ctypes.c_void_p
-    lib.dav1d_data_create.argtypes = [ctypes.c_void_p, ctypes.c_size_t]
-    return lib
-
-
-def dav1d_planes(obus: bytes):
-    """dav1d 1.5.1's planes of an AV1 stream: [Y, U, V] (or [Y]), or None
-    where dav1d refuses it. The structs are read at dav1d 1.5's offsets:
-    Dav1dSettings n_threads, max_frame_delay; Dav1dPicture data[3] at 16,
-    stride[2] at 40, p.w / p.h / p.layout at 56."""
-    lib = _dav1d()
-    settings = ctypes.create_string_buffer(1024)
-    lib.dav1d_default_settings(settings)
-    struct.pack_into("ii", settings, 0, 1, 1)
-    ctx = ctypes.c_void_p()
-    assert lib.dav1d_open(ctypes.byref(ctx), settings) == 0
-    try:
-        data = ctypes.create_string_buffer(256)
-        ctypes.memmove(lib.dav1d_data_create(data, len(obus)), obus, len(obus))
-        lib.dav1d_send_data(ctx, data)
-        pic = ctypes.create_string_buffer(1024)
-        if lib.dav1d_get_picture(ctx, pic) != 0:
-            return None
-        ptrs = struct.unpack_from("QQQQQqq", pic, 0)
-        w, h, layout = struct.unpack_from("iii", pic, 56)
-        out = []
-        for i in range(3 if layout else 1):
-            sx = 1 if i and layout in (1, 2) else 0
-            sy = 1 if i and layout == 1 else 0
-            pw, ph = (w + sx) >> sx, (h + sy) >> sy
-            stride = ptrs[5] if i == 0 else ptrs[6]
-            buf = (ctypes.c_uint8 * (stride * ph)).from_address(ptrs[2 + i])
-            out.append(np.frombuffer(buf, np.uint8).reshape(ph, stride)[:, :pw].copy())
-        lib.dav1d_picture_unref(pic)
-        return out
-    finally:
-        lib.dav1d_close(ctypes.byref(ctx))
-
-
 def _planes(data: bytes):
     info = avif.open_avif(data)
     row, y, u, v = avif.decode_planes(data, info)
@@ -139,7 +98,7 @@ def test_small_fixture_is_pils_in_L_and_RGB(name):
 def test_av1_planes_are_dav1ds(name):
     data = _read(os.path.join(SMALL_DIR, name))
     info, _, planes = _planes(data)
-    want = dav1d_planes(avif._item_data(info.meta, info.color, data))
+    want = fuzz_avif.dav1d_planes(avif._item_data(info.meta, info.color, data))
     assert want is not None and len(want) == len(planes)
     for got, ref in zip(planes, want):
         np.testing.assert_array_equal(got, ref)
@@ -158,7 +117,7 @@ def test_full_sequence_header_key_frame_is_dav1ds(speed, quality, subsampling, p
     arr = page_rgb(160, 96, seed=speed) if page else photo_rgb(160, 96, seed=speed)
     obus = sequence_key_frame(arr, speed=speed, quality=quality, subsampling=subsampling)
     assert (obus[2 + 2] >> 3) & 1 == 0                 # the sequence header is not reduced
-    want = dav1d_planes(obus)
+    want = fuzz_avif.dav1d_planes(obus)
     _, y, u, v = _decode_av1(obus, "sequence key frame", 160, 96)
     got = [y] if u is None else [y, u, v]
     assert want is not None and len(want) == len(got)
@@ -202,6 +161,120 @@ def test_fixtures_exercise_every_part1_tool():
     assert layouts == {(1, 1, 1), (0, 1, 1), (0, 1, 0), (0, 0, 0)}
 
 
+def test_fixtures_exercise_every_part2_tool():
+    """The decoder's info row over the small fixtures: 10- and 12-bit
+    streams in every layout, CDEF, Wiener and self-guided units, frames
+    whose restoration type is Wiener, self-guided or switchable, superres;
+    and every conversion route a file without alpha reaches (libyuv; the
+    float matrix, identity, YCgCo and YCgCo-Re; monochrome). The RGBA routes
+    of 10- and 12-bit files are held to libavif on random planes below."""
+    seen = {"cdef": 0, "wiener": 0, "sgrproj": 0, "superres": 0}
+    depths, frame_lr, routes = set(), set(), set()
+    for name in SMALL:
+        data = _read(os.path.join(SMALL_DIR, name))
+        info, row, planes = _planes(data)
+        depths.add((int(row[5]), len(planes), int(row[3]), int(row[4])))
+        seen["cdef"] += int(row[18] > 0)
+        seen["wiener"] += int(row[19] > 0)
+        seen["sgrproj"] += int(row[20] > 0)
+        seen["superres"] += int(row[17] != 8)
+        frame_lr |= {(int(row[21]) >> (2 * p)) & 3 for p in range(len(planes))}
+        matrix, primaries, full = avif.cicp(info, row)
+        route = avif.conversion(int(row[5]), len(planes) == 1, int(row[3]), int(row[4]),
+                                matrix, primaries, full, info.alpha is not None)
+        routes.add(route[:2] if route[0] == "libyuv" or len(planes) > 1 else ("float", "mono"))
+    assert all(v >= 3 for v in seen.values()), seen
+    assert {d[:2] for d in depths} >= {(b, n) for b in (10, 12) for n in (1, 3)}
+    assert {d for d in depths if d[0] > 8 and d[1] == 3} >= {
+        (b, 3, x, y) for b in (10, 12) for x, y in ((1, 1), (1, 0), (0, 0))}
+    assert frame_lr >= {0, 1, 2, 3}, frame_lr
+    assert routes == {("libyuv", 0), ("float", 0), ("float", 1), ("float", 2), ("float", 3),
+                      ("float", "mono")}, routes
+
+
+def _libavif_yuv_to_rgb(y, u, v, depth, full, matrix, primaries, alpha):
+    """libavif 1.3.0's avifImageYUVToRGB, as PIL's decoder calls it (8-bit
+    RGB or RGBA, automatic chroma upsampling), on the given planes: the
+    avifImage and avifRGBImage fields at libavif 1.3's offsets (depth at 8,
+    yuvFormat 12, yuvRange 16, yuvPlanes 24, yuvRowBytes 48, the CICP
+    triple 104; avifRGBImage depth 8, format 12, pixels 48, rowBytes 56)."""
+    lib = fuzz_avif.libavif()
+    vp = ctypes.c_void_p
+    lib.avifImageCreate.restype = vp
+    lib.avifImageCreate.argtypes = [ctypes.c_uint32] * 4
+    for fn, args in (("avifImageAllocatePlanes", [vp, ctypes.c_int]),
+                     ("avifImageYUVToRGB", [vp, vp]), ("avifRGBImageSetDefaults", [vp, vp]),
+                     ("avifImageDestroy", [vp])):
+        getattr(lib, fn).argtypes = args
+    h, w = y.shape
+    fmt = 4 if u is None else (1 if u.shape == y.shape else (2 if u.shape[0] == h else 3))
+    im = lib.avifImageCreate(w, h, depth, fmt)
+    try:
+        ctypes.c_int32.from_address(im + 16).value = int(full)
+        for k, value in enumerate((primaries, 13, matrix)):
+            ctypes.c_uint16.from_address(im + 104 + 2 * k).value = value
+        assert lib.avifImageAllocatePlanes(im, 1) == 0
+        dtype = np.uint16 if depth > 8 else np.uint8
+        for k, plane in enumerate((y, u, v)):
+            if plane is None:
+                continue
+            ptr = ctypes.c_void_p.from_address(im + 24 + 8 * k).value
+            row_bytes = ctypes.c_uint32.from_address(im + 48 + 4 * k).value
+            raw = plane.astype(dtype).tobytes()
+            step = plane.shape[1] * np.dtype(dtype).itemsize
+            for r in range(plane.shape[0]):
+                ctypes.memmove(ptr + r * row_bytes, raw[r * step:(r + 1) * step], step)
+        rgb = ctypes.create_string_buffer(64)
+        lib.avifRGBImageSetDefaults(rgb, im)
+        ch = 4 if alpha else 3
+        out = np.zeros((h, w, ch), np.uint8)
+        struct.pack_into("<Ii", rgb, 8, 8, 1 if alpha else 0)
+        struct.pack_into("<QI", rgb, 48, out.ctypes.data, w * ch)
+        if lib.avifImageYUVToRGB(im, rgb):
+            return None
+        return out[..., :3]
+    finally:
+        lib.avifImageDestroy(im)
+
+
+@pytest.mark.parametrize("depth", [8, 10, 12])
+@pytest.mark.parametrize("layout", ["400", "420", "422", "444"])
+def test_conversion_routes_are_libavifs(depth, layout):
+    """avif.yuv_to_rgb equals libavif's avifImageYUVToRGB (through libyuv or
+    libavif's own float code, as libavif chooses) on random planes, in both
+    ranges, for every matrix (12 over several primaries, and the ones PIL
+    refuses), with and without alpha, at odd and one-pixel sizes."""
+    from citlab_as_tpu_torch.utils.raster_formats import Refused
+    ssx, ssy = {"400": (1, 1), "420": (1, 1), "422": (1, 0), "444": (0, 0)}[layout]
+    rng = np.random.default_rng(depth * 10 + ssx + 2 * ssy)
+    dtype = np.uint16 if depth > 8 else np.uint8
+    cases = 0
+    for full in (True, False):
+        for matrix, primaries in ((0, 1), (1, 1), (2, 2), (4, 1), (5, 1), (6, 1), (7, 1),
+                                  (8, 1), (9, 1), (12, 1), (12, 2), (12, 5), (12, 9), (12, 4),
+                                  (12, 12), (12, 22), (12, 0), (3, 1), (10, 1), (13, 1),
+                                  (14, 1), (15, 1), (16, 1), (17, 1)):
+            for alpha in (False, True):
+                for h, w in ((9, 13), (1, 5), (6, 1)):
+                    y = rng.integers(0, 1 << depth, (h, w)).astype(dtype)
+                    cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
+                    u, v = ((None, None) if layout == "400" else
+                            (rng.integers(0, 1 << depth, (ch, cw)).astype(dtype),
+                             rng.integers(0, 1 << depth, (ch, cw)).astype(dtype)))
+                    want = _libavif_yuv_to_rgb(y, u, v, depth, full, matrix, primaries, alpha)
+                    try:
+                        got = avif.yuv_to_rgb(y, u, v, ssx, ssy, matrix, full, depth,
+                                              primaries, alpha)
+                    except Refused:
+                        got = None
+                    key = (full, matrix, primaries, alpha, h, w)
+                    assert (want is None) == (got is None), key
+                    if want is not None:
+                        np.testing.assert_array_equal(got, want, err_msg=str(key))
+                    cases += 1
+    assert cases == 2 * 24 * 2 * 3
+
+
 # ------------------------------------------------------------ the pages
 
 @pytest.mark.parametrize("name", PAGES)
@@ -219,8 +292,13 @@ def test_full_size_page_is_pils(name):
             np.testing.assert_array_equal(tio.load_image(path, mode), want)
     assert list(tio.image_size(path)) == rec["size"]
     _, row, _ = _planes(data)
-    tools = {"defaults.avif": (1, 1, 0), "speed8.avif": (0, 1, 1), "scan.avif": (0, 0, 1)}[name]
-    assert (int(row[11] > 0), int(row[12] > 0), int(row[15])) == tools
+    # IntraBC, palette, deblocked; CDEF, loop restoration (Wiener or
+    # self-guided units), the superres denominator
+    tools = {"defaults.avif": (1, 1, 0, 0, 0, 8), "speed8.avif": (0, 1, 1, 0, 0, 8),
+             "scan.avif": (0, 0, 1, 0, 0, 8), "restored.avif": (0, 0, 1, 1, 1, 8),
+             "superres.avif": (0, 0, 1, 0, 0, 16)}[name]
+    assert (int(row[11] > 0), int(row[12] > 0), int(row[15]), int(row[18] > 0),
+            int(row[19] + row[20] > 0), int(row[17])) == tools
     assert os.path.exists(os.path.join(PAGES_DIR, "page", name[:-5] + ".xml"))
 
 
@@ -268,6 +346,9 @@ def test_separator_stage_page_equals_png_twin(tmp_path):
 
 @pytest.mark.parametrize("name", sorted(AVIF_REFUSED))
 def test_part2_tool_refused_by_name(tmp_path, name):
+    """What is left to part 3 (film grain, grid, avis, premultiplied
+    alpha), which PIL decodes, is refused by name; part 2's tools now
+    decode (they are fixtures)."""
     make, word = AVIF_REFUSED[name]
     path = str(tmp_path / f"{name}.avif")
     with open(path, "wb") as f:
@@ -277,7 +358,23 @@ def test_part2_tool_refused_by_name(tmp_path, name):
         im.load()
     with pytest.raises(tio.UnsupportedImageFormat, match=re.escape(word)) as e:
         tio.load_image(path, "RGB")
-    assert avif.PART2 in str(e.value) or "reformat" in str(e.value)
+    assert avif.PART3 in str(e.value) and "part 2" not in str(e.value)
+
+
+@pytest.mark.parametrize("name", ["identity-420", "identity-422"])
+def test_identity_matrix_with_subsampled_chroma_refused_as_pil_refuses(tmp_path, name):
+    """libavif converts the identity matrix only where chroma is as large as
+    luma: PIL fails with "Reformat failed", and the port refuses the file
+    the same way, naming no later part."""
+    path = str(tmp_path / f"{name}.avif")
+    with open(path, "wb") as f:
+        f.write(AVIF_FAULTS[name]())
+    with pytest.raises(RuntimeError, match="Reformat failed"):
+        with Image.open(path) as im:
+            im.convert("RGB")
+    with pytest.raises(tio.UnsupportedImageFormat, match="reformat failed") as e:
+        tio.load_image(path, "RGB")
+    assert "part" not in str(e.value)
 
 
 @pytest.mark.parametrize("name", sorted(AVIF_FAULTS))
