@@ -131,8 +131,10 @@ result):
    (``tests/data/torch_formats_jpeg2000``) and the committed AVIF pages
    (``tests/data/torch_formats_avif``: PIL's defaults with palette and
    IntraBC, speed 8 with palette, a deblocked scanned copy, the scanned
-   copy with loop restoration and CDEF, and under superres; the small
-   fixtures include the AVIF variants of ``scripts/avif_variants.py``),
+   copy with loop restoration and CDEF, under superres, with film grain
+   from aom's denoiser and as a 4 x 3 grid of 512 x 512 tiles, an avis
+   sequence's first frame, and premultiplied alpha; the small fixtures
+   include the AVIF variants of ``scripts/avif_variants.py``),
    each at PIL's "L" and "RGB" digests and beside its twin, through the
    separator CLI (they do not reach the workflow's page lookup): equal
    pages, K1 69 and K2 1 per group. The host decode ms per page (median of
@@ -2019,8 +2021,10 @@ def phase_variants(dev):
         check(len(texture_names) == 1, f"variants: {len(texture_names)} BC1 DDS pages, want 1")
         # the AVIF pages: PIL's defaults (palette and IntraBC), speed 8
         # (palette), a scanned copy (deblocked), the scan with loop
-        # restoration and CDEF, and the scan under superres
-        check(len(avif_names) == 5, f"variants: {len(avif_names)} AVIF pages, want 5")
+        # restoration and CDEF, the scan under superres; the noisy scan with
+        # film grain, the scan as a grid of 512 x 512 tiles, an avis
+        # sequence's first frame, premultiplied alpha
+        check(len(avif_names) == 9, f"variants: {len(avif_names)} AVIF pages, want 9")
         image_list = os.path.join(root, "cli.lst")
         with open(image_list, "w") as f:
             f.write("".join(f"{p}\n" for p in cli_paths))
@@ -2033,8 +2037,8 @@ def phase_variants(dev):
             str(BATCH), "--fixed_height", str(FIXED_HEIGHT), "--device", str(dev)])
         cli_launches = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
         groups = -(-len(cli_paths) // BATCH)
-        check(len(cli_paths) == 48 and groups == 12,
-              f"variants: {len(cli_paths)} separator CLI pages in {groups} groups, want 48 in 12")
+        check(len(cli_paths) == 56 and groups == 14,
+              f"variants: {len(cli_paths)} separator CLI pages in {groups} groups, want 56 in 14")
         check(cli_launches == {"conv3x3": 69 * groups, "separator_morphology": groups},
               f"variants: separator CLI launches {cli_launches}, want K1 69 and K2 1 per "
               f"group of {groups}")
@@ -2047,7 +2051,7 @@ def phase_variants(dev):
                   f"variants: the separator's page of {name} differs from its PNG twin's")
         print("variants: the separator CLI's pages of the PBM, BMP, GIF, the three WebP, "
               "the three JPEG 2000, the seven raster, the three registry (DDS "
-              "uncompressed and BC1, FITS) and the five AVIF pages equal their PNG twins', "
+              "uncompressed and BC1, FITS) and the nine AVIF pages equal their PNG twins', "
               f"launches {json.dumps(cli_launches)} ({groups} groups of {BATCH}); host decode "
               "ms per page (median of 3) beside the PNG twin's " + json.dumps(
                   {k: decode_ms[k]

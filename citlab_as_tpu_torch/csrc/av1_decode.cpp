@@ -14,8 +14,9 @@
 // predictor with the edge filter and upsampling, the inverse transforms
 // (DCT 4-64, ADST 4-16, flipped ADST, identity, WHT), and the in-loop
 // filters: deblocking, CDEF, superres upscaling and loop restoration
-// (Wiener and self-guided). Film grain is refused by name. The constant
-// tables are generated into av1_tables.h by scripts/make_av1_tables.py.
+// (Wiener and self-guided), then film grain synthesis on the output frame as
+// dav1d applies it. The constant tables are generated into av1_tables.h by
+// scripts/make_av1_tables.py.
 //
 // The flow follows the AV1 specification's decoding process; the names of
 // its syntax elements and variables are kept where they help.
@@ -36,6 +37,13 @@ namespace {
 
 struct DecodeError : std::runtime_error {
     using std::runtime_error::runtime_error;
+};
+
+// a frame this intra-frame decoder cannot follow (inter, hidden, or shown
+// from the reference buffer): an error for the image's frame, the end of
+// what it checks in the data after that frame
+struct Unfollowed : DecodeError {
+    using DecodeError::DecodeError;
 };
 
 [[noreturn]] void fail(const std::string& msg) { throw DecodeError(msg); }
@@ -400,6 +408,8 @@ void parse_sequence_header(BitReader& b, SequenceHeader& s) {
         s.op_cnt = b.f(5) + 1;
         for (int i = 0; i < s.op_cnt; i++) {
             s.op_idc[i] = b.f(12);
+            if (s.op_idc[i] && (!(s.op_idc[i] & 0xff) || !(s.op_idc[i] & 0xf00)))
+                fail("sequence header: operating_point_idc without a temporal or spatial layer");
             int level = b.f(5);
             if (level > 7) b.f(1);
             if (s.decoder_model_info_present) {
@@ -477,9 +487,84 @@ void parse_sequence_header(BitReader& b, SequenceHeader& s) {
         s.separate_uv_delta_q = b.f(1);
     }
     s.film_grain_params_present = b.f(1);
+    b.f(1);  // dav1d reads the trailing one bit: the header must not fill its OBU
 }
 
-#define PART3 "queued for part 3 of the AVIF decoder"
+// film_grain_params(), in dav1d's Dav1dFilmGrainData form (the AR
+// coefficients and multipliers less 128, the offsets less 256)
+struct FilmGrainParams {
+    int apply = 0;
+    unsigned seed = 0;
+    int num_y_points = 0;
+    uint8_t y_points[14][2] = {};
+    int chroma_scaling_from_luma = 0;
+    int num_uv_points[2] = {0, 0};
+    uint8_t uv_points[2][10][2] = {};
+    int scaling_shift = 8, ar_coeff_lag = 0;
+    int8_t ar_coeffs_y[24] = {};
+    int8_t ar_coeffs_uv[2][25] = {};
+    int ar_coeff_shift = 6, grain_scale_shift = 0;
+    int uv_mult[2] = {0, 0}, uv_luma_mult[2] = {0, 0}, uv_offset[2] = {0, 0};
+    int overlap_flag = 0, clip_to_restricted_range = 0;
+    // dav1d's has_grain: whether dav1d_apply_grain changes the picture
+    bool has_grain() const {
+        return num_y_points || num_uv_points[0] || num_uv_points[1] ||
+               (clip_to_restricted_range && chroma_scaling_from_luma);
+    }
+};
+
+// film_grain_params() of a shown (or showable) intra frame, whose
+// update_grain is 1; dav1d's refusals of a malformed one
+void parse_film_grain(BitReader& b, const SequenceHeader& s, FilmGrainParams& g) {
+    g = FilmGrainParams();
+    g.apply = b.f(1);
+    if (!g.apply) return;
+    g.seed = b.f(16);
+    g.num_y_points = b.f(4);
+    if (g.num_y_points > 14) fail("AV1 film grain: more than 14 luma scaling points");
+    for (int i = 0; i < g.num_y_points; i++) {
+        g.y_points[i][0] = uint8_t(b.f(8));
+        if (i && g.y_points[i - 1][0] >= g.y_points[i][0])
+            fail("AV1 film grain: luma scaling points out of order");
+        g.y_points[i][1] = uint8_t(b.f(8));
+    }
+    g.chroma_scaling_from_luma = s.mono ? 0 : b.f(1);
+    if (!(s.mono || g.chroma_scaling_from_luma || (s.ss_x && s.ss_y && !g.num_y_points))) {
+        for (int pl = 0; pl < 2; pl++) {
+            g.num_uv_points[pl] = b.f(4);
+            if (g.num_uv_points[pl] > 10)
+                fail("AV1 film grain: more than 10 chroma scaling points");
+            for (int i = 0; i < g.num_uv_points[pl]; i++) {
+                g.uv_points[pl][i][0] = uint8_t(b.f(8));
+                if (i && g.uv_points[pl][i - 1][0] >= g.uv_points[pl][i][0])
+                    fail("AV1 film grain: chroma scaling points out of order");
+                g.uv_points[pl][i][1] = uint8_t(b.f(8));
+            }
+        }
+    }
+    if (s.ss_x && s.ss_y && !g.num_uv_points[0] != !g.num_uv_points[1])
+        fail("AV1 film grain: 4:2:0 with scaling points for one chroma plane only");
+    g.scaling_shift = b.f(2) + 8;
+    g.ar_coeff_lag = b.f(2);
+    int num_pos_luma = 2 * g.ar_coeff_lag * (g.ar_coeff_lag + 1);
+    if (g.num_y_points)
+        for (int i = 0; i < num_pos_luma; i++) g.ar_coeffs_y[i] = int8_t(int(b.f(8)) - 128);
+    for (int pl = 0; pl < 2; pl++)
+        if (g.num_uv_points[pl] || g.chroma_scaling_from_luma) {
+            int n = num_pos_luma + (g.num_y_points ? 1 : 0);
+            for (int i = 0; i < n; i++) g.ar_coeffs_uv[pl][i] = int8_t(int(b.f(8)) - 128);
+        }
+    g.ar_coeff_shift = b.f(2) + 6;
+    g.grain_scale_shift = b.f(2);
+    for (int pl = 0; pl < 2; pl++)
+        if (g.num_uv_points[pl]) {
+            g.uv_mult[pl] = int(b.f(8)) - 128;
+            g.uv_luma_mult[pl] = int(b.f(8)) - 128;
+            g.uv_offset[pl] = int(b.f(9)) - 256;
+        }
+    g.overlap_flag = b.f(1);
+    g.clip_to_restricted_range = b.f(1);
+}
 
 enum { RESTORE_NONE, RESTORE_WIENER, RESTORE_SGRPROJ, RESTORE_SWITCHABLE };
 
@@ -525,6 +610,7 @@ struct FrameHeader {
     int lr_type[3] = {0, 0, 0}, lr_unit_size[3] = {0, 0, 0};
     bool uses_lr = false;
     int tx_mode_select = 0, only_4x4 = 0, reduced_tx_set = 0;
+    FilmGrainParams grain;
 };
 
 int tile_log2(int blk, int target) { int k = 0; while ((blk << k) < target) k++; return k; }
@@ -549,18 +635,21 @@ void parse_frame_header(BitReader& b, const SequenceHeader& s, FrameHeader& h, i
     if (s.reduced) {
         h.frame_type = 0; h.show_frame = 1; h.showable_frame = 0; h.error_resilient = 1;
     } else {
-        if (b.f(1)) fail("AV1 show_existing_frame (the item holds no frame to show)");
+        if (b.f(1)) throw Unfollowed("AV1 show_existing_frame (the item holds no frame to show)");
         h.frame_type = b.f(2);
         h.show_frame = b.f(1);
         if (h.frame_type == 1 || h.frame_type == 3)
-            fail("AV1 inter frame (an image item is decoded from its first frame)");
+            throw Unfollowed("AV1 inter frame: its first shown frame needs inter prediction, "
+                             "which this intra-frame decoder does not do");
         if (h.show_frame && s.decoder_model_info_present && !s.equal_picture_interval)
             b.f(s.frame_presentation_time_length);
         h.showable_frame = h.show_frame ? h.frame_type != 0 : b.f(1);
         if (h.frame_type == 0 && h.show_frame) h.error_resilient = 1;
         else h.error_resilient = b.f(1);
     }
-    if (!h.show_frame) fail("AV1 frame that is not shown");
+    if (!h.show_frame)
+        throw Unfollowed("AV1 frame that is not shown: the first shown frame after it needs "
+                         "inter prediction, which this intra-frame decoder does not do");
     h.disable_cdf_update = b.f(1);
     if (s.seq_force_screen_content_tools == 2) h.allow_screen_content_tools = b.f(1);
     else h.allow_screen_content_tools = s.seq_force_screen_content_tools;
@@ -787,9 +876,8 @@ void parse_frame_header(BitReader& b, const SequenceHeader& s, FrameHeader& h, i
     // reference_select, skip_mode, warped motion: absent in an intra frame
     h.reduced_tx_set = b.f(1);
     // global motion params: absent in an intra frame
-    if (s.film_grain_params_present && (h.show_frame || h.showable_frame)) {
-        if (b.f(1)) fail("AV1 film grain (" PART3 ")");
-    }
+    if (s.film_grain_params_present && (h.show_frame || h.showable_frame))
+        parse_film_grain(b, s, h.grain);
 }
 
 // ------------------------------------------------------ inverse transforms
@@ -3145,6 +3233,621 @@ struct Decoder {
     }
 };
 
+// ------------------------------------------------------------ film grain
+// dav1d 1.5.1's film grain synthesis (fg_apply_tmpl.c, filmgrain_tmpl.c),
+// which libavif leaves on: the 16-bit LFSR, the 73 x 82 luma and the
+// subsampled chroma grain templates with their auto-regression, the scaling
+// look-up (interpolated between its points, and again between the 8-bit
+// steps above 8 bits), 32-row stripes with a random offset per 32 x 32 block,
+// the blending of the overlapped block edges and the clipping to the full or
+// restricted range. Chroma reads the luma before grain; an odd width under
+// horizontal subsampling repeats the last luma column.
+namespace fg {
+
+const int GRAIN_W = 82, GRAIN_H = 73, SUB_GRAIN_W = 44, SUB_GRAIN_H = 38, BLOCK = 32;
+typedef int16_t Lut[GRAIN_H + 1][GRAIN_W];
+
+inline int random_number(int bits, unsigned& state) {
+    int r = int(state);
+    unsigned bit = ((r >> 0) ^ (r >> 1) ^ (r >> 3) ^ (r >> 12)) & 1;
+    state = (unsigned(r) >> 1) | (bit << 15);
+    return int(state >> (16 - bits)) & ((1 << bits) - 1);
+}
+
+inline int rnd2(int x, int shift) { return (x + ((1 << shift) >> 1)) >> shift; }
+
+void generate_y(Lut buf, const FilmGrainParams& d, int bd) {
+    unsigned seed = d.seed;
+    int shift = 12 - bd + d.grain_scale_shift;
+    int grain_max = (128 << (bd - 8)) - 1, grain_min = -(128 << (bd - 8));
+    for (int y = 0; y < GRAIN_H; y++)
+        for (int x = 0; x < GRAIN_W; x++)
+            buf[y][x] = int16_t(rnd2(av1t::gaussian_sequence[random_number(11, seed)], shift));
+    int lag = d.ar_coeff_lag;
+    for (int y = 3; y < GRAIN_H; y++)
+        for (int x = 3; x < GRAIN_W - 3; x++) {
+            const int8_t* coeff = d.ar_coeffs_y;
+            int sum = 0;
+            for (int dy = -lag; dy <= 0; dy++)
+                for (int dx = -lag; dx <= lag; dx++) {
+                    if (!dx && !dy) break;
+                    sum += *coeff++ * buf[y + dy][x + dx];
+                }
+            buf[y][x] = int16_t(clip3(grain_min, grain_max, buf[y][x] + rnd2(sum, d.ar_coeff_shift)));
+        }
+}
+
+void generate_uv(Lut buf, const Lut buf_y, const FilmGrainParams& d, int uv, int subx, int suby,
+                 int bd) {
+    unsigned seed = d.seed ^ (uv ? 0x49d8 : 0xb524);
+    int shift = 12 - bd + d.grain_scale_shift;
+    int grain_max = (128 << (bd - 8)) - 1, grain_min = -(128 << (bd - 8));
+    int cw = subx ? SUB_GRAIN_W : GRAIN_W, ch = suby ? SUB_GRAIN_H : GRAIN_H;
+    for (int y = 0; y < ch; y++)
+        for (int x = 0; x < cw; x++)
+            buf[y][x] = int16_t(rnd2(av1t::gaussian_sequence[random_number(11, seed)], shift));
+    int lag = d.ar_coeff_lag;
+    for (int y = 3; y < ch; y++)
+        for (int x = 3; x < cw - 3; x++) {
+            const int8_t* coeff = d.ar_coeffs_uv[uv];
+            int sum = 0;
+            for (int dy = -lag; dy <= 0; dy++)
+                for (int dx = -lag; dx <= lag; dx++) {
+                    if (!dx && !dy) {
+                        // the current sample: the co-located luma grain
+                        if (!d.num_y_points) break;
+                        int luma = 0;
+                        int lx = ((x - 3) << subx) + 3, ly = ((y - 3) << suby) + 3;
+                        for (int i = 0; i <= suby; i++)
+                            for (int j = 0; j <= subx; j++) luma += buf_y[ly + i][lx + j];
+                        sum += rnd2(luma, subx + suby) * *coeff;
+                        break;
+                    }
+                    sum += *coeff++ * buf[y + dy][x + dx];
+                }
+            buf[y][x] = int16_t(clip3(grain_min, grain_max, buf[y][x] + rnd2(sum, d.ar_coeff_shift)));
+        }
+}
+
+// the scaling function over every sample value (256 at 8 bits, 1 << bd above)
+void generate_scaling(int bd, const uint8_t points[][2], int num, uint8_t* scaling) {
+    int shift_x = bd - 8, size = 1 << bd;
+    if (num == 0) { memset(scaling, 0, size); return; }
+    memset(scaling, points[0][1], size_t(points[0][0]) << shift_x);
+    for (int i = 0; i < num - 1; i++) {
+        int bx = points[i][0], by = points[i][1], ex = points[i + 1][0], ey = points[i + 1][1];
+        int dx = ex - bx, dy = ey - by;
+        int delta = dy * ((0x10000 + (dx >> 1)) / dx);
+        for (int x = 0, dd = 0x8000; x < dx; x++) {
+            scaling[(bx + x) << shift_x] = uint8_t(by + (dd >> 16));
+            dd += delta;
+        }
+    }
+    int n = points[num - 1][0] << shift_x;
+    memset(scaling + n, points[num - 1][1], size_t(size - n));
+    if (bd == 8) return;
+    int pad = 1 << shift_x, rnd = pad >> 1;
+    for (int i = 0; i < num - 1; i++) {
+        int bx = points[i][0] << shift_x, ex = points[i + 1][0] << shift_x;
+        for (int x = 0; x < ex - bx; x += pad) {
+            int range = scaling[bx + x + pad] - scaling[bx + x];
+            for (int k = 1, r = rnd; k < pad; k++) {
+                r += range;
+                scaling[bx + x + k] = uint8_t(scaling[bx + x] + (r >> shift_x));
+            }
+        }
+    }
+}
+
+inline int sample_lut(const Lut lut, const int offsets[2][2], int subx, int suby, int bx, int by,
+                      int x, int y) {
+    int randval = offsets[bx][by];
+    int offx = 3 + (2 >> subx) * (3 + (randval >> 4));
+    int offy = 3 + (2 >> suby) * (3 + (randval & 0xF));
+    return lut[offy + y + (BLOCK >> suby) * by][offx + x + (BLOCK >> subx) * bx];
+}
+
+// One 32-row stripe of a plane: luma (luma == nullptr) or chroma plane uv
+// (the luma plane before grain beside it). Planes are packed, pw wide.
+void apply_stripe(const FilmGrainParams& d, int bd, const uint8_t* scaling, const Lut lut,
+                  uint16_t* dst, const uint16_t* src, int pw, int bh, int row, int sx, int sy,
+                  const uint16_t* luma, int luma_w, int uv, int is_id) {
+    int rows = 1 + (d.overlap_flag && row > 0);
+    int grain_max = (128 << (bd - 8)) - 1, grain_min = -(128 << (bd - 8));
+    int bitdepth_max = (1 << bd) - 1;
+    int min_value = 0, max_value = bitdepth_max;
+    if (d.clip_to_restricted_range) {
+        min_value = 16 << (bd - 8);
+        max_value = (luma && !is_id ? 240 : 235) << (bd - 8);
+    }
+    unsigned seed[2];
+    for (int i = 0; i < rows; i++) {
+        seed[i] = d.seed;
+        seed[i] ^= unsigned(((row - i) * 37 + 178) & 0xFF) << 8;
+        seed[i] ^= unsigned(((row - i) * 173 + 105) & 0xFF);
+    }
+    int offsets[2][2] = {{0, 0}, {0, 0}};
+    static const int wl[2][2] = {{27, 17}, {17, 27}};
+    static const int wc[2][2][2] = {{{27, 17}, {17, 27}}, {{23, 22}, {0, 0}}};
+    const int(*wx)[2] = luma ? wc[sx] : wl;
+    const int(*wy)[2] = luma ? wc[sy] : wl;
+    auto add = [&](int x, int y, int grain) {
+        const uint16_t* s = src + size_t(y) * pw + x;
+        int val = *s;
+        if (luma) {
+            int lx = x << sx;
+            const uint16_t* l = luma + size_t(y << sy) * luma_w;
+            int avg = l[lx];
+            if (sx) avg = (avg + l[std::min(lx + 1, luma_w - 1)] + 1) >> 1;
+            val = avg;
+            if (!d.chroma_scaling_from_luma) {
+                int combined = avg * d.uv_luma_mult[uv] + *s * d.uv_mult[uv];
+                val = clip3(0, bitdepth_max, (combined >> 6) + d.uv_offset[uv] * (1 << (bd - 8)));
+            }
+        }
+        int noise = rnd2(scaling[val] * grain, d.scaling_shift);
+        dst[size_t(y) * pw + x] = uint16_t(clip3(min_value, max_value, *s + noise));
+    };
+    int step = BLOCK >> sx;
+    for (int bx = 0; bx < pw; bx += step) {
+        int bw = std::min(step, pw - bx);
+        if (d.overlap_flag && bx)
+            for (int i = 0; i < rows; i++) offsets[1][i] = offsets[0][i];
+        for (int i = 0; i < rows; i++) offsets[0][i] = random_number(8, seed[i]);
+        int ystart = d.overlap_flag && row ? std::min(2 >> sy, bh) : 0;
+        int xstart = d.overlap_flag && bx ? std::min(2 >> sx, bw) : 0;
+        auto blend = [&](int old, int cur, const int* w) {
+            return clip3(grain_min, grain_max, rnd2(old * w[0] + cur * w[1], 5));
+        };
+        for (int y = ystart; y < bh; y++) {
+            for (int x = xstart; x < bw; x++)
+                add(bx + x, y, sample_lut(lut, offsets, sx, sy, 0, 0, x, y));
+            for (int x = 0; x < xstart; x++) {
+                int grain = sample_lut(lut, offsets, sx, sy, 0, 0, x, y);
+                int old = sample_lut(lut, offsets, sx, sy, 1, 0, x, y);
+                add(bx + x, y, blend(old, grain, wx[x]));
+            }
+        }
+        for (int y = 0; y < ystart; y++) {
+            for (int x = xstart; x < bw; x++) {
+                int grain = sample_lut(lut, offsets, sx, sy, 0, 0, x, y);
+                int old = sample_lut(lut, offsets, sx, sy, 0, 1, x, y);
+                add(bx + x, y, blend(old, grain, wy[y]));
+            }
+            for (int x = 0; x < xstart; x++) {
+                int top = sample_lut(lut, offsets, sx, sy, 0, 1, x, y);
+                int old = sample_lut(lut, offsets, sx, sy, 1, 1, x, y);
+                top = blend(old, top, wx[x]);
+                int grain = sample_lut(lut, offsets, sx, sy, 0, 0, x, y);
+                old = sample_lut(lut, offsets, sx, sy, 1, 0, x, y);
+                grain = blend(old, grain, wx[x]);
+                add(bx + x, y, blend(top, grain, wy[y]));
+            }
+        }
+    }
+}
+
+// dav1d_apply_grain on packed planes (w x h luma, chroma of the layout), in
+// place; is_id: the sequence header's matrix is the identity
+void apply(const FilmGrainParams& d, int bd, int mono, int ssx, int ssy, int is_id, int w, int h,
+           uint16_t* const planes[3]) {
+    if (!d.has_grain()) return;
+    static thread_local Lut lut[3];
+    static thread_local uint8_t scaling[3][4096];
+    generate_y(lut[0], d, bd);
+    for (int pl = 0; pl < 2 && !mono; pl++)
+        if (d.num_uv_points[pl] || d.chroma_scaling_from_luma)
+            generate_uv(lut[1 + pl], lut[0], d, pl, ssx, ssy, bd);
+    if (d.num_y_points || d.chroma_scaling_from_luma)
+        generate_scaling(bd, d.y_points, d.num_y_points, scaling[0]);
+    for (int pl = 0; pl < 2; pl++)
+        if (d.num_uv_points[pl])
+            generate_scaling(bd, d.uv_points[pl], d.num_uv_points[pl], scaling[1 + pl]);
+    bool chroma = !mono && (d.num_uv_points[0] || d.num_uv_points[1] || d.chroma_scaling_from_luma);
+    std::vector<uint16_t> luma;  // chroma reads the luma before grain
+    if (chroma) luma.assign(planes[0], planes[0] + size_t(w) * h);
+    int cw = (w + ssx) >> ssx;
+    for (int row = 0; row * BLOCK < h; row++) {
+        int bh = std::min(h - row * BLOCK, BLOCK);
+        if (d.num_y_points) {
+            uint16_t* p = planes[0] + size_t(row) * BLOCK * w;
+            apply_stripe(d, bd, scaling[0], lut[0], p, p, w, bh, row, 0, 0, nullptr, 0, 0, is_id);
+        }
+        if (!chroma) continue;
+        int cbh = (bh + ssy) >> ssy;
+        size_t off = size_t(row) * (BLOCK >> ssy) * cw;
+        const uint16_t* l = luma.data() + size_t(row) * BLOCK * w;
+        for (int pl = 0; pl < 2; pl++) {
+            if (!d.chroma_scaling_from_luma && !d.num_uv_points[pl]) continue;
+            uint16_t* p = planes[1 + pl] + off;
+            apply_stripe(d, bd, scaling[d.chroma_scaling_from_luma ? 0 : 1 + pl], lut[1 + pl], p,
+                         p, cw, cbh, row, ssx, ssy, l, w, pl, is_id);
+        }
+    }
+}
+
+}  // namespace fg
+
+// ------------------------------------------------------------ rescaling
+// libavif's avifImageScaleWithLimit, which rescales a decoded frame to its
+// item's ispe (or its track's tkhd) size: libyuv's ScalePlane (8 bits) or
+// ScalePlane_12 (above) with kFilterBox on each plane. The routes are
+// libyuv's: the filter reduced by ScaleFilterReduce, then a copy, the
+// vertical-only path, the 3/4, 1/2, 3/8 and 1/4 downscales, the box filter,
+// the exact 2x upscales, the bilinear up- and downscales and point sampling,
+// with libyuv's 16.16 stepping. At 8 bits the horizontal filter is the SSSE3
+// row (ScaleFilterCols_SSSE3: 7-bit fractions), which libyuv runs on x86.
+namespace yuvscale {
+
+enum Filter { NONE = 0, LINEAR = 1, BILINEAR = 2, BOX = 3 };
+
+int reduce(int sw, int sh, int dw, int dh, int f) {
+    if (f == BOX && (dw * 2 >= sw || dh * 2 >= sh)) f = BILINEAR;
+    if (f == BILINEAR) {
+        if (sh == 1) f = LINEAR;
+        if (dh == sh || dh * 3 == sh) f = LINEAR;
+        if (sw == 1) f = NONE;
+    }
+    if (f == LINEAR && (sw == 1 || dw == sw || dw * 3 == sw)) f = NONE;
+    return f;
+}
+
+inline int fixed_div(int num, int div) { return int((int64_t(num) << 16) / div); }
+inline int fixed_div1(int num, int div) {
+    return int(((int64_t(num) << 16) - 0x00010001) / (div - 1));
+}
+inline int centerstart(int dx, int s) { return dx < 0 ? -((-dx >> 1) + s) : ((dx >> 1) + s); }
+
+void slope(int sw, int sh, int dw, int dh, int f, int& x, int& y, int& dx, int& dy) {
+    if (dw == 1 && sw >= 32768) dw = sw;
+    if (dh == 1 && sh >= 32768) dh = sh;
+    if (f == BOX) {
+        dx = fixed_div(sw, dw); dy = fixed_div(sh, dh); x = 0; y = 0;
+    } else if (f == BILINEAR || f == LINEAR) {
+        if (dw <= sw) { dx = fixed_div(sw, dw); x = centerstart(dx, -32768); }
+        else if (sw > 1 && dw > 1) { dx = fixed_div1(sw, dw); x = 0; }
+        if (f == LINEAR) {
+            dy = fixed_div(sh, dh); y = dy >> 1;
+        } else if (dh <= sh) {
+            dy = fixed_div(sh, dh); y = centerstart(dy, -32768);
+        } else if (sh > 1 && dh > 1) {
+            dy = fixed_div1(sh, dh); y = 0;
+        }
+    } else {
+        dx = fixed_div(sw, dw); dy = fixed_div(sh, dh);
+        x = centerstart(dx, 0); y = centerstart(dy, 0);
+    }
+}
+
+template <typename T>
+struct Scaler {
+    const T* src; int sw, sh; ptrdiff_t ss;  // source plane and its stride
+    T* dst; int dw, dh; ptrdiff_t ds;
+    bool simd7;  // libyuv's SSSE3 horizontal filter (8 bits)
+
+    const T* srow(int y) const { return src + ptrdiff_t(y) * ss; }
+    T* drow(int y) const { return dst + ptrdiff_t(y) * ds; }
+
+    static void interpolate_row(T* d, const T* s, ptrdiff_t stride, int width, int f) {
+        if (f == 0) { memcpy(d, s, size_t(width) * sizeof(T)); return; }
+        for (int x = 0; x < width; x++)
+            d[x] = T((s[x] * (256 - f) + s[x + stride] * f + 128) >> 8);
+    }
+    // ScaleFilterCols (the SSSE3 row at 8 bits); s holds w samples
+    void filter_cols(T* d, const T* s, int w, int n, int x, int dx) const {
+        for (int j = 0; j < n; j++, x += dx) {
+            int xi = x >> 16;
+            int a = s[xi], b = s[std::min(xi + 1, w - 1)];
+            if (simd7) {
+                int f = (x >> 9) & 0x7f;
+                d[j] = T((a * (128 - f) + b * f + 64) >> 7);
+            } else {
+                d[j] = T(a + int((int64_t(x & 0xffff) * (b - a) + 0x8000) >> 16));
+            }
+        }
+    }
+    static void cols(T* d, const T* s, int n, int x, int dx) {
+        for (int j = 0; j < n; j++, x += dx) d[j] = s[x >> 16];
+    }
+
+    void vertical(int f) {
+        int y = 0, dy = 0;
+        if (dh <= sh) { dy = fixed_div(sh, dh); y = centerstart(dy, -32768); }
+        else if (sh > 1 && dh > 1) dy = fixed_div1(sh, dh);
+        int max_y = sh > 1 ? ((sh - 1) << 16) - 1 : 0;
+        for (int j = 0; j < dh; j++, y += dy) {
+            if (y > max_y) y = max_y;
+            interpolate_row(drow(j), srow(y >> 16), ss, dw, f ? (y >> 8) & 255 : 0);
+        }
+    }
+    void down2(int f) {
+        for (int j = 0; j < dh; j++) {
+            const T* s = srow(2 * j); const T* t = f == BILINEAR || f == BOX ? srow(2 * j + 1) : s;
+            T* d = drow(j);
+            for (int x = 0; x < dw; x++) {
+                if (f == NONE) d[x] = srow(2 * j + 1)[2 * x + 1];
+                else if (f == LINEAR) d[x] = T((s[2 * x] + s[2 * x + 1] + 1) >> 1);
+                else d[x] = T((s[2 * x] + s[2 * x + 1] + t[2 * x] + t[2 * x + 1] + 2) >> 2);
+            }
+        }
+    }
+    void down4(int f) {
+        for (int j = 0; j < dh; j++) {
+            T* d = drow(j);
+            for (int x = 0; x < dw; x++) {
+                if (!f) { d[x] = srow(4 * j + 2)[4 * x + 2]; continue; }
+                int sum = 0;
+                for (int r = 0; r < 4; r++)
+                    for (int c = 0; c < 4; c++) sum += srow(4 * j + r)[4 * x + c];
+                d[x] = T((sum + 8) >> 4);
+            }
+        }
+    }
+    // ScaleRowDown34_0_Box (3 : 1 rows) and _1_Box (1 : 1); t = s + stride.
+    // At 8 bits libyuv's SSSE3 rows (the rows blended first, by pavgb: once
+    // for 1 : 1, twice for 3 : 1) make the first n - n % 24 outputs.
+    void down34_row(T* d, const T* s, ptrdiff_t stride, int n, bool one, bool filter) const {
+        const T* t = s + stride;
+        int simd_n = simd7 ? n - n % 24 : 0;
+        for (int x = 0; x < n; x += 3, s += 4, t += 4) {
+            if (!filter) { d[x] = s[0]; d[x + 1] = s[1]; d[x + 2] = s[3]; continue; }
+            if (x < simd_n) {
+                int v[4];
+                for (int k = 0; k < 4; k++) {
+                    int m = (s[k] + t[k] + 1) >> 1;
+                    v[k] = one ? m : (s[k] + m + 1) >> 1;
+                }
+                d[x] = T((v[0] * 3 + v[1] + 2) >> 2);
+                d[x + 1] = T((v[1] * 2 + v[2] * 2 + 2) >> 2);
+                d[x + 2] = T((v[2] + v[3] * 3 + 2) >> 2);
+                continue;
+            }
+            int a0 = (s[0] * 3 + s[1] + 2) >> 2, a1 = (s[1] + s[2] + 1) >> 1,
+                a2 = (s[2] + s[3] * 3 + 2) >> 2;
+            int b0 = (t[0] * 3 + t[1] + 2) >> 2, b1 = (t[1] + t[2] + 1) >> 1,
+                b2 = (t[2] + t[3] * 3 + 2) >> 2;
+            if (one) {
+                d[x] = T((a0 + b0 + 1) >> 1); d[x + 1] = T((a1 + b1 + 1) >> 1);
+                d[x + 2] = T((a2 + b2 + 1) >> 1);
+            } else {
+                d[x] = T((a0 * 3 + b0 + 2) >> 2); d[x + 1] = T((a1 * 3 + b1 + 2) >> 2);
+                d[x + 2] = T((a2 * 3 + b2 + 2) >> 2);
+            }
+        }
+    }
+    void down34(int f) {
+        ptrdiff_t fs = f == LINEAR ? 0 : ss;
+        const T* s = src;
+        int y = 0;
+        for (; y < dh - 2; y += 3) {
+            down34_row(drow(y), s, fs, dw, false, f);
+            s += ss;
+            down34_row(drow(y + 1), s, fs, dw, true, f);
+            s += ss;
+            down34_row(drow(y + 2), s + ss, -fs, dw, false, f);
+            s += 2 * ss;
+        }
+        if (dh % 3 == 2) {
+            down34_row(drow(y), s, fs, dw, false, f);
+            s += ss;
+            down34_row(drow(y + 1), s, 0, dw, true, f);
+        } else if (dh % 3 == 1) {
+            down34_row(drow(y), s, 0, dw, false, f);
+        }
+    }
+    // ScaleRowDown38_3_Box (three rows) and _2_Box (two). At 8 bits libyuv's
+    // SSSE3 _2_Box (the two rows blended first, by pavgb) makes the first
+    // n - n % 6 outputs.
+    void down38_row(T* d, const T* s, ptrdiff_t stride, int n, int rows, bool filter) const {
+        int simd_n = simd7 && rows == 2 ? n - n % 6 : 0;
+        for (int x = 0; x < n; x += 3, s += 8) {
+            if (!filter) { d[x] = s[0]; d[x + 1] = s[3]; d[x + 2] = s[6]; continue; }
+            if (x < simd_n) {
+                int v[8];
+                for (int k = 0; k < 8; k++) v[k] = (s[k] + s[k + stride] + 1) >> 1;
+                d[x] = T((v[0] + v[1] + v[2]) * (65536 / 3) >> 16);
+                d[x + 1] = T((v[3] + v[4] + v[5]) * (65536 / 3) >> 16);
+                d[x + 2] = T((v[6] + v[7]) * (65536 / 2) >> 16);
+                continue;
+            }
+            uint32_t a = 0, b = 0, c = 0;
+            for (int r = 0; r < rows; r++) {
+                const T* p = s + r * stride;
+                a += p[0] + p[1] + p[2]; b += p[3] + p[4] + p[5]; c += p[6] + p[7];
+            }
+            uint32_t k3 = rows == 3 ? 65536 / 9 : 65536 / 6, k2 = rows == 3 ? 65536 / 6 : 65536 / 4;
+            d[x] = T(a * k3 >> 16); d[x + 1] = T(b * k3 >> 16); d[x + 2] = T(c * k2 >> 16);
+        }
+    }
+    void down38(int f) {
+        ptrdiff_t fs = f == LINEAR ? 0 : ss;
+        const T* s = src;
+        int y = 0;
+        for (; y < dh - 2; y += 3) {
+            down38_row(drow(y), s, fs, dw, 3, f); s += 3 * ss;
+            down38_row(drow(y + 1), s, fs, dw, 3, f); s += 3 * ss;
+            down38_row(drow(y + 2), s, fs, dw, 2, f); s += 2 * ss;
+        }
+        if (dh % 3 == 2) {
+            down38_row(drow(y), s, fs, dw, 3, f); s += 3 * ss;
+            down38_row(drow(y + 1), s, 0, dw, 3, f);
+        } else if (dh % 3 == 1) {
+            down38_row(drow(y), s, 0, dw, 3, f);
+        }
+    }
+    void box() {
+        int x = 0, y = 0, dx = 0, dy = 0;
+        slope(sw, sh, dw, dh, BOX, x, y, dx, dy);
+        const int max_y = sh << 16;
+        std::vector<uint32_t> row(static_cast<size_t>(sw));
+        for (int j = 0; j < dh; j++) {
+            int iy = y >> 16;
+            y += dy;
+            if (y > max_y) y = max_y;
+            int boxheight = std::max(1, (y >> 16) - iy);
+            std::fill(row.begin(), row.end(), 0u);
+            for (int k = 0; k < boxheight; k++) {
+                const T* s = srow(iy + k);
+                for (int i = 0; i < sw; i++) row[i] += s[i];
+            }
+            T* d = drow(j);
+            auto sum = [&](int at, int n) {
+                uint32_t v = 0;
+                for (int i = 0; i < n; i++) v += row[at + i];
+                return v;
+            };
+            if (dx & 0xffff) {  // ScaleAddCols2
+                int minw = dx >> 16;
+                int tbl[2] = {65536 / (std::max(1, minw) * boxheight),
+                              65536 / (std::max(1, minw + 1) * boxheight)};
+                int xx = x;
+                for (int i = 0; i < dw; i++) {
+                    int ix = xx >> 16;
+                    xx += dx;
+                    int bw = std::max(1, (xx >> 16) - ix);
+                    d[i] = T(sum(ix, bw) * uint32_t(tbl[bw - minw]) >> 16);
+                }
+            } else {  // ScaleAddCols1 (ScaleAddCols0 at 8 bits for one column: the same)
+                int bw = std::max(1, dx >> 16);
+                uint32_t scale = uint32_t(65536 / (bw * boxheight));
+                int xx = x >> 16;
+                for (int i = 0; i < dw; i++, xx += bw) d[i] = T(sum(xx, bw) * scale >> 16);
+            }
+        }
+    }
+    static T lin(int a, int b) { return T((a * 3 + b + 2) >> 2); }
+    void up2_linear_row(T* d, const T* s) const {
+        d[0] = s[0];
+        int work = (dw - 1) & ~1;
+        for (int x = 0; x < work / 2; x++) {
+            d[1 + 2 * x] = lin(s[x], s[x + 1]);
+            d[2 + 2 * x] = lin(s[x + 1], s[x]);
+        }
+        d[dw - 1] = s[(dw - 1) / 2];
+    }
+    void up2_linear() {
+        if (dh == 1) { up2_linear_row(drow(0), srow((sh - 1) / 2)); return; }
+        int dy = fixed_div(sh - 1, dh - 1), y = (1 << 15) - 1;
+        for (int i = 0; i < dh; i++, y += dy) up2_linear_row(drow(i), srow(y >> 16));
+    }
+    // ScaleRowUp2_Bilinear_Any: rows s, t to rows d, e (the same row when
+    // the strides are 0)
+    void up2_bilinear_rows(const T* s, const T* t, T* d, T* e) const {
+        int a0 = (3 * s[0] + t[0] + 2) >> 2, b0 = (s[0] + 3 * t[0] + 2) >> 2;
+        int work = (dw - 1) & ~1;
+        std::vector<T> dd(static_cast<size_t>(dw)), ee(static_cast<size_t>(dw));
+        dd[0] = T(a0); ee[0] = T(b0);
+        for (int x = 0; x < work / 2; x++) {
+            int s0 = s[x], s1 = s[x + 1], t0 = t[x], t1 = t[x + 1];
+            dd[1 + 2 * x] = T((s0 * 9 + s1 * 3 + t0 * 3 + t1 + 8) >> 4);
+            dd[2 + 2 * x] = T((s0 * 3 + s1 * 9 + t0 + t1 * 3 + 8) >> 4);
+            ee[1 + 2 * x] = T((s0 * 3 + s1 + t0 * 9 + t1 * 3 + 8) >> 4);
+            ee[2 + 2 * x] = T((s0 + s1 * 3 + t0 * 3 + t1 * 9 + 8) >> 4);
+        }
+        int k = (dw - 1) / 2;
+        dd[dw - 1] = T((3 * s[k] + t[k] + 2) >> 2);
+        ee[dw - 1] = T((s[k] + 3 * t[k] + 2) >> 2);
+        memcpy(d, dd.data(), size_t(dw) * sizeof(T));
+        if (e) memcpy(e, ee.data(), size_t(dw) * sizeof(T));
+    }
+    void up2_bilinear() {
+        up2_bilinear_rows(srow(0), srow(0), drow(0), nullptr);
+        int y = 1;
+        for (int r = 0; r < sh - 1; r++, y += 2)
+            up2_bilinear_rows(srow(r), srow(r + 1), drow(y), drow(y + 1));
+        if (!(dh & 1)) up2_bilinear_rows(srow(sh - 1), srow(sh - 1), drow(y), nullptr);
+    }
+    void bilinear_up(int f) {
+        int x = 0, y = 0, dx = 0, dy = 0;
+        slope(sw, sh, dw, dh, f, x, y, dx, dy);
+        const int max_y = (sh - 1) << 16;
+        std::vector<T> rows(static_cast<size_t>(2 * dw));
+        auto fcols = [&](T* d, const T* s) {
+            if (f) filter_cols(d, s, sw, dw, x, dx);
+            else if (sw * 2 == dw && x < 0x8000)
+                for (int j = 0; j < dw; j++) d[j] = s[j >> 1];
+            else cols(d, s, dw, x, dx);
+        };
+        if (y > max_y) y = max_y;
+        int yi = y >> 16, lasty = yi;
+        const T* s = srow(yi);
+        T* rowptr = rows.data();
+        ptrdiff_t rowstride = dw;
+        fcols(rowptr, s);
+        if (sh > 1) s += ss;
+        fcols(rowptr + rowstride, s);
+        if (sh > 2) s += ss;
+        for (int j = 0; j < dh; j++, y += dy) {
+            yi = y >> 16;
+            if (yi != lasty) {
+                if (y > max_y) { y = max_y; yi = y >> 16; s = srow(yi); }
+                if (yi != lasty) {
+                    fcols(rowptr, s);
+                    rowptr += rowstride;
+                    rowstride = -rowstride;
+                    lasty = yi;
+                    if (y + 65536 < max_y) s += ss;
+                }
+            }
+            interpolate_row(drow(j), rowptr, rowstride, dw, f == LINEAR ? 0 : (y >> 8) & 255);
+        }
+    }
+    void bilinear_down(int f) {
+        int x = 0, y = 0, dx = 0, dy = 0;
+        slope(sw, sh, dw, dh, f, x, y, dx, dy);
+        const int max_y = (sh - 1) << 16;
+        std::vector<T> row(static_cast<size_t>(sw));
+        if (y > max_y) y = max_y;
+        for (int j = 0; j < dh; j++) {
+            const T* s = srow(y >> 16);
+            if (f == LINEAR) {
+                filter_cols(drow(j), s, sw, dw, x, dx);
+            } else {
+                interpolate_row(row.data(), s, ss, sw, (y >> 8) & 255);
+                filter_cols(drow(j), row.data(), sw, dw, x, dx);
+            }
+            y += dy;
+            if (y > max_y) y = max_y;
+        }
+    }
+    void simple() {
+        int x = 0, y = 0, dx = 0, dy = 0;
+        slope(sw, sh, dw, dh, NONE, x, y, dx, dy);
+        for (int i = 0; i < dh; i++, y += dy) {
+            const T* s = srow(y >> 16);
+            if (sw * 2 == dw && x < 0x8000)
+                for (int j = 0; j < dw; j++) drow(i)[j] = s[j >> 1];
+            else cols(drow(i), s, dw, x, dx);
+        }
+    }
+    // libyuv's ScalePlane / ScalePlane_16 with kFilterBox
+    void run() {
+        int f = reduce(sw, sh, dw, dh, BOX);
+        if (dw == sw && dh == sh) {
+            for (int y = 0; y < dh; y++) memcpy(drow(y), srow(y), size_t(dw) * sizeof(T));
+            return;
+        }
+        if (dw == sw && f != BOX) { vertical(f); return; }
+        if (dw <= sw && dh <= sh) {
+            if (4 * dw == 3 * sw && 4 * dh == 3 * sh) { down34(f); return; }
+            if (2 * dw == sw && 2 * dh == sh) { down2(f); return; }
+            if (8 * dw == 3 * sw && 8 * dh == 3 * sh) { down38(f); return; }
+            if (4 * dw == sw && 4 * dh == sh && (f == BOX || f == NONE)) { down4(f); return; }
+        }
+        if (f == BOX && dh * 2 < sh) { box(); return; }
+        if ((dw + 1) / 2 == sw && f == LINEAR) { up2_linear(); return; }
+        if ((dh + 1) / 2 == sh && (dw + 1) / 2 == sw && (f == BILINEAR || f == BOX)) {
+            up2_bilinear();
+            return;
+        }
+        if (f && dh > sh) { bilinear_up(f); return; }
+        if (f) { bilinear_down(f); return; }
+        simple();
+    }
+};
+
+}  // namespace yuvscale
+
 // ------------------------------------------------------------ OBU layer
 struct Result {
     int w = 0, h = 0, mono = 0, ssx = 0, ssy = 0, bit_depth = 8;
@@ -3152,6 +3855,11 @@ struct Result {
     int allow_intrabc = 0, n_intrabc = 0, n_palette = 0, n_filter_intra = 0, n_cfl = 0,
         deblocked = 0, coded_w = 0, superres_denom = 8, n_cdef = 0, n_wiener = 0, n_sgrproj = 0,
         lr_types = 0;
+    // film grain: applied, luma points, chroma points (4 bits each), and
+    // ar_coeff_lag | overlap << 2 | chroma_scaling_from_luma << 3 | clip << 4
+    int grain[4] = {0, 0, 0, 0};
+    // the last sequence header parsed: its payload's offset and length
+    int seq_off = -1, seq_len = 0;
     std::vector<uint16_t> planes[3];
 };
 
@@ -3168,7 +3876,8 @@ uint64_t read_leb128(const uint8_t* p, size_t n, size_t& pos) {
 
 // The frame is decoded only where it is cap_w x cap_h (the item's ispe):
 // libavif rescales a frame of another size, so no plane of it is needed.
-void decode_obus(const uint8_t* data, size_t size, Result& res, int cap_w, int cap_h) {
+void decode_obus(const uint8_t* data, size_t size, Result& res, int cap_w, int cap_h,
+                 const uint8_t* carry, size_t carry_len) {
     SequenceHeader seq;
     FrameHeader fh;
     auto header_info = [&]() {
@@ -3178,7 +3887,55 @@ void decode_obus(const uint8_t* data, size_t size, Result& res, int cap_w, int c
         res.primaries = seq.color_primaries; res.transfer = seq.transfer;
         res.allow_intrabc = fh.allow_intrabc;
     };
+    // one tile group of frame f into d; true once the frame's last tile is in
+    auto tile_group = [](Decoder& d, const FrameHeader& f, const uint8_t* obu, size_t osz,
+                         int& next_tile) {
+        BitReader b(obu, osz);
+        int num_tiles = f.tile_cols * f.tile_rows;
+        int tg_start = 0, tg_end = num_tiles - 1;
+        if (num_tiles > 1 && b.f(1)) {
+            int bits = f.tile_cols_log2 + f.tile_rows_log2;
+            tg_start = b.f(bits); tg_end = b.f(bits);
+        }
+        if (tg_start != next_tile || tg_end < tg_start || tg_end >= num_tiles)
+            fail("AV1 tile group: tiles out of order");
+        b.byte_align();
+        size_t p2 = b.pos >> 3;
+        for (int t = tg_start; t <= tg_end; t++) {
+            size_t tsize;
+            if (t == tg_end) {
+                tsize = osz - p2;
+            } else {
+                if (p2 + f.tile_size_bytes > osz)
+                    fail("AV1 tile size past the end of the tile group");
+                uint32_t v = 0;
+                for (int i = 0; i < f.tile_size_bytes; i++) v |= uint32_t(obu[p2 + i]) << (8 * i);
+                p2 += f.tile_size_bytes;
+                tsize = size_t(v) + 1;
+                if (tsize > osz - p2) fail("AV1 tile size past the end of the tile group");
+            }
+            if (p2 > osz) fail("AV1 tile past the end of the tile group");
+            d.decode_tile(obu + p2, tsize, t / f.tile_cols, t % f.tile_cols);
+            p2 += tsize;
+        }
+        next_tile = tg_end + 1;
+        return next_tile == num_tiles;
+    };
+    // dav1d decodes the data to its end: the frames after the image's are
+    // decoded and dropped, their errors failing the image, as far as they
+    // are intra frames
+    SequenceHeader later_seq;
+    FrameHeader later_fh;
+    std::unique_ptr<Decoder> later;
+    int later_tile = 0;
     bool have_seq = false, have_frame_header = false, done = false;
+    if (carry_len) {
+        // the sequence header a decoder instance kept from its last item
+        // (libavif decodes a grid's tiles with one dav1d instance)
+        BitReader b(carry, carry_len);
+        parse_sequence_header(b, seq);
+        have_seq = true;
+    }
     std::unique_ptr<Decoder> dec;
     int next_tile = 0;
     size_t pos = 0;
@@ -3202,7 +3959,6 @@ void decode_obus(const uint8_t* data, size_t size, Result& res, int cap_w, int c
         size_t osz = size_t(obu_size);
         pos += osz;
         if (done) {
-            if (type == 4) fail("AV1 tile group after the frame's last tile");
             if (type == 5) {
                 size_t p = 0;
                 read_leb128(obu, osz, p);
@@ -3211,11 +3967,28 @@ void decode_obus(const uint8_t* data, size_t size, Result& res, int cap_w, int c
                 BitReader b(obu, osz);
                 SequenceHeader s2;
                 parse_sequence_header(b, s2);
-            } else if (type == 3 || type == 6 || type == 7) {
+                later_seq = s2;
+                res.seq_off = obu - data; res.seq_len = int(osz);
+            } else if (type == 3 || type == 6 || (type == 7 && !later)) {
                 BitReader b(obu, osz);
-                FrameHeader f2;
-                parse_frame_header(b, seq, f2, temporal_id, spatial_id);
-                break;
+                later_fh = FrameHeader();
+                try {
+                    parse_frame_header(b, later_seq, later_fh, temporal_id, spatial_id);
+                } catch (const Unfollowed&) {
+                    break;
+                }
+                later.reset(new Decoder(later_seq, later_fh));
+                later_tile = 0;
+                if (type == 6) {
+                    b.byte_align();
+                    size_t off = b.pos >> 3;
+                    if (off > osz) fail("AV1 frame OBU shorter than its header");
+                    if (tile_group(*later, later_fh, obu + off, osz - off, later_tile))
+                        later.reset();
+                }
+            } else if (type == 4) {
+                if (!later) fail("AV1 tile group after the frame's last tile");
+                if (tile_group(*later, later_fh, obu, osz, later_tile)) later.reset();
             }
             continue;
         }
@@ -3231,6 +4004,7 @@ void decode_obus(const uint8_t* data, size_t size, Result& res, int cap_w, int c
                 parse_sequence_header(b, s2);
                 seq = s2;
                 have_seq = true;
+                res.seq_off = obu - data; res.seq_len = int(osz);
                 break;
             }
             case 2: break;  // temporal delimiter
@@ -3250,7 +4024,7 @@ void decode_obus(const uint8_t* data, size_t size, Result& res, int cap_w, int c
                 }
                 dec.reset(new Decoder(seq, fh));
                 next_tile = 0;
-                if (type == 3) break;
+                if (type != 6) break;  // a frame header OBU (or a redundant one) holds no tiles
                 b.byte_align();
                 size_t off = b.pos >> 3;
                 if (off > osz) fail("AV1 frame OBU shorter than its header");
@@ -3260,37 +4034,10 @@ void decode_obus(const uint8_t* data, size_t size, Result& res, int cap_w, int c
             // fallthrough
             case 4: {  // tile group
                 if (!dec) fail("AV1 tile group without a frame header");
-                BitReader b(obu, osz);
-                int num_tiles = fh.tile_cols * fh.tile_rows;
-                int tg_start = 0, tg_end = num_tiles - 1;
-                if (num_tiles > 1 && b.f(1)) {
-                    int bits = fh.tile_cols_log2 + fh.tile_rows_log2;
-                    tg_start = b.f(bits); tg_end = b.f(bits);
+                if (tile_group(*dec, fh, obu, osz, next_tile)) {
+                    done = true;
+                    later_seq = seq;
                 }
-                if (tg_start != next_tile || tg_end < tg_start || tg_end >= num_tiles)
-                    fail("AV1 tile group: tiles out of order");
-                b.byte_align();
-                size_t p2 = b.pos >> 3;
-                for (int t = tg_start; t <= tg_end; t++) {
-                    size_t tsize;
-                    if (t == tg_end) {
-                        tsize = osz - p2;
-                    } else {
-                        if (p2 + fh.tile_size_bytes > osz)
-                            fail("AV1 tile size past the end of the tile group");
-                        uint32_t v = 0;
-                        for (int i = 0; i < fh.tile_size_bytes; i++)
-                            v |= uint32_t(obu[p2 + i]) << (8 * i);
-                        p2 += fh.tile_size_bytes;
-                        tsize = size_t(v) + 1;
-                        if (tsize > osz - p2) fail("AV1 tile size past the end of the tile group");
-                    }
-                    if (p2 > osz) fail("AV1 tile past the end of the tile group");
-                    dec->decode_tile(obu + p2, tsize, t / fh.tile_cols, t % fh.tile_cols);
-                    p2 += tsize;
-                }
-                next_tile = tg_end + 1;
-                if (next_tile == num_tiles) done = true;
                 break;
             }
             case 5: {  // metadata: dav1d fails where its type cannot be read
@@ -3345,6 +4092,19 @@ void decode_obus(const uint8_t* data, size_t size, Result& res, int cap_w, int c
         for (int y = 0; y < ph; y++)
             memcpy(&res.planes[p][size_t(y) * pw], &out[p].at(0, y), pw * sizeof(uint16_t));
     }
+    // film grain on the output frame, as dav1d applies it by default
+    const FilmGrainParams& g = fh.grain;
+    res.grain[0] = g.apply && g.has_grain();
+    res.grain[1] = g.num_y_points;
+    res.grain[2] = g.num_uv_points[0] | g.num_uv_points[1] << 4;
+    res.grain[3] = g.ar_coeff_lag | g.overlap_flag << 2 | g.chroma_scaling_from_luma << 3 |
+                   g.clip_to_restricted_range << 4;
+    if (g.apply) {
+        uint16_t* pl[3] = {res.planes[0].data(), np > 1 ? res.planes[1].data() : nullptr,
+                           np > 1 ? res.planes[2].data() : nullptr};
+        fg::apply(g, seq.bit_depth, seq.mono, seq.ss_x, seq.ss_y, seq.matrix == 0, res.w, res.h,
+                  pl);
+    }
 }
 
 template <typename T>
@@ -3357,14 +4117,67 @@ void copy_plane(const std::vector<uint16_t>& src, void* dst) {
 
 extern "C" {
 
-// Decodes an AV1 bitstream (the OBUs of an AVIF item). info[0..21]: width,
+// dav1d_apply_grain on packed planes (uint16 at every depth; y w x h, u and
+// v of the layout, null in monochrome), in place. p: the parameters as
+// Dav1dFilmGrainData holds them, in ints: seed, num_y_points, 14 luma
+// points (value, scaling), chroma_scaling_from_luma, num_uv_points[2],
+// 2 x 10 chroma points, scaling_shift, ar_coeff_lag, ar_coeffs_y[24],
+// ar_coeffs_uv[2][25], ar_coeff_shift, grain_scale_shift, uv_mult[2],
+// uv_luma_mult[2], uv_offset[2], overlap_flag, clip_to_restricted_range.
+void citlab_av1_apply_grain(uint16_t* y, uint16_t* u, uint16_t* v, int32_t w, int32_t h,
+                            int32_t depth, int32_t mono, int32_t ssx, int32_t ssy, int32_t is_id,
+                            const int32_t* p) {
+    FilmGrainParams g;
+    g.apply = 1;
+    g.seed = unsigned(*p++);
+    g.num_y_points = *p++;
+    for (int i = 0; i < 14; i++) { g.y_points[i][0] = uint8_t(*p++); g.y_points[i][1] = uint8_t(*p++); }
+    g.chroma_scaling_from_luma = *p++;
+    g.num_uv_points[0] = *p++; g.num_uv_points[1] = *p++;
+    for (int pl = 0; pl < 2; pl++)
+        for (int i = 0; i < 10; i++) {
+            g.uv_points[pl][i][0] = uint8_t(*p++); g.uv_points[pl][i][1] = uint8_t(*p++);
+        }
+    g.scaling_shift = *p++; g.ar_coeff_lag = *p++;
+    for (int i = 0; i < 24; i++) g.ar_coeffs_y[i] = int8_t(*p++);
+    for (int pl = 0; pl < 2; pl++)
+        for (int i = 0; i < 25; i++) g.ar_coeffs_uv[pl][i] = int8_t(*p++);
+    g.ar_coeff_shift = *p++; g.grain_scale_shift = *p++;
+    for (int* f : {g.uv_mult, g.uv_luma_mult, g.uv_offset}) { f[0] = *p++; f[1] = *p++; }
+    g.overlap_flag = *p++; g.clip_to_restricted_range = *p++;
+    uint16_t* pl[3] = {y, u, v};
+    fg::apply(g, depth, mono, ssx, ssy, is_id, w, h, pl);
+}
+
+// libyuv's ScalePlane (depth 8, uint8 samples) or ScalePlane_12 (uint16)
+// with kFilterBox, as avifImageScaleWithLimit calls it on each plane:
+// a packed sw x sh plane to a packed dw x dh one.
+void citlab_avif_scale_plane(const void* src, int32_t sw, int32_t sh, void* dst, int32_t dw,
+                             int32_t dh, int32_t depth) {
+    if (depth > 8) {
+        yuvscale::Scaler<uint16_t>{static_cast<const uint16_t*>(src), sw, sh, sw,
+                                   static_cast<uint16_t*>(dst), dw, dh, dw, false}.run();
+    } else {
+        yuvscale::Scaler<uint8_t>{static_cast<const uint8_t*>(src), sw, sh, sw,
+                                  static_cast<uint8_t*>(dst), dw, dh, dw, true}.run();
+    }
+}
+
+// Decodes an AV1 bitstream (the OBUs of an AVIF item). info[0..25]: width,
 // height, monochrome, ss_x, ss_y, bit depth, matrix, range, primaries,
 // transfer, then allow_intrabc and the number of blocks that used IntraBC,
 // palette, filter intra and CfL, whether the frame was deblocked, the coded
 // (downscaled) width, the superres denominator (8: none), the number of
 // 8 x 8 blocks CDEF filtered, of Wiener and of self-guided restoration
 // units, and the frame's restoration type of each plane (2 bits each, plane
-// 0 lowest: 0 none, 1 Wiener, 2 self-guided, 3 switchable). The frame is
+// 0 lowest: 0 none, 1 Wiener, 2 self-guided, 3 switchable), then the film
+// grain: whether it changed the frame, the luma points, the chroma points
+// (Cb | Cr << 4) and ar_coeff_lag | overlap << 2 | chroma_scaling_from_luma
+// << 3 | clip_to_restricted_range << 4, then the offset and length in data
+// of the last sequence header payload parsed (-1, 0: none). carry (null, or
+// carry_len bytes): a sequence header payload that holds until the data
+// brings its own, as a dav1d instance keeps it from the item it decoded
+// before. The frame is
 // decoded, and its planes written where the pointers are not null, only
 // where it is cap_w x cap_h (the item's ispe): y (w*h)
 // and, unless monochrome, u and v (((w+ss_x)>>ss_x) * ((h+ss_y)>>ss_y)
@@ -3372,15 +4185,17 @@ extern "C" {
 // otherwise only the headers are read and info[0..10] filled. 0 on
 // success, -1 with a message in err.
 int citlab_av1_decode(const uint8_t* data, int64_t size, int32_t* info, void* y, void* u,
-                      void* v, int32_t cap_w, int32_t cap_h, char* err, int32_t errlen) {
+                      void* v, int32_t cap_w, int32_t cap_h, char* err, int32_t errlen,
+                      const uint8_t* carry, int64_t carry_len) {
     try {
         Result r;
-        decode_obus(data, size_t(size), r, cap_w, cap_h);
-        int vals[22] = {r.w, r.h, r.mono, r.ssx, r.ssy, r.bit_depth, r.matrix, r.range,
+        decode_obus(data, size_t(size), r, cap_w, cap_h, carry, size_t(carry_len));
+        int vals[28] = {r.w, r.h, r.mono, r.ssx, r.ssy, r.bit_depth, r.matrix, r.range,
                         r.primaries, r.transfer, r.allow_intrabc, r.n_intrabc, r.n_palette,
                         r.n_filter_intra, r.n_cfl, r.deblocked, r.coded_w, r.superres_denom,
-                        r.n_cdef, r.n_wiener, r.n_sgrproj, r.lr_types};
-        for (int i = 0; i < 22; i++) info[i] = vals[i];
+                        r.n_cdef, r.n_wiener, r.n_sgrproj, r.lr_types, r.grain[0], r.grain[1],
+                        r.grain[2], r.grain[3], r.seq_off, r.seq_len};
+        for (int i = 0; i < 28; i++) info[i] = vals[i];
         if (r.w != cap_w || r.h != cap_h) return 0;
         void* dst[3] = {y, u, v};
         for (int p = 0; p < (r.mono ? 1 : 3); p++) {
@@ -3512,7 +4327,7 @@ void citlab_avif_derived_kr_kb(int32_t primaries, float* kr_kb) {
 // -ffp-contract=off).
 void citlab_yuv_to_rgb_float(const void* y, const void* u, const void* v, int32_t w, int32_t h,
                              int32_t ssx, int32_t ssy, int32_t depth, int32_t full, int32_t kind,
-                             float kr, float kb, uint8_t* rgb) {
+                             float kr, float kb, const void* alpha, uint8_t* rgb) {
     const int maxc = (1 << depth) - 1;
     const float bias_y = full ? 0.0f : float(16 << (depth - 8));
     const float range_y = full ? float(maxc) : float(219 << (depth - 8));
@@ -3583,11 +4398,17 @@ void citlab_yuv_to_rgb_float(const void* y, const void* u, const void* v, int32_
                     G = Y - ((2 * ((kr * (1 - kr) * Cr) + (kb * (1 - kb) * Cb))) / kg);
                 }
             }
-            const float c[3] = {R, G, B};
-            for (int k = 0; k < 3; k++) {
-                const float x = c[k] < 0.0f ? 0.0f : (c[k] > 1.0f ? 1.0f : c[k]);
-                out[3 * i + k] = uint8_t(0.5f + (x * 255.0f));
+            float c[3] = {R, G, B};
+            for (int k = 0; k < 3; k++) c[k] = c[k] < 0.0f ? 0.0f : (c[k] > 1.0f ? 1.0f : c[k]);
+            if (alpha) {
+                // libavif's slow path divides by a premultiplying alpha here
+                const float A = float(at(alpha, size_t(j) * w + i)) / float(maxc);
+                for (int k = 0; k < 3; k++) {
+                    if (A == 0.0f) c[k] = 0.0f;
+                    else if (A < 1.0f) c[k] = std::min(c[k] / A, 1.0f);
+                }
             }
+            for (int k = 0; k < 3; k++) out[3 * i + k] = uint8_t(0.5f + (c[k] * 255.0f));
         }
     }
 }

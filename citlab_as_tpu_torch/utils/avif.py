@@ -1,22 +1,33 @@
 """AVIF as PIL 12.1 reads it: ``AvifImagePlugin`` hands the file to libavif
-1.3.0, which parses the HEIF container, decodes the primary item's AV1 with
-dav1d 1.5.1 and converts it to RGB with ``avifImageYUVToRGB`` (through
-libyuv where libyuv has the matrix). Equal bit for bit to
-``Image.open(path).convert(mode)``.
+1.3.0, which parses the HEIF container, decodes the primary item's (or the
+first track's) AV1 with dav1d 1.5.1 and converts it to RGB with
+``avifImageYUVToRGB`` (through libyuv where libyuv has the matrix). Equal
+bit for bit to ``Image.open(path).convert(mode)``.
 
 The container is parsed here as libavif parses it under PIL's settings
 (libavif's strict flags less ``pixi``-required and ``clap``-valid, which
 PIL clears): ``ftyp`` with its brands; ``meta`` with ``hdlr`` ``pict``,
 ``pitm``, ``iinf`` / ``infe`` v2-v3, ``iloc`` v0-v2 (construction methods
 0 and 1, the latter from ``idat``), ``iref`` (``auxl``, ``prem``, ``thmb``,
-``cdsc``; a ``grid`` item's ``dimg`` is part 3's) and ``iprp`` / ``ipco`` / ``ipma`` with ``ispe``,
+``cdsc``, ``dimg``) and ``iprp`` / ``ipco`` / ``ipma`` with ``ispe``,
 ``av1C``, ``pixi``, ``colr`` (``nclx``, ``prof``, ``rICC``), ``auxC``,
-``irot``, ``imir``, ``clap``, ``pasp``. The primary item's OBUs go to the
-port's AV1 intra-frame decoder (``csrc/av1_decode.cpp``, built with the
-host C++ compiler at first use). ``irot`` / ``imir`` and ``clap`` change
-PIL's EXIF orientation and info only, never the pixels. An alpha item is
-decoded (so that a damaged one fails as it fails in PIL) and dropped, as
-PIL's ``convert`` drops alpha.
+``irot``, ``imir``, ``clap``, ``pasp``; ``moov`` with its tracks (``tkhd``,
+``mdia`` / ``mdhd`` / ``hdlr`` / ``minf`` / ``stbl`` with ``stsd``'s av01
+sample entry and its properties, ``stsc``, ``stco`` / ``co64``, ``stsz``,
+``stss``, ``stts``; ``tref`` ``auxl`` and ``prem``). The source is
+libavif's automatic one: the tracks of an 'avis' file, whose first sample
+is decoded (the first colour track, with its alpha track), else the
+primary item: one AV1 item, or a ``grid`` of them (libavif's checks of the
+grid; the tiles' frames stitched on the canvas before one conversion,
+since libyuv's chroma upsampling reads across the seams). The AV1 goes to
+the port's decoder (``csrc/av1_decode.cpp``, built with the host C++
+compiler at first use), film grain included. A frame of another size than
+its item's ``ispe`` (or its track's ``tkhd``) is rescaled as libavif's
+``avifImageScaleWithLimit`` does with libyuv's box filter. ``irot`` /
+``imir`` and ``clap`` change PIL's EXIF orientation and info only, never
+the pixels. An alpha image is decoded (limited range brought to full as
+libavif does) and dropped, as PIL's ``convert`` drops alpha, after it has
+divided a premultiplied colour (``prem``) as libavif does for PIL's RGBA.
 
 The decoder gives 8-, 10- or 12-bit planes (uint8 or uint16). The YUV ->
 RGB conversion takes the route libavif takes (:func:`conversion`):
@@ -34,9 +45,7 @@ A file PIL's open rejects as not AVIF (a ``SyntaxError`` from libavif's
 ``BMFF_PARSE_FAILED``, ``INVALID_FTYP``, ``TRUNCATED_DATA``, ``NO_CONTENT``)
 raises ``SyntaxError`` here, so that :func:`raster_formats.identify` tries
 PIL's next plugin; any other failure of PIL's raises
-:class:`raster_formats.Refused`. The tools this decoder leaves to part 3
-(film grain, ``grid`` items, ``avis`` sequences, premultiplied alpha, a
-frame of another size than ``ispe``) are refused by name, naming "part 3".
+:class:`raster_formats.Refused`.
 """
 from __future__ import annotations
 
@@ -51,8 +60,7 @@ import numpy as np
 from citlab_as_tpu_torch.utils.raster_formats import Refused
 
 _ERRLEN = 512
-_INFO_LEN = 22
-PART3 = "queued for part 3 of the AVIF decoder"
+_INFO_LEN = 28
 
 
 @functools.cache
@@ -62,16 +70,22 @@ def _lib() -> ctypes.CDLL:
     lib.citlab_av1_decode.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p,
                                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                                       ctypes.c_int32, ctypes.c_int32, ctypes.c_char_p,
-                                      ctypes.c_int32]
+                                      ctypes.c_int32, ctypes.c_char_p, ctypes.c_int64]
     lib.citlab_av1_decode.restype = ctypes.c_int32
     lib.citlab_yuv_to_rgb.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int32] * 6 + [
         ctypes.c_void_p, ctypes.c_void_p]
     lib.citlab_yuv_to_rgb.restype = None
     lib.citlab_yuv_to_rgb_float.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int32] * 7 + [
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
     lib.citlab_yuv_to_rgb_float.restype = None
     lib.citlab_avif_derived_kr_kb.argtypes = [ctypes.c_int32, ctypes.c_void_p]
     lib.citlab_avif_derived_kr_kb.restype = None
+    lib.citlab_avif_scale_plane.argtypes = [ctypes.c_void_p, ctypes.c_int32, ctypes.c_int32,
+                                            ctypes.c_void_p] + [ctypes.c_int32] * 3
+    lib.citlab_avif_scale_plane.restype = None
+    lib.citlab_av1_apply_grain.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int32] * 7 + [
+        ctypes.c_void_p]
+    lib.citlab_av1_apply_grain.restype = None
     return lib
 
 
@@ -169,6 +183,8 @@ class _Item:
     prem_by: int = 0
     thumbnail_for: int = 0
     desc_for: int = 0
+    dimg_for: int = 0
+    dimg_index: int = 0
 
     def prop(self, kind: bytes):
         for k, v in self.props:
@@ -203,8 +219,10 @@ def _parse_property(kind: bytes, s: _Stream):
         if v != 0:
             raise SyntaxError(f"AVIF ispe version {v}")
         return s.u32(), s.u32()
-    if kind == b"auxC":
-        s.version_flags()  # libavif does not hold auxC to version 0
+    if kind in (b"auxC", b"auxi"):
+        v, _ = s.version_flags()
+        if v != 0:
+            raise SyntaxError(f"AVIF {kind.decode()} version {v}")
         return s.string()
     if kind == b"colr":
         ctype = s.take(4)
@@ -223,8 +241,10 @@ def _parse_property(kind: bytes, s: _Stream):
             raise SyntaxError("AVIF av1C: bad marker or version")
         b1, b2 = s.u8(), s.u8()
         s.u8()
-        return {"profile": b1 >> 5, "high_bitdepth": (b2 >> 6) & 1, "twelve_bit": (b2 >> 5) & 1,
-                "mono": (b2 >> 4) & 1, "ssx": (b2 >> 3) & 1, "ssy": (b2 >> 2) & 1}
+        return {"profile": b1 >> 5, "level": b1 & 31, "tier": b2 >> 7,
+                "high_bitdepth": (b2 >> 6) & 1, "twelve_bit": (b2 >> 5) & 1,
+                "mono": (b2 >> 4) & 1, "ssx": (b2 >> 3) & 1, "ssy": (b2 >> 2) & 1,
+                "position": b2 & 3}
     if kind == b"pasp":
         return s.u32(), s.u32()
     if kind == b"clap":
@@ -244,9 +264,15 @@ def _parse_property(kind: bytes, s: _Stream):
         if v != 0:
             raise SyntaxError(f"AVIF pixi version {v}")
         n = s.u8()
-        if n > 8:
+        if n < 1 or n > 8:
             raise SyntaxError(f"AVIF pixi: {n} planes")
-        return [s.u8() for _ in range(n)]
+        depths = []
+        for _ in range(n):
+            depths.append(s.u8())
+            if depths[-1] != depths[0]:
+                # libavif refuses planes of different depths as it reads them
+                raise Refused(f"AVIF pixi depths {depths} differ (libavif: not implemented)")
+        return depths
     if kind == b"a1op":
         op = s.u8()
         if op > 31:
@@ -268,11 +294,11 @@ def _parse_property(kind: bytes, s: _Stream):
     return None
 
 
-def _parse_ipco(meta: _Meta, s: _Stream) -> None:
+def _parse_ipco(meta: _Meta, s: _Stream, kinds=_SUPPORTED_PROPS) -> None:
     while s.left() > 0:
         kind, start, end = s.box_header()
         sub = _Stream(s.data, start, end)
-        value = _parse_property(kind, sub) if kind in _SUPPORTED_PROPS else None
+        value = _parse_property(kind, sub) if kind in kinds else None
         meta.properties.append((kind, value))
         s.pos = end
 
@@ -356,7 +382,10 @@ def _parse_iloc(meta: _Meta, s: _Stream) -> None:
             raise SyntaxError(f"AVIF iloc: item {item_id} located twice")
         item.has_extents = True
         if version in (1, 2):
-            method = s.u16() & 15
+            field = s.u16()
+            if field >> 4:
+                raise SyntaxError("AVIF iloc: non-zero reserved bits before construction_method")
+            method = field & 15
             if method not in (0, 1):
                 raise SyntaxError(f"AVIF iloc: construction method {method}")
             item.construction = method
@@ -400,9 +429,11 @@ def _parse_iref(meta: _Meta, s: _Stream) -> None:
     version, _ = s.version_flags()
     if version > 1:
         return  # libavif skips an iref of an unknown version
+    # libavif reads each reference box's fields on from its header, without
+    # holding them to the box's size (which must only fit in iref)
+    r = s
     while s.left() > 0:
-        kind, start, end = s.box_header()
-        r = _Stream(s.data, start, end)
+        kind, _, _ = s.box_header()
         from_id = r.u16() if version == 0 else r.u32()
         if from_id == 0:
             raise SyntaxError("AVIF iref: item ID 0")
@@ -420,7 +451,10 @@ def _parse_iref(meta: _Meta, s: _Stream) -> None:
                 item.desc_for = to_id
             elif kind == b"prem":
                 item.prem_by = to_id
-        s.pos = end
+            elif kind == b"dimg":
+                # derived images refer the other way: each tile to its grid
+                tile = meta.item(to_id)
+                tile.dimg_for, tile.dimg_index = from_id, i
 
 
 def _parse_meta(s: _Stream) -> _Meta:
@@ -469,18 +503,217 @@ def _parse_meta(s: _Stream) -> _Meta:
     return meta
 
 
+# ------------------------------------------------------------------ tracks
+
+@dataclass
+class _Track:
+    """libavif's avifTrack: what its avifParseTrackBox keeps."""
+    id: int = 0
+    width: int = 0
+    height: int = 0
+    timescale: int = 0
+    aux_for: int = 0
+    prem_by: int = 0
+    has_stbl: bool = False
+    chunks: List[int] = field(default_factory=list)
+    stsc: List[Tuple[int, int]] = field(default_factory=list)  # (first chunk, samples)
+    all_size: int = 0
+    sizes: List[int] = field(default_factory=list)
+    # sample entries: (format, properties or None where the format is not av01)
+    entries: List[Tuple[bytes, Optional[List[Tuple[bytes, object]]]]] = field(
+        default_factory=list)
+    meta: Optional[_Meta] = None
+
+    def av1_properties(self) -> Optional[List[Tuple[bytes, object]]]:
+        """avifSampleTableGetProperties: the first av01 sample entry's."""
+        for fmt, props in self.entries:
+            if fmt == b"av01":
+                return props
+        return None
+
+    def prop(self, kind: bytes):
+        for k, v in self.av1_properties() or ():
+            if k == kind:
+                return v
+        return None
+
+
+_VISUAL_SAMPLE_ENTRY = 78
+
+
+def _boxes(s: _Stream):
+    """(type, payload stream) of each box in s, libavif's child loop."""
+    while s.left() > 0:
+        kind, start, end = s.box_header()
+        yield kind, _Stream(s.data, start, end)
+        s.pos = end
+
+
+def _version0(s: _Stream, what: str) -> None:
+    if s.version_flags()[0] != 0:
+        raise SyntaxError(f"AVIF {what}: version is not 0")
+
+
+def _parse_stbl(track: _Track, s: _Stream) -> None:
+    if track.has_stbl:
+        raise SyntaxError("AVIF trak: two stbl boxes")
+    track.has_stbl = True
+    for kind, b in _boxes(s):
+        if kind in (b"stco", b"co64"):
+            _version0(b, kind.decode())
+            for _ in range(b.u32()):
+                track.chunks.append(b.u64() if kind == b"co64" else b.u32())
+        elif kind == b"stsc":
+            _version0(b, "stsc")
+            prev = 0
+            for i in range(b.u32()):
+                first, per_chunk = b.u32(), b.u32()
+                b.u32()  # sample_description_index
+                if (i == 0 and first != 1) or (i and first <= prev):
+                    raise SyntaxError("AVIF stsc: chunks not increasing from 1")
+                prev = first
+                track.stsc.append((first, per_chunk))
+        elif kind == b"stsz":
+            _version0(b, "stsz")
+            size, count = b.u32(), b.u32()
+            if size:
+                track.all_size = size
+            else:
+                track.sizes += [b.u32() for _ in range(count)]
+        elif kind in (b"stss", b"stts"):
+            _version0(b, kind.decode())
+            b.take((4 if kind == b"stss" else 8) * b.u32())
+        elif kind == b"stsd":
+            _version0(b, "stsd")
+            for _ in range(b.u32()):
+                fmt, start, end = b.box_header()
+                props = None
+                if fmt == b"av01":
+                    if end - start < _VISUAL_SAMPLE_ENTRY:
+                        raise SyntaxError("AVIF stsd: av01 sample entry shorter than a "
+                                          "VisualSampleEntry")
+                    holder = _Meta()
+                    _parse_ipco(holder, _Stream(b.data, start + _VISUAL_SAMPLE_ENTRY, end),
+                                _SUPPORTED_PROPS + (b"auxi",))
+                    props = [(k, v) for k, v in holder.properties
+                             if k in _SUPPORTED_PROPS + (b"auxi",)]
+                track.entries.append((fmt, props))
+                b.pos = end
+
+
+def _parse_edts(s: _Stream) -> None:
+    """avifParseEditBox: one elst, whose repeating form has one entry of a
+    non-zero segment duration."""
+    elst = False
+    for kind, b in _boxes(s):
+        if kind != b"elst":
+            continue
+        if elst:
+            raise SyntaxError("AVIF edts: two elst boxes")
+        elst = True
+        version, flags = b.version_flags()
+        if not flags & 1:
+            continue
+        if b.u32() != 1:
+            raise SyntaxError("AVIF elst: entry_count is not 1")
+        if version not in (0, 1):
+            raise SyntaxError(f"AVIF elst version {version}")
+        if (b.u64() if version else b.u32()) == 0:
+            raise SyntaxError("AVIF elst: segment_duration 0")
+    if not elst:
+        raise SyntaxError("AVIF edts without elst")
+
+
+def _parse_trak(s: _Stream) -> _Track:
+    """libavif's avifParseTrackBox with its tkhd, mdia (mdhd, minf / stbl),
+    tref (auxl, prem) and edts (elst) boxes; the rest are not read."""
+    track = _Track()
+    tkhd = edts = False
+    for kind, b in _boxes(s):
+        if kind == b"tkhd":
+            if tkhd:
+                raise SyntaxError("AVIF trak: two tkhd boxes")
+            tkhd = True
+            version, _ = b.version_flags()
+            if version not in (0, 1):
+                raise SyntaxError(f"AVIF tkhd version {version}")
+            b.take(16 if version else 8)
+            track_id = b.u32()
+            b.take(12 if version else 8)
+            b.take(52)
+            track.width, track.height = b.u32() >> 16, b.u32() >> 16
+            if not track.width or not track.height:
+                raise SyntaxError(f"AVIF track {track_id}: size {track.width} x {track.height}")
+            _check_size_limits(track.width, track.height, SyntaxError)
+            track.id = track_id
+        elif kind == b"meta":
+            track.meta = _parse_meta(b)
+        elif kind == b"mdia":
+            for k2, m in _boxes(b):
+                if k2 == b"mdhd":
+                    version, _ = m.version_flags()
+                    if version not in (0, 1):
+                        raise SyntaxError(f"AVIF mdhd version {version}")
+                    m.take(16 if version else 8)
+                    track.timescale = m.u32()
+                    m.take(8 if version else 4)
+                elif k2 == b"hdlr":
+                    # read as the meta box's is, its handler type not held
+                    _version0(m, "hdlr")
+                    if m.u32() != 0:
+                        raise SyntaxError("AVIF hdlr: non-zero pre_defined")
+                    m.take(16)
+                    m.string()
+                elif k2 == b"minf":
+                    for k3, n in _boxes(m):
+                        if k3 == b"stbl":
+                            _parse_stbl(track, n)
+        elif kind == b"edts":
+            if edts:
+                raise SyntaxError("AVIF trak: two edts boxes")
+            edts = True
+            _parse_edts(b)
+        elif kind == b"tref":
+            for k2, r in _boxes(b):
+                if k2 in (b"auxl", b"prem"):
+                    if r.left() < 4:
+                        raise SyntaxError(f"AVIF tref: {k2.decode()} without a track ID")
+                    if k2 == b"auxl":
+                        track.aux_for = r.u32()
+                    else:
+                        track.prem_by = r.u32()
+    if not tkhd:
+        raise SyntaxError("AVIF trak without its tkhd box")
+    return track
+
+
+def _parse_moov(s: _Stream) -> List[_Track]:
+    tracks = [_parse_trak(b) for kind, b in _boxes(s) if kind == b"trak"]
+    if not tracks:
+        raise SyntaxError("AVIF moov without a track")
+    return tracks
+
+
+def _check_size_limits(w: int, h: int, error=SyntaxError) -> None:
+    """libavif's default image size and dimension limits
+    (avifDimensionsTooLarge)."""
+    if w * h > 16384 * 16384 or max(w, h) > 32768:
+        raise error(f"AVIF: {w} x {h} past libavif's image size limit")
+
+
 def _brands(payload: bytes) -> Tuple[bytes, List[bytes]]:
     if len(payload) < 8 or (len(payload) - 8) % 4:
         raise SyntaxError("AVIF ftyp of a malformed size")
     return payload[:4], [payload[i:i + 4] for i in range(8, len(payload), 4)]
 
 
-def _parse_file(data: bytes) -> Tuple[_Meta, bytes]:
+def _parse_file(data: bytes) -> Tuple[_Meta, bytes, List[_Track]]:
     """libavif's avifParse: the top-level boxes up to the ones it needs."""
     s = _Stream(data)
     ftyp_seen = meta_seen = moov_seen = False
     needs_meta = needs_moov = False
     meta = None
+    tracks: List[_Track] = []
     major = b""
     while s.left() > 0:
         if s.left() < 8:
@@ -511,6 +744,9 @@ def _parse_file(data: bytes) -> Tuple[_Meta, bytes]:
             meta = _parse_meta(_Stream(data, start, end))
             meta_seen = True
         elif kind == b"moov":
+            if moov_seen:
+                raise SyntaxError("AVIF: two moov boxes")
+            tracks = _parse_moov(_Stream(data, start, end))
             moov_seen = True
         if ftyp_seen and (not needs_meta or meta_seen) and (not needs_moov or moov_seen):
             break
@@ -521,7 +757,7 @@ def _parse_file(data: bytes) -> Tuple[_Meta, bytes]:
         raise SyntaxError("AVIF without ftyp")
     if (needs_meta and not meta_seen) or (needs_moov and not moov_seen):
         raise SyntaxError("AVIF: truncated before its meta or moov box")
-    return meta, major
+    return meta, major, tracks
 
 
 # ------------------------------------------------------------------ the image
@@ -545,30 +781,218 @@ def _item_data(meta: _Meta, item: _Item, data: bytes) -> bytes:
 
 
 @dataclass
+class _Source:
+    """One image libavif decodes (the colour or the alpha): a single AV1
+    item, the tiles of a ``grid`` item, or a track's first sample. ``width``
+    and ``height``: its ispe (a grid item's own) or its track's tkhd size;
+    ``tiles``: (OBU bytes or an item to read them from, the size libavif
+    scales that frame to)."""
+    width: int
+    height: int
+    tiles: List[Tuple[object, int, int]]
+    grid: Optional[Tuple[int, int, int, int]] = None  # rows, columns, output w, h
+
+
+@dataclass
 class AvifInfo:
     width: int
     height: int
     mode: str
-    color: _Item
+    color: Optional[_Item]          # the primary item (None for a track)
     alpha: Optional[_Item]
     nclx: Optional[tuple]
-    meta: _Meta
+    meta: Optional[_Meta]
+    color_src: Optional[_Source] = None
+    alpha_src: Optional[_Source] = None
+    premultiplied: bool = False
+    timescale: int = 1   # a track's mdhd timescale; PIL divides by it
+
+
+def _parse_grid(payload: bytes) -> Tuple[int, int, int, int]:
+    """avifParseImageGridBox: (rows, columns, output width, output height)."""
+    s = _Stream(payload)
+    try:
+        if s.u8() != 0:
+            raise Refused("AVIF grid: version is not 0 (libavif: invalid image grid)")
+        flags, rows, cols = s.u8(), s.u8() + 1, s.u8() + 1
+        w, h = (s.u32(), s.u32()) if flags & 1 else (s.u16(), s.u16())
+    except SyntaxError:
+        raise Refused("AVIF grid: truncated payload (libavif: invalid image grid)") from None
+    if not w or not h or s.left():
+        raise Refused(f"AVIF grid: output {w} x {h} with {s.left()} bytes left (libavif: "
+                      "invalid image grid)")
+    _check_size_limits(w, h, Refused)
+    return rows, cols, w, h
+
+
+def _grid_source(meta: _Meta, grid_item: _Item, data: bytes) -> _Source:
+    """avifDecoderItemReadAndParse and avifDecoderGenerateImageGridTiles:
+    the grid's tiles in their dimg order, with libavif's checks; the first
+    tile's av1C (and pixi) stand for the grid's."""
+    try:
+        payload = _item_data(meta, grid_item, data)
+    except SyntaxError as e:
+        raise Refused(str(e)) from None
+    rows, cols, w, h = _parse_grid(payload)
+    tiles = [meta.items[i] for i in meta.order if meta.items[i].dimg_for == grid_item.id]
+    if len(tiles) != rows * cols:
+        raise Refused(f"AVIF grid of {rows} x {cols} with {len(tiles)} tiles (libavif: invalid "
+                      "image grid)")
+    by_index = {}
+    for t in tiles:
+        if t.dimg_index >= rows * cols or t.dimg_index in by_index:
+            raise Refused("AVIF grid: dimg references out of order (libavif: invalid image grid)")
+        by_index[t.dimg_index] = t
+    ordered = [by_index[i] for i in range(rows * cols)]
+    grid_item.props.append((b"av1C", _check_tiles(ordered)))
+    return _Source(grid_item.prop(b"ispe")[0], grid_item.prop(b"ispe")[1],
+                   [(t, *t.prop(b"ispe")) for t in ordered], (rows, cols, w, h))
+
+
+def _check_tiles(ordered: List[_Item]) -> dict:
+    """avifDecoderGenerateImageGridTiles' and
+    avifDecoderItemValidateProperties' checks of a grid's tiles; the first
+    tile's av1C, which stands for the grid's."""
+    first = None
+    for t in ordered:
+        if t.type != b"av01":
+            raise Refused(f"AVIF grid tile {t.id} of type {t.type!r} (libavif: invalid image grid)")
+        if t.unsupported_essential:
+            raise Refused("AVIF grid tile with an unsupported essential property (libavif: "
+                          "invalid image grid)")
+        if first is None:
+            first = t
+            if t.prop(b"av1C") is None:
+                raise Refused("AVIF grid: its first tile without av1C (libavif: invalid image "
+                              "grid)")
+    config = first.prop(b"av1C")
+    keys = ("profile", "level", "tier", "high_bitdepth", "twelve_bit", "mono", "ssx", "ssy",
+            "position")
+    for t in ordered:
+        c = t.prop(b"av1C")
+        if c is None:
+            raise SyntaxError(f"AVIF grid tile {t.id} without its mandatory av1C property")
+        if any(c[k] != config[k] for k in keys):
+            raise SyntaxError("AVIF grid: tiles of different av1C fields")
+        if t.prop(b"ispe") is None:
+            raise SyntaxError(f"AVIF grid tile {t.id} without its mandatory ispe property")
+    return config
+
+
+def _item_source(meta: _Meta, item: _Item, data: bytes, w: int, h: int) -> _Source:
+    if item.type == b"grid":
+        src = _grid_source(meta, item, data)
+        src.width, src.height = w, h
+        return src
+    return _Source(w, h, [(item, w, h)])
+
+
+def _samples(track: _Track, data: bytes) -> Tuple[int, int]:
+    """avifCodecDecodeInputFillFromSampleTable: (offset, size) of the
+    track's first sample, after libavif's checks of the whole table."""
+    first = None
+    size_index = 0
+    count = 0
+    for k, offset in enumerate(track.chunks):
+        n = 0
+        for first_chunk, per_chunk in reversed(track.stsc):
+            if first_chunk <= k + 1:
+                n = per_chunk
+                break
+        if n == 0:
+            raise SyntaxError("AVIF sample table: a chunk with 0 samples")
+        count += n
+        if count > 12 * 3600 * 60:
+            raise SyntaxError("AVIF sample table past libavif's image count limit")
+        for _ in range(n):
+            size = track.all_size
+            if not size:
+                if size_index >= len(track.sizes):
+                    raise SyntaxError("AVIF sample table: truncated")
+                size = track.sizes[size_index]
+            if offset + size > len(data):
+                raise SyntaxError("AVIF sample past the end of the file")
+            if first is None:
+                first = (offset, size)
+            offset += size
+            size_index += 1
+    return first
+
+
+def _track_source(track: _Track, data: bytes) -> _Source:
+    offset, size = _samples(track, data)
+    if not size:
+        raise SyntaxError("AVIF track sample of 0 bytes")
+    return _Source(track.width, track.height, [(data[offset:offset + size], track.width,
+                                                track.height)])
+
+
+def _usable(track: _Track) -> bool:
+    return bool(track.has_stbl and track.id and track.chunks
+                and track.av1_properties() is not None)
+
+
+def _open_tracks(tracks: List[_Track], data: bytes) -> AvifInfo:
+    """avifDecoderReset from tracks: the first AV1 track that is no
+    auxiliary one (libavif 1.3 does not hold its handler to 'pict'), and
+    its alpha track: one auxiliary to it whose sample entry's auxi, if any,
+    names alpha."""
+    color = next((t for t in tracks if _usable(t) and not t.aux_for), None)
+    if color is None:
+        raise SyntaxError("AVIF: no AV1 colour track (libavif: no content)")
+    if color.meta is not None:
+        _read_metadata(color.meta, None, data)
+    alpha = next((t for t in tracks if _usable(t) and t.aux_for == color.id
+                  and t.prop(b"auxi") in (None,) + _ALPHA_URNS), None)
+    color_src = _track_source(color, data)
+    alpha_src = None if alpha is None else _track_source(alpha, data)
+    av1c = color.prop(b"av1C")
+    if av1c is None:
+        raise SyntaxError("AVIF track without its mandatory av1C property")
+    _check_pixi(color.prop(b"pixi"), av1c, color.id)
+    nclx = _nclx(color.av1_properties())
+    return AvifInfo(color.width, color.height, "RGBA" if alpha is not None else "RGB", None,
+                    None, nclx, None, color_src, alpha_src,
+                    alpha is not None and color.prem_by == alpha.id, color.timescale)
+
+
+def _nclx(props) -> Optional[tuple]:
+    nclx = icc = None
+    for kind, value in props:
+        if kind == b"colr" and value[0] == "nclx":
+            if nclx is not None:
+                raise SyntaxError("AVIF: two nclx colr properties")
+            nclx = value
+        elif kind == b"colr" and value[0] == "icc":
+            if icc is not None:
+                raise SyntaxError("AVIF: two ICC colr properties")
+            icc = value
+    return nclx
 
 
 def open_avif(data: bytes) -> AvifInfo:
     """Parse the container as libavif's avifDecoderParse does under PIL's
-    settings; PIL's mode and size."""
-    meta, major = _parse_file(data)
-    if meta is None or major == b"avis":
-        raise Refused(f"AVIF image sequence ('avis' tracks; {PART3})")
-    # avifDecoderParse's sanity check: every item it would decode has an
-    # ispe (an alpha item's is checked below, with its own message)
-    for item_id in meta.order:
+    settings; PIL's mode and size. The source is libavif's automatic one:
+    the tracks of a file whose major brand is 'avis', the primary item of
+    one whose major brand is 'avif', else the tracks where there are any."""
+    meta, major, tracks = _parse_file(data)
+    # avifDecoderParse's sanity check, whatever the source: every item it
+    # would decode has an ispe (an alpha item's is checked below, with its
+    # own message) of a size within libavif's limits
+    for item_id in meta.order if meta is not None else ():
         item = meta.items[item_id]
+        if _skipped(item):
+            continue
+        ispe = item.prop(b"ispe")
         aux = item.prop(b"auxC")
-        if (not _skipped(item) and item.prop(b"ispe") is None
-                and not (aux is not None and aux in _ALPHA_URNS)):
+        if ispe is None and not (aux is not None and aux in _ALPHA_URNS):
             raise SyntaxError(f"AVIF item {item.id} without its mandatory ispe property")
+        if ispe is not None:
+            if 0 in ispe:
+                raise SyntaxError(f"AVIF item {item.id}: ispe of zero size")
+            _check_size_limits(*ispe)
+    if major == b"avis" or (major != b"avif" and tracks):
+        return _open_tracks(tracks, data)
     color = None
     for item_id in meta.order:
         item = meta.items[item_id]
@@ -579,25 +1003,15 @@ def open_avif(data: bytes) -> AvifInfo:
             break
     if color is None:
         raise Refused("AVIF: no primary image item (libavif: missing image item)")
-    if color.type == b"grid":
-        raise Refused(f"AVIF grid item ({PART3})")
     ispe = color.prop(b"ispe")
     if ispe is None:
         raise SyntaxError(f"AVIF item {color.id} without its mandatory ispe property")
+    color_src = _item_source(meta, color, data, *ispe)
     av1c = color.prop(b"av1C")
     if av1c is None:
         raise SyntaxError(f"AVIF item {color.id} without its mandatory av1C property")
-    _check_pixi(color, av1c)
-    nclx = icc = None
-    for kind, value in color.props:
-        if kind == b"colr" and value[0] == "nclx":
-            if nclx is not None:
-                raise SyntaxError("AVIF: two nclx colr properties")
-            nclx = value
-        elif kind == b"colr" and value[0] == "icc":
-            if icc is not None:
-                raise SyntaxError("AVIF: two ICC colr properties")
-            icc = value
+    _check_pixi(color.prop(b"pixi"), av1c, color.id)
+    nclx = _nclx(color.props)
     _read_metadata(meta, color, data)
     alpha = None
     for item_id in meta.order:
@@ -608,35 +1022,58 @@ def open_avif(data: bytes) -> AvifInfo:
         if aux is not None and aux in _ALPHA_URNS:
             alpha = item
             break
+    alpha_src = None
+    if alpha is None and color.type == b"grid":
+        alpha_src = _tile_alpha_grid(meta, color, color_src)
     if alpha is not None:
-        if alpha.prop(b"ispe") is None:
+        a_ispe = alpha.prop(b"ispe")
+        if a_ispe is None:
             raise SyntaxError(f"AVIF alpha item {alpha.id} without its mandatory ispe property")
+        alpha_src = _item_source(meta, alpha, data, *a_ispe)
         a1c = alpha.prop(b"av1C")
         if a1c is None:
             raise SyntaxError(f"AVIF alpha item {alpha.id} without its mandatory av1C property")
-        _check_pixi(alpha, a1c)
-        if color.prem_by == alpha.id:
-            raise Refused(f"AVIF premultiplied alpha ({PART3})")
+        _check_pixi(alpha.prop(b"pixi"), a1c, alpha.id)
     w, h = ispe
-    if w == 0 or h == 0:
-        raise Refused("AVIF: ispe of zero size")
-    # libavif's default image size and dimension limits
-    if w * h > 16384 * 16384 or max(w, h) > 32768:
-        raise SyntaxError(f"AVIF: {w} x {h} past libavif's image size limit")
-    return AvifInfo(w, h, "RGBA" if alpha is not None else "RGB", color, alpha, nclx, meta)
+    return AvifInfo(w, h, "RGBA" if alpha_src is not None else "RGB", color, alpha, nclx, meta,
+                    color_src, alpha_src, alpha is not None and color.prem_by == alpha.id)
+
+
+def _tile_alpha_grid(meta: _Meta, grid: _Item, color_src: _Source) -> Optional[_Source]:
+    """libavif's avifMetaFindAlphaItem for a grid without an alpha item:
+    where every colour tile (in item order) has exactly one alpha auxiliary
+    item, those items make an alpha grid of the colour grid's layout."""
+    tiles = []
+    for item_id in meta.order:
+        tile = meta.items[item_id]
+        if tile.dimg_for != grid.id:
+            continue
+        found = [a for a in (meta.items[i] for i in meta.order)
+                 if a.aux_for == tile.id and a.prop(b"auxC") in _ALPHA_URNS]
+        if not found:
+            return None
+        if len(found) > 1 or found[0].dimg_for:
+            raise Refused("AVIF grid tile with several alpha items (libavif: invalid image grid)")
+        tiles.append(found[0])
+    if not tiles:
+        return None
+    _check_tiles(tiles)
+    return _Source(color_src.width, color_src.height, [(a, *a.prop(b"ispe")) for a in tiles],
+                   color_src.grid)
 
 
 _TIFF_PREFIXES = (b"MM\x00\x2a", b"II\x2a\x00", b"MM\x2a\x00", b"II\x00\x2a", b"MM\x00\x2b",
                   b"II\x2b\x00")
 
 
-def _read_metadata(meta: _Meta, color: _Item, data: bytes) -> None:
+def _read_metadata(meta: _Meta, color: Optional[_Item], data: bytes) -> None:
     """libavif's avifDecoderFindMetadata, which reads the Exif and XMP
-    items that describe the colour item while parsing; then PIL's reading
-    of the Exif's TIFF header."""
+    items that describe the colour item (any, in a track's meta box) while
+    parsing; then PIL's reading of the Exif's TIFF header."""
     for item_id in meta.order:
         item = meta.items[item_id]
-        if not item.size or item.unsupported_essential or item.desc_for != color.id:
+        if (not item.size or item.unsupported_essential
+                or (color is not None and item.desc_for != color.id)):
             continue
         if item.type == b"Exif":
             payload = _item_data(meta, item, data)
@@ -658,56 +1095,180 @@ def _read_metadata(meta: _Meta, color: _Item, data: bytes) -> None:
             _item_data(meta, item, data)
 
 
-def _check_pixi(item: _Item, av1c: dict) -> None:
-    pixi = item.prop(b"pixi")
+def _check_pixi(pixi: Optional[list], av1c: dict, item_id: int) -> None:
+    """avifDecoderItemValidateProperties: an item's own pixi depths are its
+    av1C's."""
     if pixi is None:
         return
-    # libavif holds the depths to av1C's, not the number of planes
-    depth = 12 if av1c["twelve_bit"] else (10 if av1c["high_bitdepth"] else 8)
-    if any(d != depth for d in pixi):
-        raise Refused(f"AVIF item {item.id}: pixi depths {pixi} against av1C's {depth} bits "
-                      "(libavif: not implemented)")
+    bits = 12 if av1c["twelve_bit"] else (10 if av1c["high_bitdepth"] else 8)
+    if any(d != bits for d in pixi):
+        raise SyntaxError(f"AVIF item {item_id}: pixi depths {pixi} against av1C's {bits} bits")
 
 
-def _decode_av1(obus: bytes, what: str, w: int, h: int, planes: bool = True):
-    """The AV1 stream's info row and planes (uint8 at 8 bits, uint16 above;
-    None where the frame is not w x h: the item's ispe, or where ``planes``
-    is false)."""
+def _frame(obus: bytes, what: str, w: int, h: int, carry: bytes = b""):
+    """The AV1 stream's info row and planes (uint8 at 8 bits, uint16 above)
+    at the frame's own size; ``w`` x ``h`` is the size expected (its item's
+    ispe), tried first; ``carry``: the sequence header payload the decoder
+    instance holds from the item before."""
     info = np.zeros(_INFO_LEN, np.int32)
     err = ctypes.create_string_buffer(_ERRLEN)
-    # room for two bytes a sample; the decoder writes one at 8 bits
-    bufs = [np.empty(2 * w * h, np.uint8) for _ in range(3)] if planes else [None] * 3
-    ptr = lambda a: None if a is None else a.ctypes.data  # noqa: E731
-    if _lib().citlab_av1_decode(obus, len(obus), info.ctypes.data, *(ptr(b) for b in bufs),
-                                w, h, err, _ERRLEN):
-        raise Refused(f"{what}: {err.value.decode(errors='replace')}")
-    fw, fh, mono, ssx, ssy, depth = (int(x) for x in info[:6])
-    if (fw, fh) != (w, h) or not planes:
-        return info, None, None, None
+    for attempt in range(2):
+        # room for two bytes a sample; the decoder writes one at 8 bits
+        bufs = [np.empty(2 * w * h, np.uint8) for _ in range(3)]
+        if _lib().citlab_av1_decode(obus, len(obus), info.ctypes.data,
+                                    *(b.ctypes.data for b in bufs), w, h, err, _ERRLEN,
+                                    carry, len(carry)):
+            raise Refused(f"{what}: {err.value.decode(errors='replace')}")
+        fw, fh, mono, ssx, ssy, depth = (int(x) for x in info[:6])
+        if (fw, fh) == (w, h):
+            break
+        if attempt or fw > 16384 or fh > 16384:
+            # avifImageScaleWithLimit's guard against libyuv's overflows
+            raise Refused(f"{what}: a frame of {fw} x {fh} to scale to {w} x {h} (libavif: "
+                          "invalid scale for libyuv)")
+        w, h = fw, fh
     cw, ch = (w + ssx) >> ssx, (h + ssy) >> ssy
     dtype = np.uint16 if depth > 8 else np.uint8
     y, u, v = (b.view(dtype) for b in bufs)
     y = y[:w * h].reshape(h, w)
     if mono:
-        return info, y, None, None
-    return info, y, u[:cw * ch].reshape(ch, cw), v[:cw * ch].reshape(ch, cw)
+        return info, [y]
+    return info, [y, u[:cw * ch].reshape(ch, cw), v[:cw * ch].reshape(ch, cw)]
+
+
+def scale_plane(plane: np.ndarray, w: int, h: int, depth: int) -> np.ndarray:
+    """libyuv's ScalePlane (8 bits) or ScalePlane_12 with kFilterBox, as
+    libavif's avifImageScaleWithLimit calls it: ``plane`` to w x h."""
+    src = np.ascontiguousarray(plane)
+    out = np.empty((h, w), src.dtype)
+    _lib().citlab_avif_scale_plane(src.ctypes.data, src.shape[1], src.shape[0], out.ctypes.data,
+                                   w, h, depth)
+    return out
+
+
+def _scaled(row: np.ndarray, planes: list, w: int, h: int) -> list:
+    """avifImageScaleWithLimit: each plane of the frame to w x h (chroma to
+    its subsampled size of w x h)."""
+    fw, fh, _, ssx, ssy, depth = (int(x) for x in row[:6])
+    if (fw, fh) == (w, h):
+        return planes
+    out = [scale_plane(planes[0], w, h, depth)]
+    for p in planes[1:]:
+        out.append(scale_plane(p, (w + ssx) >> ssx, (h + ssy) >> ssy, depth))
+    return out
+
+
+def _obus(src_tile, meta: Optional[_Meta], data: bytes) -> bytes:
+    obus = src_tile[0]
+    if isinstance(obus, _Item):
+        try:
+            obus = _item_data(meta, obus, data)
+        except SyntaxError as e:
+            raise Refused(str(e)) from None
+    return obus
+
+
+def _frames(src: _Source, meta: Optional[_Meta], data: bytes, what: str):
+    """[(OBUs, info row, planes)] of each AV1 frame of the image (a grid's
+    tiles, or one), at the frame's own size, decoded in turn as by one
+    dav1d instance: a tile without a sequence header of its own is read
+    under the last one before it."""
+    out, carry = [], b""
+    for tile in src.tiles:
+        obus = _obus(tile, meta, data)
+        row, planes = _frame(obus, what, tile[1], tile[2], carry)
+        if row[26] >= 0:
+            carry = obus[row[26]:row[26] + row[27]]
+        out.append((obus, row, planes))
+    return out
+
+
+def colour_frames(data: bytes, info: Optional[AvifInfo] = None):
+    """:func:`_frames` of the colour image, before libavif scales or
+    stitches them."""
+    info = info or open_avif(data)
+    return _frames(info.color_src, info.meta, data, "AVIF colour image")
+
+
+def _decode_source(src: _Source, meta: Optional[_Meta], data: bytes, what: str, alpha: bool):
+    """The info row (the first tile's) and the planes of one image: each
+    frame decoded and scaled to its size, a grid's tiles stitched on its
+    canvas as libavif's avifDecoderDataFillImageGrid does."""
+    frames = []
+    for tile, (_, row, planes) in zip(src.tiles, _frames(src, meta, data, what)):
+        if alpha and not row[7]:
+            # libavif brings limited-range alpha to full range before it
+            # scales the frame
+            planes = [_limited_to_full_alpha(planes[0], int(row[5]))]
+        frames.append((row, _scaled(row, planes, tile[1], tile[2])))
+    row, planes = frames[0]
+    if src.grid is None:
+        return row, planes
+    rows, cols, gw, gh = src.grid
+    tw, th = src.tiles[0][1], src.tiles[0][2]
+    # the tiles must agree (size, depth, layout; range and CICP for colour)
+    fields = (slice(2, 6), slice(6, 10)) if not alpha else (slice(5, 6),)
+    for r, _ in frames[1:]:
+        if any(not np.array_equal(r[f], row[f]) for f in fields):
+            raise Refused(f"{what}: grid tiles that differ (libavif: invalid image grid)")
+    if any((w, h) != (tw, th) for _, w, h in src.tiles):
+        raise Refused(f"{what}: grid tiles of different sizes (libavif: invalid image grid)")
+    if tw * cols < gw or th * rows < gh or tw * (cols - 1) >= gw or th * (rows - 1) >= gh:
+        raise Refused(f"{what}: {rows} x {cols} tiles of {tw} x {th} for a grid of {gw} x {gh} "
+                      "(libavif: invalid image grid)")
+    mono, ssx, ssy = (int(x) for x in row[2:5])
+    if alpha:
+        mono = 1
+    if tw < 64 or th < 64:
+        raise Refused(f"{what}: grid tiles under 64 x 64 (libavif: invalid image grid)")
+    if not mono and ((ssx and (gw % 2 or tw % 2)) or (ssy and (gh % 2 or th % 2))):
+        raise Refused(f"{what}: odd grid or tile size under chroma subsampling (libavif: "
+                      "invalid image grid)")
+    out = [np.empty((gh, gw), planes[0].dtype)]
+    if not mono:
+        out += [np.empty(((gh + ssy) >> ssy, (gw + ssx) >> ssx), planes[0].dtype)
+                for _ in range(2)]
+    for k, (_, tile) in enumerate(frames):
+        x0, y0 = (k % cols) * tw, (k // cols) * th
+        cw, ch = min(tw, gw - x0), min(th, gh - y0)
+        for p, (dst, plane) in enumerate(zip(out, tile)):
+            sx, sy = (ssx, ssy) if p else (0, 0)
+            ph, pw = (ch + sy) >> sy, (cw + sx) >> sx
+            dst[y0 >> sy:(y0 >> sy) + ph, x0 >> sx:(x0 >> sx) + pw] = plane[:ph, :pw]
+    return row, out
+
+
+def _limited_to_full_alpha(a: np.ndarray, depth: int) -> np.ndarray:
+    """libavif's avifLimitedToFullY of a limited-range alpha plane (C's
+    truncating division, then a clamp)."""
+    lo, hi = {8: (16, 235), 10: (64, 940), 12: (256, 3760)}[depth]
+    full = (1 << depth) - 1
+    num = (a.astype(np.int64) - lo) * full + (hi - lo) // 2
+    q = np.abs(num) // (hi - lo) * np.sign(num)
+    return np.clip(q, 0, full).astype(a.dtype)
 
 
 def decode_planes(data: bytes, info: Optional[AvifInfo] = None):
-    """The primary item's AV1 planes and the decoder's info row (see
-    ``citlab_av1_decode``); the alpha item, if any, is decoded and dropped.
-    An item that cannot be read fails as PIL's load fails (after its open)."""
-    info = info or open_avif(data)
-    try:
-        obus = _item_data(info.meta, info.color, data)
-        alpha = None if info.alpha is None else _item_data(info.meta, info.alpha, data)
-    except SyntaxError as e:
-        raise Refused(str(e)) from None
-    out = _decode_av1(obus, "AVIF colour item", info.width, info.height)
-    if alpha is not None:
-        a = info.alpha.prop(b"ispe")
-        _decode_av1(alpha, "AVIF alpha item", a[0], a[1], planes=False)
-    return out
+    """The colour image's planes (scaled, and stitched for a grid) and the
+    decoder's info row (see ``citlab_av1_decode``): (row, y, u, v); the
+    alpha image, if any, is decoded too (so that a damaged one fails as it
+    fails in PIL). An image that cannot be read fails as PIL's load fails
+    (after its open)."""
+    row, planes, _ = _decode_all(data, info or open_avif(data))
+    return (row, *planes) if len(planes) == 3 else (row, planes[0], None, None)
+
+
+def _decode_all(data: bytes, info: AvifInfo):
+    row, planes = _decode_source(info.color_src, info.meta, data, "AVIF colour image", False)
+    alpha = None
+    if info.alpha_src is not None:
+        arow, aplanes = _decode_source(info.alpha_src, info.meta, data, "AVIF alpha image",
+                                       True)
+        alpha = aplanes[0]
+        if alpha.shape != planes[0].shape or int(arow[5]) != int(row[5]):
+            raise Refused("AVIF alpha image of another size or depth than the colour image "
+                          "(libavif: reformat failed)")
+    return row, planes, alpha
 
 
 # ------------------------------------------------------------------ colour
@@ -780,15 +1341,21 @@ def conversion(depth: int, mono: bool, ssx: int, ssy: int, matrix: int, primarie
 
 def yuv_to_rgb(y: np.ndarray, u: Optional[np.ndarray], v: Optional[np.ndarray], ssx: int,
                ssy: int, matrix: int, full: bool, depth: int = 8, primaries: int = 2,
-               alpha: bool = False) -> np.ndarray:
+               alpha: bool = False, premultiplied: Optional[np.ndarray] = None) -> np.ndarray:
     """avifImageYUVToRGB of the planes (uint8 at depth 8, uint16 above) to
     8-bit RGB, as PIL's decoder calls it (AVIF_CHROMA_UPSAMPLING_AUTOMATIC;
-    RGBA where the file has alpha, whose route may differ)."""
+    RGBA where the file has alpha, whose route may differ). With
+    ``premultiplied`` (the alpha plane, at the depth) the colour is divided
+    by it as libavif does for PIL's unpremultiplied RGBA: inside its slow
+    float path (subsampled chroma, the identity matrix but at 8 bits in full
+    range, YCgCo and YCgCo-Re, monochrome under them too), else afterwards
+    by avifRGBImageUnpremultiplyAlpha."""
     h, w = y.shape
     if u is not None:
         # a chroma plane as tall or as wide as luma (a frame 1 pixel high or
         # wide) is not subsampled in that direction, to libavif's routes too
         ssy, ssx = int(u.shape[0] != h) and ssy, int(u.shape[1] != w) and ssx
+    alpha = alpha or premultiplied is not None
     route = conversion(depth, u is None, ssx, ssy, matrix, primaries, full, alpha)
     out = np.empty((h, w, 3), np.uint8)
     planes = [None if p is None else np.ascontiguousarray(p).ctypes.data for p in (y, u, v)]
@@ -797,8 +1364,18 @@ def yuv_to_rgb(y: np.ndarray, u: Optional[np.ndarray], v: Optional[np.ndarray], 
         _lib().citlab_yuv_to_rgb(*planes, w, h, ssx, ssy, depth, route[1], coef.ctypes.data,
                                  out.ctypes.data)
     else:
+        slow = (route[1] in (2, 3) or (route[1] == 1 and (depth != 8 or not full))
+                or (u is not None and (ssx or ssy)) or (u is None and matrix in (8, 16)))
+        inline = premultiplied is not None and slow
+        a = np.ascontiguousarray(premultiplied) if inline else None
         _lib().citlab_yuv_to_rgb_float(*planes, w, h, ssx, ssy, depth, int(full), route[1],
-                                       route[2], route[3], out.ctypes.data)
+                                       route[2], route[3], None if a is None else a.ctypes.data,
+                                       out.ctypes.data)
+        if inline:
+            return out
+    if premultiplied is not None:
+        out = unpremultiply(out, _alpha8(premultiplied, depth, u is None, ssx, ssy, matrix,
+                                         primaries, full))
     return out
 
 
@@ -809,17 +1386,75 @@ def _limited_to_full(p: np.ndarray) -> np.ndarray:
 
 
 def decode(data: bytes, info: Optional[AvifInfo] = None) -> np.ndarray:
-    """PIL's "RGB" pixels of the file (its alpha, if any, dropped); ``info``
-    is the file's :func:`open_avif`, where the caller has it."""
+    """PIL's "RGB" pixels of the file (its alpha, if any, dropped; a
+    premultiplied colour divided by it first, as libavif's
+    avifRGBImageUnpremultiplyAlpha does); ``info`` is the file's
+    :func:`open_avif`, where the caller has it."""
     info = info or open_avif(data)
-    row, y, u, v = decode_planes(data, info)
-    w, h, mono, ssx, ssy, depth = (int(x) for x in row[:6])
-    if y is None:
-        raise Refused(f"AVIF frame of {w} x {h} in an item whose ispe says {info.width} x "
-                      f"{info.height} (libavif rescales it; {PART3})")
+    if info.timescale == 0:
+        raise Refused("AVIF track of timescale 0 (PIL divides the frame's timestamp by it)")
+    row, planes, alpha = _decode_all(data, info)
+    h, w = planes[0].shape
+    depth, ssx, ssy = int(row[5]), int(row[3]), int(row[4])
     matrix, primaries, full = cicp(info, row)
-    return yuv_to_rgb(y, u, v, ssx, ssy, matrix, full, depth, primaries,
-                      info.alpha is not None)
+    u, v = (planes[1], planes[2]) if len(planes) == 3 else (None, None)
+    rgb = yuv_to_rgb(planes[0], u, v, ssx, ssy, matrix, full, depth, primaries,
+                     alpha is not None, alpha if info.premultiplied else None)
+    if (w, h) != (info.width, info.height):
+        # a grid whose output is not its ispe: PIL reads the first rows of
+        # the RGB(A) buffer at the size it reported
+        ch = 4 if alpha is not None else 3
+        buf = rgb
+        if alpha is not None:
+            buf = np.dstack([rgb, _alpha8(alpha, depth, u is None, ssx, ssy, matrix, primaries,
+                                          full)])
+        flat = buf.reshape(-1)
+        need = info.width * info.height * ch
+        if flat.size < need:
+            raise Refused(f"AVIF grid output {w} x {h} smaller than its ispe {info.width} x "
+                          f"{info.height} (PIL: not enough image data)")
+        rgb = np.ascontiguousarray(flat[:need].reshape(info.height, info.width, ch)[..., :3])
+    return rgb
+
+
+def _alpha8(alpha: np.ndarray, depth: int, mono: bool, ssx: int, ssy: int, matrix: int,
+            primaries: int, full: bool) -> np.ndarray:
+    """The 8-bit alpha avifImageYUVToRGB writes to PIL's RGBA: libyuv's
+    shift where libyuv converts the colour with its alpha, else libavif's
+    float rescale (avifReformatAlpha)."""
+    if depth == 8:
+        return alpha
+    route = conversion(depth, mono, ssx, ssy, matrix, primaries, full, True)
+    if route[0] == "libyuv" and route[1] != 2 and not mono:
+        return (alpha >> (depth - 8)).astype(np.uint8)
+    f = alpha.astype(np.float32) / np.float32((1 << depth) - 1)
+    return np.clip((np.float32(0.5) + f * np.float32(255)).astype(np.int32), 0,
+                   255).astype(np.uint8)
+
+
+def _unattenuate_table() -> np.ndarray:
+    """libyuv's ARGBUnattenuate as libavif runs it on x86 (value, alpha) ->
+    value: the 8.8 reciprocal table fixed_invtbl8, the value widened to 16
+    bits (v * 257) and the high half of the product, clamped to 255; the
+    SIMD row turns alpha 1 over values of 128 and more into 0."""
+    v, a = np.meshgrid(np.arange(256), np.arange(256), indexing="ij")
+    inv = np.where(a == 0, 0, np.where(a == 1, 0xFFFF, np.where(
+        a == 255, 0x100, 0x10000 // np.maximum(a, 1))))
+    out = np.minimum(255, (v * 257 * inv) >> 16)
+    out[128:, 1] = 0
+    return out.astype(np.uint8)
+
+
+_UNATTENUATE = None
+
+
+def unpremultiply(rgb: np.ndarray, alpha: np.ndarray) -> np.ndarray:
+    """avifRGBImageUnpremultiplyAlpha of 8-bit RGBA (libyuv's
+    ARGBUnattenuate): each colour channel divided by the alpha."""
+    global _UNATTENUATE
+    if _UNATTENUATE is None:
+        _UNATTENUATE = _unattenuate_table()
+    return _UNATTENUATE[rgb, alpha[..., None]]
 
 
 def cicp(info: AvifInfo, row: np.ndarray) -> Tuple[int, int, bool]:

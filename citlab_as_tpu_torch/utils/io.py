@@ -49,13 +49,13 @@ bit to ``np.asarray(Image.open(path).convert(mode))`` under PIL 12.1:
   FITS, FLI / FLC and IPTC (``utils/registry_formats.py``, FLI's chunks in
   ``csrc/raster_decode.cpp``);
 - AVIF as PIL reads it through libavif, dav1d and libyuv: the HEIF
-  container, an AV1 intra frame with palette, IntraBC, filter intra, CfL,
-  quantizer matrices, deblocking, CDEF, loop restoration and superres,
-  8-, 10- and 12-bit 4:0:0 / 4:2:0 / 4:2:2 / 4:4:4, and libavif's YUV ->
-  RGB through libyuv or its own float code (``utils/avif.py``, host C++
-  ``csrc/av1_decode.cpp``); film grain, ``grid`` items, ``avis``
-  sequences, premultiplied alpha and a frame libavif rescales to its
-  ``ispe`` are refused by name (part 3).
+  container with ``grid`` items and ``avis`` tracks (the first frame), an
+  AV1 intra frame with palette, IntraBC, filter intra, CfL, quantizer
+  matrices, deblocking, CDEF, loop restoration, superres and film grain,
+  8-, 10- and 12-bit 4:0:0 / 4:2:0 / 4:2:2 / 4:4:4, libavif's rescale of a
+  frame to its ``ispe``, premultiplied alpha, and libavif's YUV -> RGB
+  through libyuv or its own float code (``utils/avif.py``, host C++
+  ``csrc/av1_decode.cpp``).
 
 Every file's format is the one ``Image.open`` finds: its plugin order and
 the exceptions it catches (``raster_formats.identify``), so a header that

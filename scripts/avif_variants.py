@@ -18,21 +18,23 @@ output.
   streams PIL wrote, their sequence header rewritten: PIL's aom has no
   high bit depth), superres (a half-width encode, its headers rewritten)
   and the matrices libavif converts in floating point.
-- ``AVIF_REFUSED``: files whose decoding needs a tool of part 3 (film
-  grain, a ``grid`` item, an ``avis`` sequence, premultiplied alpha):
-  ``(bytes, the word the port's refusal names)``.
+  Since part 3 also film grain (aom's test vectors, its denoiser, every
+  depth and layout, odd sizes), ``grid`` items (cropped edges, an alpha
+  grid; ``grid_bytes``), ``avis`` sequences (``sequence_bytes``, an alpha
+  track, a rewritten tkhd size), premultiplied and limited-range alpha,
+  and ``ispe`` sizes libavif rescales the frame to (``ispe_bytes``).
 - ``AVIF_FAULTS``: container faults PIL refuses (a brand, a missing or
   malformed box, an extent past the file's end, a truncated file, the
   identity matrix over subsampled chroma);
   ``huge_frame_bytes``: a frame past dav1d's size limit.
-- ``avif_pages``: the full-size pages of ``chip_smoke.py``'s variants
+- ``avif_pages``: the nine full-size pages of ``chip_smoke.py``'s variants
   phase (``tests/data/torch_formats_avif/``).
 """
 from __future__ import annotations
 
 import io
 import struct
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, Optional
 
 import numpy as np
 from PIL import Image, ImageDraw
@@ -202,7 +204,7 @@ def _variants() -> Dict[str, Callable[[], bytes]]:
     ph = lambda seed=4: photo_rgb(*PHOTO, seed=seed)  # noqa: E731
     v: Dict[str, Callable[[], bytes]] = {}
     # speed 0 turns on loop restoration for the page, speeds 0-4 for the
-    # photo (AVIF_REFUSED)
+    # photo (part 2's variants)
     for speed in range(1, 11):
         v[f"page-speed{speed}"] = lambda s=speed: avif_bytes(pg(), speed=s)
     for speed in range(5, 11):
@@ -280,6 +282,7 @@ def _variants() -> Dict[str, Callable[[], bytes]]:
     v["alpha-400-limited"] = lambda: avif_bytes(_rgba(ph()), subsampling="4:0:0",
                                                 range="limited")
     v.update(_part2_variants())
+    v.update(_part3_variants())
     return v
 
 
@@ -355,6 +358,243 @@ def _part2_variants() -> Dict[str, Callable[[], bytes]]:
     return v
 
 
+def noisy_photo(w: int, h: int, seed: int = 0, sigma: float = 12.0) -> np.ndarray:
+    """The photo with seeded sensor noise (per pixel, the same in R, G, B),
+    for aom's denoiser to take out and describe as film grain."""
+    noise = np.random.default_rng(seed).normal(0, sigma, (h, w, 1))
+    return (photo_rgb(w, h, seed=seed).astype(np.float64) + noise).clip(0, 255).astype(np.uint8)
+
+
+def _part3_variants() -> Dict[str, Callable[[], bytes]]:
+    """The files of the decoder's part 3: film grain (aom's film-grain-test
+    vectors 1-16, its denoiser, at 10 and 12 bits, in every layout, at odd
+    sizes), grid items (cropped edges, 4:2:0 and 4:4:4, an alpha grid),
+    avis sequences (with and without an alpha track, a frame libavif
+    rescales to tkhd), premultiplied alpha (limited-range alpha too) and
+    frames libavif rescales to their item's ispe."""
+    ph = lambda seed=4: photo_rgb(*PHOTO, seed=seed)   # noqa: E731
+    pg = lambda seed=3: page_rgb(*PAGE, seed=seed)     # noqa: E731
+    v: Dict[str, Callable[[], bytes]] = {}
+    # PIL decodes what part 2 refused: film grain, a grid, a sequence,
+    # premultiplied alpha
+    v["film-grain"] = lambda: avif_bytes(ph(), advanced={"film-grain-test": "1"})
+    v["grid"] = lambda: grid_bytes(page_rgb(128, 64, seed=8), 1, 2, 64, 64)
+    v["avis"] = lambda: sequence_bytes([page_rgb(64, 48, seed=s) for s in (1, 2)])
+    v["premultiplied"] = lambda: avif_bytes(_rgba(pg()), alpha_premultiplied=True)
+    for t in range(2, 17):
+        v[f"grain-test{t}"] = lambda t=t: avif_bytes(ph(), advanced={"film-grain-test": str(t)})
+    for level in (10, 40):
+        v[f"grain-denoise{level}"] = lambda lv=level: avif_bytes(
+            noisy_photo(160, 120, seed=lv), quality=50, advanced={"denoise-noise-level": str(lv)})
+    v["grain-depth10"] = lambda: depth_bytes(ph(), 10, advanced={"film-grain-test": "1"})
+    v["grain-depth12-444"] = lambda: depth_bytes(ph(), 12, subsampling="4:4:4",
+                                                 advanced={"film-grain-test": "10"})
+    v["grain-depth10-limited"] = lambda: depth_bytes(ph(), 10, range="limited",
+                                                     advanced={"film-grain-test": "16"})
+    for ss, t in (("4:0:0", 2), ("4:2:2", 3), ("4:4:4", 6)):
+        v[f"grain-{ss.replace(':', '')}"] = lambda ss=ss, t=t: avif_bytes(
+            ph(), subsampling=ss, advanced={"film-grain-test": str(t)})
+    for (w, h), t in (((67, 45), 8), ((33, 17), 11), ((131, 71), 12)):
+        v[f"grain-{w}x{h}"] = lambda w=w, h=h, t=t: avif_bytes(
+            photo_rgb(w, h, seed=w), advanced={"film-grain-test": str(t)})
+    v["grain-clip"] = lambda: grain_bytes(avif_bytes(ph(), advanced={"film-grain-test": "3"}),
+                                          clip=1)
+    v["grain-clip-cfl-444"] = lambda: grain_bytes(avif_bytes(
+        ph(), subsampling="4:4:4", advanced={"film-grain-test": "15"}), clip=1)
+    for lag in (0, 1):
+        v[f"grain-lag{lag}"] = lambda lag=lag: grain_bytes(avif_bytes(
+            ph(), advanced={"film-grain-test": "2"}), lag=lag)
+    v["grain-lag1-422-clip"] = lambda: grain_bytes(avif_bytes(
+        ph(), subsampling="4:2:2", advanced={"film-grain-test": "16"}), lag=1, clip=1)
+    v["grain-alpha"] = lambda: avif_bytes(_rgba(ph()), advanced={"film-grain-test": "5"})
+    # grids: rows x columns of 64 x 64 tiles (libavif's least), the last
+    # row and column cropped
+    v["grid-1x2"] = lambda: grid_bytes(page_rgb(120, 64, seed=8), 1, 2, 64, 64)
+    v["grid-2x2-444"] = lambda: grid_bytes(photo_rgb(100, 120, seed=9), 2, 2, 64, 64,
+                                           subsampling="4:4:4")
+    v["grid-3x2"] = lambda: grid_bytes(page_rgb(110, 180, seed=10), 3, 2, 64, 64)
+    v["grid-2x3-400"] = lambda: grid_bytes(photo_rgb(150, 99, seed=11), 2, 3, 64, 64,
+                                           subsampling="4:0:0")
+    v["grid-2x2-alpha"] = lambda: grid_bytes(_rgba(page_rgb(126, 100, seed=12)), 2, 2, 64, 64)
+    v["grid-2x2-444-alpha-premultiplied"] = lambda: grid_bytes(
+        _rgba(photo_rgb(90, 110, seed=13)), 2, 2, 64, 64, subsampling="4:4:4",
+        premultiplied=True)
+    v["grid-2x2-alpha-per-tile"] = lambda: grid_bytes(_rgba(photo_rgb(100, 80, seed=15)), 2, 2,
+                                                      64, 64, alpha_per_tile=True)
+    v["grid-grain"] = lambda: grid_bytes(photo_rgb(128, 100, seed=14), 2, 2, 64, 64,
+                                         advanced={"film-grain-test": "4"})
+    # sequences
+    v["sequence"] = lambda: sequence_bytes([pg(1), pg(2)])
+    v["sequence-alpha"] = lambda: sequence_bytes([_rgba(ph(1)), _rgba(ph(2))])
+    v["sequence-444-three"] = lambda: sequence_bytes([ph(1), ph(2), ph(3)], subsampling="4:4:4")
+    # an auxiliary track whose auxi names depth, not alpha: no alpha
+    v["sequence-auxi-not-alpha"] = lambda: sequence_bytes([_rgba(ph(1)), _rgba(ph(2))]).replace(
+        b"auxiliary:alpha", b"auxiliary:depth")
+    v["sequence-tkhd-rescaled"] = lambda: tkhd_bytes(sequence_bytes([ph(1), ph(2)]), 120, 90)
+    v["sequence-grain"] = lambda: sequence_bytes([ph(1), ph(2)],
+                                                 advanced={"film-grain-test": "7"})
+    # premultiplied alpha
+    v["premultiplied-444"] = lambda: avif_bytes(_rgba(ph()), subsampling="4:4:4",
+                                                alpha_premultiplied=True)
+    v["premultiplied-low-alpha"] = lambda: avif_bytes(_low_alpha(ph()), alpha_premultiplied=True)
+    v["premultiplied-limited-alpha"] = lambda: limited_alpha_bytes(
+        avif_bytes(_low_alpha(ph()), alpha_premultiplied=True))
+    v["alpha-limited"] = lambda: limited_alpha_bytes(avif_bytes(_rgba(ph())))
+    # ispe rewritten larger and smaller than the frame
+    for ss in ("4:0:0", "4:2:0", "4:2:2", "4:4:4"):
+        tag = ss.replace(":", "")
+        v[f"ispe-larger-{tag}"] = lambda ss=ss: ispe_bytes(
+            avif_bytes(ph(), subsampling=ss), 131, 101)
+        v[f"ispe-smaller-{tag}"] = lambda ss=ss: ispe_bytes(
+            avif_bytes(ph(), subsampling=ss), 61, 47)
+    v["ispe-double-420"] = lambda: ispe_bytes(avif_bytes(ph()), 192, 144)
+    v["ispe-quarter-444"] = lambda: ispe_bytes(avif_bytes(ph(), subsampling="4:4:4"), 24, 18)
+    v["ispe-three-quarters"] = lambda: ispe_bytes(avif_bytes(photo_rgb(128, 96, seed=5)), 96, 72)
+    v["ispe-three-eighths"] = lambda: ispe_bytes(avif_bytes(photo_rgb(128, 96, seed=5)), 48, 36)
+    v["ispe-depth10-larger"] = lambda: ispe_bytes(depth_bytes(ph(), 10), 120, 90)
+    v["ispe-depth10-smaller-444"] = lambda: ispe_bytes(depth_bytes(ph(), 10, subsampling="4:4:4"),
+                                                       50, 30)
+    v["ispe-premultiplied-limited-alpha"] = lambda: ispe_bytes(limited_alpha_bytes(avif_bytes(
+        _low_alpha(ph()), alpha_premultiplied=True)), 61, 47, every=True)
+    v["ispe-alpha"] = lambda: ispe_bytes(avif_bytes(_rgba(ph())), 80, 60, every=True)
+    return v
+
+
+def grain_bytes(data: bytes, lag: Optional[int] = None, clip: Optional[int] = None) -> bytes:
+    """A still image PIL wrote with film grain (a film-grain-test vector)
+    whose film_grain_params() are read, changed (``lag``: ar_coeff_lag, the
+    AR coefficients cut or padded with zeros to its count; ``clip``:
+    clip_to_restricted_range) and written again, the frame's tile data
+    after them, from the next byte."""
+    seq = _seq_payload(_to_bits(next(b for _, k, b in _obus(_mdat_payload(data)) if k == 1)))
+    f = _seq_fields(seq)
+    w, h = (int(seq[18:18 + f["wb"]], 2) + 1, int(seq[18 + f["wb"]:f["tools"]], 2) + 1)
+    profile = int(seq[:3], 2)
+    mono = profile != 1 and seq[f["high_bitdepth"] + 1] == "1"
+    ss420 = profile == 0 and not mono
+
+    def edit(kind, body):
+        if kind != 6:
+            return body
+        bits = _to_bits(body)
+        start = pos = _intra_header_bits(bits, seq, w, h)
+
+        def read(n):
+            nonlocal pos
+            pos += n
+            return bits[pos - n:pos]
+        assert read(1) == "1", "no film grain"              # apply_grain
+        head = read(16)                                      # grain_seed
+        ny = read(4)
+        head += ny + read(16 * int(ny, 2))
+        cfl = "" if mono else read(1)
+        head += cfl
+        nuv = [0, 0]
+        if not (mono or cfl == "1" or (ss420 and int(ny, 2) == 0)):
+            for pl in range(2):
+                n = read(4)
+                nuv[pl] = int(n, 2)
+                head += n + read(16 * nuv[pl])
+        head += read(2)                                      # grain_scaling_minus_8
+        old_lag = int(read(2), 2)
+        new_lag = old_lag if lag is None else lag
+        counts = []
+        if int(ny, 2):
+            counts.append(2 * old_lag * (old_lag + 1))
+        for pl in range(2):
+            if nuv[pl] or cfl == "1":
+                counts.append(2 * old_lag * (old_lag + 1) + (1 if int(ny, 2) else 0))
+        coeffs = [read(8 * n) for n in counts]
+        npos = 2 * new_lag * (new_lag + 1)
+        luma = bool(int(ny, 2))
+        out_coeffs = []
+        for k, c in enumerate(coeffs):
+            vals = [c[i:i + 8] for i in range(0, len(c), 8)]
+            # a chroma set ends with its luma term, which it keeps
+            last = vals[-1:] if luma and k > 0 else []
+            out_coeffs.append("".join((vals[:len(vals) - len(last)] + ["10000000"] * npos)[:npos]
+                                      + last))
+        tail = read(4)                                       # ar_coeff_shift, grain_scale_shift
+        for pl in range(2):
+            if nuv[pl]:
+                tail += read(25)
+        tail += read(1)                                      # overlap_flag
+        old_clip = read(1)
+        new = ("1" + head + f"{new_lag:02b}" + "".join(out_coeffs) + tail
+               + (old_clip if clip is None else str(clip)))
+        header = bits[:start] + new
+        header += "0" * (-len(header) % 8)
+        return _to_bytes(header) + body[(pos + 7) // 8:]
+    return _edit_obus(data, edit)
+
+
+def _low_alpha(arr: np.ndarray) -> np.ndarray:
+    """An alpha from 0 to 255 across the image (every value, 0 and 255
+    included), the colour premultiplied by it as a compositor stores it."""
+    h, w = arr.shape[:2]
+    alpha = (np.arange(w)[None, :] * 255 // max(w - 1, 1) + np.zeros((h, 1), int)).astype(np.uint8)
+    alpha[: h // 4] = 255
+    alpha[h // 4: h // 3] = 0
+    rgb = (arr.astype(np.int32) * alpha[..., None] + 127) // 255
+    return np.dstack([rgb.astype(np.uint8), alpha])
+
+
+def ispe_bytes(data: bytes, w: int, h: int, every: bool = False) -> bytes:
+    """The file with its (first, or ``every``) ispe property saying w x h:
+    libavif rescales the frame to it."""
+    out = bytearray(data)
+    at = out.find(b"ispe")
+    while at >= 0:
+        struct.pack_into(">II", out, at + 8, w, h)
+        at = out.find(b"ispe", at + 4) if every else -1
+    return bytes(out)
+
+
+def tkhd_bytes(data: bytes, w: int, h: int) -> bytes:
+    """A sequence with its colour track's tkhd size (16.16) set to w x h:
+    libavif rescales the track's frames to it."""
+    out = bytearray(data)
+    i = out.find(b"tkhd") + 4
+    version = out[i]
+    at = i + 4 + (32 if version else 20) + 52
+    struct.pack_into(">II", out, at, w << 16, h << 16)
+    return bytes(out)
+
+
+def limited_alpha_bytes(data: bytes) -> bytes:
+    """A file PIL wrote with alpha whose alpha item's sequence header says
+    limited range (one bit flipped in place): libavif brings such alpha to
+    full range."""
+    from citlab_as_tpu_torch.utils import avif
+    info = avif.open_avif(data)
+    off, length = info.alpha.extents[0]
+    out = bytearray(data)
+    obus = _obus(bytes(out[off:off + length]))
+    pos = off
+    for hdr, kind, body in obus:
+        head = 1 + len(_leb128(len(body)))
+        if kind == 1:
+            bits = _to_bits(body)
+            at = _seq_fields(bits)["high_bitdepth"] + 1
+            mono = bits[at] == "1"
+            assert mono, "an alpha item is monochrome"
+            desc = bits[at + 1] == "1"
+            rng_at = at + 2 + (24 if desc else 0)
+            bits = bits[:rng_at] + "0" + bits[rng_at + 1:]
+            out[pos + head:pos + head + len(body)] = _to_bytes(bits)
+        pos += head + len(body)
+    return bytes(out)
+
+
+def sequence_bytes(frames, **save) -> bytes:
+    """PIL's save_all of the frames: an avis image sequence (an alpha
+    track where the frames have alpha)."""
+    buf = io.BytesIO()
+    ims = [Image.fromarray(f) for f in frames]
+    ims[0].save(buf, "AVIF", save_all=True, append_images=ims[1:], duration=100, **save)
+    return buf.getvalue()
+
+
 def avif_small_variants():
     """(file name, write(path)) of every small fixture."""
     def writer(fn):
@@ -391,43 +631,120 @@ def _mdat_payload(data: bytes) -> bytes:
     return data[i + 8:i + size]
 
 
-def grid_bytes() -> bytes:
-    """A 2 x 1 ``grid`` item over two 64 x 64 AV1 tiles that PIL wrote (PIL
-    decodes it; its output is 128 x 64)."""
-    a = page_rgb(128, 64, seed=8)
-    tiles = [avif_bytes(np.ascontiguousarray(a[:, :64])), avif_bytes(np.ascontiguousarray(
-        a[:, 64:]))]
-    props = _props(tiles[0])
-    payloads = [_mdat_payload(t) for t in tiles]
-    grid = struct.pack(">BBBBHH", 0, 0, 0, 1, 128, 64)   # 1 row, 2 columns, 16-bit size
-    ispe_full = _full(b"ispe", 0, 0, struct.pack(">II", 128, 64))
-    ipco = _box(b"ipco", props[b"ispe"] + props[b"pixi"] + props[b"av1C"] + props[b"colr"]
-                + ispe_full)
-    # items: 1 grid (ispe 5, colr 4), 2 and 3 tiles (ispe 1, pixi 2, av1C 3 essential)
-    ipma = _full(b"ipma", 0, 0, struct.pack(">I", 3)
-                 + struct.pack(">HB", 1, 2) + bytes([5, 4])
-                 + struct.pack(">HB", 2, 3) + bytes([1, 2, 0x83])
-                 + struct.pack(">HB", 3, 3) + bytes([1, 2, 0x83]))
-    iinf = _full(b"iinf", 0, 0, struct.pack(">H", 3) + b"".join(
-        _full(b"infe", 2, 0, struct.pack(">HH", i, 0) + kind + b"\0")
-        for i, kind in ((1, b"grid"), (2, b"av01"), (3, b"av01"))))
-    iref = _full(b"iref", 0, 0, _box(b"dimg", struct.pack(">HHHH", 1, 2, 2, 3)))
+def _items(data: bytes):
+    """(properties, payload) of each AV1 item of a file PIL wrote, in the
+    order of its iinf: the colour item, then the alpha item."""
+    from citlab_as_tpu_torch.utils import avif
+    meta = avif._parse_file(data)[0]
+    out = []
+    for item_id in meta.order:
+        item = meta.items[item_id]
+        if item.type != b"av01":
+            continue
+        out.append((item, avif._item_data(meta, item, data)))
+    return out
+
+
+def _prop_boxes(data: bytes, item) -> Dict[bytes, bytes]:
+    """The whole property boxes of ``item`` (a file PIL wrote), by type."""
+    meta = _box_path(data, [b"meta"])
+    iprp = _box_path(data, [b"iprp"], meta[0] + 4, meta[1])
+    ipco = _box_path(data, [b"ipco"], *iprp)
+    ipma = _box_path(data, [b"ipma"], *iprp)
+    boxes, pos = [], ipco[0]
+    while pos < ipco[1]:
+        size = struct.unpack_from(">I", data, pos)[0]
+        boxes.append(data[pos:pos + size])
+        pos += size
+    p = ipma[0] + 8
+    out = {}
+    for _ in range(struct.unpack_from(">I", data, ipma[0] + 4)[0]):
+        item_id, n = struct.unpack_from(">HB", data, p)
+        idx = data[p + 3:p + 3 + n]
+        if item_id == item.id:
+            for i in idx:
+                box = boxes[(i & 0x7F) - 1]
+                out[box[4:8]] = box
+        p += 3 + n
+    return out
+
+
+def grid_bytes(arr: np.ndarray, rows: int, cols: int, tile_w: int, tile_h: int,
+               premultiplied: bool = False, alpha_per_tile: bool = False, **save) -> bytes:
+    """``arr`` (h x w x 3 or 4) as a ``grid`` item of rows x cols tiles of
+    tile_w x tile_h, each tile written by PIL (``save`` passed on), the
+    last row and column cropped to the image (its edge pixels repeated in
+    the tile); with alpha, an alpha grid of the tiles' alpha items, the
+    colour marked premultiplied by it where asked (``alpha_per_tile``: no
+    alpha grid item, each alpha item auxiliary to its colour tile)."""
+    h, w = arr.shape[:2]
+    padded = np.pad(arr, ((0, rows * tile_h - h), (0, cols * tile_w - w), (0, 0)), mode="edge")
+    tiles = [avif_bytes(np.ascontiguousarray(
+        padded[r * tile_h:(r + 1) * tile_h, c * tile_w:(c + 1) * tile_w]),
+        alpha_premultiplied=premultiplied, **save) for r in range(rows) for c in range(cols)]
+    items = [_items(t) for t in tiles]
+    n = rows * cols
+    alpha = arr.shape[2] == 4
+    color_props = _prop_boxes(tiles[0], items[0][0][0])
+    grid_payload = struct.pack(">BBBBHH", 0, 0, rows - 1, cols - 1, w, h)
+    ispe_grid = _full(b"ispe", 0, 0, struct.pack(">II", w, h))
+    boxes = [color_props[b"ispe"], color_props[b"pixi"], color_props[b"av1C"],
+             color_props[b"colr"], ispe_grid]
+    ipma = [(1, [5, 4])] + [(2 + k, [1, 2, 0x83]) for k in range(n)]
+    infe = [(1, b"grid")] + [(2 + k, b"av01") for k in range(n)]
+    refs = [_box(b"dimg", struct.pack(">HH", 1, n) + b"".join(
+        struct.pack(">H", 2 + k) for k in range(n)))]
+    payloads = [grid_payload] + [it[0][1] for it in items]
+    idat = [True] + [False] * n
+    if alpha:
+        alpha_props = _prop_boxes(tiles[0], items[0][1][0])
+        boxes += [alpha_props[b"pixi"], alpha_props[b"av1C"], alpha_props[b"auxC"]]
+        ga = 2 + n
+        if alpha_per_tile:
+            ipma += [(ga + 1 + k, [1, 6, 0x87, 8]) for k in range(n)]
+            infe += [(ga + 1 + k, b"av01") for k in range(n)]
+            refs += [_box(b"auxl", struct.pack(">HHH", ga + 1 + k, 1, 2 + k)) for k in range(n)]
+            payloads += [it[1][1] for it in items]
+            idat += [False] * n
+        else:
+            ipma += [(ga, [5, 8])] + [(ga + 1 + k, [1, 6, 0x87]) for k in range(n)]
+            infe += [(ga, b"grid")] + [(ga + 1 + k, b"av01") for k in range(n)]
+            refs += [_box(b"auxl", struct.pack(">HHH", ga, 1, 1)),
+                     _box(b"dimg", struct.pack(">HH", ga, n) + b"".join(
+                         struct.pack(">H", ga + 1 + k) for k in range(n)))]
+            if premultiplied:
+                refs.append(_box(b"prem", struct.pack(">HHH", 1, 1, ga)))
+            payloads += [grid_payload] + [it[1][1] for it in items]
+            idat += [True] + [False] * n
+    ipco = _box(b"ipco", b"".join(boxes))
+    ipma_box = _full(b"ipma", 0, 0, struct.pack(">I", len(ipma)) + b"".join(
+        struct.pack(">HB", i, len(ix)) + bytes(ix) for i, ix in ipma))
+    iinf = _full(b"iinf", 0, 0, struct.pack(">H", len(infe)) + b"".join(
+        _full(b"infe", 2, 0, struct.pack(">HH", i, 0) + kind + b"\0") for i, kind in infe))
+    iref = _full(b"iref", 0, 0, b"".join(refs))
     hdlr = _full(b"hdlr", 0, 0, bytes(4) + b"pict" + bytes(12) + b"\0")
     pitm = _full(b"pitm", 0, 0, struct.pack(">H", 1))
-    idat = _box(b"idat", grid)
+    idat_bytes = b"".join(p for p, i in zip(payloads, idat) if i)
     ftyp = _box(b"ftyp", b"avif" + bytes(4) + b"avifmif1miaf")
 
-    def meta(offsets):
-        iloc = _full(b"iloc", 1, 0, bytes([0x44, 0x00]) + struct.pack(">H", 3)
-                     + struct.pack(">HHHH", 1, 1, 0, 1) + struct.pack(">II", 0, len(grid))
-                     + b"".join(struct.pack(">HHHH", i + 2, 0, 0, 1)
-                                + struct.pack(">II", off, len(p))
-                                for i, (off, p) in enumerate(zip(offsets, payloads))))
+    def meta(mdat_start):
+        entries, idat_off, mdat_off = [], 0, mdat_start
+        for (item_id, _), p, in_idat in zip(infe, payloads, idat):
+            if in_idat:
+                entries.append(struct.pack(">HHHH", item_id, 1, 0, 1)
+                               + struct.pack(">II", idat_off, len(p)))
+                idat_off += len(p)
+            else:
+                entries.append(struct.pack(">HHHH", item_id, 0, 0, 1)
+                               + struct.pack(">II", mdat_off, len(p)))
+                mdat_off += len(p)
+        iloc = _full(b"iloc", 1, 0, bytes([0x44, 0x00]) + struct.pack(">H", len(entries))
+                     + b"".join(entries))
         return _full(b"meta", 0, 0, hdlr + pitm + iloc + iinf + iref
-                     + _box(b"iprp", ipco + ipma) + idat)
-    head = len(ftyp) + len(meta([0, 0])) + 8
-    offsets = [head, head + len(payloads[0])]
-    return ftyp + meta(offsets) + _box(b"mdat", b"".join(payloads))
+                     + _box(b"iprp", ipco + ipma_box) + _box(b"idat", idat_bytes))
+    head = len(ftyp) + len(meta(0)) + 8
+    media = b"".join(p for p, i in zip(payloads, idat) if not i)
+    return ftyp + meta(head) + _box(b"mdat", media)
 
 
 # ---------------------------------------------------------------- OBU edits
@@ -705,19 +1022,6 @@ def superres_bytes(full: Optional[np.ndarray] = None, **save) -> bytes:
     return _edit_obus(data[:i] + struct.pack(">II", 2 * w, h) + data[i + 8:], edit)
 
 
-def _refused() -> Dict[str, Tuple[Callable[[], bytes], str]]:
-    pg = lambda: page_rgb(*PAGE, seed=3)      # noqa: E731
-    ph = lambda: photo_rgb(*PHOTO, seed=4)    # noqa: E731
-    return {
-        "film-grain": (lambda: avif_bytes(ph(), advanced={"film-grain-test": "1"}),
-                       "film grain"),
-        "grid": (grid_bytes, "grid"),
-        "avis": (lambda: _sequence(), "avis"),
-        "premultiplied": (lambda: avif_bytes(_rgba(pg()), alpha_premultiplied=True),
-                          "premultiplied"),
-    }
-
-
 def _box_path(data: bytes, path, off: int = 0, end=None):
     """(payload start, end) of the box at ``path`` (plain boxes only)."""
     end = len(data) if end is None else end
@@ -748,15 +1052,7 @@ def sequence_key_frame(arr: np.ndarray, **save) -> bytes:
     return data[offset:offset + size]
 
 
-def _sequence() -> bytes:
-    frames = [Image.fromarray(page_rgb(64, 48, seed=s)) for s in (1, 2)]
-    buf = io.BytesIO()
-    frames[0].save(buf, "AVIF", save_all=True, append_images=frames[1:], duration=100)
-    return buf.getvalue()
-
-
 AVIF_VARIANTS = _variants()
-AVIF_REFUSED = _refused()
 
 
 # ------------------------------------------------------------------ faults
@@ -809,15 +1105,24 @@ AVIF_FAULTS = _faults()
 # ------------------------------------------------------------------ pages
 
 def avif_pages(pages, tint):
-    """The five full-size AVIF pages of the variants phase: (name, bytes).
-    The generator's pages cleaned of their scan noise (ink and paper at two
-    levels, as a born-digital page) and tinted: at PIL's defaults (palette
-    and IntraBC), at speed 8 (palette, no IntraBC), and as a scanned copy
-    (blurred twice, with uneven paper shading: no screen content, so the
-    frame is deblocked) at quality 50; the scanned copy again at speed 4
-    with CDEF on (loop restoration and CDEF over the whole page), and coded
-    at half its width with a superres denominator of 16 (upscaled to the
-    full width)."""
+    """The nine full-size AVIF pages of the variants phase: (name, bytes,
+    index of the generator's page it shows). The generator's pages cleaned
+    of their scan noise (ink and paper at two levels, as a born-digital
+    page) and tinted: at PIL's defaults (palette and IntraBC), at speed 8
+    (palette, no IntraBC), and as a scanned copy (blurred twice, with
+    uneven paper shading: no screen content, so the frame is deblocked) at
+    quality 50; the scanned copy again at speed 4 with CDEF on (loop
+    restoration and CDEF over the whole page), and coded at half its width
+    with a superres denominator of 16 (upscaled to the full width). Then
+    part 3's: the scanned copy with seeded sensor noise, coded at quality 50
+    with aom's denoiser, which sends the noise as film grain (luma and
+    chroma points, an AR lag of 3, overlapped blocks); the scanned copy as a
+    4 x 3 grid of 512 x 512 tiles at quality 50 (the last column and row
+    cropped to 2000 x 1420); PIL's save_all of the defaults page followed by
+    the speed-8 page (an avis sequence: its first frame is the page); and
+    the speed-8 page with alpha (opaque, a band of falling alpha over its
+    right third), its colour premultiplied by the alpha as a compositor
+    stores it."""
     clean = [tint(np.where(p < 128, 40, 248).astype(np.uint8)) for p in pages[:3]]
     scan = clean[2].astype(np.float32)
     for _ in range(2):
@@ -827,9 +1132,21 @@ def avif_pages(pages, tint):
     yy, xx = np.mgrid[0:h, 0:w]
     scan += (10 * np.sin(xx / 170.0) * np.cos(yy / 230.0) - 8 * (yy / h))[..., None]
     scan = scan.clip(0, 255).astype(np.uint8)
-    return [("defaults.avif", avif_bytes(clean[0])),
-            ("speed8.avif", avif_bytes(clean[1], speed=8)),
-            ("scan.avif", avif_bytes(scan, quality=50)),
+    noise = np.random.default_rng(21).normal(0, 10, (h, w, 1))
+    noisy = (scan.astype(np.float64) + noise).clip(0, 255).astype(np.uint8)
+    alpha = np.full((h, w), 255, np.uint8)
+    band = np.arange(w - 2 * w // 3)
+    alpha[:, 2 * w // 3:] = (255 - band * 127 // max(len(band) - 1, 1)).astype(np.uint8)
+    premultiplied = (clean[1].astype(np.int32) * alpha[..., None] + 127) // 255
+    return [("defaults.avif", avif_bytes(clean[0]), 0),
+            ("speed8.avif", avif_bytes(clean[1], speed=8), 1),
+            ("scan.avif", avif_bytes(scan, quality=50), 2),
             ("restored.avif", avif_bytes(scan, quality=50, speed=4,
-                                         advanced={"enable-cdef": "1"})),
-            ("superres.avif", superres_bytes(scan, quality=50))]
+                                         advanced={"enable-cdef": "1"}), 2),
+            ("superres.avif", superres_bytes(scan, quality=50), 2),
+            ("grain.avif", avif_bytes(noisy, quality=50,
+                                      advanced={"denoise-noise-level": "25"}), 2),
+            ("grid.avif", grid_bytes(scan, 4, 3, 512, 512, quality=50), 2),
+            ("sequence.avif", sequence_bytes([clean[0], clean[1]]), 0),
+            ("premultiplied.avif", avif_bytes(np.dstack([premultiplied.astype(np.uint8), alpha]),
+                                              alpha_premultiplied=True), 1)]

@@ -25,7 +25,7 @@ a zero count). The sources, by table:
   the loop-restoration CDFs (switchable type, use_wiener, use_sgrproj), the
   self-guided parameter sets, the CDEF directions and the superres
   upscaling filter; its self-guided 1 / x table is checked against the
-  specification's formula.
+  specification's formula; the film grain's Gaussian sequence.
 
 The motion-vector CDFs of IntraBC are written here as the AV1 default
 context (joints, classes, class0, bits, sign) and checked against dav1d's
@@ -296,6 +296,14 @@ def main() -> None:
                    512, "<i1").astype(np.int16).reshape(64, 8)
     assert np.all(rf.sum(1) == 128) and rf[32, 3] == 79
     other.append(("upscale_filter", rf.astype(np.int8), "int8_t"))
+
+    # film grain: dav1d's 2048-entry Gaussian sequence (the specification's
+    # Gaussian_Sequence: multiples of 4 in [-2048, 2047])
+    gauss = img.read(img.find([56, 568, -180, 172, 124, -84, 172, -64, -900, 24, 820, 224],
+                              "<i2"), 2048, "<i2")
+    assert np.all(gauss % 4 == 0) and gauss.min() >= -2048 and gauss.max() < 2048
+    assert list(gauss[-3:]) == [944, 428, -484]
+    other.append(("gaussian_sequence", gauss, "int16_t"))
 
     lines = ["// Generated by scripts/make_av1_tables.py: AV1's default CDFs and constant",
              "// tables, read out of dav1d 1.5.1 and aom 3.12.1 as linked into PIL 12.1's",

@@ -500,13 +500,16 @@ def write_registry_pages() -> None:
 
 
 def write_avif_pages() -> None:
-    """The five full-size AVIF pages PIL's writer makes from the tinted
+    """The nine full-size AVIF pages PIL's writer makes from the tinted
     colour pages (``scripts/avif_variants.avif_pages``: PIL's defaults with
     palette and IntraBC, speed 8 with palette and no IntraBC, a scanned
     copy with no screen content, deblocked; the scanned copy with loop
-    restoration and CDEF, and under superres), each with ``page/<name>.xml``
-    and ``<name>.json`` (PIL's "L" and "RGB" digests). Their PNG twins are
-    written where they are used, from the recorded pixels."""
+    restoration and CDEF, under superres, with film grain from aom's
+    denoiser, as a 4 x 3 grid; an avis sequence; premultiplied alpha), each
+    with ``page/<name>.xml`` and ``<name>.json`` (PIL's "L" and "RGB"
+    digests; the grain page's film grain parameters as dav1d reads them).
+    Their PNG twins are written where they are used, from the recorded
+    pixels."""
     import chip_smoke
     from scripts.avif_variants import avif_pages
     shutil.rmtree(AVIF_OUT, ignore_errors=True)
@@ -514,17 +517,23 @@ def write_avif_pages() -> None:
     pages, _, layouts = chip_smoke.synthetic_newspaper(3, *SHAPE, seed=AVIF_SEED)
     h, w = SHAPE
     total = 0
-    # the last two pages are the scanned third page again
-    for (name, data), layout in zip(avif_pages(pages, lambda p: np.asarray(pixels(p, "colour"))),
-                                    layouts + [layouts[2], layouts[2]]):
+    for name, data, k in avif_pages(pages, lambda p: np.asarray(pixels(p, "colour"))):
+        layout = layouts[k]
         stem = os.path.splitext(name)[0]
         path = os.path.join(AVIF_OUT, name)
         with open(path, "wb") as f:
             f.write(data)
         chip_smoke.write_layout_xml(os.path.join(AVIF_OUT, "page", f"{stem}.xml"), name, h, w,
                                     layout)
+        rec = record(path, ("L", "RGB"))
+        if name == "grain.avif":
+            # the film grain parameters dav1d reads from the frame header
+            from citlab_as_tpu_torch.utils import avif
+            from scripts.fuzz_avif import dav1d_grain
+            info = avif.open_avif(data)
+            rec["film_grain"] = dav1d_grain(avif._item_data(info.meta, info.color, data))
         with open(os.path.join(AVIF_OUT, f"{stem}.json"), "w") as f:
-            json.dump(record(path, ("L", "RGB")), f, indent=1)
+            json.dump(rec, f, indent=1)
             f.write("\n")
         total += len(data)
         print(f"{os.path.relpath(path, REPO)}: {len(data)} bytes")
