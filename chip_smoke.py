@@ -235,7 +235,21 @@ result):
    workflow over (2, 2) on the pipelined phase's 16 pages (valid files, an
    article id on every line, K1 1104 and K2 4; the files byte-equal to the
    pipelined phase's where the sharded forward is bit for bit, else their
-   differences printed).
+   differences printed);
+18. orbax: the JAX package's orbax checkpoints read here, where neither
+   orbax nor tensorstore nor zstandard is installed, by the port's own
+   zstd, OCDBT and zarr v2 code (``train/orbax.py``): the 9 committed
+   directories of ``models_ckpt/`` restored (ms per directory, warm page
+   cache, and the host's zstd MB/s over all their chunks, printed), every
+   array of the 5 converted ``models_ckpt_torch/*.npz`` equal to its
+   directory's bit for bit; the workflow CLI over the workflow phase's 8
+   pages with ``--separator_model_dir models_ckpt/separator
+   --heading_model_dir models_ckpt/heading --gnn_model_dir
+   models_ckpt/gnn/best/f1`` writing the ``--*_model`` (``.npz``) run's files
+   byte for byte, K1 276 and K2 2 launches in each run; one relation-GNN
+   train step resumed from a copy of ``models_ckpt/gnn`` (its step 29 and
+   ``current_epoch.info``): the epoch after the saved one, a finite loss,
+   adam's count carried on by one.
 
 The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
 """
@@ -3827,6 +3841,129 @@ def phase_spatial(dev, pipelined_row):
     return out
 
 
+# ---------------------------------------------------------------- orbax
+
+ORBAX_DIRS = ("separator/3000", "heading/3000", "gnn/28", "gnn/29", "gnn/best/f1",
+              "gnn_pipeline/22", "gnn_pipeline/23", "gnn_pipeline/best/f1",
+              "gnn_visual/best/f1")
+# the converted weights and the orbax directory each was converted from
+ORBAX_NPZ = {"separator": "separator", "heading": "heading", "gnn": "gnn/best/f1",
+             "gnn_pipeline": "gnn_pipeline/best/f1", "gnn_visual": "gnn_visual/best/f1"}
+
+
+def phase_orbax(dev):
+    """The JAX package's orbax checkpoints (``models_ckpt/``) read on the
+    card's machine by the port's own zstd, OCDBT and zarr code, with no
+    orbax, tensorstore or zstandard: every committed directory restored (ms
+    each, and the host's zstd MB/s over every chunk of them), each converted
+    ``.npz`` equal to its directory's variables bit for bit; the workflow
+    CLI over the workflow phase's 8 pages with ``--separator_model_dir``,
+    ``--heading_model_dir`` and ``--gnn_model_dir`` writing the ``.npz``
+    run's files byte for byte (K1 276, K2 2, counted from 0 just before the
+    orbax run); one relation-GNN train step resumed from a copy of the
+    committed run ``models_ckpt/gnn`` (step 29 with adam's state)."""
+    import torch
+    from citlab_as_tpu_torch.cli.run_full_workflow import main as workflow_cli
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.train import checkpoint as ckpt
+    from citlab_as_tpu_torch.train.orbax import restore
+    from citlab_as_tpu_torch.train.trainer import TrainerGNN
+    from citlab_as_tpu_torch.utils import io as port_io
+    from citlab_as_tpu_torch.utils import zstd
+    from citlab_as_tpu_torch.utils.ocdbt import OcdbtStore
+    from citlab_as_tpu_torch.weights import load_npz
+
+    found = [d for d in ORBAX_DIRS if os.path.isfile(os.path.join(REPO, "models_ckpt", d,
+                                                                  "_METADATA"))]
+    check(len(found) == 9, f"orbax: {len(found)} of 9 committed checkpoint directories")
+    for name in ("orbax", "tensorstore", "zstandard", "jax"):
+        check(name not in sys.modules, f"orbax: {name} is loaded")
+    read_ms, leaves = {}, 0
+    for d in ORBAX_DIRS:
+        t0 = time.perf_counter()
+        tree = restore(os.path.join(REPO, "models_ckpt", d))
+        read_ms[d] = round((time.perf_counter() - t0) * 1e3, 3)
+        leaves += len(ckpt.flatten(tree))
+    frames = []
+    for d in ORBAX_DIRS:
+        store = OcdbtStore(os.path.join(REPO, "models_ckpt", d))
+        frames += [store.read(k) for k in store.list() if not k.endswith(".zarray")]
+    zstd.decompress(frames[0])
+    t0 = time.perf_counter()
+    raw = sum(len(zstd.decompress(f)) for f in frames)
+    zstd_s = time.perf_counter() - t0
+    print(f"orbax: read ms per checkpoint directory (warm page cache) {json.dumps(read_ms)}; "
+          f"{leaves} leaves; host zstd {raw / zstd_s / 1e6:.1f} MB/s ({len(frames)} chunks, "
+          f"{sum(map(len, frames))} -> {raw} bytes in {zstd_s * 1e3:.3f} ms)")
+    for npz, d in ORBAX_NPZ.items():
+        want = load_npz(os.path.join(REPO, "models_ckpt_torch", f"{npz}.npz"))
+        got, _ = ckpt.checkpoint_variables(os.path.join(REPO, "models_ckpt", d))
+        check(sorted(got) == sorted(want), f"orbax: {d} and {npz}.npz hold other arrays")
+        for k, v in want.items():
+            g = np.asarray(got[k])
+            check(g.dtype == v.dtype and g.shape == v.shape and g.tobytes() == v.tobytes(),
+                  f"orbax: {d}:{k} differs from {npz}.npz")
+    print(f"orbax: the 5 converted .npz equal their orbax directories' variables bit for bit")
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_orbax_")
+    try:
+        pages, _, layouts = synthetic_newspaper(N_PAGES, *PAGE_SHAPE, seed=11)
+        paths = write_corpus(root, pages, layouts)
+        image_list = _write_list(os.path.join(root, "images.lst"), paths)
+        ckpt_dir, npz = os.path.join(REPO, "models_ckpt"), os.path.join(REPO,
+                                                                         "models_ckpt_torch")
+        flags = {"npz": ["--separator_model", os.path.join(npz, "separator.npz"),
+                         "--heading_model", os.path.join(npz, "heading.npz"),
+                         "--gnn_model", os.path.join(npz, "gnn.npz")],
+                 "orbax": ["--separator_model_dir", os.path.join(ckpt_dir, "separator"),
+                           "--heading_model_dir", os.path.join(ckpt_dir, "heading"),
+                           "--gnn_model_dir", os.path.join(ckpt_dir, "gnn", "best", "f1")]}
+        files, secs = {}, {}
+        for run in ("npz", "orbax"):
+            port_io._IMAGE_CACHE.clear()
+            k1.launches = 0
+            k2.launches = 0
+            t0 = time.perf_counter()
+            result = workflow_cli(["--path_to_image_list", image_list, "--batch_size",
+                                   str(BATCH), "--clustering_method", "dbscan"] + flags[run])
+            torch.cuda.synchronize()
+            secs[run] = round(time.perf_counter() - t0, 3)
+            launches = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+            check_workflow_run(f"orbax ({run})", result, launches, N_PAGES // BATCH, N_PAGES)
+            files[run] = written_files(root)
+        same = sorted(k for k in files["npz"] if files["orbax"].get(k) == files["npz"][k])
+        print(f"orbax: workflow CLI with the three --*_model_dir flags {secs['orbax']} s "
+              f"(with the .npz {secs['npz']} s, models loaded in each); launches {launches}; "
+              f"{len(same)} of {len(files['npz'])} written files byte-equal to the .npz run's")
+        check(sorted(files["orbax"]) == sorted(files["npz"]) and len(same) == len(files["npz"]),
+              "orbax: the workflow from models_ckpt/ wrote other files than from the .npz")
+
+        model_dir = os.path.join(root, "gnn_run")
+        shutil.copytree(os.path.join(ckpt_dir, "gnn"), model_dir)
+        saved = ckpt.read_epoch_info(model_dir)["current_epoch"]
+        count = int(restore(os.path.join(model_dir, "29"))["opt_state"][0]["count"])
+        jsons = gnn_corpus(os.path.join(root, "gnn_corpus"))
+        trainer = TrainerGNN(model_dir, jsons, [], flags={"epochs": saved + 1,
+                                                          "samples_per_epoch": 16},
+                             seed=0, device=dev)
+        t0 = time.perf_counter()
+        out = trainer.train()
+        resume_s = time.perf_counter() - t0
+        loss = out["history"][0]["loss"] if out["history"] else float("nan")
+        print(f"orbax: relation GNN resumed from models_ckpt/gnn step 29 (epoch {saved}, "
+              f"adam count {count}): one step, loss {loss!r}, count "
+              f"{out['state']['opt_state']['count']}, {resume_s:.3f} s")
+        check([r["epoch"] for r in out["history"]] == [saved], "orbax: the resume ran "
+              f"epochs {[r['epoch'] for r in out['history']]}, want [{saved}]")
+        check(np.isfinite(loss), f"orbax: resumed step loss {loss}")
+        check(out["state"]["opt_state"]["count"] == count + 1,
+              "orbax: the resumed optimizer did not carry adam's count")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"launches": launches, "read_ms": read_ms, "zstd_mb_per_s": raw / zstd_s / 1e6}
+
+
 def main() -> int:
     try:
         import torch
@@ -3872,6 +4009,7 @@ def main() -> int:
         models_row = timed("models", phase_models, dev)
         parallel_row = timed("parallel", phase_parallel, dev, pipelined_row)
         spatial_row = timed("spatial", phase_spatial, dev, pipelined_row)
+        orbax_row = timed("orbax", phase_orbax, dev)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3894,7 +4032,8 @@ def main() -> int:
              launches_gt_eval=gt_eval_row["launches"]["conv3x3"],
              launches_models=models_row["launches"]["conv3x3"],
              launches_parallel=parallel_row["launches"]["conv3x3"],
-             launches_spatial=spatial_row["launches"]["conv3x3"], **k1_row),
+             launches_spatial=spatial_row["launches"]["conv3x3"],
+             launches_orbax=orbax_row["launches"]["conv3x3"], **k1_row),
         dict(name="separator_morphology", route="cuda",
              source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
              replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
@@ -3910,7 +4049,8 @@ def main() -> int:
              launches_gt_eval=gt_eval_row["launches"]["separator_morphology"],
              launches_models=models_row["launches"]["separator_morphology"],
              launches_parallel=parallel_row["launches"]["separator_morphology"],
-             launches_spatial=spatial_row["launches"]["separator_morphology"], **k2_row),
+             launches_spatial=spatial_row["launches"]["separator_morphology"],
+             launches_orbax=orbax_row["launches"]["separator_morphology"], **k2_row),
     ]
     # ``launches``: the in-memory main path's count; ``launches_files``: the
     # files-to-files path's; ``launches_workflow``: the whole workflow's;
@@ -3938,11 +4078,13 @@ def main() -> int:
     # ``launches_spatial``: the pipelined workflow's over a (data=2, model=2)
     # mesh of the card, each data row's forwards height-sharded over its 2
     # devices (16 pages, 2 groups of 8: K1 69 x 2 nets x 2 row shards x 2
-    # data rows x 2 groups = 1104, K2 4)
+    # data rows x 2 groups = 1104, K2 4); ``launches_orbax``: the workflow
+    # CLI's with the three --*_model_dir flags naming models_ckpt/ (8 pages,
+    # 2 groups of 4: K1 69 x 2 x 2 = 276, K2 2)
     keys = ("name", "route", "source", "replaces", "launches", "launches_files",
             "launches_workflow", "launches_pipelined", "launches_visual", "launches_formats",
             "launches_variants", "launches_blind", "launches_train", "launches_gt_eval",
-            "launches_models", "launches_parallel", "launches_spatial",
+            "launches_models", "launches_parallel", "launches_spatial", "launches_orbax",
             "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))

@@ -7,8 +7,9 @@ article_separation/plot_net_output.py:41-344).
         --save_folder out [--fixed_height 1500] [--device cpu]
 
 Each page is scaled to ``--fixed_height``, runs through the ARU-Net on the
-device (``--model_dir`` / ``--model``: a converted ``.npz`` or a ``.frozen``
-artifact; none = random weights), and every net-output channel but the
+device (``--model_dir``: the JAX package's orbax model directory, e.g.
+``models_ckpt/separator``, or a ``.frozen``; ``--model``: a converted
+``.npz`` or a ``.frozen``; none = random weights), and every net-output channel but the
 last ('other') is blended into the page where its probability exceeds 0.5.
 The composite is the array the JAX tool builds before its matplotlib
 figure; it is written with ``utils/io.py::save_png`` as
@@ -75,7 +76,7 @@ def main(argv: Optional[Sequence[str]] = None):
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--path_to_img_lst", type=str, required=True)
     parser.add_argument("--model_dir", type=str, default=None,
-                        help="a .frozen artifact (an orbax checkpoint directory raises)")
+                        help="the JAX CLI's orbax model directory, or a .frozen artifact")
     parser.add_argument("--model", type=str, default=None,
                         help="converted ARU-Net (.npz) or a .frozen artifact; "
                              "none = random weights")

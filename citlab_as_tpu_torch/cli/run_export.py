@@ -8,8 +8,10 @@ either package serves it.
         --model_kwargs '{"dtype": "bfloat16"}' --out separator.frozen
 
 ``--checkpoint_dir``: a trainer's model directory (its newest numbered
-checkpoint), a ``best/<metric>`` export directory, or an ``.npz`` of flat
-flax paths (``models_ckpt_torch/``). Host only.
+checkpoint), a ``best/<metric>`` export directory, each the JAX package's
+orbax checkpoints (``models_ckpt/separator``, read without orbax) or the
+port's, or an ``.npz`` of flat flax paths (``models_ckpt_torch/``). Host
+only.
 """
 from __future__ import annotations
 

@@ -19,8 +19,10 @@ either driver as an injected ``gnn_predictor``, as in the JAX package.
         [--pipelined [--host_workers N]] [--data_parallel] [--device cpu]
 
 The JAX CLI's ``--separator_model_dir``, ``--heading_model_dir`` and
-``--gnn_model_dir`` are taken too: each may name a ``.frozen`` artifact; an
-orbax checkpoint directory raises ``UnsupportedFlag``, and passing both
+``--gnn_model_dir`` are taken too, as it takes them: the JAX package's
+orbax model directories (``models_ckpt/separator``, ``models_ckpt/heading``,
+``models_ckpt/gnn/best/f1``), read without orbax (``train/orbax.py``), the
+port's own checkpoint directories, or a ``.frozen`` artifact; passing both
 flags of a pair is an error.
 
 ``--data_parallel`` (implies ``--pipelined``) runs the page groups over
@@ -599,8 +601,8 @@ def main(argv: Optional[Sequence[str]] = None):
         parser.add_argument(f"--{net}_model", type=str, default=None,
                             help=f"converted {what} (.npz or .frozen)")
         parser.add_argument(f"--{net}_model_dir", type=str, default=None,
-                            help=f"the JAX CLI's flag: a .frozen {what} (an orbax "
-                                 "checkpoint directory is refused)")
+                            help=f"the JAX CLI's flag: the {what}'s orbax model "
+                                 "directory, or a .frozen")
     parser.add_argument("--clustering_method", type=str, default="dbscan")
     parser.add_argument("--out_dir", type=str, default="")
     parser.add_argument("--skip_heading", action="store_true", default=False)

@@ -6,8 +6,10 @@ confidences per page graph, clustered into articles and written as
     python -m citlab_as_tpu_torch.cli.run_gnn_clustering \\
         --eval_list jsons.lst --model models_ckpt_torch/gnn.npz [--device cpu]
 
-``--model`` or ``--model_dir`` may name a ``.frozen`` artifact (an orbax
-directory raises); the relation net runs on ``--device``.
+``--model_dir`` takes the JAX CLI's orbax model directory (its newest step,
+else the directory as a ``best/<metric>`` export:
+``models_ckpt/gnn/best/f1``) or a ``.frozen`` artifact, ``--model`` a
+converted ``.npz`` or a ``.frozen``; the relation net runs on ``--device``.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ def main(argv: Optional[Sequence[str]] = None):
                         help="converted relation GNN (.npz) or a .frozen artifact; "
                              "none = random weights")
     parser.add_argument("--model_dir", type=str, default=None,
-                        help="a .frozen artifact (an orbax checkpoint directory raises)")
+                        help="the JAX CLI's orbax model directory, or a .frozen artifact")
     parser.add_argument("--eval_list", type=str, required=True,
                         help="List of graph-feature JSON paths.")
     parser.add_argument("--clustering_method", type=str, default="dbscan",

@@ -9,8 +9,9 @@
 Each image needs ``page/<name>.xml`` beside it; the stage writes
 ``page/<name>.xml.xml``. ``--batch_size N`` runs groups of N pages through
 the fused device path of the stage (both modes); 0 runs page by page.
-``--model`` or ``--model_dir`` may name a ``.frozen`` artifact (an orbax
-``--model_dir`` raises). ``--sharded`` runs the net over a mesh of every
+``--model_dir`` takes the JAX CLI's orbax model directory
+(``models_ckpt/separator``; its newest step) or a ``.frozen`` artifact,
+``--model`` a converted ``.npz`` or a ``.frozen``. ``--sharded`` runs the net over a mesh of every
 CUDA device (``--device cpu``: the CPU): page by page each page is one
 sharded batch; with ``--batch_size N`` each group of ``N * n_data`` pages
 splits into per-device groups of N, each on its own device thread, so the
@@ -67,7 +68,7 @@ def main(argv: Optional[Sequence[str]] = None):
                         help="converted ARU-Net (.npz) or a .frozen artifact; "
                              "none = random weights")
     parser.add_argument("--model_dir", type=str, default=None,
-                        help="a .frozen artifact (an orbax checkpoint directory raises)")
+                        help="the JAX CLI's orbax model directory, or a .frozen artifact")
     parser.add_argument("--mode", type=str, required=True,
                         choices=["heading", "separator"])
     parser.add_argument("--fixed_height", type=int, default=None)

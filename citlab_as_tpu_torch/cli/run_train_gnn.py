@@ -1,7 +1,10 @@
 """GNN relation trainer CLI (port of ``citlab_as_tpu/cli/run_train_gnn.py``;
 reference: gnn/trainer/trainer_rel.py:62-69).
 
-The JAX CLI's flags and defaults, plus ``--device`` (default cuda). As the
+The JAX CLI's flags and defaults, plus ``--device`` (default cuda). A
+``--model_dir`` the JAX trainer wrote (orbax steps, ``current_epoch.info``)
+resumes here, its optax state carried over (``train/checkpoint.py``); the
+port then writes its own ``checkpoint.npz`` steps there. As the
 JAX CLI, it first brings up multi-process ``torch.distributed`` when a
 coordinator is configured (``parallel/mesh.py::initialize_multihost``;
 torchrun's variables; a no-op in one process); the trainer itself, as the

@@ -27,11 +27,21 @@ from citlab_as_tpu_torch.models.gnn.model import GraphRelation
 from citlab_as_tpu_torch.ops.image_utils import resize_image_ratio
 from citlab_as_tpu_torch.train.input_pipeline import apply_feature_masks, torch_batch
 from citlab_as_tpu_torch.utils.async_copy import prefetch
-from citlab_as_tpu_torch.weights import (
-    arunet_state_dict_from_flax, gnn_state_dict_from_flax, load_npz,
-)
+from citlab_as_tpu_torch.weights import arunet_state_dict_from_flax, gnn_state_dict_from_flax
 
 logger = logging.getLogger(__name__)
+
+
+def _variables(model_path: str, numbered_only: bool) -> Dict[str, np.ndarray]:
+    """float32 flat flax variables of a converted ``.npz`` or a model
+    directory (``train.checkpoint.checkpoint_variables``: the JAX package's
+    orbax checkpoints or the port's)."""
+    from citlab_as_tpu_torch.train.checkpoint import checkpoint_variables
+    flat, _ = checkpoint_variables(model_path, numbered_only)
+    # float32, as the JAX predictors restore into a float32 template (a bf16
+    # leaf widens exactly)
+    return {k: v.float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v, np.float32)
+            for k, v in flat.items()}
 
 
 def _round_up(x: int, multiple: int) -> int:
@@ -41,11 +51,15 @@ def _round_up(x: int, multiple: int) -> int:
 class SegmentationPredictor:
     """ARU-Net forward: grayscale [H, W] in [0, 1] -> probabilities [H, W, C].
 
-    ``model_path``: a converted ``.npz`` (``scripts/convert_weights_to_torch.py``)
-    or a ``.frozen`` artifact (``train/export.py``, written by either
-    package), which brings its own architecture kwargs and compute dtype
-    (float32 unless its kwargs say otherwise), as in the JAX predictor; None
-    -> random init from ``seed`` (logged loudly). ``dtype`` is the compute
+    ``model_path``: a model directory, whose newest numbered step is read
+    (the JAX package's orbax checkpoints, ``models_ckpt/separator``, or the
+    port's own; its ``params`` subtree, as the JAX predictor restores it;
+    none raises ``FileNotFoundError``), a converted ``.npz``
+    (``scripts/convert_weights_to_torch.py``) or a ``.frozen`` artifact
+    (``train/export.py``, written by either package), which brings its own
+    architecture kwargs and compute dtype (float32 unless its kwargs say
+    otherwise), as in the JAX predictor; None -> random init from ``seed``
+    (logged loudly). ``dtype`` is the compute
     dtype otherwise (bf16 by default, as the JAX predictor); parameters are
     held in it. Runs on ``device`` ("cuda" unless told "cpu")."""
 
@@ -67,7 +81,7 @@ class SegmentationPredictor:
             self.model = ARUNet(n_classes=n_classes, graph_params=graph_params)
             if model_path is not None:
                 self.model.load_state_dict(
-                    arunet_state_dict_from_flax(load_npz(model_path)))
+                    arunet_state_dict_from_flax(_variables(model_path, numbered_only=True)))
                 logger.info("Loaded ARU-Net params from %s", model_path)
             else:
                 self.model.init_random(seed)
@@ -217,10 +231,14 @@ class RelationPredictor:
     matrices (the run_gnn_clustering device step), one forward per page
     group on the union graph.
 
-    ``model_path``: a converted ``.npz`` (``scripts/convert_weights_to_torch.py
-    --kind gnn``) or a ``.frozen`` artifact, whose kwargs then build the net
-    in place of this predictor's (as the JAX predictor does); None -> random
-    init from ``seed`` (logged loudly). The net is built at the first group,
+    ``model_path``: a model directory (the JAX package's orbax checkpoints
+    or the port's: its newest numbered step's ``params`` subtree or, with no
+    numbered step, the directory itself as a ``best/<metric>`` export, as
+    the JAX predictor restores them), a converted ``.npz``
+    (``scripts/convert_weights_to_torch.py --kind gnn``) or a ``.frozen``
+    artifact, whose kwargs then build the net in place of this predictor's
+    (as the JAX predictor does); None -> random init from ``seed`` (logged
+    loudly). The net is built at the first group,
     whose feature widths it takes, as the JAX predictor initializes at its
     first call. Runs in float32 on ``device`` ("cuda" unless told "cpu").
 
@@ -307,7 +325,8 @@ class RelationPredictor:
             assign_visual_features_to_nodes=self.assign_nodes,
             assign_visual_features_to_edges=self.assign_edges)
         if self.model_path is not None:
-            model.load_state_dict(gnn_state_dict_from_flax(load_npz(self.model_path)))
+            model.load_state_dict(gnn_state_dict_from_flax(
+                _variables(self.model_path, numbered_only=False)))
             logger.info("Loaded GNN params from %s", self.model_path)
         else:
             gen = torch.Generator().manual_seed(self.seed)

@@ -30,7 +30,8 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "citlab_kernels")
 KERNEL_SOURCES = ("conv3x3", "separator_morphology")
 HOST_SOURCES = ("geometry_host", "image_decode", "image_encode", "webp_decode",
-                "jpeg2000_decode", "raster_decode", "bcn_decode", "av1_decode")
+                "jpeg2000_decode", "raster_decode", "bcn_decode", "av1_decode",
+                "zstd_decode")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the JAX package's native/Makefile flags: -march=native lets the compiler

@@ -8,12 +8,18 @@ trainer_base.py:169-189, gnn/io.py:45-66), EMA shadow weights
 (util/warmstart.py:8-97), and the epoch loop both trainers run on them
 (:func:`run_epochs`).
 
-The format is the port's own (orbax is not on the card's machine): a state
-is a nested dict whose leaves are tensors, arrays or numbers, flattened to
-``/``-joined paths and saved as one ``checkpoint.npz`` per directory
-(``<ckpt_dir>/<step>/``, ``<ckpt_dir>/best/<metric>/``), written to a
-temporary name and renamed into place. The trainers name every parameter by
-its flat flax path (``params/featMapG/unet_down_0/conv1/conv/kernel``,
+Saving is in the port's own format: a state is a nested dict whose leaves
+are tensors, arrays or numbers, flattened to ``/``-joined paths and saved as
+one ``checkpoint.npz`` per directory (``<ckpt_dir>/<step>/``,
+``<ckpt_dir>/best/<metric>/``), written to a temporary name and renamed
+into place. Reading takes that format or, where a directory holds no
+``checkpoint.npz``, the JAX package's orbax checkpoint there
+(``train/orbax.py``, no orbax needed), so a JAX run's ``--model_dir``
+restores, resumes and warm-starts the port: its optax ``opt_state``
+(``opt_state/0/mu/params/...``, ``opt_state/0/count``, the schedule's count
+and ``MultiSteps``' state) maps onto the port's :class:`Optimizer` state
+for adam, nadam, rmsprop and sgd. The trainers name every parameter by its
+flat flax path (``params/featMapG/unet_down_0/conv1/conv/kernel``,
 ``weights.py``), so renames and include patterns read as in the JAX
 package, and a best export of a net's variables is an ``.npz`` in the
 ``models_ckpt_torch/`` layout that ``SegmentationPredictor`` and
@@ -27,11 +33,12 @@ import os
 import re
 import shutil
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional
+from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from citlab_as_tpu_torch.train import orbax
 from citlab_as_tpu_torch.train.optimizer import Optimizer
 
 logger = logging.getLogger(__name__)
@@ -58,15 +65,20 @@ def ema_update(ema_params: Dict[str, torch.Tensor], params: Dict[str, torch.Tens
 # ---------------------------------------------------------------- flat trees
 
 def flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
-    """Nested dict -> ``{path: ndarray}`` with ``/``-joined keys."""
+    """Nested dict -> ``{path: ndarray}`` with ``/``-joined keys; a list or
+    tuple's items are named ``[i]``, as ``jax.tree_util`` names them, and a
+    bf16 tensor stays a (host) tensor, as numpy has no bfloat16."""
     out: Dict[str, np.ndarray] = {}
-    for key, val in tree.items():
+    items = (tree.items() if isinstance(tree, dict)
+             else ((f"[{i}]", v) for i, v in enumerate(tree)))
+    for key, val in items:
         path = f"{prefix}{key}"
-        if isinstance(val, dict):
+        if isinstance(val, (dict, list, tuple)):
             out.update(flatten(val, path + "/"))
         elif isinstance(val, torch.Tensor):
-            out[path] = val.detach().cpu().numpy()
-        else:
+            val = val.detach().cpu()
+            out[path] = val if val.dtype == torch.bfloat16 else val.numpy()
+        elif val is not None:
             out[path] = np.asarray(val)
     return out
 
@@ -94,10 +106,22 @@ def _write(path: str, state) -> str:
 
 
 def _read(path: str, template=None):
-    with np.load(os.path.join(path, CHECKPOINT_FILE)) as data:
-        flat = {k: data[k] for k in data.files}
-    if template is None:
-        return unflatten(flat)
+    """The state saved in directory ``path``: its ``checkpoint.npz`` or,
+    without one, its orbax checkpoint (the tree orbax restores, sequences as
+    lists, where no template is given)."""
+    if os.path.isfile(os.path.join(path, CHECKPOINT_FILE)):
+        with np.load(os.path.join(path, CHECKPOINT_FILE)) as data:
+            flat = {k: data[k] for k in data.files}
+        if template is None:
+            return unflatten(flat)
+    elif orbax.is_orbax_checkpoint(path):
+        tree = orbax.restore(path)
+        if template is None:
+            return tree
+        flat = flatten(tree)
+    else:
+        raise FileNotFoundError(f"{path} holds neither {CHECKPOINT_FILE} nor an "
+                                "orbax checkpoint")
     want = flatten(template)
     missing = sorted(set(want) - set(flat))
     if missing:
@@ -142,6 +166,33 @@ def _prune_checkpoints(ckpt_dir: str, keep: int = 2) -> None:
     steps = sorted(int(d) for d in os.listdir(ckpt_dir) if re.fullmatch(r"\d+", d))
     for step in steps[:-keep]:
         shutil.rmtree(os.path.join(ckpt_dir, str(step)), ignore_errors=True)
+
+
+def checkpoint_variables(path: str, numbered_only: bool = False
+                         ) -> Tuple[Dict[str, Any], str]:
+    """Flat variables (``params/...`` flax paths) of ``path`` and the path
+    read, as the JAX package's predictors and exporter take them
+    (``citlab_as_tpu/train/export.py``:112-139, ``inference.py``:51-58 and
+    :227-240): an ``.npz`` file (``models_ckpt_torch/``); else the newest
+    numbered step under the directory or, where it has none and not
+    ``numbered_only``, the directory itself (a ``best/<metric>`` export),
+    each the port's ``checkpoint.npz`` or the JAX package's orbax
+    checkpoint. A trainer's state (``{params, opt_state, ...}``, or a
+    ``params`` subtree that holds ``params``) gives its ``params`` subtree,
+    a best export or converted weights the variables themselves."""
+    if os.path.isfile(path):
+        with np.load(path) as data:
+            flat = {k: data[k] for k in data.files}
+        target = path
+    else:
+        step = latest_checkpoint_step(path)
+        if step is None and numbered_only:
+            raise FileNotFoundError(f"No checkpoint found in {path}")
+        target = path if step is None else os.path.join(path, str(step))
+        flat = flatten(_read(target))
+    if any(k.startswith(("opt_state/", "params/params/")) for k in flat):
+        flat = {k[len("params/"):]: v for k, v in flat.items() if k.startswith("params/")}
+    return flat, os.path.abspath(target)
 
 
 # ---------------------------------------------------------------- best export
@@ -192,10 +243,47 @@ def trainer_state(params, opt_state, ema, to_flax) -> Dict[str, Any]:
     return state
 
 
+def _optax_opt_state(opt) -> Dict[str, Any]:
+    """An optax ``opt_state`` as orbax restores it (the chain's tuple as a
+    list, optionally inside ``MultiStepsState``) -> the port's optimizer
+    state layout: ``count`` (the chain's update count: adam's and the
+    schedule's, which optax moves together), ``mu`` / ``nu`` (adam's or
+    rmsprop's moments, flax paths) and, under ``MultiSteps``,
+    ``mini_step`` and ``acc_grads``."""
+    out: Dict[str, Any] = {}
+    chain = opt
+    if isinstance(opt, dict) and "inner_opt_state" in opt:
+        out["mini_step"] = opt["mini_step"]
+        out["acc_grads"] = opt["acc_grads"]
+        chain = opt["inner_opt_state"]
+    if not isinstance(chain, list):
+        raise ValueError("opt_state is not an optax chain's state")
+    counts = []
+    for part in chain:
+        if isinstance(part, dict):
+            if "count" in part:
+                counts.append(int(np.asarray(part["count"])))
+            for slot in ("mu", "nu"):
+                if slot in part:
+                    out[slot] = part[slot]
+    if not counts or len(set(counts)) != 1:
+        raise ValueError(f"opt_state's update counts {counts} do not give one count")
+    out["count"] = np.int32(counts[0])
+    return out
+
+
 def load_trainer_state(saved, params, opt_state, ema, from_flax) -> None:
     """Copy a restored :func:`trainer_state` (nested numpy dicts) into the
     live tensors in place; ``from_flax`` maps flat flax paths back to
-    parameter names."""
+    parameter names. A JAX trainer's state (an optax ``opt_state``, read
+    from its orbax checkpoint) is mapped onto the port's layout first."""
+    saved = dict(saved)
+    if not isinstance(saved.get("opt_state"), dict) or "count" not in saved["opt_state"]:
+        saved["opt_state"] = _optax_opt_state(saved.get("opt_state"))
+    missing = sorted(k for k in opt_state if k not in saved["opt_state"])
+    if missing:
+        raise KeyError(f"the checkpoint's optimizer state lacks {missing} (another "
+                       "optimizer or gradient accumulation?)")
     flat = flatten(saved)
 
     def sub(prefix):

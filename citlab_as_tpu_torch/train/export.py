@@ -245,34 +245,15 @@ def load_frozen(path: str, node_feature_dim: Optional[int] = None,
     return model, variables, config.get("metadata", {})
 
 
-def _checkpoint_variables(ckpt_dir: str) -> Tuple[Dict[str, np.ndarray], str]:
-    """Flat variables of the newest numbered checkpoint under ``ckpt_dir``,
-    or of a ``best/<metric>`` export directory, or of an ``.npz`` file
-    (``train/checkpoint.py`` and ``models_ckpt_torch/`` layouts), with the
-    path read. Trainer checkpoints hold ``{params, opt_state, ema}``: their
-    ``params`` subtree is the variables; best exports and converted weights
-    hold the variables directly."""
-    from citlab_as_tpu_torch.train.checkpoint import CHECKPOINT_FILE
-
-    if os.path.isfile(ckpt_dir):
-        target = ckpt_dir
-    else:
-        steps = [d for d in os.listdir(ckpt_dir) if d.isdigit()]
-        target = os.path.join(ckpt_dir, max(steps, key=int) if steps else "",
-                              CHECKPOINT_FILE)
-    with np.load(target) as data:
-        flat = {k: data[k] for k in data.files}
-    if any(k.startswith(("opt_state/", "params/params/")) for k in flat):
-        flat = {k[len("params/"):]: v for k, v in flat.items() if k.startswith("params/")}
-    return flat, os.path.abspath(target)
-
-
 def export_checkpoint_frozen(ckpt_dir: str, out_path: str, architecture: str,
                              model_kwargs: Optional[Dict[str, Any]] = None,
                              metadata: Optional[Dict[str, Any]] = None) -> str:
     """Freeze the newest checkpoint under ``ckpt_dir`` (or a best/<metric>
-    export directory, or an ``.npz``) into ``out_path``."""
-    variables, source = _checkpoint_variables(ckpt_dir)
+    export directory, or an ``.npz``) into ``out_path``: the port's
+    ``checkpoint.npz`` or the JAX package's orbax checkpoint, a trainer
+    state's ``params`` subtree (``train.checkpoint.checkpoint_variables``)."""
+    from citlab_as_tpu_torch.train.checkpoint import checkpoint_variables
+    variables, source = checkpoint_variables(ckpt_dir)
     meta = dict(metadata or {})
     meta.setdefault("source_checkpoint", source)
     return export_frozen(out_path, architecture, variables, model_kwargs, meta)

@@ -11,6 +11,13 @@ flax paths (``params/featMapG/unet_down_0/conv1/conv/kernel``,
 The port reads the file with numpy and maps it through
 ``citlab_as_tpu_torch.weights.{arunet,gnn}_state_dict_from_flax``.
 
+The conversion is optional: it needs JAX and orbax, which the card's
+machine lacks, and the port reads the same orbax directories there itself
+(``citlab_as_tpu_torch/train/orbax.py``: every ``--model_dir``, the
+predictors, ``run_export`` and a training resume). The committed
+``models_ckpt_torch/*.npz`` stay as the tests' second copy of the weights,
+which the port's own reading of ``models_ckpt/`` must equal bit for bit.
+
     python scripts/convert_weights_to_torch.py \
         --model_dir models_ckpt/separator --out models_ckpt_torch/separator.npz
     python scripts/convert_weights_to_torch.py \

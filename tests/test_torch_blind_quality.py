@@ -22,6 +22,9 @@ import re
 import sys
 
 import numpy as np
+import pytest
+
+from tests.torch_jax_native import jax_native  # noqa: F401  (fixture: the JAX native oracle)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -57,6 +60,7 @@ def _measure(work, pages, result):
                          "--min_tol", "10", "--max_tol", "30"])
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_blind_e2e_multi_article_f1(tmp_path):
     """A fresh page with several articles per column (RandomState(777)),
     the pipeline-trained relation net: AS F1 above 0.98."""
@@ -67,6 +71,7 @@ def test_blind_e2e_multi_article_f1(tmp_path):
     assert as_f > 0.98, f"AS F1 {as_f} too low (R={as_r}, P={as_p})"
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_blind_e2e_hard_corpus_f1(tmp_path):
     """Two skewed, noisy, dense pages whose separator rules are faded below
     the separator net's detection point (RandomState(7)): baseline
@@ -81,6 +86,7 @@ def test_blind_e2e_hard_corpus_f1(tmp_path):
     assert as_f > 0.96, f"hard-corpus AS F1 {as_f} too low (R={as_r}, P={as_p})"
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_blind_e2e_visual_gnn_f1(tmp_path):
     """Three pages (seeds 31, 7, 101) through one workflow call with the
     visual relation net (ARU_cutted_v1 backbone, images of 288 to 384

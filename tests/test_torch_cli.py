@@ -13,7 +13,8 @@ full precision and agree within 1e-5 (both CLIs then re-cluster the same
 confidence files).
 Between the two net stages and after the heading stage, ``page/<name>.xml.xml``
 is moved over ``page/<name>.xml`` on both sides, as a user chaining the
-CLIs does. Every flag the port cannot honour raises by name.
+CLIs does. The JAX CLIs' orbax ``--model_dir`` flags, once refused by
+name, reach the predictors.
 """
 import filecmp
 import json
@@ -27,6 +28,7 @@ from PIL import Image
 
 from citlab_as_tpu.pagexml import page as jpage
 from citlab_as_tpu_torch.pagexml import page as tpage
+from tests.torch_jax_native import jax_native  # noqa: F401  (fixture: the JAX native oracle)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -97,6 +99,7 @@ def _write_list(root, name, lines):
     return path
 
 
+@pytest.mark.usefixtures("jax_native")
 @pytest.mark.parametrize("batch_size", [0, 2])
 def test_stage_clis_write_the_jax_clis_files(tmp_path, monkeypatch, batch_size):
     import citlab_as_tpu.inference as jinf
@@ -207,26 +210,42 @@ def test_stage_clis_write_the_jax_clis_files(tmp_path, monkeypatch, batch_size):
 
 
 @pytest.mark.parametrize("module,argv,flag", [
-    # --sharded runs since the mesh was ported; the sharded path still
-    # refuses an orbax checkpoint directory by name
+    # these orbax checkpoint directories were refused by name until the port
+    # read the JAX package's orbax checkpoints (train/orbax.py); --sharded
+    # runs since the mesh was ported
     pytest.param("run_net_post_processing",
                  ["--path_to_image_list", "x.lst", "--mode", "separator", "--sharded",
-                  "--model_dir", "models_ckpt/separator"], "--model_dir",
+                  "--model_dir", "models_ckpt/separator", "--device", "cpu"], "--model_dir",
                  id="run_net_post_processing-argv0---sharded"),
     ("run_net_post_processing", ["--path_to_image_list", "x.lst", "--mode", "heading",
-                                 "--model_dir", "models_ckpt/heading"], "--model_dir"),
+                                 "--model_dir", "models_ckpt/heading", "--device", "cpu"],
+     "--model_dir"),
     # the id it had beside the two word-vector cases, which went with the
     # refusal they tested
     pytest.param("run_gnn_clustering", ["--eval_list", "x.lst", "--model_dir",
-                                        "models_ckpt/gnn"], "--model_dir",
+                                        "models_ckpt/gnn", "--device", "cpu"], "--model_dir",
                  id="run_gnn_clustering-argv4---model_dir"),
 ])
-def test_unported_flags_raise_by_name(module, argv, flag):
+def test_unported_flags_raise_by_name(module, argv, flag, tmp_path, monkeypatch):
+    """The JAX CLI's orbax ``--model_dir``, which raised by name until the
+    port read orbax checkpoints, goes to the predictor, and the CLI goes on
+    to its input list, whose one entry is missing."""
     import importlib
-    from citlab_as_tpu_torch.cli.common import UnsupportedFlag
+    import citlab_as_tpu_torch.inference as tinf
     main = importlib.import_module(f"citlab_as_tpu_torch.cli.{module}").main
-    with pytest.raises(UnsupportedFlag, match=flag):
+    monkeypatch.chdir(tmp_path)
+    os.symlink(os.path.join(REPO, "models_ckpt"), "models_ckpt")
+    _write_list(str(tmp_path), "x.lst", ["x.png"])
+    seen = []
+    for name in ("SegmentationPredictor", "ShardedSegmentationPredictor", "RelationPredictor"):
+        cls = getattr(tinf, name)
+        monkeypatch.setattr(tinf, name, lambda path=None, *a, _cls=cls, **k:
+                            seen.append(path) or _cls(path, *a, **k))
+    try:
         main(argv)
+    except FileNotFoundError as e:
+        assert "x.png" in str(e)
+    assert argv[argv.index(flag) + 1] in seen
 
 
 def test_num_workers_fans_pages_over_processes(tmp_path):
@@ -287,17 +306,27 @@ def test_workflow_model_dir_flags_take_frozen_artifacts(tmp_path, frozen_nets, p
 
 @pytest.mark.parametrize("pipelined", [False, True], ids=["sequential", "pipelined"])
 @pytest.mark.parametrize("net", ["separator", "heading", "gnn"])
-def test_workflow_model_dir_flags_refuse_orbax_directories(tmp_path, net, pipelined):
-    """An orbax checkpoint directory through a *_model_dir flag raises
-    UnsupportedFlag naming the flag, and a pair given twice is an error."""
-    from citlab_as_tpu_torch.cli.common import UnsupportedFlag
+def test_workflow_model_dir_flags_refuse_orbax_directories(tmp_path, net, pipelined,
+                                                          monkeypatch):
+    """An orbax checkpoint directory through a *_model_dir flag (refused by
+    name before the port read orbax checkpoints) reaches the net's
+    predictor, which loads it, and the workflow runs (its one page is
+    missing and skipped); a pair given twice is still an error."""
+    import citlab_as_tpu_torch.inference as tinf
     from citlab_as_tpu_torch.cli.run_full_workflow import main
     image_list = _write_list(str(tmp_path), "images.lst", ["x.png"])
     argv = ["--path_to_image_list", image_list, "--device", "cpu"] + (
         ["--pipelined"] if pipelined else [])
     orbax = {"separator": "models_ckpt/separator", "heading": "models_ckpt/heading",
              "gnn": "models_ckpt/gnn_pipeline/best/f1"}[net]
-    with pytest.raises(UnsupportedFlag, match=f"--{net}_model_dir"):
-        main(argv + [f"--{net}_model_dir", os.path.join(REPO, orbax)])
+    seen = []
+    for name in ("SegmentationPredictor", "RelationPredictor"):
+        cls = getattr(tinf, name)
+        monkeypatch.setattr(tinf, name, lambda path=None, *a, _cls=cls, **k:
+                            seen.append(path) or _cls(path, *a, **k))
+    monkeypatch.chdir(tmp_path)
+    result = main(argv + [f"--{net}_model_dir", os.path.join(REPO, orbax)])
+    assert os.path.join(REPO, orbax) in seen
+    assert [s["page"] for s in result["skipped"]] == ["x.png"] and result["clustered"] == []
     with pytest.raises(ValueError, match=f"--{net}_model or --{net}_model_dir"):
         main(argv + [f"--{net}_model", "x.npz", f"--{net}_model_dir", "x.frozen"])

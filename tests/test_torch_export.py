@@ -286,7 +286,7 @@ def test_run_export_from_a_trainer_checkpoint(tmp_path):
     trainer; ``RelationPredictor`` serves it with the trainer's
     confidences, and ``run_gnn_clustering`` takes it as ``--model_dir``."""
     from citlab_as_tpu_torch.cli import run_export
-    from citlab_as_tpu_torch.cli.common import UnsupportedFlag, model_path
+    from citlab_as_tpu_torch.cli.common import model_path
     from citlab_as_tpu_torch.train.input_pipeline import torch_batch
     from citlab_as_tpu_torch.train.trainer import TrainerGNN
     rng = np.random.RandomState(10)
@@ -315,8 +315,13 @@ def test_run_export_from_a_trainer_checkpoint(tmp_path):
         got = pred.confidences(graph)
         np.testing.assert_allclose(got, want.reshape(n, n), rtol=0, atol=1e-6)
     assert model_path(None, out) == out and model_path("m.npz", None) == "m.npz"
-    with pytest.raises(UnsupportedFlag, match="--model_dir"):
-        model_path(None, model_dir)
+    # a trainer's model directory is taken as --model_dir (the JAX CLIs'
+    # orbax directories and the port's own): its newest step's params
+    assert model_path(None, model_dir) == model_dir
+    direct = RelationPredictor(model_dir, device="cpu")
+    for path in paths:
+        graph = next(trainer.input_fn.eval_batches([path]))[2]
+        np.testing.assert_array_equal(direct.confidences(graph), pred.confidences(graph))
     with pytest.raises(ValueError, match="not both"):
         model_path("m.npz", out)
 

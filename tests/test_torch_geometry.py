@@ -19,6 +19,7 @@ import citlab_as_tpu_torch.geometry.rectangle as tr
 import citlab_as_tpu_torch.utils.mathutil as tm
 
 from tests.test_booleans import _star_polygon, rect
+from tests.torch_jax_native import jax_native  # noqa: F401  (fixture: the JAX native oracle)
 
 
 def _pairs(n=12, seed=7):
@@ -47,6 +48,7 @@ FIXED = {
 CASES = dict(FIXED, **{f"star{i}": ab for i, ab in enumerate(_pairs())})
 
 
+@pytest.mark.usefixtures("jax_native")
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_region_booleans_equal(name):
     a, b = CASES[name]
@@ -67,6 +69,7 @@ def test_region_booleans_equal(name):
     assert [tb.point_in_polygon(p, a) for p in line] == [jb.point_in_polygon(p, a) for p in line]
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_rasterize_and_hole_conversion_equal():
     rings = [rect(0, 0, 100, 100), rect(20, 20, 60, 60), rect(70, 70, 72, 72)]
     np.testing.assert_array_equal(tb.rasterize_rings(rings, (0, 0), (100, 100)),
@@ -90,6 +93,7 @@ def _as_tuple(poly):
     return (list(poly.x_points), list(poly.y_points), poly.n_points)
 
 
+@pytest.mark.usefixtures("jax_native")
 @pytest.mark.parametrize("n", [3, 40])
 def test_norm_poly_dists_equal(n):
     """n = 40 takes the JAX package's host C route when that library is

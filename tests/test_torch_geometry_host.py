@@ -27,6 +27,7 @@ from citlab_as_tpu_torch.geometry.polygon import Polygon, norm_poly_dists
 from citlab_as_tpu_torch.geometry.util import alpha_shape, alpha_shape_plain
 from citlab_as_tpu_torch.ops.kernels import build
 from citlab_as_tpu_torch.stages.baseline_clustering import cluster_features_plain
+from tests.torch_jax_native import jax_native  # noqa: F401  (fixture: the JAX native oracle)
 
 
 def _random_baselines(seed):
@@ -70,10 +71,9 @@ def _polys(kind, seed):
             [JPolygon.from_arrays(np.asarray(x), np.asarray(y)) for x, y in raw])
 
 
-@pytest.fixture(autouse=True)
-def _jax_native():
-    if jn.get_lib() is None:
-        pytest.skip("the JAX package's native library did not build")
+# every test here holds the port's host library to the JAX package's
+# native one: the shared fixture fails by name where that is not loaded
+pytestmark = pytest.mark.usefixtures("jax_native")
 
 
 @pytest.mark.parametrize("kind,seed", CASES)

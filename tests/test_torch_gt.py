@@ -43,6 +43,7 @@ from citlab_as_tpu_torch.stages import bnl_ground_truth as tbnl
 from citlab_as_tpu_torch.stages import ground_truth as tgt
 from citlab_as_tpu_torch.utils import draw
 from citlab_as_tpu_torch.utils import io as tio
+from tests.torch_jax_native import jax_native  # noqa: F401  (fixture: the JAX native oracle)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = torch.device("cpu")
@@ -366,6 +367,7 @@ def test_article_rectangles_equal_jax(corpus, stretch, use_surr):
             {k: [p.as_list() for p in v] for k, v in s_want.items()}
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_article_subregions_and_blank_rectangles_equal_jax(corpus):
     from citlab_as_tpu.pagexml import Page as JPage
     from citlab_as_tpu_torch.pagexml import Page

@@ -18,6 +18,7 @@ import sys
 import numpy as np
 import pytest
 import torch
+from tests.torch_jax_native import jax_native  # noqa: F401  (fixture: the JAX native oracle)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -88,6 +89,7 @@ def _polys(page_path):
     return [p for polys in get_data_from_pagexml(page_path).values() for p in polys]
 
 
+@pytest.mark.usefixtures("jax_native")
 @pytest.mark.parametrize("seed", range(6))
 def test_calc_tols_equals_numpy_and_jax(tmp_path, seed):
     from citlab_as_tpu.geometry.pairwise import calc_tols as jcalc
@@ -140,6 +142,7 @@ def _lists(root, gt_files, hy_files):
     return gt_lst, hy_lst
 
 
+@pytest.mark.usefixtures("jax_native")
 @pytest.mark.parametrize("tol_args", [[], ["--min_tol", "10", "--max_tol", "30"]])
 def test_run_measure_equals_jax_on_random_pages(tmp_path, tol_args):
     from citlab_as_tpu.cli.run_measure import main as jmain
@@ -188,6 +191,7 @@ def demo_run(tmp_path_factory):
     return _lists(work, [gt_path], [result["clustered"][0]])
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_run_measure_equals_jax_on_the_demo_page(demo_run):
     from citlab_as_tpu.cli.run_measure import main as jmain
     from citlab_as_tpu_torch.cli.run_measure import main as tmain

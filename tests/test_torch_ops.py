@@ -16,6 +16,7 @@ from citlab_as_tpu_torch.ops import contours as tcontours
 from citlab_as_tpu_torch.ops import morphology as tmorph
 from citlab_as_tpu_torch.ops import resize as tresize
 from citlab_as_tpu_torch.stages import separator as tsep
+from tests.torch_jax_native import jax_native  # noqa: F401  (fixture: the JAX native oracle)
 
 # the JAX package's ops/__init__ re-exports functions under module names
 jcc = importlib.import_module("citlab_as_tpu.ops.connected_components")
@@ -108,6 +109,7 @@ def test_scaling_factor_matches():
         assert tresize.get_scaling_factor(*args) == get_scaling_factor(*args)
 
 
+@pytest.mark.usefixtures("jax_native")
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_trace_contours_identical_rings(seed):
     m = _blobs(60, 80, seed, density=0.15)

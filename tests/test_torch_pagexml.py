@@ -13,6 +13,7 @@ import citlab_as_tpu_torch.stages.separator_writer as twriter
 
 from tests.test_heading_stage import PAGE_XML as HEADING_XML
 from tests.test_pagexml import EXOTIC_TRANSKRIBUS, SAMPLE
+from tests.torch_jax_native import jax_native  # noqa: F401  (fixture: the JAX native oracle)
 
 SIDES = ((jx, jpage, jwriter), (tx, tpage, twriter))
 
@@ -253,6 +254,7 @@ def _write_png(path, h, w):
     Image.fromarray(np.full((h, w), 255, np.uint8)).save(path)
 
 
+@pytest.mark.usefixtures("jax_native")
 @pytest.mark.parametrize("page_exists", [True, False])
 def test_separator_writer_bytes_equal(tmp_path, page_exists):
     """Same polygons dict in, same file out, including a text line split at

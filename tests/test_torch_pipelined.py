@@ -31,6 +31,7 @@ from citlab_as_tpu_torch.cli import run_full_workflow as workflow  # noqa: E402
 from citlab_as_tpu_torch.inference import (  # noqa: E402
     RelationPredictor, SegmentationPredictor,
 )
+from tests.torch_jax_native import jax_native  # noqa: F401  (fixture: the JAX native oracle)
 
 NPZ = os.path.join(REPO, "models_ckpt_torch")
 N_PAGES = 5
@@ -122,6 +123,7 @@ def _benign_fn(image_grey):
     return prob
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_pipelined_matches_jax_sequential_with_injected_nets(tmp_path, monkeypatch):
     """Same net outputs (numpy predictors) and the trained relation GNN:
     the port's pipelined driver writes every file the JAX package's

@@ -17,7 +17,8 @@ NETS = ("separator", "heading")
 GNN_NETS = ("gnn", "gnn_pipeline")
 FORBIDDEN = ("jax", "jaxlib", "flax", "orbax", "optax", "citlab_as_tpu",
              "sklearn", "lxml", "PIL", "shapely", "openpyxl", "matplotlib",
-             "msgpack", "nltk", "gensim", "tensorflow", "google")
+             "msgpack", "nltk", "gensim", "tensorflow", "google",
+             "tensorstore", "zstandard", "zstd")
 
 
 def _npz(net):
@@ -507,3 +508,37 @@ def test_chip_smoke_refuses_without_cuda_and_alone(tmp_path):
                            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))
         assert r.returncode != 0
         assert '"ok"' not in r.stdout
+
+
+def test_reading_orbax_checkpoints_loads_no_forbidden_module():
+    """In a fresh process, every committed orbax checkpoint restored, the
+    predictors loaded from ``models_ckpt/`` and one frozen from it: none of
+    jax, orbax, tensorstore, zstandard, a CRC or hash package, zarr or
+    another forbidden module loads (``google``'s namespace package aside,
+    which the interpreter's site setup imports)."""
+    code = r"""
+import glob, os, sys, tempfile
+import numpy as np, torch
+from citlab_as_tpu_torch.train.orbax import restore
+from citlab_as_tpu_torch.train.checkpoint import checkpoint_variables, restore_checkpoint
+from citlab_as_tpu_torch.train.export import export_checkpoint_frozen
+from citlab_as_tpu_torch.inference import SegmentationPredictor
+dirs = sorted(os.path.dirname(p) for p in glob.glob("models_ckpt/**/_METADATA", recursive=True))
+assert len(dirs) == 9
+for d in dirs:
+    assert restore(d)
+state, step = restore_checkpoint("models_ckpt/gnn")
+assert step == 29 and "opt_state" in state
+SegmentationPredictor("models_ckpt/separator", device="cpu")
+variables, _ = checkpoint_variables("models_ckpt/gnn_visual/best/f1")
+assert len(variables) == 36
+with tempfile.TemporaryDirectory() as tmp:
+    export_checkpoint_frozen("models_ckpt/heading", os.path.join(tmp, "h.frozen"), "arunet")
+bad = sorted(m for m in sys.modules if m.split(".")[0] in %r)
+print("LOADED", bad)
+""" % (tuple(m for m in FORBIDDEN if m != "google")    # site loads google's namespace
+       + ("google_crc32c", "xxhash", "ml_dtypes", "numcodecs", "zarr"),)
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "LOADED []" in r.stdout, r.stdout

@@ -19,6 +19,7 @@ from citlab_as_tpu.stages import separator as jsep
 from citlab_as_tpu_torch.inference import SegmentationPredictor
 from citlab_as_tpu_torch.stages import separator as tsep
 from citlab_as_tpu_torch.weights import load_npz
+from tests.torch_jax_native import jax_native  # noqa: F401  (fixture: the JAX native oracle)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SEP_NPZ = os.path.join(REPO, "models_ckpt_torch", "separator.npz")
@@ -72,6 +73,7 @@ def test_fused_chain_matches_jax(jax_fused, predictor, kernels):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_stage_polygons_match_jax(jax_fused, predictor):
     """SeparatorNetPostProcessor.run_batched (grouping, dispatch, readback,
     contours, rescale) gives the polygons dicts the JAX chain + JAX host

@@ -24,6 +24,7 @@ from citlab_as_tpu.stages import textblock_postprocess as jpost
 from citlab_as_tpu.stages import textblock_similarity as jsim
 from citlab_as_tpu_torch.stages import textblock_postprocess as tpost
 from citlab_as_tpu_torch.stages import textblock_similarity as tsim
+from tests.torch_jax_native import jax_native  # noqa: F401  (fixture: the JAX native oracle)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -149,6 +150,7 @@ def _probability_map(seed, h=160, w=130):
     return np.stack([prob, 1.0 - prob], axis=-1)
 
 
+@pytest.mark.usefixtures("jax_native")
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_text_block_post_processor_equals_jax(seed):
     net_output = _probability_map(seed)

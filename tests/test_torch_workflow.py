@@ -26,6 +26,7 @@ import torch
 
 from citlab_as_tpu.pagexml import page as jpage
 from citlab_as_tpu_torch.pagexml import page as tpage
+from tests.torch_jax_native import jax_native  # noqa: F401  (fixture: the JAX native oracle)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
@@ -100,6 +101,7 @@ def regioned(tmp_path_factory):
     return root, images
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_cluster_page_and_text_regions_byte_equal(tmp_path):
     from citlab_as_tpu.stages import baseline_clustering as jbc
     from citlab_as_tpu.stages import textregion as jtr
@@ -185,6 +187,7 @@ def _headline_page(root, spacing=24, w=710, h=1000):
     return path
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_text_regions_above_the_page_edge(tmp_path):
     """The first line of a sub-column with a headline right under it: its
     interline distance reaches past the headline, the text-region rule
@@ -407,6 +410,7 @@ def _benign_fn(image_grey):
     return prob
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_run_full_workflow_byte_equal_with_injected_nets(tmp_path):
     """Both drivers with the same net outputs (numpy predictors) and the
     trained relation GNN (flax checkpoint / converted npz): every written
@@ -440,6 +444,7 @@ def test_run_full_workflow_byte_equal_with_injected_nets(tmp_path):
         assert lines and all(tl.get_article_id() for tl in lines)
 
 
+@pytest.mark.usefixtures("jax_native")
 def test_converted_checkpoints_reach_article_f1(tmp_path):
     """The port with the converted separator, heading and gnn checkpoints
     on the demo page of tests/test_trained_models.py (RandomState(11)), one
