@@ -157,17 +157,21 @@ result):
    (losses within 1e-4 relative), then bf16 compute with float32 weights,
    3 steps off the clock and 10 timed, 2 eval steps (gates: K1 69 launches
    per train step and per eval step, finite losses, the first within 2e-2
-   of the f32 one, the best export predicts through
-   ``SegmentationPredictor``); one step's device time split under
+   of the f32 one; the numbered step and best/accuracy, orbax checkpoints
+   the port writes, read back equal to the trainer's live state bit for
+   bit; the best export's directory predicts through
+   ``SegmentationPredictor``);
+   one step's device time split under
    ``torch.profiler`` (K1 forward, the K1 convs' cuDNN backward, other
    convs, optimizer, rest; idle share) and the weight cast and repack cost.
    Then the relation-GNN trainer (``train/trainer.py``) from the converted
    ``gnn`` weights on feature JSONs the feature stage writes from 8 drawn
    pages with article ids: 4 steps on the card and on the CPU (mean loss
    within 1e-5 relative), one epoch (batch 16 and 300 relations, the
-   defaults; 128 steps; steps/s), ``run_lav`` (finite best F1), the
-   exported ``.npz`` in ``RelationPredictor`` against the trainer's
-   confidences (1e-5). Last, ``run_train_segmentation`` and
+   defaults; 128 steps; steps/s; its step and best/f1 read back equal to
+   its live state bit for bit), ``run_lav`` (finite best F1), the best/f1
+   directory in ``RelationPredictor`` against the trainer's confidences
+   (1e-5). Last, ``run_train_segmentation`` and
    ``run_train_gnn`` with tiny epochs and no ``--device`` train on the card;
 14. gt_eval: ground truth and evaluation. The port's generators (region GT
    with TextRegion and SeparatorRegion at scale 1 and at half resolution,
@@ -236,20 +240,27 @@ result):
    article id on every line, K1 1104 and K2 4; the files byte-equal to the
    pipelined phase's where the sharded forward is bit for bit, else their
    differences printed);
-18. orbax: the JAX package's orbax checkpoints read here, where neither
-   orbax nor tensorstore nor zstandard is installed, by the port's own
-   zstd, OCDBT and zarr v2 code (``train/orbax.py``): the 9 committed
-   directories of ``models_ckpt/`` restored (ms per directory, warm page
-   cache, and the host's zstd MB/s over all their chunks, printed), every
-   array of the 5 converted ``models_ckpt_torch/*.npz`` equal to its
-   directory's bit for bit; the workflow CLI over the workflow phase's 8
+18. orbax: the JAX package's orbax checkpoints read and written here, where
+   neither orbax nor tensorstore nor zstandard is installed (checked at the
+   phase's start and end), by the port's own zstd, OCDBT and zarr code
+   (``train/orbax.py``): the 9 committed directories of ``models_ckpt/``
+   restored (ms per directory, warm page cache, and the host's zstd MB/s
+   over all their chunks, printed), every array of the 5 converted
+   ``models_ckpt_torch/*.npz`` equal to its directory's bit for bit; each
+   directory re-written by the port (write ms, bytes against the committed
+   directory, at most 1.10 x, and the host's zstd-frame writing MB/s,
+   printed) and read back bit for bit with the committed ``_METADATA``;
+   the zarr v3 checkpoint ``tests/data/torch_orbax_zarr3`` equal to
+   ``models_ckpt/gnn/best/f1``; the workflow CLI over the workflow phase's 8
    pages with ``--separator_model_dir models_ckpt/separator
    --heading_model_dir models_ckpt/heading --gnn_model_dir
    models_ckpt/gnn/best/f1`` writing the ``--*_model`` (``.npz``) run's files
    byte for byte, K1 276 and K2 2 launches in each run; one relation-GNN
    train step resumed from a copy of ``models_ckpt/gnn`` (its step 29 and
    ``current_epoch.info``): the epoch after the saved one, a finite loss,
-   adam's count carried on by one.
+   adam's count carried on by one; the segmentation trainer at the
+   separator's width resumed for one bf16 step from the orbax step it
+   wrote itself (K1 69 launches under autograd, adam's count on by one).
 
 The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
 """
@@ -2398,6 +2409,32 @@ def profile_train_step(step, params, opt_state, batch, dev):
             "split_ms": split, "rest_by_op_ms": top_rest, "top_kernels_ms": top_kernels}
 
 
+def host_bytes(value):
+    """A leaf's bytes on the host (a bf16 tensor's 16-bit patterns)."""
+    import torch
+    if isinstance(value, torch.Tensor):
+        value = value.detach().cpu()
+        if value.dtype == torch.bfloat16:
+            value = value.view(torch.int16)
+        value = value.numpy()
+    value = np.asarray(value)
+    return value.dtype.str, value.shape, value.tobytes()
+
+
+def check_written(label, path, live):
+    """The orbax checkpoint the port wrote at ``path`` (no ``checkpoint.npz``
+    in it) read back by the port's reader equal to ``live``, the tree it
+    was written from, bit for bit; returns the number of arrays."""
+    from citlab_as_tpu_torch.train import orbax
+    check(orbax.is_orbax_checkpoint(path) and "checkpoint.npz" not in os.listdir(path),
+          f"{label}: {path} is not an orbax checkpoint")
+    got, want = orbax.named_arrays(orbax.restore(path)), orbax.named_arrays(live)
+    check(sorted(got) == sorted(want), f"{label}: {path} holds other arrays than written")
+    bad = [k for k in want if host_bytes(got[k]) != host_bytes(want[k])]
+    check(not bad, f"{label}: {path} reads back other values at {bad[:3]}")
+    return len(want)
+
+
 def train_segmentation(dev, root):
     """The segmentation trainer at the separator net's full width (ARU,
     featRoot 8, 5 scales, res_depth 3), bf16 compute with float32 weights,
@@ -2412,7 +2449,7 @@ def train_segmentation(dev, root):
     from citlab_as_tpu_torch.train import seg_trainer
     from citlab_as_tpu_torch.train.input_pipeline import torch_batch
     from citlab_as_tpu_torch.train.segmentation import make_train_step
-    from citlab_as_tpu_torch.weights import load_npz
+    from citlab_as_tpu_torch.weights import arunet_flax_from_state_dict, load_npz
 
     gt = write_seg_gt(os.path.join(root, "seg_gt"), SEG_GT_PAGES, TRAIN_PAGE_SHAPE, seed=31)
     init = load_npz(os.path.join(REPO, "models_ckpt_torch", "separator.npz"))
@@ -2471,11 +2508,19 @@ def train_segmentation(dev, root):
               f"losses {[round(v, 5) for v in bf16]}; first loss vs f32 {first:.3g} (limit "
               f"2e-2); eval {json.dumps({k: v for k, v in result['history'][-1].items()})}; "
               f"trainer seconds {json.dumps({k: round(v, 3) for k, v in trainer.timings.items()})}")
+        state = result["state"]
+        live = ckpt.trainer_state(state["params"], state["opt_state"], state["ema"],
+                                  arunet_flax_from_state_dict)
         best = ckpt.best_path(model_dir, "accuracy")
+        n_step = check_written("train", os.path.join(model_dir, "0"), live)
+        n_best = check_written("train", best, live["params"])
         pred = SegmentationPredictor(best, device=dev)
         probs = pred(synthetic_pages(1, 512, 384, seed=3)[0][0].astype(np.float32) / 255.0)
         check(probs.shape == (512, 384, 2) and np.isfinite(probs).all(),
               "train: the exported separator does not predict")
+        print(f"train: the segmentation trainer's orbax step ({n_step} arrays) and "
+              f"best/accuracy ({n_best}) read back equal to its live state bit for bit; "
+              f"best/accuracy served by SegmentationPredictor")
 
         # 3. one step under the profiler, and the weight cast + repack cost
         class Labelled:
@@ -2487,7 +2532,6 @@ def train_segmentation(dev, root):
                 with record_function(LABEL):
                     return self.opt.step(*args)
 
-        state = result["state"]
         batch = torch_batch(next(trainer.train_ds.batches(SEG_BATCH, 1)), dev)
         prof = profile_train_step(make_train_step(trainer.model, Labelled(trainer.optimizer)),
                                   state["params"], state["opt_state"], batch, dev)
@@ -2571,7 +2615,7 @@ def train_gnn(dev, root):
     from citlab_as_tpu_torch.train import checkpoint as ckpt
     from citlab_as_tpu_torch.train.input_pipeline import torch_batch
     from citlab_as_tpu_torch.train.trainer import TrainerGNN
-    from citlab_as_tpu_torch.weights import load_npz
+    from citlab_as_tpu_torch.weights import gnn_flax_from_state_dict, load_npz
 
     jsons = gnn_corpus(os.path.join(root, "gnn_corpus"))
     train, evl = jsons[:-2], jsons[-2:]
@@ -2598,6 +2642,13 @@ def train_gnn(dev, root):
                          flags={"epochs": 1, "samples_per_epoch": GNN_EPOCH_SAMPLES},
                          seed=0, device=dev, init_params=init)
     result = trainer.train()
+    state = result["state"]
+    live = ckpt.trainer_state(state["params"], state["opt_state"], state["ema"],
+                              gnn_flax_from_state_dict)
+    n_step = check_written("train", os.path.join(model_dir, "0"), live)
+    n_best = check_written("train", ckpt.best_path(model_dir, "f1"), live["params"])
+    print(f"train: the relation-GNN trainer's orbax step ({n_step} arrays) and best/f1 "
+          f"({n_best}) read back equal to its live state bit for bit")
     steps = trainer.steps_per_epoch
     steps_per_s = steps / trainer.timings["steps"]
     print(f"train: relation GNN one epoch (batch 16, 300 relations, {steps} steps): "
@@ -2612,8 +2663,8 @@ def train_gnn(dev, root):
     want = trainer.predict(torch_batch(batch_np, dev)).cpu().numpy()[0, :n * n].reshape(n, n)
     got = RelationPredictor(ckpt.best_path(model_dir, "f1"), device=dev).confidences(graph)
     worst = float(np.abs(got - want).max())
-    print(f"train: run_lav best_f1 {lav['best_f1']:.4f}; the exported .npz in "
-          f"RelationPredictor vs the trainer's confidences max abs {worst:.3g} (limit 1e-5)")
+    print(f"train: run_lav best_f1 {lav['best_f1']:.4f}; best/f1 in RelationPredictor vs "
+          f"the trainer's confidences max abs {worst:.3g} (limit 1e-5)")
     check(worst <= 1e-5, f"train: exported GNN confidences differ by {worst}")
     return {"steps_per_s": steps_per_s, "card_vs_cpu_rel": rel, "best_f1": lav["best_f1"],
             "train_list": train, "eval_list": evl}
@@ -3867,7 +3918,7 @@ def phase_orbax(dev):
     from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
     from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
     from citlab_as_tpu_torch.train import checkpoint as ckpt
-    from citlab_as_tpu_torch.train.orbax import restore
+    from citlab_as_tpu_torch.train.orbax import restore, save
     from citlab_as_tpu_torch.train.trainer import TrainerGNN
     from citlab_as_tpu_torch.utils import io as port_io
     from citlab_as_tpu_torch.utils import zstd
@@ -3905,6 +3956,45 @@ def phase_orbax(dev):
             check(g.dtype == v.dtype and g.shape == v.shape and g.tobytes() == v.tobytes(),
                   f"orbax: {d}:{k} differs from {npz}.npz")
     print(f"orbax: the 5 converted .npz equal their orbax directories' variables bit for bit")
+
+    # the port's writer: each committed directory's tree, its arrays held as
+    # tensors (jax.Arrays, as orbax wrote them), written again and read back
+    contents = [zstd.decompress(f) for f in frames]
+    t0 = time.perf_counter()
+    framed = [zstd.compress(c) for c in contents]
+    frame_s = time.perf_counter() - t0
+    check(all(zstd.decompress(f) == c for f, c in zip(framed, contents)),
+          "orbax: a written zstd frame does not decode to its content")
+    write_ms, sizes = {}, {}
+    out_root = tempfile.mkdtemp(prefix="chip_smoke_orbax_write_")
+    try:
+        for d in ORBAX_DIRS:
+            src = os.path.join(REPO, "models_ckpt", d)
+            tree = tensors(restore(src))
+            t0 = time.perf_counter()
+            out = save(os.path.join(out_root, d.replace("/", "_")), tree)
+            write_ms[d] = round((time.perf_counter() - t0) * 1e3, 3)
+            check_written("orbax", out, tree)
+            with open(os.path.join(src, "_METADATA")) as f, \
+                    open(os.path.join(out, "_METADATA")) as g:
+                check(json.load(f) == json.load(g), f"orbax: {d} re-written has another "
+                      "_METADATA")
+            sizes[d] = [dir_bytes(out), dir_bytes(src)]
+            check(sizes[d][0] <= 1.10 * sizes[d][1],
+                  f"orbax: {d} re-written takes {sizes[d][0]} bytes, the committed "
+                  f"{sizes[d][1]} (limit 1.10 x)")
+    finally:
+        shutil.rmtree(out_root, ignore_errors=True)
+    print(f"orbax: the 9 directories re-written by the port and read back bit for bit, "
+          f"_METADATA as committed; write ms per directory {json.dumps(write_ms)}; bytes "
+          f"[written, committed] {json.dumps(sizes)}; host zstd frames written "
+          f"{raw / frame_s / 1e6:.1f} MB/s ({raw} -> {sum(map(len, framed))} bytes in "
+          f"{frame_s * 1e3:.3f} ms, raw and RLE blocks)")
+    v3 = os.path.join(REPO, "tests", "data", "torch_orbax_zarr3")
+    n_v3 = check_written("orbax", v3, restore(os.path.join(REPO, "models_ckpt", "gnn", "best",
+                                                              "f1")))
+    print(f"orbax: the zarr v3 checkpoint tests/data/torch_orbax_zarr3 reads equal to "
+          f"models_ckpt/gnn/best/f1 ({n_v3} arrays) bit for bit")
 
     root = tempfile.mkdtemp(prefix="chip_smoke_orbax_")
     try:
@@ -3959,9 +4049,78 @@ def phase_orbax(dev):
         check(np.isfinite(loss), f"orbax: resumed step loss {loss}")
         check(out["state"]["opt_state"]["count"] == count + 1,
               "orbax: the resumed optimizer did not carry adam's count")
+        resume = resume_segmentation_step(dev, root)
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"launches": launches, "read_ms": read_ms, "zstd_mb_per_s": raw / zstd_s / 1e6}
+    for name in ("orbax", "tensorstore", "zstandard", "jax"):
+        check(name not in sys.modules, f"orbax: {name} is loaded")
+    return {"launches": launches, "resume_launches": resume, "read_ms": read_ms,
+            "zstd_mb_per_s": raw / zstd_s / 1e6, "write_ms": write_ms, "bytes": sizes,
+            "zstd_write_mb_per_s": raw / frame_s / 1e6}
+
+
+def tensors(tree):
+    """A restored tree with its numpy arrays as tensors (bf16 leaves are
+    tensors already)."""
+    import torch
+    if isinstance(tree, dict):
+        return {k: tensors(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tensors(v) for v in tree]
+    return torch.from_numpy(tree) if isinstance(tree, np.ndarray) else tree
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, names in os.walk(path)
+               for f in names)
+
+
+def resume_segmentation_step(dev, root):
+    """The segmentation trainer at the separator's width writes one bf16
+    step (2 x 256 x 256 crops) as an orbax checkpoint; a new trainer with
+    nothing left to train holds that state bit for bit, and one with one
+    more epoch resumes it for one step: K1 69 launches under autograd
+    (counted from 0 just before it), adam's count carried on by one."""
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.train import checkpoint as ckpt
+    from citlab_as_tpu_torch.train.seg_trainer import TrainerSegmentation
+    from citlab_as_tpu_torch.weights import arunet_flax_from_state_dict, load_npz
+
+    gt = write_seg_gt(os.path.join(root, "seg_gt"), 2, TRAIN_PAGE_SHAPE, seed=41)
+    model_dir = os.path.join(root, "seg_run")
+    flags = {"epochs": 1, "steps_per_epoch": 1, "batch_size": 2, "crop_size": (256, 256)}
+
+    def run(epochs, init=None):
+        out = TrainerSegmentation(model_dir, gt, flags=dict(flags, epochs=epochs), seed=0,
+                                  device=dev, init_params=init).train()
+        state = out["state"]
+        return out, ckpt.trainer_state(state["params"], state["opt_state"], state["ema"],
+                                       arunet_flax_from_state_dict)
+
+    first, written = run(1, load_npz(os.path.join(REPO, "models_ckpt_torch",
+                                                  "separator.npz")))
+    n = check_written("orbax", os.path.join(model_dir, "0"), written)
+    held, live = run(1)
+    check(held["history"] == [], "orbax: a trainer with nothing left to train trained")
+    check_written("orbax", os.path.join(model_dir, "0"), live)
+    count = first["state"]["opt_state"]["count"]
+    k1.launches = k2.launches = 0
+    t0 = time.perf_counter()
+    out, _ = run(2)
+    resume_s = time.perf_counter() - t0
+    launches = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+    loss = out["history"][0]["loss"] if out["history"] else float("nan")
+    print(f"orbax: segmentation trainer resumed from its own orbax step 0 ({n} arrays, "
+          f"read back bit for bit): one bf16 step, loss {loss!r}, adam count {count} -> "
+          f"{out['state']['opt_state']['count']}, launches {launches}, {resume_s:.3f} s")
+    check([r["epoch"] for r in out["history"]] == [1] and np.isfinite(loss),
+          f"orbax: the segmentation resume ran {out['history']}")
+    check(out["state"]["opt_state"]["count"] == count + 1,
+          "orbax: the resumed segmentation optimizer did not carry adam's count")
+    check(launches == {"conv3x3": 69, "separator_morphology": 0},
+          f"orbax: launches in the resumed segmentation step {launches}")
+    return launches
 
 
 def main() -> int:
@@ -4033,7 +4192,8 @@ def main() -> int:
              launches_models=models_row["launches"]["conv3x3"],
              launches_parallel=parallel_row["launches"]["conv3x3"],
              launches_spatial=spatial_row["launches"]["conv3x3"],
-             launches_orbax=orbax_row["launches"]["conv3x3"], **k1_row),
+             launches_orbax=orbax_row["launches"]["conv3x3"],
+             launches_orbax_resume=orbax_row["resume_launches"]["conv3x3"], **k1_row),
         dict(name="separator_morphology", route="cuda",
              source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
              replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
@@ -4050,7 +4210,9 @@ def main() -> int:
              launches_models=models_row["launches"]["separator_morphology"],
              launches_parallel=parallel_row["launches"]["separator_morphology"],
              launches_spatial=spatial_row["launches"]["separator_morphology"],
-             launches_orbax=orbax_row["launches"]["separator_morphology"], **k2_row),
+             launches_orbax=orbax_row["launches"]["separator_morphology"],
+             launches_orbax_resume=orbax_row["resume_launches"]["separator_morphology"],
+             **k2_row),
     ]
     # ``launches``: the in-memory main path's count; ``launches_files``: the
     # files-to-files path's; ``launches_workflow``: the whole workflow's;
@@ -4080,12 +4242,14 @@ def main() -> int:
     # devices (16 pages, 2 groups of 8: K1 69 x 2 nets x 2 row shards x 2
     # data rows x 2 groups = 1104, K2 4); ``launches_orbax``: the workflow
     # CLI's with the three --*_model_dir flags naming models_ckpt/ (8 pages,
-    # 2 groups of 4: K1 69 x 2 x 2 = 276, K2 2)
+    # 2 groups of 4: K1 69 x 2 x 2 = 276, K2 2); ``launches_orbax_resume``: the
+    # segmentation step resumed from the port's own orbax step (K1 69, K2 0)
     keys = ("name", "route", "source", "replaces", "launches", "launches_files",
             "launches_workflow", "launches_pipelined", "launches_visual", "launches_formats",
             "launches_variants", "launches_blind", "launches_train", "launches_gt_eval",
             "launches_models", "launches_parallel", "launches_spatial", "launches_orbax",
-            "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+            "launches_orbax_resume", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

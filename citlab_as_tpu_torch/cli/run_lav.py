@@ -1,10 +1,10 @@
 """LAV CLI: load-and-validate a relation model the port trained (port of
 ``citlab_as_tpu/cli/run_lav.py``; reference: gnn/trainer/lav_rel.py).
 
-Restores ``params`` from the newest checkpoint of ``--model_dir``, the
-JAX package's orbax steps (read without orbax, ``train/orbax.py``) or the
-port's ``checkpoint.npz`` (``train/checkpoint.py``), as the JAX CLI restores
-them. ``--device`` (default cuda) picks where the net runs."""
+Restores ``params`` from the newest checkpoint of ``--model_dir``, an
+orbax step the JAX package or the port wrote (read without orbax,
+``train/orbax.py``) or an earlier port run's ``checkpoint.npz``
+(``train/checkpoint.py``), as the JAX CLI restores them. ``--device`` (default cuda) picks where the net runs."""
 from __future__ import annotations
 
 import argparse

@@ -4,7 +4,9 @@ reference: gnn/trainer/trainer_rel.py:62-69).
 The JAX CLI's flags and defaults, plus ``--device`` (default cuda). A
 ``--model_dir`` the JAX trainer wrote (orbax steps, ``current_epoch.info``)
 resumes here, its optax state carried over (``train/checkpoint.py``); the
-port then writes its own ``checkpoint.npz`` steps there. As the
+port writes its steps and best exports there as the JAX trainer does
+(orbax checkpoints, ``train/orbax.py``), so the JAX package resumes and
+serves them. As the
 JAX CLI, it first brings up multi-process ``torch.distributed`` when a
 coordinator is configured (``parallel/mesh.py::initialize_multihost``;
 torchrun's variables; a no-op in one process); the trainer itself, as the

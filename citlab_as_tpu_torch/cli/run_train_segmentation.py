@@ -4,14 +4,16 @@
 The JAX CLI's flags and defaults, plus ``--device`` (default cuda). A
 ``--model_dir`` the JAX trainer wrote (orbax steps, ``current_epoch.info``)
 resumes here, its optax state carried over (``train/checkpoint.py``); the
-port then writes its own ``checkpoint.npz`` steps there. As the
+port writes its steps there as the JAX trainer does (orbax checkpoints,
+``train/orbax.py``), so the JAX package resumes and serves them. As the
 JAX CLI, it first brings up multi-process ``torch.distributed`` when a
 coordinator is configured (``parallel/mesh.py::initialize_multihost``;
 torchrun's variables; a no-op in one process); the trainer itself, as the
 JAX one, trains on one device and shards no batch. The net trains in
 bf16 compute with float32 weights, as the JAX trainer's; the best export
-``<model_dir>/best/accuracy/checkpoint.npz`` loads into
-``SegmentationPredictor``."""
+``<model_dir>/best/accuracy`` (the net's variables) loads into
+``SegmentationPredictor`` and the workflow's ``--separator_model_dir``, and
+freezes with ``run_export`` into a ``.frozen``."""
 from __future__ import annotations
 
 import argparse

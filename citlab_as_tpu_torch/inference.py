@@ -32,12 +32,12 @@ from citlab_as_tpu_torch.weights import arunet_state_dict_from_flax, gnn_state_d
 logger = logging.getLogger(__name__)
 
 
-def _variables(model_path: str, numbered_only: bool) -> Dict[str, np.ndarray]:
+def _variables(model_path: str, bare_state_ok: bool) -> Dict[str, np.ndarray]:
     """float32 flat flax variables of a converted ``.npz`` or a model
     directory (``train.checkpoint.checkpoint_variables``: the JAX package's
     orbax checkpoints or the port's)."""
     from citlab_as_tpu_torch.train.checkpoint import checkpoint_variables
-    flat, _ = checkpoint_variables(model_path, numbered_only)
+    flat, _ = checkpoint_variables(model_path, bare_state_ok)
     # float32, as the JAX predictors restore into a float32 template (a bf16
     # leaf widens exactly)
     return {k: v.float().numpy() if isinstance(v, torch.Tensor) else np.asarray(v, np.float32)
@@ -54,7 +54,9 @@ class SegmentationPredictor:
     ``model_path``: a model directory, whose newest numbered step is read
     (the JAX package's orbax checkpoints, ``models_ckpt/separator``, or the
     port's own; its ``params`` subtree, as the JAX predictor restores it;
-    none raises ``FileNotFoundError``), a converted ``.npz``
+    a step's own directory raises ``FileNotFoundError``, as there), a best
+    export's directory (``best/<metric>``, the variables, which the JAX
+    predictor does not take), a converted ``.npz``
     (``scripts/convert_weights_to_torch.py``) or a ``.frozen`` artifact
     (``train/export.py``, written by either package), which brings its own
     architecture kwargs and compute dtype (float32 unless its kwargs say
@@ -81,7 +83,7 @@ class SegmentationPredictor:
             self.model = ARUNet(n_classes=n_classes, graph_params=graph_params)
             if model_path is not None:
                 self.model.load_state_dict(
-                    arunet_state_dict_from_flax(_variables(model_path, numbered_only=True)))
+                    arunet_state_dict_from_flax(_variables(model_path, bare_state_ok=False)))
                 logger.info("Loaded ARU-Net params from %s", model_path)
             else:
                 self.model.init_random(seed)
@@ -326,7 +328,7 @@ class RelationPredictor:
             assign_visual_features_to_edges=self.assign_edges)
         if self.model_path is not None:
             model.load_state_dict(gnn_state_dict_from_flax(
-                _variables(self.model_path, numbered_only=False)))
+                _variables(self.model_path, bare_state_ok=True)))
             logger.info("Loaded GNN params from %s", self.model_path)
         else:
             gen = torch.Generator().manual_seed(self.seed)

@@ -8,22 +8,24 @@ trainer_base.py:169-189, gnn/io.py:45-66), EMA shadow weights
 (util/warmstart.py:8-97), and the epoch loop both trainers run on them
 (:func:`run_epochs`).
 
-Saving is in the port's own format: a state is a nested dict whose leaves
-are tensors, arrays or numbers, flattened to ``/``-joined paths and saved as
-one ``checkpoint.npz`` per directory (``<ckpt_dir>/<step>/``,
-``<ckpt_dir>/best/<metric>/``), written to a temporary name and renamed
-into place. Reading takes that format or, where a directory holds no
-``checkpoint.npz``, the JAX package's orbax checkpoint there
-(``train/orbax.py``, no orbax needed), so a JAX run's ``--model_dir``
-restores, resumes and warm-starts the port: its optax ``opt_state``
-(``opt_state/0/mu/params/...``, ``opt_state/0/count``, the schedule's count
-and ``MultiSteps``' state) maps onto the port's :class:`Optimizer` state
-for adam, nadam, rmsprop and sgd. The trainers name every parameter by its
-flat flax path (``params/featMapG/unet_down_0/conv1/conv/kernel``,
-``weights.py``), so renames and include patterns read as in the JAX
-package, and a best export of a net's variables is an ``.npz`` in the
-``models_ckpt_torch/`` layout that ``SegmentationPredictor`` and
-``RelationPredictor`` load.
+Saving writes the JAX package's format: an orbax checkpoint per directory
+(``<ckpt_dir>/<step>/``, ``<ckpt_dir>/best/<metric>/``; ``train/orbax.py``,
+no orbax needed) holding the tree the JAX trainers save, so the JAX
+package restores, resumes, warm-starts and freezes a port run's
+``--model_dir``. :func:`trainer_state` gives that tree: ``{"params":
+variables, "opt_state": <optax state>, "ema": variables}`` with the flax
+nesting of the variables and optax's state of the chain
+``citlab_as_tpu/train/optimizer.py`` builds (``ScaleByAdamState``,
+``ScaleByRmsState``, ``EmptyState``, ``ScaleByScheduleState``, inside
+``MultiStepsState`` under gradient accumulation); a best export is the
+variables alone. Reading takes an orbax checkpoint, the JAX package's or
+the port's, or the ``checkpoint.npz`` that earlier port runs wrote; the
+optax state maps back onto the port's :class:`Optimizer` state for adam,
+nadam, rmsprop and sgd. The trainers name every parameter by its flat flax
+path (``params/featMapG/unet_down_0/conv1/conv/kernel``, ``weights.py``),
+so renames and include patterns read as in the JAX package;
+both predictors load a best export's directory or a model directory's
+newest step.
 """
 from __future__ import annotations
 
@@ -33,7 +35,7 @@ import os
 import re
 import shutil
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import Any, Callable, Dict, Iterator, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,6 +45,7 @@ from citlab_as_tpu_torch.train.optimizer import Optimizer
 
 logger = logging.getLogger(__name__)
 
+#: the single file of an earlier port run's checkpoint directory (read only)
 CHECKPOINT_FILE = "checkpoint.npz"
 
 
@@ -94,21 +97,10 @@ def unflatten(flat: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return out
 
 
-def _write(path: str, state) -> str:
-    path = os.path.abspath(path)
-    tmp = path + ".tmp"
-    shutil.rmtree(tmp, ignore_errors=True)
-    os.makedirs(tmp)
-    np.savez(os.path.join(tmp, CHECKPOINT_FILE), **flatten(state))
-    shutil.rmtree(path, ignore_errors=True)
-    os.replace(tmp, path)
-    return path
-
-
 def _read(path: str, template=None):
-    """The state saved in directory ``path``: its ``checkpoint.npz`` or,
-    without one, its orbax checkpoint (the tree orbax restores, sequences as
-    lists, where no template is given)."""
+    """The state saved in directory ``path``: its orbax checkpoint (the tree
+    orbax restores, sequences as lists, where no template is given) or an
+    earlier port run's ``checkpoint.npz``."""
     if os.path.isfile(os.path.join(path, CHECKPOINT_FILE)):
         with np.load(os.path.join(path, CHECKPOINT_FILE)) as data:
             flat = {k: data[k] for k in data.files}
@@ -136,8 +128,9 @@ def _read(path: str, template=None):
 # ---------------------------------------------------------------- numbered
 
 def save_checkpoint(ckpt_dir: str, step: int, state) -> str:
-    """Save ``state`` under <ckpt_dir>/<step>; keep the 2 newest steps."""
-    path = _write(os.path.join(ckpt_dir, str(step)), state)
+    """Save ``state`` as an orbax checkpoint under <ckpt_dir>/<step>; keep
+    the 2 newest steps."""
+    path = orbax.save(os.path.join(ckpt_dir, str(step)), state)
     _prune_checkpoints(ckpt_dir, keep=2)
     return path
 
@@ -168,29 +161,32 @@ def _prune_checkpoints(ckpt_dir: str, keep: int = 2) -> None:
         shutil.rmtree(os.path.join(ckpt_dir, str(step)), ignore_errors=True)
 
 
-def checkpoint_variables(path: str, numbered_only: bool = False
+def checkpoint_variables(path: str, bare_state_ok: bool = True
                          ) -> Tuple[Dict[str, Any], str]:
     """Flat variables (``params/...`` flax paths) of ``path`` and the path
     read, as the JAX package's predictors and exporter take them
     (``citlab_as_tpu/train/export.py``:112-139, ``inference.py``:51-58 and
     :227-240): an ``.npz`` file (``models_ckpt_torch/``); else the newest
-    numbered step under the directory or, where it has none and not
-    ``numbered_only``, the directory itself (a ``best/<metric>`` export),
-    each the port's ``checkpoint.npz`` or the JAX package's orbax
-    checkpoint. A trainer's state (``{params, opt_state, ...}``, or a
-    ``params`` subtree that holds ``params``) gives its ``params`` subtree,
-    a best export or converted weights the variables themselves."""
+    numbered step under the directory or, where it has none, the directory
+    itself, each an orbax checkpoint or an earlier port run's
+    ``checkpoint.npz``. A trainer's state (``{params, opt_state, ...}``, or
+    a ``params`` subtree that holds ``params``) gives its ``params``
+    subtree, a best export or converted weights the variables themselves.
+    A directory with no numbered step that holds a trainer's state (a
+    step's own directory) is refused unless ``bare_state_ok``, as the JAX
+    ``SegmentationPredictor`` refuses it; a best export is always read."""
     if os.path.isfile(path):
         with np.load(path) as data:
             flat = {k: data[k] for k in data.files}
-        target = path
+        target, bare = path, False
     else:
         step = latest_checkpoint_step(path)
-        if step is None and numbered_only:
-            raise FileNotFoundError(f"No checkpoint found in {path}")
         target = path if step is None else os.path.join(path, str(step))
-        flat = flatten(_read(target))
+        flat, bare = flatten(_read(target)), step is None
     if any(k.startswith(("opt_state/", "params/params/")) for k in flat):
+        if bare and not bare_state_ok:
+            raise FileNotFoundError(f"No checkpoint found in {path}: a trainer's step "
+                                    "is read from its model directory")
         flat = {k[len("params/"):]: v for k, v in flat.items() if k.startswith("params/")}
     return flat, os.path.abspath(target)
 
@@ -212,34 +208,98 @@ def is_better(metric_name: str, new: float, best: Optional[float]) -> bool:
 
 
 def best_path(ckpt_dir: str, metric_name: str) -> str:
-    """The ``.npz`` that :func:`export_best` writes for ``metric_name``."""
-    return os.path.join(os.path.abspath(ckpt_dir), "best", metric_name,
-                        CHECKPOINT_FILE)
+    """The directory that :func:`export_best` writes for ``metric_name``."""
+    return os.path.join(os.path.abspath(ckpt_dir), "best", metric_name)
 
 
 def export_best(ckpt_dir: str, metric_name: str, state) -> str:
-    """Copy the current state to best/<metric>/ (trainer_base.py:169-189)."""
-    return _write(os.path.join(ckpt_dir, "best", metric_name), state)
+    """Save ``state`` (the JAX trainers save the evaluated variables,
+    ``{"params": {...}}``) as best/<metric>/ (trainer_base.py:169-189)."""
+    return orbax.save(best_path(ckpt_dir, metric_name), state)
 
 
 def restore_best(ckpt_dir: str, metric_name: str, state_template=None):
-    return _read(os.path.join(os.path.abspath(ckpt_dir), "best", metric_name),
-                 state_template)
+    return _read(best_path(ckpt_dir, metric_name), state_template)
 
 
 # ---------------------------------------------------------------- trainer state
 
+class ScaleByAdamState(NamedTuple):
+    """optax's state of ``scale_by_adam`` (adam and nadam)."""
+    count: Any
+    mu: Any
+    nu: Any
+
+
+class ScaleByRmsState(NamedTuple):
+    """optax's state of ``scale_by_rms`` (rmsprop)."""
+    nu: Any
+
+
+class EmptyState(NamedTuple):
+    """optax's state of a stateless transformation (sgd's ``identity``)."""
+
+
+class ScaleByScheduleState(NamedTuple):
+    """optax's state of ``scale_by_learning_rate`` with a schedule."""
+    count: Any
+
+
+class MultiStepsState(NamedTuple):
+    """optax's state of ``MultiSteps`` (gradient accumulation)."""
+    mini_step: Any
+    gradient_step: Any
+    inner_opt_state: Any
+    acc_grads: Any
+    skip_state: Any
+
+
+def variables(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """Flat flax paths (``params/featMapG/...``) -> the variables dict flax
+    nests them in (``{"params": {"featMapG": {...}}}``), every leaf a tensor
+    (sharing a numpy leaf's memory): a JAX trainer holds ``jax.Array``s and
+    saves them so."""
+    return unflatten({k: torch.as_tensor(v) for k, v in flat.items()})
+
+
+def _count(value) -> torch.Tensor:
+    return torch.tensor(int(value), dtype=torch.int32)
+
+
+def _optax_state(opt_state: Dict[str, Any], to_flax) -> Any:
+    """The port's optimizer state as optax's state of the chain the JAX
+    package builds (``citlab_as_tpu/train/optimizer.py``:115-126), told
+    apart by the slots the state holds: adam and nadam ``(ScaleByAdamState,
+    ScaleByScheduleState)``, rmsprop ``(ScaleByRmsState,
+    ScaleByScheduleState, EmptyState)``, sgd ``(EmptyState,
+    ScaleByScheduleState)``; inside ``MultiStepsState`` where gradients
+    accumulate."""
+    count = opt_state["count"]
+    schedule = ScaleByScheduleState(_count(count))
+    if "mu" in opt_state:
+        chain = (ScaleByAdamState(_count(count), variables(to_flax(opt_state["mu"])),
+                                  variables(to_flax(opt_state["nu"]))), schedule)
+    elif "nu" in opt_state:
+        # optax.rmsprop closes its chain with momentum's identity
+        chain = (ScaleByRmsState(variables(to_flax(opt_state["nu"]))), schedule, EmptyState())
+    else:
+        chain = (EmptyState(), schedule)
+    if "mini_step" not in opt_state:
+        return chain
+    return MultiStepsState(_count(opt_state["mini_step"]), _count(count), chain,
+                           variables(to_flax(opt_state["acc_grads"])), ())
+
+
 def trainer_state(params, opt_state, ema, to_flax) -> Dict[str, Any]:
-    """A trainer's live tensors as the checkpointed state: ``{"params",
-    "opt_state", "ema"}`` with every per-parameter tensor named by the flat
-    flax path ``to_flax`` gives it (``weights.*_flax_from_state_dict``)."""
-    state: Dict[str, Any] = {"params": to_flax(params)}
-    opt = {}
-    for key, val in Optimizer.state_dict(opt_state).items():
-        opt[key] = to_flax(val) if isinstance(val, dict) else val
-    state["opt_state"] = opt
+    """A trainer's live tensors as the tree the JAX trainers checkpoint
+    (``citlab_as_tpu/train/trainer.py``:83-85, ``seg_trainer.py``:80):
+    ``{"params": variables, "opt_state": optax state, "ema": variables}``,
+    every per-parameter tensor placed by the flat flax path ``to_flax``
+    gives it (``weights.*_flax_from_state_dict``)."""
+    state: Dict[str, Any] = {"params": variables(to_flax(params)),
+                             "opt_state": _optax_state(opt_state, to_flax)}
     if ema is not None:
-        state["ema"] = to_flax(ema)
+        state["ema"] = variables(to_flax(ema))
     return state
 
 
@@ -247,18 +307,19 @@ def _optax_opt_state(opt) -> Dict[str, Any]:
     """An optax ``opt_state`` as orbax restores it (the chain's tuple as a
     list, optionally inside ``MultiStepsState``) -> the port's optimizer
     state layout: ``count`` (the chain's update count: adam's and the
-    schedule's, which optax moves together), ``mu`` / ``nu`` (adam's or
-    rmsprop's moments, flax paths) and, under ``MultiSteps``,
-    ``mini_step`` and ``acc_grads``."""
+    schedule's, and ``MultiSteps``' ``gradient_step``, which optax moves
+    together), ``mu`` / ``nu`` (adam's or rmsprop's moments, flax paths)
+    and, under ``MultiSteps``, ``mini_step`` and ``acc_grads``."""
     out: Dict[str, Any] = {}
     chain = opt
+    counts = []
     if isinstance(opt, dict) and "inner_opt_state" in opt:
         out["mini_step"] = opt["mini_step"]
         out["acc_grads"] = opt["acc_grads"]
+        counts.append(int(np.asarray(opt["gradient_step"])))
         chain = opt["inner_opt_state"]
     if not isinstance(chain, list):
         raise ValueError("opt_state is not an optax chain's state")
-    counts = []
     for part in chain:
         if isinstance(part, dict):
             if "count" in part:
@@ -388,7 +449,8 @@ def run_epochs(model_dir: str, flags: Dict[str, Any], params, opt_state, ema,
             for metric in flags["best_export_metrics"]:
                 if metric in metrics and is_better(metric, metrics[metric], best.get(metric)):
                     best[metric] = metrics[metric]
-                    export_best(model_dir, metric, to_flax(ema if ema is not None else params))
+                    export_best(model_dir, metric,
+                                variables(to_flax(ema if ema is not None else params)))
                     improved = True
             if flags["early_stopping_patience"] > 0:
                 bad_evals = 0 if improved else bad_evals + 1

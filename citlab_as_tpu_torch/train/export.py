@@ -249,9 +249,10 @@ def export_checkpoint_frozen(ckpt_dir: str, out_path: str, architecture: str,
                              model_kwargs: Optional[Dict[str, Any]] = None,
                              metadata: Optional[Dict[str, Any]] = None) -> str:
     """Freeze the newest checkpoint under ``ckpt_dir`` (or a best/<metric>
-    export directory, or an ``.npz``) into ``out_path``: the port's
-    ``checkpoint.npz`` or the JAX package's orbax checkpoint, a trainer
-    state's ``params`` subtree (``train.checkpoint.checkpoint_variables``)."""
+    export directory, or an ``.npz``) into ``out_path``: an orbax
+    checkpoint (the JAX package's or the port's) or an earlier port run's
+    ``checkpoint.npz``, a trainer state's ``params`` subtree
+    (``train.checkpoint.checkpoint_variables``)."""
     from citlab_as_tpu_torch.train.checkpoint import checkpoint_variables
     variables, source = checkpoint_variables(ckpt_dir)
     meta = dict(metadata or {})

@@ -10,10 +10,11 @@ is ROADMAP item 17).
 
 The net keeps float32 parameters and computes in ``compute_dtype`` (bf16 by
 default, as the JAX trainer's ``ARUNet(dtype=jnp.bfloat16)``). Checkpoints
-and best exports name every tensor by its flat flax path
-(``weights.arunet_flax_from_state_dict``): the state is ``{"params":
-{"params/...": kernel}, "opt_state": ..., "ema": ...}``, and
-``best/<metric>/checkpoint.npz`` loads into ``SegmentationPredictor``.
+and best exports are the JAX trainer's orbax checkpoints
+(``checkpoint.trainer_state``: the variables in flax's nesting, each tensor
+placed by its flax path, ``weights.arunet_flax_from_state_dict``, and
+optax's state), so the JAX trainer resumes them and the JAX exporter
+freezes them.
 """
 from __future__ import annotations
 

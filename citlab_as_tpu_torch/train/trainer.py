@@ -14,9 +14,10 @@ mesh is ROADMAP item 17).
 The model is built from the first training batch's feature widths, as the
 JAX trainer initializes from it; that batch is drawn from the same random
 streams, so the batches after it are the JAX trainer's too. Checkpoints
-and best exports name every tensor by its flat flax path
-(``weights.gnn_flax_from_state_dict``); ``best/<metric>/checkpoint.npz``
-loads into ``RelationPredictor``.
+and best exports are the JAX trainer's orbax checkpoints
+(``checkpoint.trainer_state``, each tensor placed by its flax path,
+``weights.gnn_flax_from_state_dict``); ``best/<metric>`` loads into
+``RelationPredictor``, the port's and the JAX package's.
 """
 from __future__ import annotations
 

@@ -36,11 +36,22 @@ fields):
 format version or compression, a damaged frame (magic, length, checksum),
 a malformed body, a data file outside the store or a value past its file's
 end raise :class:`OcdbtError` naming the fault.
+
+:class:`OcdbtWriter` writes a new store of one version in one level, as
+tensorstore reads it: ``manifest.ocdbt`` (the config orbax gives its stores,
+a fresh uuid) and one data file ``d/<32 hex digits>`` holding the values
+longer than ``max_inline_value_bytes`` and then the b-tree, leaves cut so
+that none decodes to more than ``max_decoded_node_bytes`` and interior
+nodes above them. Orbax writes a second level beside it
+(``ocdbt.process_<n>/``, each writing process's own store, which the root's
+b-tree references by path), but its restore opens only the root store, so
+one level holds all a restore reads.
 """
 from __future__ import annotations
 
 import os
-from typing import Dict, List, NamedTuple, Optional, Tuple
+import time
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 from citlab_as_tpu_torch.utils import zstd
 
@@ -356,3 +367,192 @@ class OcdbtStore:
 
     def __contains__(self, key: str) -> bool:
         return key.encode() in self._tree()
+
+
+# ---------------------------------------------------------------- writing
+
+#: orbax's store config (``add_ocdbt_write_options``, tensorstore's
+#: defaults for the rest): values up to 1 KiB inline, one b-tree node up to
+#: 100 MB decoded, version-tree arity 16, zstd at its default level
+MAX_INLINE_VALUE_BYTES = 1024
+MAX_DECODED_NODE_BYTES = 100_000_000
+VERSION_TREE_ARITY_LOG2 = 4
+#: the most bytes one key's varints (lengths, file, offset) add to a node
+_ENTRY_VARINTS = 60
+
+
+def _varint(value: int) -> bytes:
+    out = bytearray()
+    while True:
+        low = value & 0x7F
+        value >>= 7
+        if not value:
+            out.append(low)
+            return bytes(out)
+        out.append(low | 0x80)
+
+
+def _varints(values: Sequence[int]) -> bytes:
+    return b"".join(_varint(v) for v in values)
+
+
+def _frame(body: bytes, magic: int) -> bytes:
+    """A framed manifest or node: ``body`` zstd-compressed (the config's
+    compression) between the magic, length and format version, and the
+    CRC-32C."""
+    payload = _varint(0) + _varint(1) + zstd.compress(body)
+    head = magic.to_bytes(4, "big") + (12 + len(payload) + 4).to_bytes(8, "little")
+    data = head + payload
+    return data + zstd.crc32c(data).to_bytes(4, "little")
+
+
+def _common(a: bytes, b: bytes) -> int:
+    return len(os.path.commonprefix([a, b]))
+
+
+def _file_table_bytes(paths: List[str]) -> bytes:
+    raw = [p.encode() for p in paths]
+    prefix = [_common(a, b) for a, b in zip(raw, raw[1:])]
+    suffix = [len(p) - c for p, c in zip(raw, [0] + prefix)]
+    return (_varint(len(raw)) + _varints(prefix) + _varints(suffix)
+            + _varints([0] * len(raw))
+            + b"".join(p[c:] for p, c in zip(raw, [0] + prefix)))
+
+
+def _keys_bytes(keys: List[bytes], common: Optional[List[int]] = None) -> bytes:
+    prefix = [_common(a, b) for a, b in zip(keys, keys[1:])]
+    starts = [0] + prefix
+    out = (_varint(len(keys)) + _varints(prefix)
+           + _varints([len(k) - c for k, c in zip(keys, starts)]))
+    if common is not None:
+        out += _varints(common)
+    return out + b"".join(k[c:] for k, c in zip(keys, starts))
+
+
+class _Child(NamedTuple):
+    """A written node, as its parent references it."""
+    first: bytes          # its first key, whole
+    last: bytes           # its last key, whole
+    ref: Ref
+    num_keys: int
+    tree_bytes: int       # its bytes and its subtree's
+    indirect_bytes: int
+
+
+class OcdbtWriter:
+    """A new OCDBT store of one version in directory ``path``: ``put(key,
+    value)`` each key (``str``, UTF-8) once, then ``commit()`` writes the
+    data file and the manifest. The directory must not hold a store yet.
+    Nodes stay within orbax's ``MAX_DECODED_NODE_BYTES``, which the
+    manifest's config records."""
+
+    def __init__(self, path: str):
+        self.path = os.path.abspath(path)
+        self._values: Dict[bytes, bytes] = {}
+
+    def put(self, key: str, value: bytes) -> None:
+        k = key.encode()
+        if k in self._values:
+            raise OcdbtError(f"{self.path}: key {key!r} written twice")
+        self._values[k] = bytes(value)
+
+    def _pack(self, items: list, cost) -> List[list]:
+        """``items`` cut into runs whose node bodies stay within the limit
+        (``cost``: an item's most bytes in a node, its key whole)."""
+        budget = MAX_DECODED_NODE_BYTES - 64
+        runs, run, used = [], [], 0
+        for item in items:
+            c = cost(item)
+            if run and used + c > budget:
+                runs.append(run)
+                run, used = [], 0
+            if c > budget:
+                raise OcdbtError(f"{self.path}: one key's entry of {c} bytes exceeds "
+                                 f"the node limit {MAX_DECODED_NODE_BYTES}")
+            run.append(item)
+            used += c
+        return runs + [run]
+
+    def commit(self) -> None:
+        if not self._values:
+            raise OcdbtError(f"{self.path}: a store without keys is not written")
+        if os.path.exists(os.path.join(self.path, MANIFEST_FILE)):
+            raise OcdbtError(f"{self.path}: already holds a store")
+        name = "d/" + os.urandom(16).hex()
+        blob = bytearray()
+        keys = sorted(self._values)
+        stored: Dict[bytes, int] = {}
+        for k in keys:
+            v = self._values[k]
+            if len(v) > MAX_INLINE_VALUE_BYTES:
+                stored[k] = len(blob)
+                blob += v
+
+        def write_node(body: bytes) -> Ref:
+            data = _frame(body, NODE_MAGIC)
+            ref = Ref(name, len(blob), len(data))
+            blob.extend(data)
+            return ref
+
+        def leaf_cost(k):
+            v = self._values[k]
+            return len(k) + _ENTRY_VARINTS + (0 if k in stored else len(v))
+
+        children: List[_Child] = []
+        for run in self._pack(keys, leaf_cost):
+            # a leaf's keys are stored without the prefix they all share,
+            # which its parent's entry carries
+            cp = _common(run[0], run[-1]) if len(keys) > len(run) else 0
+            indirect = [k for k in run if k in stored]
+            body = (bytes([0]) + _file_table_bytes([name] if indirect else [])
+                    + _keys_bytes([k[cp:] for k in run])
+                    + _varints([len(self._values[k]) for k in run])
+                    + _varints([int(k in stored) for k in run])
+                    + _varints([0] * len(indirect)) + _varints([stored[k] for k in indirect])
+                    + b"".join(self._values[k] for k in run if k not in stored))
+            if len(body) > MAX_DECODED_NODE_BYTES:
+                raise OcdbtError(f"{self.path}: a leaf of {len(body)} bytes")
+            ref = write_node(body)
+            children.append(_Child(run[0], run[-1], ref, len(run), ref.length,
+                                   sum(len(self._values[k]) for k in indirect)))
+        height = 0
+        while len(children) > 1:
+            height += 1
+            level: List[_Child] = []
+            cost = (lambda c: len(c.first) + 2 * _ENTRY_VARINTS)
+            runs = self._pack(children, cost)
+            for run in runs:
+                # the node's own prefix (what its parent strips), then per
+                # entry its subtree's common prefix beyond that
+                node_cp = _common(run[0].first, run[-1].last) if len(runs) > 1 else 0
+                body = (bytes([height]) + _file_table_bytes([name])
+                        + _keys_bytes([c.first[node_cp:] for c in run],
+                                      [_common(c.first, c.last) - node_cp for c in run])
+                        + _varints([0] * len(run)) + _varints([c.ref.offset for c in run])
+                        + _varints([c.ref.length for c in run])
+                        + _varints([c.num_keys for c in run])
+                        + _varints([c.tree_bytes for c in run])
+                        + _varints([c.indirect_bytes for c in run]))
+                if len(body) > MAX_DECODED_NODE_BYTES:
+                    raise OcdbtError(f"{self.path}: an interior node of {len(body)} bytes")
+                ref = write_node(body)
+                level.append(_Child(run[0].first, run[-1].last, ref,
+                                    sum(c.num_keys for c in run),
+                                    ref.length + sum(c.tree_bytes for c in run),
+                                    sum(c.indirect_bytes for c in run)))
+            children = level
+        root = children[0]
+        os.makedirs(os.path.join(self.path, "d"), exist_ok=True)
+        with open(os.path.join(self.path, *name.split("/")), "wb") as f:
+            f.write(blob)
+        body = (os.urandom(16) + _varint(0) + _varint(MAX_INLINE_VALUE_BYTES)
+                + _varint(MAX_DECODED_NODE_BYTES) + bytes([VERSION_TREE_ARITY_LOG2])
+                + _varint(1) + (0).to_bytes(4, "little")
+                + _file_table_bytes([name])
+                + _varint(1) + _varint(1) + bytes([height])
+                + _varint(0) + _varint(root.ref.offset) + _varint(root.ref.length)
+                + _varint(root.num_keys) + _varint(root.tree_bytes) + _varint(root.indirect_bytes)
+                + time.time_ns().to_bytes(8, "little")
+                + _varint(0))
+        with open(os.path.join(self.path, MANIFEST_FILE), "wb") as f:
+            f.write(_frame(body, MANIFEST_MAGIC))

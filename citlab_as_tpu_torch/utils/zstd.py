@@ -10,13 +10,24 @@ card's machine needs neither libzstd nor a Python package for them.
 skippable frames, one after another) and refuses a damaged or truncated one
 by raising :class:`ZstdError` naming the fault; it returns no partial
 content.
+
+:func:`compress` writes one frame of raw and RLE blocks (no entropy
+coding: a trainer's weights are near-incompressible floats, and zstd's
+literal coding gains them under 8 %), which every zstd decoder reads.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
 
+import numpy as np
+
 _ERRLEN = 256
+_MAGIC = b"\x28\xb5\x2f\xfd"
+_BLOCK = 128 * 1024
+#: Window_Descriptor of a 128 KiB window (exponent 17 - 10, mantissa 0):
+#: the largest block, and no block refers back past itself
+_WINDOW = bytes([(17 - 10) << 3])
 
 
 class ZstdError(ValueError):
@@ -58,3 +69,30 @@ def crc32c(data: bytes) -> int:
     """CRC-32C (Castagnoli) of ``data``."""
     data = bytes(data)
     return int(_lib().citlab_crc32c(data, len(data)))
+
+
+def compress(data) -> bytes:
+    """One RFC 8878 frame holding ``data``: a header with the content size
+    and no checksum, then blocks of at most 128 KiB, each RLE where it is
+    one repeated byte and raw elsewhere."""
+    buf = np.frombuffer(memoryview(data).cast("B"), np.uint8)
+    n = buf.size
+    # Frame_Header_Descriptor: Frame_Content_Size on 2, 4 or 8 bytes (flag
+    # 1 stores size - 256), not single-segment, no checksum, no dictionary
+    if 256 <= n < 256 + 65536:
+        head = bytes([1 << 6]) + _WINDOW + (n - 256).to_bytes(2, "little")
+    elif n < 1 << 32:
+        head = bytes([2 << 6]) + _WINDOW + n.to_bytes(4, "little")
+    else:
+        head = bytes([3 << 6]) + _WINDOW + n.to_bytes(8, "little")
+    out = [_MAGIC, head]
+    starts = range(0, n, _BLOCK) if n else [0]
+    for start in starts:
+        block = buf[start:start + _BLOCK]
+        last = int(start + _BLOCK >= n)
+        size = block.size
+        if size > 1 and not (block != block[0]).any():
+            out += [(last | 1 << 1 | size << 3).to_bytes(3, "little"), block[:1].tobytes()]
+        else:
+            out += [(last | size << 3).to_bytes(3, "little"), block.tobytes()]
+    return b"".join(out)

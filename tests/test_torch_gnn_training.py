@@ -341,7 +341,8 @@ def _list(path, items):
 
 def test_training_clis_run_on_the_cpu(tmp_path):
     from citlab_as_tpu_torch.cli import run_lav, run_train_gnn, run_train_segmentation
-    from citlab_as_tpu_torch.train.checkpoint import best_path
+    from citlab_as_tpu_torch.train.checkpoint import CHECKPOINT_FILE, best_path
+    from citlab_as_tpu_torch.train.orbax import is_orbax_checkpoint
     from tests.test_seg_training import PAGE
     graphs = _graphs(tmp_path / "data", 4)
     train, evl = _list(tmp_path / "train.lst", graphs[:3]), _list(tmp_path / "eval.lst",
@@ -351,7 +352,9 @@ def test_training_clis_run_on_the_cpu(tmp_path):
                               "4", "--batch_size", "2", "--sample_num_relations", "16",
                               "--optimizer_params", "learning_rate=0.01",
                               "--device", "cpu"])
-    assert len(out["history"]) == 1 and os.path.isfile(best_path(str(tmp_path / "gnn"), "f1"))
+    assert len(out["history"]) == 1 and is_orbax_checkpoint(best_path(str(tmp_path / "gnn"), "f1"))
+    for written in (best_path(str(tmp_path / "gnn"), "f1"), str(tmp_path / "gnn" / "0")):
+        assert is_orbax_checkpoint(written) and CHECKPOINT_FILE not in os.listdir(written)
     lav_json = tmp_path / "lav.json"
     res = run_lav.main(["--model_dir", str(tmp_path / "gnn"), "--eval_list", evl,
                         "--num_p_r_thresholds", "5", "--out_json", str(lav_json),
@@ -377,4 +380,5 @@ def test_training_clis_run_on_the_cpu(tmp_path):
         "--batch_size", "1", "--crop_size", "64", "64", "--n_classes", "3",
         "--graph", "RU", "--device", "cpu"])
     assert np.isfinite(out["history"][0]["loss"])
-    assert os.path.isfile(best_path(str(tmp_path / "seg"), "accuracy"))
+    assert is_orbax_checkpoint(best_path(str(tmp_path / "seg"), "accuracy"))
+    assert CHECKPOINT_FILE not in os.listdir(best_path(str(tmp_path / "seg"), "accuracy"))

@@ -249,7 +249,9 @@ def test_variants_refused_by_name(tmp_path):
     path = jck.save_checkpoint(str(tmp_path / "a"), 1, tree)
     meta_path = os.path.join(path, port.METADATA_FILE)
     meta = json.load(open(meta_path))
-    for key, value, match in (("use_zarr3", True, "zarr v3"), ("use_ocdbt", False, "without OCDBT")):
+    # use_zarr3 over zarr v2 arrays: the v3 reader finds no zarr.json
+    for key, value, match in (("use_zarr3", True, "w/zarr.json: not stored"),
+                              ("use_ocdbt", False, "without OCDBT")):
         changed = dict(meta, **{key: value})
         with open(meta_path, "w") as f:
             json.dump(changed, f)

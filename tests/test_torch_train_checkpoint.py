@@ -11,8 +11,12 @@ both ways (``weights.py``) against the JAX package, on the CPU.
   the same tree), a template that does not fit raises;
 - a stale ``current_epoch.info`` (best metrics but no numbered checkpoint)
   does not suppress a fresh run's best export;
-- an exported ``.npz`` loads through ``SegmentationPredictor`` and
-  ``RelationPredictor`` and gives the exported net's outputs.
+- a best export (an orbax checkpoint of the net's variables) loads
+  through ``SegmentationPredictor`` and ``RelationPredictor`` and gives the
+  exported net's outputs;
+- every directory the port writes is an orbax checkpoint and holds no
+  ``checkpoint.npz``, and an earlier port run's ``checkpoint.npz``
+  directory still restores, and resumes the GNN trainer.
 """
 import json
 import os
@@ -27,6 +31,7 @@ from flax import traverse_util
 
 from citlab_as_tpu.train import checkpoint as jckpt
 from citlab_as_tpu_torch.train import checkpoint as tckpt
+from citlab_as_tpu_torch.train import orbax
 from citlab_as_tpu_torch import weights
 
 TINY_GP = {"graph": "ARU", "featRoot": 4, "scale_space_num": 3, "res_depth": 1,
@@ -121,8 +126,9 @@ def test_prune_keeps_the_same_steps_as_jax(tmp_path):
 def test_best_export_restore_and_epoch_info(tmp_path):
     state = {"w": np.full((2,), 7.0, np.float32)}
     path = tckpt.export_best(str(tmp_path), "f1", state)
-    assert os.path.isfile(tckpt.best_path(str(tmp_path), "f1"))
-    assert path == os.path.dirname(tckpt.best_path(str(tmp_path), "f1"))
+    assert path == tckpt.best_path(str(tmp_path), "f1") == str(tmp_path / "best" / "f1")
+    assert orbax.is_orbax_checkpoint(path)
+    assert tckpt.CHECKPOINT_FILE not in os.listdir(path)
     assert (tckpt.restore_best(str(tmp_path), "f1")["w"] == 7.0).all()
     tckpt.write_epoch_info(str(tmp_path), 5, extra={"best_metrics": {"f1": 0.5}})
     jinfo = jckpt.read_epoch_info(str(tmp_path))
@@ -201,31 +207,40 @@ def test_stale_info_does_not_suppress_best_export(tmp_path):
     result = trainer.train()
     assert result["history"][0]["epoch"] == 0          # fresh, not resumed
     assert "f1" in result["best_metrics"]              # export happened
-    assert os.path.isfile(tckpt.best_path(str(model_dir), "f1"))
+    assert orbax.is_orbax_checkpoint(tckpt.best_path(str(model_dir), "f1"))
 
 
 def test_exported_npz_loads_into_the_predictors(tmp_path):
+    """A best export's directory loads into both predictors and gives the
+    exported net's outputs; frozen by ``export_checkpoint_frozen``, the
+    segmentation export predicts the same."""
     from citlab_as_tpu_torch.inference import RelationPredictor, SegmentationPredictor
     from citlab_as_tpu_torch.models.arunet import ARUNet
     from citlab_as_tpu_torch.models.gnn.model import GraphRelation
+    from citlab_as_tpu_torch.train.export import export_checkpoint_frozen
     from citlab_as_tpu_torch.train.trainer import init_gnn_params
     from tests.test_training import _write_graph_jsons
 
     net = ARUNet(n_classes=2, graph_params=TINY_GP).init_random(11)
-    tckpt.export_best(str(tmp_path), "accuracy",
-                      weights.arunet_flax_from_state_dict(net.state_dict()))
-    pred = SegmentationPredictor(tckpt.best_path(str(tmp_path), "accuracy"),
-                                 graph_params=TINY_GP, dtype=torch.float32,
+    best = tckpt.export_best(
+        str(tmp_path), "accuracy",
+        tckpt.variables(weights.arunet_flax_from_state_dict(net.state_dict())))
+    pred = SegmentationPredictor(best, graph_params=TINY_GP, dtype=torch.float32,
                                  pad_multiple=16, device="cpu")
+    frozen = export_checkpoint_frozen(best, str(tmp_path / "seg.frozen"), "arunet",
+                                      {"n_classes": 2, "graph_params": TINY_GP})
+    frozen_pred = SegmentationPredictor(frozen, pad_multiple=16, device="cpu")
     image = np.random.RandomState(0).rand(40, 48).astype(np.float32)
     padded = np.zeros((1, 48, 48, 1), np.float32)     # the predictor's pad to 16
     padded[0, :40, :, 0] = image
     with torch.no_grad():
         want = torch.softmax(net(torch.from_numpy(padded)), -1)[0, :40]
     np.testing.assert_allclose(pred(image), want.numpy(), atol=1e-6)
+    np.testing.assert_array_equal(frozen_pred(image), pred(image))
 
     gnn = init_gnn_params(GraphRelation(15, 2), seed=4)
-    tckpt.export_best(str(tmp_path), "f1", weights.gnn_flax_from_state_dict(gnn.state_dict()))
+    tckpt.export_best(str(tmp_path), "f1",
+                      tckpt.variables(weights.gnn_flax_from_state_dict(gnn.state_dict())))
     rel = RelationPredictor(tckpt.best_path(str(tmp_path), "f1"), device="cpu")
     graph = json.load(open(_write_graph_jsons(tmp_path, n_graphs=1)[0]))
     conf = rel.confidences(graph)
@@ -234,3 +249,56 @@ def test_exported_npz_loads_into_the_predictors(tmp_path):
                          "edge_features": torch.zeros(1, 1, 2)})
     rel2.model.load_state_dict(gnn.state_dict())
     np.testing.assert_array_equal(conf, rel2.confidences(graph))
+
+
+def _write_npz_dir(path, flat):
+    """A checkpoint directory as earlier port runs wrote it: one
+    ``checkpoint.npz`` of ``/``-joined paths."""
+    os.makedirs(path)
+    np.savez(os.path.join(path, tckpt.CHECKPOINT_FILE), **flat)
+
+
+def test_an_earlier_npz_checkpoint_still_restores_and_resumes(tmp_path):
+    """A model_dir of an earlier port run (``checkpoint.npz`` per step, the
+    port's flat optimizer layout) restores, and the GNN trainer resumes it:
+    its live state equals the saved one, and the step it writes next is an
+    orbax checkpoint."""
+    from tests.test_training import _write_graph_jsons
+    from citlab_as_tpu_torch.train.trainer import TrainerGNN
+    (tmp_path / "data").mkdir()
+    graphs = _write_graph_jsons(tmp_path / "data", n_graphs=6)
+    flags = {"epochs": 1, "samples_per_epoch": 4, "batch_size": 2, "eval_every_n": 1,
+             "best_export_metrics": ["f1"], "num_classes": 2}
+    inputs = {"sample_num_relations_to_consider": 16, "node_buckets": [8],
+              "edge_buckets": [32]}
+    first = TrainerGNN(str(tmp_path / "a"), graphs[:4], graphs[4:], flags=flags,
+                       input_params=inputs, seed=0, device="cpu").train()["state"]
+    flat = {f"params/{k}": v
+            for k, v in weights.gnn_flax_from_state_dict(first["params"]).items()}
+    opt = first["opt_state"]
+    flat["opt_state/count"] = np.int32(opt["count"])
+    for slot in ("mu", "nu"):
+        flat.update({f"opt_state/{slot}/{k}": v for k, v in
+                     weights.gnn_flax_from_state_dict(opt[slot]).items()})
+    model_dir = tmp_path / "old"
+    _write_npz_dir(str(model_dir / "0"), flat)
+    tckpt.write_epoch_info(str(model_dir), 1, extra={"best_metrics": {"f1": 0.0}})
+    saved, step = tckpt.restore_checkpoint(str(model_dir))
+    assert step == 0 and sorted(tckpt.flatten(saved)) == sorted(flat)
+    variables, where = tckpt.checkpoint_variables(str(model_dir))
+    assert where == str(model_dir / "0")
+    assert sorted(variables) == sorted(k[len("params/"):] for k in flat if
+                                       k.startswith("params/"))
+
+    resumed = TrainerGNN(str(model_dir), graphs[:4], graphs[4:], flags=flags,
+                         input_params=inputs, seed=0, device="cpu").train()
+    assert resumed["history"] == []
+    _assert_same_flat({f"params/{k}": v for k, v in
+                       weights.gnn_flax_from_state_dict(resumed["state"]["params"]).items()},
+                      {k: v for k, v in flat.items() if k.startswith("params/")})
+    assert resumed["state"]["opt_state"]["count"] == int(opt["count"])
+    cont = TrainerGNN(str(model_dir), graphs[:4], graphs[4:], flags=dict(flags, epochs=2),
+                      input_params=inputs, seed=0, device="cpu").train()
+    assert [r["epoch"] for r in cont["history"]] == [1]
+    assert orbax.is_orbax_checkpoint(str(model_dir / "1"))
+    assert tckpt.CHECKPOINT_FILE not in os.listdir(model_dir / "1")
