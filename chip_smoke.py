@@ -260,7 +260,31 @@ result):
    ``current_epoch.info``): the epoch after the saved one, a finite loss,
    adam's count carried on by one; the segmentation trainer at the
    separator's width resumed for one bf16 step from the orbax step it
-   wrote itself (K1 69 launches under autograd, adam's count on by one).
+   wrote itself (K1 69 launches under autograd, adam's count on by one);
+19. recipes: the recipes that made ``models_ckpt/``
+   (``citlab_as_tpu_torch/scripts``) on the card, through their ``main``.
+   ``train_synthetic_separator`` at full width, bf16, batch 8 x 512 x 512,
+   40 steps from scratch (steps/s; gates: K1 69 launches per train step
+   and per eval forward, finite loss readbacks with the last below the
+   first, card vs CPU losses of 2 steps from the same init and batches in
+   f32 with TF32 off within 1e-4 relative, the written checkpoint in
+   ``SegmentationPredictor`` with 69 K1 launches per forward).
+   ``train_pipeline_gnn --image_input`` with the default ``ARU_v1``
+   backbone: its dataset from 8 drawn pages through the separator on the
+   card (K1 69 and K2 1 per group of 4), 2 epochs of 8 steps at batch 8
+   with 288 / 384 images (train steps/s; one step's device split under
+   ``torch.profiler``: K1 forward in f32, the K1 convs' cuDNN backward,
+   the region max pool, the rest, and its idle share and peak memory);
+   gates: K1 69 launches per train step, card vs CPU losses of 2 steps from
+   the same init and batches in f32 within 1e-4 relative, ``best/f1`` in
+   ``RelationPredictor(image_input=True, visual_backbone="ARU_v1")``
+   within 1e-5 of the trainer's eval confidences. The ``gnn_visual``
+   recipe (``ARU_cutted_v1``, ``warmup_final_decay``, 1 epoch): finite
+   losses and no K1 launch in its steps. ``train_synthetic_gnn`` at its
+   defaults: best f1 at least the JAX recipe's on a CPU less 0.02.
+   ``eval_visual_gnn`` over its five seeds with the committed
+   ``gnn_visual``: mean AS F above 0.95 (the blind phase's floor), K1 138
+   and K2 1 per seed; mean and min printed.
 
 The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
 """
@@ -2337,7 +2361,7 @@ def _union_ms(intervals):
 LABEL = "optimizer_update"
 
 
-def profile_train_step(step, params, opt_state, batch, dev):
+def profile_train_step(step, params, opt_state, batch, dev, classify=None):
     """One train step under ``torch.profiler``: its device time split into
     K1's forward (the kernel by name), the backward of the K1-routed convs
     (every kernel under ``Conv3x3FunctionBackward``: cuDNN's dgrad and
@@ -2345,12 +2369,15 @@ def profile_train_step(step, params, opt_state, batch, dev):
     convs forward and backward, the optimizer update (a ``record_function``
     range around it, ``LABEL``), the rest (with its heaviest ops) and what
     the profiler links to no op; the step's wall under the profiler, and
-    the device's idle share of it."""
+    the device's idle share of it. ``classify``, given the op and its
+    ancestors (recorded with their input shapes), may name another part
+    first."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     step(params, opt_state, batch)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=classify is not None) as prof:
         t0 = time.perf_counter()
         step(params, opt_state, batch)
         torch.cuda.synchronize()
@@ -2363,10 +2390,13 @@ def profile_train_step(step, params, opt_state, batch, dev):
     total_ms = sum(e.time_range.elapsed_us() for e in device) / 1e3
 
     def category(e):
-        names = []
+        chain = []
         while e is not None:
-            names.append(e.name)
+            chain.append(e)
             e = e.cpu_parent
+        names = [c.name for c in chain]
+        if classify is not None and classify(chain):
+            return classify(chain)
         if any("Conv3x3FunctionBackward" in n for n in names):
             return "k1_backward"
         if LABEL in names:
@@ -2388,7 +2418,7 @@ def profile_train_step(step, params, opt_state, batch, dev):
         for kern in e.kernels:
             if "conv3x3_" in kern.name or kern.name == LABEL:
                 continue
-            split[cat] += kern.duration / 1e3
+            split[cat] = split.get(cat, 0.0) + kern.duration / 1e3
             if cat == "rest":
                 t, n = rest.get(e.name, (0.0, 0))
                 rest[e.name] = (t + kern.duration / 1e3, n + 1)
@@ -4123,6 +4153,348 @@ def resume_segmentation_step(dev, root):
     return launches
 
 
+RECIPE_SEP_STEPS, RECIPE_SEP_BATCH, RECIPE_SEP_CROP = 40, 8, 512
+RECIPE_CHECK_STEPS = 2                      # card vs CPU steps of each f32 check
+RECIPE_PAGES = 8                            # the pipeline recipe's dataset: 2 groups of 4
+RECIPE_EPOCHS, RECIPE_SAMPLES, RECIPE_BATCH = 2, 64, 8
+RECIPE_IMAGE_DIMS = (288, 384)              # --resize_min_dim / --resize_max_dim defaults
+#: train_synthetic_gnn's best f1 at its defaults in the JAX package
+#: (0.9597, on a CPU host; PERF.md, Findings), less 0.02
+SYNTH_GNN_F1_FLOOR = 0.9597343295973433 - 0.02
+EVAL_SEEDS = "31,7,101,202,303"             # eval_visual_gnn's default seeds
+VISUAL_AS_F1_FLOOR = 0.95                   # the blind phase's unlowered floor
+
+
+class RecipeSteps:
+    """Wraps a step maker (``segmentation.make_train_step`` or
+    ``TrainerGNN._make_train_step``) so that every step it makes records its
+    K1 launches, its loss tensor (not read back: the recipes read their own)
+    and, on the card, an event after it; ``trainers`` keeps the
+    ``TrainerGNN`` objects whose steps were made."""
+
+    def __init__(self, owner, name, dev):
+        import torch
+        from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+        self.owner, self.name = owner, name
+        self.original = getattr(owner, name)
+        self.k1, self.losses, self.events, self.trainers = [], [], [], []
+        original = self.original
+
+        def make(*args, **kwargs):
+            if args and hasattr(args[0], "input_fn"):
+                self.trainers.append(args[0])
+            step = original(*args, **kwargs)
+
+            def run(*a):
+                before = k1.launches
+                loss = step(*a)
+                self.k1.append(k1.launches - before)
+                self.losses.append(loss)
+                if dev.type == "cuda":
+                    self.events.append(torch.cuda.Event(enable_timing=True))
+                    self.events[-1].record()
+                return loss
+            return run
+        setattr(owner, name, make)
+
+    def restore(self):
+        setattr(self.owner, self.name, self.original)
+
+    def steps_per_s(self, skip=1):
+        """Steps per second on the card's timeline from the end of step
+        ``skip`` to the end of the last (the host's gaps included)."""
+        import torch
+        torch.cuda.synchronize()
+        n = len(self.events) - skip
+        return n / (self.events[skip - 1].elapsed_time(self.events[-1]) / 1e3)
+
+
+def _counts():
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    return k1.launches, k2.launches
+
+
+def recipe_separator(dev, root):
+    """``train_synthetic_separator``: card against CPU in f32, then the
+    recipe's ``main`` at full width in bf16 from scratch."""
+    import torch
+    from citlab_as_tpu_torch.inference import SegmentationPredictor
+    from citlab_as_tpu_torch.scripts import train_synthetic_separator as recipe
+    from citlab_as_tpu_torch.train import segmentation
+
+    # 1. f32 (TF32 off), the same init and batches on the card and the CPU
+    batches = [recipe.recipe_batch(0, i, RECIPE_SEP_BATCH, RECIPE_SEP_CROP, False, dev)
+               for i in range(RECIPE_CHECK_STEPS)]
+    losses = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        t0 = time.perf_counter()
+        _, params, opt_state, step = recipe.build(RECIPE_SEP_STEPS, 1e-3, 8.0, 0, d,
+                                                  dtype=torch.float32)
+        losses[name] = [float(step(params, opt_state, {k: v.to(d) for k, v in b.items()}))
+                        for b in batches]
+        print(f"recipes: separator f32 on the {name}: {RECIPE_CHECK_STEPS} steps at "
+              f"{RECIPE_SEP_BATCH} x {RECIPE_SEP_CROP} x {RECIPE_SEP_CROP} in "
+              f"{time.perf_counter() - t0:.2f} s, losses {losses[name]!r}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["card"], losses["cpu"])]
+    check(max(rel) <= 1e-4, f"recipes: separator card vs CPU losses differ by {rel}")
+
+    # 2. the recipe as a user runs it, bf16
+    log = RecipeSteps(segmentation, "make_train_step", dev)
+    evaluate, evals = recipe.evaluate, []
+
+    def counting_evaluate(model, batch):
+        before = _counts()[0]
+        out = evaluate(model, batch)
+        evals.append(_counts()[0] - before)
+        return out
+    recipe.evaluate = counting_evaluate
+    model_dir = os.path.join(root, "separator")
+    try:
+        t0 = time.perf_counter()
+        acc, precision, recall = recipe.main([
+            "--model_dir", model_dir, "--steps", str(RECIPE_SEP_STEPS),
+            "--batch", str(RECIPE_SEP_BATCH), "--crop", str(RECIPE_SEP_CROP)])
+        wall = time.perf_counter() - t0
+    finally:
+        recipe.evaluate = evaluate
+        log.restore()
+    read = [float(log.losses[i]) for i in range(RECIPE_SEP_STEPS)
+            if i % 50 == 0 or i == RECIPE_SEP_STEPS - 1]
+    check(len(log.k1) == RECIPE_SEP_STEPS and set(log.k1) == {69} and evals == [69],
+          f"recipes: separator K1 launches per train step {sorted(set(log.k1))}, per eval {evals}")
+    check(all(np.isfinite(read)) and read[-1] < read[0],
+          f"recipes: separator loss readbacks {read}")
+    steps_per_s = log.steps_per_s(skip=1) if dev.type == "cuda" else float("nan")
+    before = _counts()[0]
+    probs = SegmentationPredictor(model_dir, device=dev)(
+        synthetic_pages(1, 1024, 704, seed=5)[0][0].astype(np.float32) / 255.0)
+    forward_k1 = _counts()[0] - before
+    check(forward_k1 == 69 and probs.shape == (1024, 704, 2) and np.isfinite(probs).all(),
+          f"recipes: the separator recipe's checkpoint predicts with {forward_k1} K1 launches")
+    print(f"recipes: train_synthetic_separator, bf16, batch {RECIPE_SEP_BATCH} x "
+          f"{RECIPE_SEP_CROP} x {RECIPE_SEP_CROP}, {RECIPE_SEP_STEPS} steps from scratch: "
+          f"{steps_per_s:.3f} steps/s (steps 2-{RECIPE_SEP_STEPS}, card timeline); main "
+          f"{wall:.2f} s; loss readbacks {read!r}; final acc {acc:.4f} precision "
+          f"{precision:.4f} recall {recall:.4f}; K1 69 per train step and per eval forward; "
+          f"f32 card vs CPU relative {[f'{r:.3g}' for r in rel]} (limit 1e-4); its checkpoint "
+          f"in SegmentationPredictor: 69 K1 launches per forward")
+    return {"steps_per_s": steps_per_s, "f32_rel": max(rel), "readbacks": read}
+
+
+def _visual_region_pool(chain):
+    """The region max pool's ops and their backward: the only 5-d operands
+    of the visual relation net's step."""
+    for ev in chain:
+        if any(isinstance(s, list) and len(s) == 5 for s in (ev.input_shapes or [])):
+            return "region_max_pool"
+    return None
+
+
+def recipe_pipeline(dev, root):
+    """``train_pipeline_gnn --image_input`` with the default ``ARU_v1``
+    backbone: the dataset through the separator on the card, a few epochs,
+    card against CPU, best/f1 served, one step profiled."""
+    import torch
+    from citlab_as_tpu_torch.inference import RelationPredictor
+    from citlab_as_tpu_torch.scripts import train_pipeline_gnn as recipe
+    from citlab_as_tpu_torch.train.input_pipeline import torch_batch
+    from citlab_as_tpu_torch.train.trainer import TrainerGNN
+    from citlab_as_tpu_torch.utils.io import get_img_from_json_path, load_image
+
+    build, built = recipe.build_dataset, {}
+
+    def counting_build(*args, **kwargs):
+        before = _counts()
+        out = build(*args, **kwargs)
+        built["launches"] = [a - b for a, b in zip(_counts(), before)]
+        return out
+    recipe.build_dataset = counting_build
+    log = RecipeSteps(TrainerGNN, "_make_train_step", dev)
+    model_dir = os.path.join(root, "gnn_v1")
+    args = ["--model_dir", model_dir, "--work_dir", os.path.join(root, "pipeline"),
+            "--num_pages", str(RECIPE_PAGES), "--epochs", str(RECIPE_EPOCHS),
+            "--samples_per_epoch", str(RECIPE_SAMPLES), "--batch_size", str(RECIPE_BATCH),
+            "--separator_model_dir", os.path.join(REPO, "models_ckpt", "separator"),
+            "--image_input"]
+    try:
+        t0 = time.perf_counter()
+        result = recipe.main(args)
+        wall = time.perf_counter() - t0
+    finally:
+        recipe.build_dataset = build
+        log.restore()
+    groups = -(-RECIPE_PAGES // 4)
+    check(built["launches"] == [69 * groups, groups],
+          f"recipes: build_dataset launched K1, K2 {built['launches']}")
+    trainer = log.trainers[0]
+    steps = RECIPE_EPOCHS * (RECIPE_SAMPLES // RECIPE_BATCH)
+    check(len(log.k1) == steps and set(log.k1) == {69},
+          f"recipes: ARU_v1 K1 launches per train step {log.k1}")
+    losses = [float(v) for v in log.losses]
+    check(all(np.isfinite(losses)) and "f1" in result["best_metrics"],
+          f"recipes: ARU_v1 losses {losses}, best {result['best_metrics']}")
+    steps_per_s = steps / trainer.timings["steps"]
+
+    # best/f1 in RelationPredictor against the trainer's eval confidences
+    batch_np, path, graph = next(trainer.input_fn.eval_batches(trainer.eval_list[:1]))
+    n = int(graph["num_nodes"])
+    want = trainer.predict(torch_batch(batch_np, dev)).cpu().numpy()[0, :n * n].reshape(n, n)
+    pred = RelationPredictor(os.path.join(model_dir, "best", "f1"), image_input=True,
+                             visual_backbone="ARU_v1", image_min_dimension=RECIPE_IMAGE_DIMS[0],
+                             image_max_dimension=RECIPE_IMAGE_DIMS[1], device=dev)
+    got = pred.confidences(graph, np.asarray(load_image(get_img_from_json_path(path), "L")))
+    worst = float(np.abs(got - want).max())
+    check(worst <= 1e-5, f"recipes: ARU_v1 best/f1 confidences differ by {worst}")
+
+    # f32 (TF32 off): the same init and batches on the card and the CPU
+    check_losses = {}
+    for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        check_log = RecipeSteps(TrainerGNN, "_make_train_step", d)
+        try:
+            t0 = time.perf_counter()
+            TrainerGNN(os.path.join(root, f"gnn_v1_{name}"), trainer.train_list, [],
+                       flags={"epochs": 1, "batch_size": RECIPE_BATCH,
+                              "samples_per_epoch": RECIPE_BATCH * RECIPE_CHECK_STEPS,
+                              "weight_decay": 1e-6},
+                       input_params=trainer.input_fn.params, seed=0, device=d,
+                       model=type(trainer.model)(15, 2, image_input=True,
+                                                 visual_backbone="ARU_v1")).train()
+        finally:
+            check_log.restore()
+        check_losses[name] = [float(v) for v in check_log.losses]
+        print(f"recipes: ARU_v1 visual GNN f32 on the {name}: {RECIPE_CHECK_STEPS} steps in "
+              f"{time.perf_counter() - t0:.2f} s, losses {check_losses[name]!r}")
+    rel = [abs(a - b) / abs(b) for a, b in zip(check_losses["card"], check_losses["cpu"])]
+    check(len(rel) == RECIPE_CHECK_STEPS and max(rel) <= 1e-4,
+          f"recipes: ARU_v1 card vs CPU losses differ by {rel}")
+
+    # one train step under the profiler (its optimizer update labelled)
+    prof = None
+    if dev.type == "cuda":
+        class Labelled:
+            def __init__(self, opt):
+                self.opt = opt
+
+            def step(self, *a):
+                from torch.profiler import record_function
+                with record_function(LABEL):
+                    return self.opt.step(*a)
+
+        optimizer, trainer.optimizer = trainer.optimizer, Labelled(trainer.optimizer)
+        step = trainer._make_train_step()
+        trainer.optimizer = optimizer
+        params = dict(trainer.model.named_parameters())
+        opt_state = optimizer.init(params)
+        batch = torch_batch(next(trainer.input_fn.train_batches(
+            trainer.train_list, RECIPE_BATCH, 1)), dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        prof = profile_train_step(step, params, opt_state, batch, dev,
+                                  classify=_visual_region_pool)
+        prof["peak_memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        prof["idle_share_of_timed_step"] = 1.0 - prof["device_busy_ms"] / (1e3 / steps_per_s)
+        print("recipes: one ARU_v1 visual GNN train step (batch 8, 384 x 384, f32) under "
+              "torch.profiler: " + json.dumps(prof))
+    print(f"recipes: train_pipeline_gnn --image_input (ARU_v1): {RECIPE_PAGES} pages, "
+          f"build_dataset K1 {built['launches'][0]} and K2 {built['launches'][1]}; "
+          f"{steps} train steps at batch {RECIPE_BATCH}, {steps_per_s:.3f} steps/s of train "
+          f"step, K1 69 per train step; main {wall:.2f} s; trainer seconds "
+          f"{json.dumps({k: round(v, 3) for k, v in trainer.timings.items()})}; losses "
+          f"{[round(v, 5) for v in losses]}; history {json.dumps(result['history'])}; "
+          f"best/f1 in RelationPredictor vs the trainer max abs {worst:.3g} (limit 1e-5); "
+          f"f32 card vs CPU relative {[f'{r:.3g}' for r in rel]} (limit 1e-4)")
+    return {"steps_per_s": steps_per_s, "f32_rel": max(rel), "profile": prof,
+            "dataset_launches": built["launches"]}
+
+
+def recipe_gnn_visual(dev, root):
+    """The ``gnn_visual`` recipe: ``--image_input --visual_backbone
+    ARU_cutted_v1 --schedule warmup_final_decay``, one epoch."""
+    from citlab_as_tpu_torch.scripts import train_pipeline_gnn as recipe
+    from citlab_as_tpu_torch.train.trainer import TrainerGNN
+    log = RecipeSteps(TrainerGNN, "_make_train_step", dev)
+    try:
+        t0 = time.perf_counter()
+        recipe.main(["--model_dir", os.path.join(root, "gnn_visual"), "--work_dir",
+                     os.path.join(root, "pipeline_cutted"), "--num_pages", str(RECIPE_PAGES),
+                     "--epochs", "1", "--samples_per_epoch", str(RECIPE_SAMPLES),
+                     "--batch_size", str(RECIPE_BATCH), "--separator_model_dir",
+                     os.path.join(REPO, "models_ckpt", "separator"), "--image_input",
+                     "--visual_backbone", "ARU_cutted_v1", "--schedule", "warmup_final_decay"])
+        wall = time.perf_counter() - t0
+    finally:
+        log.restore()
+    losses = [float(v) for v in log.losses]
+    check(len(losses) == RECIPE_SAMPLES // RECIPE_BATCH and all(np.isfinite(losses))
+          and set(log.k1) == {0}, f"recipes: gnn_visual recipe losses {losses}, K1 {log.k1}")
+    steps_per_s = len(losses) / log.trainers[0].timings["steps"]
+    print(f"recipes: train_pipeline_gnn --image_input --visual_backbone ARU_cutted_v1 "
+          f"--schedule warmup_final_decay, 1 epoch: {len(losses)} steps, {steps_per_s:.3f} "
+          f"steps/s of train step, no K1 launch in them; losses {[round(v, 5) for v in losses]}; "
+          f"main {wall:.2f} s")
+    return {"steps_per_s": steps_per_s}
+
+
+def recipe_synthetic_gnn(root):
+    """``train_synthetic_gnn`` at its defaults."""
+    from citlab_as_tpu_torch.scripts import train_synthetic_gnn as recipe
+    t0 = time.perf_counter()
+    result = recipe.main(["--model_dir", os.path.join(root, "gnn_synthetic")])
+    wall = time.perf_counter() - t0
+    f1 = result["best_metrics"].get("f1", float("nan"))
+    print(f"recipes: train_synthetic_gnn at its defaults: best f1 {f1:.4f} (floor "
+          f"{SYNTH_GNN_F1_FLOOR}), {wall:.2f} s; history {json.dumps(result['history'][-1])}")
+    check(f1 >= SYNTH_GNN_F1_FLOOR, f"recipes: train_synthetic_gnn best f1 {f1}")
+    return {"best_f1": f1, "seconds": wall}
+
+
+def recipe_eval_visual(dev):
+    """``eval_visual_gnn`` over its five seeds with the committed
+    ``gnn_visual``."""
+    from citlab_as_tpu_torch.scripts import eval_visual_gnn as recipe
+    evaluate, runs = recipe.evaluate_seed, []
+
+    def counting_evaluate(*args, **kwargs):
+        before = _counts()
+        out = evaluate(*args, **kwargs)
+        runs.append((out[2], [a - b for a, b in zip(_counts(), before)]))
+        return out
+    recipe.evaluate_seed = counting_evaluate
+    try:
+        t0 = time.perf_counter()
+        mean = recipe.main(["--seeds", EVAL_SEEDS])
+        wall = time.perf_counter() - t0
+    finally:
+        recipe.evaluate_seed = evaluate
+    fs = [f for f, _ in runs]
+    check(all(launches == [138, 1] for _, launches in runs),
+          f"recipes: eval_visual_gnn launches per seed {[l for _, l in runs]}")
+    print(f"recipes: eval_visual_gnn over seeds {EVAL_SEEDS}: AS F {fs}, mean {mean:.4f}, "
+          f"min {min(fs):.4f} (mean floor {VISUAL_AS_F1_FLOOR}); {wall:.2f} s; K1 138 and K2 1 "
+          f"per seed")
+    check(mean > VISUAL_AS_F1_FLOOR, f"recipes: eval_visual_gnn mean AS F {mean}")
+    return {"mean": mean, "min": min(fs)}
+
+
+def phase_recipes(dev):
+    """The recipes that made ``models_ckpt/`` on the card (see the module
+    docstring, phase 19)."""
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    root = tempfile.mkdtemp(prefix="chip_smoke_recipes_")
+    try:
+        k1.launches = k2.launches = 0
+        out = {"separator": recipe_separator(dev, root),
+               "pipeline": recipe_pipeline(dev, root),
+               "gnn_visual": recipe_gnn_visual(dev, root),
+               "synthetic_gnn": recipe_synthetic_gnn(root),
+               "eval_visual": recipe_eval_visual(dev)}
+        out["launches"] = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4169,6 +4541,7 @@ def main() -> int:
         parallel_row = timed("parallel", phase_parallel, dev, pipelined_row)
         spatial_row = timed("spatial", phase_spatial, dev, pipelined_row)
         orbax_row = timed("orbax", phase_orbax, dev)
+        recipes_row = timed("recipes", phase_recipes, dev)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4193,7 +4566,8 @@ def main() -> int:
              launches_parallel=parallel_row["launches"]["conv3x3"],
              launches_spatial=spatial_row["launches"]["conv3x3"],
              launches_orbax=orbax_row["launches"]["conv3x3"],
-             launches_orbax_resume=orbax_row["resume_launches"]["conv3x3"], **k1_row),
+             launches_orbax_resume=orbax_row["resume_launches"]["conv3x3"],
+             launches_recipes=recipes_row["launches"]["conv3x3"], **k1_row),
         dict(name="separator_morphology", route="cuda",
              source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
              replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
@@ -4212,7 +4586,7 @@ def main() -> int:
              launches_spatial=spatial_row["launches"]["separator_morphology"],
              launches_orbax=orbax_row["launches"]["separator_morphology"],
              launches_orbax_resume=orbax_row["resume_launches"]["separator_morphology"],
-             **k2_row),
+             launches_recipes=recipes_row["launches"]["separator_morphology"], **k2_row),
     ]
     # ``launches``: the in-memory main path's count; ``launches_files``: the
     # files-to-files path's; ``launches_workflow``: the whole workflow's;
@@ -4243,12 +4617,19 @@ def main() -> int:
     # data rows x 2 groups = 1104, K2 4); ``launches_orbax``: the workflow
     # CLI's with the three --*_model_dir flags naming models_ckpt/ (8 pages,
     # 2 groups of 4: K1 69 x 2 x 2 = 276, K2 2); ``launches_orbax_resume``: the
-    # segmentation step resumed from the port's own orbax step (K1 69, K2 0)
+    # segmentation step resumed from the port's own orbax step (K1 69, K2 0);
+    # ``launches_recipes``: the recipes phase's (the separator recipe's 40
+    # bf16 train steps, its eval forward and its checkpoint's forward, 69
+    # each; the pipeline recipe's dataset, 69 and K2 1 per group of 4 pages,
+    # and its ARU_v1 visual GNN's 16 train steps, 69 each, its eval forwards
+    # and the f32 card check's 2 steps; the gnn_visual recipe's dataset
+    # (ARU_cutted_v1: none in its steps); eval_visual_gnn's five workflows,
+    # K1 138 and K2 1 each)
     keys = ("name", "route", "source", "replaces", "launches", "launches_files",
             "launches_workflow", "launches_pipelined", "launches_visual", "launches_formats",
             "launches_variants", "launches_blind", "launches_train", "launches_gt_eval",
             "launches_models", "launches_parallel", "launches_spatial", "launches_orbax",
-            "launches_orbax_resume", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "launches_orbax_resume", "launches_recipes", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))

@@ -337,6 +337,19 @@ class _AttCNN(nn.Module):
         return self.conv4(x)
 
 
+def init_convs(module: nn.Module, seed: int = 0) -> nn.Module:
+    """Normal(0, sqrt(2 / (kh*kw*cin + cout))) kernels and 0.1 biases for
+    every conv and transposed conv of ``module`` (the flax initializers),
+    drawn from a generator seeded with ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, (_Conv, _Deconv)):
+                m.weight.copy_(torch.randn(m.weight.shape, generator=gen) * m.init_std)
+                m.bias.fill_(0.1)
+    return module
+
+
 class ARUNet(nn.Module):
     """ARU / RU / U pixel labeler. Call with NHWC input in [0, 1]; returns
     float32 logits [B, H, W, n_classes].
@@ -367,16 +380,8 @@ class ARUNet(nn.Module):
         self.logit = _Conv(gp["featRoot"], n_classes, 4, None)
 
     def init_random(self, seed: int = 0) -> "ARUNet":
-        """Normal(0, sqrt(2 / (kh*kw*cin + cout))) kernels and 0.1 biases
-        (the flax initializers), drawn from a seeded generator."""
-        gen = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for m in self.modules():
-                if isinstance(m, (_Conv, _Deconv)):
-                    m.weight.copy_(torch.randn(m.weight.shape, generator=gen)
-                                   * m.init_std)
-                    m.bias.fill_(0.1)
-        return self
+        """The flax initializers from a seeded generator (:func:`init_convs`)."""
+        return init_convs(self, seed)
 
     def endpoint_channels(self, name: str) -> int:
         """Channels of the end point ``scale_<sc>_unet_down_<layer>_conv``
@@ -485,6 +490,10 @@ class ARUCutted(nn.Module):
                 ch, feat, gp["res_depth"], gp["filter_size"], gp["activation_name"]))
             ch = feat
             feat *= gp["pool_size"]
+
+    def init_random(self, seed: int = 0) -> "ARUCutted":
+        """The flax initializers from a seeded generator (:func:`init_convs`)."""
+        return init_convs(self, seed)
 
     def endpoint_channels(self, name: str) -> int:
         """Channels of the end point ``res_block_<i>``."""

@@ -131,6 +131,23 @@ def warmup_final_decay_schedule(learning_rate: float, steps_per_epoch: int,
     return schedule
 
 
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Callable[[int], np.float32]:
+    """optax's ``cosine_decay_schedule`` (exponent 1): a function of the
+    update count, init_value * ((1 - alpha) * 0.5 * (1 + cos(pi * t / T))
+    + alpha) with t clipped to T, in float32 in optax's order."""
+    if not decay_steps > 0:
+        raise ValueError(f"cosine_decay_schedule requires positive decay_steps, "
+                         f"got {decay_steps}")
+    steps = _F(decay_steps)
+
+    def schedule(count: int) -> np.float32:
+        t = np.minimum(_F(np.int32(count)), steps)
+        cosine = _F(0.5) * (_F(1) + _cosf(_F(math.pi) * t / steps))
+        return _F(init_value) * (_F(1 - alpha) * cosine + _F(alpha))
+    return schedule
+
+
 def build_schedule(kind: str, params: Dict[str, Any], steps_per_epoch: int,
                    epochs: int) -> Callable[[int], np.float32]:
     """kind in ('decay', 'final_decay', 'warmup_final_decay')."""
@@ -270,6 +287,12 @@ class Optimizer:
                     t.copy_(torch.as_tensor(np.asarray(saved[key][k])))
             else:
                 state[key] = int(np.asarray(saved[key]))
+
+
+def adam(schedule: Callable[[int], np.float32]) -> Optimizer:
+    """``optax.adam(schedule)`` over a step schedule (the separator recipe's
+    ``adam(cosine_decay_schedule(...))``)."""
+    return Optimizer("adam", schedule)
 
 
 def build_optimizer(params: Optional[Dict[str, Any]] = None,

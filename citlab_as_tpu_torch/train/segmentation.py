@@ -47,23 +47,40 @@ def segmentation_loss(logits: torch.Tensor, labels: torch.Tensor,
     return torch.sum(ce * weights) / torch.clamp(torch.sum(weights), min=1.0)
 
 
-def make_train_step(model: ARUNet, optimizer: Optimizer):
+def make_train_step(model: ARUNet, optimizer: Optimizer, class_weights=None):
     """Returns ``train_step(params, opt_state, batch) -> loss`` (a 0-d
     tensor on the device), which updates ``params`` (the model's
     ``dict(named_parameters())``) and ``opt_state`` in place; batch =
     {'image': [B,H,W,1] float, 'label': [B,H,W] int, 'mask': [B,H,W] float
-    or None}, tensors on the model's device."""
+    or None}, tensors on the model's device. ``class_weights``: the loss's
+    per-class weights (the separator recipe weighs class 0 by 8)."""
 
     def train_step(params: Dict[str, torch.Tensor], opt_state, batch):
         for p in params.values():
             p.grad = None
         logits = model(batch["image"])
-        loss = segmentation_loss(logits, batch["label"], batch.get("mask"))
+        loss = segmentation_loss(logits, batch["label"], batch.get("mask"),
+                                 class_weights)
         loss.backward()
         optimizer.step(params, {k: p.grad for k, p in params.items()}, opt_state)
         return loss.detach()
 
     return train_step
+
+
+def target_class_metrics(logits: torch.Tensor, labels: torch.Tensor,
+                         target: int = 0):
+    """(pixel accuracy, precision, recall of class ``target``) of the
+    argmax of ``logits`` [B,H,W,C] against ``labels`` [B,H,W], as 0-d
+    float32 tensors (the separator recipe's eval,
+    ``scripts/train_synthetic_separator.py``)."""
+    pred = torch.argmax(logits, dim=-1)
+    acc = torch.mean((pred == labels).to(torch.float32))
+    want = labels == target
+    hit = ((pred == target) & want).sum()
+    recall = hit / torch.clamp(want.sum(), min=1)
+    precision = hit / torch.clamp((pred == target).sum(), min=1)
+    return acc, precision.to(torch.float32), recall.to(torch.float32)
 
 
 def make_eval_step(model: ARUNet):

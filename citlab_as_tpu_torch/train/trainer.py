@@ -11,8 +11,14 @@ EMA shadow weights (evaluated and exported instead of the live ones) and
 gradient accumulation. One device (the JAX trainer's batch sharding over a
 mesh is ROADMAP item 17).
 
-The model is built from the first training batch's feature widths, as the
-JAX trainer initializes from it; that batch is drawn from the same random
+``model``: any ``GraphRelation`` the caller built, as the JAX trainer takes
+one, the visual nets included (``image_input=True`` with the ``ARU_v1`` or
+``ARU_cutted_v1`` backbone; with ``input_params["image_input"]`` the
+batches carry the page images and region polygons, and the train step
+differentiates through the backbone: under autograd the full ARU-Net's
+3x3 convs run K1 forward and cuDNN backward). Without one, the plain net
+is built from the first training batch's feature widths, as the JAX
+trainer initializes from it; that batch is drawn from the same random
 streams, so the batches after it are the JAX trainer's too. Checkpoints
 and best exports are the JAX trainer's orbax checkpoints
 (``checkpoint.trainer_state``, each tensor placed by its flax path,
@@ -59,12 +65,17 @@ DEFAULT_TRAINER_FLAGS: Dict[str, Any] = {
 def init_gnn_params(model: GraphRelation, seed: int = 0) -> GraphRelation:
     """flax ``Dense``'s initializers drawn from a seeded generator: kernels
     lecun-normal (a normal truncated at two standard deviations, scaled to
-    variance 1 / fan_in), biases zero. The port cannot draw jax's PRNG
-    numbers; a JAX init is carried across with
+    variance 1 / fan_in), biases zero; a visual net's backbone gets its own
+    flax initializers (``init_random(seed)``). The port cannot draw jax's
+    PRNG numbers; a JAX init is carried across with
     ``weights.gnn_state_dict_from_flax``."""
     gen = torch.Generator().manual_seed(seed)
+    if model.image_input:
+        model.visual.backbone.init_random(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
+            if name.startswith("visual.backbone."):
+                continue
             if name.endswith("bias"):
                 p.zero_()
                 continue
@@ -77,11 +88,12 @@ def init_gnn_params(model: GraphRelation, seed: int = 0) -> GraphRelation:
 
 
 class TrainerGNN:
-    """Train the GraphRelation model over graph-feature JSON lists.
+    """Train a GraphRelation model over graph-feature JSON lists.
 
-    The model takes its widths from the data. ``init_params``: flat flax
-    params to start from (``params/...`` paths); None draws flax's
-    initializers from ``seed``."""
+    ``model``: the net to train (a visual one too); None builds the plain
+    net, which takes its widths from the data. ``init_params``: flat flax
+    params to start from (``params/...`` paths, ``params/visual/...`` for a
+    visual net's); None draws flax's initializers from ``seed``."""
 
     def __init__(self, model_dir: str, train_list: Sequence[str],
                  eval_list: Sequence[str],
@@ -89,7 +101,8 @@ class TrainerGNN:
                  input_params: Optional[dict] = None,
                  optimizer_params: Optional[dict] = None,
                  seed: int = 0, device: DeviceLike = "cuda",
-                 init_params: Optional[Dict[str, np.ndarray]] = None):
+                 init_params: Optional[Dict[str, np.ndarray]] = None,
+                 model: Optional[GraphRelation] = None):
         self.device = resolve_device(device)
         self.flags = dict(DEFAULT_TRAINER_FLAGS)
         if flags:
@@ -101,7 +114,7 @@ class TrainerGNN:
         self.input_fn = InputGNN(input_params,
                                  num_classes=self.flags["num_classes"],
                                  seed=seed)
-        self.model: Optional[GraphRelation] = None
+        self.model: Optional[GraphRelation] = model
         self.init_params = init_params
         self.steps_per_epoch = max(
             1, self.flags["samples_per_epoch"] // self.flags["batch_size"])
@@ -117,7 +130,7 @@ class TrainerGNN:
 
     # ------------------------------------------------------------------
     def _build_model(self, example_batch: Dict[str, np.ndarray]) -> None:
-        model = GraphRelation(
+        model = self.model or GraphRelation(
             node_feature_dim=example_batch["node_features"].shape[-1],
             edge_feature_dim=example_batch["edge_features"].shape[-1],
             num_classes=self.flags["num_classes"])
@@ -140,7 +153,10 @@ class TrainerGNN:
                 batch["num_relations_to_consider"],
                 params=params, weight_decay=weight_decay)
             loss.backward()
-            optimizer.step(params, {k: p.grad for k, p in params.items()}, opt_state)
+            # a parameter the loss does not reach (a backbone's layers past
+            # the end points it reads) has no gradient; jax.grad's is zero
+            optimizer.step(params, {k: torch.zeros_like(p) if p.grad is None else p.grad
+                                    for k, p in params.items()}, opt_state)
             return loss.detach()
 
         return train_step

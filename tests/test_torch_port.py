@@ -1,7 +1,9 @@
 """Port-wide checks: the weight converter, import hygiene (no jax, flax,
 citlab_as_tpu, sklearn, lxml, PIL, shapely, openpyxl, matplotlib, msgpack,
-nltk, gensim, tensorflow or google inside the port or chip_smoke.py), and
-device resolution."""
+nltk, gensim, tensorflow or google inside the port or chip_smoke.py, and
+no module of the port imports the repository's top-level ``scripts``, the
+JAX side's; chip_smoke.py's imports of the fixture scripts stay allowed),
+and device resolution."""
 import ast
 import os
 import subprocess
@@ -100,8 +102,9 @@ def _port_files():
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: os.path.relpath(p, REPO))
 def test_port_file_imports_no_jax_and_no_reference(path):
+    forbidden = FORBIDDEN + (() if path.endswith("chip_smoke.py") else ("scripts",))
     bad = [m for m in _imports(path)
-           if m.split(".")[0] in FORBIDDEN and m.split(".")[0] != "citlab_as_tpu_torch"]
+           if m.split(".")[0] in forbidden and m.split(".")[0] != "citlab_as_tpu_torch"]
     assert not bad, f"{path} imports {bad}"
 
 
@@ -203,8 +206,11 @@ print("LOADED", bad)
 def test_running_the_training_path_loads_no_jax_module():
     """The training path in a fresh process: both trainers (tiny nets, a GT
     directory and feature JSONs written by the port), every optimizer, the
-    synthetic pages, LAV and the three training CLIs, then no module of
-    jax, flax, optax, orbax, sklearn or the JAX package is loaded."""
+    synthetic pages, LAV, the three training CLIs and the recipes of
+    ``citlab_as_tpu_torch/scripts`` (the separator recipe, the synthetic
+    GNN recipe, a visual relation net's train step, the page generators),
+    then no module of jax, flax, optax, orbax, sklearn, PIL, the JAX package
+    or the repository's top-level ``scripts`` is loaded."""
     code = r"""
 import json, os, sys, tempfile
 import numpy as np, torch
@@ -242,10 +248,35 @@ for name in ("adam", "nadam", "rmsprop", "sgd"):
         opt.step(p, {"w": torch.full((3,), 0.5)}, s)
 img, lab = synthetic_data.synthetic_batch(torch.Generator().manual_seed(0), 1, 64, 64)
 assert img.shape == (1, 64, 64, 1)
+from citlab_as_tpu_torch.scripts import (eval_visual_gnn, hard_corpus, train_pipeline_gnn,
+    train_synthetic_gnn, train_synthetic_separator)
+acc = train_synthetic_separator.main(["--model_dir", os.path.join(root, "sep"), "--steps",
+    "1", "--batch", "1", "--crop", "64", "--device", "cpu"])[0]
+assert 0.0 <= acc <= 1.0
+out = train_synthetic_gnn.main(["--model_dir", os.path.join(root, "sg"), "--num_pages", "6",
+    "--epochs", "2", "--samples_per_epoch", "8", "--batch_size", "2", "--device", "cpu"])
+assert np.isfinite(out["history"][-1]["loss"])
+hard_corpus.make_hard_article_page(root, "hard", np.random.RandomState(0), h=700)
+from citlab_as_tpu_torch.models.gnn.model import GraphRelation
+from citlab_as_tpu_torch.train.trainer import TrainerGNN
+from citlab_as_tpu_torch.utils.io import save_png
+for g, path in enumerate(paths):
+    graph = json.load(open(path))
+    graph["visual_regions_nodes"] = [[[4, 30, 30, 4], [4, 4, 20, 20]]] * 5
+    graph["num_points_visual_regions_nodes"] = [4] * 5
+    os.makedirs(os.path.join(root, "json"), exist_ok=True)
+    paths[g] = os.path.join(root, "json", f"g{g}.json")
+    json.dump(graph, open(paths[g], "w"))
+    save_png(os.path.join(root, f"g{g}.png"), rng.randint(0, 255, (60, 40)).astype(np.uint8))
+visual = TrainerGNN(os.path.join(root, "vis"), paths, paths[:1], flags={"epochs": 1,
+    "samples_per_epoch": 2, "batch_size": 2}, input_params={"image_input": True,
+    "resize_min_dim": 64, "resize_max_dim": 64, "sample_num_relations_to_consider": 8},
+    device="cpu", model=GraphRelation(15, 2, image_input=True, visual_backbone="ARU_cutted_v1"))
+assert np.isfinite(visual.train()["history"][0]["loss"])
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "optax",
                                     "citlab_as_tpu", "sklearn", "lxml", "PIL",
-                                    "shapely"))
+                                    "shapely", "scripts"))
 print("LOADED", bad)
 """
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
