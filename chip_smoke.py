@@ -285,6 +285,29 @@ result):
    ``eval_visual_gnn`` over its five seeds with the committed
    ``gnn_visual``: mean AS F above 0.95 (the blind phase's floor), K1 138
    and K2 1 per seed; mean and min printed.
+20. dp_train: data-parallel training over a mesh of 2 shards that both
+   name the one card (and over a mesh of every card where there are
+   several): ``train/segmentation.py::make_sharded_train_step`` at the
+   separator net's full width from ``separator.npz``, batch 8 x 512 x 512
+   (4 per shard) of crops of the train phase's drawn GT pages, with a
+   validity mask that gives every shard another weight and the separator
+   recipe's class weights (8 : 1) and optimizer, 3 steps in f32 with
+   TF32 off, then 2 bf16 steps off the clock and 10 timed beside the
+   unsharded ``make_train_step`` on the same batches;
+   ``TrainerGNN._make_sharded_train_step`` at the ``gnn`` checkpoint's
+   widths from ``gnn.npz``, batch 16 (8 per shard) whose shards hold
+   graphs of other sizes (uneven counts of valid relations), weight decay
+   1e-4 and EMA 0.99, 3 steps then 10 timed beside the unsharded step; the
+   ARU_v1 visual GNN, f32, batch 8 at 384 x 384 (4 per shard), 2 steps.
+   Gates: K1 69 launches per shard per segmentation and ARU_v1 step (138
+   on the 2-shard mesh); after every step every replica's parameters,
+   optimizer state and EMA bit-equal to shard 0's; in f32 each sharded step
+   against the unsharded step on the whole batch from the same start: the
+   loss within 1e-5 relative, the gradient it applied within 1e-2 and the
+   parameters after it within 1e-3 of their norms over the whole net (the
+   worst leaf printed); the bf16 sharded losses finite, the first within
+   2e-2 of the f32 one. Printed, not gated: sharded and unsharded steps/s (one card shows
+   no scaling) and ``reduce_gradients``' ms.
 
 The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
 """
@@ -4495,6 +4518,443 @@ def phase_recipes(dev):
     return out
 
 
+DP_SHARDS = 2                               # data shards of the one card's mesh
+DP_SEED = 41
+DP_SEG_BATCH, DP_SEG_CROP = 8, 512          # the separator recipe's batch and crop
+DP_SEG_WARM, DP_SEG_TIMED = 2, 10           # bf16 steps off the clock, then timed
+DP_CHECK_STEPS = 3                          # f32 steps of the sharded-vs-unsharded check
+DP_CLASS_WEIGHTS = (8.0, 1.0)               # the separator recipe's
+DP_GNN_BATCH, DP_GNN_TIMED = 16, 10
+DP_VISUAL_BATCH, DP_VISUAL_STEPS = 8, 2
+DP_WEIGHT_DECAY = 1e-4
+DP_EMA_DECAY = 0.99
+#: sharded against unsharded from the same start, after one step: the
+#: difference norm over the whole net's parameters, and over its gradient
+#: (the sum the sharded step applies against the whole batch's), each over
+#: its own norm. Not per leaf: Adam turns float32 summation noise in a
+#: gradient near zero into up to a step of lr (a first step from a zero
+#: state into a step of +-lr), and the card's cuDNN backward over half
+#: batches sums in another order from call to call, so a leaf of a few
+#: small elements can lie 5e-4-8e-4 of its norm from the unsharded one, and
+#: once in 12 first steps the whole net 2e-4; the ARU_v1 net's region max
+#: pool sends a gradient to another cell where a near tie resolves
+#: otherwise, up to 3.9e-4 of the whole gradient (PERF.md, Findings). A
+#: dropped shard or a mean of shard means moves these by far more (the
+#: losses' gate holds the latter)
+DP_PARAM_TOL = 1e-3
+DP_GRAD_TOL = 1e-2
+
+
+def sync_cards():
+    import torch
+    for index in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(index)
+
+
+def dp_replicas_equal(label, trees):
+    """Gate: every replica's tensors (parameters, optimizer slots, EMA
+    shadows) and counters bit-equal to shard 0's."""
+    import torch
+    from citlab_as_tpu_torch.parallel.mesh import _leaves
+    first = _leaves(trees[0])
+    for i, tree in enumerate(trees[1:], 1):
+        leaves = _leaves(tree)
+        check(len(leaves) == len(first), f"dp_train: {label}: replica {i}'s tree differs")
+        for a, b in zip(leaves, first):
+            same = (torch.equal(a.to(b.device), b) if isinstance(a, torch.Tensor) else a == b)
+            check(same, f"dp_train: {label}: replica {i} is not bit-equal to shard 0's")
+
+
+def dp_gaps(got, want):
+    """(difference norm over the whole tree over its norm, the largest such
+    ratio of one leaf, that leaf's name) of two ``{name: tensor}`` trees."""
+    import torch
+    with torch.no_grad():
+        diff = norm = 0.0
+        leaves = {}
+        for k, w in want.items():
+            d = float(torch.linalg.vector_norm((got[k].to(w.device) - w).double())) ** 2
+            n = float(torch.linalg.vector_norm(w.double())) ** 2
+            diff, norm = diff + d, norm + n
+            leaves[k] = (d / max(n, 1e-60)) ** 0.5
+    worst = max(leaves, key=leaves.get)
+    return (diff / max(norm, 1e-60)) ** 0.5, leaves[worst], worst
+
+
+def dp_grads(params_list):
+    """The gradients a sharded step applied: each replica's own gradient
+    (None: a zero) summed in shard order, as ``reduce_gradients`` sums
+    them."""
+    import torch
+    first = params_list[0]
+    return {k: sum((torch.zeros_like(p) if p.grad is None else p.grad).to(first[k].device)
+                   for p in (params[k] for params in params_list))
+            for k in first}
+
+
+def dp_timed(step, batches):
+    """Each step's wall (device-synced before and after), the losses read
+    after the clock stops."""
+    walls, losses = [], []
+    for batch in batches:
+        sync_cards()
+        t0 = time.perf_counter()
+        losses.append(step(batch))
+        sync_cards()
+        walls.append(time.perf_counter() - t0)
+    return walls, [float(v) for v in losses]
+
+
+def dp_align(single, sharded):
+    """The unsharded run's parameters, optimizer state and EMA set to shard
+    0's, bit for bit: the start the next two steps share."""
+    import torch
+    with torch.no_grad():
+        for dst, src in ((single["params"], sharded["params"][0]),
+                         (single.get("ema"), (sharded.get("emas") or [None])[0])):
+            if dst is not None:
+                for k, t in dst.items():
+                    t.copy_(src[k])
+        for key, val in sharded["states"][0].items():
+            if isinstance(val, dict):
+                for k, t in single["state"][key].items():
+                    t.copy_(val[k])
+            else:
+                single["state"][key] = val
+
+
+def dp_compare(label, mesh, sharded, single, steps, trees):
+    """Gates of each sharded step against one unsharded step on the whole
+    batch from the same start (``dp_align`` before each), over ``steps``:
+    the losses within 1e-5 relative; the gradient the sharded step applied
+    within ``DP_GRAD_TOL`` and the parameters after the two steps within
+    ``DP_PARAM_TOL`` of the unsharded ones (each over the whole net); the
+    replicas (``trees()``, one tree per replica) bit-equal after every step.
+    Returns the sharded losses, the relative loss gaps, the net's and the
+    worst leaf's parameter and gradient gaps, the K1 launches of each
+    sharded step and both steps' walls (device-synced)."""
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    out = {k: [] for k in ("losses", "rel", "gaps", "leaf_gaps", "grad_gaps",
+                           "grad_leaf_gaps", "k1", "walls", "single_walls")}
+    for i in steps:
+        dp_align(single, sharded)
+        before = k1.launches
+        (wall,), (got,) = dp_timed(sharded["step"], [i])
+        out["k1"].append(k1.launches - before)
+        (single_wall,), (want,) = dp_timed(single["step"], [i])
+        out["losses"].append(got)
+        out["walls"].append(wall)
+        out["single_walls"].append(single_wall)
+        out["rel"].append(abs(got - want) / abs(want))
+        gap, leaf_gap, leaf = dp_gaps(sharded["params"][0], single["params"])
+        out["gaps"].append(gap)
+        out["leaf_gaps"].append((leaf_gap, leaf))
+        gap, leaf_gap, leaf = dp_gaps(dp_grads(sharded["params"]), dp_grads([single["params"]]))
+        out["grad_gaps"].append(gap)
+        out["grad_leaf_gaps"].append((leaf_gap, leaf))
+        dp_replicas_equal(label, trees())
+    print(f"dp_train: {label}: {dp_readings(out)}")
+    check(max(out["rel"]) <= 1e-5,
+          f"dp_train: {label}: sharded vs unsharded losses differ by {out['rel']}")
+    check(max(out["grad_gaps"]) <= DP_GRAD_TOL,
+          f"dp_train: {label}: sharded vs unsharded gradients differ by {out['grad_gaps']}")
+    check(max(out["gaps"]) <= DP_PARAM_TOL,
+          f"dp_train: {label}: sharded vs unsharded parameters differ by {out['gaps']}")
+    return out
+
+
+def dp_readings(got):
+    """The comparison's readings as one clause of a printed line."""
+    def fmt(values):
+        return [f"{v:.3g}" for v in values]
+
+    def worst(pairs):
+        return [f"{v:.3g} ({k})" for v, k in pairs]
+    return (f"losses relative {fmt(got['rel'])} (limit 1e-5), applied gradient "
+            f"{fmt(got['grad_gaps'])} of its norm (limit {DP_GRAD_TOL}; worst leaf "
+            f"{worst(got['grad_leaf_gaps'])}), parameters {fmt(got['gaps'])} of their norm "
+            f"(limit {DP_PARAM_TOL}; worst leaf {worst(got['leaf_gaps'])})")
+
+
+def dp_seg_batches(root, dev):
+    """The bf16 run's batches: 8 x 512 x 512 crops of the train phase's
+    drawn GT pages (column rule against the rest), as a user fine-tunes the
+    separator on GT of their own, with a validity mask that keeps the top
+    (B + i) / 2B of page i's rows: every shard carries another weight."""
+    import torch
+    from citlab_as_tpu_torch.train.seg_input_pipeline import (
+        SegmentationDataset, find_gt_examples,
+    )
+    gt = write_seg_gt(os.path.join(root, "seg_gt"), SEG_GT_PAGES, TRAIN_PAGE_SHAPE,
+                      seed=DP_SEED)
+    data = SegmentationDataset(find_gt_examples(gt), (DP_SEG_CROP, DP_SEG_CROP),
+                               augment=False, seed=DP_SEED)
+    keep = np.ones((DP_SEG_BATCH, DP_SEG_CROP, DP_SEG_CROP), np.float32)
+    for i in range(DP_SEG_BATCH):
+        keep[i, DP_SEG_CROP * (DP_SEG_BATCH + i) // (2 * DP_SEG_BATCH):] = 0.0
+    return [{"image": torch.from_numpy(b["image"]).to(dev),
+             "label": torch.from_numpy(b["label"]).to(dev),
+             "mask": torch.from_numpy(b["mask"] * keep).to(dev)}
+            for b in data.batches(DP_SEG_BATCH, DP_SEG_WARM + DP_SEG_TIMED)]
+
+
+def dp_segmentation(dev, mesh, label, root):
+    """The separator net at full width from ``separator.npz``, the recipe's
+    class weights and optimizer: f32 sharded vs unsharded, then bf16 timed
+    beside the unsharded step on the same batches."""
+    import torch
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.parallel.mesh import reduce_gradients, replicate, shard_batch
+    from citlab_as_tpu_torch.train.optimizer import adam, cosine_decay_schedule
+    from citlab_as_tpu_torch.train.segmentation import (
+        create_model, make_sharded_train_step, make_train_step, pixel_weights,
+    )
+    from citlab_as_tpu_torch.weights import arunet_state_dict_from_flax, load_npz
+    init = arunet_state_dict_from_flax(
+        load_npz(os.path.join(REPO, "models_ckpt_torch", "separator.npz")))
+    optimizer = adam(cosine_decay_schedule(1e-3, DP_SEG_WARM + DP_SEG_TIMED, alpha=0.1))
+    n = mesh.shape["data"]
+    batches = dp_seg_batches(root, dev)
+    shards = [shard_batch(mesh, b) for b in batches]
+
+    def build(dtype):
+        model = create_model(dtype=dtype)
+        model.load_state_dict(init)
+        model = model.to(dev)
+        replicas = replicate(mesh, model)
+        params = [dict(r.named_parameters()) for r in replicas]
+        states = [optimizer.init(p) for p in params]
+        step = make_sharded_train_step(replicas, optimizer, mesh, DP_CLASS_WEIGHTS)
+        single_params = dict(model.named_parameters())
+        single_state = optimizer.init(single_params)
+        single = make_train_step(model, optimizer, DP_CLASS_WEIGHTS)
+        return ({"step": lambda i: step(params, states, shards[i]), "params": params,
+                 "states": states},
+                {"step": lambda i: single(single_params, single_state, batches[i]),
+                 "params": single_params, "state": single_state})
+
+    weights = [float(torch.sum(pixel_weights(b["label"], b["mask"], DP_CLASS_WEIGHTS)))
+               for b in shards[0]]
+    check(len(set(weights)) == n, f"dp_train: {label}: shard weights {weights} are not uneven")
+    sharded, single = build(torch.float32)
+    f32 = dp_compare(f"{label}, segmentation f32", mesh, sharded, single,
+                     range(DP_CHECK_STEPS),
+                     lambda: [[p, s] for p, s in zip(sharded["params"], sharded["states"])])
+    del sharded, single
+
+    sharded, single = build(torch.bfloat16)
+    k1_bf16, losses, walls = [], [], []
+    for i in range(DP_SEG_WARM + DP_SEG_TIMED):
+        before = k1.launches
+        wall, loss = dp_timed(sharded["step"], [i])
+        k1_bf16.append(k1.launches - before)
+        walls += wall
+        losses += loss
+        dp_replicas_equal(f"{label}, segmentation bf16",
+                          [[p, s] for p, s in zip(sharded["params"], sharded["states"])])
+    single_walls, single_losses = dp_timed(single["step"], range(DP_SEG_WARM + DP_SEG_TIMED))
+    check(f32["k1"] == [69 * n] * DP_CHECK_STEPS and k1_bf16 == [69 * n] * len(k1_bf16),
+          f"dp_train: {label}: K1 launches per sharded segmentation step {f32['k1']}, "
+          f"{k1_bf16}; want {69 * n}")
+    check(all(np.isfinite(losses)), f"dp_train: {label}: bf16 sharded losses {losses}")
+    first = abs(losses[0] - f32["losses"][0]) / abs(f32["losses"][0])
+    check(first <= 2e-2,
+          f"dp_train: {label}: bf16 first loss {losses[0]} vs f32 {f32['losses'][0]}")
+    rate = DP_SEG_TIMED / sum(walls[DP_SEG_WARM:])
+    single_rate = DP_SEG_TIMED / sum(single_walls[DP_SEG_WARM:])
+    grads = [{k: p.grad for k, p in params.items()} for params in sharded["params"]]
+    reduce_ms = cuda_ms(lambda: reduce_gradients(mesh, grads, sharded["params"]))
+    print(f"dp_train: {label}: segmentation at the separator's width, batch "
+          f"{DP_SEG_BATCH} x {DP_SEG_CROP} x {DP_SEG_CROP} ({DP_SEG_BATCH // n} per shard), "
+          f"class weights {DP_CLASS_WEIGHTS}, shard weights {weights}; f32 (TF32 off) "
+          f"sharded vs unsharded, each step from the same start: {dp_readings(f32)}; "
+          f"bf16: {rate:.3f} sharded steps/s beside {single_rate:.3f} "
+          f"unsharded (steps {DP_SEG_WARM + 1}-{DP_SEG_WARM + DP_SEG_TIMED}, wall, "
+          f"device-synced), losses {[round(v, 5) for v in losses]}, first vs f32 "
+          f"{first:.3g} (limit 2e-2), unsharded {[round(v, 5) for v in single_losses]}; "
+          f"K1 {69 * n} per sharded step; reduce_gradients {reduce_ms:.4f} ms (CUDA events, "
+          f"mean of 10) over {sum(p.numel() for p in sharded['params'][0].values())} "
+          f"gradients per shard; replicas bit-equal after every step")
+    return {"steps_per_s": rate, "unsharded_steps_per_s": single_rate,
+            "f32_rel": max(f32["rel"]), "f32_param_gap": max(f32["gaps"]),
+            "f32_grad_gap": max(f32["grad_gaps"]), "reduce_ms": reduce_ms}
+
+
+def dp_gnn_graph(rng, n):
+    """A page graph of ``n`` Delaunay-connected regions in three articles,
+    with its relation ground truth."""
+    graph = _delaunay_graph(rng, n)
+    article = [3 * i // n for i in range(n)]
+    graph["gt_relations"] = [[1, i, j] for i in range(n) for j in range(n)
+                             if article[i] == article[j]]
+    return graph
+
+
+def dp_gnn_batches(input_fn, n_data, steps, batch_size, seed, visual_paths=None):
+    """``steps`` training batches (the trainer's sampling of 300 relations
+    per graph) whose shards hold graphs of other sizes: shard s's graphs
+    have 4 + 6 s to 9 + 6 s nodes, so its count of valid relations differs
+    from every other shard's."""
+    rng = np.random.RandomState(seed)
+    per = batch_size // n_data
+    out = []
+    for _ in range(steps):
+        examples = []
+        for i in range(batch_size):
+            if visual_paths is not None:
+                path = visual_paths[i % len(visual_paths)]
+                with open(path) as f:
+                    graph = json.load(f)
+            else:
+                path, graph = None, dp_gnn_graph(rng, 4 + 6 * (i // per) + rng.randint(6))
+            examples.append(input_fn.prepare_example(graph, training=True, json_path=path))
+        out.append(input_fn._stack_to_common_shape(examples))
+    return out
+
+
+def dp_visual_pages(root, n_pages, seed):
+    """``n_pages`` random grey pages (``g<i>.png``) with feature JSONs of
+    region graphs (``json/g<i>.json``) whose sizes grow with the page
+    index, as ``build_dataset`` writes them for the visual nets."""
+    from citlab_as_tpu_torch.utils.io import save_png
+    rng = np.random.RandomState(seed)
+    os.makedirs(os.path.join(root, "json"), exist_ok=True)
+    paths = []
+    for g in range(n_pages):
+        h, w = 384, 288
+        save_png(os.path.join(root, f"g{g}.png"), (rng.rand(h, w) * 255).astype(np.uint8))
+        graph = dp_gnn_graph(rng, 4 + 2 * g)
+        regions = []
+        for _ in range(graph["num_nodes"]):
+            x0, y0 = rng.randint(0, w - 40), rng.randint(0, h - 40)
+            x1, y1 = x0 + rng.randint(8, 40), y0 + rng.randint(8, 40)
+            regions.append([[x0, x1, x1, x0], [y0, y0, y1, y1]])
+        graph["visual_regions_nodes"] = regions
+        graph["num_points_visual_regions_nodes"] = [4] * graph["num_nodes"]
+        path = os.path.join(root, "json", f"g{g}.json")
+        with open(path, "w") as f:
+            json.dump(graph, f)
+        paths.append(path)
+    return paths
+
+
+def dp_relation(dev, mesh, label, root, visual):
+    """The relation trainer's step sharded against its unsharded step from
+    the same start: the ``gnn`` checkpoint's net (batch 16, weight decay and
+    EMA), or the ARU_v1 visual net (f32, batch 8 at 384 x 384, K1 under
+    autograd in each shard's backbone)."""
+    import copy
+    from citlab_as_tpu_torch.models.gnn.model import GraphRelation
+    from citlab_as_tpu_torch.parallel.mesh import replicate, shard_batch
+    from citlab_as_tpu_torch.train import checkpoint as ckpt
+    from citlab_as_tpu_torch.train.input_pipeline import InputGNN, torch_batch
+    from citlab_as_tpu_torch.train.trainer import TrainerGNN
+    from citlab_as_tpu_torch.weights import load_npz
+    n = mesh.shape["data"]
+    name = "ARU_v1 visual GNN" if visual else "relation GNN"
+    if visual:
+        batch_size, steps = DP_VISUAL_BATCH, DP_VISUAL_STEPS
+        input_params = {"image_input": True, "resize_min_dim": RECIPE_IMAGE_DIMS[0],
+                        "resize_max_dim": RECIPE_IMAGE_DIMS[1]}
+        flags = {"weight_decay": DP_WEIGHT_DECAY, "batch_size": batch_size}
+        kw = {"model": GraphRelation(15, 2, image_input=True, visual_backbone="ARU_v1")}
+        paths = dp_visual_pages(os.path.join(root, "visual"), batch_size, DP_SEED)
+    else:
+        batch_size, steps = DP_GNN_BATCH, DP_CHECK_STEPS + DP_GNN_TIMED
+        input_params, paths = None, None
+        flags = {"weight_decay": DP_WEIGHT_DECAY, "ema_decay": DP_EMA_DECAY,
+                 "batch_size": batch_size}
+        kw = {"init_params": load_npz(os.path.join(REPO, "models_ckpt_torch", "gnn.npz"))}
+    trainer = TrainerGNN(os.path.join(root, f"trainer_{visual}"), [], [], flags=flags,
+                         input_params=input_params, seed=0, device=dev, **kw)
+    batches = dp_gnn_batches(trainer.input_fn, n, steps, batch_size, DP_SEED, paths)
+    trainer._build_model(batches[0])
+    single_model = copy.deepcopy(trainer.model)
+    replicas = replicate(mesh, trainer.model)
+    params = [dict(r.named_parameters()) for r in replicas]
+    states = [trainer.optimizer.init(p) for p in params]
+    emas = [ckpt.ema_init(p) for p in params] if not visual else None
+    step = trainer._make_sharded_train_step(mesh, replicas)
+    trainer.model = single_model
+    single_params = dict(single_model.named_parameters())
+    single_state = trainer.optimizer.init(single_params)
+    single_ema = ckpt.ema_init(single_params) if not visual else None
+    single = trainer._make_train_step()
+    whole = [torch_batch(b, dev) for b in batches]
+    shards = [shard_batch(mesh, b) for b in whole]
+    counts = [int(s["num_relations_to_consider"].sum()) for s in shards[0]]
+    check(len(set(counts)) == n, f"dp_train: {label}: {name} valid relations per shard "
+                                 f"{counts} are not uneven")
+
+    def single_step(i):
+        loss = single(single_params, single_state, whole[i])
+        if single_ema is not None:
+            ckpt.ema_update(single_ema, single_params, DP_EMA_DECAY)
+        return loss
+
+    sharded = {"step": lambda i: step(params, states, shards[i], emas), "params": params,
+               "states": states, "emas": emas}
+
+    def trees():
+        return [[p, s] + ([emas[i]] if emas else [])
+                for i, (p, s) in enumerate(zip(params, states))]
+
+    n_check = DP_VISUAL_STEPS if visual else DP_CHECK_STEPS
+    got = dp_compare(f"{label}, {name}", mesh, sharded,
+                     {"step": single_step, "params": single_params, "state": single_state,
+                      "ema": single_ema}, range(n_check), trees)
+    want_k1 = 69 * n if visual else 0
+    check(got["k1"] == [want_k1] * n_check,
+          f"dp_train: {label}: K1 launches per sharded {name} step {got['k1']}, want {want_k1}")
+    if visual:         # the checked steps, the first included
+        walls, single_walls = got["walls"], got["single_walls"]
+    else:
+        walls, _ = dp_timed(sharded["step"], range(DP_CHECK_STEPS, steps))
+        single_walls, _ = dp_timed(single_step, range(DP_CHECK_STEPS, steps))
+        dp_replicas_equal(f"{label}, {name}", trees())
+    rate, single_rate = len(walls) / sum(walls), len(single_walls) / sum(single_walls)
+    print(f"dp_train: {label}: {name}, batch {batch_size} ({batch_size // n} per shard), "
+          f"valid relations per shard {counts}, weight decay {DP_WEIGHT_DECAY}"
+          + ("" if visual else f", EMA {DP_EMA_DECAY}") + f"; f32 sharded vs unsharded over "
+          f"{n_check} steps, each from the same start: {dp_readings(got)}; K1 {want_k1} per "
+          f"sharded step; {rate:.3f} sharded "
+          f"steps/s beside {single_rate:.3f} unsharded over {len(walls)} steps (wall, "
+          f"device-synced" + (", the first included" if visual else "")
+          + "); replicas bit-equal after every step")
+    return {"steps_per_s": rate, "unsharded_steps_per_s": single_rate,
+            "f32_rel": max(got["rel"]), "f32_param_gap": max(got["gaps"]),
+            "f32_grad_gap": max(got["grad_gaps"])}
+
+
+def phase_dp_train(dev):
+    """Data-parallel training over a mesh (see the module docstring, phase
+    20)."""
+    import torch
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.parallel.mesh import make_mesh
+    meshes = {f"{DP_SHARDS} shards of one card": make_mesh([dev] * DP_SHARDS)}
+    if torch.cuda.device_count() > 1:
+        meshes[f"{torch.cuda.device_count()} cards"] = make_mesh()
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_train_")
+    out = {}
+    try:
+        k1.launches = k2.launches = 0
+        for label, mesh in meshes.items():
+            out[label] = {"segmentation": dp_segmentation(dev, mesh, label,
+                                                          os.path.join(root, str(len(out)))),
+                          "gnn": dp_relation(dev, mesh, label, os.path.join(root, str(len(out))),
+                                             visual=False),
+                          "visual": dp_relation(dev, mesh, label,
+                                                os.path.join(root, str(len(out))), visual=True)}
+        out["launches"] = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check(out["launches"]["separator_morphology"] == 0,
+          f"dp_train: K2 launched {out['launches']['separator_morphology']} times")
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -4542,6 +5002,7 @@ def main() -> int:
         spatial_row = timed("spatial", phase_spatial, dev, pipelined_row)
         orbax_row = timed("orbax", phase_orbax, dev)
         recipes_row = timed("recipes", phase_recipes, dev)
+        dp_train_row = timed("dp_train", phase_dp_train, dev)
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4567,7 +5028,8 @@ def main() -> int:
              launches_spatial=spatial_row["launches"]["conv3x3"],
              launches_orbax=orbax_row["launches"]["conv3x3"],
              launches_orbax_resume=orbax_row["resume_launches"]["conv3x3"],
-             launches_recipes=recipes_row["launches"]["conv3x3"], **k1_row),
+             launches_recipes=recipes_row["launches"]["conv3x3"],
+             launches_dp_train=dp_train_row["launches"]["conv3x3"], **k1_row),
         dict(name="separator_morphology", route="cuda",
              source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
              replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
@@ -4586,7 +5048,8 @@ def main() -> int:
              launches_spatial=spatial_row["launches"]["separator_morphology"],
              launches_orbax=orbax_row["launches"]["separator_morphology"],
              launches_orbax_resume=orbax_row["resume_launches"]["separator_morphology"],
-             launches_recipes=recipes_row["launches"]["separator_morphology"], **k2_row),
+             launches_recipes=recipes_row["launches"]["separator_morphology"],
+             launches_dp_train=dp_train_row["launches"]["separator_morphology"], **k2_row),
     ]
     # ``launches``: the in-memory main path's count; ``launches_files``: the
     # files-to-files path's; ``launches_workflow``: the whole workflow's;
@@ -4624,12 +5087,17 @@ def main() -> int:
     # and its ARU_v1 visual GNN's 16 train steps, 69 each, its eval forwards
     # and the f32 card check's 2 steps; the gnn_visual recipe's dataset
     # (ARU_cutted_v1: none in its steps); eval_visual_gnn's five workflows,
-    # K1 138 and K2 1 each)
+    # K1 138 and K2 1 each); ``launches_dp_train``: the data-parallel train
+    # steps over a 2-shard mesh of the card and, on a machine with several,
+    # a mesh of every card (per mesh of n shards: K1 69 n per sharded and 69
+    # per unsharded segmentation or ARU_v1 step, 3 f32 and 12 bf16
+    # segmentation steps and 2 ARU_v1 steps of each; 3,519 on one card; the
+    # relation GNN's steps none; K2 none)
     keys = ("name", "route", "source", "replaces", "launches", "launches_files",
             "launches_workflow", "launches_pipelined", "launches_visual", "launches_formats",
             "launches_variants", "launches_blind", "launches_train", "launches_gt_eval",
             "launches_models", "launches_parallel", "launches_spatial", "launches_orbax",
-            "launches_orbax_resume", "launches_recipes", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "launches_orbax_resume", "launches_recipes", "launches_dp_train", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))

@@ -64,6 +64,16 @@ def _align_feature_jsons(json_paths, page_paths, image_paths):
     return out
 
 
+def _model_paths(separator, heading, gnn, separator_dir, heading_dir, gnn_dir):
+    """The three nets' paths, each from the port's ``*_model_path`` keyword
+    or the JAX package's ``*_model_dir``."""
+    from citlab_as_tpu_torch.inference import jax_keyword
+    return tuple(jax_keyword(path, path_dir, f"{stage}_model_path", f"{stage}_model_dir")
+                 for stage, path, path_dir in (("separator", separator, separator_dir),
+                                               ("heading", heading, heading_dir),
+                                               ("gnn", gnn, gnn_dir)))
+
+
 def run_full_workflow(image_paths: Sequence[str],
                       separator_model_path: Optional[str] = None,
                       heading_model_path: Optional[str] = None,
@@ -82,7 +92,10 @@ def run_full_workflow(image_paths: Sequence[str],
                       heading_device_swt: Optional[bool] = None,
                       fault_tolerant: bool = True,
                       clustering_params: Optional[dict] = None,
-                      device: DeviceLike = "cuda") -> dict:
+                      device: DeviceLike = "cuda", *,
+                      separator_model_dir: Optional[str] = None,
+                      heading_model_dir: Optional[str] = None,
+                      gnn_model_dir: Optional[str] = None) -> dict:
     """Returns {'pages', 'clustered', 'timings': {stage: seconds},
     'skipped'}. Predictors may be injected directly (tests / custom models;
     plain ``image_grey -> probabilities`` and ``graph -> [N, N]`` callables
@@ -93,12 +106,17 @@ def run_full_workflow(image_paths: Sequence[str],
     applies the reference's per-page log-and-skip contract; skips are
     returned under ``'skipped'``. ``clustering_params`` overrides the
     TextblockClustering method defaults (e.g. ``confidence_threshold``;
-    run_gnn_clustering.py:69-72 double-parse equivalent)."""
+    run_gnn_clustering.py:69-72 double-parse equivalent). The JAX
+    package's ``separator_model_dir`` / ``heading_model_dir`` /
+    ``gnn_model_dir`` keywords name the same paths (one name each)."""
     from citlab_as_tpu_torch.inference import SegmentationPredictor
     from citlab_as_tpu_torch.pagexml.page import page_cache
     from citlab_as_tpu_torch.stages.separator import SeparatorNetPostProcessor
     from citlab_as_tpu_torch.utils.faults import SkippedPages
 
+    separator_model_path, heading_model_path, gnn_model_path = _model_paths(
+        separator_model_path, heading_model_path, gnn_model_path,
+        separator_model_dir, heading_model_dir, gnn_model_dir)
     timings = timings if timings is not None else {}
 
     def timed(name, fn):
@@ -302,7 +320,10 @@ def run_full_workflow_pipelined(image_paths: Sequence[str],
                                 fault_tolerant: bool = True,
                                 host_workers: int = 0,
                                 clustering_params: Optional[dict] = None,
-                                device: DeviceLike = "cuda", mesh=None) -> dict:
+                                device: DeviceLike = "cuda", mesh=None, *,
+                                separator_model_dir: Optional[str] = None,
+                                heading_model_dir: Optional[str] = None,
+                                gnn_model_dir: Optional[str] = None) -> dict:
     """Wave-pipelined production driver: the page groups of
     :func:`run_full_workflow` (same-shape groups of ``batch_size``) in a
     four-stage software pipeline, writing the same files.
@@ -360,6 +381,9 @@ def run_full_workflow_pipelined(image_paths: Sequence[str],
 
     timings = timings if timings is not None else {}
     t_start = time.time()
+    separator_model_path, heading_model_path, gnn_model_path = _model_paths(
+        separator_model_path, heading_model_path, gnn_model_path,
+        separator_model_dir, heading_model_dir, gnn_model_dir)
     sep_predictor = separator_predictor or SegmentationPredictor(
         separator_model_path, dtype=torch.bfloat16, device=device)
     heading_predictor = heading_predictor or SegmentationPredictor(

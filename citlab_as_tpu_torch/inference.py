@@ -44,6 +44,17 @@ def _variables(model_path: str, bare_state_ok: bool) -> Dict[str, np.ndarray]:
             for k, v in flat.items()}
 
 
+def jax_keyword(value, jax_value, name: str, jax_name: str):
+    """``value`` of the port's keyword ``name``, or ``jax_value`` of the JAX
+    package's ``jax_name`` for the same argument (``model_dir=``,
+    ``separator_model_dir=``, ...); both given raises ``TypeError``."""
+    if jax_value is None:
+        return value
+    if value is not None:
+        raise TypeError(f"{name} and {jax_name} name the same model: give one of them")
+    return jax_value
+
+
 def _round_up(x: int, multiple: int) -> int:
     return ((x + multiple - 1) // multiple) * multiple
 
@@ -63,12 +74,15 @@ class SegmentationPredictor:
     otherwise), as in the JAX predictor; None -> random init from ``seed``
     (logged loudly). ``dtype`` is the compute
     dtype otherwise (bf16 by default, as the JAX predictor); parameters are
-    held in it. Runs on ``device`` ("cuda" unless told "cpu")."""
+    held in it. Runs on ``device`` ("cuda" unless told "cpu"). ``model_dir``:
+    the JAX predictor's keyword for ``model_path`` (give one of them)."""
 
     def __init__(self, model_path: Optional[str] = None, n_classes: int = 2,
                  graph_params: Optional[Dict[str, Any]] = None,
                  dtype: torch.dtype = torch.bfloat16, pad_multiple: int = 64,
-                 seed: int = 0, device: DeviceLike = "cuda"):
+                 seed: int = 0, device: DeviceLike = "cuda", *,
+                 model_dir: Optional[str] = None):
+        model_path = jax_keyword(model_path, model_dir, "model_path", "model_dir")
         self.device = resolve_device(device)
         self.pad_multiple = pad_multiple
         if model_path is not None and model_path.endswith(".frozen"):
@@ -243,6 +257,8 @@ class RelationPredictor:
     loudly). The net is built at the first group,
     whose feature widths it takes, as the JAX predictor initializes at its
     first call. Runs in float32 on ``device`` ("cuda" unless told "cpu").
+    ``model_dir``: the JAX predictor's keyword for ``model_path`` (give one
+    of them).
 
     ``image_input`` (the visual 'v' nets): the page images go with the
     graphs (``confidences(graph, image)``, ``confidences_batch(graphs,
@@ -271,9 +287,10 @@ class RelationPredictor:
                  assign_visual_features_to_nodes: bool = True,
                  assign_visual_features_to_edges: bool = False,
                  image_min_dimension: int = 600, image_max_dimension: int = 1024,
-                 seed: int = 0, device: DeviceLike = "cuda", mesh=None):
+                 seed: int = 0, device: DeviceLike = "cuda", mesh=None, *,
+                 model_dir: Optional[str] = None):
         self.device = resolve_device(mesh.data_devices[0] if mesh is not None else device)
-        self.model_path = model_path
+        self.model_path = jax_keyword(model_path, model_dir, "model_path", "model_dir")
         self.num_classes = num_classes
         self.gnn_params = gnn_params
         self.message_params = message_params

@@ -23,17 +23,27 @@ import torch
 from citlab_as_tpu_torch.ops.losses import softmax_cross_entropy
 
 
+def relation_mask(num_relations: torch.Tensor, width: int) -> torch.Tensor:
+    """[B, width] float32: 1 at each row's first ``num_relations`` slots
+    (the valid relations), 0 at the padding."""
+    return (torch.arange(width, device=num_relations.device)[None, :]
+            < num_relations[:, None]).to(torch.float32)
+
+
 def relation_loss(logits: torch.Tensor, targets: torch.Tensor,
                   num_relations: torch.Tensor,
                   params: Optional[Dict[str, torch.Tensor]] = None,
-                  weight_decay: float = 0.0) -> torch.Tensor:
+                  weight_decay: float = 0.0,
+                  total: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Mean masked CE (+ L2 over non-bias weights when weight_decay > 0;
     ``params`` named by flat flax path or state-dict name, either way a
-    bias has 'bias' in its name)."""
+    bias has 'bias' in its name). ``total``: the count of valid relations
+    to divide by, default ``max(count, 1)`` of this batch (a data shard's
+    step passes the whole batch's)."""
     ce = softmax_cross_entropy(logits, targets)
-    mask = (torch.arange(logits.shape[1], device=logits.device)[None, :]
-            < num_relations[:, None]).to(torch.float32)
-    total = torch.clamp(torch.sum(mask), min=1.0)
+    mask = relation_mask(num_relations, logits.shape[1])
+    if total is None:
+        total = torch.clamp(torch.sum(mask), min=1.0)
     loss = torch.sum(ce * mask) / total
     if weight_decay > 0.0 and params is not None:
         l2 = 0.0

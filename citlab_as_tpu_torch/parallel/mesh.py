@@ -19,6 +19,12 @@ explicit too:
   net's alignment (:func:`row_partition`). ``parallel/spatial.py`` runs
   the ARU-Net over such shards with explicit halo exchanges, which GSPMD
   inserts in JAX.
+- gradients: :func:`reduce_gradients` sums one gradient dict per data
+  shard and hands the sum to every shard (the all-reduce GSPMD inserts
+  under ``jax.jit`` of a train step over a replicated state and a sharded
+  batch); the data-parallel train steps of ``train/segmentation.py`` and
+  ``train/trainer.py`` are built on it. One process drives every shard;
+  a reduction across processes is not here.
 
 A device list may name one device more than once: each entry is a shard of
 its own, so a one-GPU machine (or the CPU) runs a multi-shard mesh, as the
@@ -242,8 +248,13 @@ def data_parallel_jit(fn: Callable) -> Callable:
     """``fn`` over shards: the returned function takes per-shard lists (as
     :func:`replicate` and :func:`shard_batch` make them) for each argument
     and calls ``fn`` once per shard, under that shard's device, returning
-    the list of results. (The JAX version is ``jax.jit``: placement there
-    follows the data; here the caller holds one piece per device.)"""
+    the list of results. It reduces nothing across shards: ``jax.jit`` of a
+    train step over a replicated state and a sharded batch computes the
+    whole batch's loss and one gradient, all-reduced over the mesh, where
+    this gives each shard its own. The data-parallel train steps are
+    ``train/segmentation.py::make_sharded_train_step`` and
+    ``train/trainer.py::TrainerGNN._make_sharded_train_step``, which sum
+    the shards' gradients with :func:`reduce_gradients`."""
     def run(*shard_args):
         n = len(shard_args[0])
         outs = []
@@ -258,6 +269,56 @@ def data_parallel_jit(fn: Callable) -> Callable:
                 outs.append(fn(*args))
         return outs
     return run
+
+
+def sum_on_first(mesh: Mesh, values: Sequence[torch.Tensor]) -> torch.Tensor:
+    """``values`` (one tensor per data shard, each on its shard's device)
+    summed in shard order on the first data device: the same sum, bit for
+    bit, whichever devices the shards name."""
+    first = mesh.data_devices[0]
+    total = values[0].to(first)
+    for v in values[1:]:
+        total = total + v.to(first)
+    return total
+
+
+def reduce_gradients(mesh: Mesh, grads: Sequence[Dict[str, Optional[torch.Tensor]]],
+                     like: Sequence[Dict[str, torch.Tensor]]
+                     ) -> List[Dict[str, torch.Tensor]]:
+    """The sum over data shards of ``grads`` (one ``{name: gradient}`` dict
+    per shard, on its shard's device), on every shard's device: what the
+    all-reduce GSPMD inserts under ``jax.jit`` over a sharded batch gives.
+
+    A shard's None gradient (a parameter its loss does not reach) is a
+    zero, as ``jax.grad`` gives it; ``like`` (the shards' parameter dicts)
+    gives a name that is None on every shard its zeros. Each dtype's
+    gradients are flattened into one buffer per shard, the buffers summed
+    in shard order on the first data device (:func:`sum_on_first`) and the
+    sum copied back, so every shard gets the same bits whatever the
+    devices. Shards that name the same device share the sum's tensors."""
+    devices = mesh.data_devices
+    if len(grads) != len(devices) or len(like) != len(devices):
+        raise ValueError(f"{len(grads)} gradient dicts and {len(like)} parameter "
+                         f"dicts for {len(devices)} data shards")
+    names = list(like[0])
+    out: List[Dict[str, torch.Tensor]] = [{} for _ in devices]
+    for dtype in dict.fromkeys(like[0][k].dtype for k in names):
+        group = [k for k in names if like[0][k].dtype == dtype]
+        flats = []
+        for shard, shard_like in zip(grads, like):
+            parts = []
+            for k in group:
+                g = shard.get(k)
+                parts.append((torch.zeros_like(shard_like[k]) if g is None else g).reshape(-1))
+            flats.append(torch.cat(parts))
+        total = sum_on_first(mesh, flats)
+        copies: Dict[torch.device, torch.Tensor] = {}
+        for i, dev in enumerate(devices):
+            if dev not in copies:
+                copies[dev] = total.to(dev)
+            parts = copies[dev].split([like[i][k].numel() for k in group])
+            out[i].update({k: p.view_as(like[i][k]) for k, p in zip(group, parts)})
+    return out
 
 
 def initialize_multihost(coordinator_address: Optional[str] = None,

@@ -8,8 +8,10 @@ metric, early-stop after ``early_stopping_patience`` non-improving evals,
 resume from current_epoch.info (``best_metrics`` kept only when a
 checkpoint restored). Optional weight decay (L2 over non-bias parameters),
 EMA shadow weights (evaluated and exported instead of the live ones) and
-gradient accumulation. One device (the JAX trainer's batch sharding over a
-mesh is ROADMAP item 17).
+gradient accumulation. ``train`` runs on one device, as the JAX trainer,
+which takes no mesh; ``_make_sharded_train_step`` is its step data-parallel
+over a mesh, as ``jax.jit`` of the JAX trainer's step over a replicated
+state and a sharded batch.
 
 ``model``: any ``GraphRelation`` the caller built, as the JAX trainer takes
 one, the visual nets included (``image_input=True`` with the ``ARU_v1`` or
@@ -36,9 +38,12 @@ import torch
 
 from citlab_as_tpu_torch.device import DeviceLike, resolve_device
 from citlab_as_tpu_torch.models.gnn.loss import (
-    relation_curves, relation_loss, relation_metrics,
+    relation_curves, relation_loss, relation_mask, relation_metrics,
 )
 from citlab_as_tpu_torch.models.gnn.model import GraphRelation
+from citlab_as_tpu_torch.parallel.mesh import (
+    data_parallel_jit, reduce_gradients, sum_on_first,
+)
 from citlab_as_tpu_torch.train import checkpoint as ckpt
 from citlab_as_tpu_torch.train.input_pipeline import InputGNN, torch_batch
 from citlab_as_tpu_torch.train.optimizer import build_optimizer
@@ -158,6 +163,66 @@ class TrainerGNN:
             optimizer.step(params, {k: torch.zeros_like(p) if p.grad is None else p.grad
                                     for k, p in params.items()}, opt_state)
             return loss.detach()
+
+        return train_step
+
+    def _make_sharded_train_step(self, mesh, replicas: Sequence[GraphRelation]):
+        """:meth:`_make_train_step` data-parallel over ``mesh``'s data
+        shards, as the JAX trainer's jitted step over a replicated state and
+        a sharded batch. ``replicas``: one net per shard
+        (``parallel/mesh.py::replicate`` of the built model). Returns
+        ``train_step(params, opt_states, shards, emas=None) -> loss``:
+        ``params`` one ``dict(named_parameters())`` per replica,
+        ``opt_states`` one ``optimizer.init`` per replica, ``shards`` the
+        batch split by ``shard_batch``, ``emas`` one shadow per replica
+        (``checkpoint.ema_init``) when the flags ask for EMA.
+
+        The loss is the whole batch's: the shards' masked CE summed over the
+        count of valid relations in every shard (counted before the
+        backward), plus the weight decay's L2 term once, on the first
+        shard's loss (the replicas' parameters are equal), not once per
+        shard. The gradients are summed by ``reduce_gradients`` (a
+        parameter no shard's loss reaches gets zeros, as under
+        ``jax.grad``), every replica takes the same update and its own EMA
+        update. Node-feature dropout draws from one generator per shard on
+        its device, seeded ``seed + shard``. The loss comes back as a 0-d
+        tensor on the first data device."""
+        weight_decay, ema_decay = self.flags["weight_decay"], self.flags["ema_decay"]
+        devices = mesh.data_devices
+        if len(replicas) != len(devices):
+            raise ValueError(f"{len(replicas)} replicas for {len(devices)} data shards")
+        generators = [torch.Generator(device=dev).manual_seed(self.seed + i)
+                      for i, dev in enumerate(devices)]
+        decays = [weight_decay] + [0.0] * (len(devices) - 1)
+
+        def shard_loss(model, params, batch, total, generator, decay):
+            for p in params.values():
+                p.grad = None
+            logits = model(batch, train=True, generator=generator)
+            loss = relation_loss(
+                logits, batch["relations_to_consider_gt"],
+                batch["num_relations_to_consider"],
+                params=params, weight_decay=decay, total=total)
+            loss.backward()
+            return loss.detach(), {k: p.grad for k, p in params.items()}
+
+        backward = data_parallel_jit(shard_loss)
+        update = data_parallel_jit(self.optimizer.step)
+        shadow = data_parallel_jit(ckpt.ema_update)
+
+        def train_step(params, opt_states, shards, emas=None):
+            if ema_decay > 0 and emas is None:
+                raise ValueError("the flags ask for EMA: pass one shadow per replica")
+            counts = [torch.sum(relation_mask(b["num_relations_to_consider"],
+                                              b["relations_to_consider_gt"].shape[1]))
+                      for b in shards]
+            total = torch.clamp(sum_on_first(mesh, counts), min=1.0)
+            losses, grads = zip(*backward(replicas, params, shards,
+                                          [total.to(d) for d in devices], generators, decays))
+            update(params, reduce_gradients(mesh, grads, params), opt_states)
+            if ema_decay > 0:
+                shadow(emas, params, [ema_decay] * len(devices))
+            return sum_on_first(mesh, losses)
 
         return train_step
 

@@ -79,6 +79,64 @@ def test_relation_predictors_from_orbax_equal_the_npz(net, npz):
                 _relation(os.path.join(NPZ, f"{npz}.npz"), visual).model)
 
 
+def _recording(cls, seen):
+    class Recording(cls):
+        def __init__(self, model_path=None, *args, **kwargs):
+            seen.append(model_path)
+            super().__init__(model_path, *args, **kwargs)
+    return Recording
+
+
+@pytest.mark.parametrize("entry", ["SegmentationPredictor", "ShardedSegmentationPredictor",
+                                   "RelationPredictor", "run_full_workflow",
+                                   "run_full_workflow_pipelined"])
+def test_entry_points_take_the_jax_packages_model_dir_keywords(entry, monkeypatch, tmp_path):
+    """The JAX package's keywords where the port's entry points say
+    ``model_path``: ``model_dir=`` at the predictors (the same state as the
+    path given positionally), ``separator_model_dir=`` /
+    ``heading_model_dir=`` / ``gnn_model_dir=`` at the workflow drivers (run
+    on no page: the predictors they build get the three directories); both
+    names of one argument raise."""
+    from citlab_as_tpu_torch import inference
+    from citlab_as_tpu_torch.cli import run_full_workflow as wf
+    from citlab_as_tpu_torch.parallel.mesh import make_mesh
+    sep, gnn = os.path.join(CKPT, "separator"), os.path.join(CKPT, "gnn", "best", "f1")
+    if entry == "SegmentationPredictor":
+        _same_state(SegmentationPredictor(model_dir=sep, device="cpu").model,
+                    SegmentationPredictor(sep, device="cpu").model)
+        with pytest.raises(TypeError, match="model_path and model_dir"):
+            SegmentationPredictor(sep, model_dir=sep, device="cpu")
+    elif entry == "ShardedSegmentationPredictor":
+        mesh = make_mesh(["cpu"] * 2)
+        _same_state(ShardedSegmentationPredictor(model_dir=sep, mesh=mesh).model,
+                    ShardedSegmentationPredictor(sep, mesh=mesh).model)
+        with pytest.raises(TypeError, match="model_path and model_dir"):
+            ShardedSegmentationPredictor(sep, mesh=mesh, model_dir=sep)
+    elif entry == "RelationPredictor":
+        pred = RelationPredictor(model_dir=gnn, device="cpu")
+        assert pred.model_path == gnn
+        inputs, _ = pred._batch_inputs([_graph()], None)
+        pred._ensure_params(inputs)
+        _same_state(pred.model, _relation(gnn).model)
+        with pytest.raises(TypeError, match="model_path and model_dir"):
+            RelationPredictor(gnn, model_dir=gnn, device="cpu")
+    else:
+        seen_seg, seen_gnn = [], []
+        monkeypatch.setattr(inference, "SegmentationPredictor",
+                            _recording(SegmentationPredictor, seen_seg))
+        monkeypatch.setattr(inference, "RelationPredictor",
+                            _recording(RelationPredictor, seen_gnn))
+        heading = os.path.join(CKPT, "heading")
+        driver = getattr(wf, entry)
+        result = driver([], separator_model_dir=sep, heading_model_dir=heading,
+                        gnn_model_dir=gnn, out_dir=str(tmp_path), device="cpu")
+        assert result["pages"] == [] and seen_seg == [sep, heading] and seen_gnn == [gnn]
+        for stage in ("separator", "heading", "gnn"):
+            with pytest.raises(TypeError, match=f"{stage}_model_path and {stage}_model_dir"):
+                driver([], **{f"{stage}_model_path": sep, f"{stage}_model_dir": sep},
+                       device="cpu")
+
+
 def test_relation_predictor_takes_the_newest_numbered_step():
     """``models_ckpt/gnn`` holds steps 28 and 29 (trainer states) beside
     best/f1: the predictor takes step 29's params, as the JAX predictor's
