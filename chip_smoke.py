@@ -40,9 +40,12 @@ result):
    weights of both nets. Gates: every written file parses and is
    structurally valid, has SeparatorRegions, column-rule recall, the
    kernels' launch counts, the card's distance transform and per-line
-   integers equal to the port's CPU device on the same pages, headline
-   lines tagged ``heading`` and at most 5 % of the body lines; then pages/s
-   per stage and a phase split of the heading stage;
+   integers equal to the port's CPU device on the same pages (a sample of
+   every page's lines, redone in a worker process of this script,
+   ``--cpu-check``, that runs beside the later phases and is gated at the
+   end, after dp_procs), every line's integers equal to the host path's,
+   headline lines tagged ``heading`` and at most 5 % of the body lines;
+   then pages/s per stage and a phase split of the heading stage;
 6. workflow: the same kind of pages through the port's
    ``cli/run_full_workflow.py::run_full_workflow`` (separator, heading,
    baseline clustering, text regions, GNN features, the converted ``gnn``
@@ -214,7 +217,8 @@ result):
    the JAX package's digests (``tests/data/torch_preprocessing``,
    ``scripts/make_preprocessing_fixtures.py``);
 16. parallel: data parallelism on the one card, over a mesh whose 2 shards
-   both name it (``parallel/mesh.py``): ``ShardedSegmentationPredictor``
+   both name it (on a machine of several cards, one card each:
+   ``card_entries``) (``parallel/mesh.py``): ``ShardedSegmentationPredictor``
    over ``make_mesh()`` and over the 2 shards bit-equal to
    ``SegmentationPredictor`` at the same per-shard batch (69 K1 launches per
    shard forward); the pipelined workflow over the mesh on the pipelined
@@ -227,7 +231,9 @@ result):
    2000 x 1420 page; ``initialize_multihost`` with a world-size-1 ``nccl``
    group. One card shows no scaling: the pages/s are printed, not claimed;
 17. spatial: the height-sharded ARU forward (``parallel/spatial.py``) over
-   meshes whose ``model`` devices all name the one card: the main-path
+   meshes whose ``model`` devices all name the one card (on a machine of
+   several cards, one card each, the broadsheet at k = 2 too, peak memory
+   per card): the main-path
    batch (4 x 1536 x 1088, separator and heading nets in bf16, the
    separator's in f32 too) at k = 2 and 4, and a 9984 x 7040 broadsheet
    page at k = 1 and 4, against the unsharded forward (logits within 2e-2
@@ -308,6 +314,24 @@ result):
    worst leaf printed); the bf16 sharded losses finite, the first within
    2e-2 of the f32 one. Printed, not gated: sharded and unsharded steps/s (one card shows
    no scaling) and ``reduce_gradients``' ms.
+21. dp_procs: data-parallel training across processes. Worker processes of
+   this script (``--dp-procs-worker``), 2 on one card over ``gloo`` with
+   CUDA tensors (``nccl`` refuses two ranks on one card), one per card on a
+   machine of several over ``nccl``, each ``initialize_multihost()`` (which
+   pins it to its card) and ``make_mesh()`` over every process's cards: the
+   dp_train phase's segmentation steps at the separator's full width from
+   ``separator.npz`` (3 f32, then 2 bf16 off the clock and 10 timed, batch
+   8 x 512 x 512) and its relation GNN steps at the ``gnn`` checkpoint's
+   widths (3, then 10 timed). Gates: every worker exits 0 within
+   ``DP_PROCS_TIMEOUT`` seconds; the processes' replicas (parameters,
+   optimizer state, EMA) bit-equal after every step (digests) and their
+   losses equal; each f32 step, from the processes' own start, within
+   ``DP_PARAM_TOL`` (parameters, EMA) and 1e-5 (loss) of the in-process
+   ``make_sharded_train_step`` over a mesh of as many shards on the same
+   cards; K1 69 per process per segmentation step summed over the
+   processes, K2 none. Printed: steps/s per process and
+   ``reduce_gradients``' ms (all_gather included) beside dp_train's
+   in-process numbers.
 
 The last two lines are the ``kernels`` JSON and ``{"ok": true, ...}``.
 """
@@ -315,6 +339,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -958,8 +983,6 @@ def phase_files(dev):
     import torch
     from citlab_as_tpu_torch.inference import SegmentationPredictor
     from citlab_as_tpu_torch.ops import swt_device
-    from citlab_as_tpu_torch.ops.binarize import otsu_binarize
-    from citlab_as_tpu_torch.ops.distance_transform import distance_transform_edt
     from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
     from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
     from citlab_as_tpu_torch.ops.swt import StrokeWidthDistanceTransform
@@ -972,6 +995,8 @@ def phase_files(dev):
     n_pages, batch = N_PAGES, BATCH
     groups = -(-n_pages // batch)
     root = tempfile.mkdtemp(prefix="chip_smoke_")
+    cpu_dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_check_")
+    cpu_check = None
     try:
         t0 = time.perf_counter()
         pages, rules, layouts = synthetic_newspaper(n_pages, *PAGE_SHAPE, seed=11)
@@ -1054,49 +1079,29 @@ def phase_files(dev):
 
         # the card's distance transform and per-line integers against the
         # port's CPU device, on the same pages and the same probability maps:
-        # a sample of every page's lines through the CPU device, and every
-        # line against the host path (scipy label per crop)
+        # a sample of every page's lines goes through the CPU device in a
+        # worker process (cpu_check_start) that runs beside the card's later
+        # phases, and every line here against the host path (scipy label per
+        # crop) over the card's distance transform, which the worker holds to
+        # the CPU's
         t0 = time.perf_counter()
-        cpu_features = swt_device.DeviceLineFeatures()
         gpu_features = swt_device.DeviceLineFeatures()
         host_swt = StrokeWidthDistanceTransform()
-        checked, checked_host = 0, 0
-        split = {"edt": 0.0, "tall lines": 0.0, "short lines": 0.0, "host path": 0.0}
+        checked_host = 0
         for g in range(groups):
             chunk = paths[g * batch:(g + 1) * batch]
             images = [np.asarray(port_io.load_image(p, "L")) for p in chunk]
             _, maps_u8, dt_u8, _ = head.fused_dispatch(images, chunk)
-            t1 = time.perf_counter()
-            x = torch.from_numpy(np.stack(images))
-            _, binary = otsu_binarize(255.0 - x.to(torch.float32), blur_ksize=5)
-            dt_cpu = distance_transform_edt(binary, cap=255.0).to(torch.uint8)
-            split["edt"] += time.perf_counter() - t1
-            check(torch.equal(dt_u8.cpu(), dt_cpu),
-                  "the distance transform differs between the card and the CPU")
             boxes = [head.line_feature_boxes(
                 Page(head._page_path_for(p)).textlines,
                 head._writer_for(p).scaling_factor) for p in chunk]
             swt_list, net_list = [b[0] for b in boxes], [b[1] for b in boxes]
             got = gpu_features.dispatch_batch(dt_u8, maps_u8, swt_list, net_list)()
-            maps_cpu = maps_u8.cpu()
-            # the tall lines and the short ones go through the CPU device apart:
-            # a chunk of crops costs the CPU what its largest line asks for
-            for kind, picks in zip(("tall lines", "short lines"),
-                                   zip(*(cpu_check_lines(sb) for sb in swt_list))):
-                t1 = time.perf_counter()
-                want = cpu_features.dispatch_batch(
-                    dt_cpu, maps_cpu,
-                    [sb[pick] for sb, pick in zip(swt_list, picks)],
-                    [nb[pick] for nb, pick in zip(net_list, picks)])()
-                split[kind] += time.perf_counter() - t1
-                for i, pick in enumerate(picks):
-                    check(np.array_equal(got[i][1][pick], want[i][1]),
-                          f"{chunk[i]}: (stroke width, text height) differ from the CPU")
-                    check(np.array_equal(got[i][0][pick], want[i][0]),
-                          f"{chunk[i]}: net sums differ from the CPU")
-                    checked += len(pick)
-            t1 = time.perf_counter()
-            maps_np, dt_np = maps_cpu.numpy(), dt_cpu.numpy()
+            maps_np, dt_np = maps_u8.cpu().numpy(), dt_u8.cpu().numpy()
+            with open(os.path.join(cpu_dir, f"group_{g}.pkl"), "wb") as f:
+                pickle.dump({"chunk": chunk, "images": np.stack(images), "dt": dt_np,
+                             "maps": maps_np, "swt": swt_list, "net": net_list, "got": got,
+                             "picks": [cpu_check_lines(sb) for sb in swt_list]}, f)
             for i, (g_net, g_sw) in enumerate(got):
                 for box, sw_th in zip(swt_list[i], g_sw):
                     if box[2] >= 0:
@@ -1109,18 +1114,129 @@ def phase_files(dev):
                     exact = maps_np[i][by:by + bh, bx:bx + bw].sum() / (255.0 * bw * bh)
                     check(abs(mean - exact) <= 1.0 / 255.0,
                           f"{chunk[i]}: net sum off by more than 1 count per pixel")
-            split["host path"] += time.perf_counter() - t1
-        print(f"files: distance transform of {n_pages} pages and {checked} lines' (net "
-              f"sum, 2 x stroke width, text height) from all {n_pages} pages equal to "
-              f"the CPU device's, bit for bit; all {checked_host} lines' (stroke width, "
-              f"text height) equal to the host path's ({time.perf_counter() - t0:.1f} s: "
-              + ", ".join(f"{k} {v:.1f} s" for k, v in split.items()) + ")")
-
+        cpu_check = cpu_check_start(cpu_dir)
+        print(f"files: all {checked_host} lines' (stroke width, text height) from the card "
+              f"equal to the host path's over the card's distance transform "
+              f"({time.perf_counter() - t0:.1f} s); the CPU device's check of a sample of "
+              f"every page's lines runs in worker process {cpu_check['proc'].pid}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    return {"launches": launches, "pages_per_s": {
+        if cpu_check is None:
+            shutil.rmtree(cpu_dir, ignore_errors=True)
+    return {"launches": launches, "cpu_check": cpu_check, "pages_per_s": {
         "separator": n_pages / sep_s, "heading": n_pages / head_s,
         "both": n_pages / (sep_s + head_s)}}
+
+
+#: torch threads of the CPU-device check's worker process, which shares the
+#: host with the card's later phases
+CPU_CHECK_THREADS = 4
+CPU_CHECK_TIMEOUT = 900                     # seconds from its start to its result
+
+
+def cpu_check_start(work):
+    """Start the CPU-device check of the files phase's pages (the group
+    pickles in ``work``) in a worker process of this script; its output goes
+    to ``work/log.txt``. :func:`cpu_check_finish` gates its result."""
+    log = open(os.path.join(work, "log.txt"), "w")
+    proc = subprocess.Popen([sys.executable, os.path.abspath(__file__), "--cpu-check", work],
+                            stdout=log, stderr=subprocess.STDOUT, cwd=REPO,
+                            env=dict(os.environ, OMP_NUM_THREADS=str(CPU_CHECK_THREADS)))
+    return {"proc": proc, "log": log, "work": work, "start": time.perf_counter()}
+
+
+def cpu_check_stop(handle):
+    """Stop the worker if it still runs and remove its files."""
+    if handle["proc"].poll() is None:
+        handle["proc"].kill()
+    handle["proc"].wait()
+    handle["log"].close()
+    shutil.rmtree(handle["work"], ignore_errors=True)
+
+
+def cpu_check_finish(handle):
+    """Wait for the CPU-device check (until ``CPU_CHECK_TIMEOUT`` seconds
+    after its start) and gate it: the worker exited 0, and the card's
+    distance transform and every sampled line's (net sum, 2 x stroke width,
+    text height) equal the CPU device's. Prints its line; returns the
+    seconds the main process waited for it."""
+    t0 = time.perf_counter()
+    try:
+        remaining = CPU_CHECK_TIMEOUT - (t0 - handle["start"])
+        try:
+            handle["proc"].wait(timeout=max(remaining, 1.0))
+        except subprocess.TimeoutExpired:
+            raise Fail(f"files: the CPU-device check outlived {CPU_CHECK_TIMEOUT} s")
+        waited = time.perf_counter() - t0
+        result_path = os.path.join(handle["work"], "result.json")
+        if handle["proc"].returncode != 0 or not os.path.exists(result_path):
+            with open(os.path.join(handle["work"], "log.txt")) as f:
+                raise Fail(f"files: the CPU-device check exited {handle['proc'].returncode}: "
+                           f"{f.read()[-3000:]}")
+        with open(result_path) as f:
+            result = json.load(f)
+    finally:
+        cpu_check_stop(handle)
+    check(not result["differ"], "files: the card differs from the CPU device: "
+                                + "; ".join(result["differ"][:5]))
+    print(f"files: distance transform of {result['pages']} pages and {result['checked']} "
+          f"lines' (net sum, 2 x stroke width, text height) from all {result['pages']} pages "
+          f"equal to the CPU device's, bit for bit (worker process, {CPU_CHECK_THREADS} "
+          f"threads, {result['seconds']:.1f} s beside the card's phases: "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in result["split"].items())
+          + f"; the main process waited {waited:.1f} s for it)")
+    return waited
+
+
+def cpu_check_worker(work):
+    """The CPU-device check of the files phase, in a process of its own:
+    each group's distance transform recomputed from its pages on the CPU
+    (``otsu_binarize``, ``distance_transform_edt``) against the card's,
+    then the sampled lines (:func:`cpu_check_lines`: the tall ones and the
+    short ones apart, since a chunk of crops costs the CPU what its largest
+    line asks for) through the port's CPU device against the card's
+    results. Writes ``result.json``."""
+    import torch
+    sys.path.insert(0, REPO)
+    from citlab_as_tpu_torch.ops import swt_device
+    from citlab_as_tpu_torch.ops.binarize import otsu_binarize
+    from citlab_as_tpu_torch.ops.distance_transform import distance_transform_edt
+    torch.set_num_threads(CPU_CHECK_THREADS)
+    t0 = time.perf_counter()
+    features = swt_device.DeviceLineFeatures()
+    split = {"edt": 0.0, "tall lines": 0.0, "short lines": 0.0}
+    differ, checked, pages = [], 0, 0
+    for name in sorted(n for n in os.listdir(work) if n.startswith("group_")):
+        with open(os.path.join(work, name), "rb") as f:
+            group = pickle.load(f)
+        chunk, got = group["chunk"], group["got"]
+        pages += len(chunk)
+        t1 = time.perf_counter()
+        x = torch.from_numpy(group["images"])
+        _, binary = otsu_binarize(255.0 - x.to(torch.float32), blur_ksize=5)
+        dt_cpu = distance_transform_edt(binary, cap=255.0).to(torch.uint8)
+        split["edt"] += time.perf_counter() - t1
+        if not np.array_equal(dt_cpu.numpy(), group["dt"]):
+            differ.append(f"{chunk}: the distance transform differs between the card and "
+                          "the CPU")
+        maps_cpu = torch.from_numpy(group["maps"])
+        for kind, picks in zip(("tall lines", "short lines"), zip(*group["picks"])):
+            t1 = time.perf_counter()
+            want = features.dispatch_batch(
+                dt_cpu, maps_cpu,
+                [sb[pick] for sb, pick in zip(group["swt"], picks)],
+                [nb[pick] for nb, pick in zip(group["net"], picks)])()
+            split[kind] += time.perf_counter() - t1
+            for i, pick in enumerate(picks):
+                if not np.array_equal(got[i][1][pick], want[i][1]):
+                    differ.append(f"{chunk[i]}: (stroke width, text height) of {kind}")
+                if not np.array_equal(got[i][0][pick], want[i][0]):
+                    differ.append(f"{chunk[i]}: net sums of {kind}")
+                checked += len(pick)
+    with open(os.path.join(work, "result.json"), "w") as f:
+        json.dump({"pages": pages, "checked": checked, "differ": differ, "split": split,
+                   "seconds": time.perf_counter() - t0}, f)
+    return 0
 
 
 def _delaunay_graph(rng, n):
@@ -3435,6 +3551,22 @@ TRANSFORMS = ("erosion", "dilation", "opening", "closing", "gradient", "tophat",
               "blackhat")
 
 
+def card_entries(dev, n):
+    """``n`` mesh entries: one per card (cards 0 to n - 1) on a machine of
+    ``n`` cards or more, else ``dev`` n times (shards that share the one
+    card)."""
+    import torch
+    if torch.cuda.device_count() >= n:
+        return [torch.device("cuda", i) for i in range(n)]
+    return [dev] * n
+
+
+def entries_label(mesh):
+    """How a mesh's entries lie on the machine's cards, for a printed line."""
+    cards = sorted({str(d) for d in mesh.devices.ravel()})
+    return f"{len(cards)} cards ({', '.join(cards)})" if len(cards) > 1 else "one card"
+
+
 def _free_port():
     import socket
     with socket.socket() as sock:
@@ -3443,9 +3575,10 @@ def _free_port():
 
 
 def phase_parallel(dev, pipelined_row):
-    """The data-parallel path on one card: a mesh of ``PARALLEL_SHARDS``
-    shards that all name ``dev`` (and ``make_mesh()``, every card: one
-    here). Gates: (a) ``ShardedSegmentationPredictor`` equals
+    """The data-parallel path: a mesh of ``PARALLEL_SHARDS`` shards that
+    all name ``dev`` on one card, or one card each on a machine of several
+    (:func:`card_entries`), and ``make_mesh()``, every card. Gates: (a)
+    ``ShardedSegmentationPredictor`` equals
     ``SegmentationPredictor`` bit for bit at the same per-shard batch and
     padded shape, 69 K1 launches per shard forward; (b) the pipelined
     workflow over the mesh, from the inputs alone (the earlier runs' files
@@ -3472,16 +3605,18 @@ def phase_parallel(dev, pipelined_row):
 
     root, paths, reference = pipelined_row["corpus"]
     work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
-    mesh = make_mesh([dev] * PARALLEL_SHARDS)
+    mesh = make_mesh(card_entries(dev, PARALLEL_SHARDS))
+    n_cards = torch.cuda.device_count()
     npz = {net: os.path.join(REPO, "models_ckpt_torch", f"{net}.npz")
            for net in ("separator", "heading", "gnn")}
     try:
         # (a) sharded forwards against the unsharded predictor
-        pages, _ = synthetic_pages(BATCH * PARALLEL_SHARDS, *PAGE_SHAPE, seed=41)
+        pages, _ = synthetic_pages(BATCH * max(PARALLEL_SHARDS, n_cards), *PAGE_SHAPE,
+                                   seed=41)
         scaled = [scale_image(torch.from_numpy(p.astype(np.float32)), FIXED_HEIGHT,
                               1.0)[0].numpy() / 255.0 for p in pages]
         single = SegmentationPredictor(npz["separator"], dtype=torch.bfloat16, device=dev)
-        want = [out for g in range(PARALLEL_SHARDS)
+        want = [out for g in range(max(PARALLEL_SHARDS, n_cards))
                 for out in single.predict_batch(scaled[g * BATCH:(g + 1) * BATCH])]
         for label, shard_mesh in (("make_mesh()", make_mesh()), ("2 shards", mesh)):
             sharded = ShardedSegmentationPredictor.from_predictor(single, shard_mesh)
@@ -3523,7 +3658,8 @@ def phase_parallel(dev, pipelined_row):
                               f"pipelined phase's, e.g. {differ[:3]}")
             check(PIPELINED_TIMINGS <= set(timings), f"parallel (b): timings keys "
                                                      f"{sorted(timings)}")
-        print(f"parallel (b): {n_pages} pages over {PARALLEL_SHARDS} shards of one card, "
+        print(f"parallel (b): {n_pages} pages over {PARALLEL_SHARDS} shards of "
+              f"{entries_label(mesh)}, "
               f"groups of {BATCH * PARALLEL_SHARDS}: all {len(reference)} written files "
               f"byte-equal to the pipelined phase's; launches {json.dumps(launches)}")
         print(f"parallel (b): pages/s, 2 shards (two runs) {json.dumps(rates)}; unsharded "
@@ -3647,6 +3783,7 @@ def phase_parallel(dev, pipelined_row):
 
 SPATIAL_SHARDS = (2, 4)                     # k of the main-path batch's sharded forward
 BROADSHEET_SHAPE = (9984, 7040)             # a broadsheet page at 600 dpi, not resized
+BROADSHEET_SHARDS = (2, 4)                  # its k on a machine of several cards; 4 on one
 # a sharded forward against the unsharded one: the logits within these
 # shares of their scale (bf16: K1's limit; f32 with TF32 off), and at most
 # SPATIAL_PIXEL_SHARE of the pixels with a probability SPATIAL_PROB_TOL
@@ -3688,11 +3825,12 @@ class HaloMeter:
 
 
 def spatial_net(net, dev, k):
-    """``net`` height-sharded over a (1, k) mesh whose devices all name
-    ``dev``, from the mesh's own replicas."""
+    """``net`` height-sharded over a (1, k) mesh (:func:`card_entries`: one
+    entry per card where there are k cards, else k entries that name
+    ``dev``), from the mesh's own replicas."""
     from citlab_as_tpu_torch.parallel.mesh import make_mesh, replicate
     from citlab_as_tpu_torch.parallel.spatial import SpatialARU
-    mesh = make_mesh([dev] * k, data=1, model=k)
+    mesh = make_mesh(card_entries(dev, k), data=1, model=k)
     return SpatialARU(replicate(mesh, net, over_model=True)[0], mesh.model_devices(0)).eval()
 
 
@@ -3735,19 +3873,25 @@ def compare_forwards(label, got, want, f32=False):
     return dict(out, logit_err=err, logit_scale=scale, bit_equal=bool(torch.equal(got, want)))
 
 
-def timed_forward(fn, x, iters):
+def timed_forward(fn, x, iters, k=1):
     """(eager ms, device ms, peak bytes) of ``fn(x)`` without autograd:
     CUDA events around host-issued calls, a CUDA graph's replay, the
-    allocator's peak over one call."""
+    allocator's peak over one call (on a machine of several cards a list,
+    each card's own). A forward over ``k`` cards (:func:`card_entries`) has
+    no device ms (None): a CUDA graph captures one card's stream."""
     import torch
+    cards = range(torch.cuda.device_count())
     with torch.no_grad():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
+        sync_cards()
+        for i in cards:
+            torch.cuda.reset_peak_memory_stats(i)
         fn(x)
-        torch.cuda.synchronize()
-        peak = torch.cuda.max_memory_allocated()
+        sync_cards()
+        peaks = [torch.cuda.max_memory_allocated(i) for i in cards]
+        peak = peaks if len(peaks) > 1 else peaks[0]
+        across = k > 1 and torch.cuda.device_count() >= k
         return (cuda_ms(lambda: fn(x), iters=iters, warmup=1),
-                cuda_graph_ms(lambda: fn(x), iters=iters), peak)
+                None if across else cuda_graph_ms(lambda: fn(x), iters=iters), peak)
 
 
 def differing_lines(files, reference, names):
@@ -3769,17 +3913,19 @@ def differing_lines(files, reference, names):
 
 
 def phase_spatial(dev, pipelined_row):
-    """The height-sharded ARU forward (``parallel/spatial.py``) on one card,
-    over meshes whose model devices all name it. Gates: (a) the main-path
+    """The height-sharded ARU forward (``parallel/spatial.py``) over meshes
+    whose model devices all name the one card, or on a machine of several
+    cards name one card each (:func:`card_entries`). Gates: (a) the main-path
     batch (4 x 1536 x 1088, the separator's and the heading's converted
     nets, bf16) at k = 2 and 4 against the unsharded forward: logits within
     2e-2 of their scale, masks at ``THRESHOLD`` agreeing on 99.9 % of
     pixels, at most 0.1 % of the pixels with probabilities 2e-2 apart
     (:func:`compare_forwards`), K1 69 launches per shard; the separator net
     in f32 (TF32 off), its logits within 1e-5 of their scale; (b) a
-    broadsheet page of 9984 x 7040 at k = 1 and 4, the same gates (device
-    ms, halo bytes and peak memory printed; on one card every shard shares
-    the memory, so it is not divided by k); (c) ``ShardedSegmentationPredictor``
+    broadsheet page of 9984 x 7040 at k = 1 and 4 (and 2 where there are
+    several cards), the same gates (device ms, halo bytes and peak memory
+    per card printed; on one card every shard shares the memory, so it is
+    not divided by k); (c) ``ShardedSegmentationPredictor``
     over (data=2, model=2) against the unsharded predictor at the same
     per-shard batch, the probability gates, K1 276; (d) the pipelined
     workflow over (2, 2) on the pipelined phase's 16 pages (earlier files
@@ -3831,7 +3977,7 @@ def phase_spatial(dev, pipelined_row):
             got, meter = sharded_run(net, x, k)
             gates = compare_forwards(f"(a) {net_name} k={k}", got, want)
             bit_equal &= gates["bit_equal"]
-            eager, device, peak = timed_forward(net, x, 5)
+            eager, device, peak = timed_forward(net, x, 5, k)
             rows.append({"net": net_name, "k": k, **gates, "eager_ms": eager,
                          "device_ms": device, "peak_bytes": peak,
                          "halo_bytes": meter.halo_bytes, "ext_bytes": meter.ext_bytes})
@@ -3865,14 +4011,18 @@ def phase_spatial(dev, pipelined_row):
         want = sep(xb)
     eager, device, peak = timed_forward(sep, xb, 2)
     rows.append({"k": 1, "eager_ms": eager, "device_ms": device, "peak_bytes": peak})
-    net = spatial_net(sep, dev, 4)
-    got, meter = sharded_run(net, xb, 4)
-    gates = compare_forwards("(b) broadsheet k=4", got, want)
-    del got, want
-    eager, device, peak = timed_forward(net, xb, 2)
-    rows.append({"k": 4, **gates, "eager_ms": eager, "device_ms": device,
-                 "peak_bytes": peak, "halo_bytes": meter.halo_bytes,
-                 "ext_bytes": meter.ext_bytes})
+    ks = BROADSHEET_SHARDS if torch.cuda.device_count() > 1 else BROADSHEET_SHARDS[-1:]
+    for k in ks:
+        net = spatial_net(sep, dev, k)
+        got, meter = sharded_run(net, xb, k)
+        gates = compare_forwards(f"(b) broadsheet k={k}", got, want)
+        del got
+        eager, device, peak = timed_forward(net, xb, 2, k)
+        rows.append({"k": k, **gates, "eager_ms": eager, "device_ms": device,
+                     "peak_bytes": peak, "halo_bytes": meter.halo_bytes,
+                     "ext_bytes": meter.ext_bytes})
+        del net
+    del want
     f32 = SegmentationPredictor(npz["separator"], dtype=torch.float32, device=dev).model
     with torch.no_grad():
         want = f32(xb)
@@ -3881,13 +4031,14 @@ def phase_spatial(dev, pipelined_row):
                  **compare_forwards("(b) broadsheet f32 k=4", got, want, f32=True)})
     del f32, want, got, xb
     torch.cuda.empty_cache()
-    print(f"spatial (b): broadsheet 1 x {h} x {w}, separator net bf16, k = 1 and 4 "
-          "(peak memory on one card, which every shard shares: not divided by k) "
+    print(f"spatial (b): broadsheet 1 x {h} x {w}, separator net bf16, k = 1 and {list(ks)} "
+          f"over {entries_label(make_mesh(card_entries(dev, 4)))}"
+          " (peak memory per card; where the shards share one card it is not divided by k) "
           + json.dumps(rows))
     out["broadsheet"] = rows
 
     # (c) the predictor over (data=2, model=2)
-    mesh = make_mesh([dev] * 4, data=2, model=2)
+    mesh = make_mesh(card_entries(dev, 4), data=2, model=2)
     more, _ = synthetic_pages(BATCH, *PAGE_SHAPE, seed=59)
     scaled += [scale_image(torch.from_numpy(p.astype(np.float32)), FIXED_HEIGHT,
                            1.0)[0].numpy() / 255.0 for p in more]
@@ -3935,8 +4086,9 @@ def phase_spatial(dev, pipelined_row):
     if bit_equal:
         check(not differ, f"spatial (d): {len(differ)} files differ from the pipelined "
                           f"phase's though the sharded forward is bit for bit: {differ[:3]}")
-    print(f"spatial (d): {n_pages} pages over (2, 2) of one card, {groups} groups of "
-          f"{BATCH * 2}: {n_pages / secs:.3f} pages/s; launches {json.dumps(launches)}; "
+    print(f"spatial (d): {n_pages} pages over (2, 2) of {entries_label(mesh)}, {groups} "
+          f"groups of {BATCH * 2}: {n_pages / secs:.3f} pages/s; launches "
+          f"{json.dumps(launches)}; "
           f"{len(differ)} of {len(files)} written files differ from the pipelined phase's "
           f"(lines that differ per file: {json.dumps(lines_differ)}; by element: "
           f"{json.dumps(elements)})")
@@ -4605,22 +4757,27 @@ def dp_timed(step, batches):
     return walls, [float(v) for v in losses]
 
 
+def dp_set(dst, src):
+    """Copy the tree ``src`` into the live tree ``dst`` (tensors in place,
+    counters by value)."""
+    import torch
+    with torch.no_grad():
+        for k, v in src.items():
+            if isinstance(v, dict):
+                dp_set(dst[k], v)
+            elif isinstance(v, torch.Tensor):
+                dst[k].copy_(v)
+            else:
+                dst[k] = v
+
+
 def dp_align(single, sharded):
     """The unsharded run's parameters, optimizer state and EMA set to shard
     0's, bit for bit: the start the next two steps share."""
-    import torch
-    with torch.no_grad():
-        for dst, src in ((single["params"], sharded["params"][0]),
-                         (single.get("ema"), (sharded.get("emas") or [None])[0])):
-            if dst is not None:
-                for k, t in dst.items():
-                    t.copy_(src[k])
-        for key, val in sharded["states"][0].items():
-            if isinstance(val, dict):
-                for k, t in single["state"][key].items():
-                    t.copy_(val[k])
-            else:
-                single["state"][key] = val
+    dp_set(single["params"], sharded["params"][0])
+    dp_set(single["state"], sharded["states"][0])
+    if single.get("ema") is not None:
+        dp_set(single["ema"], sharded["emas"][0])
 
 
 def dp_compare(label, mesh, sharded, single, steps, trees):
@@ -4955,6 +5112,356 @@ def phase_dp_train(dev):
     return out
 
 
+DP_PROCS_TIMEOUT = 360                      # seconds each dp_procs worker may take
+DP_PROCS_ONE_CARD = 2                       # processes on a machine of one card
+
+
+def dp_cpu(tree):
+    """``tree`` (dicts / lists of tensors and counters) with every tensor
+    detached and copied to the host."""
+    import torch
+    from citlab_as_tpu_torch.parallel.mesh import _map_tree
+    return _map_tree(lambda x: x.detach().cpu().clone() if isinstance(x, torch.Tensor) else x,
+                     tree)
+
+
+def dp_digest(tree):
+    """sha256 over the bytes of every tensor of ``tree`` and every counter,
+    in order: two processes' replicas are bit-equal where their digests
+    are."""
+    import hashlib
+    import torch
+    from citlab_as_tpu_torch.parallel.mesh import _leaves
+    h = hashlib.sha256()
+    for leaf in _leaves(tree):
+        if isinstance(leaf, torch.Tensor):
+            h.update(leaf.detach().reshape(-1).contiguous().view(torch.uint8).cpu()
+                     .numpy().tobytes())
+        else:
+            h.update(repr(leaf).encode())
+    return h.hexdigest()
+
+
+def dp_seg_setup(dev, mesh, root):
+    """The separator net at full width from ``separator.npz`` over ``mesh``
+    with the recipe's optimizer and class weights, and the dp_train
+    batches (``root/seg_batches.pt``) split over its shards: ``build(dtype)
+    -> (step(i), params, states)`` and the optimizer."""
+    import torch
+    from citlab_as_tpu_torch.parallel.mesh import replicate, shard_batch
+    from citlab_as_tpu_torch.train.optimizer import adam, cosine_decay_schedule
+    from citlab_as_tpu_torch.train.segmentation import create_model, make_sharded_train_step
+    from citlab_as_tpu_torch.weights import arunet_state_dict_from_flax, load_npz
+    init = arunet_state_dict_from_flax(
+        load_npz(os.path.join(REPO, "models_ckpt_torch", "separator.npz")))
+    optimizer = adam(cosine_decay_schedule(1e-3, DP_SEG_WARM + DP_SEG_TIMED, alpha=0.1))
+    batches = torch.load(os.path.join(root, "seg_batches.pt"))
+    shards = [shard_batch(mesh, {k: v.to(dev) for k, v in b.items()}) for b in batches]
+
+    def build(dtype):
+        model = create_model(dtype=dtype)
+        model.load_state_dict(init)
+        replicas = replicate(mesh, model.to(dev))
+        params = [dict(r.named_parameters()) for r in replicas]
+        states = [optimizer.init(p) for p in params]
+        step = make_sharded_train_step(replicas, optimizer, mesh, DP_CLASS_WEIGHTS)
+        return (lambda i: step(params, states, shards[i])), params, states
+    return build
+
+
+def dp_gnn_setup(dev, mesh, root, name):
+    """The relation trainer at the ``gnn`` checkpoint's widths from
+    ``gnn.npz`` (weight decay and EMA) over ``mesh``, on the batches of
+    ``root/gnn_batches.pkl``: ``(step(i), params, states, emas)``."""
+    from citlab_as_tpu_torch.parallel.mesh import replicate, shard_batch
+    from citlab_as_tpu_torch.train import checkpoint as ckpt
+    from citlab_as_tpu_torch.train.input_pipeline import torch_batch
+    from citlab_as_tpu_torch.train.trainer import TrainerGNN
+    from citlab_as_tpu_torch.weights import load_npz
+    with open(os.path.join(root, "gnn_batches.pkl"), "rb") as f:
+        batches = pickle.load(f)
+    trainer = TrainerGNN(os.path.join(root, f"trainer_{name}"), [], [],
+                         flags={"weight_decay": DP_WEIGHT_DECAY, "ema_decay": DP_EMA_DECAY,
+                                "batch_size": DP_GNN_BATCH}, seed=0, device=dev,
+                         init_params=load_npz(os.path.join(REPO, "models_ckpt_torch",
+                                                           "gnn.npz")))
+    trainer._build_model(batches[0])
+    replicas = replicate(mesh, trainer.model)
+    params = [dict(r.named_parameters()) for r in replicas]
+    states = [trainer.optimizer.init(p) for p in params]
+    emas = [ckpt.ema_init(p) for p in params]
+    step = trainer._make_sharded_train_step(mesh, replicas)
+    shards = [shard_batch(mesh, torch_batch(b, dev)) for b in batches]
+    return (lambda i: step(params, states, shards[i], emas)), params, states, emas
+
+
+def dp_procs_worker(root, backend):
+    """One process of the dp_procs phase: ``initialize_multihost`` (its
+    card pinned), a mesh of every process's cards, the f32 segmentation
+    steps (rank 0 saves each step's start and end for the main process's
+    check), the timed bf16 steps, ``reduce_gradients`` timed, the relation
+    steps; a digest of the replicas after every step, K1 and K2 launches.
+    Writes ``root/result_<rank>.pt``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, REPO)
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.ops.kernels import separator_morphology as k2
+    from citlab_as_tpu_torch.parallel.mesh import (
+        initialize_multihost, local_devices, make_mesh, reduce_gradients,
+    )
+    check(initialize_multihost(backend=backend) is True, "dp_procs: no process group")
+    rank, world = dist.get_rank(), dist.get_world_size()
+    try:
+        dev = local_devices()[0]
+        mesh = make_mesh()
+        out = {"rank": rank, "world": world, "device": str(dev),
+               "card": torch.cuda.current_device(), "backend": dist.get_backend(), "mesh": repr(mesh), "local_rows": mesh.local_rows}
+        k1.launches = k2.launches = 0
+        build = dp_seg_setup(dev, mesh, root)
+
+        def saved(tag, params, states, emas=None):
+            if rank == 0:
+                tree = {"params": params[0], "state": states[0]}
+                if emas is not None:
+                    tree["ema"] = emas[0]
+                torch.save(dp_cpu(tree), os.path.join(root, f"{tag}.pt"))
+
+        seg = {k: [] for k in ("f32_losses", "f32_k1", "f32_digests", "losses", "k1", "walls",
+                               "digests")}
+        step, params, states = build(torch.float32)
+        for i in range(DP_CHECK_STEPS):
+            saved(f"seg_before_{i}", params, states)
+            before = k1.launches
+            (wall,), (loss,) = dp_timed(step, [i])
+            seg["f32_k1"].append(k1.launches - before)
+            seg["f32_losses"].append(loss)
+            seg["f32_digests"].append(dp_digest([params, states]))
+            saved(f"seg_after_{i}", params, states)
+        del step, params, states
+        step, params, states = build(torch.bfloat16)
+        for i in range(DP_SEG_WARM + DP_SEG_TIMED):
+            before = k1.launches
+            (wall,), (loss,) = dp_timed(step, [i])
+            seg["k1"].append(k1.launches - before)
+            seg["walls"].append(wall)
+            seg["losses"].append(loss)
+            seg["digests"].append(dp_digest([params, states]))
+        grads = [{k: p.grad for k, p in shard.items()} for shard in params]
+        seg["reduce_ms"] = cuda_ms(lambda: reduce_gradients(mesh, grads, params))
+        seg["gradients"] = sum(p.numel() for p in params[0].values())
+        out["seg"] = seg
+        del step, params, states, grads
+        torch.cuda.empty_cache()
+
+        gnn = {k: [] for k in ("losses", "digests", "walls")}
+        step, params, states, emas = dp_gnn_setup(dev, mesh, root, str(rank))
+        for i in range(DP_CHECK_STEPS + DP_GNN_TIMED):
+            if i < DP_CHECK_STEPS:
+                saved(f"gnn_before_{i}", params, states, emas)
+            (wall,), (loss,) = dp_timed(step, [i])
+            gnn["walls"].append(wall)
+            gnn["losses"].append(loss)
+            gnn["digests"].append(dp_digest([params, states, emas]))
+            if i < DP_CHECK_STEPS:
+                saved(f"gnn_after_{i}", params, states, emas)
+        out["gnn"] = gnn
+        out["launches"] = {"conv3x3": k1.launches, "separator_morphology": k2.launches}
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, os.path.join(root, f"result_{rank}.pt"))
+    return 0
+
+
+def dp_procs_spawn(root, world, backend):
+    """``world`` processes of :func:`dp_procs_worker` over one coordinator
+    port, each with torchrun's variables (and, on a machine of several
+    cards, ``LOCAL_WORLD_SIZE`` / ``LOCAL_RANK``, which pin it to its card).
+    A process that fails, or outlives ``DP_PROCS_TIMEOUT`` seconds, fails
+    the phase; every process is stopped before this returns."""
+    import torch
+    port = str(_free_port())
+    env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=port, WORLD_SIZE=str(world),
+               OMP_NUM_THREADS="2")
+    if torch.cuda.device_count() > 1:
+        env["LOCAL_WORLD_SIZE"] = str(world)
+    procs = []
+    try:
+        for rank in range(world):
+            log = open(os.path.join(root, f"log_{rank}.txt"), "w")
+            extra = {"RANK": str(rank)}
+            if "LOCAL_WORLD_SIZE" in env:
+                extra["LOCAL_RANK"] = str(rank)
+            procs.append((subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--dp-procs-worker", root, backend],
+                cwd=REPO, env=dict(env, **extra), stdout=log, stderr=subprocess.STDOUT), log))
+        deadline = time.perf_counter() + DP_PROCS_TIMEOUT
+        for proc, _ in procs:
+            try:
+                proc.wait(timeout=max(deadline - time.perf_counter(), 0.1))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            log.close()
+    results = []
+    for rank, (proc, _) in enumerate(procs):
+        path = os.path.join(root, f"result_{rank}.pt")
+        if proc.returncode != 0 or not os.path.exists(path):
+            with open(os.path.join(root, f"log_{rank}.txt")) as f:
+                raise Fail(f"dp_procs: process {rank} of {world} exited {proc.returncode} "
+                           f"(killed at {DP_PROCS_TIMEOUT} s if negative): {f.read()[-3000:]}")
+        results.append(torch.load(path))
+    return results
+
+
+def dp_procs_compare(label, root, kind, results, step, params, states, emas=None):
+    """Gates of the processes' f32 steps against the in-process sharded
+    ``step`` over a mesh of as many shards on the same cards, each step from
+    the process run's start (its rank 0's saved state, set into every
+    in-process replica): the loss within 1e-5 relative, the parameters after
+    it (and the EMA) within ``DP_PARAM_TOL`` of their norms over the whole
+    net. Returns the relative loss gaps and the whole net's and the worst
+    leaf's parameter gaps."""
+    import torch
+    out = {"rel": [], "gaps": [], "leaf_gaps": [], "ema_gaps": []}
+    for i in range(DP_CHECK_STEPS):
+        start = torch.load(os.path.join(root, f"{kind}_before_{i}.pt"))
+        end = torch.load(os.path.join(root, f"{kind}_after_{i}.pt"))
+        for j in range(len(params)):
+            dp_set(params[j], start["params"])
+            dp_set(states[j], start["state"])
+            if emas is not None:
+                dp_set(emas[j], start["ema"])
+        want = float(step(i))
+        losses = results[0][kind]["f32_losses" if kind == "seg" else "losses"]
+        out["rel"].append(abs(losses[i] - want) / abs(want))
+        gap, leaf_gap, leaf = dp_gaps(end["params"], params[0])
+        out["gaps"].append(gap)
+        out["leaf_gaps"].append((leaf_gap, leaf))
+        if emas is not None:
+            out["ema_gaps"].append(dp_gaps(end["ema"], emas[0])[0])
+    check(max(out["rel"]) <= 1e-5,
+          f"dp_procs: {label}: process and in-process losses differ by {out['rel']}")
+    check(max(out["gaps"] + out["ema_gaps"]) <= DP_PARAM_TOL,
+          f"dp_procs: {label}: process and in-process parameters differ by {out['gaps']}, "
+          f"EMA {out['ema_gaps']}")
+    return out
+
+
+def phase_dp_procs(dev, dp_train_row):
+    """Data-parallel training across processes (see the module docstring,
+    phase 21)."""
+    import torch
+    from citlab_as_tpu_torch.ops.kernels import conv3x3 as k1
+    from citlab_as_tpu_torch.parallel.mesh import make_mesh
+    from citlab_as_tpu_torch.train.input_pipeline import InputGNN
+    cards = torch.cuda.device_count()
+    world = cards if cards > 1 else DP_PROCS_ONE_CARD
+    backend = "nccl" if cards > 1 else "gloo"     # nccl refuses two ranks on one card
+    mesh = make_mesh() if cards > 1 else make_mesh([dev] * world)
+    in_process = (dp_train_row or {}).get(
+        f"{cards} cards" if cards > 1 else f"{DP_SHARDS} shards of one card")
+    root = tempfile.mkdtemp(prefix="chip_smoke_dp_procs_")
+    try:
+        batches = dp_seg_batches(root, torch.device("cpu"))
+        torch.save(batches, os.path.join(root, "seg_batches.pt"))
+        with open(os.path.join(root, "gnn_batches.pkl"), "wb") as f:
+            pickle.dump(dp_gnn_batches(InputGNN(None, num_classes=2, seed=0), world,
+                                       DP_CHECK_STEPS + DP_GNN_TIMED,
+                                       DP_GNN_BATCH, DP_SEED), f)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        results = dp_procs_spawn(root, world, backend)
+        spawn_s = time.perf_counter() - t0
+        check([r["backend"] for r in results] == [backend] * world,
+              f"dp_procs: backends {[r['backend'] for r in results]}")
+        check([r["local_rows"] for r in results] == [[r] for r in range(world)],
+              f"dp_procs: rows per process {[r['local_rows'] for r in results]}")
+        seg = [r["seg"] for r in results]
+        gnn = [r["gnn"] for r in results]
+        for key, runs in (("f32_digests", seg), ("digests", seg), ("digests", gnn)):
+            for i, digests in enumerate(zip(*(run[key] for run in runs))):
+                check(len(set(digests)) == 1, f"dp_procs: {key} step {i}: the processes' "
+                                              "replicas are not bit-equal")
+        k1_steps = [sum(run[key][i] for run in seg) for key in ("f32_k1", "k1")
+                    for i in range(len(seg[0][key]))]
+        check(k1_steps == [69 * world] * len(k1_steps),
+              f"dp_procs: K1 launches per step over all processes {k1_steps}, want "
+              f"{69 * world}")
+        launches = {k: sum(r["launches"][k] for r in results)
+                    for k in ("conv3x3", "separator_morphology")}
+        check(launches["separator_morphology"] == 0,
+              f"dp_procs: K2 launched {launches['separator_morphology']} times")
+        for key, runs in (("f32_losses", seg), ("losses", seg), ("losses", gnn)):
+            check(all(run[key] == runs[0][key] for run in runs),
+                  f"dp_procs: the processes' {key} differ")
+        check(all(np.isfinite(seg[0]["losses"])), f"dp_procs: bf16 losses {seg[0]['losses']}")
+
+        # the in-process sharded steps from the same starts
+        before = k1.launches
+        build = dp_seg_setup(dev, mesh, root)
+        step, params, states = build(torch.float32)
+        seg_gates = dp_procs_compare("segmentation f32", root, "seg", results, step, params,
+                                     states)
+        del step, params, states
+        step, params, states, emas = dp_gnn_setup(dev, mesh, root, "main")
+        gnn_gates = dp_procs_compare("relation GNN", root, "gnn", results, step, params,
+                                     states, emas)
+        del step, params, states, emas
+        k1.launches = before                 # the reference's launches are not the path's
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    def rate(walls):
+        return len(walls) / sum(walls)
+    seg_rates = [rate(run["walls"][DP_SEG_WARM:]) for run in seg]
+    gnn_rates = [rate(run["walls"][DP_CHECK_STEPS:]) for run in gnn]
+
+    def beside(net, key, fmt=".3f"):
+        return "not run" if in_process is None else format(in_process[net][key], fmt)
+    place = "one card" if cards <= 1 else f"{cards} cards, one each"
+    print(f"dp_procs: {world} processes over {backend} ({place}), each pinned by "
+          f"initialize_multihost: cards {[r['card'] for r in results]}, {results[0]['mesh']}; "
+          f"workers {spawn_s:.1f} s from spawn to exit")
+    print(f"dp_procs: segmentation at the separator's width, batch {DP_SEG_BATCH} x "
+          f"{DP_SEG_CROP} x {DP_SEG_CROP} ({DP_SEG_BATCH // world} per process), f32 against "
+          f"the in-process sharded step over {mesh.shape['data']} shards of the same cards, "
+          f"each step from the processes' start: losses relative "
+          f"{[f'{v:.3g}' for v in seg_gates['rel']]} (limit 1e-5), parameters "
+          f"{[f'{v:.3g}' for v in seg_gates['gaps']]} of their norm (limit {DP_PARAM_TOL}; "
+          f"worst leaf {[f'{v:.3g} ({k})' for v, k in seg_gates['leaf_gaps']]}); bf16: "
+          f"{[round(r, 3) for r in seg_rates]} steps/s per process (steps "
+          f"{DP_SEG_WARM + 1}-{DP_SEG_WARM + DP_SEG_TIMED}, wall, device-synced) beside the "
+          f"in-process {beside('segmentation', 'steps_per_s')} sharded and "
+          f"{beside('segmentation', 'unsharded_steps_per_s')} unsharded (dp_train); "
+          f"reduce_gradients {[round(run['reduce_ms'], 4) for run in seg]} ms per process "
+          f"(CUDA events, mean of 10, all_gather included) beside "
+          f"{beside('segmentation', 'reduce_ms', '.4f')} in process, over "
+          f"{seg[0]['gradients']} gradients per shard; K1 {69 * world} per step over all "
+          f"processes; replicas bit-equal across the processes after every step; bf16 losses "
+          f"{[round(v, 5) for v in seg[0]['losses']]}")
+    print(f"dp_procs: relation GNN, batch {DP_GNN_BATCH} ({DP_GNN_BATCH // world} per "
+          f"process), weight decay {DP_WEIGHT_DECAY}, EMA {DP_EMA_DECAY}; f32 against the "
+          f"in-process sharded step: losses relative {[f'{v:.3g}' for v in gnn_gates['rel']]}, "
+          f"parameters {[f'{v:.3g}' for v in gnn_gates['gaps']]}, EMA "
+          f"{[f'{v:.3g}' for v in gnn_gates['ema_gaps']]} of their norms; "
+          f"{[round(r, 3) for r in gnn_rates]} steps/s per process over {DP_GNN_TIMED} steps "
+          f"beside the in-process {beside('gnn', 'steps_per_s')} sharded and "
+          f"{beside('gnn', 'unsharded_steps_per_s')} unsharded (dp_train); replicas "
+          f"bit-equal after every step; launches over all processes {json.dumps(launches)}")
+    return {"launches": launches, "world": world, "backend": backend,
+            "seg_steps_per_s": seg_rates, "gnn_steps_per_s": gnn_rates,
+            "reduce_ms": [run["reduce_ms"] for run in seg],
+            "seg_rel": seg_gates["rel"], "seg_gaps": seg_gates["gaps"],
+            "gnn_rel": gnn_gates["rel"], "gnn_gaps": gnn_gates["gaps"]}
+
+
 def main() -> int:
     try:
         import torch
@@ -4979,7 +5486,7 @@ def main() -> int:
         seconds[label] = round(time.perf_counter() - t0, 1)
         return out
 
-    pipelined_row = None
+    pipelined_row = files_row = None
     try:
         dev = resolve_device("cuda")
         name, smi_line = timed("device", phase_device)
@@ -5003,12 +5510,16 @@ def main() -> int:
         orbax_row = timed("orbax", phase_orbax, dev)
         recipes_row = timed("recipes", phase_recipes, dev)
         dp_train_row = timed("dp_train", phase_dp_train, dev)
+        dp_procs_row = timed("dp_procs", phase_dp_procs, dev, dp_train_row)
+        timed("files (CPU check, wait)", cpu_check_finish, files_row["cpu_check"])
     except Fail as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     finally:
         if pipelined_row is not None:     # the parallel and spatial phases' corpus
             shutil.rmtree(pipelined_row["corpus"][0], ignore_errors=True)
+        if files_row is not None:         # its CPU-device check, if still running
+            cpu_check_stop(files_row["cpu_check"])
     print(f"phase seconds {json.dumps(seconds)}; all {sum(seconds.values()):.1f} s")
     kernels = [
         dict(name="conv3x3", route="cuda", source="citlab_as_tpu_torch/csrc/conv3x3.cu",
@@ -5029,7 +5540,8 @@ def main() -> int:
              launches_orbax=orbax_row["launches"]["conv3x3"],
              launches_orbax_resume=orbax_row["resume_launches"]["conv3x3"],
              launches_recipes=recipes_row["launches"]["conv3x3"],
-             launches_dp_train=dp_train_row["launches"]["conv3x3"], **k1_row),
+             launches_dp_train=dp_train_row["launches"]["conv3x3"],
+             launches_dp_procs=dp_procs_row["launches"]["conv3x3"], **k1_row),
         dict(name="separator_morphology", route="cuda",
              source="citlab_as_tpu_torch/csrc/separator_morphology.cu",
              replaces="citlab_as_tpu/ops/pallas/separator_morphology.py:125",
@@ -5049,7 +5561,8 @@ def main() -> int:
              launches_orbax=orbax_row["launches"]["separator_morphology"],
              launches_orbax_resume=orbax_row["resume_launches"]["separator_morphology"],
              launches_recipes=recipes_row["launches"]["separator_morphology"],
-             launches_dp_train=dp_train_row["launches"]["separator_morphology"], **k2_row),
+             launches_dp_train=dp_train_row["launches"]["separator_morphology"],
+             launches_dp_procs=dp_procs_row["launches"]["separator_morphology"], **k2_row),
     ]
     # ``launches``: the in-memory main path's count; ``launches_files``: the
     # files-to-files path's; ``launches_workflow``: the whole workflow's;
@@ -5092,12 +5605,18 @@ def main() -> int:
     # a mesh of every card (per mesh of n shards: K1 69 n per sharded and 69
     # per unsharded segmentation or ARU_v1 step, 3 f32 and 12 bf16
     # segmentation steps and 2 ARU_v1 steps of each; 3,519 on one card; the
-    # relation GNN's steps none; K2 none)
+    # relation GNN's steps none; K2 none); ``launches_dp_procs``: the
+    # processes' of the data-parallel train steps across processes (2 on
+    # one card, one per card on a machine of several), summed over them: K1
+    # 69 per process per segmentation step, 3 f32 and 12 bf16 (2,070 on one
+    # card, 4,140 on four), the relation steps none; K2 none. The main
+    # process's in-process steps that the processes are held to do not count
     keys = ("name", "route", "source", "replaces", "launches", "launches_files",
             "launches_workflow", "launches_pipelined", "launches_visual", "launches_formats",
             "launches_variants", "launches_blind", "launches_train", "launches_gt_eval",
             "launches_models", "launches_parallel", "launches_spatial", "launches_orbax",
-            "launches_orbax_resume", "launches_recipes", "launches_dp_train", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "launches_orbax_resume", "launches_recipes", "launches_dp_train",
+            "launches_dp_procs", "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     print(smi_line)
     print(json.dumps({"kernels": [{k: row[k] for k in keys} for row in kernels]}))
@@ -5107,4 +5626,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-check"]:           # the files phase's worker
+        sys.exit(cpu_check_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--dp-procs-worker"]:     # a dp_procs phase's process
+        sys.exit(dp_procs_worker(sys.argv[2], sys.argv[3]))
     sys.exit(main())

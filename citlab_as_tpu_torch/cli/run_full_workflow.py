@@ -363,7 +363,8 @@ def run_full_workflow_pipelined(image_paths: Sequence[str],
     fixpoints' readbacks, so one thread would run the shards one after
     another). The relation GNN runs over the mesh too, through a view of
     ``gnn_predictor`` (``RelationPredictor.over_mesh``), which is left as it
-    was. The written files are those of the unsharded driver."""
+    was. The written files are those of the unsharded driver. A mesh that
+    spans processes is refused by name: one process drives every shard."""
     from citlab_as_tpu_torch.inference import (
         RelationPredictor, SegmentationPredictor, ShardedSegmentationPredictor)
     from citlab_as_tpu_torch.pagexml.page import page_cache, page_cache_discard
@@ -379,6 +380,9 @@ def run_full_workflow_pipelined(image_paths: Sequence[str],
     from citlab_as_tpu_torch.utils.faults import SkippedPages
     from citlab_as_tpu_torch.utils.workers import PersistentPool
 
+    if mesh is not None:
+        from citlab_as_tpu_torch.parallel.mesh import one_process
+        one_process(mesh, "run_full_workflow_pipelined(mesh=...)")
     timings = timings if timings is not None else {}
     t_start = time.time()
     separator_model_path, heading_model_path, gnn_model_path = _model_paths(

@@ -35,6 +35,14 @@ def _mesh_for(device: str):
     return make_mesh([device])
 
 
+def _sharded_mesh(device: str):
+    """The ``--sharded`` run's mesh, refused by name where it spans
+    processes (a ``torch.distributed`` group is up): the stage drives every
+    shard from this process."""
+    from citlab_as_tpu_torch.parallel.mesh import one_process
+    return one_process(_mesh_for(device), "run_net_post_processing --sharded")
+
+
 def _run_sharded(procs, image_paths, batch_size, device_work, host_work):
     """The fused stage over a sharded predictor: each group of
     ``batch_size * len(procs)`` same-shape pages splits into consecutive
@@ -95,7 +103,7 @@ def main(argv: Optional[Sequence[str]] = None):
     if fixed_height is None:
         fixed_height = 900 if args.mode == "heading" else 1500
     if args.sharded:
-        predictor = ShardedSegmentationPredictor(weights, mesh=_mesh_for(args.device),
+        predictor = ShardedSegmentationPredictor(weights, mesh=_sharded_mesh(args.device),
                                                  dtype=torch.bfloat16)
     else:
         predictor = SegmentationPredictor(weights, dtype=torch.bfloat16,

@@ -180,8 +180,9 @@ class ShardedSegmentationPredictor(SegmentationPredictor):
     MAX_SHARD_BATCH = 7
 
     def __init__(self, model_path: Optional[str] = None, mesh=None, **kwargs):
-        from citlab_as_tpu_torch.parallel.mesh import make_mesh
-        mesh = mesh if mesh is not None else make_mesh()
+        from citlab_as_tpu_torch.parallel.mesh import make_mesh, one_process
+        mesh = one_process(mesh if mesh is not None else make_mesh(),
+                           "ShardedSegmentationPredictor")
         kwargs["device"] = mesh.data_devices[0]
         super().__init__(model_path, **kwargs)
         self._shard_over(mesh)
@@ -190,6 +191,8 @@ class ShardedSegmentationPredictor(SegmentationPredictor):
     def from_predictor(cls, predictor: SegmentationPredictor, mesh
                        ) -> "ShardedSegmentationPredictor":
         """Shard an already loaded predictor's net over ``mesh``."""
+        from citlab_as_tpu_torch.parallel.mesh import one_process
+        one_process(mesh, "ShardedSegmentationPredictor")
         sharded = cls.__new__(cls)
         sharded.model, sharded.pad_multiple = predictor.model, predictor.pad_multiple
         sharded.device = mesh.data_devices[0]
@@ -289,6 +292,9 @@ class RelationPredictor:
                  image_min_dimension: int = 600, image_max_dimension: int = 1024,
                  seed: int = 0, device: DeviceLike = "cuda", mesh=None, *,
                  model_dir: Optional[str] = None):
+        if mesh is not None:
+            from citlab_as_tpu_torch.parallel.mesh import one_process
+            one_process(mesh, "RelationPredictor")
         self.device = resolve_device(mesh.data_devices[0] if mesh is not None else device)
         self.model_path = jax_keyword(model_path, model_dir, "model_path", "model_dir")
         self.num_classes = num_classes
@@ -317,6 +323,8 @@ class RelationPredictor:
         """A view of this predictor that runs over ``mesh``: it shares the
         net once built, and keeps its own mesh, replicas and grow-only
         buckets, so this predictor is left as it was."""
+        from citlab_as_tpu_torch.parallel.mesh import one_process
+        one_process(mesh, "RelationPredictor")
         view = copy.copy(self)
         view.device = resolve_device(mesh.data_devices[0])
         view.mesh = mesh

@@ -431,6 +431,12 @@ class ARUNet(nn.Module):
             fmap = _each(weighted, *out_att, *out_det)
         return _each(lambda t: t.to(torch.float32), self.logit(fmap))
 
+    def predict(self, inputs: torch.Tensor) -> torch.Tensor:
+        """Probability maps [B, H, W, n_classes], float32: the softmax over
+        the class axis of :meth:`forward`'s logits (the JAX package's
+        ``ARUNet.predict``, the ``output:0`` contract)."""
+        return torch.softmax(self(inputs), dim=-1)
+
 
 def row_alignment(gp: Dict[str, Any]) -> int:
     """The row multiple ``A`` on which the shards of a height-sharded

@@ -485,6 +485,20 @@ class HeadingNetPostProcessor:
             page_guard(self.on_page_error, image_path, "heading", finish_one)
         _tick(phase, "classify+write", t0)
 
+    def fused_drain_finish(self, state, pages_by_path: dict,
+                           phase: Optional[Dict[str, float]] = None) -> None:
+        """Materialize + classify one group: :meth:`fused_materialize` of
+        :meth:`fused_drain_dispatch`'s state, then :meth:`fused_finish`."""
+        self.fused_finish(self.fused_materialize(state, phase), pages_by_path, phase)
+
+    def fused_drain(self, entry, pages_by_path: dict,
+                    phase: Optional[Dict[str, float]] = None) -> None:
+        """Drain one group of :meth:`fused_dispatch`: the per-line feature
+        programs, their readback, then classification and the XML write on
+        the host (on the device-SWT path only the per-line integers leave
+        the device). Writes each page's result into ``pages_by_path``."""
+        self.fused_drain_finish(self.fused_drain_dispatch(entry, phase), pages_by_path, phase)
+
     def run_batched_fused(self, batch_size: int = 4,
                           phase: Optional[Dict[str, float]] = None) -> List:
         """Fused device path: uint8 originals up, per-line integers (or, on

@@ -104,7 +104,11 @@ def make_sharded_train_step(replicas: Sequence[ARUNet], optimizer: Optimizer, me
     on its device, :func:`reduce_gradients` sums the gradients, and every
     replica takes the same optimizer update, so the replicas stay equal bit
     for bit. The loss comes back as a 0-d tensor on the first data
-    device."""
+    device. Over a mesh that spans processes (``parallel/mesh.py``) each
+    process passes its own replicas and states and its pieces of the
+    batch; the denominator, the gradients and the loss are summed over
+    every process's shards, so every process gets the whole batch's loss
+    and the same parameters."""
     devices = mesh.data_devices
     if len(replicas) != len(devices):
         raise ValueError(f"{len(replicas)} replicas for {len(devices)} data shards")

@@ -179,21 +179,24 @@ class TrainerGNN:
 
         The loss is the whole batch's: the shards' masked CE summed over the
         count of valid relations in every shard (counted before the
-        backward), plus the weight decay's L2 term once, on the first
-        shard's loss (the replicas' parameters are equal), not once per
-        shard. The gradients are summed by ``reduce_gradients`` (a
-        parameter no shard's loss reaches gets zeros, as under
-        ``jax.grad``), every replica takes the same update and its own EMA
-        update. Node-feature dropout draws from one generator per shard on
-        its device, seeded ``seed + shard``. The loss comes back as a 0-d
-        tensor on the first data device."""
+        backward), plus the weight decay's L2 term once, on global shard
+        0's loss (the replicas' parameters are equal), not once per shard.
+        The gradients are summed by ``reduce_gradients`` (a parameter no
+        shard's loss reaches gets zeros, as under ``jax.grad``), every
+        replica takes the same update and its own EMA update. Node-feature
+        dropout draws from one generator per shard on its device, seeded
+        ``seed + g`` for global shard g. The loss comes back as a 0-d tensor
+        on the first data device. Over a mesh that spans processes each
+        process passes its own replicas, states and pieces of the batch
+        (``mesh.local_rows`` are their global shards), and every process
+        gets the whole batch's loss and the same parameters."""
         weight_decay, ema_decay = self.flags["weight_decay"], self.flags["ema_decay"]
         devices = mesh.data_devices
         if len(replicas) != len(devices):
             raise ValueError(f"{len(replicas)} replicas for {len(devices)} data shards")
-        generators = [torch.Generator(device=dev).manual_seed(self.seed + i)
-                      for i, dev in enumerate(devices)]
-        decays = [weight_decay] + [0.0] * (len(devices) - 1)
+        generators = [torch.Generator(device=dev).manual_seed(self.seed + g)
+                      for g, dev in zip(mesh.local_rows, devices)]
+        decays = [weight_decay if g == 0 else 0.0 for g in mesh.local_rows]
 
         def shard_loss(model, params, batch, total, generator, decay):
             for p in params.values():

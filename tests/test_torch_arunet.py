@@ -190,3 +190,22 @@ def test_predictor_cpu_softmax_and_crop():
     assert [o.shape for o in out] == [(40, 50, 2)] * 2
     np.testing.assert_allclose(out[0].sum(-1), 1.0, rtol=1e-5)
     np.testing.assert_allclose(pred(images[1]), out[1], atol=1e-6)
+
+
+def test_predict_is_the_softmax_of_the_logits_as_in_flax():
+    """``ARUNet.predict``: the JAX package's ``ARUNet.predict(variables,
+    inputs)`` at tiny widths from the same (converted) random parameters,
+    the probabilities within 1e-5, float32, [B, H, W, n_classes]."""
+    gp = {"graph": "ARU", "featRoot": 4, "scale_space_num": 3, "res_depth": 1,
+          "num_scales_att": 2}
+    x = np.random.RandomState(11).rand(2, 40, 56, 1).astype(np.float32)
+    fm = FlaxARUNet(n_classes=3, graph_params=gp)
+    variables = jax.jit(fm.init)(jax.random.PRNGKey(4), jnp.asarray(x))
+    want = np.asarray(jax.jit(fm.predict)(variables, jnp.asarray(x)))
+    model = tarunet.ARUNet(n_classes=3, graph_params=gp)
+    model.load_state_dict(arunet_state_dict_from_flax(_flat(variables)))
+    with torch.no_grad():
+        got = model.eval().predict(torch.from_numpy(x))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (2, 40, 56, 3)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+    np.testing.assert_allclose(got.sum(-1).numpy(), 1.0, atol=1e-6)

@@ -255,3 +255,55 @@ def test_separator_then_heading_chained_in_place(tmp_path, predictors):
     assert sorted(head.line_features_by_page) == sorted(out_paths)
     with pytest.raises(ValueError):
         thead.HeadingNetPostProcessor(paths, tp, page_paths=out_paths[:1])
+
+
+@pytest.mark.parametrize("drain", ["fused_drain", "fused_drain_finish"])
+def test_fused_drain_per_group_writes_the_jax_stage_bytes(tmp_path, predictors, monkeypatch,
+                                                          drain):
+    """A caller that drives the stage group by group: ``fused_dispatch``
+    then ``fused_drain`` (or ``fused_drain_dispatch`` then
+    ``fused_drain_finish``) per same-shape group of 2 over 3 pages, in both
+    packages on the trained heading net; every written PAGE-XML byte-equal
+    (the clock frozen on both sides), every page in ``pages_by_path``."""
+    from citlab_as_tpu.pagexml import page as jpage
+    from citlab_as_tpu.stages.separator import SeparatorNetPostProcessor as JaxSeparator
+    from citlab_as_tpu_torch.pagexml import page as tpage
+    for mod in (jpage, tpage):
+        monkeypatch.setattr(mod, "_utc_now", lambda: "2024-01-02T03:04:05Z")
+    jp, tp = predictors["trained"]
+    roots = [str(tmp_path / "jax"), str(tmp_path / "port")]
+    paths = [_corpus(r, n=3) for r in roots]
+
+    jproc = jhead.HeadingNetPostProcessor(paths[0], jp, fixed_height=192)
+    jproc.use_device_swt = True
+    jpages, groups = {}, 0
+    for images, chunk in JaxSeparator.group_by_shape(paths[0], 2):
+        entry = jproc.fused_dispatch(images, chunk, 2)
+        if drain == "fused_drain":
+            jproc.fused_drain(entry, jpages)
+        else:
+            jproc.fused_drain_finish(jproc.fused_drain_dispatch(entry), jpages)
+        groups += 1
+
+    tproc = thead.HeadingNetPostProcessor(paths[1], tp, fixed_height=192)
+    tproc.use_device_swt = True
+    tpages = {}
+    for images, chunk in SeparatorNetPostProcessor.group_by_shape(paths[1], paths[1], 2):
+        entry = tproc.fused_dispatch(images, chunk)
+        if drain == "fused_drain":
+            tproc.fused_drain(entry, tpages)
+        else:
+            tproc.fused_drain_finish(tproc.fused_drain_dispatch(entry), tpages)
+
+    assert groups == 2
+    assert sorted(os.path.basename(p) for p in tpages) == sorted(
+        os.path.basename(p) for p in jpages) == ["hd0.png", "hd1.png", "hd2.png"]
+    assert all(isinstance(p, Page) for p in tpages.values())
+    for i in range(3):
+        with open(os.path.join(roots[0], "page", f"hd{i}.xml.xml"), "rb") as f:
+            want = f.read()
+        with open(os.path.join(roots[1], "page", f"hd{i}.xml.xml"), "rb") as f:
+            got = f.read()
+        assert got == want, i
+    assert any(v == "heading" for tags, _ in _tags(Page, roots[1], 3).values()
+               for v in tags.values())
